@@ -14,8 +14,9 @@
 //
 // Design: one block of 4 warps per 64 query rows of one (batch, head); each
 // warp owns 16 rows.  The block walks K/V in tiles of 64 keys through shared
-// memory.  Both products run on the tensor cores through the WMMA bf16
-// 16x16x16 fragments with f32 accumulation; between them each warp runs an
+// memory (rows padded against bank conflicts).  Both products run on the
+// tensor cores through the WMMA bf16 16x16x16 fragments with f32
+// accumulation; between them each warp runs an
 // online (running max and running sum) f32 softmax over its own rows, so no
 // logits leave the SM and no warp waits for another except at tile loads.
 // Numerics follow sdpa_xla: f32 logits times D^-1/2, max-subtracted f32
@@ -38,9 +39,21 @@ constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per tile
 constexpr int WARPS = BQ / 16;
 constexpr int THREADS = WARPS * 32;
-// Q, K, V tiles (bf16) + logits (f32) + weights (bf16): exactly 48 KB, the
-// dynamic shared memory a block gets without opting in.
-constexpr int SMEM_BYTES = (BQ * D + 2 * BK * D) * 2 + BQ * BK * 4 + BQ * BK * 2;
+// Shared-memory rows are padded by 16 bytes (8 bf16 / 4 f32), so the 8 rows
+// one fragment load touches start on different banks instead of all on
+// bank 0 (128- and 256-byte strides conflict 8 ways).  WMMA wants ldm a
+// multiple of 8 (bf16) / 4 (f32) and 32-byte aligned tile pointers; both
+// hold for 16-row tile offsets at these strides.
+constexpr int LDH = D + 8;    // bf16 tile row stride (elements); D == BK
+constexpr int LDF = BK + 4;   // f32 logits row stride (elements)
+// The Q tile is read once into registers, so the f32 logits tile reuses its
+// space: logits/Q (f32, 17 KB) + K, V, weights (bf16, 9 KB each) = 44 KB,
+// under the 48 KB a block gets without opting in.
+constexpr int S_BYTES = BQ * LDF * 4;
+constexpr int T_BYTES = BK * LDH * 2;
+constexpr int SMEM_BYTES = S_BYTES + 3 * T_BYTES;
+static_assert(BQ * LDH * 2 <= S_BYTES, "Q tile must fit in the logits tile");
+static_assert(SMEM_BYTES <= 48 * 1024, "over the default shared memory");
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -57,7 +70,8 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // Copy `rows` rows of 64 bf16 (starting at global row r0, of `limit` valid
-// rows) into shared memory, 16 bytes a thread; rows past `limit` are zeros.
+// rows) into shared memory rows of stride LDH, 16 bytes a thread; rows past
+// `limit` are zeros.
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src, int r0,
                                           int limit, int rows) {
@@ -68,7 +82,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r0 + r < limit)
       val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + col);
-    *reinterpret_cast<uint4*>(dst + r * D + col) = val;
+    *reinterpret_cast<uint4*>(dst + r * LDH + col) = val;
   }
 }
 
@@ -78,11 +92,11 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ o, int N, int M, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + BQ * D;
-  __nv_bfloat16* Vs = Ks + BK * D;
-  float* Ss = reinterpret_cast<float*>(Vs + BK * D);
-  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(Ss + BQ * BK);
+  float* Ss = reinterpret_cast<float*>(smem);
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);  // aliases Ss
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + S_BYTES);
+  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + S_BYTES + T_BYTES);
+  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(smem + S_BYTES + 2 * T_BYTES);
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
@@ -101,7 +115,7 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       qf[D / 16];
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wmma::load_matrix_sync(qf[kk], Qs + warp * 16 * D + kk * 16, D);
+    wmma::load_matrix_sync(qf[kk], Qs + warp * 16 * LDH + kk * 16, LDH);
 
   // per lane: running max / sum of each of the warp's 16 rows (uniform
   // across lanes) and the output columns `lane` and `lane + 32`
@@ -114,11 +128,13 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     o_r[r][1] = 0.f;
   }
 
-  float* S_w = Ss + warp * 16 * BK;           // this warp's logits rows
-  __nv_bfloat16* P_w = Ps + warp * 16 * BK;   // this warp's weight rows
+  float* S_w = Ss + warp * 16 * LDF;           // this warp's logits rows
+  __nv_bfloat16* P_w = Ps + warp * 16 * LDH;   // this warp's weight rows
 
   for (int k0 = 0; k0 < M; k0 += BK) {
-    __syncthreads();  // every warp is done with the previous K/V tile
+    // every warp is done with the previous K/V tile (and, on the first
+    // trip, with the Q tile under the logits)
+    __syncthreads();
     load_tile(Ks, kb, k0, M, BK);
     load_tile(Vs, vb, k0, M, BK);
     __syncthreads();
@@ -132,10 +148,10 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       for (int kk = 0; kk < D / 16; ++kk) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
                        wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, Ks + j * 16 * D + kk * 16, D);
+        wmma::load_matrix_sync(kf, Ks + j * 16 * LDH + kk * 16, LDH);
         wmma::mma_sync(sf, qf[kk], kf, sf);
       }
-      wmma::store_matrix_sync(S_w + j * 16, sf, BK, wmma::mem_row_major);
+      wmma::store_matrix_sync(S_w + j * 16, sf, LDF, wmma::mem_row_major);
     }
     __syncwarp();
 
@@ -144,14 +160,14 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     const bool in1 = k0 + lane + 32 < M;
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
-      const float s0 = in0 ? S_w[r * BK + lane] * scale : neg_inf;
-      const float s1 = in1 ? S_w[r * BK + lane + 32] * scale : neg_inf;
+      const float s0 = in0 ? S_w[r * LDF + lane] * scale : neg_inf;
+      const float s1 = in1 ? S_w[r * LDF + lane + 32] * scale : neg_inf;
       const float m_new = fmaxf(m_r[r], warp_max(fmaxf(s0, s1)));
       const float alpha = expf(m_r[r] - m_new);
       const float p0 = expf(s0 - m_new);
       const float p1 = expf(s1 - m_new);
-      P_w[r * BK + lane] = __float2bfloat16(p0);
-      P_w[r * BK + lane + 32] = __float2bfloat16(p1);
+      P_w[r * LDH + lane] = __float2bfloat16(p0);
+      P_w[r * LDH + lane + 32] = __float2bfloat16(p1);
       l_r[r] = l_r[r] * alpha + warp_sum(p0 + p1);
       m_r[r] = m_new;
       o_r[r][0] *= alpha;
@@ -170,17 +186,17 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                        wmma::row_major> pf;
         wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
                        wmma::row_major> vf;
-        wmma::load_matrix_sync(pf, P_w + j * 16, BK);
-        wmma::load_matrix_sync(vf, Vs + j * 16 * D + dd * 16, D);
+        wmma::load_matrix_sync(pf, P_w + j * 16, LDH);
+        wmma::load_matrix_sync(vf, Vs + j * 16 * LDH + dd * 16, LDH);
         wmma::mma_sync(acc, pf, vf, acc);
       }
-      wmma::store_matrix_sync(S_w + dd * 16, acc, BK, wmma::mem_row_major);
+      wmma::store_matrix_sync(S_w + dd * 16, acc, LDF, wmma::mem_row_major);
     }
     __syncwarp();
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
-      o_r[r][0] += S_w[r * BK + lane];
-      o_r[r][1] += S_w[r * BK + lane + 32];
+      o_r[r][0] += S_w[r * LDF + lane];
+      o_r[r][1] += S_w[r * LDF + lane + 32];
     }
     __syncwarp();
   }

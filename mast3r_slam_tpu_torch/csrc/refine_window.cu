@@ -19,11 +19,10 @@
 //
 // Design: one thread per source pixel walks every level, since each
 // pixel's pyramid is independent of the others.  Its own descriptor sits in
-// 6 registers; each candidate is 6 32-bit loads and 6 __dp4a.  The image
+// 6 registers; each candidate is 3 8-byte loads and 6 __dp4a.  The image
 // (4.7 MB) stays in the 50 MB L2, so the repeated candidate reads are L2
 // hits and device memory sees each byte about once.  Simple and right first;
-// it is L2-latency bound, and vector loads or a shared-memory window come
-// later.
+// a shared-memory window per block comes later.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -31,7 +30,7 @@
 
 namespace {
 
-constexpr int MAX_WORDS = 16;  // F <= 64 int8 values
+constexpr int MAX_WORDS = 16;  // F <= 64 int8 values, in 32-bit words
 constexpr int THREADS = 256;
 
 __global__ void __launch_bounds__(THREADS)
@@ -49,6 +48,9 @@ refine_window_kernel(const int8_t* __restrict__ d11,
   const int* src = reinterpret_cast<const int*>(d21 + t * F);
 #pragma unroll
   for (int w = 0; w < MAX_WORDS; ++w) a[w] = (w < words) ? __ldg(src + w) : 0;
+  // rows are read 8 bytes a load where F % 8 == 0 (F = 24: 3 loads, not 6;
+  // a 24-byte row is 8-byte aligned but not 16-byte aligned)
+  const bool pairs = (F % 8) == 0;
 
   const int8_t* img = d11 + (int64_t)b * H * W * F;
   const int start = idx_in[t];
@@ -66,12 +68,24 @@ refine_window_kernel(const int8_t* __restrict__ d11,
         const int uu = u0 + (kx - radius) * d;
         int score = INT_MIN;
         if (row_in && uu >= 0 && uu < W) {
-          const int* row = reinterpret_cast<const int*>(
-              img + ((int64_t)vv * W + uu) * F);
+          const int8_t* row = img + ((int64_t)vv * W + uu) * F;
           int acc = 0;
+          if (pairs) {
+            const int2* row2 = reinterpret_cast<const int2*>(row);
 #pragma unroll
-          for (int w = 0; w < MAX_WORDS; ++w)
-            if (w < words) acc = __dp4a(__ldg(row + w), a[w], acc);
+            for (int w = 0; w < MAX_WORDS / 2; ++w) {
+              if (2 * w < words) {
+                const int2 x = __ldg(row2 + w);
+                acc = __dp4a(x.x, a[2 * w], acc);
+                acc = __dp4a(x.y, a[2 * w + 1], acc);
+              }
+            }
+          } else {
+            const int* row1 = reinterpret_cast<const int*>(row);
+#pragma unroll
+            for (int w = 0; w < MAX_WORDS; ++w)
+              if (w < words) acc = __dp4a(__ldg(row1 + w), a[w], acc);
+          }
           score = acc;
         }
         const int k = ky * diam + kx;

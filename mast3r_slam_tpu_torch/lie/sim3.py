@@ -13,7 +13,6 @@ import math
 import torch
 
 DIM = 8
-TANGENT_DIM = 7
 
 _EPS = 1e-6
 _EXP_SQUARINGS = 7  # argument scaled by 2^-7 before the Taylor leg
@@ -54,23 +53,6 @@ def quat_act(q, v):
     qw = q[..., 3:4]
     uv = 2.0 * _cross(qv, v)
     return v + qw * uv + _cross(qv, uv)
-
-
-def quat_to_matrix(q):
-    """(..., 4) -> (..., 3, 3)."""
-    x, y, z, w = q.unbind(-1)
-    xx, yy, zz = x * x, y * y, z * z
-    xy, xz, yz = x * y, x * z, y * z
-    wx, wy, wz = w * x, w * y, w * z
-    m = torch.stack(
-        [
-            1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
-            2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
-            2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
-        ],
-        dim=-1,
-    )
-    return m.reshape(m.shape[:-1] + (3, 3))
 
 
 # ---------------------------------------------------------------------------
@@ -136,16 +118,6 @@ def rel(Ti, Tj):
     tij = si_inv * quat_act(qi_inv, t_of(Tj) - t_of(Ti))
     sij = si_inv * s_of(Tj)
     return make(tij, qij, sij)
-
-
-def matrix(T):
-    """(..., 8) -> (..., 4, 4) with sR in the upper-left block."""
-    R = quat_to_matrix(q_of(T))
-    sR = s_of(T)[..., None] * R
-    t = t_of(T)[..., None]
-    top = torch.cat([sR, t], dim=-1)
-    bottom = T.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(top.shape[:-2] + (1, 4))
-    return torch.cat([top, bottom], dim=-2)
 
 
 # ---------------------------------------------------------------------------

@@ -41,6 +41,8 @@ def sdpa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
             raise ValueError(f"sdpa_cuda: {name} is not contiguous")
         if t.device != q.device:
             raise ValueError("sdpa_cuda: q, k, v are on different devices")
+        if t.data_ptr() % 16:  # rows are read 16 bytes a load
+            raise ValueError(f"sdpa_cuda: {name} is not 16-byte aligned")
     B, H, N, _ = q.shape
     M = k.shape[2]
     if k.shape != (B, H, M, HEAD_DIM) or v.shape != k.shape:

@@ -68,6 +68,8 @@ def refine_window_cuda(D11q, D21q, idx, H: int, W: int, radius: int,
             raise ValueError(f"refine_window_cuda: {name} is not contiguous")
         if t.device != idx.device:
             raise ValueError("refine_window_cuda: inputs are on different devices")
+        if dt == torch.int8 and t.data_ptr() % 8:  # rows read 4 or 8 bytes a load
+            raise ValueError(f"refine_window_cuda: {name} is not 8-byte aligned")
     if D11q.ndim != 3 or D21q.ndim != 3 or idx.ndim != 2:
         raise ValueError("refine_window_cuda: expected D11q (B, H*W, F), "
                          "D21q (B, N, F), idx (B, N)")

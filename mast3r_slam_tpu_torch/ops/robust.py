@@ -1,4 +1,5 @@
-"""Robust IRLS weights (port of ``mast3r_slam_tpu/ops/robust.py``)."""
+"""Robust IRLS weight (port of ``mast3r_slam_tpu/ops/robust.py``; the
+tracker uses Huber only)."""
 
 from __future__ import annotations
 
@@ -12,9 +13,3 @@ def huber_weight(r: torch.Tensor, k: float = 1.345) -> torch.Tensor:
     r_safe = torch.where(inside, torch.full_like(r_abs, k), r_abs)
     return torch.where(inside, torch.ones_like(r_abs), k / r_safe)
 
-
-def tukey_weight(r: torch.Tensor, t: float = 4.6851) -> torch.Tensor:
-    """(1 - (r/t)^2)^2 inside |r| < t, 0 outside."""
-    r_abs = r.abs()
-    tmp = 1.0 - torch.square(r_abs / t)
-    return torch.where(r_abs < t, tmp * tmp, torch.zeros_like(tmp))

@@ -10,7 +10,6 @@ every write.  Capacity doubles when it runs out.
 from __future__ import annotations
 
 import dataclasses
-import threading
 from enum import IntEnum
 from typing import Optional
 
@@ -173,8 +172,6 @@ class Keyframes:
         self.num_pixels = num_pixels
         self.device = torch.device(device)
         self.n = 0
-        self.lock = threading.RLock()
-        self.generation = 0
         dev = self.device
         self.frame_id = np.full((capacity,), -1, dtype=np.int64)
         self.T_WC = sim3.identity((capacity,), dtype=dtype, device=dev)
@@ -192,12 +189,11 @@ class Keyframes:
         return self.n
 
     def append(self, frame: Frame) -> int:
-        with self.lock:
-            idx = self.n
-            self._ensure_capacity(idx + 1)
-            self.set_frame(idx, frame)
-            self.n = idx + 1
-            return idx
+        idx = self.n
+        self._ensure_capacity(idx + 1)
+        self.set_frame(idx, frame)
+        self.n = idx + 1
+        return idx
 
     def _ensure_capacity(self, needed: int):
         """Double the store (copying it) when ``needed`` slots do not fit."""
@@ -225,63 +221,31 @@ class Keyframes:
         self.capacity = new_cap
 
     def set_frame(self, idx: int, frame: Frame):
-        with self.lock:
-            self.frame_id[idx] = frame.frame_id
-            self.T_WC[idx] = frame.T_WC.to(self.T_WC)
-            self.X[idx] = frame.X_canon.to(self.X)
-            self.C[idx] = frame.C.to(self.C)
-            self.n_fused[idx] = int(frame.n_fused)
-            self.n_updates[idx] = int(frame.n_updates)
-            self.score[idx] = float(frame.score)
-            self.feat[idx] = frame.feat[0].to(self.feat)
-            self.pos[idx] = frame.pos[0].to(self.pos)
-            self.uimgs[idx] = frame.uimg
-
-    def get_frame(self, idx: int) -> Frame:
-        with self.lock:
-            return Frame(
-                frame_id=int(self.frame_id[idx]),
-                img=None,
-                T_WC=self.T_WC[idx].clone(),
-                X_canon=self.X[idx].clone(),
-                C=self.C[idx].clone(),
-                n_fused=int(self.n_fused[idx]),
-                n_updates=int(self.n_updates[idx]),
-                score=float(self.score[idx]),
-                feat=self.feat[idx][None].clone(),
-                pos=self.pos[idx][None].clone(),
-                K=self.K,
-                uimg=self.uimgs[idx],
-            )
-
-    def pop_last(self):
-        with self.lock:
-            self.n -= 1
-            self.generation += 1
+        self.frame_id[idx] = frame.frame_id
+        self.T_WC[idx] = frame.T_WC.to(self.T_WC)
+        self.X[idx] = frame.X_canon.to(self.X)
+        self.C[idx] = frame.C.to(self.C)
+        self.n_fused[idx] = int(frame.n_fused)
+        self.n_updates[idx] = int(frame.n_updates)
+        self.score[idx] = float(frame.score)
+        self.feat[idx] = frame.feat[0].to(self.feat)
+        self.pos[idx] = frame.pos[0].to(self.pos)
+        self.uimgs[idx] = frame.uimg
 
     def last_idx(self) -> int:
         return self.n - 1
 
-    def update_pose(self, idx: int, T_WC):
-        with self.lock:
-            self.T_WC[idx] = T_WC
-
-    def update_pointmap(self, idx: int, X, C, n_fused, n_updates=None, score=None):
-        with self.lock:
-            self.X[idx] = X
-            self.C[idx] = C
-            self.n_fused[idx] = n_fused
-            if n_updates is not None:
-                self.n_updates[idx] = n_updates
-            if score is not None:
-                self.score[idx] = score
+    def update_pointmap(self, idx: int, X, C, n_fused, n_updates, score):
+        """The tracker's per-frame commit of the keyframe's fused state."""
+        self.X[idx] = X
+        self.C[idx] = C
+        self.n_fused[idx] = n_fused
+        self.n_updates[idx] = n_updates
+        self.score[idx] = score
 
     def slices(self, idx: int):
-        """(X, C, n_fused, n_updates, score, T_WC, feat[None], pos[None]) at idx."""
-        with self.lock:
-            return (self.X[idx], self.C[idx], self.n_fused[idx], self.n_updates[idx],
-                    self.score[idx], self.T_WC[idx], self.feat[idx][None],
-                    self.pos[idx][None])
-
-    def average_conf(self, idx: int):
-        return self.C[idx] / torch.clamp_min(self.n_fused[idx].to(self.C.dtype), 1.0)
+        """(X, C, n_fused, n_updates, score, T_WC, feat[None], pos[None]) at
+        idx: views into the store, which ``update_pointmap`` overwrites."""
+        return (self.X[idx], self.C[idx], self.n_fused[idx], self.n_updates[idx],
+                self.score[idx], self.T_WC[idx], self.feat[idx][None],
+                self.pos[idx][None])

@@ -77,7 +77,7 @@ class SLAM:
         self.n_reloc = 0
         self.n_reloc_success = 0
         self.frame_log: List[tuple] = []  # (timestamp, T_WC np (8,))
-        self.timer = StageTimer(sync=False)
+        self.timer = StageTimer()
 
     # ------------------------------------------------------------------
 

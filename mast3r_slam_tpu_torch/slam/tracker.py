@@ -181,8 +181,6 @@ def _track_compute(
     ])
     return dict(
         idx_f2k=idx_f2k,
-        match_valid=valid_match,
-        match_Q=Qk,
         frame_X=frame_X,
         frame_C=frame_C,
         kf_X=kX,

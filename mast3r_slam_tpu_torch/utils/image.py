@@ -36,11 +36,6 @@ def _scharr(img: torch.Tensor, h_dim: int, w_dim: int):
     return gx, gy
 
 
-def img_gradient(img: torch.Tensor):
-    """Scharr x/y gradients of (..., C, H, W) -> (gx, gy), same shape."""
-    return _scharr(img, -2, -1)
-
-
 def img_gradient_nhwc(img: torch.Tensor):
     """Scharr x/y gradients of (..., H, W, C) -> (gx, gy), same shape."""
     return _scharr(img, -3, -2)

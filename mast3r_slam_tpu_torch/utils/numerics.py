@@ -15,9 +15,6 @@ def vnorm(x: torch.Tensor, dim: int = -1, keepdim: bool = True) -> torch.Tensor:
     return torch.sqrt(torch.sum(x * x, dim=dim, keepdim=keepdim))
 
 
-def vnormalize(x: torch.Tensor, dim: int = -1, eps=None) -> torch.Tensor:
-    """x / ||x||, with an optional floor on the norm."""
-    n = vnorm(x, dim=dim, keepdim=True)
-    if eps is not None:
-        n = torch.clamp_min(n, eps)
-    return x / n
+def vnormalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """x / ||x||."""
+    return x / vnorm(x, dim=dim, keepdim=True)

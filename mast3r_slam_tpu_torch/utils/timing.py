@@ -1,8 +1,8 @@
 """Per-stage wall-clock timing (port of ``mast3r_slam_tpu/utils/timing.py``).
 
-CUDA work is asynchronous: with ``sync=True`` a stage ends with
-``torch.cuda.synchronize`` on the device of the tensor it produced, so the
-time covers the device work and not only its enqueue.
+Host clock only: CUDA work is asynchronous, so a stage's time covers its
+device work only where the stage itself waits for the device (a tracked
+frame ends in its stats read).
 """
 
 from __future__ import annotations
@@ -13,39 +13,19 @@ from contextlib import contextmanager
 from typing import Dict
 
 import numpy as np
-import torch
-
-
-def fence(x) -> None:
-    """Wait for the device work that produced ``x`` (a tensor or a nest of them)."""
-    if isinstance(x, torch.Tensor):
-        if x.is_cuda:
-            torch.cuda.synchronize(x.device)
-        return
-    if isinstance(x, dict):
-        x = list(x.values())
-    if isinstance(x, (list, tuple)):
-        for v in x:
-            fence(v)
 
 
 class StageTimer:
     """Accumulates wall time per named stage in bounded windows."""
 
-    def __init__(self, window: int = 120, sync: bool = True):
+    def __init__(self, window: int = 120):
         self.window = window
-        self.sync = sync
         self.samples: Dict[str, list] = defaultdict(list)
 
     @contextmanager
     def time(self, name: str):
-        """Time the block; set ``out["result"]`` inside it to fence on that
-        result before the clock stops (when ``sync``)."""
         t0 = time.perf_counter()
-        out = {}
-        yield out
-        if self.sync and "result" in out:
-            fence(out["result"])
+        yield
         dt = time.perf_counter() - t0
         buf = self.samples[name]
         buf.append(dt)

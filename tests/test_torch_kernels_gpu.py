@@ -67,6 +67,9 @@ def test_attention_kernel_refuses_other_inputs(cuda):
     q = torch.zeros(1, 1, 64, 128, device=cuda, dtype=torch.bfloat16)[..., ::2]
     with pytest.raises(ValueError, match="contiguous"):
         attention.sdpa(q, q, q)
+    q = torch.zeros(1 * 64 * 64 + 1, device=cuda, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        attention.sdpa(*(q.view(1, 1, 64, 64),) * 3)
 
 
 def _refine_inputs(B, H, W, F, device, seed):
@@ -86,7 +89,8 @@ def _refine_inputs(B, H, W, F, device, seed):
     return d11q, d21q, torch.from_numpy(idx).to(device)
 
 
-@pytest.mark.parametrize("B,H,W,F", [(2, 24, 32, 24), (1, 384, 512, 24), (1, 16, 20, 8)])
+@pytest.mark.parametrize("B,H,W,F", [(2, 24, 32, 24), (1, 384, 512, 24), (1, 16, 20, 8),
+                                     (1, 16, 20, 12)])  # F % 8 != 0: 4-byte loads
 @pytest.mark.parametrize("radius,dil", [(3, 5), (1, 1)])
 def test_refine_kernel_matches_plain_exactly(cuda, B, H, W, F, radius, dil):
     d11q, d21q, idx = _refine_inputs(B, H, W, F, cuda, seed=H + radius)
@@ -102,4 +106,7 @@ def test_refine_kernel_refuses_other_inputs(cuda):
     d = torch.zeros(1, 16, 6, device=cuda, dtype=torch.int8)  # F % 4 != 0
     idx = torch.zeros(1, 16, device=cuda, dtype=torch.int32)
     with pytest.raises(ValueError, match="F % 4"):
+        refine.refine_window(d, d, idx, 4, 4, 1, 1)
+    d = torch.zeros(16 * 8 + 4, device=cuda, dtype=torch.int8)[4:].view(1, 16, 8)
+    with pytest.raises(ValueError, match="aligned"):
         refine.refine_window(d, d, idx, 4, 4, 1, 1)

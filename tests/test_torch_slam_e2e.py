@@ -24,22 +24,25 @@ HW = (48, 64)
 N_FRAMES = 8
 
 
-@pytest.fixture(scope="module")
-def runs():
+@pytest.fixture(scope="module", params=["base", "eval_calib"])
+def runs(request):
+    """Uncalibrated, and calibrated with the oracle camera's K."""
     gt = arc_trajectory(N_FRAMES, radius=0.6, max_angle=2.5)
-    oracle = OracleModel(PlaneScene(HW), gt, noise=0.002)
+    scene = PlaneScene(HW)
+    oracle = OracleModel(scene, gt, noise=0.002)
+    K = scene.K if request.param == "eval_calib" else None
 
-    jcfg = jload_config("base")
+    jcfg = jload_config(request.param)
     jcfg["single_thread"] = True
     jcfg["engine"]["keyframe_buffer"] = 16
     jcfg["engine"]["edge_buffer"] = 16
-    jslam = JSLAM(oracle, jcfg, HW)
+    jslam = JSLAM(oracle, jcfg, HW, K=K)
     jslam._submit_backend = lambda *a, **k: None
     jres = jslam.run(OracleDataset(N_FRAMES, HW), verbose=False)
 
-    cfg = load_config("base")
+    cfg = load_config(request.param)
     cfg["single_thread"] = True
-    tslam = SLAM(TorchOracleModel(oracle), cfg, HW, keyframe_buffer=16, device=CPU)
+    tslam = SLAM(TorchOracleModel(oracle), cfg, HW, K=K, keyframe_buffer=16, device=CPU)
     tres = tslam.run(OracleDataset(N_FRAMES, HW), verbose=False)
     return jslam, jres, tslam, tres, gt
 

@@ -120,15 +120,19 @@ def oracle_pair():
         np.asarray(Xk, np.float32).reshape(N, 3), np.asarray(Ck, np.float32).reshape(N, 1), gt
 
 
-@pytest.mark.parametrize("mode", ["weighted_pointmap", "best_score"])
-def test_track_compute_parity(oracle_pair, mode):
+@pytest.mark.parametrize("config,mode", [("base", "weighted_pointmap"),
+                                         ("base", "best_score"),
+                                         ("eval_calib", "weighted_pointmap")])
+def test_track_compute_parity(oracle_pair, config, mode):
+    """Uncalibrated (ray + distance) and calibrated (pixel + log-depth)."""
     preds, Xk, Ck, gt = oracle_pair
-    cfg = jload_config("base")
+    cfg = jload_config(config)
     cfg["tracking"]["filtering_mode"] = mode
     ts_j = jtracker.TrackerSettings.from_config(cfg)
-    tcfg = load_config("base")
+    tcfg = load_config(config)
     tcfg["tracking"]["filtering_mode"] = mode
     ts_t = ttracker.TrackerSettings.from_config(tcfg)
+    assert ts_t.use_calib == (config == "eval_calib")
 
     T_WCk = gt[2]
     T_WCf = gt[2]  # warm start from the keyframe pose, as after a keyframe
@@ -136,18 +140,17 @@ def test_track_compute_parity(oracle_pair, mode):
     frame_state = (np.zeros((N, 3), np.float32), np.zeros((N, 1), np.float32), 0, 0,
                    np.float32(-np.inf))
     kf_state = (Xk, Ck, 1, 1, np.float32(-np.inf))
-    eye = np.eye(3, dtype=np.float32)
+    Kc = PlaneScene(HW).K  # the oracle camera (used when calibrated)
     out_j = jtracker._track_compute(
         ts_j, HW, *(jnp.asarray(a) for a in preds),
         *(jnp.asarray(a) for a in frame_state), *(jnp.asarray(a) for a in kf_state),
-        jnp.asarray(T_WCf), jnp.asarray(T_WCk), jnp.asarray(idx0), jnp.asarray(eye))
+        jnp.asarray(T_WCf), jnp.asarray(T_WCk), jnp.asarray(idx0), jnp.asarray(Kc))
     out_t = ttracker._track_compute(
         ts_t, HW, *(t(a) for a in preds),
         *(t(np.asarray(a)) for a in frame_state), *(t(np.asarray(a)) for a in kf_state),
-        t(T_WCf), t(T_WCk), t(idx0), t(eye))
+        t(T_WCf), t(T_WCk), t(idx0), t(Kc))
 
     np.testing.assert_array_equal(n(out_t["idx_f2k"]), np.asarray(out_j["idx_f2k"]))
-    np.testing.assert_array_equal(n(out_t["match_valid"]), np.asarray(out_j["match_valid"]))
     sj, st = np.asarray(out_j["stats"]), n(out_t["stats"])
     assert_close(st[:3], sj[:3], 0, 1.0 / N, "match fractions")
     assert st[3] == sj[3] == 1.0, "GN ok"
@@ -158,8 +161,9 @@ def test_track_compute_parity(oracle_pair, mode):
     for key in ("frame_X", "frame_C", "kf_C"):
         assert_close(out_t[key], out_j[key], 1e-5, 1e-5, key)
     assert_close(out_t["kf_X"], out_j["kf_X"], 1e-4, 1e-4, "kf_X (through T_CkCf)")
-    # the tracked pose is the ground truth's, to the oracle noise
-    assert_close(st[8:11], gt[3][:3], 0, 0.02, "pose vs ground truth")
+    # the tracked pose is the ground truth's to the matcher's floor: one pixel
+    # at 48x64 is ~4 cm of parallax at scene depth
+    assert_close(st[8:11], gt[3][:3], 0, 0.03, "pose vs ground truth")
 
 
 def test_tracker_settings_refuse_unported_paths():
@@ -181,8 +185,10 @@ def test_keyframe_store_append_and_grow():
                           n_fused=1, n_updates=1, feat=torch.full((1, 3, 4), float(i)),
                           pos=torch.zeros(1, 3, 2, dtype=torch.int32))
         kf.append(fr)
-    assert kf.capacity == 8 and len(kf) == 5
-    g = kf.get_frame(3)
-    assert g.frame_id == 3 and float(g.X_canon[0, 0]) == 3.0 and float(g.T_WC[2]) == 3.0
-    kf.pop_last()
-    assert kf.last_idx() == 3
+    assert kf.capacity == 8 and len(kf) == 5 and kf.last_idx() == 4
+    # slots written before each doubling survived it
+    assert list(kf.frame_id[:6]) == [0, 1, 2, 3, 4, -1]
+    X, C, nf, nu, sc, T, feat, pos = kf.slices(3)
+    assert float(X[0, 0]) == 3.0 and float(T[2]) == 3.0 and float(feat[0, 0, 0]) == 3.0
+    assert int(nf) == 1 and int(nu) == 1 and float(sc) == float("-inf")
+    assert float(kf.score[7]) == float("-inf") and float(kf.T_WC[7, 6]) == 1.0
