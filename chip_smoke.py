@@ -11,17 +11,24 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      parallel);
   2. each kernel against its plain PyTorch version at the main path's
      shapes (attention (1,16,768,64) and (1,12,768,64) bf16; refine at
-     384x512, F=24, radius/dilation (3,5) and (1,1), exactly equal), timed
-     with CUDA events beside the plain version and, where one exists, the
-     PyTorch library call;
+     384x512, F=24, radius/dilation (3,5) and (1,1), exactly equal; the
+     edge blocks at 32 edges x 384*512 pixels f32), timed with CUDA events
+     beside the plain version and, where one exists, the PyTorch library
+     call;
   3. a small bf16 model on the card (kernels) against the same model on the
      CPU (plain versions);
   4. ViT-L at 384x512 with seeded random weights, bf16 trunk and f32 heads,
      TF32 off: encode, mono (INIT), then FrameTracker.track on a few frames,
      with the launch counters reset just before and read just after;
   5. SLAM.run over a synthetic plane scene at 384x512 with a known
-     trajectory (a stand-in model with the encode/asymmetric/mono
-     protocol), the trajectory held to a bound.
+     trajectory (a stand-in model with the encode/asymmetric/symmetric/mono
+     protocol), the backend's solves included, the trajectory held to a
+     bound;
+  6. the backend at full width: the global Gauss-Newton on a synthetic
+     16-keyframe rays problem at 384x512 (32 two-way edges) held to its
+     ground truth, and one ViT-L backend task (three keyframes,
+     FactorGraph.add_factors([1], [2]), FactorGraph.solve()) with the
+     launch counters reset just before and read just after.
 
 Phase 4 ends with a torch.profiler breakdown of one more ViT-L tracked
 frame (device time by kernel, launches, device busy share).  It prints one
@@ -45,11 +52,21 @@ import numpy as np
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
 
 ATTN_MAX_ERR = 2.0 ** -6   # 2 bf16 ulps at magnitude 2: the kernel rounds the
 ATTN_MEAN_ERR = 2e-3       # softmax weights before normalising, sdpa_xla after
 SMALL_MODEL_RTOL = 0.1     # bf16 card path vs bf16 CPU path, relative L2
 TRAJ_BOUND_M = 0.005       # synthetic scene: Sim(3)-aligned frame RMSE, metres
+EDGE_HG_REL = 1e-3         # edge blocks vs plain: max |diff| / max |plain|.  Each
+#                            entry sums 786k f32 terms; the plain product's long
+#                            reductions drift ~1e-4 (both are also printed
+#                            against the plain version evaluated in float64)
+SOLVE_BOUND_M = 1e-3       # full-width synthetic solve: max translation error, m
+# flops of one pixel-edge in csrc/edge_hg_rays.cu, counted from the source:
+# transform 21, norms and unit rays 24, residuals and dr/dP 19, weights 22,
+# four rows of 8 products and 36 FMAs into the accumulator 320
+EDGE_HG_FLOPS = 406
 N_TRACKED = 5              # ViT-L tracked frames
 
 
@@ -62,6 +79,14 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sync(dev) -> None:
+    """Wait for the card (a no-op in a CPU rehearsal)."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def time_cuda(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -171,6 +196,59 @@ def check_refine(dev):
     return res
 
 
+def edge_hg_inputs(dev, E, N, seed):
+    """Edges whose j-points map near their i-points (residuals on both sides
+    of the Huber threshold), a fifth of the pixels invalid (sq = 0)."""
+    import torch
+    from mast3r_slam_tpu_torch.lie import sim3
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xi = 0.2 * torch.randn(E, 7, device=dev, generator=g)
+    Tij = sim3.exp(xi)
+    Xi = torch.randn(E, N, 3, device=dev, generator=g)
+    Xi[..., 2] = Xi[..., 2].abs() + 2.0
+    Xj = sim3.act(sim3.inv(Tij)[:, None, :], Xi)
+    Xj = Xj + 0.01 * torch.randn(Xj.shape, device=dev, generator=g)
+    q = 1.5 + 1.5 * torch.rand(E, N, device=dev, generator=g)
+    keep = torch.rand(E, N, device=dev, generator=g) > 0.2
+    sq = torch.sqrt(q) * keep
+    return Tij.contiguous(), Xi.contiguous(), Xj.contiguous(), sq.contiguous()
+
+
+def check_edge_hg(dev, E=32, N=384 * 512):
+    import torch
+    from mast3r_slam_tpu_torch.ops import edge_hg
+
+    Tij, Xi, Xj, sq = edge_hg_inputs(dev, E, N, seed=11)
+    kw = dict(sigma_ray=0.003, sigma_dist=10.0, huber_k=1.345)
+    got = edge_hg.edge_hg_rays(Tij, Xi, Xj, sq, **kw)
+    want = edge_hg.edge_hg_rays_plain(Tij, Xi, Xj, sq, **kw)
+    torch.cuda.synchronize()
+    max_err = (got - want).abs().max().item()
+    rel = max_err / want.abs().max().item()
+    if not (torch.isfinite(got).all() and rel <= EDGE_HG_REL):
+        raise AssertionError(f"edge blocks ({E}, {N}): max |diff| {max_err}, "
+                             f"relative {rel} (bound {EDGE_HG_REL})")
+    exact = edge_hg.edge_hg_rays_plain(Tij.double(), Xi.double(), Xj.double(),
+                                       sq.double(), **kw)
+    scale = exact.abs().max().item()
+    f64 = {k: ((v.double() - exact).abs().max().item() / scale)
+           for k, v in (("kernel", got), ("plain_f32", want))}
+    log(f"edge blocks against the plain version in float64, max |diff| / max: {f64}")
+    del exact
+    ms = time_cuda(lambda: edge_hg.edge_hg_rays(Tij, Xi, Xj, sq, **kw))
+    plain_ms = time_cuda(lambda: edge_hg.edge_hg_rays_plain(Tij, Xi, Xj, sq, **kw),
+                         iters=3, warmup=1)
+    nbytes = E * N * 28 + E * 8 * 4 + E * 64 * 4  # Xi, Xj, sq, Tij in; Mloc out
+    t_ops, t_bytes = E * N * EDGE_HG_FLOPS / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    res = dict(shape=[E, N], max_abs_err=max_err, rel_err=rel, rel_err_f64=f64,
+               ms=ms, plain_ms=plain_ms,
+               library_ms=None, bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    log(f"edge blocks ({E} edges, {N} px) f32: {json.dumps(res)}")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 3: a small model, kernels on the card against plain on the CPU
 # ---------------------------------------------------------------------------
@@ -226,22 +304,20 @@ def smooth_images(n, hw, dev, seed):
     return img * 2 - 1
 
 
-def profile_frame(dev, model, tracker, img, T, top=25):
-    """torch.profiler over one tracked frame (encode + track): the kernels
-    with the most device time, the launch count, and the device's busy time
-    against the wall time (which the profiler itself lengthens)."""
+def profile(label, fn, top=25):
+    """torch.profiler over one call of ``fn``: the kernels with the most
+    device time, the launch count, and the device's busy time against the
+    wall time (which the profiler itself lengthens)."""
     from collections import defaultdict
 
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from mast3r_slam_tpu_torch.slam.frame import Frame
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        feat, pos = model.encode(img)
-        tracker.track(Frame(frame_id=1, img=img[0], T_WC=T, feat=feat, pos=pos))
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -251,17 +327,28 @@ def profile_frame(dev, model, tracker, img, T, top=25):
         per_name[e.name][0] += e.time_range.elapsed_us() / 1e3
         per_name[e.name][1] += 1
     busy_ms = sum(v[0] for v in per_name.values())
-    log(f"profile of one tracked frame: wall {wall_ms:.3f} ms (profiler on), "
+    log(f"profile of {label}: wall {wall_ms:.3f} ms (profiler on), "
         f"{len(kernels)} kernel launches, device busy {busy_ms:.3f} ms = "
         f"{busy_ms / wall_ms:.3f} of wall")
     for name, (ms, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"  {ms:9.3f} ms  x{n:5d}  {name[:110]}")
 
 
+def profile_frame(model, tracker, img, T):
+    """The profile of one tracked frame (encode + track)."""
+    from mast3r_slam_tpu_torch.slam.frame import Frame
+
+    def frame():
+        feat, pos = model.encode(img)
+        tracker.track(Frame(frame_id=1, img=img[0], T_WC=T, feat=feat, pos=pos))
+
+    profile("one tracked frame", frame)
+
+
 def run_vitl(dev, hw=(384, 512), n_tracked=N_TRACKED, mcfg=None):
     """encode + mono (INIT keyframe), then FrameTracker.track on n_tracked
     frames, then one frame timed by stage and one profiled.  Returns (launch
-    counts of the tracked frames, ms per frame)."""
+    counts of the tracked frames, ms per frame, the model)."""
     import torch
     from mast3r_slam_tpu_torch.config import load_config
     from mast3r_slam_tpu_torch.models import mast3r as M
@@ -340,8 +427,8 @@ def run_vitl(dev, hw=(384, 512), n_tracked=N_TRACKED, mcfg=None):
     log("ViT-L frame split (track = decode+heads + match + GN + fusion + stats): "
         + json.dumps({k: round(v, 3) for k, v in split.items()}))
     if dev.type == "cuda":
-        profile_frame(dev, model, tracker, imgs[1:2], T)
-    return counts, times
+        profile_frame(model, tracker, imgs[1:2], T)
+    return counts, times, model
 
 
 # ---------------------------------------------------------------------------
@@ -358,8 +445,8 @@ def quat_to_matrix(q):
 
 
 class PlaneSceneModel:
-    """Stand-in for MASt3RModel: the encode/asymmetric/mono protocol over a
-    closed box of planes seen from known camera poses.  Frame k's image is
+    """Stand-in for MASt3RModel: the encode/asymmetric/symmetric/mono
+    protocol over a closed box of planes seen from known camera poses.  Frame k's image is
     a constant gray level that encodes k; encode puts k in feat[0, 0, 0].
     Pointmaps are exact, descriptors a view-invariant random-Fourier field
     of the world point, confidence varies with depth."""
@@ -445,6 +532,17 @@ class PlaneSceneModel:
                   self._t(Dj, (1, H, W, 24)), self._t(Q, (1, H, W)))
         return res_ii, res_ji
 
+    def symmetric(self, feat_i, pos_i, feat_j, pos_j):
+        """(res_ii, res_ji, res_jj, res_ij) of B pairs, each pair both ways."""
+        torch = self._torch
+        outs = []
+        for b in range(feat_i.shape[0]):
+            fi, fj = feat_i[b:b + 1], feat_j[b:b + 1]
+            outs.append(self.asymmetric(fi, pos_i, fj, pos_j)
+                        + self.asymmetric(fj, pos_j, fi, pos_i))
+        return tuple(tuple(torch.cat([o[v][k] for o in outs]) for k in range(4))
+                     for v in (0, 1, 2, 3))
+
     def mono(self, feat, pos):
         X, _, C = self._render(self._fid(feat))
         return self._t(X, (1, self.H, self.W, 3)), self._t(C, (1, self.H, self.W))
@@ -493,28 +591,171 @@ def umeyama_rmse(est, gt):
     return float(np.sqrt(np.mean(np.sum((aligned - gt) ** 2, -1))))
 
 
+def launch_counters():
+    from mast3r_slam_tpu_torch.ops import attention, edge_hg, refine
+
+    return (attention.counter, refine.counter, edge_hg.counter)
+
+
+def reset_counts():
+    for c in launch_counters():
+        c.reset()
+
+
+def read_counts():
+    return {c.name: c.count for c in launch_counters()}
+
+
 def run_synthetic_slam(dev, hw=(384, 512), n_frames=16):
-    """SLAM.run over the plane scene.  Returns (ATE, result, launch counts)."""
+    """SLAM.run over the plane scene, its backend included.  Returns (ATE,
+    result, launch counts, backend stage times)."""
     from mast3r_slam_tpu_torch.config import load_config
-    from mast3r_slam_tpu_torch.ops import attention, refine
     from mast3r_slam_tpu_torch.slam.pipeline import SLAM
 
     gt = arc_trajectory(n_frames)
     model = PlaneSceneModel(hw, gt, dev)
     cfg = load_config("base")
     cfg["single_thread"] = True
+    cfg["engine"]["edge_buffer"] = 16
     slam = SLAM(model, cfg, hw, keyframe_buffer=16, device=dev)
-    attention.counter.reset()
-    refine.counter.reset()
+    reset_counts()
     t0 = time.perf_counter()
     res = slam.run(PlaneSceneDataset(model, n_frames), verbose=False)
     wall = time.perf_counter() - t0
-    counts = {"attention": attention.counter.count, "refine_window": refine.counter.count}
+    counts = read_counts()
     ate = umeyama_rmse(res.frame_poses[:, :3].astype(np.float64), gt[:, :3])
+    stages = {k: v for k, v in slam.timer.stats().items() if k.startswith("backend")}
     log(f"synthetic SLAM.run {hw[0]}x{hw[1]}, {n_frames} frames: {wall:.2f} s, "
-        f"{res.n_keyframes} keyframes, {res.n_reloc} reloc, frame ATE {ate:.6f} m, "
-        f"launches {counts}")
-    return ate, res, counts
+        f"{res.n_keyframes} keyframes, {slam.graph.n_edges} edges, {res.n_reloc} "
+        f"reloc, frame ATE {ate:.6f} m, launches {counts}; backend stages (host "
+        f"clock, ms) {json.dumps(stages)}")
+    return ate, res, counts, stages
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the backend at full width
+# ---------------------------------------------------------------------------
+
+def run_synthetic_solve(dev, hw=(384, 512), n_kf=16, seed=5):
+    """gauss_newton_poses on 16 keyframes seeing one world cloud through
+    identity correspondences, a chain plus loop edges (32 two-way edges),
+    the poses after the first perturbed.  Returns (max translation error,
+    GN iterations, edge-block launches, ms)."""
+    import torch
+    from mast3r_slam_tpu_torch.lie import sim3
+    from mast3r_slam_tpu_torch.ops.global_gn import GlobalGNSettings, gauss_newton_poses
+
+    rng = np.random.default_rng(seed)
+    N = hw[0] * hw[1]
+    gt = torch.as_tensor(arc_trajectory(n_kf, radius=0.4, max_angle=1.2),
+                         dtype=torch.float32, device=dev)
+    world = torch.as_tensor(rng.uniform(-1, 1, size=(N, 3)) + [0, 0, 3],
+                            dtype=torch.float32, device=dev)
+    Xs = sim3.act(sim3.inv(gt)[:, None, :], world)  # (n_kf, N, 3)
+    Cs = torch.full((n_kf, N, 1), 2.0, device=dev)
+    one_way = [(i, i + 1) for i in range(n_kf - 1)] + [(0, n_kf - 1)]
+    ii = torch.tensor([a for a, b in one_way] + [b for a, b in one_way], device=dev)
+    jj = torch.tensor([b for a, b in one_way] + [a for a, b in one_way], device=dev)
+    E = len(ii)
+    idx = torch.arange(N, dtype=torch.int32, device=dev).expand(E, N)
+    valid = torch.ones((E, N, 1), dtype=torch.bool, device=dev)
+    Q = torch.full((E, N, 1), 2.0, device=dev)
+    tau = torch.as_tensor(rng.normal(size=(n_kf, 7)) * 0.01, dtype=torch.float32, device=dev)
+    tau[0] = 0
+    noisy = sim3.retr(gt, tau)
+    reset_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    T, iters, ok, diverged = gauss_newton_poses(
+        noisy, Xs, Cs, ii, jj, idx, valid, Q, torch.eye(3, device=dev), hw,
+        GlobalGNSettings(), "rays")
+    sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    err0 = (noisy[:, :3] - gt[:, :3]).norm(dim=-1).max().item()
+    err = (T[:, :3] - gt[:, :3]).norm(dim=-1).max().item()
+    log(f"full-width solve ({n_kf} keyframes, {E} edges x {N} px): {iters} GN "
+        f"iterations, ok {ok}, diverged {diverged}, {ms:.3f} ms (host clock); max "
+        f"translation error {err0:.6f} -> {err:.8f} m; launches {counts}")
+    if not (ok and err <= SOLVE_BOUND_M and counts["edge_hg_rays"] == iters >= 1):
+        raise AssertionError(f"full-width solve: error {err} m (bound {SOLVE_BOUND_M}), "
+                             f"ok {ok}, {iters} iterations, launches {counts}")
+    if dev.type == "cuda":
+        profile("the full-width solve", lambda: gauss_newton_poses(
+            noisy, Xs, Cs, ii, jj, idx, valid, Q, torch.eye(3, device=dev), hw,
+            GlobalGNSettings(), "rays"), top=15)
+    return err, iters, counts["edge_hg_rays"], ms
+
+
+def run_vitl_backend(dev, model, hw=(384, 512)):
+    """One backend task with the ViT-L model: three keyframes, the
+    consecutive edge (1, 2) through FactorGraph.add_factors, then
+    FactorGraph.solve.  The launch counters are reset just before and read
+    just after.  Then the task's three stages timed apart (host clock
+    between synchronisations, median of 3)."""
+    import torch
+    from mast3r_slam_tpu_torch.config import load_config
+    from mast3r_slam_tpu_torch.lie import sim3
+    from mast3r_slam_tpu_torch.ops import matching
+    from mast3r_slam_tpu_torch.slam import factor_graph as fg
+    from mast3r_slam_tpu_torch.slam.frame import Frame, Keyframes
+
+    cfg = load_config("base")
+    N = hw[0] * hw[1]
+    kf = Keyframes(4, N, model.num_patches, model.feat_dim, device=dev)
+    imgs = smooth_images(3, hw, dev, seed=9)
+    for k in range(3):
+        feat, pos = model.encode(imgs[k:k + 1])
+        X, C = model.mono(feat, pos)
+        T = sim3.identity(device=dev)
+        T[0] = 0.05 * k
+        f = Frame(frame_id=k, img=imgs[k], T_WC=T, feat=feat, pos=pos)
+        f.update_pointmap(X.reshape(-1, 3), C.reshape(-1, 1))
+        kf.append(f)
+    graph = fg.FactorGraph(model, cfg, kf, hw, edge_capacity=16)
+    frac = cfg["local_opt"]["min_match_frac"]
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    added = graph.add_factors([1], [2], frac)
+    graph.solve()
+    sync(dev)
+    task_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    T_WC = kf.T_WC[:3]
+    if not (added and graph.n_edges == 1 and torch.isfinite(T_WC).all()):
+        raise AssertionError(f"ViT-L backend task: added {added}, {graph.n_edges} "
+                             f"edges, poses {T_WC.tolist()}")
+    valid_frac = graph.valid_match_j[0].float().mean().item()
+
+    def timed(fn, reps=3):
+        out, ms = None, []
+        for _ in range(reps):
+            sync(dev)
+            t0 = time.perf_counter()
+            out = fn()
+            sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, statistics.median(ms)
+
+    ii_t = torch.tensor([1], device=dev)
+    jj_t = torch.tensor([2], device=dev)
+    res, dec_ms = timed(lambda: model.symmetric(kf.feat[ii_t], kf.pos[ii_t],
+                                                kf.feat[jj_t], kf.pos[jj_t]))
+    _, match_ms = timed(lambda: fg._add_factors_compute(
+        hw, res, float(cfg["local_opt"]["Q_conf"]), fg.match_kwargs(cfg)))
+    _, solve_ms = timed(graph.solve)
+    split = dict(task_ms=task_ms, symmetric_decode_ms=dec_ms, match_ms=match_ms,
+                 solve_ms=solve_ms)
+    log(f"ViT-L backend task {hw[0]}x{hw[1]} (add_factors([1],[2]) + solve): launches "
+        f"{counts}; valid match fraction {valid_frac:.4f}; split "
+        + json.dumps({k: round(v, 3) for k, v in split.items()}))
+    want_fixed = {"attention": 48, "refine_window": 1}
+    if ({k: counts[k] for k in want_fixed} != want_fixed
+            or counts["edge_hg_rays"] < 1):
+        raise AssertionError(f"ViT-L backend task launches {counts}, expected "
+                             f"{want_fixed} and at least one edge_hg_rays")
+    return counts, split
 
 
 # ---------------------------------------------------------------------------
@@ -550,9 +791,10 @@ def main() -> int:
     attn_enc = check_attention(dev, 16)
     check_attention(dev, 12)
     ref = check_refine(dev)
+    ehg = check_edge_hg(dev)
     check_small_model(dev)
 
-    counts, times = run_vitl(dev)
+    counts, times, vitl = run_vitl(dev)
     want = {"attention": 72 * N_TRACKED, "refine_window": N_TRACKED}
     if counts != want:
         raise AssertionError(f"ViT-L launches {counts}, expected {want} "
@@ -561,14 +803,23 @@ def main() -> int:
     log(f"ViT-L 384x512 tracked frame (encode + decode + track): median "
         f"{frame_ms:.3f} ms over {N_TRACKED} frames; launches {counts}")
 
-    ate, res, slam_counts = run_synthetic_slam(dev)
+    ate, res, slam_counts, _ = run_synthetic_slam(dev)
     n_tracked = len(res.frame_poses) - 1 - res.n_reloc
     if res.n_reloc or ate > TRAJ_BOUND_M or res.n_keyframes < 2:
         raise AssertionError(
             f"synthetic scene: ATE {ate} m (bound {TRAJ_BOUND_M}), "
             f"{res.n_reloc} reloc, {res.n_keyframes} keyframes")
-    if slam_counts != {"attention": 0, "refine_window": n_tracked}:
-        raise AssertionError(f"synthetic SLAM.run launches {slam_counts}")
+    # one refine launch a tracked frame and one a backend task's matching;
+    # the edge-block kernel at least once a backend solve
+    n_tasks = res.n_keyframes - 1
+    if (slam_counts["attention"] != 0
+            or slam_counts["refine_window"] != n_tracked + n_tasks
+            or slam_counts["edge_hg_rays"] < n_tasks):
+        raise AssertionError(f"synthetic SLAM.run launches {slam_counts} "
+                             f"({n_tracked} tracked frames, {n_tasks} backend tasks)")
+
+    solve_err, solve_iters, _, solve_ms = run_synthetic_solve(dev)
+    backend_counts, backend_split = run_vitl_backend(dev, vitl)
 
     common = lambda r: {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")}
@@ -581,7 +832,13 @@ def main() -> int:
              source="mast3r_slam_tpu_torch/csrc/refine_window.cu",
              replaces="mast3r_slam_tpu/ops/refine_pallas.py:70",
              launches=counts["refine_window"], shape=[1, 384 * 512, 24], **common(ref)),
-    ], "tracked_frame_ms": frame_ms, "synthetic_ate_m": ate}
+        dict(name="edge_hg_rays", route="cuda",
+             source="mast3r_slam_tpu_torch/csrc/edge_hg_rays.cu",
+             replaces="mast3r_slam_tpu/ops/edge_hg_pallas.py:130",
+             launches=backend_counts["edge_hg_rays"], shape=ehg["shape"], **common(ehg)),
+    ], "tracked_frame_ms": frame_ms, "synthetic_ate_m": ate,
+        "full_width_solve": {"max_err_m": solve_err, "iters": solve_iters, "ms": solve_ms},
+        "vitl_backend_task": backend_split}
     log(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

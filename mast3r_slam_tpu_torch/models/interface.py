@@ -1,8 +1,8 @@
 """The model protocol the tracker consumes (port of ``models/interface.py``).
 
 ``MASt3RModel`` holds parameters, config and image size and exposes
-``encode`` / ``asymmetric`` / ``mono``; a synthetic oracle with the same
-methods can stand in for it.  Symmetric inference comes with the backend.
+``encode`` / ``asymmetric`` / ``symmetric`` / ``mono``; a synthetic oracle
+with the same methods can stand in for it.
 """
 
 from __future__ import annotations
@@ -57,6 +57,13 @@ class MASt3RModel:
     def asymmetric(self, feat_i, pos_i, feat_j, pos_j):
         """-> ((Xii, Cii, Dii, Qii), (Xji, Cji, Dji, Qji)), maps (B, H, W, *)."""
         return M.inference_asymmetric(
+            self.params, self.mcfg, feat_i, pos_i, feat_j, pos_j, self.grid)
+
+    @torch.no_grad()
+    def symmetric(self, feat_i, pos_i, feat_j, pos_j):
+        """-> (res_ii, res_ji, res_jj, res_ij), each (X, C, D, Q): one
+        decoder call at batch 2B."""
+        return M.inference_symmetric(
             self.params, self.mcfg, feat_i, pos_i, feat_j, pos_j, self.grid)
 
     @torch.no_grad()

@@ -5,7 +5,7 @@ pointmap/confidence heads and the local-feature descriptor MLP, then the
 exp-depth / exp-conf / unit-descriptor postprocess.  The trunk computes in
 ``cfg.dtype`` (bf16 for ViT-L), the heads in ``cfg.head_dtype`` (f32).
 Parameters are nested dicts of tensors; the encoder and decoder blocks are
-lists of per-block dicts.  Symmetric inference comes with the backend.
+lists of per-block dicts.
 """
 
 from __future__ import annotations
@@ -246,6 +246,25 @@ def inference_asymmetric(params, cfg: ModelConfig, feat_i, pos_i, feat_j, pos_j,
     raw1 = head_forward(params["head1"], cfg, hooks1, grid_hw)
     raw2 = head_forward(params["head2"], cfg, hooks2, grid_hw)
     return postprocess(raw1, cfg), postprocess(raw2, cfg)
+
+
+def inference_symmetric(params, cfg: ModelConfig, feat_i, pos_i, feat_j, pos_j,
+                        grid_hw):
+    """Both directions of B pairs in ONE decoder call at batch 2B, stacked
+    [i -> (i, j), j -> (j, i)].  Returns (res_ii, res_ji, res_jj, res_ij),
+    each (X, C, D, Q) as ``inference_asymmetric`` gives them."""
+    feat_a = torch.cat([feat_i, feat_j], dim=0)
+    pos_a = torch.cat([pos_i, pos_j], dim=0)
+    feat_b = torch.cat([feat_j, feat_i], dim=0)
+    pos_b = torch.cat([pos_j, pos_i], dim=0)
+    res_a, res_b = inference_asymmetric(params, cfg, feat_a, pos_a, feat_b, pos_b,
+                                        grid_hw)
+    B = feat_i.shape[0]
+    res_ii = tuple(x[:B] for x in res_a)
+    res_jj = tuple(x[B:] for x in res_a)
+    res_ji = tuple(x[:B] for x in res_b)
+    res_ij = tuple(x[B:] for x in res_b)
+    return res_ii, res_ji, res_jj, res_ij
 
 
 def inference_mono(params, cfg: ModelConfig, feat, pos, grid_hw):

@@ -26,6 +26,7 @@ BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
 SOURCES = {
     "attention": "attention.cu",
     "refine_window": "refine_window.cu",
+    "edge_hg_rays": "edge_hg_rays.cu",
 }
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # the C entry point of each library and its argument types; every pointer
@@ -33,6 +34,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRY_POINTS = {
     "attention": ("attention_bf16_d64", [_P] * 4 + [_I] * 3 + [ctypes.c_float, _P]),
     "refine_window": ("refine_window_i8", [_P] * 4 + [_I] * 7 + [_P]),
+    "edge_hg_rays": ("edge_hg_rays_f32", [_P] * 6 + [_I] * 3 + [ctypes.c_float] * 3 + [_P]),
 }
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",

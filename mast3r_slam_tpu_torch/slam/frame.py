@@ -4,14 +4,16 @@
 fixed-capacity SoA store without paging: preallocated tensors on the
 device, written IN PLACE (one slot per keyframe) rather than rebuilt the
 functional way the JAX package does, which would copy the whole store on
-every write.  Capacity doubles when it runs out.
+every write.  Capacity doubles when it runs out.  The factor graph reads it
+through ``snapshot`` and ``pm_version`` and writes solved poses back with
+``write_back_poses``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from enum import IntEnum
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -163,6 +165,18 @@ class Frame:
         self.score = float(score)
 
 
+class KeyframeSnapshot(NamedTuple):
+    """The store's tensors at one moment (see ``Keyframes.snapshot``)."""
+
+    n: int
+    T_WC: torch.Tensor
+    X: torch.Tensor
+    C: torch.Tensor
+    n_fused: torch.Tensor
+    feat: torch.Tensor
+    pos: torch.Tensor
+
+
 class Keyframes:
     """Device-resident SoA keyframe store of ``capacity`` slots."""
 
@@ -184,6 +198,10 @@ class Keyframes:
         self.pos = torch.zeros((capacity, num_patches, 2), dtype=torch.int32, device=dev)
         self.K: Optional[torch.Tensor] = None
         self.uimgs = [None] * capacity
+        # per-keyframe pointmap version, bumped on every X/C write: the
+        # factor graph's gathered-point cache re-gathers an edge when a
+        # version it was stamped with has moved
+        self.pm_version = np.zeros((capacity,), dtype=np.int64)
 
     def __len__(self):
         return self.n
@@ -217,11 +235,13 @@ class Keyframes:
         self.feat = grow(self.feat)
         self.pos = grow(self.pos)
         self.frame_id = np.concatenate([self.frame_id, np.full((pad,), -1, np.int64)])
+        self.pm_version = np.concatenate([self.pm_version, np.zeros((pad,), np.int64)])
         self.uimgs = self.uimgs + [None] * pad
         self.capacity = new_cap
 
     def set_frame(self, idx: int, frame: Frame):
         self.frame_id[idx] = frame.frame_id
+        self.pm_version[idx] += 1
         self.T_WC[idx] = frame.T_WC.to(self.T_WC)
         self.X[idx] = frame.X_canon.to(self.X)
         self.C[idx] = frame.C.to(self.C)
@@ -237,11 +257,25 @@ class Keyframes:
 
     def update_pointmap(self, idx: int, X, C, n_fused, n_updates, score):
         """The tracker's per-frame commit of the keyframe's fused state."""
+        self.pm_version[idx] += 1
         self.X[idx] = X
         self.C[idx] = C
         self.n_fused[idx] = n_fused
         self.n_updates[idx] = n_updates
         self.score[idx] = score
+
+    def snapshot(self) -> KeyframeSnapshot:
+        """The store's current tensors (references, not copies).  The engine
+        is single-threaded: nothing writes the store while a backend task
+        reads a snapshot, so no lock is needed (the JAX package's threaded
+        backend takes one)."""
+        return KeyframeSnapshot(n=self.n, T_WC=self.T_WC, X=self.X, C=self.C,
+                                n_fused=self.n_fused, feat=self.feat, pos=self.pos)
+
+    def write_back_poses(self, start: int, n_snapshot: int, T_new):
+        """Install solved poses [start, n_snapshot) from a backend solve whose
+        pose array ``T_new`` is aligned with the store."""
+        self.T_WC[start:n_snapshot] = T_new[start:n_snapshot].to(self.T_WC)
 
     def slices(self, idx: int):
         """(X, C, n_fused, n_updates, score, T_WC, feat[None], pos[None]) at

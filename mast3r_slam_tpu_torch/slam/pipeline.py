@@ -1,12 +1,12 @@
-"""The SLAM engine's sequential frontend loop (port of ``slam/pipeline.py``).
+"""The SLAM engine's sequential loop (port of ``slam/pipeline.py``).
 
 ``SLAM`` runs the INIT / TRACKING / RELOC mode machine frame by frame,
-``single_thread: True`` and ``engine.pipeline: 0`` semantics.  The backend
-(factor graph and global Gauss-Newton) is the next slice: here
-``_submit_backend`` only records the new keyframe's index in
-``backend_tasks``, which the next slice's ``FactorGraph`` consumes.  Without
-retrieval, relocalisation fails, as in the JAX package.  Settings this slice
-does not port raise ``NotImplementedError``.
+``single_thread: True`` and ``engine.pipeline: 0`` semantics.  After every
+new keyframe it runs the backend task in line: the consecutive edge
+(kf - 1, kf) through ``FactorGraph.add_factors``, then
+``FactorGraph.solve`` over all keyframe poses.  Without retrieval there are
+no loop-closure edges and relocalisation fails, as in the JAX package.
+Settings this slice does not port raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from ..device import DeviceLike, resolve_device
 from ..lie import sim3
 from ..utils.image import resize_img
 from ..utils.timing import StageTimer
+from .factor_graph import FactorGraph
 from .frame import Frame, Keyframes, Mode
 from .tracker import FrameTracker
 
@@ -39,6 +40,11 @@ class SlamResult:
 
 
 def _check_ported(cfg, retrieval):
+    if not cfg.get("single_thread", True):
+        raise NotImplementedError(
+            "single_thread: False (the backend on a worker thread) is not ported "
+            "yet (ROADMAP Queue 1, item 10: the threaded backend); set "
+            "cfg['single_thread'] = True for the sequential loop")
     engine = cfg.get("engine", {})
     for key, item in (("pipeline", "ROADMAP Queue 1, item 10: the pipelined/chained frontend"),
                       ("mesh", "ROADMAP Queue 1, item 12: multi-GPU"),
@@ -72,7 +78,8 @@ class SLAM:
         if K is not None:
             self.keyframes.K = torch.as_tensor(K, dtype=torch.float32, device=self.device)
         self.tracker = FrameTracker(model, cfg, self.keyframes, img_hw, self.device)
-        self.backend_tasks: List[int] = []
+        self.graph = FactorGraph(model, cfg, self.keyframes, img_hw, K=self.keyframes.K,
+                                 edge_capacity=cfg["engine"].get("edge_buffer", 1024))
         self.mode = Mode.INIT
         self.n_reloc = 0
         self.n_reloc_success = 0
@@ -98,9 +105,16 @@ class SLAM:
                      uimg=r.get("unnormalized_img"))
 
     def _submit_backend(self, kf_idx: int):
-        """Record the new keyframe for the backend; the global optimisation
-        is the next slice (its ``FactorGraph`` consumes ``backend_tasks``)."""
-        self.backend_tasks.append(kf_idx)
+        """One backend task, in line (run_backend, main.py:96-143, without
+        retrieval): the edge to the previous keyframe, then the global solve."""
+        with self.timer.time("backend.update"):
+            if kf_idx < 1:
+                return
+            with self.timer.time("backend.add_factors"):
+                self.graph.add_factors([kf_idx - 1], [kf_idx],
+                                       self.cfg["local_opt"]["min_match_frac"])
+            with self.timer.time("backend.solve"):
+                self.graph.solve()
 
     def _relocalize(self, frame: Frame) -> bool:
         """Retrieval-driven relocalisation; without retrieval it fails."""

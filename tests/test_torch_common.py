@@ -55,7 +55,8 @@ def assert_close(got, want, rtol, atol, what=""):
 
 class TorchOracleModel:
     """Torch adapter around ``tests/oracle.OracleModel``: tensors in and out
-    of the protocol (encode / asymmetric / mono), numpy to the oracle."""
+    of the protocol (encode / asymmetric / symmetric / mono), numpy to the
+    oracle."""
 
     def __init__(self, oracle, device=CPU):
         self.oracle = oracle
@@ -74,6 +75,10 @@ class TorchOracleModel:
     def asymmetric(self, feat_i, pos_i, feat_j, pos_j):
         res_ii, res_ji = self.oracle.asymmetric(n(feat_i), n(pos_i), n(feat_j), n(pos_j))
         return (tuple(self._t(a) for a in res_ii), tuple(self._t(a) for a in res_ji))
+
+    def symmetric(self, feat_i, pos_i, feat_j, pos_j):
+        res = self.oracle.symmetric(n(feat_i), n(pos_i), n(feat_j), n(pos_j))
+        return tuple(tuple(self._t(a) for a in r) for r in res)
 
     def mono(self, feat, pos):
         X, C = self.oracle.mono(n(feat), n(pos))

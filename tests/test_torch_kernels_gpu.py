@@ -12,13 +12,19 @@ bf16 before dividing by the row sum (online softmax) where the plain
 version rounds after, and sums in another order.  At unit-scale inputs the
 outputs agree to within 2 bf16 ulps at magnitude 2 (2**-6 = 0.0156) at the
 worst element, and 2e-3 on average.  Refine: exact integer equality.
+Edge blocks: against the plain version evaluated in float64, 1e-5 of the
+largest entry (the kernel measured 2.5e-7 at 32 x 384*512); against the
+plain version in f32, 1e-3 (its long (8, 4N) x (4N, 8) reductions drift by
+~1e-4 at 384x512); under invalid pixels (sq = 0) bitwise equality.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from mast3r_slam_tpu_torch.ops import attention, refine
+from mast3r_slam_tpu_torch.lie import sim3
+from mast3r_slam_tpu_torch.ops import attention, edge_hg, refine
+from mast3r_slam_tpu_torch.ops import global_gn
 
 pytestmark = pytest.mark.gpu
 
@@ -110,3 +116,107 @@ def test_refine_kernel_refuses_other_inputs(cuda):
     d = torch.zeros(16 * 8 + 4, device=cuda, dtype=torch.int8)[4:].view(1, 16, 8)
     with pytest.raises(ValueError, match="aligned"):
         refine.refine_window(d, d, idx, 4, 4, 1, 1)
+
+
+SIG = dict(sigma_ray=0.003, sigma_dist=10.0, huber_k=1.345)
+EDGE_HG_REL_F64 = 1e-5
+EDGE_HG_REL_F32 = 1e-3
+
+
+def _edge_inputs(E, N, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    Tij = sim3.exp(0.2 * torch.randn(E, 7, device=device, generator=g))
+    Xi = torch.randn(E, N, 3, device=device, generator=g)
+    Xi[..., 2] = Xi[..., 2].abs() + 2.0
+    Xj = sim3.act(sim3.inv(Tij)[:, None, :], Xi)
+    Xj = Xj + 0.01 * torch.randn(Xj.shape, device=device, generator=g)
+    sq = torch.sqrt(1.5 + 1.5 * torch.rand(E, N, device=device, generator=g))
+    sq = sq * (torch.rand(E, N, device=device, generator=g) > 0.2)
+    return Tij.contiguous(), Xi.contiguous(), Xj.contiguous(), sq.contiguous()
+
+
+@pytest.mark.parametrize("E,N", [(1, 1), (3, 300), (5, 4097), (2, 12345),
+                                 (32, 384 * 512)])  # N a multiple of no tile
+def test_edge_hg_kernel_matches_plain(cuda, E, N):
+    Tij, Xi, Xj, sq = _edge_inputs(E, N, cuda, seed=E + N)
+    before = edge_hg.counter.count
+    got = edge_hg.edge_hg_rays(Tij, Xi, Xj, sq, **SIG)
+    torch.cuda.synchronize()
+    assert edge_hg.counter.count == before + 1
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, got.transpose(1, 2))
+    exact = edge_hg.edge_hg_rays_plain(Tij.double(), Xi.double(), Xj.double(),
+                                       sq.double(), **SIG)
+    scale = exact.abs().max().item()
+    assert (got.double() - exact).abs().max().item() <= EDGE_HG_REL_F64 * scale
+    want = edge_hg.edge_hg_rays_plain(Tij, Xi, Xj, sq, **SIG)
+    assert (got - want).abs().max().item() <= EDGE_HG_REL_F32 * scale
+
+
+@pytest.mark.parametrize("garbage", [37.0, 0.0])
+def test_edge_hg_kernel_ignores_invalid_pixels(cuda, garbage):
+    Tij, Xi, Xj, sq = _edge_inputs(4, 5000, cuda, seed=3)
+    clean = edge_hg.edge_hg_rays(Tij, Xi, Xj, sq, **SIG)
+    bad = sq == 0
+    Xi_g, Xj_g = Xi.clone(), Xj.clone()
+    Xi_g[bad] = garbage
+    Xj_g[bad] = garbage
+    dirty = edge_hg.edge_hg_rays(Tij, Xi_g, Xj_g, sq, **SIG)
+    torch.cuda.synchronize()
+    assert torch.equal(clean, dirty)
+
+
+def test_edge_hg_kernel_refuses_other_inputs(cuda):
+    Tij, Xi, Xj, sq = _edge_inputs(2, 64, cuda, seed=1)
+    with pytest.raises(ValueError, match="float32"):
+        edge_hg.edge_hg_rays(Tij, Xi.double(), Xj, sq, **SIG)
+    with pytest.raises(ValueError, match="CUDA device"):
+        edge_hg.edge_hg_rays_cuda(Tij.cpu(), Xi.cpu(), Xj.cpu(), sq.cpu(), **SIG)
+    with pytest.raises(ValueError, match="shapes"):
+        edge_hg.edge_hg_rays(Tij, Xi, Xj[:, :32].contiguous(), sq, **SIG)
+    with pytest.raises(ValueError, match="contiguous"):
+        edge_hg.edge_hg_rays(Tij, Xi.transpose(0, 1), Xj, sq, **SIG)
+
+
+def _rays_problem(device, n_kf=5, N=3000, seed=0):
+    """A shared world cloud seen through identity correspondences, chain
+    edges both ways, perturbed poses (tests/test_sharded_ba.py's problem)."""
+    rng = np.random.default_rng(seed)
+    s = np.linspace(0, 1, n_kf)
+    gt = np.zeros((n_kf, 8), np.float32)
+    gt[:, 0], gt[:, 1], gt[:, 2] = 0.4 * np.sin(2.4 * s), 0.2 * s, 0.3 * s
+    gt[:, 4], gt[:, 6], gt[:, 7] = np.sin(-0.24 * s), np.cos(-0.24 * s), 1.0
+    gt = torch.as_tensor(gt)
+    world = torch.as_tensor(rng.uniform(-1, 1, size=(N, 3)) + [0, 0, 3], dtype=torch.float32)
+    Xs = sim3.act(sim3.inv(gt)[:, None, :], world)
+    ii = torch.tensor(list(range(n_kf - 1)) + list(range(1, n_kf)))
+    jj = torch.tensor(list(range(1, n_kf)) + list(range(n_kf - 1)))
+    E = len(ii)
+    tau = torch.as_tensor(rng.normal(size=(n_kf, 7)) * 0.02, dtype=torch.float32)
+    tau[0] = 0
+    args = (sim3.retr(gt, tau), Xs, torch.full((n_kf, N, 1), 2.0), ii, jj,
+            torch.arange(N, dtype=torch.int32).expand(E, N).contiguous(),
+            torch.ones((E, N, 1), dtype=torch.bool), torch.full((E, N, 1), 2.0),
+            torch.eye(3))
+    return gt, [a.to(device) for a in args], (1, N)
+
+
+def test_global_gn_on_the_card_launches_the_kernel_each_iteration(cuda):
+    gt, args, hw = _rays_problem(cuda)
+    before = edge_hg.counter.count
+    T, iters, ok, _ = global_gn.gauss_newton_poses(*args, hw, global_gn.GlobalGNSettings(),
+                                                   "rays")
+    torch.cuda.synchronize()
+    assert ok and edge_hg.counter.count - before == iters >= 1
+    T_cpu = global_gn.gauss_newton_poses(*[a.cpu() for a in args], hw,
+                                         global_gn.GlobalGNSettings(), "rays")[0]
+    assert (T.cpu() - T_cpu).abs().max().item() <= 1e-5
+    assert (T.cpu()[:, :3] - gt[:, :3]).norm(dim=-1).max().item() < 1e-4
+
+
+@pytest.mark.parametrize("impl", ["reduce", "dot"])
+def test_plain_ray_blocks_on_the_card_raise(cuda, impl):
+    _, args, hw = _rays_problem(cuda, N=100)
+    with pytest.raises(NotImplementedError, match="edge-block kernel"):
+        global_gn.gauss_newton_poses(*args, hw, global_gn.GlobalGNSettings(hg_impl=impl),
+                                     "rays")

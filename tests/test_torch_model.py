@@ -1,4 +1,4 @@
-"""Port parity of the model: encode, asymmetric and mono inference with the
+"""Port parity of the model: encode, asymmetric, symmetric and mono inference with the
 JAX package's random-init weights carried across by ``params_from_jax``,
 and the npz round trip (JAX ``save_params`` -> port ``load_params``).
 
@@ -67,6 +67,31 @@ def test_asymmetric_parity(models, encoded):
         Xg, Cg, Dg, Qg = view_g
         assert Xg.shape == (1, *HW, 3) and Dg.shape == (1, *HW, 24)
         assert_close(Xg, Xw, 5e-4, ATOL, "X")
+        assert_close(Cg, Cw, RTOL, ATOL, "C")
+        assert_close(Dg, Dw, RTOL, ATOL, "D")
+        assert_close(Qg, Qw, RTOL, ATOL, "Q")
+
+
+def test_symmetric_parity(models, encoded):
+    """Both directions of a pair in one decoder call at batch 2: the four
+    results of the JAX ``inference_symmetric``.  C, D and Q at the
+    asymmetric tolerances; X at 2e-3 relative: at batch 2 both backends
+    block their products otherwise than at batch 1 (the JAX package's own
+    symmetric and asymmetric X for one pair differ by 3.5e-4 relative), and
+    expm1(|xyz|) multiplies that by |xyz| on far points."""
+    jparams, tmodel, _ = models
+    jfeat, jpos, _, _ = encoded
+    grid = JM.VIT_TINY_TEST.grid(HW)
+    fi, fj = np.asarray(jfeat[:1]), np.asarray(jfeat[1:])
+    pi, pj = np.asarray(jpos[:1]), np.asarray(jpos[1:])
+    want = JM.inference_symmetric(jparams, JM.VIT_TINY_TEST, fi, pi, fj, pj, grid)
+    got = tmodel.symmetric(t(fi), t(pi), t(fj), t(pj))
+    assert len(got) == 4
+    for view_w, view_g in zip(want, got):
+        Xw, Cw, Dw, Qw = view_w
+        Xg, Cg, Dg, Qg = view_g
+        assert Xg.shape == (1, *HW, 3) and Dg.shape == (1, *HW, 24)
+        assert_close(Xg, Xw, 2e-3, ATOL, "X")
         assert_close(Cg, Cw, RTOL, ATOL, "C")
         assert_close(Dg, Dw, RTOL, ATOL, "D")
         assert_close(Qg, Qw, RTOL, ATOL, "Q")

@@ -60,6 +60,7 @@ def test_merge_config_is_recursive():
 def test_entry_points_without_a_device_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tconfig.load_config("base")
+    cfg["single_thread"] = True
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MASt3RModel.random_init(0, (32, 32), TM.VIT_TINY_TEST)
     params = TM.init_params(TM.VIT_TINY_TEST, seed=0)
@@ -87,6 +88,7 @@ UNPORTED = [
 @pytest.mark.parametrize("section,key,value", UNPORTED)
 def test_unported_settings_raise(section, key, value):
     cfg = tconfig.load_config("base")
+    cfg["single_thread"] = True
     cfg[section][key] = value
     model = MASt3RModel(TM.init_params(TM.VIT_TINY_TEST, seed=0), TM.VIT_TINY_TEST,
                         (32, 32), device=CPU)
@@ -94,9 +96,23 @@ def test_unported_settings_raise(section, key, value):
         SLAM(model, cfg, (32, 32), keyframe_buffer=2, device=CPU)
 
 
+def test_threaded_backend_raises():
+    """``single_thread: False`` (the JAX engine's backend thread) is not
+    ported: it raises instead of running the sequential loop."""
+    cfg = tconfig.load_config("base")
+    assert cfg["single_thread"] is False
+    model = MASt3RModel(TM.init_params(TM.VIT_TINY_TEST, seed=0), TM.VIT_TINY_TEST,
+                        (32, 32), device=CPU)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 10"):
+        SLAM(model, cfg, (32, 32), keyframe_buffer=2, device=CPU)
+    cfg["single_thread"] = True
+    assert SLAM(model, cfg, (32, 32), keyframe_buffer=2, device=CPU).graph.n_edges == 0
+
+
 def test_retrieval_object_raises():
     model = MASt3RModel(TM.init_params(TM.VIT_TINY_TEST, seed=0), TM.VIT_TINY_TEST,
                         (32, 32), device=CPU)
+    cfg = tconfig.load_config("base")
+    cfg["single_thread"] = True
     with pytest.raises(NotImplementedError, match="retrieval"):
-        SLAM(model, tconfig.load_config("base"), (32, 32), keyframe_buffer=2,
-             retrieval=object(), device=CPU)
+        SLAM(model, cfg, (32, 32), keyframe_buffer=2, retrieval=object(), device=CPU)

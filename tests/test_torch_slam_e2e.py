@@ -1,12 +1,13 @@
-"""The slice end to end: ``SLAM.run`` over the same oracle sequence in both
-packages gives the same keyframes, modes and per-frame poses.
+"""The slices end to end: ``SLAM.run`` over the same oracle sequence in
+both packages, each running its backend (consecutive edge + global solve
+after every new keyframe), gives the same keyframes, modes, edges and
+per-frame poses.
 
-The JAX engine's backend is stubbed on the instance (``_submit_backend``
-set to a no-op), since the port's backend is the next slice; the JAX
-package itself is unchanged.  The sequence is an 8-frame forward arc at
-48x64 with the oracle's pointmap noise.  Tolerance on poses: each frame's
-GN solve agrees to ~1e-5 (test_torch_tracking.py) and the warm starts chain
-the frames, so 2e-4 absolute on translation and quaternion.
+The sequence is an 8-frame forward arc at 48x64 with the oracle's pointmap
+noise.  Tolerance on poses: each frame's GN solve agrees to ~1e-5
+(test_torch_tracking.py), each global solve to ~1e-5
+(test_torch_global_gn.py), and the warm starts chain the frames, so 2e-4
+absolute on translation and quaternion.
 """
 
 import numpy as np
@@ -37,11 +38,11 @@ def runs(request):
     jcfg["engine"]["keyframe_buffer"] = 16
     jcfg["engine"]["edge_buffer"] = 16
     jslam = JSLAM(oracle, jcfg, HW, K=K)
-    jslam._submit_backend = lambda *a, **k: None
     jres = jslam.run(OracleDataset(N_FRAMES, HW), verbose=False)
 
     cfg = load_config(request.param)
     cfg["single_thread"] = True
+    cfg["engine"]["edge_buffer"] = 16
     tslam = SLAM(TorchOracleModel(oracle), cfg, HW, K=K, keyframe_buffer=16, device=CPU)
     tres = tslam.run(OracleDataset(N_FRAMES, HW), verbose=False)
     return jslam, jres, tslam, tres, gt
@@ -55,8 +56,11 @@ def test_same_keyframes_and_modes(runs):
                                   jslam.keyframes.frame_id[: jres.n_keyframes])
     assert tres.n_reloc == jres.n_reloc == 0
     assert tslam.mode == jslam.mode
-    # the backend stub saw every keyframe after the first
-    assert tslam.backend_tasks == list(range(1, tres.n_keyframes))
+    # both backends stored the same consecutive edges
+    E = jslam.graph.n_edges
+    assert tslam.graph.n_edges == E == tres.n_keyframes - 1
+    np.testing.assert_array_equal(tslam.graph.ii[:E], jslam.graph.ii[:E])
+    np.testing.assert_array_equal(tslam.graph.jj[:E], jslam.graph.jj[:E])
 
 
 def test_same_frame_poses(runs):
