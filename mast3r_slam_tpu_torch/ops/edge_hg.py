@@ -84,6 +84,25 @@ def edge_hg_rays_plain(Tij, Xi, Xj, sq, *, sigma_ray: float, sigma_dist: float,
     return reduce_blocks(w, err, J)
 
 
+def block_err(got, want) -> float:
+    """Largest error of (E, 8, 8) blocks, entry by entry, on the scale the
+    solve reads them at: |got_ij - want_ij| / sqrt(|want_ii|·|want_jj|).
+
+    The diagonal is H's for the seven pose columns and the robust cost
+    Mloc[7, 7] for the error column, so a gradient entry is held against
+    sqrt(H_ii·cost) (its Cauchy-Schwarz bound), the distance row's scale
+    entry against its own diagonal and the cost against itself: no entry
+    hides under the largest one.  Computed in float64."""
+    got, want = got.double(), want.double()
+    d = torch.diagonal(want, dim1=-2, dim2=-1).abs()
+    scale = torch.sqrt(d[..., :, None] * d[..., None, :])
+    diff = (got - want).abs()
+    # an all-invalid edge has an all-zero block: there only exact zeros pass
+    err = torch.where(scale > 0, diff / scale.clamp_min(1e-300),
+                      torch.where(diff > 0, torch.inf, 0.0))
+    return err.max().item() if err.numel() else 0.0
+
+
 def edge_hg_rays_cuda(Tij, Xi, Xj, sq, *, sigma_ray: float, sigma_dist: float,
                       huber_k: float):
     """Launch the edge-block kernel; raises on anything it does not take."""

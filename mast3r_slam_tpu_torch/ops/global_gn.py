@@ -47,13 +47,13 @@ class GlobalGNSettings(NamedTuple):
     depth_eps: float = 1e-6
     huber_k: float = 1.345
     pin: int = 1
-    edge_batch: int = 8        # edges a plain block reduction takes at once
+    edge_batch: int = 8        # edges a calib or points block reduction takes at once
     solver: str = "auto"       # "auto" | "dense" | "pcg"
     dense_max_poses: int = 1024
     pcg_iters: int = 96
     pcg_tol: float = 1e-7
     pcg_damping: float = 1e-4
-    hg_impl: str = "auto"      # "auto" | "pallas" (the kernel) | "reduce" | "dot"
+    hg_impl: str = "auto"      # "auto" | "pallas"; the plain "reduce" | "dot" raise on the card
     pcg_precond: str = "block"  # "block" | "diag"
 
     @classmethod
@@ -130,11 +130,12 @@ def _edge_Hg(Ti, w, err, J_local):
 
 
 def _edge_block_rays(Twc, settings: GlobalGNSettings, edge):
-    """Ray+distance blocks of a batch of edges, in plain torch."""
+    """Ray+distance blocks of all edges at once: the edge-block kernel on
+    the card, its plain form on the CPU."""
     ei, ej, Xi, Xj, sq, _, _ = edge
     Ti = Twc[ei]
-    Tij = sim3.rel(Ti, Twc[ej])
-    Mloc = edge_hg.edge_hg_rays_plain(
+    Tij = sim3.rel(Ti, Twc[ej]).contiguous()
+    Mloc = edge_hg.edge_hg_rays(
         Tij, Xi, Xj, sq, sigma_ray=settings.sigma_ray,
         sigma_dist=settings.sigma_dist, huber_k=settings.huber_k)
     return _conjugate(Ti, Mloc)
@@ -395,8 +396,9 @@ def _gn_core(Twc, ii, jj, Xi_all, Xj_all, sq_all, ut_all, vt_all, K, img_hw,
     pin = settings.pin
     if settings.hg_impl not in ("auto", "pallas", "reduce", "dot"):
         raise ValueError(f"unknown hg_impl {settings.hg_impl!r}")
-    use_kernel = mode == "rays" and settings.hg_impl in ("auto", "pallas")
-    if mode == "rays" and not use_kernel and Twc.is_cuda:
+    # every hg_impl reaches the same ray blocks (edge_hg.edge_hg_rays); the
+    # JAX package's "reduce" and "dot" name plain forms, which the card refuses
+    if mode == "rays" and settings.hg_impl in ("reduce", "dot") and Twc.is_cuda:
         raise NotImplementedError(
             f"local_opt.hg_impl: {settings.hg_impl!r} would run the plain ray "
             "blocks on the card; the port's card path is the edge-block "
@@ -404,25 +406,18 @@ def _gn_core(Twc, ii, jj, Xi_all, Xj_all, sq_all, ut_all, vt_all, K, img_hw,
     use_pcg = settings.solver == "pcg" or (
         settings.solver == "auto" and (P - pin) > settings.dense_max_poses)
 
-    if mode == "rays":
-        block_fn = lambda Twc_, edge: _edge_block_rays(Twc_, settings, edge)
-    elif mode == "points":
+    if mode == "points":
         block_fn = lambda Twc_, edge: _edge_block_points(Twc_, settings, edge)
     elif mode == "calib":
         block_fn = lambda Twc_, edge: _edge_block_calib(Twc_, K, img_hw, settings, edge)
-    else:
+    elif mode != "rays":
         raise ValueError(f"unknown GN mode {mode!r}")
     edge = (ii, jj, Xi_all, Xj_all, sq_all, ut_all, vt_all)
     E = ii.shape[0]
 
     def blocks(Twc_):
-        if use_kernel:
-            Ti = Twc_[ii]
-            Tij = sim3.rel(Ti, Twc_[jj]).contiguous()
-            Mloc = edge_hg.edge_hg_rays(
-                Tij, Xi_all, Xj_all, sq_all, sigma_ray=settings.sigma_ray,
-                sigma_dist=settings.sigma_dist, huber_k=settings.huber_k)
-            return _conjugate(Ti, Mloc)
+        if mode == "rays":  # all edges in one launch of the kernel on the card
+            return _edge_block_rays(Twc_, settings, edge)
         b = max(1, settings.edge_batch)
         outs = [block_fn(Twc_, tuple(a[s:s + b] for a in edge)) for s in range(0, E, b)]
         return tuple(torch.cat(x) for x in zip(*outs))

@@ -12,10 +12,15 @@ bf16 before dividing by the row sum (online softmax) where the plain
 version rounds after, and sums in another order.  At unit-scale inputs the
 outputs agree to within 2 bf16 ulps at magnitude 2 (2**-6 = 0.0156) at the
 worst element, and 2e-3 on average.  Refine: exact integer equality.
-Edge blocks: against the plain version evaluated in float64, 1e-5 of the
-largest entry (the kernel measured 2.5e-7 at 32 x 384*512); against the
-plain version in f32, 1e-3 (its long (8, 4N) x (4N, 8) reductions drift by
-~1e-4 at 384x512); under invalid pixels (sq = 0) bitwise equality.
+Edge blocks: compared entry by entry on the scale the solve reads them
+at, ``edge_hg.block_err`` (|got_ij - want_ij| / sqrt(|want_ii|·|want_jj|),
+the cost being the error column's diagonal): against the plain version
+evaluated in float64 within EDGE_HG_ERR_F64, against the plain version in
+f32 within EDGE_HG_ERR_F32 (its long (8, 4N) x (4N, 8) products drift
+more than the kernel's tree of partial sums).  At 32 x 384*512 on an H100
+the kernel reads 4.2e-6 against float64 and 4.3e-4 against the f32 plain
+version, which itself reads 4.3e-4 against float64; planted faults read
+0.031 to 1.  Under invalid pixels (sq = 0) bitwise equality.
 """
 
 import numpy as np
@@ -119,8 +124,8 @@ def test_refine_kernel_refuses_other_inputs(cuda):
 
 
 SIG = dict(sigma_ray=0.003, sigma_dist=10.0, huber_k=1.345)
-EDGE_HG_REL_F64 = 1e-5
-EDGE_HG_REL_F32 = 1e-3
+EDGE_HG_ERR_F64 = 3e-5
+EDGE_HG_ERR_F32 = 1e-3
 
 
 def _edge_inputs(E, N, device, seed):
@@ -147,10 +152,28 @@ def test_edge_hg_kernel_matches_plain(cuda, E, N):
     assert torch.equal(got, got.transpose(1, 2))
     exact = edge_hg.edge_hg_rays_plain(Tij.double(), Xi.double(), Xj.double(),
                                        sq.double(), **SIG)
-    scale = exact.abs().max().item()
-    assert (got.double() - exact).abs().max().item() <= EDGE_HG_REL_F64 * scale
+    assert edge_hg.block_err(got, exact) <= EDGE_HG_ERR_F64
     want = edge_hg.edge_hg_rays_plain(Tij, Xi, Xj, sq, **SIG)
-    assert (got - want).abs().max().item() <= EDGE_HG_REL_F32 * scale
+    assert edge_hg.block_err(got, want) <= EDGE_HG_ERR_F32
+
+
+def test_edge_hg_check_fails_planted_faults(cuda):
+    """The kernel with its distance row dropped (sigma_dist = inf), and its
+    output with the gradient negated or the cost 30 % off, each break the
+    bound many times over."""
+    Tij, Xi, Xj, sq = _edge_inputs(8, 20000, cuda, seed=5)
+    exact = edge_hg.edge_hg_rays_plain(Tij.double(), Xi.double(), Xj.double(),
+                                       sq.double(), **SIG)
+    got = edge_hg.edge_hg_rays(Tij, Xi, Xj, sq, **SIG)
+    no_dist = edge_hg.edge_hg_rays(Tij, Xi, Xj, sq, **{**SIG, "sigma_dist": float("inf")})
+    neg_grad = got.clone()
+    neg_grad[:, :7, 7] *= -1
+    neg_grad[:, 7, :7] *= -1
+    cost_off = got.clone()
+    cost_off[:, 7, 7] *= 1.3
+    assert edge_hg.block_err(got, exact) <= EDGE_HG_ERR_F64
+    for bad in (no_dist, neg_grad, cost_off):
+        assert edge_hg.block_err(bad, exact) > 100 * EDGE_HG_ERR_F64
 
 
 @pytest.mark.parametrize("garbage", [37.0, 0.0])

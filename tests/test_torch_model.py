@@ -72,13 +72,21 @@ def test_asymmetric_parity(models, encoded):
         assert_close(Qg, Qw, RTOL, ATOL, "Q")
 
 
+def _head_xyz(X):
+    """The pointmap head's output before X = xyz/|xyz|·expm1(|xyz|)."""
+    X = n(X).astype(np.float64)
+    m = np.linalg.norm(X, axis=-1, keepdims=True)
+    return X / np.maximum(m, 1e-30) * np.log1p(m)
+
+
 def test_symmetric_parity(models, encoded):
     """Both directions of a pair in one decoder call at batch 2: the four
-    results of the JAX ``inference_symmetric``.  C, D and Q at the
-    asymmetric tolerances; X at 2e-3 relative: at batch 2 both backends
-    block their products otherwise than at batch 1 (the JAX package's own
-    symmetric and asymmetric X for one pair differ by 3.5e-4 relative), and
-    expm1(|xyz|) multiplies that by |xyz| on far points."""
+    results of the JAX ``inference_symmetric``, all at the asymmetric
+    tolerances 1e-4.  X is held before the head's expm1, as
+    xyz = X/|X|·log1p(|X|): the two head outputs differ by at most 1.2e-5
+    there, and expm1(|xyz|) multiplies a difference by up to e^|xyz|
+    (|xyz| reaches 8.6 on these weights), which on single elements of X
+    takes it to 1.9e-3 relative."""
     jparams, tmodel, _ = models
     jfeat, jpos, _, _ = encoded
     grid = JM.VIT_TINY_TEST.grid(HW)
@@ -91,7 +99,7 @@ def test_symmetric_parity(models, encoded):
         Xw, Cw, Dw, Qw = view_w
         Xg, Cg, Dg, Qg = view_g
         assert Xg.shape == (1, *HW, 3) and Dg.shape == (1, *HW, 24)
-        assert_close(Xg, Xw, 2e-3, ATOL, "X")
+        assert_close(_head_xyz(Xg), _head_xyz(Xw), RTOL, ATOL, "X before expm1")
         assert_close(Cg, Cw, RTOL, ATOL, "C")
         assert_close(Dg, Dw, RTOL, ATOL, "D")
         assert_close(Qg, Qw, RTOL, ATOL, "Q")
