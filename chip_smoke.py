@@ -13,9 +13,10 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      shapes (attention (1,16,768,64) and (1,12,768,64) bf16; refine at
      384x512, F=24, radius/dilation (3,5) and (1,1), exactly equal; the
      edge blocks at 32 edges x 384*512 pixels f32, entry by entry on the
-     solve's scale, planted faults shown to fail), timed with CUDA events
-     beside the plain version and, where one exists, the PyTorch library
-     call;
+     solve's scale, planted faults shown to fail), each timed by its device
+     time (torch.profiler) and by CUDA events around back-to-back calls,
+     beside the plain version's device time and, where one exists, the
+     PyTorch library call's, read both ways too;
   3. a small bf16 model on the card (kernels) against the same model on the
      CPU (plain versions);
   4. ViT-L at 384x512 with seeded random weights, bf16 trunk and f32 heads,
@@ -31,9 +32,23 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      takes up to 256 edges; the cached one profiled), held to its ground
      truth, and one ViT-L backend task (three keyframes,
      FactorGraph.add_factors([1], [2]), FactorGraph.solve()) with the
-     launch counters reset just before and read just after.
+     launch counters reset just before and read just after;
+  7. retrieval at full width: the default head (1024 -> 1024, 300
+     features) and a seeded 64k-word codebook over ViT-L tokens, the
+     inverted file filled to 512 keyframes; update and query timed (one
+     query profiled), one ivf_hamming launch a call, the kernel exactly
+     against its plain version on a query's tensors and the kernel route's
+     scores against the plain route's, update twice on one state;
+  8. relocalisation: SLAM.run with a small retrieval head over the plane
+     scene at 384x512 whose camera teleports back to its start; it must
+     relocalise, end in TRACKING and land within 0.15 m, with the launch
+     counts of every kernel following its queries, edges and solves, and
+     ivf_hamming exact on a query of the database it built (W = 1).
 
-Phase 4 ends with a torch.profiler breakdown of one more ViT-L tracked
+Phase 2 also holds the two gather probes' kernels (gather_rows_sum,
+take_along_rows) and the IVF bucket scoring (ivf_hamming, W 1, 2 and 32)
+exactly against their plain versions; their bytes bounds count the rows
+or elements this run's indices gather.  Phase 4 ends with a torch.profiler breakdown of one more ViT-L tracked
 frame (device time by kernel, launches, device busy share).  It prints one
 JSON line of kernel numbers, then as its last line
 {"ok": true, "device": {...}}.
@@ -76,6 +91,11 @@ SOLVE_BOUND_M = 1e-3       # full-width synthetic solve: max translation error, 
 # four rows of 8 products and 36 FMAs into the accumulator 320
 EDGE_HG_FLOPS = 406
 N_TRACKED = 5              # ViT-L tracked frames
+# retrieval scores, kernel route against plain route on the same tensors:
+# the distances are equal integers, and the rest is one f32 chain whose
+# scatter-add adds in atomic order
+RETRIEVAL_SCORE_RTOL = 1e-6
+RELOC_BOUND_M = 0.15       # post-reloc frames against ground truth (tests/test_reloc_e2e.py)
 
 
 def log(msg: str) -> None:
@@ -114,6 +134,23 @@ def time_cuda(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_kernel(kernel, plain, library=None, plain_iters: int = 20) -> dict:
+    """Each function timed two ways, the same two for all three: ms,
+    plain_ms and library_ms are device time a call (torch.profiler, which
+    raises where it lost kernels); call_ms and library_call_ms are CUDA
+    events around 20 back-to-back calls, which also read the host's launch
+    rate (PRs 1-2 read only these)."""
+    from mast3r_slam_tpu_torch.utils.timing import device_ms
+
+    out = dict(ms=device_ms(kernel), call_ms=time_cuda(kernel),
+               plain_ms=device_ms(plain, iters=plain_iters, warmup=min(3, plain_iters)),
+               library_ms=None, library_call_ms=None)
+    if library is not None:
+        out["library_ms"] = device_ms(library)
+        out["library_call_ms"] = time_cuda(library)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -137,14 +174,13 @@ def check_attention(dev, H: int):
         raise AssertionError(
             f"attention H={H}: max err {max_err} (<= {ATTN_MAX_ERR}), "
             f"mean err {mean_err} (<= {ATTN_MEAN_ERR})")
-    ms = time_cuda(lambda: attention.sdpa(q, k, v))
-    plain_ms = time_cuda(lambda: attention.sdpa_plain(q, k, v))
-    lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(q, k, v))
+    times = time_kernel(lambda: attention.sdpa(q, k, v),
+                        lambda: attention.sdpa_plain(q, k, v),
+                        lambda: F.scaled_dot_product_attention(q, k, v))
     flops = 4.0 * B * H * N * N * D
     nbytes = 4.0 * B * H * N * D * 2  # q, k, v read once, out written once
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    res = dict(shape=[B, H, N, D], max_abs_err=max_err, mean_abs_err=mean_err,
-               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+    res = dict(shape=[B, H, N, D], max_abs_err=max_err, mean_abs_err=mean_err, **times,
                bound_ms=max(t_ops, t_bytes) * 1e3,
                bound_by="operations" if t_ops >= t_bytes else "bytes")
     log(f"attention (1,{H},768,64) bf16: {json.dumps(res)}")
@@ -187,17 +223,17 @@ def check_refine(dev):
         log(f"refine (r={radius}, d={dil}) at 384x512 F=24: exact; "
             f"{moved:.3f} of pixels moved")
         if (radius, dil) == (3, 5):
-            ms = time_cuda(lambda: refine.refine_window(d11q, d21q, idx, H, W, 3, 5))
-            plain_ms = time_cuda(
+            times = time_kernel(
+                lambda: refine.refine_window(d11q, d21q, idx, H, W, 3, 5),
                 lambda: refine.refine_window_plain(d11q, d21q, idx, H, W, 3, 5),
-                iters=3, warmup=1)
+                plain_iters=3)
             nbytes = d11q.numel() + d21q.numel() + idx.numel() * 4 * 2
             # int8 multiply-adds of every candidate at every level; this
             # counts masked border candidates too, an upper bound that does
             # not move the bound (bytes exceed it 15-fold)
             ops = 2.0 * N * F * (2 * radius + 1) ** 2 * dil
             t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
-            res = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=None,
+            res = dict(max_abs_err=max_err, **times,
                        bound_ms=max(t_ops, t_bytes) * 1e3,
                        bound_by="operations" if t_ops >= t_bytes else "bytes")
     log(f"refine (r=3, d=5): {json.dumps(res)}")
@@ -259,16 +295,127 @@ def check_edge_hg(dev, E=32, N=384 * 512):
     passed = {k: v for k, v in faults.items() if not v > 100 * EDGE_HG_ERR_F64}
     if passed:
         raise AssertionError(f"edge blocks: planted faults within 100x the bound {passed}")
-    ms = time_cuda(lambda: edge_hg.edge_hg_rays(Tij, Xi, Xj, sq, **kw))
-    plain_ms = time_cuda(lambda: edge_hg.edge_hg_rays_plain(Tij, Xi, Xj, sq, **kw),
-                         iters=3, warmup=1)
+    times = time_kernel(lambda: edge_hg.edge_hg_rays(Tij, Xi, Xj, sq, **kw),
+                        lambda: edge_hg.edge_hg_rays_plain(Tij, Xi, Xj, sq, **kw),
+                        plain_iters=3)
     nbytes = E * N * 28 + E * 8 * 4 + E * 64 * 4  # Xi, Xj, sq, Tij in; Mloc out
     t_ops, t_bytes = E * N * EDGE_HG_FLOPS / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    res = dict(shape=[E, N], max_abs_err=max_err, scaled_err=errs, ms=ms, plain_ms=plain_ms,
-               library_ms=None, bound_ms=max(t_ops, t_bytes) * 1e3,
+    res = dict(shape=[E, N], max_abs_err=max_err, scaled_err=errs, **times,
+               bound_ms=max(t_ops, t_bytes) * 1e3,
                bound_by="operations" if t_ops >= t_bytes else "bytes")
     log(f"edge blocks ({E} edges, {N} px) f32: {json.dumps(res)}")
     return res
+
+
+def _bound(nbytes, ops=0.0, peak_ops=PEAK_F32_FLOPS):
+    t_ops, t_bytes = ops / peak_ops, nbytes / PEAK_BYTES
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops > t_bytes else "bytes")
+
+
+def _exact(name, got, want):
+    import torch
+
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: the kernel differs from its plain version")
+
+
+def _n_unique(x) -> int:
+    import torch
+
+    return int(torch.unique(x).numel())
+
+
+def check_gather_rows_sum(dev, M=196_608, T=196_608):
+    """Probe 1 at its largest table: int8 and f32, F 16 and 32, integer
+    values in [-100, 100), so every f32 sum is exact.  Bytes: the distinct
+    rows this run's indices gather (about 63 % of the table), the indices
+    and the sums.  Returns the int8 F=32 record."""
+    import torch
+    from mast3r_slam_tpu_torch.ops import gather
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    out = {}
+    for dtype in (torch.int8, torch.float32):
+        for F in (16, 32):
+            table = torch.randint(-100, 100, (M, F), device=dev, generator=g).to(dtype)
+            idx = torch.randint(0, M, (T,), device=dev, generator=g, dtype=torch.int32)
+            got = gather.gather_rows_sum(table, idx)
+            want = gather.gather_rows_sum_plain(table, idx)
+            torch.cuda.synchronize()
+            _exact(f"gather_rows_sum {dtype} F={F}", got, want)
+            times = time_kernel(
+                lambda: gather.gather_rows_sum(table, idx),
+                lambda: gather.gather_rows_sum_plain(table, idx),
+                lambda: torch.index_select(table, 0, idx).float().sum(-1))
+            nbytes = _n_unique(idx) * F * table.element_size() + T * 4 + T * 4
+            res = dict(shape=[M, F, T], dtype=str(dtype).split(".")[1], max_abs_err=0.0,
+                       **times, **_bound(nbytes, ops=T * F))
+            log(f"gather_rows_sum ({M}, {F}) {res['dtype']}, {T} rows: {json.dumps(res)}")
+            out[(res["dtype"], F)] = res
+    return out[("int8", 32)]
+
+
+def check_take_along_rows(dev, M=196_608):
+    """Probe 2 at its largest shapes, int8 and f32.  Bytes: the distinct
+    (row, column) elements this run's indices gather, the indices and the
+    output.  Returns the f32 (196608, 128) record."""
+    import torch
+    from mast3r_slam_tpu_torch.ops import gather
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    out = {}
+    for dtype in (torch.int8, torch.float32):
+        for F in (32, 128):
+            tab = torch.randint(-100, 100, (M, F), device=dev, generator=g).to(dtype)
+            idx = torch.randint(0, M, (M, F), device=dev, generator=g, dtype=torch.int32)
+            idx64 = idx.long()
+            got = gather.take_along_rows(tab, idx)
+            want = gather.take_along_rows_plain(tab, idx)
+            torch.cuda.synchronize()
+            _exact(f"take_along_rows {dtype} F={F}", got, want)
+            times = time_kernel(lambda: gather.take_along_rows(tab, idx),
+                                lambda: gather.take_along_rows_plain(tab, idx),
+                                lambda: torch.gather(tab, 0, idx64))
+            n_elems = _n_unique(idx64 * F + torch.arange(F, device=dev))
+            nbytes = (n_elems + idx.numel()) * tab.element_size() + idx.numel() * 4
+            res = dict(shape=[M, F], dtype=str(dtype).split(".")[1], max_abs_err=0.0,
+                       **times, **_bound(nbytes))
+            log(f"take_along_rows ({M}, {F}) {res['dtype']}: {json.dumps(res)}")
+            out[(res["dtype"], F)] = res
+    return out[("float32", 128)]
+
+
+def check_ivf_hamming(dev, Q=1500, cap=16, num_words=65_536):
+    """The bucket scoring at the full-width query (300 features x multiple
+    assignment 5) against a 64k-word IVF of depth 16, W = 1 (phase 8's
+    8-wide head), 2 (64-wide) and 32 (1024-wide).  Bytes: the distinct
+    buckets this run's words gather, the query codes and words, the
+    distances.  Returns the W=32 record."""
+    import torch
+    from mast3r_slam_tpu_torch.ops import gather
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    out = {}
+    for W in (1, 2, 32):
+        lim = 2 ** 31
+        bvecs = torch.randint(-lim, lim - 1, (num_words + 1, cap, W), device=dev,
+                              generator=g, dtype=torch.int32)
+        q = torch.randint(-lim, lim - 1, (Q, W), device=dev, generator=g, dtype=torch.int32)
+        qw = torch.randint(0, num_words + 1, (Q,), device=dev, generator=g,
+                           dtype=torch.int32)
+        got = gather.ivf_hamming(bvecs, q, qw)
+        want = gather.ivf_hamming_plain(bvecs, q, qw)
+        torch.cuda.synchronize()
+        _exact(f"ivf_hamming W={W}", got, want)
+        times = time_kernel(lambda: gather.ivf_hamming(bvecs, q, qw),
+                            lambda: gather.ivf_hamming_plain(bvecs, q, qw))
+        nbytes = _n_unique(qw) * cap * W * 4 + Q * W * 4 + Q * 4 + Q * cap * 4
+        res = dict(shape=[Q, cap, W], max_abs_err=0.0, **times, **_bound(nbytes, ops=3.0 * Q * cap * W))
+        log(f"ivf_hamming Q={Q} cap={cap} W={W}: {json.dumps(res)}")
+        out[W] = res
+        del bvecs
+    return out[32]
 
 
 # ---------------------------------------------------------------------------
@@ -469,7 +616,8 @@ def quat_to_matrix(q):
 class PlaneSceneModel:
     """Stand-in for MASt3RModel: the encode/asymmetric/symmetric/mono
     protocol over a closed box of planes seen from known camera poses.  Frame k's image is
-    a constant gray level that encodes k; encode puts k in feat[0, 0, 0].
+    a constant gray level that encodes k; encode puts k in feat[0, 0, 0] and
+    codes the pose in the other tokens.
     Pointmaps are exact, descriptors a view-invariant random-Fourier field
     of the world point, confidence varies with depth."""
 
@@ -491,6 +639,10 @@ class PlaneSceneModel:
         # keep distinct int8 descriptors (about 0.1 rad a pixel at depth 3 m)
         self.Wd = rng.normal(size=(24, 3)) * 2.0 * self.W / 64
         self.bd = rng.uniform(0, 2 * np.pi, size=24)
+        # pose-coded tokens (tests/oracle.py): nearby poses give similar
+        # tokens, so a retrieval head ranks keyframes by place
+        self.Wf = np.random.default_rng(7).normal(size=(self.feat_dim, 8)) * 2.0
+        self.phase = np.linspace(0, 2 * np.pi, self.num_patches)[:, None]
         u, v = np.meshgrid(np.arange(self.W), np.arange(self.H))
         rays = np.stack([(u - self.K[0, 2]) / f, (v - self.K[1, 2]) / f,
                          np.ones_like(u, float)], -1).reshape(-1, 3)
@@ -528,8 +680,10 @@ class PlaneSceneModel:
 
     def encode(self, img):
         fid = int(round((float(img.float().mean()) + 1) / 2 * 255)) - 1
-        feat = self._torch.zeros(1, self.num_patches, self.feat_dim, device=self.device)
-        feat[0, 0, 0] = fid
+        tok = np.sin(self.gt[fid] @ self.Wf.T + self.phase)
+        tok[0] = 0.0
+        tok[0, 0] = fid  # token 0 carries the frame id to the decoder
+        feat = self._t(tok, (1, self.num_patches, self.feat_dim))
         pos = self._torch.zeros(1, self.num_patches, 2, dtype=self._torch.int32,
                                 device=self.device)
         return feat, pos
@@ -614,9 +768,10 @@ def umeyama_rmse(est, gt):
 
 
 def launch_counters():
-    from mast3r_slam_tpu_torch.ops import attention, edge_hg, refine
+    from mast3r_slam_tpu_torch.ops import attention, edge_hg, gather, refine
 
-    return (attention.counter, refine.counter, edge_hg.counter)
+    return (attention.counter, refine.counter, edge_hg.counter, gather.sum_counter,
+            gather.take_counter, gather.ivf_counter)
 
 
 def reset_counts():
@@ -797,6 +952,202 @@ def run_vitl_backend(dev, model, hw=(384, 512)):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: retrieval at full width
+# ---------------------------------------------------------------------------
+
+class _Tokens:
+    """The one attribute of a frame that retrieval reads."""
+
+    def __init__(self, feat):
+        self.feat = feat
+
+
+def query_hamming_exact(db, feat) -> bool:
+    """ivf_hamming against its plain version on the tensors a query of
+    ``feat`` gives it in ``db``: the bucket codes, the query's packed codes
+    and its words, invalid ones routed to the trash bucket."""
+    import torch
+    from mast3r_slam_tpu_torch.ops import gather
+
+    feats, codes = db._extract_quantize(feat)
+    packed, words, valid = db._codes(feats, codes, db.s.ma_query)
+    bvecs = db.ivf.bvecs
+    qw = torch.where(valid, words, bvecs.shape[0] - 1).to(torch.int32)
+    got = gather.ivf_hamming(bvecs, packed, qw)
+    return torch.equal(got, gather.ivf_hamming_plain(bvecs, packed, qw))
+
+
+def run_retrieval(dev, model, hw=(384, 512), n_db=512, n_real=4, n_timed=3,
+                  hdims=(1024,), nfeat=300, num_words=65_536):
+    """The database at the JAX package's default head (hdims (1024,), 300
+    features) with a seeded 64k-word codebook, multiple assignment 5 on query
+    and 1 on build, over ViT-L encoder tokens (1, 768, 1024).  It is filled to
+    n_db keyframes: n_real by ``update`` from real frames, the rest from
+    seeded codes (scripts/microbench_ivf.py's fill).  Then ``update`` and
+    ``query`` of further frames are timed (host clock between
+    synchronisations), each with the launch counters reset just before and
+    read just after; ivf_hamming is held exactly against its plain version
+    on a query's own tensors, and the kernel route's scores against the
+    plain route's; and ``update`` runs twice on one state.  Returns a dict
+    of readings."""
+    import copy
+
+    import torch
+    from mast3r_slam_tpu_torch.ops import gather
+    from mast3r_slam_tpu_torch.retrieval import (ASMKSettings, RetrievalDatabase,
+                                                 RetrievalHeadSettings, asmk)
+    from mast3r_slam_tpu_torch.retrieval.head import init_head_params
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    D = model.feat_dim
+    params = init_head_params(g, D, hdims=hdims)
+    centroids = torch.randn((num_words, hdims[-1]), device=dev, generator=g)
+    db = RetrievalDatabase(params, centroids, RetrievalHeadSettings(nfeat=nfeat),
+                           ASMKSettings(max_images=n_db), device=dev)
+    imgs = smooth_images(n_real + 2 * n_timed, hw, dev, seed=33)
+    tokens = [model.encode(imgs[i:i + 1])[0] for i in range(len(imgs))]
+    if tuple(tokens[0].shape) != (1, model.num_patches, D):
+        raise AssertionError(f"retrieval: tokens of shape {tuple(tokens[0].shape)}")
+    for k in range(n_real):
+        db.update(_Tokens(tokens[k]), True, k=3, min_thresh=0.005, kf_index=k)
+    W = db.ivf.words
+    t0 = time.perf_counter()
+    for k in range(n_real, n_db):  # seeded codes, as scripts/microbench_ivf.py
+        packed = torch.randint(-2 ** 31, 2 ** 31 - 1, (nfeat, W), device=dev, generator=g,
+                               dtype=torch.int32)
+        words = torch.randint(0, num_words, (nfeat,), device=dev, generator=g)
+        db.ivf.add(packed, words, torch.ones(nfeat, dtype=torch.bool, device=dev), imid=k)
+    db.kf_counter = n_db
+    sync(dev)
+    fill_s = time.perf_counter() - t0
+
+    def timed(fn):
+        sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        return out, (time.perf_counter() - t0) * 1e3, read_counts()
+
+    upd_ms, qry_ms, launches = [], [], []
+    for i in range(n_timed):
+        fr = _Tokens(tokens[n_real + i])
+        inds, ms, c = timed(lambda: db.query(fr, 3, 0.005))
+        qry_ms.append(ms)
+        launches.append(("query", c))
+        inds, ms, c = timed(lambda: db.update(fr, True, k=3, min_thresh=0.005,
+                                              kf_index=n_db + i))
+        upd_ms.append(ms)
+        launches.append(("update", c))
+
+    if dev.type == "cuda":
+        fr = _Tokens(tokens[n_real])
+        profile("one full-width retrieval query", lambda: db.query(fr, 3, 0.005), top=12)
+
+    # the kernel route against the plain route on the same card tensors
+    fr = _Tokens(tokens[n_real + n_timed])
+    hamming_exact = query_hamming_exact(db, fr.feat)
+    feats, codes = db._extract_quantize(fr.feat)
+    packed, words, valid = db._codes(feats, codes, db.s.ma_query)
+    ivf = db.ivf
+    args = (ivf.bvecs, ivf.bimids, ivf.norm_factor, packed, words, valid, ivf.dim,
+            ivf.s.alpha, ivf.s.similarity_threshold, ivf.s.max_images)
+    kern = asmk.ivf_search_bucketed(*args)[: ivf.n_images].cpu().numpy()
+    plain = asmk.ivf_search_bucketed(*args, hamming=gather.ivf_hamming_plain)
+    plain = plain[: ivf.n_images].cpu().numpy()
+    rel = float(np.max(np.abs(kern - plain) / np.maximum(np.abs(plain), 1e-30)))
+    same_topk = bool(np.array_equal(np.argsort(-kern)[:3], np.argsort(-plain)[:3]))
+
+    # update twice on one state: the same candidates and the same stored codes
+    state = (copy.deepcopy(db.ivf), db.kf_counter)
+    runs = []
+    for _ in range(2):
+        db.ivf, db.kf_counter = copy.deepcopy(state[0]), state[1]
+        inds = db.update(fr, True, k=3, min_thresh=0.005, kf_index=ivf.n_images)
+        runs.append((inds, db.ivf.bvecs.clone(), db.ivf.bimids.clone()))
+    repeat_same = (runs[0][0] == runs[1][0] and torch.equal(runs[0][1], runs[1][1])
+                   and torch.equal(runs[0][2], runs[1][2]))
+    out = dict(n_images=ivf.n_images, n_entries=ivf.n_entries, bucket_cap=db.ivf.bucket_cap,
+               fill_s=fill_s, update_ms=upd_ms, query_ms=qry_ms, launches=launches,
+               hamming_exact=hamming_exact, kernel_vs_plain_rel=rel, same_topk=same_topk,
+               repeat_same=repeat_same,
+               candidates=runs[0][0], scores_max=float(kern.max()))
+    log(f"retrieval at full width (head {D}->{hdims}, {nfeat} features, {num_words} "
+        f"words, {ivf.n_images} images): {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: relocalisation on the synthetic scene
+# ---------------------------------------------------------------------------
+
+def teleport_trajectory(n_track=24, n_after=6, max_angle=3.5):
+    """An arc that turns 1.4 rad, more than the camera's 1.1 rad field of
+    view, then the camera back near its start (2 cm aside): tracking breaks
+    and retrieval must find the early keyframes."""
+    arc = arc_trajectory(n_track, max_angle=max_angle)
+    back = arc[1:n_after + 1].copy()
+    back[:, 0] += 0.02
+    return np.concatenate([arc, back])
+
+
+def run_synthetic_reloc(dev, hw=(384, 512), n_track=24, n_after=6):
+    """SLAM.run with a small retrieval head (tests/test_reloc_e2e.py's
+    sizing: hdims (8,), 8 features, 64 words) and reloc.strict False over
+    the teleport trajectory, the launch counters reset just before and read
+    just after.  Returns (result, slam, gt, launch counts, add_factors
+    calls, whether ivf_hamming equalled its plain version on the run's
+    database)."""
+    import torch
+    from mast3r_slam_tpu_torch.config import load_config
+    from mast3r_slam_tpu_torch.retrieval import (ASMKSettings, RetrievalDatabase,
+                                                 RetrievalHeadSettings)
+    from mast3r_slam_tpu_torch.retrieval.head import init_head_params
+    from mast3r_slam_tpu_torch.slam.pipeline import SLAM
+
+    gt = teleport_trajectory(n_track, n_after)
+    model = PlaneSceneModel(hw, gt, dev)
+    g = torch.Generator().manual_seed(41)
+    params = init_head_params(g, model.feat_dim, hdims=(8,), device=dev)
+    centroids = torch.randn((64, 8), generator=g) * 0.3
+    db = RetrievalDatabase(params, centroids, RetrievalHeadSettings(nfeat=8),
+                           ASMKSettings(max_images=64), device=dev)
+    cfg = load_config("base")
+    cfg["single_thread"] = True
+    cfg["engine"]["edge_buffer"] = 64
+    cfg["reloc"]["strict"] = False
+    slam = SLAM(model, cfg, hw, keyframe_buffer=32, retrieval=db, device=dev)
+    calls = []
+    add_factors = slam.graph.add_factors
+
+    def counted(*a, **kw):  # one refine launch per call (one matching pass)
+        calls.append(kw.get("is_reloc", False))
+        return add_factors(*a, **kw)
+
+    slam.graph.add_factors = counted
+    reset_counts()
+    t0 = time.perf_counter()
+    res = slam.run(PlaneSceneDataset(model, len(gt)), verbose=False)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    n = len(gt)
+    # ivf_hamming (W = 1 here) on a query of the last frame against the
+    # database the run built, after the counts were read
+    last = torch.as_tensor(model.preprocessed(n - 1)["img"], device=dev)[None]
+    hamming_exact = query_hamming_exact(db, model.encode(last)[0])
+    err = np.linalg.norm(res.frame_poses[-3:, :3] - gt[-3:, :3], axis=-1)
+    E = slam.graph.n_edges
+    log(f"synthetic reloc {hw[0]}x{hw[1]}, {n} frames (teleport after {n_track}): "
+        f"{wall:.2f} s, {res.n_reloc} reloc, {res.n_reloc_success} succeeded, "
+        f"{res.n_keyframes} keyframes, edges {list(zip(slam.graph.ii[:E].tolist(), slam.graph.jj[:E].tolist()))}, "
+        f"post-reloc error {err.round(5).tolist()} m, mode {slam.mode.name}, launches "
+        f"{counts}, add_factors calls {len(calls)} ({sum(calls)} reloc), ivf_hamming "
+        f"W={db.ivf.words} exact {hamming_exact}; stages (host clock, ms) "
+        f"{json.dumps(slam.timer.stats())}")
+    return res, slam, gt, counts, calls, hamming_exact
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -830,6 +1181,9 @@ def main() -> int:
     check_attention(dev, 12)
     ref = check_refine(dev)
     ehg = check_edge_hg(dev)
+    grs = check_gather_rows_sum(dev)
+    tar = check_take_along_rows(dev)
+    ivf = check_ivf_hamming(dev)
     check_small_model(dev)
 
     counts, times, vitl = run_vitl(dev)
@@ -859,8 +1213,36 @@ def main() -> int:
     solves = run_synthetic_solve(dev)
     backend_counts, backend_split = run_vitl_backend(dev, vitl)
 
-    common = lambda r: {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms")}
+    retr = run_retrieval(dev, vitl)
+    if any(c != {**{k: 0 for k in c}, "ivf_hamming": 1} for _, c in retr["launches"]):
+        raise AssertionError(f"full-width retrieval launches {retr['launches']}: "
+                             f"expected one ivf_hamming and nothing else a call")
+    if not (retr["hamming_exact"] and retr["kernel_vs_plain_rel"] <= RETRIEVAL_SCORE_RTOL
+            and retr["same_topk"] and retr["repeat_same"] and retr["n_images"] > 512
+            and retr["bucket_cap"] == 16):
+        raise AssertionError(f"full-width retrieval: {retr}")
+
+    rres, rslam, rgt, rcounts, rcalls, rhamming = run_synthetic_reloc(dev)
+    st = rslam.timer.stats()
+    n_upd = st["backend.retrieval"]["count"]   # the first only adds keyframe 0
+    n_qry = st.get("reloc.retrieval", {"count": 0})["count"]
+    n_solves = st.get("backend.solve", {"count": 0})["count"] + rres.n_reloc_success
+    post_err = float(np.linalg.norm(rres.frame_poses[-3:, :3] - rgt[-3:, :3], axis=-1).max())
+    want = {"attention": 0, "gather_rows_sum": 0, "take_along_rows": 0,
+            "ivf_hamming": n_upd - 1 + n_qry,
+            "refine_window": st["tracker.track"]["count"] + len(rcalls)}
+    if ({k: rcounts[k] for k in want} != want or rcounts["edge_hg_rays"] < n_solves
+            or not rhamming or rres.n_reloc < 1 or rres.n_reloc_success < 1
+            or rslam.mode.name != "TRACKING" or post_err >= RELOC_BOUND_M):
+        raise AssertionError(
+            f"synthetic reloc: launches {rcounts} (expected {want} and edge_hg_rays >= "
+            f"{n_solves}), ivf_hamming exact {rhamming}, {rres.n_reloc} reloc, "
+            f"{rres.n_reloc_success} succeeded, mode {rslam.mode.name}, post-reloc error "
+            f"{post_err} m (bound {RELOC_BOUND_M})")
+
+    common = lambda r: {k: r[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
+                                          "bound_ms", "bound_by", "library_ms",
+                                          "library_call_ms")}
     line = {"kernels": [
         dict(name="attention", route="cuda",
              source="mast3r_slam_tpu_torch/csrc/attention.cu",
@@ -874,10 +1256,29 @@ def main() -> int:
              source="mast3r_slam_tpu_torch/csrc/edge_hg_rays.cu",
              replaces="mast3r_slam_tpu/ops/edge_hg_pallas.py:130",
              launches=backend_counts["edge_hg_rays"], shape=ehg["shape"], **common(ehg)),
+        # the next three: launches in phase 8's SLAM.run (retrieval and reloc);
+        # the two probes lie on no package path, their row-gather kernel
+        # runs there as ivf_hamming
+        dict(name="gather_rows_sum", route="cuda",
+             source="mast3r_slam_tpu_torch/csrc/gather_rows.cu",
+             replaces="scripts/tpu_r4_experiments.py:52",
+             launches=rcounts["gather_rows_sum"], shape=grs["shape"], **common(grs)),
+        dict(name="take_along_rows", route="cuda",
+             source="mast3r_slam_tpu_torch/csrc/take_along_rows.cu",
+             replaces="scripts/tpu_r4_experiments.py:339",
+             launches=rcounts["take_along_rows"], shape=tar["shape"], **common(tar)),
+        dict(name="ivf_hamming", route="cuda",
+             source="mast3r_slam_tpu_torch/csrc/gather_rows.cu",
+             replaces="mast3r_slam_tpu/retrieval/asmk.py:307",
+             launches=rcounts["ivf_hamming"], shape=ivf["shape"], **common(ivf)),
     ], "tracked_frame_ms": frame_ms, "synthetic_ate_m": ate,
         "full_width_solve": {k: {"max_err_m": e, "iters": i, "ms": ms}
                              for k, (e, i, _, ms) in solves.items()},
-        "vitl_backend_task": backend_split}
+        "vitl_backend_task": backend_split,
+        "retrieval_full_width": {k: retr[k] for k in ("update_ms", "query_ms",
+                                                      "kernel_vs_plain_rel")},
+        "synthetic_reloc": {"n_reloc": rres.n_reloc, "n_reloc_success": rres.n_reloc_success,
+                            "post_reloc_err_m": post_err}}
     log(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

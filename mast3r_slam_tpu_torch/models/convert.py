@@ -4,6 +4,8 @@
 or a converted checkpoint, as numpy arrays) into the port's layout;
 ``load_params`` reads the ``models/io.py`` npz (format v2) and does the
 same, so a machine without JAX can load a converted checkpoint.
+``retrieval_from_jax`` carries the retrieval head's parameters and the
+codebook across (every leaf as it is: the head has no convolutions).
 
 Layouts:
   * stacked ``enc_blocks`` / ``dec_blocks`` / ``dec_blocks2`` (leading depth
@@ -47,6 +49,10 @@ def _to_tensor(a, device) -> torch.Tensor:
 def _convert(node, device):
     if isinstance(node, dict):
         return {k: _convert(v, device) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_convert(v, device) for v in node]
+    if node is None:
+        return None
     return _to_tensor(node, device)
 
 
@@ -72,6 +78,14 @@ def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
         else:
             out[k] = _convert(v, device)
     return out
+
+
+def retrieval_from_jax(head_params: Dict[str, Any], centroids, device="cpu"):
+    """The JAX retrieval head's parameter dict (``init_head_params`` or
+    ``convert_torch_retrieval_head`` output, as numpy arrays) and its codebook
+    -> (port head params, centroids tensor), for ``RetrievalDatabase``."""
+    device = torch.device(device)
+    return _convert(head_params, device), _to_tensor(centroids, device)
 
 
 def load_params(path, device="cpu") -> Dict[str, Any]:

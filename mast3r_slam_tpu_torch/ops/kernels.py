@@ -23,18 +23,26 @@ _PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
 
+# one shared library per source
 SOURCES = {
     "attention": "attention.cu",
     "refine_window": "refine_window.cu",
     "edge_hg_rays": "edge_hg_rays.cu",
+    "gather_rows": "gather_rows.cu",
+    "take_along_rows": "take_along_rows.cu",
 }
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# the C entry point of each library and its argument types; every pointer
+# each kernel's library, C entry point and argument types; every pointer
 # and the stream go as c_void_p (64 bits), every int as c_int
 ENTRY_POINTS = {
-    "attention": ("attention_bf16_d64", [_P] * 4 + [_I] * 3 + [ctypes.c_float, _P]),
-    "refine_window": ("refine_window_i8", [_P] * 4 + [_I] * 7 + [_P]),
-    "edge_hg_rays": ("edge_hg_rays_f32", [_P] * 6 + [_I] * 3 + [ctypes.c_float] * 3 + [_P]),
+    "attention": ("attention", "attention_bf16_d64",
+                  [_P] * 4 + [_I] * 3 + [ctypes.c_float, _P]),
+    "refine_window": ("refine_window", "refine_window_i8", [_P] * 4 + [_I] * 7 + [_P]),
+    "edge_hg_rays": ("edge_hg_rays", "edge_hg_rays_f32",
+                     [_P] * 6 + [_I] * 3 + [ctypes.c_float] * 3 + [_P]),
+    "gather_rows_sum": ("gather_rows", "gather_rows_sum", [_P] * 3 + [_I] * 4 + [_P]),
+    "ivf_hamming": ("gather_rows", "ivf_hamming", [_P] * 4 + [_I] * 4 + [_P]),
+    "take_along_rows": ("take_along_rows", "take_along_rows", [_P] * 3 + [_I] * 4 + [_P]),
 }
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -47,7 +55,8 @@ NVCC_FLAGS = [
     "-v",
 ]
 
-_libs: Dict[str, object] = {}
+_libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[str, object] = {}
 _lock = threading.Lock()
 # ptxas report (registers, shared memory, spills) of each library built by
 # this process, for the chip smoke run to print
@@ -111,14 +120,17 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
 def entry_point(name: str):
     """The C launch function of one kernel, its library built first if needed."""
     with _lock:
-        fn = _libs.get(name)
+        fn = _fns.get(name)
         if fn is None:
-            path = build_all([name])[name]
-            symbol, argtypes = ENTRY_POINTS[name]
-            fn = getattr(ctypes.CDLL(str(path)), symbol)
+            lib_name, symbol, argtypes = ENTRY_POINTS[name]
+            lib = _libs.get(lib_name)
+            if lib is None:
+                lib = ctypes.CDLL(str(build_all([lib_name])[lib_name]))
+                _libs[lib_name] = lib
+            fn = getattr(lib, symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _libs[name] = fn
+            _fns[name] = fn
         return fn
 
 

@@ -5,7 +5,8 @@
 batch 2B) and two-way dense matching (one ``matching.match`` call over all
 2B images: each image's matching is independent of the others), gates the
 edges by their bidirectional match fraction (consecutive edges are always
-kept; ``strict`` keeps all or none) and stores them.  ``solve`` expands the
+kept; ``strict``, the default for relocalisation edges, keeps all or
+none) and stores them.  ``solve`` expands the
 stored edges both ways and runs the global Gauss-Newton over every
 keyframe pose, through the gathered-point cache when it applies, then
 writes the solved poses back to the keyframe store.
@@ -187,12 +188,17 @@ class FactorGraph:
     # ------------------------------------------------------------------
 
     def add_factors(self, ii: List[int], jj: List[int], min_match_frac: float,
-                    strict: bool = False) -> bool:
+                    is_reloc: bool = False, strict: bool = None) -> bool:
         """Symmetric inference + two-way matching for the pairs (ii[b],
         jj[b]), then gate and store.  An edge is kept when both match
         fractions reach ``min_match_frac`` or it is consecutive (jj = ii + 1);
-        with ``strict`` one rejected edge rejects them all.  Returns whether
-        any edge was stored."""
+        with ``strict`` one rejected edge rejects them all.  ``is_reloc``
+        marks relocalisation edges (the new keyframe as ii, so never
+        consecutive); ``strict`` defaults to it.  Every edge takes the
+        symmetric path here, the only one ported.  Returns whether any edge
+        was stored."""
+        if strict is None:
+            strict = is_reloc
         if len(ii) == 0:
             return False
         snap = self.keyframes.snapshot()

@@ -6,7 +6,8 @@ device, written IN PLACE (one slot per keyframe) rather than rebuilt the
 functional way the JAX package does, which would copy the whole store on
 every write.  Capacity doubles when it runs out.  The factor graph reads it
 through ``snapshot`` and ``pm_version`` and writes solved poses back with
-``write_back_poses``.
+``write_back_poses``; relocalisation appends, snaps (``update_pose``) or
+pops (``pop_last``) a keyframe, and retrieval reads one (``get_frame``).
 """
 
 from __future__ import annotations
@@ -254,6 +255,28 @@ class Keyframes:
 
     def last_idx(self) -> int:
         return self.n - 1
+
+    def get_frame(self, idx: int) -> Frame:
+        """Keyframe ``idx`` as a Frame over views into the store (one host
+        read for its fusion counters and score)."""
+        n_fused, n_updates, score = torch.stack(
+            [self.n_fused[idx].float(), self.n_updates[idx].float(),
+             self.score[idx].float()]).cpu().tolist()
+        return Frame(frame_id=int(self.frame_id[idx]), img=None, T_WC=self.T_WC[idx],
+                     X_canon=self.X[idx], C=self.C[idx], n_fused=int(n_fused),
+                     n_updates=int(n_updates), score=score, feat=self.feat[idx][None],
+                     pos=self.pos[idx][None], K=self.K, uimg=self.uimgs[idx])
+
+    def pop_last(self):
+        """Drop the last keyframe (a failed relocalisation).  ``pm_version``
+        of the slot is kept: the next ``append`` into it bumps the version
+        again, so no cached gather of the popped keyframe is served."""
+        self.n -= 1
+        self.frame_id[self.n] = -1
+        self.uimgs[self.n] = None
+
+    def update_pose(self, idx: int, T_WC):
+        self.T_WC[idx] = T_WC.to(self.T_WC)
 
     def update_pointmap(self, idx: int, X, C, n_fused, n_updates, score):
         """The tracker's per-frame commit of the keyframe's fused state."""

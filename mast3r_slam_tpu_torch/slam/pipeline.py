@@ -2,10 +2,14 @@
 
 ``SLAM`` runs the INIT / TRACKING / RELOC mode machine frame by frame,
 ``single_thread: True`` and ``engine.pipeline: 0`` semantics.  After every
-new keyframe it runs the backend task in line: the consecutive edge
-(kf - 1, kf) through ``FactorGraph.add_factors``, then
-``FactorGraph.solve`` over all keyframe poses.  Without retrieval there are
-no loop-closure edges and relocalisation fails, as in the JAX package.
+new keyframe it runs the backend task in line: with a
+``RetrievalDatabase``, a query of the new keyframe that then adds it; edges
+from the retrieved keyframes and the previous one to the new one through
+``FactorGraph.add_factors``; then ``FactorGraph.solve`` over all keyframe
+poses.  A frame in RELOC mode queries the database, appends itself as a
+keyframe, and keeps it (snapped to the best candidate's pose, then solved)
+if its reloc edges pass, or pops it.  Without retrieval there are no
+loop-closure edges and relocalisation fails, as in the JAX package.
 Settings this slice does not port raise ``NotImplementedError``.
 """
 
@@ -20,6 +24,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..lie import sim3
+from ..retrieval.database import RetrievalDatabase
 from ..utils.image import resize_img
 from ..utils.timing import StageTimer
 from .factor_graph import FactorGraph
@@ -51,10 +56,10 @@ def _check_ported(cfg, retrieval):
                       ("device_keyframes", "ROADMAP Queue 1, item 8: keyframe paging")):
         if int(engine.get(key, 0) or 0) != 0:
             raise NotImplementedError(f"engine.{key}: {engine[key]!r} is not ported yet ({item})")
-    if retrieval is not None:
-        raise NotImplementedError(
-            "retrieval is not ported yet (ROADMAP Queue 1, item 9: retrieval "
-            "and relocalisation)")
+    if retrieval is not None and not isinstance(retrieval, RetrievalDatabase):
+        raise TypeError(
+            f"retrieval is a {type(retrieval).__name__}; the port takes its own "
+            "mast3r_slam_tpu_torch.retrieval.RetrievalDatabase")
 
 
 class SLAM:
@@ -67,6 +72,7 @@ class SLAM:
         self.model = model
         self.cfg = cfg
         self.img_hw = tuple(img_hw)
+        self.retrieval = retrieval
         cap = keyframe_buffer or cfg["engine"]["keyframe_buffer"]
         self.keyframes = Keyframes(
             capacity=cap,
@@ -105,20 +111,58 @@ class SLAM:
                      uimg=r.get("unnormalized_img"))
 
     def _submit_backend(self, kf_idx: int):
-        """One backend task, in line (run_backend, main.py:96-143, without
-        retrieval): the edge to the previous keyframe, then the global solve."""
+        """One backend task, in line (run_backend, main.py:96-143): retrieval
+        candidates and the previous keyframe, edges from them to the new
+        keyframe, then the global solve."""
         with self.timer.time("backend.update"):
-            if kf_idx < 1:
+            cfg = self.cfg
+            candidates = set()
+            if self.retrieval is not None:
+                with self.timer.time("backend.retrieval"):
+                    candidates.update(self.retrieval.update(
+                        self.keyframes.get_frame(kf_idx), add_after_query=True,
+                        k=cfg["retrieval"]["k"], min_thresh=cfg["retrieval"]["min_thresh"],
+                        kf_index=kf_idx))
+            if kf_idx >= 1:
+                candidates.add(kf_idx - 1)
+            candidates.discard(kf_idx)
+            kf_idxs = sorted(candidates)
+            if not kf_idxs:
                 return
             with self.timer.time("backend.add_factors"):
-                self.graph.add_factors([kf_idx - 1], [kf_idx],
-                                       self.cfg["local_opt"]["min_match_frac"])
+                self.graph.add_factors(kf_idxs, [kf_idx] * len(kf_idxs),
+                                       cfg["local_opt"]["min_match_frac"])
             with self.timer.time("backend.solve"):
                 self.graph.solve()
 
     def _relocalize(self, frame: Frame) -> bool:
-        """Retrieval-driven relocalisation; without retrieval it fails."""
-        return False
+        """Retrieval-driven relocalisation (main.py:28-71); without retrieval
+        it fails."""
+        if self.retrieval is None:
+            return False
+        cfg = self.cfg
+        with self.timer.time("reloc.retrieval"):
+            inds, pre = self.retrieval.query(frame, k=cfg["retrieval"]["k"],
+                                             min_thresh=cfg["retrieval"]["min_thresh"])
+        if not inds:
+            return False
+        kf_idx = self.keyframes.append(frame)
+        # the new keyframe is ii and the retrieved ones jj, so the
+        # always-keep rule of consecutive edges never applies
+        ok = self.graph.add_factors([kf_idx] * len(inds), list(inds),
+                                    cfg["reloc"]["min_match_frac"], is_reloc=True,
+                                    strict=cfg["reloc"]["strict"])
+        if not ok:  # nothing was stored: drop the keyframe again
+            self.keyframes.pop_last()
+            return False
+        self.retrieval.add(frame, precomputed=pre, kf_index=kf_idx)
+        # snap to the best candidate's pose before the solve moves the store
+        T = self.keyframes.T_WC[inds[0]].clone()
+        self.keyframes.update_pose(kf_idx, T)
+        frame.T_WC = T
+        frame.T_WC_np = None
+        self.graph.solve()
+        return True
 
     def process_frame(self, frame_id: int, timestamp: str, rgb01: np.ndarray = None,
                       last_T_WC=None, pre: dict = None) -> Frame:
@@ -159,6 +203,8 @@ class SLAM:
             score_mode=self.cfg["tracking"]["filtering_score"])
         if self.mode == Mode.INIT:
             self.keyframes.append(frame)
+            if self.retrieval is not None:
+                self._submit_backend(0)  # adds the first keyframe to the database
             self.mode = Mode.TRACKING
             self._log(timestamp, frame)
             return

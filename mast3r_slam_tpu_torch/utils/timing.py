@@ -1,8 +1,9 @@
 """Per-stage wall-clock timing (port of ``mast3r_slam_tpu/utils/timing.py``).
 
-Host clock only: CUDA work is asynchronous, so a stage's time covers its
-device work only where the stage itself waits for the device (a tracked
-frame ends in its stats read).
+``StageTimer`` reads the host clock only: CUDA work is asynchronous, so a
+stage's time covers its device work only where the stage itself waits for
+the device (a tracked frame ends in its stats read).  ``device_ms`` reads
+the card's own kernel durations and raises where the profiler lost them.
 """
 
 from __future__ import annotations
@@ -48,3 +49,33 @@ class StageTimer:
                 "count": int(len(arr)),
             }
         return out
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device milliseconds per call of ``fn`` on the CUDA card: the summed
+    durations of every kernel its ``iters`` calls launched, from
+    torch.profiler (CUPTI), so that a kernel shorter than its launch is not
+    timed at the rate the host can launch it.
+
+    Every call launches at least one kernel, so a trace with fewer kernel
+    records than calls has lost some; it is taken again, and after three
+    such traces this raises rather than read low."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if len(kernels) >= iters:
+            return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / iters
+        seen.append(len(kernels))
+    raise RuntimeError(f"device_ms: the profiler recorded {seen} kernels over {iters} "
+                       f"calls in three traces; the device time cannot be read")

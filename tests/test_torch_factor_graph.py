@@ -133,6 +133,48 @@ def test_gate_rules_equal_jax():
     np.testing.assert_array_equal(tg.jj[:3], jg.jj[:3])
 
 
+def test_reloc_edges_are_strict_unless_told():
+    """``is_reloc`` makes ``strict`` the default; ``strict=False`` keeps the
+    edges that pass.  The new keyframe is ii, so no reloc edge counts as
+    consecutive, even one to the keyframe just before it."""
+    jg, tg, _, _ = _setup("base", n_kf=4)
+    for g in (jg, tg):
+        assert not g.add_factors([3, 3], [0, 2], 0.2, is_reloc=True)
+        assert g.add_factors([3, 3], [0, 2], 0.2, is_reloc=True, strict=False)
+        assert not g.add_factors([3], [2], 1.1, is_reloc=True, strict=False)
+    assert tg.n_edges == jg.n_edges >= 1
+    E = tg.n_edges
+    np.testing.assert_array_equal(tg.ii[:E], jg.ii[:E])
+    np.testing.assert_array_equal(tg.jj[:E], jg.jj[:E])
+
+
+def test_popped_slot_is_regathered():
+    """A keyframe popped after a failed relocalisation leaves its slot's
+    ``pm_version`` moving, so the keyframe appended into that slot next is
+    re-gathered by the cache: solves through the cache and without it keep
+    giving the same poses."""
+    _, tc, _, _ = _setup("base", n_kf=4)
+    _, tu, _, _ = _setup("base", n_kf=4)
+    tu._gcache_on = False
+    kf = tc.keyframes
+    a, b = kf.get_frame(2), kf.get_frame(1)  # stand-ins for two new keyframes
+    assert a.frame_id == 4 and a.n_fused == 1 and torch.equal(a.X_canon, kf.X[2])
+    for g in (tc, tu):
+        g.keyframes.append(a)
+        g.add_factors([3, 4], [4, 0], 0.0)
+        g.solve()
+    v = kf.pm_version[4]
+    for g in (tc, tu):
+        g.keyframes.pop_last()
+        assert len(g.keyframes) == 4 and g.keyframes.frame_id[4] == -1
+        g.keyframes.append(b)  # into the popped slot
+        g.keyframes.update_pose(4, g.keyframes.T_WC[1])
+        g.solve()
+    assert kf.pm_version[4] > v and kf.frame_id[4] == 2
+    assert (tc._stamp_f[:tc.n_edges] == kf.pm_version[tc.ii[:tc.n_edges]]).all()
+    assert_close(tc.keyframes.T_WC, tu.keyframes.T_WC, 0, 1e-6, "after the pop")
+
+
 def test_gather_cache_matches_the_gather_in_solve():
     """Solves through the cache and without it give the same poses, also
     after a keyframe's pointmap changed (its version moved) between solves."""

@@ -21,6 +21,8 @@ more than the kernel's tree of partial sums).  At 32 x 384*512 on an H100
 the kernel reads 4.2e-6 against float64 and 4.3e-4 against the f32 plain
 version, which itself reads 4.3e-4 against float64; planted faults read
 0.031 to 1.  Under invalid pixels (sq = 0) bitwise equality.
+The gathers (gather_rows_sum, ivf_hamming, take_along_rows): exact, on
+integer-valued inputs whose f32 sums are exact.
 """
 
 import numpy as np
@@ -28,7 +30,7 @@ import pytest
 import torch
 
 from mast3r_slam_tpu_torch.lie import sim3
-from mast3r_slam_tpu_torch.ops import attention, edge_hg, refine
+from mast3r_slam_tpu_torch.ops import attention, edge_hg, gather, refine
 from mast3r_slam_tpu_torch.ops import global_gn
 
 pytestmark = pytest.mark.gpu
@@ -243,3 +245,142 @@ def test_plain_ray_blocks_on_the_card_raise(cuda, impl):
     with pytest.raises(NotImplementedError, match="edge-block kernel"):
         global_gn.gauss_newton_poses(*args, hw, global_gn.GlobalGNSettings(hg_impl=impl),
                                      "rays")
+
+
+# ---------------------------------------------------------------------------
+# gathers: gather_rows_sum, ivf_hamming, take_along_rows (exact)
+# ---------------------------------------------------------------------------
+
+def _ints(shape, lo, hi, device, seed, dtype=torch.int32):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(lo, hi, shape, device=device, generator=g, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float32])
+@pytest.mark.parametrize("M,F,T", [(196608, 32, 196608), (196608, 16, 16384), (4096, 8, 1000),
+                                   (300, 20, 77), (50, 128, 5)])
+def test_gather_rows_sum_kernel_matches_plain_exactly(cuda, dtype, M, F, T):
+    table = _ints((M, F), -100, 100, cuda, seed=M + F).to(dtype)
+    idx = _ints((T,), 0, M, cuda, seed=T)
+    before = gather.sum_counter.count
+    got = gather.gather_rows_sum(table, idx)
+    torch.cuda.synchronize()
+    assert gather.sum_counter.count == before + 1
+    assert torch.equal(got, gather.gather_rows_sum_plain(table, idx))
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 32])
+@pytest.mark.parametrize("cap", [16, 32])
+def test_ivf_hamming_kernel_matches_plain_exactly(cuda, W, cap):
+    nb, Q = 1025, 1500
+    bvecs = _ints((nb, cap, W), -2 ** 31, 2 ** 31 - 1, cuda, seed=W)
+    q = _ints((Q, W), -2 ** 31, 2 ** 31 - 1, cuda, seed=W + 1)
+    qw = _ints((Q,), 0, nb, cuda, seed=cap)
+    before = gather.ivf_counter.count
+    got = gather.ivf_hamming(bvecs, q, qw)
+    torch.cuda.synchronize()
+    assert gather.ivf_counter.count == before + 1
+    assert torch.equal(got, gather.ivf_hamming_plain(bvecs, q, qw))
+    bad = qw.clone()
+    bad[:3] = torch.tensor([-1, nb, 2 ** 30], device=cuda)  # outside: nothing read
+    out = gather.ivf_hamming(bvecs, q, bad)
+    assert (out[:3] == -1).all() and torch.equal(out[3:], got[3:])
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float32])
+@pytest.mark.parametrize("M,F,K", [(196608, 32, 196608), (2048, 128, 2048), (768, 1024, 300),
+                                   (64, 3, 7)])  # K * F % 4 != 0: a ragged tail
+def test_take_along_rows_kernel_matches_plain_exactly(cuda, dtype, M, F, K):
+    tab = _ints((M, F), -100, 100, cuda, seed=M).to(dtype)
+    idx = _ints((K, F), 0, M, cuda, seed=K + F)
+    before = gather.take_counter.count
+    got = gather.take_along_rows(tab, idx)
+    torch.cuda.synchronize()
+    assert gather.take_counter.count == before + 1
+    assert torch.equal(got, gather.take_along_rows_plain(tab, idx))
+    assert torch.equal(got, torch.gather(tab, 0, idx.long()))
+    rows = idx[:, :1].expand(K, F).contiguous()  # the index broadcast along each row
+    assert torch.equal(gather.take_along_rows(tab, rows), tab[rows[:, 0].long()])
+
+
+def test_gather_kernels_refuse_other_inputs(cuda):
+    table = torch.zeros(64, 16, device=cuda)
+    idx = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int8 or torch.float32"):
+        gather.gather_rows_sum(table.double(), idx)
+    with pytest.raises(ValueError, match="int32"):
+        gather.gather_rows_sum(table, idx.long())
+    with pytest.raises(ValueError, match="CUDA device"):
+        gather.gather_rows_sum_cuda(table.cpu(), idx.cpu())
+    with pytest.raises(ValueError, match="aligned"):
+        gather.gather_rows_sum(torch.zeros(64 * 16 + 1, device=cuda)[1:].view(64, 16), idx)
+    with pytest.raises(ValueError, match="F % 4"):
+        gather.gather_rows_sum(torch.zeros(64, 6, dtype=torch.int8, device=cuda), idx)
+
+    bvecs = torch.zeros(5, 16, 2, dtype=torch.int32, device=cuda)
+    q = torch.zeros(8, 2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        gather.ivf_hamming(bvecs.float(), q, idx)
+    with pytest.raises(ValueError, match="CUDA device"):
+        gather.ivf_hamming_cuda(bvecs.cpu(), q.cpu(), idx.cpu())
+    with pytest.raises(ValueError, match="aligned"):
+        gather.ivf_hamming(torch.zeros(5 * 16 * 2 + 1, dtype=torch.int32,
+                                       device=cuda)[1:].view(5, 16, 2), q, idx)
+    with pytest.raises(ValueError, match="W from bvecs"):
+        gather.ivf_hamming(bvecs, torch.zeros(8, 3, dtype=torch.int32, device=cuda), idx)
+
+    tab = torch.zeros(64, 16, device=cuda)
+    tidx = torch.zeros(8, 16, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int8 or torch.float32"):
+        gather.take_along_rows(tab.half(), tidx)
+    with pytest.raises(ValueError, match="CUDA device"):
+        gather.take_along_rows_cuda(tab.cpu(), tidx.cpu())
+    with pytest.raises(ValueError, match="aligned"):
+        gather.take_along_rows(tab, torch.zeros(8 * 16 + 1, dtype=torch.int32,
+                                                device=cuda)[1:].view(8, 16))
+    with pytest.raises(ValueError, match="idx \\(K, F\\)"):
+        gather.take_along_rows(tab, tidx[:, :8].contiguous())
+
+
+def test_retrieval_database_on_the_card(cuda):
+    """update/query on the card: one ivf_hamming launch a search and no
+    other gather kernel; the kernel equals its plain version on a query's
+    tensors and the kernel route's scores the plain route's; two calls give
+    the same codes."""
+    from mast3r_slam_tpu_torch.retrieval import RetrievalDatabase, asmk
+
+    class Fr:
+        def __init__(self, feat):
+            self.feat = feat
+
+    db = RetrievalDatabase.random_init(3, 64, proj_dim=64, num_centroids=512, nfeat=32,
+                                       device=cuda)
+    g = torch.Generator().manual_seed(4)
+    base = torch.randn(4, 100, 64, generator=g)
+    ivf0, take0 = gather.ivf_counter.count, gather.take_counter.count
+    n_cands = 0
+    for i in range(8):
+        feat = base[i % 4] + 0.05 * torch.randn(100, 64, generator=g)
+        n_cands += len(db.update(Fr(feat[None].to(cuda)), True, k=3, min_thresh=0.005))
+    assert n_cands >= 4
+    assert gather.ivf_counter.count - ivf0 == 7   # the first update only adds
+    assert gather.take_counter.count - take0 == 0
+    feat = (base[1] + 0.05 * torch.randn(100, 64, generator=g))[None].to(cuda)
+    inds, (feats, codes), scores = db.query(Fr(feat), 3, 0.005, with_scores=True)
+    packed, words, valid = db._codes(feats, codes, db.s.ma_query)
+    assert torch.equal(packed, db._codes(feats, codes, db.s.ma_query)[0])
+    ivf = db.ivf
+    qw = torch.where(valid, words, ivf.bvecs.shape[0] - 1).to(torch.int32)
+    assert torch.equal(gather.ivf_hamming(ivf.bvecs, packed, qw),
+                       gather.ivf_hamming_plain(ivf.bvecs, packed, qw))
+    args = (ivf.bvecs, ivf.bimids, ivf.norm_factor, packed, words, valid, ivf.dim,
+            ivf.s.alpha, ivf.s.similarity_threshold, ivf.s.max_images)
+    plain = asmk.ivf_search_bucketed(*args, hamming=gather.ivf_hamming_plain)
+    kernel = asmk.ivf_search_bucketed(*args)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(kernel.cpu().numpy(), plain.cpu().numpy(), rtol=1e-6, atol=1e-9)
+    n_img = ivf.n_images
+    assert np.array_equal(np.argsort(-kernel[:n_img].cpu().numpy())[:3],
+                          np.argsort(-plain[:n_img].cpu().numpy())[:3])
+    np.testing.assert_allclose(scores, kernel[:n_img].cpu().numpy(), rtol=1e-6, atol=1e-9)
+    assert len(inds) >= 1

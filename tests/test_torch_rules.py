@@ -11,6 +11,7 @@ from mast3r_slam_tpu.config import load_config as jload_config
 from mast3r_slam_tpu_torch import config as tconfig
 from mast3r_slam_tpu_torch.models import mast3r as TM
 from mast3r_slam_tpu_torch.models.interface import MASt3RModel
+from mast3r_slam_tpu_torch.retrieval import RetrievalDatabase
 from mast3r_slam_tpu_torch.slam.frame import Keyframes
 from mast3r_slam_tpu_torch.slam.pipeline import SLAM
 from mast3r_slam_tpu_torch.slam.tracker import FrameTracker
@@ -72,6 +73,8 @@ def test_entry_points_without_a_device_raise_without_cuda(monkeypatch):
         FrameTracker(model, cfg, kf, (32, 32))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SLAM(model, cfg, (32, 32), keyframe_buffer=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RetrievalDatabase.random_init(0, 16)
 
 
 UNPORTED = [
@@ -110,9 +113,29 @@ def test_threaded_backend_raises():
 
 
 def test_retrieval_object_raises():
+    """A foreign retrieval object (the JAX package's database, say) is
+    refused; the port's own ``RetrievalDatabase`` is taken."""
     model = MASt3RModel(TM.init_params(TM.VIT_TINY_TEST, seed=0), TM.VIT_TINY_TEST,
                         (32, 32), device=CPU)
     cfg = tconfig.load_config("base")
     cfg["single_thread"] = True
-    with pytest.raises(NotImplementedError, match="retrieval"):
+    with pytest.raises(TypeError, match="RetrievalDatabase"):
         SLAM(model, cfg, (32, 32), keyframe_buffer=2, retrieval=object(), device=CPU)
+    db = RetrievalDatabase.random_init(0, model.feat_dim, proj_dim=8, num_centroids=16,
+                                       nfeat=4, device=CPU)
+    assert SLAM(model, cfg, (32, 32), keyframe_buffer=2, retrieval=db,
+                device=CPU).retrieval is db
+
+
+def test_oneway_loop_edges_still_raise_with_retrieval():
+    """Loop-closure edges exist now, but their one-way form (item 8a) is
+    still not ported."""
+    model = MASt3RModel(TM.init_params(TM.VIT_TINY_TEST, seed=0), TM.VIT_TINY_TEST,
+                        (32, 32), device=CPU)
+    cfg = tconfig.load_config("base")
+    cfg["single_thread"] = True
+    cfg["local_opt"]["oneway_nonconsec"] = True
+    db = RetrievalDatabase.random_init(0, model.feat_dim, proj_dim=8, num_centroids=16,
+                                       nfeat=4, device=CPU)
+    with pytest.raises(NotImplementedError, match="item 8a"):
+        SLAM(model, cfg, (32, 32), keyframe_buffer=2, retrieval=db, device=CPU)
