@@ -10,8 +10,12 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      the sources in mast3r_slam_tpu_torch/csrc (one nvcc per source, in
      parallel);
   2. each kernel against its plain PyTorch version at the main path's
-     shapes (attention (1,16,768,64) and (1,12,768,64) bf16; refine at
-     384x512, F=24, radius/dilation (3,5) and (1,1), exactly equal; the
+     shapes (attention (1,16,768,64), (1,12,768,64) and (2,12,768,64)
+     bf16, and (1,16,768,64) on heads split from a fused qkv tensor, with
+     the HGMMA and TMA-load counts of its SASS and the kernel SDPA runs;
+     refine at 384x512, F=24, radius/dilation (3,5) and (1,1), exactly
+     equal, on scattered and on smooth-flow matches, with the share of
+     (block, level) pairs its shared-memory window served; the
      edge blocks at 32 edges x 384*512 pixels f32, entry by entry on the
      solve's scale, planted faults shown to fail), each timed by its device
      time (torch.profiler) and by CUDA events around back-to-back calls,
@@ -56,7 +60,9 @@ JSON line of kernel numbers, then as its last line
 
 from __future__ import annotations
 
+import ctypes
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -155,89 +161,165 @@ def time_kernel(kernel, plain, library=None, plain_iters: int = 20) -> dict:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_attention(dev, H: int):
+def kernel_names(fn) -> list:
+    """Names of the kernels one call of ``fn`` launched (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+
+
+def sass_counts(lib: str) -> dict:
+    """Counts of the Hopper instructions that show the attention design in
+    a built library's SASS: HGMMA (wgmma) and UTMALDG (TMA loads)."""
+    from mast3r_slam_tpu_torch.ops import kernels
+
+    tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(kernels.library_path(lib))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    return {op: sum(op in line for line in sass.splitlines()) for op in ("HGMMA", "UTMALDG")}
+
+
+def check_attention(dev, B: int, H: int, strided: bool = False):
+    """The kernel against its plain version on one of the path's shapes,
+    timed beside SDPA.  strided: q/k/v as the model passes them, heads
+    split from a fused (B, N, 3*H*64) projection by a permute."""
     import torch
     import torch.nn.functional as F
     from mast3r_slam_tpu_torch.ops import attention
 
-    B, N, D = 1, 768, 64
-    g = torch.Generator(device=dev).manual_seed(H)
-    q, k, v = (torch.randn(B, H, N, D, device=dev, generator=g).to(torch.bfloat16)
-               for _ in range(3))
+    N, D = 768, 64
+    g = torch.Generator(device=dev).manual_seed(H + 100 * B + strided)
+    if strided:
+        qkv = torch.randn(B, N, 3 * H * D, device=dev, generator=g).to(torch.bfloat16)
+        q, k, v = qkv.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4)
+    else:
+        q, k, v = (torch.randn(B, H, N, D, device=dev, generator=g).to(torch.bfloat16)
+                   for _ in range(3))
     got = attention.sdpa(q, k, v)
     want = attention.sdpa_plain(q, k, v)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs()
     max_err, mean_err = err.max().item(), err.mean().item()
+    label = f"attention ({B},{H},{N},{D}){' strided' if strided else ''} bf16"
     if not (torch.isfinite(got.float()).all() and max_err <= ATTN_MAX_ERR
             and mean_err <= ATTN_MEAN_ERR):
-        raise AssertionError(
-            f"attention H={H}: max err {max_err} (<= {ATTN_MAX_ERR}), "
-            f"mean err {mean_err} (<= {ATTN_MEAN_ERR})")
+        raise AssertionError(f"{label}: max err {max_err} (<= {ATTN_MAX_ERR}), "
+                             f"mean err {mean_err} (<= {ATTN_MEAN_ERR})")
     times = time_kernel(lambda: attention.sdpa(q, k, v),
                         lambda: attention.sdpa_plain(q, k, v),
                         lambda: F.scaled_dot_product_attention(q, k, v))
     flops = 4.0 * B * H * N * N * D
     nbytes = 4.0 * B * H * N * D * 2  # q, k, v read once, out written once
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    res = dict(shape=[B, H, N, D], max_abs_err=max_err, mean_abs_err=mean_err, **times,
-               bound_ms=max(t_ops, t_bytes) * 1e3,
+    res = dict(shape=[B, H, N, D], strided=strided, max_abs_err=max_err,
+               mean_abs_err=mean_err, **times, bound_ms=max(t_ops, t_bytes) * 1e3,
                bound_by="operations" if t_ops >= t_bytes else "bytes")
-    log(f"attention (1,{H},768,64) bf16: {json.dumps(res)}")
+    log(f"{label}: {json.dumps(res)}")
     return res
 
 
-def check_refine(dev):
+def refine_inputs(dev, H, W, F, smooth: bool, seed=7):
+    """Phase 2's refine inputs at 384x512.  smooth=False ("current" in the
+    log): descriptors correlated over a pixel, each match shifted up to 6
+    px at random, starts up to 2 px off it.  smooth=True, as on video:
+    descriptors that vary over about 8 px (a field upsampled from 1/8
+    resolution, plus a third of pixel-scale detail), matches displaced by
+    a smooth flow (3 + 5 sin, -2 + 4 cos over the image), starts up to 2 px
+    off, so a 16x16 patch's matches stay in a small box."""
     import torch
+    import torch.nn.functional as Fn
     from mast3r_slam_tpu_torch.ops import refine
 
-    B, H, W, F = 1, 384, 512, 24
-    N = H * W
-    g = torch.Generator(device=dev).manual_seed(7)
+    B, N = 1, H * W
+    g = torch.Generator(device=dev).manual_seed(seed)
     D11 = torch.randn(B, H, W, F, device=dev, generator=g)
-    D11 = D11 + 0.7 * torch.roll(D11, 1, 2) + 0.5 * torch.roll(D11, 1, 1)
+    if smooth:
+        low = torch.randn(B, F, H // 8, W // 8, device=dev, generator=g)
+        field = Fn.interpolate(low, size=(H, W), mode="bilinear", align_corners=False)
+        field = field.permute(0, 2, 3, 1)
+        D11 = (field / field.norm(dim=-1, keepdim=True)
+               + 0.3 * D11 / D11.norm(dim=-1, keepdim=True))
+    else:
+        D11 = D11 + 0.7 * torch.roll(D11, 1, 2) + 0.5 * torch.roll(D11, 1, 1)
     D11 = D11 / D11.norm(dim=-1, keepdim=True)
-    shift = torch.randint(-6, 7, (B, N, 2), device=dev, generator=g)
     lin = torch.arange(N, device=dev)
-    u = (lin % W + shift[..., 0]).clamp(0, W - 1)
-    v = (lin // W + shift[..., 1]).clamp(0, H - 1)
+    if smooth:
+        pu, pv = (lin % W).float(), (lin // W).float()
+        u = (pu + torch.round(3 + 5 * torch.sin(2 * np.pi * pv / H))).long().clamp(0, W - 1)
+        v = (pv + torch.round(-2 + 4 * torch.cos(2 * np.pi * pu / W))).long().clamp(0, H - 1)
+    else:
+        shift = torch.randint(-6, 7, (B, N, 2), device=dev, generator=g)
+        u = (lin % W + shift[..., 0]).clamp(0, W - 1)
+        v = (lin // W + shift[..., 1]).clamp(0, H - 1)
     D21 = D11.reshape(B, N, F)[0][v * W + u]
     D21 = D21 + 0.05 * torch.randn(D21.shape, device=dev, generator=g)
     d11q = refine.quantize(D11).reshape(B, N, F).contiguous()
-    d21q = refine.quantize(D21).contiguous()
+    d21q = refine.quantize(D21).reshape(B, N, F).contiguous()
     # start from iter_proj-like positions: the true match plus up to 2 px
     jit = torch.randint(-2, 3, (B, N, 2), device=dev, generator=g)
     su = (u + jit[..., 0]).clamp(1, W - 2)
     sv = (v + jit[..., 1]).clamp(1, H - 2)
-    idx = (sv * W + su).to(torch.int32).contiguous()
-    res = {}
-    for radius, dil in ((3, 5), (1, 1)):
-        got = refine.refine_window(d11q, d21q, idx, H, W, radius, dil)
-        want = refine.refine_window_plain(d11q, d21q, idx, H, W, radius, dil)
-        torch.cuda.synchronize()
-        n_diff = int((got != want).sum().item())
-        if n_diff:
-            raise AssertionError(f"refine ({radius},{dil}): {n_diff} indices differ")
-        max_err = int((got.long() - want.long()).abs().max().item())
-        moved = (got != idx).float().mean().item()
-        log(f"refine (r={radius}, d={dil}) at 384x512 F=24: exact; "
-            f"{moved:.3f} of pixels moved")
-        if (radius, dil) == (3, 5):
-            times = time_kernel(
-                lambda: refine.refine_window(d11q, d21q, idx, H, W, 3, 5),
-                lambda: refine.refine_window_plain(d11q, d21q, idx, H, W, 3, 5),
-                plain_iters=3)
-            nbytes = d11q.numel() + d21q.numel() + idx.numel() * 4 * 2
-            # int8 multiply-adds of every candidate at every level; this
-            # counts masked border candidates too, an upper bound that does
-            # not move the bound (bytes exceed it 15-fold)
-            ops = 2.0 * N * F * (2 * radius + 1) ** 2 * dil
-            t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
-            res = dict(max_abs_err=max_err, **times,
-                       bound_ms=max(t_ops, t_bytes) * 1e3,
-                       bound_by="operations" if t_ops >= t_bytes else "bytes")
-    log(f"refine (r=3, d=5): {json.dumps(res)}")
-    return res
+    return d11q, d21q, (sv * W + su).to(torch.int32).reshape(B, N).contiguous()
+
+
+def check_refine(dev):
+    """Exact against the plain version at (3, 5) and (1, 1) on three inputs
+    (the current one, a smooth flow, starts scattered over the image); the
+    share of (block, level) pairs served from the shared-memory window, and
+    of pixel-levels, for each; each timed at (3, 5)."""
+    import torch
+    from mast3r_slam_tpu_torch.ops import refine
+
+    H, W, F = 384, 512, 24
+    N = H * W
+    res, out = {}, {}
+    for name in ("current", "smooth_flow", "scattered"):
+        d11q, d21q, idx = refine_inputs(dev, H, W, F, name == "smooth_flow")
+        if name == "scattered":  # starts anywhere in the image, as random weights give
+            g = torch.Generator(device=dev).manual_seed(8)
+            idx = torch.randint(0, N, (1, N), device=dev, generator=g, dtype=torch.int32)
+        for radius, dil in ((3, 5), (1, 1)):
+            stats = torch.zeros(4, dtype=torch.int64, device=dev)
+            got = refine.refine_window_cuda(d11q, d21q, idx, H, W, radius, dil, stats=stats)
+            want = refine.refine_window_plain(d11q, d21q, idx, H, W, radius, dil)
+            torch.cuda.synchronize()
+            n_diff = int((got != want).sum().item())
+            if n_diff:
+                raise AssertionError(f"refine {name} ({radius},{dil}): {n_diff} indices differ")
+            whole, pairs, px_win, px_all = stats.tolist()
+            moved = (got != idx).float().mean().item()
+            log(f"refine {name} (r={radius}, d={dil}) at 384x512 F=24: exact; {moved:.3f} "
+                f"of pixels moved; (block, level) pairs from shared memory "
+                f"{whole}/{pairs} = {whole / pairs:.4f}, pixel-levels {px_win / px_all:.4f}")
+            if (radius, dil) == (3, 5):
+                err = int((got.long() - want.long()).abs().max().item())
+                out[name] = dict(max_abs_err=err, pairs_shared=whole / pairs,
+                                 pixel_levels_shared=px_win / px_all)
+        times = time_kernel(
+            lambda: refine.refine_window(d11q, d21q, idx, H, W, 3, 5),
+            lambda: refine.refine_window_plain(d11q, d21q, idx, H, W, 3, 5),
+            plain_iters=3)
+        nbytes = d11q.numel() + d21q.numel() + idx.numel() * 4 * 2
+        # int8 multiply-adds of every candidate at every level; this counts
+        # masked border candidates too, an upper bound that does not move
+        # the bound (bytes exceed it 15-fold)
+        ops = 2.0 * N * F * 7 ** 2 * 5
+        t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+        res[name] = dict(**out[name], **times,
+                         bound_ms=max(t_ops, t_bytes) * 1e3,
+                         bound_by="operations" if t_ops >= t_bytes else "bytes")
+        log(f"refine {name} (r=3, d=5): {json.dumps(res[name])}")
+    if not res["smooth_flow"]["pairs_shared"] > 0.9:
+        raise AssertionError(f"refine smooth flow: {res['smooth_flow']['pairs_shared']} of "
+                             f"(block, level) pairs from shared memory (> 0.9)")
+    return res["current"], res["smooth_flow"], res["scattered"]
 
 
 def edge_hg_inputs(dev, E, N, seed):
@@ -496,9 +578,10 @@ def profile(label, fn, top=25):
         per_name[e.name][0] += e.time_range.elapsed_us() / 1e3
         per_name[e.name][1] += 1
     busy_ms = sum(v[0] for v in per_name.values())
+    n_copy = sum(n for name, (_, n) in per_name.items() if "copy" in name.lower())
     log(f"profile of {label}: wall {wall_ms:.3f} ms (profiler on), "
-        f"{len(kernels)} kernel launches, device busy {busy_ms:.3f} ms = "
-        f"{busy_ms / wall_ms:.3f} of wall")
+        f"{len(kernels)} kernel launches ({n_copy} of them copy kernels), device busy "
+        f"{busy_ms:.3f} ms = {busy_ms / wall_ms:.3f} of wall")
     for name, (ms, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"  {ms:9.3f} ms  x{n:5d}  {name[:110]}")
 
@@ -1151,6 +1234,7 @@ def run_synthetic_reloc(dev, hw=(384, 512), n_track=24, n_after=6):
 
 def main() -> int:
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; the port's smoke run needs one",
@@ -1177,9 +1261,21 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  ptxas {name}: {line.strip()}")
 
-    attn_enc = check_attention(dev, 16)
-    check_attention(dev, 12)
-    ref = check_refine(dev)
+    attn_enc = check_attention(dev, 1, 16)
+    check_attention(dev, 1, 12)
+    check_attention(dev, 2, 12)
+    check_attention(dev, 1, 16, strided=True)
+    q = torch.zeros(1, 16, 768, 64, device=dev, dtype=torch.bfloat16)
+    log(f"SDPA (1,16,768,64) runs: {kernel_names(lambda: F.scaled_dot_product_attention(q, q, q))}")
+    sass = sass_counts("attention")
+    log(f"attention library SASS: {sass}")
+    if not (sass["HGMMA"] > 0 and sass["UTMALDG"] > 0):
+        raise AssertionError(f"attention SASS holds no wgmma or no TMA load: {sass}")
+    for name in ("attention", "refine_window"):
+        lib = ctypes.CDLL(str(kernels.library_path(name)))
+        log(f"{name}: {getattr(lib, name + '_smem_bytes')()} bytes of dynamic shared "
+            f"memory a block (ptxas above: static)")
+    ref, ref_smooth, ref_scattered = check_refine(dev)
     ehg = check_edge_hg(dev)
     grs = check_gather_rows_sum(dev)
     tar = check_take_along_rows(dev)
@@ -1275,6 +1371,9 @@ def main() -> int:
         "full_width_solve": {k: {"max_err_m": e, "iters": i, "ms": ms}
                              for k, (e, i, _, ms) in solves.items()},
         "vitl_backend_task": backend_split,
+        "refine_inputs": {name: {k: r[k] for k in ("ms", "pairs_shared", "pixel_levels_shared")}
+                          for name, r in (("smooth_flow", ref_smooth),
+                                          ("scattered", ref_scattered))},
         "retrieval_full_width": {k: retr[k] for k in ("update_ms", "query_ms",
                                                       "kernel_vs_plain_rel")},
         "synthetic_reloc": {"n_reloc": rres.n_reloc, "n_reloc_success": rres.n_reloc_success,

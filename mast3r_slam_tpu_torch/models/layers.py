@@ -4,7 +4,8 @@ Port of ``mast3r_slam_tpu/models/layers.py``.  Parameters are nested dicts
 of tensors; linear weights are stored (in, out) so a layer is ``x @ w``.
 Compute runs in the input's dtype (bf16 trunk, f32 heads); layer norm keeps
 its statistics and affine in f32.  Every attention goes through
-``ops.attention.sdpa``: the hand-written kernel on the card.
+``ops.attention.sdpa``: the hand-written kernel on the card, which takes
+the heads as strided views of the projections (no copies).
 """
 
 from __future__ import annotations
@@ -81,6 +82,8 @@ def _split_heads(x, num_heads):
 
 
 def _merge_heads(x):
+    """(B, H, N, D) -> (B, N, H*D); a view of the kernel's output, which is
+    laid out (B, N, H, D)."""
     B, H, N, D = x.shape
     return x.transpose(1, 2).reshape(B, N, H * D)
 
@@ -94,7 +97,7 @@ def self_attention(p, x, rope_cs, num_heads: int):
     if rope_cs is not None:
         q = apply_rope2d(q, *rope_cs)
         k = apply_rope2d(k, *rope_cs)
-    out = sdpa(q.contiguous(), k.contiguous(), v.contiguous())
+    out = sdpa(q, k, v)
     return linear(p["proj"], _merge_heads(out))
 
 
@@ -107,7 +110,7 @@ def cross_attention(p, x, mem, rope_q, rope_k, num_heads: int):
         q = apply_rope2d(q, *rope_q)
     if rope_k is not None:
         k = apply_rope2d(k, *rope_k)
-    out = sdpa(q.contiguous(), k.contiguous(), v.contiguous())
+    out = sdpa(q, k, v)
     return linear(p["proj"], _merge_heads(out))
 
 

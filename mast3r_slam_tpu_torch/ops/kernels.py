@@ -31,13 +31,14 @@ SOURCES = {
     "gather_rows": "gather_rows.cu",
     "take_along_rows": "take_along_rows.cu",
 }
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # each kernel's library, C entry point and argument types; every pointer
-# and the stream go as c_void_p (64 bits), every int as c_int
+# and the stream go as c_void_p (64 bits), every int as c_int, every
+# stride as c_longlong
 ENTRY_POINTS = {
     "attention": ("attention", "attention_bf16_d64",
-                  [_P] * 4 + [_I] * 3 + [ctypes.c_float, _P]),
-    "refine_window": ("refine_window", "refine_window_i8", [_P] * 4 + [_I] * 7 + [_P]),
+                  [_P] * 4 + [_I] * 4 + [_L] * 9 + [ctypes.c_float, _P]),
+    "refine_window": ("refine_window", "refine_window_i8", [_P] * 4 + [_I] * 7 + [_P] * 2),
     "edge_hg_rays": ("edge_hg_rays", "edge_hg_rays_f32",
                      [_P] * 6 + [_I] * 3 + [ctypes.c_float] * 3 + [_P]),
     "gather_rows_sum": ("gather_rows", "gather_rows_sum", [_P] * 3 + [_I] * 4 + [_P]),
@@ -67,7 +68,7 @@ def source_path(name: str) -> Path:
     return CSRC_DIR / SOURCES[name]
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
     cands = []
     if os.environ.get("CUDA_HOME"):
         cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
@@ -98,7 +99,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True),

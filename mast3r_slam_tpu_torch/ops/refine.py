@@ -56,8 +56,13 @@ def refine_window_plain(D11q, D21q, idx, H: int, W: int, radius: int,
 
 
 def refine_window_cuda(D11q, D21q, idx, H: int, W: int, radius: int,
-                       dilation_max: int):
-    """Launch the window-argmax kernel; raises on anything it does not take."""
+                       dilation_max: int, stats=None):
+    """Launch the window-argmax kernel; raises on anything it does not take.
+
+    ``stats``: None, or a zeroed (4,) int64 tensor on the card that the
+    kernel adds to: (block, level) pairs served from the block's
+    shared-memory window, all (block, level) pairs, pixel-levels served
+    from a window, all pixel-levels."""
     for name, t, dt in (("D11q", D11q, torch.int8), ("D21q", D21q, torch.int8),
                         ("idx", idx, torch.int32)):
         if not t.is_cuda:
@@ -86,6 +91,10 @@ def refine_window_cuda(D11q, D21q, idx, H: int, W: int, radius: int,
             f"F <= {MAX_FEATURES}")
     if radius < 0 or dilation_max < 1:
         raise ValueError("refine_window_cuda: radius >= 0 and dilation_max >= 1")
+    if stats is not None and (stats.shape != (4,) or stats.dtype != torch.int64
+                              or stats.device != idx.device):
+        raise ValueError("refine_window_cuda: stats must be a (4,) int64 tensor on "
+                         "the inputs' device")
     out = torch.empty_like(idx)
     if B * N == 0:
         return out
@@ -93,7 +102,8 @@ def refine_window_cuda(D11q, D21q, idx, H: int, W: int, radius: int,
     with torch.cuda.device(idx.device):
         stream = torch.cuda.current_stream(idx.device).cuda_stream
         rc = fn(D11q.data_ptr(), D21q.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                B, N, H, W, F, radius, dilation_max, stream)
+                B, N, H, W, F, radius, dilation_max,
+                None if stats is None else stats.data_ptr(), stream)
     kernels.check(rc, "refine_window_i8")
     counter.count += 1
     return out

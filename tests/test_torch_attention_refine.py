@@ -48,6 +48,28 @@ def test_sdpa_plain_matches_sdpa_xla_bf16():
     assert_close(got, np.asarray(want.astype(jnp.float32)), 2 ** -7, 2 ** -7)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sdpa_on_permuted_views_matches_sdpa_xla(dtype):
+    """q/k/v as the model passes them: heads split from a fused qkv
+    projection by a permute (no copy), and from a separate projection by a
+    transpose.  The port's sdpa on the views equals sdpa_xla on the same
+    values, at the tolerances above."""
+    B, N, H, D = 2, 40, 3, 64
+    rng = np.random.default_rng(7)
+    qkv = f32(rng, B, N, 3 * H * D)
+    mem = f32(rng, B, N + 8, H * D)
+    tdt = getattr(torch, dtype)
+    q, k, v = t(qkv, tdt).reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4)
+    k2 = t(mem, tdt).reshape(B, N + 8, H, D).transpose(1, 2)
+    assert not (q.is_contiguous() or k.is_contiguous() or k2.is_contiguous())
+    tol = 1e-5 if dtype == "float32" else 2 ** -7
+    for args in ((q, k, v), (q, k2, k2)):
+        want = sdpa_xla(*(jnp.asarray(n(a.float()), dtype=getattr(jnp, dtype)) for a in args))
+        got = sdpa(*args)
+        assert got.dtype == tdt and got.shape == args[0].shape
+        assert_close(got, np.asarray(want.astype(jnp.float32)), tol, tol)
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     q = torch.zeros(1, 1, 64, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):

@@ -11,7 +11,10 @@ Attention tolerance: bf16 output; the kernel rounds the softmax weights to
 bf16 before dividing by the row sum (online softmax) where the plain
 version rounds after, and sums in another order.  At unit-scale inputs the
 outputs agree to within 2 bf16 ulps at magnitude 2 (2**-6 = 0.0156) at the
-worst element, and 2e-3 on average.  Refine: exact integer equality.
+worst element, and 2e-3 on average; on strided views (heads split from
+a fused projection) the same.  Refine: exact integer equality, on inputs
+that take the shared-memory window (smooth flow), that force global reads
+(scattered starts), at every border and on ties.
 Edge blocks: compared entry by entry on the scale the solve reads them
 at, ``edge_hg.block_err`` (|got_ij - want_ij| / sqrt(|want_ii|·|want_jj|),
 the cost being the error column's diagonal): against the plain version
@@ -53,6 +56,7 @@ def cuda():
     (2, 3, 100, 72),      # ragged query and key tiles
     (1, 16, 768, 768),    # ViT-L encoder at 384x512
     (1, 12, 768, 768),    # ViT-L decoder at 384x512
+    (2, 12, 768, 768),    # ViT-L symmetric decoder (a backend task)
 ])
 def test_attention_kernel_matches_plain(cuda, B, H, N, M):
     g = torch.Generator(device=cuda).manual_seed(N + M)
@@ -70,6 +74,30 @@ def test_attention_kernel_matches_plain(cuda, B, H, N, M):
     assert err.mean().item() <= ATTN_MEAN_ERR, err.mean().item()
 
 
+@pytest.mark.parametrize("B,N,H", [(1, 768, 16), (2, 100, 3)])
+def test_attention_kernel_on_strided_views(cuda, B, N, H):
+    """Heads split from a fused qkv projection without a copy (the model's
+    self-attention), and from separate projections (its cross-attention):
+    the kernel reads the views through its tensor maps, the plain version
+    gives the same values on the same views, and the output is a view of a
+    (B, N, H, D) tensor."""
+    g = torch.Generator(device=cuda).manual_seed(N + H)
+    qkv = torch.randn(B, N, 3 * H * 64, device=cuda, generator=g).to(torch.bfloat16)
+    q, k, v = qkv.reshape(B, N, 3, H, 64).permute(2, 0, 3, 1, 4)
+    assert not q.is_contiguous()
+    sep = torch.randn(B, N, H * 64, device=cuda, generator=g).to(torch.bfloat16)
+    k2 = sep.reshape(B, N, H, 64).transpose(1, 2)
+    for args in ((q, k, v), (q, k2, v), (q.contiguous(), k2, v.contiguous())):
+        got = attention.sdpa(*args)
+        torch.cuda.synchronize()
+        want = attention.sdpa_plain(*args)
+        err = (got.float() - want.float()).abs()
+        assert err.max().item() <= ATTN_MAX_ERR, err.max().item()
+        assert err.mean().item() <= ATTN_MEAN_ERR, err.mean().item()
+        assert got.transpose(1, 2).is_contiguous()
+        assert torch.equal(got, attention.sdpa(*(a.contiguous() for a in args)))
+
+
 def test_attention_kernel_refuses_other_inputs(cuda):
     q = torch.zeros(1, 1, 64, 64, device=cuda, dtype=torch.float32)
     with pytest.raises(ValueError, match="bfloat16"):
@@ -83,6 +111,9 @@ def test_attention_kernel_refuses_other_inputs(cuda):
     q = torch.zeros(1 * 64 * 64 + 1, device=cuda, dtype=torch.bfloat16)[1:]
     with pytest.raises(ValueError, match="aligned"):
         attention.sdpa(*(q.view(1, 1, 64, 64),) * 3)
+    q = torch.zeros(1, 2, 60, 68, device=cuda, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="multiples of 8"):  # rows 136 bytes apart
+        attention.sdpa(q, q, q)
 
 
 def _refine_inputs(B, H, W, F, device, seed):
@@ -103,8 +134,9 @@ def _refine_inputs(B, H, W, F, device, seed):
 
 
 @pytest.mark.parametrize("B,H,W,F", [(2, 24, 32, 24), (1, 384, 512, 24), (1, 16, 20, 8),
-                                     (1, 16, 20, 12)])  # F % 8 != 0: 4-byte loads
-@pytest.mark.parametrize("radius,dil", [(3, 5), (1, 1)])
+                                     (1, 16, 20, 12),  # F % 8 != 0: 4-byte loads
+                                     (1, 48, 64, 16)])
+@pytest.mark.parametrize("radius,dil", [(3, 5), (1, 1), (2, 3)])
 def test_refine_kernel_matches_plain_exactly(cuda, B, H, W, F, radius, dil):
     d11q, d21q, idx = _refine_inputs(B, H, W, F, cuda, seed=H + radius)
     before = refine.counter.count
@@ -113,6 +145,92 @@ def test_refine_kernel_matches_plain_exactly(cuda, B, H, W, F, radius, dil):
     assert refine.counter.count == before + 1
     want = refine.refine_window_plain(d11q, d21q, idx, H, W, radius, dil)
     assert torch.equal(got, want)
+
+
+def _smooth_flow_inputs(H, W, F, device, seed, jitter=2):
+    """As on video: descriptors that vary over about 8 px (a field
+    upsampled from 1/8 resolution plus some pixel-scale detail), matches
+    displaced by a smooth flow (a few pixels, varying over the image),
+    starts up to `jitter` px off, so a 16x16 patch's matches stay within a
+    small box."""
+    rng = np.random.default_rng(seed)
+    low = torch.from_numpy(rng.normal(size=(1, F, H // 8, W // 8)).astype(np.float32))
+    field = torch.nn.functional.interpolate(low, size=(H, W), mode="bilinear",
+                                            align_corners=False)[0].permute(1, 2, 0).numpy()
+    detail = rng.normal(size=(H, W, F)).astype(np.float32)
+    D11 = (field / np.linalg.norm(field, axis=-1, keepdims=True)
+           + 0.3 * detail / np.linalg.norm(detail, axis=-1, keepdims=True))
+    D11 /= np.linalg.norm(D11, axis=-1, keepdims=True)
+    N = H * W
+    u, v = np.arange(N) % W, np.arange(N) // W
+    tu = np.clip(u + np.rint(3 + 5 * np.sin(2 * np.pi * v / H)), 0, W - 1).astype(np.int64)
+    tv = np.clip(v + np.rint(-2 + 4 * np.cos(2 * np.pi * u / W)), 0, H - 1).astype(np.int64)
+    D21 = D11.reshape(N, F)[tv * W + tu] + rng.normal(size=(N, F)).astype(np.float32) * 0.05
+    su = np.clip(tu + rng.integers(-jitter, jitter + 1, N), 0, W - 1)
+    sv = np.clip(tv + rng.integers(-jitter, jitter + 1, N), 0, H - 1)
+    d11q = refine.quantize(torch.from_numpy(D11).to(device)).reshape(1, N, F).contiguous()
+    d21q = refine.quantize(torch.from_numpy(D21).to(device))[None].contiguous()
+    idx = torch.from_numpy((sv * W + su).astype(np.int32))[None].to(device)
+    return d11q, d21q, idx
+
+
+def _refine_with_stats(d11q, d21q, idx, H, W, radius, dil):
+    stats = torch.zeros(4, dtype=torch.int64, device=d11q.device)
+    got = refine.refine_window_cuda(d11q, d21q, idx, H, W, radius, dil, stats=stats)
+    torch.cuda.synchronize()
+    assert torch.equal(got, refine.refine_window_plain(d11q, d21q, idx, H, W, radius, dil))
+    whole, pairs, px_win, px_all = stats.tolist()
+    assert pairs > 0 and px_all == idx.numel() * dil
+    return whole / pairs, px_win / px_all
+
+
+@pytest.mark.parametrize("radius,dil", [(3, 5), (1, 1), (2, 3)])
+def test_refine_kernel_smooth_flow_reads_shared_memory(cuda, radius, dil):
+    H, W, F = 384, 512, 24
+    d11q, d21q, idx = _smooth_flow_inputs(H, W, F, cuda, seed=radius + dil)
+    whole, px = _refine_with_stats(d11q, d21q, idx, H, W, radius, dil)
+    assert whole > 0.9 and px > 0.95, (whole, px)
+
+
+def test_refine_kernel_spread_input_reads_global_memory(cuda):
+    """Starts scattered over the whole image (random network weights):
+    every block's window is over the budget, so every candidate comes from
+    global memory, and the result is still exact."""
+    H, W, F = 384, 512, 24
+    d11q, d21q, _ = _smooth_flow_inputs(H, W, F, cuda, seed=9)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    idx = torch.randint(0, H * W, (1, H * W), device=cuda, generator=g, dtype=torch.int32)
+    whole, px = _refine_with_stats(d11q, d21q, idx, H, W, 3, 5)
+    assert whole == 0 and px < 0.05, (whole, px)
+
+
+@pytest.mark.parametrize("H,W", [(40, 48), (24, 24), (37, 53)])
+@pytest.mark.parametrize("radius,dil", [(3, 5), (1, 1), (2, 3)])
+def test_refine_kernel_windows_at_every_border(cuda, H, W, radius, dil):
+    """Starts pushed out to the image's edges and corners, so windows are
+    clamped at every border and candidates fall outside the image."""
+    rng = np.random.default_rng(H + W)
+    F = 24
+    D11 = rng.normal(size=(H, W, F)).astype(np.float32)
+    D11 /= np.linalg.norm(D11, axis=-1, keepdims=True)
+    N = H * W
+    u, v = np.arange(N) % W, np.arange(N) // W
+    su = np.clip(2 * u - W // 2, 0, W - 1)
+    sv = np.clip(2 * v - H // 2, 0, H - 1)
+    D21 = D11.reshape(N, F)[rng.integers(0, N, N)]
+    d11q = refine.quantize(torch.from_numpy(D11).to(cuda)).reshape(1, N, F).contiguous()
+    d21q = refine.quantize(torch.from_numpy(D21).to(cuda))[None].contiguous()
+    idx = torch.from_numpy((sv * W + su).astype(np.int32))[None].to(cuda)
+    _refine_with_stats(d11q, d21q, idx, H, W, radius, dil)
+
+
+@pytest.mark.parametrize("radius,dil", [(3, 5), (1, 1), (2, 3)])
+def test_refine_kernel_constant_descriptors_tie(cuda, radius, dil):
+    """Every in-image candidate ties: the first in dy-major order wins."""
+    H, W, F = 48, 64, 24
+    d = torch.full((1, H * W, F), 26, dtype=torch.int8, device=cuda)
+    idx = torch.arange(H * W, dtype=torch.int32, device=cuda)[None]
+    _refine_with_stats(d, d.clone(), idx, H, W, radius, dil)
 
 
 def test_refine_kernel_refuses_other_inputs(cuda):
