@@ -17,7 +17,9 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      equal, on scattered and on smooth-flow matches, with the share of
      (block, level) pairs its shared-memory window served; the
      edge blocks at 32 edges x 384*512 pixels f32, entry by entry on the
-     solve's scale, planted faults shown to fail), each timed by its device
+     solve's scale, planted faults shown to fail, the same bits on two
+     calls, one kernel a call, exact zeros where no row reaches), each
+     timed by its device
      time (torch.profiler) and by CUDA events around back-to-back calls,
      beside the plain version's device time and, where one exists, the
      PyTorch library call's, read both ways too;
@@ -50,9 +52,13 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      ivf_hamming exact on a query of the database it built (W = 1).
 
 Phase 2 also holds the two gather probes' kernels (gather_rows_sum,
-take_along_rows) and the IVF bucket scoring (ivf_hamming, W 1, 2 and 32)
-exactly against their plain versions; their bytes bounds count the rows
-or elements this run's indices gather.  Phase 4 ends with a torch.profiler breakdown of one more ViT-L tracked
+take_along_rows) and the IVF bucket scoring (ivf_hamming, W 1, 2 and 32,
+one kernel a call) exactly against their plain versions; their bytes
+bounds count the rows or elements this run's indices gather.  It then
+reads the edge-block and IVF kernels' design off the card: ptxas registers
+and spills, the edge blocks' SASS pixel loop (instructions, FFMA, MUFU,
+subroutine calls; cuobjdump), and a one-element fill's device time as the
+floor of any kernel's.  Phase 4 ends with a torch.profiler breakdown of one more ViT-L tracked
 frame (device time by kernel, launches, device busy share).  It prints one
 JSON line of kernel numbers, then as its last line
 {"ok": true, "device": {...}}.
@@ -92,10 +98,12 @@ TRAJ_BOUND_M = 0.005       # synthetic scene: Sim(3)-aligned frame RMSE, metres
 EDGE_HG_ERR_F64 = 3e-5
 EDGE_HG_ERR_F32 = 1e-3
 SOLVE_BOUND_M = 1e-3       # full-width synthetic solve: max translation error, m
-# flops of one pixel-edge in csrc/edge_hg_rays.cu, counted from the source:
-# transform 21, norms and unit rays 24, residuals and dr/dP 19, weights 22,
-# four rows of 8 products and 36 FMAs into the accumulator 320
-EDGE_HG_FLOPS = 406
+# flops of one pixel-edge in csrc/edge_hg_rays.cu, recounted from the
+# one-launch source (an FMA is 2, a MUFU 1): transform 18, norms, unit rays
+# and residuals 26, dr/dP 12, weights 24, 23 weight products and 78 FMAs
+# into the accumulator 179 (the old source's 406 counted its products of
+# structural zeros); the bytes bound stays the larger
+EDGE_HG_FLOPS = 259
 N_TRACKED = 5              # ViT-L tracked frames
 # retrieval scores, kernel route against plain route on the same tensors:
 # the distances are equal integers, and the rest is one f32 chain whose
@@ -162,7 +170,8 @@ def time_kernel(kernel, plain, library=None, plain_iters: int = 20) -> dict:
 # ---------------------------------------------------------------------------
 
 def kernel_names(fn) -> list:
-    """Names of the kernels one call of ``fn`` launched (torch.profiler)."""
+    """Names of the kernels one call of ``fn`` launched, one entry a launch
+    (torch.profiler)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -172,18 +181,80 @@ def kernel_names(fn) -> list:
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+    return sorted(e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def dump_sass(lib: str) -> str:
+    """A built library's SASS (cuobjdump, next to nvcc)."""
+    from mast3r_slam_tpu_torch.ops import kernels
+
+    tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
+    return subprocess.run([tool, "--dump-sass", str(kernels.library_path(lib))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
 
 
 def sass_counts(lib: str) -> dict:
     """Counts of the Hopper instructions that show the attention design in
     a built library's SASS: HGMMA (wgmma) and UTMALDG (TMA loads)."""
+    sass = dump_sass(lib)
+    return {op: sum(op in line for line in sass.splitlines()) for op in ("HGMMA", "UTMALDG")}
+
+
+def sass_loop(lib: str, function: str) -> dict:
+    """The innermost loop of one kernel's SASS that holds a MUFU.RSQ (the
+    shortest backward-branch span with one: the edge blocks' pixel loop):
+    its instruction count and its FFMA, MUFU and CALL counts (a CALL there
+    is a division or square-root subroutine), and the kernel's MUFU
+    variants."""
+    import re
+
+    text, body = dump_sass(lib), None
+    for part in text.split("Function : ")[1:]:
+        if function in part.split()[0]:
+            body = part
+    if body is None:
+        raise AssertionError(f"{lib}: no function {function} in its SASS")
+    ins = []
+    for line in body.splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            toks = [t for t in m.group(2).split() if not t.startswith("@")]
+            ins.append((int(m.group(1), 16), toks[0], m.group(2)))
+    back = [(a, int(t.group(1), 16)) for a, op, txt in ins if op.startswith("BRA")
+            for t in [re.search(r"0x([0-9a-f]+)", txt)] if t and int(t.group(1), 16) < a]
+    spans = [[op for a, op, _ in ins if lo <= a <= hi] for hi, lo in back]
+    spans = [s for s in spans if "MUFU.RSQ" in s]
+    if not spans:
+        raise AssertionError(f"{lib}: {function} has no loop with a MUFU.RSQ")
+    loop = min(spans, key=len)
+    return dict(loop_instructions=len(loop),
+                FFMA=sum(op == "FFMA" for op in loop),
+                MUFU=sum(op.startswith("MUFU") for op in loop),
+                MUFU_RSQ=sum(op == "MUFU.RSQ" for op in loop),
+                CALL=sum(op.startswith("CALL") for op in loop),
+                kernel_CALL=sum(op.startswith("CALL") for _, op, _ in ins),
+                kernel_MUFU=sorted({op for _, op, _ in ins if op.startswith("MUFU")}))
+
+
+def ptxas_report(lib: str) -> dict:
+    """Registers and spill bytes of each kernel of a built library, from
+    its ptxas -v log: {function: {registers, spill_stores, spill_loads}}."""
+    import re
     from mast3r_slam_tpu_torch.ops import kernels
 
-    tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
-    sass = subprocess.run([tool, "--dump-sass", str(kernels.library_path(lib))],
-                          capture_output=True, text=True, timeout=120, check=True).stdout
-    return {op: sum(op in line for line in sass.splitlines()) for op in ("HGMMA", "UTMALDG")}
+    out, fn = {}, None
+    for line in kernels.build_log(lib).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$.]+)'?", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            out[fn].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn]["registers"] = int(m.group(1))
+    return {k: v for k, v in out.items() if "registers" in v}
 
 
 def check_attention(dev, B: int, H: int, strided: bool = False):
@@ -368,12 +439,20 @@ def check_edge_hg(dev, E=32, N=384 * 512):
         ("distance_row_dropped", no_dist), ("gradient_negated", neg_grad),
         ("cost_30pc_off", cost_off))}
     del exact
+    again = edge_hg.edge_hg_rays(Tij, Xi, Xj, sq, **kw)
+    names = kernel_names(lambda: edge_hg.edge_hg_rays(Tij, Xi, Xj, sq, **kw))
+    same_bits = torch.equal(got, again)
+    zeros = bool((got[:, 3:6, 6] == 0).all() and (got[:, 6, 3:6] == 0).all())
     log(f"edge blocks ({E}, {N}), per-entry scaled error: {json.dumps(errs)}; "
-        f"planted faults: {json.dumps(faults)}")
+        f"planted faults: {json.dumps(faults)}; same bits on two calls {same_bits}; "
+        f"Mloc[:, 3:6, 6] exact zeros {zeros}; kernels a call {names}")
     if not (torch.isfinite(got).all() and errs["kernel_vs_f64"] <= EDGE_HG_ERR_F64
             and errs["kernel_vs_plain_f32"] <= EDGE_HG_ERR_F32):
         raise AssertionError(f"edge blocks ({E}, {N}): {errs} (bounds {EDGE_HG_ERR_F64} "
                              f"against float64, {EDGE_HG_ERR_F32} against f32)")
+    if not (same_bits and zeros and len(names) == 1):
+        raise AssertionError(f"edge blocks: same bits {same_bits}, structural zeros "
+                             f"{zeros}, kernels a call {names} (one expected)")
     passed = {k: v for k, v in faults.items() if not v > 100 * EDGE_HG_ERR_F64}
     if passed:
         raise AssertionError(f"edge blocks: planted faults within 100x the bound {passed}")
@@ -490,6 +569,9 @@ def check_ivf_hamming(dev, Q=1500, cap=16, num_words=65_536):
         want = gather.ivf_hamming_plain(bvecs, q, qw)
         torch.cuda.synchronize()
         _exact(f"ivf_hamming W={W}", got, want)
+        names = kernel_names(lambda: gather.ivf_hamming(bvecs, q, qw))
+        if len(names) != 1:
+            raise AssertionError(f"ivf_hamming W={W}: kernels a call {names} (one expected)")
         times = time_kernel(lambda: gather.ivf_hamming(bvecs, q, qw),
                             lambda: gather.ivf_hamming_plain(bvecs, q, qw))
         nbytes = _n_unique(qw) * cap * W * 4 + Q * W * 4 + Q * 4 + Q * cap * 4
@@ -498,6 +580,30 @@ def check_ivf_hamming(dev, Q=1500, cap=16, num_words=65_536):
         out[W] = res
         del bvecs
     return out[32]
+
+
+def read_design(dev, ehg, grs, ivf) -> dict:
+    """What the card's build shows of the edge-block and IVF kernels:
+    ptxas registers and spills, the SASS of the edge blocks' pixel loop
+    (its pixels counted by their two rsqrt each), and the device time of a
+    one-element fill, the floor of any kernel's device time, beside the
+    three short kernels."""
+    import torch
+    from mast3r_slam_tpu_torch.utils.timing import device_ms
+
+    out = {"ptxas": {lib: ptxas_report(lib) for lib in ("edge_hg_rays", "ivf_hamming")}}
+    loop = sass_loop("edge_hg_rays", "edge_hg_rays_kernel")
+    loop["pixels_a_loop"] = loop["MUFU_RSQ"] // 2  # two rsqrt a pixel-edge
+    loop["instructions_a_pixel_edge"] = loop["loop_instructions"] / max(1, loop["pixels_a_loop"])
+    out["edge_hg_sass_loop"] = loop
+    one = torch.empty(1, device=dev)
+    out["kernel_floor_ms"] = device_ms(lambda: one.fill_(1.0))
+    log(f"ptxas: {json.dumps(out['ptxas'])}")
+    log(f"edge_hg_rays SASS pixel loop: {json.dumps(loop)}")
+    log(f"kernel floor (one-element fill_, device time) {out['kernel_floor_ms']:.6f} ms; "
+        f"ivf_hamming {ivf['ms']:.6f}, gather_rows_sum {grs['ms']:.6f}, edge_hg_rays "
+        f"{ehg['ms']:.6f} ms")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1256,8 +1362,8 @@ def main() -> int:
     paths = kernels.build_all()
     log(f"built {sorted(paths)} from {kernels.CSRC_DIR.name}/ in "
         f"{time.perf_counter() - t0:.1f} s")
-    for name, text in sorted(kernels.build_logs.items()):
-        for line in text.splitlines():
+    for name in sorted(kernels.SOURCES):
+        for line in kernels.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  ptxas {name}: {line.strip()}")
 
@@ -1280,6 +1386,7 @@ def main() -> int:
     grs = check_gather_rows_sum(dev)
     tar = check_take_along_rows(dev)
     ivf = check_ivf_hamming(dev)
+    design = read_design(dev, ehg, grs, ivf)
     check_small_model(dev)
 
     counts, times, vitl = run_vitl(dev)
@@ -1364,10 +1471,12 @@ def main() -> int:
              replaces="scripts/tpu_r4_experiments.py:339",
              launches=rcounts["take_along_rows"], shape=tar["shape"], **common(tar)),
         dict(name="ivf_hamming", route="cuda",
-             source="mast3r_slam_tpu_torch/csrc/gather_rows.cu",
+             source="mast3r_slam_tpu_torch/csrc/ivf_hamming.cu",
              replaces="mast3r_slam_tpu/retrieval/asmk.py:307",
              launches=rcounts["ivf_hamming"], shape=ivf["shape"], **common(ivf)),
-    ], "tracked_frame_ms": frame_ms, "synthetic_ate_m": ate,
+    ], "kernel_floor_ms": design["kernel_floor_ms"],
+        "edge_hg_sass_loop": design["edge_hg_sass_loop"], "ptxas": design["ptxas"],
+        "tracked_frame_ms": frame_ms, "synthetic_ate_m": ate,
         "full_width_solve": {k: {"max_err_m": e, "iters": i, "ms": ms}
                              for k, (e, i, _, ms) in solves.items()},
         "vitl_backend_task": backend_split,

@@ -1,14 +1,9 @@
 // Row gather followed by a reduction over the row, for Hopper (sm_90a).
-// Bound through ctypes by ops/gather.py.  Two instances of one kernel:
+// Bound through ctypes by ops/gather.py.
 //
 //   gather_rows_sum  out[t] = sum_f float(table[idx[t], f]), int8 or f32.
 //     Replaces: scripts/tpu_r4_experiments.py  gatherprobe -> run (the
 //     Mosaic in-VMEM gather probe, kernel body `kern`).
-//   ivf_hamming      dist[q, b] = sum_w popcount(q_vecs[q, w] ^
-//                                   bvecs[qw[q], b, w]), int32.
-//     The gather-and-popcount of mast3r_slam_tpu/retrieval/asmk.py
-//     _ivf_search_bucketed (the bucketed IVF scoring): the package's own
-//     instance of the probe's pattern, on retrieval's path.
 //
 // What bounds it on the H100: bytes, and in practice 32-byte sectors.  Each
 // output row reads one table row at a random place (16 to 128 bytes) plus
@@ -24,8 +19,7 @@
 // row takes one load a lane where it can (16-byte int8 rows: L = 1; 32-byte
 // int8 rows: L = 2; 128-byte rows: L = 8).  Many independent rows a warp
 // keep enough loads in flight to cover the latency of the random reads.
-// An index outside the table reads nothing: the sum is NaN, the distance
-// -1.
+// An index outside the table reads nothing: the sum is NaN.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,12 +46,11 @@ struct SumInt8 {
   const int32_t* idx;
   float* out;
   int M;
-  using Acc = float;
   __device__ int64_t row(int64_t o) const {
     const int r = idx[o];
     return (r >= 0 && r < M) ? r : -1;
   }
-  __device__ void add(float& a, uint32_t w, int64_t, int) const {
+  __device__ void add(float& a, uint32_t w) const {
 #pragma unroll
     for (int k = 0; k < 4; ++k) a += (float)(int8_t)(w >> (8 * k));
   }
@@ -70,34 +63,16 @@ struct SumF32 {
   const int32_t* idx;
   float* out;
   int M;
-  using Acc = float;
   __device__ int64_t row(int64_t o) const {
     const int r = idx[o];
     return (r >= 0 && r < M) ? r : -1;
   }
-  __device__ void add(float& a, uint32_t w, int64_t, int) const {
+  __device__ void add(float& a, uint32_t w) const {
     a += __uint_as_float(w);
   }
   __device__ void store(int64_t o, float a, bool ok) const {
     out[o] = ok ? a : __int_as_float(0x7fc00000);
   }
-};
-
-// output row o = (q, b): bucket qw[q], slot b; word k against q_vecs[q, k]
-struct PopXor {
-  const uint32_t* q_vecs;
-  const int32_t* qw;
-  int32_t* dist;
-  int n_buckets, bucket_cap, W;
-  using Acc = int;
-  __device__ int64_t row(int64_t o) const {
-    const int w = qw[o / bucket_cap];
-    return (w >= 0 && w < n_buckets) ? (int64_t)w * bucket_cap + o % bucket_cap : -1;
-  }
-  __device__ void add(int& a, uint32_t w, int64_t o, int k) const {
-    a += __popc(w ^ __ldg(q_vecs + (o / bucket_cap) * W + k));
-  }
-  __device__ void store(int64_t o, int a, bool ok) const { dist[o] = ok ? a : -1; }
 };
 
 template <int NW, class Op>
@@ -108,14 +83,14 @@ gather_rows_kernel(const uint32_t* __restrict__ table, int64_t n_out, int row_wo
   const int64_t o = ((int64_t)blockIdx.x * THREADS + threadIdx.x) / lanes;
   const bool live = o < n_out;
   const int64_t r = live ? op.row(o) : -1;
-  typename Op::Acc acc = 0;
+  float acc = 0.0f;
   if (r >= 0) {
     const uint32_t* src = table + r * row_words;
     for (int c = lane * NW; c < row_words; c += lanes * NW) {
       uint32_t w[NW];
       load_words<NW>(src + c, w);
 #pragma unroll
-      for (int k = 0; k < NW; ++k) op.add(acc, w[k], o, c + k);
+      for (int k = 0; k < NW; ++k) op.add(acc, w[k]);
     }
   }
   // every lane of the warp reaches the shuffles (no early return)
@@ -160,14 +135,4 @@ extern "C" int gather_rows_sum(const void* table, const void* idx, void* out, in
   float* o = reinterpret_cast<float*>(out);
   if (is_int8) return launch(table, T, F / 4, SumInt8{ix, o, M}, stream);
   return launch(table, T, F, SumF32{ix, o, M}, stream);
-}
-
-// bvecs: (n_buckets, bucket_cap, W) int32, 16-byte aligned; q_vecs: (Q, W)
-// int32; qw: (Q,) int32; dist: (Q, bucket_cap) int32.  Q >= 1.
-extern "C" int ivf_hamming(const void* bvecs, const void* q_vecs, const void* qw,
-                           void* dist, int Q, int n_buckets, int bucket_cap, int W,
-                           void* stream) {
-  PopXor op{reinterpret_cast<const uint32_t*>(q_vecs), reinterpret_cast<const int32_t*>(qw),
-            reinterpret_cast<int32_t*>(dist), n_buckets, bucket_cap, W};
-  return launch(bvecs, (int64_t)Q * bucket_cap, W, op, stream);
 }

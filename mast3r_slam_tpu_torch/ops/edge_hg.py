@@ -17,8 +17,10 @@ produce, so no transpose is needed.  The kernel reads a pixel's 12 bytes
 per array with three loads whose 32-lane footprint is three whole 128-byte
 lines, used in full through L1.
 
-``edge_hg_rays`` launches ``csrc/edge_hg_rays.cu`` on CUDA tensors or
-raises; it runs ``edge_hg_rays_plain`` only on CPU tensors.
+``edge_hg_rays`` launches ``csrc/edge_hg_rays.cu`` (one cooperative kernel
+a call over (edge, tile) items sized to fill the card, their partial sums
+in a ``torch.empty`` scratch) on CUDA tensors or raises; it runs
+``edge_hg_rays_plain`` only on CPU tensors.
 """
 
 from __future__ import annotations
@@ -32,8 +34,11 @@ from .robust import huber_weight
 
 counter = kernels.LaunchCounter("edge_hg_rays")
 
-PIXELS_PER_BLOCK = 4096  # 256 threads x 16 pixels; blocks of one edge = ceil(N / this)
-MAX_EDGES = 65535        # the kernel's grid.y
+# a tile (one block's share of an edge) holds at least this many pixels;
+# below it a block's fixed costs (the edge's transform, the first loads'
+# latency, its reduction) outweigh its pixels
+MIN_TILE_PIXELS = 2048
+_slots: dict = {}  # blocks the kernel holds at once, by CUDA device index
 _EPS = 1e-12
 
 
@@ -125,20 +130,24 @@ def edge_hg_rays_cuda(Tij, Xi, Xj, sq, *, sigma_ray: float, sigma_dist: float,
             f"edge_hg_rays_cuda: shapes Tij {tuple(Tij.shape)}, Xi {tuple(Xi.shape)}, "
             f"Xj {tuple(Xj.shape)}, sq {tuple(sq.shape)}; expected (E, 8), "
             "(E, N, 3), (E, N, 3), (E, N)")
-    if E > MAX_EDGES:
-        raise ValueError(f"edge_hg_rays_cuda: E={E} > {MAX_EDGES} edges a launch")
     out = torch.empty((E, 8, 8), dtype=torch.float32, device=Xi.device)
     if E == 0:
         return out
     if N == 0:
         return out.zero_()
-    tiles = -(-N // PIXELS_PER_BLOCK)
-    partial = torch.empty((E, tiles, 36), dtype=torch.float32, device=Xi.device)
     fn = kernels.entry_point("edge_hg_rays")
     with torch.cuda.device(Xi.device):
+        slots = _slots.get(Xi.device.index)
+        if slots is None:
+            slots = _slots[Xi.device.index] = kernels.entry_point("edge_hg_rays_slots")()
+            if slots <= 0:
+                raise RuntimeError("edge_hg_rays_slots: the card's occupancy query failed")
+        # tiles an edge: enough (edge, tile) items to fill the card at once
+        tiles = max(1, min(slots // E, -(-N // MIN_TILE_PIXELS)))
+        partial = torch.empty((E * tiles, 36), dtype=torch.float32, device=Xi.device)
         stream = torch.cuda.current_stream(Xi.device).cuda_stream
         rc = fn(Tij.data_ptr(), Xi.data_ptr(), Xj.data_ptr(), sq.data_ptr(),
-                partial.data_ptr(), out.data_ptr(), E, N, PIXELS_PER_BLOCK,
+                partial.data_ptr(), out.data_ptr(), E, N, tiles, slots,
                 1.0 / sigma_ray, 1.0 / sigma_dist, huber_k, stream)
     kernels.check(rc, "edge_hg_rays_f32")
     counter.count += 1

@@ -7,15 +7,15 @@ and of the gather-and-popcount of retrieval's bucketed IVF scoring
 * ``gather_rows_sum(table, idx)``: ``out[t] = sum_f float(table[idx[t], f])``
   (probe ``gatherprobe``), table (M, F) int8 or f32, f32 out of idx's shape;
 * ``ivf_hamming(bvecs, q_vecs, qw)``: ``dist[q, b] = sum_w popcount(q_vecs[q, w]
-  ^ bvecs[qw[q], b, w])``, the same kernel with a popcount reduction;
+  ^ bvecs[qw[q], b, w])``, a warp on a query's whole bucket;
 * ``take_along_rows(tab, idx)``: ``out[i, f] = tab[idx[i, f], f]`` (probe
   ``gatherprobe2``, ``jnp.take_along_axis`` on axis 0), int8 or f32.
 
 Packed bit codes live in int32 tensors with the bits of the JAX package's
 uint32 (torch's uint32 lacks most bitwise kernels); ``popcount32`` counts
 them with a SWAR sum on int64.  Each wrapper launches its kernel
-(``csrc/gather_rows.cu``, ``csrc/take_along_rows.cu``) on CUDA tensors or
-raises; it runs the plain version only on CPU tensors.
+(``csrc/gather_rows.cu``, ``csrc/ivf_hamming.cu``, ``csrc/take_along_rows.cu``)
+on CUDA tensors or raises; it runs the plain version only on CPU tensors.
 
 Run as a script on the card for the probes' full sweeps, ns a row for the
 kernel and for the library call (device time):

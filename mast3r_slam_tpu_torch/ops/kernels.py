@@ -3,7 +3,8 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``.  The build
 happens at first use, into ``build/kernels/`` at the repository root, named
-by a hash of the source and the flags, so an edited source rebuilds.
+by a hash of the source and the flags, so an edited source rebuilds; nvcc's
+output (ptxas's registers and spills) is kept beside each library.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all.
 Nothing here runs at import; a failed build raises.
 """
@@ -29,6 +30,7 @@ SOURCES = {
     "refine_window": "refine_window.cu",
     "edge_hg_rays": "edge_hg_rays.cu",
     "gather_rows": "gather_rows.cu",
+    "ivf_hamming": "ivf_hamming.cu",
     "take_along_rows": "take_along_rows.cu",
 }
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -40,9 +42,10 @@ ENTRY_POINTS = {
                   [_P] * 4 + [_I] * 4 + [_L] * 9 + [ctypes.c_float, _P]),
     "refine_window": ("refine_window", "refine_window_i8", [_P] * 4 + [_I] * 7 + [_P] * 2),
     "edge_hg_rays": ("edge_hg_rays", "edge_hg_rays_f32",
-                     [_P] * 6 + [_I] * 3 + [ctypes.c_float] * 3 + [_P]),
+                     [_P] * 6 + [_I] * 4 + [ctypes.c_float] * 3 + [_P]),
+    "edge_hg_rays_slots": ("edge_hg_rays", "edge_hg_rays_slots", []),
     "gather_rows_sum": ("gather_rows", "gather_rows_sum", [_P] * 3 + [_I] * 4 + [_P]),
-    "ivf_hamming": ("gather_rows", "ivf_hamming", [_P] * 4 + [_I] * 4 + [_P]),
+    "ivf_hamming": ("ivf_hamming", "ivf_hamming", [_P] * 4 + [_I] * 4 + [_P]),
     "take_along_rows": ("take_along_rows", "take_along_rows", [_P] * 3 + [_I] * 4 + [_P]),
 }
 NVCC_FLAGS = [
@@ -59,9 +62,6 @@ NVCC_FLAGS = [
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[str, object] = {}
 _lock = threading.Lock()
-# ptxas report (registers, shared memory, spills) of each library built by
-# this process, for the chip smoke run to print
-build_logs: Dict[str, str] = {}
 
 
 def source_path(name: str) -> Path:
@@ -112,10 +112,17 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
             errors.append(f"nvcc failed for {name} (rc {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
-        build_logs[name] = log
+        out.with_suffix(".log").write_text(log)
     if errors:
         raise RuntimeError("\n".join(errors))
     return todo
+
+
+def build_log(name: str) -> str:
+    """The nvcc output of a built library, ptxas's report of registers,
+    shared memory and spills included ("" if it is not built)."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def entry_point(name: str):

@@ -23,7 +23,9 @@ f32 within EDGE_HG_ERR_F32 (its long (8, 4N) x (4N, 8) products drift
 more than the kernel's tree of partial sums).  At 32 x 384*512 on an H100
 the kernel reads 4.2e-6 against float64 and 4.3e-4 against the f32 plain
 version, which itself reads 4.3e-4 against float64; planted faults read
-0.031 to 1.  Under invalid pixels (sq = 0) bitwise equality.
+0.031 to 1.  Under invalid pixels (sq = 0) bitwise equality; two calls
+give the same bits, in one kernel launch, with exact zeros at
+Mloc[:, 3:6, 6] (no row reaches them).
 The gathers (gather_rows_sum, ivf_hamming, take_along_rows): exact, on
 integer-valued inputs whose f32 sums are exact.
 """
@@ -260,7 +262,20 @@ def _edge_inputs(E, N, device, seed):
     return Tij.contiguous(), Xi.contiguous(), Xj.contiguous(), sq.contiguous()
 
 
-@pytest.mark.parametrize("E,N", [(1, 1), (3, 300), (5, 4097), (2, 12345),
+def _kernel_names(fn):
+    """Names of the kernels one call of ``fn`` launched, one a launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("E,N", [(1, 1), (3, 300), (5, 4097), (2, 12345), (257, 1000),
                                  (32, 384 * 512)])  # N a multiple of no tile
 def test_edge_hg_kernel_matches_plain(cuda, E, N):
     Tij, Xi, Xj, sq = _edge_inputs(E, N, cuda, seed=E + N)
@@ -275,6 +290,23 @@ def test_edge_hg_kernel_matches_plain(cuda, E, N):
     assert edge_hg.block_err(got, exact) <= EDGE_HG_ERR_F64
     want = edge_hg.edge_hg_rays_plain(Tij, Xi, Xj, sq, **SIG)
     assert edge_hg.block_err(got, want) <= EDGE_HG_ERR_F32
+
+
+@pytest.mark.parametrize("E,N", [(1, 1), (3, 300), (5, 4097), (257, 1000),
+                                 (32, 384 * 512)])
+def test_edge_hg_kernel_same_bits_one_launch(cuda, E, N):
+    """Ragged and unaligned N (e·N·12 bytes not a multiple of 16), more
+    edges than one gathered-point cache holds (256): the same bits on two
+    calls, exact zeros where no row reaches (Mloc[:, 3:6, 6] and its
+    mirror), and one kernel a call by the profiler's kernel names."""
+    Tij, Xi, Xj, sq = _edge_inputs(E, N, cuda, seed=7 * E + N)
+    got = edge_hg.edge_hg_rays(Tij, Xi, Xj, sq, **SIG)
+    again = edge_hg.edge_hg_rays(Tij, Xi, Xj, sq, **SIG)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert (got[:, 3:6, 6] == 0).all() and (got[:, 6, 3:6] == 0).all()
+    names = _kernel_names(lambda: edge_hg.edge_hg_rays(Tij, Xi, Xj, sq, **SIG))
+    assert len(names) == 1, names
 
 
 def test_edge_hg_check_fails_planted_faults(cuda):
@@ -403,6 +435,30 @@ def test_ivf_hamming_kernel_matches_plain_exactly(cuda, W, cap):
     bad[:3] = torch.tensor([-1, nb, 2 ** 30], device=cuda)  # outside: nothing read
     out = gather.ivf_hamming(bvecs, q, bad)
     assert (out[:3] == -1).all() and torch.equal(out[3:], got[3:])
+
+
+@pytest.mark.parametrize("Q", [1, 7, 1500])
+@pytest.mark.parametrize("W", [1, 2, 3, 32])
+@pytest.mark.parametrize("cap", [16, 5])
+def test_ivf_hamming_kernel_query_counts(cuda, Q, W, cap):
+    """Several queries a warp (W 1 and 2, and cap 5 at W 3), a ragged last
+    warp (Q = 7), words outside the table (-1, nothing read); one kernel a
+    call."""
+    nb = 257
+    bvecs = _ints((nb, cap, W), -2 ** 31, 2 ** 31 - 1, cuda, seed=Q + W)
+    q = _ints((Q, W), -2 ** 31, 2 ** 31 - 1, cuda, seed=Q + W + 1)
+    qw = _ints((Q,), 0, nb, cuda, seed=Q + cap)
+    bad = torch.zeros(Q, dtype=torch.bool, device=cuda)
+    if Q > 1:
+        bad[1::3] = True
+        qw[1::6] = -1
+        qw[4::6] = nb
+    got = gather.ivf_hamming(bvecs, q, qw)
+    torch.cuda.synchronize()
+    want = gather.ivf_hamming_plain(bvecs, q, torch.where(bad, 0, qw))
+    assert torch.equal(got[~bad], want[~bad])
+    assert (got[bad] == -1).all()
+    assert len(_kernel_names(lambda: gather.ivf_hamming(bvecs, q, qw))) == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.float32])
