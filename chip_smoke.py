@@ -35,16 +35,20 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
   6. the backend at full width: the global Gauss-Newton on a synthetic
      16-keyframe rays problem at 384x512 (32 two-way edges), through both
      entries (gathering, and the gathered-point cache that FactorGraph.solve
-     takes up to 256 edges; the cached one profiled), held to its ground
-     truth, and one ViT-L backend task (three keyframes,
-     FactorGraph.add_factors([1], [2]), FactorGraph.solve()) with the
-     launch counters reset just before and read just after;
+     takes up to 256 edges; the cached one profiled), then PCG rays and
+     calib mode through the cached entry, each held to its ground truth
+     and run twice for the same pose bits, and one ViT-L backend task
+     (three keyframes, FactorGraph.add_factors([1], [2]),
+     FactorGraph.solve()) with the launch counters reset just before and
+     read just after;
   7. retrieval at full width: the default head (1024 -> 1024, 300
      features) and a seeded 64k-word codebook over ViT-L tokens, the
      inverted file filled to 512 keyframes; update and query timed (one
      query profiled), one ivf_hamming launch a call, the kernel exactly
      against its plain version on a query's tensors and the kernel route's
-     scores against the plain route's, update twice on one state;
+     scores against the plain route's, one query three times for the same
+     score bits (and the scatter-add alone on its slots, index_add_ against
+     the fixed-order sum), update twice on one state;
   8. relocalisation: SLAM.run with a small retrieval head over the plane
      scene at 384x512 whose camera teleports back to its start; it must
      relocalise, end in TRACKING and land within 0.15 m, with the launch
@@ -52,11 +56,13 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      ivf_hamming exact on a query of the database it built (W = 1).
 
 Phase 2 also holds the two gather probes' kernels (gather_rows_sum,
-take_along_rows) and the IVF bucket scoring (ivf_hamming, W 1, 2 and 32,
-one kernel a call) exactly against their plain versions; their bytes
-bounds count the rows or elements this run's indices gather.  It then
-reads the edge-block and IVF kernels' design off the card: ptxas registers
-and spills, the edge blocks' SASS pixel loop (instructions, FFMA, MUFU,
+take_along_rows, the latter at every slab width of SLAB_SWEEP, timed in
+turns) and the IVF bucket scoring (ivf_hamming, W 1, 2 and 32, one kernel
+a call) exactly against their plain versions; their bytes bounds count the
+rows or elements this run's indices gather (and, for take_along_rows, the
+32-byte sectors).  It then reads the design of the edge-block, IVF and two
+gather kernels off the card: ptxas registers and spills, the gathers'
+launch plans, the edge blocks' SASS pixel loop (instructions, FFMA, MUFU,
 subroutine calls; cuobjdump), and a one-element fill's device time as the
 floor of any kernel's.  Phase 4 ends with a torch.profiler breakdown of one more ViT-L tracked
 frame (device time by kernel, launches, device busy share).  It prints one
@@ -107,7 +113,8 @@ EDGE_HG_FLOPS = 259
 N_TRACKED = 5              # ViT-L tracked frames
 # retrieval scores, kernel route against plain route on the same tensors:
 # the distances are equal integers, and the rest is one f32 chain whose
-# scatter-add adds in atomic order
+# per-image sums run in a fixed order (1.2e-7 was read on an H100 when they
+# were atomic adds)
 RETRIEVAL_SCORE_RTOL = 1e-6
 RELOC_BOUND_M = 0.15       # post-reloc frames against ground truth (tests/test_reloc_e2e.py)
 
@@ -171,17 +178,23 @@ def time_kernel(kernel, plain, library=None, plain_iters: int = 20) -> dict:
 
 def kernel_names(fn) -> list:
     """Names of the kernels one call of ``fn`` launched, one entry a launch
-    (torch.profiler)."""
+    (torch.profiler).  A call launches at least one kernel, so a trace with
+    no kernel record has lost them (seen on an H100 for kernels launched
+    from a ctypes library): it is taken again, up to ten times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sorted(e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
+    for _ in range(10):
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted(e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
+        if names:
+            break
+    return names
 
 
 def dump_sass(lib: str) -> str:
@@ -517,12 +530,20 @@ def check_gather_rows_sum(dev, M=196_608, T=196_608):
     return out[("int8", 32)]
 
 
+SLAB_SWEEP = (32, 64, 128)  # take_along_rows: bytes of a table row a slab holds
+
+
 def check_take_along_rows(dev, M=196_608):
-    """Probe 2 at its largest shapes, int8 and f32.  Bytes: the distinct
-    (row, column) elements this run's indices gather, the indices and the
-    output.  Returns the f32 (196608, 128) record."""
+    """Probe 2 at its largest shapes, int8 and f32; at F = 128 the slab
+    width swept over SLAB_SWEEP, each exact, timed in turns (there and back).
+    Two bytes bounds: bound_ms counts the distinct (row, column)
+    elements this run's indices gather, the indices and the output;
+    sector_bound_ms counts the distinct 32-byte table sectors they touch
+    instead of the elements, as a random element read moves a whole sector.
+    Returns the f32 (196608, 128) record."""
     import torch
     from mast3r_slam_tpu_torch.ops import gather
+    from mast3r_slam_tpu_torch.utils.timing import device_ms
 
     g = torch.Generator(device=dev).manual_seed(22)
     out = {}
@@ -538,12 +559,27 @@ def check_take_along_rows(dev, M=196_608):
             times = time_kernel(lambda: gather.take_along_rows(tab, idx),
                                 lambda: gather.take_along_rows_plain(tab, idx),
                                 lambda: torch.gather(tab, 0, idx64))
-            n_elems = _n_unique(idx64 * F + torch.arange(F, device=dev))
-            nbytes = (n_elems + idx.numel()) * tab.element_size() + idx.numel() * 4
+            eb = tab.element_size()
+            flat = idx64 * F + torch.arange(F, device=dev)
+            n_elems = _n_unique(flat)
+            n_sectors = _n_unique(flat * eb // 32)
+            del flat
+            nbytes = (n_elems + idx.numel()) * eb + idx.numel() * 4
+            sector_bytes = n_sectors * 32 + idx.numel() * (eb + 4)
             res = dict(shape=[M, F], dtype=str(dtype).split(".")[1], max_abs_err=0.0,
-                       **times, **_bound(nbytes))
+                       **times, **_bound(nbytes),
+                       sector_bound_ms=sector_bytes / PEAK_BYTES * 1e3)
+            if F == 128:
+                sweep = {sb: [] for sb in SLAB_SWEEP}
+                for sb in SLAB_SWEEP + SLAB_SWEEP[::-1]:
+                    run = lambda: gather.take_along_rows_cuda(tab, idx, slab_bytes=sb)
+                    _exact(f"take_along_rows {dtype} F={F} slab {sb} B", run(), want)
+                    sweep[sb].append(device_ms(run))
+                res["slab_sweep_ms"] = sweep
+                res["slab_bytes"] = gather.SLAB_BYTES
             log(f"take_along_rows ({M}, {F}) {res['dtype']}: {json.dumps(res)}")
             out[(res["dtype"], F)] = res
+            del tab, idx, idx64, got, want
     return out[("float32", 128)]
 
 
@@ -583,21 +619,36 @@ def check_ivf_hamming(dev, Q=1500, cap=16, num_words=65_536):
 
 
 def read_design(dev, ehg, grs, ivf) -> dict:
-    """What the card's build shows of the edge-block and IVF kernels:
-    ptxas registers and spills, the SASS of the edge blocks' pixel loop
+    """What the card's build shows of the edge-block, IVF and two gather
+    kernels: ptxas registers and spills, the SASS of the edge blocks' pixel loop
     (its pixels counted by their two rsqrt each), and the device time of a
     one-element fill, the floor of any kernel's device time, beside the
     three short kernels."""
     import torch
     from mast3r_slam_tpu_torch.utils.timing import device_ms
 
-    out = {"ptxas": {lib: ptxas_report(lib) for lib in ("edge_hg_rays", "ivf_hamming")}}
+    out = {"ptxas": {lib: ptxas_report(lib) for lib in ("edge_hg_rays", "ivf_hamming",
+                                                        "gather_rows", "take_along_rows")}}
     loop = sass_loop("edge_hg_rays", "edge_hg_rays_kernel")
     loop["pixels_a_loop"] = loop["MUFU_RSQ"] // 2  # two rsqrt a pixel-edge
     loop["instructions_a_pixel_edge"] = loop["loop_instructions"] / max(1, loop["pixels_a_loop"])
     out["edge_hg_sass_loop"] = loop
     one = torch.empty(1, device=dev)
     out["kernel_floor_ms"] = device_ms(lambda: one.fill_(1.0))
+    from mast3r_slam_tpu_torch.ops import gather
+
+    M = 196_608
+    slots = lambda nw, rb: gather._slots_of(dev, "gather_rows_sum_slots", 1, nw, rb)
+    out["plans"] = {
+        "take_along_rows f32 (196608, 128)": gather.take_plan(
+            M, M, 128, 4, gather._slots_of(dev, "take_along_rows_slots", 4))._asdict(),
+        "take_along_rows int8 (196608, 128)": gather.take_plan(
+            M, M, 128, 1, gather._slots_of(dev, "take_along_rows_slots", 1))._asdict(),
+        "gather_rows_sum int8 (196608, 32), 196608 rows": gather.sum_plan(M, 8, slots)._asdict(),
+        "gather_rows_sum f32 (196608, 32), 196608 rows": gather.sum_plan(
+            M, 32, lambda nw, rb: gather._slots_of(dev, "gather_rows_sum_slots", 0, nw, rb)
+        )._asdict()}
+    log(f"gather launch plans: {json.dumps(out['plans'])}")
     log(f"ptxas: {json.dumps(out['ptxas'])}")
     log(f"edge_hg_rays SASS pixel loop: {json.dumps(loop)}")
     log(f"kernel floor (one-element fill_, device time) {out['kernel_floor_ms']:.6f} ms; "
@@ -1002,14 +1053,41 @@ def run_synthetic_slam(dev, hw=(384, 512), n_frames=16):
 # phase 6: the backend at full width
 # ---------------------------------------------------------------------------
 
+def calib_problem(dev, hw, n_kf, seed):
+    """The calib-mode solve's scene (tests/test_sharded_ba.py _calib_problem
+    at full width): every keyframe at one pose with one pointmap on the
+    pixel grid (depth 2-2.5 m), so identity correspondences and pixel
+    targets are exact; the poses after the first perturbed.  Returns (K,
+    ground truth, noisy poses, Xs, Cs)."""
+    import torch
+    from mast3r_slam_tpu_torch.lie import sim3
+
+    rng = np.random.default_rng(seed)
+    H, W = hw
+    N = H * W
+    f = 0.9 * W
+    K = torch.tensor([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], dtype=torch.float32, device=dev)
+    lin = np.arange(N)
+    z = 2.0 + 0.5 * rng.random(N)
+    X = np.stack([(lin % W - W / 2) / f * z, (lin // W - H / 2) / f * z, z], -1)
+    Xs = torch.as_tensor(X, dtype=torch.float32, device=dev).expand(n_kf, N, 3).contiguous()
+    gt = sim3.identity(device=dev).expand(n_kf, 8).contiguous()
+    tau = torch.as_tensor(rng.normal(size=(n_kf, 7)) * 0.01, dtype=torch.float32, device=dev)
+    tau[0] = 0
+    return K, gt, sim3.retr(gt, tau), Xs, torch.full((n_kf, N, 1), 2.0, device=dev)
+
+
 def run_synthetic_solve(dev, hw=(384, 512), n_kf=16, seed=5):
-    """The global GN on 16 keyframes seeing one world cloud through identity
-    correspondences, a chain plus loop edges (32 two-way edges), the poses
-    after the first perturbed: through gauss_newton_poses, then through
-    gauss_newton_poses_cached (the entry FactorGraph.solve takes for up to
-    256 edges), each with the launch counters reset just before and read
-    just after.  Returns {entry: (max translation error, GN iterations,
-    edge-block launches, ms)}."""
+    """The global GN on 16 keyframes, a chain plus loop edges (32 two-way
+    edges), identity correspondences, the poses after the first perturbed.
+    Rays (one world cloud seen from an arc): through gauss_newton_poses,
+    then through gauss_newton_poses_cached (the entry FactorGraph.solve
+    takes for up to 256 edges) with the dense solver and with PCG; calib
+    (calib_problem) through the cached entry.  Each with the launch counters
+    reset just before and read just after, then run again from the same
+    inputs and its poses compared bit for bit (the normal equations are
+    assembled by scatter-adds).  Returns {entry: dict(err, iters, launches
+    of the edge-block kernel, ms, same_bits)}."""
     import torch
     from mast3r_slam_tpu_torch.lie import sim3
     from mast3r_slam_tpu_torch.ops.global_gn import (
@@ -1038,16 +1116,30 @@ def run_synthetic_solve(dev, hw=(384, 512), n_kf=16, seed=5):
     # (identity here), forward half then backward half; one fusion a keyframe
     gath = torch.cat([Xs, Cs], dim=-1)[ii]
     n_fused = torch.ones(n_kf, device=dev)
-    entries = {
-        "gather": lambda: gauss_newton_poses(
-            noisy, Xs, Cs, ii, jj, idx, valid, Q, K, hw, GlobalGNSettings(), "rays"),
-        "cached": lambda: gauss_newton_poses_cached(
+    Kc, gt_c, noisy_c, Xs_c, Cs_c = calib_problem(dev, hw, n_kf, seed)
+    gath_c = torch.cat([Xs_c, Cs_c], dim=-1)[ii]
+
+    def cached(settings, mode="rays"):
+        if mode == "calib":
+            return lambda: gauss_newton_poses_cached(
+                noisy_c, Xs_c, Cs_c, n_fused, ii, jj, gath_c[:half], gath_c[half:], idx,
+                valid, Q, Kc, hw, settings, "calib")
+        return lambda: gauss_newton_poses_cached(
             noisy, Xs, Cs, n_fused, ii, jj, gath[:half], gath[half:], idx, valid, Q, K,
-            hw, GlobalGNSettings(), "rays"),
+            hw, settings, "rays")
+
+    # entry: (solve, ground truth, edge-block launches an iteration)
+    entries = {
+        "gather": (lambda: gauss_newton_poses(
+            noisy, Xs, Cs, ii, jj, idx, valid, Q, K, hw, GlobalGNSettings(), "rays"), gt, 1),
+        "cached": (cached(GlobalGNSettings()), gt, 1),
+        "cached_pcg": (cached(GlobalGNSettings(solver="pcg")), gt, 1),
+        "cached_calib": (cached(GlobalGNSettings(), "calib"), gt_c, 0),
     }
-    err0 = (noisy[:, :3] - gt[:, :3]).norm(dim=-1).max().item()
     out = {}
-    for name, solve in entries.items():
+    for name, (solve, truth, per_iter) in entries.items():
+        err0 = (noisy[:, :3] - gt[:, :3]) if truth is gt else (noisy_c[:, :3] - gt_c[:, :3])
+        err0 = err0.norm(dim=-1).max().item()
         reset_counts()
         sync(dev)
         t0 = time.perf_counter()
@@ -1055,17 +1147,22 @@ def run_synthetic_solve(dev, hw=(384, 512), n_kf=16, seed=5):
         sync(dev)
         ms = (time.perf_counter() - t0) * 1e3
         counts = read_counts()
-        err = (T[:, :3] - gt[:, :3]).norm(dim=-1).max().item()
+        err = (T[:, :3] - truth[:, :3]).norm(dim=-1).max().item()
+        T2 = solve()[0]
+        same_bits = torch.equal(T, T2)
         log(f"full-width solve, {name} entry ({n_kf} keyframes, {E} edges x {N} px): "
             f"{iters} GN iterations, ok {ok}, diverged {diverged}, {ms:.3f} ms (host "
-            f"clock); max translation error {err0:.6f} -> {err:.8f} m; launches {counts}")
-        if not (ok and err <= SOLVE_BOUND_M and counts["edge_hg_rays"] == iters >= 1):
+            f"clock); max translation error {err0:.6f} -> {err:.8f} m; launches {counts}; "
+            f"the same pose bits on a second run {same_bits}")
+        if not (ok and err <= SOLVE_BOUND_M and iters >= 1
+                and counts["edge_hg_rays"] == per_iter * iters):
             raise AssertionError(f"full-width solve, {name} entry: error {err} m (bound "
                                  f"{SOLVE_BOUND_M}), ok {ok}, {iters} iterations, "
                                  f"launches {counts}")
-        out[name] = (err, iters, counts["edge_hg_rays"], ms)
+        out[name] = dict(err=err, iters=iters, launches=counts["edge_hg_rays"], ms=ms,
+                         same_bits=same_bits)
     if dev.type == "cuda":
-        profile("the full-width solve, cached entry", entries["cached"], top=15)
+        profile("the full-width solve, cached entry", entries["cached"][0], top=15)
     return out
 
 
@@ -1186,6 +1283,7 @@ def run_retrieval(dev, model, hw=(384, 512), n_db=512, n_real=4, n_timed=3,
     from mast3r_slam_tpu_torch.retrieval import (ASMKSettings, RetrievalDatabase,
                                                  RetrievalHeadSettings, asmk)
     from mast3r_slam_tpu_torch.retrieval.head import init_head_params
+    from mast3r_slam_tpu_torch.utils import numerics
 
     g = torch.Generator(device=dev).manual_seed(31)
     D = model.feat_dim
@@ -1247,6 +1345,25 @@ def run_retrieval(dev, model, hw=(384, 512), n_db=512, n_real=4, n_timed=3,
     rel = float(np.max(np.abs(kern - plain) / np.maximum(np.abs(plain), 1e-30)))
     same_topk = bool(np.array_equal(np.argsort(-kern)[:3], np.argsort(-plain)[:3]))
 
+    # the same query three times: the same candidates and score bits (the
+    # scores are summed by a scatter-add)
+    queries = [db.query(fr, 3, 0.005, with_scores=True) for _ in range(3)]
+    scores_same_bits = all(q[0] == queries[0][0] and q[2].tobytes() == queries[0][2].tobytes()
+                           for q in queries[1:])
+    # the scatter-add alone on this query's image slots (seeded values):
+    # index_add_ (atomic order) against the fixed-order sum, 20 repeats each
+    slots = ivf.bimids[torch.where(valid, words, ivf.bvecs.shape[0] - 1).long()]
+    slots = slots.clamp_min(0).long().reshape(-1)
+    vals = torch.rand(slots.shape, device=dev, generator=g)
+
+    def repeats(add):
+        ref = add(torch.zeros(ivf.s.max_images, device=dev), slots, vals)
+        return sum(torch.equal(ref, add(torch.zeros_like(ref), slots, vals))
+                   for _ in range(20))
+
+    scatter_repeats = dict(index_add_=repeats(lambda d, i, v: d.index_add_(0, i, v)),
+                           index_add_fixed=repeats(numerics.index_add_fixed))
+
     # update twice on one state: the same candidates and the same stored codes
     state = (copy.deepcopy(db.ivf), db.kf_counter)
     runs = []
@@ -1259,7 +1376,8 @@ def run_retrieval(dev, model, hw=(384, 512), n_db=512, n_real=4, n_timed=3,
     out = dict(n_images=ivf.n_images, n_entries=ivf.n_entries, bucket_cap=db.ivf.bucket_cap,
                fill_s=fill_s, update_ms=upd_ms, query_ms=qry_ms, launches=launches,
                hamming_exact=hamming_exact, kernel_vs_plain_rel=rel, same_topk=same_topk,
-               repeat_same=repeat_same,
+               repeat_same=repeat_same, scores_same_bits=scores_same_bits,
+               scatter_repeats_of_20=scatter_repeats,
                candidates=runs[0][0], scores_max=float(kern.max()))
     log(f"retrieval at full width (head {D}->{hdims}, {nfeat} features, {num_words} "
         f"words, {ivf.n_images} images): {json.dumps(out)}")
@@ -1414,6 +1532,9 @@ def main() -> int:
                              f"({n_tracked} tracked frames, {n_tasks} backend tasks)")
 
     solves = run_synthetic_solve(dev)
+    if not all(r["same_bits"] for r in solves.values()):
+        raise AssertionError("full-width solves, the same pose bits on a second run: "
+                             + json.dumps({k: r["same_bits"] for k, r in solves.items()}))
     backend_counts, backend_split = run_vitl_backend(dev, vitl)
 
     retr = run_retrieval(dev, vitl)
@@ -1421,7 +1542,8 @@ def main() -> int:
         raise AssertionError(f"full-width retrieval launches {retr['launches']}: "
                              f"expected one ivf_hamming and nothing else a call")
     if not (retr["hamming_exact"] and retr["kernel_vs_plain_rel"] <= RETRIEVAL_SCORE_RTOL
-            and retr["same_topk"] and retr["repeat_same"] and retr["n_images"] > 512
+            and retr["same_topk"] and retr["repeat_same"] and retr["scores_same_bits"]
+            and retr["n_images"] > 512
             and retr["bucket_cap"] == 16):
         raise AssertionError(f"full-width retrieval: {retr}")
 
@@ -1469,22 +1591,26 @@ def main() -> int:
         dict(name="take_along_rows", route="cuda",
              source="mast3r_slam_tpu_torch/csrc/take_along_rows.cu",
              replaces="scripts/tpu_r4_experiments.py:339",
-             launches=rcounts["take_along_rows"], shape=tar["shape"], **common(tar)),
+             launches=rcounts["take_along_rows"], shape=tar["shape"], **common(tar),
+             sector_bound_ms=tar["sector_bound_ms"], slab_bytes=tar["slab_bytes"],
+             slab_sweep_ms=tar["slab_sweep_ms"]),
         dict(name="ivf_hamming", route="cuda",
              source="mast3r_slam_tpu_torch/csrc/ivf_hamming.cu",
              replaces="mast3r_slam_tpu/retrieval/asmk.py:307",
              launches=rcounts["ivf_hamming"], shape=ivf["shape"], **common(ivf)),
     ], "kernel_floor_ms": design["kernel_floor_ms"],
         "edge_hg_sass_loop": design["edge_hg_sass_loop"], "ptxas": design["ptxas"],
+        "gather_plans": design["plans"],
         "tracked_frame_ms": frame_ms, "synthetic_ate_m": ate,
-        "full_width_solve": {k: {"max_err_m": e, "iters": i, "ms": ms}
-                             for k, (e, i, _, ms) in solves.items()},
+        "full_width_solve": {k: {"max_err_m": r["err"], "iters": r["iters"], "ms": r["ms"],
+                                 "same_bits": r["same_bits"]} for k, r in solves.items()},
         "vitl_backend_task": backend_split,
         "refine_inputs": {name: {k: r[k] for k in ("ms", "pairs_shared", "pixel_levels_shared")}
                           for name, r in (("smooth_flow", ref_smooth),
                                           ("scattered", ref_scattered))},
         "retrieval_full_width": {k: retr[k] for k in ("update_ms", "query_ms",
-                                                      "kernel_vs_plain_rel")},
+                                                      "kernel_vs_plain_rel",
+                                                      "scores_same_bits")},
         "synthetic_reloc": {"n_reloc": rres.n_reloc, "n_reloc_success": rres.n_reloc_success,
                             "post_reloc_err_m": post_err}}
     log(smi)

@@ -16,6 +16,9 @@ uint32 (torch's uint32 lacks most bitwise kernels); ``popcount32`` counts
 them with a SWAR sum on int64.  Each wrapper launches its kernel
 (``csrc/gather_rows.cu``, ``csrc/ivf_hamming.cu``, ``csrc/take_along_rows.cu``)
 on CUDA tensors or raises; it runs the plain version only on CPU tensors.
+The two probes' launch geometry comes from plain functions, ``take_plan``
+and ``sum_plan``, fed by the card's occupancy, which the CPU tests walk
+as the kernels do.
 
 Run as a script on the card for the probes' full sweeps, ns a row for the
 kernel and for the library call (device time):
@@ -24,6 +27,8 @@ kernel and for the library call (device time):
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -34,6 +39,12 @@ ivf_counter = kernels.LaunchCounter("ivf_hamming")
 take_counter = kernels.LaunchCounter("take_along_rows")
 
 _TYPES = (torch.int8, torch.float32)
+THREADS = 256     # a block of either probe kernel
+SLAB_BYTES = 128  # take_along_rows: bytes of a table row in one slab (chip_smoke sweep)
+# take_along_rows: a larger table is gathered one slab a pass, a grid barrier
+# between passes, as the L2 (50 MB, shared with idx and out) cannot keep it
+PASS_TABLE_BYTES = 32 << 20
+_slots: dict = {}  # blocks the card holds at once, by (device, kernel instance)
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -62,6 +73,87 @@ def ivf_hamming_plain(bvecs, q_vecs, qw):
 def take_along_rows_plain(tab, idx):
     cols = torch.arange(idx.shape[1], device=idx.device)
     return tab[idx.long(), cols]
+
+
+# ---------------------------------------------------------------------------
+# launch plans (plain Python, so that the CPU tests reach them)
+# ---------------------------------------------------------------------------
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class TakePlan(NamedTuple):
+    slab_cols: int  # columns of a slab (a power-of-two multiple of a thread's 4)
+    chunks: int     # row chunks of a slab: items = slabs x chunks
+    items: int
+    passes: int     # 1, or one a slab with a grid barrier between
+    grid: int       # a block an item in one pass; else persistent blocks
+
+
+def take_plan(K: int, M: int, F: int, elem_bytes: int, slots: int,
+              slab_bytes: int = SLAB_BYTES) -> TakePlan:
+    """Launch of ``take_along_rows`` for tab (M, F) and idx (K, F): a thread
+    takes 4 consecutive elements of an output row, a slab ``slab_bytes`` of
+    each table row (fewer where a power of two of threads covers the row in
+    fewer), a block of THREADS threads one slab of THREADS / (threads a
+    slab row) rows an item.  In one pass a block takes one item, and the
+    card dispatches blocks in order, slab-major; where the table exceeds
+    PASS_TABLE_BYTES, at most ``slots`` blocks (the card's resident blocks)
+    walk the items one slab a pass, a grid barrier between."""
+    if elem_bytes not in (1, 4) or slab_bytes < 32 or slab_bytes % 32:
+        raise ValueError(f"take_plan: elem_bytes {elem_bytes}, slab_bytes {slab_bytes}; "
+                         "expected 1 or 4, and a multiple of 32")
+    tps = 1  # threads a slab row: a power of two, no wider than the row needs
+    while tps * 4 < F and 2 * tps * 4 * elem_bytes <= slab_bytes:
+        tps *= 2
+    n_slabs = _cdiv(F, 4 * tps)
+    chunks = _cdiv(K, THREADS // tps)
+    items = n_slabs * chunks
+    if n_slabs > 1 and M * F * elem_bytes > PASS_TABLE_BYTES:
+        return TakePlan(4 * tps, chunks, items, n_slabs, min(chunks, slots))
+    return TakePlan(4 * tps, chunks, items, 1, items)
+
+
+class SumPlan(NamedTuple):
+    nw: int     # words a load (4, 2 or 1: the largest that divides the row)
+    lanes: int  # threads a row (a power of two, 32 bytes each a pass)
+    rb: int     # rows a group loads at once (1, or 4)
+    rows: int   # consecutive rows a group takes
+    grid: int   # blocks of THREADS threads
+
+
+def sum_plan(T: int, row_words: int, slots) -> SumPlan:
+    """Launch of ``gather_rows_sum`` for T rows of ``row_words`` 4-byte
+    words, in one wave.  ``slots(nw, rb)`` gives the blocks the card holds
+    at once of the kernel instance that loads nw words at a time and one
+    row (rb 1) or four (rb 4).  A row of up to 32 bytes takes one thread;
+    where T exceeds one wave of one-row groups, a group takes a multiple
+    of 4 consecutive rows, as few as that wave allows."""
+    nw = 4 if row_words % 4 == 0 else (2 if row_words % 2 == 0 else 1)
+    lanes = 1
+    while lanes * 8 < row_words and lanes < 32:
+        lanes *= 2
+    groups_block = THREADS // lanes
+    if T <= slots(nw, 1) * groups_block:
+        rb, rows = 1, 1
+    else:
+        rb = 4
+        rows = 4 * _cdiv(T, 4 * slots(nw, 4) * groups_block)
+    return SumPlan(nw, lanes, rb, rows, _cdiv(_cdiv(T, rows), groups_block))
+
+
+def _slots_of(dev, name: str, *args) -> int:
+    """Resident blocks of one kernel instance on ``dev`` (cached)."""
+    key = (dev.index, name, args)
+    slots = _slots.get(key)
+    if slots is None:
+        with torch.cuda.device(dev):
+            slots = kernels.entry_point(name)(*args)
+        if slots <= 0:
+            raise RuntimeError(f"{name}: the card's occupancy query failed")
+        _slots[key] = slots
+    return slots
 
 
 # ---------------------------------------------------------------------------
@@ -108,10 +200,14 @@ def gather_rows_sum_cuda(table, idx):
         return out
     if F == 0:
         return out.zero_()
+    is_int8 = int(table.dtype == torch.int8)
+    dev = idx.device
+    plan = sum_plan(idx.numel(), F // 4 if is_int8 else F,
+                    lambda nw, rb: _slots_of(dev, "gather_rows_sum_slots", is_int8, nw, rb))
     fn = kernels.entry_point("gather_rows_sum")
-    with torch.cuda.device(idx.device):
+    with torch.cuda.device(dev):
         rc = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(), M, F,
-                int(table.dtype == torch.int8), _stream(idx))
+                is_int8, *plan, _stream(idx))
     kernels.check(rc, what)
     sum_counter.count += 1
     return out
@@ -146,7 +242,7 @@ def ivf_hamming_cuda(bvecs, q_vecs, qw):
     return out
 
 
-def take_along_rows_cuda(tab, idx):
+def take_along_rows_cuda(tab, idx, slab_bytes: int = SLAB_BYTES):
     what = "take_along_rows"
     _check(what, "tab", tab, _TYPES)
     _check(what, "idx", idx, (torch.int32,), align=16)  # 4 indices a load
@@ -159,10 +255,13 @@ def take_along_rows_cuda(tab, idx):
     out = torch.empty((K, F), dtype=tab.dtype, device=idx.device)
     if K * F == 0:
         return out
+    eb = tab.element_size()
+    plan = take_plan(K, M, F, eb, _slots_of(idx.device, "take_along_rows_slots", eb),
+                     slab_bytes)
     fn = kernels.entry_point("take_along_rows")
     with torch.cuda.device(idx.device):
-        rc = fn(tab.data_ptr(), idx.data_ptr(), out.data_ptr(), K, M, F,
-                tab.element_size(), _stream(idx))
+        rc = fn(tab.data_ptr(), idx.data_ptr(), out.data_ptr(), K, M, F, eb, *plan,
+                _stream(idx))
     kernels.check(rc, what)
     take_counter.count += 1
     return out
@@ -235,6 +334,17 @@ def probe_sweeps(dev, log=print) -> int:
             lib = device_ms(lambda: torch.gather(tab, 0, idx64))
             log(f"take_along_rows {dname} ({M:6d},{F:3d}): kernel {ms * 1e6 / M:8.3f} "
                 f"ns/row of {F}, torch.gather {lib * 1e6 / M:8.3f} ns/row, exact {ok}")
+    # the table's L2 footprint at the probe's f32 (196608, 128): the same call
+    # with its indices kept under fewer rows, so fewer 128-byte lines a slab
+    M, F = 196608, 128
+    tab = torch.randint(-100, 100, (M, F), device=dev, generator=g).float()
+    for rows in (2048, 49152, M):
+        idx = torch.randint(0, rows, (M, F), device=dev, generator=g, dtype=torch.int32)
+        ok = torch.equal(take_along_rows(tab, idx), take_along_rows_plain(tab, idx))
+        bad += not ok
+        ms = device_ms(lambda: take_along_rows(tab, idx))
+        log(f"take_along_rows f32 ({M},{F}), indices under {rows:6d} rows: kernel "
+            f"{ms:.5f} ms, exact {ok}")
     return bad
 
 

@@ -28,7 +28,7 @@ import torch
 
 from ..geometry import constrain_points_to_ray
 from ..lie import sim3
-from ..utils.numerics import full_f32
+from ..utils.numerics import full_f32, index_add_fixed
 from . import edge_hg
 from .robust import huber_weight
 
@@ -233,8 +233,8 @@ def _assemble_and_solve(H_e, g_e, ii, jj, num_poses: int, pin: int,
     Jacobi scaling, relative Levenberg damping, Cholesky.  H_e (E, 7, 7),
     g_e (E, 7), ii/jj (E,).  Returns (dx (P - pin, 7), ok).  A failed
     factorisation gives ok False and a zero step, as ``cho_factor``'s NaN
-    does in the JAX package.  Repeated edges add up (``index_put_`` with
-    accumulate)."""
+    does in the JAX package.  Repeated edges add up, in a fixed order
+    (``index_put_`` with accumulate, ``index_add_fixed``)."""
     M = num_poses - pin
     io, jo = _slots(ii, jj, pin, M)
     Hbig = H_e.new_zeros((M + 1, M + 1, 7, 7))
@@ -243,8 +243,8 @@ def _assemble_and_solve(H_e, g_e, ii, jj, num_poses: int, pin: int,
     Hbig.index_put_((io, jo), -H_e, accumulate=True)
     Hbig.index_put_((jo, io), -H_e, accumulate=True)
     gbig = g_e.new_zeros((M + 1, 7))
-    gbig.index_add_(0, io, -g_e)
-    gbig.index_add_(0, jo, g_e)
+    index_add_fixed(gbig, io, -g_e)
+    index_add_fixed(gbig, jo, g_e)
 
     Hd = Hbig[:M, :M].permute(0, 2, 1, 3).reshape(7 * M, 7 * M)
     gd = gbig[:M].reshape(7 * M)
@@ -277,13 +277,13 @@ def _assemble_and_solve_pcg(H_e, g_e, ii, jj, num_poses: int, pin: int,
     io, jo = _slots(ii, jj, pin, M)
 
     b = g_e.new_zeros((M + 1, 7))
-    b.index_add_(0, io, g_e)
-    b.index_add_(0, jo, -g_e)
+    index_add_fixed(b, io, g_e)
+    index_add_fixed(b, jo, -g_e)
     b = b[:M]
 
     D = H_e.new_zeros((M + 1, 7, 7))
-    D.index_add_(0, io, H_e)
-    D.index_add_(0, jo, H_e)
+    index_add_fixed(D, io, H_e)
+    index_add_fixed(D, jo, H_e)
     D = D[:M]
     tr = torch.diagonal(D, dim1=-2, dim2=-1).sum(-1)[:, None, None] / 7.0
     eye7 = torch.eye(7, dtype=D.dtype, device=D.device)
@@ -309,8 +309,8 @@ def _assemble_and_solve_pcg(H_e, g_e, ii, jj, num_poses: int, pin: int,
         yi = -torch.sum(H_e * xp[jo][:, None, :], dim=-1)
         yj = -torch.sum(H_e * xp[io][:, None, :], dim=-1)
         acc = x.new_zeros((M + 1, 7))
-        acc.index_add_(0, io, yi)
-        acc.index_add_(0, jo, yj)
+        index_add_fixed(acc, io, yi)
+        index_add_fixed(acc, jo, yj)
         return y + acc[:M]
 
     tol2 = (tol * tol) * torch.clamp_min(_dot(b, b), 1e-30)

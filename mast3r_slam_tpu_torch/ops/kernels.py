@@ -44,9 +44,11 @@ ENTRY_POINTS = {
     "edge_hg_rays": ("edge_hg_rays", "edge_hg_rays_f32",
                      [_P] * 6 + [_I] * 4 + [ctypes.c_float] * 3 + [_P]),
     "edge_hg_rays_slots": ("edge_hg_rays", "edge_hg_rays_slots", []),
-    "gather_rows_sum": ("gather_rows", "gather_rows_sum", [_P] * 3 + [_I] * 4 + [_P]),
+    "gather_rows_sum": ("gather_rows", "gather_rows_sum", [_P] * 3 + [_I] * 9 + [_P]),
+    "gather_rows_sum_slots": ("gather_rows", "gather_rows_sum_slots", [_I] * 3),
     "ivf_hamming": ("ivf_hamming", "ivf_hamming", [_P] * 4 + [_I] * 4 + [_P]),
-    "take_along_rows": ("take_along_rows", "take_along_rows", [_P] * 3 + [_I] * 4 + [_P]),
+    "take_along_rows": ("take_along_rows", "take_along_rows", [_P] * 3 + [_I] * 9 + [_P]),
+    "take_along_rows_slots": ("take_along_rows", "take_along_rows_slots", [_I]),
 }
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",

@@ -12,8 +12,10 @@
   package's uint32 codes.
 * ``DeviceIVF`` keeps one bucket of ``bucket_cap`` entries per word plus a
   trash bucket; a query gathers each word's bucket and scores it with the
-  ``ops.gather.ivf_hamming`` kernel, then powers, normalises and
-  scatter-adds the similarities into per-image scores in plain torch.
+  ``ops.gather.ivf_hamming`` kernel, then powers, normalises and sums the
+  similarities into per-image scores in plain torch, each image's in a
+  fixed order (``utils.numerics.index_add_fixed``), so a query gives the
+  same score bits on every call.
 
 Defaults follow the reference processor: binary kernel, no idf,
 multiple-assignment 1 on build and 5 on query, alpha 3, threshold 0.
@@ -28,7 +30,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..ops import gather
-from ..utils.numerics import full_f32
+from ..utils.numerics import full_f32, index_add_fixed
 
 
 class ASMKSettings(NamedTuple):
@@ -258,8 +260,13 @@ def ivf_search_bucketed(bvecs, bimids, norm_factor, q_vecs, q_words, q_valid,
                       torch.zeros_like(sim))
     imid = torch.clamp_min(rows_i, 0).long()
     sim = sim / torch.sqrt(torch.clamp_min(norm_factor[imid], 1.0))
-    scores = torch.zeros((max_images,), dtype=torch.float32, device=sim.device)
-    scores.index_add_(0, imid.reshape(-1),
-                      torch.where(match, sim, torch.zeros_like(sim)).reshape(-1))
+    # an entry that matches no image adds its zero in a slot of its own past
+    # the images: the fixed-order sum reduces each slot's run in sequence,
+    # and most of a query's entries match none
+    n = sim.numel()
+    spare = torch.arange(max_images, max_images + n, device=sim.device)
+    slot = torch.where(match.reshape(-1), imid.reshape(-1), spare)
+    scores = torch.zeros((max_images + n,), dtype=torch.float32, device=sim.device)
+    index_add_fixed(scores, slot, torch.where(match, sim, torch.zeros_like(sim)).reshape(-1))
     q_norm = torch.sqrt(torch.clamp_min(q_valid.to(torch.float32).sum(), 1.0))
-    return scores / q_norm
+    return scores[:max_images] / q_norm

@@ -26,6 +26,15 @@ def full_f32():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+def index_add_fixed(dst: torch.Tensor, index: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """dst[index[k]] += src[k] along dim 0, in place, each slot summed in
+    k's order on every device, so the same inputs give the same bits.
+    ``index_put_`` with accumulate runs on CUDA as a stable sort by slot
+    and a sequential reduction of each slot's run; ``index_add_`` there
+    adds in atomic order, which changes from run to run."""
+    return dst.index_put_((index,), src, accumulate=True)
+
+
 def vnorm(x: torch.Tensor, dim: int = -1, keepdim: bool = True) -> torch.Tensor:
     """L2 norm over ``dim`` as sqrt(sum(x*x))."""
     return torch.sqrt(torch.sum(x * x, dim=dim, keepdim=keepdim))

@@ -27,7 +27,10 @@ version, which itself reads 4.3e-4 against float64; planted faults read
 give the same bits, in one kernel launch, with exact zeros at
 Mloc[:, 3:6, 6] (no row reaches them).
 The gathers (gather_rows_sum, ivf_hamming, take_along_rows): exact, on
-integer-valued inputs whose f32 sums are exact.
+integer-valued inputs whose f32 sums are exact; take_along_rows at every
+slab width of chip_smoke.py's sweep, with partial last slabs and indices
+outside the table in the first and last slab; gather_rows_sum below, at
+and above one wave of the card.
 """
 
 import numpy as np
@@ -263,16 +266,23 @@ def _edge_inputs(E, N, device, seed):
 
 
 def _kernel_names(fn):
-    """Names of the kernels one call of ``fn`` launched, one a launch."""
+    """Names of the kernels one call of ``fn`` launched, one a launch.  A
+    call launches at least one kernel, so a trace with no kernel record has
+    lost them (seen on an H100 for kernels launched from a ctypes library):
+    it is taken again, up to ten times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(10):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 @pytest.mark.parametrize("E,N", [(1, 1), (3, 300), (5, 4097), (2, 12345), (257, 1000),
@@ -475,6 +485,87 @@ def test_take_along_rows_kernel_matches_plain_exactly(cuda, dtype, M, F, K):
     assert torch.equal(got, torch.gather(tab, 0, idx.long()))
     rows = idx[:, :1].expand(K, F).contiguous()  # the index broadcast along each row
     assert torch.equal(gather.take_along_rows(tab, rows), tab[rows[:, 0].long()])
+
+
+@pytest.mark.parametrize("slab_bytes", [32, 64, 128])
+@pytest.mark.parametrize("dtype,M,F,K", [
+    (torch.float32, 5000, 12, 3000),   # F not a multiple of the slab: a partial last slab
+    (torch.float32, 5000, 40, 3000),
+    (torch.int8, 5000, 8, 3000),       # the slab is the whole row
+    (torch.int8, 5000, 32, 3000),
+    (torch.int8, 5000, 40, 3000),      # int8 rows not a multiple of 16: scalar stores
+    (torch.float32, 196608, 128, 64),  # K much smaller than M
+    (torch.int8, 196608, 128, 64),
+    (torch.float32, 100, 64, 20000),   # K much larger than M
+])
+def test_take_along_rows_slab_widths_exact(cuda, slab_bytes, dtype, M, F, K):
+    """Every slab width of the sweep, exact, one kernel a call."""
+    tab = _ints((M, F), -100, 100, cuda, seed=M + F).to(dtype)
+    idx = _ints((K, F), 0, M, cuda, seed=K)
+    run = lambda: gather.take_along_rows_cuda(tab, idx, slab_bytes=slab_bytes)
+    before = gather.take_counter.count
+    got = run()
+    torch.cuda.synchronize()
+    assert gather.take_counter.count == before + 1
+    assert torch.equal(got, gather.take_along_rows_plain(tab, idx))
+    assert len(_kernel_names(run)) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float32])
+@pytest.mark.parametrize("F", [12, 40, 128])
+def test_take_along_rows_out_of_range_in_first_and_last_slab(cuda, dtype, F):
+    """Indices outside [0, M) in the first, a middle and the last column
+    read nothing and give NaN (f32) or 0 (int8); the rest stays exact."""
+    M, K = 1000, 500
+    tab = _ints((M, F), -100, 100, cuda, seed=F).to(dtype)
+    idx = _ints((K, F), 0, M, cuda, seed=F + 1)
+    bad = torch.zeros((K, F), dtype=torch.bool, device=cuda)
+    bad[::7, 0] = bad[3::11, F - 1] = bad[5::13, F // 2] = True
+    outside = torch.tensor([-1, M, 2 ** 31 - 1, -2 ** 31], dtype=torch.int32, device=cuda)
+    idx[bad] = outside[torch.arange(int(bad.sum()), device=cuda) % 4]
+    got = gather.take_along_rows(tab, idx)
+    want = gather.take_along_rows_plain(tab, torch.where(bad, 0, idx))
+    torch.cuda.synchronize()
+    assert torch.equal(got[~bad], want[~bad])
+    poison = got[bad].isnan() if dtype == torch.float32 else got[bad] == 0
+    assert poison.all()
+
+
+@pytest.mark.parametrize("dtype,F", [(torch.int8, 32), (torch.int8, 16), (torch.float32, 32),
+                                     (torch.float32, 6)])
+@pytest.mark.parametrize("waves", [0.5, 1.0, 2.5])
+def test_gather_rows_sum_below_and_above_one_wave(cuda, dtype, F, waves):
+    """T below, at and above what one wave of one-row groups holds: exact,
+    one launch of at most the resident blocks, a group on 4 rows at a time
+    only above the wave; an index outside the table gives NaN; the same
+    bits on two calls on non-integer values."""
+    is_int8 = int(dtype == torch.int8)
+    row_words = F // 4 if is_int8 else F
+    nw, lanes = gather.sum_plan(1, row_words, lambda nw, rb: 1)[:2]
+    slots = lambda nw, rb: gather._slots_of(cuda, "gather_rows_sum_slots", is_int8, nw, rb)
+    T = int(waves * slots(nw, 1) * (gather.THREADS // lanes)) + 3
+    plan = gather.sum_plan(T, row_words, slots)
+    assert plan.rb == (1 if waves < 1 else 4) and plan.grid <= slots(nw, plan.rb)
+    M = 5000
+    table = _ints((M, F), -100, 100, cuda, seed=F).to(dtype)
+    idx = _ints((T,), 0, M, cuda, seed=T)
+    before = gather.sum_counter.count
+    got = gather.gather_rows_sum(table, idx)
+    torch.cuda.synchronize()
+    assert gather.sum_counter.count == before + 1
+    assert torch.equal(got, gather.gather_rows_sum_plain(table, idx))
+    assert len(_kernel_names(lambda: gather.gather_rows_sum(table, idx))) == 1
+    idx[::97] = -1
+    idx[1::97] = M
+    got = gather.gather_rows_sum(table, idx)
+    want = gather.gather_rows_sum_plain(table, idx.clamp(0, M - 1))
+    bad = (idx < 0) | (idx >= M)
+    assert got[bad].isnan().all() and torch.equal(got[~bad], want[~bad])
+    if dtype == torch.float32:
+        g = torch.Generator(device=cuda).manual_seed(1)
+        x = torch.randn((M, F), device=cuda, generator=g)
+        a, b = gather.gather_rows_sum(x, idx), gather.gather_rows_sum(x, idx)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))  # NaN rows too
 
 
 def test_gather_kernels_refuse_other_inputs(cuda):

@@ -97,6 +97,140 @@ def test_popcount32_every_bit():
 
 
 # ---------------------------------------------------------------------------
+# the gather kernels' launch plans, walked as the kernels walk them
+# ---------------------------------------------------------------------------
+
+def _take_walk(K, F, plan):
+    """(row, column) of every output element written under ``plan``, by the
+    index arithmetic of csrc/take_along_rows.cu: in one pass a block an
+    item, (chunk, slab) = (blockIdx.x, blockIdx.y); in one pass a slab each
+    of ``grid`` blocks steps the slab's chunks by the grid.  A thread takes
+    the 4-column group ``t % tps`` of row ``t // tps`` of its chunk."""
+    tps = plan.slab_cols // 4
+    n_slabs = plan.items // plan.chunks
+    if plan.passes == 1:
+        assert plan.grid == plan.items
+        items = [(s, c) for s in range(n_slabs) for c in range(plan.chunks)]
+    else:
+        items = [(s, c) for s in range(n_slabs) for b in range(plan.grid)
+                 for c in range(b, plan.chunks, plan.grid)]
+    slab, chunk = np.array(items).T
+    t = np.arange(gather.THREADS)
+    i = chunk[:, None] * (gather.THREADS // tps) + t // tps
+    c = (slab[:, None] * plan.slab_cols + (t % tps) * 4)[..., None] + np.arange(4)
+    i = np.broadcast_to(i[..., None], c.shape)
+    live = (i < K) & (c < F)
+    return i[live], c[live]
+
+
+@pytest.mark.parametrize("slab_bytes", [32, 64, 128])
+@pytest.mark.parametrize("dtype,M,F,K,slots", [
+    (np.float32, 300, 128, 2048, 1056),  # full slabs, a persistent grid over many items
+    (np.float32, 300, 12, 500, 1056),    # a partial last slab
+    (np.float32, 300, 40, 77, 7),        # few slots: blocks walk several items
+    (np.int8, 300, 8, 500, 1056),        # the slab is the whole row
+    (np.int8, 300, 40, 999, 1056),
+    (np.float32, 64, 3, 7, 1056),        # one thread a row, most columns absent
+])
+@pytest.mark.parametrize("passes", [False, True])
+def test_take_plan_writes_every_element_once(dtype, M, F, K, slots, slab_bytes, passes,
+                                             monkeypatch):
+    """Every output element written exactly once, with the value JAX's
+    take_along_axis gives, in one pass (a block an item) or one pass a slab
+    (a table over the pass threshold: persistent blocks, at most the slots
+    and a slab's chunks)."""
+    if passes:
+        monkeypatch.setattr(gather, "PASS_TABLE_BYTES", 0)
+    eb = np.dtype(dtype).itemsize
+    plan = gather.take_plan(K, M, F, eb, slots, slab_bytes)
+    n_slabs = plan.items // plan.chunks
+    assert plan.passes == (n_slabs if passes and n_slabs > 1 else 1)
+    assert plan.grid == (plan.items if plan.passes == 1 else min(plan.chunks, slots))
+    assert plan.slab_cols * eb <= slab_bytes
+    rows, cols = _take_walk(K, F, plan)
+    writes = np.zeros((K, F), np.int64)
+    np.add.at(writes, (rows, cols), 1)
+    assert (writes == 1).all()
+    rng = np.random.default_rng(K + F)
+    tab = rng.integers(-100, 100, size=(M, F)).astype(dtype)
+    idx = rng.integers(0, M, size=(K, F)).astype(np.int32)
+    out = np.zeros((K, F), dtype)
+    out[rows, cols] = tab[idx[rows, cols], cols]
+    want = jnp.take_along_axis(jnp.asarray(tab), jnp.asarray(idx), axis=0)
+    np.testing.assert_array_equal(out, np.asarray(want))
+
+
+@pytest.mark.parametrize("F,elem_bytes,slab_bytes,slab_cols", [
+    (128, 4, 32, 8), (128, 4, 64, 16), (128, 4, 128, 32),
+    (12, 4, 128, 16),  # four threads cover the row: a 64-byte slab
+    (3, 4, 64, 4),
+    (8, 1, 128, 8), (32, 1, 32, 32), (128, 1, 128, 128), (40, 1, 128, 64)])
+def test_take_plan_slab_width(F, elem_bytes, slab_bytes, slab_cols):
+    assert gather.take_plan(1000, 1000, F, elem_bytes, 1056, slab_bytes).slab_cols == slab_cols
+
+
+@pytest.mark.parametrize("M,F,elem_bytes,slab_bytes,passes", [
+    (196_608, 128, 4, 128, 4),  # the probe: 100 MB of table, one 128-byte slab a pass
+    (196_608, 128, 4, 32, 16),
+    (196_608, 128, 1, 128, 1),  # 25 MB of int8: one slab, the whole row
+    (49_152, 128, 4, 32, 1),    # 25 MB of f32: slabs walked in one pass
+    (2048, 128, 4, 128, 1)])
+def test_take_plan_passes_walk_slab_major(M, F, elem_bytes, slab_bytes, passes):
+    """A table over 32 MiB takes one slab a pass (the grid waits at a
+    barrier between), so the items of each round of the persistent blocks
+    are that pass's slab's; in one pass a block takes one item, block
+    numbers slab-major."""
+    slots = 792
+    plan = gather.take_plan(M, M, F, elem_bytes, slots, slab_bytes)
+    assert plan.passes == passes and plan.items % plan.chunks == 0
+    if passes == 1:
+        assert plan.grid == plan.items
+        return
+    assert plan.items // plan.chunks == passes and plan.grid == min(plan.chunks, slots)
+    for p in range(passes):
+        for start in range(0, plan.chunks, plan.grid):  # one round: a chunk a block
+            items = p * plan.chunks + np.arange(start, min(start + plan.grid, plan.chunks))
+            assert np.unique(items // plan.chunks).tolist() == [p]
+
+
+def test_take_plan_small_calls():
+    """A call with fewer items than slots takes a block an item, one pass
+    a slab where the table is large whatever K; a slab width that is not
+    whole sectors is refused."""
+    small = gather.take_plan(256, 256, 128, 4, 1056, 32)
+    assert small == gather.TakePlan(slab_cols=8, chunks=2, items=32, passes=1, grid=32)
+    big_table = gather.take_plan(64, 196_608, 128, 4, 1056)
+    assert big_table == gather.TakePlan(slab_cols=32, chunks=2, items=8, passes=4, grid=2)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        gather.take_plan(256, 256, 128, 4, 1056, 48)
+
+
+@pytest.mark.parametrize("row_words,nw,lanes", [
+    (4, 4, 1), (8, 4, 1), (5, 1, 1), (6, 2, 1), (16, 4, 2), (32, 4, 4), (1024, 4, 32)])
+@pytest.mark.parametrize("T,slots1,slots4", [
+    (77, 1056, 528),       # under one wave: a row a group
+    (196_608, 1056, 528),  # the probe's rows
+    (196_608, 7, 3),       # far over one wave: groups of 4k rows
+    (4 * 1056 * 256 + 5, 1056, 1056)])
+def test_sum_plan_one_wave_covers_every_row(row_words, nw, lanes, T, slots1, slots4):
+    """Words a load and lanes a row; every row and every word of a row read
+    once (csrc/gather_rows.cu's walk); the grid at most the slots of the
+    instance it launches, a group on 4 rows at a time only past one wave."""
+    plan = gather.sum_plan(T, row_words, lambda nw, rb: slots1 if rb == 1 else slots4)
+    assert (plan.nw, plan.lanes) == (nw, lanes)
+    assert plan.rb == (1 if T <= slots1 * (gather.THREADS // lanes) else 4)
+    slots = slots1 if plan.rb == 1 else slots4
+    assert plan.rows % plan.rb == 0 and plan.grid <= slots
+    groups_block = gather.THREADS // lanes
+    assert plan.grid * groups_block * plan.rows >= T
+    assert (plan.grid - 1) * groups_block * plan.rows < T  # no idle block
+    passes = -(-row_words // (lanes * 8))
+    words = (np.arange(passes)[:, None, None] * lanes + np.arange(lanes)[None, :, None]) * 8
+    words = (words + np.arange(8)).ravel()
+    assert sorted(words[words < row_words].tolist()) == list(range(row_words))
+
+
+# ---------------------------------------------------------------------------
 # asmk
 # ---------------------------------------------------------------------------
 
