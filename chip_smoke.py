@@ -13,9 +13,11 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      shapes (attention (1,16,768,64), (1,12,768,64) and (2,12,768,64)
      bf16, and (1,16,768,64) on heads split from a fused qkv tensor, with
      the HGMMA and TMA-load counts of its SASS and the kernel SDPA runs;
-     refine at 384x512, F=24, radius/dilation (3,5) and (1,1), exactly
-     equal, on scattered and on smooth-flow matches, with the share of
-     (block, level) pairs its shared-memory window served; the
+     refine at 384x512, F=24, radius/dilation (3,5) (the schedule 5..1)
+     and (1,1), and the speed profile's two launches (12,288 compacted
+     pixels at the schedule (5,2), radius 3; every pixel at (1,), radius
+     1), exactly equal, on scattered and on smooth-flow matches, with the
+     share of (block, level) pairs its shared-memory window served; the
      edge blocks at 32 edges x 384*512 pixels f32, entry by entry on the
      solve's scale, planted faults shown to fail, the same bits on two
      calls, one kernel a call, exact zeros where no row reaches), each
@@ -28,10 +30,21 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
   4. ViT-L at 384x512 with seeded random weights, bf16 trunk and f32 heads,
      TF32 off: encode, mono (INIT), then FrameTracker.track on a few frames,
      with the launch counters reset just before and read just after;
+     then the `speed` profile on the same weights with bf16 heads: the
+     frames through FrameTracker.track (72 attention and 2 refine launches
+     a frame, counted) and through the pipelined entry points (infer,
+     track_submit_chained, track_finish) for the same bits, once as
+     packaged and once with the decisions pinned so that every frame
+     commits and the chain is taken; then one one-way backend task
+     (add_factors on a non-consecutive pair, then solve), counted;
   5. SLAM.run over a synthetic plane scene at 384x512 with a known
      trajectory (a stand-in model with the encode/asymmetric/symmetric/mono
      protocol), the backend's solves included, the trajectory held to a
-     bound;
+     bound: sequential under `base`; single threaded with pipeline 1, for
+     the sequential run's poses bit for bit; and under `speed` as packaged
+     (the backend on its worker thread, the pipelined loop), held to the
+     same bound, with frame.latency p50/p95 beside the backend tasks and the
+     pipeline.* stages;
   6. the backend at full width: the global Gauss-Newton on a synthetic
      16-keyframe rays problem at 384x512 (32 two-way edges), through both
      entries (gathering, and the gathered-point cache that FactorGraph.solve
@@ -53,7 +66,10 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      scene at 384x512 whose camera teleports back to its start; it must
      relocalise, end in TRACKING and land within 0.15 m, with the launch
      counts of every kernel following its queries, edges and solves, and
-     ivf_hamming exact on a query of the database it built (W = 1).
+     ivf_hamming exact on a query of the database it built (W = 1); then
+     the same under `speed` as packaged (threaded backend, pipeline 1),
+     held to the same bound.  A backend task that failed on the worker
+     thread fails the run.
 
 Phase 2 also holds the two gather probes' kernels (gather_rows_sum,
 take_along_rows, the latter at every slab width of SLAB_SWEEP, timed in
@@ -72,6 +88,8 @@ JSON line of kernel numbers, then as its last line
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import ctypes
 import json
 import os
@@ -353,26 +371,105 @@ def refine_inputs(dev, H, W, F, smooth: bool, seed=7):
     return d11q, d21q, (sv * W + su).to(torch.int32).reshape(B, N).contiguous()
 
 
+def speed_subset(d21q, idx, conv_seed=5):
+    """The speed profile's first refine launch takes a compacted subset:
+    gate_budget(N, 0.0625) = 12,288 pixels at 384x512, the unconverged
+    first (a seeded mask with 8 % of them, more than the budget holds),
+    then filler, in that order.  Returns the subset's (d21q, idx)."""
+    import torch
+    from mast3r_slam_tpu_torch.ops import matching
+
+    B, N, F = d21q.shape
+    g = torch.Generator(device=idx.device).manual_seed(conv_seed)
+    conv = torch.rand((B, N), device=idx.device, generator=g) > 0.08
+    sel = matching._compact_unconverged(conv, matching.gate_budget(N, 0.0625))
+    return (torch.gather(d21q, 1, sel[..., None].expand(-1, -1, F)).contiguous(),
+            torch.gather(idx, 1, sel).contiguous())
+
+
+def refine_work(idx, H, W, radius, sched, d11q, d21q):
+    """What a scheduled launch must touch on these inputs: the distinct
+    descriptor-image rows its in-image candidates read, and the in-image
+    candidates scored, level by level from the plain version's path."""
+    import torch
+    from mast3r_slam_tpu_torch.ops import refine
+
+    diam = 2 * radius + 1
+    off = torch.arange(diam, device=idx.device) - radius
+    rows, n_cand, cur = [], 0, idx
+    for d in sched:
+        u0, v0 = (cur % W).long(), torch.div(cur, W, rounding_mode="floor").long()
+        uu = (u0[..., None] + off * d)[..., None, :].expand(*u0.shape, diam, diam)
+        vv = (v0[..., None] + off * d)[..., :, None].expand(*u0.shape, diam, diam)
+        inside = (uu >= 0) & (uu < W) & (vv >= 0) & (vv < H)
+        rows.append((vv * W + uu)[inside])
+        n_cand += int(inside.sum().item())
+        cur = refine.refine_window_plain(d11q, d21q, cur, H, W, radius, (d,))
+    return int(torch.unique(torch.cat(rows)).numel()), n_cand
+
+
+def check_refine_speed(dev, d11q, d21q, idx, name):
+    """The speed profile's two launches on one input, each exact against the
+    plain version with the same schedule: the compacted subset at (5, 2),
+    radius 3, then every pixel at (1,), radius 1.  Each timed, with its
+    bound from the rows and candidates this input's path touches."""
+    import torch
+    from mast3r_slam_tpu_torch.ops import refine
+
+    H, W, F = 384, 512, d11q.shape[-1]
+    sub_q, sub_i = speed_subset(d21q, idx)
+    out = {}
+    for label, q, i, radius, sched in (("subset", sub_q, sub_i, 3, (5, 2)),
+                                       ("all_r1", d21q, idx, 1, (1,))):
+        stats = torch.zeros(4, dtype=torch.int64, device=dev)
+        got = refine.refine_window_cuda(d11q, q, i, H, W, radius, sched, stats=stats)
+        want = refine.refine_window_plain(d11q, q, i, H, W, radius, sched)
+        torch.cuda.synchronize()
+        n_diff = int((got != want).sum().item())
+        if n_diff:
+            raise AssertionError(f"refine {name} speed {label} {sched} r={radius}: "
+                                 f"{n_diff} of {i.numel()} indices differ")
+        whole, pairs = stats.tolist()[:2]
+        times = time_kernel(lambda: refine.refine_window(d11q, q, i, H, W, radius, sched),
+                            lambda: refine.refine_window_plain(d11q, q, i, H, W, radius, sched),
+                            plain_iters=3)
+        n_rows, n_cand = refine_work(i, H, W, radius, sched, d11q, q)
+        nbytes = n_rows * F + q.numel() + i.numel() * 4 * 2
+        ops = 2.0 * F * n_cand
+        t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+        out[label] = dict(schedule=list(sched), radius=radius, n=int(i.numel()),
+                          max_abs_err=0, pairs_shared=whole / pairs, rows_touched=n_rows,
+                          candidates=n_cand, **times, bound_ms=max(t_ops, t_bytes) * 1e3,
+                          bound_by="operations" if t_ops >= t_bytes else "bytes")
+        log(f"refine {name} speed {label} (schedule {sched}, r={radius}, {i.numel()} "
+            f"pixels): exact; {json.dumps(out[label])}")
+    return out
+
+
 def check_refine(dev):
-    """Exact against the plain version at (3, 5) and (1, 1) on three inputs
-    (the current one, a smooth flow, starts scattered over the image); the
-    share of (block, level) pairs served from the shared-memory window, and
-    of pixel-levels, for each; each timed at (3, 5)."""
+    """Exact against the plain version at (3, 5) (the schedule 5..1) and
+    (1, 1) on three inputs (the current one, a smooth flow, starts
+    scattered over the image), and the speed profile's two launches on
+    each (check_refine_speed); the share of (block, level) pairs served
+    from the shared-memory window, and of pixel-levels, for each; each
+    timed at (3, 5)."""
     import torch
     from mast3r_slam_tpu_torch.ops import refine
 
     H, W, F = 384, 512, 24
     N = H * W
-    res, out = {}, {}
+    res, out, speed = {}, {}, {}
     for name in ("current", "smooth_flow", "scattered"):
         d11q, d21q, idx = refine_inputs(dev, H, W, F, name == "smooth_flow")
         if name == "scattered":  # starts anywhere in the image, as random weights give
             g = torch.Generator(device=dev).manual_seed(8)
             idx = torch.randint(0, N, (1, N), device=dev, generator=g, dtype=torch.int32)
+        speed[name] = check_refine_speed(dev, d11q, d21q, idx, name)
         for radius, dil in ((3, 5), (1, 1)):
+            sched = refine.schedule(dil)
             stats = torch.zeros(4, dtype=torch.int64, device=dev)
-            got = refine.refine_window_cuda(d11q, d21q, idx, H, W, radius, dil, stats=stats)
-            want = refine.refine_window_plain(d11q, d21q, idx, H, W, radius, dil)
+            got = refine.refine_window_cuda(d11q, d21q, idx, H, W, radius, sched, stats=stats)
+            want = refine.refine_window_plain(d11q, d21q, idx, H, W, radius, sched)
             torch.cuda.synchronize()
             n_diff = int((got != want).sum().item())
             if n_diff:
@@ -386,9 +483,10 @@ def check_refine(dev):
                 err = int((got.long() - want.long()).abs().max().item())
                 out[name] = dict(max_abs_err=err, pairs_shared=whole / pairs,
                                  pixel_levels_shared=px_win / px_all)
+        sched = refine.schedule(5)
         times = time_kernel(
-            lambda: refine.refine_window(d11q, d21q, idx, H, W, 3, 5),
-            lambda: refine.refine_window_plain(d11q, d21q, idx, H, W, 3, 5),
+            lambda: refine.refine_window(d11q, d21q, idx, H, W, 3, sched),
+            lambda: refine.refine_window_plain(d11q, d21q, idx, H, W, 3, sched),
             plain_iters=3)
         nbytes = d11q.numel() + d21q.numel() + idx.numel() * 4 * 2
         # int8 multiply-adds of every candidate at every level; this counts
@@ -403,7 +501,7 @@ def check_refine(dev):
     if not res["smooth_flow"]["pairs_shared"] > 0.9:
         raise AssertionError(f"refine smooth flow: {res['smooth_flow']['pairs_shared']} of "
                              f"(block, level) pairs from shared memory (> 0.9)")
-    return res["current"], res["smooth_flow"], res["scattered"]
+    return res["current"], res["smooth_flow"], res["scattered"], speed
 
 
 def edge_hg_inputs(dev, E, N, seed):
@@ -743,7 +841,7 @@ def profile(label, fn, top=25):
         log(f"  {ms:9.3f} ms  x{n:5d}  {name[:110]}")
 
 
-def profile_frame(model, tracker, img, T):
+def profile_frame(model, tracker, img, T, label="one tracked frame"):
     """The profile of one tracked frame (encode + track)."""
     from mast3r_slam_tpu_torch.slam.frame import Frame
 
@@ -751,7 +849,7 @@ def profile_frame(model, tracker, img, T):
         feat, pos = model.encode(img)
         tracker.track(Frame(frame_id=1, img=img[0], T_WC=T, feat=feat, pos=pos))
 
-    profile("one tracked frame", frame)
+    profile(label, frame)
 
 
 def run_vitl(dev, hw=(384, 512), n_tracked=N_TRACKED, mcfg=None):
@@ -838,6 +936,188 @@ def run_vitl(dev, hw=(384, 512), n_tracked=N_TRACKED, mcfg=None):
     if dev.type == "cuda":
         profile_frame(model, tracker, imgs[1:2], T)
     return counts, times, model
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the speed profile on ViT-L
+# ---------------------------------------------------------------------------
+
+def track_chained(tracker, frames, T0):
+    """The same frames as SLAM._loop_pipelined tracks them: the decode
+    issued ahead (infer), frame i submitted chained on frame i-1's outputs
+    (track_submit_chained) before i-1's decision is read (track_finish),
+    and re-submitted from the committed state where that decision was a
+    new keyframe, a relocalisation or a GN failure.  Returns what
+    track_sequential does, and the number of re-submissions."""
+    import numpy as _np
+
+    out, pend, last_done, n_resubmit = [], None, None, 0
+
+    def finish(p):
+        decision = tracker.track_finish(p)
+        out.append((logged_pose(p[0]), _np.array(tracker.last_stats), decision))
+        return decision
+
+    for fr in frames:
+        spec = tracker.infer(fr)
+        if pend is None:
+            fr.T_WC = T0
+            pend = tracker.track_submit(fr, inference=spec)
+            continue
+        nxt = tracker.track_submit_chained(fr, spec, pend)
+        new_kf, reloc = finish(pend)
+        last_done = pend[0]
+        if new_kf or reloc:
+            n_resubmit += 1
+            fr.T_WC = last_done.T_WC
+            fr.T_WC_np = None
+            nxt = tracker.track_submit(fr, inference=spec)
+        pend = nxt
+    finish(pend)
+    return out, n_resubmit
+
+
+def logged_pose(frame):
+    """The pose SLAM._log records for a frame."""
+    T = frame.T_WC_np
+    return (frame.T_WC.detach().cpu().numpy() if T is None else T).copy()
+
+
+def run_vitl_speed(dev, vitl, hw=(384, 512), n_tracked=N_TRACKED):
+    """The speed profile at full width: ViT-L with phase 4's random weights
+    (seed 0), bf16 trunk and bf16 heads, TF32 off; one INIT keyframe, then
+    n_tracked frames through FrameTracker.track with the launch counters
+    reset just before and read just after (encode included), then the same
+    frames (the same encoder tokens) through the pipelined entry points,
+    which must give the same bits; then one one-way backend task
+    (add_factors on the non-consecutive pair (0, 2), then solve) with its
+    launch counts.  Returns a dict of counts, times and checks."""
+    import dataclasses
+
+    import torch
+    from mast3r_slam_tpu_torch.config import load_config
+    from mast3r_slam_tpu_torch.lie import sim3
+    from mast3r_slam_tpu_torch.models.interface import MASt3RModel
+    from mast3r_slam_tpu_torch.slam import factor_graph as fg
+    from mast3r_slam_tpu_torch.slam.frame import Frame, Keyframes
+    from mast3r_slam_tpu_torch.slam.tracker import FrameTracker
+
+    cfg = load_config("speed")
+    mcfg = dataclasses.replace(vitl.mcfg, head_dtype=torch.bfloat16)
+    model = MASt3RModel(vitl.params, mcfg, hw, device=dev)
+    N = hw[0] * hw[1]
+    imgs = smooth_images(n_tracked + 1, hw, dev, seed=3)
+    feat0, pos0 = model.encode(imgs[:1])
+    X0, C0 = model.mono(feat0, pos0)
+    if not (C0.dtype == torch.float32 and torch.isfinite(X0).all()):
+        raise AssertionError("ViT-L speed: INIT pointmap not finite f32")
+    T0 = sim3.identity(device=dev)
+
+    def store():
+        kf = Keyframes(8, N, model.num_patches, model.feat_dim, device=dev)
+        f0 = Frame(frame_id=0, img=imgs[0], T_WC=T0, feat=feat0, pos=pos0)
+        f0.update_pointmap(X0.reshape(-1, 3), C0.reshape(-1, 1))
+        kf.append(f0)
+        return kf
+
+    def compare(cfg, label, encode):
+        """Sequential against chained on two copies of the INIT store.  With
+        ``encode`` the sequential frames are encoded inside the counted
+        window (72 attention launches a frame); otherwise phase 4b's tokens
+        are reused.  Returns (counts, ms a frame) of both, re-submissions,
+        same bits, decisions."""
+        kf_seq, kf_chain = store(), store()
+        tr_seq = FrameTracker(model, cfg, kf_seq, hw, device=dev)
+        tr_chain = FrameTracker(model, cfg, kf_chain, hw, device=dev)
+        sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        seq, last_T = [], T0
+        for i in range(1, n_tracked + 1):
+            if encode:
+                frames.append(model.encode(imgs[i:i + 1]))
+            feat, pos = frames[i - 1]
+            fr = Frame(frame_id=i, img=imgs[i], T_WC=last_T, feat=feat, pos=pos)
+            decision = tr_seq.track(fr)
+            seq.append((logged_pose(fr), tr_seq.last_stats.copy(), decision))
+            last_T = fr.T_WC
+        sync(dev)
+        seq_ms = (time.perf_counter() - t0) * 1e3 / n_tracked
+        seq_counts = read_counts()
+        reset_counts()
+        t0 = time.perf_counter()
+        chain, n_resubmit = track_chained(
+            tr_chain, [Frame(frame_id=i + 1, img=imgs[i + 1], T_WC=T0, feat=f, pos=p)
+                       for i, (f, p) in enumerate(frames)], T0)
+        sync(dev)
+        chain_ms = (time.perf_counter() - t0) * 1e3 / n_tracked
+        chain_counts = read_counts()
+        same_bits = (len(chain) == len(seq) and all(
+            np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]) and a[2] == b[2]
+            for a, b in zip(seq, chain))
+            and torch.equal(kf_seq.X[0], kf_chain.X[0])
+            and torch.equal(kf_seq.C[0], kf_chain.C[0])
+            and torch.equal(tr_seq.idx_f2k, tr_chain.idx_f2k))
+        decisions = [tuple(bool(x) for x in d) for _, _, d in seq]
+        log(f"ViT-L speed profile (bf16 heads, {label}) {hw[0]}x{hw[1]}: sequential "
+            f"launches {seq_counts} ({seq_ms:.3f} ms a frame{', encode included' if encode else ''}); "
+            f"chained launches {chain_counts} ({chain_ms:.3f} ms a frame, decode + track; "
+            f"{n_resubmit} re-submitted); (new_kf, try_reloc) {decisions}; chained == "
+            f"sequential bits {same_bits}; last stats {np.round(seq[-1][1], 5).tolist()}")
+        return seq_counts, seq_ms, chain_counts, chain_ms, n_resubmit, same_bits, decisions
+
+    frames = []
+    (seq_counts, seq_ms, chain_counts, chain_ms, n_resubmit, same_bits,
+     decisions) = compare(cfg, "speed as packaged", encode=True)
+    # random weights give no valid match, so every frame above asks to
+    # relocalise and each chained submit is discarded; with the decision
+    # thresholds opened (every LM start converged, every match valid and
+    # confident, no keyframe switch) every frame commits and frames 2.. are
+    # tracked on the chained path
+    pinned = copy.deepcopy(cfg)
+    pinned["matching"].update(convergence_thresh=1e9, dist_thresh=1e9)
+    pinned["tracking"].update(C_conf=-1.0, Q_conf=-1.0, min_match_frac=0.0,
+                              match_frac_thresh=-1.0)
+    p_seq_counts, _, p_chain_counts, _, p_resubmit, p_same, p_decisions = compare(
+        pinned, "decisions pinned to commit", encode=False)
+    if p_resubmit >= n_tracked - 1:
+        raise AssertionError(f"ViT-L speed, decisions pinned: {p_resubmit} of "
+                             f"{n_tracked - 1} chained submits re-submitted (decisions "
+                             f"{p_decisions}); no frame was tracked on the chained path")
+    same_bits = same_bits and p_same
+    if dev.type == "cuda":
+        profile_frame(model, FrameTracker(model, cfg, store(), hw, device=dev),
+                      imgs[1:2], T0, label="one speed tracked frame (bf16 heads)")
+
+    # one one-way backend task: keyframes 0, 1, 2 (frames 1 and 2 by mono)
+    kf_seq = store()
+    for i in (1, 2):
+        feat, pos = frames[i - 1]
+        X, C = model.mono(feat, pos)
+        f = Frame(frame_id=i, img=imgs[i], T_WC=T0.clone(), feat=feat, pos=pos)
+        f.T_WC[0] = 0.05 * i
+        f.update_pointmap(X.reshape(-1, 3), C.reshape(-1, 1))
+        kf_seq.append(f)
+    graph = fg.FactorGraph(model, cfg, kf_seq, hw, edge_capacity=16)
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    graph.add_factors([0], [2], cfg["local_opt"]["min_match_frac"])
+    graph.solve()
+    sync(dev)
+    task_ms = (time.perf_counter() - t0) * 1e3
+    task_counts = read_counts()
+    oneway = bool(graph.n_edges == 1 and not graph.valid_match_i[0].any()
+                  and float(graph.Q_jj2ii[0].abs().max()) == 0.0)
+    live = graph.n_live_edges
+    log(f"ViT-L speed one-way backend task (add_factors([0], [2]) + solve): launches "
+        f"{task_counts}, {task_ms:.3f} ms, one-way row {oneway}, live edges {live}, "
+        f"forward valid fraction {graph.valid_match_j[0].float().mean().item():.4f}")
+    return dict(seq_counts=seq_counts, chain_counts=chain_counts, n_resubmit=n_resubmit,
+                same_bits=same_bits, seq_ms=seq_ms, chain_ms=chain_ms,
+                pinned_chain_counts=p_chain_counts, task_counts=task_counts,
+                pinned_resubmit=p_resubmit, task_ms=task_ms, oneway=oneway,
+                decisions=decisions)
 
 
 # ---------------------------------------------------------------------------
@@ -1023,30 +1303,89 @@ def read_counts():
     return {c.name: c.count for c in launch_counters()}
 
 
-def run_synthetic_slam(dev, hw=(384, 512), n_frames=16):
-    """SLAM.run over the plane scene, its backend included.  Returns (ATE,
-    result, launch counts, backend stage times)."""
+def engine_cfg(name, single_thread=True, pipeline=None, edge_buffer=16):
+    """A packaged config with the engine mode set (``pipeline`` None keeps
+    the config's own)."""
     from mast3r_slam_tpu_torch.config import load_config
+
+    cfg = load_config(name)
+    cfg["single_thread"] = single_thread
+    cfg["engine"]["edge_buffer"] = edge_buffer
+    if pipeline is not None:
+        cfg["engine"]["pipeline"] = pipeline
+    return cfg
+
+
+def interval_timer():
+    """A StageTimer that also keeps each stage's (name, start, end) on the
+    host clock, so that frames can be matched with the backend tasks that
+    ran beside them."""
+    from mast3r_slam_tpu_torch.utils.timing import StageTimer
+
+    class IntervalTimer(StageTimer):
+        def __init__(self):
+            super().__init__()
+            self.intervals = []
+
+        @contextlib.contextmanager
+        def time(self, name):
+            t0 = time.perf_counter()
+            with super().time(name):
+                yield
+            self.intervals.append((name, t0, time.perf_counter()))
+
+    return IntervalTimer()
+
+
+def engine_stats(slam):
+    """frame.latency p50/p95 over every frame and over the frames that ran
+    while a backend task was in flight (host clock, ms), the pipeline.*
+    stages, and the backend's stages."""
+    iv = slam.timer.intervals
+    tasks = [(t0, t1) for name, t0, t1 in iv if name == "backend.update"]
+    frames = [(t0, t1) for name, t0, t1 in iv if name == "frame.latency"]
+    during = [(t1 - t0) * 1e3 for t0, t1 in frames
+              if any(t0 < b1 and b0 < t1 for b0, b1 in tasks)]
+
+    def pct(x):
+        return ({"n": len(x), "p50_ms": float(np.percentile(x, 50)),
+                 "p95_ms": float(np.percentile(x, 95))} if x else {"n": 0})
+
+    st = slam.timer.stats()
+    return {"frame_latency": pct([(t1 - t0) * 1e3 for t0, t1 in frames]),
+            "frame_latency_during_backend": pct(during),
+            "stages": {k: {m: v[m] for m in ("p50_ms", "p95_ms", "count")}
+                       for k, v in st.items()
+                       if k.startswith(("pipeline.", "backend."))}}
+
+
+def run_synthetic_slam(dev, hw=(384, 512), n_frames=16, cfg=None, label="base"):
+    """SLAM.run over the plane scene, its backend included (``cfg``: the
+    sequential ``base`` loop unless given).  Returns (ATE, result, launch
+    counts, engine stats, slam)."""
     from mast3r_slam_tpu_torch.slam.pipeline import SLAM
 
     gt = arc_trajectory(n_frames)
     model = PlaneSceneModel(hw, gt, dev)
-    cfg = load_config("base")
-    cfg["single_thread"] = True
-    cfg["engine"]["edge_buffer"] = 16
-    slam = SLAM(model, cfg, hw, keyframe_buffer=16, device=dev)
+    slam = SLAM(model, cfg or engine_cfg("base"), hw, keyframe_buffer=16, device=dev)
+    slam.timer = interval_timer()
     reset_counts()
     t0 = time.perf_counter()
     res = slam.run(PlaneSceneDataset(model, n_frames), verbose=False)
     wall = time.perf_counter() - t0
     counts = read_counts()
+    slam.close()
+    if slam.backend_errors:
+        raise AssertionError(f"synthetic SLAM.run ({label}): backend tasks failed: "
+                             f"{slam.backend_errors!r}")
     ate = umeyama_rmse(res.frame_poses[:, :3].astype(np.float64), gt[:, :3])
-    stages = {k: v for k, v in slam.timer.stats().items() if k.startswith("backend")}
-    log(f"synthetic SLAM.run {hw[0]}x{hw[1]}, {n_frames} frames: {wall:.2f} s, "
+    stats = engine_stats(slam)
+    log(f"synthetic SLAM.run ({label}: single_thread {slam.single_thread}, pipeline "
+        f"{slam.pipeline}) {hw[0]}x{hw[1]}, {n_frames} frames: {wall:.2f} s, "
         f"{res.n_keyframes} keyframes, {slam.graph.n_edges} edges, {res.n_reloc} "
-        f"reloc, frame ATE {ate:.6f} m, launches {counts}; backend stages (host "
-        f"clock, ms) {json.dumps(stages)}")
-    return ate, res, counts, stages
+        f"reloc, frame ATE {ate:.6f} m, launches {counts}; engine stats (host clock, "
+        f"ms) {json.dumps(stats)}")
+    return ate, res, counts, stats, slam
 
 
 # ---------------------------------------------------------------------------
@@ -1398,15 +1737,15 @@ def teleport_trajectory(n_track=24, n_after=6, max_angle=3.5):
     return np.concatenate([arc, back])
 
 
-def run_synthetic_reloc(dev, hw=(384, 512), n_track=24, n_after=6):
+def run_synthetic_reloc(dev, hw=(384, 512), n_track=24, n_after=6, cfg=None,
+                        label="base"):
     """SLAM.run with a small retrieval head (tests/test_reloc_e2e.py's
     sizing: hdims (8,), 8 features, 64 words) and reloc.strict False over
-    the teleport trajectory, the launch counters reset just before and read
-    just after.  Returns (result, slam, gt, launch counts, add_factors
-    calls, whether ivf_hamming equalled its plain version on the run's
-    database)."""
+    the teleport trajectory (``cfg``: the sequential ``base`` loop unless
+    given), the launch counters reset just before and read just after.
+    Returns (result, slam, gt, launch counts, add_factors calls, whether
+    ivf_hamming equalled its plain version on the run's database)."""
     import torch
-    from mast3r_slam_tpu_torch.config import load_config
     from mast3r_slam_tpu_torch.retrieval import (ASMKSettings, RetrievalDatabase,
                                                  RetrievalHeadSettings)
     from mast3r_slam_tpu_torch.retrieval.head import init_head_params
@@ -1419,11 +1758,10 @@ def run_synthetic_reloc(dev, hw=(384, 512), n_track=24, n_after=6):
     centroids = torch.randn((64, 8), generator=g) * 0.3
     db = RetrievalDatabase(params, centroids, RetrievalHeadSettings(nfeat=8),
                            ASMKSettings(max_images=64), device=dev)
-    cfg = load_config("base")
-    cfg["single_thread"] = True
-    cfg["engine"]["edge_buffer"] = 64
+    cfg = cfg or engine_cfg("base", edge_buffer=64)
     cfg["reloc"]["strict"] = False
     slam = SLAM(model, cfg, hw, keyframe_buffer=32, retrieval=db, device=dev)
+    slam.timer = interval_timer()
     calls = []
     add_factors = slam.graph.add_factors
 
@@ -1437,6 +1775,10 @@ def run_synthetic_reloc(dev, hw=(384, 512), n_track=24, n_after=6):
     res = slam.run(PlaneSceneDataset(model, len(gt)), verbose=False)
     wall = time.perf_counter() - t0
     counts = read_counts()
+    slam.close()
+    if slam.backend_errors:
+        raise AssertionError(f"synthetic reloc ({label}): backend tasks failed: "
+                             f"{slam.backend_errors!r}")
     n = len(gt)
     # ivf_hamming (W = 1 here) on a query of the last frame against the
     # database the run built, after the counts were read
@@ -1444,13 +1786,14 @@ def run_synthetic_reloc(dev, hw=(384, 512), n_track=24, n_after=6):
     hamming_exact = query_hamming_exact(db, model.encode(last)[0])
     err = np.linalg.norm(res.frame_poses[-3:, :3] - gt[-3:, :3], axis=-1)
     E = slam.graph.n_edges
-    log(f"synthetic reloc {hw[0]}x{hw[1]}, {n} frames (teleport after {n_track}): "
+    log(f"synthetic reloc ({label}: single_thread {slam.single_thread}, pipeline "
+        f"{slam.pipeline}) {hw[0]}x{hw[1]}, {n} frames (teleport after {n_track}): "
         f"{wall:.2f} s, {res.n_reloc} reloc, {res.n_reloc_success} succeeded, "
         f"{res.n_keyframes} keyframes, edges {list(zip(slam.graph.ii[:E].tolist(), slam.graph.jj[:E].tolist()))}, "
         f"post-reloc error {err.round(5).tolist()} m, mode {slam.mode.name}, launches "
         f"{counts}, add_factors calls {len(calls)} ({sum(calls)} reloc), ivf_hamming "
         f"W={db.ivf.words} exact {hamming_exact}; stages (host clock, ms) "
-        f"{json.dumps(slam.timer.stats())}")
+        f"{json.dumps(slam.timer.stats())}; engine stats {json.dumps(engine_stats(slam))}")
     return res, slam, gt, counts, calls, hamming_exact
 
 
@@ -1499,7 +1842,7 @@ def main() -> int:
         lib = ctypes.CDLL(str(kernels.library_path(name)))
         log(f"{name}: {getattr(lib, name + '_smem_bytes')()} bytes of dynamic shared "
             f"memory a block (ptxas above: static)")
-    ref, ref_smooth, ref_scattered = check_refine(dev)
+    ref, ref_smooth, ref_scattered, ref_speed = check_refine(dev)
     ehg = check_edge_hg(dev)
     grs = check_gather_rows_sum(dev)
     tar = check_take_along_rows(dev)
@@ -1516,7 +1859,25 @@ def main() -> int:
     log(f"ViT-L 384x512 tracked frame (encode + decode + track): median "
         f"{frame_ms:.3f} ms over {N_TRACKED} frames; launches {counts}")
 
-    ate, res, slam_counts, _ = run_synthetic_slam(dev)
+    speed = run_vitl_speed(dev, vitl)
+    n_sub = N_TRACKED + speed["n_resubmit"]
+    want_seq = {"attention": 72 * N_TRACKED, "refine_window": 2 * N_TRACKED}
+    want_chain = {"attention": 48 * N_TRACKED, "refine_window": 2 * n_sub}
+    if ({k: speed["seq_counts"][k] for k in want_seq} != want_seq
+            or {k: speed["chain_counts"][k] for k in want_chain} != want_chain
+            or not speed["same_bits"]):
+        raise AssertionError(
+            f"ViT-L speed profile: sequential launches {speed['seq_counts']} (expected "
+            f"{want_seq}: 72 attention + 2 refine a frame), chained {speed['chain_counts']} "
+            f"(expected {want_chain}), chained == sequential bits {speed['same_bits']}")
+    want_task = {"attention": 48, "refine_window": 2}
+    if ({k: speed["task_counts"][k] for k in want_task} != want_task
+            or speed["task_counts"]["edge_hg_rays"] < 1 or not speed["oneway"]):
+        raise AssertionError(f"ViT-L speed one-way task: launches {speed['task_counts']} "
+                             f"(expected {want_task} and edge_hg_rays >= 1), one-way "
+                             f"row {speed['oneway']}")
+
+    ate, res, slam_counts, _, seq_slam = run_synthetic_slam(dev)
     n_tracked = len(res.frame_poses) - 1 - res.n_reloc
     if res.n_reloc or ate > TRAJ_BOUND_M or res.n_keyframes < 2:
         raise AssertionError(
@@ -1530,6 +1891,21 @@ def main() -> int:
             or slam_counts["edge_hg_rays"] < n_tasks):
         raise AssertionError(f"synthetic SLAM.run launches {slam_counts} "
                              f"({n_tracked} tracked frames, {n_tasks} backend tasks)")
+
+    # the pipelined loop, single threaded: the sequential run's poses, bit for bit
+    _, pres, _, _, _ = run_synthetic_slam(dev, cfg=engine_cfg("base", pipeline=1),
+                                          label="base, pipeline 1")
+    if not (np.array_equal(pres.frame_poses, res.frame_poses)
+            and np.array_equal(pres.keyframe_poses, res.keyframe_poses)):
+        raise AssertionError("synthetic SLAM.run: pipeline 1 poses differ from the "
+                             "sequential loop's")
+    # speed as packaged: the threaded backend and the pipelined loop
+    sate, sres, _, sstats, _ = run_synthetic_slam(
+        dev, cfg=engine_cfg("speed", single_thread=False), label="speed")
+    if sres.n_reloc or sate > TRAJ_BOUND_M or sres.n_keyframes < 2:
+        raise AssertionError(f"synthetic scene under speed: ATE {sate} m (bound "
+                             f"{TRAJ_BOUND_M}), {sres.n_reloc} reloc, "
+                             f"{sres.n_keyframes} keyframes")
 
     solves = run_synthetic_solve(dev)
     if not all(r["same_bits"] for r in solves.values()):
@@ -1565,6 +1941,17 @@ def main() -> int:
             f"{rres.n_reloc_success} succeeded, mode {rslam.mode.name}, post-reloc error "
             f"{post_err} m (bound {RELOC_BOUND_M})")
 
+    # relocalisation under speed: the threaded backend and the pipelined loop
+    sr_res, sr_slam, sr_gt, _, _, _ = run_synthetic_reloc(
+        dev, cfg=engine_cfg("speed", single_thread=False, edge_buffer=64), label="speed")
+    sr_err = float(np.linalg.norm(sr_res.frame_poses[-3:, :3] - sr_gt[-3:, :3], axis=-1).max())
+    if (sr_res.n_reloc < 1 or sr_res.n_reloc_success < 1
+            or sr_slam.mode.name != "TRACKING" or sr_err >= RELOC_BOUND_M):
+        raise AssertionError(
+            f"synthetic reloc under speed: {sr_res.n_reloc} reloc, {sr_res.n_reloc_success} "
+            f"succeeded, mode {sr_slam.mode.name}, post-reloc error {sr_err} m (bound "
+            f"{RELOC_BOUND_M})")
+
     common = lambda r: {k: r[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms",
                                           "library_call_ms")}
@@ -1576,7 +1963,11 @@ def main() -> int:
         dict(name="refine_window", route="cuda",
              source="mast3r_slam_tpu_torch/csrc/refine_window.cu",
              replaces="mast3r_slam_tpu/ops/refine_pallas.py:70",
-             launches=counts["refine_window"], shape=[1, 384 * 512, 24], **common(ref)),
+             launches=counts["refine_window"], shape=[1, 384 * 512, 24], **common(ref),
+             speed_launches=speed["seq_counts"]["refine_window"],
+             speed={k: {m: r[m] for m in ("schedule", "radius", "n", "ms", "call_ms",
+                                          "plain_ms", "bound_ms", "bound_by")}
+                    for k, r in ref_speed["current"].items()}),
         dict(name="edge_hg_rays", route="cuda",
              source="mast3r_slam_tpu_torch/csrc/edge_hg_rays.cu",
              replaces="mast3r_slam_tpu/ops/edge_hg_pallas.py:130",
@@ -1612,7 +2003,12 @@ def main() -> int:
                                                       "kernel_vs_plain_rel",
                                                       "scores_same_bits")},
         "synthetic_reloc": {"n_reloc": rres.n_reloc, "n_reloc_success": rres.n_reloc_success,
-                            "post_reloc_err_m": post_err}}
+                            "post_reloc_err_m": post_err},
+        "speed": {"vitl_frame_ms": speed["seq_ms"], "vitl_chained_ms": speed["chain_ms"],
+                  "vitl_launches": speed["seq_counts"], "oneway_task_ms": speed["task_ms"],
+                  "oneway_task_launches": speed["task_counts"], "synthetic_ate_m": sate,
+                  "synthetic_engine": sstats, "reloc_post_err_m": sr_err,
+                  "reloc_success": sr_res.n_reloc_success}}
     log(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -3,11 +3,17 @@
 //
 // Replaces: mast3r_slam_tpu/ops/refine_pallas.py  refine_r1_pallas / _kernel
 // (the radius-1, one-level case), and computes the whole of
-// mast3r_slam_tpu/ops/matching.py refine_matches(radius, dilation_max): for
-// every source pixel, at dilation d = dilation_max .. 1, score the
-// (2r+1)^2 candidates around its current match by the exact int32 dot
-// product of int8 descriptors, mask out-of-image candidates to INT32_MIN,
-// take the first maximum in dy-major order (= jnp.argmax) and move there.
+// mast3r_slam_tpu/ops/matching.py refine_matches(radius, dilation_max) and
+// the subset levels of refine_matches_gated: for every source pixel, at
+// each dilation d of a short schedule given by value (dilation_max .. 1
+// for refine_matches; (5, 2) on the speed profile's compacted subset, whose
+// strip tables score the same candidates in the same k = dy*diam + dx
+// order), score the (2r+1)^2 candidates around its current match by the
+// exact int32 dot product of int8 descriptors, mask out-of-image
+// candidates to INT32_MIN, take the first maximum in dy-major order (=
+// jnp.argmax) and move there.  Sources may come in any order (a compacted
+// subset is not in image order): the window and global paths below are
+// both exact for any set of a block's pixels.
 // The TPU kernel never shipped: Mosaic had no usable in-VMEM gather.
 //
 // What bounds it on the H100: bytes.  At 384x512, F = 24 it must read the
@@ -46,6 +52,13 @@ constexpr int TILE = 16;                 // a block's patch: TILE x TILE pixels
 constexpr int THREADS = TILE * TILE;
 constexpr int WARPS = THREADS / 32;
 constexpr int WIN_BYTES = 70 * 1024;     // the window's budget: 3 blocks an SM
+constexpr int MAX_LEVELS = 8;            // dilations a schedule may hold
+
+// the dilations of one launch, in the order they run, passed by value
+struct Schedule {
+  int n;
+  int d[MAX_LEVELS];
+};
 
 __device__ __forceinline__ int warp_min(int x) {
 #pragma unroll
@@ -173,7 +186,7 @@ template <int WORDS>
 __global__ void __launch_bounds__(THREADS, 3)
 refine_window_kernel(const int8_t* __restrict__ d11, const int8_t* __restrict__ d21,
                      const int32_t* __restrict__ idx_in, int32_t* __restrict__ idx_out,
-                     int N, int H, int W, int radius, int dilation_max, int tiles_w,
+                     int N, int H, int W, int radius, const Schedule sched, int tiles_w,
                      int gran, int align_px, unsigned long long* __restrict__ stats) {
   constexpr int F = 4 * WORDS;
   extern __shared__ __align__(16) int8_t win[];
@@ -218,7 +231,9 @@ refine_window_kernel(const int8_t* __restrict__ d11, const int8_t* __restrict__ 
   int kwu0 = 0, kwv0 = 0, kww = 0, kwh = 0;
   bool kept = false;
 
-  for (int d = dilation_max; d >= 1; --d) {
+#pragma unroll 1
+  for (int level = 0; level < sched.n; ++level) {
+    const int d = sched.d[level];
     const int rd = radius * d;
     // the bounding box of the block's matches
     int vals[4] = {valid ? u0 : INT_MAX, valid ? -u0 : INT_MAX, valid ? v0 : INT_MAX,
@@ -323,7 +338,7 @@ refine_window_kernel(const int8_t* __restrict__ d11, const int8_t* __restrict__ 
 template <int WORDS>
 cudaError_t launch(const int8_t* d11, const int8_t* d21, const int32_t* idx_in,
                    int32_t* idx_out, int B, int N, int H, int W, int radius,
-                   int dilation_max, unsigned long long* stats, cudaStream_t stream) {
+                   const Schedule& sched, unsigned long long* stats, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -344,20 +359,29 @@ cudaError_t launch(const int8_t* d11, const int8_t* d21, const int32_t* idx_in,
   const int tiles_w = (N == H * W) ? (W + TILE - 1) / TILE : 0;
   const int blocks = tiles_w ? tiles_w * ((H + TILE - 1) / TILE) : (N + THREADS - 1) / THREADS;
   refine_window_kernel<WORDS><<<dim3(blocks, B), THREADS, WIN_BYTES, stream>>>(
-      d11, d21, idx_in, idx_out, N, H, W, radius, dilation_max, tiles_w, gran, align_px,
-      stats);
+      d11, d21, idx_in, idx_out, N, H, W, radius, sched, tiles_w, gran, align_px, stats);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // d11: (B, H*W, F) int8, d21: (B, N, F) int8, idx_in/idx_out: (B, N) int32
-// linear indices v*W + u.  F % 4 == 0 and F <= 64.  stats: null, or four
-// zeroed uint64 counters the kernel adds to (see the kernel).  Launches on `stream` and
-// returns cudaGetLastError() (cudaErrorInvalidValue for another F).
+// linear indices v*W + u.  F % 4 == 0 and F <= 64.  dilations: n_levels
+// (1 .. 8) host ints >= 1, the levels in the order they run.  stats: null,
+// or four zeroed uint64 counters the kernel adds to (see the kernel).
+// Launches on `stream` and returns cudaGetLastError()
+// (cudaErrorInvalidValue for another F or schedule).
 extern "C" int refine_window_i8(const void* d11, const void* d21, const void* idx_in,
                                 void* idx_out, int B, int N, int H, int W, int F,
-                                int radius, int dilation_max, void* stats, void* stream) {
+                                int radius, const int* dilations, int n_levels, void* stats,
+                                void* stream) {
+  if (n_levels < 1 || n_levels > MAX_LEVELS) return static_cast<int>(cudaErrorInvalidValue);
+  Schedule sched{};
+  sched.n = n_levels;
+  for (int l = 0; l < n_levels; ++l) {
+    if (dilations[l] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    sched.d[l] = dilations[l];
+  }
   const auto* a = reinterpret_cast<const int8_t*>(d11);
   const auto* q = reinterpret_cast<const int8_t*>(d21);
   const auto* i = reinterpret_cast<const int32_t*>(idx_in);
@@ -368,7 +392,7 @@ extern "C" int refine_window_i8(const void* d11, const void* d21, const void* id
   switch (F / 4) {
 #define REFINE_CASE(WORDS)                                                              \
     case WORDS:                                                                         \
-      e = launch<WORDS>(a, q, i, o, B, N, H, W, radius, dilation_max, st, s);           \
+      e = launch<WORDS>(a, q, i, o, B, N, H, W, radius, sched, st, s);           \
       break;
     REFINE_CASE(1) REFINE_CASE(2) REFINE_CASE(3) REFINE_CASE(4)
     REFINE_CASE(5) REFINE_CASE(6) REFINE_CASE(7) REFINE_CASE(8)

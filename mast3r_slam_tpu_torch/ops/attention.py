@@ -86,7 +86,7 @@ def sdpa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 B, H, N, M, *strides, HEAD_DIM ** -0.5, stream)
     kernels.check(rc, "attention_bf16_d64")
-    counter.count += 1
+    counter.add()
     return out.transpose(1, 2)
 
 

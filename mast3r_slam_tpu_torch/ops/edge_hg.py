@@ -150,7 +150,7 @@ def edge_hg_rays_cuda(Tij, Xi, Xj, sq, *, sigma_ray: float, sigma_dist: float,
                 partial.data_ptr(), out.data_ptr(), E, N, tiles, slots,
                 1.0 / sigma_ray, 1.0 / sigma_dist, huber_k, stream)
     kernels.check(rc, "edge_hg_rays_f32")
-    counter.count += 1
+    counter.add()
     return out
 
 

@@ -209,7 +209,7 @@ def gather_rows_sum_cuda(table, idx):
         rc = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(), M, F,
                 is_int8, *plan, _stream(idx))
     kernels.check(rc, what)
-    sum_counter.count += 1
+    sum_counter.add()
     return out
 
 
@@ -238,7 +238,7 @@ def ivf_hamming_cuda(bvecs, q_vecs, qw):
         rc = fn(bvecs.data_ptr(), q_vecs.data_ptr(), qw.data_ptr(), out.data_ptr(),
                 Q, n_buckets, cap, W, _stream(qw))
     kernels.check(rc, what)
-    ivf_counter.count += 1
+    ivf_counter.add()
     return out
 
 
@@ -263,7 +263,7 @@ def take_along_rows_cuda(tab, idx, slab_bytes: int = SLAB_BYTES):
         rc = fn(tab.data_ptr(), idx.data_ptr(), out.data_ptr(), K, M, F, eb, *plan,
                 _stream(idx))
     kernels.check(rc, what)
-    take_counter.count += 1
+    take_counter.add()
     return out
 
 

@@ -40,7 +40,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 ENTRY_POINTS = {
     "attention": ("attention", "attention_bf16_d64",
                   [_P] * 4 + [_I] * 4 + [_L] * 9 + [ctypes.c_float, _P]),
-    "refine_window": ("refine_window", "refine_window_i8", [_P] * 4 + [_I] * 7 + [_P] * 2),
+    "refine_window": ("refine_window", "refine_window_i8",
+                      [_P] * 4 + [_I] * 6 + [ctypes.POINTER(_I), _I] + [_P] * 2),
     "edge_hg_rays": ("edge_hg_rays", "edge_hg_rays_f32",
                      [_P] * 6 + [_I] * 4 + [ctypes.c_float] * 3 + [_P]),
     "edge_hg_rays_slots": ("edge_hg_rays", "edge_hg_rays_slots", []),
@@ -156,6 +157,13 @@ class LaunchCounter:
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        # the tracker and the backend thread launch the same kernels
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self.count += 1
 
     def reset(self) -> None:
-        self.count = 0
+        with self._lock:
+            self.count = 0

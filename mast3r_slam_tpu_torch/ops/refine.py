@@ -1,7 +1,10 @@
 """Coarse-to-fine descriptor window argmax: the CUDA kernel and its plain form.
 
 Port of ``mast3r_slam_tpu/ops/refine_pallas.py`` generalised to the whole of
-``refine_matches(radius, dilation_max)`` (``mast3r_slam_tpu/ops/matching.py``).
+``refine_matches(radius, dilation_max)`` and to the subset levels of
+``refine_matches_gated`` (``mast3r_slam_tpu/ops/matching.py``): one launch
+runs a short schedule of dilations in order, ``(dilation_max, ..., 1)`` for
+``refine_matches`` and e.g. ``(5, 2)`` for the speed profile's subset.
 Descriptors are quantised here, in torch, exactly as the JAX package does:
 ``clip(round(D * 127), -127, 127)`` to int8 (``torch.round`` rounds half to
 even, like ``jnp.round``).  ``refine_window`` launches
@@ -11,6 +14,8 @@ even, like ``jnp.round``).  ``refine_window`` launches
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import kernels
@@ -19,6 +24,7 @@ counter = kernels.LaunchCounter("refine_window")
 
 _SCORE_MIN = torch.iinfo(torch.int32).min
 MAX_FEATURES = 64  # the kernel keeps a descriptor in at most 16 registers
+MAX_LEVELS = 8     # dilations a launch's schedule may hold (csrc MAX_LEVELS)
 
 
 def quantize(D: torch.Tensor) -> torch.Tensor:
@@ -26,10 +32,23 @@ def quantize(D: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(D * 127.0), -127, 127).to(torch.int8)
 
 
-def refine_window_plain(D11q, D21q, idx, H: int, W: int, radius: int,
-                        dilation_max: int):
+def schedule(dilation_max: int) -> tuple:
+    """The dilations of ``refine_matches(radius, dilation_max)``."""
+    return tuple(range(dilation_max, 0, -1))
+
+
+def _check_schedule(dilations) -> tuple:
+    dilations = tuple(int(d) for d in dilations)
+    if not 1 <= len(dilations) <= MAX_LEVELS or min(dilations) < 1:
+        raise ValueError(f"refine: dilations {dilations}; a schedule holds 1 to "
+                         f"{MAX_LEVELS} dilations, each >= 1")
+    return dilations
+
+
+def refine_window_plain(D11q, D21q, idx, H: int, W: int, radius: int, dilations):
     """D11q: (B, H*W, F) int8; D21q: (B, N, F) int8; idx: (B, N) int32 linear
-    start indices.  Returns the refined (B, N) int32 linear indices."""
+    start indices, in any order; ``dilations``: the levels in the order they
+    run.  Returns the refined (B, N) int32 linear indices."""
     B, HW, F = D11q.shape
     N = idx.shape[1]
     dev = idx.device
@@ -39,7 +58,7 @@ def refine_window_plain(D11q, D21q, idx, H: int, W: int, radius: int,
     u0 = idx % W
     v0 = torch.div(idx, W, rounding_mode="floor")
     bidx = torch.arange(B, device=dev)[:, None, None]
-    for d in range(dilation_max, 0, -1):
+    for d in _check_schedule(dilations):
         uu = u0[..., None] + doff * d          # (B, N, diam)
         vv = v0[..., None] + doff * d
         cu = uu[..., None, :].expand(B, N, diam, diam).reshape(B, N, -1)
@@ -55,8 +74,8 @@ def refine_window_plain(D11q, D21q, idx, H: int, W: int, radius: int,
     return (v0 * W + u0).to(torch.int32)
 
 
-def refine_window_cuda(D11q, D21q, idx, H: int, W: int, radius: int,
-                       dilation_max: int, stats=None):
+def refine_window_cuda(D11q, D21q, idx, H: int, W: int, radius: int, dilations,
+                       stats=None):
     """Launch the window-argmax kernel; raises on anything it does not take.
 
     ``stats``: None, or a zeroed (4,) int64 tensor on the card that the
@@ -89,8 +108,9 @@ def refine_window_cuda(D11q, D21q, idx, H: int, W: int, radius: int,
         raise ValueError(
             f"refine_window_cuda: F={F}; the kernel takes F % 4 == 0 and "
             f"F <= {MAX_FEATURES}")
-    if radius < 0 or dilation_max < 1:
-        raise ValueError("refine_window_cuda: radius >= 0 and dilation_max >= 1")
+    if radius < 0:
+        raise ValueError("refine_window_cuda: radius >= 0")
+    dilations = _check_schedule(dilations)
     if stats is not None and (stats.shape != (4,) or stats.dtype != torch.int64
                               or stats.device != idx.device):
         raise ValueError("refine_window_cuda: stats must be a (4,) int64 tensor on "
@@ -102,16 +122,15 @@ def refine_window_cuda(D11q, D21q, idx, H: int, W: int, radius: int,
     with torch.cuda.device(idx.device):
         stream = torch.cuda.current_stream(idx.device).cuda_stream
         rc = fn(D11q.data_ptr(), D21q.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                B, N, H, W, F, radius, dilation_max,
-                None if stats is None else stats.data_ptr(), stream)
+                B, N, H, W, F, radius, (ctypes.c_int * len(dilations))(*dilations),
+                len(dilations), None if stats is None else stats.data_ptr(), stream)
     kernels.check(rc, "refine_window_i8")
-    counter.count += 1
+    counter.add()
     return out
 
 
-def refine_window(D11q, D21q, idx, H: int, W: int, radius: int,
-                  dilation_max: int):
+def refine_window(D11q, D21q, idx, H: int, W: int, radius: int, dilations):
     """The window argmax on the tensors' device: kernel on CUDA, plain on CPU."""
     if idx.device.type == "cpu":
-        return refine_window_plain(D11q, D21q, idx, H, W, radius, dilation_max)
-    return refine_window_cuda(D11q, D21q, idx, H, W, radius, dilation_max)
+        return refine_window_plain(D11q, D21q, idx, H, W, radius, dilations)
+    return refine_window_cuda(D11q, D21q, idx, H, W, radius, dilations)

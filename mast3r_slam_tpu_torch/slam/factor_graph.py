@@ -6,22 +6,36 @@ batch 2B) and two-way dense matching (one ``matching.match`` call over all
 2B images: each image's matching is independent of the others), gates the
 edges by their bidirectional match fraction (consecutive edges are always
 kept; ``strict``, the default for relocalisation edges, keeps all or
-none) and stores them.  ``solve`` expands the
-stored edges both ways and runs the global Gauss-Newton over every
-keyframe pose, through the gathered-point cache when it applies, then
-writes the solved poses back to the keyframe store.
+none) and stores them.  The ``speed`` profile's fast paths (never taken by
+a relocalisation call, which stays strict and bidirectional):
+
+- ``local_opt.oneway_nonconsec``: a non-consecutive (loop-closure) pair
+  runs one asymmetric decode and forward matching only; its backward
+  half-row is stored zero-weight and its gate reads the forward fraction.
+- ``local_opt.reuse_tracker_match``: a consecutive pair whose backward
+  match the tracker captured stores that capture as its backward half and
+  computes the forward half only.
+- ``local_opt.speculative_gate``: every candidate is stored with its gate
+  verdict computed and masked into its weights on the device, so the host
+  does not wait for the match fractions; ``resolve_pending_verdicts``
+  reads them later into ``edge_live``.
+
+``solve`` expands the stored edges both ways and runs the global
+Gauss-Newton over every keyframe pose, through the gathered-point cache
+when it applies, then writes the solved poses back to the keyframe store
+(refused if a relocalisation popped a keyframe meanwhile).
 
 The edge store is preallocated tensors on the device written in place, and
 a solve takes exactly the stored edges and keyframes: the JAX package pads
-both to power-of-two buckets only to bound its compiled programs.  The
-optional paths (one-way loop edges, reuse of the tracker's match,
-speculative gating, strided matching, edge recycling, windowed solves,
-paging, a mesh) raise ``NotImplementedError`` naming their ROADMAP item.
+both to power-of-two buckets only to bound its compiled programs.  Strided
+matching, edge recycling, windowed solves, paging and a mesh raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import sys
+import threading
 from typing import List, Tuple
 
 import numpy as np
@@ -30,16 +44,10 @@ import torch
 from ..geometry import constrain_points_to_ray
 from ..ops import matching
 from ..ops.global_gn import GlobalGNSettings, gauss_newton_poses, gauss_newton_poses_cached
+from ..ops.matching import match_kwargs
 from .frame import Keyframes
 
 _ITEM8 = "ROADMAP Queue 1, item 8"
-# boolean speed knobs of the JAX graph that this port does not run
-_UNPORTED_SWITCHES = {
-    "oneway_nonconsec": f"{_ITEM8}a: one-way loop-closure edges",
-    "reuse_tracker_match": f"{_ITEM8}b: reuse of the tracker's match",
-    "speculative_gate": f"{_ITEM8}c: speculative gating",
-    "edge_recycle": f"{_ITEM8}e: windowed solves and edge recycling",
-}
 _WINDOWED = f"{_ITEM8}e: windowed solves and edge recycling"
 
 
@@ -85,18 +93,6 @@ def _expand_two_way(idx_f, idx_b, vf, vb, qf, qb, n_edges: int):
             torch.cat([qf[:E], qb[:E]]))
 
 
-def match_kwargs(cfg) -> dict:
-    """The matcher's settings from the config's ``matching`` section."""
-    m = cfg["matching"]
-    keys = ("max_iter", "lambda_init", "convergence_thresh", "dist_thresh",
-            "radius", "dilation_max")
-    kw = {k: m[k] for k in keys}
-    kw.update(refine_gate=m.get("refine_gate", "none"),
-              proj_gate=m.get("proj_gate", "none"),
-              proj_init=m.get("proj_init", "warm"))
-    return kw
-
-
 @torch.no_grad()
 def _add_factors_compute(img_hw, res, Q_conf: float, mk: dict):
     """Two-way matching + Q aggregation for B pairs: the matcher runs once
@@ -124,6 +120,27 @@ def _add_factors_compute(img_hw, res, Q_conf: float, mk: dict):
                 Qj=Qj, Qi=Qi, match_frac_j=match_frac_j, match_frac_i=match_frac_i)
 
 
+@torch.no_grad()
+def _add_factors_forward(img_hw, res, Q_conf: float, mk: dict):
+    """Forward-only (i -> j) matching and Q aggregation for B pairs: the
+    forward half of ``_add_factors_compute`` (the one-way and reuse paths)."""
+    N = img_hw[0] * img_hw[1]
+    (Xii, _, Dii, Qii), (Xji, _, Dji, Qji) = res
+    B = Xii.shape[0]
+    idx_i2j, valid_j = matching.match(Xii, Xji, Dii, Dji, **mk)
+    g = torch.gather(Qii.reshape(B, N, 1), 1, idx_i2j.long()[..., None])
+    Qj = torch.sqrt(g * Qji.reshape(B, N, 1))
+    match_frac_j = (valid_j & (Qj > Q_conf)).float().mean(dim=(1, 2))
+    return dict(idx_i2j=idx_i2j, valid_j=valid_j, Qj=Qj, match_frac_j=match_frac_j)
+
+
+def _masked(keep, valid, Q):
+    """An edge's weight fields with its on-device gate verdict applied: a
+    rejected edge keeps valid False and Q 0, zero weight in the solve."""
+    m = keep[:, None, None]
+    return valid & m, Q * m.to(Q.dtype)
+
+
 class FactorGraph:
     """Edges between keyframes and the global pose solve over them."""
 
@@ -133,10 +150,10 @@ class FactorGraph:
             raise NotImplementedError(
                 "a mesh is not ported yet (ROADMAP Queue 1, item 12: multi-GPU)")
         lcfg = cfg["local_opt"]
-        for key, item in _UNPORTED_SWITCHES.items():
-            if lcfg.get(key, False):
-                raise NotImplementedError(
-                    f"local_opt.{key}: {lcfg[key]!r} is not ported yet ({item})")
+        if lcfg.get("edge_recycle", False):
+            raise NotImplementedError(
+                f"local_opt.edge_recycle: {lcfg['edge_recycle']!r} is not ported yet "
+                f"({_WINDOWED})")
         if int(lcfg.get("pixel_stride", 1)) > 1:
             raise NotImplementedError(
                 f"local_opt.pixel_stride: {lcfg['pixel_stride']!r} is not ported "
@@ -175,6 +192,12 @@ class FactorGraph:
         self._gcache_cap = 0
         self._stamp_f = np.full((edge_capacity,), -1, dtype=np.int64)
         self._stamp_b = np.full((edge_capacity,), -1, dtype=np.int64)
+        # speculative gate: each edge's verdict once read (until then True),
+        # and the verdicts still on the device as (rows, keep, event); the
+        # backend thread adds to them and the engine's end reads them
+        self.edge_live = np.ones((edge_capacity,), dtype=bool)
+        self._pending: List[tuple] = []
+        self._verdict_lock = threading.Lock()
         # the last PCG-routed solve's `diverged` flag, read by the next solve
         self._health_pending = None
         self.n_recoveries = 0
@@ -188,24 +211,69 @@ class FactorGraph:
     # ------------------------------------------------------------------
 
     def add_factors(self, ii: List[int], jj: List[int], min_match_frac: float,
-                    is_reloc: bool = False, strict: bool = None) -> bool:
-        """Symmetric inference + two-way matching for the pairs (ii[b],
-        jj[b]), then gate and store.  An edge is kept when both match
-        fractions reach ``min_match_frac`` or it is consecutive (jj = ii + 1);
-        with ``strict`` one rejected edge rejects them all.  ``is_reloc``
-        marks relocalisation edges (the new keyframe as ii, so never
-        consecutive); ``strict`` defaults to it.  Every edge takes the
-        symmetric path here, the only one ported.  Returns whether any edge
-        was stored."""
+                    is_reloc: bool = False, strict: bool = None,
+                    captures=None) -> bool:
+        """Inference, matching, gate and store for the pairs (ii[b], jj[b]).
+        An edge is kept when both match fractions reach ``min_match_frac``
+        or it is consecutive (jj = ii + 1); with ``strict`` one rejected
+        edge rejects them all.  ``is_reloc`` marks relocalisation edges (the
+        new keyframe as ii, so never consecutive), which always take the
+        bidirectional symmetric path; ``strict`` defaults to it.  Otherwise
+        the ``speed`` switches pick each pair's path (see the module
+        docstring); ``captures`` maps (i, j) to the tracker's (idx, valid, Q)
+        of j's match against i.  Returns whether any edge was stored."""
         if strict is None:
             strict = is_reloc
-        if len(ii) == 0:
+        B = len(ii)
+        if B == 0:
             return False
         snap = self.keyframes.snapshot()
         ii_arr = np.asarray(ii, dtype=np.int32)
         jj_arr = np.asarray(jj, dtype=np.int32)
-        out = self._compute_symmetric(snap, ii_arr, jj_arr)
-        return self._gate_store_symmetric(out, ii_arr, jj_arr, min_match_frac, strict)
+        lcfg = self.lcfg
+        fast = not is_reloc
+        oneway = fast and bool(lcfg.get("oneway_nonconsec", False))
+        reuse = fast and bool(lcfg.get("reuse_tracker_match", False)) and bool(captures)
+        # the verdict must be read at once where strict needs all of them
+        spec = fast and not strict and bool(lcfg.get("speculative_gate", False))
+        if not (oneway or reuse):
+            out = self._compute_symmetric(snap, ii_arr, jj_arr)
+            if spec:
+                return self._gate_store_symmetric_spec(out, ii_arr, jj_arr, min_match_frac)
+            return self._gate_store_symmetric(out, ii_arr, jj_arr, min_match_frac, strict)
+
+        consec = ii_arr == (jj_arr - 1)
+        cap_mask = np.array([bool(c) and (int(a), int(b)) in captures
+                             for a, b, c in zip(ii_arr, jj_arr, consec)]) \
+            if reuse else np.zeros((B,), bool)
+        one_mask = ~consec if oneway else np.zeros((B,), bool)
+        sym_mask = ~(cap_mask | one_mask)
+        # every group's device work is issued before any host read
+        out_s = out_r = out_f = None
+        if sym_mask.any():
+            out_s = self._compute_symmetric(snap, ii_arr[sym_mask], jj_arr[sym_mask])
+        if cap_mask.any():
+            out_r = self._compute_oneway(snap, ii_arr[cap_mask], jj_arr[cap_mask])
+        if one_mask.any():
+            out_f = self._compute_oneway(snap, ii_arr[one_mask], jj_arr[one_mask])
+        added = False
+        if out_s is not None:
+            if spec:
+                added |= self._gate_store_symmetric_spec(
+                    out_s, ii_arr[sym_mask], jj_arr[sym_mask], min_match_frac)
+            else:
+                added |= self._gate_store_symmetric(
+                    out_s, ii_arr[sym_mask], jj_arr[sym_mask], min_match_frac, False)
+        if out_r is not None:
+            added |= self._store_reuse(out_r, ii_arr[cap_mask], jj_arr[cap_mask], captures)
+        if out_f is not None:
+            if spec:
+                added |= self._gate_store_oneway_spec(
+                    out_f, ii_arr[one_mask], jj_arr[one_mask], min_match_frac)
+            else:
+                added |= self._gate_store_oneway(
+                    out_f, ii_arr[one_mask], jj_arr[one_mask], min_match_frac)
+        return added
 
     def _compute_symmetric(self, snap, ii_arr, jj_arr):
         ii_t = torch.as_tensor(ii_arr, device=self.device).long()
@@ -214,6 +282,34 @@ class FactorGraph:
                                    snap.feat[jj_t], snap.pos[jj_t])
         return _add_factors_compute(self.img_hw, res, float(self.lcfg["Q_conf"]),
                                     match_kwargs(self.cfg))
+
+    def _compute_oneway(self, snap, ii_arr, jj_arr):
+        """One asymmetric decode and forward matching a pair."""
+        ii_t = torch.as_tensor(ii_arr, device=self.device).long()
+        jj_t = torch.as_tensor(jj_arr, device=self.device).long()
+        res = self.model.asymmetric(snap.feat[ii_t], snap.pos[ii_t],
+                                    snap.feat[jj_t], snap.pos[jj_t])
+        return _add_factors_forward(self.img_hw, res, float(self.lcfg["Q_conf"]),
+                                    match_kwargs(self.cfg))
+
+    def _store(self, ii_arr, jj_arr, fields) -> np.ndarray:
+        """Store new edges (ii, jj) with their six fields; returns the rows."""
+        rows = self._take_edge_rows(len(ii_arr))
+        self.ii[rows] = ii_arr
+        self.jj[rows] = jj_arr
+        _store_edges(self._stores(), rows, fields)
+        # new edges have no cached gather rows yet
+        self._stamp_f[rows] = -1
+        self._stamp_b[rows] = -1
+        with self._verdict_lock:
+            self.edge_live[rows] = True
+        return rows
+
+    @staticmethod
+    def _oneway_fields(idx_f, valid_f, Q_f):
+        """A forward-only edge's fields: the backward half-row zero-weight."""
+        return (idx_f, torch.zeros_like(idx_f), valid_f, torch.zeros_like(valid_f),
+                Q_f, torch.zeros_like(Q_f))
 
     def _gate_store_symmetric(self, out, ii_arr, jj_arr, min_match_frac: float,
                               strict: bool) -> bool:
@@ -227,17 +323,86 @@ class FactorGraph:
         kidx = np.nonzero(~invalid)[0]
         if kidx.size == 0:
             return False
-        rows = self._take_edge_rows(kidx.size)
-        self.ii[rows] = ii_arr[kidx]
-        self.jj[rows] = jj_arr[kidx]
         k = torch.as_tensor(kidx, device=self.device).long()
-        _store_edges(self._stores(), rows, tuple(
+        self._store(ii_arr[kidx], jj_arr[kidx], tuple(
             out[key][k] for key in ("idx_i2j", "idx_j2i", "valid_j", "valid_i",
                                     "Qj", "Qi")))
-        # new edges have no cached gather rows yet
-        self._stamp_f[rows] = -1
-        self._stamp_b[rows] = -1
         return True
+
+    def _gate_store_oneway(self, out, ii_arr, jj_arr, min_match_frac: float) -> bool:
+        """Forward-only edges, gated by the forward match fraction alone."""
+        kidx = np.nonzero(out["match_frac_j"].cpu().numpy() >= min_match_frac)[0]
+        if kidx.size == 0:
+            return False
+        k = torch.as_tensor(kidx, device=self.device).long()
+        self._store(ii_arr[kidx], jj_arr[kidx], self._oneway_fields(
+            out["idx_i2j"][k], out["valid_j"][k], out["Qj"][k]))
+        return True
+
+    def _store_reuse(self, out, ii_arr, jj_arr, captures) -> bool:
+        """Consecutive edges whose backward half is the tracker's captured
+        match; they are kept without a gate, so nothing is read."""
+        caps = [captures[(int(a), int(b))] for a, b in zip(ii_arr, jj_arr)]
+        self._store(ii_arr, jj_arr, (
+            out["idx_i2j"], torch.stack([c[0] for c in caps]), out["valid_j"],
+            torch.stack([c[1] for c in caps]), out["Qj"],
+            torch.stack([c[2] for c in caps])))
+        return True
+
+    def _gate_store_symmetric_spec(self, out, ii_arr, jj_arr,
+                                   min_match_frac: float) -> bool:
+        """Store every candidate with its bidirectional verdict masked in on
+        the device (solve-identical to storing the kept ones only); the
+        verdicts are read later (``resolve_pending_verdicts``)."""
+        consec = torch.as_tensor(ii_arr == (jj_arr - 1), device=self.device)
+        keep = consec | (torch.minimum(out["match_frac_j"], out["match_frac_i"])
+                         >= min_match_frac)
+        vj, qj = _masked(keep, out["valid_j"], out["Qj"])
+        vi, qi = _masked(keep, out["valid_i"], out["Qi"])
+        rows = self._store(ii_arr, jj_arr, (out["idx_i2j"], out["idx_j2i"], vj, vi, qj, qi))
+        self._add_pending(rows, keep)
+        return True
+
+    def _gate_store_oneway_spec(self, out, ii_arr, jj_arr, min_match_frac: float) -> bool:
+        """The speculative gate of forward-only candidates (forward fraction)."""
+        keep = out["match_frac_j"] >= min_match_frac
+        vj, qj = _masked(keep, out["valid_j"], out["Qj"])
+        rows = self._store(ii_arr, jj_arr, self._oneway_fields(out["idx_i2j"], vj, qj))
+        self._add_pending(rows, keep)
+        return True
+
+    def _add_pending(self, rows, keep):
+        event = None
+        if keep.is_cuda:  # the verdict is read on another thread's stream
+            event = torch.cuda.Event()
+            event.record()
+        with self._verdict_lock:
+            self._pending.append((rows, keep, event))
+
+    def resolve_pending_verdicts(self):
+        """Read the outstanding speculative verdicts (one host read) and mark
+        rejected edges dead in ``edge_live``.  Dead edges stay zero-weight
+        rows on the device, which the solve ignores either way."""
+        with self._verdict_lock:
+            pending, self._pending = self._pending, []
+            if not pending:
+                return
+            for _, _, event in pending:
+                if event is not None:
+                    event.synchronize()
+            keeps = torch.cat([k for _, k, _ in pending]).cpu().numpy()
+            at = 0
+            for rows, keep, _ in pending:
+                self.edge_live[rows] = keeps[at:at + len(rows)]
+                at += len(rows)
+
+    @property
+    def n_live_edges(self) -> int:
+        """Edges that passed (or never needed) the gate: ``n_edges`` unless
+        the speculative gate left dead rows."""
+        self.resolve_pending_verdicts()
+        with self._verdict_lock:
+            return int(self.edge_live[: self.n_edges].sum())
 
     def _take_edge_rows(self, B: int) -> np.ndarray:
         """B fresh edge rows off the end of the store, growing it if needed."""
@@ -262,6 +427,8 @@ class FactorGraph:
         self.jj = np.concatenate([self.jj, np.zeros(pad, np.int32)])
         self._stamp_f = np.concatenate([self._stamp_f, np.full(pad, -1, np.int64)])
         self._stamp_b = np.concatenate([self._stamp_b, np.full(pad, -1, np.int64)])
+        with self._verdict_lock:
+            self.edge_live = np.concatenate([self.edge_live, np.ones(pad, bool)])
         self.capacity = new_cap
 
     # ------------------------------------------------------------------
@@ -318,7 +485,7 @@ class FactorGraph:
             Twc_new, _, _, diverged = self._dispatch_solve(
                 snap.T_WC[:n_kf], snap.X[:n_kf], Cs, ii2, jj2, idx, valid, Q, mode)
         self._record_health(diverged, n_kf)
-        self.keyframes.write_back_poses(self.settings.pin, n_kf, Twc_new)
+        self.keyframes.write_back_poses(self.settings.pin, n_kf, snap.generation, Twc_new)
 
     def _dispatch_solve(self, Twc, Xs, Cs, ii2, jj2, idx, valid, Q, mode: str):
         """The global GN on gathered-in-solve edge fields (one device)."""

@@ -8,11 +8,27 @@ every write.  Capacity doubles when it runs out.  The factor graph reads it
 through ``snapshot`` and ``pm_version`` and writes solved poses back with
 ``write_back_poses``; relocalisation appends, snaps (``update_pose``) or
 pops (``pop_last``) a keyframe, and retrieval reads one (``get_frame``).
+
+The store is shared with the backend's worker thread
+(``single_thread: False``).  Its own ``RLock`` guards every write and every
+read that hands tensors out.  Because the writes are in place, a snapshot
+CLONES what a writer may change under it (the first ``n`` slots' pointmaps,
+confidences, counters and poses; a JAX snapshot is references only because
+JAX arrays are immutable), so a backend task never reads a pointmap that
+the tracker's next fusion half overwrote.  ``generation`` is bumped by
+``pop_last``; ``write_back_poses`` refuses a solve whose snapshot is of
+another generation.  On CUDA the store's tensors are written and cloned on
+the stream that built the store (the frontend's): a caller on another
+stream (the backend's) first waits for its inputs there, and a snapshot
+makes the caller's stream wait for the clones, with ``record_stream`` on
+every tensor that crosses.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
+from contextlib import contextmanager
 from enum import IntEnum
 from typing import NamedTuple, Optional
 
@@ -167,9 +183,14 @@ class Frame:
 
 
 class KeyframeSnapshot(NamedTuple):
-    """The store's tensors at one moment (see ``Keyframes.snapshot``)."""
+    """The store at one moment (see ``Keyframes.snapshot``): clones of the
+    first ``n`` slots' T_WC, X, C and n_fused; feat and pos as references
+    (a slot's tokens never change while a snapshot of it lives: only
+    relocalisation pops and re-appends a slot, and it holds the engine's
+    backend lock)."""
 
     n: int
+    generation: int
     T_WC: torch.Tensor
     X: torch.Tensor
     C: torch.Tensor
@@ -187,7 +208,11 @@ class Keyframes:
         self.num_pixels = num_pixels
         self.device = torch.device(device)
         self.n = 0
+        self.lock = threading.RLock()
+        self.generation = 0
         dev = self.device
+        # the stream every store write and snapshot clone runs on
+        self._stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
         self.frame_id = np.full((capacity,), -1, dtype=np.int64)
         self.T_WC = sim3.identity((capacity,), dtype=dtype, device=dev)
         self.X = torch.zeros((capacity, num_pixels, 3), dtype=dtype, device=dev)
@@ -207,12 +232,42 @@ class Keyframes:
     def __len__(self):
         return self.n
 
+    @contextmanager
+    def _on_store_stream(self, *inputs):
+        """Hold the lock; on CUDA, run the body on the store's stream after
+        the caller's stream has produced ``inputs``."""
+        with self.lock:
+            cur = (torch.cuda.current_stream(self.device)
+                   if self._stream is not None else None)
+            if cur is None or cur == self._stream:
+                yield
+                return
+            self._stream.wait_stream(cur)
+            for t in inputs:
+                if isinstance(t, torch.Tensor) and t.is_cuda:
+                    t.record_stream(self._stream)
+            with torch.cuda.stream(self._stream):
+                yield
+
+    def _hand_out(self, *tensors):
+        """Make the caller's stream wait for the store's stream before it
+        reads ``tensors`` (clones made, or references taken, under the lock)."""
+        if self._stream is None:
+            return
+        cur = torch.cuda.current_stream(self.device)
+        if cur == self._stream:
+            return
+        cur.wait_stream(self._stream)
+        for t in tensors:
+            t.record_stream(cur)
+
     def append(self, frame: Frame) -> int:
-        idx = self.n
-        self._ensure_capacity(idx + 1)
-        self.set_frame(idx, frame)
-        self.n = idx + 1
-        return idx
+        with self.lock:
+            idx = self.n
+            self._ensure_capacity(idx + 1)
+            self.set_frame(idx, frame)
+            self.n = idx + 1
+            return idx
 
     def _ensure_capacity(self, needed: int):
         """Double the store (copying it) when ``needed`` slots do not fit."""
@@ -226,83 +281,125 @@ class Keyframes:
         def grow(a, fill=0):
             return torch.cat([a, a.new_full((pad,) + a.shape[1:], fill)])
 
-        self.T_WC = torch.cat([self.T_WC, sim3.identity(
-            (pad,), dtype=self.T_WC.dtype, device=self.device)])
-        self.X = grow(self.X)
-        self.C = grow(self.C)
-        self.n_fused = grow(self.n_fused)
-        self.n_updates = grow(self.n_updates)
-        self.score = grow(self.score, float("-inf"))
-        self.feat = grow(self.feat)
-        self.pos = grow(self.pos)
+        with self._on_store_stream():
+            self.T_WC = torch.cat([self.T_WC, sim3.identity(
+                (pad,), dtype=self.T_WC.dtype, device=self.device)])
+            self.X = grow(self.X)
+            self.C = grow(self.C)
+            self.n_fused = grow(self.n_fused)
+            self.n_updates = grow(self.n_updates)
+            self.score = grow(self.score, float("-inf"))
+            self.feat = grow(self.feat)
+            self.pos = grow(self.pos)
         self.frame_id = np.concatenate([self.frame_id, np.full((pad,), -1, np.int64)])
         self.pm_version = np.concatenate([self.pm_version, np.zeros((pad,), np.int64)])
         self.uimgs = self.uimgs + [None] * pad
         self.capacity = new_cap
 
     def set_frame(self, idx: int, frame: Frame):
-        self.frame_id[idx] = frame.frame_id
-        self.pm_version[idx] += 1
-        self.T_WC[idx] = frame.T_WC.to(self.T_WC)
-        self.X[idx] = frame.X_canon.to(self.X)
-        self.C[idx] = frame.C.to(self.C)
-        self.n_fused[idx] = int(frame.n_fused)
-        self.n_updates[idx] = int(frame.n_updates)
-        self.score[idx] = float(frame.score)
-        self.feat[idx] = frame.feat[0].to(self.feat)
-        self.pos[idx] = frame.pos[0].to(self.pos)
-        self.uimgs[idx] = frame.uimg
+        with self._on_store_stream(frame.T_WC, frame.X_canon, frame.C, frame.feat,
+                                   frame.pos):
+            self.frame_id[idx] = frame.frame_id
+            self.pm_version[idx] += 1
+            self.T_WC[idx] = frame.T_WC.to(self.T_WC)
+            self.X[idx] = frame.X_canon.to(self.X)
+            self.C[idx] = frame.C.to(self.C)
+            self.n_fused[idx] = int(frame.n_fused)
+            self.n_updates[idx] = int(frame.n_updates)
+            self.score[idx] = float(frame.score)
+            self.feat[idx] = frame.feat[0].to(self.feat)
+            self.pos[idx] = frame.pos[0].to(self.pos)
+            self.uimgs[idx] = frame.uimg
 
     def last_idx(self) -> int:
         return self.n - 1
 
     def get_frame(self, idx: int) -> Frame:
-        """Keyframe ``idx`` as a Frame over views into the store (one host
-        read for its fusion counters and score)."""
-        n_fused, n_updates, score = torch.stack(
-            [self.n_fused[idx].float(), self.n_updates[idx].float(),
-             self.score[idx].float()]).cpu().tolist()
-        return Frame(frame_id=int(self.frame_id[idx]), img=None, T_WC=self.T_WC[idx],
-                     X_canon=self.X[idx], C=self.C[idx], n_fused=int(n_fused),
-                     n_updates=int(n_updates), score=score, feat=self.feat[idx][None],
-                     pos=self.pos[idx][None], K=self.K, uimg=self.uimgs[idx])
+        """Keyframe ``idx`` as a Frame over copies of its slot (one host read
+        for its fusion counters and score)."""
+        with self._on_store_stream():
+            T, X, C = self.T_WC[idx].clone(), self.X[idx].clone(), self.C[idx].clone()
+            feat, pos = self.feat[idx][None].clone(), self.pos[idx][None].clone()
+            counters = torch.stack([self.n_fused[idx].float(), self.n_updates[idx].float(),
+                                    self.score[idx].float()])
+            frame_id, uimg = int(self.frame_id[idx]), self.uimgs[idx]
+        self._hand_out(T, X, C, feat, pos, counters)
+        n_fused, n_updates, score = counters.cpu().tolist()
+        return Frame(frame_id=frame_id, img=None, T_WC=T, X_canon=X, C=C,
+                     n_fused=int(n_fused), n_updates=int(n_updates), score=score,
+                     feat=feat, pos=pos, K=self.K, uimg=uimg)
 
     def pop_last(self):
-        """Drop the last keyframe (a failed relocalisation).  ``pm_version``
-        of the slot is kept: the next ``append`` into it bumps the version
-        again, so no cached gather of the popped keyframe is served."""
-        self.n -= 1
-        self.frame_id[self.n] = -1
-        self.uimgs[self.n] = None
+        """Drop the last keyframe (a failed relocalisation).  ``generation``
+        moves, so a backend solve from an earlier snapshot cannot write its
+        poses back.  ``pm_version`` of the slot is kept: the next ``append``
+        into it bumps the version again, so no cached gather of the popped
+        keyframe is served."""
+        with self.lock:
+            self.n -= 1
+            self.generation += 1
+            self.frame_id[self.n] = -1
+            self.uimgs[self.n] = None
 
     def update_pose(self, idx: int, T_WC):
-        self.T_WC[idx] = T_WC.to(self.T_WC)
+        with self._on_store_stream(T_WC):
+            self.T_WC[idx] = T_WC.to(self.T_WC)
 
     def update_pointmap(self, idx: int, X, C, n_fused, n_updates, score):
         """The tracker's per-frame commit of the keyframe's fused state."""
-        self.pm_version[idx] += 1
-        self.X[idx] = X
-        self.C[idx] = C
-        self.n_fused[idx] = n_fused
-        self.n_updates[idx] = n_updates
-        self.score[idx] = score
+        with self._on_store_stream(X, C, n_fused, n_updates, score):
+            self.pm_version[idx] += 1
+            self.X[idx] = X
+            self.C[idx] = C
+            self.n_fused[idx] = n_fused
+            self.n_updates[idx] = n_updates
+            self.score[idx] = score
 
     def snapshot(self) -> KeyframeSnapshot:
-        """The store's current tensors (references, not copies).  The engine
-        is single-threaded: nothing writes the store while a backend task
-        reads a snapshot, so no lock is needed (the JAX package's threaded
-        backend takes one)."""
-        return KeyframeSnapshot(n=self.n, T_WC=self.T_WC, X=self.X, C=self.C,
-                                n_fused=self.n_fused, feat=self.feat, pos=self.pos)
+        """The store at one moment, safe to read while the tracker writes
+        (see ``KeyframeSnapshot``)."""
+        with self._on_store_stream():
+            n = self.n
+            snap = KeyframeSnapshot(
+                n=n, generation=self.generation, T_WC=self.T_WC[:n].clone(),
+                X=self.X[:n].clone(), C=self.C[:n].clone(),
+                n_fused=self.n_fused[:n].clone(), feat=self.feat, pos=self.pos)
+        self._hand_out(snap.T_WC, snap.X, snap.C, snap.n_fused, snap.feat, snap.pos)
+        return snap
 
-    def write_back_poses(self, start: int, n_snapshot: int, T_new):
+    def write_back_poses(self, start: int, n_snapshot: int, generation: int,
+                         T_new) -> bool:
         """Install solved poses [start, n_snapshot) from a backend solve whose
-        pose array ``T_new`` is aligned with the store."""
-        self.T_WC[start:n_snapshot] = T_new[start:n_snapshot].to(self.T_WC)
+        pose array ``T_new`` is aligned with the store.  Refused (False) when
+        a ``pop_last`` since the snapshot changed what the slots hold; slots
+        appended since keep their tracked poses."""
+        with self._on_store_stream(T_new):
+            if self.generation != generation or self.n < n_snapshot:
+                return False
+            self.T_WC[start:n_snapshot] = T_new[start:n_snapshot].to(self.T_WC)
+            return True
+
+    def pose(self, idx: int) -> torch.Tensor:
+        """A copy of keyframe ``idx``'s pose."""
+        with self._on_store_stream():
+            T = self.T_WC[idx].clone()
+        self._hand_out(T)
+        return T
+
+    def tokens(self, idx: int):
+        """(feat[None], pos[None]) of keyframe ``idx``: views into the store
+        (a slot's tokens never change while it holds its keyframe)."""
+        with self.lock:
+            return self.feat[idx][None], self.pos[idx][None]
 
     def slices(self, idx: int):
         """(X, C, n_fused, n_updates, score, T_WC, feat[None], pos[None]) at
-        idx: views into the store, which ``update_pointmap`` overwrites."""
-        return (self.X[idx], self.C[idx], self.n_fused[idx], self.n_updates[idx],
-                self.score[idx], self.T_WC[idx], self.feat[idx][None],
-                self.pos[idx][None])
+        idx, for the tracker: views into the store (only the tracker writes a
+        keyframe's fused state), the pose a copy (a backend write-back may
+        move it)."""
+        with self._on_store_stream():
+            out = (self.X[idx], self.C[idx], self.n_fused[idx], self.n_updates[idx],
+                   self.score[idx], self.T_WC[idx].clone(), self.feat[idx][None],
+                   self.pos[idx][None])
+        self._hand_out(*out)
+        return out

@@ -1,22 +1,47 @@
-"""The SLAM engine's sequential loop (port of ``slam/pipeline.py``).
+"""The SLAM engine (port of ``slam/pipeline.py``).
 
-``SLAM`` runs the INIT / TRACKING / RELOC mode machine frame by frame,
-``single_thread: True`` and ``engine.pipeline: 0`` semantics.  After every
-new keyframe it runs the backend task in line: with a
-``RetrievalDatabase``, a query of the new keyframe that then adds it; edges
-from the retrieved keyframes and the previous one to the new one through
-``FactorGraph.add_factors``; then ``FactorGraph.solve`` over all keyframe
-poses.  A frame in RELOC mode queries the database, appends itself as a
-keyframe, and keeps it (snapped to the best candidate's pose, then solved)
-if its reloc edges pass, or pops it.  Without retrieval there are no
-loop-closure edges and relocalisation fails, as in the JAX package.
-Settings this slice does not port raise ``NotImplementedError``.
+``SLAM`` runs the INIT / TRACKING / RELOC mode machine frame by frame.
+After every new keyframe a backend task runs: with a ``RetrievalDatabase``,
+a query of the new keyframe that then adds it; edges from the retrieved
+keyframes and the previous one to the new one through
+``FactorGraph.add_factors`` (with the tracker's captured match under
+``local_opt.reuse_tracker_match``); then ``FactorGraph.solve`` over all
+keyframe poses.  A frame in RELOC mode queries the database, appends itself
+as a keyframe, and keeps it (snapped to the best candidate's pose, then
+solved) if its reloc edges pass, or pops it.  Without retrieval there are
+no loop-closure edges and relocalisation fails, as in the JAX package.
+
+The engine modes:
+
+- ``single_thread: True`` runs each backend task in line;
+  ``single_thread: False`` (the ``base`` default) hands it to a worker
+  thread through a queue, so tracking goes on while it runs.  On CUDA the
+  worker runs on a stream of its own; the keyframe store's snapshots and
+  write-backs carry the waits between the two streams, and the worker's
+  stream is synchronised at the end of every task.  ``backend_lock``
+  serialises backend tasks against relocalisation (both change the graph
+  and the database); tracking never takes it.  A failed task is printed
+  and kept in ``backend_errors``.
+- ``engine.pipeline: 0`` is the sequential loop; ``1`` the pipelined loop
+  (``_loop_pipelined``), which issues the next frame's decode and tracking
+  chained on the previous frame's outputs before reading its decision and
+  gives the sequential loop's poses bit for bit; ``2`` (the tracker's
+  compute on a second card) falls back to ``1`` on one card and raises on
+  more (ROADMAP Queue 1, item 12).
+
+``mesh`` and ``device_keyframes`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import queue
+import sys
+import threading
 import time
+import traceback
+from collections import deque
+from contextlib import contextmanager
 from typing import List, Optional
 
 import numpy as np
@@ -45,14 +70,8 @@ class SlamResult:
 
 
 def _check_ported(cfg, retrieval):
-    if not cfg.get("single_thread", True):
-        raise NotImplementedError(
-            "single_thread: False (the backend on a worker thread) is not ported "
-            "yet (ROADMAP Queue 1, item 10: the threaded backend); set "
-            "cfg['single_thread'] = True for the sequential loop")
     engine = cfg.get("engine", {})
-    for key, item in (("pipeline", "ROADMAP Queue 1, item 10: the pipelined/chained frontend"),
-                      ("mesh", "ROADMAP Queue 1, item 12: multi-GPU"),
+    for key, item in (("mesh", "ROADMAP Queue 1, item 12: multi-GPU"),
                       ("device_keyframes", "ROADMAP Queue 1, item 8: keyframe paging")):
         if int(engine.get(key, 0) or 0) != 0:
             raise NotImplementedError(f"engine.{key}: {engine[key]!r} is not ported yet ({item})")
@@ -60,6 +79,21 @@ def _check_ported(cfg, retrieval):
         raise TypeError(
             f"retrieval is a {type(retrieval).__name__}; the port takes its own "
             "mast3r_slam_tpu_torch.retrieval.RetrievalDatabase")
+
+
+def _pipeline_mode(cfg) -> int:
+    """``engine.pipeline``: 2 falls back to 1 with fewer than two cards, as
+    in the JAX package, and raises with more."""
+    mode = int(cfg["engine"].get("pipeline", 0) or 0)
+    if mode >= 2:
+        if torch.cuda.device_count() >= 2:
+            raise NotImplementedError(
+                "engine.pipeline: 2 on more than one card (the tracker's compute on a "
+                "second card) is not ported yet (ROADMAP Queue 1, item 12: multi-GPU)")
+        print("engine.pipeline: fewer than 2 devices; "
+              "running single-chip host-pipelined (pipeline: 1)")
+        mode = 1
+    return mode
 
 
 class SLAM:
@@ -86,11 +120,95 @@ class SLAM:
         self.tracker = FrameTracker(model, cfg, self.keyframes, img_hw, self.device)
         self.graph = FactorGraph(model, cfg, self.keyframes, img_hw, K=self.keyframes.K,
                                  edge_capacity=cfg["engine"].get("edge_buffer", 1024))
+        self.pipeline = _pipeline_mode(cfg)
+        self._reuse_match = bool(cfg["local_opt"].get("reuse_tracker_match", False))
         self.mode = Mode.INIT
         self.n_reloc = 0
         self.n_reloc_success = 0
         self.frame_log: List[tuple] = []  # (timestamp, T_WC np (8,))
         self.timer = StageTimer()
+
+        # the threaded backend (single_thread: False)
+        self.backend_lock = threading.RLock()
+        self.backend_errors: List[BaseException] = []
+        self.single_thread = bool(cfg.get("single_thread", True))
+        self._frontend_stream = (torch.cuda.current_stream(self.device)
+                                 if self.device.type == "cuda" else None)
+        self._backend_stream = None
+        self._tasks: Optional[queue.Queue] = None
+        self._worker: Optional[threading.Thread] = None
+        if not self.single_thread:
+            if self.device.type == "cuda":
+                self._backend_stream = torch.cuda.Stream(self.device)
+            self._tasks = queue.Queue()
+            self._worker = threading.Thread(target=self._backend_loop,
+                                            name="slam-backend", daemon=True)
+            self._worker.start()
+
+    # ------------------------------------------------------------------
+    # the backend
+    # ------------------------------------------------------------------
+
+    def _backend_loop(self):
+        while True:
+            task = self._tasks.get()
+            try:
+                if task is None:
+                    return
+                kf_idx, capture = task
+                with self.timer.time("backend.update"):
+                    self._backend_update(kf_idx, capture)
+            except Exception as e:  # the worker must outlive a failed task
+                print(f"backend task failed: {e!r}", file=sys.stderr)
+                traceback.print_exc(file=sys.stderr)
+                self.backend_errors.append(e)
+            finally:
+                self._tasks.task_done()
+
+    def join_backend(self):
+        """Wait until every queued backend task has run."""
+        if self._tasks is not None:
+            self._tasks.join()
+
+    def close(self):
+        """Drain the backend and stop its worker thread."""
+        if self._worker is not None:
+            self._tasks.put(None)
+            self._worker.join()
+            self._worker = None
+            self._tasks = None
+
+    @contextmanager
+    def _on_backend_stream(self, *inputs):
+        """Run backend work (a task, a relocalisation) on the backend's CUDA
+        stream, after the frontend's work so far, and wait for it at the
+        end.  A no-op without a worker or without CUDA."""
+        if self._backend_stream is None:
+            yield
+            return
+        self._backend_stream.wait_stream(self._frontend_stream)
+        for t in inputs:
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                t.record_stream(self._backend_stream)
+        try:
+            with torch.cuda.stream(self._backend_stream):
+                yield
+        finally:
+            self._backend_stream.synchronize()
+
+    def _submit_backend(self, kf_idx: int, capture=None):
+        """Queue a backend task for the worker, or run it in line."""
+        if self._tasks is not None:
+            self._tasks.put((kf_idx, capture))
+            return
+        with self.timer.time("backend.update"):
+            self._backend_update(kf_idx, capture)
+
+    def _backend_update(self, kf_idx: int, capture=None):
+        """One backend task under ``backend_lock``: the store is read through
+        snapshots and written back under its own lock, so tracking goes on."""
+        with self.backend_lock, self._on_backend_stream(*(capture or ())[1:]):
+            self._backend_update_impl(kf_idx, capture)
 
     # ------------------------------------------------------------------
 
@@ -110,36 +228,43 @@ class SLAM:
         return Frame(frame_id=frame_id, img=img[0], T_WC=T, feat=feat, pos=pos,
                      uimg=r.get("unnormalized_img"))
 
-    def _submit_backend(self, kf_idx: int):
-        """One backend task, in line (run_backend, main.py:96-143): retrieval
-        candidates and the previous keyframe, edges from them to the new
-        keyframe, then the global solve."""
-        with self.timer.time("backend.update"):
-            cfg = self.cfg
-            candidates = set()
-            if self.retrieval is not None:
-                with self.timer.time("backend.retrieval"):
-                    candidates.update(self.retrieval.update(
-                        self.keyframes.get_frame(kf_idx), add_after_query=True,
-                        k=cfg["retrieval"]["k"], min_thresh=cfg["retrieval"]["min_thresh"],
-                        kf_index=kf_idx))
-            if kf_idx >= 1:
-                candidates.add(kf_idx - 1)
-            candidates.discard(kf_idx)
-            kf_idxs = sorted(candidates)
-            if not kf_idxs:
-                return
-            with self.timer.time("backend.add_factors"):
-                self.graph.add_factors(kf_idxs, [kf_idx] * len(kf_idxs),
-                                       cfg["local_opt"]["min_match_frac"])
-            with self.timer.time("backend.solve"):
-                self.graph.solve()
+    def _backend_update_impl(self, kf_idx: int, capture=None):
+        """Retrieval candidates and the previous keyframe, edges from them to
+        the new keyframe, then the global solve (run_backend,
+        main.py:96-143)."""
+        cfg = self.cfg
+        candidates = set()
+        if self.retrieval is not None:
+            with self.timer.time("backend.retrieval"):
+                candidates.update(self.retrieval.update(
+                    self.keyframes.get_frame(kf_idx), add_after_query=True,
+                    k=cfg["retrieval"]["k"], min_thresh=cfg["retrieval"]["min_thresh"],
+                    kf_index=kf_idx))
+        if kf_idx >= 1:
+            candidates.add(kf_idx - 1)
+        candidates.discard(kf_idx)
+        kf_idxs = sorted(candidates)
+        if not kf_idxs:
+            return
+        captures = None
+        if capture is not None and capture[0] == kf_idx - 1:
+            captures = {(capture[0], kf_idx): capture[1:]}
+        with self.timer.time("backend.add_factors"):
+            self.graph.add_factors(kf_idxs, [kf_idx] * len(kf_idxs),
+                                   cfg["local_opt"]["min_match_frac"], captures=captures)
+        with self.timer.time("backend.solve"):
+            self.graph.solve()
 
     def _relocalize(self, frame: Frame) -> bool:
         """Retrieval-driven relocalisation (main.py:28-71); without retrieval
         it fails."""
         if self.retrieval is None:
             return False
+        with self.backend_lock, self._on_backend_stream(frame.T_WC, frame.X_canon, frame.C,
+                                                        frame.feat, frame.pos):
+            return self._relocalize_locked(frame)
+
+    def _relocalize_locked(self, frame: Frame) -> bool:
         cfg = self.cfg
         with self.timer.time("reloc.retrieval"):
             inds, pre = self.retrieval.query(frame, k=cfg["retrieval"]["k"],
@@ -157,7 +282,7 @@ class SLAM:
             return False
         self.retrieval.add(frame, precomputed=pre, kf_index=kf_idx)
         # snap to the best candidate's pose before the solve moves the store
-        T = self.keyframes.T_WC[inds[0]].clone()
+        T = self.keyframes.pose(inds[0])
         self.keyframes.update_pose(kf_idx, T)
         frame.T_WC = T
         frame.T_WC_np = None
@@ -185,7 +310,9 @@ class SLAM:
             return
         if new_kf:
             kf_idx = self.keyframes.append(frame)
-            self._submit_backend(kf_idx)
+            # the tracker's own match becomes the consecutive edge's backward half
+            self._submit_backend(
+                kf_idx, self.tracker.last_match_capture if self._reuse_match else None)
         self._log(timestamp, frame)
 
     def _log(self, timestamp, frame: Frame):
@@ -219,25 +346,36 @@ class SLAM:
 
     def run(self, dataset, max_frames: Optional[int] = None,
             verbose: bool = True) -> SlamResult:
-        """Track every frame of ``dataset`` in order.  A dataset may supply
-        preprocessed frames through a ``preprocessed(i)`` hook."""
+        """Track every frame of ``dataset`` in order, then wait for the
+        backend.  A dataset may supply preprocessed frames through a
+        ``preprocessed(i)`` hook."""
         n = len(dataset)
         if max_frames is not None:
             n = min(n, max_frames)
         get_pre = getattr(dataset, "preprocessed", None)
-        last_T = None
+
+        def frames():
+            for i in range(n):
+                timestamp, img = dataset[i]
+                yield i, timestamp, (get_pre(i) if get_pre is not None
+                                     else self.preprocess(img))
+
         t0 = time.time()
-        for i in range(n):
-            timestamp, img = dataset[i]
-            pre = get_pre(i) if get_pre is not None else self.preprocess(img)
-            with self.timer.time("frame.latency"):
-                frame = self.process_frame(i, timestamp, last_T_WC=last_T, pre=pre)
-                if frame.T_WC_np is None and frame.T_WC.is_cuda:
-                    torch.cuda.synchronize(frame.T_WC.device)
-            last_T = frame.T_WC
-            if verbose and i % 30 == 0 and i > 0:
-                fps = i / (time.time() - t0)
-                print(f"frame {i}/{n}  kf={len(self.keyframes)}  {fps:.2f} fps")
+        if self.pipeline >= 1:
+            self._loop_pipelined(frames(), n, t0, verbose)
+        else:
+            last_T = None
+            for i, timestamp, pre in frames():
+                # frame.latency: the frame's wall time, stalls behind a
+                # backend task included
+                with self.timer.time("frame.latency"):
+                    frame = self.process_frame(i, timestamp, last_T_WC=last_T, pre=pre)
+                    if frame.T_WC_np is None and frame.T_WC.is_cuda:
+                        torch.cuda.synchronize(frame.T_WC.device)
+                last_T = frame.T_WC
+                self._progress(i, n, t0, verbose)
+        self.join_backend()
+        self.graph.resolve_pending_verdicts()  # the speculative gate's verdicts
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.time() - t0
@@ -255,3 +393,82 @@ class SLAM:
             n_reloc=self.n_reloc,
             n_reloc_success=self.n_reloc_success,
         )
+
+    def _progress(self, i: int, n: int, t0: float, verbose: bool):
+        if verbose and i % 30 == 0 and i > 0:
+            fps = i / (time.time() - t0)
+            print(f"frame {i}/{n}  kf={len(self.keyframes)}  {fps:.2f} fps")
+
+    def _loop_pipelined(self, frames, n: int, t0: float, verbose: bool):
+        """The pipelined frontend (``engine.pipeline: 1``).  For frame i, in
+        order: encode and the decode against the current keyframe
+        (``infer``); ``track_submit_chained`` on frame i-1's outputs; then
+        ``track_finish`` of frame i-1, the read of its decision.  The chain
+        assumes a clean commit of i-1; on a keyframe switch, relocalisation
+        or GN failure the chained submit is discarded and re-run from the
+        committed state, so every pose is the sequential loop's.
+        ``engine.chain: false`` finishes i-1 before submitting i.  INIT and
+        RELOC frames drain the pipeline and run as in the sequential loop.
+        Every frame starts from the last finished frame's pose, as the
+        sequential loop's warm start."""
+        pend = deque()  # (frame index, timestamp, tracker pending), oldest first
+        chain_ok = bool(self.cfg["engine"].get("chain", True))
+        last_done = None  # the most recent frame with a committed pose
+
+        def finish_oldest():
+            nonlocal last_done
+            _, ts0, p0 = pend.popleft()
+            new_kf, try_reloc = self.tracker.track_finish(p0)
+            self._after_track(p0[0], ts0, new_kf, try_reloc)
+            last_done = p0[0]
+            if (new_kf or try_reloc) and pend:
+                # the chained submit assumed a clean commit: run it again
+                stale = list(pend)
+                pend.clear()
+                for ij, tsj, pj in stale:
+                    fj = pj[0]
+                    fj.T_WC = last_done.T_WC
+                    fj.T_WC_np = None
+                    if self.mode != Mode.TRACKING:
+                        self._process_nontracking(fj, tsj)
+                        last_done = fj
+                        continue
+                    pend.append((ij, tsj, self.tracker.track_submit(fj)))
+
+        for i, timestamp, pre in frames:
+            with self.timer.time("frame.latency"):
+                frame = self.ingest_rgb(i, timestamp, pre=pre)
+                chained = False
+                speculative = None
+                if self.mode == Mode.TRACKING:
+                    with self.timer.time("pipeline.spec_decode"):
+                        speculative = self.tracker.infer(frame)
+                    last_idx = self.keyframes.last_idx()
+                    if (chain_ok and pend and pend[-1][2][1] == last_idx
+                            and speculative[0] == last_idx):
+                        with self.timer.time("pipeline.submit"):
+                            pend.append((i, timestamp, self.tracker.track_submit_chained(
+                                frame, speculative, pend[-1][2])))
+                        chained = True
+                if chained:
+                    while len(pend) > 1:
+                        with self.timer.time("pipeline.finish_prev"):
+                            finish_oldest()
+                else:
+                    while pend:
+                        with self.timer.time("pipeline.finish_prev"):
+                            finish_oldest()
+                    if last_done is not None:
+                        frame.T_WC = last_done.T_WC
+                    if self.mode == Mode.TRACKING:
+                        with self.timer.time("pipeline.submit"):
+                            pend.append((i, timestamp, self.tracker.track_submit(
+                                frame, inference=speculative)))
+                    else:
+                        self._process_nontracking(frame, timestamp)
+                        last_done = frame
+                        if frame.T_WC_np is None and frame.T_WC.is_cuda:
+                            torch.cuda.synchronize(frame.T_WC.device)
+            self._progress(i, n, t0, verbose)
+        while pend:
+            finish_oldest()

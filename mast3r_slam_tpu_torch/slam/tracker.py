@@ -4,13 +4,21 @@ Two-view inference through the model protocol, then ``_track_compute``:
 dense matching, fusion of the frame's canonical pointmap, confidence
 gating, the Sim(3) Gauss-Newton solve, fusion of the keyframe's pointmap
 and the keyframe-decision statistics.  The host reads the 16-float stats
-vector once per frame to decide keyframe / relocalisation.  The chained and
-two-chip forms of the JAX package come later.
+vector once per frame to decide keyframe / relocalisation.
+
+The pipelined loop (``engine.pipeline: 1``) splits a frame into ``infer``
+(the decode against the current keyframe, issued ahead), ``track_submit``
+(which reuses that decode unless the keyframe changed) or
+``track_submit_chained`` (chained on the previous frame's outputs, before
+its decision is read), and ``track_finish``.  The port's tracking GN reads
+the host once per iteration (``ops/tracking_gn.py``), so a submit waits on
+its own frame; the chain keeps the JAX package's trajectory, not its one
+read a frame.  The two-chip form (``engine.pipeline: 2``) is not ported.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -30,6 +38,14 @@ class TrackerSettings(NamedTuple):
     dist_thresh: float = 0.1
     radius: int = 3
     dilation_max: int = 5
+    refine_gate: str = "none"
+    refine_budget_frac: float = 0.125
+    refine_subset_dilations: Optional[tuple] = None  # None = dilation_max..2
+    refine_final_radius: Optional[int] = None        # None = radius
+    proj_gate: str = "none"
+    proj_init: str = "warm"
+    proj_pre_iters: int = 2
+    proj_budget_frac: float = 0.125
     # tracking (config `tracking:`)
     min_match_frac: float = 0.05
     C_conf: float = 0.0
@@ -42,21 +58,9 @@ class TrackerSettings(NamedTuple):
 
     @classmethod
     def from_config(cls, cfg) -> "TrackerSettings":
-        m, t = cfg["matching"], cfg["tracking"]
-        for key, ported in (("refine_gate", "none"), ("proj_gate", "none"),
-                            ("proj_init", "warm")):
-            if m.get(key, ported) != ported:
-                raise NotImplementedError(
-                    f"matching.{key}: {m[key]!r} is not ported yet; the port "
-                    f"runs {ported!r} (ROADMAP Queue 1, item 4: the "
-                    "speed-profile matching paths)")
+        t = cfg["tracking"]
         return cls(
-            max_iter=m["max_iter"],
-            lambda_init=m["lambda_init"],
-            convergence_thresh=m["convergence_thresh"],
-            dist_thresh=m["dist_thresh"],
-            radius=m["radius"],
-            dilation_max=m["dilation_max"],
+            **matching.match_kwargs(cfg),
             min_match_frac=t["min_match_frac"],
             C_conf=t["C_conf"],
             Q_conf=t["Q_conf"],
@@ -78,6 +82,10 @@ class TrackerSettings(NamedTuple):
             ),
         )
 
+    def match_kwargs(self) -> dict:
+        """The keyword arguments of ``matching.match``."""
+        return {k: getattr(self, k) for k in matching.MATCH_KEYS}
+
 
 @torch.no_grad()
 def _track_compute(
@@ -97,11 +105,7 @@ def _track_compute(
 
     # 1. dense matching: keyframe pixels -> frame pixels
     idx_f2k, valid_match = matching.match(
-        Xii, Xji, Dii, Dji, idx_1_to_2_init=idx_init[None],
-        max_iter=ts.max_iter, lambda_init=ts.lambda_init,
-        convergence_thresh=ts.convergence_thresh, dist_thresh=ts.dist_thresh,
-        radius=ts.radius, dilation_max=ts.dilation_max,
-    )
+        Xii, Xji, Dii, Dji, idx_1_to_2_init=idx_init[None], **ts.match_kwargs())
     idx_f2k = idx_f2k[0]
     valid_match = valid_match[0]
 
@@ -181,6 +185,10 @@ def _track_compute(
     ])
     return dict(
         idx_f2k=idx_f2k,
+        # the raw match and its Q: once this frame is keyframe k, exactly the
+        # backward half of the graph's edge (k-1, k) (local_opt.reuse_tracker_match)
+        match_valid=valid_match,
+        match_Q=Qk,
         frame_X=frame_X,
         frame_C=frame_C,
         kf_X=kX,
@@ -191,6 +199,24 @@ def _track_compute(
         T_WCf=T_WCf_new,
         stats=stats,
     )
+
+
+@torch.no_grad()
+def _track_compute_chained(ts: TrackerSettings, img_hw: Tuple[int, int],
+                           Xii, Cii, Dii, Qii, Xji, Cji, Dji, Qji, prev: dict, T_WCk, K):
+    """``_track_compute`` chained on the previous pending frame's outputs
+    ``prev``: its post-fusion keyframe state, its pose as the warm start and
+    its match indices.  The inputs are bitwise what the sequential loop
+    passes when that frame commits without a keyframe switch, relocalisation
+    or GN failure; the fresh frame's own state is the Frame defaults."""
+    N = img_hw[0] * img_hw[1]
+    dev = Xii.device
+    return _track_compute(
+        ts, img_hw, Xii, Cii, Dii, Qii, Xji, Cji, Dji, Qji,
+        torch.zeros((N, 3), dtype=torch.float32, device=dev),
+        torch.zeros((N, 1), dtype=torch.float32, device=dev), 0, 0, float("-inf"),
+        prev["kf_X"], prev["kf_C"], prev["kf_n_fused"], prev["kf_n_updates"],
+        prev["kf_score"], prev["T_WCf"], T_WCk, prev["idx_f2k"], K)
 
 
 class FrameTracker:
@@ -204,22 +230,39 @@ class FrameTracker:
         self.keyframes = keyframes
         self.img_hw = tuple(img_hw)
         self.last_stats = None
+        # (tracked-against kf_idx, idx, valid, Q) of the newest keyframe's own
+        # match, set by track_finish
+        self.last_match_capture = None
         self.reset_idx_f2k()
 
     def reset_idx_f2k(self):
         N = self.img_hw[0] * self.img_hw[1]
         self.idx_f2k = torch.arange(N, dtype=torch.int32, device=self.device)
 
-    def track_submit(self, frame: Frame):
-        """Inference against the last keyframe, then ``_track_compute``.
-        Returns (frame, kf_idx, outputs)."""
+    def _K(self):
+        if self.ts.use_calib:
+            return self.keyframes.K
+        return torch.eye(3, dtype=torch.float32, device=self.device)
+
+    def infer(self, frame: Frame):
+        """The asymmetric decode of ``frame`` against the current last
+        keyframe, issued ahead of the previous frame's decision.  Returns
+        (kf_idx, outputs) for ``track_submit`` or ``track_submit_chained``."""
+        kf_idx = self.keyframes.last_idx()
+        feat_k, pos_k = self.keyframes.tokens(kf_idx)
+        return kf_idx, self.model.asymmetric(frame.feat, frame.pos, feat_k, pos_k)
+
+    def track_submit(self, frame: Frame, inference=None):
+        """Inference against the last keyframe (``inference`` from ``infer``
+        is reused when it targets that keyframe, re-run otherwise), then
+        ``_track_compute``.  Returns (frame, kf_idx, outputs)."""
         kf = self.keyframes
         kf_idx = kf.last_idx()
         dev = self.device
-        K = kf.K if self.ts.use_calib else torch.eye(3, dtype=torch.float32, device=dev)
-        kf_X, kf_C, kf_nf, kf_nu, kf_sc, T_WCk, feat_k, pos_k = kf.slices(kf_idx)
-        (Xii, Cii, Dii, Qii), (Xji, Cji, Dji, Qji) = self.model.asymmetric(
-            frame.feat, frame.pos, feat_k, pos_k)
+        kf_X, kf_C, kf_nf, kf_nu, kf_sc, T_WCk, _, _ = kf.slices(kf_idx)
+        if inference is None or inference[0] != kf_idx:
+            inference = self.infer(frame)
+        (Xii, Cii, Dii, Qii), (Xji, Cji, Dji, Qji) = inference[1]
 
         N = self.img_hw[0] * self.img_hw[1]
         frame_X = (frame.X_canon if frame.X_canon is not None
@@ -231,8 +274,26 @@ class FrameTracker:
             Xii, Cii, Dii, Qii, Xji, Cji, Dji, Qji,
             frame_X, frame_C, frame.n_fused, frame.n_updates, frame.score,
             kf_X, kf_C, kf_nf, kf_nu, kf_sc,
-            frame.T_WC.to(dev), T_WCk, self.idx_f2k, K,
+            frame.T_WC.to(dev), T_WCk, self.idx_f2k, self._K(),
         )
+        return frame, kf_idx, out
+
+    def track_submit_chained(self, frame: Frame, inference, prev_pending):
+        """``_track_compute`` for ``frame`` chained on the previous pending
+        frame's outputs, before its decision is read.  Exact when that frame
+        commits cleanly; the engine discards and re-submits otherwise.
+        ``inference`` must target the keyframe of ``prev_pending``.  Only the
+        keyframe's pose is read from the store (a backend write-back may
+        land between frames, as in the sequential loop)."""
+        _, kf_idx, pout = prev_pending
+        if inference[0] != kf_idx:
+            raise ValueError(f"track_submit_chained: the decode targets keyframe "
+                             f"{inference[0]}, the previous frame keyframe {kf_idx}")
+        (Xii, Cii, Dii, Qii), (Xji, Cji, Dji, Qji) = inference[1]
+        frame.T_WC = pout["T_WCf"]  # its warm start, as in the sequential loop
+        out = _track_compute_chained(
+            self.ts, self.img_hw, Xii, Cii, Dii, Qii, Xji, Cji, Dji, Qji, pout,
+            self.keyframes.pose(kf_idx), self._K())
         return frame, kf_idx, out
 
     def track_finish(self, pending):
@@ -262,9 +323,13 @@ class FrameTracker:
 
         new_kf = min(match_frac_k, unique_frac_f) < self.ts.match_frac_thresh
         if new_kf:
+            # once the frame is appended as keyframe k, its match is the
+            # backward half of the edge (k-1, k)
+            self.last_match_capture = (kf_idx, out["idx_f2k"], out["match_valid"],
+                                       out["match_Q"])
             self.reset_idx_f2k()
         return new_kf, False
 
-    def track(self, frame: Frame):
+    def track(self, frame: Frame, inference=None):
         """Returns (new_kf, try_reloc)."""
-        return self.track_finish(self.track_submit(frame))
+        return self.track_finish(self.track_submit(frame, inference))

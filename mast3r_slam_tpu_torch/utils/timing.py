@@ -2,12 +2,15 @@
 
 ``StageTimer`` reads the host clock only: CUDA work is asynchronous, so a
 stage's time covers its device work only where the stage itself waits for
-the device (a tracked frame ends in its stats read).  ``device_ms`` reads
-the card's own kernel durations and raises where the profiler lost them.
+the device (a tracked frame ends in its stats read).  The engine's frontend
+and its backend thread time their stages into one timer, so it takes a lock
+around its buffers.  ``device_ms`` reads the card's own kernel durations
+and raises where the profiler lost them.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import defaultdict
 from contextlib import contextmanager
@@ -22,20 +25,24 @@ class StageTimer:
     def __init__(self, window: int = 120):
         self.window = window
         self.samples: Dict[str, list] = defaultdict(list)
+        self._lock = threading.Lock()
 
     @contextmanager
     def time(self, name: str):
         t0 = time.perf_counter()
         yield
         dt = time.perf_counter() - t0
-        buf = self.samples[name]
-        buf.append(dt)
-        if len(buf) > self.window:
-            del buf[: len(buf) - self.window]
+        with self._lock:
+            buf = self.samples[name]
+            buf.append(dt)
+            if len(buf) > self.window:
+                del buf[: len(buf) - self.window]
 
     def stats(self) -> Dict[str, Dict[str, float]]:
+        with self._lock:
+            bufs = {name: list(buf) for name, buf in self.samples.items()}
         out = {}
-        for name, buf in self.samples.items():
+        for name, buf in bufs.items():
             if not buf:
                 continue
             arr = np.asarray(buf)

@@ -77,7 +77,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     d = torch.zeros(1, 16, 24, dtype=torch.int8)
     idx = torch.zeros(1, 16, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        refine_window_cuda(d, d, idx, 4, 4, 1, 1)
+        refine_window_cuda(d, d, idx, 4, 4, 1, (1,))
 
 
 def _case(rng, B, H, W, F, structured=True, shift=1):
@@ -140,7 +140,7 @@ def test_refine_r1_matches_pallas_interpret(border):
     want = refine_r1_pallas(jnp.asarray(n(d11q)), jnp.asarray(n(d21q)),
                             jnp.asarray(idx, jnp.int32), H, W, tile_n=128,
                             interpret=True)
-    got = refine_window(d11q, d21q, t(idx.astype(np.int32)), H, W, 1, 1)
+    got = refine_window(d11q, d21q, t(idx.astype(np.int32)), H, W, 1, (1,))
     np.testing.assert_array_equal(n(got), np.asarray(want))
 
 

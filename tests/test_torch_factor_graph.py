@@ -223,9 +223,6 @@ def test_health_guard_demotes_the_next_solve_to_dense(monkeypatch):
 
 
 UNPORTED_GRAPH = [
-    ("oneway_nonconsec", True),
-    ("reuse_tracker_match", True),
-    ("speculative_gate", True),
     ("edge_recycle", True),
     ("pixel_stride", 2),
 ]

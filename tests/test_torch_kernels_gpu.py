@@ -145,10 +145,10 @@ def _refine_inputs(B, H, W, F, device, seed):
 def test_refine_kernel_matches_plain_exactly(cuda, B, H, W, F, radius, dil):
     d11q, d21q, idx = _refine_inputs(B, H, W, F, cuda, seed=H + radius)
     before = refine.counter.count
-    got = refine.refine_window(d11q, d21q, idx, H, W, radius, dil)
+    got = refine.refine_window(d11q, d21q, idx, H, W, radius, refine.schedule(dil))
     torch.cuda.synchronize()
     assert refine.counter.count == before + 1
-    want = refine.refine_window_plain(d11q, d21q, idx, H, W, radius, dil)
+    want = refine.refine_window_plain(d11q, d21q, idx, H, W, radius, refine.schedule(dil))
     assert torch.equal(got, want)
 
 
@@ -180,12 +180,14 @@ def _smooth_flow_inputs(H, W, F, device, seed, jitter=2):
 
 
 def _refine_with_stats(d11q, d21q, idx, H, W, radius, dil):
+    """``dil``: dilation_max (the schedule dil .. 1) or a schedule."""
+    sched = refine.schedule(dil) if isinstance(dil, int) else tuple(dil)
     stats = torch.zeros(4, dtype=torch.int64, device=d11q.device)
-    got = refine.refine_window_cuda(d11q, d21q, idx, H, W, radius, dil, stats=stats)
+    got = refine.refine_window_cuda(d11q, d21q, idx, H, W, radius, sched, stats=stats)
     torch.cuda.synchronize()
-    assert torch.equal(got, refine.refine_window_plain(d11q, d21q, idx, H, W, radius, dil))
+    assert torch.equal(got, refine.refine_window_plain(d11q, d21q, idx, H, W, radius, sched))
     whole, pairs, px_win, px_all = stats.tolist()
-    assert pairs > 0 and px_all == idx.numel() * dil
+    assert pairs > 0 and px_all == idx.numel() * len(sched)
     return whole / pairs, px_win / px_all
 
 
@@ -242,10 +244,35 @@ def test_refine_kernel_refuses_other_inputs(cuda):
     d = torch.zeros(1, 16, 6, device=cuda, dtype=torch.int8)  # F % 4 != 0
     idx = torch.zeros(1, 16, device=cuda, dtype=torch.int32)
     with pytest.raises(ValueError, match="F % 4"):
-        refine.refine_window(d, d, idx, 4, 4, 1, 1)
+        refine.refine_window(d, d, idx, 4, 4, 1, (1,))
     d = torch.zeros(16 * 8 + 4, device=cuda, dtype=torch.int8)[4:].view(1, 16, 8)
     with pytest.raises(ValueError, match="aligned"):
-        refine.refine_window(d, d, idx, 4, 4, 1, 1)
+        refine.refine_window(d, d, idx, 4, 4, 1, (1,))
+    d = torch.zeros(1, 16, 8, device=cuda, dtype=torch.int8)
+    for bad in ((), (1,) * 9, (3, 0)):
+        with pytest.raises(ValueError, match="dilations"):
+            refine.refine_window(d, d, idx, 4, 4, 1, bad)
+
+
+@pytest.mark.parametrize("sched,radius", [((5, 2), 3), ((1,), 1), ((2, 5, 1, 3), 2),
+                                          ((5, 4, 3, 2, 1), 3)])
+def test_refine_kernel_schedule_on_a_compacted_subset(cuda, sched, radius):
+    """The speed profile's subset launch: sources in compacted order (the
+    unconverged first, then filler), not image order, at 384x512 and
+    F = 24, exact against the plain version with the same schedule; and
+    every pixel at one schedule."""
+    from mast3r_slam_tpu_torch.ops import matching
+
+    H, W, F = 384, 512, 24
+    d11q, d21q, idx = _smooth_flow_inputs(H, W, F, cuda, seed=len(sched) + radius)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    conv = torch.rand((1, H * W), device=cuda, generator=g) > 0.08
+    sel = matching._compact_unconverged(conv, matching.gate_budget(H * W, 0.0625))
+    assert sel.shape == (1, 12288)
+    sub_q = torch.gather(d21q, 1, sel[..., None].expand(-1, -1, F)).contiguous()
+    sub_i = torch.gather(idx, 1, sel).contiguous()
+    _refine_with_stats(d11q, sub_q, sub_i, H, W, radius, sched)
+    _refine_with_stats(d11q, d21q, idx, H, W, radius, sched)
 
 
 SIG = dict(sigma_ray=0.003, sigma_dist=10.0, huber_k=1.345)

@@ -113,11 +113,3 @@ def test_iter_proj_parity():
     assert floor_mis <= MAX_MISMATCH
     assert np.mean(n(tconv) != np.asarray(jconv)) <= MAX_MISMATCH
     assert_close(tx, jx, 1e-4, 1e-4, "X11 at the final pixel")
-
-
-def test_unported_matching_paths_raise():
-    X11, X21, D11, D21 = (t(a) for a in _shift_scene(2))
-    for kw in ({"refine_gate": "converged"}, {"proj_gate": "converged"},
-               {"proj_init": "pinhole"}, {"proj_init": "best"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tm.match(X11, X21, D11, D21, **kw)

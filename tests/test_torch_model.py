@@ -157,3 +157,43 @@ def test_port_random_init_shapes():
     assert tuple(a["head1"]["dpt"]["act1"]["convt"]["w"].shape) == \
         jshapes["head1"]["dpt"]["act1"]["convt"]["w"]
     assert_close(a["enc_blocks"][1]["mlp"]["fc1"]["w"], b["enc_blocks"][1]["mlp"]["fc1"]["w"], 0, 0)
+
+
+def test_bf16_heads_agree_with_the_jax_bf16_heads(models, encoded):
+    """``head_dtype=bfloat16`` (the ``speed`` profile's ``engine.head_dtype``):
+    the DPT pointmap/confidence head and the local-feature descriptor/Q head
+    run in bf16 on both sides, on the same decoder tokens.  bf16 keeps 8
+    bits, and the two frameworks round at other places (XLA fuses and keeps
+    some intermediates in f32, oneDNN others), so the two bf16 heads are
+    held to each other by relative L2 at most what the JAX bf16 heads differ
+    from the JAX f32 heads on the same input: the port's bf16 heads are no
+    further from the JAX bf16 heads than bf16 itself moves the result.  The
+    port's heads must also differ from its f32 heads (bf16 really ran).
+    X is compared before the head's expm1 (see test_symmetric_parity)."""
+    jparams, tmodel32, _ = models
+    jfeat, jpos, _, _ = encoded
+    jcfg = dataclasses.replace(JM.VIT_TINY_TEST, head_dtype=jnp.bfloat16)
+    tcfg = dataclasses.replace(TM.VIT_TINY_TEST, head_dtype=torch.bfloat16)
+    tmodel = MASt3RModel(params_from_jax(jax.tree.map(np.asarray, jparams)), tcfg, HW,
+                         device=CPU)
+    grid = JM.VIT_TINY_TEST.grid(HW)
+    fi, fj = np.asarray(jfeat[:1]), np.asarray(jfeat[1:])
+    pi, pj = np.asarray(jpos[:1]), np.asarray(jpos[1:])
+    want = JM.inference_asymmetric(jparams, jcfg, fi, pi, fj, pj, grid)
+    want32 = JM.inference_asymmetric(jparams, JM.VIT_TINY_TEST, fi, pi, fj, pj, grid)
+    got = tmodel.asymmetric(t(fi), t(pi), t(fj), t(pj))
+    got32 = tmodel32.asymmetric(t(fi), t(pi), t(fj), t(pj))
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    for v in range(2):
+        for k, name in enumerate("XCDQ"):
+            g, w, w32, g32 = (np.asarray(n(r[v][k]), np.float64)
+                              for r in (got, want, want32, got32))
+            if name == "X":
+                g, w, w32, g32 = (_head_xyz(a) for a in (g, w, w32, g32))
+            assert g.shape == w.shape
+            envelope = rel(w, w32)
+            assert rel(g, w) <= envelope, (v, name, rel(g, w), envelope)
+            assert rel(g, g32) > 1e-4, (v, name, "the port's heads did not run in bf16")

@@ -78,11 +78,6 @@ def test_entry_points_without_a_device_raise_without_cuda(monkeypatch):
 
 
 UNPORTED = [
-    ("matching", "refine_gate", "converged"),
-    ("matching", "proj_gate", "converged"),
-    ("matching", "proj_init", "pinhole"),
-    ("matching", "proj_init", "best"),
-    ("engine", "pipeline", 1),
     ("engine", "mesh", 2),
     ("engine", "device_keyframes", 8),
 ]
@@ -99,17 +94,46 @@ def test_unported_settings_raise(section, key, value):
         SLAM(model, cfg, (32, 32), keyframe_buffer=2, device=CPU)
 
 
-def test_threaded_backend_raises():
-    """``single_thread: False`` (the JAX engine's backend thread) is not
-    ported: it raises instead of running the sequential loop."""
+@pytest.mark.parametrize("n_cards", [0, 1, 2])
+def test_pipeline2_falls_back_on_one_card_and_raises_on_more(monkeypatch, capsys, n_cards):
+    """engine.pipeline: 2 (the tracker's compute on a second card) runs the
+    one-card pipelined loop with fewer than two cards, as the JAX package
+    does, and raises with more (item 12)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n_cards)
     cfg = tconfig.load_config("base")
+    cfg["single_thread"] = True
+    cfg["engine"]["pipeline"] = 2
+    model = MASt3RModel(TM.init_params(TM.VIT_TINY_TEST, seed=0), TM.VIT_TINY_TEST,
+                        (32, 32), device=CPU)
+    if n_cards >= 2:
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 12"):
+            SLAM(model, cfg, (32, 32), keyframe_buffer=2, device=CPU)
+        return
+    assert SLAM(model, cfg, (32, 32), keyframe_buffer=2, device=CPU).pipeline == 1
+    assert "running single-chip host-pipelined (pipeline: 1)" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("name", ["base", "speed"])
+def test_base_and_speed_build_a_threaded_backend(name):
+    """``single_thread: False`` (the default of both) runs the backend on a
+    worker thread: it is alive after construction, ``join_backend`` drains
+    the queued tasks, and ``close`` stops it."""
+    cfg = tconfig.load_config(name)
     assert cfg["single_thread"] is False
     model = MASt3RModel(TM.init_params(TM.VIT_TINY_TEST, seed=0), TM.VIT_TINY_TEST,
                         (32, 32), device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 10"):
-        SLAM(model, cfg, (32, 32), keyframe_buffer=2, device=CPU)
-    cfg["single_thread"] = True
-    assert SLAM(model, cfg, (32, 32), keyframe_buffer=2, device=CPU).graph.n_edges == 0
+    slam = SLAM(model, cfg, (32, 32), keyframe_buffer=2, device=CPU)
+    assert slam.pipeline == (1 if name == "speed" else 0)
+    assert slam._worker is not None and slam._worker.is_alive()
+    ran = []
+    slam._backend_update_impl = lambda kf_idx, capture=None: ran.append(kf_idx)
+    for k in range(3):
+        slam._submit_backend(k)
+    slam.join_backend()
+    assert ran == [0, 1, 2] and slam.backend_errors == []
+    worker = slam._worker
+    slam.close()
+    assert not worker.is_alive()
 
 
 def test_retrieval_object_raises():
@@ -125,17 +149,3 @@ def test_retrieval_object_raises():
                                        nfeat=4, device=CPU)
     assert SLAM(model, cfg, (32, 32), keyframe_buffer=2, retrieval=db,
                 device=CPU).retrieval is db
-
-
-def test_oneway_loop_edges_still_raise_with_retrieval():
-    """Loop-closure edges exist now, but their one-way form (item 8a) is
-    still not ported."""
-    model = MASt3RModel(TM.init_params(TM.VIT_TINY_TEST, seed=0), TM.VIT_TINY_TEST,
-                        (32, 32), device=CPU)
-    cfg = tconfig.load_config("base")
-    cfg["single_thread"] = True
-    cfg["local_opt"]["oneway_nonconsec"] = True
-    db = RetrievalDatabase.random_init(0, model.feat_dim, proj_dim=8, num_centroids=16,
-                                       nfeat=4, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 8a"):
-        SLAM(model, cfg, (32, 32), keyframe_buffer=2, retrieval=db, device=CPU)

@@ -166,15 +166,16 @@ def test_track_compute_parity(oracle_pair, config, mode):
     assert_close(st[8:11], gt[3][:3], 0, 0.03, "pose vs ground truth")
 
 
-def test_tracker_settings_refuse_unported_paths():
-    for key, val in (("refine_gate", "converged"), ("proj_gate", "converged"),
-                     ("proj_init", "pinhole"), ("proj_init", "best")):
-        cfg = load_config("base")
-        cfg["matching"][key] = val
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttracker.TrackerSettings.from_config(cfg)
-    with pytest.raises(NotImplementedError):
-        ttracker.TrackerSettings.from_config(load_config("speed"))
+@pytest.mark.parametrize("config", ["base", "speed"])
+def test_tracker_settings_take_the_speed_keys(config):
+    """Every matching and tracking setting, the speed profile's gated
+    matcher included, equals the JAX package's."""
+    ts_t = ttracker.TrackerSettings.from_config(load_config(config))
+    ts_j = jtracker.TrackerSettings.from_config(jload_config(config))
+    for field in ts_j._fields:
+        if field != "gn":
+            assert getattr(ts_t, field) == getattr(ts_j, field), field
+    assert tuple(ts_t.gn) == tuple(ts_j.gn)
 
 
 def test_keyframe_store_append_and_grow():
