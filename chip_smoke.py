@@ -8,7 +8,7 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
 
   1. the card's name and power limit (nvidia-smi); build every kernel from
      the sources in mast3r_slam_tpu_torch/csrc (one nvcc per source, in
-     parallel);
+     parallel) and the host library from csrc/host (g++);
   2. each kernel against its plain PyTorch version at the main path's
      shapes (attention (1,16,768,64), (1,12,768,64) and (2,12,768,64)
      bf16, and (1,16,768,64) on heads split from a fused qkv tensor, with
@@ -69,7 +69,23 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      ivf_hamming exact on a query of the database it built (W = 1); then
      the same under `speed` as packaged (threaded backend, pipeline 1),
      held to the same bound.  A backend task that failed on the worker
-     thread fails the run.
+     thread fails the run;
+  9. the command-line entry point (``slam.run.main``) on a 24-frame 480x640
+     TUM sequence the script writes (fr1-named, constant-gray PNGs through
+     the port's writer, rgb.txt, groundtruth.txt), from build/chip_smoke/:
+     (a) phase 5's stand-in model behind ``run.build_slam`` under
+     eval_no_calib and eval_calib (fr1 undistortion, K_frame), each scored
+     by the ATE CLI against TRAJ_BOUND_M, the outputs listed; a checkpoint
+     a frame past the second keyframe, loaded into a fresh engine (keyframe
+     poses bit for bit) that finishes the sequence within TRAJ_BOUND_M;
+     (b) ViT-L through the CLI, 8 frames, decisions pinned open by --set so
+     that each tracked frame runs a backend task, with random weights
+     (seed 0) and then with ``--checkpoint`` an npz that ``save_params``
+     wrote from the same weights: the same trajectory bits, 72 attention
+     launches a frame and 48 a backend task, one refine launch a tracked
+     frame and a task, edge blocks in every solve; frames/s, the stage
+     times (ingest on the prefetch thread, the exports) and the map
+     checkpoint's time, beside the card's name and power limit.
 
 Phase 2 also holds the two gather probes' kernels (gather_rows_sum,
 take_along_rows, the latter at every slab width of SLAB_SWEEP, timed in
@@ -93,6 +109,8 @@ import copy
 import ctypes
 import json
 import os
+import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1141,7 +1159,7 @@ class PlaneSceneModel:
     Pointmaps are exact, descriptors a view-invariant random-Fourier field
     of the world point, confidence varies with depth."""
 
-    def __init__(self, hw, gt, device, seed=0):
+    def __init__(self, hw, gt, device, seed=0, K=None):
         import torch
 
         self.H, self.W = hw
@@ -1150,7 +1168,8 @@ class PlaneSceneModel:
         self.feat_dim = 16
         self.num_patches = (self.H // 16) * (self.W // 16)
         f = 0.8 * self.W
-        self.K = np.array([[f, 0, self.W / 2], [0, f, self.H / 2], [0, 0, 1.0]])
+        self.K = (np.array([[f, 0, self.W / 2], [0, f, self.H / 2], [0, 0, 1.0]])
+                  if K is None else np.asarray(K, np.float64))
         self.planes = [(np.array(n, float), c) for n, c in (
             ((0, 1, 0), 1.0), ((0, 0, 1), 4.0), ((1, 0, 0), 3.0),
             ((-1, 0, 0), 3.0), ((0, -1, 0), 3.0), ((0, 0, -1), 4.0))]
@@ -1164,7 +1183,7 @@ class PlaneSceneModel:
         self.Wf = np.random.default_rng(7).normal(size=(self.feat_dim, 8)) * 2.0
         self.phase = np.linspace(0, 2 * np.pi, self.num_patches)[:, None]
         u, v = np.meshgrid(np.arange(self.W), np.arange(self.H))
-        rays = np.stack([(u - self.K[0, 2]) / f, (v - self.K[1, 2]) / f,
+        rays = np.stack([(u - self.K[0, 2]) / self.K[0, 0], (v - self.K[1, 2]) / self.K[1, 1],
                          np.ones_like(u, float)], -1).reshape(-1, 3)
         self.rays = rays / np.linalg.norm(rays, axis=-1, keepdims=True)
         self._torch = torch
@@ -1798,6 +1817,240 @@ def run_synthetic_reloc(dev, hw=(384, 512), n_track=24, n_after=6, cfg=None,
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the command-line entry point on a recorded sequence
+# ---------------------------------------------------------------------------
+
+TUM_SEQ = "rgbd_dataset_freiburg1_synth"  # "freiburg1": the TUM loader's fr1 calibration
+CLI_RAW_FRAMES = 24        # 480x640 PNGs; the eval configs' subsample 2 runs 12
+CLI_VITL_FRAMES = 8        # --max-frames of the ViT-L runs
+# the ViT-L runs pin the tracker's decisions open (random weights match
+# nothing): every match valid and confident, no relocalisation, and every
+# tracked frame a new keyframe, so that each frame runs a backend task
+CLI_VITL_SET = ["matching.convergence_thresh=1.0e+9", "matching.dist_thresh=1.0e+9",
+                "tracking.C_conf=-1.0", "tracking.Q_conf=-1.0",
+                "tracking.min_match_frac=0.0", "tracking.match_frac_thresh=2.0"]
+
+
+@contextlib.contextmanager
+def swapped(obj, name, value):
+    """``obj.name`` set to ``value`` inside the block."""
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+class TumSceneModel(PlaneSceneModel):
+    """Phase 5's stand-in behind the CLI: it renders with the camera the
+    (undistorted, resized) frames have, and reads the frame id from the
+    image's central half, where the undistortion leaves no black border."""
+
+    def encode(self, img):
+        h, w = img.shape[-2:]
+        return super().encode(img[..., h // 4:h - h // 4, w // 4:w - w // 4])
+
+
+def write_tum_sequence(root, gt, n):
+    """A TUM-RGBD folder: rgb/<t>.png (480x640, frame k a constant gray level
+    k + 1, through the port's PNG writer), rgb.txt and groundtruth.txt (its
+    stamps 4 ms after the frames', as a separate stream would be)."""
+    from mast3r_slam_tpu_torch.data.png import write_png
+
+    seq = root / TUM_SEQ
+    (seq / "rgb").mkdir(parents=True, exist_ok=True)
+    rgb = ["# color images", "# timestamp filename"]
+    gtl = ["# ground truth trajectory", "# timestamp tx ty tz qx qy qz qw"]
+    for i in range(n):
+        t = 1305031102.0 + i / 30.0
+        write_png(seq / f"rgb/{t:.6f}.png", np.full((480, 640, 3), i + 1, np.uint8))
+        rgb.append(f"{t:.6f} rgb/{t:.6f}.png")
+        gtl.append(f"{t + 0.004:.6f} " + " ".join(f"{x:.6f}" for x in gt[i, :7]))
+    (seq / "rgb.txt").write_text("\n".join(rgb) + "\n")
+    (seq / "groundtruth.txt").write_text("\n".join(gtl) + "\n")
+    return seq
+
+
+def standin_builder(gt, dev, built):
+    """A ``run.build_slam`` that builds the engine around the stand-in model
+    (its camera the dataset's K_frame when calibrated) and keeps it in
+    ``built``."""
+    from mast3r_slam_tpu_torch.slam import run
+
+    real = run.build_slam
+
+    def build(cfg, dataset, **kw):
+        (h, w), _ = dataset.get_img_shape()
+        K = dataset.camera_intrinsics.K_frame if dataset.has_calib() else None
+        kw["model"] = TumSceneModel((h, w), gt, dev, K=K)
+        slam = real(cfg, dataset, **kw)
+        built.append(slam)
+        return slam
+
+    return build
+
+
+def run_cli(argv):
+    """``run.main(argv)`` with the launch counters reset just before and read
+    just after: (result, counts, host seconds)."""
+    from mast3r_slam_tpu_torch.slam import run
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run.main(argv)
+    return res, read_counts(), time.perf_counter() - t0
+
+
+def run_cli_standin(dev, root, img_size=512, n_raw=CLI_RAW_FRAMES):
+    """The CLI over the synthetic TUM sequence with the stand-in model,
+    under eval_no_calib and eval_calib, each scored by the ATE CLI; then a
+    checkpoint halfway through a run, loaded into a fresh engine that
+    finishes the sequence.  Returns a dict of ATEs, counts and checks."""
+    import torch
+    from mast3r_slam_tpu_torch.config import load_config
+    from mast3r_slam_tpu_torch.data import dataloader
+    from mast3r_slam_tpu_torch.eval import ate
+    from mast3r_slam_tpu_torch.slam import run
+    from mast3r_slam_tpu_torch.slam.checkpoint import load_state, save_state
+
+    gt = arc_trajectory(n_raw, radius=0.8, max_angle=3.0)
+    seq = write_tum_sequence(root, gt, n_raw)
+    out = {}
+    built = []
+    with swapped(run, "build_slam", standin_builder(gt, dev, built)), \
+            swapped(dataloader.MonocularDataset, "img_size", img_size):
+        for config in ("eval_no_calib", "eval_calib"):
+            res, counts, wall = run_cli(["--dataset", str(seq), "--config", config,
+                                         "--save-as", config, "--device", str(dev)])
+            slam = built[-1]
+            est = pathlib.Path("logs") / config / f"{TUM_SEQ}.txt"
+            files = sorted(p.name for p in (pathlib.Path("logs") / config).iterdir())
+            kfs = sorted((pathlib.Path("logs") / config / "keyframes" / TUM_SEQ).iterdir())
+            err = ate.main([str(est), str(seq / "groundtruth.txt")])
+            out[config] = dict(ate_m=err, n_frames=len(res.frame_timestamps),
+                               n_keyframes=res.n_keyframes, n_reloc=res.n_reloc,
+                               n_edges=slam.graph.n_edges, files=files,
+                               keyframe_pngs=len(kfs), launches=counts, wall_s=wall,
+                               K_frame=(None if slam.keyframes.K is None
+                                        else slam.keyframes.K.cpu().numpy().tolist()),
+                               stages={k: {m: v[m] for m in ("p50_ms", "count")}
+                                       for k, v in slam.timer.stats().items()})
+            log(f"CLI ({config}, stand-in model) {slam.img_hw[0]}x{slam.img_hw[1]}: "
+                f"{json.dumps(out[config])}")
+
+        # a checkpoint halfway, resumed in a fresh engine
+        cfg = load_config("eval_no_calib")
+        dataset = dataloader.load_dataset(str(seq))
+        dataset.subsample(cfg["dataset"]["subsample"])
+        cfg["engine"]["resize"] = dataset.img_size  # as run.main sets it
+        first = run.build_slam(cfg, dataset, device=dev)
+        last, half = None, 0
+        kf = first.keyframes
+        while half < len(dataset) - 2:  # up to a frame past the second keyframe
+            ts, img = dataset[half]
+            last = first.process_frame(half, ts, img, last_T_WC=last).T_WC
+            half += 1
+            if len(kf) >= 2 and int(kf.frame_id[len(kf) - 1]) < half - 1:
+                break
+        path = pathlib.Path("checkpoints") / "half.npz"
+        sync(dev)
+        t0 = time.perf_counter()
+        save_state(path, first)
+        save_s = time.perf_counter() - t0
+        resumed = run.build_slam(cfg, dataset, device=dev)
+        t0 = time.perf_counter()
+        load_state(path, resumed)
+        sync(dev)
+        load_s = time.perf_counter() - t0
+        n = len(first.keyframes)
+        same = (len(resumed.keyframes) == n and resumed.graph.n_edges == first.graph.n_edges
+                and torch.equal(resumed.keyframes.T_WC[:n], first.keyframes.T_WC[:n])
+                and torch.equal(resumed.keyframes.X[:n], first.keyframes.X[:n])
+                and resumed.mode == first.mode)
+        for i in range(half, len(dataset)):
+            ts, img = dataset[i]
+            last = resumed.process_frame(i, ts, img, last_T_WC=last).T_WC
+        resumed.join_backend()
+        poses = np.stack([p for _, p in first.frame_log + resumed.frame_log])
+        resumed_ate = umeyama_rmse(poses[:, :3].astype(np.float64), gt[::2][:len(poses), :3])
+        out["checkpoint"] = dict(keyframes=n, same_bits=bool(same), resumed_ate_m=resumed_ate,
+                                 save_s=save_s, load_s=load_s,
+                                 bytes=path.stat().st_size, frames=len(poses))
+        log(f"CLI checkpoint halfway (stand-in model): {json.dumps(out['checkpoint'])}")
+        first.close()
+        resumed.close()
+    return out
+
+
+def run_cli_vitl(dev, root, img_size=512, preset="vit_large", n_frames=CLI_VITL_FRAMES):
+    """The CLI over the same sequence with ViT-L (random weights, seed 0,
+    as ``build_slam`` makes them), then with ``--checkpoint`` an npz that
+    ``save_params`` wrote from the same weights; the launch counters reset
+    just before each run and read just after, the checkpoint of the first
+    engine timed.  Returns a dict of counts, stages and checks."""
+    from mast3r_slam_tpu_torch.data import dataloader
+    from mast3r_slam_tpu_torch.models import mast3r as M
+    from mast3r_slam_tpu_torch.models.convert import save_params
+    from mast3r_slam_tpu_torch.slam import run
+    from mast3r_slam_tpu_torch.slam.checkpoint import save_state
+
+    seq = root / TUM_SEQ
+    argv = ["--dataset", str(seq), "--config", "eval_no_calib", "--device", str(dev),
+            "--max-frames", str(n_frames), "--profile", "--model-preset",
+            "vit_large" if preset == "vit_large" else "tiny"]
+    for ov in CLI_VITL_SET:
+        argv += ["--set", ov]
+    built = []
+    real = run.build_slam
+
+    def keep(cfg, dataset, **kw):
+        slam = real(cfg, dataset, **kw)
+        built.append(slam)
+        return slam
+
+    with swapped(run, "build_slam", keep), \
+            swapped(dataloader.MonocularDataset, "img_size", img_size):
+        res, counts, wall = run_cli(argv + ["--save-as", "vitl_random"])
+        slam = built[-1]
+        mcfg = slam.model.mcfg
+        st = slam.timer.stats()
+        path = pathlib.Path("checkpoints") / "vitl_state.npz"
+        sync(dev)
+        t0 = time.perf_counter()
+        save_state(path, slam)
+        ckpt_s = time.perf_counter() - t0
+        ckpt_bytes = path.stat().st_size
+        path.unlink()
+        del slam, built[:]
+        npz = pathlib.Path("checkpoints") / "vitl_seed0.npz"
+        t0 = time.perf_counter()
+        save_params(npz, M.init_params(mcfg, 0, dev))
+        params_s = time.perf_counter() - t0
+        res2, counts2, wall2 = run_cli(argv + ["--save-as", "vitl_npz",
+                                              "--checkpoint", str(npz)])
+        npz_bytes = npz.stat().st_size
+        npz.unlink()
+        del built[:]
+    same_bits = (np.array_equal(res.frame_poses, res2.frame_poses)
+                 and np.array_equal(res.keyframe_poses, res2.keyframe_poses)
+                 and res.keyframe_timestamps == res2.keyframe_timestamps)
+    n_tasks = st.get("backend.update", {"count": 0})["count"]
+    n_tracked = st.get("tracker.track", {"count": 0})["count"]
+    out = dict(frames=len(res.frame_timestamps), n_keyframes=res.n_keyframes,
+               n_tracked=n_tracked, n_tasks=n_tasks, n_reloc=res.n_reloc,
+               fps=res.fps, wall_s=wall, launches=counts, npz_launches=counts2,
+               npz_fps=res2.fps, same_bits=bool(same_bits),
+               checkpoint_s=ckpt_s, checkpoint_bytes=ckpt_bytes,
+               save_params_s=params_s, params_npz_bytes=npz_bytes,
+               stages={k: {m: v[m] for m in ("mean_ms", "p50_ms", "p95_ms", "count")}
+                       for k, v in st.items()})
+    log(f"CLI ({preset}, eval_no_calib, {n_frames} frames, decisions pinned open) "
+        f"{img_size}: {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1822,6 +2075,12 @@ def main() -> int:
     t0 = time.perf_counter()
     paths = kernels.build_all()
     log(f"built {sorted(paths)} from {kernels.CSRC_DIR.name}/ in "
+        f"{time.perf_counter() - t0:.1f} s")
+    from mast3r_slam_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    native.build()  # the host library phase 9's ingest runs on
+    log(f"built {native.library_path().name} from csrc/host/ with {native.compiler()} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name in sorted(kernels.SOURCES):
         for line in kernels.build_log(name).splitlines():
@@ -1952,6 +2211,50 @@ def main() -> int:
             f"succeeded, mode {sr_slam.mode.name}, post-reloc error {sr_err} m (bound "
             f"{RELOC_BOUND_M})")
 
+    # the CLI on a recorded sequence, from a scratch directory in the checkout
+    work = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        cli = run_cli_standin(dev, work)
+        vcli = run_cli_vitl(dev, work)
+    finally:
+        os.chdir(cwd)
+    want_files = sorted([f"{TUM_SEQ}.txt", f"{TUM_SEQ}.ply", f"{TUM_SEQ}_map.png",
+                         f"{TUM_SEQ}_scene.json", "keyframes"])
+    for config in ("eval_no_calib", "eval_calib"):
+        r = cli[config]
+        if not (r["ate_m"] is not None and r["ate_m"] < TRAJ_BOUND_M and r["n_reloc"] == 0
+                and r["n_frames"] == CLI_RAW_FRAMES // 2 and r["files"] == want_files
+                and r["keyframe_pngs"] == r["n_keyframes"]
+                and (r["K_frame"] is not None) == (config == "eval_calib")
+                and r["launches"]["refine_window"] > 0
+                # calib-mode edge blocks are plain torch (ROADMAP Queue 2b item 7)
+                and (r["launches"]["edge_hg_rays"] > 0) == (config == "eval_no_calib")):
+            raise AssertionError(f"CLI ({config}, stand-in): {json.dumps(r)} (ATE bound "
+                                 f"{TRAJ_BOUND_M} m, outputs {want_files})")
+    ck = cli["checkpoint"]
+    if not (ck["same_bits"] and ck["resumed_ate_m"] < TRAJ_BOUND_M):
+        raise AssertionError(f"CLI checkpoint halfway: {json.dumps(ck)} (keyframe poses "
+                             f"must come back bit for bit, ATE under {TRAJ_BOUND_M} m)")
+    vc = vcli["launches"]
+    want_v = {"attention": 72 * vcli["frames"] + 48 * vcli["n_tasks"],
+              "refine_window": vcli["n_tracked"] + vcli["n_tasks"]}
+    if ({k: vc[k] for k in want_v} != want_v or vcli["n_tasks"] < 1
+            or vc["edge_hg_rays"] < vcli["n_tasks"] or vcli["npz_launches"] != vc
+            or not vcli["same_bits"] or vcli["frames"] != CLI_VITL_FRAMES):
+        raise AssertionError(
+            f"CLI with ViT-L: launches {vc} (expected {want_v}: 72 attention a frame and "
+            f"48 a backend task, one refine a tracked frame and a task; edge_hg_rays >= "
+            f"{vcli['n_tasks']} tasks >= 1), npz run {vcli['npz_launches']}, same "
+            f"trajectory bits {vcli['same_bits']}, {vcli['frames']} frames")
+    log(f"CLI ViT-L 384x512, {vcli['frames']} frames: {vcli['fps']:.3f} frames/s (host "
+        f"clock), {vcli['n_tasks']} backend tasks, export.ply "
+        f"{vcli['stages']['export.ply']['mean_ms']:.1f} ms, checkpoint "
+        f"{vcli['checkpoint_s'] * 1e3:.1f} ms ({vcli['checkpoint_bytes']} bytes); {smi}")
+
     common = lambda r: {k: r[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms",
                                           "library_call_ms")}
@@ -2008,7 +2311,8 @@ def main() -> int:
                   "vitl_launches": speed["seq_counts"], "oneway_task_ms": speed["task_ms"],
                   "oneway_task_launches": speed["task_counts"], "synthetic_ate_m": sate,
                   "synthetic_engine": sstats, "reloc_post_err_m": sr_err,
-                  "reloc_success": sr_res.n_reloc_success}}
+                  "reloc_success": sr_res.n_reloc_success},
+        "cli": {"standin": cli, "vitl": vcli, "card": smi}}
     log(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

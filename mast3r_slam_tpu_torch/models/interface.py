@@ -13,7 +13,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from . import mast3r as M
-from .convert import load_params
+from .convert import load_params, load_torch_checkpoint
 
 
 def _move(node, device):
@@ -47,6 +47,15 @@ class MASt3RModel:
         """A converted checkpoint (``models/io.py`` npz, format v2)."""
         device = resolve_device(device)
         return cls(load_params(path, device), mcfg, img_hw, device)
+
+    @classmethod
+    def from_torch_checkpoint(cls, path, img_hw, mcfg: M.ModelConfig = M.VIT_LARGE,
+                              device: DeviceLike = None):
+        """A released PyTorch checkpoint (``.pth``); its arch string sets the
+        structural config over ``mcfg``."""
+        device = resolve_device(device)
+        params, mcfg = load_torch_checkpoint(path, mcfg, device)
+        return cls(params, mcfg, img_hw, device)
 
     @torch.no_grad()
     def encode(self, img):

@@ -29,6 +29,12 @@ The engine modes:
   compute on a second card) falls back to ``1`` on one card and raises on
   more (ROADMAP Queue 1, item 12).
 
+``run`` reads and preprocesses frames on a prefetch thread (decode,
+undistortion and the resize overlap the card's work; its time is the
+``ingest`` stage), at most ``PREFETCH_DEPTH`` frames ahead; an error there
+ends the run with that error.  ``preprocess`` resizes to 512 with the host
+library (``utils/native.py``) and to other sizes with PIL.
+
 ``mesh`` and ``device_keyframes`` raise ``NotImplementedError``.
 """
 
@@ -41,20 +47,24 @@ import threading
 import time
 import traceback
 from collections import deque
-from contextlib import contextmanager
+from contextlib import closing, contextmanager
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..eval.trajectory import save_traj_tum
 from ..lie import sim3
 from ..retrieval.database import RetrievalDatabase
-from ..utils.image import resize_img
+from ..utils import native
 from ..utils.timing import StageTimer
 from .factor_graph import FactorGraph
 from .frame import Frame, Keyframes, Mode
 from .tracker import FrameTracker
+
+
+PREFETCH_DEPTH = 2  # frames the ingest thread reads ahead
 
 
 @dataclasses.dataclass
@@ -213,8 +223,13 @@ class SLAM:
     # ------------------------------------------------------------------
 
     def preprocess(self, rgb01: np.ndarray) -> dict:
-        """Resize and normalise one RGB frame on the host (needs PIL)."""
+        """Resize and normalise one RGB frame on the host: to ``engine.resize``
+        (512 unless set) by the host library at 512, by PIL otherwise."""
         size = int(self.cfg.get("engine", {}).get("resize", 512))
+        if size == 512:
+            return native.resize_img_native(rgb01, size)
+        from ..utils.pil_image import resize_img
+
         return resize_img(rgb01, size)
 
     def ingest_rgb(self, frame_id: int, timestamp: str, rgb01: np.ndarray = None,
@@ -352,28 +367,22 @@ class SLAM:
         n = len(dataset)
         if max_frames is not None:
             n = min(n, max_frames)
-        get_pre = getattr(dataset, "preprocessed", None)
-
-        def frames():
-            for i in range(n):
-                timestamp, img = dataset[i]
-                yield i, timestamp, (get_pre(i) if get_pre is not None
-                                     else self.preprocess(img))
-
         t0 = time.time()
-        if self.pipeline >= 1:
-            self._loop_pipelined(frames(), n, t0, verbose)
-        else:
-            last_T = None
-            for i, timestamp, pre in frames():
-                # frame.latency: the frame's wall time, stalls behind a
-                # backend task included
-                with self.timer.time("frame.latency"):
-                    frame = self.process_frame(i, timestamp, last_T_WC=last_T, pre=pre)
-                    if frame.T_WC_np is None and frame.T_WC.is_cuda:
-                        torch.cuda.synchronize(frame.T_WC.device)
-                last_T = frame.T_WC
-                self._progress(i, n, t0, verbose)
+        with closing(self._prefetch(dataset, n)) as frames:
+            if self.pipeline >= 1:
+                self._loop_pipelined(frames, n, t0, verbose)
+            else:
+                last_T = None
+                for i, timestamp, pre in frames:
+                    # frame.latency: the frame's wall time, stalls behind a
+                    # backend task included
+                    with self.timer.time("frame.latency"):
+                        frame = self.process_frame(i, timestamp, last_T_WC=last_T,
+                                                   pre=pre)
+                        if frame.T_WC_np is None and frame.T_WC.is_cuda:
+                            torch.cuda.synchronize(frame.T_WC.device)
+                    last_T = frame.T_WC
+                    self._progress(i, n, t0, verbose)
         self.join_backend()
         self.graph.resolve_pending_verdicts()  # the speculative gate's verdicts
         if self.device.type == "cuda":
@@ -393,6 +402,55 @@ class SLAM:
             n_reloc=self.n_reloc,
             n_reloc_success=self.n_reloc_success,
         )
+
+    def _prefetch(self, dataset, n: int):
+        """Yield (i, timestamp, preprocessed frame) for the first n frames,
+        read on a fetcher thread (``dataset.preprocessed(i)`` where the
+        dataset has that hook).  An exception on the fetcher is raised here;
+        closing the generator stops the fetcher."""
+        get_pre = getattr(dataset, "preprocessed", None)
+        fetched: queue.Queue = queue.Queue(maxsize=PREFETCH_DEPTH)
+        stop = threading.Event()
+
+        def put(item):
+            while not stop.is_set():
+                try:
+                    fetched.put(item, timeout=0.1)
+                    return
+                except queue.Full:
+                    pass
+
+        def fetch():
+            try:
+                for i in range(n):
+                    if stop.is_set():
+                        return
+                    with self.timer.time("ingest"):
+                        timestamp, img = dataset[i]
+                        pre = get_pre(i) if get_pre is not None else self.preprocess(img)
+                    put((i, timestamp, pre))
+                put(None)
+            except BaseException as e:  # handed to the consumer, raised there
+                put(e)
+
+        fetcher = threading.Thread(target=fetch, name="slam-ingest", daemon=True)
+        fetcher.start()
+        try:
+            while True:
+                item = fetched.get()
+                if item is None:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            fetcher.join()
+
+    def save_trajectory(self, path, result: SlamResult):
+        """The keyframe trajectory as a TUM file (SE(3): the scale dropped)."""
+        poses = sim3.to_se3(torch.as_tensor(np.asarray(result.keyframe_poses))).numpy()
+        save_traj_tum(path, result.keyframe_timestamps, poses)
 
     def _progress(self, i: int, n: int, t0: float, verbose: bool):
         if verbose and i % 30 == 0 and i > 0:

@@ -1,12 +1,14 @@
-"""Scharr gradients and the host resize pipeline.
+"""Scharr gradients and the host resize geometry.
 
 Port of ``mast3r_slam_tpu/utils/image.py``: the 3x3 Scharr kernel /32 with
-reflect padding, written as shifted slices and adds, in either layout.
+reflect padding, written as shifted slices and adds, in either layout; and
+``resize_geometry``, the resize and crop of ``resize_img``, which the host
+library (``utils/native.py``, at 512) and PIL (``utils/pil_image.py``, at
+other sizes) apply.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 
@@ -41,46 +43,23 @@ def img_gradient_nhwc(img: torch.Tensor):
     return _scharr(img, -3, -2)
 
 
-def resize_img(img: np.ndarray, size: int = 512, square_ok: bool = False):
-    """Resize the long side to ``size`` and crop H, W to multiples of 16.
-
-    img: float array (H, W, 3) in [0, 1].  Returns a dict with
-      img: (3, h, w) float32 normalised to [-1, 1]
-      true_shape: (1, 2) int32 [h, w]
-      unnormalized_img: (h, w, 3) uint8
-    PIL is imported here, not at module import: a caller that feeds
-    preprocessed frames needs no PIL.
-    """
-    import PIL.Image
-
+def resize_geometry(W1: int, H1: int, size: int = 512, square_ok: bool = False):
+    """The resize and crop that ``resize_img`` applies to a W1 x H1 image:
+    ((W, H) after the resize, (x0, y0, x1, y1) the crop box in it).  The
+    long side goes to ``size`` (224: the short side, then a centred
+    square); the crop keeps H and W multiples of 16 (a square image keeps
+    a 4:3 crop unless ``square_ok``)."""
     if not (size == 224 or (size >= 16 and size % 16 == 0)):
         raise ValueError(f"resize target {size} must be 224 or a multiple of 16")
-    pil = PIL.Image.fromarray(np.uint8(np.clip(img, 0, 1) * 255))
-    W1, H1 = pil.size
     long_edge = max(W1, H1)
-    if size == 224:
-        target = round(size * max(W1 / H1, H1 / W1))
-    else:
-        target = size
-    interp = PIL.Image.LANCZOS if long_edge > target else PIL.Image.BICUBIC
+    target = round(size * max(W1 / H1, H1 / W1)) if size == 224 else size
     scale = target / long_edge
-    pil = pil.resize((int(round(W1 * scale)), int(round(H1 * scale))), interp)
-
-    W, H = pil.size
+    W, H = int(round(W1 * scale)), int(round(H1 * scale))
     cx, cy = W // 2, H // 2
     if size == 224:
-        half = min(cx, cy)
-        pil = pil.crop((cx - half, cy - half, cx + half, cy + half))
+        halfw = halfh = min(cx, cy)
     else:
         halfw, halfh = ((2 * cx) // 16) * 8, ((2 * cy) // 16) * 8
         if not square_ok and W == H:
             halfh = int(3 * halfw / 4)
-        pil = pil.crop((cx - halfw, cy - halfh, cx + halfw, cy + halfh))
-
-    arr = np.asarray(pil)
-    norm = (arr.astype(np.float32) / 255.0 - 0.5) / 0.5
-    return dict(
-        img=np.transpose(norm, (2, 0, 1)),
-        true_shape=np.int32([[pil.size[1], pil.size[0]]]),
-        unnormalized_img=arr,
-    )
+    return (W, H), (cx - halfw, cy - halfh, cx + halfw, cy + halfh)

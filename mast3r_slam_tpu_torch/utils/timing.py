@@ -57,6 +57,16 @@ class StageTimer:
             }
         return out
 
+    def report(self) -> str:
+        """One line a stage: mean, p50 and p95 ms and the count."""
+        lines = []
+        for name, s in sorted(self.stats().items()):
+            lines.append(
+                f"{name:24s} mean {s['mean_ms']:8.2f} ms  "
+                f"p50 {s['p50_ms']:8.2f}  p95 {s['p95_ms']:8.2f}  n={s['count']}"
+            )
+        return "\n".join(lines)
+
 
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Device milliseconds per call of ``fn`` on the CUDA card: the summed

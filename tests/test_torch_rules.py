@@ -149,3 +149,105 @@ def test_retrieval_object_raises():
                                        nfeat=4, device=CPU)
     assert SLAM(model, cfg, (32, 32), keyframe_buffer=2, retrieval=db,
                 device=CPU).retrieval is db
+
+
+NO_CARD_LIBS = {"cv2", "PIL", "yaml", "matplotlib"}  # the card's machine has none
+
+
+def _module_level_imports(tree):
+    """Imported top-level names of the statements a module runs at import
+    (function bodies excluded)."""
+    names, todo = [], list(tree.body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        if isinstance(node, ast.Import):
+            names += [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append((node.module or "").split(".")[0])
+        todo.extend(ast.iter_child_nodes(node))
+    return names
+
+
+def test_no_port_module_imports_cv2_pil_yaml_or_matplotlib_at_import():
+    bad = []
+    for f in _port_files():
+        names = _module_level_imports(ast.parse(f.read_text(), str(f)))
+        bad += [f"{f.relative_to(ROOT)}: {m}" for m in names if m in NO_CARD_LIBS]
+    assert not bad, bad
+
+
+# Drives chip_smoke.py phase 9's path (the CLI over a TUM sequence at 512,
+# fr1 undistortion, exports, the ATE CLI, a checkpoint) with the tiny model
+# on the CPU, while an import hook refuses cv2, PIL, PyYAML and matplotlib;
+# prints the attempts and the port modules the run loaded.
+_NO_CARD_RUN = r"""
+import importlib.abc, json, pathlib, sys, traceback
+BLOCKED = {"cv2", "PIL", "yaml", "matplotlib"}
+attempts = []
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            frames = [f for f in traceback.extract_stack() if not f.filename.startswith("<")]
+            attempts.append([name, frames[-2].filename if len(frames) > 1 else ""])
+            raise ImportError(f"{name} is refused on this run")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import numpy as np
+from mast3r_slam_tpu_torch.data.png import write_png
+from mast3r_slam_tpu_torch.eval import ate
+from mast3r_slam_tpu_torch.slam import checkpoint, run
+
+seq = pathlib.Path("tum/rgbd_dataset_freiburg1_x")
+(seq / "rgb").mkdir(parents=True)
+lines = []
+for i in range(4):
+    write_png(seq / f"rgb/{i}.png", np.full((480, 640, 3), 40 + i, np.uint8))
+    lines.append(f"{i / 30:.6f} rgb/{i}.png")
+(seq / "rgb.txt").write_text("\n".join(lines) + "\n")
+(seq / "gt.txt").write_text("".join(f"{i / 30:.6f} {i} 0 0 0 0 0 1\n" for i in range(4)))
+built = []
+real = run.build_slam
+run.build_slam = lambda *a, **k: built.append(real(*a, **k)) or built[-1]
+run.main(["--dataset", str(seq), "--config", "eval_calib", "--model-preset", "tiny",
+          "--device", "cpu", "--max-frames", "1", "--save-as", "x", "--profile"])
+ate.main(["logs/x/rgbd_dataset_freiburg1_x.txt", str(seq / "gt.txt")])
+checkpoint.save_state("state.npz", built[0])
+checkpoint.load_state("state.npz", built[0])
+print(json.dumps({"attempts": attempts, "modules": sorted(
+    m.__file__ for n, m in sys.modules.items()
+    if n.startswith("mast3r_slam_tpu_torch") and getattr(m, "__file__", None))}))
+"""
+
+
+def test_the_cli_path_reaches_no_library_the_card_lacks(tmp_path):
+    """The modules phase 9 runs import none of cv2, PIL, yaml or matplotlib,
+    on the run (an import hook refuses them) and anywhere in their source."""
+    import json
+    import subprocess
+    import sys
+
+    out = subprocess.run([sys.executable, "-c", _NO_CARD_RUN], cwd=tmp_path,
+                         env={**__import__("os").environ, "PYTHONPATH": str(ROOT)},
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    port = str(ROOT / "mast3r_slam_tpu_torch")
+    assert [a for a in report["attempts"] if a[1].startswith(port)] == []
+    files = [pathlib.Path(m) for m in report["modules"]]
+    assert {f.stem for f in files} >= {"run", "dataloader", "png", "native", "export",
+                                       "renderer", "checkpoint", "yaml_subset", "ate"}
+    bad = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{f.name}: {m}" for m in names if m.split(".")[0] in NO_CARD_LIBS]
+    assert not bad, bad
