@@ -87,6 +87,28 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      times (ingest on the prefetch thread, the exports) and the map
      checkpoint's time, beside the card's name and power limit.
 
+  10. the long-video memory plan at 384x512: (a) FactorGraph.solve with
+     window_size 16 and edge_recycle over phase 6's arc problem grown to
+     32, 40 and 48 keyframes (a chain and loop edges), a solve after each:
+     pre-window poses keep their bits, one edge-block launch a GN
+     iteration, the window within SOLVE_BOUND_M of the full solve with the
+     pre-window poses pinned, recycled rows reused so the edge store stops
+     growing, a second run the same bits; (b) a paged soak (48 keyframes
+     with ViT-L-sized tokens into 8 device slots, a solve after each:
+     device_bytes() flat once the pool is full, torch.cuda.memory_allocated()
+     flat over the second half, an eviction and an upload timed), then
+     phase 8's teleport run as a long video sees it (a keyframe every 2
+     tracked frames, no loop-closure candidates) with
+     engine.device_keyframes 5 against an unpaged control at the same
+     effective window (the same keyframes and relocalisations, poses within
+     1e-6 and whether the same bits, an evicted relocalisation target
+     brought back), a checkpoint of the paged store loaded bit for bit, and
+     the paged run under speed as packaged;
+     (c) one ViT-L backend task with local_opt.pixel_stride 2 on phase 6's
+     keyframes: 48 attention and 1 refine launch, the refine kernel exactly
+     its plain version on that task's inputs, timed beside the stride-1
+     task.
+
 Phase 2 also holds the two gather probes' kernels (gather_rows_sum,
 take_along_rows, the latter at every slab width of SLAB_SWEEP, timed in
 turns) and the IVF bucket scoring (ivf_hamming, W 1, 2 and 32, one kernel
@@ -1186,6 +1208,7 @@ class PlaneSceneModel:
         rays = np.stack([(u - self.K[0, 2]) / self.K[0, 0], (v - self.K[1, 2]) / self.K[1, 1],
                          np.ones_like(u, float)], -1).reshape(-1, 3)
         self.rays = rays / np.linalg.norm(rays, axis=-1, keepdims=True)
+        self._renders = {}
         self._torch = torch
 
     @staticmethod
@@ -1197,6 +1220,12 @@ class PlaneSceneModel:
         return dict(img=img)
 
     def _render(self, fid):
+        """(X_cam, D, C) of frame fid, rendered once (the arrays are read only)."""
+        if fid not in self._renders:
+            self._renders[fid] = self._render_now(fid)
+        return self._renders[fid]
+
+    def _render_now(self, fid):
         T = self.gt[fid]
         R, t = quat_to_matrix(T[3:7]), T[:3]
         d_w = self.rays @ R.T
@@ -1592,7 +1621,7 @@ def run_vitl_backend(dev, model, hw=(384, 512)):
             or counts["edge_hg_rays"] < 1):
         raise AssertionError(f"ViT-L backend task launches {counts}, expected "
                              f"{want_fixed} and at least one edge_hg_rays")
-    return counts, split
+    return counts, split, kf
 
 
 # ---------------------------------------------------------------------------
@@ -2050,6 +2079,481 @@ def run_cli_vitl(dev, root, img_size=512, preset="vit_large", n_frames=CLI_VITL_
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 10: the long-video memory plan
+# ---------------------------------------------------------------------------
+
+WINDOW_STAGES = (32, 40, 48)  # 10a: keyframes at each of the three solves
+WINDOW = 16                   # 10a: local_opt.window_size
+SOAK_KF = 48                  # 10b: keyframes of the paged soak
+PAGED_BUDGET = 8              # 10b: engine.device_keyframes of the soak
+RELOC_BUDGET = 5              # 10b: engine.device_keyframes of the reloc runs
+PAGING_POSE_ATOL = 1e-6       # paged against unpaged (tests/test_paging.py:118)
+QUAT_DRIFT_MAX = 1e-5         # keyframe quaternions off unit norm (a few f32 roundings)
+KF_EVERY = 2                  # 10b reloc runs: a keyframe at least every 2 tracked frames
+
+
+def arc_problem(dev, hw, n_kf, seed):
+    """Phase 6's rays problem for n_kf keyframes: one world cloud seen from
+    an arc, the poses after the first perturbed.  Returns (ground truth,
+    noisy poses, Xs (n_kf, N, 3))."""
+    import torch
+    from mast3r_slam_tpu_torch.lie import sim3
+
+    rng = np.random.default_rng(seed)
+    N = hw[0] * hw[1]
+    gt = torch.as_tensor(arc_trajectory(n_kf, radius=0.4, max_angle=1.2),
+                         dtype=torch.float32, device=dev)
+    world = torch.as_tensor(rng.uniform(-1, 1, size=(N, 3)) + [0, 0, 3],
+                            dtype=torch.float32, device=dev)
+    Xs = sim3.act(sim3.inv(gt)[:, None, :], world)
+    tau = torch.as_tensor(rng.normal(size=(n_kf, 7)) * 0.01, dtype=torch.float32, device=dev)
+    tau[0] = 0
+    return gt, sim3.retr(gt, tau), Xs
+
+
+def arc_edges(k):
+    """The edges keyframe k brings: the chain, and every sixth a loop 12 back."""
+    return [(k - 1, k)] + ([(k - 12, k)] if k % 6 == 0 and k >= 12 else [])
+
+
+def store_identity_edges(graph, edges, N):
+    """Identity-correspondence edges into the graph's rows (recycled rows
+    first), as add_factors stores them."""
+    import torch
+
+    rows = graph._take_edge_rows(len(edges))
+    graph.ii[rows] = [a for a, _ in edges]
+    graph.jj[rows] = [b for _, b in edges]
+    r = torch.as_tensor(rows, device=graph.device).long()
+    idx = torch.arange(N, dtype=torch.int32, device=graph.device)
+    graph.idx_ii2jj[r] = idx
+    graph.idx_jj2ii[r] = idx
+    graph.valid_match_j[r] = True
+    graph.valid_match_i[r] = True
+    graph.Q_ii2jj[r] = 2.0
+    graph.Q_jj2ii[r] = 2.0
+    graph._stamp_f[rows] = -1
+    graph._stamp_b[rows] = -1
+    graph.edge_live[rows] = True
+
+
+def arc_keyframe(Frame, k, T, X, dev, num_patches=1, feat_dim=8):
+    import torch
+
+    N = X.shape[0]
+    return Frame(frame_id=k, img=None, T_WC=T, X_canon=X,
+                 C=torch.full((N, 1), 2.0, device=dev), n_fused=1, n_updates=1,
+                 feat=torch.full((1, num_patches, feat_dim), float(k), device=dev),
+                 pos=torch.zeros((1, num_patches, 2), dtype=torch.int32, device=dev))
+
+
+def solve_iters(fg):
+    """Wrap the factor graph's cached GN entry to record each solve's GN
+    iterations; returns (list, context manager)."""
+    iters = []
+    real = fg.gauss_newton_poses_cached
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        iters.append(out[1])
+        return out
+
+    return iters, swapped(fg, "gauss_newton_poses_cached", spy)
+
+
+def run_windowed_solve(dev, hw=(384, 512), seed=5, oracle=True):
+    """10a: FactorGraph.solve with window_size 16 and edge_recycle over a
+    growing 48-keyframe arc problem (phase 6's, identity correspondences):
+    32, then 40, then 48 keyframes, a solve after each stage.  Each solve:
+    the pre-window poses keep their bits, one edge-block launch a GN
+    iteration, and (``oracle``) the window within SOLVE_BOUND_M of
+    gauss_newton_poses over every pose and edge with the pre-window poses
+    pinned.  Returns a dict of the run and the final poses."""
+    import torch
+    from mast3r_slam_tpu_torch.config import load_config
+    from mast3r_slam_tpu_torch.ops.global_gn import gauss_newton_poses
+    from mast3r_slam_tpu_torch.slam import factor_graph as fg
+    from mast3r_slam_tpu_torch.slam.frame import Frame, Keyframes
+
+    N = hw[0] * hw[1]
+    _, noisy, Xs = arc_problem(dev, hw, WINDOW_STAGES[-1], seed)
+    cfg = load_config("base")
+    cfg["local_opt"].update(window_size=WINDOW, edge_recycle=True)
+    kf = Keyframes(64, N, 1, 8, device=dev)
+    graph = fg.FactorGraph(None, cfg, kf, hw, edge_capacity=16)
+    all_edges, out = [], dict(solves=[])
+    iters, spy = solve_iters(fg)
+    n0 = 0
+    with spy:
+        for n_kf in WINDOW_STAGES:
+            new = []
+            for k in range(n0, n_kf):
+                kf.append(arc_keyframe(Frame, k, noisy[k], Xs[k], dev))
+                new += arc_edges(k) if k else []
+            n_edges_before = graph.n_edges
+            store_identity_edges(graph, new, N)
+            reused = len(new) - (graph.n_edges - n_edges_before)  # rows off the freelist
+            all_edges += new
+            n0 = n_kf
+            s0 = n_kf - WINDOW
+            T0 = kf.T_WC[:n_kf].clone()
+            sync(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            graph.solve(mode="rays")
+            sync(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = read_counts()
+            T = kf.T_WC[:n_kf].clone()
+            rec = dict(n_kf=n_kf, s0=s0, ms=ms, iters=iters[-1],
+                       edge_hg_launches=counts["edge_hg_rays"],
+                       pre_window_same_bits=bool(torch.equal(T[:s0], T0[:s0])),
+                       n_edges=graph.n_edges, capacity=graph.capacity,
+                       new_edges=len(new), rows_reused=reused,
+                       n_edges_recycled=graph.n_edges_recycled)
+            if oracle:
+                E = len(all_edges)
+                ii = torch.tensor([a for a, b in all_edges] + [b for a, b in all_edges],
+                                  device=dev)
+                jj = torch.tensor([b for a, b in all_edges] + [a for a, b in all_edges],
+                                  device=dev)
+                T_ref, _, ok, _ = gauss_newton_poses(
+                    T0, Xs[:n_kf], torch.full((n_kf, N, 1), 2.0, device=dev), ii, jj,
+                    torch.arange(N, dtype=torch.int32, device=dev).expand(2 * E, N),
+                    torch.ones((2 * E, N, 1), dtype=torch.bool, device=dev),
+                    torch.full((2 * E, N, 1), 2.0, device=dev), torch.eye(3, device=dev),
+                    hw, graph.settings._replace(pin=s0), "rays")
+                rec["vs_pinned_full_m"] = (T[s0:, :3] - T_ref[s0:, :3]).norm(dim=-1).max().item()
+                rec["oracle_ok"] = bool(ok)
+            out["solves"].append(rec)
+            log(f"10a windowed solve {hw[0]}x{hw[1]}: {json.dumps(rec)}")
+    out["T"] = kf.T_WC[:WINDOW_STAGES[-1]].clone()
+    return out
+
+
+def check_windowed_solve(dev):
+    """10a, run twice for the same bits."""
+    import torch
+
+    a = run_windowed_solve(dev)
+    b = run_windowed_solve(dev, oracle=False)
+    same = bool(torch.equal(a["T"], b["T"]))
+    sv = a["solves"]
+    bad = [r for r in sv if not (
+        r["pre_window_same_bits"] and r["edge_hg_launches"] == r["iters"] >= 1
+        and r["oracle_ok"] and r["vs_pinned_full_m"] <= SOLVE_BOUND_M)]
+    grew = sv[-1]["capacity"] != sv[0]["capacity"] or sv[-1]["n_edges"] != sv[0]["n_edges"]
+    if (bad or not same or sv[-1]["n_edges_recycled"] <= 0 or grew
+            or sum(r["rows_reused"] for r in sv[1:]) <= 0):
+        raise AssertionError(f"10a windowed solve: {json.dumps(sv)}, second run same bits "
+                             f"{same} (each solve: pre-window bits kept, one edge_hg_rays "
+                             f"launch a GN iteration, within {SOLVE_BOUND_M} m of the pinned "
+                             f"full solve; rows recycled and reused, the store not growing)")
+    log(f"10a: the same pose bits on a second run {same}")
+    return dict(solves=sv, same_bits=same)
+
+
+def run_paged_soak(dev, hw=(384, 512), seed=6):
+    """10b, the soak: 48 keyframes with ViT-L-sized tokens (768 x 1024 f32)
+    into a store paged to 8 slots (keep_recent as the engine sizes it), the
+    arc problem's edges, a solve after every keyframe (windowed past
+    keep_recent, old edges recycled).  After each: device_bytes() and
+    torch.cuda.memory_allocated().  Then evictions and uploads of single
+    keyframes timed (host clock between synchronisations)."""
+    import torch
+    from mast3r_slam_tpu_torch.config import load_config
+    from mast3r_slam_tpu_torch.slam import factor_graph as fg
+    from mast3r_slam_tpu_torch.slam.frame import Frame, Keyframes
+    from mast3r_slam_tpu_torch.slam.pipeline import keep_recent
+
+    N = hw[0] * hw[1]
+    gt, noisy, Xs = arc_problem(dev, hw, SOAK_KF, seed)
+    cfg = load_config("base")
+    cfg["engine"]["device_keyframes"] = PAGED_BUDGET
+    kf = Keyframes(64, N, 768, 1024, device=dev, device_budget=PAGED_BUDGET,
+                   keep_recent=keep_recent(cfg))
+    graph = fg.FactorGraph(None, cfg, kf, hw, edge_capacity=16)
+    dev_bytes, mem, caps = [], [], []
+    for k in range(SOAK_KF):
+        kf.append(arc_keyframe(Frame, k, noisy[k], Xs[k], dev, 768, 1024))
+        if k:
+            store_identity_edges(graph, arc_edges(k), N)
+            graph.solve(mode="rays")
+        sync(dev)
+        dev_bytes.append(kf.device_bytes())
+        mem.append(torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0)
+        caps.append((graph.capacity, graph._gcache_cap, graph.n_edges))
+    # the first keyframe after which the edge store, the cache and the
+    # card's allocations no longer change
+    flat_from = next(k for k in range(SOAK_KF)
+                     if len(set(mem[k:])) == 1 and len(set(caps[k:])) == 1)
+    full = kf.dcap  # the pool is full from keyframe dcap - 1 on
+    out = dict(n_kf=len(kf), dcap=kf.dcap, keep_recent=kf.keep_recent,
+               n_evictions=kf.n_evictions, n_edges_recycled=graph.n_edges_recycled,
+               device_bytes_flat=len(set(dev_bytes[full - 1:])) == 1,
+               device_bytes=dev_bytes[-1], memory_allocated=mem[-1],
+               memory_flat_from_kf=flat_from, memory_first_full=mem[full - 1],
+               edge_capacity=graph.capacity, n_edges=graph.n_edges,
+               error_last_window_m=(kf.T_WC[SOAK_KF - kf.keep_recent:SOAK_KF, :3]
+                                    - gt[SOAK_KF - kf.keep_recent:, :3]).norm(dim=-1).max().item())
+    # one keyframe's rows out and back in: the newest never-evicted ones
+    ev_ms, up_ms = [], []
+    for i in range(SOAK_KF - kf.keep_recent, SOAK_KF):
+        with kf._on_store_stream():
+            sync(dev)
+            t0 = time.perf_counter()
+            kf._evict_locked(i)
+            sync(dev)
+            ev_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        kf.ensure_resident([i])
+        sync(dev)
+        up_ms.append((time.perf_counter() - t0) * 1e3)
+    row_bytes = sum(getattr(kf, a)[0].numel() * getattr(kf, a).element_size()
+                    for a in ("X", "C", "feat", "pos"))
+    out.update(keyframe_row_bytes=row_bytes, evict_ms=ev_ms, upload_ms=up_ms)
+    log(f"10b paged soak {hw[0]}x{hw[1]}, tokens 768x1024: {json.dumps(out)}; "
+        f"device_bytes {dev_bytes}; memory_allocated {mem}")
+    if not (out["device_bytes_flat"] and kf.X.shape[0] == PAGED_BUDGET
+            and out["n_evictions"] > 0 and out["n_edges_recycled"] > 0
+            and flat_from <= SOAK_KF // 2):
+        raise AssertionError(f"10b paged soak: {json.dumps(out)} (the pool at "
+                             f"{PAGED_BUDGET} slots, device bytes flat once it fills, "
+                             f"the card's allocations flat over the second half)")
+    return out
+
+
+def run_paged_reloc(dev, cfg, label, hw=(384, 512), budget=RELOC_BUDGET, window=None):
+    """Phase 8's teleport run (run_synthetic_reloc) with the store paged to
+    ``budget`` slots (0: unpaged, at local_opt.window_size ``window``), as a
+    long video sees it: a keyframe at least every KF_EVERY tracked frames
+    until the camera is lost, no loop closures while the camera moves on (the backend's retrieval
+    updates add each keyframe but ask for no candidates: in this small box
+    every keyframe retrieves the first ones, whose edges would keep them in
+    every window), and the relocalisation's query taking its best two
+    candidates (retrieval.k 2).  The pool must then hold the window, the
+    older end of its chain edge and the candidates: keep_recent 2 + 1 + 2 =
+    5 slots.
+    Returns (result, slam, gt, the relocalisation's targets that were evicted
+    when their edges were asked for, launch counts)."""
+    from mast3r_slam_tpu_torch.slam.pipeline import SLAM
+
+    cfg["engine"]["device_keyframes"] = budget
+    cfg["retrieval"]["k"] = 2
+    if window:  # the control recycles as the paged run does: the same edge rows
+        cfg["local_opt"].update(window_size=window, edge_recycle=True)
+    brought_back = []
+    real_init = SLAM.__init__
+
+    def spy_init(slam, *a, **kw):
+        real_init(slam, *a, **kw)
+        add = slam.graph.add_factors
+
+        def counted(ii, jj, *a2, **kw2):
+            if kw2.get("is_reloc"):
+                brought_back.extend(j for j in jj if not slam.keyframes.is_resident(j))
+            return add(ii, jj, *a2, **kw2)
+
+        slam.graph.add_factors = counted
+        force_keyframes(slam, KF_EVERY)
+        update = slam.retrieval.update
+
+        def no_loop_closures(frame, add_after_query, k, min_thresh=0.0, kf_index=None):
+            return update(frame, add_after_query, 0, min_thresh, kf_index)
+
+        slam.retrieval.update = no_loop_closures
+
+    with swapped(SLAM, "__init__", spy_init):
+        res, slam, gt, counts, _, _ = run_synthetic_reloc(dev, hw=hw, cfg=cfg, label=label)
+    return res, slam, gt, sorted(set(brought_back)), counts
+
+
+def force_keyframes(slam, every):
+    """A keyframe at least every ``every`` tracked frames (tests/test_paging.py's
+    soak) until the first relocalisation, so that a 24-frame arc outgrows a
+    small pool."""
+    count = {"i": 0}
+    finish = slam.tracker.track_finish
+
+    def dense(pending):
+        new_kf, try_reloc = finish(pending)
+        if try_reloc or slam.n_reloc:
+            return new_kf, try_reloc
+        count["i"] += 1
+        if count["i"] % every == 0 and not new_kf:
+            slam.tracker.reset_idx_f2k()
+            return True, False
+        return new_kf, try_reloc
+
+    slam.tracker.track_finish = dense
+
+
+def check_paged_reloc(dev, work, hw=(384, 512)):
+    """10b: the teleport run paged to RELOC_BUDGET slots against an unpaged
+    control at the same effective window (keep_recent), sequential under
+    base, and the same run unpaged without a window; the last frames of
+    both within RELOC_BOUND_M and the keyframe quaternions within
+    QUAT_DRIFT_MAX of unit norm; a checkpoint of the paged store saved and
+    loaded; then the paged run under speed as packaged (threaded backend,
+    pipelined loop) beside an unpaged speed run at the same window."""
+    import torch
+    from mast3r_slam_tpu_torch.slam.checkpoint import load_state, save_state
+    from mast3r_slam_tpu_torch.slam.pipeline import SLAM
+
+    res, slam, gt, back, counts = run_paged_reloc(
+        dev, engine_cfg("base", edge_buffer=64), "base, paged", hw=hw)
+    kf = slam.keyframes
+    cres, cslam, _, _, _ = run_paged_reloc(
+        dev, engine_cfg("base", edge_buffer=64), "base, unpaged control", budget=0,
+        window=kf.keep_recent, hw=hw)
+    d = float(np.abs(res.frame_poses - cres.frame_poses).max())
+    same = bool(np.array_equal(res.frame_poses, cres.frame_poses)
+                and np.array_equal(res.keyframe_poses, cres.keyframe_poses))
+    post_err = lambda r: float(np.linalg.norm(r.frame_poses[-3:, :3] - gt[-3:, :3],
+                                              axis=-1).max())
+    # the largest keyframe quaternion's distance from unit norm
+    q_drift = lambda r: float(np.abs(np.linalg.norm(
+        np.asarray(r.keyframe_poses, np.float64)[:, 3:7], axis=-1) - 1).max())
+    post = post_err(res)
+    # what the window of 2 costs this scene: the same run unpaged and unwindowed
+    fres = run_paged_reloc(dev, engine_cfg("base", edge_buffer=64),
+                           "base, unpaged, no window", budget=0, hw=hw)[0]
+    # the checkpoint of the paged store
+    path = work / "paged.npz"
+    t0 = time.perf_counter()
+    save_state(path, slam)
+    save_s = time.perf_counter() - t0
+    fresh = SLAM(slam.model, slam.cfg, slam.img_hw, keyframe_buffer=32, device=dev)
+    load_state(path, fresh)
+    n = len(kf)
+    ck_same = bool(len(fresh.keyframes) == n
+                   and torch.equal(fresh.keyframes.T_WC[:n], kf.T_WC[:n])
+                   and all(np.array_equal(fresh.keyframes.pointmap_np(i)[0],
+                                          kf.pointmap_np(i)[0]) for i in range(n)))
+    path.unlink()
+    out = dict(n_keyframes=res.n_keyframes, control_n_keyframes=cres.n_keyframes,
+               n_reloc=res.n_reloc, control_n_reloc=cres.n_reloc,
+               n_reloc_success=res.n_reloc_success, dcap=kf.dcap, keep_recent=kf.keep_recent,
+               n_evictions=kf.n_evictions, brought_back=back,
+               n_edges_recycled=slam.graph.n_edges_recycled,
+               vs_control_max_abs=d, vs_control_same_bits=same, post_reloc_err_m=post,
+               kf_quat_norm_drift=q_drift(res),
+               no_window_post_reloc_err_m=post_err(fres),
+               no_window_n_reloc_success=fres.n_reloc_success,
+               checkpoint_same_bits=ck_same, checkpoint_save_s=save_s,
+               device_bytes=kf.device_bytes(), control_device_bytes=cslam.keyframes.device_bytes(),
+               launches=counts)
+    log(f"10b paged reloc (base): {json.dumps(out)}")
+    if not (res.n_keyframes == cres.n_keyframes and res.n_reloc == cres.n_reloc >= 1
+            and res.n_reloc_success == cres.n_reloc_success >= 1
+            and d <= PAGING_POSE_ATOL and kf.n_evictions > 0 and back and ck_same
+            and kf.X.shape[0] == kf.dcap == RELOC_BUDGET
+            and post < RELOC_BOUND_M and post_err(fres) < RELOC_BOUND_M
+            and q_drift(res) < QUAT_DRIFT_MAX
+            and counts["ivf_hamming"] > 0 and counts["refine_window"] > 0):
+        raise AssertionError(f"10b paged reloc against its unpaged control: {json.dumps(out)} "
+                             f"(the control's keyframes and relocalisations, poses within "
+                             f"{PAGING_POSE_ATOL}, an evicted target brought back, the pool "
+                             f"at {RELOC_BUDGET} slots, the checkpoint's poses bit for bit, "
+                             f"the last frames within {RELOC_BOUND_M} m, windowed or not, "
+                             f"quaternions within {QUAT_DRIFT_MAX} of unit norm)")
+    sres, sslam, _, sback, _ = run_paged_reloc(
+        dev, engine_cfg("speed", single_thread=False, edge_buffer=64), "speed, paged", hw=hw)
+    # the threaded backend's timing differs run to run: a control, not the same bits
+    scres = run_paged_reloc(dev, engine_cfg("speed", single_thread=False, edge_buffer=64),
+                            "speed, unpaged control", budget=0, window=kf.keep_recent,
+                            hw=hw)[0]
+    out["speed"] = dict(n_reloc=sres.n_reloc, n_reloc_success=sres.n_reloc_success,
+                        n_keyframes=sres.n_keyframes, n_evictions=sslam.keyframes.n_evictions,
+                        brought_back=sback, post_reloc_err_m=post_err(sres),
+                        kf_quat_norm_drift=q_drift(sres),
+                        mode=sslam.mode.name, control_n_reloc=scres.n_reloc,
+                        control_n_reloc_success=scres.n_reloc_success,
+                        control_n_keyframes=scres.n_keyframes,
+                        control_post_reloc_err_m=post_err(scres))
+    log(f"10b paged reloc (speed): {json.dumps(out['speed'])}")
+    if not (sres.n_reloc_success >= 1 and sslam.keyframes.n_evictions > 0 and sback
+            and sslam.keyframes.dcap == RELOC_BUDGET
+            and out["speed"]["post_reloc_err_m"] < RELOC_BOUND_M
+            and out["speed"]["control_post_reloc_err_m"] < RELOC_BOUND_M
+            and q_drift(sres) < QUAT_DRIFT_MAX):
+        raise AssertionError(f"10b paged reloc under speed: {json.dumps(out['speed'])}")
+    return out
+
+
+def run_strided_task(dev, model, kf, hw=(384, 512)):
+    """10c: one backend task with local_opt.pixel_stride 2 on phase 6's
+    ViT-L keyframes (add_factors([1], [2]) + solve), the launch counters
+    reset just before and read just after; the refine launch's inputs kept
+    and the kernel held exactly against its plain version on them, then
+    timed, with its shared-window share and its bound."""
+    import torch
+    from mast3r_slam_tpu_torch.config import load_config
+    from mast3r_slam_tpu_torch.ops import matching, refine
+    from mast3r_slam_tpu_torch.slam import factor_graph as fg
+
+    cfg = load_config("base")
+    cfg["local_opt"]["pixel_stride"] = 2
+    graph = fg.FactorGraph(model, cfg, kf, hw, edge_capacity=16)
+    frac = cfg["local_opt"]["min_match_frac"]
+    seen = []
+    real = matching.refine_window
+
+    def keep(*a):
+        out = real(*a)
+        seen.append((a, out))
+        return out
+
+    with swapped(matching, "refine_window", keep):
+        sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        added = graph.add_factors([1], [2], frac)
+        graph.solve()
+        sync(dev)
+        task_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+    if len(seen) != 1:
+        raise AssertionError(f"10c: {len(seen)} refine calls in the strided task")
+    (d11q, d21q, idx, H, W, radius, sched), got = seen[0]
+    want = refine.refine_window_plain(d11q, d21q, idx, H, W, radius, sched)
+    n_diff = int((got != want).sum().item())
+    stats = torch.zeros(4, dtype=torch.int64, device=dev)
+    again = refine.refine_window_cuda(d11q, d21q, idx, H, W, radius, sched, stats=stats)
+    sync(dev)
+    whole, pairs, px_win, px_all = stats.tolist()
+    times = time_kernel(lambda: refine.refine_window(d11q, d21q, idx, H, W, radius, sched),
+                        lambda: refine.refine_window_plain(d11q, d21q, idx, H, W, radius,
+                                                           sched), plain_iters=3)
+    n_rows, n_cand = refine_work(idx, H, W, radius, sched, d11q, d21q)
+    F = d11q.shape[-1]
+    nbytes = n_rows * F + d21q.numel() + idx.numel() * 4 * 2
+    t_ops, t_bytes = 2.0 * F * n_cand / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+    valid = graph.valid_match_j[0, :, 0]
+    grid = torch.zeros_like(valid)
+    grid[fg._strided_rows(hw, 2, dev).long()] = True
+    out = dict(added=added, task_ms=task_ms, launches=counts, n=int(idx.shape[1]),
+               B=int(idx.shape[0]), schedule=list(sched), radius=radius,
+               max_abs_err=n_diff, same_as_second_launch=bool(torch.equal(got, again)),
+               pairs_shared=whole / pairs, pixel_levels_shared=px_win / px_all,
+               rows_touched=n_rows, candidates=n_cand, **times,
+               bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               off_grid_valid=int((valid & ~grid).sum().item()),
+               poses_finite=bool(torch.isfinite(kf.T_WC[:3]).all()))
+    log(f"10c strided ViT-L backend task (pixel_stride 2): {json.dumps(out)}")
+    want_fixed = {"attention": 48, "refine_window": 1}
+    if ({k: counts[k] for k in want_fixed} != want_fixed or counts["edge_hg_rays"] < 1
+            or n_diff or not out["same_as_second_launch"] or not added
+            or out["off_grid_valid"] or not out["poses_finite"]
+            or idx.shape[1] != (H // 2) * (W // 2)):
+        raise AssertionError(f"10c strided task: {json.dumps(out)} (expected {want_fixed} "
+                             f"and edge_hg_rays >= 1, refine exact on the task's inputs)")
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -2170,7 +2674,7 @@ def main() -> int:
     if not all(r["same_bits"] for r in solves.values()):
         raise AssertionError("full-width solves, the same pose bits on a second run: "
                              + json.dumps({k: r["same_bits"] for k, r in solves.items()}))
-    backend_counts, backend_split = run_vitl_backend(dev, vitl)
+    backend_counts, backend_split, vitl_kf = run_vitl_backend(dev, vitl)
 
     retr = run_retrieval(dev, vitl)
     if any(c != {**{k: 0 for k in c}, "ivf_hamming": 1} for _, c in retr["launches"]):
@@ -2255,6 +2759,14 @@ def main() -> int:
         f"{vcli['stages']['export.ply']['mean_ms']:.1f} ms, checkpoint "
         f"{vcli['checkpoint_s'] * 1e3:.1f} ms ({vcli['checkpoint_bytes']} bytes); {smi}")
 
+    # the long-video memory plan, in the same scratch directory
+    windowed = check_windowed_solve(dev)
+    soak = run_paged_soak(dev)
+    paged = check_paged_reloc(dev, work)
+    strided = run_strided_task(dev, vitl, vitl_kf)
+    log(f"10c: strided task {strided['task_ms']:.3f} ms against the stride-1 task's "
+        f"{backend_split['task_ms']:.3f} ms (host clock); {smi}")
+
     common = lambda r: {k: r[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms",
                                           "library_call_ms")}
@@ -2262,7 +2774,8 @@ def main() -> int:
         dict(name="attention", route="cuda",
              source="mast3r_slam_tpu_torch/csrc/attention.cu",
              replaces="mast3r_slam_tpu/ops/attention.py:52",
-             launches=counts["attention"], shape=attn_enc["shape"], **common(attn_enc)),
+             launches=counts["attention"], shape=attn_enc["shape"], **common(attn_enc),
+             strided_task_launches=strided["launches"]["attention"]),
         dict(name="refine_window", route="cuda",
              source="mast3r_slam_tpu_torch/csrc/refine_window.cu",
              replaces="mast3r_slam_tpu/ops/refine_pallas.py:70",
@@ -2270,11 +2783,20 @@ def main() -> int:
              speed_launches=speed["seq_counts"]["refine_window"],
              speed={k: {m: r[m] for m in ("schedule", "radius", "n", "ms", "call_ms",
                                           "plain_ms", "bound_ms", "bound_by")}
-                    for k, r in ref_speed["current"].items()}),
+                    for k, r in ref_speed["current"].items()},
+             strided_launches=strided["launches"]["refine_window"],
+             paged_reloc_launches=paged["launches"]["refine_window"],
+             strided={k: strided[k] for k in ("B", "n", "schedule", "radius", "max_abs_err",
+                                              "ms", "call_ms", "plain_ms", "bound_ms",
+                                              "bound_by", "pairs_shared",
+                                              "pixel_levels_shared")}),
         dict(name="edge_hg_rays", route="cuda",
              source="mast3r_slam_tpu_torch/csrc/edge_hg_rays.cu",
              replaces="mast3r_slam_tpu/ops/edge_hg_pallas.py:130",
-             launches=backend_counts["edge_hg_rays"], shape=ehg["shape"], **common(ehg)),
+             launches=backend_counts["edge_hg_rays"], shape=ehg["shape"], **common(ehg),
+             windowed_launches=sum(r["edge_hg_launches"] for r in windowed["solves"]),
+             paged_reloc_launches=paged["launches"]["edge_hg_rays"],
+             strided_task_launches=strided["launches"]["edge_hg_rays"]),
         # the next three: launches in phase 8's SLAM.run (retrieval and reloc);
         # the two probes lie on no package path, their row-gather kernel
         # runs there as ivf_hamming
@@ -2291,7 +2813,8 @@ def main() -> int:
         dict(name="ivf_hamming", route="cuda",
              source="mast3r_slam_tpu_torch/csrc/ivf_hamming.cu",
              replaces="mast3r_slam_tpu/retrieval/asmk.py:307",
-             launches=rcounts["ivf_hamming"], shape=ivf["shape"], **common(ivf)),
+             launches=rcounts["ivf_hamming"], shape=ivf["shape"], **common(ivf),
+             paged_reloc_launches=paged["launches"]["ivf_hamming"]),
     ], "kernel_floor_ms": design["kernel_floor_ms"],
         "edge_hg_sass_loop": design["edge_hg_sass_loop"], "ptxas": design["ptxas"],
         "gather_plans": design["plans"],
@@ -2312,7 +2835,11 @@ def main() -> int:
                   "oneway_task_launches": speed["task_counts"], "synthetic_ate_m": sate,
                   "synthetic_engine": sstats, "reloc_post_err_m": sr_err,
                   "reloc_success": sr_res.n_reloc_success},
-        "cli": {"standin": cli, "vitl": vcli, "card": smi}}
+        "cli": {"standin": cli, "vitl": vcli, "card": smi},
+        "long_video": {"windowed": windowed, "paged_soak": soak,
+                       "paged_reloc": {k: v for k, v in paged.items() if k != "launches"},
+                       "strided_task_ms": strided["task_ms"],
+                       "stride1_task_ms": backend_split["task_ms"], "card": smi}}
     log(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -64,7 +64,9 @@ def world_points(keyframes, i: int, img_hw, use_calib: bool = False):
     (C over the fused count), both as (N, ...) numpy; calibrated runs snap
     the points onto the pixel rays first."""
     with keyframes.lock:
-        X, C = keyframes.X[i], keyframes.C[i]
+        # from its slot or, evicted under paging, from its host buffers
+        X, C = (torch.as_tensor(a, device=keyframes.device)
+                for a in keyframes.pointmap_np(i))
         n_fused = keyframes.n_fused[i].float().clamp_min(1.0)
         if use_calib and keyframes.K is not None:
             X = constrain_points_to_ray(img_hw, X, keyframes.K)

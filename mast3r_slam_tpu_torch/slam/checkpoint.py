@@ -11,9 +11,13 @@ Both functions wait for the threaded backend to go idle first.  Loading
 moves every restored keyframe's ``pm_version`` and the store's
 ``generation``, so the factor graph's gathered-point cache and any backend
 snapshot taken before the load are not reused; it clears the speculative
-gate's pending verdicts and the tracker's warm-start matches.  The port
-recycles no edges yet (ROADMAP Queue 1 item 8e), so no edge freelist is
-saved or restored.
+gate's pending verdicts and the tracker's warm-start matches.
+
+A paged store saves every keyframe's rows, resident or evicted; loading
+puts the newest min(n, device slots) keyframes into slots and the older
+ones into host buffers.  The edge freelist is not saved, as in the JAX
+package: loading queues the dead rows a recycle left (``edge_live`` False,
+ii == jj == 0) for reuse.
 """
 
 from __future__ import annotations
@@ -50,10 +54,6 @@ def save_state(path, slam) -> None:
             kf_n_fused=_np(kf.n_fused[:n]),
             kf_n_updates=_np(kf.n_updates[:n]),
             kf_score=_np(kf.score[:n]),
-            kf_X=_np(kf.X[:n]),
-            kf_C=_np(kf.C[:n]),
-            kf_feat=_np(kf.feat[:n]),
-            kf_pos=_np(kf.pos[:n]),
             edge_ii=g.ii[:E].copy(),
             edge_jj=g.jj[:E].copy(),
             edge_idx_ii2jj=_np(g.idx_ii2jj[:E]),
@@ -64,6 +64,15 @@ def save_state(path, slam) -> None:
             edge_Q_jj2ii=_np(g.Q_jj2ii[:E]),
             edge_live=g.edge_live[:E].copy(),
         )
+        # every keyframe's rows, from its slot or its host buffers
+        pm = [kf.pointmap_np(i) for i in range(n)]
+        ft = [kf.feat_np(i) for i in range(n)]
+        for key, rows, like in (("kf_X", [p[0] for p in pm], kf.X),
+                                ("kf_C", [p[1] for p in pm], kf.C),
+                                ("kf_feat", [f[0] for f in ft], kf.feat),
+                                ("kf_pos", [f[1] for f in ft], kf.pos)):
+            arrays[key] = (np.stack(rows) if rows else
+                           np.zeros((0,) + tuple(like.shape[1:]), _np(like[:0]).dtype))
         if kf.K is not None:
             arrays["K"] = _np(kf.K)
         uimgs = kf.uimgs[:n]
@@ -123,10 +132,9 @@ def _load(data, slam) -> None:
             put(kf.score, "kf_score", n)
         else:  # v1 checkpoints predate the fusion counters
             put(kf.n_updates, "kf_n_fused", n)
-        for name in ("X", "C", "feat", "pos"):
-            put(getattr(kf, name), f"kf_{name}", n)
         kf.pm_version[:n] += 1
         kf.generation += 1
+        kf.load_rows(*(data[f"kf_{name}"] for name in ("X", "C", "feat", "pos")))
         if "K" in data:
             kf.K = torch.as_tensor(np.asarray(data["K"]), dtype=torch.float32, device=dev)
             g.K = kf.K
@@ -151,6 +159,7 @@ def _load(data, slam) -> None:
             g.edge_live[:] = True
             if "edge_live" in data:  # checkpoints before the speculative gate lack it
                 g.edge_live[:E] = data["edge_live"]
+        g.seed_free_rows()
 
         rdb = slam.retrieval
         if rdb is not None and "ivf_vecs" in data:

@@ -20,16 +20,28 @@ a relocalisation call, which stays strict and bidirectional):
   does not wait for the match fractions; ``resolve_pending_verdicts``
   reads them later into ``edge_live``.
 
+With ``local_opt.pixel_stride`` s > 1 an edge is matched from an s-strided
+source grid (N/s^2 pixels) and its fields are scattered back to full shape,
+zero-weight off the grid.
+
 ``solve`` expands the stored edges both ways and runs the global
-Gauss-Newton over every keyframe pose, through the gathered-point cache
-when it applies, then writes the solved poses back to the keyframe store
-(refused if a relocalisation popped a keyframe meanwhile).
+Gauss-Newton, through the gathered-point cache when it applies, then writes
+the solved poses back to the keyframe store (refused if a relocalisation
+popped a keyframe meanwhile).  With ``local_opt.window_size`` below the
+free poses (or under keyframe paging, whose ``keep_recent`` clamps the
+window) it solves only the newest ``window`` poses: the edges that reach
+the window, with their older endpoints as pinned context in a compact pose
+array.  A windowed solve under paging, or with ``local_opt.edge_recycle``,
+then retires the edges whose both ends lie before the window into a
+freelist that later edges reuse, so the edge store stops growing.  A
+keyframe store that pages is brought resident (``ensure_resident``) for
+every keyframe a call reads, under the store's lock, right before the
+snapshot.
 
 The edge store is preallocated tensors on the device written in place, and
-a solve takes exactly the stored edges and keyframes: the JAX package pads
-both to power-of-two buckets only to bound its compiled programs.  Strided
-matching, edge recycling, windowed solves, paging and a mesh raise
-``NotImplementedError`` naming their ROADMAP item.
+a solve takes exactly the stored edges and keyframes it needs: the JAX
+package pads both to power-of-two buckets only to bound its compiled
+programs.  A mesh raises ``NotImplementedError`` (ROADMAP Queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -46,9 +58,6 @@ from ..ops import matching
 from ..ops.global_gn import GlobalGNSettings, gauss_newton_poses, gauss_newton_poses_cached
 from ..ops.matching import match_kwargs
 from .frame import Keyframes
-
-_ITEM8 = "ROADMAP Queue 1, item 8"
-_WINDOWED = f"{_ITEM8}e: windowed solves and edge recycling"
 
 
 def _bucket(n: int, lo: int = 1) -> int:
@@ -70,7 +79,8 @@ def _store_edges(stores, rows, new) -> None:
 def _refresh_gather(gf, gb, Xs, C_raw, K, eii, ejj, idx_f, idx_b, pos, img_hw,
                     mode: str) -> None:
     """Re-gather the cached [X | C_raw] rows of the edges ``pos``, in place.
-    eii / ejj (S,) source keyframes; idx_f / idx_b (S, N) match indices.
+    eii / ejj (S,) the source keyframes' slots in Xs / C_raw; idx_f / idx_b
+    (S, N) match indices.
     Raw C is cached (normalised at solve time); calib mode caches
     ray-constrained X."""
     rows_i = torch.cat([Xs[eii], C_raw[eii]], dim=-1).float()
@@ -84,54 +94,81 @@ def _refresh_gather(gf, gb, Xs, C_raw, K, eii, ejj, idx_f, idx_b, pos, img_hw,
     gb[pos] = torch.gather(rows_j, 1, idx_b.long()[..., None].expand(-1, -1, 4))
 
 
-def _expand_two_way(idx_f, idx_b, vf, vb, qf, qb, n_edges: int):
-    """The first ``n_edges`` stored edges both ways, in the layout
-    [forward(0..E) | backward(0..E)]: (idx (2E, N), valid (2E, N, 1),
+def _expand_two_way(idx_f, idx_b, vf, vb, qf, qb, rows):
+    """Stored edges ``rows`` (an index tensor) both ways, in the layout
+    [forward(rows) | backward(rows)]: (idx (2E, N), valid (2E, N, 1),
     Q (2E, N, 1))."""
-    E = n_edges
-    return (torch.cat([idx_f[:E], idx_b[:E]]), torch.cat([vf[:E], vb[:E]]),
-            torch.cat([qf[:E], qb[:E]]))
+    return (torch.cat([idx_f[rows], idx_b[rows]]), torch.cat([vf[rows], vb[rows]]),
+            torch.cat([qf[rows], qb[rows]]))
+
+
+def _strided_rows(img_hw, stride: int, device) -> torch.Tensor:
+    """Linear indices in the full grid of the s-strided source pixels: the
+    matcher's warm start and where the strided fields are scattered."""
+    H, W = img_hw
+    r = (torch.arange(0, H, stride, dtype=torch.int32, device=device)[:, None] * W
+         + torch.arange(0, W, stride, dtype=torch.int32, device=device)[None, :])
+    return r.reshape(-1)
+
+
+def _scatter_rows(rows, N: int, idx_s, valid_s, Q_s):
+    """Strided matcher outputs -> full-shape edge fields; rows off the grid
+    hold valid False and Q 0, zero weight in the solve."""
+    B = idx_s.shape[0]
+    r = rows.long()
+    idx = idx_s.new_zeros((B, N))
+    valid = valid_s.new_zeros((B, N, 1))
+    Q = torch.zeros((B, N, 1), dtype=torch.float32, device=Q_s.device)
+    idx[:, r] = idx_s
+    valid[:, r] = valid_s
+    Q[:, r] = Q_s.float()
+    return idx, valid, Q
+
+
+def _match_q(img_hw, stride: int, X1, X2, D1, D2, Q1, Q2, Q_conf: float, mk: dict):
+    """Match images 1 -> 2 (batch B) from every pixel of 2, or from its
+    s-strided grid, then aggregate Q = sqrt(Q1[idx] * Q2).  Returns
+    full-shape (idx, valid, Q) and the match fraction of valid, confident
+    source pixels."""
+    B = X1.shape[0]
+    N = img_hw[0] * img_hw[1]
+    init = rows = None
+    if stride > 1:
+        rows = _strided_rows(img_hw, stride, X1.device)
+        init = rows.expand(B, -1)
+        X2, D2, Q2 = (a[:, ::stride, ::stride] for a in (X2, D2, Q2))
+    idx, valid = matching.match(X1, X2, D1, D2, init, **mk)
+    g = torch.gather(Q1.reshape(B, N, 1), 1, idx.long()[..., None])
+    Q = torch.sqrt(g * Q2.reshape(B, -1, 1))
+    frac = (valid & (Q > Q_conf)).float().mean(dim=(1, 2))
+    if stride > 1:
+        idx, valid, Q = _scatter_rows(rows, N, idx, valid, Q)
+    return idx, valid, Q, frac
 
 
 @torch.no_grad()
-def _add_factors_compute(img_hw, res, Q_conf: float, mk: dict):
+def _add_factors_compute(img_hw, res, Q_conf: float, mk: dict, stride: int = 1):
     """Two-way matching + Q aggregation for B pairs: the matcher runs once
     on the 2B images [ii | jj] (the JAX package unrolls it per pair for a
     TPU lowering reason; the indices are the same)."""
-    H, W = img_hw
-    N = H * W
     (Xii, _, Dii, Qii), (Xji, _, Dji, Qji), (Xjj, _, Djj, Qjj), (Xij, _, Dij, Qij) = res
     B = Xii.shape[0]
-    idx, valid = matching.match(
-        torch.cat([Xii, Xjj]), torch.cat([Xji, Xij]),
-        torch.cat([Dii, Djj]), torch.cat([Dji, Dij]), **mk)
-    idx_i2j, idx_j2i = idx[:B], idx[B:]
-    valid_j, valid_i = valid[:B], valid[B:]
-
-    def agg(Q_src, idx_, Q_dst):
-        g = torch.gather(Q_src.reshape(B, N, 1), 1, idx_.long()[..., None])
-        return torch.sqrt(g * Q_dst.reshape(B, N, 1))
-
-    Qj = agg(Qii, idx_i2j, Qji)
-    Qi = agg(Qjj, idx_j2i, Qij)
-    match_frac_j = (valid_j & (Qj > Q_conf)).float().mean(dim=(1, 2))
-    match_frac_i = (valid_i & (Qi > Q_conf)).float().mean(dim=(1, 2))
-    return dict(idx_i2j=idx_i2j, idx_j2i=idx_j2i, valid_j=valid_j, valid_i=valid_i,
-                Qj=Qj, Qi=Qi, match_frac_j=match_frac_j, match_frac_i=match_frac_i)
+    idx, valid, Q, frac = _match_q(
+        img_hw, stride, torch.cat([Xii, Xjj]), torch.cat([Xji, Xij]),
+        torch.cat([Dii, Djj]), torch.cat([Dji, Dij]), torch.cat([Qii, Qjj]),
+        torch.cat([Qji, Qij]), Q_conf, mk)
+    return dict(idx_i2j=idx[:B], idx_j2i=idx[B:], valid_j=valid[:B], valid_i=valid[B:],
+                Qj=Q[:B], Qi=Q[B:], match_frac_j=frac[:B], match_frac_i=frac[B:])
 
 
 @torch.no_grad()
-def _add_factors_forward(img_hw, res, Q_conf: float, mk: dict):
+def _add_factors_forward(img_hw, res, Q_conf: float, mk: dict, stride: int = 1):
     """Forward-only (i -> j) matching and Q aggregation for B pairs: the
     forward half of ``_add_factors_compute`` (the one-way and reuse paths)."""
-    N = img_hw[0] * img_hw[1]
     (Xii, _, Dii, Qii), (Xji, _, Dji, Qji) = res
-    B = Xii.shape[0]
-    idx_i2j, valid_j = matching.match(Xii, Xji, Dii, Dji, **mk)
-    g = torch.gather(Qii.reshape(B, N, 1), 1, idx_i2j.long()[..., None])
-    Qj = torch.sqrt(g * Qji.reshape(B, N, 1))
-    match_frac_j = (valid_j & (Qj > Q_conf)).float().mean(dim=(1, 2))
-    return dict(idx_i2j=idx_i2j, valid_j=valid_j, Qj=Qj, match_frac_j=match_frac_j)
+    idx, valid, Q, frac = _match_q(img_hw, stride, Xii, Xji, Dii, Dji, Qii, Qji,
+                                   Q_conf, mk)
+    return dict(idx_i2j=idx, valid_j=valid, Qj=Q, match_frac_j=frac)
 
 
 def _masked(keep, valid, Q):
@@ -150,14 +187,6 @@ class FactorGraph:
             raise NotImplementedError(
                 "a mesh is not ported yet (ROADMAP Queue 1, item 12: multi-GPU)")
         lcfg = cfg["local_opt"]
-        if lcfg.get("edge_recycle", False):
-            raise NotImplementedError(
-                f"local_opt.edge_recycle: {lcfg['edge_recycle']!r} is not ported yet "
-                f"({_WINDOWED})")
-        if int(lcfg.get("pixel_stride", 1)) > 1:
-            raise NotImplementedError(
-                f"local_opt.pixel_stride: {lcfg['pixel_stride']!r} is not ported "
-                f"yet ({_ITEM8}d: strided backend matching)")
         self.model = model
         self.cfg = cfg
         self.lcfg = lcfg
@@ -167,8 +196,11 @@ class FactorGraph:
         self.img_hw = tuple(img_hw)
         self.K = (K if K is not None
                   else torch.eye(3, dtype=torch.float32, device=self.device))
-        # free poses a solve may take; beyond it the JAX graph solves a window
+        # free poses a solve may take; beyond it the solve takes a window
         self.window_size = int(float(lcfg.get("window_size", 0) or 0))
+        self._recycle = bool(lcfg.get("edge_recycle", False))
+        # backend matching on an s-strided source grid (1: every pixel)
+        self._pstride = max(1, int(lcfg.get("pixel_stride", 1)))
         N = img_hw[0] * img_hw[1]
         self.N = N
         self.capacity = edge_capacity
@@ -201,6 +233,9 @@ class FactorGraph:
         # the last PCG-routed solve's `diverged` flag, read by the next solve
         self._health_pending = None
         self.n_recoveries = 0
+        # rows of recycled edges, taken before the store grows
+        self._free_edge_rows: List[int] = []
+        self.n_edges_recycled = 0
 
     def _stores(self):
         return (self.idx_ii2jj, self.idx_jj2ii, self.valid_match_j,
@@ -227,7 +262,11 @@ class FactorGraph:
         B = len(ii)
         if B == 0:
             return False
-        snap = self.keyframes.snapshot()
+        kf = self.keyframes
+        with kf.lock:  # no eviction between the upload and the snapshot
+            if kf.paging:
+                kf.ensure_resident(set(ii) | set(jj))
+            snap = kf.snapshot()
         ii_arr = np.asarray(ii, dtype=np.int32)
         jj_arr = np.asarray(jj, dtype=np.int32)
         lcfg = self.lcfg
@@ -275,22 +314,23 @@ class FactorGraph:
                     out_f, ii_arr[one_mask], jj_arr[one_mask], min_match_frac)
         return added
 
+    def _pair_tokens(self, snap, ii_arr, jj_arr):
+        """(feat_i, pos_i, feat_j, pos_j) of the pairs, read through the
+        snapshot's slots."""
+        si = torch.as_tensor(snap.slots(ii_arr), device=self.device).long()
+        sj = torch.as_tensor(snap.slots(jj_arr), device=self.device).long()
+        return snap.feat[si], snap.pos[si], snap.feat[sj], snap.pos[sj]
+
     def _compute_symmetric(self, snap, ii_arr, jj_arr):
-        ii_t = torch.as_tensor(ii_arr, device=self.device).long()
-        jj_t = torch.as_tensor(jj_arr, device=self.device).long()
-        res = self.model.symmetric(snap.feat[ii_t], snap.pos[ii_t],
-                                   snap.feat[jj_t], snap.pos[jj_t])
+        res = self.model.symmetric(*self._pair_tokens(snap, ii_arr, jj_arr))
         return _add_factors_compute(self.img_hw, res, float(self.lcfg["Q_conf"]),
-                                    match_kwargs(self.cfg))
+                                    match_kwargs(self.cfg), self._pstride)
 
     def _compute_oneway(self, snap, ii_arr, jj_arr):
         """One asymmetric decode and forward matching a pair."""
-        ii_t = torch.as_tensor(ii_arr, device=self.device).long()
-        jj_t = torch.as_tensor(jj_arr, device=self.device).long()
-        res = self.model.asymmetric(snap.feat[ii_t], snap.pos[ii_t],
-                                    snap.feat[jj_t], snap.pos[jj_t])
+        res = self.model.asymmetric(*self._pair_tokens(snap, ii_arr, jj_arr))
         return _add_factors_forward(self.img_hw, res, float(self.lcfg["Q_conf"]),
-                                    match_kwargs(self.cfg))
+                                    match_kwargs(self.cfg), self._pstride)
 
     def _store(self, ii_arr, jj_arr, fields) -> np.ndarray:
         """Store new edges (ii, jj) with their six fields; returns the rows."""
@@ -405,11 +445,51 @@ class FactorGraph:
             return int(self.edge_live[: self.n_edges].sum())
 
     def _take_edge_rows(self, B: int) -> np.ndarray:
-        """B fresh edge rows off the end of the store, growing it if needed."""
-        self._ensure_capacity(self.n_edges + B)
-        rows = np.arange(self.n_edges, self.n_edges + B, dtype=np.int32)
-        self.n_edges += B
-        return rows
+        """B edge rows: recycled rows first, then fresh rows off the end of
+        the store, growing it if needed."""
+        rows = self._free_edge_rows[:B]
+        del self._free_edge_rows[:B]
+        need = B - len(rows)
+        if need:
+            self._ensure_capacity(self.n_edges + need)
+            rows.extend(range(self.n_edges, self.n_edges + need))
+            self.n_edges += need
+        return np.asarray(rows, dtype=np.int32)
+
+    def _recycle_old_edges(self, s0: int):
+        """Retire the edges whose both ends lie before the window's first
+        pose ``s0``.  No windowed solve reads them again (the window only
+        moves forward), so this changes no solve; their rows are zeroed on
+        the device (zero weight, should a full solve see them), marked dead
+        and queued for reuse."""
+        self.resolve_pending_verdicts()
+        E = self.n_edges
+        if E == 0:
+            return
+        free = np.zeros((E,), bool)
+        free[[r for r in self._free_edge_rows if r < E]] = True
+        rows = np.nonzero((self.ii[:E] < s0) & (self.jj[:E] < s0) & ~free)[0]
+        if rows.size == 0:
+            return
+        r = torch.as_tensor(rows, device=self.device).long()
+        for a in (self.valid_match_j, self.valid_match_i, self.Q_ii2jj, self.Q_jj2ii):
+            a[r] = 0
+        self.ii[rows] = 0
+        self.jj[rows] = 0
+        self._stamp_f[rows] = -1
+        self._stamp_b[rows] = -1
+        with self._verdict_lock:
+            self.edge_live[rows] = False
+        self._free_edge_rows = sorted(self._free_edge_rows + rows.tolist())
+        self.n_edges_recycled += int(rows.size)
+
+    def seed_free_rows(self):
+        """Queue the dead rows a recycle left (edge_live False, ii == jj == 0)
+        for reuse: a checkpoint holds the rows but not the freelist."""
+        E = self.n_edges
+        with self._verdict_lock:
+            dead = ~self.edge_live[:E] & (self.ii[:E] == 0) & (self.jj[:E] == 0)
+        self._free_edge_rows = np.nonzero(dead)[0].tolist()
 
     def _ensure_capacity(self, needed: int):
         """Double the edge store (copying it) until ``needed`` rows fit."""
@@ -436,75 +516,133 @@ class FactorGraph:
     # ------------------------------------------------------------------
 
     def solve(self, mode: str = None):
-        """Two-way edge expansion, global GN over all keyframe poses (the
-        first ``pin`` stay fixed), pose write-back."""
+        """Global GN over the keyframe poses (the first ``pin`` stay fixed),
+        over all of them or over a window, then the pose write-back.  After
+        a PCG-routed solve that raised the cost, this one runs dense, its
+        window clamped to ``dense_max_poses`` as well."""
         if mode is None:
             mode = "calib" if self.cfg["use_calib"] else "rays"
+        kf = self.keyframes
         E = self.n_edges
-        ver = self.keyframes.pm_version.copy()
-        snap = self.keyframes.snapshot()
-        n_kf = snap.n
-        if E == 0 or n_kf <= self.settings.pin:
+        if E == 0 or len(kf) <= self.settings.pin:
             return
+        settings = self.settings
+        window = self._effective_window()
         if self._consume_health():
-            # the previous PCG-routed solve raised the cost (its step was
-            # reverted): solve this one on the dense route
-            old = self.settings
-            window = min(self.window_size or 10 ** 9, old.dense_max_poses)
-            self._check_window(n_kf, window, "the health guard's dense recovery")
-            self.settings = old._replace(solver="dense")
-            try:
-                self._solve_full(mode, snap, E, n_kf, ver)
-            finally:
-                self.settings = old
+            settings = settings._replace(solver="dense")
+            window = min(window or 10 ** 9, settings.dense_max_poses)
+        with kf.lock:  # no eviction between the uploads and the snapshot
+            free = len(kf) - settings.pin
+            window = min(window or free, free)
+            self._prepare_residency(window)
+            # versions before the snapshot: a fusion landing in between is
+            # re-gathered next solve, never served stale
+            ver = kf.pm_version.copy()
+            snap = kf.snapshot()
+        old = self.settings
+        self.settings = settings
+        try:
+            self._solve_window(mode, snap, E, window, ver)
+        finally:
+            self.settings = old
+
+    def _effective_window(self) -> int:
+        """``window_size``, clamped under paging to ``keep_recent``: only the
+        newest ``keep_recent`` keyframes are sure to be resident."""
+        window = self.window_size
+        if self.keyframes.paging:
+            window = min(window or 10 ** 9, self.keyframes.keep_recent)
+        return window
+
+    def _prepare_residency(self, window: int):
+        """Under paging, bring back every keyframe a solve of the newest
+        ``window`` poses reads (the window and the older ends of its edges)
+        and mark the older ones sticky, so that solve after solve does not
+        evict and upload them again.  Caller holds the store's lock."""
+        kf = self.keyframes
+        E = self.n_edges
+        if not kf.paging or E == 0:
             return
-        self._check_window(n_kf, self.window_size, "local_opt.window_size")
-        self._solve_full(mode, snap, E, n_kf, ver)
+        n_now = len(kf)
+        s0 = n_now - window
+        ii_e, jj_e = self.ii[:E], self.jj[:E]
+        keep = (ii_e >= s0) | (jj_e >= s0)
+        refs = np.unique(np.concatenate([ii_e[keep], jj_e[keep]]))
+        kf.sticky = {int(r) for r in refs if r < s0}
+        kf.ensure_resident([int(r) for r in refs] + list(range(s0, n_now)))
 
-    def _check_window(self, n_kf: int, window: int, what: str):
-        if window and (n_kf - self.settings.pin) > window:
-            raise NotImplementedError(
-                f"{what}: a window of {window} free poses is smaller than the "
-                f"graph's {n_kf - self.settings.pin}, and the windowed solve is "
-                f"not ported yet ({_WINDOWED})")
-
-    def _solve_full(self, mode: str, snap, E: int, n_kf: int, ver):
+    def _solve_window(self, mode: str, snap, E: int, window: int, ver):
+        """Solve the newest ``window`` poses (all the free ones when there is
+        no window).  Poses before ``s0`` stay fixed; the edges with an end in
+        the window are kept, and their older ends enter a compact pose array
+        [pinned context | window] as pinned poses.  Edges between two older
+        poses would touch pinned poses only, so dropping them changes
+        nothing.  A solve that leaves free poses out then recycles the edges
+        behind the window (under paging or ``edge_recycle``)."""
+        n_kf = snap.n
+        s0 = n_kf - window
+        ii_e, jj_e = self.ii[:E], self.jj[:E]
+        keep = (ii_e >= s0) | (jj_e >= s0)
+        kept = np.nonzero(keep)[0]
+        if kept.size == 0:
+            return
+        ends = np.concatenate([ii_e[kept], jj_e[kept]])
+        old_ref = np.unique(ends[ends < s0])
+        if old_ref.size == 0 and s0 > 0:
+            # a window cut off from the past: the newest older pose sets the gauge
+            old_ref = np.array([s0 - 1])
+        pin = int(old_ref.size)
+        sel = np.concatenate([old_ref, np.arange(s0, n_kf)])
+        remap = np.zeros((n_kf,), np.int64)
+        remap[old_ref] = np.arange(pin)
+        remap[s0:] = pin + np.arange(window)
+        mii, mjj = remap[ii_e[kept]], remap[jj_e[kept]]
         dev = self.device
-        ii2 = torch.as_tensor(np.concatenate([self.ii[:E], self.jj[:E]]), device=dev)
-        jj2 = torch.as_tensor(np.concatenate([self.jj[:E], self.ii[:E]]), device=dev)
-        idx, valid, Q = _expand_two_way(*self._stores(), E)
+        ii2 = torch.as_tensor(np.concatenate([mii, mjj]), device=dev)
+        jj2 = torch.as_tensor(np.concatenate([mjj, mii]), device=dev)
+        kept_t = torch.as_tensor(kept, device=dev).long()
+        idx, valid, Q = _expand_two_way(*self._stores(), kept_t)
+        slots = torch.as_tensor(snap.slots(sel), device=dev).long()
+        poses = torch.as_tensor(sel, device=dev).long()
+        settings = self.settings._replace(pin=pin)
         if self._cache_usable(E):
-            self._refresh_gcache(E, ver, snap, mode)
+            among = np.zeros((E,), bool)
+            among[kept] = True
+            self._refresh_gcache(E, ver, snap, mode, among=among)
             Twc_new, _, _, diverged = gauss_newton_poses_cached(
-                snap.T_WC[:n_kf], snap.X[:n_kf], snap.C[:n_kf], snap.n_fused[:n_kf],
-                ii2, jj2, self._gf[:E], self._gb[:E], idx, valid, Q, self.K,
-                self.img_hw, self.settings, mode)
+                snap.T_WC[poses], snap.X[slots], snap.C[slots], snap.n_fused[poses],
+                ii2, jj2, self._gf[kept_t], self._gb[kept_t], idx, valid, Q, self.K,
+                self.img_hw, settings, mode)
         else:
-            Cs = snap.C[:n_kf] / torch.clamp_min(
-                snap.n_fused[:n_kf, None, None].float(), 1.0)
+            Cs = snap.C[slots] / torch.clamp_min(
+                snap.n_fused[poses][:, None, None].float(), 1.0)
             Twc_new, _, _, diverged = self._dispatch_solve(
-                snap.T_WC[:n_kf], snap.X[:n_kf], Cs, ii2, jj2, idx, valid, Q, mode)
-        self._record_health(diverged, n_kf)
-        self.keyframes.write_back_poses(self.settings.pin, n_kf, snap.generation, Twc_new)
+                snap.T_WC[poses], snap.X[slots], Cs, ii2, jj2, idx, valid, Q, mode,
+                settings)
+        self._record_health(diverged, len(sel), pin)
+        self.keyframes.write_back_poses(s0, n_kf, snap.generation, Twc_new, src_offset=pin)
+        if s0 > self.settings.pin and (self.keyframes.paging or self._recycle):
+            self._recycle_old_edges(s0)
 
-    def _dispatch_solve(self, Twc, Xs, Cs, ii2, jj2, idx, valid, Q, mode: str):
+    def _dispatch_solve(self, Twc, Xs, Cs, ii2, jj2, idx, valid, Q, mode: str,
+                        settings=None):
         """The global GN on gathered-in-solve edge fields (one device)."""
         if mode == "calib":
             Xs = constrain_points_to_ray(self.img_hw, Xs, self.K)
         return gauss_newton_poses(Twc, Xs, Cs, ii2, jj2, idx, valid, Q, self.K,
-                                  self.img_hw, self.settings, mode)
+                                  self.img_hw, settings or self.settings, mode)
 
     # ------------------------------------------------------------------
     # solver health guard
     # ------------------------------------------------------------------
 
-    def _record_health(self, diverged: bool, P: int):
+    def _record_health(self, diverged: bool, P: int, pin: int):
         """Keep a PCG-routed solve's ``diverged`` flag for the next solve
         (the dense route is damped to stay positive definite and checks its
-        factor, so its flag is not kept)."""
+        factor, so its flag is not kept).  ``pin``: the solve's pinned poses."""
         s = self.settings
         routed_pcg = s.solver == "pcg" or (
-            s.solver == "auto" and (P - s.pin) > s.dense_max_poses)
+            s.solver == "auto" and (P - pin) > s.dense_max_poses)
         if routed_pcg:
             self._health_pending = diverged
 
@@ -543,12 +681,16 @@ class FactorGraph:
             self._gb = torch.cat([self._gb, fresh(pad)])
         self._gcache_cap = cap
 
-    def _refresh_gcache(self, E: int, ver, snap, mode: str):
-        """Re-gather the rows of edges whose source keyframes changed."""
+    def _refresh_gcache(self, E: int, ver, snap, mode: str, among=None):
+        """Re-gather the rows of edges whose source keyframes changed; with
+        ``among`` (a mask over the E edges), only of those edges (a window's:
+        the others stay stale until a solve needs them)."""
         self._ensure_gcache(E)
         ii_e = self.ii[:E]
         jj_e = self.jj[:E]
         stale = (self._stamp_f[:E] != ver[ii_e]) | (self._stamp_b[:E] != ver[jj_e])
+        if among is not None:
+            stale &= among
         sidx = np.nonzero(stale)[0]
         if sidx.size == 0:
             return
@@ -556,8 +698,8 @@ class FactorGraph:
         pos = torch.as_tensor(sidx, device=dev).long()
         _refresh_gather(
             self._gf, self._gb, snap.X, snap.C, self.K,
-            torch.as_tensor(ii_e[sidx], device=dev).long(),
-            torch.as_tensor(jj_e[sidx], device=dev).long(),
+            torch.as_tensor(snap.slots(ii_e[sidx]), device=dev).long(),
+            torch.as_tensor(snap.slots(jj_e[sidx]), device=dev).long(),
             self.idx_ii2jj[pos], self.idx_jj2ii[pos], pos, self.img_hw, mode)
         self._stamp_f[sidx] = ver[ii_e[sidx]]
         self._stamp_b[sidx] = ver[jj_e[sidx]]

@@ -1,13 +1,16 @@
 """Frames, pointmap fusion and the keyframe store (port of ``slam/frame.py``).
 
 ``fuse_pointmap`` covers all six filtering modes.  ``Keyframes`` is the
-fixed-capacity SoA store without paging: preallocated tensors on the
-device, written IN PLACE (one slot per keyframe) rather than rebuilt the
-functional way the JAX package does, which would copy the whole store on
-every write.  Capacity doubles when it runs out.  The factor graph reads it
-through ``snapshot`` and ``pm_version`` and writes solved poses back with
-``write_back_poses``; relocalisation appends, snaps (``update_pose``) or
-pops (``pop_last``) a keyframe, and retrieval reads one (``get_frame``).
+SoA store: preallocated tensors on the device, written IN PLACE rather
+than rebuilt the functional way the JAX package does, which would copy the
+whole store on every write.  Capacity doubles when it runs out.  With
+``device_budget`` (``engine.device_keyframes``) the per-keyframe rows X,
+C, feat and pos live in a fixed pool of slots and older keyframes page to
+pinned host memory (``slot_of``, ``ensure_resident``, ``pointmap_np``).
+The factor graph reads the store through ``snapshot`` and ``pm_version``
+and writes solved poses back with ``write_back_poses``; relocalisation
+appends, snaps (``update_pose``) or pops (``pop_last``) a keyframe, and
+retrieval reads one (``get_frame``).
 
 The store is shared with the backend's worker thread
 (``single_thread: False``).  Its own ``RLock`` guards every write and every
@@ -184,10 +187,12 @@ class Frame:
 
 class KeyframeSnapshot(NamedTuple):
     """The store at one moment (see ``Keyframes.snapshot``): clones of the
-    first ``n`` slots' T_WC, X, C and n_fused; feat and pos as references
+    first ``n`` keyframes' T_WC and n_fused and of the pointmap slots X and C,
+    which ``slot_of`` indexes.  feat and pos are references without paging
     (a slot's tokens never change while a snapshot of it lives: only
     relocalisation pops and re-appends a slot, and it holds the engine's
-    backend lock)."""
+    backend lock) and clones with paging, where an eviction hands a slot to
+    another keyframe and writes it in place."""
 
     n: int
     generation: int
@@ -197,13 +202,41 @@ class KeyframeSnapshot(NamedTuple):
     n_fused: torch.Tensor
     feat: torch.Tensor
     pos: torch.Tensor
+    slot_of: np.ndarray
+
+    def slots(self, idxs) -> np.ndarray:
+        """The slots of keyframes ``idxs``.  Raises if one was not resident
+        when the snapshot was taken: slot -1 would index the last slot."""
+        idxs = np.asarray(idxs, dtype=np.int64)
+        s = self.slot_of[idxs]
+        if (s < 0).any():
+            raise RuntimeError(f"keyframes {idxs[s < 0].tolist()} are not resident in "
+                               "this snapshot")
+        return s
+
+
+_PAGED = ("X", "C", "feat", "pos")  # the per-keyframe rows a slot holds
 
 
 class Keyframes:
-    """Device-resident SoA keyframe store of ``capacity`` slots."""
+    """Device-resident SoA keyframe store of ``capacity`` keyframes.
+
+    ``device_budget`` > 0 pages the store: X, C, feat and pos live in a pool
+    of that many device slots (``dcap``), ``slot_of`` maps a keyframe to its
+    slot (-1: evicted to host memory), and when a slot is needed the oldest
+    resident keyframe outside the ``keep_recent`` newest, the ``sticky`` set
+    and the keyframes being brought back is evicted; ``ensure_resident``
+    uploads evicted keyframes again.  An eviction copies the slot into
+    pinned host buffers on the store's stream, after every write queued
+    there, unless the host copy of that pointmap version exists already;
+    an upload copies back on the same stream, before any later reader's
+    work.  Poses and counters stay resident for every keyframe.  Without a
+    budget the pool grows with ``capacity`` and a keyframe's slot is its
+    index."""
 
     def __init__(self, capacity: int, num_pixels: int, num_patches: int,
-                 feat_dim: int, device, dtype=torch.float32):
+                 feat_dim: int, device, dtype=torch.float32, device_budget: int = 0,
+                 keep_recent: int = 64):
         self.capacity = capacity
         self.num_pixels = num_pixels
         self.device = torch.device(device)
@@ -213,15 +246,27 @@ class Keyframes:
         dev = self.device
         # the stream every store write and snapshot clone runs on
         self._stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+        self.paging = bool(device_budget)
+        self.dcap = min(device_budget, capacity) if self.paging else capacity
+        self.keep_recent = keep_recent
+        # old keyframes a window's edges pin as context: evicting them would
+        # upload them again at every solve (the factor graph sets it)
+        self.sticky: set = set()
+        self.slot_of = np.full((capacity,), -1, dtype=np.int32)
+        self._slot_owner = np.full((self.dcap,), -1, dtype=np.int32)
+        self._free_slots = set(range(self.dcap))
+        # evicted rows: idx -> dict(X, C, feat, pos, ver, event)
+        self._host_rows: dict = {}
+        self.n_evictions = 0
         self.frame_id = np.full((capacity,), -1, dtype=np.int64)
         self.T_WC = sim3.identity((capacity,), dtype=dtype, device=dev)
-        self.X = torch.zeros((capacity, num_pixels, 3), dtype=dtype, device=dev)
-        self.C = torch.zeros((capacity, num_pixels, 1), dtype=dtype, device=dev)
+        self.X = torch.zeros((self.dcap, num_pixels, 3), dtype=dtype, device=dev)
+        self.C = torch.zeros((self.dcap, num_pixels, 1), dtype=dtype, device=dev)
         self.n_fused = torch.zeros((capacity,), dtype=torch.int32, device=dev)
         self.n_updates = torch.zeros((capacity,), dtype=torch.int32, device=dev)
         self.score = torch.full((capacity,), float("-inf"), dtype=dtype, device=dev)
-        self.feat = torch.zeros((capacity, num_patches, feat_dim), dtype=dtype, device=dev)
-        self.pos = torch.zeros((capacity, num_patches, 2), dtype=torch.int32, device=dev)
+        self.feat = torch.zeros((self.dcap, num_patches, feat_dim), dtype=dtype, device=dev)
+        self.pos = torch.zeros((self.dcap, num_patches, 2), dtype=torch.int32, device=dev)
         self.K: Optional[torch.Tensor] = None
         self.uimgs = [None] * capacity
         # per-keyframe pointmap version, bumped on every X/C write: the
@@ -270,7 +315,8 @@ class Keyframes:
             return idx
 
     def _ensure_capacity(self, needed: int):
-        """Double the store (copying it) when ``needed`` slots do not fit."""
+        """Double the store (copying it) when ``needed`` keyframes do not fit;
+        a paged pool keeps its slots."""
         if needed <= self.capacity:
             return
         new_cap = self.capacity
@@ -284,42 +330,207 @@ class Keyframes:
         with self._on_store_stream():
             self.T_WC = torch.cat([self.T_WC, sim3.identity(
                 (pad,), dtype=self.T_WC.dtype, device=self.device)])
-            self.X = grow(self.X)
-            self.C = grow(self.C)
             self.n_fused = grow(self.n_fused)
             self.n_updates = grow(self.n_updates)
             self.score = grow(self.score, float("-inf"))
-            self.feat = grow(self.feat)
-            self.pos = grow(self.pos)
-        self.frame_id = np.concatenate([self.frame_id, np.full((pad,), -1, np.int64)])
-        self.pm_version = np.concatenate([self.pm_version, np.zeros((pad,), np.int64)])
-        self.uimgs = self.uimgs + [None] * pad
-        self.capacity = new_cap
+            self.frame_id = np.concatenate([self.frame_id, np.full((pad,), -1, np.int64)])
+            self.pm_version = np.concatenate([self.pm_version, np.zeros((pad,), np.int64)])
+            self.slot_of = np.concatenate([self.slot_of, np.full((pad,), -1, np.int32)])
+            self.uimgs = self.uimgs + [None] * pad
+            self.capacity = new_cap
+            if not self.paging:
+                self._grow_paged(new_cap)
+
+    def _grow_paged(self, new_dcap: int):
+        """Grow the slot pool, to at most ``capacity`` slots (no more can be
+        owned).  Caller holds the lock on the store's stream."""
+        new_dcap = min(new_dcap, self.capacity)
+        pad = new_dcap - self.dcap
+        if pad <= 0:
+            return
+        for name in _PAGED:
+            a = getattr(self, name)
+            setattr(self, name, torch.cat([a, a.new_zeros((pad,) + a.shape[1:])]))
+        self._slot_owner = np.concatenate([self._slot_owner, np.full(pad, -1, np.int32)])
+        self._free_slots.update(range(self.dcap, new_dcap))
+        self.dcap = new_dcap
+
+    # ------------------------------------------------------------------
+    # paging
+    # ------------------------------------------------------------------
+
+    def device_bytes(self) -> int:
+        """Bytes of the store's device tensors (what the paging budget bounds)."""
+        return sum(a.numel() * a.element_size() for a in (
+            self.X, self.C, self.feat, self.pos, self.T_WC, self.n_fused,
+            self.n_updates, self.score))
+
+    def _alloc_slot(self, idx: int, protect=()) -> int:
+        """A slot for keyframe ``idx``, evicting if the pool is full.  Slot ==
+        idx while that one is free, so the mapping stays the identity until
+        the pool is contended.  Caller holds the lock on the store's stream."""
+        if not self._free_slots:
+            victim = self._pick_victim(protect)
+            if victim is None:
+                # nothing evictable (a window wider than the pool): grow it
+                print("keyframe paging: no evictable keyframe; growing the device "
+                      f"pool past its budget ({self.dcap} slots)")
+                self._grow_paged(self.dcap * 2)
+            else:
+                self._evict_locked(victim)
+        if not self._free_slots:
+            raise RuntimeError(f"keyframe paging: no device slot for keyframe {idx} "
+                               f"({self.dcap} slots, capacity {self.capacity})")
+        slot = idx if idx in self._free_slots else min(self._free_slots)
+        self._free_slots.remove(slot)
+        self.slot_of[idx] = slot
+        self._slot_owner[slot] = idx
+        return slot
+
+    def _pick_victim(self, protect=()):
+        """The oldest resident keyframe outside keep-recent, sticky and protect."""
+        recent_floor = self.n - self.keep_recent
+        for i in np.sort(self._slot_owner[self._slot_owner >= 0]):
+            i = int(i)
+            if i < recent_floor and i not in self.sticky and i not in protect:
+                return i
+        return None
+
+    def _evict_locked(self, idx: int):
+        """Move keyframe ``idx``'s rows to pinned host buffers and free its
+        slot; the copy is skipped when the host copy of its pointmap version
+        exists.  Caller holds the lock on the store's stream."""
+        slot = int(self.slot_of[idx])
+        ver = int(self.pm_version[idx])
+        h = self._host_rows.get(idx)
+        if h is None or h["ver"] != ver:
+            h = dict(ver=ver, event=None)
+            for name in _PAGED:
+                src = getattr(self, name)[slot]
+                if src.is_cuda:
+                    dst = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+                    dst.copy_(src, non_blocking=True)
+                else:
+                    dst = src.clone()
+                h[name] = dst
+            if self._stream is not None:
+                h["event"] = torch.cuda.Event()
+                h["event"].record(self._stream)
+            self._host_rows[idx] = h
+        self.slot_of[idx] = -1
+        self._slot_owner[slot] = -1
+        self._free_slots.add(slot)
+        self.n_evictions += 1
+
+    def ensure_resident(self, idxs) -> None:
+        """Upload the evicted keyframes among ``idxs`` into slots again (loop
+        closure and relocalisation to old keyframes, a window's pinned
+        context); none of ``idxs`` is evicted to make room."""
+        idxs = sorted({int(i) for i in idxs})
+        with self._on_store_stream():
+            for idx in idxs:
+                if idx >= self.n or self.slot_of[idx] >= 0:
+                    continue
+                h = self._host_rows[idx]
+                slot = self._alloc_slot(idx, protect=idxs)
+                for name in _PAGED:
+                    getattr(self, name)[slot].copy_(h[name], non_blocking=True)
+
+    def is_resident(self, idx: int) -> bool:
+        return bool(self.slot_of[idx] >= 0)
+
+    def _rows(self, idx: int, names) -> tuple:
+        """Host copies of keyframe ``idx``'s rows ``names`` as numpy, from its
+        slot or, evicted, from its host buffers."""
+        with self._on_store_stream():
+            slot = int(self.slot_of[idx])
+            if slot >= 0:  # .cpu() runs on the store's stream and waits
+                return tuple(getattr(self, name)[slot].cpu().numpy() for name in names)
+            h = self._host_rows[idx]
+        if h["event"] is not None:
+            h["event"].synchronize()
+        return tuple(h[name].numpy() for name in names)
+
+    def pointmap_np(self, idx: int):
+        """(X, C_raw) of one keyframe as numpy, resident or evicted."""
+        return self._rows(idx, ("X", "C"))
+
+    def feat_np(self, idx: int):
+        """(feat, pos) of one keyframe as numpy, resident or evicted."""
+        return self._rows(idx, ("feat", "pos"))
+
+    def load_rows(self, X, C, feat, pos):
+        """Lay out the rows of all ``n`` keyframes (numpy, keyframe order) as
+        a checkpoint restores them: the newest min(n, dcap) in slots 0.., the
+        older ones evicted to host buffers.  Caller holds the lock, has set
+        ``n`` and bumped ``pm_version``."""
+        n = self.n
+        m = min(n, self.dcap)
+        first = n - m
+        rows = dict(X=X, C=C, feat=feat, pos=pos)
+        with self._on_store_stream():
+            for name in _PAGED:
+                dst = getattr(self, name)
+                dst[:m] = torch.as_tensor(np.asarray(rows[name][first:n])).to(dst)
+            self.slot_of[:] = -1
+            self.slot_of[first:n] = np.arange(m, dtype=np.int32)
+            self._slot_owner[:] = -1
+            self._slot_owner[:m] = np.arange(first, n, dtype=np.int32)
+            self._free_slots = set(range(m, self.dcap))
+            self.sticky = set()
+            self._host_rows = {}
+            pin = self._stream is not None
+            for i in range(first):
+                h = dict(ver=int(self.pm_version[i]), event=None)
+                for name in _PAGED:
+                    a = torch.as_tensor(np.array(rows[name][i])).to(getattr(self, name).dtype)
+                    h[name] = a.pin_memory() if pin else a
+                self._host_rows[i] = h
+
+    def _slot(self, idx: int, what: str) -> int:
+        slot = int(self.slot_of[idx])
+        if slot < 0:
+            raise RuntimeError(f"{what}: keyframe {idx} is evicted")
+        return slot
+
+    # ------------------------------------------------------------------
 
     def set_frame(self, idx: int, frame: Frame):
         with self._on_store_stream(frame.T_WC, frame.X_canon, frame.C, frame.feat,
                                    frame.pos):
             self.frame_id[idx] = frame.frame_id
             self.pm_version[idx] += 1
+            slot = int(self.slot_of[idx])
+            if slot < 0:
+                slot = self._alloc_slot(idx)
+            self._host_rows.pop(idx, None)  # any host copy is stale now
             self.T_WC[idx] = frame.T_WC.to(self.T_WC)
-            self.X[idx] = frame.X_canon.to(self.X)
-            self.C[idx] = frame.C.to(self.C)
+            self.X[slot] = frame.X_canon.to(self.X)
+            self.C[slot] = frame.C.to(self.C)
             self.n_fused[idx] = int(frame.n_fused)
             self.n_updates[idx] = int(frame.n_updates)
             self.score[idx] = float(frame.score)
-            self.feat[idx] = frame.feat[0].to(self.feat)
-            self.pos[idx] = frame.pos[0].to(self.pos)
+            self.feat[slot] = frame.feat[0].to(self.feat)
+            self.pos[slot] = frame.pos[0].to(self.pos)
             self.uimgs[idx] = frame.uimg
 
     def last_idx(self) -> int:
         return self.n - 1
 
     def get_frame(self, idx: int) -> Frame:
-        """Keyframe ``idx`` as a Frame over copies of its slot (one host read
-        for its fusion counters and score)."""
+        """Keyframe ``idx`` as a Frame over copies of its rows (one host read
+        for its fusion counters and score); an evicted one's rows come from
+        its host buffers."""
         with self._on_store_stream():
-            T, X, C = self.T_WC[idx].clone(), self.X[idx].clone(), self.C[idx].clone()
-            feat, pos = self.feat[idx][None].clone(), self.pos[idx][None].clone()
+            slot = int(self.slot_of[idx])
+            if slot >= 0:
+                rows = tuple(getattr(self, name)[slot].clone() for name in _PAGED)
+            else:
+                h = self._host_rows[idx]
+                rows = tuple(h[name].to(self.device) for name in _PAGED)
+            X, C, feat, pos = rows
+            feat, pos = feat[None], pos[None]
+            T = self.T_WC[idx].clone()
             counters = torch.stack([self.n_fused[idx].float(), self.n_updates[idx].float(),
                                     self.score[idx].float()])
             frame_id, uimg = int(self.frame_id[idx]), self.uimgs[idx]
@@ -330,16 +541,23 @@ class Keyframes:
                      feat=feat, pos=pos, K=self.K, uimg=uimg)
 
     def pop_last(self):
-        """Drop the last keyframe (a failed relocalisation).  ``generation``
-        moves, so a backend solve from an earlier snapshot cannot write its
-        poses back.  ``pm_version`` of the slot is kept: the next ``append``
-        into it bumps the version again, so no cached gather of the popped
+        """Drop the last keyframe (a failed relocalisation) and free its slot.
+        ``generation`` moves, so a backend solve from an earlier snapshot
+        cannot write its poses back.  ``pm_version`` of the keyframe is kept:
+        the next ``append`` bumps it again, so no cached gather of the popped
         keyframe is served."""
         with self.lock:
             self.n -= 1
             self.generation += 1
             self.frame_id[self.n] = -1
             self.uimgs[self.n] = None
+            slot = int(self.slot_of[self.n])
+            if slot >= 0:
+                self.slot_of[self.n] = -1
+                self._slot_owner[slot] = -1
+                self._free_slots.add(slot)
+            self._host_rows.pop(self.n, None)
+            self.sticky.discard(self.n)
 
     def update_pose(self, idx: int, T_WC):
         with self._on_store_stream(T_WC):
@@ -348,35 +566,47 @@ class Keyframes:
     def update_pointmap(self, idx: int, X, C, n_fused, n_updates, score):
         """The tracker's per-frame commit of the keyframe's fused state."""
         with self._on_store_stream(X, C, n_fused, n_updates, score):
+            slot = self._slot(idx, "update_pointmap")
             self.pm_version[idx] += 1
-            self.X[idx] = X
-            self.C[idx] = C
+            self._host_rows.pop(idx, None)
+            self.X[slot] = X
+            self.C[slot] = C
             self.n_fused[idx] = n_fused
             self.n_updates[idx] = n_updates
             self.score[idx] = score
 
     def snapshot(self) -> KeyframeSnapshot:
-        """The store at one moment, safe to read while the tracker writes
-        (see ``KeyframeSnapshot``)."""
+        """The store at one moment, safe to read while the tracker writes and
+        evictions reuse slots (see ``KeyframeSnapshot``)."""
         with self._on_store_stream():
             n = self.n
+            m = self.dcap if self.paging else n
+            feat, pos = ((self.feat.clone(), self.pos.clone()) if self.paging
+                         else (self.feat, self.pos))
             snap = KeyframeSnapshot(
                 n=n, generation=self.generation, T_WC=self.T_WC[:n].clone(),
-                X=self.X[:n].clone(), C=self.C[:n].clone(),
-                n_fused=self.n_fused[:n].clone(), feat=self.feat, pos=self.pos)
+                X=self.X[:m].clone(), C=self.C[:m].clone(),
+                n_fused=self.n_fused[:n].clone(), feat=feat, pos=pos,
+                slot_of=self.slot_of[:n].copy())
         self._hand_out(snap.T_WC, snap.X, snap.C, snap.n_fused, snap.feat, snap.pos)
         return snap
 
     def write_back_poses(self, start: int, n_snapshot: int, generation: int,
-                         T_new) -> bool:
-        """Install solved poses [start, n_snapshot) from a backend solve whose
-        pose array ``T_new`` is aligned with the store.  Refused (False) when
-        a ``pop_last`` since the snapshot changed what the slots hold; slots
-        appended since keep their tracked poses."""
+                         T_new, src_offset: int = None) -> bool:
+        """Install solved poses [start, n_snapshot) from a backend solve: rows
+        [src_offset, src_offset + n_snapshot - start) of ``T_new``
+        (``src_offset`` defaults to ``start``: a pose array aligned with the
+        store; a windowed solve's compact array holds its free poses after
+        its pinned ones).  Refused (False) when a ``pop_last`` since the
+        snapshot changed what the slots hold; keyframes appended since keep
+        their tracked poses."""
+        if src_offset is None:
+            src_offset = start
         with self._on_store_stream(T_new):
             if self.generation != generation or self.n < n_snapshot:
                 return False
-            self.T_WC[start:n_snapshot] = T_new[start:n_snapshot].to(self.T_WC)
+            self.T_WC[start:n_snapshot] = T_new[
+                src_offset:src_offset + n_snapshot - start].to(self.T_WC)
             return True
 
     def pose(self, idx: int) -> torch.Tensor:
@@ -387,19 +617,28 @@ class Keyframes:
         return T
 
     def tokens(self, idx: int):
-        """(feat[None], pos[None]) of keyframe ``idx``: views into the store
-        (a slot's tokens never change while it holds its keyframe)."""
-        with self.lock:
-            return self.feat[idx][None], self.pos[idx][None]
+        """(feat[None], pos[None]) of keyframe ``idx``: views into its slot (a
+        slot's tokens never change while it holds its keyframe), or copies of
+        an evicted keyframe's host buffers."""
+        with self._on_store_stream():
+            slot = int(self.slot_of[idx])
+            if slot >= 0:
+                out = (self.feat[slot][None], self.pos[slot][None])
+            else:
+                h = self._host_rows[idx]
+                out = (h["feat"].to(self.device)[None], h["pos"].to(self.device)[None])
+        self._hand_out(*out)
+        return out
 
     def slices(self, idx: int):
         """(X, C, n_fused, n_updates, score, T_WC, feat[None], pos[None]) at
         idx, for the tracker: views into the store (only the tracker writes a
-        keyframe's fused state), the pose a copy (a backend write-back may
-        move it)."""
+        keyframe's fused state, and the newest keyframes are never evicted),
+        the pose a copy (a backend write-back may move it)."""
         with self._on_store_stream():
-            out = (self.X[idx], self.C[idx], self.n_fused[idx], self.n_updates[idx],
-                   self.score[idx], self.T_WC[idx].clone(), self.feat[idx][None],
-                   self.pos[idx][None])
+            slot = self._slot(idx, "slices")
+            out = (self.X[slot], self.C[slot], self.n_fused[idx], self.n_updates[idx],
+                   self.score[idx], self.T_WC[idx].clone(), self.feat[slot][None],
+                   self.pos[slot][None])
         self._hand_out(*out)
         return out

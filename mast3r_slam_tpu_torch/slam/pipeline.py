@@ -35,7 +35,9 @@ undistortion and the resize overlap the card's work; its time is the
 ends the run with that error.  ``preprocess`` resizes to 512 with the host
 library (``utils/native.py``) and to other sizes with PIL.
 
-``mesh`` and ``device_keyframes`` raise ``NotImplementedError``.
+``engine.device_keyframes`` pages the keyframe store to that many device
+slots; its ``keep_recent`` (half the budget, at most the solve window)
+clamps the solve window.  ``mesh`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -80,15 +82,25 @@ class SlamResult:
 
 
 def _check_ported(cfg, retrieval):
-    engine = cfg.get("engine", {})
-    for key, item in (("mesh", "ROADMAP Queue 1, item 12: multi-GPU"),
-                      ("device_keyframes", "ROADMAP Queue 1, item 8: keyframe paging")):
-        if int(engine.get(key, 0) or 0) != 0:
-            raise NotImplementedError(f"engine.{key}: {engine[key]!r} is not ported yet ({item})")
+    mesh = cfg.get("engine", {}).get("mesh", 0)
+    if mesh:
+        raise NotImplementedError(f"engine.mesh: {mesh!r} is not ported yet "
+                                  "(ROADMAP Queue 1, item 12: multi-GPU)")
     if retrieval is not None and not isinstance(retrieval, RetrievalDatabase):
         raise TypeError(
             f"retrieval is a {type(retrieval).__name__}; the port takes its own "
             "mast3r_slam_tpu_torch.retrieval.RetrievalDatabase")
+
+
+def keep_recent(cfg) -> int:
+    """The newest keyframes a paged store never evicts: at most half of
+    ``engine.device_keyframes`` (room for uploads and pinned context) and
+    at most the solve window, at least 2; 64 without paging."""
+    budget = int(cfg["engine"].get("device_keyframes", 0) or 0)
+    if not budget:
+        return 64
+    window = int(float(cfg["local_opt"].get("window_size", 0) or 0))
+    return max(2, min(window or budget, budget // 2))
 
 
 def _pipeline_mode(cfg) -> int:
@@ -124,6 +136,8 @@ class SLAM:
             num_patches=model.num_patches,
             feat_dim=model.feat_dim,
             device=self.device,
+            device_budget=int(cfg["engine"].get("device_keyframes", 0) or 0),
+            keep_recent=keep_recent(cfg),
         )
         if K is not None:
             self.keyframes.K = torch.as_tensor(K, dtype=torch.float32, device=self.device)

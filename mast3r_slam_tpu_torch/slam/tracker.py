@@ -158,7 +158,11 @@ def _track_compute(
         T_CkCf, cost, ok = opt_pose_ray_dist_sim3(
             Xf, Xk_all, T_CkCf_init, Qk, valid_opt.to(Xf.dtype), ts.gn)
 
-    T_WCf_new = sim3.mul(T_WCk, T_CkCf)
+    # unit quaternion: a composition with a pose whose quaternion is off unit
+    # norm multiplies that error (rel takes the inverse by the conjugate), and
+    # the frame becomes the next keyframe, so the error would grow with every
+    # keyframe (ROADMAP Queue 3 item 9)
+    T_WCf_new = sim3.normalize(sim3.mul(T_WCk, T_CkCf))
 
     # 5. fuse the keyframe pointmap with its re-observation (tracker.py:96-101)
     Xkk = sim3.act(T_CkCf, Xji_f)

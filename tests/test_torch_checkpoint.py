@@ -4,7 +4,10 @@ resume in the port, and the port's parameter npz read by the JAX package.
 The checkpoint is npz format v2 with the JAX package's keys: a port
 checkpoint loads into the JAX engine and the JAX engine's checkpoint of
 that state loads back into a fresh port engine, both with every array
-equal (the keyframe store, the edges, the retrieval inverted file).  Resume
+equal (the keyframe store, the edges, the retrieval inverted file); the
+same for a paged store (``engine.device_keyframes``), whose newest
+keyframes load into device slots and older ones into host buffers, and
+whose recycled edge rows are queued for reuse again on load.  Resume
 (tests/test_checkpoint.py's scene and bounds): the restored store equals
 the saved one bit for bit, and the resumed run tracks the ground truth
 within 0.04 m; relocalisation after a resume succeeds within 0.15 m.
@@ -38,6 +41,8 @@ from mast3r_slam_tpu_torch.slam.pipeline import SLAM
 from oracle import OracleDataset, OracleModel, PlaneScene, arc_trajectory
 from test_reloc_e2e import teleport_trajectory
 from test_torch_common import CPU, TorchOracleModel, n
+from test_torch_paging import N_FRAMES as PAGED_FRAMES
+from test_torch_paging import _engine_cfg, _force_keyframes
 
 HW = (48, 64)
 
@@ -231,3 +236,77 @@ def test_port_params_npz_reads_back_in_the_jax_package(tmp_path):
     assert sorted(got) == sorted(want)
     for k in want:
         assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+
+
+def _paged(slam):
+    """A paged engine's checkpointed state, every keyframe's rows read
+    through its slot or host buffers."""
+    kf, g = slam.keyframes, slam.graph
+    k, E = len(kf), g.n_edges
+    out = {"frame_id": np.asarray(kf.frame_id[:k]), "T_WC": n(kf.T_WC[:k]),
+           "n_fused": n(kf.n_fused[:k]), "edge_ii": np.asarray(g.ii[:E]),
+           "edge_jj": np.asarray(g.jj[:E]), "edge_live": np.asarray(g.edge_live[:E])}
+    for name in ("idx_ii2jj", "valid_match_j", "Q_jj2ii"):
+        out[name] = n(getattr(g, name)[:E])
+    for i in range(k):
+        out[f"pm{i}"] = np.concatenate([np.asarray(a).reshape(-1) for a in kf.pointmap_np(i)])
+        out[f"ft{i}"] = np.concatenate([np.asarray(a, np.float32).reshape(-1)
+                                        for a in kf.feat_np(i)])
+    return out
+
+
+@pytest.fixture(scope="module")
+def paged_run():
+    """The port's paged engine of tests/test_torch_paging.py: 7 keyframes in
+    4 slots, old edges recycled."""
+    oracle = OracleModel(PlaneScene(HW), arc_trajectory(PAGED_FRAMES, radius=0.6,
+                                                        max_angle=0.5), noise=0.002)
+    slam = SLAM(TorchOracleModel(oracle), _engine_cfg(load_config, 4), HW, device=CPU)
+    _force_keyframes(slam)
+    slam.run(OracleDataset(PAGED_FRAMES, HW), verbose=False)
+    kf = slam.keyframes
+    assert len(kf) > kf.dcap and kf.n_evictions > 0 and slam.graph._free_edge_rows
+    return oracle, slam
+
+
+def test_paged_checkpoints_load_across_the_packages(tmp_path, paged_run):
+    """Port (paged) -> JAX (paged) -> port (paged, and unpaged): every
+    keyframe's rows, the poses and the edges equal; the newest keyframes
+    resident in slots 0.., the older ones evicted."""
+    oracle, tslam = paged_run
+    want = _paged(tslam)
+    save_state(tmp_path / "port.npz", tslam)
+    jslam = JSLAM(oracle, _engine_cfg(jload_config, 4), HW)
+    jload_state(tmp_path / "port.npz", jslam)
+    _assert_same(_paged(jslam), want)
+    jsave_state(tmp_path / "jax.npz", jslam)
+    for budget in (4, 0):
+        fresh = SLAM(TorchOracleModel(oracle), _engine_cfg(load_config, budget), HW,
+                     device=CPU)
+        load_state(tmp_path / "jax.npz", fresh)
+        _assert_same(_paged(fresh), want)
+        kf, k = fresh.keyframes, len(fresh.keyframes)
+        m = min(k, kf.dcap)
+        np.testing.assert_array_equal(kf.slot_of[:k],
+                                      [-1] * (k - m) + list(range(m)))
+        if budget:
+            np.testing.assert_array_equal(kf.slot_of[:k], jslam.keyframes.slot_of[:k])
+
+
+def test_the_edge_freelist_is_seeded_on_load(tmp_path, paged_run):
+    """A checkpoint holds recycled rows (dead, ii == jj == 0) but no
+    freelist: loading queues them for reuse again, so the next edges take
+    them and the next recycle does not count them twice (the JAX package
+    loads them as dead rows outside its freelist)."""
+    oracle, tslam = paged_run
+    g = tslam.graph
+    save_state(tmp_path / "p.npz", tslam)
+    fresh = SLAM(TorchOracleModel(oracle), _engine_cfg(load_config, 4), HW, device=CPU)
+    load_state(tmp_path / "p.npz", fresh)
+    f = fresh.graph
+    assert f._free_edge_rows == g._free_edge_rows and f.n_edges == g.n_edges
+    rows = f._take_edge_rows(1)
+    assert rows[0] == g._free_edge_rows[0] and f.n_edges == g.n_edges
+    f._free_edge_rows.insert(0, int(rows[0]))
+    f._recycle_old_edges(len(fresh.keyframes) - 2)
+    assert f.n_edges_recycled == 0  # nothing new was old enough

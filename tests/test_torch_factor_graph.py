@@ -222,30 +222,7 @@ def test_health_guard_demotes_the_next_solve_to_dense(monkeypatch):
     assert err < np.linalg.norm(poses[1:, :3] - gt[1:, :3], axis=-1).mean()
 
 
-UNPORTED_GRAPH = [
-    ("edge_recycle", True),
-    ("pixel_stride", 2),
-]
-
-
-@pytest.mark.parametrize("key,value", UNPORTED_GRAPH)
-def test_unported_graph_settings_raise(key, value):
-    cfg = load_config("base")
-    cfg["local_opt"][key] = value
-    kf = tframe.Keyframes(2, N, 12, 16, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 8"):
-        tfg.FactorGraph(None, cfg, kf, HW)
-
-
 def test_mesh_raises():
     kf = tframe.Keyframes(2, N, 12, 16, device=CPU)
     with pytest.raises(NotImplementedError, match="item 12"):
         tfg.FactorGraph(None, load_config("base"), kf, HW, mesh=object())
-
-
-def test_window_smaller_than_the_graph_raises():
-    _, tg, _, _ = _setup("base")
-    tg.add_factors(*PAIRS, 0.1)
-    tg.window_size = 2
-    with pytest.raises(NotImplementedError, match="windowed solve"):
-        tg.solve()

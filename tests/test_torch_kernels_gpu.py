@@ -275,6 +275,23 @@ def test_refine_kernel_schedule_on_a_compacted_subset(cuda, sched, radius):
     _refine_with_stats(d11q, d21q, idx, H, W, radius, sched)
 
 
+@pytest.mark.parametrize("H,W,F", [(384, 512, 24), (48, 64, 16), (37, 53, 24)])
+@pytest.mark.parametrize("radius,dil", [(3, 5), (1, 1)])
+def test_refine_kernel_on_a_strided_source_grid(cuda, H, W, F, radius, dil):
+    """A strided backend edge's launch (local_opt.pixel_stride 2): the
+    sources are the image's 2-strided grid, N = ceil(H/2) * ceil(W/2), laid
+    out in runs of THREADS sources (a run of 256 spans up to 512 target
+    columns), each started near its match as the LM leaves it; exact
+    against the plain version."""
+    d11q, d21q, idx = _smooth_flow_inputs(H, W, F, cuda, seed=H + radius)
+    rows = (torch.arange(0, H, 2, device=cuda)[:, None] * W
+            + torch.arange(0, W, 2, device=cuda)[None, :]).reshape(-1)
+    sub_q = d21q[:, rows].contiguous()
+    sub_i = idx[:, rows].contiguous()
+    assert sub_i.shape[1] == ((H + 1) // 2) * ((W + 1) // 2) != H * W
+    _refine_with_stats(d11q, sub_q, sub_i, H, W, radius, dil)
+
+
 SIG = dict(sigma_ray=0.003, sigma_dist=10.0, huber_k=1.345)
 EDGE_HG_ERR_F64 = 3e-5
 EDGE_HG_ERR_F32 = 1e-3

@@ -79,7 +79,6 @@ def test_entry_points_without_a_device_raise_without_cuda(monkeypatch):
 
 UNPORTED = [
     ("engine", "mesh", 2),
-    ("engine", "device_keyframes", 8),
 ]
 
 
