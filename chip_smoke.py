@@ -108,6 +108,25 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      keyframes: 48 attention and 1 refine launch, the refine kernel exactly
      its plain version on that task's inputs, timed beside the stride-1
      task.
+  11. serving at 384x512: (a) the committed baseline 4:2:0 JPEG
+     (tests/data/serve_frame.jpg) through the host library's decoder, exactly
+     against the committed cv2 decode of it (this host has no cv2); (b) one
+     ViT-L session through SlamServer on 127.0.0.1 and the port's WebSocket
+     client: GET / and /connect, /ws/{id}, SERVE_FRAMES 480x640 frames (phase
+     4's smooth random images as base64 PNG), each sent when the previous
+     frame's pose_update arrived, decisions pinned open as in 9b: ready, a
+     pose_update a frame in order, a new_keyframe a keyframe with points and
+     colours, fps_update, the exports written and read back,
+     shutdown_complete, the session in /active_sessions, 72 attention
+     launches a frame and 48 a backend task, one refine launch a tracked
+     frame and a task, edge blocks in every solve, and the same pose bits as
+     a control that feeds the decoded frames to SLAM.process_frame without
+     the server; client latency send -> pose_update, keyframe event bytes;
+     (c) ``slam.run --viz-ws PORT`` with 9a's stand-in: a late viewer gets
+     the keyframe events so far as replay, then live ones; its
+     conf_threshold changes the exported PLY; pause, step and terminate end
+     the run early; (d) two stand-in sessions at once, their event streams
+     apart, the idle one reaped.
 
 Phase 2 also holds the two gather probes' kernels (gather_rows_sum,
 take_along_rows, the latter at every slab width of SLAB_SWEEP, timed in
@@ -236,9 +255,11 @@ def time_kernel(kernel, plain, library=None, plain_iters: int = 20) -> dict:
 
 def kernel_names(fn) -> list:
     """Names of the kernels one call of ``fn`` launched, one entry a launch
-    (torch.profiler).  A call launches at least one kernel, so a trace with
-    no kernel record has lost them (seen on an H100 for kernels launched
-    from a ctypes library): it is taken again, up to ten times."""
+    (torch.profiler).  The profiler drops the records of ctypes launches now
+    and then, most of them in a process that compiled a library after its
+    first trace (scripts/torch_profiler_records.py), so phase 1 compiles and
+    loads every library first, and a trace with no kernel record is taken
+    again, up to ten times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -2556,6 +2577,460 @@ def run_strided_task(dev, model, kf, hw=(384, 512)):
 
 # ---------------------------------------------------------------------------
 
+
+# ---------------------------------------------------------------------------
+# phase 11: serving
+# ---------------------------------------------------------------------------
+
+SERVE_FRAMES = 12          # 11b: frames of the ViT-L session (480x640 PNG)
+SERVE_SAMPLE_HW = (480, 640)
+REPO = pathlib.Path(__file__).resolve().parent
+
+
+def check_jpeg_fixture():
+    """11a: the committed baseline 4:2:0 JPEG decoded by the host library's
+    decoder, against the committed cv2 decode of the same bytes (this host
+    has no cv2), exactly; the decode timed."""
+    from mast3r_slam_tpu_torch.data.png import read_png
+    from mast3r_slam_tpu_torch.utils import native
+
+    data = (REPO / "tests" / "data" / "serve_frame.jpg").read_bytes()
+    want = read_png(REPO / "tests" / "data" / "serve_frame_cv2.png")
+    got = native.decode_jpeg(data)
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        native.decode_jpeg(data)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out = dict(shape=list(got.shape), exact=bool(np.array_equal(got, want)),
+               max_abs_diff=int(np.abs(got.astype(int) - want).max()),
+               decode_ms_p50=statistics.median(times))
+    log(f"11a JPEG fixture {got.shape[1]}x{got.shape[0]} 4:2:0: {json.dumps(out)}")
+    if not out["exact"]:
+        raise AssertionError(f"11a: the JPEG decoder differs from cv2's decode: {out}")
+    return out
+
+
+def serve_images(dev, n, seed=11):
+    """Phase 4's smooth random images at 480x640 as uint8 RGB frames."""
+    imgs = smooth_images(n, SERVE_SAMPLE_HW, dev, seed)
+    u8 = ((imgs + 1) * 127.5).round().clamp(0, 255).to(dtype=__import__("torch").uint8)
+    return [u8[i].permute(1, 2, 0).contiguous().cpu().numpy() for i in range(n)]
+
+
+def http_json(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return json.loads(r.read().decode())
+
+
+async def stream_session(port, frames_b64, listing_after=2):
+    """One client session through the port's WebSocket client: GET / and
+    /connect, /ws/{id}, then each frame sent after the previous frame's
+    pose_update arrived (send -> pose_update timed on the client), a look
+    at /active_sessions, close, and every event up to shutdown_complete.
+    Returns (session id, events, latencies ms, raw keyframe event sizes,
+    the listing)."""
+    import asyncio
+
+    from mast3r_slam_tpu_torch.serve import ws
+
+    loop = asyncio.get_running_loop()
+    base = f"http://127.0.0.1:{port}"
+    root = await loop.run_in_executor(None, http_json, base + "/")
+    sid = (await loop.run_in_executor(None, http_json, base + "/connect"))["sessionId"]
+    events, lat, kf_bytes, listing = [], [], [], None
+    async with ws.connect(f"ws://127.0.0.1:{port}/ws/{sid}") as sock:
+
+        async def next_event():
+            raw = await asyncio.wait_for(sock.recv(), 300)
+            ev = json.loads(raw)
+            if ev["type"] == "new_keyframe":
+                kf_bytes.append(len(raw))
+            events.append(ev)
+            return ev
+
+        await next_event()
+        for i, data in enumerate(frames_b64):
+            t0 = time.perf_counter()
+            await sock.send(json.dumps({"type": "frame", "data": data, "timestamp": str(i)}))
+            while True:
+                ev = await next_event()
+                if ev["type"] == "pose_update" or ev["type"] == "error":
+                    break
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if ev["type"] == "error":
+                break
+            if i + 1 == listing_after:
+                listing = await loop.run_in_executor(None, http_json, base + "/active_sessions")
+        await sock.send(json.dumps({"type": "close"}))
+        while events[-1]["type"] != "shutdown_complete":
+            await next_event()
+    return dict(root=root, sid=sid, events=events, latency_ms=lat, kf_bytes=kf_bytes,
+                listing=listing)
+
+
+def serve_cfg():
+    """``base`` single threaded (the session's poses then have one
+    schedule, held bit for bit against a control) with phase 9b's pinned
+    decisions: every tracked frame commits a keyframe and runs a backend
+    task."""
+    from mast3r_slam_tpu_torch.config import load_config, merge_config
+    from mast3r_slam_tpu_torch.slam import run
+
+    def refuse(msg):
+        raise ValueError(msg)
+
+    cfg = load_config("base")
+    cfg["single_thread"] = True
+    for patch in run.parse_overrides(CLI_VITL_SET, refuse):
+        cfg = merge_config(cfg, patch)
+    return cfg
+
+
+def check_session_events(out, n, n_keyframes):
+    """The protocol of one finished session, as a list of faults."""
+    ev = out["events"]
+    types = [e["type"] for e in ev]
+    faults = []
+    if ev[0] != {"type": "ready", "session_id": out["sid"]}:
+        faults.append(f"first event {ev[0]}")
+    poses = [e["frame_id"] for e in ev if e["type"] == "pose_update"]
+    if poses != list(range(n)):
+        faults.append(f"pose_update frame ids {poses}")
+    kfs = [e for e in ev if e["type"] == "new_keyframe"]
+    if (len(kfs) != n_keyframes
+            or any(not e["points"] or len(e["points"]) != len(e["colors"]) for e in kfs)):
+        faults.append(f"{len(kfs)} new_keyframe events for {n_keyframes} keyframes, points/"
+                      f"colours {[(len(e['points']), len(e['colors'])) for e in kfs]}")
+    if n >= 10 and "fps_update" not in types:
+        faults.append("no fps_update")
+    if "error" in types:
+        faults.append(f"errors {[e for e in ev if e['type'] == 'error']}")
+    end = ev[-1]
+    if end != {"type": "shutdown_complete", "n_keyframes": n_keyframes, "n_frames": n}:
+        faults.append(f"last event {end}")
+    return faults
+
+
+def run_serve_vitl(dev, work, n_frames=SERVE_FRAMES, preset="vit_large"):
+    """11b: one ViT-L session at 384x512 through SlamServer on 127.0.0.1
+    (port 0, read back), frames of 480x640 as base64 PNG from the port's
+    writer, with the launch counters reset just before the session and
+    read just after; then a control that feeds the same decoded frames to
+    SLAM.process_frame on a fresh engine from the same factory, without the
+    server.  Returns a dict of checks, counts and times."""
+    import asyncio
+    import base64
+
+    import torch
+    from mast3r_slam_tpu_torch.data.png import encode_png
+    from mast3r_slam_tpu_torch.eval.export import load_ply
+    from mast3r_slam_tpu_torch.eval.trajectory import load_traj_tum
+    from mast3r_slam_tpu_torch.serve import server
+
+    cfg = serve_cfg()
+    factory = server.default_slam_factory(cfg=cfg, preset=preset, device=dev)
+    built = []
+
+    def keep(raw_hw):
+        slam = factory(raw_hw)
+        built.append(slam)
+        return slam
+
+    frames = [base64.b64encode(encode_png(img)).decode()
+              for img in serve_images(dev, n_frames)]
+    srv = server.SlamServer(keep, host="127.0.0.1", port=0, output_dir=work / "sessions")
+
+    async def session():
+        await srv.listen()
+        try:
+            return await stream_session(srv.bound_port, frames)
+        finally:
+            await srv.aclose()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out = asyncio.run(session())
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    slam = built[0]
+    st = slam.timer.stats()
+    n_kf = len(slam.keyframes)
+    n_tasks = st.get("backend.update", {"count": 0})["count"]
+    n_tracked = st.get("tracker.track", {"count": 0})["count"]
+    faults = check_session_events(out, n_frames, n_kf)
+    if [s["session_id"] for s in (out["listing"] or {}).get("sessions", [])] != [out["sid"]]:
+        faults.append(f"/active_sessions {out['listing']}")
+    saved = {e["type"]: pathlib.Path(e["path"]) for e in out["events"]
+             if e["type"].endswith("_saved")}
+    traj_rows = ply_points = None
+    try:
+        traj_rows = len(load_traj_tum(saved["trajectory_saved"])[0])
+        ply_points = len(load_ply(saved["reconstruction_saved"])[0])
+    except (KeyError, OSError, ValueError) as e:
+        faults.append(f"exports {saved}: {e!r}")
+
+    # the control: the same decoded frames straight into a fresh engine
+    decoded = [server.decode_image_payload(f) for f in frames]
+    control = factory(decoded[0].shape[:2])
+    last = None
+    for i, rgb in enumerate(decoded):
+        last = control.process_frame(i, str(i), rgb, last_T_WC=last).T_WC
+    control.join_backend()
+    control.graph.resolve_pending_verdicts()
+    sync(dev)
+    same_bits = (len(control.keyframes) == n_kf
+                 and torch.equal(control.keyframes.T_WC[:n_kf], slam.keyframes.T_WC[:n_kf])
+                 and np.array_equal(np.stack([p for _, p in control.frame_log]),
+                                    np.stack([p for _, p in slam.frame_log])))
+    control.close()
+    lat = out["latency_ms"]
+    res = dict(frames=n_frames, n_keyframes=n_kf, n_tracked=n_tracked, n_tasks=n_tasks,
+               launches=counts, same_bits_as_control=bool(same_bits), faults=faults,
+               latency_ms_p50=statistics.median(lat),
+               latency_ms_p95=float(np.percentile(lat, 95)), latency_ms=lat,
+               keyframe_event_bytes_mean=statistics.mean(out["kf_bytes"]) if out["kf_bytes"]
+               else None, keyframe_event_points=[len(e["points"]) for e in out["events"]
+                                                 if e["type"] == "new_keyframe"],
+               session_wall_s=wall, traj_rows=traj_rows, ply_points=ply_points,
+               event_counts={t: sum(e["type"] == t for e in out["events"])
+                             for t in sorted({e["type"] for e in out["events"]})},
+               stages={k: {m: v[m] for m in ("mean_ms", "p50_ms", "count")}
+                       for k, v in st.items()})
+    log(f"11b session ({preset}, {slam.img_hw[0]}x{slam.img_hw[1]} from 480x640 PNG, "
+        f"{n_frames} frames): {json.dumps(res)}")
+    return res
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_viz_ws(dev, root, img_size=512):
+    """11c: ``slam.run --viz-ws PORT`` (a free port found first) with phase
+    9a's stand-in over its TUM sequence, every tracked frame a keyframe. A
+    first viewer joins as the broadcaster starts and pauses the run once it
+    has seen the second keyframe; once the run is quiet a late viewer joins
+    and must receive every keyframe event so far as replay, then raises
+    the confidence threshold, steps one frame (received live) and
+    terminates the run.  Returns a dict of checks."""
+    import asyncio
+    import threading
+
+    from mast3r_slam_tpu_torch.data import dataloader
+    from mast3r_slam_tpu_torch.eval.export import load_ply, save_reconstruction
+    from mast3r_slam_tpu_torch.serve import broadcast, ws
+    from mast3r_slam_tpu_torch.slam import run
+
+    gt = arc_trajectory(CLI_RAW_FRAMES, radius=0.8, max_angle=3.0)
+    seq = root / TUM_SEQ
+    if not seq.exists():
+        write_tum_sequence(root, gt, CLI_RAW_FRAMES)
+    port = free_port()
+    seen, state, built = [], {}, []
+    real_start = broadcast.EventBroadcaster.start
+
+    def start_with_viewer(self):
+        real_start(self)
+        state["b"] = self
+
+        async def watcher():
+            async with ws.connect(f"ws://127.0.0.1:{self.bound_port}") as sock:
+                async for raw in sock:
+                    ev = json.loads(raw)
+                    seen.append((time.perf_counter(), ev))
+                    kfs = sum(e["type"] == "new_keyframe" for _, e in seen)
+                    if kfs == 2 and "paused_at" not in state:
+                        state["paused_at"] = len(seen)
+                        await sock.send(json.dumps({"type": "control", "paused": True}))
+
+        th = threading.Thread(target=lambda: asyncio.run(watcher()), daemon=True)
+        th.start()
+        state["watcher"] = th
+        deadline = time.time() + 60
+        while not self._clients and time.time() < deadline:
+            time.sleep(0.01)
+        return self
+
+    def late_viewer():
+        # wait for the pause, then for quiet (the frame in flight finished)
+        deadline = time.time() + 120
+        while time.time() < deadline and not (
+                "paused_at" in state and seen and time.perf_counter() - seen[-1][0] > 2.0):
+            time.sleep(0.05)
+        before = [e for _, e in seen if e["type"] == "new_keyframe"]
+        n_before = len([e for _, e in seen if e["type"] == "pose_update"])
+
+        async def late():
+            async with ws.connect(f"ws://127.0.0.1:{state['b'].bound_port}") as sock:
+                replay = [json.loads(await asyncio.wait_for(sock.recv(), 60))
+                          for _ in range(len(before))]
+                await sock.send(json.dumps({"type": "control", "conf_threshold": 3.0}))
+                await sock.send(json.dumps({"type": "control", "step": True}))
+                live = []
+                while not live or live[-1]["type"] != "pose_update":
+                    live.append(json.loads(await asyncio.wait_for(sock.recv(), 60)))
+                await sock.send(json.dumps({"type": "control", "terminate": True}))
+                await asyncio.sleep(0.2)
+                return replay, live
+
+        replay, live = asyncio.run(late())
+        state.update(replay_ok=replay == before, replayed=len(replay),
+                     poses_before_step=n_before, live=[e["type"] for e in live])
+
+    def build(cfg, dataset, **kw):
+        slam = standin(cfg, dataset, **kw)
+        built.append(slam)
+        threading.Thread(target=late_viewer, daemon=True).start()
+        return slam
+
+    standin = standin_builder(gt, dev, [])
+    argv = ["--dataset", str(seq), "--config", "eval_no_calib", "--device", str(dev),
+            "--save-as", "viz_ws", "--viz-ws", str(port),
+            "--set", "tracking.match_frac_thresh=2.0"]
+    with swapped(run, "build_slam", build), \
+            swapped(dataloader.MonocularDataset, "img_size", img_size), \
+            swapped(broadcast.EventBroadcaster, "start", start_with_viewer):
+        t0 = time.perf_counter()
+        res = run.main(argv)
+        wall = time.perf_counter() - t0
+    state["watcher"].join(30)
+    slam = built[0]
+    ply = pathlib.Path("logs") / "viz_ws" / f"{TUM_SEQ}.ply"
+    exported = len(load_ply(ply)[0])
+    # the same export at the threshold a viewer starts from
+    save_reconstruction(ply.with_name("default_threshold.ply"), slam.keyframes, slam.img_hw,
+                        conf_threshold=broadcast.RunControl().conf_threshold)
+    default = len(load_ply(ply.with_name("default_threshold.ply"))[0])
+    n_seq = CLI_RAW_FRAMES // 2
+    out = dict(port=port, bound_port=state["b"].bound_port, frames=len(res.frame_timestamps),
+               sequence_frames=n_seq, n_keyframes=res.n_keyframes,
+               replay_ok=state.get("replay_ok"), replayed=state.get("replayed"),
+               poses_before_step=state.get("poses_before_step"), live=state.get("live"),
+               ply_points=exported, ply_points_default_threshold=default,
+               conf_threshold=slam.control.conf_threshold, wall_s=wall,
+               broadcaster_stopped=not state["b"]._thread.is_alive(),
+               watcher_done=not state["watcher"].is_alive())
+    log(f"11c --viz-ws {port}, stand-in over {TUM_SEQ}: {json.dumps(out)}")
+    return out
+
+
+def run_two_sessions(dev, work, raw_hw=SERVE_SAMPLE_HW, size=512):
+    """11d: two stand-in sessions on one SlamServer at once: A streams its
+    frames and closes; B sends two frames and goes quiet, and the reaper
+    (an idle timeout of 3 s, checked every half second) terminates it.  Each
+    client must see only its own session's events."""
+    import asyncio
+    import base64
+
+    from mast3r_slam_tpu_torch.data.png import encode_png
+    from mast3r_slam_tpu_torch.serve import server, ws
+    from mast3r_slam_tpu_torch.slam.pipeline import SLAM
+
+    from mast3r_slam_tpu_torch.utils.image import resize_geometry
+
+    n_a = 8
+    gt = arc_trajectory(n_a, radius=0.6, max_angle=2.0)
+    cfg = engine_cfg("base")
+    cfg["engine"]["resize"] = size
+    _, (x0, y0, x1, y1) = resize_geometry(raw_hw[1], raw_hw[0], size)
+    hw = (y1 - y0, x1 - x0)
+
+    def factory(frame_hw):
+        return SLAM(PlaneSceneModel(hw, gt, dev), cfg, hw, device=dev)
+
+    frames = [base64.b64encode(encode_png(np.full(raw_hw + (3,), i + 1, np.uint8))).decode()
+              for i in range(n_a)]
+    srv = server.SlamServer(factory, host="127.0.0.1", port=0, output_dir=work / "two",
+                            idle_timeout=3.0, reap_interval=0.5)
+
+    async def quiet_b(port):
+        sid = (await asyncio.get_running_loop().run_in_executor(
+            None, http_json, f"http://127.0.0.1:{port}/connect"))["sessionId"]
+        events = []
+        async with ws.connect(f"ws://127.0.0.1:{port}/ws/{sid}") as sock:
+            events.append(json.loads(await sock.recv()))
+            for i in range(2):
+                await sock.send(json.dumps({"type": "frame", "data": frames[i]}))
+            t0 = time.perf_counter()
+            while not events or events[-1]["type"] != "shutdown_complete":
+                events.append(json.loads(await asyncio.wait_for(sock.recv(), 120)))
+        return sid, events, time.perf_counter() - t0
+
+    async def both():
+        await srv.listen()
+        try:
+            return await asyncio.gather(stream_session(srv.bound_port, frames, listing_after=1),
+                                        quiet_b(srv.bound_port))
+        finally:
+            await srv.aclose()
+
+    a, (b_sid, b_events, b_wait) = asyncio.run(both())
+    a_ids = {e.get("session_id") for e in a["events"] if e["type"] == "ready"}
+    out = dict(a_frames=sum(e["type"] == "pose_update" for e in a["events"]),
+               a_pose_ids=[e["frame_id"] for e in a["events"] if e["type"] == "pose_update"],
+               b_frames=sum(e["type"] == "pose_update" for e in b_events),
+               b_last=b_events[-1], a_last=a["events"][-1],
+               separate=a_ids == {a["sid"]} and b_events[0]["session_id"] == b_sid != a["sid"],
+               reaped=[list(r) for r in srv.reaped], b_sid=b_sid, b_reaped_after_s=b_wait,
+               a_errors=[e for e in a["events"] if e["type"] == "error"])
+    log(f"11d two sessions (stand-in, {hw[0]}x{hw[1]}): {json.dumps(out)}")
+    return out
+
+
+def run_serving(dev, work, smi):
+    """Phase 11 (a)-(d), each checked; raises on any fault."""
+    jpeg = check_jpeg_fixture()
+    serve = run_serve_vitl(dev, work)
+    sc = serve["launches"]
+    want_s = {"attention": 72 * serve["frames"] + 48 * serve["n_tasks"],
+              "refine_window": serve["n_tracked"] + serve["n_tasks"]}
+    if (serve["faults"] or not serve["same_bits_as_control"]
+            or {k: sc[k] for k in want_s} != want_s
+            or serve["n_tasks"] != serve["frames"] - 1 or sc["edge_hg_rays"] < serve["n_tasks"]
+            or serve["traj_rows"] != serve["n_keyframes"] or not serve["ply_points"]):
+        raise AssertionError(
+            f"11b ViT-L session: faults {serve['faults']}, the control's bits "
+            f"{serve['same_bits_as_control']}, launches {sc} (expected {want_s}: 72 attention a "
+            f"frame and 48 a backend task, one refine a tracked frame and a task; edge_hg_rays "
+            f">= {serve['n_tasks']} tasks = frames - 1), exports {serve['traj_rows']} rows, "
+            f"{serve['ply_points']} points")
+    log(f"11b ViT-L session 384x512, {serve['frames']} frames: send -> pose_update p50 "
+        f"{serve['latency_ms_p50']:.1f} ms, p95 {serve['latency_ms_p95']:.1f} ms (client host "
+        f"clock), new_keyframe event {serve['keyframe_event_bytes_mean']:.0f} bytes, session "
+        f"{serve['session_wall_s']:.2f} s; {smi}")
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        viz = run_viz_ws(dev, work)
+    finally:
+        os.chdir(cwd)
+    if not (viz["replay_ok"] and viz["replayed"] >= 2 and viz["bound_port"] == viz["port"]
+            and viz["live"] and viz["live"][-1] == "pose_update"
+            and viz["frames"] == viz["poses_before_step"] + 1
+            and viz["frames"] < viz["sequence_frames"]
+            and viz["ply_points"] != viz["ply_points_default_threshold"]
+            and viz["conf_threshold"] == 3.0 and viz["broadcaster_stopped"]
+            and viz["watcher_done"]):
+        raise AssertionError(f"11c --viz-ws: {json.dumps(viz)} (a late viewer gets every "
+                             f"earlier keyframe as replay, then a stepped frame live; the "
+                             f"threshold changes the PLY; terminate ends the run early)")
+    two = run_two_sessions(dev, work)
+    if not (two["separate"] and two["a_pose_ids"] == list(range(8)) and two["b_frames"] == 2
+            and two["b_last"]["type"] == "shutdown_complete" and two["b_last"]["n_frames"] == 2
+            and two["reaped"] == [[two["b_sid"], False]] and not two["a_errors"]
+            and two["a_last"]["n_frames"] == 8):
+        raise AssertionError(f"11d two sessions: {json.dumps(two)} (separate streams, 8 and 2 "
+                             f"frames, the idle one reaped and not wedged)")
+    return jpeg, serve, viz, two
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -2578,6 +3053,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     paths = kernels.build_all()
+    for name in kernels.ENTRY_POINTS:  # loaded before the first profiler trace
+        kernels.entry_point(name)
     log(f"built {sorted(paths)} from {kernels.CSRC_DIR.name}/ in "
         f"{time.perf_counter() - t0:.1f} s")
     from mast3r_slam_tpu_torch.utils import native
@@ -2767,6 +3244,9 @@ def main() -> int:
     log(f"10c: strided task {strided['task_ms']:.3f} ms against the stride-1 task's "
         f"{backend_split['task_ms']:.3f} ms (host clock); {smi}")
 
+    # serving, in the same scratch directory
+    jpeg, serve, viz, two = run_serving(dev, work, smi)
+
     common = lambda r: {k: r[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms",
                                           "library_call_ms")}
@@ -2775,7 +3255,8 @@ def main() -> int:
              source="mast3r_slam_tpu_torch/csrc/attention.cu",
              replaces="mast3r_slam_tpu/ops/attention.py:52",
              launches=counts["attention"], shape=attn_enc["shape"], **common(attn_enc),
-             strided_task_launches=strided["launches"]["attention"]),
+             strided_task_launches=strided["launches"]["attention"],
+             serve_launches=serve["launches"]["attention"]),
         dict(name="refine_window", route="cuda",
              source="mast3r_slam_tpu_torch/csrc/refine_window.cu",
              replaces="mast3r_slam_tpu/ops/refine_pallas.py:70",
@@ -2786,6 +3267,7 @@ def main() -> int:
                     for k, r in ref_speed["current"].items()},
              strided_launches=strided["launches"]["refine_window"],
              paged_reloc_launches=paged["launches"]["refine_window"],
+             serve_launches=serve["launches"]["refine_window"],
              strided={k: strided[k] for k in ("B", "n", "schedule", "radius", "max_abs_err",
                                               "ms", "call_ms", "plain_ms", "bound_ms",
                                               "bound_by", "pairs_shared",
@@ -2796,7 +3278,8 @@ def main() -> int:
              launches=backend_counts["edge_hg_rays"], shape=ehg["shape"], **common(ehg),
              windowed_launches=sum(r["edge_hg_launches"] for r in windowed["solves"]),
              paged_reloc_launches=paged["launches"]["edge_hg_rays"],
-             strided_task_launches=strided["launches"]["edge_hg_rays"]),
+             strided_task_launches=strided["launches"]["edge_hg_rays"],
+             serve_launches=serve["launches"]["edge_hg_rays"]),
         # the next three: launches in phase 8's SLAM.run (retrieval and reloc);
         # the two probes lie on no package path, their row-gather kernel
         # runs there as ivf_hamming
@@ -2839,7 +3322,10 @@ def main() -> int:
         "long_video": {"windowed": windowed, "paged_soak": soak,
                        "paged_reloc": {k: v for k, v in paged.items() if k != "launches"},
                        "strided_task_ms": strided["task_ms"],
-                       "stride1_task_ms": backend_split["task_ms"], "card": smi}}
+                       "stride1_task_ms": backend_split["task_ms"], "card": smi},
+        "serve": {"jpeg_fixture": jpeg, "vitl_session": {k: v for k, v in serve.items()
+                                                          if k not in ("stages", "latency_ms")},
+                  "viz_ws": viz, "two_sessions": two, "card": smi}}
     log(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -3,11 +3,13 @@
 The card's machine has neither, and the TUM, 7-Scenes, ETH3D and EuRoC
 sequences are PNGs.  ``read_png`` reads 8-bit, non-interlaced gray, RGB
 and RGBA files into the arrays ``cv2.imread`` gives (channels in file
-order: RGB, not cv2's BGR); ``zlib`` inflates the image data and the host
+order: RGB, not cv2's BGR), and ``decode_png`` the same from bytes (the
+session server's payloads); ``zlib`` inflates the image data and the host
 library (``utils/native.py``) undoes the five row filters.  ``imread_rgb``
 and ``imread_gray`` are the dataset loaders' reads: a PNG through
 ``read_png``, any other file (a JPEG) through ``data/cv2_io.py``, loaded
-only then.  ``write_png`` writes RGB images with filter 0.  Palette,
+only then.  ``write_png`` writes RGB images with filter 0, ``encode_png``
+returns the same bytes.  Palette,
 16-bit and interlaced files raise ``ValueError``.
 """
 
@@ -28,9 +30,11 @@ def _chunks(data: bytes, path):
     while at + 12 <= len(data):
         (n,) = struct.unpack(">I", data[at:at + 4])
         kind = data[at + 4:at + 8]
+        if at + 12 + n > len(data):
+            raise ValueError(f"{path}: PNG chunk {kind!r} at byte {at} is cut short")
         body = data[at + 8:at + 8 + n]
         (crc,) = struct.unpack(">I", data[at + 8 + n:at + 12 + n])
-        if len(body) != n or zlib.crc32(kind + body) != crc:
+        if zlib.crc32(kind + body) != crc:
             raise ValueError(f"{path}: corrupt PNG chunk {kind!r} at byte {at}")
         yield kind, body
         if kind == b"IEND":
@@ -41,7 +45,14 @@ def _chunks(data: bytes, path):
 
 def read_png(path) -> np.ndarray:
     """(H, W, C) uint8 as stored: C = 1 (gray), 3 (RGB) or 4 (RGBA)."""
-    data = pathlib.Path(path).read_bytes()
+    return decode_png(pathlib.Path(path).read_bytes(), path)
+
+
+def decode_png(data: bytes, path="PNG data") -> np.ndarray:
+    """``read_png`` of a file's bytes; ``path`` names them in errors.  An
+    image over ``utils.native.MAX_PIXELS`` or image data that does not
+    inflate to its rows raises ``ValueError``, before more than the rows
+    are inflated."""
     if not data.startswith(SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
     header, idat = None, []
@@ -57,10 +68,16 @@ def read_png(path) -> np.ndarray:
         raise ValueError(f"{path}: PNG bit depth {depth}, colour type {ctype}, "
                          f"interlace {interlace}; only 8-bit non-interlaced gray, RGB "
                          "and RGBA are read")
-    from ..utils.native import png_unfilter
+    from ..utils.native import MAX_PIXELS, png_unfilter
 
+    if W * H > MAX_PIXELS:
+        raise ValueError(f"{path}: a {W}x{H} PNG exceeds the limit of {MAX_PIXELS} pixels")
     C = _CHANNELS[ctype]
-    rows = png_unfilter(zlib.decompress(b"".join(idat)), H, W * C, C)
+    try:
+        raw = zlib.decompressobj().decompress(b"".join(idat), H * (W * C + 1))
+    except zlib.error as e:
+        raise ValueError(f"{path}: corrupt PNG image data ({e})") from None
+    rows = png_unfilter(raw, H, W * C, C)
     return rows.reshape(H, W, C)
 
 
@@ -95,17 +112,23 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body)))
 
 
-def write_png(path, rgb: np.ndarray) -> None:
-    """Write an (H, W, 3) uint8 RGB image, every row with filter 0."""
+def encode_png(rgb: np.ndarray) -> bytes:
+    """The PNG file of an (H, W, 3) uint8 RGB image, every row with filter 0."""
     rgb = np.asarray(rgb)
     if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
         raise ValueError(f"write_png takes (H, W, 3) uint8, got {rgb.dtype} {rgb.shape}")
     H, W = rgb.shape[:2]
     raw = np.zeros((H, 1 + 3 * W), dtype=np.uint8)
     raw[:, 1:] = rgb.reshape(H, 3 * W)
+    return (SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path, rgb: np.ndarray) -> None:
+    """Write an (H, W, 3) uint8 RGB image (``encode_png``)."""
+    data = encode_png(rgb)
     path = pathlib.Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_bytes(SIGNATURE
-                     + _chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0))
-                     + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-                     + _chunk(b"IEND", b""))
+    path.write_bytes(data)

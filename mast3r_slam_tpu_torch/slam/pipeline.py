@@ -38,6 +38,16 @@ library (``utils/native.py``) and to other sizes with PIL.
 ``engine.device_keyframes`` pages the keyframe store to that many device
 slots; its ``keep_recent`` (half the budget, at most the solve window)
 clamps the solve window.  ``mesh`` raises ``NotImplementedError``.
+
+Live events: with ``on_event`` set (a callable taking a dict), every logged
+frame emits ``pose_update`` (frame id, timestamp, pose, mode) and every new
+keyframe (INIT, committed, relocalised) ``new_keyframe``: its world points,
+strided to about 8192 (``engine.viz_point_stride`` overrides the stride),
+rounded to 0.1 mm, those above the confidence threshold (``control``'s, else
+1 + 1e-6; all of them if none passes), and their colours.  A sink that
+raises is reported and tracking goes on; unset, no event is built.
+``control`` (a ``serve.broadcast.RunControl``) is asked before every frame
+of ``run``: it blocks while paused and ends the run on terminate.
 """
 
 from __future__ import annotations
@@ -151,6 +161,10 @@ class SLAM:
         self.n_reloc_success = 0
         self.frame_log: List[tuple] = []  # (timestamp, T_WC np (8,))
         self.timer = StageTimer()
+        # live viewer / session server hooks (see the module docstring)
+        self.on_event = None
+        self.control = None
+        self.viz_point_stride = int(cfg.get("engine", {}).get("viz_point_stride", 0) or 0)
 
         # the threaded backend (single_thread: False)
         self.backend_lock = threading.RLock()
@@ -316,6 +330,7 @@ class SLAM:
         frame.T_WC = T
         frame.T_WC_np = None
         self.graph.solve()
+        self._emit_keyframe(kf_idx, frame)
         return True
 
     def process_frame(self, frame_id: int, timestamp: str, rgb01: np.ndarray = None,
@@ -342,6 +357,7 @@ class SLAM:
             # the tracker's own match becomes the consecutive edge's backward half
             self._submit_backend(
                 kf_idx, self.tracker.last_match_capture if self._reuse_match else None)
+            self._emit_keyframe(kf_idx, frame)
         self._log(timestamp, frame)
 
     def _log(self, timestamp, frame: Frame):
@@ -349,6 +365,53 @@ class SLAM:
         if T is None:
             T = frame.T_WC.detach().cpu().numpy()
         self.frame_log.append((timestamp, T))
+        self._emit(lambda: {"type": "pose_update", "frame_id": int(frame.frame_id),
+                            "timestamp": timestamp, "pose": T.tolist(),
+                            "mode": self.mode.name})
+
+    def _emit(self, make_event):
+        """Hand one event to ``on_event``; nothing is built when it is unset,
+        and a failing sink never stops tracking."""
+        if self.on_event is None:
+            return
+        try:
+            self.on_event(make_event())
+        except Exception as e:  # the sink must not break the run
+            print(f"event sink failed: {e!r}", file=sys.stderr)
+
+    def _emit_keyframe(self, kf_idx: int, frame: Frame):
+        """``new_keyframe`` with the keyframe's world points and colours, read
+        from a snapshot of the store through the keyframe's slot."""
+        if self.on_event is None:
+            return
+
+        def build():
+            snap = self.keyframes.snapshot()
+            slot = int(snap.slots([kf_idx])[0])
+            T = snap.T_WC[kf_idx]
+            N = snap.X.shape[1]
+            stride = self.viz_point_stride or max(1, N // 8192)
+            # C is summed over n_fused observations: the mean, as the export reads it
+            C = snap.C[slot, ::stride, 0] / snap.n_fused[kf_idx].clamp(min=1).to(snap.C.dtype)
+            Xw = sim3.act(T, snap.X[slot, ::stride]).float()
+            Xw, conf, T = Xw.cpu().numpy(), C.cpu().numpy(), T.cpu().numpy()
+            uimg = self.keyframes.uimgs[kf_idx]
+            if uimg is not None and np.asarray(uimg).reshape(-1, 3).shape[0] == N:
+                col = np.asarray(uimg).reshape(-1, 3)[::stride]
+                if col.dtype != np.uint8:
+                    col = np.uint8(np.clip(col, 0, 1) * 255)
+            else:
+                col = np.full((len(Xw), 3), 128, np.uint8)
+            thresh = (self.control.conf_threshold if self.control is not None
+                      else 1.0 + 1e-6)
+            sel = conf > thresh
+            if sel.any():
+                Xw, col = Xw[sel], col[sel]
+            return {"type": "new_keyframe", "keyframe_index": int(kf_idx),
+                    "frame_id": int(frame.frame_id), "pose": T.tolist(),
+                    "points": np.round(Xw, 4).tolist(), "colors": col.tolist()}
+
+        self._emit(build)
 
     def _process_nontracking(self, frame: Frame, timestamp):
         """INIT / RELOC handling of an ingested frame."""
@@ -358,11 +421,12 @@ class SLAM:
             mode=self.cfg["tracking"]["filtering_mode"],
             score_mode=self.cfg["tracking"]["filtering_score"])
         if self.mode == Mode.INIT:
-            self.keyframes.append(frame)
+            kf_idx = self.keyframes.append(frame)
             if self.retrieval is not None:
                 self._submit_backend(0)  # adds the first keyframe to the database
             self.mode = Mode.TRACKING
             self._log(timestamp, frame)
+            self._emit_keyframe(kf_idx, frame)
             return
         self.n_reloc += 1
         if self._relocalize(frame):
@@ -377,7 +441,9 @@ class SLAM:
             verbose: bool = True) -> SlamResult:
         """Track every frame of ``dataset`` in order, then wait for the
         backend.  A dataset may supply preprocessed frames through a
-        ``preprocessed(i)`` hook."""
+        ``preprocessed(i)`` hook.  A terminate from ``control`` ends the
+        loop early: the frames read ahead are dropped and the frames in
+        flight finish."""
         n = len(dataset)
         if max_frames is not None:
             n = min(n, max_frames)
@@ -388,6 +454,8 @@ class SLAM:
             else:
                 last_T = None
                 for i, timestamp, pre in frames:
+                    if self.control is not None and not self.control.proceed():
+                        break
                     # frame.latency: the frame's wall time, stalls behind a
                     # backend task included
                     with self.timer.time("frame.latency"):
@@ -508,6 +576,8 @@ class SLAM:
                     pend.append((ij, tsj, self.tracker.track_submit(fj)))
 
         for i, timestamp, pre in frames:
+            if self.control is not None and not self.control.proceed():
+                break
             with self.timer.time("frame.latency"):
                 frame = self.ingest_rgb(i, timestamp, pre=pre)
                 chained = False

@@ -12,7 +12,10 @@ released ``.pth``; without one the weights are random (seed 0).
 ``--device`` replaces the JAX CLI's ``--platform`` (the card by default;
 ``cpu`` to run on the CPU); ``--trace DIR`` writes a torch.profiler trace;
 ``--set`` values parse as YAML scalars (``utils/yaml_subset.py``).
-``--viz-ws`` (live streaming) is not ported (ROADMAP Queue 1, item 11).
+``--viz-ws PORT`` streams the run's events to viewers on
+``ws://127.0.0.1:PORT`` (``serve/broadcast.py``; 0, the default, is off),
+whose run control (pause, step, terminate) the run obeys and whose
+confidence threshold the PLY export takes.
 """
 
 from __future__ import annotations
@@ -26,6 +29,26 @@ import numpy as np
 import torch
 
 
+def build_model(cfg, img_hw, checkpoint=None, seed=0, preset="vit_large", device=None):
+    """The model for ``img_hw`` under ``cfg``'s engine dtypes: from
+    ``checkpoint`` (``.npz`` or ``.pth``), or random weights from ``seed``."""
+    from ..models import mast3r as M
+    from ..models.interface import MASt3RModel
+
+    engine = cfg.get("engine", {})
+    mcfg = M.VIT_LARGE if preset == "vit_large" else M.VIT_TINY_TEST
+    if preset == "vit_large" and engine.get("dtype", "bfloat16") == "float32":
+        mcfg = dataclasses.replace(mcfg, dtype=torch.float32)
+    if engine.get("head_dtype", "float32") == "bfloat16":
+        mcfg = dataclasses.replace(mcfg, head_dtype=torch.bfloat16)
+    if checkpoint and str(checkpoint).endswith(".npz"):
+        return MASt3RModel.from_npz(checkpoint, img_hw, mcfg, device=device)
+    if checkpoint:
+        return MASt3RModel.from_torch_checkpoint(checkpoint, img_hw, mcfg, device=device)
+    print("WARNING: no checkpoint; random weights (geometry will be noise)", file=sys.stderr)
+    return MASt3RModel.random_init(seed, img_hw, mcfg, device=device)
+
+
 def build_slam(cfg, dataset, checkpoint=None, retrieval_checkpoint=None,
                codebook=None, seed=0, preset="vit_large", device=None, model=None):
     """The engine for ``dataset`` under ``cfg``: the model from ``checkpoint``
@@ -33,30 +56,13 @@ def build_slam(cfg, dataset, checkpoint=None, retrieval_checkpoint=None,
     ``model`` itself when given (any object with the model protocol); a
     retrieval database from ``retrieval_checkpoint`` and ``codebook``."""
     from ..device import resolve_device
-    from ..models import mast3r as M
-    from ..models.interface import MASt3RModel
     from .pipeline import SLAM
 
     device = resolve_device(device)
     (h, w), _ = dataset.get_img_shape()
     img_hw = (int(h), int(w))
-    engine = cfg.get("engine", {})
-
     if model is None:
-        mcfg = M.VIT_LARGE if preset == "vit_large" else M.VIT_TINY_TEST
-        if preset == "vit_large" and engine.get("dtype", "bfloat16") == "float32":
-            mcfg = dataclasses.replace(mcfg, dtype=torch.float32)
-        if engine.get("head_dtype", "float32") == "bfloat16":
-            mcfg = dataclasses.replace(mcfg, head_dtype=torch.bfloat16)
-        if checkpoint and str(checkpoint).endswith(".npz"):
-            model = MASt3RModel.from_npz(checkpoint, img_hw, mcfg, device=device)
-        elif checkpoint:
-            model = MASt3RModel.from_torch_checkpoint(checkpoint, img_hw, mcfg,
-                                                      device=device)
-        else:
-            print("WARNING: no checkpoint; random weights (geometry will be noise)",
-                  file=sys.stderr)
-            model = MASt3RModel.random_init(seed, img_hw, mcfg, device=device)
+        model = build_model(cfg, img_hw, checkpoint, seed, preset, device)
 
     retrieval = None
     if retrieval_checkpoint and codebook:
@@ -122,7 +128,8 @@ def main(argv=None):
     parser.add_argument("--profile", action="store_true",
                         help="print per-stage timing report at the end")
     parser.add_argument("--viz-ws", type=int, default=0, metavar="PORT",
-                        help="live viewer stream (not ported: ROADMAP Queue 1, item 11)")
+                        help="stream live pose/keyframe events on ws://127.0.0.1:PORT "
+                             "(open mast3r_slam_tpu_torch/viz/viewer.html?ws=...); 0: off")
     parser.add_argument("--trace", default="",
                         help="write a torch.profiler trace (chrome JSON) to this dir")
     parser.add_argument("--device", default="cuda",
@@ -141,9 +148,6 @@ def main(argv=None):
     from ..utils.yaml_subset import load_file as load_yaml
     from ..viz.renderer import export_scene_json, render_topdown
 
-    if args.viz_ws:
-        raise NotImplementedError("--viz-ws: the live viewer stream is not ported yet "
-                                  "(ROADMAP Queue 1, item 11: serving and viz)")
     device = resolve_device(args.device)
     cfg = load_config(args.config)
     if args.calib:
@@ -175,7 +179,17 @@ def main(argv=None):
                       retrieval_checkpoint=args.retrieval_checkpoint or None,
                       codebook=args.codebook or None, preset=args.model_preset,
                       device=device)
+    broadcaster = None
     try:
+        if args.viz_ws:
+            from ..serve.broadcast import EventBroadcaster
+
+            broadcaster = EventBroadcaster(port=args.viz_ws).start()
+            slam.on_event = broadcaster.push
+            # the viewer's pause / step / threshold / terminate
+            slam.control = broadcaster.control
+            print(f"live viewer stream: ws://127.0.0.1:{broadcaster.bound_port} "
+                  f"(open mast3r_slam_tpu_torch/viz/viewer.html?ws=...)", flush=True)
         if args.trace:
             from torch.profiler import ProfilerActivity, profile
 
@@ -190,6 +204,8 @@ def main(argv=None):
             result = slam.run(dataset, max_frames=args.max_frames)
     finally:
         slam.close()
+        if broadcaster is not None:
+            broadcaster.stop()
 
     save_dir = pathlib.Path("logs")
     if args.save_as != "default":
@@ -202,8 +218,11 @@ def main(argv=None):
         with timed("export.trajectory"):
             slam.save_trajectory(save_dir / f"{seq}.txt", result)
         with timed("export.ply"):
+            # the viewer's slider sets the export threshold
             save_reconstruction(save_dir / f"{seq}.ply", slam.keyframes, slam.img_hw,
-                                conf_threshold=1.5, use_calib=cfg["use_calib"])
+                                conf_threshold=(slam.control.conf_threshold
+                                                if slam.control is not None else 1.5),
+                                use_calib=cfg["use_calib"])
         with timed("export.keyframes"):
             save_keyframes(save_dir / "keyframes" / seq, dataset.timestamps,
                            slam.keyframes)

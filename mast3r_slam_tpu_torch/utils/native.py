@@ -1,9 +1,11 @@
 """The port's host library: frame resize, undistortion remap and PNG row
-filters in C++ (port of ``mast3r_slam_tpu/utils/native.py``).
+filters (port of ``mast3r_slam_tpu/utils/native.py``) and the JPEG decoder
+of the session server, in C++.
 
-``csrc/host/preprocess.cpp`` is compiled with the host C++ compiler
-(``$CXX``, else ``g++``) at first use, into ``build/host/`` at the
-repository root, named by a hash of the source, the flags and the host
+``csrc/host/preprocess.cpp`` and ``csrc/host/jpeg.cpp`` are compiled with
+the host C++ compiler (``$CXX``, else ``g++``) at first use into one
+library in ``build/host/`` at the repository root, named by a hash of the
+sources, the flags and the host
 (``-march=native`` code runs only on the CPU it was built for), and loaded
 with ``ctypes``.  The source compiles with the JAX package's
 ``native/Makefile`` flags, so that the two libraries resize the same frames
@@ -30,7 +32,7 @@ import numpy as np
 from .image import resize_geometry
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
-SOURCE = _PKG_DIR / "csrc" / "host" / "preprocess.cpp"
+SOURCES = [_PKG_DIR / "csrc" / "host" / name for name in ("preprocess.cpp", "jpeg.cpp")]
 BUILD_DIR = _PKG_DIR.parent / "build" / "host"
 CXX_FLAGS = ["-O3", "-march=native", "-ffast-math", "-funroll-loops", "-std=c++17",
              "-fPIC", "-Wall"]
@@ -39,10 +41,13 @@ LINK_FLAGS = ["-shared", "-lpthread"]
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _F32P = ctypes.POINTER(ctypes.c_float)
 _I = ctypes.c_int
+_I32P = ctypes.POINTER(ctypes.c_int)
 _ARGTYPES = {
     "preprocess_frame": [_U8P, _I, _I, _I, _I, _I, _I, _F32P, _U8P],
     "remap_bilinear": [_U8P, _I, _I, _F32P, _F32P, _U8P],
     "png_unfilter": [_U8P, _I, _I, _I, _U8P],
+    "jpeg_info": [_U8P, ctypes.c_int64, _I32P, ctypes.c_char_p, _I],
+    "jpeg_decode": [_U8P, ctypes.c_int64, _I, _I, _U8P, ctypes.c_char_p, _I],
 }
 
 _lib = None
@@ -58,7 +63,8 @@ def compiler() -> str:
 
 def library_path() -> Path:
     key = " ".join(CXX_FLAGS + LINK_FLAGS + [platform.machine(), platform.node()])
-    digest = hashlib.sha1(SOURCE.read_bytes() + key.encode()).hexdigest()[:12]
+    digest = hashlib.sha1(b"".join(f.read_bytes() for f in SOURCES)
+                          + key.encode()).hexdigest()[:12]
     return BUILD_DIR / f"libpreprocess_{digest}.so"
 
 
@@ -69,15 +75,18 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp")
-    steps = [[compiler(), *CXX_FLAGS, "-c", "-o", f"{tmp}.o", str(SOURCE)],
-             [compiler(), "-o", f"{tmp}.so", f"{tmp}.o", *LINK_FLAGS]]
+    objs = [f"{tmp}.{src.stem}.o" for src in SOURCES]
+    steps = [[compiler(), *CXX_FLAGS, "-c", "-o", obj, str(src)]
+             for src, obj in zip(SOURCES, objs)]
+    steps.append([compiler(), "-o", f"{tmp}.so", *objs, *LINK_FLAGS])
     for cmd in steps:
         proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"building {SOURCE.name} failed (rc {proc.returncode}):\n"
+            raise RuntimeError(f"building {out.name} failed (rc {proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stdout}")
-    os.remove(f"{tmp}.o")
+    for obj in objs:
+        os.remove(obj)
     os.replace(f"{tmp}.so", out)
     return out
 
@@ -160,3 +169,47 @@ def png_unfilter(raw: bytes, height: int, row_bytes: int, bpp: int) -> np.ndarra
     if rc != 0:
         raise RuntimeError(f"png_unfilter failed: {rc}")
     return out
+
+
+MAX_PIXELS = 1 << 26  # 64 Mpixel: an image header cannot make the readers allocate more
+
+
+def _jpeg_error(rc: int, err) -> Exception:
+    msg = err.value.decode(errors="replace")
+    if rc == 2:
+        return NotImplementedError(msg)
+    if rc == 1:
+        return ValueError(f"corrupt JPEG: {msg}")
+    return MemoryError(msg)
+
+
+def decode_jpeg(data: bytes, max_pixels: int = MAX_PIXELS) -> np.ndarray:
+    """Decode a baseline JPEG (``csrc/host/jpeg.cpp``) to (H, W, 3) uint8 RGB,
+    gray replicated and the EXIF orientation applied, as
+    ``cv2.cvtColor(cv2.imdecode(..., IMREAD_COLOR), COLOR_BGR2RGB)``.
+    Progressive and other codings the decoder refuses raise
+    ``NotImplementedError``; a truncated or corrupt stream, or one larger
+    than ``max_pixels``, raises ``ValueError``."""
+    lib = load()
+    src = np.frombuffer(data, dtype=np.uint8)
+    info = (ctypes.c_int * 4)()
+    err = ctypes.create_string_buffer(256)
+    rc = lib.jpeg_info(_ptr(src, _U8P), src.size, info, err, len(err))
+    if rc != 0:
+        raise _jpeg_error(rc, err)
+    W, H, _, orientation = info
+    if W * H > max_pixels:
+        raise ValueError(f"JPEG of {W}x{H} pixels exceeds the limit of {max_pixels}")
+    out = np.empty((H, W, 3), dtype=np.uint8)
+    rc = lib.jpeg_decode(_ptr(src, _U8P), src.size, W, H, _ptr(out, _U8P), err, len(err))
+    if rc != 0:
+        raise _jpeg_error(rc, err)
+    return _orient(out, orientation)
+
+
+def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
+    """EXIF orientation 1-8 applied as cv2.imdecode applies it."""
+    if orientation >= 5:  # the stored rows are the picture's columns
+        img = img.transpose(1, 0, 2)
+    flips = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}.get(orientation, ())
+    return np.ascontiguousarray(np.flip(img, flips) if flips else img)

@@ -10,9 +10,14 @@ write the same files, and their trajectories agree within 2e-4 (the pose
 tolerance of tests/test_torch_slam_e2e.py, whose solves these are).
 """
 
+import asyncio
+import json
 import os
+import socket
 import subprocess
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -24,6 +29,7 @@ from mast3r_slam_tpu.slam.pipeline import SLAM as JSLAM
 from mast3r_slam_tpu_torch.data import dataloader as tdl
 from mast3r_slam_tpu_torch.eval import ate as tate
 from mast3r_slam_tpu_torch.eval.trajectory import load_traj_tum
+from mast3r_slam_tpu_torch.serve import broadcast, ws
 from mast3r_slam_tpu_torch.slam import run as trun
 
 from oracle import PlaneScene, arc_trajectory
@@ -154,16 +160,65 @@ def test_set_rejects_malformed(monkeypatch, tmp_path, bad):
 
 
 def test_unported_flags_and_no_card_raise(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        trun.main(["--dataset", str(tmp_path), "--viz-ws", "8765", "--device", CPU])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         trun.main(["--dataset", str(tmp_path)])
 
 
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_viz_ws_streams_the_run(sequence, tmp_path, monkeypatch, capsys):
+    """``--viz-ws PORT`` (0, the default, is off) streams the run's events to
+    a viewer on that port: one pose_update a frame, one new_keyframe a
+    keyframe; the broadcaster is stopped at the end."""
+    seq, gt = sequence
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(tdl.MonocularDataset, "img_size", 64)
+    real_build = trun.build_slam
+    monkeypatch.setattr(trun, "build_slam", lambda cfg, dataset, **kw: real_build(
+        cfg, dataset, **{**kw, "model": TorchOracleModel(_oracle(dataset, gt))}))
+    events, started = [], []
+    real_start = broadcast.EventBroadcaster.start
+
+    def start_and_join(self):
+        real_start(self)
+        started.append(self)
+
+        async def viewer():
+            async with ws.connect(f"ws://127.0.0.1:{self.bound_port}") as sock:
+                async for raw in sock:
+                    events.append(json.loads(raw))
+
+        th = threading.Thread(target=lambda: asyncio.run(viewer()), daemon=True)
+        th.start()
+        deadline = time.time() + 30
+        while not self._clients and time.time() < deadline:
+            time.sleep(0.01)
+        started.append(th)
+        return self
+
+    monkeypatch.setattr(broadcast.EventBroadcaster, "start", start_and_join)
+    port = _free_port()
+    res = trun.main(["--dataset", str(seq), "--config", "eval_no_calib", "--device", CPU,
+                     "--viz-ws", str(port)])
+    b, th = started
+    th.join(30)
+    assert not th.is_alive() and not b._thread.is_alive() and b.bound_port == port
+    assert f"live viewer stream: ws://127.0.0.1:{port}" in capsys.readouterr().out
+    assert sum(e["type"] == "pose_update" for e in events) == len(res.frame_timestamps)
+    kfs = [e for e in events if e["type"] == "new_keyframe"]
+    assert [e["keyframe_index"] for e in kfs] == list(range(res.n_keyframes))
+    assert all(len(e["points"]) == len(e["colors"]) > 0 for e in kfs)
+
+
 def test_module_entry_points_run():
     env = dict(os.environ, PYTHONPATH=ROOT)
-    for mod in ("mast3r_slam_tpu_torch.slam.run", "mast3r_slam_tpu_torch.eval.ate"):
+    for mod in ("mast3r_slam_tpu_torch.slam.run", "mast3r_slam_tpu_torch.eval.ate",
+                "mast3r_slam_tpu_torch.serve.server"):
         out = subprocess.run([sys.executable, "-m", mod, "--help"], env=env, cwd=ROOT,
                              capture_output=True, text=True, timeout=120)
         assert out.returncode == 0 and "usage" in out.stdout, out.stderr

@@ -12,6 +12,7 @@ from mast3r_slam_tpu_torch import config as tconfig
 from mast3r_slam_tpu_torch.models import mast3r as TM
 from mast3r_slam_tpu_torch.models.interface import MASt3RModel
 from mast3r_slam_tpu_torch.retrieval import RetrievalDatabase
+from mast3r_slam_tpu_torch.serve.server import default_slam_factory
 from mast3r_slam_tpu_torch.slam.frame import Keyframes
 from mast3r_slam_tpu_torch.slam.pipeline import SLAM
 from mast3r_slam_tpu_torch.slam.tracker import FrameTracker
@@ -75,6 +76,8 @@ def test_entry_points_without_a_device_raise_without_cuda(monkeypatch):
         SLAM(model, cfg, (32, 32), keyframe_buffer=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         RetrievalDatabase.random_init(0, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        default_slam_factory(cfg=cfg, preset="tiny")
 
 
 UNPORTED = [
@@ -150,7 +153,7 @@ def test_retrieval_object_raises():
                 device=CPU).retrieval is db
 
 
-NO_CARD_LIBS = {"cv2", "PIL", "yaml", "matplotlib"}  # the card's machine has none
+NO_CARD_LIBS = {"cv2", "PIL", "yaml", "matplotlib", "websockets"}  # the card's machine has none
 
 
 def _module_level_imports(tree):
@@ -170,6 +173,7 @@ def _module_level_imports(tree):
 
 
 def test_no_port_module_imports_cv2_pil_yaml_or_matplotlib_at_import():
+    """Nor websockets (the serving path frames its own WebSockets)."""
     bad = []
     for f in _port_files():
         names = _module_level_imports(ast.parse(f.read_text(), str(f)))
@@ -249,4 +253,109 @@ def test_the_cli_path_reaches_no_library_the_card_lacks(tmp_path):
             else:
                 continue
             bad += [f"{f.name}: {m}" for m in names if m.split(".")[0] in NO_CARD_LIBS]
+    assert not bad, bad
+
+
+# Drives chip_smoke.py phase 11's path on the CPU: the session server (the
+# tiny model at 384x512, resized by the host library) over the port's WebSocket client, one PNG and one
+# JPEG frame, the export; then a --viz-ws CLI run with a viewer.  An import
+# hook refuses JAX, the JAX package, websockets, cv2, PIL, PyYAML and
+# matplotlib; prints the attempts and the port modules the run loaded.
+_NO_CARD_SERVE = r"""
+import importlib.abc, json, pathlib, sys, traceback
+BLOCKED = {"jax", "jaxlib", "mast3r_slam_tpu", "websockets", "cv2", "PIL", "yaml",
+           "matplotlib"}
+preloaded = sorted(m for m in BLOCKED if m in sys.modules)
+attempts = []
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            frames = [f for f in traceback.extract_stack() if not f.filename.startswith("<")]
+            attempts.append([name, frames[-2].filename if len(frames) > 1 else ""])
+            raise ImportError(f"{name} is refused on this run")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import asyncio, base64, threading
+import numpy as np
+from mast3r_slam_tpu_torch.config import load_config
+from mast3r_slam_tpu_torch.data.png import encode_png, write_png
+from mast3r_slam_tpu_torch.serve import broadcast, server, ws
+from mast3r_slam_tpu_torch.slam import run
+
+cfg = load_config("base")
+cfg["single_thread"] = True
+srv = server.SlamServer(server.default_slam_factory(cfg=cfg, preset="tiny", device="cpu"),
+                        host="127.0.0.1", port=0, output_dir="sessions")
+frames = [base64.b64encode(encode_png(np.full((480, 640, 3), 90, np.uint8))).decode(),
+          base64.b64encode(pathlib.Path(sys.argv[1]).read_bytes()).decode()]
+
+async def session():
+    await srv.listen()
+    try:
+        async with ws.connect(f"ws://127.0.0.1:{srv.bound_port}/ws") as sock:
+            events = [json.loads(await sock.recv())]
+            for f in frames:
+                await sock.send(json.dumps({"type": "frame", "data": f}))
+            await sock.send(json.dumps({"type": "close"}))
+            while events[-1]["type"] != "shutdown_complete":
+                events.append(json.loads(await sock.recv()))
+        return events
+    finally:
+        await srv.aclose()
+
+events = asyncio.run(session())
+seq = pathlib.Path("tum/rgbd_dataset_freiburg1_x")
+(seq / "rgb").mkdir(parents=True)
+for i in range(2):
+    write_png(seq / f"rgb/{i}.png", np.full((480, 640, 3), 40 + i, np.uint8))
+(seq / "rgb.txt").write_text("".join(f"{i / 30:.6f} rgb/{i}.png\n" for i in range(2)))
+run.main(["--dataset", str(seq), "--config", "eval_no_calib", "--model-preset", "tiny",
+          "--device", "cpu", "--max-frames", "1", "--save-as", "x", "--viz-ws", sys.argv[2]])
+print(json.dumps({"preloaded": preloaded, "attempts": attempts,
+                  "events": [e["type"] for e in events], "modules": sorted(
+    m.__file__ for n, m in sys.modules.items()
+    if n.startswith("mast3r_slam_tpu_torch") and getattr(m, "__file__", None))}))
+"""
+
+
+def test_the_serving_path_reaches_no_library_the_card_lacks(tmp_path):
+    """The modules phase 11 runs (the server, a session over the port's
+    WebSocket client with a PNG and a JPEG frame, the --viz-ws CLI) import
+    no JAX, nothing of the JAX package, and none of websockets, cv2, PIL,
+    yaml or matplotlib, on the run (an import hook refuses them) and
+    anywhere in their source."""
+    import json
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    jpeg = ROOT / "tests" / "data" / "serve_frame.jpg"
+    out = subprocess.run([sys.executable, "-c", _NO_CARD_SERVE, str(jpeg), str(port)],
+                         cwd=tmp_path, env={**__import__("os").environ, "PYTHONPATH": str(ROOT)},
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["preloaded"] == [] and report["attempts"] == [], report
+    ev = report["events"]
+    assert ev[0] == "ready" and ev.count("pose_update") == 2 and ev[-1] == "shutdown_complete"
+    assert "error" not in ev and "reconstruction_saved" in ev
+    files = [pathlib.Path(m) for m in report["modules"]]
+    assert {f.stem for f in files} >= {"server", "broadcast", "ws", "png", "native", "run",
+                                       "pipeline", "export"}
+    bad = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{f.name}: {m}" for m in names
+                    if m.split(".")[0] in NO_CARD_LIBS | FORBIDDEN]
     assert not bad, bad
