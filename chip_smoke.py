@@ -127,6 +127,21 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      conf_threshold changes the exported PLY; pause, step and terminate end
      the run early; (d) two stand-in sessions at once, their event streams
      apart, the idle one reaped.
+  12. image input on the card's host, which has no cv2: (a) every committed
+     image fixture (tests/data/image_fixtures.json: progressive 4:2:0 with
+     restarts, progressive gray, 16-bit RGB, palette and Adam7 PNGs, the
+     folder and served frames below) through the port's readers, against
+     the committed SHA-256 of cv2's decode of it; each folder frame's read
+     timed by kind; (b) ViT-L through the CLI as in 9b over the committed
+     folder of 8 frames at 480x640 (baseline and progressive JPEGs, a
+     palette Adam7 PNG), then over 8-bit RGB PNG copies of its decoded
+     frames (the port's writer): the same trajectory bits and 9b's launch
+     counts, the ingest stage's time beside the card's name and power
+     limit; (c) 9a's stand-in served over the port's WebSocket client with
+     progressive JPEG and 16-bit PNG payloads, the same pose bits as a
+     control that feeds the decoded frames to SLAM.process_frame; (d) a
+     session whose engine is blocked with a full queue: close() returns at
+     once, terminate() within its timeout, the session marked wedged.
 
 Phase 2 also holds the two gather probes' kernels (gather_rows_sum,
 take_along_rows, the latter at every slab width of SLAB_SWEEP, timed in
@@ -3031,6 +3046,278 @@ def run_serving(dev, work, smi):
     return jpeg, serve, viz, two
 
 
+# ---------------------------------------------------------------------------
+# phase 12: image input on the card's host
+# ---------------------------------------------------------------------------
+
+IMAGE_DATA = REPO / "tests" / "data"
+CLOSE_QUEUE = 8            # 12d: frames queued behind the blocked engine
+
+
+def image_kind(path) -> str:
+    """"baseline" or "progressive" JPEG, or "png", by the file's bytes."""
+    data = pathlib.Path(path).read_bytes()
+    if data.startswith(b"\x89PNG"):
+        return "png"
+    return "progressive" if b"\xff\xc2" in data[:data.index(b"\xff\xda")] else "baseline"
+
+
+def check_image_fixtures():
+    """12a: every committed image fixture (tests/data/image_fixtures.json:
+    the small progressive, 16-bit, palette and Adam7 files, the CLI folder,
+    the served frames) read by the port's readers, its SHA-256 against the
+    committed digest of cv2's decode of it (this host has no cv2); then
+    the read of each frame of the CLI folder timed by kind (host clock,
+    median of 5 reads of each frame)."""
+    import hashlib
+
+    from mast3r_slam_tpu_torch.data import png
+
+    digests = json.loads((IMAGE_DATA / "image_fixtures.json").read_text())
+    bad = []
+    for name, want in sorted(digests.items()):
+        img = png.imread_rgb(IMAGE_DATA / name)
+        if (list(img.shape) != want["shape"]
+                or hashlib.sha256(img.tobytes()).hexdigest() != want["sha256"]):
+            bad.append(name)
+    ms = {}
+    for path in sorted((IMAGE_DATA / "image_folder").iterdir()):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            png.imread_rgb(path)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms.setdefault(image_kind(path), []).append(statistics.median(times))
+    out = dict(files=len(digests), exact=len(digests) - len(bad), differ=bad,
+               read_ms={k: statistics.median(v) for k, v in ms.items()},
+               frames_by_kind={k: len(v) for k, v in ms.items()})
+    log(f"12a image fixtures: {json.dumps(out)}")
+    if bad:
+        raise AssertionError(f"12a: the port's readers differ from cv2's decode on {bad}")
+    return out
+
+
+def run_cli_images(dev, work, preset="vit_large", img_size=512):
+    """12b: ViT-L through the CLI (random weights, seed 0, 9b's pinned
+    decisions, every frame read: subsample 1) over the committed folder of
+    8 frames at 480x640 (baseline and progressive JPEGs, a palette Adam7
+    PNG), then over 8-bit RGB PNG copies of its decoded frames written by
+    the port's writer, the control; launch counters reset just before each
+    run and read just after.  The pins cannot keep the tracking GN from
+    failing on random weights over textured frames, so some frames go to
+    relocalisation (no database: they only encode) and not every frame
+    runs a backend task.  Returns a dict of counts, stages and checks."""
+    from mast3r_slam_tpu_torch.data import dataloader, png
+    from mast3r_slam_tpu_torch.slam import run
+
+    folder = IMAGE_DATA / "image_folder"
+    control = work / "image_folder_png"
+    shutil.rmtree(control, ignore_errors=True)
+    files = dataloader.RGBFiles(folder).rgb_files
+    for f in files:
+        png.write_png(control / f"{pathlib.Path(f).stem}.png", png.imread_rgb(f))
+    argv = ["--config", "eval_no_calib", "--device", str(dev), "--max-frames",
+            str(CLI_VITL_FRAMES), "--model-preset",
+            "vit_large" if preset == "vit_large" else "tiny", "--set", "dataset.subsample=1"]
+    for ov in CLI_VITL_SET:
+        argv += ["--set", ov]
+    built = []
+    real = run.build_slam
+
+    def keep(cfg, dataset, **kw):
+        slam = real(cfg, dataset, **kw)
+        built.append(slam)
+        return slam
+
+    with swapped(run, "build_slam", keep), \
+            swapped(dataloader.MonocularDataset, "img_size", img_size):
+        res, counts, wall = run_cli(["--dataset", str(folder), "--save-as", "images"] + argv)
+        st = built[-1].timer.stats()
+        del built[:]
+        res2, counts2, wall2 = run_cli(["--dataset", str(control), "--save-as", "images_png"]
+                                       + argv)
+        st2 = built[-1].timer.stats()
+        del built[:]
+    same_bits = (np.array_equal(res.frame_poses, res2.frame_poses)
+                 and np.array_equal(res.keyframe_poses, res2.keyframe_poses)
+                 and res.keyframe_timestamps == res2.keyframe_timestamps)
+    out = dict(frames=len(res.frame_timestamps), kinds=[image_kind(f) for f in files],
+               n_keyframes=res.n_keyframes,
+               n_tracked=st.get("tracker.track", {"count": 0})["count"],
+               n_tasks=st.get("backend.update", {"count": 0})["count"], n_reloc=res.n_reloc,
+               fps=res.fps, control_fps=res2.fps, wall_s=wall, control_wall_s=wall2,
+               launches=counts, control_launches=counts2, same_bits=bool(same_bits),
+               ingest_ms_p50=st["ingest"]["p50_ms"], control_ingest_ms_p50=st2["ingest"]["p50_ms"],
+               stages={k: {m: v[m] for m in ("mean_ms", "p50_ms", "count")} for k, v in st.items()})
+    log(f"12b CLI ({preset}, {len(files)} frames of the image folder, decisions pinned open) "
+        f"{img_size}: {json.dumps(out)}")
+    return out
+
+
+def run_served_images(dev, work, size=512):
+    """12c: one stand-in session (phase 9a's model) over the port's
+    WebSocket client, its payloads the committed served frames:
+    progressive JPEGs and 16-bit PNGs of 480x640 in turn; then a control
+    that feeds the same decoded frames to SLAM.process_frame on a fresh
+    engine, for the same pose bits."""
+    import asyncio
+    import base64
+
+    import torch
+    from mast3r_slam_tpu_torch.serve import server
+    from mast3r_slam_tpu_torch.slam.pipeline import SLAM
+    from mast3r_slam_tpu_torch.utils.image import resize_geometry
+
+    paths = sorted((IMAGE_DATA / "serve_frames").iterdir())
+    frames = [base64.b64encode(p.read_bytes()).decode() for p in paths]
+    gt = arc_trajectory(len(frames), radius=0.6, max_angle=2.0)
+    cfg = engine_cfg("base")
+    cfg["engine"]["resize"] = size
+    _, (x0, y0, x1, y1) = resize_geometry(*SERVE_SAMPLE_HW[::-1], size)
+    hw = (y1 - y0, x1 - x0)
+    built = []
+
+    def factory(frame_hw):
+        built.append(SLAM(TumSceneModel(hw, gt, dev), cfg, hw, device=dev))
+        return built[-1]
+
+    srv = server.SlamServer(factory, host="127.0.0.1", port=0, output_dir=work / "served")
+
+    async def session():
+        await srv.listen()
+        try:
+            return await stream_session(srv.bound_port, frames)
+        finally:
+            await srv.aclose()
+
+    out = asyncio.run(session())
+    slam = built[0]
+    n_kf = len(slam.keyframes)
+    faults = check_session_events(out, len(frames), n_kf)
+    decoded = [server.decode_image_payload(f) for f in frames]
+    control = factory(decoded[0].shape[:2])
+    last = None
+    for i, rgb in enumerate(decoded):
+        last = control.process_frame(i, str(i), rgb, last_T_WC=last).T_WC
+    control.join_backend()
+    sync(dev)
+    same_bits = (len(control.keyframes) == n_kf
+                 and torch.equal(control.keyframes.T_WC[:n_kf], slam.keyframes.T_WC[:n_kf])
+                 and np.array_equal(np.stack([p for _, p in control.frame_log]),
+                                    np.stack([p for _, p in slam.frame_log])))
+    control.close()
+    res = dict(frames=len(frames), kinds=[image_kind(p) if p.suffix == ".jpg" else "png16"
+                                          for p in paths],
+               n_keyframes=n_kf, faults=faults, same_bits_as_control=bool(same_bits),
+               levels=[int(round(float(d.mean()) * 255)) for d in decoded],
+               latency_ms_p50=statistics.median(out["latency_ms"]))
+    log(f"12c served progressive JPEG and 16-bit PNG frames (stand-in, {hw[0]}x{hw[1]}): "
+        f"{json.dumps(res)}")
+    return res
+
+
+class GatedEngine:
+    """12d: a stand-in engine whose process_frame waits for ``gate``."""
+
+    def __init__(self, gate):
+        self.gate = gate
+        self.done = []
+        self.on_event = None
+        self.keyframes = []
+        self.backend_errors = []
+        self.graph = type("Graph", (), {"resolve_pending_verdicts": lambda self: None})()
+
+    def process_frame(self, fid, ts, rgb, last_T_WC=None):
+        self.gate.wait(60)
+        self.done.append(fid)
+        return type("Frame", (), {"T_WC": None})()
+
+    def join_backend(self):
+        pass
+
+    def close(self):
+        pass
+
+
+def check_session_close(timeout=1.0):
+    """12d: a session whose engine is blocked inside a frame with
+    CLOSE_QUEUE frames queued behind it: close() returns at once, and
+    terminate(timeout) returns False within timeout + 1 s with the session
+    marked wedged (ROADMAP Queue 3 item 14); released, the engine thread
+    ends without the queued frames."""
+    import threading
+
+    from mast3r_slam_tpu_torch.serve import server
+
+    gate = threading.Event()
+    engines = []
+    s = server.SlamSession(lambda hw: engines.append(GatedEngine(gate)) or engines[-1],
+                           max_queue=CLOSE_QUEUE)
+    s.start()
+    s.submit_frame(np.zeros((4, 4, 3), np.float32))
+    deadline = time.time() + 30
+    while not engines and time.time() < deadline:
+        time.sleep(0.01)
+    for _ in range(CLOSE_QUEUE):
+        s.submit_frame(np.zeros((4, 4, 3), np.float32))
+    queued = s.frame_q.qsize()
+    t0 = time.perf_counter()
+    s.close()
+    close_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    finished = s.terminate(timeout=timeout)
+    terminate_s = time.perf_counter() - t0
+    wedged = s.wedged
+    gate.set()
+    s.thread.join(30)
+    out = dict(queued=queued, close_s=close_s, terminate_s=terminate_s, timeout_s=timeout,
+               terminate_returned=finished, wedged=wedged, thread_ended=not s.thread.is_alive(),
+               frames_done=engines[0].done if engines else None)
+    log(f"12d close with a blocked engine and a full queue: {json.dumps(out)}")
+    if not (queued == CLOSE_QUEUE and close_s < 1.0 and finished is False
+            and terminate_s < timeout + 1.0 and wedged and out["thread_ended"]
+            and out["frames_done"] == [0]):
+        raise AssertionError(f"12d: {json.dumps(out)} (close under 1 s, terminate False "
+                             f"within {timeout} + 1 s, the session wedged)")
+    return out
+
+
+def run_image_input(dev, work, smi):
+    """Phase 12 (a)-(d), each checked; raises on any fault."""
+    fixtures = check_image_fixtures()
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        cli = run_cli_images(dev, work)
+    finally:
+        os.chdir(cwd)
+    vc = cli["launches"]
+    want = {"attention": 72 * cli["frames"] + 48 * cli["n_tasks"],
+            "refine_window": cli["n_tracked"] + cli["n_tasks"]}
+    if ({k: vc[k] for k in want} != want or cli["n_tasks"] < 1
+            or vc["edge_hg_rays"] < cli["n_tasks"] or cli["control_launches"] != vc
+            or not cli["same_bits"] or cli["frames"] != CLI_VITL_FRAMES
+            or set(cli["kinds"]) != {"baseline", "progressive", "png"}):
+        raise AssertionError(
+            f"12b CLI over the image folder: launches {vc} (expected {want}: 72 attention a "
+            f"frame and 48 a backend task, one refine a tracked frame and a task; edge_hg_rays "
+            f">= {cli['n_tasks']} tasks >= 1), PNG control {cli['control_launches']}, "
+            f"same trajectory bits {cli['same_bits']}, {cli['frames']} frames of "
+            f"{cli['kinds']}")
+    served = run_served_images(dev, work)
+    if (served["faults"] or not served["same_bits_as_control"]
+            or served["levels"] != list(range(1, served["frames"] + 1))):
+        raise AssertionError(f"12c served images: {json.dumps(served)}")
+    close = check_session_close()
+    rm = fixtures["read_ms"]
+    log(f"12 ingest a 480x640 frame (host clock): baseline JPEG {rm['baseline']:.2f} ms, "
+        f"progressive JPEG {rm['progressive']:.2f} ms, palette Adam7 PNG {rm['png']:.2f} ms "
+        f"(decode); the CLI's ingest stage p50 {cli['ingest_ms_p50']:.2f} ms over the folder, "
+        f"{cli['control_ingest_ms_p50']:.2f} ms over the RGB PNG control (decode + 512 "
+        f"resize); {smi}")
+    return fixtures, cli, served, close
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -3246,6 +3533,8 @@ def main() -> int:
 
     # serving, in the same scratch directory
     jpeg, serve, viz, two = run_serving(dev, work, smi)
+    # image input without cv2, in the same scratch directory
+    img_fixtures, img_cli, img_served, img_close = run_image_input(dev, work, smi)
 
     common = lambda r: {k: r[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms",
@@ -3256,7 +3545,8 @@ def main() -> int:
              replaces="mast3r_slam_tpu/ops/attention.py:52",
              launches=counts["attention"], shape=attn_enc["shape"], **common(attn_enc),
              strided_task_launches=strided["launches"]["attention"],
-             serve_launches=serve["launches"]["attention"]),
+             serve_launches=serve["launches"]["attention"],
+             image_cli_launches=img_cli["launches"]["attention"]),
         dict(name="refine_window", route="cuda",
              source="mast3r_slam_tpu_torch/csrc/refine_window.cu",
              replaces="mast3r_slam_tpu/ops/refine_pallas.py:70",
@@ -3268,6 +3558,7 @@ def main() -> int:
              strided_launches=strided["launches"]["refine_window"],
              paged_reloc_launches=paged["launches"]["refine_window"],
              serve_launches=serve["launches"]["refine_window"],
+             image_cli_launches=img_cli["launches"]["refine_window"],
              strided={k: strided[k] for k in ("B", "n", "schedule", "radius", "max_abs_err",
                                               "ms", "call_ms", "plain_ms", "bound_ms",
                                               "bound_by", "pairs_shared",
@@ -3279,7 +3570,8 @@ def main() -> int:
              windowed_launches=sum(r["edge_hg_launches"] for r in windowed["solves"]),
              paged_reloc_launches=paged["launches"]["edge_hg_rays"],
              strided_task_launches=strided["launches"]["edge_hg_rays"],
-             serve_launches=serve["launches"]["edge_hg_rays"]),
+             serve_launches=serve["launches"]["edge_hg_rays"],
+             image_cli_launches=img_cli["launches"]["edge_hg_rays"]),
         # the next three: launches in phase 8's SLAM.run (retrieval and reloc);
         # the two probes lie on no package path, their row-gather kernel
         # runs there as ivf_hamming
@@ -3325,7 +3617,10 @@ def main() -> int:
                        "stride1_task_ms": backend_split["task_ms"], "card": smi},
         "serve": {"jpeg_fixture": jpeg, "vitl_session": {k: v for k, v in serve.items()
                                                           if k not in ("stages", "latency_ms")},
-                  "viz_ws": viz, "two_sessions": two, "card": smi}}
+                  "viz_ws": viz, "two_sessions": two, "card": smi},
+        "image_input": {"fixtures": img_fixtures,
+                        "cli": {k: v for k, v in img_cli.items() if k != "stages"},
+                        "served": img_served, "close": img_close, "card": smi}}
     log(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -1,24 +1,30 @@
-// Baseline JPEG decoding for the port's session server, which receives the
-// clients' frames as JPEG and runs where neither cv2 nor PIL is installed.
-// Built into the port's host library beside preprocess.cpp by
-// mast3r_slam_tpu_torch/utils/native.py; two plain C entry points:
+// JPEG decoding for the port's image readers and session server, which run
+// where neither cv2 nor PIL is installed.  Built into the port's host
+// library beside preprocess.cpp by mast3r_slam_tpu_torch/utils/native.py;
+// two plain C entry points:
 //
 //   jpeg_info    width, height, components and EXIF orientation from the
 //                headers, and whether the stream's coding is decoded here;
 //   jpeg_decode  the image as (H, W, 3) uint8 RGB, gray replicated.
 //
-// Decoded: sequential Huffman coding (SOF0, SOF1) at 8 bits, 1 or 3
-// components, sampling factors up to 2x2 at integral ratios (4:4:4, 4:2:2,
-// 4:4:0, 4:2:0), interleaved and single-component scans, restart intervals,
-// any width and height.  The arithmetic follows libjpeg (the decoder behind
-// cv2.imdecode) where it chooses: the ISLOW integer IDCT with its range
-// limit, "fancy" triangle upsampling of the chroma with its rounding
-// biases and edge replication, and the fixed-point YCbCr->RGB tables, so
-// the pixels equal cv2's.  Progressive, lossless, hierarchical and
-// arithmetic coding, 12-bit samples and CMYK are refused (return 2);
-// truncated or corrupt streams return 1.  Every read is bounds-checked:
-// the bytes and the sizes come from the client.
+// Decoded: sequential (SOF0, SOF1) and progressive (SOF2) Huffman coding at
+// 8 bits, 1 or 3 components, sampling factors up to 2x2 at integral ratios
+// (4:4:4, 4:2:2, 4:4:0, 4:2:0), interleaved and single-component scans,
+// restart intervals, any width and height.  A progressive stream's scans
+// (DC first and refinement, AC first and refinement with the end-of-band
+// run) accumulate into the same coefficient buffers that the sequential
+// scans fill, and both end in the same output stage.  The arithmetic
+// follows libjpeg (the decoder behind cv2.imdecode) where it chooses: the
+// ISLOW integer IDCT with its range limit, "fancy" triangle upsampling of
+// the chroma with its rounding biases and edge replication, and the
+// fixed-point YCbCr->RGB tables, so the pixels equal cv2's.  Lossless,
+// hierarchical and arithmetic coding, 12-bit samples and CMYK are refused
+// (return 2), and so is a progressive stream whose scans stop where
+// libjpeg would smooth its blocks (see would_smooth); truncated or corrupt
+// streams return 1.  Every read is bounds-checked: the bytes and the sizes
+// come from the client.
 
+#include <algorithm>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -36,8 +42,14 @@ struct Unsupported : std::runtime_error {
   using std::runtime_error::runtime_error;
 };
 
-const char* const kProgressive =
-    "progressive JPEG is not decoded (ROADMAP Queue 1, item 13)";
+const char* const kSmoothed =
+    "a progressive JPEG whose scans leave the first AC coefficients short of bits: cv2 "
+    "smooths its blocks, which is not decoded (ROADMAP Queue 1, item 13b)";
+const char* const kOtherCodings = " is not decoded (ROADMAP Queue 1, item 13c)";
+
+// libjpeg-turbo's SAVED_COEFS (jdcoefct.c, 10 since 2.1): block smoothing
+// reads the DC and the first nine AC coefficients of each block
+constexpr int kSavedCoefs = 10;
 
 // zigzag position -> natural (row-major) position
 const int kNatural[64] = {
@@ -165,8 +177,12 @@ struct Component {
   int bw = 0, bh = 0;     // blocks a row and column, MCU-padded
   int dw = 0, dh = 0;     // downsampled width and height (real samples)
   std::vector<int16_t> coef;  // bh * bw blocks of 64, natural order
-  int pred = 0;
+  int64_t pred = 0;
   bool scanned = false;
+  bool latched = false;   // the quantisation table, copied at the first scan as libjpeg does
+  uint16_t qt[64] = {};   // natural order
+  int coef_bits[64];      // progressive: the Al of each coefficient's last scan, -1 before
+  Component() { std::fill(coef_bits, coef_bits + 64, -1); }
 };
 
 struct Decoder {
@@ -177,6 +193,7 @@ struct Decoder {
   int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   int restart = 0;
   bool frame = false, adobe = false, jfif = false;
+  bool progressive = false, any_scan = false;
   int adobe_transform = -1;
   int orientation = 1;
   uint16_t quant[4][64] = {};
@@ -238,6 +255,7 @@ struct Decoder {
 
   void read_frame(int m) {
     if (frame) throw Corrupt("second JPEG frame header");
+    progressive = m == 0xC2;
     size_t len = size_t(u16());
     size_t end = pos + len - 2;
     if (len < 8 || end > n) throw Corrupt("bad JPEG frame header");
@@ -246,10 +264,10 @@ struct Decoder {
     width = u16();
     ncomp = u8();
     if (precision != 8)
-      throw Unsupported("JPEG of " + std::to_string(precision) + "-bit samples");
+      throw Unsupported("JPEG of " + std::to_string(precision) + "-bit samples" + kOtherCodings);
     if (height == 0) throw Unsupported("JPEG whose height comes in a DNL marker");
     if (width == 0) throw Corrupt("JPEG of width 0");
-    if (ncomp == 4) throw Unsupported("CMYK/YCCK JPEG (4 components)");
+    if (ncomp == 4) throw Unsupported(std::string("CMYK/YCCK JPEG (4 components)") + kOtherCodings);
     if (ncomp != 1 && ncomp != 3)
       throw Corrupt("JPEG of " + std::to_string(ncomp) + " components");
     if (len != size_t(8 + 3 * ncomp)) throw Corrupt("bad JPEG frame header length");
@@ -284,7 +302,6 @@ struct Decoder {
       c.dh = int((int64_t(height) * c.v + vmax - 1) / vmax);
       if (allocate) c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
     }
-    (void)m;
     frame = true;
   }
 
@@ -321,13 +338,18 @@ struct Decoder {
     if (pos != end) throw Corrupt("bad JPEG Huffman table");
   }
 
+  // the DC prediction, refused where libjpeg's int would overflow
+  static void add_dc(Component& c, int diff) {
+    c.pred += diff;
+    if (c.pred > INT32_MAX || c.pred < INT32_MIN) throw Corrupt("bad JPEG DC coefficient");
+  }
+
   void decode_block(BitReader& br, Component& c, int16_t* blk) {
     const Huffman& dct = dc[c.td];
     const Huffman& act = ac[c.ta];
     int s = br.decode(dct);
     if (s > 15) throw Corrupt("bad JPEG DC coefficient");
-    int diff = s ? extend(br.get(s), s) : 0;
-    c.pred += diff;
+    add_dc(c, s ? extend(br.get(s), s) : 0);
     blk[0] = int16_t(c.pred);
     for (int k = 1; k < 64; ++k) {
       int rs = br.decode(act);
@@ -341,6 +363,88 @@ struct Decoder {
         if (r != 15) break;
         k += 15;
       }
+    }
+  }
+
+  // The four progressive scan kinds, after libjpeg's jdphuff.c.  Values
+  // shifted left by Al wrap to 16 bits as libjpeg's JCOEF does.
+  static int16_t shifted(int64_t v, int al) { return int16_t(int32_t(uint32_t(v) << al)); }
+
+  void dc_first(BitReader& br, Component& c, int16_t* blk, int al) {
+    int s = br.decode(dc[c.td]);
+    if (s > 15) throw Corrupt("bad JPEG DC coefficient");
+    add_dc(c, s ? extend(br.get(s), s) : 0);
+    blk[0] = shifted(c.pred, al);
+  }
+
+  static void dc_refine(BitReader& br, int16_t* blk, int al) {
+    if (br.get(1)) blk[0] = int16_t(blk[0] | (1 << al));
+  }
+
+  // eobrun: blocks of the band left with no further coefficient
+  void ac_first(BitReader& br, Component& c, int16_t* blk, int ss, int se, int al,
+                int& eobrun) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    const Huffman& act = ac[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      int rs = br.decode(act);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        if (k > se) throw Corrupt("bad JPEG AC run");
+        blk[kNatural[k]] = shifted(extend(br.get(s), s), al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = (1 << r) - 1 + br.get(r);  // this block ends the run's first
+        break;
+      }
+    }
+  }
+
+  // A correction bit for a coefficient already nonzero: 1 moves it one
+  // step of 1 << Al away from zero, unless that bit is already set.
+  static void correct(BitReader& br, int16_t& co, int al) {
+    if (br.get(1) && (co & (1 << al)) == 0) co = int16_t(co >= 0 ? co + (1 << al) : co - (1 << al));
+  }
+
+  void ac_refine(BitReader& br, Component& c, int16_t* blk, int ss, int se, int al,
+                 int& eobrun) {
+    int k = ss;
+    if (eobrun == 0) {
+      const Huffman& act = ac[c.ta];
+      for (; k <= se; ++k) {
+        int rs = br.decode(act);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {  // a newly nonzero coefficient: its size is 1 (libjpeg reads one bit
+                  // whatever the size says), its sign the next bit
+          s = br.get(1) ? (1 << al) : -(1 << al);
+        } else if (r != 15) {
+          eobrun = (1 << r) + br.get(r);
+          break;
+        }
+        // pass r zero coefficients (16 for a ZRL), correcting each nonzero one
+        // on the way; a new coefficient lands on the zero after them
+        for (; k <= se; ++k) {
+          int16_t& co = blk[kNatural[k]];
+          if (co != 0) correct(br, co, al);
+          else if (--r < 0) break;
+        }
+        if (s) {
+          if (k > se) throw Corrupt("bad JPEG AC refinement run");
+          blk[kNatural[k]] = int16_t(s);
+        }
+      }
+    }
+    if (eobrun > 0) {  // inside the run: a correction bit for each nonzero coefficient left
+      for (; k <= se; ++k) {
+        int16_t& co = blk[kNatural[k]];
+        if (co != 0) correct(br, co, al);
+      }
+      --eobrun;
     }
   }
 
@@ -362,15 +466,40 @@ struct Decoder {
       if (!c) throw Corrupt("bad JPEG scan component");
       c->td = t >> 4;
       c->ta = t & 15;
-      if (c->td > 3 || c->ta > 3 || !dc[c->td].defined || !ac[c->ta].defined)
-        throw Corrupt("JPEG scan uses an undefined Huffman table");
-      if (!quant_defined[c->tq]) throw Corrupt("JPEG component uses an undefined quantisation table");
+      if (c->td > 3 || c->ta > 3) throw Corrupt("bad JPEG scan component");
       sc[i] = c;
     }
-    int ss = u8(), se = u8(), a = u8();
-    if (ss != 0 || se != 63 || a != 0) throw Corrupt("bad JPEG sequential scan parameters");
-
-    for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+    const int ss = u8(), se = u8(), a = u8();
+    const int ah = a >> 4, al = a & 15;
+    enum Kind { SEQUENTIAL, DC_FIRST, DC_REFINE, AC_FIRST, AC_REFINE } kind = SEQUENTIAL;
+    if (!progressive) {
+      if (ss != 0 || se != 63 || a != 0) throw Corrupt("bad JPEG sequential scan parameters");
+    } else {
+      // libjpeg's checks (jdphuff.c start_pass_phuff_decoder): a DC band alone,
+      // an AC band of one component, a refinement one bit below the last
+      bool bad = ss == 0 ? se != 0 : (se < ss || se > 63 || ns != 1);
+      if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
+      if (bad) throw Corrupt("bad JPEG progressive scan parameters");
+      kind = ss == 0 ? (ah ? DC_REFINE : DC_FIRST) : (ah ? AC_REFINE : AC_FIRST);
+    }
+    for (int i = 0; i < ns; ++i) {
+      Component* c = sc[i];
+      bool need_dc = kind == SEQUENTIAL || kind == DC_FIRST;
+      bool need_ac = kind == SEQUENTIAL || kind == AC_FIRST || kind == AC_REFINE;
+      if ((need_dc && !dc[c->td].defined) || (need_ac && !ac[c->ta].defined))
+        throw Corrupt("JPEG scan uses an undefined Huffman table");
+      if (!c->latched) {
+        if (!quant_defined[c->tq])
+          throw Corrupt("JPEG component uses an undefined quantisation table");
+        memcpy(c->qt, quant[c->tq], sizeof(c->qt));
+        c->latched = true;
+      }
+      // the progression's state (libjpeg warns of an out-of-order one and goes on)
+      if (progressive)
+        for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
+      c->pred = 0;
+    }
+    int eobrun = 0;
     BitReader br(d, n, pos);
     int64_t units;  // MCUs of this scan
     int ux = 0;
@@ -393,11 +522,21 @@ struct Decoder {
         br = BitReader(d, n, p + 1);
         next_rst = (next_rst + 1) & 7;
         for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+        eobrun = 0;
       }
+      auto block = [&](Component& c, int16_t* blk) {
+        switch (kind) {
+          case SEQUENTIAL: decode_block(br, c, blk); break;
+          case DC_FIRST: dc_first(br, c, blk, al); break;
+          case DC_REFINE: dc_refine(br, blk, al); break;
+          case AC_FIRST: ac_first(br, c, blk, ss, se, al, eobrun); break;
+          case AC_REFINE: ac_refine(br, c, blk, ss, se, al, eobrun); break;
+        }
+      };
       if (ns == 1) {
         Component& c = *sc[0];
         int by = int(u / ux), bx = int(u % ux);
-        decode_block(br, c, c.coef.data() + (size_t(by) * c.bw + bx) * 64);
+        block(c, c.coef.data() + (size_t(by) * c.bw + bx) * 64);
       } else {
         int my = int(u / mcux), mx = int(u % mcux);
         for (int i = 0; i < ns; ++i) {
@@ -405,7 +544,7 @@ struct Decoder {
           for (int yy = 0; yy < c.v; ++yy)
             for (int xx = 0; xx < c.h; ++xx) {
               size_t b = size_t(my * c.v + yy) * c.bw + size_t(mx * c.h + xx);
-              decode_block(br, c, c.coef.data() + b * 64);
+              block(c, c.coef.data() + b * 64);
             }
         }
       }
@@ -414,6 +553,7 @@ struct Decoder {
     br.to_marker();
     pos = br.pos;
     for (int i = 0; i < ns; ++i) sc[i]->scanned = true;
+    any_scan = true;
   }
 
   // markers up to and including the frame header (info), or to EOI
@@ -423,15 +563,19 @@ struct Decoder {
     while (true) {
       if (full && pos >= n && all_scanned()) return;  // the EOI alone is missing
       int m = marker();
-      if (m == 0xC0 || m == 0xC1) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
         read_frame(m);
         if (!full) return;
-      } else if (m == 0xC2 || m == 0xC6 || m == 0xCA || m == 0xCE) {
-        throw Unsupported(kProgressive);
-      } else if (m == 0xC3 || m == 0xC5 || m == 0xC7 || m == 0xCB || m == 0xCF) {
-        throw Unsupported("lossless or hierarchical JPEG");
-      } else if (m == 0xC9 || m == 0xCD || m == 0xCC) {
-        throw Unsupported("arithmetic-coded JPEG");
+      } else if (m == 0xC5 || m == 0xC6 || m == 0xC7 || m == 0xCD || m == 0xCE || m == 0xCF) {
+        throw Unsupported(std::string("hierarchical JPEG (SOF") + std::to_string(m - 0xC0) +
+                          ")" + kOtherCodings);
+      } else if (m == 0xC3 || m == 0xCB) {
+        throw Unsupported(std::string("lossless JPEG (SOF") + std::to_string(m - 0xC0) + ")" +
+                          kOtherCodings);
+      } else if (m == 0xC9 || m == 0xCA || m == 0xCC) {
+        throw Unsupported(std::string("arithmetic-coded JPEG (") +
+                          (m == 0xCC ? std::string("DAC") : "SOF" + std::to_string(m - 0xC0)) +
+                          ")" + kOtherCodings);
       } else if (m == 0xC4) {
         read_dht();
       } else if (m == 0xDB) {
@@ -465,11 +609,33 @@ struct Decoder {
     }
   }
 
+  // sequential: every component has its scan; progressive: any scan was
+  // read, and later ones may be missing (libjpeg decodes what came)
   bool all_scanned() const {
     if (!frame) return false;
+    if (progressive) return any_scan;
     for (int i = 0; i < ncomp; ++i)
       if (!comp[i].scanned) return false;
     return true;
+  }
+
+  // libjpeg-turbo's smoothing_ok (jdcoefct.c): cv2 smooths the blocks of a
+  // progressive image (do_block_smoothing is on by default) when every
+  // component has been scanned with nonzero quantisers at the first
+  // kSavedCoefs positions and a known DC, and one of the first nine AC
+  // coefficients of some component still lacks bits
+  bool would_smooth() const {
+    if (!progressive) return false;
+    bool useful = false;
+    for (int i = 0; i < ncomp; ++i) {
+      const Component& c = comp[i];
+      if (!c.latched || c.coef_bits[0] < 0) return false;
+      for (int k = 0; k < kSavedCoefs; ++k)
+        if (c.qt[kNatural[k]] == 0) return false;
+      for (int k = 1; k < kSavedCoefs; ++k)
+        if (c.coef_bits[k] != 0) useful = true;
+    }
+    return useful;
   }
 
   bool is_rgb() const {
@@ -696,7 +862,7 @@ void to_rgb(Decoder& dec, uint8_t* rgb) {
     std::vector<uint8_t> plane(size_t(pw) * c.bh * 8);
     for (int by = 0; by < c.bh; ++by)
       for (int bx = 0; bx < c.bw; ++bx)
-        idct_islow(c.coef.data() + (size_t(by) * c.bw + bx) * 64, dec.quant[c.tq],
+        idct_islow(c.coef.data() + (size_t(by) * c.bw + bx) * 64, c.qt,
                    plane.data() + size_t(by) * 8 * pw + size_t(bx) * 8, pw);
     full[i].resize(size_t(W) * H);
     upsample(c, plane, dec.hmax / c.h, dec.vmax / c.v, W, H, full[i].data());
@@ -764,6 +930,7 @@ int jpeg_decode(const uint8_t* data, int64_t size, int width, int height, uint8_
     Decoder dec(data, size_t(size));
     dec.allocate = true;
     dec.parse(true);
+    if (dec.would_smooth()) throw Unsupported(kSmoothed);
     to_rgb(dec, rgb);
     return 0;
   } catch (const Unsupported& e) {

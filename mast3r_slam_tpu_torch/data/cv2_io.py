@@ -1,8 +1,8 @@
 """The inputs that need cv2 (port of the cv2 parts of
-``mast3r_slam_tpu/data/dataloader.py``): JPEG and other non-PNG images,
-MP4 video and the webcam.  cv2 is imported where it is used, so this module
-loads without it and each of these raises ``ImportError`` there; the PNG
-sequences never load it.
+``mast3r_slam_tpu/data/dataloader.py``): images that are neither PNG nor
+JPEG, MP4 video and the webcam.  cv2 is imported where it is used, so this
+module loads without it and each of these raises ``ImportError`` there;
+PNG and JPEG sequences never load it.
 """
 
 from __future__ import annotations

@@ -3,11 +3,11 @@
 
 The same calibration constants, undistortion and dataset-type sniffing as
 the JAX package, without cv2, PIL or PyYAML on the path of a recorded
-sequence: PNGs are read by ``data/png.py``, the EuRoC ``sensor.yaml`` by
-``utils/yaml_subset.py``, and the undistortion (OpenCV's optimal new
-camera matrix and rectify map) is computed in numpy and applied by the
-host library.  JPEG files, MP4 video and the webcam need cv2
-(``data/cv2_io.py``), RealSense needs pyrealsense2; each is imported where
+sequence: PNG and JPEG files are read by ``data/png.py``, the EuRoC
+``sensor.yaml`` by ``utils/yaml_subset.py``, and the undistortion (OpenCV's
+optimal new camera matrix and rectify map) is computed in numpy and applied
+by the host library.  Other image formats, MP4 video and the webcam need
+cv2 (``data/cv2_io.py``), RealSense needs pyrealsense2; each is imported where
 it is used and raises ``ImportError`` where it is missing.  Frames are
 handed to the engine as float arrays in [0, 1].
 """

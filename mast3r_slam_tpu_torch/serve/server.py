@@ -54,8 +54,6 @@ import numpy as np
 
 from . import ws
 
-JPEG_MAGIC = b"\xff\xd8"
-
 
 class SlamSession:
     """One streaming session: frames in, events out, the engine on a thread."""
@@ -71,6 +69,8 @@ class SlamSession:
                                        daemon=True)
         self.running = False
         self.wedged = False
+        self._closing = threading.Event()  # no more frames: finish the queued ones
+        self._abandon = threading.Event()  # terminate: skip the queued frames
         self.slam = None
         self.created = time.time()
         self.last_activity = time.time()
@@ -98,14 +98,22 @@ class SlamSession:
         return fid
 
     def close(self):
-        """End the stream: the engine finishes the queued frames, exports and
-        reports ``shutdown_complete``."""
-        self.frame_q.put(None)
+        """End the stream without blocking: the engine finishes the queued
+        frames, exports and reports ``shutdown_complete``.  The stop is the
+        ``_closing`` event, which the engine reads whenever the queue is
+        empty; the sentinel only wakes an engine waiting on an empty queue,
+        so a full queue needs none."""
+        self._closing.set()
+        try:
+            self.frame_q.put_nowait(None)
+        except queue.Full:
+            pass
 
     def terminate(self, timeout: float = 10.0) -> bool:
-        """Close and wait up to ``timeout`` seconds for the engine thread; a
-        thread that does not come back is abandoned (a thread cannot be
-        killed) and the session marked wedged."""
+        """Close, drop the queued frames, and wait up to ``timeout`` seconds
+        for the engine thread; a thread that does not come back is abandoned
+        (a thread cannot be killed) and the session marked wedged."""
+        self._abandon.set()
         self.close()
         self.thread.join(timeout)
         if self.thread.is_alive():
@@ -145,7 +153,9 @@ class SlamSession:
         n_done = 0
         t0 = time.time()
         try:
-            while True:
+            while not self._abandon.is_set():
+                if self._closing.is_set() and self.frame_q.empty():
+                    break
                 item = self.frame_q.get()
                 if item is None:
                     break
@@ -190,15 +200,14 @@ def decode_image_payload(data_b64: str) -> np.ndarray:
     their magic bytes: PNG through ``data/png.py``, JPEG through the host
     library's decoder (``csrc/host/jpeg.cpp``).  Gray is replicated and
     alpha dropped, as ``cv2.imdecode(..., IMREAD_COLOR)`` does.  Other bytes
-    raise ``ValueError``; a JPEG coding the decoder refuses (progressive)
-    raises ``NotImplementedError``."""
+    raise ``ValueError``; a JPEG coding the decoder refuses raises
+    ``NotImplementedError``."""
     from ..data import png
 
     raw = base64.b64decode(data_b64)
     if raw.startswith(png.SIGNATURE):
-        img = png.decode_png(raw)
-        img = np.repeat(img, 3, axis=2) if img.shape[2] == 1 else img[..., :3]
-    elif raw.startswith(JPEG_MAGIC):
+        img = png.to_rgb(png.decode_png(raw))
+    elif raw.startswith(png.JPEG_MAGIC):
         from ..utils.native import decode_jpeg
 
         img = decode_jpeg(raw)
@@ -294,12 +303,30 @@ class SlamServer:
             self.sessions[session.session_id] = session
         session.start()
         loop = asyncio.get_running_loop()
+        events: asyncio.Queue = asyncio.Queue()
+
+        def pump():
+            # the session's events onto the loop, on a thread of the session's
+            # own: a blocking get in the loop's executor would hold one of its
+            # threads for the session's life, and enough sessions would starve
+            # the reaper, which runs there
+            while True:
+                ev = session.event_q.get()
+                try:
+                    loop.call_soon_threadsafe(events.put_nowait, ev)
+                except RuntimeError:  # the loop has closed
+                    return
+                if ev is None:
+                    return
+
+        threading.Thread(target=pump, name=f"events-{session.session_id[:8]}",
+                         daemon=True).start()
 
         async def forward_events():
             # a client gone mid-session stops the sends, not the draining
             connected = True
             while True:
-                ev = await loop.run_in_executor(None, session.event_q.get)
+                ev = await events.get()
                 if ev is None:
                     return
                 if connected:

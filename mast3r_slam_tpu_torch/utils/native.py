@@ -1,6 +1,6 @@
 """The port's host library: frame resize, undistortion remap and PNG row
 filters (port of ``mast3r_slam_tpu/utils/native.py``) and the JPEG decoder
-of the session server, in C++.
+of the image readers and the session server, in C++.
 
 ``csrc/host/preprocess.cpp`` and ``csrc/host/jpeg.cpp`` are compiled with
 the host C++ compiler (``$CXX``, else ``g++``) at first use into one
@@ -183,13 +183,11 @@ def _jpeg_error(rc: int, err) -> Exception:
     return MemoryError(msg)
 
 
-def decode_jpeg(data: bytes, max_pixels: int = MAX_PIXELS) -> np.ndarray:
-    """Decode a baseline JPEG (``csrc/host/jpeg.cpp``) to (H, W, 3) uint8 RGB,
-    gray replicated and the EXIF orientation applied, as
-    ``cv2.cvtColor(cv2.imdecode(..., IMREAD_COLOR), COLOR_BGR2RGB)``.
-    Progressive and other codings the decoder refuses raise
-    ``NotImplementedError``; a truncated or corrupt stream, or one larger
-    than ``max_pixels``, raises ``ValueError``."""
+def jpeg_info(data: bytes) -> dict:
+    """The headers of a JPEG stream up to its frame: ``width``, ``height``,
+    ``components`` (1 or 3) and the EXIF ``orientation`` (1-8).  A coding
+    the decoder refuses raises ``NotImplementedError``, a corrupt header
+    ``ValueError``."""
     lib = load()
     src = np.frombuffer(data, dtype=np.uint8)
     info = (ctypes.c_int * 4)()
@@ -197,14 +195,29 @@ def decode_jpeg(data: bytes, max_pixels: int = MAX_PIXELS) -> np.ndarray:
     rc = lib.jpeg_info(_ptr(src, _U8P), src.size, info, err, len(err))
     if rc != 0:
         raise _jpeg_error(rc, err)
-    W, H, _, orientation = info
+    return dict(width=info[0], height=info[1], components=info[2], orientation=info[3])
+
+
+def decode_jpeg(data: bytes, max_pixels: int = MAX_PIXELS) -> np.ndarray:
+    """Decode a JPEG (``csrc/host/jpeg.cpp``: sequential and progressive
+    Huffman coding) to (H, W, 3) uint8 RGB, gray replicated and the EXIF
+    orientation applied, as
+    ``cv2.cvtColor(cv2.imdecode(..., IMREAD_COLOR), COLOR_BGR2RGB)``.
+    Codings the decoder refuses raise ``NotImplementedError`` naming their
+    ROADMAP item; a truncated or corrupt stream, or one larger than
+    ``max_pixels``, raises ``ValueError``."""
+    info = jpeg_info(data)
+    W, H = info["width"], info["height"]
     if W * H > max_pixels:
         raise ValueError(f"JPEG of {W}x{H} pixels exceeds the limit of {max_pixels}")
+    lib = load()
+    src = np.frombuffer(data, dtype=np.uint8)
+    err = ctypes.create_string_buffer(256)
     out = np.empty((H, W, 3), dtype=np.uint8)
     rc = lib.jpeg_decode(_ptr(src, _U8P), src.size, W, H, _ptr(out, _U8P), err, len(err))
     if rc != 0:
         raise _jpeg_error(rc, err)
-    return _orient(out, orientation)
+    return _orient(out, info["orientation"])
 
 
 def _orient(img: np.ndarray, orientation: int) -> np.ndarray:

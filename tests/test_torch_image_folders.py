@@ -1,0 +1,206 @@
+"""Image folders without cv2: the port's readers tell JPEG from PNG by the
+file's first bytes, as cv2 does, and decode both themselves.
+
+``RGBFiles`` over mixed ``.jpg``/``.png`` folders against the JAX package's
+loader (``cv2.imread``), frame for frame and exactly; the readers with cv2
+blocked; and the slice as a whole: the port's CLI against the JAX CLI on a
+JPEG folder (baseline and progressive frames, one PNG), at
+``tests/test_torch_cli.py``'s scale and tolerance, the port's run with cv2
+blocked.
+"""
+
+import hashlib
+import json
+import pathlib
+import sys
+
+import cv2
+import numpy as np
+import pytest
+
+from mast3r_slam_tpu.data import dataloader as jdl
+from mast3r_slam_tpu.slam import run as jrun
+from mast3r_slam_tpu.slam.pipeline import SLAM as JSLAM
+from mast3r_slam_tpu_torch.data import dataloader as tdl
+from mast3r_slam_tpu_torch.data import png
+from mast3r_slam_tpu_torch.eval import ate as tate
+from mast3r_slam_tpu_torch.eval.trajectory import load_traj_tum
+from mast3r_slam_tpu_torch.slam import run as trun
+
+from oracle import OracleModel, arc_trajectory
+from test_torch_cli import POSE_ATOL, _files, _oracle
+from test_torch_common import CPU, TorchOracleModel
+from test_torch_png_variants import variant
+
+
+def _frame(i, hw=(48, 64)):
+    rng = np.random.default_rng(i)
+    y, x = np.mgrid[0:hw[0], 0:hw[1]]
+    a = np.stack([128 + 90 * np.sin(x / (5.0 + i)), 128 + 90 * np.cos(y / 4.0),
+                  (2 * x + 3 * y + 17 * i) % 256], -1)
+    return np.clip(a + rng.normal(0, 10, a.shape), 0, 255).astype(np.uint8)
+
+
+def _write(path, bgr, kind):
+    """A frame as cv2 writes it: baseline or progressive JPEG (4:2:0 with
+    restarts, or gray), or a PNG variant cv2 cannot write."""
+    if kind == "baseline":
+        ok, buf = cv2.imencode(".jpg", bgr, [cv2.IMWRITE_JPEG_QUALITY, 90])
+    elif kind == "progressive":
+        ok, buf = cv2.imencode(".jpg", bgr, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+                                             cv2.IMWRITE_JPEG_RST_INTERVAL, 2,
+                                             cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                             cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420])
+    elif kind == "gray-progressive":
+        ok, buf = cv2.imencode(".jpg", bgr[..., 1], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    elif kind == "png":
+        ok, buf = cv2.imencode(".png", bgr)
+    else:  # a PNG variant from the test writer: "ctype-depth-interlace"
+        c, d, i = map(int, kind.split("-"))
+        path.write_bytes(variant(c, d, i, bgr.shape[:2], False, seed=len(path.name)))
+        return
+    assert ok
+    path.write_bytes(buf.tobytes())
+
+
+FOLDERS = {
+    "jpeg": ["baseline", "progressive", "baseline", "gray-progressive"],
+    "mixed": ["baseline", "png", "progressive", "2-16-0", "3-4-1", "gray-progressive",
+              "0-16-1"],
+    "progressive": ["progressive"] * 3,
+}
+
+
+@pytest.mark.parametrize("folder", FOLDERS)
+def test_rgbfiles_reads_as_the_jax_loader(tmp_path, monkeypatch, folder):
+    """The port's ``RGBFiles`` keeps the JAX package's globs and order, and
+    its frames equal cv2's; with cv2 blocked they read the same."""
+    seq = tmp_path / folder
+    seq.mkdir()
+    for i, kind in enumerate(FOLDERS[folder]):
+        ext = "png" if kind[0].isdigit() or kind == "png" else "jpg"
+        _write(seq / f"frame{i + 8}.{ext}", _frame(i), kind)
+    got, want = tdl.load_dataset(str(seq)), jdl.load_dataset(str(seq))
+    assert type(got).__name__ == type(want).__name__ == "RGBFiles"
+    assert [str(p) for p in got.rgb_files] == [str(p) for p in want.rgb_files]
+    assert got.timestamps == want.timestamps and len(got) == len(FOLDERS[folder])
+    assert got.get_img_shape() == want.get_img_shape()
+    frames = [want[i] for i in range(len(want))]
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    for i, (tw, b) in enumerate(frames):
+        tg, a = got[i]
+        assert tg == tw
+        np.testing.assert_array_equal(a, b)
+
+
+def test_the_format_is_told_by_the_first_bytes(tmp_path, monkeypatch):
+    """A JPEG named .png and a PNG named .jpg read as cv2 reads them: by
+    their contents, not their names."""
+    bgr = _frame(3)
+    _write(tmp_path / "jpeg.png", bgr, "progressive")
+    _write(tmp_path / "png.jpg", bgr, "3-8-1")
+    want = [cv2.cvtColor(cv2.imread(str(tmp_path / n)), cv2.COLOR_BGR2RGB)
+            for n in ("jpeg.png", "png.jpg")]
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    for name, w in zip(("jpeg.png", "png.jpg"), want):
+        np.testing.assert_array_equal(png.imread_rgb(tmp_path / name), w)
+
+
+@pytest.mark.parametrize("kind", ["baseline", "gray-progressive"])
+def test_imread_gray_reads_a_gray_jpeg_and_refuses_a_colour_one(tmp_path, kind):
+    """``imread_gray`` (EuRoC's read) of a one-component JPEG equals
+    ``cv2.imread(..., IMREAD_GRAYSCALE)``; a colour JPEG raises, as a colour
+    PNG does, naming the ROADMAP item of the conversion."""
+    bgr = _frame(5)
+    _write(tmp_path / "g.jpg", bgr[..., :1].repeat(3, -1) if kind == "baseline" else bgr,
+           "gray-progressive")
+    np.testing.assert_array_equal(png.imread_gray(tmp_path / "g.jpg"),
+                                  cv2.imread(str(tmp_path / "g.jpg"), cv2.IMREAD_GRAYSCALE))
+    _write(tmp_path / "c.jpg", bgr, kind if kind == "baseline" else "progressive")
+    with pytest.raises(ValueError, match="colour JPEG where a gray one.*item 15"):
+        png.imread_gray(tmp_path / "c.jpg")
+
+
+N_FRAMES = 12
+KINDS = ["baseline", "progressive", "png"]
+
+
+def _jpeg_folder(root, gt):
+    """The oracle's constant-gray 480x640 frames (its frame ids) as cv2
+    writes them: JPEG baseline and progressive in turn, every third frame a
+    PNG; a groundtruth file at the folder loader's timestamps (i / 30)."""
+    seq = root / "frames"
+    seq.mkdir()
+    lines = []
+    for i in range(N_FRAMES):
+        img = (OracleModel.image_for_frame(i, (480, 640)) * 255).astype(np.uint8)
+        kind = KINDS[i % 3]
+        _write(seq / f"{i:03d}.{'png' if kind == 'png' else 'jpg'}", img, kind)
+        lines.append(f"{i / 30.0 + 0.004:.6f} " + " ".join(f"{x:.6f}" for x in gt[i, :7]))
+    gt_path = root / "groundtruth.txt"
+    gt_path.write_text("\n".join(lines) + "\n")
+    return seq, gt_path
+
+
+def test_port_cli_equals_the_jax_cli_on_a_jpeg_folder(tmp_path, monkeypatch):
+    """Both CLIs over the same JPEG folder under eval_no_calib with every
+    frame read (subsample 1), the port's with cv2 blocked: the same keyframes and files, trajectories
+    within tests/test_torch_cli.py's 2e-4, the ATE within its bound."""
+    gt = arc_trajectory(N_FRAMES, radius=0.8, max_angle=3.0)
+    seq, gt_path = _jpeg_folder(tmp_path, gt)
+    monkeypatch.chdir(tmp_path)
+    orig_init = jdl.MonocularDataset.__init__
+
+    def small_init(self):
+        orig_init(self)
+        self.img_size = 64
+
+    monkeypatch.setattr(jdl.MonocularDataset, "__init__", small_init)
+    monkeypatch.setattr(tdl.MonocularDataset, "img_size", 64)
+
+    def jax_build(cfg, dataset, **kw):
+        model = _oracle(dataset, gt)
+        return JSLAM(model, cfg, model.img_hw)
+
+    real_build = trun.build_slam
+
+    def port_build(cfg, dataset, **kw):
+        kw["model"] = TorchOracleModel(_oracle(dataset, gt))
+        return real_build(cfg, dataset, **kw)
+
+    monkeypatch.setattr(jrun, "build_slam", jax_build)
+    monkeypatch.setattr(trun, "build_slam", port_build)
+    args = ["--dataset", str(seq), "--config", "eval_no_calib", "--set", "dataset.subsample=1"]
+    jres = jrun.main(args + ["--save-as", "jax", "--no-viz"])
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    tres = trun.main(args + ["--save-as", "port", "--device", CPU])
+    assert tres.n_keyframes == jres.n_keyframes >= 3
+    assert tres.keyframe_timestamps == jres.keyframe_timestamps
+    assert tres.frame_timestamps == jres.frame_timestamps
+    assert len(tres.frame_timestamps) == N_FRAMES and tres.n_reloc == 0
+    logs = tmp_path / "logs"
+    assert _files(logs / "port") == _files(logs / "jax")
+    t_port, p_port, q_port = load_traj_tum(logs / "port" / "frames.txt")
+    t_jax, p_jax, q_jax = load_traj_tum(logs / "jax" / "frames.txt")
+    np.testing.assert_array_equal(t_port, t_jax)
+    np.testing.assert_allclose(p_port, p_jax, rtol=0, atol=POSE_ATOL)
+    np.testing.assert_allclose(q_port, q_jax, rtol=0, atol=POSE_ATOL)
+    err = tate.main([str(logs / "port" / "frames.txt"), str(gt_path)])
+    assert err is not None and err < 0.06  # tests/test_eval_protocol.py's bound
+
+
+DATA = pathlib.Path(__file__).resolve().parent / "data"
+DIGESTS = json.loads((DATA / "image_fixtures.json").read_text())
+
+
+@pytest.mark.parametrize("name", sorted(DIGESTS))
+def test_the_committed_image_fixtures_agree_with_cv2(name):
+    """The files ``chip_smoke.py`` phase 12 decodes on the card's host (no
+    cv2 there; ``scripts/make_image_fixtures.py`` wrote them): their
+    committed digests are still cv2's decode here, and the port's readers
+    give those bytes."""
+    want = cv2.cvtColor(cv2.imread(str(DATA / name)), cv2.COLOR_BGR2RGB)
+    assert list(want.shape) == DIGESTS[name]["shape"]
+    assert hashlib.sha256(want.tobytes()).hexdigest() == DIGESTS[name]["sha256"]
+    got = png.imread_rgb(DATA / name)
+    assert hashlib.sha256(got.tobytes()).hexdigest() == DIGESTS[name]["sha256"]

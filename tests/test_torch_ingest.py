@@ -166,10 +166,20 @@ def test_png_write_is_read_back_by_cv2(tmp_path):
 
 
 def test_png_outside_the_subset_raises(tmp_path):
-    img16 = np.random.default_rng(0).integers(0, 65535, (8, 8), dtype=np.uint16)
-    cv2.imwrite(str(tmp_path / "deep.png"), img16)
-    with pytest.raises(ValueError, match="bit depth 16"):
-        png.read_png(tmp_path / "deep.png")
+    """What cv2 refuses too: a bit depth the colour type forbids, a bad
+    CRC; and a colour PNG where a gray one is read."""
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(
+            ">I", zlib.crc32(kind + body))
+
+    for depth, ctype in ((4, 2), (16, 3), (2, 4), (1, 6), (3, 0), (8, 5)):
+        data = (png.SIGNATURE
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", 4, 4, depth, ctype, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(bytes(4 * 9))) + chunk(b"IEND", b""))
+        (tmp_path / "forbidden.png").write_bytes(data)
+        with pytest.raises(ValueError, match=f"bit depth {depth}, colour type {ctype}"):
+            png.read_png(tmp_path / "forbidden.png")
+        assert cv2.imread(str(tmp_path / "forbidden.png")) is None
     png.write_png(tmp_path / "ok.png", np.zeros((4, 4, 3), np.uint8))
     data = bytearray((tmp_path / "ok.png").read_bytes())
     data[-20] ^= 0xFF  # inside the IDAT chunk: its CRC no longer matches
@@ -181,15 +191,17 @@ def test_png_outside_the_subset_raises(tmp_path):
 
 
 def test_jpeg_needs_cv2(tmp_path, monkeypatch):
-    """A JPEG goes through cv2, imported only then: without cv2 it raises
-    ImportError, never silently another decoder."""
+    """A JPEG no longer needs cv2: with cv2 blocked it reads through the
+    host library's decoder, equal to ``cv2.imread``; a JPEG never goes to
+    cv2, even where cv2 is installed.  Only other formats need cv2."""
     img = np.random.default_rng(0).integers(0, 256, (16, 16, 3), dtype=np.uint8)
     cv2.imwrite(str(tmp_path / "a.jpg"), img)
+    cv2.imwrite(str(tmp_path / "b.bmp"), img)
     want = cv2.cvtColor(cv2.imread(str(tmp_path / "a.jpg")), cv2.COLOR_BGR2RGB)
-    np.testing.assert_array_equal(png.imread_rgb(tmp_path / "a.jpg"), want)
     monkeypatch.setitem(sys.modules, "cv2", None)
+    np.testing.assert_array_equal(png.imread_rgb(tmp_path / "a.jpg"), want)
     with pytest.raises(ImportError):
-        png.imread_rgb(tmp_path / "a.jpg")
+        png.imread_rgb(tmp_path / "b.bmp")
 
 
 # ---------------------------------------------------------------------------

@@ -2,10 +2,14 @@
 ``utils/native.decode_jpeg``) against ``cv2.imdecode`` (libjpeg-turbo),
 which the JAX server runs: exact pixels, since the decoder follows
 libjpeg's ISLOW IDCT, its fancy upsampling and its fixed-point colour
-conversion.  Also: the EXIF orientations as cv2 applies them, the refusals
-(progressive raises ``NotImplementedError``; truncated, corrupt or oversized
-streams ``ValueError``), and the committed fixture pair that
-``chip_smoke.py`` phase 11 checks on the card's host, which has no cv2."""
+conversion.  Progressive streams (SOF2) as cv2 writes them, with their
+four scan kinds, and scripts cut from them: those libjpeg would smooth are
+refused (``NotImplementedError``, Queue 1 item 13b), the rest decode
+exactly.  Also: the EXIF orientations as cv2 applies them, the refusals
+(arithmetic, hierarchical and 12-bit codings raise ``NotImplementedError``;
+truncated, corrupt or oversized streams ``ValueError``), and the committed
+fixture pair that ``chip_smoke.py`` phase 11 checks on the card's host,
+which has no cv2."""
 
 import pathlib
 import struct
@@ -87,9 +91,203 @@ def test_exif_orientation_as_cv2_applies_it(orientation):
 
 
 def test_progressive_is_refused_naming_its_roadmap_item():
+    """Progressive Huffman JPEG decodes now (the tests below); the codings
+    that stay refused raise NotImplementedError naming their ROADMAP item:
+    arithmetic coding (SOF10), hierarchical (SOF6, SOF14) and 12-bit
+    samples, each found by rewriting the SOF2 header of a stream cv2
+    wrote."""
     data = _jpeg(_image(48, 64, seed=1), cv2.IMWRITE_JPEG_PROGRESSIVE, 1)
-    with pytest.raises(NotImplementedError, match=r"progressive JPEG .*Queue 1, item 13"):
-        native.decode_jpeg(data)
+    at = data.index(b"\xff\xc2")
+    for marker, what in ((0xCA, "arithmetic-coded JPEG .SOF10."),
+                         (0xC6, "hierarchical JPEG .SOF6."), (0xCE, "hierarchical JPEG .SOF14.")):
+        bad = data[:at + 1] + bytes([marker]) + data[at + 2:]
+        with pytest.raises(NotImplementedError, match=what + r".*Queue 1, item 13c"):
+            native.decode_jpeg(bad)
+    deep = data[:at + 4] + b"\x0c" + data[at + 5:]
+    with pytest.raises(NotImplementedError, match=r"12-bit samples.*item 13c"):
+        native.decode_jpeg(deep)
+
+
+# ---------------------------------------------------------------------------
+# progressive JPEG (SOF2): cv2 writes libjpeg's ten-scan script (six scans
+# for gray), which holds all four scan kinds: DC first and refinement, AC
+# first and refinement, with end-of-band runs across blocks
+# ---------------------------------------------------------------------------
+
+def _progressive(img, *params):
+    return _jpeg(img, cv2.IMWRITE_JPEG_PROGRESSIVE, 1, *params)
+
+
+@pytest.mark.parametrize("hw,quality,sampling,restart,noise", CASES,
+                         ids=[f"{h}x{w}-q{q}-{s}-rst{r}-{'noise' if n else 'smooth'}"
+                              for (h, w), q, s, r, n in CASES])
+def test_progressive_decode_equals_cv2(hw, quality, sampling, restart, noise):
+    data = _progressive(_image(*hw, seed=hw[1] + quality, noise=noise),
+                        cv2.IMWRITE_JPEG_QUALITY, quality, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                        SAMPLING[sampling], cv2.IMWRITE_JPEG_RST_INTERVAL, restart)
+    assert data[data.index(b"\xff\xc2") + 1] == 0xC2
+    np.testing.assert_array_equal(native.decode_jpeg(data), _cv2_rgb(data))
+
+
+def _segments(data):
+    """The stream's marker segments after its SOI, a scan with its
+    entropy-coded data (restart markers included)."""
+    out, at = [], 2
+    while at < len(data):
+        m = data[at + 1]
+        if m == 0xD9:
+            out.append(data[at:at + 2])
+            at += 2
+            continue
+        end = at + 2 + struct.unpack(">H", data[at + 2:at + 4])[0]
+        if m == 0xDA:
+            while not (data[end] == 0xFF and data[end + 1] != 0
+                       and not 0xD0 <= data[end + 1] <= 0xD7):
+                end += 1
+        out.append(data[at:end])
+        at = end
+    return out
+
+
+def _scan(seg):
+    """(Ns, Ss, Se, Ah, Al) of a scan segment, None for another segment."""
+    if seg[1] != 0xDA:
+        return None
+    p = 5 + 2 * seg[4]
+    return seg[4], seg[p], seg[p + 1], seg[p + 2] >> 4, seg[p + 2] & 15
+
+
+def test_cv2_writes_the_four_scan_kinds():
+    """The scan script the tests below cut: libjpeg's simple progression."""
+    ycc = [_scan(s) for s in _segments(_progressive(_image(16, 16, seed=2))) if _scan(s)]
+    assert ycc == [(3, 0, 0, 0, 1), (1, 1, 5, 0, 2), (1, 1, 63, 0, 1), (1, 1, 63, 0, 1),
+                   (1, 6, 63, 0, 2), (1, 1, 63, 2, 1), (3, 0, 0, 1, 0), (1, 1, 63, 1, 0),
+                   (1, 1, 63, 1, 0), (1, 1, 63, 1, 0)]
+    gray = [_scan(s) for s in _segments(_progressive(_image(16, 16, seed=2)[..., 0]))
+            if _scan(s)]
+    assert gray == [(1, 0, 0, 0, 1), (1, 1, 5, 0, 2), (1, 6, 63, 0, 2), (1, 1, 63, 2, 1),
+                    (1, 0, 0, 1, 0), (1, 1, 63, 1, 0)]
+
+
+@pytest.mark.parametrize("hw", [(48, 64), (37, 53), (5, 3), (1, 1)])
+@pytest.mark.parametrize("restart", [0, 2])
+def test_progressive_gray_decodes_replicated(hw, restart):
+    data = _progressive(_image(*hw, seed=7)[..., 0], cv2.IMWRITE_JPEG_QUALITY, 85,
+                        cv2.IMWRITE_JPEG_RST_INTERVAL, restart)
+    got = native.decode_jpeg(data)
+    np.testing.assert_array_equal(got, _cv2_rgb(data))
+    assert (got[..., 0] == got[..., 2]).all()
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+def test_progressive_exif_orientation_as_cv2_applies_it(orientation):
+    data = _with_exif_orientation(_progressive(_image(24, 40, seed=8, noise=False)),
+                                  orientation)
+    got = native.decode_jpeg(data)
+    want = _cv2_rgb(data)
+    assert got.shape == want.shape == ((40, 24, 3) if orientation >= 5 else (24, 40, 3))
+    np.testing.assert_array_equal(got, want)
+
+
+def _partial(data, keep):
+    """The stream with only the scans whose index ``keep`` admits, EOI last."""
+    segs = _segments(data)
+    idx = [i for i, s in enumerate(segs) if _scan(s)]
+    out = b"\xff\xd8" + b"".join(s for i, s in enumerate(segs)
+                                   if i not in idx or keep(idx.index(i)))
+    return out if out.endswith(b"\xff\xd9") else out + b"\xff\xd9"
+
+
+PARTIAL = [(gray, rst, k) for gray in (False, True) for rst in (0, 2)
+           for k in range(1, 6 if gray else 10)]
+
+
+@pytest.mark.parametrize("gray,restart,k", PARTIAL,
+                         ids=[f"{'gray' if g else 'ycc'}-rst{r}-{k}scans" for g, r, k in PARTIAL])
+def test_a_partial_script_cv2_smooths_is_refused(gray, restart, k):
+    """The first k scans of cv2's script: every component's DC is known and
+    AC coefficients among the first nine lack bits, so libjpeg-turbo
+    (SAVED_COEFS 10) smooths the blocks and the decoder refuses, naming
+    Queue 1 item 13b; the whole script decodes."""
+    img = _image(37, 53, seed=9)
+    data = _progressive(img[..., 0] if gray else img, cv2.IMWRITE_JPEG_RST_INTERVAL, restart)
+    with pytest.raises(NotImplementedError, match=r"smooths.*Queue 1, item 13b"):
+        native.decode_jpeg(_partial(data, lambda i: i < k))
+    np.testing.assert_array_equal(native.decode_jpeg(_partial(data, lambda i: True)),
+                                  _cv2_rgb(data))
+
+
+@pytest.mark.parametrize("gray,restart,k", PARTIAL,
+                         ids=[f"{'gray' if g else 'ycc'}-rst{r}-{k}scans" for g, r, k in PARTIAL])
+def test_a_partial_script_without_dc_decodes_as_cv2(gray, restart, k):
+    """The first k + 1 scans of cv2's script without its DC scans: no DC is
+    known, libjpeg does not smooth, and the AC bits the scans carried
+    (first scans alone, or refined) decode exactly as cv2 decodes them."""
+    img = _image(37, 53, seed=10)
+    data = _progressive(img[..., 0] if gray else img, cv2.IMWRITE_JPEG_RST_INTERVAL, restart)
+    kinds = [_scan(s) for s in _segments(data) if _scan(s)]
+    cut = _partial(data, lambda i: i <= k and kinds[i][1] != 0)
+    np.testing.assert_array_equal(native.decode_jpeg(cut), _cv2_rgb(cut))
+
+
+def test_progressive_scan_parameters_are_checked_as_libjpeg_checks_them():
+    """A DC band past coefficient 0, an AC band of two components, Se < Ss
+    or past 63, a refinement not one bit below the last, Al over 13: cv2
+    refuses each, and so does the decoder (ValueError)."""
+    data = _progressive(_image(16, 24, seed=11))
+    segs = _segments(data)
+    first_ac = next(i for i, s in enumerate(segs) if _scan(s) and _scan(s)[1] == 1)
+    dc = next(i for i, s in enumerate(segs) if _scan(s))
+
+    def with_params(i, ss, se, a):
+        seg = bytearray(segs[i])
+        p = 5 + 2 * seg[4]
+        seg[p:p + 3] = bytes([ss, se, a])
+        return b"\xff\xd8" + b"".join(bytes(seg) if j == i else s for j, s in enumerate(segs))
+
+    bad = [with_params(dc, 0, 5, 0x01), with_params(first_ac, 6, 5, 0x02),
+           with_params(first_ac, 1, 64, 0x02), with_params(first_ac, 1, 5, 0x30),
+           with_params(first_ac, 1, 5, 0x0E)]
+    seg = bytearray(segs[dc])  # the three-component DC scan made an AC scan
+    p = 5 + 2 * seg[4]
+    seg[p:p + 3] = bytes([1, 5, 0x02])
+    bad.append(b"\xff\xd8" + b"".join(bytes(seg) if j == dc else s for j, s in enumerate(segs)))
+    for b in bad:
+        assert cv2.imdecode(np.frombuffer(b, np.uint8), cv2.IMREAD_COLOR) is None
+        with pytest.raises(ValueError, match="progressive scan parameters"):
+            native.decode_jpeg(b)
+
+
+def test_progressive_truncated_and_corrupt_streams_raise_or_decode():
+    """Every prefix of a progressive 4:2:0 stream with restarts, and flipped
+    bytes, either decode to an image of the header's size or raise
+    ValueError (NotImplementedError where a flip or a cut names a coding
+    or a partial script the decoder refuses): no read outside the stream."""
+    data = _progressive(_image(37, 53, seed=12), cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                        SAMPLING["420"], cv2.IMWRITE_JPEG_RST_INTERVAL, 2)
+    outcomes = {"decoded": 0, "ValueError": 0, "NotImplementedError": 0}
+
+    def attempt(b):
+        try:
+            img = native.decode_jpeg(b)
+            assert img.ndim == 3 and img.shape[2] == 3 and img.dtype == np.uint8
+            outcomes["decoded"] += 1
+        except ValueError:
+            outcomes["ValueError"] += 1
+        except NotImplementedError:
+            outcomes["NotImplementedError"] += 1
+
+    for cut in range(len(data)):
+        attempt(data[:cut])
+    rng = np.random.default_rng(1)
+    for _ in range(600):
+        b = bytearray(data)
+        for _ in range(int(rng.integers(1, 6))):
+            b[int(rng.integers(0, len(b)))] = int(rng.integers(0, 256))
+        attempt(bytes(b))
+    assert min(outcomes.values()) > 0, outcomes
+    # the stream without its EOI alone still holds every scan
+    np.testing.assert_array_equal(native.decode_jpeg(data[:-2]), _cv2_rgb(data))
 
 
 def test_truncated_streams_raise_value_error():

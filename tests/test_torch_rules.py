@@ -182,9 +182,11 @@ def test_no_port_module_imports_cv2_pil_yaml_or_matplotlib_at_import():
 
 
 # Drives chip_smoke.py phase 9's path (the CLI over a TUM sequence at 512,
-# fr1 undistortion, exports, the ATE CLI, a checkpoint) with the tiny model
-# on the CPU, while an import hook refuses cv2, PIL, PyYAML and matplotlib;
-# prints the attempts and the port modules the run loaded.
+# fr1 undistortion, exports, the ATE CLI, a checkpoint) and phase 12's (the
+# CLI over the committed image folder: a baseline JPEG, a progressive JPEG
+# and a palette Adam7 PNG) with the tiny model on the CPU, while an import
+# hook refuses cv2, PIL, PyYAML and matplotlib; prints the attempts and the
+# port modules the run loaded.
 _NO_CARD_RUN = r"""
 import importlib.abc, json, pathlib, sys, traceback
 BLOCKED = {"cv2", "PIL", "yaml", "matplotlib"}
@@ -220,26 +222,33 @@ run.main(["--dataset", str(seq), "--config", "eval_calib", "--model-preset", "ti
 ate.main(["logs/x/rgbd_dataset_freiburg1_x.txt", str(seq / "gt.txt")])
 checkpoint.save_state("state.npz", built[0])
 checkpoint.load_state("state.npz", built[0])
-print(json.dumps({"attempts": attempts, "modules": sorted(
+folder = run.main(["--dataset", sys.argv[1], "--config", "eval_no_calib", "--model-preset",
+                   "tiny", "--device", "cpu", "--max-frames", "3", "--set",
+                   "dataset.subsample=1", "--save-as", "folder"])
+print(json.dumps({"attempts": attempts, "folder_frames": len(folder.frame_timestamps),
+                  "modules": sorted(
     m.__file__ for n, m in sys.modules.items()
     if n.startswith("mast3r_slam_tpu_torch") and getattr(m, "__file__", None))}))
 """
 
 
 def test_the_cli_path_reaches_no_library_the_card_lacks(tmp_path):
-    """The modules phase 9 runs import none of cv2, PIL, yaml or matplotlib,
-    on the run (an import hook refuses them) and anywhere in their source."""
+    """The modules phases 9 and 12 run (a TUM sequence of PNGs, a folder of
+    JPEGs and a PNG) import none of cv2, PIL, yaml or matplotlib, on the run
+    (an import hook refuses them) and anywhere in their source."""
     import json
     import subprocess
     import sys
 
-    out = subprocess.run([sys.executable, "-c", _NO_CARD_RUN], cwd=tmp_path,
+    folder = ROOT / "tests" / "data" / "image_folder"
+    out = subprocess.run([sys.executable, "-c", _NO_CARD_RUN, str(folder)], cwd=tmp_path,
                          env={**__import__("os").environ, "PYTHONPATH": str(ROOT)},
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-4000:]
     report = json.loads(out.stdout.strip().splitlines()[-1])
     port = str(ROOT / "mast3r_slam_tpu_torch")
     assert [a for a in report["attempts"] if a[1].startswith(port)] == []
+    assert report["folder_frames"] == 3
     files = [pathlib.Path(m) for m in report["modules"]]
     assert {f.stem for f in files} >= {"run", "dataloader", "png", "native", "export",
                                        "renderer", "checkpoint", "yaml_subset", "ate"}

@@ -69,7 +69,10 @@ PAYLOADS = ([("png", None, None, 0, (48, 64)), ("png", None, None, 0, (37, 53)),
              ("png-gray", None, None, 0, (37, 53))]
             + [("jpeg", q, s, 0, (48, 64)) for q in (50, 90, 100) for s in _SAMPLING]
             + [("jpeg", 90, "420", 0, (37, 53)), ("jpeg", 75, "420", 2, (48, 64)),
-               ("jpeg", 75, "444", 1, (37, 53)), ("jpeg-gray", 90, None, 0, (37, 53))])
+               ("jpeg", 75, "444", 1, (37, 53)), ("jpeg-gray", 90, None, 0, (37, 53))]
+            + [("jpeg-progressive", q, s, r, hw) for q, s, r, hw in (
+                (90, "420", 0, (48, 64)), (75, "422", 2, (37, 53)), (100, "444", 1, (37, 53)))]
+            + [("jpeg-gray-progressive", 90, None, 2, (37, 53))])
 
 
 def _encode(kind, quality, sampling, restart, hw, seed=0):
@@ -79,12 +82,17 @@ def _encode(kind, quality, sampling, restart, hw, seed=0):
         ok, buf = cv2.imencode(".png", bgr)
     elif kind == "png-gray":
         ok, buf = cv2.imencode(".png", rgb[..., 0])
-    elif kind == "jpeg-gray":
-        ok, buf = cv2.imencode(".jpg", rgb[..., 1], [cv2.IMWRITE_JPEG_QUALITY, quality])
+    elif kind.startswith("jpeg-gray"):
+        ok, buf = cv2.imencode(".jpg", rgb[..., 1], [cv2.IMWRITE_JPEG_QUALITY, quality,
+                                                     cv2.IMWRITE_JPEG_RST_INTERVAL, restart,
+                                                     cv2.IMWRITE_JPEG_PROGRESSIVE,
+                                                     int(kind.endswith("progressive"))])
     else:
         ok, buf = cv2.imencode(".jpg", bgr, [cv2.IMWRITE_JPEG_QUALITY, quality,
                                              cv2.IMWRITE_JPEG_SAMPLING_FACTOR, _SAMPLING[sampling],
-                                             cv2.IMWRITE_JPEG_RST_INTERVAL, restart])
+                                             cv2.IMWRITE_JPEG_RST_INTERVAL, restart,
+                                             cv2.IMWRITE_JPEG_PROGRESSIVE,
+                                             int(kind.endswith("progressive"))])
     assert ok
     return base64.b64encode(buf.tobytes()).decode()
 
@@ -102,8 +110,13 @@ def test_decode_image_payload_equals_the_jax_package(kind, quality, sampling, re
 def test_decode_image_payload_refuses_what_it_cannot_read():
     rgb = cv2.cvtColor(_image(48, 64, 1), cv2.COLOR_RGB2BGR)
     ok, prog = cv2.imencode(".jpg", rgb, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(NotImplementedError, match="progressive.*item 13"):
-        server.decode_image_payload(base64.b64encode(prog.tobytes()).decode())
+    prog = prog.tobytes()
+    arith = prog.replace(b"\xff\xc2", b"\xff\xca", 1)  # SOF10: arithmetic coding
+    with pytest.raises(NotImplementedError, match="arithmetic.*item 13c"):
+        server.decode_image_payload(base64.b64encode(arith).decode())
+    first_scan = prog[:prog.index(b"\xff\xda", prog.index(b"\xff\xda") + 2)] + b"\xff\xd9"
+    with pytest.raises(NotImplementedError, match="smooths.*item 13b"):  # a partial script
+        server.decode_image_payload(base64.b64encode(first_scan).decode())
     ok, buf = cv2.imencode(".jpg", rgb)
     for cut in (len(buf) // 2, len(buf) - 40):
         with pytest.raises(ValueError):
@@ -480,6 +493,115 @@ def test_a_wedged_session_is_abandoned_and_marked():
     release.set()
     s.thread.join(10)
     assert not s.thread.is_alive()
+
+
+class _GatedEngine:
+    """A stand-in engine whose ``process_frame`` waits for ``gate``: the
+    session's engine thread blocks inside a frame while frames queue up."""
+
+    def __init__(self, gate):
+        self.gate = gate
+        self.done = []
+        self.on_event = None
+        self.keyframes = []
+        self.backend_errors = []
+        self.graph = type("Graph", (), {"resolve_pending_verdicts": lambda self: None})()
+
+    def process_frame(self, fid, ts, rgb, last_T_WC=None):
+        self.gate.wait(30)
+        self.done.append(fid)
+        return type("Frame", (), {"T_WC": None})()
+
+    def join_backend(self):
+        pass
+
+    def close(self):
+        pass
+
+
+def _full_session(max_queue=8):
+    """A session whose engine is blocked inside frame 0 with ``max_queue``
+    frames queued behind it."""
+    gate = threading.Event()
+    engines = []
+    s = server.SlamSession(lambda hw: engines.append(_GatedEngine(gate)) or engines[-1],
+                           max_queue=max_queue)
+    s.start()
+    s.submit_frame(np.zeros((4, 4, 3), np.float32))
+    deadline = time.time() + 10
+    while not engines and time.time() < deadline:  # the engine took frame 0
+        time.sleep(0.01)
+    for _ in range(max_queue):
+        s.submit_frame(np.zeros((4, 4, 3), np.float32))
+    assert engines and s.frame_q.full() and s.frame_q.qsize() == max_queue
+    return s, gate, engines[0]
+
+
+def test_close_and_terminate_return_with_a_blocked_engine_and_a_full_queue():
+    """ROADMAP Queue 3 item 14, not carried over from the JAX session (whose
+    ``close`` is a blocking put): with the engine blocked in a frame and 8
+    frames queued, ``close()`` returns at once, ``terminate(timeout)``
+    returns False within its timeout and marks the session wedged, and the
+    reaper's pass over it completes, and so does the next."""
+    s, gate, engine = _full_session()
+    t0 = time.perf_counter()
+    s.close()
+    assert time.perf_counter() - t0 < 1.0
+    t0 = time.perf_counter()
+    assert s.terminate(timeout=0.5) is False
+    assert time.perf_counter() - t0 < 0.5 + 1.0
+    assert s.wedged and not s.running
+    events = []
+    while True:
+        events.append(s.event_q.get(timeout=1))
+        if events[-1] is None:
+            break
+    assert events[-2]["type"] == "error" and "wedged" in events[-2]["message"]
+
+    srv = server.SlamServer(lambda hw: None, idle_timeout=5.0)
+    r, rgate, _ = _full_session()
+    srv.sessions[r.session_id] = r
+    r.last_activity = time.time() - 60.0
+    t0 = time.perf_counter()
+    assert srv.reap_idle_sessions() == [r.session_id]  # terminate's own 10 s bound
+    assert time.perf_counter() - t0 < 10.0 + 1.0
+    assert srv.reaped == [(r.session_id, True)] and not srv.sessions
+    assert srv.reap_idle_sessions() == []
+    for g, sess in ((gate, s), (rgate, r)):  # released, the engines skip the queued frames
+        g.set()
+        sess.thread.join(10)
+        assert not sess.thread.is_alive()
+    assert engine.done == [0]
+
+
+def test_an_ordinary_close_finishes_the_queued_frames():
+    """``close`` with a full queue behind a busy engine: every queued frame
+    is still processed, in order, before ``shutdown_complete``."""
+    s, gate, engine = _full_session()
+    s.close()
+    gate.set()
+    s.thread.join(10)
+    assert not s.thread.is_alive() and not s.wedged
+    assert engine.done == list(range(9))
+    events = []
+    while not events or events[-1] is not None:
+        events.append(s.event_q.get(timeout=1))
+    assert events[-2] == {"type": "shutdown_complete", "n_keyframes": 0, "n_frames": 9}
+
+
+def test_close_wakes_an_idle_engine():
+    """``close`` on an empty queue: the engine waiting for a frame ends the
+    session at once."""
+    gate = threading.Event()
+    gate.set()
+    s = server.SlamSession(lambda hw: _GatedEngine(gate))
+    s.start()
+    s.submit_frame(np.zeros((4, 4, 3), np.float32))
+    while s.slam is None or s.frame_q.qsize():
+        time.sleep(0.01)
+    s.close()
+    s.thread.join(5)
+    assert not s.thread.is_alive() and s.slam.done == [0]
 
 
 def test_connect_ids_are_unique():
