@@ -142,6 +142,24 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      control that feeds the decoded frames to SLAM.process_frame; (d) a
      session whose engine is blocked with a full queue: close() returns at
      once, terminate() within its timeout, the session marked wedged.
+  13. the multi-card backend on the one card: (a) phase 6's rays problem
+     (16 keyframes, 32 two-way edges x 196,608 pixels) through the
+     edge-sharded solve on meshes of 1, 2 and 4 shards on cuda:0 against the
+     single-device dense solve (poses within SHARDED_POSE_*, edge-block
+     launches = shards x GN iterations, the same bits on a second run, ms),
+     then on 1 shard in a one-rank NCCL process group; (b) two processes
+     (torch.multiprocessing) on the card joined over gloo (NCCL puts no two
+     ranks on one card), each running phase 5's SLAM.run with engine.mesh
+     "auto": phase 5's keyframe count, its poses within
+     TWO_PROCESS_POSE_ATOL, both ranks the same pose bits, each rank's
+     launches; (c) phase 6's ViT-L backend task on a mesh of 2 shards: 48
+     attention and 1 refine launch a shard, idx, valid and Q equal to the
+     unsharded task's bits, its ms beside phase 6's; (d)
+     FrameTracker(compute_device=cuda:0) over phase 4's frames: the default
+     tracker's bits.  With a second card, engine.pipeline: 2 (the tracker
+     and the store on cuda:1) for phase 5's bits, a 2-card NCCL mesh for
+     (a)'s solve and the attention and refine kernels on every card; with
+     one card, one line names those runs as not run.
 
 Phase 2 also holds the two gather probes' kernels (gather_rows_sum,
 take_along_rows, the latter at every slab width of SLAB_SWEEP, timed in
@@ -1500,21 +1518,13 @@ def calib_problem(dev, hw, n_kf, seed):
     return K, gt, sim3.retr(gt, tau), Xs, torch.full((n_kf, N, 1), 2.0, device=dev)
 
 
-def run_synthetic_solve(dev, hw=(384, 512), n_kf=16, seed=5):
-    """The global GN on 16 keyframes, a chain plus loop edges (32 two-way
+def rays_problem(dev, hw, n_kf, seed):
+    """The rays-mode solve's scene: one world cloud seen from an arc of
+    n_kf keyframes, a chain plus one loop edge both ways (2 n_kf two-way
     edges), identity correspondences, the poses after the first perturbed.
-    Rays (one world cloud seen from an arc): through gauss_newton_poses,
-    then through gauss_newton_poses_cached (the entry FactorGraph.solve
-    takes for up to 256 edges) with the dense solver and with PCG; calib
-    (calib_problem) through the cached entry.  Each with the launch counters
-    reset just before and read just after, then run again from the same
-    inputs and its poses compared bit for bit (the normal equations are
-    assembled by scatter-adds).  Returns {entry: dict(err, iters, launches
-    of the edge-block kernel, ms, same_bits)}."""
+    Returns (ground truth, noisy poses, Xs, Cs, ii, jj, idx, valid, Q, K)."""
     import torch
     from mast3r_slam_tpu_torch.lie import sim3
-    from mast3r_slam_tpu_torch.ops.global_gn import (
-        GlobalGNSettings, gauss_newton_poses, gauss_newton_poses_cached)
 
     rng = np.random.default_rng(seed)
     N = hw[0] * hw[1]
@@ -1527,14 +1537,33 @@ def run_synthetic_solve(dev, hw=(384, 512), n_kf=16, seed=5):
     one_way = [(i, i + 1) for i in range(n_kf - 1)] + [(0, n_kf - 1)]
     ii = torch.tensor([a for a, b in one_way] + [b for a, b in one_way], device=dev)
     jj = torch.tensor([b for a, b in one_way] + [a for a, b in one_way], device=dev)
-    E, half = len(ii), len(one_way)
+    E = len(ii)
     idx = torch.arange(N, dtype=torch.int32, device=dev).expand(E, N)
     valid = torch.ones((E, N, 1), dtype=torch.bool, device=dev)
     Q = torch.full((E, N, 1), 2.0, device=dev)
     tau = torch.as_tensor(rng.normal(size=(n_kf, 7)) * 0.01, dtype=torch.float32, device=dev)
     tau[0] = 0
-    noisy = sim3.retr(gt, tau)
-    K = torch.eye(3, device=dev)
+    return gt, sim3.retr(gt, tau), Xs, Cs, ii, jj, idx, valid, Q, torch.eye(3, device=dev)
+
+
+def run_synthetic_solve(dev, hw=(384, 512), n_kf=16, seed=5):
+    """The global GN on 16 keyframes, a chain plus loop edges (32 two-way
+    edges), identity correspondences, the poses after the first perturbed.
+    Rays (one world cloud seen from an arc): through gauss_newton_poses,
+    then through gauss_newton_poses_cached (the entry FactorGraph.solve
+    takes for up to 256 edges) with the dense solver and with PCG; calib
+    (calib_problem) through the cached entry.  Each with the launch counters
+    reset just before and read just after, then run again from the same
+    inputs and its poses compared bit for bit (the normal equations are
+    assembled by scatter-adds).  Returns {entry: dict(err, iters, launches
+    of the edge-block kernel, ms, same_bits)}."""
+    import torch
+    from mast3r_slam_tpu_torch.ops.global_gn import (
+        GlobalGNSettings, gauss_newton_poses, gauss_newton_poses_cached)
+
+    N = hw[0] * hw[1]
+    gt, noisy, Xs, Cs, ii, jj, idx, valid, Q, K = rays_problem(dev, hw, n_kf, seed)
+    E, half = len(ii), len(ii) // 2
     # the cache's rows [X | C_raw] of each edge's i-points at its matches
     # (identity here), forward half then backward half; one fusion a keyframe
     gath = torch.cat([Xs, Cs], dim=-1)[ii]
@@ -1597,23 +1626,10 @@ def run_vitl_backend(dev, model, hw=(384, 512)):
     between synchronisations, median of 3)."""
     import torch
     from mast3r_slam_tpu_torch.config import load_config
-    from mast3r_slam_tpu_torch.lie import sim3
-    from mast3r_slam_tpu_torch.ops import matching
     from mast3r_slam_tpu_torch.slam import factor_graph as fg
-    from mast3r_slam_tpu_torch.slam.frame import Frame, Keyframes
 
     cfg = load_config("base")
-    N = hw[0] * hw[1]
-    kf = Keyframes(4, N, model.num_patches, model.feat_dim, device=dev)
-    imgs = smooth_images(3, hw, dev, seed=9)
-    for k in range(3):
-        feat, pos = model.encode(imgs[k:k + 1])
-        X, C = model.mono(feat, pos)
-        T = sim3.identity(device=dev)
-        T[0] = 0.05 * k
-        f = Frame(frame_id=k, img=imgs[k], T_WC=T, feat=feat, pos=pos)
-        f.update_pointmap(X.reshape(-1, 3), C.reshape(-1, 1))
-        kf.append(f)
+    kf = vitl_keyframes(dev, model, hw)
     graph = fg.FactorGraph(model, cfg, kf, hw, edge_capacity=16)
     frac = cfg["local_opt"]["min_match_frac"]
     sync(dev)
@@ -3318,6 +3334,397 @@ def run_image_input(dev, work, smi):
     return fixtures, cli, served, close
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the multi-card backend, on one card
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = (1, 2, 4)       # 13a: shards of the meshes on one card
+# a mesh adds the shards' blocks in another f32 order than one device:
+# poses read 4.8e-7 from one device on the H100 at 2 and 4 shards
+SHARDED_POSE_ATOL = 1e-5
+# the summed (H, g, cost) at the first iterate against one device's scatter
+# of every edge, relative to each one's norm (read at most 1.1e-7 on the
+# CPU at 2-8 shards).  The poses alone cannot show a dropped or doubled
+# shard: either direction of the exact two-way edges pins every pose.
+SHARDED_BLOCKS_RTOL = 1e-6
+# 13b: two processes' engine against one process's, frame poses: a mesh's
+# summation order carried through 16 frames of tracking and solves (read 0
+# on the H100, the same bits, and 2.7e-6 on the CPU at 48x64; the JAX
+# multi-process engine worker's bound)
+TWO_PROCESS_POSE_ATOL = 1e-5
+TASK_SHARDS = 2               # 13c: shards of the ViT-L backend task
+
+
+def run_sharded_solve(dev, hw=(384, 512), n_kf=16, seed=5, shards=MESH_SHARDS,
+                      group_backend="nccl"):
+    """13a: phase 6's rays problem (16 keyframes, 32 two-way edges x 196,608
+    pixels) through gauss_newton_poses_sharded on meshes of 1, 2 and 4
+    shards on one card, against the single-device dense solve: the pose
+    difference within SHARDED_POSE_ATOL, the summed normal equations at the
+    first iterate within SHARDED_BLOCKS_RTOL of one device's, the ground
+    truth within SOLVE_BOUND_M, edge-block launches = shards x GN
+    iterations (counters reset just before, read just after), the same
+    bits on a second run, host ms.  Then the 1-shard mesh in a one-rank NCCL process group (one
+    all-reduce a field an iteration; ``group_backend`` gloo rehearses it on
+    the CPU)."""
+    import torch
+    import torch.distributed as dist
+    from mast3r_slam_tpu_torch.ops import global_gn as gn
+    from mast3r_slam_tpu_torch.parallel import multihost as mh
+    from mast3r_slam_tpu_torch.parallel.mesh import make_mesh
+    from mast3r_slam_tpu_torch.parallel.sharded_ba import (gauss_newton_poses_sharded,
+                                                            normal_equations_sharded)
+
+    gt, noisy, Xs, Cs, ii, jj, idx, valid, Q, K = rays_problem(dev, hw, n_kf, seed)
+    settings = gn.GlobalGNSettings()
+    args = (noisy, Xs, Cs, ii, jj, idx, valid, Q, K, hw, settings, "rays")
+    # one device's normal equations of every edge at the first iterate
+    edge = (ii, jj) + tuple(gn.precompute_edge_data(Xs, Cs, ii, jj, idx, valid, Q,
+                                                    settings, "rays", hw))
+    H_e, g_e, c_e = gn.edge_blocks(noisy, edge, K, hw, settings, "rays")
+    M = n_kf - settings.pin
+    ref_eq = gn._scatter_dense(H_e, g_e, *gn._slots(ii, jj, settings.pin, M), M) + (
+        c_e.sum(),)
+
+    def timed(solve):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = solve()
+        sync(dev)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    (ref, ref_iters, ref_ok, _), ref_ms = timed(lambda: gn.gauss_newton_poses(*args))
+    runs, poses = {}, {}
+
+    def one(label, mesh):
+        solve = lambda: gauss_newton_poses_sharded(mesh, *args)
+        reset_counts()
+        (T, iters, ok, diverged), ms = timed(solve)
+        launches = read_counts()["edge_hg_rays"]
+        same_bits = torch.equal(T, solve()[0])
+        eq = normal_equations_sharded(mesh, *args)
+        blocks_rel = {k: ((a - b).norm() / b.norm()).item()
+                      for k, a, b in zip(("H", "g", "cost"), eq, ref_eq)}
+        r = dict(shards=mesh.size, process_group=mesh.distributed, iters=iters,
+                 ok=ok, diverged=diverged, ms=ms, launches=launches,
+                 max_pose_diff=(T - ref).abs().max().item(), blocks_rel_diff=blocks_rel,
+                 err_m=(T[:, :3] - gt[:, :3]).norm(dim=-1).max().item(),
+                 same_bits=same_bits, same_bits_as_one_device=torch.equal(T, ref))
+        log(f"13a sharded solve, {label}: {json.dumps(r)}")
+        within = r["max_pose_diff"] <= SHARDED_POSE_ATOL
+        blocks_ok = max(blocks_rel.values()) <= SHARDED_BLOCKS_RTOL
+        if not (ok and within and blocks_ok and r["err_m"] <= SOLVE_BOUND_M and same_bits
+                and launches == mesh.local_size * iters and iters >= 1):
+            raise AssertionError(
+                f"13a sharded solve, {label}: {r} (poses within {SHARDED_POSE_ATOL} of "
+                f"one device: {within}; equations within {SHARDED_BLOCKS_RTOL} of one "
+                f"device's: {blocks_ok}; error bound {SOLVE_BOUND_M} m; launches must be "
+                f"{mesh.local_size} x iterations)")
+        runs[label], poses[label] = r, T
+
+    for n in shards:
+        one(f"{n}_shards", make_mesh(devices=[dev] * n))
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    mh.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend=group_backend)
+    try:
+        mesh = mh.make_global_mesh(devices=[dev])
+        if not (mesh.distributed and dist.get_backend() == group_backend):
+            raise AssertionError(f"13a: no {group_backend} process group")
+        one("1_shard_nccl", mesh)
+    finally:
+        dist.destroy_process_group()
+    nccl_same = torch.equal(poses["1_shard_nccl"], poses["1_shards"])
+    log(f"13a one device: {ref_iters} iterations, ok {ref_ok}, {ref_ms:.3f} ms (host "
+        f"clock); the NCCL rank's poses equal the 1-shard mesh's bits: {nccl_same}")
+    return dict(one_device_ms=ref_ms, one_device_iters=ref_iters, runs=runs,
+                nccl_same_bits_as_1_shard=nccl_same)
+
+
+def slam_rank(rank, world, port, out_dir, hw, n_frames, device="cuda:0"):
+    """13b's worker: one of two processes on card 0, joined over gloo (NCCL
+    puts no two ranks on one card; the blocks, kernels and solves run on
+    the card, gloo carries the sums through host copies).  Phase 5's
+    SLAM.run with engine.mesh "auto", a shard a process, the launch
+    counters reset just before and read just after; its poses and counts
+    saved for the parent."""
+    import torch
+    import torch.distributed as dist
+    from mast3r_slam_tpu_torch.ops import kernels
+    from mast3r_slam_tpu_torch.parallel import multihost as mh
+    from mast3r_slam_tpu_torch.slam.pipeline import SLAM
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":  # a CPU rehearsal has no kernels
+        torch.cuda.set_device(dev)
+        for name in kernels.ENTRY_POINTS:  # built by the parent
+            kernels.entry_point(name)
+    mh.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    try:
+        gt = arc_trajectory(n_frames)
+        model = PlaneSceneModel(hw, gt, dev)
+        cfg = engine_cfg("base")
+        cfg["engine"]["mesh"] = "auto"
+        slam = SLAM(model, cfg, hw, keyframe_buffer=16, device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = slam.run(PlaneSceneDataset(model, n_frames), verbose=False)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        st = slam.timer.stats()
+        np.savez(out_dir / f"rank{rank}.npz", frame_poses=res.frame_poses,
+                 keyframe_poses=res.keyframe_poses)
+        (out_dir / f"rank{rank}.json").write_text(json.dumps(dict(
+            rank=rank, mesh_size=slam.mesh.size, local_shards=slam.mesh.local_size,
+            backend=dist.get_backend(), n_keyframes=res.n_keyframes, n_reloc=res.n_reloc,
+            n_edges=slam.graph.n_edges, launches=counts, wall_s=wall,
+            n_tracked=st["tracker.track"]["count"],
+            n_tasks=st.get("backend.update", {"count": 0})["count"])))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_two_process_slam(dev, work, control, hw=(384, 512), n_frames=16):
+    """13b: two processes (torch.multiprocessing, spawn) on the one card, each
+    running slam_rank, against phase 5's one-process run (``control``): the
+    same keyframe count, frame poses within TWO_PROCESS_POSE_ATOL, both ranks
+    the same pose bits, each rank's launches (one refine a tracked frame
+    and a task, edge blocks in every solve)."""
+    import torch.multiprocessing as tmp
+
+    out = work / "two_process"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    tmp.spawn(slam_rank, args=(2, free_port(), out, hw, n_frames, str(dev)), nprocs=2,
+              join=True)
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(2)]
+    poses = [np.load(out / f"rank{r}.npz") for r in range(2)]
+    same_bits = all(np.array_equal(poses[0][k], poses[1][k])
+                    for k in ("frame_poses", "keyframe_poses"))
+    diff = float(np.abs(poses[0]["frame_poses"] - control.frame_poses).max())
+    kf_diff = float(np.abs(poses[0]["keyframe_poses"] - control.keyframe_poses).max())
+    res = dict(ranks=ranks, ranks_same_bits=same_bits, max_frame_pose_diff=diff,
+               max_keyframe_pose_diff=kf_diff, control_keyframes=control.n_keyframes,
+               spawn_wall_s=wall)
+    log(f"13b two processes on one card (gloo): {json.dumps(res)}")
+    bad = [r for r in ranks
+           if not (r["mesh_size"] == 2 and r["n_keyframes"] == control.n_keyframes
+                   and r["n_reloc"] == 0 and r["n_tasks"] >= 1
+                   and r["launches"]["refine_window"] == r["n_tracked"] + r["n_tasks"]
+                   and r["launches"]["edge_hg_rays"] >= r["n_tasks"])]
+    if bad or not same_bits or diff > TWO_PROCESS_POSE_ATOL or kf_diff > TWO_PROCESS_POSE_ATOL:
+        raise AssertionError(f"13b two processes: {res} (bound {TWO_PROCESS_POSE_ATOL} m; "
+                             f"ranks failing their checks: {bad})")
+    return res
+
+
+def vitl_keyframes(dev, model, hw):
+    """Phase 6's three ViT-L keyframes (smooth random images, mono pointmaps,
+    poses 5 cm apart) in a fresh store."""
+    from mast3r_slam_tpu_torch.lie import sim3
+    from mast3r_slam_tpu_torch.slam.frame import Frame, Keyframes
+
+    kf = Keyframes(4, hw[0] * hw[1], model.num_patches, model.feat_dim, device=dev)
+    imgs = smooth_images(3, hw, dev, seed=9)
+    for k in range(3):
+        feat, pos = model.encode(imgs[k:k + 1])
+        X, C = model.mono(feat, pos)
+        T = sim3.identity(device=dev)
+        T[0] = 0.05 * k
+        f = Frame(frame_id=k, img=imgs[k], T_WC=T, feat=feat, pos=pos)
+        f.update_pointmap(X.reshape(-1, 3), C.reshape(-1, 1))
+        kf.append(f)
+    return kf
+
+
+def run_sharded_vitl_task(dev, model, hw=(384, 512), shards=TASK_SHARDS):
+    """13c: phase 6's ViT-L backend task (add_factors([1], [2]) + solve) on a
+    mesh of ``shards`` shards on one card: each shard decodes and matches its
+    slice of the padded batch (the real pair and a pair of keyframe 0), so
+    48 attention and 1 refine launch a shard; the stored idx, valid and Q
+    equal the unsharded task's bits (decoded first on the same keyframes);
+    edge blocks shards x GN iterations.  Counters reset just before the
+    sharded task and read just after."""
+    import torch
+    from mast3r_slam_tpu_torch.config import load_config
+    from mast3r_slam_tpu_torch.parallel.mesh import make_mesh
+    from mast3r_slam_tpu_torch.slam import factor_graph as fg
+
+    cfg = load_config("base")
+    frac = cfg["local_opt"]["min_match_frac"]
+    kf = vitl_keyframes(dev, model, hw)
+    plain = fg.FactorGraph(model, cfg, kf, hw, edge_capacity=16)
+    plain.add_factors([1], [2], frac)
+    graph = fg.FactorGraph(model, cfg, kf, hw, edge_capacity=16,
+                           mesh=make_mesh(devices=[dev] * shards))
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    added = graph.add_factors([1], [2], frac)
+    graph.solve()
+    sync(dev)
+    task_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    same = [torch.equal(a[:1], b[:1]) for a, b in zip(graph._stores(), plain._stores())]
+    res = dict(shards=shards, launches=counts, task_ms=task_ms, added=added,
+               n_edges=graph.n_edges, fields_same_bits=all(same))
+    log(f"13c ViT-L backend task on {shards} shards: {json.dumps(res)}")
+    want = {"attention": 48 * shards, "refine_window": shards}
+    if ({k: counts[k] for k in want} != want or counts["edge_hg_rays"] < shards
+            or counts["edge_hg_rays"] % shards or not added or graph.n_edges != 1
+            or not all(same) or not torch.isfinite(kf.T_WC[:3]).all()):
+        raise AssertionError(f"13c ViT-L task on {shards} shards: {res} (expected "
+                             f"launches {want}, edge blocks a multiple of {shards}; "
+                             f"fields (idx_i2j, idx_j2i, valid_j, valid_i, Qj, Qi) equal "
+                             f"the unsharded task's: {same})")
+    return res
+
+
+def track_frames(dev, model, hw, n_frames, compute_device):
+    """Phase 4's frames through FrameTracker.track (``compute_device`` None:
+    the default tracker): the stats vector of every frame."""
+    from mast3r_slam_tpu_torch.config import load_config
+    from mast3r_slam_tpu_torch.lie import sim3
+    from mast3r_slam_tpu_torch.slam.frame import Frame, Keyframes
+    from mast3r_slam_tpu_torch.slam.tracker import FrameTracker
+
+    kf = Keyframes(8, hw[0] * hw[1], model.num_patches, model.feat_dim,
+                   device=compute_device or dev)
+    tracker = FrameTracker(model, load_config("base"), kf, hw, device=dev,
+                           compute_device=compute_device)
+    imgs = smooth_images(n_frames + 1, hw, dev, seed=3)
+    feat, pos = model.encode(imgs[:1])
+    X, C = model.mono(feat, pos)
+    f0 = Frame(frame_id=0, img=imgs[0], T_WC=sim3.identity(device=dev), feat=feat, pos=pos)
+    f0.update_pointmap(X.reshape(-1, 3), C.reshape(-1, 1))
+    kf.append(f0)
+    stats = []
+    for i in range(1, n_frames + 1):
+        feat, pos = model.encode(imgs[i:i + 1])
+        tracker.track(Frame(frame_id=i, img=imgs[i], T_WC=f0.T_WC, feat=feat, pos=pos))
+        stats.append(tracker.last_stats.copy())
+    return stats
+
+
+def check_kernels_on_card(dev):
+    """Attention (1,12,768,64) and refine (384x512, F 24, (3, 5)) launched on
+    ``dev`` against their plain versions there: each raises its dynamic
+    shared memory limit on every card it runs on."""
+    import torch
+    from mast3r_slam_tpu_torch.ops import attention, refine
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    q, k, v = (torch.randn(1, 12, 768, 64, device=dev, generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    err = (attention.sdpa(q, k, v).float() - attention.sdpa_plain(q, k, v).float()).abs()
+    d11q, d21q, idx = refine_inputs(dev, 384, 512, 24, smooth=False)
+    sched = refine.schedule(5)
+    exact = torch.equal(refine.refine_window(d11q, d21q, idx, 384, 512, 3, sched),
+                        refine.refine_window_plain(d11q, d21q, idx, 384, 512, 3, sched))
+    out = dict(device=str(dev), attention_max_err=err.max().item(), refine_exact=exact)
+    if not (out["attention_max_err"] <= ATTN_MAX_ERR and exact):
+        raise AssertionError(f"13d kernels on {dev}: {out}")
+    return out
+
+
+def solve_rank(rank, world, port, out_dir, hw, n_kf, seed):
+    """13d's worker on a machine with two cards: one NCCL rank a card, the
+    sharded solve of 13a over the two cards' mesh; poses saved."""
+    import torch
+    import torch.distributed as dist
+    from mast3r_slam_tpu_torch.ops import kernels
+    from mast3r_slam_tpu_torch.ops.global_gn import GlobalGNSettings
+    from mast3r_slam_tpu_torch.parallel import multihost as mh
+    from mast3r_slam_tpu_torch.parallel.sharded_ba import gauss_newton_poses_sharded
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name in kernels.ENTRY_POINTS:
+        kernels.entry_point(name)
+    mh.initialize(f"127.0.0.1:{port}", world, rank, backend="nccl")
+    try:
+        dev = torch.device("cuda", rank)
+        mesh = mh.make_global_mesh(devices=[dev])
+        gt, noisy, Xs, Cs, ii, jj, idx, valid, Q, K = rays_problem(dev, hw, n_kf, seed)
+        T, iters, ok, _ = gauss_newton_poses_sharded(
+            mesh, noisy, Xs, Cs, ii, jj, idx, valid, Q, K, hw, GlobalGNSettings(), "rays")
+        np.save(out_dir / f"solve_rank{rank}.npy", T.cpu().numpy())
+        (out_dir / f"solve_rank{rank}.json").write_text(json.dumps(dict(
+            iters=iters, ok=ok, mesh_size=mesh.size)))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_second_card(dev, work, control, ref_poses, hw=(384, 512)):
+    """13d on two or more cards: the kernels on every card, engine.pipeline: 2
+    (the tracker and the store on cuda:1) against phase 5's sequential run
+    for the same bits, and a 2-card NCCL mesh (a process a card) for 13a's
+    solve against 13a's one-device poses."""
+    import torch
+    import torch.multiprocessing as tmp
+
+    cards = [check_kernels_on_card(torch.device("cuda", i))
+             for i in range(torch.cuda.device_count())]
+    _, pres, _, _, pslam = run_synthetic_slam(dev, cfg=engine_cfg("base", pipeline=2),
+                                              label="base, pipeline 2")
+    pipe_same = (pslam.tracker.compute_device == torch.device("cuda", 1)
+                 and np.array_equal(pres.frame_poses, control.frame_poses)
+                 and np.array_equal(pres.keyframe_poses, control.keyframe_poses))
+    out = work / "two_cards"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    tmp.spawn(solve_rank, args=(2, free_port(), out, hw, 16, 5), nprocs=2, join=True)
+    T = [np.load(out / f"solve_rank{r}.npy") for r in range(2)]
+    meta = [json.loads((out / f"solve_rank{r}.json").read_text()) for r in range(2)]
+    ref = ref_poses.cpu().numpy()
+    nccl_ok = (np.array_equal(T[0], T[1]) and all(m["ok"] and m["mesh_size"] == 2 for m in meta)
+               and float(np.abs(T[0] - ref).max()) <= SHARDED_POSE_ATOL)
+    res = dict(cards=cards, pipeline2_same_bits=pipe_same, nccl_two_cards=meta,
+               nccl_two_cards_ok=nccl_ok,
+               nccl_max_pose_diff=float(np.abs(T[0] - ref).max()))
+    log(f"13d on {torch.cuda.device_count()} cards: {json.dumps(res)}")
+    if not (pipe_same and nccl_ok):
+        raise AssertionError(f"13d on two cards: {res}")
+    return res
+
+
+def run_multi_card(dev, work, smi, vitl, control, stride1_task_ms):
+    """Phase 13: 13a-13d (see the module docstring)."""
+    import torch
+    from mast3r_slam_tpu_torch.ops.global_gn import GlobalGNSettings, gauss_newton_poses
+
+    solve = run_sharded_solve(dev)
+    two = run_two_process_slam(dev, work, control)
+    task = run_sharded_vitl_task(dev, vitl)
+    log(f"13c: the sharded task {task['task_ms']:.3f} ms against phase 6's unsharded "
+        f"{stride1_task_ms:.3f} ms (host clock); {smi}")
+    seq = track_frames(dev, vitl, (384, 512), 3, None)
+    explicit = track_frames(dev, vitl, (384, 512), 3, dev)
+    same = all(np.array_equal(a, b) for a, b in zip(seq, explicit))
+    log(f"13d FrameTracker(compute_device={dev}) over 3 of phase 4's frames: the "
+        f"default tracker's stats bits {same}")
+    if not same:
+        raise AssertionError("13d: FrameTracker(compute_device) differs from the "
+                             "default tracker")
+    second = None
+    if torch.cuda.device_count() >= 2:
+        gt, noisy, Xs, Cs, ii, jj, idx, valid, Q, K = rays_problem(dev, (384, 512), 16, 5)
+        ref = gauss_newton_poses(noisy, Xs, Cs, ii, jj, idx, valid, Q, K, (384, 512),
+                                 GlobalGNSettings(), "rays")[0]
+        second = run_second_card(dev, work, control, ref)
+    else:
+        log(f"13d: not run for want of a second card (torch.cuda.device_count() = "
+            f"{torch.cuda.device_count()}): engine.pipeline: 2 with the tracker on cuda:1, "
+            f"a 2-card NCCL mesh for 13a, and the attention and refine kernels on every card")
+    return dict(sharded_solve=solve, two_process=two, sharded_task=task,
+                compute_device_same_bits=same, second_card=second, card=smi)
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -3535,6 +3942,10 @@ def main() -> int:
     jpeg, serve, viz, two = run_serving(dev, work, smi)
     # image input without cv2, in the same scratch directory
     img_fixtures, img_cli, img_served, img_close = run_image_input(dev, work, smi)
+    # the multi-card backend on one card, against phase 5's run and phase 6's task
+    multi = run_multi_card(dev, work, smi, vitl, res, backend_split["task_ms"])
+    msolve, mtask = multi["sharded_solve"]["runs"], multi["sharded_task"]
+    mranks = [r["launches"] for r in multi["two_process"]["ranks"]]
 
     common = lambda r: {k: r[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms",
@@ -3546,7 +3957,8 @@ def main() -> int:
              launches=counts["attention"], shape=attn_enc["shape"], **common(attn_enc),
              strided_task_launches=strided["launches"]["attention"],
              serve_launches=serve["launches"]["attention"],
-             image_cli_launches=img_cli["launches"]["attention"]),
+             image_cli_launches=img_cli["launches"]["attention"],
+             mesh_launches={"vitl_task_2_shards": mtask["launches"]["attention"]}),
         dict(name="refine_window", route="cuda",
              source="mast3r_slam_tpu_torch/csrc/refine_window.cu",
              replaces="mast3r_slam_tpu/ops/refine_pallas.py:70",
@@ -3559,6 +3971,8 @@ def main() -> int:
              paged_reloc_launches=paged["launches"]["refine_window"],
              serve_launches=serve["launches"]["refine_window"],
              image_cli_launches=img_cli["launches"]["refine_window"],
+             mesh_launches={"vitl_task_2_shards": mtask["launches"]["refine_window"],
+                            "two_process_ranks": [c["refine_window"] for c in mranks]},
              strided={k: strided[k] for k in ("B", "n", "schedule", "radius", "max_abs_err",
                                               "ms", "call_ms", "plain_ms", "bound_ms",
                                               "bound_by", "pairs_shared",
@@ -3571,7 +3985,10 @@ def main() -> int:
              paged_reloc_launches=paged["launches"]["edge_hg_rays"],
              strided_task_launches=strided["launches"]["edge_hg_rays"],
              serve_launches=serve["launches"]["edge_hg_rays"],
-             image_cli_launches=img_cli["launches"]["edge_hg_rays"]),
+             image_cli_launches=img_cli["launches"]["edge_hg_rays"],
+             mesh_launches={"sharded_solve": {k: r["launches"] for k, r in msolve.items()},
+                            "two_process_ranks": [c["edge_hg_rays"] for c in mranks],
+                            "vitl_task_2_shards": mtask["launches"]["edge_hg_rays"]}),
         # the next three: launches in phase 8's SLAM.run (retrieval and reloc);
         # the two probes lie on no package path, their row-gather kernel
         # runs there as ivf_hamming
@@ -3620,7 +4037,8 @@ def main() -> int:
                   "viz_ws": viz, "two_sessions": two, "card": smi},
         "image_input": {"fixtures": img_fixtures,
                         "cli": {k: v for k, v in img_cli.items() if k != "stages"},
-                        "served": img_served, "close": img_close, "card": smi}}
+                        "served": img_served, "close": img_close, "card": smi},
+        "multi_card": multi}
     log(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

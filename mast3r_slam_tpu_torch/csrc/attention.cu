@@ -50,6 +50,7 @@ constexpr int D = 64;            // head dim: one 128-byte swizzle row
 constexpr int BQ = 64;           // query rows per CTA: one consumer warpgroup
 constexpr int BK = 128;          // keys per K/V tile
 constexpr int STAGES = 2;        // K/V ring depth
+constexpr int MAX_DEVICES = 64;  // cards a process may launch on
 constexpr int CONSUMERS = 128;   // one warpgroup
 constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
 constexpr int Q_BYTES = BQ * D * 2;
@@ -401,13 +402,17 @@ extern "C" int attention_bf16_d64(const void* q, const void* k, const void* v, v
   if (rc == CUDA_SUCCESS) rc = make_map(enc, &tk, k, B, H, M, ksm, ksh, ksb, BK);
   if (rc == CUDA_SUCCESS) rc = make_map(enc, &tv, v, B, H, M, vsm, vsh, vsb, BK);
   if (rc != CUDA_SUCCESS) return 1000 + static_cast<int>(rc);
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(attention_wgmma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         SMEM_BYTES);
+  // the attribute is the current device's: set it once on each card
+  static bool attr_set[MAX_DEVICES] = {};
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (device >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!attr_set[device]) {
+    e = cudaFuncSetAttribute(attention_wgmma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
-    attr_set = true;
+    attr_set[device] = true;
   }
   dim3 grid((N + BQ - 1) / BQ, B * H);
   attention_wgmma_kernel<<<grid, THREADS, SMEM_BYTES,

@@ -53,6 +53,7 @@ constexpr int THREADS = TILE * TILE;
 constexpr int WARPS = THREADS / 32;
 constexpr int WIN_BYTES = 70 * 1024;     // the window's budget: 3 blocks an SM
 constexpr int MAX_LEVELS = 8;            // dilations a schedule may hold
+constexpr int MAX_DEVICES = 64;  // cards a process may launch on
 
 // the dilations of one launch, in the order they run, passed by value
 struct Schedule {
@@ -339,12 +340,17 @@ template <int WORDS>
 cudaError_t launch(const int8_t* d11, const int8_t* d21, const int32_t* idx_in,
                    int32_t* idx_out, int B, int N, int H, int W, int radius,
                    const Schedule& sched, unsigned long long* stats, cudaStream_t stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        refine_window_kernel<WORDS>, cudaFuncAttributeMaxDynamicSharedMemorySize, WIN_BYTES);
+  // the attribute is the current device's: set it once on each card
+  static bool attr_set[MAX_DEVICES] = {};
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  if (device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!attr_set[device]) {
+    e = cudaFuncSetAttribute(refine_window_kernel<WORDS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, WIN_BYTES);
     if (e != cudaSuccess) return e;
-    attr_set = true;
+    attr_set[device] = true;
   }
   constexpr int F = 4 * WORDS;
   // the widest copy that every window row allows: image rows, the base

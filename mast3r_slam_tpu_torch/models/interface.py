@@ -35,6 +35,11 @@ class MASt3RModel:
         self.img_hw = tuple(img_hw)
         self.grid = mcfg.grid(img_hw)
 
+    def replica(self, device: DeviceLike) -> "MASt3RModel":
+        """The same model with its parameters copied to ``device`` (a mesh
+        shard's decode on another card)."""
+        return MASt3RModel(self.params, self.mcfg, self.img_hw, device)
+
     @classmethod
     def random_init(cls, seed: int, img_hw, mcfg: M.ModelConfig = M.VIT_LARGE,
                     device: DeviceLike = None):

@@ -227,25 +227,27 @@ def _slots(ii, jj, pin: int, M: int):
     return io.long(), jo.long()
 
 
-def _assemble_and_solve(H_e, g_e, ii, jj, num_poses: int, pin: int,
-                        damping: float = 1e-4):
-    """Scatter the edge blocks into dense normal equations and solve them:
-    Jacobi scaling, relative Levenberg damping, Cholesky.  H_e (E, 7, 7),
-    g_e (E, 7), ii/jj (E,).  Returns (dx (P - pin, 7), ok).  A failed
-    factorisation gives ok False and a zero step, as ``cho_factor``'s NaN
-    does in the JAX package.  Repeated edges add up, in a fixed order
-    (``index_put_`` with accumulate, ``index_add_fixed``)."""
-    M = num_poses - pin
-    io, jo = _slots(ii, jj, pin, M)
+def _scatter_dense(H_e, g_e, io, jo, M: int):
+    """Scatter the edge blocks into dense normal equations over M free-pose
+    slots plus the trash slot M: (Hbig (M+1, M+1, 7, 7), gbig (M+1, 7)).
+    Repeated edges add up in a fixed order (``index_add_fixed``)."""
     Hbig = H_e.new_zeros((M + 1, M + 1, 7, 7))
-    Hbig.index_put_((io, io), H_e, accumulate=True)
-    Hbig.index_put_((jo, jo), H_e, accumulate=True)
-    Hbig.index_put_((io, jo), -H_e, accumulate=True)
-    Hbig.index_put_((jo, io), -H_e, accumulate=True)
+    Hflat = Hbig.view((M + 1) * (M + 1), 7, 7)
+    index_add_fixed(Hflat, io * (M + 1) + io, H_e)
+    index_add_fixed(Hflat, jo * (M + 1) + jo, H_e)
+    index_add_fixed(Hflat, io * (M + 1) + jo, -H_e)
+    index_add_fixed(Hflat, jo * (M + 1) + io, -H_e)
     gbig = g_e.new_zeros((M + 1, 7))
     index_add_fixed(gbig, io, -g_e)
     index_add_fixed(gbig, jo, g_e)
+    return Hbig, gbig
 
+
+def _solve_dense(Hbig, gbig, M: int, damping: float = 1e-4):
+    """Solve assembled normal equations: Jacobi scaling, relative Levenberg
+    damping, Cholesky.  Returns (dx (M, 7), ok).  A failed factorisation
+    gives ok False and a zero step, as ``cho_factor``'s NaN does in the JAX
+    package."""
     Hd = Hbig[:M, :M].permute(0, 2, 1, 3).reshape(7 * M, 7 * M)
     gd = gbig[:M].reshape(7 * M)
     d_inv = 1.0 / torch.sqrt(torch.clamp_min(torch.diagonal(Hd), 1e-12))
@@ -257,6 +259,16 @@ def _assemble_and_solve(H_e, g_e, ii, jj, num_poses: int, pin: int,
     ok = (info == 0) & torch.isfinite(dx).all()
     dx = torch.where(ok, dx, torch.zeros_like(dx))
     return dx.reshape(M, 7), ok
+
+
+def _assemble_and_solve(H_e, g_e, ii, jj, num_poses: int, pin: int,
+                        damping: float = 1e-4):
+    """The edge blocks scattered (``_scatter_dense``) and solved
+    (``_solve_dense``).  H_e (E, 7, 7), g_e (E, 7), ii/jj (E,).  Returns
+    (dx (P - pin, 7), ok)."""
+    M = num_poses - pin
+    io, jo = _slots(ii, jj, pin, M)
+    return _solve_dense(*_scatter_dense(H_e, g_e, io, jo, M), M, damping)
 
 
 def _dot(a, b):
@@ -388,44 +400,51 @@ def gauss_newton_poses_cached(Twc, Xs, C_raw, n_fused, ii, jj, gath_f, gath_b,
     return _gn_core(Twc, ii, jj, *fields, K, img_hw, settings, mode)
 
 
+def check_hg_impl(settings: GlobalGNSettings, mode: str, on_cuda: bool) -> None:
+    """Refuse an unknown ``hg_impl``, and a plain one for ray blocks on the
+    card: every hg_impl reaches the same ray blocks (``edge_hg.edge_hg_rays``);
+    the JAX package's "reduce" and "dot" name plain forms."""
+    if settings.hg_impl not in ("auto", "pallas", "reduce", "dot"):
+        raise ValueError(f"unknown hg_impl {settings.hg_impl!r}")
+    if mode == "rays" and settings.hg_impl in ("reduce", "dot") and on_cuda:
+        raise NotImplementedError(
+            f"local_opt.hg_impl: {settings.hg_impl!r} would run the plain ray "
+            "blocks on the card; the port's card path is the edge-block "
+            "kernel (hg_impl 'auto' or 'pallas')")
+    if mode not in ("rays", "points", "calib"):
+        raise ValueError(f"unknown GN mode {mode!r}")
+
+
+def edge_blocks(Twc, edge, K, img_hw, settings: GlobalGNSettings, mode: str):
+    """(H_e (E, 7, 7), g_e (E, 7), cost (E,)) of the edges ``edge`` = (ii,
+    jj, Xi, Xj, sq, ut, vt) at poses Twc: rays in one launch of the
+    edge-block kernel on the card, calib and points in batches of
+    ``edge_batch`` edges."""
+    if mode == "rays":
+        return _edge_block_rays(Twc, settings, edge)
+    if mode == "points":
+        block_fn = lambda e: _edge_block_points(Twc, settings, e)
+    else:
+        block_fn = lambda e: _edge_block_calib(Twc, K, img_hw, settings, e)
+    b = max(1, settings.edge_batch)
+    E = edge[0].shape[0]
+    outs = [block_fn(tuple(a[s:s + b] for a in edge)) for s in range(0, E, b)]
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
 def _gn_core(Twc, ii, jj, Xi_all, Xj_all, sq_all, ut_all, vt_all, K, img_hw,
              settings: GlobalGNSettings, mode: str):
     """The GN loop over precomputed per-edge fields, with the monotone-cost
     health guard."""
     P = Twc.shape[0]
     pin = settings.pin
-    if settings.hg_impl not in ("auto", "pallas", "reduce", "dot"):
-        raise ValueError(f"unknown hg_impl {settings.hg_impl!r}")
-    # every hg_impl reaches the same ray blocks (edge_hg.edge_hg_rays); the
-    # JAX package's "reduce" and "dot" name plain forms, which the card refuses
-    if mode == "rays" and settings.hg_impl in ("reduce", "dot") and Twc.is_cuda:
-        raise NotImplementedError(
-            f"local_opt.hg_impl: {settings.hg_impl!r} would run the plain ray "
-            "blocks on the card; the port's card path is the edge-block "
-            "kernel (hg_impl 'auto' or 'pallas')")
+    check_hg_impl(settings, mode, Twc.is_cuda)
     use_pcg = settings.solver == "pcg" or (
         settings.solver == "auto" and (P - pin) > settings.dense_max_poses)
-
-    if mode == "points":
-        block_fn = lambda Twc_, edge: _edge_block_points(Twc_, settings, edge)
-    elif mode == "calib":
-        block_fn = lambda Twc_, edge: _edge_block_calib(Twc_, K, img_hw, settings, edge)
-    elif mode != "rays":
-        raise ValueError(f"unknown GN mode {mode!r}")
     edge = (ii, jj, Xi_all, Xj_all, sq_all, ut_all, vt_all)
-    E = ii.shape[0]
 
-    def blocks(Twc_):
-        if mode == "rays":  # all edges in one launch of the kernel on the card
-            return _edge_block_rays(Twc_, settings, edge)
-        b = max(1, settings.edge_batch)
-        outs = [block_fn(Twc_, tuple(a[s:s + b] for a in edge)) for s in range(0, E, b)]
-        return tuple(torch.cat(x) for x in zip(*outs))
-
-    keep = (torch.arange(P, device=Twc.device) >= pin)[:, None]
-
-    def one_iter(Twc_):
-        H_e, g_e, c_e = blocks(Twc_)
+    def step(Twc_):
+        H_e, g_e, c_e = edge_blocks(Twc_, edge, K, img_hw, settings, mode)
         cost = torch.sum(c_e)  # robust cost at Twc_, before this step
         if use_pcg:
             dx, ok = _assemble_and_solve_pcg(
@@ -433,13 +452,27 @@ def _gn_core(Twc, ii, jj, Xi_all, Xj_all, sq_all, ut_all, vt_all, K, img_hw,
                 settings.pcg_damping, settings.pcg_precond)
         else:
             dx, ok = _assemble_and_solve(H_e, g_e, ii, jj, P, pin, settings.pcg_damping)
+        return dx, ok, cost
+
+    return gn_loop(Twc, step, settings)
+
+
+def gn_loop(Twc, step, settings: GlobalGNSettings):
+    """Iterate ``step(Twc) -> (dx (P - pin, 7), ok, cost at Twc)`` with the
+    retraction of the free poses and the monotone-cost guard: each iteration
+    checks that the previous step did not raise the robust cost (by more
+    than 1 %); a step that did is reverted and the loop stops with
+    ``diverged`` set.  Returns (Twc', iters, ok, diverged)."""
+    P = Twc.shape[0]
+    pin = settings.pin
+    keep = (torch.arange(P, device=Twc.device) >= pin)[:, None]
+
+    def one_iter(Twc_):
+        dx, ok, cost = step(Twc_)
         dx_full = torch.cat([dx.new_zeros((pin, 7)), dx], dim=0)
         Twc_new = torch.where(keep, sim3.retr(Twc_, dx_full), Twc_)
         return Twc_new, torch.sqrt(torch.sum(dx * dx)), ok, cost
 
-    # monotone-cost guard: each iteration checks that the previous step did
-    # not raise the robust cost (by more than 1 %); a step that did is
-    # reverted and the loop stops with `diverged` set
     with full_f32():
         Twc_cur, Twc_prev = Twc, Twc
         prev_cost = torch.full((), float("inf"), dtype=torch.float32, device=Twc.device)

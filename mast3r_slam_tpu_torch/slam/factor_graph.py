@@ -41,7 +41,22 @@ snapshot.
 The edge store is preallocated tensors on the device written in place, and
 a solve takes exactly the stored edges and keyframes it needs: the JAX
 package pads both to power-of-two buckets only to bound its compiled
-programs.  A mesh raises ``NotImplementedError`` (ROADMAP Queue 1, item 12).
+programs.  The model may live on another device than the store (under
+``engine.pipeline: 2`` the store is on the tracker's card): the decode and
+the matching run on the model's device and their outputs move to the
+store's.
+
+With a ``mesh`` (``parallel/mesh.py``) the backend is sharded over its
+edges, as the JAX package's five mesh branches do: the fast paths are off
+(every pair symmetric and bidirectional, the gate read at once); the
+symmetric decode batch is padded to a multiple of the mesh size with pairs
+of keyframe 0 and each shard decodes and matches its slice on its own
+device (a replica of the model on each device that holds none, built once);
+the gathered-point cache is off; and every solve, windowed ones included,
+is the edge-sharded dense solve (``parallel/sharded_ba.py``), whose edge
+padding gives every shard at least one row (the JAX bucket floor of
+mesh.size).  Across processes each rank decodes its slice and the results
+are gathered on every rank, so every rank stores the same edges.
 """
 
 from __future__ import annotations
@@ -57,6 +72,8 @@ from ..geometry import constrain_points_to_ray
 from ..ops import matching
 from ..ops.global_gn import GlobalGNSettings, gauss_newton_poses, gauss_newton_poses_cached
 from ..ops.matching import match_kwargs
+from ..parallel.mesh import all_gather_rows, check_same, padded_rows
+from ..parallel.sharded_ba import gauss_newton_poses_sharded
 from .frame import Keyframes
 
 
@@ -183,9 +200,6 @@ class FactorGraph:
 
     def __init__(self, model, cfg, keyframes: Keyframes, img_hw: Tuple[int, int],
                  K=None, edge_capacity: int = 1024, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh is not ported yet (ROADMAP Queue 1, item 12: multi-GPU)")
         lcfg = cfg["local_opt"]
         self.model = model
         self.cfg = cfg
@@ -193,6 +207,9 @@ class FactorGraph:
         self.settings = GlobalGNSettings.from_config(cfg)
         self.keyframes = keyframes
         self.device = keyframes.device
+        self.model_device = torch.device(getattr(model, "device", self.device))
+        self.mesh = mesh
+        self._replicas = {self.model_device: model}  # the model on each shard device
         self.img_hw = tuple(img_hw)
         self.K = (K if K is not None
                   else torch.eye(3, dtype=torch.float32, device=self.device))
@@ -270,7 +287,7 @@ class FactorGraph:
         ii_arr = np.asarray(ii, dtype=np.int32)
         jj_arr = np.asarray(jj, dtype=np.int32)
         lcfg = self.lcfg
-        fast = not is_reloc
+        fast = not is_reloc and self.mesh is None
         oneway = fast and bool(lcfg.get("oneway_nonconsec", False))
         reuse = fast and bool(lcfg.get("reuse_tracker_match", False)) and bool(captures)
         # the verdict must be read at once where strict needs all of them
@@ -314,23 +331,73 @@ class FactorGraph:
                     out_f, ii_arr[one_mask], jj_arr[one_mask], min_match_frac)
         return added
 
-    def _pair_tokens(self, snap, ii_arr, jj_arr):
-        """(feat_i, pos_i, feat_j, pos_j) of the pairs, read through the
-        snapshot's slots."""
-        si = torch.as_tensor(snap.slots(ii_arr), device=self.device).long()
-        sj = torch.as_tensor(snap.slots(jj_arr), device=self.device).long()
-        return snap.feat[si], snap.pos[si], snap.feat[sj], snap.pos[sj]
+    def _pair_tokens(self, snap, si, sj, device):
+        """(feat_i, pos_i, feat_j, pos_j) of the pairs at snapshot slots
+        ``si`` / ``sj``, on ``device``."""
+        si = torch.as_tensor(si, device=snap.feat.device).long()
+        sj = torch.as_tensor(sj, device=snap.feat.device).long()
+        return tuple(a.to(device) for a in (snap.feat[si], snap.pos[si],
+                                            snap.feat[sj], snap.pos[sj]))
+
+    def _on_store(self, out: dict) -> dict:
+        return {k: v.to(self.device) for k, v in out.items()}
 
     def _compute_symmetric(self, snap, ii_arr, jj_arr):
-        res = self.model.symmetric(*self._pair_tokens(snap, ii_arr, jj_arr))
-        return _add_factors_compute(self.img_hw, res, float(self.lcfg["Q_conf"]),
-                                    match_kwargs(self.cfg), self._pstride)
+        if self.mesh is not None:
+            return self._compute_symmetric_sharded(snap, ii_arr, jj_arr)
+        res = self.model.symmetric(*self._pair_tokens(
+            snap, snap.slots(ii_arr), snap.slots(jj_arr), self.model_device))
+        return self._on_store(_add_factors_compute(
+            self.img_hw, res, float(self.lcfg["Q_conf"]), match_kwargs(self.cfg),
+            self._pstride))
+
+    def _replica(self, device):
+        """The model on ``device``: the model itself on its own device, else
+        a replica built at first use (``model.replica(device)``)."""
+        if device not in self._replicas:
+            if not hasattr(self.model, "replica"):
+                raise TypeError(
+                    f"a mesh shard on {device} needs the model there, and "
+                    f"{type(self.model).__name__} has no replica(device)")
+            self._replicas[device] = self.model.replica(device)
+        return self._replicas[device]
+
+    def _compute_symmetric_sharded(self, snap, ii_arr, jj_arr):
+        """``_compute_symmetric`` over the mesh: B pairs padded with pairs of
+        slot 0 to a multiple of the mesh size, each shard's contiguous slice
+        decoded and matched on its device; the real pairs' outputs on the
+        store's device (gathered from every rank across processes)."""
+        mesh = self.mesh
+        B = len(ii_arr)
+        check_same(mesh, "the sharded decode's (pairs, keyframes)", B, snap.n)
+        rows = padded_rows(mesh, B)
+        per = rows // mesh.size
+        si = np.zeros((rows,), np.int64)
+        sj = np.zeros((rows,), np.int64)
+        si[:B] = snap.slots(ii_arr)
+        sj[:B] = snap.slots(jj_arr)
+        Q_conf, mk = float(self.lcfg["Q_conf"]), match_kwargs(self.cfg)
+        outs = []
+        for s, d in enumerate(mesh.devices):
+            r0 = (mesh.first_shard + s) * per
+            res = self._replica(d).symmetric(*self._pair_tokens(
+                snap, si[r0:r0 + per], sj[r0:r0 + per], d))
+            out = _add_factors_compute(self.img_hw, res, Q_conf, mk, self._pstride)
+            # one process: only the real pairs leave their shard
+            keep = per if mesh.distributed else max(0, min(per, B - r0))
+            outs.append({k: v[:keep].to(self.device) for k, v in out.items()})
+        out = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+        if mesh.distributed:
+            out = {k: all_gather_rows(mesh, v)[:B] for k, v in out.items()}
+        return out
 
     def _compute_oneway(self, snap, ii_arr, jj_arr):
         """One asymmetric decode and forward matching a pair."""
-        res = self.model.asymmetric(*self._pair_tokens(snap, ii_arr, jj_arr))
-        return _add_factors_forward(self.img_hw, res, float(self.lcfg["Q_conf"]),
-                                    match_kwargs(self.cfg), self._pstride)
+        res = self.model.asymmetric(*self._pair_tokens(
+            snap, snap.slots(ii_arr), snap.slots(jj_arr), self.model_device))
+        return self._on_store(_add_factors_forward(
+            self.img_hw, res, float(self.lcfg["Q_conf"]), match_kwargs(self.cfg),
+            self._pstride))
 
     def _store(self, ii_arr, jj_arr, fields) -> np.ndarray:
         """Store new edges (ii, jj) with their six fields; returns the rows."""
@@ -626,9 +693,14 @@ class FactorGraph:
 
     def _dispatch_solve(self, Twc, Xs, Cs, ii2, jj2, idx, valid, Q, mode: str,
                         settings=None):
-        """The global GN on gathered-in-solve edge fields (one device)."""
+        """The global GN on gathered-in-solve edge fields: edge-sharded over
+        the mesh (always dense), else on the store's device."""
         if mode == "calib":
             Xs = constrain_points_to_ray(self.img_hw, Xs, self.K)
+        if self.mesh is not None:
+            return gauss_newton_poses_sharded(
+                self.mesh, Twc, Xs, Cs, ii2, jj2, idx, valid, Q, self.K, self.img_hw,
+                settings or self.settings, mode)
         return gauss_newton_poses(Twc, Xs, Cs, ii2, jj2, idx, valid, Q, self.K,
                                   self.img_hw, settings or self.settings, mode)
 
@@ -639,10 +711,11 @@ class FactorGraph:
     def _record_health(self, diverged: bool, P: int, pin: int):
         """Keep a PCG-routed solve's ``diverged`` flag for the next solve
         (the dense route is damped to stay positive definite and checks its
-        factor, so its flag is not kept).  ``pin``: the solve's pinned poses."""
+        factor, so its flag is not kept; a mesh's solve is always dense).
+        ``pin``: the solve's pinned poses."""
         s = self.settings
-        routed_pcg = s.solver == "pcg" or (
-            s.solver == "auto" and (P - pin) > s.dense_max_poses)
+        routed_pcg = self.mesh is None and (s.solver == "pcg" or (
+            s.solver == "auto" and (P - pin) > s.dense_max_poses))
         if routed_pcg:
             self._health_pending = diverged
 
@@ -663,7 +736,8 @@ class FactorGraph:
     # ------------------------------------------------------------------
 
     def _cache_usable(self, E: int) -> bool:
-        return self._gcache_on and E <= self._gcache_max
+        """Single-device solves only: the mesh shards raw edge fields."""
+        return self._gcache_on and self.mesh is None and E <= self._gcache_max
 
     def _ensure_gcache(self, E: int):
         """Grow the cache to hold E edges.  Unwritten rows hold finite dummy

@@ -38,6 +38,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..device import record_on, resolve_device
 from ..lie import sim3
 from ..utils.numerics import vnorm
 
@@ -239,7 +240,7 @@ class Keyframes:
                  keep_recent: int = 64):
         self.capacity = capacity
         self.num_pixels = num_pixels
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.n = 0
         self.lock = threading.RLock()
         self.generation = 0
@@ -288,9 +289,7 @@ class Keyframes:
                 yield
                 return
             self._stream.wait_stream(cur)
-            for t in inputs:
-                if isinstance(t, torch.Tensor) and t.is_cuda:
-                    t.record_stream(self._stream)
+            record_on(self._stream, self.device, inputs)
             with torch.cuda.stream(self._stream):
                 yield
 
@@ -599,7 +598,9 @@ class Keyframes:
         store; a windowed solve's compact array holds its free poses after
         its pinned ones).  Refused (False) when a ``pop_last`` since the
         snapshot changed what the slots hold; keyframes appended since keep
-        their tracked poses."""
+        their tracked poses.  ``T_new`` may lie on another device (a mesh's
+        first shard, the model's card under ``engine.pipeline: 2``): the rows
+        are copied to the store's."""
         if src_offset is None:
             src_offset = start
         with self._on_store_stream(T_new):

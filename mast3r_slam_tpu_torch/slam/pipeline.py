@@ -25,9 +25,16 @@ The engine modes:
 - ``engine.pipeline: 0`` is the sequential loop; ``1`` the pipelined loop
   (``_loop_pipelined``), which issues the next frame's decode and tracking
   chained on the previous frame's outputs before reading its decision and
-  gives the sequential loop's poses bit for bit; ``2`` (the tracker's
-  compute on a second card) falls back to ``1`` on one card and raises on
-  more (ROADMAP Queue 1, item 12).
+  gives the sequential loop's poses bit for bit; ``2`` puts the tracker's
+  compute and the keyframe store on a second card (``tracker_card``) and
+  runs the pipelined loop without the chain (finish frame i-1 before
+  submitting frame i, the speculative decode corrected on a keyframe
+  switch), the sequential poses again; with fewer than two cards, or on
+  the CPU, it falls back to ``1``.
+- ``engine.mesh: N | "auto"`` shards the backend over a mesh
+  (``parallel/mesh.py``): the first N cards, or every card; on the CPU N
+  CPU shards, or one.  Under a process group (``parallel/multihost.py``)
+  the mesh spans every rank and the backend must run in line.
 
 ``run`` reads and preprocesses frames on a prefetch thread (decode,
 undistortion and the resize overlap the card's work; its time is the
@@ -37,7 +44,7 @@ library (``utils/native.py``) and to other sizes with PIL.
 
 ``engine.device_keyframes`` pages the keyframe store to that many device
 slots; its ``keep_recent`` (half the budget, at most the solve window)
-clamps the solve window.  ``mesh`` raises ``NotImplementedError``.
+clamps the solve window.
 
 Live events: with ``on_event`` set (a callable taking a dict), every logged
 frame emits ``pose_update`` (frame id, timestamp, pose, mode) and every new
@@ -65,9 +72,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, record_on, resolve_device
 from ..eval.trajectory import save_traj_tum
 from ..lie import sim3
+from ..parallel.mesh import local_cards, make_mesh
 from ..retrieval.database import RetrievalDatabase
 from ..utils import native
 from ..utils.timing import StageTimer
@@ -92,10 +100,6 @@ class SlamResult:
 
 
 def _check_ported(cfg, retrieval):
-    mesh = cfg.get("engine", {}).get("mesh", 0)
-    if mesh:
-        raise NotImplementedError(f"engine.mesh: {mesh!r} is not ported yet "
-                                  "(ROADMAP Queue 1, item 12: multi-GPU)")
     if retrieval is not None and not isinstance(retrieval, RetrievalDatabase):
         raise TypeError(
             f"retrieval is a {type(retrieval).__name__}; the port takes its own "
@@ -113,19 +117,46 @@ def keep_recent(cfg) -> int:
     return max(2, min(window or budget, budget // 2))
 
 
-def _pipeline_mode(cfg) -> int:
-    """``engine.pipeline``: 2 falls back to 1 with fewer than two cards, as
-    in the JAX package, and raises with more."""
+def tracker_card(device: torch.device) -> Optional[torch.device]:
+    """The card ``engine.pipeline: 2`` gives the tracker and the keyframe
+    store: the next card after the engine's, or None on the CPU or with
+    fewer than two cards."""
+    if device.type != "cuda":
+        return None
+    n = torch.cuda.device_count()
+    if n < 2:
+        return None
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return torch.device("cuda", (index + 1) % n)
+
+
+def _pipeline_mode(cfg, device: torch.device):
+    """(``engine.pipeline``, the tracker's device or None): 2 takes a second
+    card and falls back to 1 without one, as in the JAX package."""
     mode = int(cfg["engine"].get("pipeline", 0) or 0)
+    track = None
     if mode >= 2:
-        if torch.cuda.device_count() >= 2:
-            raise NotImplementedError(
-                "engine.pipeline: 2 on more than one card (the tracker's compute on a "
-                "second card) is not ported yet (ROADMAP Queue 1, item 12: multi-GPU)")
-        print("engine.pipeline: fewer than 2 devices; "
-              "running single-chip host-pipelined (pipeline: 1)")
-        mode = 1
-    return mode
+        track = tracker_card(device)
+        if track is None:
+            print("engine.pipeline: fewer than 2 devices; "
+                  "running single-chip host-pipelined (pipeline: 1)")
+            mode = 1
+    return mode, track
+
+
+def _build_mesh(cfg, device: torch.device):
+    """``engine.mesh``: 0 or absent, no mesh; N, the first N cards counted
+    from the engine's (fewer cards give a smaller mesh, as in the JAX
+    package) or N shards on the CPU; "auto", every card, or one CPU shard.
+    Across processes each rank gives its own card (the engine's) and N
+    counts shards over all ranks."""
+    mesh_cfg = cfg["engine"].get("mesh", 0)
+    if not mesh_cfg:
+        return None
+    n = None if mesh_cfg == "auto" else int(mesh_cfg)
+    if device.type == "cpu":
+        return make_mesh(n, [device] * (n or 1))
+    return make_mesh(n, local_cards(device))
 
 
 class SLAM:
@@ -139,22 +170,33 @@ class SLAM:
         self.cfg = cfg
         self.img_hw = tuple(img_hw)
         self.retrieval = retrieval
+        self.single_thread = bool(cfg.get("single_thread", True))
+        self.mesh = _build_mesh(cfg, self.device)
+        if self.mesh is not None and self.mesh.world > 1 and not self.single_thread:
+            raise NotImplementedError(
+                "single_thread: False across processes: the threaded backend's "
+                "write-backs land at times that differ from rank to rank, so the "
+                "ranks' collectives would fall out of step (ROADMAP Queue 1, item 16)")
+        self.pipeline, track_device = _pipeline_mode(cfg, self.device)
         cap = keyframe_buffer or cfg["engine"]["keyframe_buffer"]
+        # the keyframe store lives with the tracker's compute
+        store_device = track_device or self.device
         self.keyframes = Keyframes(
             capacity=cap,
             num_pixels=img_hw[0] * img_hw[1],
             num_patches=model.num_patches,
             feat_dim=model.feat_dim,
-            device=self.device,
+            device=store_device,
             device_budget=int(cfg["engine"].get("device_keyframes", 0) or 0),
             keep_recent=keep_recent(cfg),
         )
         if K is not None:
-            self.keyframes.K = torch.as_tensor(K, dtype=torch.float32, device=self.device)
-        self.tracker = FrameTracker(model, cfg, self.keyframes, img_hw, self.device)
+            self.keyframes.K = torch.as_tensor(K, dtype=torch.float32, device=store_device)
+        self.tracker = FrameTracker(model, cfg, self.keyframes, img_hw, self.device,
+                                    compute_device=track_device)
         self.graph = FactorGraph(model, cfg, self.keyframes, img_hw, K=self.keyframes.K,
-                                 edge_capacity=cfg["engine"].get("edge_buffer", 1024))
-        self.pipeline = _pipeline_mode(cfg)
+                                 edge_capacity=cfg["engine"].get("edge_buffer", 1024),
+                                 mesh=self.mesh)
         self._reuse_match = bool(cfg["local_opt"].get("reuse_tracker_match", False))
         self.mode = Mode.INIT
         self.n_reloc = 0
@@ -169,7 +211,6 @@ class SLAM:
         # the threaded backend (single_thread: False)
         self.backend_lock = threading.RLock()
         self.backend_errors: List[BaseException] = []
-        self.single_thread = bool(cfg.get("single_thread", True))
         self._frontend_stream = (torch.cuda.current_stream(self.device)
                                  if self.device.type == "cuda" else None)
         self._backend_stream = None
@@ -225,9 +266,8 @@ class SLAM:
             yield
             return
         self._backend_stream.wait_stream(self._frontend_stream)
-        for t in inputs:
-            if isinstance(t, torch.Tensor) and t.is_cuda:
-                t.record_stream(self._backend_stream)
+        # pipeline: 2's tracker card has one stream for both threads
+        record_on(self._backend_stream, self.device, inputs)
         try:
             with torch.cuda.stream(self._backend_stream):
                 yield
@@ -467,8 +507,9 @@ class SLAM:
                     self._progress(i, n, t0, verbose)
         self.join_backend()
         self.graph.resolve_pending_verdicts()  # the speculative gate's verdicts
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in {self.device, self.keyframes.device}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         wall = time.time() - t0
 
         kf = self.keyframes
@@ -552,7 +593,9 @@ class SLAM:
         Every frame starts from the last finished frame's pose, as the
         sequential loop's warm start."""
         pend = deque()  # (frame index, timestamp, tracker pending), oldest first
-        chain_ok = bool(self.cfg["engine"].get("chain", True))
+        # pipeline: 2 (the tracker on its own card) keeps the depth-1 loop
+        chain_ok = self.tracker.compute_device is None and bool(
+            self.cfg["engine"].get("chain", True))
         last_done = None  # the most recent frame with a committed pose
 
         def finish_oldest():

@@ -138,7 +138,8 @@ def main(argv=None):
     parser.add_argument("--set", dest="overrides", action="append", default=[],
                         metavar="DOTTED.KEY=VALUE",
                         help="override a config value (repeatable), e.g. "
-                             "--set tracking.Q_conf=1.5; values parse as YAML scalars")
+                             "--set engine.mesh=8 --set tracking.Q_conf=1.5; values parse "
+                             "as YAML scalars")
     args = parser.parse_args(argv)
 
     from ..config import load_config, merge_config

@@ -13,7 +13,9 @@ The pipelined loop (``engine.pipeline: 1``) splits a frame into ``infer``
 its decision is read), and ``track_finish``.  The port's tracking GN reads
 the host once per iteration (``ops/tracking_gn.py``), so a submit waits on
 its own frame; the chain keeps the JAX package's trajectory, not its one
-read a frame.  The two-chip form (``engine.pipeline: 2``) is not ported.
+read a frame.  Under ``engine.pipeline: 2`` the tracker's compute runs on
+``compute_device``, a second card that also holds the keyframe store: the
+decode stays on the model's card and its outputs are copied over.
 """
 
 from __future__ import annotations
@@ -227,8 +229,12 @@ class FrameTracker:
     """Host orchestration and decisions around ``_track_compute``."""
 
     def __init__(self, model, cfg, keyframes: Keyframes, img_hw: Tuple[int, int],
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, compute_device: DeviceLike = None):
         self.device = resolve_device(device)
+        # engine.pipeline: 2 places _track_compute (and idx_f2k) here
+        self.compute_device = (None if compute_device is None
+                               else resolve_device(compute_device))
+        self._cdev = self.compute_device or self.device
         self.model = model
         self.ts = TrackerSettings.from_config(cfg)
         self.keyframes = keyframes
@@ -241,19 +247,23 @@ class FrameTracker:
 
     def reset_idx_f2k(self):
         N = self.img_hw[0] * self.img_hw[1]
-        self.idx_f2k = torch.arange(N, dtype=torch.int32, device=self.device)
+        self.idx_f2k = torch.arange(N, dtype=torch.int32, device=self._cdev)
 
     def _K(self):
         if self.ts.use_calib:
-            return self.keyframes.K
-        return torch.eye(3, dtype=torch.float32, device=self.device)
+            return self.keyframes.K.to(self._cdev)
+        return torch.eye(3, dtype=torch.float32, device=self._cdev)
+
+    def _outputs(self, inference):
+        """The decode's outputs on the compute device."""
+        return tuple(tuple(a.to(self._cdev) for a in r) for r in inference[1])
 
     def infer(self, frame: Frame):
         """The asymmetric decode of ``frame`` against the current last
         keyframe, issued ahead of the previous frame's decision.  Returns
         (kf_idx, outputs) for ``track_submit`` or ``track_submit_chained``."""
         kf_idx = self.keyframes.last_idx()
-        feat_k, pos_k = self.keyframes.tokens(kf_idx)
+        feat_k, pos_k = (a.to(frame.feat.device) for a in self.keyframes.tokens(kf_idx))
         return kf_idx, self.model.asymmetric(frame.feat, frame.pos, feat_k, pos_k)
 
     def track_submit(self, frame: Frame, inference=None):
@@ -262,16 +272,16 @@ class FrameTracker:
         ``_track_compute``.  Returns (frame, kf_idx, outputs)."""
         kf = self.keyframes
         kf_idx = kf.last_idx()
-        dev = self.device
+        dev = self._cdev
         kf_X, kf_C, kf_nf, kf_nu, kf_sc, T_WCk, _, _ = kf.slices(kf_idx)
         if inference is None or inference[0] != kf_idx:
             inference = self.infer(frame)
-        (Xii, Cii, Dii, Qii), (Xji, Cji, Dji, Qji) = inference[1]
+        (Xii, Cii, Dii, Qii), (Xji, Cji, Dji, Qji) = self._outputs(inference)
 
         N = self.img_hw[0] * self.img_hw[1]
-        frame_X = (frame.X_canon if frame.X_canon is not None
+        frame_X = (frame.X_canon.to(dev) if frame.X_canon is not None
                    else torch.zeros((N, 3), dtype=torch.float32, device=dev))
-        frame_C = (frame.C if frame.C is not None
+        frame_C = (frame.C.to(dev) if frame.C is not None
                    else torch.zeros((N, 1), dtype=torch.float32, device=dev))
         out = _track_compute(
             self.ts, self.img_hw,
@@ -293,7 +303,7 @@ class FrameTracker:
         if inference[0] != kf_idx:
             raise ValueError(f"track_submit_chained: the decode targets keyframe "
                              f"{inference[0]}, the previous frame keyframe {kf_idx}")
-        (Xii, Cii, Dii, Qii), (Xji, Cji, Dji, Qji) = inference[1]
+        (Xii, Cii, Dii, Qii), (Xji, Cji, Dji, Qji) = self._outputs(inference)
         frame.T_WC = pout["T_WCf"]  # its warm start, as in the sequential loop
         out = _track_compute_chained(
             self.ts, self.img_hw, Xii, Cii, Dii, Qii, Xji, Cji, Dji, Qji, pout,

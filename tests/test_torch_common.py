@@ -8,8 +8,13 @@ CPU here (``device="cpu"``).
 
 from __future__ import annotations
 
+import contextlib
+import signal
+
 import numpy as np
 import torch
+
+from mast3r_slam_tpu_torch.lie import sim3
 
 # six xdist workers share the machine's cores
 torch.set_num_threads(2)
@@ -49,6 +54,22 @@ def random_sim3(rng, batch=(), t_scale=1.0, rot_scale=1.0, s_range=(0.7, 1.4)):
     return np.concatenate([t_, q, s], axis=-1).astype(np.float32)
 
 
+@contextlib.contextmanager
+def time_limit(seconds: int):
+    """Raise TimeoutError in the body after ``seconds`` of wall time
+    (SIGALRM: tests run on their process's main thread)."""
+    def fire(signum, frame):
+        raise TimeoutError(f"over its time limit of {seconds} s")
+
+    old = signal.signal(signal.SIGALRM, fire)
+    signal.alarm(seconds)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+
+
 def assert_close(got, want, rtol, atol, what=""):
     np.testing.assert_allclose(n(got), n(want), rtol=rtol, atol=atol, err_msg=what)
 
@@ -83,3 +104,28 @@ class TorchOracleModel:
     def mono(self, feat, pos):
         X, C = self.oracle.mono(n(feat), n(pos))
         return self._t(X), self._t(C)
+
+
+def rays_problem(device, n_kf=5, N=3000, seed=0):
+    """A shared world cloud seen through identity correspondences, chain
+    edges both ways, perturbed poses (tests/test_sharded_ba.py's problem, on
+    an arc of the port's own): (ground truth, gauss_newton_poses' leading
+    arguments Twc ... K on ``device``, img_hw)."""
+    rng = np.random.default_rng(seed)
+    s = np.linspace(0, 1, n_kf)
+    gt = np.zeros((n_kf, 8), np.float32)
+    gt[:, 0], gt[:, 1], gt[:, 2] = 0.4 * np.sin(2.4 * s), 0.2 * s, 0.3 * s
+    gt[:, 4], gt[:, 6], gt[:, 7] = np.sin(-0.24 * s), np.cos(-0.24 * s), 1.0
+    gt = torch.as_tensor(gt)
+    world = torch.as_tensor(rng.uniform(-1, 1, size=(N, 3)) + [0, 0, 3], dtype=torch.float32)
+    Xs = sim3.act(sim3.inv(gt)[:, None, :], world)
+    ii = torch.tensor(list(range(n_kf - 1)) + list(range(1, n_kf)))
+    jj = torch.tensor(list(range(1, n_kf)) + list(range(n_kf - 1)))
+    E = len(ii)
+    tau = torch.as_tensor(rng.normal(size=(n_kf, 7)) * 0.02, dtype=torch.float32)
+    tau[0] = 0
+    args = (sim3.retr(gt, tau), Xs, torch.full((n_kf, N, 1), 2.0), ii, jj,
+            torch.arange(N, dtype=torch.int32).expand(E, N).contiguous(),
+            torch.ones((E, N, 1), dtype=torch.bool), torch.full((E, N, 1), 2.0),
+            torch.eye(3))
+    return gt, [a.to(device) for a in args], (1, N)

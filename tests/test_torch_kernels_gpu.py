@@ -41,6 +41,8 @@ from mast3r_slam_tpu_torch.lie import sim3
 from mast3r_slam_tpu_torch.ops import attention, edge_hg, gather, kernels, refine
 from mast3r_slam_tpu_torch.ops import global_gn
 
+from test_torch_common import rays_problem
+
 pytestmark = pytest.mark.gpu
 
 ATTN_MAX_ERR = 2.0 ** -6
@@ -437,31 +439,8 @@ def test_edge_hg_kernel_refuses_other_inputs(cuda):
         edge_hg.edge_hg_rays(Tij, Xi.transpose(0, 1), Xj, sq, **SIG)
 
 
-def _rays_problem(device, n_kf=5, N=3000, seed=0):
-    """A shared world cloud seen through identity correspondences, chain
-    edges both ways, perturbed poses (tests/test_sharded_ba.py's problem)."""
-    rng = np.random.default_rng(seed)
-    s = np.linspace(0, 1, n_kf)
-    gt = np.zeros((n_kf, 8), np.float32)
-    gt[:, 0], gt[:, 1], gt[:, 2] = 0.4 * np.sin(2.4 * s), 0.2 * s, 0.3 * s
-    gt[:, 4], gt[:, 6], gt[:, 7] = np.sin(-0.24 * s), np.cos(-0.24 * s), 1.0
-    gt = torch.as_tensor(gt)
-    world = torch.as_tensor(rng.uniform(-1, 1, size=(N, 3)) + [0, 0, 3], dtype=torch.float32)
-    Xs = sim3.act(sim3.inv(gt)[:, None, :], world)
-    ii = torch.tensor(list(range(n_kf - 1)) + list(range(1, n_kf)))
-    jj = torch.tensor(list(range(1, n_kf)) + list(range(n_kf - 1)))
-    E = len(ii)
-    tau = torch.as_tensor(rng.normal(size=(n_kf, 7)) * 0.02, dtype=torch.float32)
-    tau[0] = 0
-    args = (sim3.retr(gt, tau), Xs, torch.full((n_kf, N, 1), 2.0), ii, jj,
-            torch.arange(N, dtype=torch.int32).expand(E, N).contiguous(),
-            torch.ones((E, N, 1), dtype=torch.bool), torch.full((E, N, 1), 2.0),
-            torch.eye(3))
-    return gt, [a.to(device) for a in args], (1, N)
-
-
 def test_global_gn_on_the_card_launches_the_kernel_each_iteration(cuda):
-    gt, args, hw = _rays_problem(cuda)
+    gt, args, hw = rays_problem(cuda)
     before = edge_hg.counter.count
     T, iters, ok, _ = global_gn.gauss_newton_poses(*args, hw, global_gn.GlobalGNSettings(),
                                                    "rays")
@@ -473,9 +452,93 @@ def test_global_gn_on_the_card_launches_the_kernel_each_iteration(cuda):
     assert (T.cpu()[:, :3] - gt[:, :3]).norm(dim=-1).max().item() < 1e-4
 
 
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_solve_on_the_card_launches_the_kernel_per_shard(cuda, shards):
+    """The edge-sharded solve with every shard on the one card: one
+    edge-block launch a shard a GN iteration, the same bits on a second
+    run, the one-device poses within 1e-5 (the shards' sums arrive in
+    another order; chip_smoke.py's 13a reads 4.8e-7 on an H100), and the
+    summed normal equations at the first iterate within 1e-6 of one
+    device's scatter of every edge, relative to each one's norm: the poses
+    alone would not show a dropped or doubled shard, since either direction
+    of the exact two-way chain pins every pose."""
+    from mast3r_slam_tpu_torch.parallel.mesh import make_mesh
+    from mast3r_slam_tpu_torch.parallel.sharded_ba import (gauss_newton_poses_sharded,
+                                                            normal_equations_sharded)
+
+    gt, args, hw = rays_problem(cuda)
+    settings = global_gn.GlobalGNSettings()
+    mesh = make_mesh(devices=[cuda] * shards)
+    before = edge_hg.counter.count
+    T, iters, ok, _ = gauss_newton_poses_sharded(mesh, *args, hw, settings, "rays")
+    torch.cuda.synchronize()
+    assert ok and edge_hg.counter.count - before == shards * iters >= shards
+    assert torch.equal(T, gauss_newton_poses_sharded(mesh, *args, hw, settings, "rays")[0])
+    ref = global_gn.gauss_newton_poses(*args, hw, settings, "rays")[0]
+    assert (T - ref).abs().max().item() <= 1e-5
+    assert (T.cpu()[:, :3] - gt[:, :3]).norm(dim=-1).max().item() < 1e-4
+    Twc, Xs, Cs, ii, jj, idx, valid, Q, K = args
+    edge = (ii, jj) + tuple(global_gn.precompute_edge_data(Xs, Cs, ii, jj, idx, valid, Q,
+                                                           settings, "rays", hw))
+    H_e, g_e, c_e = global_gn.edge_blocks(Twc, edge, K, hw, settings, "rays")
+    M = Twc.shape[0] - settings.pin
+    want = global_gn._scatter_dense(H_e, g_e, *global_gn._slots(ii, jj, settings.pin, M),
+                                    M) + (c_e.sum(),)
+    got = normal_equations_sharded(mesh, *args, hw, settings, "rays")
+    for name, a, b in zip(("H", "g", "cost"), got, want):
+        assert ((a - b).norm() / b.norm()).item() <= 1e-6, name
+
+
+def test_stream_guards_record_inputs_on_an_unindexed_card(cuda, monkeypatch):
+    """A store and an engine built with device "cuda" (the CLI's and the
+    server's default) hold the card's index, so the stream guards still
+    record the callers' tensors on the store's and the backend's streams
+    (else the caching allocator may reuse an input's memory while the other
+    stream reads it)."""
+    from mast3r_slam_tpu_torch.slam.frame import Keyframes
+
+    recorded = []
+    real = torch.Tensor.record_stream
+    monkeypatch.setattr(torch.Tensor, "record_stream",
+                        lambda t, s: (recorded.append((t.data_ptr(), s)), real(t, s))[1])
+    kf = Keyframes(2, 64, 4, 8, device="cuda")
+    assert kf.device == torch.device("cuda", torch.cuda.current_device())
+    x = torch.ones(3, device="cuda")
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        with kf._on_store_stream(x):
+            pass
+    assert (x.data_ptr(), kf._stream) in recorded
+
+
+def test_attention_and_refine_launch_on_every_card(cuda):
+    """Each kernel raises its dynamic shared memory limit on every card it
+    launches on (the attribute is a device's): attention at the decoder's
+    (1,12,768,64) and refine at 384x512 on each visible card, against their
+    plain versions there.  Needs two cards."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA cards")
+    for i in range(n):
+        dev = torch.device("cuda", i)
+        g = torch.Generator(device=dev).manual_seed(i)
+        q, k, v = (torch.randn(1, 12, 768, 64, device=dev, generator=g).to(torch.bfloat16)
+                   for _ in range(3))
+        got = attention.sdpa(q, k, v)
+        torch.cuda.synchronize(dev)
+        err = (got.float() - attention.sdpa_plain(q, k, v).float()).abs()
+        assert err.max().item() <= ATTN_MAX_ERR, (i, err.max().item())
+        d11q, d21q, idx = _refine_inputs(1, 384, 512, 24, dev, seed=i)
+        sched = refine.schedule(5)
+        got = refine.refine_window(d11q, d21q, idx, 384, 512, 3, sched)
+        torch.cuda.synchronize(dev)
+        assert torch.equal(got, refine.refine_window_plain(d11q, d21q, idx, 384, 512, 3,
+                                                           sched)), i
+
+
 @pytest.mark.parametrize("impl", ["reduce", "dot"])
 def test_plain_ray_blocks_on_the_card_raise(cuda, impl):
-    _, args, hw = _rays_problem(cuda, N=100)
+    _, args, hw = rays_problem(cuda, N=100)
     with pytest.raises(NotImplementedError, match="edge-block kernel"):
         global_gn.gauss_newton_poses(*args, hw, global_gn.GlobalGNSettings(hg_impl=impl),
                                      "rays")

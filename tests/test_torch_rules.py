@@ -11,9 +11,13 @@ from mast3r_slam_tpu.config import load_config as jload_config
 from mast3r_slam_tpu_torch import config as tconfig
 from mast3r_slam_tpu_torch.models import mast3r as TM
 from mast3r_slam_tpu_torch.models.interface import MASt3RModel
+from mast3r_slam_tpu_torch.device import record_on, resolve_device
+from mast3r_slam_tpu_torch.parallel import mesh as mesh_mod
+from mast3r_slam_tpu_torch.parallel.mesh import make_mesh
 from mast3r_slam_tpu_torch.retrieval import RetrievalDatabase
 from mast3r_slam_tpu_torch.serve.server import default_slam_factory
 from mast3r_slam_tpu_torch.slam.frame import Keyframes
+from mast3r_slam_tpu_torch.slam import pipeline as tpipeline
 from mast3r_slam_tpu_torch.slam.pipeline import SLAM
 from mast3r_slam_tpu_torch.slam.tracker import FrameTracker
 
@@ -34,6 +38,8 @@ def test_port_and_chip_smoke_import_no_jax():
     cannot show what the port imports)."""
     files = _port_files()
     assert len(files) > 15 and all(f.exists() for f in files)
+    assert {"mesh.py", "multihost.py", "sharded_ba.py"} <= {
+        f.name for f in files if f.parent.name == "parallel"}
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -80,38 +86,115 @@ def test_entry_points_without_a_device_raise_without_cuda(monkeypatch):
         default_slam_factory(cfg=cfg, preset="tiny")
 
 
-UNPORTED = [
-    ("engine", "mesh", 2),
-]
+def _tiny_model():
+    return MASt3RModel(TM.init_params(TM.VIT_TINY_TEST, seed=0), TM.VIT_TINY_TEST,
+                       (32, 32), device=CPU)
 
 
-@pytest.mark.parametrize("section,key,value", UNPORTED)
-def test_unported_settings_raise(section, key, value):
+@pytest.mark.parametrize("value,size", [(2, 2), (8, 8), ("auto", 1)])
+def test_engine_mesh_builds(value, size):
+    """engine.mesh (ported): N shards on the CPU, or one for "auto"; the
+    factor graph takes the engine's mesh."""
     cfg = tconfig.load_config("base")
     cfg["single_thread"] = True
-    cfg[section][key] = value
-    model = MASt3RModel(TM.init_params(TM.VIT_TINY_TEST, seed=0), TM.VIT_TINY_TEST,
-                        (32, 32), device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SLAM(model, cfg, (32, 32), keyframe_buffer=2, device=CPU)
+    cfg["engine"]["mesh"] = value
+    slam = SLAM(_tiny_model(), cfg, (32, 32), keyframe_buffer=2, device=CPU)
+    assert slam.mesh.size == size and slam.graph.mesh is slam.mesh
+    assert slam.mesh.devices == (torch.device("cpu"),) * size
+
+
+@pytest.mark.parametrize("n_cards,n,size", [(1, 2, 1), (3, None, 3), (3, 2, 2)])
+def test_make_mesh_takes_the_first_cards(monkeypatch, n_cards, n, size):
+    """make_mesh(n) takes the first n cards, as jax.devices()[:n] does, so
+    one card gives a mesh of one for mesh: 2; no card and no devices raise."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n_cards)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    mesh = make_mesh(n)
+    assert mesh.devices == tuple(torch.device("cuda", i) for i in range(size))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="devices="):
+        make_mesh(n)
+
+
+@pytest.mark.parametrize("first,value,want", [
+    (1, 2, (1, 0)), (1, 1, (1,)), (0, "auto", (0, 1)), (1, "auto", (1, 0))])
+def test_engine_mesh_counts_cards_from_the_engines(monkeypatch, first, value, want):
+    """A single process's mesh takes the engine's card first, then the
+    others in index order (the current card is 0 here)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    mesh = tpipeline._build_mesh({"engine": {"mesh": value}}, torch.device("cuda", first))
+    assert mesh.devices == tuple(torch.device("cuda", i) for i in want)
+    assert mesh.world == 1 and mesh.size == len(want)
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+@pytest.mark.parametrize("value", ["auto", 2])
+def test_a_rank_takes_only_its_own_card(monkeypatch, rank, value):
+    """Under a process group torch shows every rank every card of its host:
+    a rank's mesh holds only its own card (the one ``initialize`` set, or
+    the engine's), so two ranks on a two-card host never share one and the
+    mesh counts one shard a rank."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: rank)
+    monkeypatch.setattr(mesh_mod, "process_group", lambda: (True, rank, 2))
+    seen = []
+    monkeypatch.setattr(mesh_mod, "check_same", lambda mesh, what, *v: seen.append(v))
+    mine = (torch.device("cuda", rank),)
+    mesh = make_mesh(None if value == "auto" else value)
+    assert mesh.devices == mine and mesh.size == 2 and mesh.first_shard == rank
+    slam_mesh = tpipeline._build_mesh({"engine": {"mesh": value}}, mine[0])
+    assert slam_mesh.devices == mine and slam_mesh.size == 2
+    assert seen == [(1,), (1,)]
+
+
+@pytest.mark.parametrize("current", [0, 1])
+def test_resolve_device_gives_the_cards_index(monkeypatch, current):
+    """A CUDA device without an index resolves to the current card, so it
+    equals its tensors' ``.device``; an explicit index and the CPU stay."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    cur = torch.device("cuda", current)
+    assert resolve_device("cuda") == cur and resolve_device(None) == cur
+    assert resolve_device(torch.device("cuda")) == cur
+    assert resolve_device("cuda:1") == torch.device("cuda", 1)
+    assert resolve_device(CPU) == torch.device("cpu")
+
+
+def test_stream_guard_records_a_tensor_of_a_card_given_as_cuda(monkeypatch):
+    """``record_on`` (the store's and the backend's stream guard) records a
+    tensor on card 0 when the engine was given the string "cuda", and skips
+    a tensor of another card and what is not a tensor."""
+    from unittest import mock
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    mine, other = mock.Mock(spec=torch.Tensor), mock.Mock(spec=torch.Tensor)
+    mine.device, other.device = torch.device("cuda", 0), torch.device("cuda", 1)
+    stream = object()
+    record_on(stream, resolve_device("cuda"), (mine, other, None, 3))
+    mine.record_stream.assert_called_once_with(stream)
+    other.record_stream.assert_not_called()
 
 
 @pytest.mark.parametrize("n_cards", [0, 1, 2])
-def test_pipeline2_falls_back_on_one_card_and_raises_on_more(monkeypatch, capsys, n_cards):
-    """engine.pipeline: 2 (the tracker's compute on a second card) runs the
-    one-card pipelined loop with fewer than two cards, as the JAX package
-    does, and raises with more (item 12)."""
+def test_pipeline2_falls_back_on_one_card_and_takes_a_second_on_more(monkeypatch, capsys,
+                                                                      n_cards):
+    """engine.pipeline: 2 runs the one-card pipelined loop with fewer than
+    two cards or on the CPU, as the JAX package does; with two cards the
+    tracker and the store take the card after the engine's."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: n_cards)
     cfg = tconfig.load_config("base")
     cfg["single_thread"] = True
     cfg["engine"]["pipeline"] = 2
-    model = MASt3RModel(TM.init_params(TM.VIT_TINY_TEST, seed=0), TM.VIT_TINY_TEST,
-                        (32, 32), device=CPU)
+    want = None
     if n_cards >= 2:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 12"):
-            SLAM(model, cfg, (32, 32), keyframe_buffer=2, device=CPU)
-        return
-    assert SLAM(model, cfg, (32, 32), keyframe_buffer=2, device=CPU).pipeline == 1
+        want = torch.device("cuda", 1)
+        assert tpipeline.tracker_card(torch.device("cuda", 1)) == torch.device("cuda", 0)
+    assert tpipeline.tracker_card(torch.device("cuda", 0)) == want
+    assert tpipeline.tracker_card(torch.device("cpu")) is None
+    slam = SLAM(_tiny_model(), cfg, (32, 32), keyframe_buffer=2, device=CPU)
+    assert slam.pipeline == 1 and slam.tracker.compute_device is None
     assert "running single-chip host-pipelined (pipeline: 1)" in capsys.readouterr().out
 
 
