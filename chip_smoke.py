@@ -156,10 +156,21 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      attention and 1 refine launch a shard, idx, valid and Q equal to the
      unsharded task's bits, its ms beside phase 6's; (d)
      FrameTracker(compute_device=cuda:0) over phase 4's frames: the default
-     tracker's bits.  With a second card, engine.pipeline: 2 (the tracker
-     and the store on cuda:1) for phase 5's bits, a 2-card NCCL mesh for
-     (a)'s solve and the attention and refine kernels on every card; with
-     one card, one line names those runs as not run.
+     tracker's bits; (e) the threaded backend (single_thread: False)
+     across two processes on the card over gloo: 13b's run with every task
+     gated to land at its own frame (both ranks the same bits, within
+     TWO_PROCESS_POSE_ATOL of phase 5's), then ViT-L with random weights
+     (seed 0) at 384x512 under base as packaged with engine.mesh "auto"
+     and 9b's pinned decisions, THREADED_FRAMES frames, rank 1's worker
+     holding each task's end THREADED_HOLD frames: both ranks the same
+     schedule, keyframes and pose bits, every task applied, each rank's
+     attention, refine and edge-block launches held to its frames and
+     tasks (counters reset just before each run and read just after), the
+     agreements' count and host ms and the run's wall time.  With a
+     second card, engine.pipeline: 2 (the tracker and the store on cuda:1)
+     for phase 5's bits, a 2-card NCCL mesh for (a)'s solve and the
+     attention and refine kernels on every card; with one card, one line
+     names those runs as not run.
 
 Phase 2 also holds the two gather probes' kernels (gather_rows_sum,
 take_along_rows, the latter at every slab width of SLAB_SWEEP, timed in
@@ -3523,6 +3534,241 @@ def run_two_process_slam(dev, work, control, hw=(384, 512), n_frames=16):
     return res
 
 
+THREADED_FRAMES = 8        # 13e: ViT-L frames a rank, every tracked one a task
+THREADED_HOLD = 2          # 13e: frames rank 1's worker holds each ViT-L task
+
+
+class ImageDataset:
+    """Frames already on the card, normalised (3, H, W), for SLAM.run."""
+
+    def __init__(self, imgs):
+        self.imgs = imgs
+        self.timestamps = [f"{i / 30.0:.6f}" for i in range(len(imgs))]
+
+    def __len__(self):
+        return len(self.imgs)
+
+    def __getitem__(self, i):
+        return self.timestamps[i], None
+
+    def preprocessed(self, i):
+        return {"img": self.imgs[i]}
+
+
+def hold_tasks(slam, frames, wait):
+    """13e's hooks on one engine: its worker runs each backend task, then
+    holds the task's end until the frontend has logged the frame
+    ``frames`` past the task's agreed start (or the run drains at its end).
+    The hold comes after the task's collectives, which would otherwise keep
+    the other ranks' workers in step with this one.  With ``wait``, the
+    commit of that frame first waits for the worker to end the task, so
+    the agreement there sees it (``frames`` 0: every task lands at its own
+    frame)."""
+    import threading
+
+    task, commit, join = slam._backend_update_impl, slam._frame_committed, slam.join_backend
+    draining = threading.Event()
+
+    def start():
+        if slam._n_started == slam._n_applied:
+            return None
+        return slam.backend_schedule[slam._n_started - 1][1]
+
+    def held(*args, **kwargs):
+        first = start()
+        out = task(*args, **kwargs)
+        deadline = time.time() + 60
+        while (len(slam.frame_log) <= first + frames and not draining.is_set()
+               and time.time() < deadline):
+            time.sleep(0.002)
+        return out
+
+    def waited(frame_id):
+        first = start()
+        if first is not None and frame_id >= first + frames:
+            with slam._done_cv:
+                if not slam._done_cv.wait_for(lambda: slam._n_done == slam._n_started,
+                                              timeout=300):
+                    raise AssertionError("13e: the backend worker never finished")
+        return commit(frame_id)
+
+    def drain():
+        draining.set()
+        join()
+
+    slam._backend_update_impl, slam.join_backend = held, drain
+    if wait:
+        slam._frame_committed = waited
+
+
+def threaded_run(slam, dataset, dev):
+    """SLAM.run with the launch counters reset just before and read just
+    after; (result, wall s, launches, the rank's record)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    res = slam.run(dataset, verbose=False)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    slam.close()
+    if slam.backend_errors:
+        raise AssertionError(f"13e: backend tasks failed: {slam.backend_errors!r}")
+    st = slam.timer.stats()
+    agree = st.get("backend.agree", {"count": 0, "mean_ms": 0.0, "p95_ms": 0.0})
+    n_frames = len(res.frame_timestamps)
+    return res, wall, counts, dict(
+        agreed=slam.agreed, mesh_size=slam.mesh.size, n_frames=n_frames,
+        n_keyframes=res.n_keyframes, n_reloc=res.n_reloc, n_edges=slam.graph.n_edges,
+        schedule=slam.backend_schedule,
+        n_tracked=st.get("tracker.track", {"count": 0})["count"],
+        n_tasks=st.get("backend.update", {"count": 0})["count"], launches=counts,
+        n_agree=agree["count"], agree_mean_ms=agree["mean_ms"], agree_p95_ms=agree["p95_ms"],
+        agree_ms_per_frame=agree["count"] * agree["mean_ms"] / max(n_frames, 1),
+        task_mean_ms=st.get("backend.update", {"mean_ms": 0.0})["mean_ms"], wall_s=wall)
+
+
+def threaded_rank(rank, world, port, out_dir, hw, n_standin, n_vitl, device="cuda:0",
+                  mcfg=None):
+    """13e's worker: one of two processes on card 0, joined over gloo, each
+    engine threaded (``single_thread: False``) on a mesh of one shard a
+    rank.  First 13b's stand-in run, gated (every task lands at its own
+    frame); then ViT-L (random weights, seed 0) under ``base`` as packaged
+    with 9b's pinned decisions over ``n_vitl`` smooth frames, rank 1's
+    worker holding each task's end THREADED_HOLD frames.  Poses and records
+    saved for the parent."""
+    import torch
+    import torch.distributed as dist
+    from mast3r_slam_tpu_torch.config import load_config, merge_config
+    from mast3r_slam_tpu_torch.models import mast3r as M
+    from mast3r_slam_tpu_torch.models.interface import MASt3RModel
+    from mast3r_slam_tpu_torch.ops import kernels
+    from mast3r_slam_tpu_torch.parallel import multihost as mh
+    from mast3r_slam_tpu_torch.slam import run
+    from mast3r_slam_tpu_torch.slam.pipeline import SLAM
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":  # a CPU rehearsal has no kernels
+        torch.cuda.set_device(dev)
+        for name in kernels.ENTRY_POINTS:  # built by the parent
+            kernels.entry_point(name)
+    # a collective whose peer stopped ends in an error, not a hang
+    mh.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo", timeout=300)
+    try:
+        gt = arc_trajectory(n_standin)
+        model = PlaneSceneModel(hw, gt, dev)
+        cfg = engine_cfg("base", single_thread=False)
+        cfg["engine"]["mesh"] = "auto"
+        slam = SLAM(model, cfg, hw, keyframe_buffer=16, device=dev)
+        hold_tasks(slam, 0, wait=True)
+        res, _, _, rec = threaded_run(slam, PlaneSceneDataset(model, n_standin), dev)
+        np.savez(out_dir / f"standin_rank{rank}.npz", frame_poses=res.frame_poses,
+                 keyframe_poses=res.keyframe_poses)
+        (out_dir / f"standin_rank{rank}.json").write_text(json.dumps(rec))
+
+        def refuse(msg):
+            raise ValueError(msg)
+
+        cfg = load_config("base")  # as packaged: single_thread False
+        for patch in run.parse_overrides(CLI_VITL_SET, refuse):
+            cfg = merge_config(cfg, patch)
+        cfg["engine"]["mesh"] = "auto"
+        cfg["engine"]["edge_buffer"] = 16
+        t0 = time.perf_counter()
+        vitl = MASt3RModel.random_init(0, hw, mcfg or M.VIT_LARGE, device=dev)
+        slam = SLAM(vitl, cfg, hw, keyframe_buffer=16, device=dev)
+        init_s = time.perf_counter() - t0
+        if rank == 1:
+            hold_tasks(slam, THREADED_HOLD, wait=False)
+        res, _, _, rec = threaded_run(slam, ImageDataset(smooth_images(n_vitl, hw, dev, seed=13)),
+                                      dev)
+        rec.update(init_s=init_s, enc_depth=vitl.mcfg.enc_depth, dec_depth=vitl.mcfg.dec_depth)
+        np.savez(out_dir / f"vitl_rank{rank}.npz", frame_poses=res.frame_poses,
+                 keyframe_poses=res.keyframe_poses)
+        (out_dir / f"vitl_rank{rank}.json").write_text(json.dumps(rec))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_threaded_two_process(dev, work, control, hw=(384, 512), n_standin=16,
+                             n_vitl=THREADED_FRAMES, mcfg=None):
+    """13e: two processes (spawn) on the one card, each running
+    threaded_rank.  The stand-in: both ranks the same bits, within
+    TWO_PROCESS_POSE_ATOL of phase 5's one-process run (``control``), and
+    whether 13b's in-line ranks' bits.  ViT-L: both ranks the same schedule,
+    keyframes and pose bits, every task applied, rank 1's held tasks
+    THREADED_HOLD frames or more behind their start, and each rank's
+    launches held to its frames and tasks (72 attention a frame and 48 a
+    task at ViT-L's depths, one refine a tracked frame and a task, the same
+    edge blocks on both ranks, at least one a task)."""
+    import torch.multiprocessing as tmp
+
+    out = work / "threaded"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    tmp.spawn(threaded_rank, args=(2, free_port(), out, hw, n_standin, n_vitl, str(dev), mcfg),
+              nprocs=2, join=True)
+    wall = time.perf_counter() - t0
+
+    def load(name):
+        return ([json.loads((out / f"{name}_rank{r}.json").read_text()) for r in range(2)],
+                [np.load(out / f"{name}_rank{r}.npz") for r in range(2)])
+
+    def same_bits(poses):
+        return all(np.array_equal(poses[0][k], poses[1][k])
+                   for k in ("frame_poses", "keyframe_poses"))
+
+    srec, spose = load("standin")
+    inline = work / "two_process" / "rank0.npz"
+    res = dict(spawn_wall_s=wall, standin=dict(
+        ranks=srec, ranks_same_bits=same_bits(spose),
+        max_frame_pose_diff=float(np.abs(spose[0]["frame_poses"]
+                                         - control.frame_poses).max()),
+        max_keyframe_pose_diff=float(np.abs(spose[0]["keyframe_poses"]
+                                            - control.keyframe_poses).max()),
+        same_bits_as_13b=(inline.exists() and same_bits([spose[0], np.load(inline)]))))
+    vrec, vpose = load("vitl")
+    last = vrec[0]["n_frames"] - 1
+    held = [s for s in vrec[0]["schedule"] if s[1] + THREADED_HOLD <= last]
+    res["vitl"] = dict(ranks=vrec, ranks_same_bits=same_bits(vpose),
+                       held_tasks=held, hold_frames=THREADED_HOLD)
+    log(f"13e threaded backend, two processes on one card (gloo): {json.dumps(res)}")
+
+    st = res["standin"]
+    faults = []
+    if not (st["ranks_same_bits"] and st["max_frame_pose_diff"] <= TWO_PROCESS_POSE_ATOL
+            and st["max_keyframe_pose_diff"] <= TWO_PROCESS_POSE_ATOL
+            and all(r["agreed"] and r["n_keyframes"] == control.n_keyframes
+                    and r["schedule"] == [[s[0]] * 3 for s in r["schedule"]]
+                    for r in srec)):
+        faults.append(f"stand-in: ranks' bits, within {TWO_PROCESS_POSE_ATOL} of the "
+                      f"control, every task at its own frame")
+    keys = ("n_frames", "n_keyframes", "n_reloc", "n_edges", "schedule", "n_tracked",
+            "n_tasks")
+    if any(vrec[0][k] != vrec[1][k] for k in keys) or not res["vitl"]["ranks_same_bits"]:
+        faults.append("ViT-L: the ranks disagree")
+    for r in vrec:
+        c = r["launches"]
+        if not (r["agreed"] and r["mesh_size"] == 2 and r["n_frames"] == n_vitl
+                and r["n_tasks"] == len(r["schedule"]) >= 1
+                and all(None not in s for s in r["schedule"])
+                and c["attention"] == ((r["enc_depth"] + 4 * r["dec_depth"]) * r["n_frames"]
+                                       + 4 * r["dec_depth"] * r["n_tasks"])
+                and c["refine_window"] == r["n_tracked"] + r["n_tasks"]
+                and c["edge_hg_rays"] >= r["n_tasks"]):
+            faults.append(f"ViT-L rank record {r}")
+    if vrec[0]["launches"]["edge_hg_rays"] != vrec[1]["launches"]["edge_hg_rays"]:
+        faults.append("ViT-L: edge-block launches differ between the ranks")
+    if not held or any(s[2] - s[1] < THREADED_HOLD for s in held):
+        faults.append(f"ViT-L: rank 1's hold shows in no task's schedule: {held}")
+    if faults:
+        raise AssertionError(f"13e threaded backend: {faults}: {json.dumps(res)}")
+    return res
+
+
 def vitl_keyframes(dev, model, hw):
     """Phase 6's three ViT-L keyframes (smooth random images, mono pointmaps,
     poses 5 cm apart) in a fresh store."""
@@ -3700,6 +3946,12 @@ def run_multi_card(dev, work, smi, vitl, control, stride1_task_ms):
 
     solve = run_sharded_solve(dev)
     two = run_two_process_slam(dev, work, control)
+    threaded = run_threaded_two_process(dev, work, control)
+    tv = threaded["vitl"]["ranks"]
+    log(f"13e ViT-L, threaded over two ranks: {tv[0]['n_frames']} frames, "
+        f"{tv[0]['n_tasks']} tasks, run wall {[round(r['wall_s'], 3) for r in tv]} s, "
+        f"{tv[0]['n_agree']} agreements at {[round(r['agree_mean_ms'], 3) for r in tv]} ms "
+        f"each (host clock); {smi}")
     task = run_sharded_vitl_task(dev, vitl)
     log(f"13c: the sharded task {task['task_ms']:.3f} ms against phase 6's unsharded "
         f"{stride1_task_ms:.3f} ms (host clock); {smi}")
@@ -3721,8 +3973,9 @@ def run_multi_card(dev, work, smi, vitl, control, stride1_task_ms):
         log(f"13d: not run for want of a second card (torch.cuda.device_count() = "
             f"{torch.cuda.device_count()}): engine.pipeline: 2 with the tracker on cuda:1, "
             f"a 2-card NCCL mesh for 13a, and the attention and refine kernels on every card")
-    return dict(sharded_solve=solve, two_process=two, sharded_task=task,
-                compute_device_same_bits=same, second_card=second, card=smi)
+    return dict(sharded_solve=solve, two_process=two, threaded_two_process=threaded,
+                sharded_task=task, compute_device_same_bits=same, second_card=second,
+                card=smi)
 
 
 def main() -> int:
@@ -3946,6 +4199,7 @@ def main() -> int:
     multi = run_multi_card(dev, work, smi, vitl, res, backend_split["task_ms"])
     msolve, mtask = multi["sharded_solve"]["runs"], multi["sharded_task"]
     mranks = [r["launches"] for r in multi["two_process"]["ranks"]]
+    tranks = [r["launches"] for r in multi["threaded_two_process"]["vitl"]["ranks"]]
 
     common = lambda r: {k: r[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms",
@@ -3958,7 +4212,8 @@ def main() -> int:
              strided_task_launches=strided["launches"]["attention"],
              serve_launches=serve["launches"]["attention"],
              image_cli_launches=img_cli["launches"]["attention"],
-             mesh_launches={"vitl_task_2_shards": mtask["launches"]["attention"]}),
+             mesh_launches={"vitl_task_2_shards": mtask["launches"]["attention"],
+                            "threaded_vitl_ranks": [c["attention"] for c in tranks]}),
         dict(name="refine_window", route="cuda",
              source="mast3r_slam_tpu_torch/csrc/refine_window.cu",
              replaces="mast3r_slam_tpu/ops/refine_pallas.py:70",
@@ -3972,7 +4227,8 @@ def main() -> int:
              serve_launches=serve["launches"]["refine_window"],
              image_cli_launches=img_cli["launches"]["refine_window"],
              mesh_launches={"vitl_task_2_shards": mtask["launches"]["refine_window"],
-                            "two_process_ranks": [c["refine_window"] for c in mranks]},
+                            "two_process_ranks": [c["refine_window"] for c in mranks],
+                            "threaded_vitl_ranks": [c["refine_window"] for c in tranks]},
              strided={k: strided[k] for k in ("B", "n", "schedule", "radius", "max_abs_err",
                                               "ms", "call_ms", "plain_ms", "bound_ms",
                                               "bound_by", "pairs_shared",
@@ -3988,6 +4244,7 @@ def main() -> int:
              image_cli_launches=img_cli["launches"]["edge_hg_rays"],
              mesh_launches={"sharded_solve": {k: r["launches"] for k, r in msolve.items()},
                             "two_process_ranks": [c["edge_hg_rays"] for c in mranks],
+                            "threaded_vitl_ranks": [c["edge_hg_rays"] for c in tranks],
                             "vitl_task_2_shards": mtask["launches"]["edge_hg_rays"]}),
         # the next three: launches in phase 8's SLAM.run (retrieval and reloc);
         # the two probes lie on no package path, their row-gather kernel

@@ -18,6 +18,14 @@ collective used here).  A mesh keeps no reference to the group, so
 ``dist.destroy_process_group()`` frees it and joins its threads while the
 interpreter still runs: a gloo group alive into the interpreter's teardown
 may drop a tensor on its own thread there and abort the process.
+
+``host_group`` makes a second, gloo group for flags that live on the host
+(the threaded backend's agreement, ``all_reduce_min``), so that a thread of
+its own can issue collectives there while another thread uses the default
+group: every group needs its collectives in the same order on every rank,
+and two threads on one group could interleave theirs differently from rank
+to rank.  Its owner destroys it (``destroy_group``) before the default
+group, for the same reason as above.
 """
 
 from __future__ import annotations
@@ -204,3 +212,25 @@ def check_same(mesh: Mesh, what: str, *values: int) -> None:
     every = all_gather_rows(mesh, mine[None]).cpu()
     if not bool((every == every[0]).all()):
         raise RuntimeError(f"ranks disagree on {what}: {every.tolist()} (one row a rank)")
+
+
+def host_group():
+    """A new gloo process group over every rank, for collectives on host
+    integers.  Every rank must call this at the same point of its run (the
+    groups are numbered in creation order)."""
+    return dist.new_group(backend="gloo")
+
+
+def all_reduce_min(group, *values: int) -> List[int]:
+    """The element-wise minimum of ``values`` over the ranks of ``group``
+    (host integers; one all-reduce)."""
+    t = torch.tensor([int(v) for v in values], dtype=torch.int64)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
+    return t.tolist()
+
+
+def destroy_group(group) -> None:
+    """Destroy a group from ``host_group`` while the default group lives;
+    the caller drops its reference."""
+    if dist.is_initialized():
+        dist.destroy_process_group(group)

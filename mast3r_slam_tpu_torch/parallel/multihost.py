@@ -11,9 +11,11 @@ stays replicated, as in the JAX package: every edge needs arbitrary
 
 The ranks must stay in step: ``mesh.check_same`` compares the edge and
 pose counts before each sharded decode and solve and raises on a
-mismatch.  The multi-process engine runs its backend in line
-(``single_thread: True``); ``SLAM`` refuses the threaded backend across
-processes, whose write-backs land at times that differ from rank to rank.
+mismatch.  The backend runs in line (``single_thread: True``) or on its
+worker thread (``single_thread: False``); threaded, every rank takes each
+task's snapshot and installs its poses at the same frame, agreed by one
+all-reduce a frame on a gloo group of the engine's own (``slam/pipeline.py``),
+so the worker's timing on one rank never reaches another rank's tracking.
 
 One process a card (a process with several cards passes them as
 ``devices``):
@@ -30,6 +32,7 @@ NCCL puts no two ranks on one card; two processes on one card take
 
 from __future__ import annotations
 
+from datetime import timedelta
 from typing import Optional, Sequence
 
 import torch
@@ -41,13 +44,16 @@ from .mesh import Mesh, process_group, local_rows, make_mesh
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
-               backend: Optional[str] = None) -> None:
+               backend: Optional[str] = None,
+               timeout: Optional[float] = None) -> None:
     """Join the process group; a no-op for a single process, as
     ``jax.distributed.initialize`` is.  ``coordinator_address`` is
     "host:port" of rank 0 (None: torch's ``env://`` variables).  The backend
     is ``nccl`` where the process has a CUDA card and ``gloo`` on the CPU,
     unless named.  Under NCCL the process takes card ``process_id`` modulo
-    the cards it sees."""
+    the cards it sees.  ``timeout`` (seconds; None: torch's default) bounds
+    every collective of the group: a rank whose peer stopped (a backend
+    task that failed there) gets an error instead of waiting on."""
     if num_processes in (None, 1) and coordinator_address is None:
         return
     if backend is None:
@@ -58,7 +64,8 @@ def initialize(coordinator_address: Optional[str] = None,
     dist.init_process_group(
         backend=backend, init_method=init,
         world_size=-1 if num_processes is None else int(num_processes),
-        rank=-1 if process_id is None else int(process_id))
+        rank=-1 if process_id is None else int(process_id),
+        **({} if timeout is None else {"timeout": timedelta(seconds=timeout)}))
 
 
 def make_global_mesh(devices: Optional[Sequence] = None) -> Mesh:

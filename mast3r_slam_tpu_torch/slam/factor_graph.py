@@ -27,7 +27,14 @@ zero-weight off the grid.
 ``solve`` expands the stored edges both ways and runs the global
 Gauss-Newton, through the gathered-point cache when it applies, then writes
 the solved poses back to the keyframe store (refused if a relocalisation
-popped a keyframe meanwhile).  With ``local_opt.window_size`` below the
+popped a keyframe meanwhile).
+
+Both calls read the store through a snapshot they take themselves, or
+through one snapshot the caller took (``snap``): the threaded backend
+across processes takes it at a frame every rank agrees on, so that the
+task reads the same store on every rank, and ``solve(snap=...)`` then
+returns the write-back for the caller to install at another agreed frame
+instead of installing it.  With ``local_opt.window_size`` below the
 free poses (or under keyframe paging, whose ``keep_recent`` clamps the
 window) it solves only the newest ``window`` poses: the edges that reach
 the window, with their older endpoints as pinned context in a compact pose
@@ -264,7 +271,7 @@ class FactorGraph:
 
     def add_factors(self, ii: List[int], jj: List[int], min_match_frac: float,
                     is_reloc: bool = False, strict: bool = None,
-                    captures=None) -> bool:
+                    captures=None, snap=None) -> bool:
         """Inference, matching, gate and store for the pairs (ii[b], jj[b]).
         An edge is kept when both match fractions reach ``min_match_frac``
         or it is consecutive (jj = ii + 1); with ``strict`` one rejected
@@ -273,17 +280,22 @@ class FactorGraph:
         bidirectional symmetric path; ``strict`` defaults to it.  Otherwise
         the ``speed`` switches pick each pair's path (see the module
         docstring); ``captures`` maps (i, j) to the tracker's (idx, valid, Q)
-        of j's match against i.  Returns whether any edge was stored."""
+        of j's match against i.  ``snap``: read this snapshot of the store
+        instead of taking one (see the module docstring).  Returns whether
+        any edge was stored."""
         if strict is None:
             strict = is_reloc
         B = len(ii)
         if B == 0:
             return False
         kf = self.keyframes
-        with kf.lock:  # no eviction between the upload and the snapshot
-            if kf.paging:
-                kf.ensure_resident(set(ii) | set(jj))
-            snap = kf.snapshot()
+        if snap is not None:
+            snap = snap.with_resident(set(ii) | set(jj))
+        else:
+            with kf.lock:  # no eviction between the upload and the snapshot
+                if kf.paging:
+                    kf.ensure_resident(set(ii) | set(jj))
+                snap = kf.snapshot()
         ii_arr = np.asarray(ii, dtype=np.int32)
         jj_arr = np.asarray(jj, dtype=np.int32)
         lcfg = self.lcfg
@@ -582,36 +594,52 @@ class FactorGraph:
     # solve
     # ------------------------------------------------------------------
 
-    def solve(self, mode: str = None):
+    def solve(self, mode: str = None, snap=None, ver=None):
         """Global GN over the keyframe poses (the first ``pin`` stay fixed),
         over all of them or over a window, then the pose write-back.  After
         a PCG-routed solve that raised the cost, this one runs dense, its
-        window clamped to ``dense_max_poses`` as well."""
+        window clamped to ``dense_max_poses`` as well.  Given ``snap`` (and
+        the ``pm_version`` copy ``ver`` taken with it), the solve reads that
+        snapshot and returns its write-back, the arguments of
+        ``Keyframes.write_back_poses`` (None when there was nothing to
+        solve), instead of installing it."""
         if mode is None:
             mode = "calib" if self.cfg["use_calib"] else "rays"
         kf = self.keyframes
         E = self.n_edges
-        if E == 0 or len(kf) <= self.settings.pin:
-            return
+        if E == 0 or (len(kf) if snap is None else snap.n) <= self.settings.pin:
+            return None
         settings = self.settings
         window = self._effective_window()
         if self._consume_health():
             settings = settings._replace(solver="dense")
             window = min(window or 10 ** 9, settings.dense_max_poses)
-        with kf.lock:  # no eviction between the uploads and the snapshot
-            free = len(kf) - settings.pin
+        deferred = snap is not None
+        if deferred:
+            free = snap.n - settings.pin
             window = min(window or free, free)
-            self._prepare_residency(window)
-            # versions before the snapshot: a fusion landing in between is
-            # re-gathered next solve, never served stale
-            ver = kf.pm_version.copy()
-            snap = kf.snapshot()
+            if kf.paging:
+                refs, s0 = self._window_refs(snap.n, window)
+                snap = snap.with_resident(list(refs) + list(range(s0, snap.n)))
+        else:
+            with kf.lock:  # no eviction between the uploads and the snapshot
+                free = len(kf) - settings.pin
+                window = min(window or free, free)
+                self._prepare_residency(window)
+                # versions before the snapshot: a fusion landing in between is
+                # re-gathered next solve, never served stale
+                ver = kf.pm_version.copy()
+                snap = kf.snapshot()
         old = self.settings
         self.settings = settings
         try:
-            self._solve_window(mode, snap, E, window, ver)
+            write_back = self._solve_window(mode, snap, E, window, ver)
         finally:
             self.settings = old
+        if deferred or write_back is None:
+            return write_back
+        kf.write_back_poses(*write_back)
+        return None
 
     def _effective_window(self) -> int:
         """``window_size``, clamped under paging to ``keep_recent``: only the
@@ -621,20 +649,25 @@ class FactorGraph:
             window = min(window or 10 ** 9, self.keyframes.keep_recent)
         return window
 
+    def _window_refs(self, n_now: int, window: int):
+        """(the keyframes the edges reaching the newest ``window`` of
+        ``n_now`` poses touch, the window's first pose)."""
+        E = self.n_edges
+        s0 = n_now - window
+        ii_e, jj_e = self.ii[:E], self.jj[:E]
+        keep = (ii_e >= s0) | (jj_e >= s0)
+        return np.unique(np.concatenate([ii_e[keep], jj_e[keep]])), s0
+
     def _prepare_residency(self, window: int):
         """Under paging, bring back every keyframe a solve of the newest
         ``window`` poses reads (the window and the older ends of its edges)
         and mark the older ones sticky, so that solve after solve does not
         evict and upload them again.  Caller holds the store's lock."""
         kf = self.keyframes
-        E = self.n_edges
-        if not kf.paging or E == 0:
+        if not kf.paging or self.n_edges == 0:
             return
         n_now = len(kf)
-        s0 = n_now - window
-        ii_e, jj_e = self.ii[:E], self.jj[:E]
-        keep = (ii_e >= s0) | (jj_e >= s0)
-        refs = np.unique(np.concatenate([ii_e[keep], jj_e[keep]]))
+        refs, s0 = self._window_refs(n_now, window)
         kf.sticky = {int(r) for r in refs if r < s0}
         kf.ensure_resident([int(r) for r in refs] + list(range(s0, n_now)))
 
@@ -645,14 +678,15 @@ class FactorGraph:
         [pinned context | window] as pinned poses.  Edges between two older
         poses would touch pinned poses only, so dropping them changes
         nothing.  A solve that leaves free poses out then recycles the edges
-        behind the window (under paging or ``edge_recycle``)."""
+        behind the window (under paging or ``edge_recycle``).  Returns the
+        write-back (``Keyframes.write_back_poses``'s arguments), or None."""
         n_kf = snap.n
         s0 = n_kf - window
         ii_e, jj_e = self.ii[:E], self.jj[:E]
         keep = (ii_e >= s0) | (jj_e >= s0)
         kept = np.nonzero(keep)[0]
         if kept.size == 0:
-            return
+            return None
         ends = np.concatenate([ii_e[kept], jj_e[kept]])
         old_ref = np.unique(ends[ends < s0])
         if old_ref.size == 0 and s0 > 0:
@@ -687,9 +721,9 @@ class FactorGraph:
                 snap.T_WC[poses], snap.X[slots], Cs, ii2, jj2, idx, valid, Q, mode,
                 settings)
         self._record_health(diverged, len(sel), pin)
-        self.keyframes.write_back_poses(s0, n_kf, snap.generation, Twc_new, src_offset=pin)
         if s0 > self.settings.pin and (self.keyframes.paging or self._recycle):
             self._recycle_old_edges(s0)
+        return s0, n_kf, snap.generation, Twc_new, pin
 
     def _dispatch_solve(self, Twc, Xs, Cs, ii2, jj2, idx, valid, Q, mode: str,
                         settings=None):

@@ -193,7 +193,10 @@ class KeyframeSnapshot(NamedTuple):
     (a slot's tokens never change while a snapshot of it lives: only
     relocalisation pops and re-appends a slot, and it holds the engine's
     backend lock) and clones with paging, where an eviction hands a slot to
-    another keyframe and writes it in place."""
+    another keyframe and writes it in place.  With paging, ``host_rows``
+    holds the evicted keyframes' host buffers as they stood (a buffer is
+    never written after its eviction), so ``with_resident`` can bring any
+    of them in without the store."""
 
     n: int
     generation: int
@@ -204,6 +207,7 @@ class KeyframeSnapshot(NamedTuple):
     feat: torch.Tensor
     pos: torch.Tensor
     slot_of: np.ndarray
+    host_rows: Optional[dict] = None
 
     def slots(self, idxs) -> np.ndarray:
         """The slots of keyframes ``idxs``.  Raises if one was not resident
@@ -214,6 +218,29 @@ class KeyframeSnapshot(NamedTuple):
             raise RuntimeError(f"keyframes {idxs[s < 0].tolist()} are not resident in "
                                "this snapshot")
         return s
+
+    def with_resident(self, idxs) -> "KeyframeSnapshot":
+        """This snapshot with the evicted keyframes among ``idxs`` appended
+        as slots, copied from its host buffers: the store's
+        ``ensure_resident`` for a snapshot, which leaves the store as it is."""
+        out = sorted({int(i) for i in idxs if self.slot_of[int(i)] < 0})
+        if not out:
+            return self
+        rows = []
+        for i in out:
+            h = self.host_rows[i]
+            if h["event"] is not None:
+                h["event"].synchronize()
+            rows.append(h)
+        slot_of = self.slot_of.copy()
+        slot_of[out] = np.arange(self.X.shape[0], self.X.shape[0] + len(out))
+
+        def grown(a, name):
+            return torch.cat([a, torch.stack([h[name] for h in rows]).to(a)])
+
+        return self._replace(X=grown(self.X, "X"), C=grown(self.C, "C"),
+                             feat=grown(self.feat, "feat"), pos=grown(self.pos, "pos"),
+                             slot_of=slot_of)
 
 
 _PAGED = ("X", "C", "feat", "pos")  # the per-keyframe rows a slot holds
@@ -586,7 +613,8 @@ class Keyframes:
                 n=n, generation=self.generation, T_WC=self.T_WC[:n].clone(),
                 X=self.X[:m].clone(), C=self.C[:m].clone(),
                 n_fused=self.n_fused[:n].clone(), feat=feat, pos=pos,
-                slot_of=self.slot_of[:n].copy())
+                slot_of=self.slot_of[:n].copy(),
+                host_rows=dict(self._host_rows) if self.paging else None)
         self._hand_out(snap.T_WC, snap.X, snap.C, snap.n_fused, snap.feat, snap.pos)
         return snap
 

@@ -21,7 +21,9 @@ The engine modes:
   stream is synchronised at the end of every task.  ``backend_lock``
   serialises backend tasks against relocalisation (both change the graph
   and the database); tracking never takes it.  A failed task is printed
-  and kept in ``backend_errors``.
+  and kept in ``backend_errors``.  Every task is recorded in
+  ``backend_schedule`` as [submit, start, apply] frame ids (in line, its
+  frame thrice; the single-process worker's own timing is not recorded).
 - ``engine.pipeline: 0`` is the sequential loop; ``1`` the pipelined loop
   (``_loop_pipelined``), which issues the next frame's decode and tracking
   chained on the previous frame's outputs before reading its decision and
@@ -34,7 +36,29 @@ The engine modes:
 - ``engine.mesh: N | "auto"`` shards the backend over a mesh
   (``parallel/mesh.py``): the first N cards, or every card; on the CPU N
   CPU shards, or one.  Under a process group (``parallel/multihost.py``)
-  the mesh spans every rank and the backend must run in line.
+  the mesh spans every rank, and every rank runs the same engine on the
+  same frames.
+
+The threaded backend across processes (``single_thread: False`` under a
+mesh of several ranks) keeps the ranks in step by agreeing on each task's
+timing at frame boundaries.  Tasks are submitted at the same frames on every
+rank, one runs at a time, and at the end of each committed frame (the end
+of ``process_frame``; under ``pipeline: 1`` the end of each frame's
+``track_finish`` commit) while a task is outstanding, one all-reduce on a
+gloo group of the engine's own (``mesh.host_group``; the worker's
+collectives keep the default group) takes the minimum over the ranks of the
+tasks finished and the first failure.  From it every rank, at the same
+frame: installs the poses of the newly finished tasks (the worker leaves
+them pending; ``write_back_poses`` still refuses a stale generation), then,
+with no task in flight, starts the next one from a snapshot the frontend
+takes there (its ``pm_version`` with it), which the task's ``add_factors``
+and ``solve`` both read.  A task submitted while every rank is idle starts
+at its own frame.  A chained submit of ``pipeline: 1`` that a write-back
+made stale is re-run, as after a keyframe switch.  Relocalisation, the end
+of ``run``, ``join_backend`` and ``close`` drain first (the worker
+finishes, its poses land, then the frontend may use the default group);
+a task that failed on any rank stops every rank with an error naming the
+rank and the task.
 
 ``run`` reads and preprocesses frames on a prefetch thread (decode,
 undistortion and the resize overlap the card's work; its time is the
@@ -75,7 +99,7 @@ import torch
 from ..device import DeviceLike, record_on, resolve_device
 from ..eval.trajectory import save_traj_tum
 from ..lie import sim3
-from ..parallel.mesh import local_cards, make_mesh
+from ..parallel.mesh import all_reduce_min, destroy_group, host_group, local_cards, make_mesh
 from ..retrieval.database import RetrievalDatabase
 from ..utils import native
 from ..utils.timing import StageTimer
@@ -85,6 +109,10 @@ from .tracker import FrameTracker
 
 
 PREFETCH_DEPTH = 2  # frames the ingest thread reads ahead
+# a drain re-asks the ranks this often while this rank's worker is busy: a
+# worker that waits in a collective for a rank whose task failed never ends
+DRAIN_POLL_S = 0.25
+NO_FAILURE = 2 ** 62  # the agreement's failure slot when no task failed
 
 
 @dataclasses.dataclass
@@ -172,11 +200,6 @@ class SLAM:
         self.retrieval = retrieval
         self.single_thread = bool(cfg.get("single_thread", True))
         self.mesh = _build_mesh(cfg, self.device)
-        if self.mesh is not None and self.mesh.world > 1 and not self.single_thread:
-            raise NotImplementedError(
-                "single_thread: False across processes: the threaded backend's "
-                "write-backs land at times that differ from rank to rank, so the "
-                "ranks' collectives would fall out of step (ROADMAP Queue 1, item 16)")
         self.pipeline, track_device = _pipeline_mode(cfg, self.device)
         cap = keyframe_buffer or cfg["engine"]["keyframe_buffer"]
         # the keyframe store lives with the tracker's compute
@@ -208,14 +231,28 @@ class SLAM:
         self.control = None
         self.viz_point_stride = int(cfg.get("engine", {}).get("viz_point_stride", 0) or 0)
 
-        # the threaded backend (single_thread: False)
+        # the threaded backend (single_thread: False); across processes its
+        # tasks' start and write-back are agreed (see the module docstring)
         self.backend_lock = threading.RLock()
         self.backend_errors: List[BaseException] = []
+        self.backend_schedule: List[list] = []  # [submit, start, apply] frame ids
         self._frontend_stream = (torch.cuda.current_stream(self.device)
                                  if self.device.type == "cuda" else None)
         self._backend_stream = None
         self._tasks: Optional[queue.Queue] = None
         self._worker: Optional[threading.Thread] = None
+        self.agreed = (not self.single_thread and self.mesh is not None
+                       and self.mesh.world > 1)
+        self._agree_group = host_group() if self.agreed else None
+        self._waiting: deque = deque()  # (task, kf_idx, capture) not yet started
+        self._n_started = 0
+        self._n_applied = 0
+        self._n_done = 0                # this rank's worker: tasks ended
+        self._results: dict = {}        # task -> its pending write-back or None
+        self._failed_task: Optional[int] = None  # this rank's first failed task
+        self._agree_failure: Optional[tuple] = None  # (rank, task) once agreed
+        self._done_cv = threading.Condition()
+        self._frame_id = -1             # the last committed frame
         if not self.single_thread:
             if self.device.type == "cuda":
                 self._backend_stream = torch.cuda.Stream(self.device)
@@ -229,33 +266,72 @@ class SLAM:
     # ------------------------------------------------------------------
 
     def _backend_loop(self):
+        tasks = self._tasks  # close() may drop the engine's reference first
         while True:
-            task = self._tasks.get()
+            task = tasks.get()
             try:
                 if task is None:
                     return
+                if self.agreed:
+                    self._run_agreed_task(*task)
+                    continue
                 kf_idx, capture = task
                 with self.timer.time("backend.update"):
                     self._backend_update(kf_idx, capture)
             except Exception as e:  # the worker must outlive a failed task
-                print(f"backend task failed: {e!r}", file=sys.stderr)
-                traceback.print_exc(file=sys.stderr)
-                self.backend_errors.append(e)
+                self._report_task_failure(e)
             finally:
-                self._tasks.task_done()
+                tasks.task_done()
+
+    def _report_task_failure(self, e: BaseException):
+        print(f"backend task failed: {e!r}", file=sys.stderr)
+        traceback.print_exc(file=sys.stderr)
+        self.backend_errors.append(e)
+
+    def _run_agreed_task(self, k: int, kf_idx: int, capture, inputs):
+        """Task ``k`` on the worker, from the snapshot the frontend took at
+        its agreed start; its write-back is left for the frontend."""
+        result, failed = None, False
+        try:
+            with self.timer.time("backend.update"):
+                result = self._backend_update(kf_idx, capture, inputs)
+        except Exception as e:
+            self._report_task_failure(e)
+            failed = True
+        with self._done_cv:
+            self._results[k] = result
+            if failed and self._failed_task is None:
+                self._failed_task = k
+            self._n_done += 1
+            self._done_cv.notify_all()
 
     def join_backend(self):
-        """Wait until every queued backend task has run."""
-        if self._tasks is not None:
+        """Wait until every queued backend task has run.  Across processes
+        this is a drain, which every rank must call at the same frame: each
+        task finishes and its poses land."""
+        if self.agreed:
+            self._drain(self._frame_id)
+        elif self._tasks is not None:
             self._tasks.join()
 
     def close(self):
-        """Drain the backend and stop its worker thread."""
-        if self._worker is not None:
-            self._tasks.put(None)
-            self._worker.join()
-            self._worker = None
-            self._tasks = None
+        """Drain the backend and stop its worker thread.  Across processes,
+        the engine's agreement group is destroyed too; after a failed task
+        nothing is drained and the worker, which may wait in a collective of
+        the failed rank, is left to the process's end."""
+        try:
+            if self.agreed and self._agree_failure is None and self._agree_group is not None:
+                self._drain(self._frame_id)
+        finally:
+            if self._worker is not None:
+                self._tasks.put(None)
+                if self._agree_failure is None:
+                    self._worker.join()
+                self._worker = None
+                self._tasks = None
+            if self._agree_group is not None:
+                destroy_group(self._agree_group)
+                self._agree_group = None
 
     @contextmanager
     def _on_backend_stream(self, *inputs):
@@ -274,19 +350,106 @@ class SLAM:
         finally:
             self._backend_stream.synchronize()
 
-    def _submit_backend(self, kf_idx: int, capture=None):
-        """Queue a backend task for the worker, or run it in line."""
+    def _submit_backend(self, kf_idx: int, capture=None, frame_id: Optional[int] = None):
+        """Queue a backend task for the worker, or run it in line; submitted
+        at frame ``frame_id`` (default: the last committed one).  Across
+        processes it waits for its agreed start; with every rank's worker
+        idle that is now."""
+        if frame_id is None:
+            frame_id = self._frame_id
+        if self.agreed:
+            self.backend_schedule.append([frame_id, None, None])
+            self._waiting.append((len(self.backend_schedule) - 1, kf_idx, capture))
+            if self._n_started == self._n_applied:
+                self._start_task(frame_id)
+            return
         if self._tasks is not None:
             self._tasks.put((kf_idx, capture))
             return
+        self.backend_schedule.append([frame_id] * 3)
         with self.timer.time("backend.update"):
             self._backend_update(kf_idx, capture)
 
-    def _backend_update(self, kf_idx: int, capture=None):
+    def _backend_update(self, kf_idx: int, capture=None, inputs=None):
         """One backend task under ``backend_lock``: the store is read through
-        snapshots and written back under its own lock, so tracking goes on."""
-        with self.backend_lock, self._on_backend_stream(*(capture or ())[1:]):
-            self._backend_update_impl(kf_idx, capture)
+        snapshots and written back under its own lock, so tracking goes on.
+        ``inputs`` (snapshot, pm_version): an agreed task's, whose write-back
+        is returned."""
+        snap_tensors = () if inputs is None else (inputs[0].T_WC, inputs[0].X, inputs[0].C,
+                                                  inputs[0].n_fused, inputs[0].feat,
+                                                  inputs[0].pos)
+        with self.backend_lock, self._on_backend_stream(*(capture or ())[1:], *snap_tensors):
+            if inputs is None:
+                return self._backend_update_impl(kf_idx, capture)
+            return self._backend_update_impl(kf_idx, capture, inputs)
+
+    # ------------------------------------------------------------------
+    # the agreement (threaded backend across processes)
+    # ------------------------------------------------------------------
+
+    def _start_task(self, frame_id: int):
+        """Start the oldest waiting task from a snapshot taken now: every
+        rank's worker is idle and every earlier write-back installed."""
+        k, kf_idx, capture = self._waiting.popleft()
+        kf = self.keyframes
+        with kf.lock:
+            ver = kf.pm_version.copy()
+            snap = kf.snapshot()
+        self.backend_schedule[k][1] = frame_id
+        self._n_started += 1
+        self._tasks.put((k, kf_idx, capture, (snap, ver)))
+
+    def _frame_committed(self, frame_id: int) -> bool:
+        """The end of a committed frame: the agreement, while a task is
+        outstanding (every rank knows when one is).  Returns whether a
+        write-back landed."""
+        self._frame_id = frame_id
+        if not self.agreed or self._n_applied == len(self.backend_schedule):
+            return False
+        return self._agree(frame_id)
+
+    def _agree(self, frame_id: int) -> bool:
+        """One all-reduce of (tasks finished, first failure) over the ranks;
+        install what every rank finished, start the next task if every rank
+        is idle.  Raises on every rank if a task failed on any."""
+        with self._done_cv:
+            done, failed = self._n_done, self._failed_task
+        mine = NO_FAILURE if failed is None else (self.mesh.rank << 32) + failed
+        with self.timer.time("backend.agree"):
+            done, failure = all_reduce_min(self._agree_group, done, mine)
+        if failure != NO_FAILURE:
+            self._agree_failure = (failure >> 32, failure & 0xFFFFFFFF)
+            rank, task = self._agree_failure
+            raise RuntimeError(
+                f"backend task {task} (submitted at frame {self.backend_schedule[task][0]}) "
+                f"failed on rank {rank}; every rank stops")
+        applied = False
+        while self._n_applied < done:
+            k = self._n_applied
+            with self._done_cv:
+                write_back = self._results.pop(k)
+            if write_back is not None:
+                # made on the worker's stream, read on this thread's
+                T_new = write_back[3]
+                if T_new.is_cuda:
+                    record_on(torch.cuda.current_stream(T_new.device), T_new.device, (T_new,))
+                self.keyframes.write_back_poses(*write_back)
+            self.backend_schedule[k][2] = frame_id
+            self._n_applied += 1
+            applied = True
+        if self._waiting and self._n_started == self._n_applied:
+            self._start_task(frame_id)
+        return applied
+
+    def _drain(self, frame_id: int):
+        """Run every submitted task to its write-back, asking the ranks
+        again whenever this rank's worker is idle (or every
+        ``DRAIN_POLL_S``, so that a failure elsewhere is heard)."""
+        while self._n_applied < len(self.backend_schedule):
+            with self._done_cv:
+                self._done_cv.wait_for(lambda: self._n_done == self._n_started,
+                                       timeout=DRAIN_POLL_S)
+            self._agree(frame_id)
 
     # ------------------------------------------------------------------
 
@@ -311,10 +474,11 @@ class SLAM:
         return Frame(frame_id=frame_id, img=img[0], T_WC=T, feat=feat, pos=pos,
                      uimg=r.get("unnormalized_img"))
 
-    def _backend_update_impl(self, kf_idx: int, capture=None):
+    def _backend_update_impl(self, kf_idx: int, capture=None, inputs=None):
         """Retrieval candidates and the previous keyframe, edges from them to
         the new keyframe, then the global solve (run_backend,
-        main.py:96-143)."""
+        main.py:96-143).  With ``inputs`` (snapshot, pm_version), both read
+        that snapshot and the solve's write-back is returned."""
         cfg = self.cfg
         candidates = set()
         if self.retrieval is not None:
@@ -328,15 +492,17 @@ class SLAM:
         candidates.discard(kf_idx)
         kf_idxs = sorted(candidates)
         if not kf_idxs:
-            return
+            return None
         captures = None
         if capture is not None and capture[0] == kf_idx - 1:
             captures = {(capture[0], kf_idx): capture[1:]}
+        snap, ver = inputs if inputs is not None else (None, None)
         with self.timer.time("backend.add_factors"):
             self.graph.add_factors(kf_idxs, [kf_idx] * len(kf_idxs),
-                                   cfg["local_opt"]["min_match_frac"], captures=captures)
+                                   cfg["local_opt"]["min_match_frac"], captures=captures,
+                                   snap=snap)
         with self.timer.time("backend.solve"):
-            self.graph.solve()
+            return self.graph.solve(snap=snap, ver=ver)
 
     def _relocalize(self, frame: Frame) -> bool:
         """Retrieval-driven relocalisation (main.py:28-71); without retrieval
@@ -387,18 +553,22 @@ class SLAM:
         self._after_track(frame, timestamp, new_kf, try_reloc)
         return frame
 
-    def _after_track(self, frame: Frame, timestamp, new_kf: bool, try_reloc: bool):
+    def _after_track(self, frame: Frame, timestamp, new_kf: bool, try_reloc: bool) -> bool:
+        """Commit a tracked frame's decision; returns whether an agreed
+        write-back landed at its end."""
         if try_reloc:
             self.mode = Mode.RELOC
             self._log(timestamp, frame)
-            return
+            return self._frame_committed(frame.frame_id)
         if new_kf:
             kf_idx = self.keyframes.append(frame)
             # the tracker's own match becomes the consecutive edge's backward half
             self._submit_backend(
-                kf_idx, self.tracker.last_match_capture if self._reuse_match else None)
+                kf_idx, self.tracker.last_match_capture if self._reuse_match else None,
+                frame_id=frame.frame_id)
             self._emit_keyframe(kf_idx, frame)
         self._log(timestamp, frame)
+        return self._frame_committed(frame.frame_id)
 
     def _log(self, timestamp, frame: Frame):
         T = frame.T_WC_np
@@ -462,18 +632,22 @@ class SLAM:
             score_mode=self.cfg["tracking"]["filtering_score"])
         if self.mode == Mode.INIT:
             kf_idx = self.keyframes.append(frame)
-            if self.retrieval is not None:
-                self._submit_backend(0)  # adds the first keyframe to the database
+            if self.retrieval is not None:  # adds the first keyframe to the database
+                self._submit_backend(0, frame_id=frame.frame_id)
             self.mode = Mode.TRACKING
             self._log(timestamp, frame)
             self._emit_keyframe(kf_idx, frame)
+            self._frame_committed(frame.frame_id)
             return
         self.n_reloc += 1
+        if self.agreed:  # relocalisation's collectives run on this thread
+            self._drain(frame.frame_id)
         if self._relocalize(frame):
             self.n_reloc_success += 1
             self.mode = Mode.TRACKING
             self.tracker.reset_idx_f2k()
         self._log(timestamp, frame)
+        self._frame_committed(frame.frame_id)
 
     # ------------------------------------------------------------------
 
@@ -505,7 +679,7 @@ class SLAM:
                             torch.cuda.synchronize(frame.T_WC.device)
                     last_T = frame.T_WC
                     self._progress(i, n, t0, verbose)
-        self.join_backend()
+        self.join_backend()  # across processes: the last write-backs land here
         self.graph.resolve_pending_verdicts()  # the speculative gate's verdicts
         for dev in {self.device, self.keyframes.device}:
             if dev.type == "cuda":
@@ -586,7 +760,8 @@ class SLAM:
         (``infer``); ``track_submit_chained`` on frame i-1's outputs; then
         ``track_finish`` of frame i-1, the read of its decision.  The chain
         assumes a clean commit of i-1; on a keyframe switch, relocalisation
-        or GN failure the chained submit is discarded and re-run from the
+        or GN failure, and across processes after an agreed write-back at
+        the commit, the chained submit is discarded and re-run from the
         committed state, so every pose is the sequential loop's.
         ``engine.chain: false`` finishes i-1 before submitting i.  INIT and
         RELOC frames drain the pipeline and run as in the sequential loop.
@@ -602,9 +777,9 @@ class SLAM:
             nonlocal last_done
             _, ts0, p0 = pend.popleft()
             new_kf, try_reloc = self.tracker.track_finish(p0)
-            self._after_track(p0[0], ts0, new_kf, try_reloc)
+            moved = self._after_track(p0[0], ts0, new_kf, try_reloc)
             last_done = p0[0]
-            if (new_kf or try_reloc) and pend:
+            if (new_kf or try_reloc or moved) and pend:
                 # the chained submit assumed a clean commit: run it again
                 stale = list(pend)
                 pend.clear()

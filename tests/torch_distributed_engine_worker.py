@@ -53,13 +53,10 @@ def engine(mesh, single_thread=True):
 
 # "auto" spans every rank: one CPU shard each
 assert engine("auto").mesh.size == nproc
-# the threaded backend is refused across processes
-try:
-    engine(MESH, single_thread=False)
-except NotImplementedError as e:
-    assert "single_thread: False across processes" in str(e), e
-else:
-    raise AssertionError("the threaded backend was accepted across processes")
+# the threaded backend builds across processes, its tasks agreed at frames
+threaded = engine(MESH, single_thread=False)
+assert threaded.agreed and threaded.mesh.size == MESH and threaded._worker.is_alive()
+threaded.close()
 
 single = engine(0).run(OracleDataset(N_FRAMES, HW), verbose=False)
 slam = engine(MESH)
