@@ -146,7 +146,8 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      (16 keyframes, 32 two-way edges x 196,608 pixels) through the
      edge-sharded solve on meshes of 1, 2 and 4 shards on cuda:0 against the
      single-device dense solve (poses within SHARDED_POSE_*, edge-block
-     launches = shards x GN iterations, the same bits on a second run, ms),
+     launches = shards x max_iters, the GN loop's fixed count, the same
+     bits on a second run, ms),
      then on 1 shard in a one-rank NCCL process group; (b) two processes
      (torch.multiprocessing) on the card joined over gloo (NCCL puts no two
      ranks on one card), each running phase 5's SLAM.run with engine.mesh
@@ -171,6 +172,23 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      for phase 5's bits, a 2-card NCCL mesh for (a)'s solve and the
      attention and refine kernels on every card; with one card, one line
      names those runs as not run.
+  14. the tracking GN on the device and the host reads: (a) the card's
+     syncs (torch.cuda.set_sync_debug_mode("warn"), each with the stack
+     that made it) over SYNC_FRAMES ViT-L frames at 384x512 under `speed`
+     with the decisions pinned open, each through infer,
+     track_submit_chained and track_finish after two warm-up frames:
+     exactly one a tracked frame (its encode counted apart); and over one
+     `speed` backend task (retrieval with the default head at full width
+     and a 64k-word codebook, add_factors, the dense solve) after two
+     warm-up tasks: exactly one; (b) the tracking GN's device program
+     (csrc/gn_while.cu: a CUDA graph, a WHILE conditional node over one
+     captured iteration) against the eager frozen loop at 196,608 points,
+     ray + distance, calib and a singular system: the same bits and
+     iterations, its device time (CUDA events), the plain loop's, the
+     bound and its graph's kernel nodes; (c) SLAM.run of WALL_FRAMES ViT-L
+     frames under pipeline 0 and 1 in turn (wall a frame, frame.latency
+     p50, the same pose bits), and phase 4's profiled launches and busy
+     share beside their numbers before the loop moved to the device.
 
 Phase 2 also holds the two gather probes' kernels (gather_rows_sum,
 take_along_rows, the latter at every slab width of SLAB_SWEEP, timed in
@@ -182,7 +200,8 @@ gather kernels off the card: ptxas registers and spills, the gathers'
 launch plans, the edge blocks' SASS pixel loop (instructions, FFMA, MUFU,
 subroutine calls; cuobjdump), and a one-element fill's device time as the
 floor of any kernel's.  Phase 4 ends with a torch.profiler breakdown of one more ViT-L tracked
-frame (device time by kernel, launches, device busy share).  It prints one
+frame (device time by kernel, launches, device busy share), and counts the
+tracking GN's device program (one launch a tracked frame) with the kernels.  It prints one
 JSON line of kernel numbers, then as its last line
 {"ok": true, "device": {...}}.
 """
@@ -915,6 +934,9 @@ def smooth_images(n, hw, dev, seed):
     return img * 2 - 1
 
 
+PROFILES: dict = {}  # label -> the numbers of its profile() call
+
+
 def profile(label, fn, top=25):
     """torch.profiler over one call of ``fn``: the kernels with the most
     device time, the launch count, and the device's busy time against the
@@ -944,6 +966,8 @@ def profile(label, fn, top=25):
         f"{busy_ms:.3f} ms = {busy_ms / wall_ms:.3f} of wall")
     for name, (ms, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"  {ms:9.3f} ms  x{n:5d}  {name[:110]}")
+    PROFILES[label] = dict(wall_ms=wall_ms, launches=len(kernels), copy_launches=n_copy,
+                           busy_ms=busy_ms, busy_share=busy_ms / wall_ms)
 
 
 def profile_frame(model, tracker, img, T, label="one tracked frame"):
@@ -965,7 +989,7 @@ def run_vitl(dev, hw=(384, 512), n_tracked=N_TRACKED, mcfg=None):
     from mast3r_slam_tpu_torch.config import load_config
     from mast3r_slam_tpu_torch.models import mast3r as M
     from mast3r_slam_tpu_torch.models.interface import MASt3RModel
-    from mast3r_slam_tpu_torch.ops import attention, refine
+    from mast3r_slam_tpu_torch.ops import attention, refine, tracking_gn
     from mast3r_slam_tpu_torch.slam.frame import Frame, Keyframes
     from mast3r_slam_tpu_torch.slam.tracker import FrameTracker
     from mast3r_slam_tpu_torch.lie import sim3
@@ -993,6 +1017,7 @@ def run_vitl(dev, hw=(384, 512), n_tracked=N_TRACKED, mcfg=None):
 
     attention.counter.reset()
     refine.counter.reset()
+    tracking_gn.counter.reset()
     times, decisions = [], []
     T = f0.T_WC
     for i in range(1, n_tracked + 1):
@@ -1007,7 +1032,8 @@ def run_vitl(dev, hw=(384, 512), n_tracked=N_TRACKED, mcfg=None):
         stats = tracker.last_stats
         if not np.isfinite(np.delete(stats, 6)).all():  # [6]: score, -inf unless best_score
             raise AssertionError(f"ViT-L frame {i}: non-finite stats {stats}")
-    counts = {"attention": attention.counter.count, "refine_window": refine.counter.count}
+    counts = {"attention": attention.counter.count, "refine_window": refine.counter.count,
+              "tracking_gn_while": tracking_gn.counter.count}
     log(f"ViT-L tracked frames: ms {[round(t, 3) for t in times]}, "
         f"(new_kf, try_reloc) {decisions}, last stats {np.round(stats, 5).tolist()}")
 
@@ -1401,10 +1427,10 @@ def umeyama_rmse(est, gt):
 
 
 def launch_counters():
-    from mast3r_slam_tpu_torch.ops import attention, edge_hg, gather, refine
+    from mast3r_slam_tpu_torch.ops import attention, edge_hg, gather, refine, tracking_gn
 
     return (attention.counter, refine.counter, edge_hg.counter, gather.sum_counter,
-            gather.take_counter, gather.ivf_counter)
+            gather.take_counter, gather.ivf_counter, tracking_gn.counter)
 
 
 def reset_counts():
@@ -1610,6 +1636,7 @@ def run_synthetic_solve(dev, hw=(384, 512), n_kf=16, seed=5):
         sync(dev)
         ms = (time.perf_counter() - t0) * 1e3
         counts = read_counts()
+        iters, ok, diverged = int(iters), bool(ok), bool(diverged)
         err = (T[:, :3] - truth[:, :3]).norm(dim=-1).max().item()
         T2 = solve()[0]
         same_bits = torch.equal(T, T2)
@@ -1617,8 +1644,9 @@ def run_synthetic_solve(dev, hw=(384, 512), n_kf=16, seed=5):
             f"{iters} GN iterations, ok {ok}, diverged {diverged}, {ms:.3f} ms (host "
             f"clock); max translation error {err0:.6f} -> {err:.8f} m; launches {counts}; "
             f"the same pose bits on a second run {same_bits}")
+        # the GN loop runs max_iters iterations, frozen once it stops
         if not (ok and err <= SOLVE_BOUND_M and iters >= 1
-                and counts["edge_hg_rays"] == per_iter * iters):
+                and counts["edge_hg_rays"] == per_iter * GlobalGNSettings().max_iters):
             raise AssertionError(f"full-width solve, {name} entry: error {err} m (bound "
                                  f"{SOLVE_BOUND_M}), ok {ok}, {iters} iterations, "
                                  f"launches {counts}")
@@ -2220,7 +2248,7 @@ def solve_iters(fg):
 
     def spy(*a, **kw):
         out = real(*a, **kw)
-        iters.append(out[1])
+        iters.append(int(out[1]))
         return out
 
     return iters, swapped(fg, "gauss_newton_poses_cached", spy)
@@ -2231,7 +2259,7 @@ def run_windowed_solve(dev, hw=(384, 512), seed=5, oracle=True):
     growing 48-keyframe arc problem (phase 6's, identity correspondences):
     32, then 40, then 48 keyframes, a solve after each stage.  Each solve:
     the pre-window poses keep their bits, one edge-block launch a GN
-    iteration, and (``oracle``) the window within SOLVE_BOUND_M of
+    iteration (``max_iters``, the loop's fixed count), and (``oracle``) the window within SOLVE_BOUND_M of
     gauss_newton_poses over every pose and edge with the pre-window poses
     pinned.  Returns a dict of the run and the final poses."""
     import torch
@@ -2271,6 +2299,7 @@ def run_windowed_solve(dev, hw=(384, 512), seed=5, oracle=True):
             counts = read_counts()
             T = kf.T_WC[:n_kf].clone()
             rec = dict(n_kf=n_kf, s0=s0, ms=ms, iters=iters[-1],
+                       max_iters=graph.settings.max_iters,
                        edge_hg_launches=counts["edge_hg_rays"],
                        pre_window_same_bits=bool(torch.equal(T[:s0], T0[:s0])),
                        n_edges=graph.n_edges, capacity=graph.capacity,
@@ -2305,7 +2334,8 @@ def check_windowed_solve(dev):
     same = bool(torch.equal(a["T"], b["T"]))
     sv = a["solves"]
     bad = [r for r in sv if not (
-        r["pre_window_same_bits"] and r["edge_hg_launches"] == r["iters"] >= 1
+        r["pre_window_same_bits"] and r["edge_hg_launches"] == r["max_iters"]
+        and r["iters"] >= 1
         and r["oracle_ok"] and r["vs_pinned_full_m"] <= SOLVE_BOUND_M)]
     grew = sv[-1]["capacity"] != sv[0]["capacity"] or sv[-1]["n_edges"] != sv[0]["n_edges"]
     if (bad or not same or sv[-1]["n_edges_recycled"] <= 0 or grew
@@ -3373,8 +3403,8 @@ def run_sharded_solve(dev, hw=(384, 512), n_kf=16, seed=5, shards=MESH_SHARDS,
     shards on one card, against the single-device dense solve: the pose
     difference within SHARDED_POSE_ATOL, the summed normal equations at the
     first iterate within SHARDED_BLOCKS_RTOL of one device's, the ground
-    truth within SOLVE_BOUND_M, edge-block launches = shards x GN
-    iterations (counters reset just before, read just after), the same
+    truth within SOLVE_BOUND_M, edge-block launches = shards x max_iters
+    (the GN loop's fixed count; counters reset just before, read just after), the same
     bits on a second run, host ms.  Then the 1-shard mesh in a one-rank NCCL process group (one
     all-reduce a field an iteration; ``group_backend`` gloo rehearses it on
     the CPU)."""
@@ -3405,12 +3435,14 @@ def run_sharded_solve(dev, hw=(384, 512), n_kf=16, seed=5, shards=MESH_SHARDS,
         return out, (time.perf_counter() - t0) * 1e3
 
     (ref, ref_iters, ref_ok, _), ref_ms = timed(lambda: gn.gauss_newton_poses(*args))
+    ref_iters, ref_ok = int(ref_iters), bool(ref_ok)
     runs, poses = {}, {}
 
     def one(label, mesh):
         solve = lambda: gauss_newton_poses_sharded(mesh, *args)
         reset_counts()
         (T, iters, ok, diverged), ms = timed(solve)
+        iters, ok, diverged = int(iters), bool(ok), bool(diverged)
         launches = read_counts()["edge_hg_rays"]
         same_bits = torch.equal(T, solve()[0])
         eq = normal_equations_sharded(mesh, *args)
@@ -3425,12 +3457,12 @@ def run_sharded_solve(dev, hw=(384, 512), n_kf=16, seed=5, shards=MESH_SHARDS,
         within = r["max_pose_diff"] <= SHARDED_POSE_ATOL
         blocks_ok = max(blocks_rel.values()) <= SHARDED_BLOCKS_RTOL
         if not (ok and within and blocks_ok and r["err_m"] <= SOLVE_BOUND_M and same_bits
-                and launches == mesh.local_size * iters and iters >= 1):
+                and launches == mesh.local_size * settings.max_iters and iters >= 1):
             raise AssertionError(
                 f"13a sharded solve, {label}: {r} (poses within {SHARDED_POSE_ATOL} of "
                 f"one device: {within}; equations within {SHARDED_BLOCKS_RTOL} of one "
                 f"device's: {blocks_ok}; error bound {SOLVE_BOUND_M} m; launches must be "
-                f"{mesh.local_size} x iterations)")
+                f"{mesh.local_size} x max_iters, the GN loop's fixed count)")
         runs[label], poses[label] = r, T
 
     for n in shards:
@@ -3901,7 +3933,7 @@ def solve_rank(rank, world, port, out_dir, hw, n_kf, seed):
             mesh, noisy, Xs, Cs, ii, jj, idx, valid, Q, K, hw, GlobalGNSettings(), "rays")
         np.save(out_dir / f"solve_rank{rank}.npy", T.cpu().numpy())
         (out_dir / f"solve_rank{rank}.json").write_text(json.dumps(dict(
-            iters=iters, ok=ok, mesh_size=mesh.size)))
+            iters=int(iters), ok=bool(ok), mesh_size=mesh.size)))
     finally:
         dist.destroy_process_group()
 
@@ -3978,6 +4010,302 @@ def run_multi_card(dev, work, smi, vitl, control, stride1_task_ms):
                 card=smi)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the tracking GN's device program; host reads
+# ---------------------------------------------------------------------------
+
+SYNC_FRAMES = 5            # 14a: counted tracked frames (after two warm-up frames)
+WALL_FRAMES = 12           # 14c: frames of each SLAM.run timed under pipeline 0 and 1
+# phase 4's profiled frame before the GN loop ran on the device (PERF.md §5,
+# PRs 4-13), for the log only: launches and the busy share of the profiled wall
+BEFORE_FRAME_LAUNCHES = 5866
+BEFORE_BUSY_SHARE = (0.15, 0.18)
+
+
+@contextlib.contextmanager
+def counted_syncs():
+    """The synchronising calls on the card in the body, each as the Python
+    stack that made it (``torch.cuda.set_sync_debug_mode("warn")``, which
+    also sees implicit syncs: a blocking copy to or from the host, a data
+    dependent shape)."""
+    import traceback
+    import warnings
+
+    import torch
+
+    seen = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" in str(message):
+            seen.append("".join(traceback.format_stack(limit=9)[:-2]))
+        else:
+            shown(message, category, filename, lineno, file, line)
+
+    with warnings.catch_warnings():
+        shown = warnings.showwarning
+        warnings.simplefilter("always")
+        # switched on before the recorder: the switch itself can warn
+        torch.cuda.set_sync_debug_mode("warn")
+        warnings.showwarning = record
+        try:
+            yield seen
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def pinned_speed_cfg():
+    """``speed`` with phase 4b's decisions pinned to commit: every frame is
+    tracked on the chained path, no keyframe switch, no relocalisation."""
+    from mast3r_slam_tpu_torch.config import load_config
+
+    cfg = load_config("speed")
+    cfg["single_thread"] = True
+    cfg["matching"].update(convergence_thresh=1e9, dist_thresh=1e9)
+    cfg["tracking"].update(C_conf=-1.0, Q_conf=-1.0, min_match_frac=0.0,
+                           match_frac_thresh=-1.0)
+    return cfg
+
+
+def speed_model(dev, vitl, hw):
+    """Phase 4b's model: phase 4's ViT-L weights, bf16 heads."""
+    import dataclasses
+
+    import torch
+    from mast3r_slam_tpu_torch.models.interface import MASt3RModel
+
+    mcfg = dataclasses.replace(vitl.mcfg, head_dtype=torch.bfloat16)
+    return MASt3RModel(vitl.params, mcfg, hw, device=dev)
+
+
+def count_frame_syncs(dev, model, hw=(384, 512), n=SYNC_FRAMES):
+    """14a: ViT-L under ``speed`` with the decisions pinned open: an INIT
+    keyframe, two warm-up frames (the GN's device program is built at the
+    first), then n frames each through ``infer``, ``track_submit_chained``
+    and ``track_finish`` of the previous one, as SLAM._loop_pipelined runs
+    them (its re-submission after a failed frame reads nothing and is left
+    out), with the card's syncs counted around each frame; its encode is
+    counted apart.  Returns (syncs a frame, encode syncs a frame, where the
+    frames' syncs came from)."""
+    from mast3r_slam_tpu_torch.lie import sim3
+    from mast3r_slam_tpu_torch.slam.frame import Frame, Keyframes
+    from mast3r_slam_tpu_torch.slam.tracker import FrameTracker
+
+    cfg = pinned_speed_cfg()
+    imgs = smooth_images(n + 3, hw, dev, seed=3)
+    kf = Keyframes(8, hw[0] * hw[1], model.num_patches, model.feat_dim, device=dev)
+    feat, pos = model.encode(imgs[:1])
+    X, C = model.mono(feat, pos)
+    T0 = sim3.identity(device=dev)
+    f0 = Frame(frame_id=0, img=imgs[0], T_WC=T0, feat=feat, pos=pos)
+    f0.update_pointmap(X.reshape(-1, 3), C.reshape(-1, 1))
+    kf.append(f0)
+    tracker = FrameTracker(model, cfg, kf, hw, device=dev)
+
+    def frame(i):
+        feat, pos = model.encode(imgs[i:i + 1])
+        return Frame(frame_id=i, img=imgs[i], T_WC=T0, feat=feat, pos=pos)
+
+    f1 = frame(1)
+    pend = tracker.track_submit(f1, inference=tracker.infer(f1))
+    f2 = frame(2)
+    nxt = tracker.track_submit_chained(f2, tracker.infer(f2), pend)
+    tracker.track_finish(pend)
+    pend = nxt
+    sync(dev)
+    per_frame, per_encode, where, decisions = [], [], [], []
+    for i in range(3, n + 3):
+        with counted_syncs() as enc:
+            fr = frame(i)
+        with counted_syncs() as seen:
+            nxt = tracker.track_submit_chained(fr, tracker.infer(fr), pend)
+            decisions.append(tracker.track_finish(pend))
+        pend = nxt
+        per_frame.append(len(seen))
+        per_encode.append(len(enc))
+        where += seen + enc
+    tracker.track_finish(pend)
+    log(f"14a (new_kf, try_reloc) of the counted frames: {decisions} (random weights: "
+        f"a GN failure asks to relocalise; the loop would re-submit, reading nothing)")
+    return per_frame, per_encode, where
+
+
+def count_task_syncs(dev, model, hw=(384, 512)):
+    """14a: one ``speed`` backend task (retrieval update with the default
+    head at full width and a seeded 64k-word codebook, add_factors with the
+    one-way and speculative edges, the dense solve) on phase 6's three
+    keyframes, after two warm-up tasks, with the card's syncs counted.
+    Returns (syncs, where they came from, task ms)."""
+    import torch
+    from mast3r_slam_tpu_torch.retrieval import (ASMKSettings, RetrievalDatabase,
+                                                 RetrievalHeadSettings)
+    from mast3r_slam_tpu_torch.retrieval.head import init_head_params
+    from mast3r_slam_tpu_torch.slam.pipeline import SLAM
+
+    g = torch.Generator(device=dev).manual_seed(41)
+    params = init_head_params(g, model.feat_dim, hdims=(1024,))
+    centroids = torch.randn((65_536, 1024), device=dev, generator=g)
+    db = RetrievalDatabase(params, centroids, RetrievalHeadSettings(nfeat=300),
+                           ASMKSettings(max_images=64), device=dev)
+    cfg = engine_cfg("speed", single_thread=True)
+    slam = SLAM(model, cfg, hw, retrieval=db, device=dev)
+    src = vitl_keyframes(dev, model, hw)
+    for k in range(3):
+        slam.keyframes.append(src.get_frame(k))
+    slam._backend_update_impl(0)  # adds keyframe 0 to the database
+    slam._backend_update_impl(1)
+    sync(dev)
+    t0 = time.perf_counter()
+    with counted_syncs() as seen:
+        slam._backend_update_impl(2)
+    sync(dev)
+    task_ms = (time.perf_counter() - t0) * 1e3
+    slam.close()
+    return len(seen), seen, task_ms
+
+
+def tracking_gn_inputs(dev, N, calib, seed=0):
+    """A tracking GN problem of N matched points (a known Sim(3), 2 mm of
+    noise, a tenth of the points invalid): (mode, inputs, image size)."""
+    import torch
+    from mast3r_slam_tpu_torch.lie import sim3
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Xk = torch.randn(N, 3, device=dev, generator=g)
+    Xk[:, 2] = Xk[:, 2].abs() * 2 + 1.5
+    T_true = sim3.exp(torch.randn(7, device=dev, generator=g) * 0.05)
+    Xf = sim3.act(sim3.inv(T_true), Xk) + 0.002 * torch.randn(N, 3, device=dev, generator=g)
+    Q = 1.5 + torch.rand(N, 1, device=dev, generator=g)
+    valid = (torch.rand(N, 1, device=dev, generator=g) > 0.1).float()
+    if not calib:
+        return "ray_dist", (Xf, Xk, Q, valid), None
+    K = torch.tensor([[400.0, 0, 256], [0, 400.0, 192], [0, 0, 1]], device=dev)
+    uvz = torch.stack([K[0, 0] * Xk[:, 0] / Xk[:, 2] + K[0, 2],
+                       K[1, 1] * Xk[:, 1] / Xk[:, 2] + K[1, 2], torch.log(Xk[:, 2])], -1)
+    return ("calib", (Xf, Xk, Q, valid, uvz, torch.ones(N, 1, dtype=torch.bool, device=dev),
+                      K), (384, 512))
+
+
+def check_tracking_gn(dev, hw=(384, 512)):
+    """14b: the tracking GN's device program against the eager frozen loop
+    on the same inputs, in both residual models and with a singular
+    system: the same bits of T, cost, ok and iterations; the program's
+    device time (CUDA events, mean of 5 launches), the plain loop's, the
+    bound, and the program's kernel nodes."""
+    import torch
+    from mast3r_slam_tpu_torch.lie import sim3
+    from mast3r_slam_tpu_torch.ops import kernels, tracking_gn as tg
+
+    N = hw[0] * hw[1]
+    settings = tg.GNSettings()
+    T0 = sim3.identity(device=dev)
+    lib = ctypes.CDLL(str(kernels.library_path("gn_while")))
+    out = {}
+    for name in ("ray_dist", "calib", "ray_dist_singular"):
+        mode, inputs, img = tracking_gn_inputs(dev, N, name == "calib")
+        if name.endswith("singular"):
+            inputs = inputs[:3] + (torch.zeros_like(inputs[3]),)
+        plain = tg.tracking_gn_plain(mode, inputs, T0, settings, img)
+        got = tg.tracking_gn_graph(mode, inputs, T0, settings, img)
+        same = all(torch.equal(a, b) for a, b in zip(got, plain))
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got[:2], plain[:2]))
+        ms = time_cuda(lambda: tg.tracking_gn_graph(mode, inputs, T0, settings, img), iters=5,
+                       warmup=1)
+        plain_ms = time_cuda(lambda: tg.tracking_gn_plain(mode, inputs, T0, settings, img),
+                             iters=2, warmup=0)
+        iters = int(got[3])
+        # bytes: the inputs read once and the 8 + 3 outputs written once;
+        # operations: an iteration's [J | r]^T [J | r] over R rows a point
+        R = 4 if mode == "ray_dist" else 3
+        nbytes = sum(a.numel() * a.element_size() for a in inputs) + 11 * 4
+        bound = _bound(nbytes, iters * N * R * 8 * 8 * 2)
+        graphed = tg._graphs[(mode, tuple((a.shape, a.dtype) for a in inputs), T0.device,
+                              tuple(img) if img is not None else None, settings)]
+        nodes = {}
+        for part in ("prologue", "body"):
+            c = (ctypes.c_int * 16)()
+            kernels.check(lib.gn_while_node_types(
+                ctypes.c_void_p(getattr(graphed, part).raw_cuda_graph()), c), "node types")
+            nodes[part] = {k: c[i] for i, k in enumerate(
+                ("kernel", "memcpy", "memset")) if c[i]}
+        out[name] = dict(same_bits=same, max_abs_err=err, iters=iters, plain_iters=int(plain[3]),
+                         ok=bool(got[2]), ms=ms, plain_ms=plain_ms, **bound, nodes=nodes,
+                         kernel_nodes_run=nodes["prologue"]["kernel"]
+                         + iters * (nodes["body"]["kernel"] + 1))
+        log(f"14b tracking GN device program ({name}, {N} points; route: one CUDA graph, "
+            f"a WHILE conditional node over one captured iteration, csrc/gn_while.cu): "
+            + json.dumps(out[name]))
+    return out
+
+
+def time_pipelines(dev, model, hw=(384, 512), n=WALL_FRAMES):
+    """14c: SLAM.run of n ViT-L frames under the pinned ``speed`` config
+    with ``engine.pipeline`` 0 and 1, twice each in turn (0, 1, 1, 0): run
+    wall a frame and frame.latency p50 (host clock), and the same poses bit
+    for bit.  The frames are one smooth image with a little smooth noise
+    each (on the card), so that random weights still track every frame:
+    unrelated images make the GN fail now and then, and a failed frame
+    relocalises."""
+    from mast3r_slam_tpu_torch.slam.pipeline import SLAM
+
+    imgs = smooth_images(1, hw, dev, seed=3) + 0.02 * smooth_images(n, hw, dev, seed=4)
+    runs = {0: [], 1: []}
+    poses = {}
+    for pipe in (0, 1, 1, 0):
+        cfg = pinned_speed_cfg()
+        cfg["engine"]["pipeline"] = pipe
+        slam = SLAM(model, cfg, hw, keyframe_buffer=8, device=dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        res = slam.run(ImageDataset(imgs), verbose=False)
+        wall = (time.perf_counter() - t0) * 1e3
+        slam.close()
+        st = slam.timer.stats()
+        runs[pipe].append(dict(wall_ms_a_frame=wall / n,
+                               latency_p50_ms=st["frame.latency"]["p50_ms"],
+                               n_keyframes=res.n_keyframes, n_reloc=res.n_reloc))
+        poses.setdefault(pipe, res.frame_poses)
+        if res.n_reloc or res.n_keyframes != 1:
+            raise AssertionError(f"14c pipeline {pipe}: {res.n_keyframes} keyframes, "
+                                 f"{res.n_reloc} reloc with the decisions pinned open")
+    same = bool(np.array_equal(poses[0], poses[1]))
+    log(f"14c ViT-L speed SLAM.run, {n} frames, pipeline 0 against 1 (host clock): "
+        + json.dumps({"pipeline_0": runs[0], "pipeline_1": runs[1],
+                      "same_pose_bits": same}))
+    return dict(pipeline_0=runs[0], pipeline_1=runs[1], same_pose_bits=same)
+
+
+def run_host_reads(dev, vitl, smi, hw=(384, 512)):
+    """Phase 14: (a) the card's syncs a tracked frame and a backend task,
+    (b) the device program against the plain loop, (c) what it changed."""
+    model = speed_model(dev, vitl, hw)
+    frames, encodes, where = count_frame_syncs(dev, model, hw)
+    task_syncs, task_where, task_ms = count_task_syncs(dev, model, hw)
+    for stack in sorted(set(where + task_where)):
+        log("14a sync from:\n" + stack)
+    log(f"14a syncs (set_sync_debug_mode warn): a tracked frame {frames} (infer, "
+        f"track_submit_chained, track_finish), its encode {encodes}; a speed backend "
+        f"task {task_syncs} ({task_ms:.3f} ms, host clock)")
+    if frames != [1] * SYNC_FRAMES or task_syncs != 1:
+        raise AssertionError(f"14a: {frames} syncs a tracked frame (expected one each), "
+                             f"{task_syncs} a backend task (expected 1)")
+    gn = check_tracking_gn(dev, hw)
+    bad = {k: r for k, r in gn.items() if not (r["same_bits"] and r["iters"] == r["plain_iters"])}
+    if bad or gn["ray_dist_singular"]["ok"] or not gn["ray_dist"]["ok"]:
+        raise AssertionError(f"14b: the device program against the plain loop: {gn}")
+    walls = time_pipelines(dev, model, hw)
+    if not walls["same_pose_bits"]:
+        raise AssertionError("14c: pipeline 1 gave other poses than pipeline 0")
+    after = PROFILES.get("one tracked frame", {})
+    speed_after = PROFILES.get("one speed tracked frame (bf16 heads)", {})
+    log(f"14c phase 4's profiled frame: {after.get('launches')} launches (before: "
+        f"{BEFORE_FRAME_LAUNCHES}), busy share {after.get('busy_share')} (before: "
+        f"{BEFORE_BUSY_SHARE}); the speed frame {speed_after.get('launches')} launches, "
+        f"busy share {speed_after.get('busy_share')}; {smi}")
+    return dict(frame_syncs=frames, encode_syncs=encodes, task_syncs=task_syncs,
+                task_ms=task_ms, tracking_gn=gn, pipelines=walls, frame_profile=after,
+                speed_frame_profile=speed_after, card=smi)
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -4038,10 +4366,11 @@ def main() -> int:
     check_small_model(dev)
 
     counts, times, vitl = run_vitl(dev)
-    want = {"attention": 72 * N_TRACKED, "refine_window": N_TRACKED}
+    want = {"attention": 72 * N_TRACKED, "refine_window": N_TRACKED,
+            "tracking_gn_while": N_TRACKED}
     if counts != want:
-        raise AssertionError(f"ViT-L launches {counts}, expected {want} "
-                             f"(72 attention + 1 refine per tracked frame)")
+        raise AssertionError(f"ViT-L launches {counts}, expected {want} (72 attention, "
+                             f"1 refine and 1 tracking GN program per tracked frame)")
     frame_ms = statistics.median(times)
     log(f"ViT-L 384x512 tracked frame (encode + decode + track): median "
         f"{frame_ms:.3f} ms over {N_TRACKED} frames; launches {counts}")
@@ -4200,6 +4529,10 @@ def main() -> int:
     msolve, mtask = multi["sharded_solve"]["runs"], multi["sharded_task"]
     mranks = [r["launches"] for r in multi["two_process"]["ranks"]]
     tranks = [r["launches"] for r in multi["threaded_two_process"]["vitl"]["ranks"]]
+    # the tracking GN on the device: syncs a frame and a task, the program
+    # against the plain loop, what it changed
+    host = run_host_reads(dev, vitl, smi)
+    tgn = host["tracking_gn"]["ray_dist"]
 
     common = lambda r: {k: r[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms",
@@ -4264,6 +4597,17 @@ def main() -> int:
              replaces="mast3r_slam_tpu/retrieval/asmk.py:307",
              launches=rcounts["ivf_hamming"], shape=ivf["shape"], **common(ivf),
              paged_reloc_launches=paged["launches"]["ivf_hamming"]),
+        # the XLA while_loop of the tracking GN: one CUDA graph a solve, a
+        # WHILE node over a captured iteration; exact against the plain loop
+        dict(name="tracking_gn_while", route="cuda",
+             source="mast3r_slam_tpu_torch/csrc/gn_while.cu",
+             replaces="mast3r_slam_tpu/ops/tracking_gn.py:87",
+             launches=counts["tracking_gn_while"], shape=[384 * 512, 4],
+             max_abs_err=max(r["max_abs_err"] for r in host["tracking_gn"].values()),
+             ms=tgn["ms"], plain_ms=tgn["plain_ms"], bound_ms=tgn["bound_ms"],
+             bound_by=tgn["bound_by"], library_ms=None, iters=tgn["iters"],
+             kernel_nodes_run=tgn["kernel_nodes_run"],
+             speed_launches=speed["seq_counts"]["tracking_gn_while"]),
     ], "kernel_floor_ms": design["kernel_floor_ms"],
         "edge_hg_sass_loop": design["edge_hg_sass_loop"], "ptxas": design["ptxas"],
         "gather_plans": design["plans"],
@@ -4295,7 +4639,9 @@ def main() -> int:
         "image_input": {"fixtures": img_fixtures,
                         "cli": {k: v for k, v in img_cli.items() if k != "stages"},
                         "served": img_served, "close": img_close, "card": smi},
-        "multi_card": multi}
+        "multi_card": multi,
+        "host_reads": {k: v for k, v in host.items() if k != "tracking_gn"},
+        "tracking_gn_program": host["tracking_gn"]}
     log(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

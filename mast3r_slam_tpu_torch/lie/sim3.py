@@ -43,8 +43,9 @@ def quat_mul(qa, qb):
 
 
 def quat_inv(q):
-    """Conjugate of a unit quaternion."""
-    return q * q.new_tensor([-1.0, -1.0, -1.0, 1.0])
+    """Conjugate of a unit quaternion (built on the device: a host
+    constant's copy would wait for the stream)."""
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
 
 
 def quat_act(q, v):
@@ -82,8 +83,10 @@ def _broadcast_lead(*xs):
 
 
 def identity(batch_shape=(), dtype=torch.float32, device=None):
-    base = torch.tensor([0, 0, 0, 0, 0, 0, 1, 1], dtype=dtype, device=device)
-    return base.expand(tuple(batch_shape) + (DIM,)).clone()
+    # filled in on the device: a host tensor's copy would wait for the stream
+    T = torch.zeros(tuple(batch_shape) + (DIM,), dtype=dtype, device=device)
+    T[..., 6:] = 1
+    return T
 
 
 # ---------------------------------------------------------------------------

@@ -55,11 +55,19 @@ def _interp_matrix_ac(n_out: int, n_in: int) -> np.ndarray:
     return A
 
 
+@lru_cache(maxsize=64)
+def _interp_matrix_on(n_out: int, n_in: int, device: torch.device,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """``_interp_matrix_ac`` on ``device``, copied there once (a copy from
+    the host waits for the card's stream)."""
+    return torch.as_tensor(_interp_matrix_ac(n_out, n_in), device=device).to(dtype)
+
+
 def upsample2x_align_corners(x):
     """(B, C, H, W) -> (B, C, 2H, 2W), bilinear with align_corners=True."""
     _, _, H, W = x.shape
-    Ah = torch.as_tensor(_interp_matrix_ac(2 * H, H), device=x.device).to(x.dtype)
-    Aw = torch.as_tensor(_interp_matrix_ac(2 * W, W), device=x.device).to(x.dtype)
+    Ah = _interp_matrix_on(2 * H, H, x.device, x.dtype)
+    Aw = _interp_matrix_on(2 * W, W, x.device, x.dtype)
     y = torch.einsum("oh,bchw->bcow", Ah, x)
     return torch.einsum("pw,bcow->bcop", Aw, y)
 

@@ -14,10 +14,11 @@ no kernel for them.  Every float32 matrix product here runs in full f32
 (``full_f32``), and norms and CG inner products are elementwise products
 and sums.
 
-The JAX package's ``lax.while_loop``s are Python loops here: the GN loop
-reads (step norm, ok, cost went up) from the device once per iteration, at
-most ``max_iters`` times; the PCG loop reads its residual test once per
-iteration, at most ``pcg_iters`` times.
+The JAX package's GN ``lax.while_loop`` is a fixed count of ``max_iters``
+iterations here, frozen on the device once its condition fails
+(``gn_loop``), so a solve reads nothing from the host on the dense route.
+The PCG loop still reads its residual test once per iteration, at most
+``pcg_iters`` times; in a frozen GN iteration it reads once and stops.
 """
 
 from __future__ import annotations
@@ -277,12 +278,14 @@ def _dot(a, b):
 
 def _assemble_and_solve_pcg(H_e, g_e, ii, jj, num_poses: int, pin: int,
                             iters: int, tol: float, damping: float = 1e-4,
-                            precond: str = "block"):
+                            precond: str = "block", active=True):
     """Block-sparse normal equations solved by preconditioned CG, the
     operator applied edge-wise (gather 7-vectors, multiply 7x7 blocks,
     scatter-add): O(E + M) memory.  The preconditioner is per-pose 7x7
     Cholesky solves ("block") or scalar Jacobi ("diag"); both see the
-    relatively damped block diagonal.  Returns (dx (P - pin, 7), ok)."""
+    relatively damped block diagonal.  ``active`` (a device flag: the GN
+    loop's) joins the CG loop's test, so a frozen GN iteration leaves after
+    the first read.  Returns (dx (P - pin, 7), ok)."""
     M = num_poses - pin
     H_e = H_e.float()
     g_e = g_e.float()
@@ -333,7 +336,7 @@ def _assemble_and_solve_pcg(H_e, g_e, ii, jj, num_poses: int, pin: int,
     rz = _dot(r, z)
     for _ in range(iters):
         # one host read an iteration: the loop's test
-        if not bool(((_dot(r, r) > tol2) & torch.isfinite(rz)).item()):
+        if not bool((active & (_dot(r, r) > tol2) & torch.isfinite(rz)).item()):
             break
         Ap = A_mv(p)
         alpha = rz / torch.clamp_min(_dot(p, Ap), 1e-30)
@@ -443,13 +446,13 @@ def _gn_core(Twc, ii, jj, Xi_all, Xj_all, sq_all, ut_all, vt_all, K, img_hw,
         settings.solver == "auto" and (P - pin) > settings.dense_max_poses)
     edge = (ii, jj, Xi_all, Xj_all, sq_all, ut_all, vt_all)
 
-    def step(Twc_):
+    def step(Twc_, active):
         H_e, g_e, c_e = edge_blocks(Twc_, edge, K, img_hw, settings, mode)
         cost = torch.sum(c_e)  # robust cost at Twc_, before this step
         if use_pcg:
             dx, ok = _assemble_and_solve_pcg(
                 H_e, g_e, ii, jj, P, pin, settings.pcg_iters, settings.pcg_tol,
-                settings.pcg_damping, settings.pcg_precond)
+                settings.pcg_damping, settings.pcg_precond, active)
         else:
             dx, ok = _assemble_and_solve(H_e, g_e, ii, jj, P, pin, settings.pcg_damping)
         return dx, ok, cost
@@ -458,35 +461,44 @@ def _gn_core(Twc, ii, jj, Xi_all, Xj_all, sq_all, ut_all, vt_all, K, img_hw,
 
 
 def gn_loop(Twc, step, settings: GlobalGNSettings):
-    """Iterate ``step(Twc) -> (dx (P - pin, 7), ok, cost at Twc)`` with the
-    retraction of the free poses and the monotone-cost guard: each iteration
+    """Iterate ``step(Twc, active) -> (dx (P - pin, 7), ok, cost at Twc)``
+    (``active`` the loop's device flag, below) with the retraction of the
+    free poses and the monotone-cost guard: each iteration
     checks that the previous step did not raise the robust cost (by more
     than 1 %); a step that did is reverted and the loop stops with
-    ``diverged`` set.  Returns (Twc', iters, ok, diverged)."""
+    ``diverged`` set.  The JAX ``while_loop`` (global_gn.py:724-753) as
+    ``max_iters`` iterations under its ``cond`` as a sticky device flag
+    (step norm at least ``delta_norm``, ok, not diverged): once the flag
+    clears the state stays frozen, so nothing is read from the device.
+    Returns (Twc', iters, ok, diverged), the last three device scalars."""
     P = Twc.shape[0]
     pin = settings.pin
-    keep = (torch.arange(P, device=Twc.device) >= pin)[:, None]
+    dev = Twc.device
+    keep = (torch.arange(P, device=dev) >= pin)[:, None]
 
-    def one_iter(Twc_):
-        dx, ok, cost = step(Twc_)
+    def one_iter(Twc_, active):
+        dx, ok, cost = step(Twc_, active)
         dx_full = torch.cat([dx.new_zeros((pin, 7)), dx], dim=0)
         Twc_new = torch.where(keep, sim3.retr(Twc_, dx_full), Twc_)
         return Twc_new, torch.sqrt(torch.sum(dx * dx)), ok, cost
 
     with full_f32():
         Twc_cur, Twc_prev = Twc, Twc
-        prev_cost = torch.full((), float("inf"), dtype=torch.float32, device=Twc.device)
-        it, ok, diverged = 0, True, False
-        while it < settings.max_iters:
-            Twc_new, delta, ok_t, cost = one_iter(Twc_cur)
+        prev_cost = torch.full((), float("inf"), dtype=torch.float32, device=dev)
+        iters = torch.zeros((), dtype=torch.int32, device=dev)
+        ok = torch.ones((), dtype=torch.bool, device=dev)
+        diverged = torch.zeros((), dtype=torch.bool, device=dev)
+        active = ok
+        for _ in range(settings.max_iters):
+            Twc_new, delta, ok_t, cost = one_iter(Twc_cur, active)
             worse = cost > prev_cost * 1.01
-            Twc_cur, Twc_prev = torch.where(worse, Twc_prev, Twc_new), Twc_cur
-            prev_cost = torch.where(worse, prev_cost, cost)
-            it += 1
-            # one host read an iteration: (step norm, ok, cost went up)
-            delta_h, ok_h, worse_h = torch.stack(
-                [delta.float(), ok_t.float(), worse.float()]).tolist()
-            ok, diverged = bool(ok_h), bool(worse_h)
-            if delta_h < settings.delta_norm or not ok or diverged:
-                break
-    return Twc_cur, it, ok, diverged
+            # the revert of a step that raised the cost, the JAX body (:733-741)
+            Twc_out = torch.where(worse, Twc_prev, Twc_new)
+            Twc_cur, Twc_prev = (torch.where(active, Twc_out, Twc_cur),
+                                 torch.where(active, Twc_cur, Twc_prev))
+            prev_cost = torch.where(active, torch.where(worse, prev_cost, cost), prev_cost)
+            iters = iters + active.to(iters.dtype)
+            ok = torch.where(active, ok_t, ok)
+            diverged = torch.where(active, worse, diverged)
+            active = active & (delta >= settings.delta_norm) & ok_t & ~worse
+    return Twc_cur, iters, ok, diverged

@@ -32,6 +32,7 @@ SOURCES = {
     "gather_rows": "gather_rows.cu",
     "ivf_hamming": "ivf_hamming.cu",
     "take_along_rows": "take_along_rows.cu",
+    "gn_while": "gn_while.cu",
 }
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # each kernel's library, C entry point and argument types; every pointer
@@ -50,6 +51,9 @@ ENTRY_POINTS = {
     "ivf_hamming": ("ivf_hamming", "ivf_hamming", [_P] * 4 + [_I] * 4 + [_P]),
     "take_along_rows": ("take_along_rows", "take_along_rows", [_P] * 3 + [_I] * 9 + [_P]),
     "take_along_rows_slots": ("take_along_rows", "take_along_rows_slots", [_I]),
+    "gn_while_build": ("gn_while", "gn_while_build",
+                       [_P] * 4 + [_I, ctypes.POINTER(_P)]),
+    "gn_while_launch": ("gn_while", "gn_while_launch", [_P] * 2),
 }
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",

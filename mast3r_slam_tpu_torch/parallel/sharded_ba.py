@@ -14,9 +14,10 @@ alike.  This is the reference's ``SparseBlock`` reduction
 (gn_kernels.cu:1199-1206) as a local scatter and a cross-device sum.
 
 The solve is always dense, as the JAX package's sharded route is, whatever
-``solver`` says and however many poses the graph has.  The GN loop, its
-monotone-cost guard and its one host read an iteration are the
-single-device loop's (``global_gn.gn_loop``).  A mesh changes the f32
+``solver`` says and however many poses the graph has.  The GN loop and
+its monotone-cost guard are the single-device loop's (``global_gn.gn_loop``):
+a fixed count of iterations frozen on the device, so every rank runs the
+same collectives without reading the host.  A mesh changes the f32
 summation order of the blocks against one device, so the poses agree to a
 tolerance, not bit for bit; zero-weight padding rows add exact zeros.
 """
@@ -95,7 +96,7 @@ def gauss_newton_poses_sharded(mesh: Mesh, Twc, Xs, Cs, ii, jj, idx_ii2jj, valid
     reduce = _shard_problem(mesh, Twc, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q, K,
                             img_hw, settings, mode)
 
-    def step(Twc_):
+    def step(Twc_, active):
         H, g, cost = reduce(Twc_)
         dx, ok = _solve_dense(H, g, M, settings.pcg_damping)
         return dx, ok, cost

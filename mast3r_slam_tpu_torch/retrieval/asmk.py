@@ -28,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device, to_device
 from ..ops import gather
 from ..utils.numerics import full_f32, index_add_fixed
 
@@ -162,12 +162,12 @@ class DeviceIVF:
         need = int(pos[valid_np].max()) + 1 if valid_np.any() else 0
         self._ensure_capacity(need, imid)
         dev = self.device
-        w_t = torch.as_tensor(w, device=dev)
-        pos_t = torch.as_tensor(pos, device=dev)
-        imids = torch.as_tensor(np.where(valid_np, imid, -1).astype(np.int32), device=dev)
+        w_t = to_device(w, dev)
+        pos_t = to_device(pos, dev)
+        imids = to_device(np.where(valid_np, imid, -1).astype(np.int32), dev)
         self.bvecs[w_t, pos_t] = agg_packed.to(self.bvecs)
         self.bimids[w_t, pos_t] = imids
-        self.norm_factor[imid] = float(valid_np.sum())
+        self.norm_factor[imid:imid + 1].fill_(float(valid_np.sum()))
         self.fill += np.bincount(w[valid_np], minlength=self.num_words + 1)
         self.n_entries += int(valid_np.sum())
         self.n_images = max(self.n_images, imid + 1)

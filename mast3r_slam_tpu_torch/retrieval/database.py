@@ -16,7 +16,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device, to_host
 from .asmk import ASMKSettings, DeviceIVF, aggregate_residuals, binarize_pack, quantize
 from .head import (RetrievalHeadSettings, extract_topk_features, init_head_params,
                    params_from_state_dict)
@@ -104,7 +104,7 @@ class RetrievalDatabase:
         scores_np = np.zeros((0,), np.float32)
         if self.kf_counter > 0:
             scores = self._search(feats, codes)
-            scores_np = scores[: self.ivf.n_images].cpu().numpy()
+            (scores_np,) = to_host(scores[: self.ivf.n_images])
             inds = _top_candidates(scores_np, k, min_thresh)
         if with_scores:
             return inds, (feats, codes), scores_np
@@ -128,8 +128,8 @@ class RetrievalDatabase:
         # one host read: scores for the candidates, word ids and validity
         # for the insert positions
         n_img, m = self.ivf.n_images, words.shape[0]
-        host = torch.cat([scores[:n_img].double(), words.double(),
-                          valid.double()]).cpu().numpy()
+        (host,) = to_host(torch.cat([scores[:n_img].double(), words.double(),
+                                     valid.double()]))
         scores_np = host[:n_img].astype(np.float32)
         self.ivf.add(packed, host[n_img:n_img + m].astype(np.int64),
                      host[n_img + m:] > 0, imid=imid)

@@ -75,6 +75,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..device import to_device, to_host
 from ..geometry import constrain_points_to_ray
 from ..ops import matching
 from ..ops.global_gn import GlobalGNSettings, gauss_newton_poses, gauss_newton_poses_cached
@@ -95,7 +96,7 @@ def _bucket(n: int, lo: int = 1) -> int:
 def _store_edges(stores, rows, new) -> None:
     """Write new edges' fields into rows ``rows`` of the edge store, in place.
     ``stores`` and ``new`` are matching tuples of the six per-edge fields."""
-    rows_t = torch.as_tensor(rows, device=stores[0].device).long()
+    rows_t = to_device(rows, stores[0].device, torch.long)
     for dst, src in zip(stores, new):
         dst[rows_t] = src.to(dst)
 
@@ -346,8 +347,8 @@ class FactorGraph:
     def _pair_tokens(self, snap, si, sj, device):
         """(feat_i, pos_i, feat_j, pos_j) of the pairs at snapshot slots
         ``si`` / ``sj``, on ``device``."""
-        si = torch.as_tensor(si, device=snap.feat.device).long()
-        sj = torch.as_tensor(sj, device=snap.feat.device).long()
+        si = to_device(si, snap.feat.device, torch.long)
+        sj = to_device(sj, snap.feat.device, torch.long)
         return tuple(a.to(device) for a in (snap.feat[si], snap.pos[si],
                                             snap.feat[sj], snap.pos[sj]))
 
@@ -473,7 +474,7 @@ class FactorGraph:
         """Store every candidate with its bidirectional verdict masked in on
         the device (solve-identical to storing the kept ones only); the
         verdicts are read later (``resolve_pending_verdicts``)."""
-        consec = torch.as_tensor(ii_arr == (jj_arr - 1), device=self.device)
+        consec = to_device(ii_arr == (jj_arr - 1), self.device)
         keep = consec | (torch.minimum(out["match_frac_j"], out["match_frac_i"])
                          >= min_match_frac)
         vj, qj = _masked(keep, out["valid_j"], out["Qj"])
@@ -699,12 +700,12 @@ class FactorGraph:
         remap[s0:] = pin + np.arange(window)
         mii, mjj = remap[ii_e[kept]], remap[jj_e[kept]]
         dev = self.device
-        ii2 = torch.as_tensor(np.concatenate([mii, mjj]), device=dev)
-        jj2 = torch.as_tensor(np.concatenate([mjj, mii]), device=dev)
-        kept_t = torch.as_tensor(kept, device=dev).long()
+        ii2 = to_device(np.concatenate([mii, mjj]), dev)
+        jj2 = to_device(np.concatenate([mjj, mii]), dev)
+        kept_t = to_device(kept, dev, torch.long)
         idx, valid, Q = _expand_two_way(*self._stores(), kept_t)
-        slots = torch.as_tensor(snap.slots(sel), device=dev).long()
-        poses = torch.as_tensor(sel, device=dev).long()
+        slots = to_device(snap.slots(sel), dev, torch.long)
+        poses = to_device(sel, dev, torch.long)
         settings = self.settings._replace(pin=pin)
         if self._cache_usable(E):
             among = np.zeros((E,), bool)
@@ -742,11 +743,11 @@ class FactorGraph:
     # solver health guard
     # ------------------------------------------------------------------
 
-    def _record_health(self, diverged: bool, P: int, pin: int):
-        """Keep a PCG-routed solve's ``diverged`` flag for the next solve
-        (the dense route is damped to stay positive definite and checks its
-        factor, so its flag is not kept; a mesh's solve is always dense).
-        ``pin``: the solve's pinned poses."""
+    def _record_health(self, diverged, P: int, pin: int):
+        """Keep a PCG-routed solve's ``diverged`` flag (a device scalar) for
+        the next solve, which reads it (the dense route is damped to stay
+        positive definite and checks its factor, so its flag is not kept; a
+        mesh's solve is always dense).  ``pin``: the solve's pinned poses."""
         s = self.settings
         routed_pcg = self.mesh is None and (s.solver == "pcg" or (
             s.solver == "auto" and (P - pin) > s.dense_max_poses))
@@ -754,10 +755,11 @@ class FactorGraph:
             self._health_pending = diverged
 
     def _consume_health(self) -> bool:
-        """True iff the previous PCG-routed solve diverged."""
+        """True iff the previous PCG-routed solve diverged: one host read of
+        its flag, at the next solve, as the JAX package reads it."""
         if self._health_pending is None:
             return False
-        div = bool(self._health_pending)
+        div = bool(to_host(self._health_pending)[0])
         self._health_pending = None
         if div:
             self.n_recoveries += 1
@@ -803,11 +805,11 @@ class FactorGraph:
         if sidx.size == 0:
             return
         dev = self.device
-        pos = torch.as_tensor(sidx, device=dev).long()
+        pos = to_device(sidx, dev, torch.long)
         _refresh_gather(
             self._gf, self._gb, snap.X, snap.C, self.K,
-            torch.as_tensor(snap.slots(ii_e[sidx]), device=dev).long(),
-            torch.as_tensor(snap.slots(jj_e[sidx]), device=dev).long(),
+            to_device(snap.slots(ii_e[sidx]), dev, torch.long),
+            to_device(snap.slots(jj_e[sidx]), dev, torch.long),
             self.idx_ii2jj[pos], self.idx_jj2ii[pos], pos, self.img_hw, mode)
         self._stamp_f[sidx] = ver[ii_e[sidx]]
         self._stamp_b[sidx] = ver[jj_e[sidx]]

@@ -10,7 +10,7 @@ pinned host memory (``slot_of``, ``ensure_resident``, ``pointmap_np``).
 The factor graph reads the store through ``snapshot`` and ``pm_version``
 and writes solved poses back with ``write_back_poses``; relocalisation
 appends, snaps (``update_pose``) or pops (``pop_last``) a keyframe, and
-retrieval reads one (``get_frame``).
+retrieval reads a keyframe's tokens (``get_feat``).
 
 The store is shared with the backend's worker thread
 (``single_thread: False``).  Its own ``RLock`` guards every write and every
@@ -38,7 +38,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..device import record_on, resolve_device
+from ..device import record_on, resolve_device, to_host
 from ..lie import sim3
 from ..utils.numerics import vnorm
 
@@ -82,6 +82,26 @@ def _to_cart(s):
         [r * st * torch.cos(phi), r * st * torch.sin(phi), r * torch.cos(theta)], dim=-1)
 
 
+def _scalar(x, dtype, device):
+    """A 0-d tensor of ``x``: a Python number is filled in on the device
+    (``torch.as_tensor`` would copy it from the host and, on the card,
+    wait for the stream)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.full((), x, dtype=dtype, device=device)
+
+
+def _put(dst, idx: int, value) -> None:
+    """dst[idx] = value, a Python number filled in on the device (an
+    assignment would copy it from the host and wait for the stream)."""
+    dst[idx:idx + 1].fill_(value)
+
+
+class KeyframeFeat(NamedTuple):
+    """What retrieval reads of a keyframe (``Keyframes.get_feat``)."""
+    feat: torch.Tensor  # (1, P, D) encoder tokens
+
+
 def fuse_pointmap(X, C, n_fused, n_updates, X_new, C_new, score=None,
                   mode: str = "weighted_pointmap", score_mode: str = "median"):
     """One fusion step of a canonical pointmap, every mode on the device.
@@ -97,11 +117,11 @@ def fuse_pointmap(X, C, n_fused, n_updates, X_new, C_new, score=None,
     averages in (r, phi, theta).
     """
     dev = X.device
-    n_fused = torch.as_tensor(n_fused, dtype=torch.int32, device=dev)
-    n_updates = torch.as_tensor(n_updates, dtype=torch.int32, device=dev)
+    n_fused = _scalar(n_fused, torch.int32, dev)
+    n_updates = _scalar(n_updates, torch.int32, dev)
     if score is None:
         score = float("-inf")
-    score = torch.as_tensor(score, dtype=torch.float32, device=dev)
+    score = _scalar(score, torch.float32, dev)
     one = torch.ones_like(n_fused)
 
     if mode == "first":
@@ -533,9 +553,9 @@ class Keyframes:
             self.T_WC[idx] = frame.T_WC.to(self.T_WC)
             self.X[slot] = frame.X_canon.to(self.X)
             self.C[slot] = frame.C.to(self.C)
-            self.n_fused[idx] = int(frame.n_fused)
-            self.n_updates[idx] = int(frame.n_updates)
-            self.score[idx] = float(frame.score)
+            _put(self.n_fused, idx, frame.n_fused)
+            _put(self.n_updates, idx, frame.n_updates)
+            _put(self.score, idx, frame.score)
             self.feat[slot] = frame.feat[0].to(self.feat)
             self.pos[slot] = frame.pos[0].to(self.pos)
             self.uimgs[idx] = frame.uimg
@@ -561,10 +581,20 @@ class Keyframes:
                                     self.score[idx].float()])
             frame_id, uimg = int(self.frame_id[idx]), self.uimgs[idx]
         self._hand_out(T, X, C, feat, pos, counters)
-        n_fused, n_updates, score = counters.cpu().tolist()
+        n_fused, n_updates, score = to_host(counters)[0].tolist()
         return Frame(frame_id=frame_id, img=None, T_WC=T, X_canon=X, C=C,
                      n_fused=int(n_fused), n_updates=int(n_updates), score=score,
                      feat=feat, pos=pos, K=self.K, uimg=uimg)
+
+    def get_feat(self, idx: int) -> KeyframeFeat:
+        """Keyframe ``idx``'s encoder tokens, a copy of its row, for
+        retrieval (which reads nothing else of a frame): no host read."""
+        with self._on_store_stream():
+            slot = int(self.slot_of[idx])
+            feat = (self.feat[slot].clone() if slot >= 0
+                    else self._host_rows[idx]["feat"].to(self.device))[None]
+        self._hand_out(feat)
+        return KeyframeFeat(feat)
 
     def pop_last(self):
         """Drop the last keyframe (a failed relocalisation) and free its slot.

@@ -96,7 +96,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..device import DeviceLike, record_on, resolve_device
+from ..device import DeviceLike, record_on, resolve_device, to_device, to_host
 from ..eval.trajectory import save_traj_tum
 from ..lie import sim3
 from ..parallel.mesh import all_reduce_min, destroy_group, host_group, local_cards, make_mesh
@@ -467,7 +467,7 @@ class SLAM:
                    T_WC_init=None, pre: dict = None) -> Frame:
         """Encode one RGB frame (optionally already preprocessed)."""
         r = pre if pre is not None else self.preprocess(rgb01)
-        img = torch.as_tensor(r["img"], device=self.device)[None]
+        img = to_device(r["img"], self.device)[None]
         feat, pos = self.model.encode(img)
         T = (T_WC_init if T_WC_init is not None
              else sim3.identity(device=self.device))
@@ -484,7 +484,7 @@ class SLAM:
         if self.retrieval is not None:
             with self.timer.time("backend.retrieval"):
                 candidates.update(self.retrieval.update(
-                    self.keyframes.get_frame(kf_idx), add_after_query=True,
+                    self.keyframes.get_feat(kf_idx), add_after_query=True,
                     k=cfg["retrieval"]["k"], min_thresh=cfg["retrieval"]["min_thresh"],
                     kf_index=kf_idx))
         if kf_idx >= 1:
@@ -573,7 +573,7 @@ class SLAM:
     def _log(self, timestamp, frame: Frame):
         T = frame.T_WC_np
         if T is None:
-            T = frame.T_WC.detach().cpu().numpy()
+            (T,) = to_host(frame.T_WC)
         self.frame_log.append((timestamp, T))
         self._emit(lambda: {"type": "pose_update", "frame_id": int(frame.frame_id),
                             "timestamp": timestamp, "pose": T.tolist(),
@@ -690,7 +690,7 @@ class SLAM:
         kf_ts = [dataset.timestamps[int(kf.frame_id[i])] for i in range(len(kf))]
         return SlamResult(
             keyframe_timestamps=kf_ts,
-            keyframe_poses=kf.T_WC[: len(kf)].cpu().numpy(),
+            keyframe_poses=to_host(kf.T_WC[: len(kf)])[0],
             frame_timestamps=[t for t, _ in self.frame_log],
             frame_poses=(np.stack([p for _, p in self.frame_log]) if self.frame_log
                          else np.zeros((0, 8))),

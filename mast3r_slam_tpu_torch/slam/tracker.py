@@ -10,10 +10,11 @@ The pipelined loop (``engine.pipeline: 1``) splits a frame into ``infer``
 (the decode against the current keyframe, issued ahead), ``track_submit``
 (which reuses that decode unless the keyframe changed) or
 ``track_submit_chained`` (chained on the previous frame's outputs, before
-its decision is read), and ``track_finish``.  The port's tracking GN reads
-the host once per iteration (``ops/tracking_gn.py``), so a submit waits on
-its own frame; the chain keeps the JAX package's trajectory, not its one
-read a frame.  Under ``engine.pipeline: 2`` the tracker's compute runs on
+its decision is read), and ``track_finish``.  Nothing before
+``track_finish`` reads the device (the tracking GN runs on it, a CUDA
+graph on the card), so a submit queues its frame's work and returns, and
+the chain keeps both the JAX package's trajectory and its one read a
+frame.  Under ``engine.pipeline: 2`` the tracker's compute runs on
 ``compute_device``, a second card that also holds the keyframe store: the
 decode stays on the model's card and its outputs are copied over.
 """
@@ -24,7 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device, to_host
 from ..geometry import constrain_points_to_ray, get_pixel_coords
 from ..lie import sim3
 from ..ops import matching
@@ -178,7 +179,7 @@ def _track_compute(
     match_frac_k = valid_kf.float().mean()
     idx_hit = torch.where(valid_match[:, 0], idx_f2k, torch.full_like(idx_f2k, N))
     hit = torch.zeros(N + 1, dtype=torch.float32, device=idx_f2k.device)
-    hit[idx_hit.long()] = 1.0
+    hit.index_fill_(0, idx_hit.long(), 1.0)  # a scalar fill: no copy from the host
     unique_frac_f = hit[:N].sum() / N
 
     stats = torch.cat([
@@ -316,7 +317,7 @@ class FrameTracker:
         frame, kf_idx, out = pending
         kf = self.keyframes
         self.idx_f2k = out["idx_f2k"]
-        stats = out["stats"].cpu().numpy()
+        (stats,) = to_host(out["stats"])
         self.last_stats = stats
         (match_frac, match_frac_k, unique_frac_f, gn_ok, n_fused, n_updates,
          frame_score, _) = stats[:8]

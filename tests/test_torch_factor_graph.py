@@ -205,7 +205,8 @@ def test_health_guard_demotes_the_next_solve_to_dense(monkeypatch):
         torch.full((P - pin, 7), 0.5), torch.tensor(True)))
     T0 = tg.keyframes.T_WC.clone()
     tg.solve()
-    assert tg._health_pending is True
+    # the flag stays on the device until the next solve reads it
+    assert isinstance(tg._health_pending, torch.Tensor) and bool(tg._health_pending)
     assert_close(tg.keyframes.T_WC, T0, 0, 0, "the poisoned step was reverted")
     monkeypatch.setattr(tgn, "_assemble_and_solve_pcg", real)
     routes = []

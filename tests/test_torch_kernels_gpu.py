@@ -445,7 +445,9 @@ def test_global_gn_on_the_card_launches_the_kernel_each_iteration(cuda):
     T, iters, ok, _ = global_gn.gauss_newton_poses(*args, hw, global_gn.GlobalGNSettings(),
                                                    "rays")
     torch.cuda.synchronize()
-    assert ok and edge_hg.counter.count - before == iters >= 1
+    # the GN loop runs its fixed count of iterations, frozen once it stops
+    assert ok and iters >= 1
+    assert edge_hg.counter.count - before == global_gn.GlobalGNSettings().max_iters
     T_cpu = global_gn.gauss_newton_poses(*[a.cpu() for a in args], hw,
                                          global_gn.GlobalGNSettings(), "rays")[0]
     assert (T.cpu() - T_cpu).abs().max().item() <= 1e-5
@@ -472,7 +474,8 @@ def test_sharded_solve_on_the_card_launches_the_kernel_per_shard(cuda, shards):
     before = edge_hg.counter.count
     T, iters, ok, _ = gauss_newton_poses_sharded(mesh, *args, hw, settings, "rays")
     torch.cuda.synchronize()
-    assert ok and edge_hg.counter.count - before == shards * iters >= shards
+    assert ok and iters >= 1
+    assert edge_hg.counter.count - before == shards * settings.max_iters
     assert torch.equal(T, gauss_newton_poses_sharded(mesh, *args, hw, settings, "rays")[0])
     ref = global_gn.gauss_newton_poses(*args, hw, settings, "rays")[0]
     assert (T - ref).abs().max().item() <= 1e-5
@@ -786,3 +789,48 @@ def test_retrieval_database_on_the_card(cuda):
                           np.argsort(-plain[:n_img].cpu().numpy())[:3])
     np.testing.assert_allclose(scores, kernel[:n_img].cpu().numpy(), rtol=1e-6, atol=1e-9)
     assert len(inds) >= 1
+
+
+def _tracking_inputs(dev, N, calib, singular=False, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Xk = torch.randn(N, 3, device=dev, generator=g)
+    Xk[:, 2] = Xk[:, 2].abs() * 2 + 1.5
+    T_true = sim3.exp(torch.randn(7, device=dev, generator=g) * 0.05)
+    Xf = sim3.act(sim3.inv(T_true), Xk) + 0.002 * torch.randn(N, 3, device=dev, generator=g)
+    Q = 1.5 + torch.rand(N, 1, device=dev, generator=g)
+    valid = (torch.rand(N, 1, device=dev, generator=g) > 0.1).float()
+    if singular:
+        valid = torch.zeros_like(valid)
+    if not calib:
+        return "ray_dist", (Xf, Xk, Q, valid), None
+    K = torch.tensor([[51.2, 0, 32.0], [0, 51.2, 24.0], [0, 0, 1]], device=dev)
+    uvz = torch.stack([K[0, 0] * Xk[:, 0] / Xk[:, 2] + K[0, 2],
+                       K[1, 1] * Xk[:, 1] / Xk[:, 2] + K[1, 2], torch.log(Xk[:, 2])], -1)
+    return ("calib", (Xf, Xk, Q, valid, uvz, torch.ones(N, 1, dtype=torch.bool, device=dev), K),
+            (48, 64))
+
+
+@pytest.mark.parametrize("case", ["ray_dist", "calib", "ray_dist_singular", "ray_dist_one_iter"])
+def test_tracking_gn_program_gives_the_plain_loops_bits(cuda, case):
+    """The tracking GN's device program (csrc/gn_while.cu) against the eager
+    frozen loop on the card: the same bits of T, cost, ok and the iteration
+    count, one launch a call, and again from another stream."""
+    from mast3r_slam_tpu_torch.ops import tracking_gn
+
+    mode, inputs, hw = _tracking_inputs(cuda, 3072, case.startswith("calib"),
+                                        singular=case.endswith("singular"))
+    settings = tracking_gn.GNSettings(max_iters=1 if case.endswith("one_iter") else 50)
+    T0 = sim3.identity(device=cuda)
+    want = tracking_gn.tracking_gn_plain(mode, inputs, T0, settings, hw)
+    before = tracking_gn.counter.count
+    got = tracking_gn.tracking_gn_graph(mode, inputs, T0, settings, hw)
+    torch.cuda.synchronize()
+    assert tracking_gn.counter.count - before == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert bool(got[2]) == (not case.endswith("singular"))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        again = tracking_gn.tracking_gn_graph(mode, inputs, T0, settings, hw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(again, want))

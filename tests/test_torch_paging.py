@@ -222,7 +222,7 @@ def test_recovery_solve_stays_within_the_resident_window():
     g = tfg.FactorGraph(None, cfg, kf, img_hw=(1, N), edge_capacity=16)
     _store_identity(g, [(i, i + 1) for i in range(M - 1)], N)
     assert g._effective_window() == 2 and not kf.is_resident(0)
-    g._health_pending = True
+    g._health_pending = torch.tensor(True)  # a diverged PCG solve's flag, on the device
     before = n(kf.T_WC[:M]).copy()
     g.solve(mode="rays")
     after = n(kf.T_WC[:M])
