@@ -189,6 +189,27 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      frames under pipeline 0 and 1 in turn (wall a frame, frame.latency
      p50, the same pose bits), and phase 4's profiled launches and busy
      share beside their numbers before the loop moved to the device.
+  15. the last reads cv2 gave the JAX package, on the card's host, which has
+     no cv2: (a) every committed image fixture (colour 8- and 16-bit,
+     RGBA and palette PNGs, two tagged with a gamma (gAMA, sRGB), which
+     the gray read weighs in linear light; colour, RGB-coded, CMYK and
+     YCCK JPEGs;
+     progressive scripts cut short, gray and 4:2:0, with and without
+     restarts, which libjpeg-turbo smooths) through imread_rgb, imread_gray
+     and decode_image_payload, against the committed SHA-256 of cv2's
+     colour and gray decodes; a 480x640 decode of a 2-scan prefix, of its
+     whole progressive file and of a baseline JPEG timed (median of
+     DECODE_REPEATS, host clock); (b) ViT-L through the CLI as in 12b over
+     a EuRoC folder (cam0's focal lengths and distortion at 640x480, the
+     principal point at the centre) of the committed colour image-folder
+     frames, which EuRoC's read converts to gray, against a EuRoC folder of
+     those gray reads written back as PNGs: the same trajectory bits and
+     12b's launch counts; (c) one ViT-L session as in 11b whose payloads
+     are the committed 480x640 progressive frames cut after 2 to 9 scans:
+     the control's pose bits, 72 attention launches a frame and 48 a
+     backend task, one refine a tracked frame and a task.  Its frames are
+     smooth random fields, as 11b's: random weights fail the tracking GN
+     on textured ones, and a failed frame goes to relocalisation.
 
 Phase 2 also holds the two gather probes' kernels (gather_rows_sum,
 take_along_rows, the latter at every slab width of SLAB_SWEEP, timed in
@@ -208,6 +229,7 @@ JSON line of kernel numbers, then as its last line
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import ctypes
@@ -2786,11 +2808,13 @@ def check_session_events(out, n, n_keyframes):
     return faults
 
 
-def run_serve_vitl(dev, work, n_frames=SERVE_FRAMES, preset="vit_large"):
+def run_serve_vitl(dev, work, n_frames=SERVE_FRAMES, preset="vit_large", payloads=None,
+                   label="11b", what="480x640 PNG"):
     """11b: one ViT-L session at 384x512 through SlamServer on 127.0.0.1
     (port 0, read back), frames of 480x640 as base64 PNG from the port's
-    writer, with the launch counters reset just before the session and
-    read just after; then a control that feeds the same decoded frames to
+    writer (or the base64 ``payloads`` given, ``what`` naming them), with
+    the launch counters reset just before the session and read just after;
+    then a control that feeds the same decoded frames to
     SLAM.process_frame on a fresh engine from the same factory, without the
     server.  Returns a dict of checks, counts and times."""
     import asyncio
@@ -2811,8 +2835,11 @@ def run_serve_vitl(dev, work, n_frames=SERVE_FRAMES, preset="vit_large"):
         built.append(slam)
         return slam
 
-    frames = [base64.b64encode(encode_png(img)).decode()
-              for img in serve_images(dev, n_frames)]
+    if payloads is None:
+        frames = [base64.b64encode(encode_png(img)).decode()
+                  for img in serve_images(dev, n_frames)]
+    else:
+        frames, n_frames = list(payloads), len(payloads)
     srv = server.SlamServer(keep, host="127.0.0.1", port=0, output_dir=work / "sessions")
 
     async def session():
@@ -2871,7 +2898,7 @@ def run_serve_vitl(dev, work, n_frames=SERVE_FRAMES, preset="vit_large"):
                              for t in sorted({e["type"] for e in out["events"]})},
                stages={k: {m: v[m] for m in ("mean_ms", "p50_ms", "count")}
                        for k, v in st.items()})
-    log(f"11b session ({preset}, {slam.img_hw[0]}x{slam.img_hw[1]} from 480x640 PNG, "
+    log(f"{label} session ({preset}, {slam.img_hw[0]}x{slam.img_hw[1]} from {what}, "
         f"{n_frames} frames): {json.dumps(res)}")
     return res
 
@@ -4306,6 +4333,203 @@ def run_host_reads(dev, vitl, smi, hw=(384, 512)):
                 speed_frame_profile=speed_after, card=smi)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the last reads cv2 gave the JAX package
+# ---------------------------------------------------------------------------
+
+EUROC_SEQ = "MH_colour"     # under a directory named euroc: the CLI's loader reads EuRoC
+EUROC_T0_NS = 1403636579763555584
+# cam0's sensor.yaml at 640x480: EuRoC cam0's focal lengths and distortion,
+# the principal point at the centre
+EUROC_SENSOR = """sensor_type: camera
+rate_hz: 20
+resolution: [640, 480]
+camera_model: pinhole
+intrinsics: [458.654, 457.296, 320.0, 240.0]
+distortion_model: radial-tangential
+distortion_coefficients: [-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05]
+"""
+DECODE_REPEATS = 5         # 15a: decodes of each timed file (median, host clock)
+# 15a's timed 480x640 files: a prefix cv2 smooths (2 of 10 scans), the whole
+# progressive file it was cut from, and a baseline JPEG
+TIMED_DECODES = {"smoothed_2_scans": "image_fixtures/progressive_480x640_2scans.jpg",
+                 "whole_progressive": "image_fixtures/progressive_480x640.jpg",
+                 "baseline": "image_folder/000.jpg"}
+
+
+def check_last_reads():
+    """15a: every committed fixture (tests/data/image_fixtures.json) through
+    imread_rgb, imread_gray and the server's decode_image_payload, each
+    against the committed SHA-256 of cv2's colour or gray decode (this host
+    has no cv2); then TIMED_DECODES decoded to RGB and to gray,
+    DECODE_REPEATS times each."""
+    import base64
+    import hashlib
+
+    from mast3r_slam_tpu_torch.data import png
+    from mast3r_slam_tpu_torch.serve import server
+    from mast3r_slam_tpu_torch.utils import native
+
+    digests = json.loads((IMAGE_DATA / "image_fixtures.json").read_text())
+    bad = {}
+    for name, want in sorted(digests.items()):
+        path = IMAGE_DATA / name
+        rgb, gray = png.imread_rgb(path), png.imread_gray(path)
+        payload = server.decode_image_payload(base64.b64encode(path.read_bytes()).decode())
+        faults = [k for k, ok in (
+            ("rgb", list(rgb.shape) == want["shape"]
+             and hashlib.sha256(rgb.tobytes()).hexdigest() == want["sha256"]),
+            ("gray", list(gray.shape) == want["shape"][:2]
+             and hashlib.sha256(gray.tobytes()).hexdigest() == want["gray_sha256"]),
+            ("payload", np.array_equal(payload, rgb.astype(np.float32) / 255.0))) if not ok]
+        if faults:
+            bad[name] = faults
+    ms = {}
+    for key, name in TIMED_DECODES.items():
+        data = (IMAGE_DATA / name).read_bytes()
+        for gray in (False, True):
+            times = []
+            for _ in range(DECODE_REPEATS):
+                t0 = time.perf_counter()
+                native.decode_jpeg(data, gray=gray)
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[f"{key}{'_gray' if gray else ''}"] = statistics.median(times)
+    folders = collections.Counter(name.split("/")[0] for name in digests)
+    out = dict(files=len(digests), by_folder=dict(folders), exact=len(digests) - len(bad),
+               differ=bad, decode_ms=ms)
+    log(f"15a fixtures read as RGB, gray and payload: {json.dumps(out)}")
+    if bad:
+        raise AssertionError(f"15a: the port's reads differ from cv2's decode: {bad}")
+    return out
+
+
+def write_euroc(root, frames):
+    """A EuRoC folder (mav0/cam0/data.csv, sensor.yaml, data/) holding the
+    given (suffix, bytes) frames 50 ms apart."""
+    cam = root / "euroc" / EUROC_SEQ / "mav0" / "cam0"
+    shutil.rmtree(cam.parents[1], ignore_errors=True)
+    (cam / "data").mkdir(parents=True)
+    rows = ["#timestamp [ns],filename"]
+    for i, (suffix, data) in enumerate(frames):
+        ts = EUROC_T0_NS + 50_000_000 * i
+        (cam / "data" / f"{ts}{suffix}").write_bytes(data)
+        rows.append(f"{ts},{ts}{suffix}")
+    (cam / "data.csv").write_text("\n".join(rows) + "\n")
+    (cam / "sensor.yaml").write_text(EUROC_SENSOR)
+    return cam.parents[1]
+
+
+def run_cli_euroc(dev, work, preset="vit_large", img_size=512):
+    """15b: ViT-L through the CLI (random weights, seed 0, 9b's pinned
+    decisions, every frame: subsample 1) over a EuRoC folder whose frames
+    are the committed colour image-folder frames (baseline and progressive
+    JPEGs, a palette Adam7 PNG), which EuRoC's read converts to gray; then
+    over the control, a EuRoC folder of the gray reads written back as
+    8-bit RGB PNGs (gray replicated, which the conversion gives back);
+    launch counters reset just before each run and read just after."""
+    from mast3r_slam_tpu_torch.data import dataloader, png
+    from mast3r_slam_tpu_torch.slam import run
+
+    files = dataloader.RGBFiles(IMAGE_DATA / "image_folder").rgb_files
+    colour = write_euroc(work / "colour", [(pathlib.Path(f).suffix, pathlib.Path(f).read_bytes())
+                                           for f in files])
+    gray = [png.imread_gray(f) for f in files]
+    control = write_euroc(work / "gray", [(".png", png.encode_png(np.repeat(g[..., None], 3, 2)))
+                                          for g in gray])
+    argv = ["--config", "eval_no_calib", "--device", str(dev), "--max-frames",
+            str(CLI_VITL_FRAMES), "--model-preset",
+            "vit_large" if preset == "vit_large" else "tiny", "--set", "dataset.subsample=1"]
+    for ov in CLI_VITL_SET:
+        argv += ["--set", ov]
+    built, loaders = [], []
+    real = run.build_slam
+
+    def keep(cfg, dataset, **kw):
+        loaders.append(type(dataset).__name__)
+        slam = real(cfg, dataset, **kw)
+        built.append(slam)
+        return slam
+
+    with swapped(run, "build_slam", keep), \
+            swapped(dataloader.MonocularDataset, "img_size", img_size):
+        res, counts, wall = run_cli(["--dataset", str(colour), "--save-as", "euroc"] + argv)
+        st = built[-1].timer.stats()
+        del built[:]
+        res2, counts2, wall2 = run_cli(["--dataset", str(control), "--save-as", "euroc_gray"]
+                                       + argv)
+        st2 = built[-1].timer.stats()
+        del built[:]
+    same_bits = (np.array_equal(res.frame_poses, res2.frame_poses)
+                 and np.array_equal(res.keyframe_poses, res2.keyframe_poses)
+                 and res.keyframe_timestamps == res2.keyframe_timestamps)
+    out = dict(frames=len(res.frame_timestamps), loaders=loaders,
+               kinds=[image_kind(f) for f in files], n_keyframes=res.n_keyframes,
+               n_tracked=st.get("tracker.track", {"count": 0})["count"],
+               n_tasks=st.get("backend.update", {"count": 0})["count"], n_reloc=res.n_reloc,
+               fps=res.fps, control_fps=res2.fps, wall_s=wall, control_wall_s=wall2,
+               launches=counts, control_launches=counts2, same_bits=bool(same_bits),
+               gray_levels=[float(g.mean()) for g in gray],
+               ingest_ms_p50=st["ingest"]["p50_ms"], control_ingest_ms_p50=st2["ingest"]["p50_ms"])
+    log(f"15b CLI ({preset}, EuRoC layout, {len(files)} colour frames read as gray, decisions "
+        f"pinned open) {img_size}: {json.dumps(out)}")
+    return out
+
+
+def run_last_reads(dev, work, smi, preset="vit_large"):
+    """Phase 15 (a)-(c), each checked; raises on any fault."""
+    import base64
+
+    fixtures = check_last_reads()
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        euroc = run_cli_euroc(dev, work, preset=preset)
+    finally:
+        os.chdir(cwd)
+    vc = euroc["launches"]
+    want = {"attention": 72 * euroc["frames"] + 48 * euroc["n_tasks"],
+            "refine_window": euroc["n_tracked"] + euroc["n_tasks"]}
+    if ({k: vc[k] for k in want} != want or euroc["n_tasks"] < 1
+            or vc["edge_hg_rays"] < euroc["n_tasks"] or euroc["control_launches"] != vc
+            or not euroc["same_bits"] or euroc["frames"] != CLI_VITL_FRAMES
+            or euroc["loaders"] != ["EurocDataset", "EurocDataset"]):
+        raise AssertionError(
+            f"15b EuRoC CLI over colour frames: launches {vc} (expected {want}: 72 attention a "
+            f"frame and 48 a backend task, one refine a tracked frame and a task; edge_hg_rays "
+            f">= {euroc['n_tasks']} tasks >= 1), gray control {euroc['control_launches']}, "
+            f"same trajectory bits {euroc['same_bits']}, {euroc['frames']} frames, loaders "
+            f"{euroc['loaders']}")
+    paths = sorted((IMAGE_DATA / "serve_partial").iterdir())
+    scans = [p.read_bytes().count(b"\xff\xda") for p in paths]
+    served = run_serve_vitl(dev, work, preset=preset, label="15c",
+                            what="480x640 progressive JPEGs cut after 2-9 scans",
+                            payloads=[base64.b64encode(p.read_bytes()).decode() for p in paths])
+    served["scans"] = scans
+    sc = served["launches"]
+    want_s = {"attention": 72 * served["frames"] + 48 * served["n_tasks"],
+              "refine_window": served["n_tracked"] + served["n_tasks"]}
+    if (served["faults"] or not served["same_bits_as_control"]
+            or {k: sc[k] for k in want_s} != want_s
+            or served["n_tasks"] != served["frames"] - 1 or sc["edge_hg_rays"] < served["n_tasks"]
+            or scans != list(range(2, 2 + len(paths)))):
+        raise AssertionError(
+            f"15c ViT-L session over partial progressive frames: faults {served['faults']}, the "
+            f"control's bits {served['same_bits_as_control']}, launches {sc} (expected "
+            f"{want_s}: 72 attention a tracked frame and 48 a backend task, one refine a "
+            f"tracked frame and a task; edge_hg_rays >= {served['n_tasks']} tasks = frames - "
+            f"1), scans {scans}")
+    dm = fixtures["decode_ms"]
+    log(f"15 decode a 480x640 JPEG (host clock, median of {DECODE_REPEATS}): 2-scan prefix "
+        f"smoothed {dm['smoothed_2_scans']:.2f} ms (gray {dm['smoothed_2_scans_gray']:.2f}), its "
+        f"whole progressive file {dm['whole_progressive']:.2f} ms (gray "
+        f"{dm['whole_progressive_gray']:.2f}), baseline {dm['baseline']:.2f} ms (gray "
+        f"{dm['baseline_gray']:.2f}); EuRoC CLI ingest p50 {euroc['ingest_ms_p50']:.2f} ms over "
+        f"colour frames, {euroc['control_ingest_ms_p50']:.2f} ms over the gray PNG control; "
+        f"served partial frames send -> pose_update p50 {served['latency_ms_p50']:.1f} ms; "
+        f"{smi}")
+    return fixtures, euroc, {k: v for k, v in served.items() if k not in ("stages", "latency_ms")}
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -4533,6 +4757,9 @@ def main() -> int:
     # against the plain loop, what it changed
     host = run_host_reads(dev, vitl, smi)
     tgn = host["tracking_gn"]["ray_dist"]
+    # the last reads cv2 gave the JAX package: colour as gray (EuRoC), partial
+    # progressive scripts smoothed, CMYK/YCCK; in the same scratch directory
+    last_fixtures, last_euroc, last_served = run_last_reads(dev, work, smi)
 
     common = lambda r: {k: r[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms",
@@ -4545,6 +4772,8 @@ def main() -> int:
              strided_task_launches=strided["launches"]["attention"],
              serve_launches=serve["launches"]["attention"],
              image_cli_launches=img_cli["launches"]["attention"],
+             euroc_cli_launches=last_euroc["launches"]["attention"],
+             partial_serve_launches=last_served["launches"]["attention"],
              mesh_launches={"vitl_task_2_shards": mtask["launches"]["attention"],
                             "threaded_vitl_ranks": [c["attention"] for c in tranks]}),
         dict(name="refine_window", route="cuda",
@@ -4559,6 +4788,8 @@ def main() -> int:
              paged_reloc_launches=paged["launches"]["refine_window"],
              serve_launches=serve["launches"]["refine_window"],
              image_cli_launches=img_cli["launches"]["refine_window"],
+             euroc_cli_launches=last_euroc["launches"]["refine_window"],
+             partial_serve_launches=last_served["launches"]["refine_window"],
              mesh_launches={"vitl_task_2_shards": mtask["launches"]["refine_window"],
                             "two_process_ranks": [c["refine_window"] for c in mranks],
                             "threaded_vitl_ranks": [c["refine_window"] for c in tranks]},
@@ -4575,6 +4806,8 @@ def main() -> int:
              strided_task_launches=strided["launches"]["edge_hg_rays"],
              serve_launches=serve["launches"]["edge_hg_rays"],
              image_cli_launches=img_cli["launches"]["edge_hg_rays"],
+             euroc_cli_launches=last_euroc["launches"]["edge_hg_rays"],
+             partial_serve_launches=last_served["launches"]["edge_hg_rays"],
              mesh_launches={"sharded_solve": {k: r["launches"] for k, r in msolve.items()},
                             "two_process_ranks": [c["edge_hg_rays"] for c in mranks],
                             "threaded_vitl_ranks": [c["edge_hg_rays"] for c in tranks],
@@ -4640,6 +4873,8 @@ def main() -> int:
                         "cli": {k: v for k, v in img_cli.items() if k != "stages"},
                         "served": img_served, "close": img_close, "card": smi},
         "multi_card": multi,
+        "last_reads": {"fixtures": last_fixtures, "euroc_cli": last_euroc,
+                       "partial_serve": last_served, "card": smi},
         "host_reads": {k: v for k, v in host.items() if k != "tracking_gn"},
         "tracking_gn_program": host["tracking_gn"]}
     log(smi)

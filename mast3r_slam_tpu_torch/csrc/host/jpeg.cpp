@@ -5,24 +5,27 @@
 //
 //   jpeg_info    width, height, components and EXIF orientation from the
 //                headers, and whether the stream's coding is decoded here;
-//   jpeg_decode  the image as (H, W, 3) uint8 RGB, gray replicated.
+//   jpeg_decode  the image as (H, W, 3) uint8 RGB, as cv2.imdecode's
+//                IMREAD_COLOR gives it (in RGB order), or as (H, W) uint8
+//                gray, as its IMREAD_GRAYSCALE gives it.
 //
 // Decoded: sequential (SOF0, SOF1) and progressive (SOF2) Huffman coding at
-// 8 bits, 1 or 3 components, sampling factors up to 2x2 at integral ratios
-// (4:4:4, 4:2:2, 4:4:0, 4:2:0), interleaved and single-component scans,
-// restart intervals, any width and height.  A progressive stream's scans
-// (DC first and refinement, AC first and refinement with the end-of-band
-// run) accumulate into the same coefficient buffers that the sequential
-// scans fill, and both end in the same output stage.  The arithmetic
-// follows libjpeg (the decoder behind cv2.imdecode) where it chooses: the
-// ISLOW integer IDCT with its range limit, "fancy" triangle upsampling of
-// the chroma with its rounding biases and edge replication, and the
-// fixed-point YCbCr->RGB tables, so the pixels equal cv2's.  Lossless,
-// hierarchical and arithmetic coding, 12-bit samples and CMYK are refused
-// (return 2), and so is a progressive stream whose scans stop where
-// libjpeg would smooth its blocks (see would_smooth); truncated or corrupt
-// streams return 1.  Every read is bounds-checked: the bytes and the sizes
-// come from the client.
+// 8 bits, 1, 3 or 4 components, sampling factors up to 2x2 at integral
+// ratios (4:4:4, 4:2:2, 4:4:0, 4:2:0), interleaved and single-component
+// scans, restart intervals, any width and height.  A progressive stream's
+// scans (DC first and refinement, AC first and refinement with the
+// end-of-band run) accumulate into the same coefficient buffers that the
+// sequential scans fill, and both end in the same output stage.  A
+// progressive stream whose scans stop early is smoothed as libjpeg-turbo
+// smooths it (smooth_block).  The arithmetic follows libjpeg (the decoder
+// behind cv2.imdecode) where it chooses: the ISLOW integer IDCT with its
+// range limit, "fancy" triangle upsampling of the chroma with its rounding
+// biases and edge replication, the fixed-point YCbCr->RGB, RGB->gray and
+// YCCK->CMYK tables, and OpenCV's own CMYK->BGR and CMYK->gray, so the
+// pixels equal cv2's.  Lossless, hierarchical and arithmetic coding and
+// 12-bit samples are refused (return 2); truncated or corrupt streams
+// return 1.  Every read is bounds-checked: the bytes and the sizes come
+// from the client.
 
 #include <algorithm>
 #include <cstdint>
@@ -42,9 +45,6 @@ struct Unsupported : std::runtime_error {
   using std::runtime_error::runtime_error;
 };
 
-const char* const kSmoothed =
-    "a progressive JPEG whose scans leave the first AC coefficients short of bits: cv2 "
-    "smooths its blocks, which is not decoded (ROADMAP Queue 1, item 13b)";
 const char* const kOtherCodings = " is not decoded (ROADMAP Queue 1, item 13c)";
 
 // libjpeg-turbo's SAVED_COEFS (jdcoefct.c, 10 since 2.1): block smoothing
@@ -173,6 +173,7 @@ inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 :
 
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
+  int vd = 1;             // the vertical factor as declared (smoothing's block rows an iMCU row)
   int td = 0, ta = 0;     // Huffman tables of the current scan
   int bw = 0, bh = 0;     // blocks a row and column, MCU-padded
   int dw = 0, dh = 0;     // downsampled width and height (real samples)
@@ -199,7 +200,7 @@ struct Decoder {
   uint16_t quant[4][64] = {};
   bool quant_defined[4] = {};
   Huffman dc[4], ac[4];
-  Component comp[3];
+  Component comp[4];
   bool allocate = false;
 
   Decoder(const uint8_t* data, size_t size) : d(data), n(size) {}
@@ -267,8 +268,7 @@ struct Decoder {
       throw Unsupported("JPEG of " + std::to_string(precision) + "-bit samples" + kOtherCodings);
     if (height == 0) throw Unsupported("JPEG whose height comes in a DNL marker");
     if (width == 0) throw Corrupt("JPEG of width 0");
-    if (ncomp == 4) throw Unsupported(std::string("CMYK/YCCK JPEG (4 components)") + kOtherCodings);
-    if (ncomp != 1 && ncomp != 3)
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
       throw Corrupt("JPEG of " + std::to_string(ncomp) + " components");
     if (len != size_t(8 + 3 * ncomp)) throw Corrupt("bad JPEG frame header length");
     for (int i = 0; i < ncomp; ++i) {
@@ -282,6 +282,7 @@ struct Decoder {
         throw Corrupt("bad JPEG component header");
       if (c.h > 2 || c.v > 2)
         throw Unsupported("JPEG sampling factors above 2");
+      c.vd = c.v;
     }
     if (ncomp == 1) comp[0].h = comp[0].v = 1;  // one component: a block an MCU
     hmax = vmax = 1;
@@ -455,7 +456,7 @@ struct Decoder {
     if (len < 6 || pos + len - 2 > n) throw Corrupt("bad JPEG scan header");
     int ns = u8();
     if (ns < 1 || ns > ncomp || len != size_t(6 + 2 * ns)) throw Corrupt("bad JPEG scan header");
-    Component* sc[3];
+    Component* sc[4];
     for (int i = 0; i < ns; ++i) {
       int id = u8(), t = u8();
       Component* c = nullptr;
@@ -468,6 +469,11 @@ struct Decoder {
       c->ta = t & 15;
       if (c->td > 3 || c->ta > 3) throw Corrupt("bad JPEG scan component");
       sc[i] = c;
+    }
+    if (ns > 1) {  // libjpeg's D_MAX_BLOCKS_IN_MCU
+      int blocks = 0;
+      for (int i = 0; i < ns; ++i) blocks += sc[i]->h * sc[i]->v;
+      if (blocks > 10) throw Corrupt("JPEG MCU of more than 10 blocks");
     }
     const int ss = u8(), se = u8(), a = u8();
     const int ah = a >> 4, al = a & 15;
@@ -624,7 +630,7 @@ struct Decoder {
   // component has been scanned with nonzero quantisers at the first
   // kSavedCoefs positions and a known DC, and one of the first nine AC
   // coefficients of some component still lacks bits
-  bool would_smooth() const {
+  bool smoothing_ok() const {
     if (!progressive) return false;
     bool useful = false;
     for (int i = 0; i < ncomp; ++i) {
@@ -644,6 +650,10 @@ struct Decoder {
     if (adobe) return adobe_transform == 0;
     return comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B';
   }
+
+  // libjpeg's guess for 4 components: an Adobe transform other than 0
+  // means YCCK, anything else CMYK
+  bool is_ycck() const { return adobe && adobe_transform != 0; }
 };
 
 // libjpeg's post-IDCT range limit: the descaled value plus 128, clamped,
@@ -834,9 +844,11 @@ void upsample(const Component& c, const std::vector<uint8_t>& plane, int hr, int
 }
 
 // jdcolor.c's fixed-point YCbCr->RGB tables (SCALEBITS 16, x = i - 128)
+// and RGB->Y tables (rgb_gray_convert's, the half added to blue's)
 struct ColourTables {
   int cr_r[256], cb_b[256];
   int64_t cr_g[256], cb_g[256];
+  int64_t r_y[256], g_y[256], b_y[256];
   ColourTables() {
     constexpr int SB = 16;
     constexpr int64_t HALF = int64_t(1) << (SB - 1);
@@ -847,43 +859,236 @@ struct ColourTables {
       cb_b[i] = int((fix(1.77200) * x + HALF) >> SB);
       cr_g[i] = -fix(0.71414) * x;
       cb_g[i] = -fix(0.34414) * x + HALF;
+      r_y[i] = fix(0.29900) * i;
+      g_y[i] = fix(0.58700) * i;
+      b_y[i] = fix(0.11400) * i + HALF;
     }
   }
 };
 
 inline uint8_t clamp255(int x) { return uint8_t(x < 0 ? 0 : (x > 255 ? 255 : x)); }
 
-void to_rgb(Decoder& dec, uint8_t* rgb) {
-  const int W = dec.width, H = dec.height;
-  std::vector<std::vector<uint8_t>> full(dec.ncomp);
-  for (int i = 0; i < dec.ncomp; ++i) {
-    Component& c = dec.comp[i];
-    const int pw = c.bw * 8;
-    std::vector<uint8_t> plane(size_t(pw) * c.bh * 8);
+// Block smoothing, after libjpeg-turbo's decompress_smooth_data
+// (jdcoefct.c, 2.1 and later).  A coefficient among the first nine AC
+// positions that is still zero and short of bits is predicted from the DC
+// values of the 5x5 blocks around its block on the component's grid; while
+// no AC scan has arrived, the DC is predicted too, and the higher-order
+// terms of the 5x5 fit are used.  Each weight row below is that fit's
+// numerator over DC01..DC25 (row-major, the block at DC13).
+struct SmoothTerm {
+  int zz;       // zigzag index: coef_bits[zz] says how many low bits are missing
+  int pos;      // natural position
+  int ac[25];   // weights while some AC coefficient is known
+  int dc[25];   // weights while only the DC is (change_dc)
+};
+
+const SmoothTerm kSmoothTerms[9] = {
+    {1, 1,  // AC01
+     {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -7, 50, 0, -50, 7, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
+     {-1, -1, 0, 1, 1, -3, 13, 0, -13, 3, -3, 38, 0, -38, 3, -3, 13, 0, -13, 3, -1, -1, 0, 1, 1}},
+    {2, 8,  // AC10
+     {0, 0, -7, 0, 0, 0, 0, 50, 0, 0, 0, 0, 0, 0, 0, 0, 0, -50, 0, 0, 0, 0, 7, 0, 0},
+     {-1, -3, -3, -3, -1, -1, 13, 38, 13, -1, 0, 0, 0, 0, 0, 1, -13, -38, -13, 1, 1, 3, 3, 3, 1}},
+    {3, 16,  // AC20
+     {0, 0, -1, 0, 0, 0, 0, 13, 0, 0, 0, 0, -24, 0, 0, 0, 0, 13, 0, 0, 0, 0, -1, 0, 0},
+     {0, 0, 1, 0, 0, 0, 2, 7, 2, 0, 0, -5, -14, -5, 0, 0, 2, 7, 2, 0, 0, 0, 1, 0, 0}},
+    {4, 9,  // AC11
+     {0, -1, 0, 1, 0, -1, 10, 0, -10, 1, 0, 0, 0, 0, 0, 1, -10, 0, 10, -1, 0, 1, 0, -1, 0},
+     {-1, 0, 0, 0, 1, 0, 9, 0, -9, 0, 0, 0, 0, 0, 0, 0, -9, 0, 9, 0, 1, 0, 0, 0, -1}},
+    {5, 2,  // AC02
+     {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 13, -24, 13, -1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
+     {0, 0, 0, 0, 0, 0, 2, -5, 2, 0, 1, 7, -14, 7, 1, 0, 2, -5, 2, 0, 0, 0, 0, 0, 0}},
+    {6, 3,  // AC03: only while change_dc
+     {},
+     {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, 2, 0, -2, 0, 0, 1, 0, -1, 0, 0, 0, 0, 0, 0}},
+    {7, 10,  // AC12
+     {},
+     {0, 0, 0, 0, 0, 0, 1, -3, 1, 0, 0, 0, 0, 0, 0, 0, -1, 3, -1, 0, 0, 0, 0, 0, 0}},
+    {8, 17,  // AC21
+     {},
+     {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, -3, 0, 3, 0, 0, 1, 0, -1, 0, 0, 0, 0, 0, 0}},
+    {9, 24,  // AC30
+     {},
+     {0, 0, 0, 0, 0, 0, 1, 2, 1, 0, 0, 0, 0, 0, 0, 0, -1, -2, -1, 0, 0, 0, 0, 0, 0}},
+};
+
+const int kSmoothDC[25] = {-2, -6, -8,  -6, -2, -6, 6,  42,  6,  -6, -8, 42, 152,
+                           42, -8, -6, 6,   42, 6,  -6, -2, -6, -8, -6, -2};
+
+// libjpeg-turbo's rounding of a prediction: num / (q * 256) to the
+// nearest, ties away from zero, by magnitude; clipped below 1 << al where
+// the coefficient's top bits are known (al > 0)
+inline int smooth_pred(int64_t num, int64_t q, int al, bool clip) {
+  int pred = int(((q << 7) + (num < 0 ? -num : num)) / (q << 8));
+  if (clip && al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+  return num < 0 ? -pred : pred;
+}
+
+// A block row that smoothing outputs, and the block rows libjpeg reads as
+// its 5x5 neighbours' (two above, itself, two below).
+struct SmoothRow {
+  int row;
+  int around[5];
+};
+
+// The block rows of a component that smoothing outputs, as libjpeg walks
+// them: iMCU rows of vd block rows, the edge rows repeated at the top and
+// bottom of the image.  libjpeg counts the image's block rows as (block
+// rows in this iMCU row) x (iMCU rows), which at the last iMCU row of a
+// component with vd = 2 and an odd number of block rows is not the true
+// count; the neighbours it then takes are kept as it takes them.
+std::vector<SmoothRow> smooth_rows(const Decoder& dec, const Component& c) {
+  int vmax = 1;
+  for (int i = 0; i < dec.ncomp; ++i) vmax = std::max(vmax, dec.comp[i].vd);
+  const int imcu_rows = (dec.height + 8 * vmax - 1) / (8 * vmax);
+  const int hb = (c.dh + 7) / 8;  // height_in_blocks
+  std::vector<SmoothRow> rows;
+  for (int r = 0; r < imcu_rows; ++r) {
+    int block_rows = c.vd;
+    if (r == imcu_rows - 1 && hb % c.vd) block_rows = hb % c.vd;
+    const int image_block_rows = block_rows * imcu_rows;
+    for (int br = 0; br < block_rows; ++br) {
+      const int ibr = r * block_rows + br, row = r * c.vd + br;
+      const int prev = ibr > 0 ? row - 1 : row;
+      const int pprev = ibr > 1 ? row - 2 : prev;
+      const int next = ibr < image_block_rows - 1 ? row + 1 : row;
+      const int nnext = ibr < image_block_rows - 2 ? row + 2 : next;
+      rows.push_back({row, {pprev, prev, row, next, nnext}});
+    }
+  }
+  return rows;
+}
+
+// One block's coefficients after smoothing, into ws (64, natural order).
+// dc holds the 25 DC values around the block.
+void smooth_block(const Component& c, const int16_t* blk, const int* dc, bool change_dc,
+                  int16_t* ws) {
+  memcpy(ws, blk, 64 * sizeof(int16_t));
+  const int64_t q00 = c.qt[0];
+  for (const SmoothTerm& t : kSmoothTerms) {
+    if (t.zz > 5 && !change_dc) break;  // AC03 to AC30 only while change_dc
+    const int al = c.coef_bits[t.zz];
+    if (al == 0 || ws[t.pos] != 0) continue;
+    const int* w = change_dc ? t.dc : t.ac;
+    int64_t sum = 0;
+    for (int k = 0; k < 25; ++k) sum += int64_t(w[k]) * dc[k];
+    ws[t.pos] = int16_t(smooth_pred(q00 * sum, c.qt[t.pos], al, true));
+  }
+  if (change_dc) {
+    int64_t sum = 0;
+    for (int k = 0; k < 25; ++k) sum += int64_t(kSmoothDC[k]) * dc[k];
+    ws[0] = int16_t(smooth_pred(q00 * sum, q00, 0, false));
+  }
+}
+
+// One component's IDCT into its plane (bw*8 x bh*8 samples), its blocks
+// smoothed where libjpeg-turbo smooths them.  Smoothing covers the blocks
+// of the image (width_in_blocks x height_in_blocks), which are all the
+// output reads.
+void idct_component(const Decoder& dec, const Component& c, bool smooth, uint8_t* plane) {
+  const int pw = c.bw * 8;
+  auto out = [&](int by, int bx) { return plane + size_t(by) * 8 * pw + size_t(bx) * 8; };
+  auto block = [&](int by, int bx) { return c.coef.data() + (size_t(by) * c.bw + bx) * 64; };
+  if (!smooth) {
     for (int by = 0; by < c.bh; ++by)
-      for (int bx = 0; bx < c.bw; ++bx)
-        idct_islow(c.coef.data() + (size_t(by) * c.bw + bx) * 64, c.qt,
-                   plane.data() + size_t(by) * 8 * pw + size_t(bx) * 8, pw);
-    full[i].resize(size_t(W) * H);
+      for (int bx = 0; bx < c.bw; ++bx) idct_islow(block(by, bx), c.qt, out(by, bx), pw);
+    return;
+  }
+  bool change_dc = true;
+  for (int k = 1; k < kSavedCoefs; ++k)
+    if (c.coef_bits[k] != -1) change_dc = false;
+  const int wb = (c.dw + 7) / 8;  // width_in_blocks
+  // a DC past the rows decoded (a padding row of a declared factor the
+  // decoder folds away) was never coded: libjpeg's buffer holds zero there
+  auto dc_at = [&](int by, int bx) -> int {
+    bx = std::min(std::max(bx, 0), wb - 1);
+    return by < c.bh ? block(by, bx)[0] : 0;
+  };
+  int16_t ws[64];
+  int dc[25];
+  for (const SmoothRow& sr : smooth_rows(dec, c)) {
+    for (int bx = 0; bx < wb; ++bx) {
+      for (int r = 0; r < 5; ++r)
+        for (int k = 0; k < 5; ++k) dc[r * 5 + k] = dc_at(sr.around[r], bx + k - 2);
+      smooth_block(c, block(sr.row, bx), dc, change_dc, ws);
+      idct_islow(ws, c.qt, out(sr.row, bx), pw);
+    }
+  }
+}
+
+// The image as cv2.imdecode returns it: (H, W, 3) RGB for IMREAD_COLOR
+// (in RGB order), (H, W) for IMREAD_GRAYSCALE.  libjpeg's output colour
+// space is cv2's choice: gray for a gray read of 1 or 3 components (the Y
+// plane of YCbCr, rgb_gray_convert of RGB), RGB for a colour read, and
+// CMYK for 4 components either way (YCCK converted to CMYK), which OpenCV
+// then turns into BGR or gray itself (icvCvt_CMYK2BGR_8u_C4C3R,
+// icvCvt_CMYK2Gray_8u_C4C1R).
+void to_output(Decoder& dec, bool gray, uint8_t* out) {
+  const int W = dec.width, H = dec.height;
+  const size_t npix = size_t(W) * H;
+  const bool smooth = dec.smoothing_ok();
+  // a gray read of YCbCr needs the Y component alone (component_needed)
+  const bool y_only = gray && dec.ncomp == 3 && !dec.is_rgb();
+  const int used = dec.ncomp == 1 || y_only ? 1 : dec.ncomp;
+  std::vector<std::vector<uint8_t>> full(used);
+  for (int i = 0; i < used; ++i) {
+    Component& c = dec.comp[i];
+    std::vector<uint8_t> plane(size_t(c.bw) * 8 * c.bh * 8);
+    idct_component(dec, c, smooth, plane.data());
+    full[i].resize(npix);
     upsample(c, plane, dec.hmax / c.h, dec.vmax / c.v, W, H, full[i].data());
   }
-  const size_t npix = size_t(W) * H;
-  if (dec.ncomp == 1) {
-    for (size_t p = 0; p < npix; ++p) rgb[3 * p] = rgb[3 * p + 1] = rgb[3 * p + 2] = full[0][p];
-    return;
-  }
-  if (dec.is_rgb()) {
-    for (size_t p = 0; p < npix; ++p)
-      for (int k = 0; k < 3; ++k) rgb[3 * p + k] = full[k][p];
-    return;
-  }
   static const ColourTables t;
-  const uint8_t *Y = full[0].data(), *Cb = full[1].data(), *Cr = full[2].data();
+  if (used == 1) {
+    const uint8_t* Y = full[0].data();
+    if (gray) {
+      memcpy(out, Y, npix);
+    } else {
+      for (size_t p = 0; p < npix; ++p) out[3 * p] = out[3 * p + 1] = out[3 * p + 2] = Y[p];
+    }
+    return;
+  }
+  const uint8_t *c0 = full[0].data(), *c1 = full[1].data(), *c2 = full[2].data();
+  if (dec.ncomp == 3 && dec.is_rgb()) {
+    for (size_t p = 0; p < npix; ++p) {
+      if (gray)
+        out[p] = uint8_t((t.r_y[c0[p]] + t.g_y[c1[p]] + t.b_y[c2[p]]) >> 16);
+      else
+        for (int k = 0; k < 3; ++k) out[3 * p + k] = full[k][p];
+    }
+    return;
+  }
+  if (dec.ncomp == 3) {
+    for (size_t p = 0; p < npix; ++p) {
+      int y = c0[p], cb = c1[p], cr = c2[p];
+      out[3 * p] = clamp255(y + t.cr_r[cr]);
+      out[3 * p + 1] = clamp255(y + int((t.cb_g[cb] + t.cr_g[cr]) >> 16));
+      out[3 * p + 2] = clamp255(y + t.cb_b[cb]);
+    }
+    return;
+  }
+  const uint8_t* c3 = full[3].data();
+  const bool ycck = dec.is_ycck();
   for (size_t p = 0; p < npix; ++p) {
-    int y = Y[p], cb = Cb[p], cr = Cr[p];
-    rgb[3 * p] = clamp255(y + t.cr_r[cr]);
-    rgb[3 * p + 1] = clamp255(y + int((t.cb_g[cb] + t.cr_g[cr]) >> 16));
-    rgb[3 * p + 2] = clamp255(y + t.cb_b[cb]);
+    int C = c0[p], M = c1[p], Y = c2[p];
+    const int K = c3[p];
+    if (ycck) {  // jdcolor.c ycck_cmyk_convert: 255 - the YCbCr->RGB of the first three
+      const int y = C, cb = M, cr = Y;
+      C = clamp255(255 - (y + t.cr_r[cr]));
+      M = clamp255(255 - (y + int((t.cb_g[cb] + t.cr_g[cr]) >> 16)));
+      Y = clamp255(255 - (y + t.cb_b[cb]));
+    }
+    // OpenCV's CMYK (Adobe's, stored inverted) to RGB
+    const int r = K - (((255 - C) * K) >> 8);
+    const int g = K - (((255 - M) * K) >> 8);
+    const int b = K - (((255 - Y) * K) >> 8);
+    if (gray) {  // OpenCV's descale(b*cB + g*cG + r*cR, 14) with cR 4899, cG 9617, cB 1868
+      out[p] = uint8_t((b * 1868 + g * 9617 + r * 4899 + (1 << 13)) >> 14);
+    } else {
+      out[3 * p] = uint8_t(r);
+      out[3 * p + 1] = uint8_t(g);
+      out[3 * p + 2] = uint8_t(b);
+    }
   }
 }
 
@@ -918,10 +1123,11 @@ int jpeg_info(const uint8_t* data, int64_t size, int* info, char* err, int errle
   }
 }
 
-// Decode into rgb (height x width x 3), whose size the caller took from
-// jpeg_info; a stream whose frame disagrees with it is refused.
-int jpeg_decode(const uint8_t* data, int64_t size, int width, int height, uint8_t* rgb,
-                char* err, int errlen) {
+// Decode into out, height x width x 3 RGB or, with gray, height x width,
+// whose size the caller took from jpeg_info; a stream whose frame
+// disagrees with it is refused.
+int jpeg_decode(const uint8_t* data, int64_t size, int width, int height, int gray,
+                uint8_t* out, char* err, int errlen) {
   try {
     Decoder probe(data, size_t(size));
     probe.parse(false);
@@ -930,8 +1136,7 @@ int jpeg_decode(const uint8_t* data, int64_t size, int width, int height, uint8_
     Decoder dec(data, size_t(size));
     dec.allocate = true;
     dec.parse(true);
-    if (dec.would_smooth()) throw Unsupported(kSmoothed);
-    to_rgb(dec, rgb);
+    to_output(dec, gray != 0, out);
     return 0;
   } catch (const Unsupported& e) {
     set_error(err, errlen, e.what());

@@ -7,22 +7,27 @@ depth the PNG specification allows for its colour type (1, 2, 4, 8, 16),
 interlaced (Adam7) or not, into 8-bit samples as cv2 makes them (16 bits
 by their high byte, 1, 2 and 4-bit gray scaled to 0-255, the palette
 expanded to RGB); ``tRNS`` is read past, as ``IMREAD_COLOR`` drops alpha.
-``decode_png`` does the same from bytes (the session server's payloads);
-``zlib`` inflates the image data and the host library
-(``utils/native.py``) undoes the five row filters.
+``decode_png`` does the same from bytes (the session server's payloads),
+and with ``gray`` gives ``IMREAD_GRAYSCALE``'s image: colour converted by
+libpng's ``rgb_to_gray`` at cv2's weights; ``zlib`` inflates the image
+data and the host library (``utils/native.py``) undoes the five row
+filters.
 
-``imread_rgb`` and ``imread_gray`` are the dataset loaders' reads.  They
-tell the format by the file's first bytes, as cv2 does, not by its
-suffix: a PNG through ``decode_png``, a JPEG through the host library's
-decoder (``utils/native.decode_jpeg``, EXIF orientation applied as
-``cv2.imread`` applies it), never through cv2, so that the port's pixels
-do not depend on whether cv2 is installed; any other file through
-``data/cv2_io.py``, loaded only then.  ``write_png`` writes RGB images
+``imread_rgb`` and ``imread_gray`` are the dataset loaders' reads
+(``cv2.imread`` with ``IMREAD_COLOR``, in RGB order, and with
+``IMREAD_GRAYSCALE``).  They tell the format by the file's first bytes, as
+cv2 does, not by its suffix: a PNG through ``decode_png``, a JPEG through
+the host library's decoder (``utils/native.decode_jpeg``, EXIF orientation
+applied as ``cv2.imread`` applies it), never through cv2, so that the
+port's pixels do not depend on whether cv2 is installed; any other file
+through ``data/cv2_io.py``, loaded only then.  ``write_png`` writes RGB images
 with filter 0, ``encode_png`` returns the same bytes.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 import pathlib
 import struct
 import zlib
@@ -69,9 +74,9 @@ def _row_bytes(width: int, bits: int) -> int:
 
 def _samples(rows: np.ndarray, n: int, depth: int) -> np.ndarray:
     """The first ``n`` samples of each unfiltered row, as stored (below 8
-    bits unpacked, most significant first; 16 bits by the high byte)."""
+    bits unpacked, most significant first; 16 bits as uint16)."""
     if depth == 16:
-        return rows[:, 0:2 * n:2]
+        return (rows[:, 0:2 * n:2].astype(np.uint16) << 8) | rows[:, 1:2 * n:2]
     if depth == 8:
         return rows[:, :n]
     bits = np.unpackbits(rows, axis=1)
@@ -80,15 +85,17 @@ def _samples(rows: np.ndarray, n: int, depth: int) -> np.ndarray:
     return (bits * weights).sum(axis=2, dtype=np.uint8)
 
 
-def decode_png(data: bytes, path="PNG data") -> np.ndarray:
-    """``read_png`` of a file's bytes; ``path`` names them in errors.  A
-    colour type and bit depth the specification forbids, a palette image
-    without ``PLTE``, a corrupt chunk, an image over
-    ``utils.native.MAX_PIXELS`` or image data that does not inflate to its
-    rows raises ``ValueError``, before more than the rows are inflated."""
+def decode_png(data: bytes, path="PNG data", gray: bool = False) -> np.ndarray:
+    """``read_png`` of a file's bytes; ``path`` names them in errors.  With
+    ``gray``, (H, W) uint8 as ``cv2.imdecode(..., IMREAD_GRAYSCALE)`` gives
+    it (``_to_gray``).  A colour type and bit depth the specification
+    forbids, a palette image without ``PLTE``, a corrupt chunk, an image
+    over ``utils.native.MAX_PIXELS`` or image data that does not inflate to
+    its rows raises ``ValueError``, before more than the rows are
+    inflated."""
     if not data.startswith(SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
-    header, palette, idat = None, None, []
+    header, palette, idat, gamma, srgb, sbit = None, None, [], None, False, 0
     for kind, body in _chunks(data, path):
         if kind == b"IHDR":
             if len(body) != 13:
@@ -98,6 +105,18 @@ def decode_png(data: bytes, path="PNG data") -> np.ndarray:
             palette = body
         elif kind == b"IDAT":
             idat.append(body)
+        elif palette is not None or idat:
+            continue  # libpng ignores a gAMA, sRGB or sBIT after PLTE or IDAT
+        elif kind == b"gAMA" and len(body) == 4 and gamma is None:
+            gamma = struct.unpack(">I", body)[0]
+            gamma = gamma if 0 < gamma < 1 << 31 else None
+        elif kind == b"sRGB" and len(body) == 1 and body[0] < 4:
+            srgb = True
+        elif kind == b"sBIT" and header is not None and header[3] in _COLOUR_TYPES:
+            sample_depth = 8 if header[3] == 3 else header[2]
+            if (len(body) == (3 if header[3] == 3 else _COLOUR_TYPES[header[3]][0])
+                    and all(0 < v <= sample_depth for v in body)):
+                sbit = max(body[:3])
     if header is None:
         raise ValueError(f"{path}: PNG without IHDR")
     W, H, depth, ctype, compression, filtering, interlace = header
@@ -127,7 +146,7 @@ def decode_png(data: bytes, path="PNG data") -> np.ndarray:
         raise ValueError(f"{path}: corrupt PNG image data ({e})") from None
     if len(raw) != total:
         raise ValueError(f"{path}: PNG image data holds {len(raw)} bytes, expected {total}")
-    img = np.empty((H, W, C), np.uint8)
+    img = np.empty((H, W, C), np.uint16 if depth == 16 else np.uint8)
     at = 0
     for x0, y0, dx, dy, pw, ph in passes:
         n = ph * (_row_bytes(pw, bits) + 1)
@@ -140,7 +159,105 @@ def decode_png(data: bytes, path="PNG data") -> np.ndarray:
         lut = np.zeros((256, 3), np.uint8)
         lut[:len(palette) // 3] = np.frombuffer(palette, np.uint8).reshape(-1, 3)
         img = lut[img[..., 0]]
-    return img
+    if gray:
+        return _to_gray(img, _SRGB_GAMMA if srgb else gamma, sbit)
+    return (img >> 8).astype(np.uint8) if depth == 16 else img
+
+
+# libpng's fixed-point gammas (1.0 is 100000): sRGB's, and the band around
+# 1.0 inside which a gamma is not significant
+_FP1 = 100000
+_SRGB_GAMMA = 45455
+
+
+def _significant(g: int) -> bool:
+    return g < _FP1 - 5000 or g > _FP1 + 5000
+
+
+def _reciprocal(a: int) -> int:
+    return math.floor(1e10 / a + 0.5)
+
+
+@functools.lru_cache(maxsize=16)
+def _gamma_8(g: int) -> np.ndarray:
+    """png_build_8bit_table: 255 (i / 255) ** g, rounded; identity if g is
+    not significant."""
+    t = np.arange(256, dtype=np.int64)
+    if _significant(g):
+        t[1:255] = [math.floor(255 * math.pow(i / 255.0, g * 1e-5) + 0.5) for i in range(1, 255)]
+    return t
+
+
+def _gamma_shift(sbit: int) -> int:
+    """The low bits libpng's 16-bit gamma tables drop: those an ``sBIT``
+    chunk calls insignificant, at least 5 when the output is 8-bit (11
+    bits kept), at most 8."""
+    shift = 16 - sbit if 0 < sbit < 16 else 0
+    return min(max(shift, 5), 8)
+
+
+@functools.lru_cache(maxsize=16)
+def _gamma_16(g: int, shift: int) -> np.ndarray:
+    """png_build_16bit_table, indexed by a sample's top 16 - shift bits."""
+    top = (1 << (16 - shift)) - 1
+    i = np.arange(top + 1, dtype=np.int64)
+    if not _significant(g):
+        return (i * 65535 + (1 << (15 - shift))) // top
+    return np.array([math.floor(65535.0 * math.pow(x * (1.0 / top), g * 1e-5) + 0.5)
+                     for x in range(top + 1)], np.int64)
+
+
+@functools.lru_cache(maxsize=16)
+def _gamma_16_to_8(g: int, shift: int) -> np.ndarray:
+    """png_build_16to8_table, indexed by a sample's top 16 - shift bits:
+    each 8-bit output o (as o * 257) up to the input where g's curve
+    crosses o + 1/2."""
+    top = (1 << (16 - shift)) - 1
+    table = np.full(top + 1, 65535, np.int64)
+    last = 0
+    for o in range(255):
+        v = o * 257 + 128
+        bound = (math.floor(65535 * math.pow(v / 65535.0, g * 1e-5) + 0.5) * top
+                 + 32768) // 65535 + 1
+        table[last:bound] = o * 257
+        last = max(last, bound)
+    return table
+
+
+def _to_gray(img: np.ndarray, file_gamma=None, sbit=0) -> np.ndarray:
+    """(H, W) uint8 of decoded samples (uint16 at 16 bits), as cv2's
+    ``IMREAD_GRAYSCALE`` has libpng make it: alpha dropped, colour by
+    ``png_set_rgb_to_gray(0.299, 0.587)`` (integer weights 9797, 19234 and
+    3737 over 2**15), 16 bits then cut to the high byte.  Without a
+    significant file gamma (``gAMA``, or ``sRGB``'s 0.45455) the weighted
+    sum truncates at 8 bits and rounds at 16.  With one, libpng takes the
+    screen gamma as its reciprocal and weighs linear light: each sample
+    through its to-linear table, the rounded sum back through the
+    from-linear one (16-bit tables at 11 bits, fewer under ``sBIT``), and a
+    pixel whose three samples are equal through the file-to-screen table."""
+    if img.shape[2] <= 2:
+        y = img[..., 0]
+        return (y >> 8 if img.dtype == np.uint16 else y).astype(np.uint8)
+    r, g, b = (img[..., k].astype(np.int64) for k in range(3))
+    sixteen = img.dtype == np.uint16
+    screen = None if file_gamma is None else _reciprocal(file_gamma)
+    if screen is None or not (_significant(file_gamma) or _significant(screen)):
+        y = 9797 * r + 19234 * g + 3737 * b
+        y = (y + 16384) >> 15 if sixteen else y >> 15
+        return (y >> 8 if sixteen else y).astype(np.uint8)
+    to_1, from_1 = _reciprocal(file_gamma), _reciprocal(screen)
+    equal = (r == g) & (r == b)
+    if sixteen:
+        s = _gamma_shift(sbit)
+        lin = _gamma_16(to_1, s)
+        y = (9797 * lin[r >> s] + 19234 * lin[g >> s] + 3737 * lin[b >> s] + 16384) >> 15
+        product = math.floor(file_gamma * 1e-5 * screen + 0.5)
+        y = np.where(equal, _gamma_16_to_8(product, s)[r >> s], _gamma_16(from_1, s)[y >> s])
+        return (y >> 8).astype(np.uint8)
+    lin = _gamma_8(to_1)
+    y = _gamma_8(from_1)[(9797 * lin[r] + 19234 * lin[g] + 3737 * lin[b] + 16384) >> 15]
+    same = _gamma_8(math.floor(1e15 / file_gamma / screen + 0.5))
+    return np.where(equal, same[r], y).astype(np.uint8)
 
 
 def to_rgb(img: np.ndarray) -> np.ndarray:
@@ -168,28 +285,20 @@ def imread_rgb(path) -> np.ndarray:
 
 
 def imread_gray(path) -> np.ndarray:
-    """(H, W) uint8 of a gray image (``cv2.imread(path, IMREAD_GRAYSCALE)``
-    on a gray file: a gray or gray+alpha PNG, a one-component JPEG); a
-    colour PNG or JPEG raises ``ValueError`` (cv2 would convert it;
-    ROADMAP Queue 1 item 15)."""
+    """(H, W) uint8, as ``cv2.imread(path, IMREAD_GRAYSCALE)``: a colour
+    PNG converted by libpng's weights, a JPEG read as libjpeg reads it to
+    gray (the Y plane of YCbCr) and OpenCV converts CMYK, a JPEG's EXIF
+    orientation applied."""
     data = pathlib.Path(path).read_bytes()
     if data.startswith(SIGNATURE):
-        img = decode_png(data, path)
-        kind = f"a {img.shape[2]}-channel PNG"
-    elif data.startswith(JPEG_MAGIC):
-        from ..utils.native import decode_jpeg, jpeg_info
+        return decode_png(data, path, gray=True)
+    if data.startswith(JPEG_MAGIC):
+        from ..utils.native import decode_jpeg
 
-        if jpeg_info(data)["components"] == 1:
-            return decode_jpeg(data)[..., 0].copy()
-        img, kind = None, "a colour JPEG"
-    else:
-        from . import cv2_io
+        return decode_jpeg(data, gray=True)
+    from . import cv2_io
 
-        return cv2_io.imread_gray(path)
-    if img is None or img.shape[2] > 2:
-        raise ValueError(f"{path}: {kind} where a gray one is read (the conversion to gray "
-                         "is ROADMAP Queue 1 item 15)")
-    return img[..., 0].copy()
+    return cv2_io.imread_gray(path)
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

@@ -47,7 +47,7 @@ _ARGTYPES = {
     "remap_bilinear": [_U8P, _I, _I, _F32P, _F32P, _U8P],
     "png_unfilter": [_U8P, _I, _I, _I, _U8P],
     "jpeg_info": [_U8P, ctypes.c_int64, _I32P, ctypes.c_char_p, _I],
-    "jpeg_decode": [_U8P, ctypes.c_int64, _I, _I, _U8P, ctypes.c_char_p, _I],
+    "jpeg_decode": [_U8P, ctypes.c_int64, _I, _I, _I, _U8P, ctypes.c_char_p, _I],
 }
 
 _lib = None
@@ -185,7 +185,7 @@ def _jpeg_error(rc: int, err) -> Exception:
 
 def jpeg_info(data: bytes) -> dict:
     """The headers of a JPEG stream up to its frame: ``width``, ``height``,
-    ``components`` (1 or 3) and the EXIF ``orientation`` (1-8).  A coding
+    ``components`` (1, 3 or 4) and the EXIF ``orientation`` (1-8).  A coding
     the decoder refuses raises ``NotImplementedError``, a corrupt header
     ``ValueError``."""
     lib = load()
@@ -198,14 +198,18 @@ def jpeg_info(data: bytes) -> dict:
     return dict(width=info[0], height=info[1], components=info[2], orientation=info[3])
 
 
-def decode_jpeg(data: bytes, max_pixels: int = MAX_PIXELS) -> np.ndarray:
+def decode_jpeg(data: bytes, max_pixels: int = MAX_PIXELS, gray: bool = False) -> np.ndarray:
     """Decode a JPEG (``csrc/host/jpeg.cpp``: sequential and progressive
-    Huffman coding) to (H, W, 3) uint8 RGB, gray replicated and the EXIF
-    orientation applied, as
-    ``cv2.cvtColor(cv2.imdecode(..., IMREAD_COLOR), COLOR_BGR2RGB)``.
-    Codings the decoder refuses raise ``NotImplementedError`` naming their
-    ROADMAP item; a truncated or corrupt stream, or one larger than
-    ``max_pixels``, raises ``ValueError``."""
+    Huffman coding, a progressive stream's early stop smoothed as
+    libjpeg-turbo smooths it) with the EXIF orientation applied: to
+    (H, W, 3) uint8 RGB, gray replicated, as
+    ``cv2.cvtColor(cv2.imdecode(..., IMREAD_COLOR), COLOR_BGR2RGB)``, or
+    with ``gray`` to (H, W) uint8, as ``cv2.imdecode(...,
+    IMREAD_GRAYSCALE)`` (the Y plane of YCbCr, libjpeg's RGB->gray of
+    RGB, OpenCV's CMYK->gray of CMYK and YCCK).  Codings the decoder
+    refuses raise ``NotImplementedError`` naming their ROADMAP item; a
+    truncated or corrupt stream, or one larger than ``max_pixels``, raises
+    ``ValueError``."""
     info = jpeg_info(data)
     W, H = info["width"], info["height"]
     if W * H > max_pixels:
@@ -213,8 +217,9 @@ def decode_jpeg(data: bytes, max_pixels: int = MAX_PIXELS) -> np.ndarray:
     lib = load()
     src = np.frombuffer(data, dtype=np.uint8)
     err = ctypes.create_string_buffer(256)
-    out = np.empty((H, W, 3), dtype=np.uint8)
-    rc = lib.jpeg_decode(_ptr(src, _U8P), src.size, W, H, _ptr(out, _U8P), err, len(err))
+    out = np.empty((H, W) if gray else (H, W, 3), dtype=np.uint8)
+    rc = lib.jpeg_decode(_ptr(src, _U8P), src.size, W, H, int(gray), _ptr(out, _U8P), err,
+                         len(err))
     if rc != 0:
         raise _jpeg_error(rc, err)
     return _orient(out, info["orientation"])
@@ -223,6 +228,6 @@ def decode_jpeg(data: bytes, max_pixels: int = MAX_PIXELS) -> np.ndarray:
 def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
     """EXIF orientation 1-8 applied as cv2.imdecode applies it."""
     if orientation >= 5:  # the stored rows are the picture's columns
-        img = img.transpose(1, 0, 2)
+        img = img.swapaxes(0, 1)
     flips = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}.get(orientation, ())
     return np.ascontiguousarray(np.flip(img, flips) if flips else img)

@@ -1,40 +1,57 @@
-"""Write the image fixtures that ``chip_smoke.py`` phase 12 decodes on the
-card's host, which has no cv2, and the SHA-256 digests of cv2's decode of
-each (``tests/data/image_fixtures.json``).  Needs cv2, so it runs where the
-tests run:
+"""Write the image fixtures that ``chip_smoke.py`` phases 12 and 15 decode
+on the card's host, which has no cv2, and the SHA-256 digests of cv2's
+decode of each (``tests/data/image_fixtures.json``).  Needs cv2 and PIL, so
+it runs where the tests run:
 
     python scripts/make_image_fixtures.py
 
 Written under ``tests/data/``:
   image_fixtures/   small files of the codings cv2 alone does not hold
                     against a committed decode: a progressive 4:2:0 JPEG
-                    with restarts, a progressive gray JPEG, a 16-bit RGB
-                    PNG, a palette PNG and an Adam7 PNG (gray+alpha, 16 bits);
+                    with restarts, a progressive gray JPEG, 8- and 16-bit
+                    RGB, RGBA, palette and Adam7 PNGs (gray+alpha, 16
+                    bits), an sRGB-tagged RGBA and a gAMA-tagged 16-bit
+                    RGB PNG (whose gray reads weigh linear light); an RGB-coded 4:2:0 JPEG, a CMYK JPEG (PIL's) and
+                    a YCCK one (its Adobe transform set to 2); progressive
+                    scripts cut short, which libjpeg-turbo smooths (4:2:0
+                    and gray, with and without restarts, a CMYK one); and
+                    the whole 480x640 progressive file whose first two
+                    and 2 scans of a textured 480x640 progressive file, the
+                    whole file beside them;
   image_folder/     8 frames at 480x640 for the CLI run: baseline and
                     progressive JPEGs and one palette Adam7 PNG;
   serve_frames/     8 constant-gray 480x640 frames (frame k at level k + 1,
                     the stand-in model's frame id) for the served session:
-                    progressive JPEGs and 16-bit PNGs in turn.
+                    progressive JPEGs and 16-bit PNGs in turn;
+  serve_partial/    8 smooth random 480x640 fields (as chip_smoke.py's
+                    smooth_images makes them, on which ViT-L with random
+                    weights tracks every frame) as progressive JPEGs cut
+                    after 2 to 9 scans: a client's partial frames for the
+                    served ViT-L session.
 The digests are of (H, W, 3) uint8 RGB, C order: ``cv2.imread`` converted
-from BGR.  The PNG variants come from the writer of
-``tests/test_torch_png_variants.py`` (cv2 writes no palette or interlaced
-PNG).
+from BGR (``sha256``), and of (H, W) uint8, ``cv2.imread(...,
+IMREAD_GRAYSCALE)`` (``gray_sha256``).  The PNG variants come from the
+writer of ``tests/test_torch_png_variants.py`` (cv2 writes no palette or
+interlaced PNG).
 """
 
 from __future__ import annotations
 
 import hashlib
+import io
 import json
 import pathlib
+import struct
 import sys
 
 import cv2
 import numpy as np
+from PIL import Image
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 DATA = ROOT / "tests" / "data"
 sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
-from test_torch_png_variants import write_png  # noqa: E402
+from test_torch_png_variants import _chunk, _with_chunks, write_png  # noqa: E402
 
 
 def smooth(hw, seed):
@@ -47,6 +64,13 @@ def smooth(hw, seed):
     y, x = np.mgrid[0:h, 0:w]
     img = 255 * up + 20 * np.sin(x / 9.0 + seed)[..., None] + rng.normal(0, 3, (h, w, 3))
     return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def smooth_field(hw, seed):
+    """A random colour field at 1/16 of the size, bilinearly upsampled."""
+    low = np.random.default_rng(seed).random((hw[0] // 16, hw[1] // 16, 3))
+    up = cv2.resize(low, (hw[1], hw[0]), interpolation=cv2.INTER_LINEAR)
+    return np.clip(255 * up, 0, 255).round().astype(np.uint8)
 
 
 def jpeg(bgr, *params):
@@ -70,6 +94,61 @@ def cv2_rgb(path):
     return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
 
 
+def cv2_gray(path):
+    img = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)
+    assert img is not None, path
+    return img
+
+
+def segments(data):
+    """The marker segments after the SOI, each scan with its entropy-coded
+    data (restart markers included)."""
+    out, at = [], 2
+    while at < len(data):
+        m = data[at + 1]
+        if m == 0xD9:
+            out.append(data[at:at + 2])
+            at += 2
+            continue
+        end = at + 2 + struct.unpack(">H", data[at + 2:at + 4])[0]
+        if m == 0xDA:
+            while not (data[end] == 0xFF and data[end + 1] != 0
+                       and not 0xD0 <= data[end + 1] <= 0xD7):
+                end += 1
+        out.append(data[at:end])
+        at = end
+    return out
+
+
+def first_scans(data, k):
+    """The stream cut after its first k scans, an EOI appended."""
+    out, scans = [], 0
+    for seg in segments(data):
+        if seg[1] == 0xDA:
+            if scans == k:
+                break
+            scans += 1
+        out.append(seg)
+    return b"\xff\xd8" + b"".join(out) + b"\xff\xd9"
+
+
+def rgb_coded(data):
+    """A YCbCr stream's samples declared RGB: JFIF's APP0 dropped, an Adobe
+    APP14 with transform 0 in its place."""
+    adobe = b"\xff\xee" + struct.pack(">H", 14) + b"Adobe" + bytes([0, 100, 0, 0, 0, 0, 0])
+    return b"\xff\xd8" + adobe + b"".join(s for s in segments(data) if s[:2] != b"\xff\xe0")
+
+
+def cmyk_jpeg(rgb, transform=0, **params):
+    """PIL's CMYK JPEG (Adobe transform 0, the inks stored inverted), its
+    transform byte set to ``transform`` (2: YCCK)."""
+    buf = io.BytesIO()
+    Image.fromarray(rgb).convert("CMYK").save(buf, "JPEG", **params)
+    data = buf.getvalue()
+    at = data.index(b"Adobe")
+    return data[:at + 11] + bytes([transform]) + data[at + 12:]
+
+
 def main():
     files = {}
     fx = DATA / "image_fixtures"
@@ -88,6 +167,32 @@ def main():
     files[fx / "palette.png"] = palette_png(smooth((90, 120), 4), interlace=0)
     ga = smooth((53, 77), 5)[..., :2].astype(np.uint16) * 257
     files[fx / "adam7_gray_alpha16.png"] = write_png(ga, 4, 16, 1)
+    # colour files read as gray (EuRoC's read), CMYK and YCCK, scripts cut short
+    files[fx / "rgb8.png"] = write_png(smooth((61, 83), 6), 2, 8)
+    rgba = np.concatenate([smooth((47, 69), 7), smooth((47, 69), 8)[..., :1]], -1)
+    files[fx / "rgba8_srgb.png"] = _with_chunks(write_png(rgba, 6, 8, 1),
+                                                _chunk(b"sRGB", b"\x00"))
+    deep = smooth((53, 71), 14).astype(np.uint16) * 257 + np.random.default_rng(14).integers(
+        0, 257, (53, 71, 3)).astype(np.uint16)
+    files[fx / "rgb16_gamma.png"] = _with_chunks(write_png(deep, 2, 16),
+                                                 _chunk(b"gAMA", (45455).to_bytes(4, "big")))
+    files[fx / "rgb_coded_420.jpg"] = rgb_coded(jpeg(
+        smooth((57, 75), 9), cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+        cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420))
+    files[fx / "cmyk.jpg"] = cmyk_jpeg(smooth((64, 96), 10)[..., ::-1].copy(), quality=90)
+    files[fx / "ycck_420.jpg"] = cmyk_jpeg(smooth((64, 96), 11)[..., ::-1].copy(), 2,
+                                           quality=85, subsampling=2)
+    files[fx / "partial_cmyk_3scans.jpg"] = first_scans(
+        cmyk_jpeg(smooth((48, 72), 12)[..., ::-1].copy(), quality=80, progressive=True), 3)
+    cut = smooth((120, 160), 13)
+    for name, k, rst in (("partial_420_rst_3scans", 3, 2), ("partial_420_6scans", 6, 0)):
+        files[fx / f"{name}.jpg"] = first_scans(jpeg(
+            cut, cv2.IMWRITE_JPEG_PROGRESSIVE, 1, cv2.IMWRITE_JPEG_QUALITY, 90,
+            cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420,
+            cv2.IMWRITE_JPEG_RST_INTERVAL, rst), k)
+    for name, k, rst in (("partial_gray_1scan", 1, 0), ("partial_gray_rst_4scans", 4, 3)):
+        files[fx / f"{name}.jpg"] = first_scans(jpeg(
+            cut[..., 1], cv2.IMWRITE_JPEG_PROGRESSIVE, 1, cv2.IMWRITE_JPEG_RST_INTERVAL, rst), k)
 
     folder = DATA / "image_folder"
     folder.mkdir(parents=True, exist_ok=True)
@@ -117,12 +222,29 @@ def main():
             ok, buf = cv2.imencode(".png", np.full((480, 640, 3), (k + 1) * 257, np.uint16))
             files[served / f"{k:03d}.png"] = buf.tobytes()
 
+    # a textured 480x640 progressive 4:2:0 file and its first two scans
+    whole = jpeg(smooth((480, 640), 40), cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+                 cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                 cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420)
+    files[fx / "progressive_480x640.jpg"] = whole
+    files[fx / "progressive_480x640_2scans.jpg"] = first_scans(whole, 2)
+    # a client's partial frames: frame k cut after k + 2 of its ten scans
+    partial = DATA / "serve_partial"
+    partial.mkdir(parents=True, exist_ok=True)
+    for k in range(8):
+        files[partial / f"{k:03d}.jpg"] = first_scans(jpeg(
+            smooth_field((480, 640), 40 + k), cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+            cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+            cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420, cv2.IMWRITE_JPEG_RST_INTERVAL,
+            4 * (k % 2)), k + 2)
+
     digests = {}
     for path, data in files.items():
         path.write_bytes(data)
-        rgb = cv2_rgb(path)
+        rgb, gray = cv2_rgb(path), cv2_gray(path)
         digests[str(path.relative_to(DATA))] = {
-            "shape": list(rgb.shape), "sha256": hashlib.sha256(rgb.tobytes()).hexdigest()}
+            "shape": list(rgb.shape), "sha256": hashlib.sha256(rgb.tobytes()).hexdigest(),
+            "gray_sha256": hashlib.sha256(gray.tobytes()).hexdigest()}
     (DATA / "image_fixtures.json").write_text(json.dumps(digests, indent=1, sort_keys=True)
                                               + "\n")
     total = sum(len(d) for d in files.values())

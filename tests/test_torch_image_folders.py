@@ -9,6 +9,7 @@ JPEG folder (baseline and progressive frames, one PNG), at
 blocked.
 """
 
+import base64
 import hashlib
 import json
 import pathlib
@@ -25,6 +26,7 @@ from mast3r_slam_tpu_torch.data import dataloader as tdl
 from mast3r_slam_tpu_torch.data import png
 from mast3r_slam_tpu_torch.eval import ate as tate
 from mast3r_slam_tpu_torch.eval.trajectory import load_traj_tum
+from mast3r_slam_tpu_torch.serve import server
 from mast3r_slam_tpu_torch.slam import run as trun
 
 from oracle import OracleModel, arc_trajectory
@@ -109,16 +111,80 @@ def test_the_format_is_told_by_the_first_bytes(tmp_path, monkeypatch):
 @pytest.mark.parametrize("kind", ["baseline", "gray-progressive"])
 def test_imread_gray_reads_a_gray_jpeg_and_refuses_a_colour_one(tmp_path, kind):
     """``imread_gray`` (EuRoC's read) of a one-component JPEG equals
-    ``cv2.imread(..., IMREAD_GRAYSCALE)``; a colour JPEG raises, as a colour
-    PNG does, naming the ROADMAP item of the conversion."""
+    ``cv2.imread(..., IMREAD_GRAYSCALE)``, and so does its read of a colour
+    JPEG, which it once refused (Queue 1 item 15): the Y plane, with cv2
+    blocked."""
     bgr = _frame(5)
     _write(tmp_path / "g.jpg", bgr[..., :1].repeat(3, -1) if kind == "baseline" else bgr,
            "gray-progressive")
-    np.testing.assert_array_equal(png.imread_gray(tmp_path / "g.jpg"),
-                                  cv2.imread(str(tmp_path / "g.jpg"), cv2.IMREAD_GRAYSCALE))
     _write(tmp_path / "c.jpg", bgr, kind if kind == "baseline" else "progressive")
-    with pytest.raises(ValueError, match="colour JPEG where a gray one.*item 15"):
-        png.imread_gray(tmp_path / "c.jpg")
+    want = [cv2.imread(str(tmp_path / n), cv2.IMREAD_GRAYSCALE) for n in ("g.jpg", "c.jpg")]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "cv2", None)
+        for name, w in zip(("g.jpg", "c.jpg"), want):
+            np.testing.assert_array_equal(png.imread_gray(tmp_path / name), w)
+
+
+EUROC_SENSOR = """sensor_type: camera
+resolution: [64, 48]
+camera_model: pinhole
+intrinsics: [458.654, 457.296, 32.0, 24.0]
+distortion_model: radial-tangential
+distortion_coefficients: [-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05]
+"""
+# the colour frames of a EuRoC folder: what cv2.imread(..., IMREAD_GRAYSCALE)
+# converts in the JAX loader (PNG variants "ctype-depth-interlace")
+EUROC_KINDS = ["baseline", "progressive", "partial-progressive", "gray-progressive",
+               "2-8-0", "2-16-1", "3-8-1", "6-8-0", "6-16-0", "4-8-1", "cmyk", "ycck"]
+
+
+def _euroc_frame(path, i, kind):
+    bgr = _frame(i)
+    if kind == "partial-progressive":  # the first three scans: smoothed
+        ok, buf = cv2.imencode(".jpg", bgr, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+        data = buf.tobytes()
+        at = [k for k in range(len(data) - 1) if data[k:k + 2] == b"\xff\xda"][3]
+        path.write_bytes(data[:at] + b"\xff\xd9")
+    elif kind in ("cmyk", "ycck"):
+        from PIL import Image
+
+        buf = __import__("io").BytesIO()
+        Image.fromarray(bgr[..., ::-1]).convert("CMYK").save(buf, "JPEG", quality=85)
+        data = buf.getvalue()
+        at = data.index(b"Adobe") + 11
+        path.write_bytes(data[:at] + bytes([2 if kind == "ycck" else 0]) + data[at + 1:])
+    else:
+        _write(path, bgr, kind)
+
+
+def test_euroc_reads_colour_frames_as_the_jax_loader(tmp_path, monkeypatch):
+    """EuRoC's read (``cv2.imread(..., IMREAD_GRAYSCALE)`` in the JAX
+    loader, replicated to RGB) on a EuRoC folder of colour frames: JPEG
+    baseline, progressive and cut short, colour, palette, RGBA and 16-bit
+    PNGs, CMYK and YCCK: the port's ``EurocDataset.read_img`` equals the
+    JAX one frame for frame, with cv2 blocked (once refused, Queue 1 item
+    15)."""
+    cam = tmp_path / "euroc" / "MH_colour" / "mav0" / "cam0"
+    (cam / "data").mkdir(parents=True)
+    rows = ["#timestamp [ns],filename"]
+    for i, kind in enumerate(EUROC_KINDS):
+        ts = 1403636579763555584 + 50_000_000 * i
+        name = f"{ts}.{'png' if kind[0].isdigit() else 'jpg'}"
+        _euroc_frame(cam / "data" / name, i, kind)
+        rows.append(f"{ts},{name}")
+    (cam / "data.csv").write_text("\n".join(rows) + "\n")
+    (cam / "sensor.yaml").write_text(EUROC_SENSOR)
+    seq = str(cam.parents[1])
+    got, want = tdl.load_dataset(seq), jdl.load_dataset(seq)
+    assert type(got).__name__ == type(want).__name__ == "EurocDataset"
+    assert got.timestamps == want.timestamps and len(got) == len(EUROC_KINDS)
+    frames = [want.read_img(i) for i in range(len(want))]
+    assert not all((f[..., 0] == f[..., 0].flat[0]).all() for f in frames)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    for i, b in enumerate(frames):
+        a = got.read_img(i)
+        assert a.dtype == b.dtype == np.uint8 and a.shape == b.shape == (48, 64, 3)
+        np.testing.assert_array_equal(a, b, err_msg=EUROC_KINDS[i])
 
 
 N_FRAMES = 12
@@ -195,12 +261,19 @@ DIGESTS = json.loads((DATA / "image_fixtures.json").read_text())
 
 @pytest.mark.parametrize("name", sorted(DIGESTS))
 def test_the_committed_image_fixtures_agree_with_cv2(name):
-    """The files ``chip_smoke.py`` phase 12 decodes on the card's host (no
-    cv2 there; ``scripts/make_image_fixtures.py`` wrote them): their
-    committed digests are still cv2's decode here, and the port's readers
-    give those bytes."""
+    """The files ``chip_smoke.py`` phases 12 and 15 decode on the card's
+    host (no cv2 there; ``scripts/make_image_fixtures.py`` wrote them):
+    their committed digests are still cv2's colour and gray decodes here,
+    and the port's readers and payload decoder give those bytes."""
     want = cv2.cvtColor(cv2.imread(str(DATA / name)), cv2.COLOR_BGR2RGB)
     assert list(want.shape) == DIGESTS[name]["shape"]
     assert hashlib.sha256(want.tobytes()).hexdigest() == DIGESTS[name]["sha256"]
+    gray = cv2.imread(str(DATA / name), cv2.IMREAD_GRAYSCALE)
+    assert hashlib.sha256(gray.tobytes()).hexdigest() == DIGESTS[name]["gray_sha256"]
     got = png.imread_rgb(DATA / name)
     assert hashlib.sha256(got.tobytes()).hexdigest() == DIGESTS[name]["sha256"]
+    got = png.imread_gray(DATA / name)
+    assert got.shape == want.shape[:2]
+    assert hashlib.sha256(got.tobytes()).hexdigest() == DIGESTS[name]["gray_sha256"]
+    payload = server.decode_image_payload(base64.b64encode((DATA / name).read_bytes()).decode())
+    np.testing.assert_array_equal(payload, want.astype(np.float32) / 255.0)

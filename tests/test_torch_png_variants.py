@@ -2,7 +2,8 @@
 port's reader (``mast3r_slam_tpu_torch/data/png.py``) and the session
 server's payload decoder, exactly against cv2 (libpng): each colour type at
 each bit depth the PNG specification allows, Adam7 interlace, odd sizes,
-``tRNS`` present or not, and gray files against ``IMREAD_GRAYSCALE``.
+``tRNS`` present or not, and every file against ``IMREAD_GRAYSCALE`` too
+(colour converted by libpng's ``rgb_to_gray`` at cv2's weights).
 
 cv2 writes none of palette, sub-byte, gray+alpha or interlaced PNGs, so
 the files come from the small writer below (the specification's filters,
@@ -132,12 +133,9 @@ def test_png_variant_equals_cv2(tmp_path, ctype, depth, interlace, hw, trns):
     np.testing.assert_array_equal(png.to_rgb(got), want)
     (tmp_path / "v.png").write_bytes(data)
     np.testing.assert_array_equal(png.imread_rgb(tmp_path / "v.png"), want)
-    if ctype in (0, 4):
-        np.testing.assert_array_equal(png.imread_gray(tmp_path / "v.png"),
-                                      _cv2(data, cv2.IMREAD_GRAYSCALE))
-    else:
-        with pytest.raises(ValueError, match="gray one"):
-            png.imread_gray(tmp_path / "v.png")
+    gray = _cv2(data, cv2.IMREAD_GRAYSCALE)
+    np.testing.assert_array_equal(png.imread_gray(tmp_path / "v.png"), gray)
+    np.testing.assert_array_equal(png.decode_png(data, gray=True), gray)
 
 
 def test_sixteen_bits_read_by_their_high_byte():
@@ -147,6 +145,74 @@ def test_sixteen_bits_read_by_their_high_byte():
     got = png.decode_png(write_png(samples, 2, 16))
     np.testing.assert_array_equal(got, [[[0x12, 0x00, 0xFF], [0x00, 0x7F, 0x80]]])
     np.testing.assert_array_equal(got, _cv2(write_png(samples, 2, 16)))
+
+
+@pytest.mark.parametrize("depth", [8, 16])
+def test_gray_conversion_is_libpngs_at_cv2s_weights(depth):
+    """cv2's gray read of a colour PNG is libpng's ``rgb_to_gray`` at 0.299
+    and 0.587: weights 9797, 19234 and 3737 over 2**15, truncated at 8 bits
+    (the rounded form and ``cvtColor`` differ on about half of these
+    pixels), rounded at 16 bits and then cut to the high byte."""
+    rng = np.random.default_rng(depth)
+    samples = rng.integers(0, 1 << depth, (256, 256, 3))
+    data = write_png(samples, 2, depth)
+    want = _cv2(data, cv2.IMREAD_GRAYSCALE)
+    r, g, b = (samples[..., k] for k in range(3))
+    s = 9797 * r + 19234 * g + 3737 * b
+    formula = (s >> 15) if depth == 8 else ((s + 16384) >> 15) >> 8
+    np.testing.assert_array_equal(want, formula)
+    np.testing.assert_array_equal(png.decode_png(data, gray=True), want)
+    other = ((s + 16384) >> 15) if depth == 8 else (s >> 15) >> 8
+    assert (other != want).mean() > 0.3 if depth == 8 else (other != want).any()
+
+
+def _with_chunks(data, extra, after="IHDR"):
+    """The PNG with ``extra`` (whole chunks) after its chunk ``after``."""
+    chunks = _split(data)
+    at = next(i for i, c in enumerate(chunks) if c[4:8] == after.encode()) + 1
+    return png.SIGNATURE + b"".join(chunks[:at]) + extra + b"".join(chunks[at:])
+
+
+GAMMA_CHUNKS = {
+    # the gamma cv2's libpng weighs a colour pixel's gray value in
+    "gAMA-0.45455": _chunk(b"gAMA", struct.pack(">I", 45455)),
+    "gAMA-2.2": _chunk(b"gAMA", struct.pack(">I", 220000)),
+    "gAMA-0.95-edge": _chunk(b"gAMA", struct.pack(">I", 95000)),  # its reciprocal counts
+    "gAMA-1.04": _chunk(b"gAMA", struct.pack(">I", 104000)),  # not significant
+    "sRGB": _chunk(b"sRGB", b"\x00"),
+    "sRGB-over-gAMA": _chunk(b"gAMA", struct.pack(">I", 30000)) + _chunk(b"sRGB", b"\x01"),
+    "first-gAMA": _chunk(b"gAMA", struct.pack(">I", 30000)) + _chunk(b"gAMA",
+                                                                    struct.pack(">I", 200000)),
+    "sBIT-10-gAMA": _chunk(b"gAMA", struct.pack(">I", 45455)),  # sBIT: the test adds it
+    "cHRM-only": _chunk(b"cHRM", struct.pack(">8I", 31270, 32900, 64000, 33000, 30000, 60000,
+                                             15000, 6000)),
+}
+GAMMA_CASES = [(c, d, i, g) for c in (2, 3, 6) for d in DEPTHS[c] if d >= 4 for i in (0, 1)
+               for g in GAMMA_CHUNKS]
+
+
+@pytest.mark.parametrize("ctype,depth,interlace,chunk", GAMMA_CASES,
+                         ids=[f"{NAMES[c]}{d}-{'adam7' if i else 'flat'}-{g}"
+                              for c, d, i, g in GAMMA_CASES])
+def test_gray_read_under_a_file_gamma_equals_cv2(ctype, depth, interlace, chunk):
+    """A colour PNG that states its gamma (``gAMA``, or ``sRGB``, which wins
+    over it) is read to gray in linear light, as libpng does for cv2: each
+    sample through the to-linear table, the weighted sum back through the
+    from-linear one (16-bit tables cut to 11 bits, or to ``sBIT``'s), a
+    pixel of three equal samples kept.  A gamma libpng finds insignificant,
+    or a ``cHRM`` alone, changes nothing; the colour read never changes.
+    The chunk is placed before ``PLTE`` as the specification asks, and
+    again after it, where libpng ignores it."""
+    data = variant(ctype, depth, interlace, (37, 53), False, seed=depth + 7 * ctype)
+    extra = GAMMA_CHUNKS[chunk]
+    if chunk.startswith("sBIT"):  # 10 significant bits (at most the samples' depth)
+        bits = min(10, 8 if ctype == 3 else depth)
+        extra = _chunk(b"sBIT", bytes([bits] * (3 if ctype == 3 else CHANNELS[ctype]))) + extra
+    for after in (("IHDR", "PLTE") if ctype == 3 else ("IHDR",)):
+        tagged = _with_chunks(data, extra, after)
+        gray = _cv2(tagged, cv2.IMREAD_GRAYSCALE)
+        np.testing.assert_array_equal(png.decode_png(tagged, gray=True), gray)
+        np.testing.assert_array_equal(png.to_rgb(png.decode_png(tagged)), _cv2(tagged))
 
 
 SERVED = [(2, 16, 0), (0, 16, 1), (3, 4, 1), (3, 8, 0), (4, 8, 1), (0, 1, 0), (6, 16, 1)]
