@@ -2719,13 +2719,15 @@ def http_json(url):
         return json.loads(r.read().decode())
 
 
-async def stream_session(port, frames_b64, listing_after=2):
+async def stream_session(port, frames_b64, listing_after=2, refused=()):
     """One client session through the port's WebSocket client: GET / and
     /connect, /ws/{id}, then each frame sent after the previous frame's
     pose_update arrived (send -> pose_update timed on the client), a look
     at /active_sessions, close, and every event up to shutdown_complete.
-    Returns (session id, events, latencies ms, raw keyframe event sizes,
-    the listing)."""
+    A frame whose index is in ``refused`` must be answered by an error
+    event, and the session goes on; an error for any other frame ends the
+    sending.  Returns (session id, events, latencies ms of the frames
+    answered by a pose, raw keyframe event sizes, the listing)."""
     import asyncio
 
     from mast3r_slam_tpu_torch.serve import ws
@@ -2753,9 +2755,10 @@ async def stream_session(port, frames_b64, listing_after=2):
                 ev = await next_event()
                 if ev["type"] == "pose_update" or ev["type"] == "error":
                     break
-            lat.append((time.perf_counter() - t0) * 1e3)
-            if ev["type"] == "error":
-                break
+            if ev["type"] != "error" or i not in refused:
+                lat.append((time.perf_counter() - t0) * 1e3)
+                if ev["type"] == "error":
+                    break
             if i + 1 == listing_after:
                 listing = await loop.run_in_executor(None, http_json, base + "/active_sessions")
         await sock.send(json.dumps({"type": "close"}))
@@ -2783,8 +2786,9 @@ def serve_cfg():
     return cfg
 
 
-def check_session_events(out, n, n_keyframes):
-    """The protocol of one finished session, as a list of faults."""
+def check_session_events(out, n, n_keyframes, n_refused=0):
+    """The protocol of one finished session, as a list of faults;
+    ``n_refused`` frames must each have been dropped with an error event."""
     ev = out["events"]
     types = [e["type"] for e in ev]
     faults = []
@@ -2800,8 +2804,10 @@ def check_session_events(out, n, n_keyframes):
                       f"colours {[(len(e['points']), len(e['colors'])) for e in kfs]}")
     if n >= 10 and "fps_update" not in types:
         faults.append("no fps_update")
-    if "error" in types:
-        faults.append(f"errors {[e for e in ev if e['type'] == 'error']}")
+    errors = [e for e in ev if e["type"] == "error"]
+    if len(errors) != n_refused or any(not e["message"].startswith("frame dropped")
+                                       for e in errors):
+        faults.append(f"errors {errors} ({n_refused} frames to be dropped)")
     end = ev[-1]
     if end != {"type": "shutdown_complete", "n_keyframes": n_keyframes, "n_frames": n}:
         faults.append(f"last event {end}")
@@ -2809,14 +2815,16 @@ def check_session_events(out, n, n_keyframes):
 
 
 def run_serve_vitl(dev, work, n_frames=SERVE_FRAMES, preset="vit_large", payloads=None,
-                   label="11b", what="480x640 PNG"):
+                   label="11b", what="480x640 PNG", refused=None):
     """11b: one ViT-L session at 384x512 through SlamServer on 127.0.0.1
     (port 0, read back), frames of 480x640 as base64 PNG from the port's
     writer (or the base64 ``payloads`` given, ``what`` naming them), with
     the launch counters reset just before the session and read just after;
     then a control that feeds the same decoded frames to
     SLAM.process_frame on a fresh engine from the same factory, without the
-    server.  Returns a dict of checks, counts and times."""
+    server.  ``refused`` maps a position in the sending order to a payload
+    the server must drop with an error event.  Returns a dict of checks,
+    counts and times."""
     import asyncio
     import base64
 
@@ -2841,11 +2849,14 @@ def run_serve_vitl(dev, work, n_frames=SERVE_FRAMES, preset="vit_large", payload
     else:
         frames, n_frames = list(payloads), len(payloads)
     srv = server.SlamServer(keep, host="127.0.0.1", port=0, output_dir=work / "sessions")
+    sent = list(frames)
+    for at in sorted(refused or {}):
+        sent.insert(at, refused[at])
 
     async def session():
         await srv.listen()
         try:
-            return await stream_session(srv.bound_port, frames)
+            return await stream_session(srv.bound_port, sent, refused=set(refused or {}))
         finally:
             await srv.aclose()
 
@@ -2859,7 +2870,7 @@ def run_serve_vitl(dev, work, n_frames=SERVE_FRAMES, preset="vit_large", payload
     n_kf = len(slam.keyframes)
     n_tasks = st.get("backend.update", {"count": 0})["count"]
     n_tracked = st.get("tracker.track", {"count": 0})["count"]
-    faults = check_session_events(out, n_frames, n_kf)
+    faults = check_session_events(out, n_frames, n_kf, len(refused or {}))
     if [s["session_id"] for s in (out["listing"] or {}).get("sessions", [])] != [out["sid"]]:
         faults.append(f"/active_sessions {out['listing']}")
     saved = {e["type"]: pathlib.Path(e["path"]) for e in out["events"]
@@ -2896,6 +2907,7 @@ def run_serve_vitl(dev, work, n_frames=SERVE_FRAMES, preset="vit_large", payload
                session_wall_s=wall, traj_rows=traj_rows, ply_points=ply_points,
                event_counts={t: sum(e["type"] == t for e in out["events"])
                              for t in sorted({e["type"] for e in out["events"]})},
+               errors=[e["message"] for e in out["events"] if e["type"] == "error"],
                stages={k: {m: v[m] for m in ("mean_ms", "p50_ms", "count")}
                        for k, v in st.items()})
     log(f"{label} session ({preset}, {slam.img_hw[0]}x{slam.img_hw[1]} from {what}, "
@@ -3139,11 +3151,17 @@ CLOSE_QUEUE = 8            # 12d: frames queued behind the blocked engine
 
 
 def image_kind(path) -> str:
-    """"baseline" or "progressive" JPEG, or "png", by the file's bytes."""
+    """"baseline", "progressive", "arithmetic", "arithmetic-progressive" or
+    "lossless" JPEG, or "png", by the file's bytes (its frame marker)."""
     data = pathlib.Path(path).read_bytes()
     if data.startswith(b"\x89PNG"):
         return "png"
-    return "progressive" if b"\xff\xc2" in data[:data.index(b"\xff\xda")] else "baseline"
+    head = data[:data.index(b"\xff\xda")]
+    for marker, kind in ((b"\xff\xc2", "progressive"), (b"\xff\xc9", "arithmetic"),
+                         (b"\xff\xca", "arithmetic-progressive"), (b"\xff\xc3", "lossless")):
+        if marker in head:
+            return kind
+    return "baseline"
 
 
 def check_image_fixtures():
@@ -3160,6 +3178,13 @@ def check_image_fixtures():
     digests = json.loads((IMAGE_DATA / "image_fixtures.json").read_text())
     bad = []
     for name, want in sorted(digests.items()):
+        if want["sha256"] is None:  # cv2 returns nothing for the colour read
+            try:
+                png.imread_rgb(IMAGE_DATA / name)
+                bad.append(name)
+            except ValueError:
+                pass
+            continue
         img = png.imread_rgb(IMAGE_DATA / name)
         if (list(img.shape) != want["shape"]
                 or hashlib.sha256(img.tobytes()).hexdigest() != want["sha256"]):
@@ -4357,31 +4382,55 @@ TIMED_DECODES = {"smoothed_2_scans": "image_fixtures/progressive_480x640_2scans.
                  "baseline": "image_folder/000.jpg"}
 
 
+def fixture_faults(name, want):
+    """The reads of one committed fixture that differ from its digests:
+    imread_rgb, imread_gray and the server's decode_image_payload against
+    the SHA-256 of cv2's colour or gray decode; a null digest (cv2 returns
+    nothing) wants a ValueError."""
+    import base64
+    import hashlib
+
+    from mast3r_slam_tpu_torch.data import png
+    from mast3r_slam_tpu_torch.serve import server
+
+    path = IMAGE_DATA / name
+
+    def read(fn):
+        try:
+            return fn()
+        except ValueError as e:
+            return e
+
+    rgb, gray = read(lambda: png.imread_rgb(path)), read(lambda: png.imread_gray(path))
+    payload = read(lambda: server.decode_image_payload(
+        base64.b64encode(path.read_bytes()).decode()))
+
+    def same(img, digest, shape):
+        if digest is None:
+            return isinstance(img, ValueError)
+        return (not isinstance(img, ValueError) and list(img.shape) == shape
+                and hashlib.sha256(img.tobytes()).hexdigest() == digest)
+
+    return [k for k, ok in (
+        ("rgb", same(rgb, want["sha256"], want["shape"])),
+        ("gray", same(gray, want["gray_sha256"], want["shape"][:2])),
+        ("payload", isinstance(payload, ValueError) if want["sha256"] is None
+         else not isinstance(rgb, ValueError) and np.array_equal(
+             payload, rgb.astype(np.float32) / 255.0))) if not ok]
+
+
 def check_last_reads():
     """15a: every committed fixture (tests/data/image_fixtures.json) through
     imread_rgb, imread_gray and the server's decode_image_payload, each
     against the committed SHA-256 of cv2's colour or gray decode (this host
     has no cv2); then TIMED_DECODES decoded to RGB and to gray,
     DECODE_REPEATS times each."""
-    import base64
-    import hashlib
-
-    from mast3r_slam_tpu_torch.data import png
-    from mast3r_slam_tpu_torch.serve import server
     from mast3r_slam_tpu_torch.utils import native
 
     digests = json.loads((IMAGE_DATA / "image_fixtures.json").read_text())
     bad = {}
     for name, want in sorted(digests.items()):
-        path = IMAGE_DATA / name
-        rgb, gray = png.imread_rgb(path), png.imread_gray(path)
-        payload = server.decode_image_payload(base64.b64encode(path.read_bytes()).decode())
-        faults = [k for k, ok in (
-            ("rgb", list(rgb.shape) == want["shape"]
-             and hashlib.sha256(rgb.tobytes()).hexdigest() == want["sha256"]),
-            ("gray", list(gray.shape) == want["shape"][:2]
-             and hashlib.sha256(gray.tobytes()).hexdigest() == want["gray_sha256"]),
-            ("payload", np.array_equal(payload, rgb.astype(np.float32) / 255.0))) if not ok]
+        faults = fixture_faults(name, want)
         if faults:
             bad[name] = faults
     ms = {}
@@ -4419,23 +4468,27 @@ def write_euroc(root, frames):
     return cam.parents[1]
 
 
-def run_cli_euroc(dev, work, preset="vit_large", img_size=512):
+def run_cli_euroc(dev, work, preset="vit_large", img_size=512, frames=None, label="15b",
+                  what="colour frames read as gray"):
     """15b: ViT-L through the CLI (random weights, seed 0, 9b's pinned
     decisions, every frame: subsample 1) over a EuRoC folder whose frames
     are the committed colour image-folder frames (baseline and progressive
-    JPEGs, a palette Adam7 PNG), which EuRoC's read converts to gray; then
-    over the control, a EuRoC folder of the gray reads written back as
-    8-bit RGB PNGs (gray replicated, which the conversion gives back);
-    launch counters reset just before each run and read just after."""
+    JPEGs, a palette Adam7 PNG), which EuRoC's read converts to gray, or
+    the (suffix, bytes) ``frames`` given; then over the control, a EuRoC
+    folder of the gray reads written back as 8-bit RGB PNGs (gray
+    replicated, which the conversion gives back); launch counters reset
+    just before each run and read just after."""
     from mast3r_slam_tpu_torch.data import dataloader, png
     from mast3r_slam_tpu_torch.slam import run
 
-    files = dataloader.RGBFiles(IMAGE_DATA / "image_folder").rgb_files
-    colour = write_euroc(work / "colour", [(pathlib.Path(f).suffix, pathlib.Path(f).read_bytes())
-                                           for f in files])
+    if frames is None:
+        frames = [(pathlib.Path(f).suffix, pathlib.Path(f).read_bytes())
+                  for f in dataloader.RGBFiles(IMAGE_DATA / "image_folder").rgb_files]
+    colour = write_euroc(work / label / "colour", frames)
+    files = sorted((colour / "mav0" / "cam0" / "data").iterdir())
     gray = [png.imread_gray(f) for f in files]
-    control = write_euroc(work / "gray", [(".png", png.encode_png(np.repeat(g[..., None], 3, 2)))
-                                          for g in gray])
+    control = write_euroc(work / label / "gray", [
+        (".png", png.encode_png(np.repeat(g[..., None], 3, 2))) for g in gray])
     argv = ["--config", "eval_no_calib", "--device", str(dev), "--max-frames",
             str(CLI_VITL_FRAMES), "--model-preset",
             "vit_large" if preset == "vit_large" else "tiny", "--set", "dataset.subsample=1"]
@@ -4452,11 +4505,12 @@ def run_cli_euroc(dev, work, preset="vit_large", img_size=512):
 
     with swapped(run, "build_slam", keep), \
             swapped(dataloader.MonocularDataset, "img_size", img_size):
-        res, counts, wall = run_cli(["--dataset", str(colour), "--save-as", "euroc"] + argv)
+        res, counts, wall = run_cli(["--dataset", str(colour), "--save-as", f"euroc_{label}"]
+                                    + argv)
         st = built[-1].timer.stats()
         del built[:]
-        res2, counts2, wall2 = run_cli(["--dataset", str(control), "--save-as", "euroc_gray"]
-                                       + argv)
+        res2, counts2, wall2 = run_cli(["--dataset", str(control), "--save-as",
+                                        f"euroc_{label}_gray"] + argv)
         st2 = built[-1].timer.stats()
         del built[:]
     same_bits = (np.array_equal(res.frame_poses, res2.frame_poses)
@@ -4470,8 +4524,8 @@ def run_cli_euroc(dev, work, preset="vit_large", img_size=512):
                launches=counts, control_launches=counts2, same_bits=bool(same_bits),
                gray_levels=[float(g.mean()) for g in gray],
                ingest_ms_p50=st["ingest"]["p50_ms"], control_ingest_ms_p50=st2["ingest"]["p50_ms"])
-    log(f"15b CLI ({preset}, EuRoC layout, {len(files)} colour frames read as gray, decisions "
-        f"pinned open) {img_size}: {json.dumps(out)}")
+    log(f"{label} CLI ({preset}, EuRoC layout, {len(files)} {what}, decisions pinned open) "
+        f"{img_size}: {json.dumps(out)}")
     return out
 
 
@@ -4527,6 +4581,165 @@ def run_last_reads(dev, work, smi, preset="vit_large"):
         f"colour frames, {euroc['control_ingest_ms_p50']:.2f} ms over the gray PNG control; "
         f"served partial frames send -> pose_update p50 {served['latency_ms_p50']:.1f} ms; "
         f"{smi}")
+    return fixtures, euroc, {k: v for k, v in served.items() if k not in ("stages", "latency_ms")}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the last JPEG codings cv2 gives the JAX package (arithmetic
+# coding, SOF9/SOF10 with DAC; lossless SOF3 through the gray read)
+# ---------------------------------------------------------------------------
+
+# 16a's timed 480x640 files, each beside the baseline file in the same call
+TIMED_CODINGS = {"arithmetic": "image_fixtures/arith_480x640.jpg",
+                 "arithmetic_progressive": "image_fixtures/arith_progressive_480x640.jpg",
+                 "lossless": "image_fixtures/lossless_480x640.jpg",
+                 "baseline": "image_folder/000.jpg"}
+ARITH_SERVE_SEED = 11      # 16c: serve_images' seed (11b's smooth frames, which track)
+LOSSLESS_REFUSED_AT = 4    # 16c: the gray lossless payload's place in the sending order
+
+
+def jpeg_encoders():
+    """tests/torch_jpeg_encoders.py (numpy only): the test-side arithmetic
+    and lossless encoders, neither of which cv2 or PIL has."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_jpeg_encoders", REPO / "tests" / "torch_jpeg_encoders.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_last_codings():
+    """16a: the arithmetic-coded and lossless fixtures (image_fixtures/
+    arith_*, lossless_*) are among the digests 15a holds every read
+    against (a null digest: cv2 returns nothing, the read must raise
+    ValueError); here their count and refused reads, then TIMED_CODINGS
+    decoded, DECODE_REPEATS times each (host clock, median), to RGB and to
+    gray (lossless: gray alone)."""
+    from mast3r_slam_tpu_torch.utils import native
+
+    digests = json.loads((IMAGE_DATA / "image_fixtures.json").read_text())
+    names = [n for n in sorted(digests) if n.split("/")[-1].startswith(("arith_", "lossless_"))]
+    ms = {}
+    for key, name in TIMED_CODINGS.items():
+        data = (IMAGE_DATA / name).read_bytes()
+        for gray in (False, True) if key != "lossless" else (True,):
+            times = []
+            for _ in range(DECODE_REPEATS):
+                t0 = time.perf_counter()
+                native.decode_jpeg(data, gray=gray)
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[f"{key}{'_gray' if gray else ''}"] = statistics.median(times)
+    out = dict(files=len(names),
+               refused_reads=sum((digests[n]["sha256"] is None) + (digests[n]["gray_sha256"]
+                                                                   is None) for n in names),
+               decode_ms=ms)
+    log(f"16a arithmetic and lossless fixtures (read and checked in 15a): {json.dumps(out)}")
+    if len(names) < 14:
+        raise AssertionError(f"16a: {len(names)} arithmetic and lossless fixtures, expected 14")
+    return out
+
+
+def lossless_euroc_frames(enc):
+    """16b: the committed image-folder frames' gray reads as lossless JPEG
+    (predictors 1-7 in turn, every other frame with restarts): each decodes
+    back to exactly the samples coded, and its colour read is refused (cv2
+    returns nothing for it)."""
+    from mast3r_slam_tpu_torch.data import dataloader, png
+    from mast3r_slam_tpu_torch.utils import native
+
+    frames, faults = [], []
+    for i, f in enumerate(dataloader.RGBFiles(IMAGE_DATA / "image_folder").rgb_files):
+        g = png.imread_gray(f)
+        data = enc.lossless_jpeg(g, predictor=1 + i % 7, restart_rows=16 * (i % 2))
+        if not np.array_equal(native.decode_jpeg(data, gray=True), g):
+            faults.append(f"frame {i}: the gray read differs from the samples coded")
+        try:
+            native.decode_jpeg(data)
+            faults.append(f"frame {i}: a colour read of one lossless component decoded")
+        except ValueError:
+            pass
+        frames.append((".jpg", data))
+    if faults:
+        raise AssertionError(f"16b: {faults}")
+    return frames
+
+
+def arithmetic_payloads(dev, enc, n):
+    """16c: serve_images' smooth 480x640 frames as arithmetic-coded JPEG,
+    SOF9 and SOF10 in turn, every third with restarts, base64."""
+    import base64
+
+    return [base64.b64encode(enc.arithmetic_jpeg(
+        img, quality=90, sampling="420", progressive=k % 2 == 1,
+        restart=4 * (k % 3 == 2))).decode()
+        for k, img in enumerate(serve_images(dev, n, seed=ARITH_SERVE_SEED))]
+
+
+def run_last_codings(dev, work, smi, preset="vit_large"):
+    """Phase 16 (a)-(c), each checked; raises on any fault."""
+    import base64
+
+    enc = jpeg_encoders()
+    fixtures = check_last_codings()
+    t0 = time.perf_counter()
+    frames = lossless_euroc_frames(enc)
+    encode_s = time.perf_counter() - t0
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        euroc = run_cli_euroc(dev, work, preset=preset, frames=frames, label="16b",
+                              what="lossless gray frames")
+    finally:
+        os.chdir(cwd)
+    vc = euroc["launches"]
+    want = {"attention": 72 * euroc["frames"] + 48 * euroc["n_tasks"],
+            "refine_window": euroc["n_tracked"] + euroc["n_tasks"]}
+    if ({k: vc[k] for k in want} != want or euroc["n_tasks"] < 1
+            or vc["edge_hg_rays"] < euroc["n_tasks"] or euroc["control_launches"] != vc
+            or not euroc["same_bits"] or euroc["frames"] != CLI_VITL_FRAMES
+            or euroc["loaders"] != ["EurocDataset", "EurocDataset"]
+            or set(euroc["kinds"]) != {"lossless"}):
+        raise AssertionError(
+            f"16b EuRoC CLI over lossless gray frames: launches {vc} (expected {want}: 72 "
+            f"attention a frame and 48 a backend task, one refine a tracked frame and a task; "
+            f"edge_hg_rays >= {euroc['n_tasks']} tasks >= 1), gray PNG control "
+            f"{euroc['control_launches']}, same trajectory bits {euroc['same_bits']}, "
+            f"{euroc['frames']} frames, loaders {euroc['loaders']}, kinds {euroc['kinds']}")
+    t0 = time.perf_counter()
+    payloads = arithmetic_payloads(dev, enc, CLI_VITL_FRAMES)
+    refused = base64.b64encode(enc.lossless_jpeg(
+        serve_images(dev, 1, seed=ARITH_SERVE_SEED)[0][..., 1])).decode()
+    encode_s += time.perf_counter() - t0
+    served = run_serve_vitl(dev, work, preset=preset, label="16c",
+                            what="480x640 arithmetic-coded JPEGs (SOF9, SOF10) and one lossless "
+                                 "gray frame to drop",
+                            payloads=payloads, refused={LOSSLESS_REFUSED_AT: refused})
+    sc = served["launches"]
+    want_s = {"attention": 72 * served["frames"] + 48 * served["n_tasks"],
+              "refine_window": served["n_tracked"] + served["n_tasks"]}
+    if (served["faults"] or not served["same_bits_as_control"]
+            or {k: sc[k] for k in want_s} != want_s
+            or served["n_tasks"] != served["frames"] - 1 or sc["edge_hg_rays"] < served["n_tasks"]
+            or len(served["errors"]) != 1
+            or "colour read of a one-component lossless JPEG" not in served["errors"][0]):
+        raise AssertionError(
+            f"16c ViT-L session over arithmetic-coded frames: faults {served['faults']}, the "
+            f"control's bits {served['same_bits_as_control']}, launches {sc} (expected "
+            f"{want_s}: 72 attention a tracked frame and 48 a backend task, one refine a "
+            f"tracked frame and a task; edge_hg_rays >= {served['n_tasks']} tasks = frames - "
+            f"1), errors {served['errors']} (one: the lossless frame dropped)")
+    dm = fixtures["decode_ms"]
+    log(f"16 decode a 480x640 JPEG (host clock, median of {DECODE_REPEATS}): arithmetic SOF9 "
+        f"{dm['arithmetic']:.2f} ms (gray {dm['arithmetic_gray']:.2f}), SOF10 "
+        f"{dm['arithmetic_progressive']:.2f} ms (gray {dm['arithmetic_progressive_gray']:.2f}), "
+        f"lossless gray {dm['lossless_gray']:.2f} ms, baseline in the same call "
+        f"{dm['baseline']:.2f} ms (gray {dm['baseline_gray']:.2f}); EuRoC CLI ingest p50 "
+        f"{euroc['ingest_ms_p50']:.2f} ms over lossless frames, "
+        f"{euroc['control_ingest_ms_p50']:.2f} ms over the PNG control; served arithmetic "
+        f"frames send -> pose_update p50 {served['latency_ms_p50']:.1f} ms, p95 "
+        f"{served['latency_ms_p95']:.1f}; test-side encoding {encode_s:.1f} s; {smi}")
     return fixtures, euroc, {k: v for k, v in served.items() if k not in ("stages", "latency_ms")}
 
 
@@ -4760,6 +4973,9 @@ def main() -> int:
     # the last reads cv2 gave the JAX package: colour as gray (EuRoC), partial
     # progressive scripts smoothed, CMYK/YCCK; in the same scratch directory
     last_fixtures, last_euroc, last_served = run_last_reads(dev, work, smi)
+    # the last codings: arithmetic-coded JPEG (SOF9, SOF10, DAC) and lossless
+    # JPEG read as gray; in the same scratch directory
+    coding_fixtures, coding_euroc, coding_served = run_last_codings(dev, work, smi)
 
     common = lambda r: {k: r[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms",
@@ -4774,6 +4990,8 @@ def main() -> int:
              image_cli_launches=img_cli["launches"]["attention"],
              euroc_cli_launches=last_euroc["launches"]["attention"],
              partial_serve_launches=last_served["launches"]["attention"],
+             lossless_euroc_cli_launches=coding_euroc["launches"]["attention"],
+             arithmetic_serve_launches=coding_served["launches"]["attention"],
              mesh_launches={"vitl_task_2_shards": mtask["launches"]["attention"],
                             "threaded_vitl_ranks": [c["attention"] for c in tranks]}),
         dict(name="refine_window", route="cuda",
@@ -4790,6 +5008,8 @@ def main() -> int:
              image_cli_launches=img_cli["launches"]["refine_window"],
              euroc_cli_launches=last_euroc["launches"]["refine_window"],
              partial_serve_launches=last_served["launches"]["refine_window"],
+             lossless_euroc_cli_launches=coding_euroc["launches"]["refine_window"],
+             arithmetic_serve_launches=coding_served["launches"]["refine_window"],
              mesh_launches={"vitl_task_2_shards": mtask["launches"]["refine_window"],
                             "two_process_ranks": [c["refine_window"] for c in mranks],
                             "threaded_vitl_ranks": [c["refine_window"] for c in tranks]},
@@ -4808,6 +5028,8 @@ def main() -> int:
              image_cli_launches=img_cli["launches"]["edge_hg_rays"],
              euroc_cli_launches=last_euroc["launches"]["edge_hg_rays"],
              partial_serve_launches=last_served["launches"]["edge_hg_rays"],
+             lossless_euroc_cli_launches=coding_euroc["launches"]["edge_hg_rays"],
+             arithmetic_serve_launches=coding_served["launches"]["edge_hg_rays"],
              mesh_launches={"sharded_solve": {k: r["launches"] for k, r in msolve.items()},
                             "two_process_ranks": [c["edge_hg_rays"] for c in mranks],
                             "threaded_vitl_ranks": [c["edge_hg_rays"] for c in tranks],
@@ -4875,6 +5097,8 @@ def main() -> int:
         "multi_card": multi,
         "last_reads": {"fixtures": last_fixtures, "euroc_cli": last_euroc,
                        "partial_serve": last_served, "card": smi},
+        "last_codings": {"fixtures": coding_fixtures, "lossless_euroc_cli": coding_euroc,
+                         "arithmetic_serve": coding_served, "card": smi},
         "host_reads": {k: v for k, v in host.items() if k != "tracking_gn"},
         "tracking_gn_program": host["tracking_gn"]}
     log(smi)

@@ -9,21 +9,41 @@
 //                IMREAD_COLOR gives it (in RGB order), or as (H, W) uint8
 //                gray, as its IMREAD_GRAYSCALE gives it.
 //
-// Decoded: sequential (SOF0, SOF1) and progressive (SOF2) Huffman coding at
-// 8 bits, 1, 3 or 4 components, sampling factors up to 2x2 at integral
-// ratios (4:4:4, 4:2:2, 4:4:0, 4:2:0), interleaved and single-component
-// scans, restart intervals, any width and height.  A progressive stream's
-// scans (DC first and refinement, AC first and refinement with the
-// end-of-band run) accumulate into the same coefficient buffers that the
-// sequential scans fill, and both end in the same output stage.  A
-// progressive stream whose scans stop early is smoothed as libjpeg-turbo
-// smooths it (smooth_block).  The arithmetic follows libjpeg (the decoder
-// behind cv2.imdecode) where it chooses: the ISLOW integer IDCT with its
-// range limit, "fancy" triangle upsampling of the chroma with its rounding
-// biases and edge replication, the fixed-point YCbCr->RGB, RGB->gray and
-// YCCK->CMYK tables, and OpenCV's own CMYK->BGR and CMYK->gray, so the
-// pixels equal cv2's.  Lossless, hierarchical and arithmetic coding and
-// 12-bit samples are refused (return 2); truncated or corrupt streams
+// Decoded: sequential (SOF0, SOF1) and progressive (SOF2) Huffman coding and
+// sequential (SOF9) and progressive (SOF10) arithmetic coding at 8 bits, 1,
+// 3 or 4 components, sampling factors up to 2x2 at integral ratios (4:4:4,
+// 4:2:2, 4:4:0, 4:2:0), interleaved and single-component scans, restart
+// intervals, any width and height.  A progressive stream's scans (DC first
+// and refinement, AC first and refinement) accumulate into the same
+// coefficient buffers that the sequential scans fill, whatever the entropy
+// coding, and all end in the same output stage.  The arithmetic decoder is
+// libjpeg's (jdarith.c: the QM coder of ITU T.81 Annex D, the statistics of
+// F.1.4 and G.1.3, the DAC marker's conditioning), with its behaviour on
+// bad data: a spectral or magnitude overflow leaves the rest of the restart
+// interval as it stands.  A progressive stream whose scans stop early is
+// smoothed as libjpeg-turbo smooths it (smooth_block).  The arithmetic
+// follows libjpeg (the decoder behind cv2.imdecode) where it chooses: the
+// ISLOW integer IDCT as libjpeg-turbo's x86 SIMD code computes it (its
+// 16-bit lanes decide what a corrupt block gives), "fancy" triangle
+// upsampling of the chroma with its rounding biases and edge replication,
+// the fixed-point YCbCr->RGB, RGB->gray and YCCK->CMYK tables, and
+// OpenCV's own CMYK->BGR and CMYK->gray, so the pixels equal cv2's.
+//
+// Lossless coding (SOF3, Huffman, T.81 Annex H) at 2 to 8 bits is decoded
+// as libjpeg-turbo's jdlossls.c / jddiffct.c decode it: predictors 1-7, the
+// point transform shifted back, the samples cut to 8 bits (never scaled up
+// from fewer), the first row of each iMCU row in which a restart came
+// predicted as a first row, and chroma replicated, not filtered.  cv2 reads
+// it with no colour conversion: gray through IMREAD_GRAYSCALE, three
+// components without JFIF's marker (or with Adobe's transform 0) as RGB and
+// four as CMYK through IMREAD_COLOR.
+//
+// Refused as cv2 refuses them, since cv2.imdecode returns nothing for them
+// (return 4): hierarchical coding, lossless arithmetic coding (SOF11), DCT
+// samples other than 8 bits, lossless samples over 8 bits, and the lossless
+// reads that would need a colour conversion.  Refused as gaps (return 2):
+// sampling factors above 2 in DCT coding, factors at a non-integral ratio,
+// and a height that comes in a DNL marker.  Truncated or corrupt streams
 // return 1.  Every read is bounds-checked: the bytes and the sizes come
 // from the client.
 
@@ -44,8 +64,11 @@ struct Corrupt : std::runtime_error {
 struct Unsupported : std::runtime_error {
   using std::runtime_error::runtime_error;
 };
+struct Refused : std::runtime_error {  // what cv2.imdecode returns nothing for
+  using std::runtime_error::runtime_error;
+};
 
-const char* const kOtherCodings = " is not decoded (ROADMAP Queue 1, item 13c)";
+const char* const kCv2Refuses = ": cv2 returns nothing for it";
 
 // libjpeg-turbo's SAVED_COEFS (jdcoefct.c, 10 since 2.1): block smoothing
 // reads the DC and the first nine AC coefficients of each block
@@ -95,6 +118,7 @@ struct BitReader {
   uint64_t acc = 0;
   int cnt = 0;
   bool at_marker = false;
+  bool past_end = false;  // zeros fed because the bytes ran out, with no marker
   int64_t fed_zeros = 0;  // bits fed past the data
 
   BitReader(const uint8_t* data, size_t size, size_t start) : d(data), n(size), pos(start) {}
@@ -117,6 +141,7 @@ struct BitReader {
         }
       } else {
         fed_zeros += 8;
+        past_end = past_end || !at_marker;
       }
       acc |= b << (56 - cnt);
       cnt += 8;
@@ -140,6 +165,13 @@ struct BitReader {
   int64_t real_left() const { return int64_t(cnt) - fed_zeros; }
   void check() const {
     if (real_left() < 0) throw Corrupt("truncated JPEG: the entropy-coded data ends early");
+  }
+  // zeros past a marker are libjpeg's insufficient data; past the bytes' end
+  // (no marker) the stream is truncated
+  bool insufficient() const {
+    if (real_left() >= 0) return false;
+    if (past_end) throw Corrupt("truncated JPEG: the entropy-coded data ends early");
+    return true;
   }
   // move to the marker that ends the data (skipping any bytes before it):
   // restart markers and the scan's end are byte aligned, and the bits
@@ -171,6 +203,168 @@ struct BitReader {
 
 inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
 
+// Where libjpeg's next_marker finds the marker at or after p: the first
+// 0xFF of a run that ends in a code other than 0x00 (0xFF00 pairs and any
+// other bytes skipped); n if there is none.
+size_t next_marker_at(const uint8_t* d, size_t n, size_t p) {
+  while (true) {
+    while (p < n && d[p] != 0xFF) ++p;
+    size_t q = p + 1;
+    while (q < n && d[q] == 0xFF) ++q;
+    if (q >= n) return n;
+    if (d[q] != 0x00) return p;
+    p = q + 1;
+  }
+}
+
+// T.81 Table D.2 as libjpeg's jaricom.c packs it: Qe << 16, Next_Index_MPS
+// << 8, Switch_MPS << 7, Next_Index_LPS.  Entry 113 is the fixed estimate
+// of 0.5 (T.851) that sign and refinement bits are coded with.
+#define ARI(qe, lps, mps, sw) ((uint32_t(qe) << 16) | (uint32_t(mps) << 8) | ((sw) << 7) | (lps))
+const uint32_t kAriTab[114] = {
+    ARI(0x5a1d, 1, 1, 1),     ARI(0x2586, 14, 2, 0),    ARI(0x1114, 16, 3, 0),
+    ARI(0x080b, 18, 4, 0),    ARI(0x03d8, 20, 5, 0),    ARI(0x01da, 23, 6, 0),
+    ARI(0x00e5, 25, 7, 0),    ARI(0x006f, 28, 8, 0),    ARI(0x0036, 30, 9, 0),
+    ARI(0x001a, 33, 10, 0),   ARI(0x000d, 35, 11, 0),   ARI(0x0006, 9, 12, 0),
+    ARI(0x0003, 10, 13, 0),   ARI(0x0001, 12, 13, 0),   ARI(0x5a7f, 15, 15, 1),
+    ARI(0x3f25, 36, 16, 0),   ARI(0x2cf2, 38, 17, 0),   ARI(0x207c, 39, 18, 0),
+    ARI(0x17b9, 40, 19, 0),   ARI(0x1182, 42, 20, 0),   ARI(0x0cef, 43, 21, 0),
+    ARI(0x09a1, 45, 22, 0),   ARI(0x072f, 46, 23, 0),   ARI(0x055c, 48, 24, 0),
+    ARI(0x0406, 49, 25, 0),   ARI(0x0303, 51, 26, 0),   ARI(0x0240, 52, 27, 0),
+    ARI(0x01b1, 54, 28, 0),   ARI(0x0144, 56, 29, 0),   ARI(0x00f5, 57, 30, 0),
+    ARI(0x00b7, 59, 31, 0),   ARI(0x008a, 60, 32, 0),   ARI(0x0068, 62, 33, 0),
+    ARI(0x004e, 63, 34, 0),   ARI(0x003b, 32, 35, 0),   ARI(0x002c, 33, 9, 0),
+    ARI(0x5ae1, 37, 37, 1),   ARI(0x484c, 64, 38, 0),   ARI(0x3a0d, 65, 39, 0),
+    ARI(0x2ef1, 67, 40, 0),   ARI(0x261f, 68, 41, 0),   ARI(0x1f33, 69, 42, 0),
+    ARI(0x19a8, 70, 43, 0),   ARI(0x1518, 72, 44, 0),   ARI(0x1177, 73, 45, 0),
+    ARI(0x0e74, 74, 46, 0),   ARI(0x0bfb, 75, 47, 0),   ARI(0x09f8, 77, 48, 0),
+    ARI(0x0861, 78, 49, 0),   ARI(0x0706, 79, 50, 0),   ARI(0x05cd, 48, 51, 0),
+    ARI(0x04de, 50, 52, 0),   ARI(0x040f, 50, 53, 0),   ARI(0x0363, 51, 54, 0),
+    ARI(0x02d4, 52, 55, 0),   ARI(0x025c, 53, 56, 0),   ARI(0x01f8, 54, 57, 0),
+    ARI(0x01a4, 55, 58, 0),   ARI(0x0160, 56, 59, 0),   ARI(0x0125, 57, 60, 0),
+    ARI(0x00f6, 58, 61, 0),   ARI(0x00cb, 59, 62, 0),   ARI(0x00ab, 61, 63, 0),
+    ARI(0x008f, 61, 32, 0),   ARI(0x5b12, 65, 65, 1),   ARI(0x4d04, 80, 66, 0),
+    ARI(0x412c, 81, 67, 0),   ARI(0x37d8, 82, 68, 0),   ARI(0x2fe8, 83, 69, 0),
+    ARI(0x293c, 84, 70, 0),   ARI(0x2379, 86, 71, 0),   ARI(0x1edf, 87, 72, 0),
+    ARI(0x1aa9, 87, 73, 0),   ARI(0x174e, 72, 74, 0),   ARI(0x1424, 72, 75, 0),
+    ARI(0x119c, 74, 76, 0),   ARI(0x0f6b, 74, 77, 0),   ARI(0x0d51, 75, 78, 0),
+    ARI(0x0bb6, 77, 79, 0),   ARI(0x0a40, 77, 48, 0),   ARI(0x5832, 80, 81, 1),
+    ARI(0x4d1c, 88, 82, 0),   ARI(0x438e, 89, 83, 0),   ARI(0x3bdd, 90, 84, 0),
+    ARI(0x34ee, 91, 85, 0),   ARI(0x2eae, 92, 86, 0),   ARI(0x299a, 93, 87, 0),
+    ARI(0x2516, 86, 71, 0),   ARI(0x5570, 88, 89, 1),   ARI(0x4ca9, 95, 90, 0),
+    ARI(0x44d9, 96, 91, 0),   ARI(0x3e22, 97, 92, 0),   ARI(0x3824, 99, 93, 0),
+    ARI(0x32b4, 99, 94, 0),   ARI(0x2e17, 93, 86, 0),   ARI(0x56a8, 95, 96, 1),
+    ARI(0x4f46, 101, 97, 0),  ARI(0x47e5, 102, 98, 0),  ARI(0x41cf, 103, 99, 0),
+    ARI(0x3c3d, 104, 100, 0), ARI(0x375e, 99, 93, 0),   ARI(0x5231, 105, 102, 0),
+    ARI(0x4c0f, 106, 103, 0), ARI(0x4639, 107, 104, 0), ARI(0x415e, 103, 99, 0),
+    ARI(0x5627, 105, 106, 1), ARI(0x50e7, 108, 107, 0), ARI(0x4b85, 109, 103, 0),
+    ARI(0x5597, 110, 109, 0), ARI(0x504f, 111, 107, 0), ARI(0x5a10, 110, 111, 1),
+    ARI(0x5522, 112, 109, 0), ARI(0x59eb, 112, 111, 1), ARI(0x5a1d, 113, 113, 0)};
+#undef ARI
+constexpr uint8_t kFixedBin = 113;
+
+// libjpeg's QM decoder (jdarith.c arith_decode): C holds the code base and
+// the bits read ahead, split by ct.  0xFF00 is a stuffed 0xFF; at a marker
+// the decoder is fed zeros, which arithmetic coding allows; data that ends
+// with no marker is truncated (cv2 returns nothing then).
+struct ArithDecoder {
+  const uint8_t* d;
+  size_t n, pos;
+  int64_t c = 0, a = 0;
+  int ct = -16;             // -1 after a spectral or magnitude overflow
+  bool at_marker = false;   // the data met a marker: zeros from there on
+  size_t marker_at = 0;     // that marker's first 0xFF
+  size_t marker_end = 0;    // past its code
+  int marker_code = 0;
+
+  ArithDecoder(const uint8_t* data, size_t size, size_t start) : d(data), n(size), pos(start) {}
+
+  int next_byte() {
+    if (pos >= n) throw Corrupt("truncated JPEG: the arithmetic-coded data ends early");
+    return d[pos++];
+  }
+
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {  // renormalisation and data input (D.2.6)
+      if (--ct < 0) {
+        int data = 0;
+        if (!at_marker) {
+          const size_t at = pos;
+          data = next_byte();
+          if (data == 0xFF) {
+            do data = next_byte(); while (data == 0xFF);
+            if (data == 0) {
+              data = 0xFF;
+            } else {
+              at_marker = true;
+              marker_at = at;
+              marker_end = pos;
+              marker_code = data;
+              data = 0;
+            }
+          }
+        }
+        c = (c << 8) | data;
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;  // two bytes in: A starts at 0x10000
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    uint32_t qe = kAriTab[sv & 0x7F];
+    const uint8_t nl = qe & 0xFF;
+    qe >>= 8;
+    const uint8_t nm = qe & 0xFF;
+    qe >>= 8;
+    int64_t temp = a - qe;  // decision and estimation (D.2.4, D.2.5)
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  // past the restart marker expected (the one the data met, else the next
+  // one), the decoder reset
+  void restart(int expected) {
+    size_t end;
+    int code;
+    if (at_marker) {
+      code = marker_code;
+      end = marker_end;
+    } else {
+      size_t p = next_marker_at(d, n, pos);
+      if (p >= n) throw Corrupt("JPEG restart marker missing");
+      while (d[p] == 0xFF) ++p;
+      code = d[p];
+      end = p + 1;
+    }
+    if (code != 0xD0 + expected) throw Corrupt("JPEG restart marker missing");
+    pos = end;
+    at_marker = false;
+    c = a = 0;
+    ct = -16;
+  }
+
+  // where the marker after the scan's data begins
+  size_t scan_end() const { return at_marker ? marker_at : next_marker_at(d, n, pos); }
+};
+
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
   int vd = 1;             // the vertical factor as declared (smoothing's block rows an iMCU row)
@@ -178,7 +372,11 @@ struct Component {
   int bw = 0, bh = 0;     // blocks a row and column, MCU-padded
   int dw = 0, dh = 0;     // downsampled width and height (real samples)
   std::vector<int16_t> coef;  // bh * bw blocks of 64, natural order
+  std::vector<int32_t> diff;  // lossless: bh x bw samples' differences,
+  std::vector<uint16_t> samp;  // their samples (16 bits, as libjpeg keeps them)
+  std::vector<uint8_t> out8;   // and the samples as output (shifted by Pt, cut to 8 bits)
   int64_t pred = 0;
+  int dc_context = 0;     // arithmetic coding: the DC statistics' conditioning (F.1.4.4.1.2)
   bool scanned = false;
   bool latched = false;   // the quantisation table, copied at the first scan as libjpeg does
   uint16_t qt[64] = {};   // natural order
@@ -195,6 +393,14 @@ struct Decoder {
   int restart = 0;
   bool frame = false, adobe = false, jfif = false;
   bool progressive = false, any_scan = false;
+  bool arithmetic = false, lossless = false;
+  int precision = 8;
+  int unit = 8;           // samples a block is wide: 8, or 1 for lossless coding
+  // arithmetic coding's conditioning (DAC; T.81 F.1.4.4: L 0, U 1, Kx 5
+  // unless set) and its statistics bins, as libjpeg sizes them
+  uint8_t dac_L[16], dac_U[16], dac_K[16];
+  uint8_t dc_stats[16][64], ac_stats[16][256];
+  uint8_t fixed_bin = kFixedBin;
   int adobe_transform = -1;
   int orientation = 1;
   uint16_t quant[4][64] = {};
@@ -203,7 +409,11 @@ struct Decoder {
   Component comp[4];
   bool allocate = false;
 
-  Decoder(const uint8_t* data, size_t size) : d(data), n(size) {}
+  Decoder(const uint8_t* data, size_t size) : d(data), n(size) {
+    std::fill(dac_L, dac_L + 16, 0);
+    std::fill(dac_U, dac_U + 16, 1);
+    std::fill(dac_K, dac_K + 16, 5);
+  }
 
   int u8() {
     if (pos >= n) throw Corrupt("truncated JPEG header");
@@ -256,16 +466,22 @@ struct Decoder {
 
   void read_frame(int m) {
     if (frame) throw Corrupt("second JPEG frame header");
-    progressive = m == 0xC2;
+    progressive = m == 0xC2 || m == 0xCA;
+    arithmetic = m == 0xC9 || m == 0xCA;
+    lossless = m == 0xC3;
+    unit = lossless ? 1 : 8;
     size_t len = size_t(u16());
     size_t end = pos + len - 2;
     if (len < 8 || end > n) throw Corrupt("bad JPEG frame header");
-    int precision = u8();
+    precision = u8();
     height = u16();
     width = u16();
     ncomp = u8();
-    if (precision != 8)
-      throw Unsupported("JPEG of " + std::to_string(precision) + "-bit samples" + kOtherCodings);
+    // libjpeg-turbo reads lossless samples of 2 to 16 bits and DCT ones of
+    // 8 or 12, but cv2 reads 8-bit samples (and fewer, lossless) alone
+    if (lossless ? (precision < 2 || precision > 8) : precision != 8)
+      throw Refused(std::string(lossless ? "lossless JPEG" : "JPEG") + " of " +
+                    std::to_string(precision) + "-bit samples" + kCv2Refuses);
     if (height == 0) throw Unsupported("JPEG whose height comes in a DNL marker");
     if (width == 0) throw Corrupt("JPEG of width 0");
     if (ncomp != 1 && ncomp != 3 && ncomp != 4)
@@ -280,7 +496,7 @@ struct Decoder {
       c.tq = u8();
       if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3)
         throw Corrupt("bad JPEG component header");
-      if (c.h > 2 || c.v > 2)
+      if (!lossless && (c.h > 2 || c.v > 2))  // lossless chroma is replicated, at any factor
         throw Unsupported("JPEG sampling factors above 2");
       c.vd = c.v;
     }
@@ -293,15 +509,23 @@ struct Decoder {
     for (int i = 0; i < ncomp; ++i)
       if (hmax % comp[i].h || vmax % comp[i].v)
         throw Unsupported("JPEG sampling factors at a non-integral ratio");
-    mcux = (width + 8 * hmax - 1) / (8 * hmax);
-    mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+    mcux = (width + unit * hmax - 1) / (unit * hmax);
+    mcuy = (height + unit * vmax - 1) / (unit * vmax);
     for (int i = 0; i < ncomp; ++i) {
       Component& c = comp[i];
       c.bw = mcux * c.h;
       c.bh = mcuy * c.v;
       c.dw = int((int64_t(width) * c.h + hmax - 1) / hmax);
       c.dh = int((int64_t(height) * c.v + vmax - 1) / vmax);
-      if (allocate) c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
+      if (!allocate) continue;
+      const size_t units = size_t(c.bw) * c.bh;
+      if (lossless) {
+        c.diff.assign(units, 0);
+        c.samp.assign(units, 0);
+        c.out8.assign(units, 0);
+      } else {
+        c.coef.assign(units * 64, 0);
+      }
     }
     frame = true;
   }
@@ -337,6 +561,27 @@ struct Decoder {
       pos += total;
     }
     if (pos != end) throw Corrupt("bad JPEG Huffman table");
+  }
+
+  // DAC: arithmetic coding's conditioning of a DC table (L, U) or an AC
+  // table (Kx), checked as libjpeg's get_dac checks it
+  void read_dac() {
+    size_t len = size_t(u16());
+    if (len < 2 || pos + len - 2 > n) throw Corrupt("bad JPEG DAC segment");
+    int64_t left = int64_t(len) - 2;
+    while (left > 0) {
+      const int index = u8(), val = u8();
+      left -= 2;
+      if (index >= 32) throw Corrupt("bad JPEG DAC table index");
+      if (index >= 16) {
+        dac_K[index - 16] = uint8_t(val);
+      } else {
+        dac_L[index] = uint8_t(val & 15);
+        dac_U[index] = uint8_t(val >> 4);
+        if (dac_L[index] > dac_U[index]) throw Corrupt("bad JPEG DAC value");
+      }
+    }
+    if (left != 0) throw Corrupt("bad JPEG DAC segment length");
   }
 
   // the DC prediction, refused where libjpeg's int would overflow
@@ -449,6 +694,176 @@ struct Decoder {
     }
   }
 
+  // Arithmetic coding, after libjpeg's jdarith.c.  A spectral or magnitude
+  // overflow sets ct to -1 (libjpeg warns, JWRN_ARITH_BAD_CODE), and every
+  // later block of the restart interval is left as it stands.
+
+  // F.1.4.4.1 / F.2.4.1: a DC difference, its bins chosen by the
+  // component's last one; false on a magnitude overflow
+  bool arith_dc_diff(ArithDecoder& ad, Component& c, int& v) {
+    uint8_t* const stats = dc_stats[c.td];
+    uint8_t* st = stats + c.dc_context;
+    v = 0;
+    if (ad.decode(st) == 0) {
+      c.dc_context = 0;
+      return true;
+    }
+    const int sign = ad.decode(st + 1);
+    st += 2 + sign;
+    int m = ad.decode(st);
+    if (m) {
+      st = stats + 20;  // X1
+      while (ad.decode(st)) {
+        if ((m <<= 1) == 0x8000) {
+          ad.ct = -1;
+          return false;
+        }
+        st += 1;
+      }
+    }
+    if (m < ((1 << dac_L[c.td]) >> 1))
+      c.dc_context = 0;
+    else if (m > ((1 << dac_U[c.td]) >> 1))
+      c.dc_context = 12 + 4 * sign;
+    else
+      c.dc_context = 4 + 4 * sign;
+    v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ad.decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    return true;
+  }
+
+  // F.1.4.4.2: the sign and magnitude of a nonzero AC coefficient at
+  // zigzag position k, st its bins' base (3 (k - 1)); false on an overflow
+  bool arith_ac_value(ArithDecoder& ad, uint8_t* stats, uint8_t* st, int k, int tbl, int& v) {
+    const int sign = ad.decode(&fixed_bin);
+    st += 2;
+    int m = ad.decode(st);
+    if (m && ad.decode(st)) {
+      m <<= 1;
+      st = stats + (k <= dac_K[tbl] ? 189 : 217);  // X2
+      while (ad.decode(st)) {
+        if ((m <<= 1) == 0x8000) {
+          ad.ct = -1;
+          return false;
+        }
+        st += 1;
+      }
+    }
+    v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ad.decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    return true;
+  }
+
+  // the coefficients of band ss..se, first coded (sequential: 1..63, al 0);
+  // their zero runs and ends of block decided position by position
+  void arith_ac_band(ArithDecoder& ad, Component& c, int16_t* blk, int ss, int se, int al) {
+    uint8_t* const stats = ac_stats[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (ad.decode(st)) break;  // end of block
+      while (ad.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) {  // spectral overflow
+          ad.ct = -1;
+          return;
+        }
+      }
+      int v;
+      if (!arith_ac_value(ad, stats, st, k, c.ta, v)) return;
+      blk[kNatural[k]] = int16_t(int32_t(uint32_t(v) << al));
+    }
+  }
+
+  void arith_block(ArithDecoder& ad, Component& c, int16_t* blk) {
+    if (ad.ct == -1) return;
+    int v;
+    if (!arith_dc_diff(ad, c, v)) return;
+    c.pred = (c.pred + v) & 0xFFFF;
+    blk[0] = int16_t(uint16_t(c.pred));
+    arith_ac_band(ad, c, blk, 1, 63, 0);
+  }
+
+  void arith_dc_first(ArithDecoder& ad, Component& c, int16_t* blk, int al) {
+    if (ad.ct == -1) return;
+    int v;
+    if (!arith_dc_diff(ad, c, v)) return;
+    c.pred += v;
+    blk[0] = shifted(c.pred, al);
+  }
+
+  void arith_dc_refine(ArithDecoder& ad, int16_t* blk, int al) {
+    if (ad.decode(&fixed_bin)) blk[0] = int16_t(blk[0] | (1 << al));
+  }
+
+  void arith_ac_first(ArithDecoder& ad, Component& c, int16_t* blk, int ss, int se, int al) {
+    if (ad.ct == -1) return;
+    arith_ac_band(ad, c, blk, ss, se, al);
+  }
+
+  // G.1.3.3: past the last coefficient already nonzero (EOBx) an end of
+  // block may come; a nonzero coefficient takes a correction bit, a zero
+  // one a decision whether it becomes +-1 << al
+  void arith_ac_refine(ArithDecoder& ad, Component& c, int16_t* blk, int ss, int se, int al) {
+    if (ad.ct == -1) return;
+    uint8_t* const stats = ac_stats[c.ta];
+    const int p1 = 1 << al, m1 = -p1;
+    int kex = se;
+    while (kex > 0 && !blk[kNatural[kex]]) --kex;
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (k > kex && ad.decode(st)) break;
+      while (true) {
+        int16_t& co = blk[kNatural[k]];
+        if (co) {
+          if (ad.decode(st + 2)) co = int16_t(co < 0 ? co + m1 : co + p1);
+          break;
+        }
+        if (ad.decode(st + 1)) {
+          co = int16_t(ad.decode(&fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) {
+          ad.ct = -1;
+          return;
+        }
+      }
+    }
+  }
+
+  // the statistics a scan starts with and each restart resets (libjpeg's
+  // start_pass and process_restart)
+  void reset_arith_stats(Component* const* sc, int ns, int ss, int ah) {
+    for (int i = 0; i < ns; ++i) {
+      Component& c = *sc[i];
+      if (!progressive || (ss == 0 && ah == 0)) {
+        memset(dc_stats[c.td], 0, sizeof(dc_stats[0]));
+        c.pred = 0;
+        c.dc_context = 0;
+      }
+      if (!progressive || ss) memset(ac_stats[c.ta], 0, sizeof(ac_stats[0]));
+    }
+  }
+
+  // the restart marker expected at pos (after any padding), pos moved past it
+  size_t restart_marker(BitReader& br, int expected) {
+    if (!lossless) br.check();
+    br.to_marker();
+    if (br.pos + 1 >= n || d[br.pos] != 0xFF) throw Corrupt("JPEG restart marker missing");
+    size_t p = br.pos + 1;
+    while (p < n && d[p] == 0xFF) ++p;
+    if (p >= n || d[p] != 0xD0 + expected) throw Corrupt("JPEG restart marker missing");
+    return p + 1;
+  }
+
   // one scan's entropy-coded data, from pos to the marker after it
   void read_scan() {
     if (!frame) throw Corrupt("JPEG scan before the frame header");
@@ -467,7 +882,10 @@ struct Decoder {
       if (!c) throw Corrupt("bad JPEG scan component");
       c->td = t >> 4;
       c->ta = t & 15;
-      if (c->td > 3 || c->ta > 3) throw Corrupt("bad JPEG scan component");
+      // Huffman coding has four tables of each kind (lossless coding uses DC
+      // ones alone), arithmetic coding sixteen conditioning tables
+      if (!arithmetic && (c->td > 3 || (!lossless && c->ta > 3)))
+        throw Corrupt("bad JPEG scan component");
       sc[i] = c;
     }
     if (ns > 1) {  // libjpeg's D_MAX_BLOCKS_IN_MCU
@@ -477,12 +895,28 @@ struct Decoder {
     }
     const int ss = u8(), se = u8(), a = u8();
     const int ah = a >> 4, al = a & 15;
+    if (lossless) {
+      // libjpeg-turbo's checks (jdlossls.c): a predictor 1-7, Se 0, no
+      // successive approximation, a point transform below the precision
+      if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= precision)
+        throw Corrupt("bad lossless JPEG scan parameters");
+      for (int i = 0; i < ns; ++i)
+        if (!dc[sc[i]->td].defined) throw Corrupt("JPEG scan uses an undefined Huffman table");
+      read_lossless_scan(sc, ns, ss, al);
+      for (int i = 0; i < ns; ++i) sc[i]->scanned = true;
+      any_scan = true;
+      return;
+    }
     enum Kind { SEQUENTIAL, DC_FIRST, DC_REFINE, AC_FIRST, AC_REFINE } kind = SEQUENTIAL;
     if (!progressive) {
-      if (ss != 0 || se != 63 || a != 0) throw Corrupt("bad JPEG sequential scan parameters");
+      // libjpeg only warns of other parameters; the Huffman decoder here
+      // refuses them, the arithmetic one decodes the whole band as libjpeg does
+      if (!arithmetic && (ss != 0 || se != 63 || a != 0))
+        throw Corrupt("bad JPEG sequential scan parameters");
     } else {
-      // libjpeg's checks (jdphuff.c start_pass_phuff_decoder): a DC band alone,
-      // an AC band of one component, a refinement one bit below the last
+      // libjpeg's checks (jdphuff.c start_pass_phuff_decoder, jdarith.c
+      // start_pass): a DC band alone, an AC band of one component, a
+      // refinement one bit below the last
       bool bad = ss == 0 ? se != 0 : (se < ss || se > 63 || ns != 1);
       if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
       if (bad) throw Corrupt("bad JPEG progressive scan parameters");
@@ -492,7 +926,8 @@ struct Decoder {
       Component* c = sc[i];
       bool need_dc = kind == SEQUENTIAL || kind == DC_FIRST;
       bool need_ac = kind == SEQUENTIAL || kind == AC_FIRST || kind == AC_REFINE;
-      if ((need_dc && !dc[c->td].defined) || (need_ac && !ac[c->ta].defined))
+      if (!arithmetic &&
+          ((need_dc && !dc[c->td].defined) || (need_ac && !ac[c->ta].defined)))
         throw Corrupt("JPEG scan uses an undefined Huffman table");
       if (!c->latched) {
         if (!quant_defined[c->tq])
@@ -507,6 +942,8 @@ struct Decoder {
     }
     int eobrun = 0;
     BitReader br(d, n, pos);
+    ArithDecoder ad(d, n, pos);
+    if (arithmetic) reset_arith_stats(sc, ns, ss, ah);
     int64_t units;  // MCUs of this scan
     int ux = 0;
     if (ns == 1) {
@@ -519,18 +956,27 @@ struct Decoder {
     int next_rst = 0;
     for (int64_t u = 0; u < units; ++u) {
       if (restart && u > 0 && u % restart == 0) {
-        br.check();
-        br.to_marker();
-        if (br.pos + 1 >= n || d[br.pos] != 0xFF) throw Corrupt("JPEG restart marker missing");
-        size_t p = br.pos + 1;
-        while (p < n && d[p] == 0xFF) ++p;
-        if (p >= n || d[p] != 0xD0 + next_rst) throw Corrupt("JPEG restart marker missing");
-        br = BitReader(d, n, p + 1);
+        if (arithmetic) {
+          ad.restart(next_rst);
+          reset_arith_stats(sc, ns, ss, ah);
+        } else {
+          br = BitReader(d, n, restart_marker(br, next_rst));
+        }
         next_rst = (next_rst + 1) & 7;
         for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
         eobrun = 0;
       }
       auto block = [&](Component& c, int16_t* blk) {
+        if (arithmetic) {
+          switch (kind) {
+            case SEQUENTIAL: arith_block(ad, c, blk); break;
+            case DC_FIRST: arith_dc_first(ad, c, blk, al); break;
+            case DC_REFINE: arith_dc_refine(ad, blk, al); break;
+            case AC_FIRST: arith_ac_first(ad, c, blk, ss, se, al); break;
+            case AC_REFINE: arith_ac_refine(ad, c, blk, ss, se, al); break;
+          }
+          return;
+        }
         switch (kind) {
           case SEQUENTIAL: decode_block(br, c, blk); break;
           case DC_FIRST: dc_first(br, c, blk, al); break;
@@ -555,11 +1001,116 @@ struct Decoder {
         }
       }
     }
-    br.check();
-    br.to_marker();
-    pos = br.pos;
+    if (arithmetic) {
+      pos = ad.scan_end();
+    } else {
+      br.check();
+      br.to_marker();
+      pos = br.pos;
+    }
     for (int i = 0; i < ns; ++i) sc[i]->scanned = true;
     any_scan = true;
+  }
+
+  // A lossless scan (T.81 Annex H), after libjpeg-turbo's jdlhuff.c and
+  // jddiffct.c: each sample's difference (category 16 meaning 32768), then
+  // each component's rows undifferenced as libjpeg does it, an iMCU row at
+  // a time: a restart read while an iMCU row's MCU rows are decoded makes
+  // the first row undifferenced after them a first row, predicted from
+  // 1 << (P - Pt - 1) and its left neighbour.  Data that meets a marker
+  // early is libjpeg's insufficient data: zero bits to the end of that MCU
+  // row, then zero differences, each later MCU row resetting the
+  // predictors as a restart does, until a restart marker.
+  void read_lossless_scan(Component* const* sc, int ns, int predictor, int pt) {
+    const int per_row = ns == 1 ? sc[0]->dw : mcux;  // MCUs a row
+    const int mcu_rows = ns == 1 ? sc[0]->dh : mcuy;
+    if (restart % per_row)
+      throw Corrupt("lossless JPEG restart interval of part of an MCU row");
+    const int rows_per_restart = restart / per_row;
+    // the iMCU rows in which a restart came (a non-interleaved scan's iMCU
+    // row is its component's v MCU rows, the factor as declared)
+    const int imcu_mcu_rows = ns == 1 ? sc[0]->vd : 1;
+    std::vector<char> reset(size_t(mcu_rows / imcu_mcu_rows + 1), 0);
+    reset[0] = 1;
+    BitReader br(d, n, pos);
+    int rows_to_go = rows_per_restart, next_rst = 0;
+    bool insufficient = false;
+    auto diff = [&](const Huffman& h) {
+      const int s = br.decode(h);
+      if (s == 0) return 0;
+      if (s == 16) return 32768;
+      if (s > 16) throw Corrupt("bad lossless JPEG difference category");
+      return extend(br.get(s), s);
+    };
+    for (int r = 0; r < mcu_rows; ++r) {
+      if (restart && rows_to_go == 0) {
+        br = BitReader(d, n, restart_marker(br, next_rst));
+        next_rst = (next_rst + 1) & 7;
+        reset[size_t(r / imcu_mcu_rows)] = 1;
+        rows_to_go = rows_per_restart;
+        insufficient = false;
+      }
+      if (insufficient) {  // the differences stay zero
+        reset[size_t(r / imcu_mcu_rows)] = 1;
+        if (restart) --rows_to_go;
+        continue;
+      }
+      for (int x = 0; x < per_row; ++x) {
+        if (ns == 1) {
+          Component& c = *sc[0];
+          c.diff[size_t(r) * c.bw + x] = diff(dc[c.td]);
+          continue;
+        }
+        for (int i = 0; i < ns; ++i) {
+          Component& c = *sc[i];
+          for (int yy = 0; yy < c.v; ++yy)
+            for (int xx = 0; xx < c.h; ++xx)
+              c.diff[size_t(r * c.v + yy) * c.bw + size_t(x * c.h + xx)] = diff(dc[c.td]);
+        }
+      }
+      insufficient = br.insufficient();
+      if (restart) --rows_to_go;
+    }
+    br.to_marker();
+    pos = br.pos;
+    const int initial = 1 << (precision - pt - 1);
+    for (int i = 0; i < ns; ++i) {
+      Component& c = *sc[i];
+      const int rows_a_imcu = ns == 1 ? c.vd : c.v;  // the component's rows an iMCU row
+      bool first = true;
+      for (int y = 0; y < c.dh; ++y) {
+        if (y % rows_a_imcu == 0 && reset[size_t(y / rows_a_imcu)]) first = true;
+        const int32_t* df = c.diff.data() + size_t(y) * c.bw;
+        uint16_t* o = c.samp.data() + size_t(y) * c.bw;
+        if (first) {
+          int ra = (df[0] + initial) & 0xFFFF;
+          o[0] = uint16_t(ra);
+          for (int x = 1; x < c.dw; ++x) o[x] = uint16_t(ra = (df[x] + ra) & 0xFFFF);
+          first = false;
+        } else {
+          const uint16_t* up = o - c.bw;
+          int rb = up[0], ra = (df[0] + rb) & 0xFFFF;
+          o[0] = uint16_t(ra);
+          for (int x = 1; x < c.dw; ++x) {
+            const int rc = rb;
+            rb = up[x];
+            int p;
+            switch (predictor) {
+              case 1: p = ra; break;
+              case 2: p = rb; break;
+              case 3: p = rc; break;
+              case 4: p = ra + rb - rc; break;
+              case 5: p = ra + ((rb - rc) >> 1); break;
+              case 6: p = rb + ((ra - rc) >> 1); break;
+              default: p = (ra + rb) >> 1; break;
+            }
+            o[x] = uint16_t(ra = (df[x] + p) & 0xFFFF);
+          }
+        }
+        uint8_t* o8 = c.out8.data() + size_t(y) * c.bw;
+        for (int x = 0; x < c.dw; ++x) o8[x] = uint8_t(o[x] << pt);  // jdlossls.c's scaler
+      }
+    }
   }
 
   // markers up to and including the frame header (info), or to EOI
@@ -569,19 +1120,16 @@ struct Decoder {
     while (true) {
       if (full && pos >= n && all_scanned()) return;  // the EOI alone is missing
       int m = marker();
-      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 || m == 0xCA) {
         read_frame(m);
         if (!full) return;
       } else if (m == 0xC5 || m == 0xC6 || m == 0xC7 || m == 0xCD || m == 0xCE || m == 0xCF) {
-        throw Unsupported(std::string("hierarchical JPEG (SOF") + std::to_string(m - 0xC0) +
-                          ")" + kOtherCodings);
-      } else if (m == 0xC3 || m == 0xCB) {
-        throw Unsupported(std::string("lossless JPEG (SOF") + std::to_string(m - 0xC0) + ")" +
-                          kOtherCodings);
-      } else if (m == 0xC9 || m == 0xCA || m == 0xCC) {
-        throw Unsupported(std::string("arithmetic-coded JPEG (") +
-                          (m == 0xCC ? std::string("DAC") : "SOF" + std::to_string(m - 0xC0)) +
-                          ")" + kOtherCodings);
+        throw Refused(std::string("hierarchical JPEG (SOF") + std::to_string(m - 0xC0) + ")" +
+                      kCv2Refuses);
+      } else if (m == 0xCB) {
+        throw Refused(std::string("arithmetic-coded lossless JPEG (SOF11)") + kCv2Refuses);
+      } else if (m == 0xCC) {
+        read_dac();
       } else if (m == 0xC4) {
         read_dht();
       } else if (m == 0xDB) {
@@ -645,10 +1193,11 @@ struct Decoder {
   }
 
   bool is_rgb() const {
-    // libjpeg's guess of the colour space of 3 components
+    // libjpeg's guess of the colour space of 3 components (lossless: RGB
+    // unless a marker says otherwise, whatever the ids)
     if (jfif) return false;
     if (adobe) return adobe_transform == 0;
-    return comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B';
+    return lossless || (comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B');
   }
 
   // libjpeg's guess for 4 components: an Adobe transform other than 0
@@ -656,116 +1205,105 @@ struct Decoder {
   bool is_ycck() const { return adobe && adobe_transform != 0; }
 };
 
-// libjpeg's post-IDCT range limit: the descaled value plus 128, clamped,
-// indexed modulo 1024 (a corrupt block wraps rather than reads outside)
-inline uint8_t idct_limit(int32_t x) {
-  int v = x & 1023;
-  if (v < 128) return uint8_t(v + 128);
-  if (v < 512) return 255;
-  if (v < 896) return 0;
-  return uint8_t(v - 896);
+// jpeg_idct_islow as libjpeg-turbo's x86 SIMD code computes it
+// (jidctint-sse2.asm / -avx2.asm, which cv2's build runs): the algorithm of
+// jidctint.c (CONST_BITS 13, PASS1_BITS 2) regrouped into pairwise
+// products, on 16-bit lanes.  For the coefficients of any real image it
+// equals the C code; where a corrupt stream's coefficients overflow, the
+// lanes wrap and saturate as the SIMD code's do: coefficient times
+// quantiser kept to 16 bits, the sums in0 + in4, in0 - in4, in7 + in3 and
+// in5 + in1 wrapped to 16 bits, the 32-bit products wrapped, each pass's
+// result saturated to 16 bits, and the output saturated to 0..255.  A block
+// whose rows 1-7 are all zero takes pass 1's shortcut (the DC row times 4,
+// wrapped to 16 bits).  Two more skips give what the full pass gives: a
+// column whose dequantised rows 1-7 are zero is its DC times 4, saturated,
+// and a row of the workspace whose entries 1-7 are zero is its entry 0
+// descaled by 5 bits.
+namespace islow {
+
+constexpr int32_t F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270, F0899 = 7373,
+                  F1175 = 9633, F1501 = 12299, F1847 = 15137, F1961 = 16069, F2053 = 16819,
+                  F2562 = 20995, F3072 = 25172;
+
+inline int16_t wrap16(int32_t x) { return int16_t(uint16_t(uint32_t(x))); }
+inline int16_t sat16(int32_t x) { return int16_t(x < -32768 ? -32768 : (x > 32767 ? 32767 : x)); }
+// pmaddwd: a * fa + b * fb of 16-bit lanes into a 32-bit one (wrapping)
+inline int32_t madd(int16_t a, int32_t fa, int16_t b, int32_t fb) {
+  return int32_t(uint32_t(int32_t(a) * fa) + uint32_t(int32_t(b) * fb));
+}
+inline int32_t add(int32_t a, int32_t b) { return int32_t(uint32_t(a) + uint32_t(b)); }
+inline int32_t sub(int32_t a, int32_t b) { return int32_t(uint32_t(a) - uint32_t(b)); }
+
+// one 1-D pass over in[0], in[step], ..., in[7 step]: the eight sums
+// before their descaling, in output order
+inline void pass(const int16_t* in, int step, int32_t* o) {
+  const int16_t i0 = in[0], i1 = in[step], i2 = in[2 * step], i3 = in[3 * step],
+                i4 = in[4 * step], i5 = in[5 * step], i6 = in[6 * step], i7 = in[7 * step];
+  // even part: tmp3 = z2 (0.541 + 0.765) + z3 0.541, tmp2 = z2 0.541 + z3 (0.541 - 1.848)
+  const int32_t tmp3 = madd(i2, F0541 + F0765, i6, F0541);
+  const int32_t tmp2 = madd(i2, F0541, i6, F0541 - F1847);
+  const int32_t tmp0 = int32_t(uint32_t(int32_t(wrap16(i0 + i4))) << 13);
+  const int32_t tmp1 = int32_t(uint32_t(int32_t(wrap16(i0 - i4))) << 13);
+  const int32_t tmp10 = add(tmp0, tmp3), tmp13 = sub(tmp0, tmp3);
+  const int32_t tmp11 = add(tmp1, tmp2), tmp12 = sub(tmp1, tmp2);
+  // odd part, z3 = in7 + in3 and z4 = in5 + in1 in 16 bits
+  const int16_t z3 = wrap16(i7 + i3), z4 = wrap16(i5 + i1);
+  const int32_t z3m = madd(z3, F1175 - F1961, z4, F1175);
+  const int32_t z4m = madd(z3, F1175, z4, F1175 - F0390);
+  const int32_t o0 = add(madd(i7, F0298 - F0899, i1, -F0899), z3m);
+  const int32_t o3 = add(madd(i7, -F0899, i1, F1501 - F0899), z4m);
+  const int32_t o1 = add(madd(i5, F2053 - F2562, i3, -F2562), z4m);
+  const int32_t o2 = add(madd(i5, -F2562, i3, F3072 - F2562), z3m);
+  o[0] = add(tmp10, o3);
+  o[7] = sub(tmp10, o3);
+  o[1] = add(tmp11, o2);
+  o[6] = sub(tmp11, o2);
+  o[2] = add(tmp12, o1);
+  o[5] = sub(tmp12, o1);
+  o[3] = add(tmp13, o0);
+  o[4] = sub(tmp13, o0);
 }
 
-// jpeg_idct_islow of libjpeg's jidctint.c (CONST_BITS 13, PASS1_BITS 2)
+}  // namespace islow
+
 void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) {
-  constexpr int CB = 13, P1 = 2;
-  constexpr int64_t F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270, F0899 = 7373,
-                    F1175 = 9633, F1501 = 12299, F1847 = 15137, F1961 = 16069,
-                    F2053 = 16819, F2562 = 20995, F3072 = 25172;
-  auto descale = [](int64_t x, int n) { return int32_t((x + (int64_t(1) << (n - 1))) >> n); };
-  int32_t ws[64];
-  for (int c = 0; c < 8; ++c) {
-    const int16_t* ip = in + c;
-    const uint16_t* qp = q + c;
-    if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] && !ip[48] && !ip[56]) {
-      int32_t dcval = int64_t(ip[0]) * qp[0] * (1 << P1);
-      for (int r = 0; r < 8; ++r) ws[r * 8 + c] = dcval;
-      continue;
+  using namespace islow;
+  int16_t dq[64], ws[64];
+  for (int k = 0; k < 64; ++k) dq[k] = wrap16(int32_t(in[k]) * int32_t(q[k]));
+  bool ac_zero = true;
+  for (int k = 8; k < 64 && ac_zero; ++k) ac_zero = in[k] == 0;
+  if (ac_zero) {
+    for (int c = 0; c < 8; ++c) {
+      const int16_t v = wrap16(int32_t(uint32_t(int32_t(dq[c])) << 2));
+      for (int r = 0; r < 8; ++r) ws[r * 8 + c] = v;
     }
-    int64_t z2 = int64_t(ip[16]) * qp[16], z3 = int64_t(ip[48]) * qp[48];
-    int64_t z1 = (z2 + z3) * F0541;
-    int64_t tmp2 = z1 + z3 * -F1847, tmp3 = z1 + z2 * F0765;
-    z2 = int64_t(ip[0]) * qp[0];
-    z3 = int64_t(ip[32]) * qp[32];
-    int64_t tmp0 = (z2 + z3) * (int64_t(1) << CB), tmp1 = (z2 - z3) * (int64_t(1) << CB);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = int64_t(ip[56]) * qp[56];
-    tmp1 = int64_t(ip[40]) * qp[40];
-    tmp2 = int64_t(ip[24]) * qp[24];
-    tmp3 = int64_t(ip[8]) * qp[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * F1175;
-    tmp0 *= F0298;
-    tmp1 *= F2053;
-    tmp2 *= F3072;
-    tmp3 *= F1501;
-    z1 *= -F0899;
-    z2 *= -F2562;
-    z3 *= -F1961;
-    z4 *= -F0390;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    ws[0 * 8 + c] = descale(tmp10 + tmp3, CB - P1);
-    ws[7 * 8 + c] = descale(tmp10 - tmp3, CB - P1);
-    ws[1 * 8 + c] = descale(tmp11 + tmp2, CB - P1);
-    ws[6 * 8 + c] = descale(tmp11 - tmp2, CB - P1);
-    ws[2 * 8 + c] = descale(tmp12 + tmp1, CB - P1);
-    ws[5 * 8 + c] = descale(tmp12 - tmp1, CB - P1);
-    ws[3 * 8 + c] = descale(tmp13 + tmp0, CB - P1);
-    ws[4 * 8 + c] = descale(tmp13 - tmp0, CB - P1);
+  } else {
+    int32_t o[8];
+    for (int c = 0; c < 8; ++c) {
+      const int16_t* d = dq + c;
+      if (!d[8] && !d[16] && !d[24] && !d[32] && !d[40] && !d[48] && !d[56]) {
+        const int16_t v = sat16(int32_t(d[0]) * 4);
+        for (int r = 0; r < 8; ++r) ws[r * 8 + c] = v;
+        continue;
+      }
+      pass(d, 8, o);
+      for (int r = 0; r < 8; ++r) ws[r * 8 + c] = sat16(add(o[r], 1 << 10) >> 11);
+    }
   }
+  int32_t o[8];
   for (int r = 0; r < 8; ++r) {
-    const int32_t* w = ws + r * 8;
+    const int16_t* w = ws + r * 8;
     uint8_t* op = out + size_t(r) * stride;
     if (!w[1] && !w[2] && !w[3] && !w[4] && !w[5] && !w[6] && !w[7]) {
-      uint8_t v = idct_limit(descale(w[0], P1 + 3));
-      for (int k = 0; k < 8; ++k) op[k] = v;
+      const int v = (int32_t(w[0]) + 16) >> 5;
+      memset(op, (v < -128 ? -128 : (v > 127 ? 127 : v)) + 128, 8);
       continue;
     }
-    int64_t z2 = w[2], z3 = w[6];
-    int64_t z1 = (z2 + z3) * F0541;
-    int64_t tmp2 = z1 + z3 * -F1847, tmp3 = z1 + z2 * F0765;
-    int64_t tmp0 = (w[0] + w[4]) * (int64_t(1) << CB), tmp1 = (w[0] - w[4]) * (int64_t(1) << CB);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = w[7];
-    tmp1 = w[5];
-    tmp2 = w[3];
-    tmp3 = w[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * F1175;
-    tmp0 *= F0298;
-    tmp1 *= F2053;
-    tmp2 *= F3072;
-    tmp3 *= F1501;
-    z1 *= -F0899;
-    z2 *= -F2562;
-    z3 *= -F1961;
-    z4 *= -F0390;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    constexpr int S = CB + P1 + 3;
-    op[0] = idct_limit(descale(tmp10 + tmp3, S));
-    op[7] = idct_limit(descale(tmp10 - tmp3, S));
-    op[1] = idct_limit(descale(tmp11 + tmp2, S));
-    op[6] = idct_limit(descale(tmp11 - tmp2, S));
-    op[2] = idct_limit(descale(tmp12 + tmp1, S));
-    op[5] = idct_limit(descale(tmp12 - tmp1, S));
-    op[3] = idct_limit(descale(tmp13 + tmp0, S));
-    op[4] = idct_limit(descale(tmp13 - tmp0, S));
+    pass(w, 1, o);
+    for (int k = 0; k < 8; ++k) {
+      const int v = sat16(add(o[k], 1 << 17) >> 18);
+      op[k] = uint8_t((v < -128 ? -128 : (v > 127 ? 127 : v)) + 128);
+    }
   }
 }
 
@@ -1016,6 +1554,23 @@ void idct_component(const Decoder& dec, const Component& c, bool smooth, uint8_t
   }
 }
 
+// The lossless reads cv2 makes: libjpeg-turbo converts no colour in lossless
+// mode (jdcolor.c), so a gray read needs one component, a colour read RGB
+// (three components; JFIF's marker or an Adobe transform other than 0 makes
+// them YCbCr) or CMYK (four; Adobe's transform other than 0 makes them
+// YCCK), and OpenCV turns CMYK into BGR or gray itself.
+void lossless_colour_space(const Decoder& dec, bool gray) {
+  const int nc = dec.ncomp;
+  if (nc == 1 && !gray)
+    throw Refused(std::string("a colour read of a one-component lossless JPEG") + kCv2Refuses);
+  if (nc == 3 && !dec.is_rgb())
+    throw Refused(std::string("lossless JPEG of YCbCr components") + kCv2Refuses);
+  if (nc == 3 && gray)
+    throw Refused(std::string("a gray read of a three-component lossless JPEG") + kCv2Refuses);
+  if (nc == 4 && dec.is_ycck())
+    throw Refused(std::string("lossless JPEG of YCCK components") + kCv2Refuses);
+}
+
 // The image as cv2.imdecode returns it: (H, W, 3) RGB for IMREAD_COLOR
 // (in RGB order), (H, W) for IMREAD_GRAYSCALE.  libjpeg's output colour
 // space is cv2's choice: gray for a gray read of 1 or 3 components (the Y
@@ -1030,12 +1585,24 @@ void to_output(Decoder& dec, bool gray, uint8_t* out) {
   // a gray read of YCbCr needs the Y component alone (component_needed)
   const bool y_only = gray && dec.ncomp == 3 && !dec.is_rgb();
   const int used = dec.ncomp == 1 || y_only ? 1 : dec.ncomp;
+  if (dec.lossless) lossless_colour_space(dec, gray);
   std::vector<std::vector<uint8_t>> full(used);
   for (int i = 0; i < used; ++i) {
     Component& c = dec.comp[i];
+    full[i].resize(npix);
+    // lossless: no IDCT, and the samples replicated (libjpeg's min_DCT_scaled_size
+    // of 1 turns fancy upsampling off)
+    if (dec.lossless) {
+      const int hr = dec.hmax / c.h, vr = dec.vmax / c.v;
+      for (int y = 0; y < H; ++y) {
+        const uint8_t* ip = c.out8.data() + size_t(y / vr) * c.bw;
+        uint8_t* o = full[i].data() + size_t(y) * W;
+        for (int x = 0; x < W; ++x) o[x] = ip[x / hr];
+      }
+      continue;
+    }
     std::vector<uint8_t> plane(size_t(c.bw) * 8 * c.bh * 8);
     idct_component(dec, c, smooth, plane.data());
-    full[i].resize(npix);
     upsample(c, plane, dec.hmax / c.h, dec.vmax / c.v, W, H, full[i].data());
   }
   static const ColourTables t;
@@ -1100,7 +1667,8 @@ void set_error(char* err, int errlen, const char* msg) {
 
 extern "C" {
 
-// 0: ok; 1: corrupt or truncated; 2: a coding this decoder refuses.
+// 0: ok; 1: corrupt or truncated; 2: a coding not decoded here; 3: out of
+// memory; 4: a stream cv2.imdecode returns nothing for.
 // info[0..3] = width, height, components, EXIF orientation (1..8).
 int jpeg_info(const uint8_t* data, int64_t size, int* info, char* err, int errlen) {
   try {
@@ -1114,6 +1682,9 @@ int jpeg_info(const uint8_t* data, int64_t size, int* info, char* err, int errle
   } catch (const Unsupported& e) {
     set_error(err, errlen, e.what());
     return 2;
+  } catch (const Refused& e) {
+    set_error(err, errlen, e.what());
+    return 4;
   } catch (const Corrupt& e) {
     set_error(err, errlen, e.what());
     return 1;
@@ -1141,6 +1712,9 @@ int jpeg_decode(const uint8_t* data, int64_t size, int width, int height, int gr
   } catch (const Unsupported& e) {
     set_error(err, errlen, e.what());
     return 2;
+  } catch (const Refused& e) {
+    set_error(err, errlen, e.what());
+    return 4;
   } catch (const Corrupt& e) {
     set_error(err, errlen, e.what());
     return 1;

@@ -200,7 +200,10 @@ def decode_image_payload(data_b64: str) -> np.ndarray:
     their magic bytes: PNG through ``data/png.py``, JPEG through the host
     library's decoder (``csrc/host/jpeg.cpp``).  Gray is replicated and
     alpha dropped, as ``cv2.imdecode(..., IMREAD_COLOR)`` does.  Other bytes
-    raise ``ValueError``; a JPEG coding the decoder refuses raises
+    raise ``ValueError``, and so does a JPEG that ``cv2.imdecode`` returns
+    nothing for (a one-component lossless JPEG among them: its colour read
+    would need a conversion libjpeg-turbo refuses in lossless mode); JPEG
+    sampling factors the decoder does not take raise
     ``NotImplementedError``."""
     from ..data import png
 

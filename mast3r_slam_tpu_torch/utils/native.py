@@ -180,14 +180,19 @@ def _jpeg_error(rc: int, err) -> Exception:
         return NotImplementedError(msg)
     if rc == 1:
         return ValueError(f"corrupt JPEG: {msg}")
+    if rc == 4:
+        return ValueError(msg)
     return MemoryError(msg)
 
 
 def jpeg_info(data: bytes) -> dict:
     """The headers of a JPEG stream up to its frame: ``width``, ``height``,
     ``components`` (1, 3 or 4) and the EXIF ``orientation`` (1-8).  A coding
-    the decoder refuses raises ``NotImplementedError``, a corrupt header
-    ``ValueError``."""
+    that cv2 returns nothing for (hierarchical, SOF11, DCT samples other
+    than 8 bits, lossless ones over 8) or a corrupt header raises
+    ``ValueError``; a header the decoder does not take (sampling factors
+    above 2 in DCT coding or at a non-integral ratio, a DNL height)
+    ``NotImplementedError``."""
     lib = load()
     src = np.frombuffer(data, dtype=np.uint8)
     info = (ctypes.c_int * 4)()
@@ -200,16 +205,20 @@ def jpeg_info(data: bytes) -> dict:
 
 def decode_jpeg(data: bytes, max_pixels: int = MAX_PIXELS, gray: bool = False) -> np.ndarray:
     """Decode a JPEG (``csrc/host/jpeg.cpp``: sequential and progressive
-    Huffman coding, a progressive stream's early stop smoothed as
-    libjpeg-turbo smooths it) with the EXIF orientation applied: to
-    (H, W, 3) uint8 RGB, gray replicated, as
-    ``cv2.cvtColor(cv2.imdecode(..., IMREAD_COLOR), COLOR_BGR2RGB)``, or
-    with ``gray`` to (H, W) uint8, as ``cv2.imdecode(...,
-    IMREAD_GRAYSCALE)`` (the Y plane of YCbCr, libjpeg's RGB->gray of
-    RGB, OpenCV's CMYK->gray of CMYK and YCCK).  Codings the decoder
-    refuses raise ``NotImplementedError`` naming their ROADMAP item; a
-    truncated or corrupt stream, or one larger than ``max_pixels``, raises
-    ``ValueError``."""
+    Huffman or arithmetic coding, a progressive stream's early stop
+    smoothed as libjpeg-turbo smooths it, and lossless coding at 2 to 8
+    bits) with the EXIF orientation applied: to (H, W, 3) uint8 RGB, gray
+    replicated, as ``cv2.cvtColor(cv2.imdecode(..., IMREAD_COLOR),
+    COLOR_BGR2RGB)``, or with ``gray`` to (H, W) uint8, as
+    ``cv2.imdecode(..., IMREAD_GRAYSCALE)`` (the Y plane of YCbCr,
+    libjpeg's RGB->gray of RGB, OpenCV's CMYK->gray of CMYK and YCCK).
+    A stream cv2 returns nothing for raises ``ValueError``: hierarchical
+    and SOF11 coding, DCT samples other than 8 bits, lossless ones over 8,
+    and the lossless reads that need a colour conversion (a colour read of
+    one component, a gray read of three, YCbCr or YCCK).  So does a
+    truncated or corrupt stream, or one larger than ``max_pixels``.
+    Sampling factors the decoder does not take raise
+    ``NotImplementedError``."""
     info = jpeg_info(data)
     W, H = info["width"], info["height"]
     if W * H > max_pixels:

@@ -1,7 +1,7 @@
-"""Write the image fixtures that ``chip_smoke.py`` phases 12 and 15 decode
-on the card's host, which has no cv2, and the SHA-256 digests of cv2's
-decode of each (``tests/data/image_fixtures.json``).  Needs cv2 and PIL, so
-it runs where the tests run:
+"""Write the image fixtures that ``chip_smoke.py`` phases 12, 15 and 16
+decode on the card's host, which has no cv2, and the SHA-256 digests of
+cv2's decode of each (``tests/data/image_fixtures.json``).  Needs cv2 and
+PIL, so it runs where the tests run:
 
     python scripts/make_image_fixtures.py
 
@@ -17,7 +17,13 @@ Written under ``tests/data/``:
                     and gray, with and without restarts, a CMYK one); and
                     the whole 480x640 progressive file whose first two
                     and 2 scans of a textured 480x640 progressive file, the
-                    whole file beside them;
+                    whole file beside them; arithmetic-coded JPEG from the
+                    test-side QM encoder (tests/torch_jpeg_encoders.py):
+                    SOF9 4:2:0, gray, with restarts, with DAC conditioning
+                    and CMYK, SOF10 whole and cut after 3 scans, and
+                    480x640 SOF9 and SOF10 files; lossless JPEG (SOF3)
+                    at predictors 1, 4 (restarts) and 7 (Pt 2), three
+                    components (which cv2 reads as RGB) and 480x640 gray;
   image_folder/     8 frames at 480x640 for the CLI run: baseline and
                     progressive JPEGs and one palette Adam7 PNG;
   serve_frames/     8 constant-gray 480x640 frames (frame k at level k + 1,
@@ -30,7 +36,9 @@ Written under ``tests/data/``:
                     served ViT-L session.
 The digests are of (H, W, 3) uint8 RGB, C order: ``cv2.imread`` converted
 from BGR (``sha256``), and of (H, W) uint8, ``cv2.imread(...,
-IMREAD_GRAYSCALE)`` (``gray_sha256``).  The PNG variants come from the
+IMREAD_GRAYSCALE)`` (``gray_sha256``); null where cv2 returns nothing for
+the read (a gray lossless file's colour read, a three-component lossless
+file's gray one), which the port's reads then refuse.  The PNG variants come from the
 writer of ``tests/test_torch_png_variants.py`` (cv2 writes no palette or
 interlaced PNG).
 """
@@ -51,6 +59,7 @@ from PIL import Image
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 DATA = ROOT / "tests" / "data"
 sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
+import torch_jpeg_encoders as enc  # noqa: E402
 from test_torch_png_variants import _chunk, _with_chunks, write_png  # noqa: E402
 
 
@@ -89,15 +98,13 @@ def palette_png(rgb, interlace, depth=8):
 
 
 def cv2_rgb(path):
+    """cv2's colour read in RGB order, None where it returns nothing."""
     img = cv2.imread(str(path), cv2.IMREAD_COLOR)
-    assert img is not None, path
-    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    return None if img is None else cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
 
 
 def cv2_gray(path):
-    img = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)
-    assert img is not None, path
-    return img
+    return cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)
 
 
 def segments(data):
@@ -194,6 +201,35 @@ def main():
         files[fx / f"{name}.jpg"] = first_scans(jpeg(
             cut[..., 1], cv2.IMWRITE_JPEG_PROGRESSIVE, 1, cv2.IMWRITE_JPEG_RST_INTERVAL, rst), k)
 
+    # arithmetic coding (SOF9, SOF10, DAC) and lossless coding (SOF3)
+    files[fx / "arith_420.jpg"] = enc.arithmetic_jpeg(smooth((120, 160), 15), quality=90)
+    files[fx / "arith_gray.jpg"] = enc.arithmetic_jpeg(smooth((75, 101), 16)[..., 1],
+                                                       quality=85)
+    files[fx / "arith_420_rst.jpg"] = enc.arithmetic_jpeg(smooth((120, 160), 17), quality=90,
+                                                          restart=3)
+    files[fx / "arith_dac.jpg"] = enc.arithmetic_jpeg(
+        smooth((57, 75), 18), quality=95, sampling="422", dac_dc={0: (2, 6), 1: (1, 3)},
+        dac_ac={0: 2, 1: 9})
+    arith_prog = smooth((120, 160), 19)
+    files[fx / "arith_progressive_420.jpg"] = enc.arithmetic_jpeg(arith_prog, quality=90,
+                                                                  progressive=True, restart=2)
+    files[fx / "arith_progressive_420_3scans.jpg"] = enc.arithmetic_jpeg(
+        arith_prog, quality=90, progressive=True, scans=3)
+    inks = np.concatenate([smooth((64, 96), 20), smooth((64, 96), 21)[..., :1]], -1)
+    files[fx / "arith_cmyk.jpg"] = enc.arithmetic_jpeg(inks, quality=90, sampling="444")
+    gray = smooth((61, 83), 22)[..., 1]
+    files[fx / "lossless_p1.jpg"] = enc.lossless_jpeg(gray, predictor=1)
+    files[fx / "lossless_p4_rst.jpg"] = enc.lossless_jpeg(gray, predictor=4, restart_rows=5)
+    files[fx / "lossless_p7_pt2.jpg"] = enc.lossless_jpeg(gray, predictor=7, pt=2)
+    rgb = smooth((37, 53), 23)
+    files[fx / "lossless_rgb.jpg"] = enc.lossless_jpeg([rgb[..., k] for k in range(3)],
+                                                       predictor=5, restart_rows=4)
+    big = smooth_field((480, 640), 24)
+    files[fx / "arith_480x640.jpg"] = enc.arithmetic_jpeg(big, quality=90)
+    files[fx / "arith_progressive_480x640.jpg"] = enc.arithmetic_jpeg(big, quality=90,
+                                                                      progressive=True)
+    files[fx / "lossless_480x640.jpg"] = enc.lossless_jpeg(big[..., 1], predictor=1)
+
     folder = DATA / "image_folder"
     folder.mkdir(parents=True, exist_ok=True)
     kinds = [("baseline", 90, "420"), ("progressive", 90, "420"), ("palette-adam7", 0, None),
@@ -242,9 +278,11 @@ def main():
     for path, data in files.items():
         path.write_bytes(data)
         rgb, gray = cv2_rgb(path), cv2_gray(path)
+        assert rgb is not None or gray is not None, path
         digests[str(path.relative_to(DATA))] = {
-            "shape": list(rgb.shape), "sha256": hashlib.sha256(rgb.tobytes()).hexdigest(),
-            "gray_sha256": hashlib.sha256(gray.tobytes()).hexdigest()}
+            "shape": list(rgb.shape) if rgb is not None else list(gray.shape) + [3],
+            "sha256": None if rgb is None else hashlib.sha256(rgb.tobytes()).hexdigest(),
+            "gray_sha256": None if gray is None else hashlib.sha256(gray.tobytes()).hexdigest()}
     (DATA / "image_fixtures.json").write_text(json.dumps(digests, indent=1, sort_keys=True)
                                               + "\n")
     total = sum(len(d) for d in files.values())

@@ -29,6 +29,7 @@ from mast3r_slam_tpu_torch.eval.trajectory import load_traj_tum
 from mast3r_slam_tpu_torch.serve import server
 from mast3r_slam_tpu_torch.slam import run as trun
 
+import torch_jpeg_encoders as enc
 from oracle import OracleModel, arc_trajectory
 from test_torch_cli import POSE_ATOL, _files, _oracle
 from test_torch_common import CPU, TorchOracleModel
@@ -57,6 +58,16 @@ def _write(path, bgr, kind):
         ok, buf = cv2.imencode(".jpg", bgr[..., 1], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     elif kind == "png":
         ok, buf = cv2.imencode(".png", bgr)
+    elif kind.startswith("arithmetic"):  # the test-side QM encoder (SOF9, SOF10)
+        path.write_bytes(enc.arithmetic_jpeg(bgr[..., ::-1], quality=90, restart=3,
+                                             progressive=kind.endswith("progressive")))
+        return
+    elif kind.startswith("lossless"):  # SOF3: gray, or three components read as RGB
+        planes = (bgr[..., 1] if kind == "lossless-gray"
+                  else [bgr[..., 2], bgr[..., 1], bgr[..., 0]])
+        path.write_bytes(enc.lossless_jpeg(planes, predictor=1 + len(path.name) % 7,
+                                           restart_rows=4))
+        return
     else:  # a PNG variant from the test writer: "ctype-depth-interlace"
         c, d, i = map(int, kind.split("-"))
         path.write_bytes(variant(c, d, i, bgr.shape[:2], False, seed=len(path.name)))
@@ -70,6 +81,8 @@ FOLDERS = {
     "mixed": ["baseline", "png", "progressive", "2-16-0", "3-4-1", "gray-progressive",
               "0-16-1"],
     "progressive": ["progressive"] * 3,
+    "arithmetic": ["arithmetic", "arithmetic-progressive", "baseline", "arithmetic",
+                   "lossless-rgb"],
 }
 
 
@@ -135,7 +148,8 @@ distortion_coefficients: [-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05]
 # the colour frames of a EuRoC folder: what cv2.imread(..., IMREAD_GRAYSCALE)
 # converts in the JAX loader (PNG variants "ctype-depth-interlace")
 EUROC_KINDS = ["baseline", "progressive", "partial-progressive", "gray-progressive",
-               "2-8-0", "2-16-1", "3-8-1", "6-8-0", "6-16-0", "4-8-1", "cmyk", "ycck"]
+               "2-8-0", "2-16-1", "3-8-1", "6-8-0", "6-16-0", "4-8-1", "cmyk", "ycck",
+               "lossless-gray", "arithmetic", "arithmetic-progressive", "lossless-gray"]
 
 
 def _euroc_frame(path, i, kind):
@@ -161,9 +175,10 @@ def test_euroc_reads_colour_frames_as_the_jax_loader(tmp_path, monkeypatch):
     """EuRoC's read (``cv2.imread(..., IMREAD_GRAYSCALE)`` in the JAX
     loader, replicated to RGB) on a EuRoC folder of colour frames: JPEG
     baseline, progressive and cut short, colour, palette, RGBA and 16-bit
-    PNGs, CMYK and YCCK: the port's ``EurocDataset.read_img`` equals the
-    JAX one frame for frame, with cv2 blocked (once refused, Queue 1 item
-    15)."""
+    PNGs, CMYK and YCCK, arithmetic-coded colour (SOF9, SOF10) and lossless
+    gray frames: the port's ``EurocDataset.read_img`` equals the JAX one
+    frame for frame, with cv2 blocked (once refused, Queue 1 items 15 and
+    13c)."""
     cam = tmp_path / "euroc" / "MH_colour" / "mav0" / "cam0"
     (cam / "data").mkdir(parents=True)
     rows = ["#timestamp [ns],filename"]
@@ -261,19 +276,35 @@ DIGESTS = json.loads((DATA / "image_fixtures.json").read_text())
 
 @pytest.mark.parametrize("name", sorted(DIGESTS))
 def test_the_committed_image_fixtures_agree_with_cv2(name):
-    """The files ``chip_smoke.py`` phases 12 and 15 decode on the card's
+    """The files ``chip_smoke.py`` phases 12, 15 and 16 decode on the card's
     host (no cv2 there; ``scripts/make_image_fixtures.py`` wrote them):
     their committed digests are still cv2's colour and gray decodes here,
-    and the port's readers and payload decoder give those bytes."""
-    want = cv2.cvtColor(cv2.imread(str(DATA / name)), cv2.COLOR_BGR2RGB)
-    assert list(want.shape) == DIGESTS[name]["shape"]
-    assert hashlib.sha256(want.tobytes()).hexdigest() == DIGESTS[name]["sha256"]
-    gray = cv2.imread(str(DATA / name), cv2.IMREAD_GRAYSCALE)
-    assert hashlib.sha256(gray.tobytes()).hexdigest() == DIGESTS[name]["gray_sha256"]
-    got = png.imread_rgb(DATA / name)
-    assert hashlib.sha256(got.tobytes()).hexdigest() == DIGESTS[name]["sha256"]
-    got = png.imread_gray(DATA / name)
-    assert got.shape == want.shape[:2]
-    assert hashlib.sha256(got.tobytes()).hexdigest() == DIGESTS[name]["gray_sha256"]
-    payload = server.decode_image_payload(base64.b64encode((DATA / name).read_bytes()).decode())
-    np.testing.assert_array_equal(payload, want.astype(np.float32) / 255.0)
+    and the port's readers and payload decoder give those bytes.  A null
+    digest is a read cv2 returns nothing for (lossless JPEG whose read
+    would need a colour conversion): the port's read raises ValueError."""
+    path = DATA / name
+    want = cv2.imread(str(path))
+    if DIGESTS[name]["sha256"] is None:
+        assert want is None
+        for read in (png.imread_rgb, lambda p: server.decode_image_payload(
+                base64.b64encode(p.read_bytes()).decode())):
+            with pytest.raises(ValueError, match="cv2 returns nothing for it"):
+                read(path)
+    else:
+        want = cv2.cvtColor(want, cv2.COLOR_BGR2RGB)
+        assert list(want.shape) == DIGESTS[name]["shape"]
+        assert hashlib.sha256(want.tobytes()).hexdigest() == DIGESTS[name]["sha256"]
+        got = png.imread_rgb(path)
+        assert hashlib.sha256(got.tobytes()).hexdigest() == DIGESTS[name]["sha256"]
+        payload = server.decode_image_payload(base64.b64encode(path.read_bytes()).decode())
+        np.testing.assert_array_equal(payload, want.astype(np.float32) / 255.0)
+    gray = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)
+    if DIGESTS[name]["gray_sha256"] is None:
+        assert gray is None
+        with pytest.raises(ValueError, match="cv2 returns nothing for it"):
+            png.imread_gray(path)
+    else:
+        assert hashlib.sha256(gray.tobytes()).hexdigest() == DIGESTS[name]["gray_sha256"]
+        got = png.imread_gray(path)
+        assert list(got.shape) == DIGESTS[name]["shape"][:2]
+        assert hashlib.sha256(got.tobytes()).hexdigest() == DIGESTS[name]["gray_sha256"]

@@ -7,11 +7,16 @@ four scan kinds, and scripts cut from them, which libjpeg-turbo smooths
 (its block smoothing, ported).  Colour read to gray as ``IMREAD_GRAYSCALE``
 reads it (the Y plane, libjpeg's RGB->gray of RGB-coded streams); CMYK and
 YCCK streams (PIL writes them) as OpenCV converts them.  Also: the EXIF
-orientations as cv2 applies them, the refusals (arithmetic, lossless,
-hierarchical and 12-bit codings raise ``NotImplementedError``, each beside
-what cv2 does with it; truncated, corrupt or oversized streams
-``ValueError``), and the committed fixture pair that ``chip_smoke.py``
-phase 11 checks on the card's host, which has no cv2."""
+orientations as cv2 applies them, and the committed fixture pair that
+``chip_smoke.py`` phase 11 checks on the card's host, which has no cv2.
+
+Arithmetic-coded (SOF9, SOF10, DAC) and lossless (SOF3) streams come from
+the test-side encoders of ``tests/torch_jpeg_encoders.py`` (neither cv2 nor
+PIL writes them) and from seeded random bits, which drive libjpeg's
+bad-data paths: the decoder equals cv2 on each, colour and gray reads.
+What cv2 returns nothing for (hierarchical coding, SOF11, 12-bit samples,
+lossless reads that need a colour conversion) raises ``ValueError``, as
+truncated, corrupt or oversized streams do, each beside cv2's ``None``."""
 
 import io
 import pathlib
@@ -22,6 +27,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+import torch_jpeg_encoders as enc
 from mast3r_slam_tpu_torch.data.png import read_png
 from mast3r_slam_tpu_torch.utils import native
 
@@ -58,9 +64,26 @@ def _cv2_gray(data):
 
 
 def _assert_reads_as_cv2(data):
-    """The colour and the gray read both equal cv2's."""
-    np.testing.assert_array_equal(native.decode_jpeg(data), _cv2_rgb(data))
-    np.testing.assert_array_equal(native.decode_jpeg(data, gray=True), _cv2_gray(data))
+    """The colour and the gray read both equal cv2's; where cv2 returns
+    nothing, the read raises ValueError."""
+    for gray, flag in ((False, cv2.IMREAD_COLOR), (True, cv2.IMREAD_GRAYSCALE)):
+        want = cv2.imdecode(np.frombuffer(data, np.uint8), flag)
+        if want is None:
+            with pytest.raises(ValueError):
+                native.decode_jpeg(data, gray=gray)
+            continue
+        if not gray:
+            want = cv2.cvtColor(want, cv2.COLOR_BGR2RGB)
+        np.testing.assert_array_equal(native.decode_jpeg(data, gray=gray), want)
+
+
+def _assert_cv2_refuses(data, match):
+    """cv2 returns nothing for either read, and the decoder raises ValueError."""
+    for flag in (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE):
+        assert cv2.imdecode(np.frombuffer(data, np.uint8), flag) is None
+    for gray in (False, True):
+        with pytest.raises(ValueError, match=match):
+            native.decode_jpeg(data, gray=gray)
 
 
 CASES = [(hw, q, s, r, noise)
@@ -122,21 +145,20 @@ def test_exif_orientation_as_cv2_applies_it(orientation):
 
 
 def test_progressive_is_refused_naming_its_roadmap_item():
-    """Progressive Huffman JPEG decodes now (the tests below); the codings
-    that stay refused raise NotImplementedError naming their ROADMAP item:
-    arithmetic coding (SOF10), hierarchical (SOF6, SOF14) and 12-bit
-    samples, each found by rewriting the SOF2 header of a stream cv2
-    wrote (what cv2 does with each: ``test_item_13c_coding``)."""
+    """The SOF2 header of a stream cv2 wrote, rewritten: to SOF10 it decodes
+    as cv2 decodes it (libjpeg-turbo reads the Huffman-coded bits as
+    arithmetic-coded ones, with a warning); hierarchical (SOF6, SOF14) and
+    12-bit samples, which cv2 returns nothing for, raise ValueError (once
+    NotImplementedError naming Queue 1 item 13c, now closed)."""
     data = _jpeg(_image(48, 64, seed=1), cv2.IMWRITE_JPEG_PROGRESSIVE, 1)
     at = data.index(b"\xff\xc2")
-    for marker, what in ((0xCA, "arithmetic-coded JPEG .SOF10."),
-                         (0xC6, "hierarchical JPEG .SOF6."), (0xCE, "hierarchical JPEG .SOF14.")):
-        bad = data[:at + 1] + bytes([marker]) + data[at + 2:]
-        with pytest.raises(NotImplementedError, match=what + r".*Queue 1, item 13c"):
-            native.decode_jpeg(bad)
-    deep = data[:at + 4] + b"\x0c" + data[at + 5:]
-    with pytest.raises(NotImplementedError, match=r"12-bit samples.*item 13c"):
-        native.decode_jpeg(deep)
+    _assert_reads_as_cv2(data[:at + 1] + b"\xca" + data[at + 2:])
+    for marker, what in ((0xC6, r"hierarchical JPEG \(SOF6\)"),
+                         (0xCE, r"hierarchical JPEG \(SOF14\)")):
+        _assert_cv2_refuses(data[:at + 1] + bytes([marker]) + data[at + 2:],
+                            what + ": cv2 returns nothing for it")
+    _assert_cv2_refuses(data[:at + 4] + b"\x0c" + data[at + 5:],
+                        "12-bit samples: cv2 returns nothing for it")
 
 
 # ---------------------------------------------------------------------------
@@ -328,8 +350,9 @@ def test_progressive_scan_parameters_are_checked_as_libjpeg_checks_them():
 def test_progressive_truncated_and_corrupt_streams_raise_or_decode(tmp_path):
     """Every prefix of a progressive 4:2:0 stream with restarts, and flipped
     bytes, either decode to an image of the header's size or raise
-    ValueError (NotImplementedError where a flip names a coding the decoder
-    refuses): no read outside the stream.  A prefix that decodes ends at a
+    ValueError (NotImplementedError where a flip makes a header the decoder
+    does not take, such as sampling factors above 2): no read outside the
+    stream.  A prefix that decodes ends at a
     scan's end, and equals what ``cv2.imread`` makes of the file (its
     reader ends a file that stops early with an EOI, and smooths the
     blocks of the scans that came)."""
@@ -380,7 +403,8 @@ def test_truncated_streams_raise_value_error():
 def test_corrupt_streams_raise_value_error_or_decode():
     """Flipped bytes never read outside the stream: each either decodes to
     an image of the header's size or raises ValueError (NotImplementedError
-    where a flip names a coding the decoder refuses)."""
+    where a flip makes a header the decoder does not take, such as sampling
+    factors above 2)."""
     data = _jpeg(_image(37, 53, seed=4), cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
                  SAMPLING["420"], cv2.IMWRITE_JPEG_RST_INTERVAL, 2)
     rng = np.random.default_rng(0)
@@ -526,48 +550,6 @@ def _sof_rewritten(data, marker):
     return data[:at + 1] + bytes([marker]) + data[at + 2:]
 
 
-# the standard luminance DC table (ITU T.81 K.3): a lossless stream's only table
-_DC_COUNTS = [0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0]
-
-
-def _lossless_jpeg(gray):
-    """A one-component lossless JPEG (SOF3, 8 bits, predictor 1, Pt 0),
-    from a test-side encoder: neither cv2 nor PIL writes one."""
-    H, W = gray.shape
-    x = gray.astype(np.int64)
-    pred = np.empty_like(x)
-    pred[0, 0] = 128
-    pred[0, 1:] = x[0, :-1]
-    pred[1:, 0] = x[:-1, 0]
-    pred[1:, 1:] = x[1:, :-1]
-    codes, code, k = {}, 0, 0
-    for n, count in enumerate(_DC_COUNTS, 1):
-        for _ in range(count):
-            codes[k] = format(code, f"0{n}b")
-            code, k = code + 1, k + 1
-        code <<= 1
-    bits = []
-    for d in (x - pred).ravel():
-        size = int(abs(d)).bit_length()
-        bits.append(codes[size])
-        if size:
-            bits.append(format(d if d > 0 else d + (1 << size) - 1, f"0{size}b"))
-    b = "".join(bits)
-    b += "1" * (-len(b) % 8)
-    ent = bytearray()
-    for i in range(0, len(b), 8):
-        ent.append(int(b[i:i + 8], 2))
-        if ent[-1] == 0xFF:
-            ent.append(0)
-
-    def seg(m, body):
-        return bytes([0xFF, m]) + struct.pack(">H", len(body) + 2) + body
-
-    return (b"\xff\xd8" + seg(0xC3, struct.pack(">BHHB", 8, H, W, 1) + b"\x01\x11\x00")
-            + seg(0xC4, bytes([0x00] + _DC_COUNTS + list(range(12))))
-            + seg(0xDA, b"\x01\x01\x00\x01\x00\x00") + bytes(ent) + b"\xff\xd9")
-
-
 def _arithmetic_progressive(gray):
     return _progressive(gray).replace(b"\xff\xc2", b"\xff\xca", 1)
 
@@ -584,27 +566,28 @@ def _twelve_bit(gray):
 
 CODINGS_13C = {
     # coding: (a stream of it, whether cv2 5.0.0 reads it (IMREAD_COLOR,
-    # IMREAD_GRAYSCALE), the decoder's message)
-    "arithmetic-sequential": (lambda g: _sof_rewritten(_jpeg(g), 0xC9), (True, True),
-                              r"arithmetic-coded JPEG \(SOF9\)"),
-    "arithmetic-progressive": (_arithmetic_progressive, (True, True),
-                               r"arithmetic-coded JPEG \(SOF10\)"),
-    "lossless": (_lossless_jpeg, (False, True), r"lossless JPEG \(SOF3\)"),
+    # IMREAD_GRAYSCALE), the decoder's message where cv2 reads neither)
+    "arithmetic-sequential": (lambda g: _sof_rewritten(_jpeg(g), 0xC9), (True, True), None),
+    "arithmetic-progressive": (_arithmetic_progressive, (True, True), None),
+    "lossless": (enc.lossless_jpeg, (False, True), None),
     "hierarchical": (_hierarchical, (False, False), r"hierarchical JPEG \(SOF5\)"),
     "12-bit": (_twelve_bit, (False, False), r"12-bit samples"),
+    "lossless-arithmetic": (lambda g: enc.lossless_jpeg(g).replace(b"\xff\xc3", b"\xff\xcb", 1),
+                            (False, False), r"lossless JPEG \(SOF11\)"),
 }
 
 
 @pytest.mark.parametrize("coding", list(CODINGS_13C))
 def test_item_13c_coding(coding):
-    """What is left of Queue 1 item 13c, each coding in a stream that
-    rewrites the headers of cv2's gray one, or (lossless) from the encoder
-    above: the decoder raises NotImplementedError naming the item, colour
-    and gray reads alike.  cv2 5.0.0 reads arithmetic coding (libjpeg-turbo
-    decodes the rewritten bits as arithmetic-coded, whatever they hold) and
-    lossless through ``IMREAD_GRAYSCALE`` (exactly the encoder's image; its
-    ``IMREAD_COLOR`` returns nothing), and refuses hierarchical coding and
-    12-bit samples through both."""
+    """Queue 1 item 13c, each coding in a stream that rewrites the headers
+    of cv2's gray one, or (lossless) from the test-side encoder.  cv2 5.0.0
+    reads arithmetic coding (libjpeg-turbo decodes the rewritten bits as
+    arithmetic-coded, whatever they hold) and lossless through
+    ``IMREAD_GRAYSCALE`` (exactly the encoder's image; its ``IMREAD_COLOR``
+    returns nothing), and the decoder now reads them as cv2 does (colour
+    read of lossless: ValueError).  cv2 refuses hierarchical coding, 12-bit
+    samples and SOF11 through both reads; so does the decoder
+    (ValueError: cv2 returns nothing for it)."""
     make, cv2_reads, message = CODINGS_13C[coding]
     gray = _image(37, 53, seed=16)[..., 0]
     data = make(gray)
@@ -612,9 +595,11 @@ def test_item_13c_coding(coding):
         assert (cv2.imdecode(np.frombuffer(data, np.uint8), flag) is not None) == reads
     if coding == "lossless":
         np.testing.assert_array_equal(_cv2_gray(data), gray)
-    for as_gray in (False, True):
-        with pytest.raises(NotImplementedError, match=message + r".*Queue 1, item 13c"):
-            native.decode_jpeg(data, gray=as_gray)
+        np.testing.assert_array_equal(native.decode_jpeg(data, gray=True), gray)
+    if message is None:
+        _assert_reads_as_cv2(data)
+    else:
+        _assert_cv2_refuses(data, message + ": cv2 returns nothing for it")
 
 
 def test_an_mcu_of_more_than_ten_blocks_is_refused_as_cv2_refuses_it():
@@ -629,3 +614,246 @@ def test_an_mcu_of_more_than_ten_blocks_is_refused_as_cv2_refuses_it():
     assert cv2.imdecode(np.frombuffer(bytes(bad), np.uint8), cv2.IMREAD_COLOR) is None
     with pytest.raises(ValueError, match="more than 10 blocks"):
         native.decode_jpeg(bytes(bad))
+
+
+# ---------------------------------------------------------------------------
+# arithmetic coding (SOF9, SOF10, DAC): streams from the test-side QM encoder
+# ---------------------------------------------------------------------------
+
+def _pixels(kind, hw, seed):
+    """gray (H, W), ycc (H, W, 3) RGB coded as YCbCr, cmyk and ycck (H, W, 4)
+    inks under Adobe's transform 0 and 2: smooth fields with noise."""
+    rgb = _image(*hw, seed=seed, noise=False)
+    if kind == "gray":
+        return rgb[..., 1]
+    if kind == "ycc":
+        return rgb
+    return np.concatenate([rgb, rgb[..., :1] // 2 + 60], -1)
+
+
+def _arithmetic(kind, hw, seed=0, **kw):
+    return enc.arithmetic_jpeg(_pixels(kind, hw, seed), adobe=2 if kind == "ycck" else 0, **kw)
+
+
+ARITH = [(k, s, r, p, hw) for k in ("gray", "ycc", "cmyk", "ycck")
+         for s in (SAMPLING if k != "gray" else ["444"]) for r in (0, 1, 2) for p in (0, 1)
+         for hw in ((37, 53), (9, 17))
+         if not (hw == (9, 17) and (r == 1 or k in ("cmyk", "ycck")))]
+
+
+@pytest.mark.parametrize("kind,sampling,restart,progressive,hw", ARITH,
+                         ids=[f"{k}-{s}-rst{r}-{'sof10' if p else 'sof9'}-{h}x{w}"
+                              for k, s, r, p, (h, w) in ARITH])
+def test_arithmetic_decode_equals_cv2(kind, sampling, restart, progressive, hw):
+    """SOF9 and SOF10 (libjpeg's simple progression: DC first and
+    refinement, AC first and refinement) at every sampling, gray and
+    4-component, with restart intervals: colour and gray reads equal
+    cv2's."""
+    data = _arithmetic(kind, hw, seed=hw[0] + restart, quality=80, sampling=sampling,
+                       progressive=bool(progressive), restart=restart)
+    assert data[data.index(b"\xff\xc9" if not progressive else b"\xff\xca") + 1] in (0xC9, 0xCA)
+    _assert_reads_as_cv2(data)
+
+
+@pytest.mark.parametrize("kind,restart", [(k, r) for k in ("gray", "ycc", "cmyk") for r in (0, 2)])
+def test_a_cut_arithmetic_script_is_smoothed_as_cv2_smooths_it(kind, restart):
+    """Every prefix of an SOF10 script: libjpeg-turbo smooths the blocks
+    whatever the entropy coding, as for SOF2."""
+    img = _pixels(kind, (37, 53), seed=21)
+    n = len(enc.YCC_SCRIPT if kind == "ycc" else enc.other_script(img.shape[2] if img.ndim == 3
+                                                                   else 1))
+    for k in range(1, n + 1):
+        _assert_reads_as_cv2(enc.arithmetic_jpeg(img, quality=90, sampling="420",
+                                                 progressive=True, restart=restart, scans=k))
+
+
+DAC = {"dc-L0-U0": ({0: (0, 0), 1: (0, 0)}, {}), "dc-L3-U7": ({0: (3, 7), 1: (1, 2)}, {}),
+       "dc-L2-U15": ({0: (2, 15)}, {}), "ac-K1": ({}, {0: 1, 1: 1}),
+       "ac-K63": ({}, {0: 63}), "ac-K0-dc-L5-U5": ({0: (5, 5)}, {0: 0, 1: 200})}
+
+
+@pytest.mark.parametrize("progressive", [0, 1], ids=["sof9", "sof10"])
+@pytest.mark.parametrize("dac", DAC)
+def test_dac_conditioning_reads_as_cv2(dac, progressive):
+    """Conditioning other than T.81's defaults (L 0, U 1, Kx 5) in a DAC
+    segment: the DC bins chosen by the last difference's category, the AC
+    magnitude bins by the position against Kx."""
+    dac_dc, dac_ac = DAC[dac]
+    data = enc.arithmetic_jpeg(_image(37, 53, seed=22), quality=95, progressive=bool(progressive),
+                               restart=3, dac_dc=dac_dc, dac_ac=dac_ac)
+    assert b"\xff\xcc" in data
+    _assert_reads_as_cv2(data)
+
+
+def test_arithmetic_tables_past_three_and_single_component_scans_read_as_cv2():
+    """Arithmetic coding's sixteen conditioning tables (a component's DC 7,
+    AC 12 or 15), and a sequential stream of one scan a component."""
+    img = _image(37, 53, seed=23)
+    _assert_reads_as_cv2(enc.arithmetic_jpeg(img, quality=90, tables=[(7, 12), (15, 3), (15, 3)],
+                                             dac_dc={7: (2, 5)}, dac_ac={12: 9}))
+    for restart in (0, 3):
+        _assert_reads_as_cv2(enc.arithmetic_jpeg(img, quality=90, interleaved=False,
+                                                 restart=restart))
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+def test_arithmetic_exif_orientation_as_cv2_applies_it(orientation):
+    for progressive in (False, True):
+        data = _with_exif_orientation(enc.arithmetic_jpeg(_image(24, 40, seed=24, noise=False),
+                                                          progressive=progressive), orientation)
+        _assert_reads_as_cv2(data)
+        assert native.decode_jpeg(data).shape == ((40, 24, 3) if orientation >= 5 else (24, 40, 3))
+
+
+RANDOM = [(k, p, r, seed) for k in ("gray", "ycc", "cmyk") for p in (0, 1) for r in (0, 3)
+          for seed in range(4)]
+
+
+@pytest.mark.parametrize("kind,progressive,restart,seed", RANDOM,
+                         ids=[f"{k}-{'sof10' if p else 'sof9'}-rst{r}-seed{s}"
+                              for k, p, r, s in RANDOM])
+def test_random_bits_decode_as_cv2(kind, progressive, restart, seed):
+    """Seeded random bytes (each 0xFF stuffed) as every restart interval's
+    entropy-coded data under SOF9 and SOF10 headers: libjpeg decodes any
+    bits, and its bad-data paths (a spectral or magnitude overflow leaves
+    the rest of the interval as it stands, a marker met early feeds zeros,
+    coefficients past 16 bits wrap in the IDCT's lanes) are held exactly."""
+    rng = np.random.default_rng(100 * seed + restart + progressive)
+    data = _arithmetic(kind, (37, 53), quality=75, progressive=bool(progressive), restart=restart)
+    for scan in range(data.count(b"\xff\xda")):
+        data = enc.with_entropy(data, lambda i: rng.integers(
+            0, 256, int(rng.integers(1, 300)), dtype=np.uint8).tobytes(), scan)
+    _assert_reads_as_cv2(data)
+
+
+def test_bad_dac_and_truncated_arithmetic_streams_raise_value_error():
+    """A DAC with L over U, a table index past 31 or an odd length, and an
+    arithmetic stream cut before its data ends: cv2 returns nothing, the
+    decoder raises ValueError."""
+    data = enc.arithmetic_jpeg(_image(37, 53, seed=25), quality=90, restart=2)
+    for body in (bytes([0, 0x01]), bytes([32, 5]), bytes([0, 0x21, 5])):
+        _assert_cv2_refuses(data[:2] + enc.segment(0xCC, body) + data[2:], "DAC")
+    for cut in (len(data) - 2, len(data) - 9, len(data) // 2, 400):
+        _assert_cv2_refuses(data[:cut], "arithmetic-coded data ends early|restart marker")
+
+
+# ---------------------------------------------------------------------------
+# lossless coding (SOF3)
+# ---------------------------------------------------------------------------
+
+def _samples(hw, precision, seed):
+    """A smooth field with noise at ``precision`` bits."""
+    g = _image(*hw, seed=seed, noise=False)[..., 1].astype(np.int64)
+    return g >> (8 - precision)
+
+
+LOSSLESS = [(pred, pt, rr) for pred in range(1, 8) for pt in (0, 1, 3) for rr in (0, 1, 4)]
+
+
+@pytest.mark.parametrize("predictor,pt,restart_rows", LOSSLESS,
+                         ids=[f"p{p}-pt{t}-rst{r}" for p, t, r in LOSSLESS])
+def test_lossless_gray_equals_cv2_and_the_encoders_input(predictor, pt, restart_rows):
+    """Predictors 1-7 with the first row, the first column and every
+    restart interval's first row predicted as T.81 H.1.1 says, and point
+    transforms: the gray read equals cv2's and (Pt 0) the samples coded,
+    (Pt > 0) the samples with their low Pt bits cleared; the colour read of
+    one component raises ValueError, as cv2 returns nothing."""
+    x = _samples((37, 53), 8, seed=predictor)
+    data = enc.lossless_jpeg(x, predictor=predictor, pt=pt, restart_rows=restart_rows)
+    _assert_reads_as_cv2(data)
+    np.testing.assert_array_equal(native.decode_jpeg(data, gray=True), (x >> pt) << pt)
+    with pytest.raises(ValueError, match="colour read of a one-component lossless JPEG"):
+        native.decode_jpeg(data)
+
+
+@pytest.mark.parametrize("precision", range(2, 9))
+def test_lossless_precisions_read_unscaled_as_cv2(precision):
+    """At 2 to 7 bits cv2 returns the samples as they are (never scaled up
+    to 8 bits), with Pt shifted back."""
+    x = _samples((37, 53), precision, seed=precision)
+    for predictor, pt in ((1, 0), (4, 0), (7, 1)):
+        if pt >= precision:
+            continue
+        data = enc.lossless_jpeg(x, precision=precision, predictor=predictor, pt=pt,
+                                 restart_rows=2)
+        _assert_reads_as_cv2(data)
+        np.testing.assert_array_equal(native.decode_jpeg(data, gray=True), (x >> pt) << pt)
+
+
+@pytest.mark.parametrize("factors", [0x12, 0x21, 0x22])
+def test_lossless_restarts_follow_libjpegs_imcu_rows(factors):
+    """A gray stream's declared factors make libjpeg undifference v rows an
+    iMCU row, and a restart read inside one makes only its first row a
+    first row: with a restart every row and v = 2, odd rows are predicted
+    from the row above, as cv2 reads them (not as T.81 would)."""
+    data = enc.lossless_jpeg(_samples((9, 17), 8, seed=31), predictor=2, restart_rows=1)
+    at = data.index(b"\xff\xc3")
+    assert data[at + 11] == 0x11
+    _assert_reads_as_cv2(data[:at + 11] + bytes([factors]) + data[at + 12:])
+
+
+@pytest.mark.parametrize("interleaved", [True, False], ids=["interleaved", "a-scan-each"])
+def test_lossless_colour_reads_as_cv2(interleaved):
+    """libjpeg-turbo converts no colour in lossless mode: three components
+    read as RGB through IMREAD_COLOR (without JFIF's marker, or under
+    Adobe's transform 0), four as CMYK (OpenCV's conversion), and every
+    read that would need a conversion raises ValueError as cv2 returns
+    nothing: gray of three components, YCbCr (JFIF, Adobe transform 1),
+    YCCK.  Chroma at lower sampling factors is replicated."""
+    planes = [_samples((37, 53), 8, seed=40 + k) for k in range(4)]
+    rgb = enc.lossless_jpeg(planes[:3], predictor=6, restart_rows=3, interleaved=interleaved)
+    np.testing.assert_array_equal(native.decode_jpeg(rgb), np.stack(planes[:3], -1))
+    _assert_reads_as_cv2(rgb)
+    jfif = rgb[:2] + enc.segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00") + rgb[2:]
+    adobe = [rgb[:2] + enc.segment(0xEE, b"Adobe" + bytes([0, 100, 0, 0, 0, 0, t])) + rgb[2:]
+             for t in (0, 1)]
+    for data in [jfif] + adobe:
+        _assert_reads_as_cv2(data)
+    cmyk = enc.lossless_jpeg(planes, predictor=5, interleaved=interleaved)
+    _assert_reads_as_cv2(cmyk)
+    _assert_reads_as_cv2(cmyk[:2] + enc.segment(0xEE, b"Adobe" + bytes([0, 100, 0, 0, 0, 0, 2]))
+                         + cmyk[2:])
+    at = rgb.index(b"\xff\xc3")
+    for f in (0x12, 0x21, 0x22, 0x31, 0x13):  # the first component's factors declared larger
+        _assert_reads_as_cv2(rgb[:at + 11] + bytes([f]) + rgb[at + 12:])
+
+
+def test_lossless_differences_wrap_as_libjpeg_wraps_them():
+    """T.81 H.1.2.2's category 16 (32768, no extra bits) in a table of all
+    17 categories, and differences that carry a sample past its precision:
+    libjpeg adds modulo 2^16 and cuts the shifted sample to 8 bits, whatever
+    the precision; the decoder too, and so on random bits."""
+    x = _samples((9, 17), 8, seed=50)
+    for diff in (100, 32768, -20, 300, -32767):
+        for precision, pt, predictor in ((4, 0, 1), (8, 3, 7), (8, 0, 4)):
+            _assert_reads_as_cv2(enc.lossless_jpeg(
+                x >> (8 - precision), precision=precision, pt=pt, predictor=predictor,
+                table=enc.ALL_CATEGORIES, extra_diffs={(0, 2, 3): diff, (0, 4, 0): -diff}))
+    for seed in range(8):
+        rng = np.random.default_rng(seed)
+        data = enc.lossless_jpeg(x, predictor=1 + seed % 7, table=enc.ALL_CATEGORIES)
+        noise = rng.integers(0, 256, 1500, np.uint8).tobytes()
+        _assert_reads_as_cv2(enc.with_entropy(data, noise))
+
+
+def test_lossless_streams_cv2_refuses_raise_value_error():
+    """Precisions 1, 9, 12 and 16, a restart interval that is not a whole
+    number of MCU rows, and scan parameters libjpeg-turbo refuses (predictor
+    0 or 8, Se or Ah nonzero, Pt at the precision): cv2 returns nothing,
+    the decoder raises ValueError."""
+    x = _samples((9, 17), 8, seed=60)
+    data = enc.lossless_jpeg(x)
+    at = data.index(b"\xff\xc3")
+    for precision in (1, 9, 12, 16):
+        _assert_cv2_refuses(data[:at + 4] + bytes([precision]) + data[at + 5:],
+                            f"lossless JPEG of {precision}-bit samples")
+    rst = enc.lossless_jpeg(x, restart_rows=2)
+    i = rst.index(b"\xff\xdd")
+    _assert_cv2_refuses(rst[:i + 4] + struct.pack(">H", 2 * 17 - 1) + rst[i + 6:],
+                        "restart interval")
+    sos = data.index(b"\xff\xda") + 7
+    for params in ((0, 0, 0), (8, 0, 0), (1, 1, 0), (1, 0, 0x10), (1, 0, 8)):
+        _assert_cv2_refuses(data[:sos] + bytes(params) + data[sos + 3:],
+                            "lossless JPEG scan parameters")
+    # Pt 7 of 8 bits: libjpeg reads it
+    _assert_reads_as_cv2(data[:sos] + bytes([1, 0, 7]) + data[sos + 3:])

@@ -41,6 +41,7 @@ from mast3r_slam_tpu_torch.eval.trajectory import load_traj_tum
 from mast3r_slam_tpu_torch.serve import broadcast, server, ws
 from mast3r_slam_tpu_torch.slam.pipeline import SLAM
 
+import torch_jpeg_encoders as enc
 from oracle import OracleDataset, OracleModel, PlaneScene, arc_trajectory
 from test_torch_common import CPU, TorchOracleModel
 
@@ -73,7 +74,13 @@ PAYLOADS = ([("png", None, None, 0, (48, 64)), ("png", None, None, 0, (37, 53)),
                ("jpeg", 75, "444", 1, (37, 53)), ("jpeg-gray", 90, None, 0, (37, 53))]
             + [("jpeg-progressive", q, s, r, hw) for q, s, r, hw in (
                 (90, "420", 0, (48, 64)), (75, "422", 2, (37, 53)), (100, "444", 1, (37, 53)))]
-            + [("jpeg-gray-progressive", 90, None, 2, (37, 53))])
+            + [("jpeg-gray-progressive", 90, None, 2, (37, 53))]
+            + [("jpeg-arithmetic", q, s, r, hw) for q, s, r, hw in (
+                (90, "420", 0, (48, 64)), (75, "422", 2, (37, 53)), (95, "444", 1, (37, 53)))]
+            + [("jpeg-arithmetic-progressive", q, s, r, hw) for q, s, r, hw in (
+                (90, "420", 2, (48, 64)), (80, "444", 0, (37, 53)))]
+            + [("jpeg-gray-arithmetic", 90, None, 1, (37, 53)),
+               ("jpeg-lossless-rgb", None, None, 2, (37, 53))])
 
 
 def _encode(kind, quality, sampling, restart, hw, seed=0):
@@ -83,6 +90,13 @@ def _encode(kind, quality, sampling, restart, hw, seed=0):
         ok, buf = cv2.imencode(".png", bgr)
     elif kind == "png-gray":
         ok, buf = cv2.imencode(".png", rgb[..., 0])
+    elif "arithmetic" in kind:  # the test-side QM encoder: cv2 writes no SOF9/SOF10
+        return base64.b64encode(enc.arithmetic_jpeg(
+            rgb[..., 1] if "gray" in kind else rgb, quality=quality, sampling=sampling or "444",
+            progressive=kind.endswith("progressive"), restart=restart)).decode()
+    elif kind == "jpeg-lossless-rgb":  # three lossless components: cv2 reads them as RGB
+        return base64.b64encode(enc.lossless_jpeg([rgb[..., k] for k in range(3)], predictor=4,
+                                                  restart_rows=restart)).decode()
     elif kind.startswith("jpeg-gray"):
         ok, buf = cv2.imencode(".jpg", rgb[..., 1], [cv2.IMWRITE_JPEG_QUALITY, quality,
                                                      cv2.IMWRITE_JPEG_RST_INTERVAL, restart,
@@ -147,9 +161,17 @@ def test_decode_image_payload_refuses_what_it_cannot_read():
     rgb = cv2.cvtColor(_image(48, 64, 1), cv2.COLOR_RGB2BGR)
     ok, prog = cv2.imencode(".jpg", rgb, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     prog = prog.tobytes()
-    arith = prog.replace(b"\xff\xc2", b"\xff\xca", 1)  # SOF10: arithmetic coding
-    with pytest.raises(NotImplementedError, match="arithmetic.*item 13c"):
-        server.decode_image_payload(base64.b64encode(arith).decode())
+    # SOF10, once refused (Queue 1 item 13c): read as arithmetic-coded, as cv2 reads it
+    arith = base64.b64encode(prog.replace(b"\xff\xc2", b"\xff\xca", 1)).decode()
+    np.testing.assert_array_equal(server.decode_image_payload(arith),
+                                  jserver.decode_image_payload(arith))
+    # a gray lossless frame: cv2's IMREAD_COLOR returns nothing, the JAX
+    # server fails on it and the port refuses it
+    lossless = base64.b64encode(enc.lossless_jpeg(_image(37, 53, 3)[..., 0])).decode()
+    with pytest.raises(cv2.error):
+        jserver.decode_image_payload(lossless)
+    with pytest.raises(ValueError, match="colour read of a one-component lossless JPEG"):
+        server.decode_image_payload(lossless)
     # a partial script, once refused (Queue 1 item 13b): smoothed as cv2 smooths it
     first_scan = prog[:prog.index(b"\xff\xda", prog.index(b"\xff\xda") + 2)] + b"\xff\xd9"
     payload = base64.b64encode(first_scan).decode()
