@@ -211,6 +211,23 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      smooth random fields, as 11b's: random weights fail the tracking GN
      on textured ones, and a failed frame goes to relocalisation.
 
+  16. the last JPEG codings cv2 gives the JAX package: (a) the arithmetic
+     and lossless fixtures counted and timed, (b) 15b over lossless gray
+     frames, (c) 15c's session over arithmetic-coded frames.
+  17. the global solve as one device program a (poses, edges) bucket
+     (csrc/gn_while.cu: a WHILE node over the GN iteration, on the PCG route
+     a WHILE node over the CG iteration inside it): (a) the program against the eager plain loop on phase 6's scenes at
+     full width, rays dense and PCG and calib through the cached entry,
+     points mode through the gathering entry: the same bits and
+     iterations, one launch, the edge-block kernel once an iteration that
+     ran, no sync, the program's device time against the eager loop's;
+     (b) phase 6's ViT-L task: the solve's syncs (none), iterations,
+     launches and solve_ms; (c) 10a's windowed arc with a solve after
+     every keyframe, from no program kept: the buckets met, each built
+     once, and the device memory the programs hold.  The buckets met in
+     9b, 10a, 10b and 11 are logged too, with the builds an LRU cache of
+     1-8 programs would make over them.
+
 Phase 2 also holds the two gather probes' kernels (gather_rows_sum,
 take_along_rows, the latter at every slab width of SLAB_SWEEP, timed in
 turns) and the IVF bucket scoring (ivf_hamming, W 1, 2 and 32, one kernel
@@ -1449,10 +1466,11 @@ def umeyama_rmse(est, gt):
 
 
 def launch_counters():
-    from mast3r_slam_tpu_torch.ops import attention, edge_hg, gather, refine, tracking_gn
+    from mast3r_slam_tpu_torch.ops import (attention, edge_hg, gather, global_gn, refine,
+                                           tracking_gn)
 
     return (attention.counter, refine.counter, edge_hg.counter, gather.sum_counter,
-            gather.take_counter, gather.ivf_counter, tracking_gn.counter)
+            gather.take_counter, gather.ivf_counter, tracking_gn.counter, global_gn.counter)
 
 
 def reset_counts():
@@ -1666,9 +1684,11 @@ def run_synthetic_solve(dev, hw=(384, 512), n_kf=16, seed=5):
             f"{iters} GN iterations, ok {ok}, diverged {diverged}, {ms:.3f} ms (host "
             f"clock); max translation error {err0:.6f} -> {err:.8f} m; launches {counts}; "
             f"the same pose bits on a second run {same_bits}")
-        # the GN loop runs max_iters iterations, frozen once it stops
+        # one device program a solve, stopping where the JAX loop stops:
+        # the edge-block kernel once an iteration that ran
         if not (ok and err <= SOLVE_BOUND_M and iters >= 1
-                and counts["edge_hg_rays"] == per_iter * GlobalGNSettings().max_iters):
+                and counts["edge_hg_rays"] == per_iter * iters
+                and (dev.type != "cuda" or counts["global_gn_while"] == 1)):
             raise AssertionError(f"full-width solve, {name} entry: error {err} m (bound "
                                  f"{SOLVE_BOUND_M}), ok {ok}, {iters} iterations, "
                                  f"launches {counts}")
@@ -2276,12 +2296,14 @@ def solve_iters(fg):
     return iters, swapped(fg, "gauss_newton_poses_cached", spy)
 
 
-def run_windowed_solve(dev, hw=(384, 512), seed=5, oracle=True):
+def run_windowed_solve(dev, hw=(384, 512), seed=5, oracle=True, stages=WINDOW_STAGES,
+                       label="10a"):
     """10a: FactorGraph.solve with window_size 16 and edge_recycle over a
     growing 48-keyframe arc problem (phase 6's, identity correspondences):
-    32, then 40, then 48 keyframes, a solve after each stage.  Each solve:
+    32, then 40, then 48 keyframes (``stages``), a solve after each stage.  Each solve:
     the pre-window poses keep their bits, one edge-block launch a GN
-    iteration (``max_iters``, the loop's fixed count), and (``oracle``) the window within SOLVE_BOUND_M of
+    iteration that ran (the device program stops where the JAX loop
+    stops), and (``oracle``) the window within SOLVE_BOUND_M of
     gauss_newton_poses over every pose and edge with the pre-window poses
     pinned.  Returns a dict of the run and the final poses."""
     import torch
@@ -2291,7 +2313,7 @@ def run_windowed_solve(dev, hw=(384, 512), seed=5, oracle=True):
     from mast3r_slam_tpu_torch.slam.frame import Frame, Keyframes
 
     N = hw[0] * hw[1]
-    _, noisy, Xs = arc_problem(dev, hw, WINDOW_STAGES[-1], seed)
+    _, noisy, Xs = arc_problem(dev, hw, stages[-1], seed)
     cfg = load_config("base")
     cfg["local_opt"].update(window_size=WINDOW, edge_recycle=True)
     kf = Keyframes(64, N, 1, 8, device=dev)
@@ -2300,7 +2322,7 @@ def run_windowed_solve(dev, hw=(384, 512), seed=5, oracle=True):
     iters, spy = solve_iters(fg)
     n0 = 0
     with spy:
-        for n_kf in WINDOW_STAGES:
+        for n_kf in stages:
             new = []
             for k in range(n0, n_kf):
                 kf.append(arc_keyframe(Frame, k, noisy[k], Xs[k], dev))
@@ -2310,7 +2332,7 @@ def run_windowed_solve(dev, hw=(384, 512), seed=5, oracle=True):
             reused = len(new) - (graph.n_edges - n_edges_before)  # rows off the freelist
             all_edges += new
             n0 = n_kf
-            s0 = n_kf - WINDOW
+            s0 = max(n_kf - WINDOW, graph.settings.pin)  # a full solve up to the window
             T0 = kf.T_WC[:n_kf].clone()
             sync(dev)
             reset_counts()
@@ -2323,6 +2345,7 @@ def run_windowed_solve(dev, hw=(384, 512), seed=5, oracle=True):
             rec = dict(n_kf=n_kf, s0=s0, ms=ms, iters=iters[-1],
                        max_iters=graph.settings.max_iters,
                        edge_hg_launches=counts["edge_hg_rays"],
+                       program_launches=counts["global_gn_while"],
                        pre_window_same_bits=bool(torch.equal(T[:s0], T0[:s0])),
                        n_edges=graph.n_edges, capacity=graph.capacity,
                        new_edges=len(new), rows_reused=reused,
@@ -2342,8 +2365,8 @@ def run_windowed_solve(dev, hw=(384, 512), seed=5, oracle=True):
                 rec["vs_pinned_full_m"] = (T[s0:, :3] - T_ref[s0:, :3]).norm(dim=-1).max().item()
                 rec["oracle_ok"] = bool(ok)
             out["solves"].append(rec)
-            log(f"10a windowed solve {hw[0]}x{hw[1]}: {json.dumps(rec)}")
-    out["T"] = kf.T_WC[:WINDOW_STAGES[-1]].clone()
+            log(f"{label} windowed solve {hw[0]}x{hw[1]}: {json.dumps(rec)}")
+    out["T"] = kf.T_WC[:stages[-1]].clone()
     return out
 
 
@@ -2356,7 +2379,7 @@ def check_windowed_solve(dev):
     same = bool(torch.equal(a["T"], b["T"]))
     sv = a["solves"]
     bad = [r for r in sv if not (
-        r["pre_window_same_bits"] and r["edge_hg_launches"] == r["max_iters"]
+        r["pre_window_same_bits"] and r["edge_hg_launches"] == r["iters"]
         and r["iters"] >= 1
         and r["oracle_ok"] and r["vs_pinned_full_m"] <= SOLVE_BOUND_M)]
     grew = sv[-1]["capacity"] != sv[0]["capacity"] or sv[-1]["n_edges"] != sv[0]["n_edges"]
@@ -2364,7 +2387,8 @@ def check_windowed_solve(dev):
             or sum(r["rows_reused"] for r in sv[1:]) <= 0):
         raise AssertionError(f"10a windowed solve: {json.dumps(sv)}, second run same bits "
                              f"{same} (each solve: pre-window bits kept, one edge_hg_rays "
-                             f"launch a GN iteration, within {SOLVE_BOUND_M} m of the pinned "
+                             f"launch a GN iteration that ran, within {SOLVE_BOUND_M} m of "
+                             f"the pinned "
                              f"full solve; rows recycled and reused, the store not growing)")
     log(f"10a: the same pose bits on a second run {same}")
     return dict(solves=sv, same_bits=same)
@@ -3456,7 +3480,9 @@ def run_sharded_solve(dev, hw=(384, 512), n_kf=16, seed=5, shards=MESH_SHARDS,
     difference within SHARDED_POSE_ATOL, the summed normal equations at the
     first iterate within SHARDED_BLOCKS_RTOL of one device's, the ground
     truth within SOLVE_BOUND_M, edge-block launches = shards x max_iters
-    (the GN loop's fixed count; counters reset just before, read just after), the same
+    (the sharded route's plain loop, a fixed count; counters reset just
+    before, read just after; the one-device solve's: one an iteration that
+    ran), the same
     bits on a second run, host ms.  Then the 1-shard mesh in a one-rank NCCL process group (one
     all-reduce a field an iteration; ``group_backend`` gloo rehearses it on
     the CPU)."""
@@ -3486,8 +3512,13 @@ def run_sharded_solve(dev, hw=(384, 512), n_kf=16, seed=5, shards=MESH_SHARDS,
         sync(dev)
         return out, (time.perf_counter() - t0) * 1e3
 
+    reset_counts()
     (ref, ref_iters, ref_ok, _), ref_ms = timed(lambda: gn.gauss_newton_poses(*args))
     ref_iters, ref_ok = int(ref_iters), bool(ref_ok)
+    ref_launches = read_counts()["edge_hg_rays"]
+    if ref_launches != ref_iters:  # the one-device solve is the device program
+        raise AssertionError(f"13a one device: {ref_launches} edge_hg_rays launches, "
+                             f"expected one an iteration that ran ({ref_iters})")
     runs, poses = {}, {}
 
     def one(label, mesh):
@@ -3531,7 +3562,8 @@ def run_sharded_solve(dev, hw=(384, 512), n_kf=16, seed=5, shards=MESH_SHARDS,
     nccl_same = torch.equal(poses["1_shard_nccl"], poses["1_shards"])
     log(f"13a one device: {ref_iters} iterations, ok {ref_ok}, {ref_ms:.3f} ms (host "
         f"clock); the NCCL rank's poses equal the 1-shard mesh's bits: {nccl_same}")
-    return dict(one_device_ms=ref_ms, one_device_iters=ref_iters, runs=runs,
+    return dict(one_device_ms=ref_ms, one_device_iters=ref_iters,
+                one_device_launches=ref_launches, runs=runs,
                 nccl_same_bits_as_1_shard=nccl_same)
 
 
@@ -4270,13 +4302,14 @@ def check_tracking_gn(dev, hw=(384, 512)):
         R = 4 if mode == "ray_dist" else 3
         nbytes = sum(a.numel() * a.element_size() for a in inputs) + 11 * 4
         bound = _bound(nbytes, iters * N * R * 8 * 8 * 2)
-        graphed = tg._graphs[(mode, tuple((a.shape, a.dtype) for a in inputs), T0.device,
-                              tuple(img) if img is not None else None, settings)]
+        graphed = tg._programs.program((mode, tuple((a.shape, a.dtype) for a in inputs),
+                                        T0.device, tuple(img) if img is not None else None,
+                                        settings))
         nodes = {}
-        for part in ("prologue", "body"):
+        for part, graph in zip(("prologue", "body"), graphed.graphs):
             c = (ctypes.c_int * 16)()
             kernels.check(lib.gn_while_node_types(
-                ctypes.c_void_p(getattr(graphed, part).raw_cuda_graph()), c), "node types")
+                ctypes.c_void_p(graph.raw_cuda_graph()), c), "node types")
             nodes[part] = {k: c[i] for i, k in enumerate(
                 ("kernel", "memcpy", "memset")) if c[i]}
         out[name] = dict(same_bits=same, max_abs_err=err, iters=iters, plain_iters=int(plain[3]),
@@ -4743,6 +4776,277 @@ def run_last_codings(dev, work, smi, preset="vit_large"):
     return fixtures, euroc, {k: v for k, v in served.items() if k not in ("stages", "latency_ms")}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the global solve as one device program a bucket
+# ---------------------------------------------------------------------------
+
+# flops of one pixel-edge of a calib or points block (plain torch): the
+# reduction w·[J | err]ᵀ[J | err] of 3 rows, an (8, 3) x (3, 8) product
+BLOCK_FLOPS_3_ROWS = 3 * 8 * 8 * 2
+PROGRAM_SOLVES = ("rays_dense", "rays_pcg", "calib", "points")
+
+
+def program_problems(dev, hw, n_kf, seed):
+    """17a's solves on phase 6's scenes: name -> (entry, inputs, settings,
+    mode, ground truth).  The rays scene through the cached entry (dense,
+    then PCG), the calib scene through the cached entry, points mode through
+    the gathering entry on the rays scene."""
+    import torch
+    from mast3r_slam_tpu_torch.ops.global_gn import GlobalGNSettings
+
+    gt, noisy, Xs, Cs, ii, jj, idx, valid, Q, K = rays_problem(dev, hw, n_kf, seed)
+    Kc, gt_c, noisy_c, Xs_c, Cs_c = calib_problem(dev, hw, n_kf, seed)
+    ii, jj = ii.long(), jj.long()
+    half = len(ii) // 2
+    n_fused = torch.ones(n_kf, device=dev)
+    idx = idx.contiguous()
+
+    def cached(T, X, C, Kx):
+        gath = torch.cat([X, C], dim=-1)[ii]  # identity matches
+        return (T, X, C, n_fused, ii, jj, gath[:half], gath[half:], idx, valid, Q, Kx)
+
+    return {
+        "rays_dense": ("cached", cached(noisy, Xs, Cs, K), GlobalGNSettings(), "rays", gt),
+        "rays_pcg": ("cached", cached(noisy, Xs, Cs, K), GlobalGNSettings(solver="pcg"),
+                     "rays", gt),
+        "calib": ("cached", cached(noisy_c, Xs_c, Cs_c, Kc), GlobalGNSettings(), "calib", gt_c),
+        "points": ("poses", (noisy, Xs, Cs, ii, jj, idx, valid, Q, K), GlobalGNSettings(),
+                   "points", gt),
+    }
+
+
+def check_global_program(dev, hw=(384, 512), n_kf=16, seed=5):
+    """17a: the global GN's device program against the eager plain loop
+    (``gn_loop``, frozen at max_iters) on the same inputs at full width: the
+    same bits of the poses, iterations, ok and diverged; then a second
+    call, with the counters reset just before and read just after and the
+    card's syncs counted: one program launch, the edge-block kernel once an
+    iteration that ran (rays), no sync, nothing built; the ground truth
+    within SOLVE_BOUND_M; the program's time against the eager loop's (CUDA
+    events) and the bound.  No program is kept at the start, so each
+    first call builds one (``build_s``: the build and that call, host
+    clock).  Returns {solve: record}."""
+    import torch
+    from mast3r_slam_tpu_torch.ops import global_gn as gn
+
+    gn.clear_programs()
+    out = {}
+    for name, (entry, inputs, settings, mode, truth) in program_problems(
+            dev, hw, n_kf, seed).items():
+        fields = lambda: gn._entry_fields(entry, inputs, hw, settings, mode)
+        plain = lambda: gn._gn_core(inputs[0], *fields(), inputs[-1], hw, settings, mode)
+        program = lambda: gn.global_gn_graph(entry, inputs, hw, settings, mode)
+        want = plain()
+        t0 = time.perf_counter()
+        got = program()  # its first call builds it
+        sync(dev)
+        build_s = time.perf_counter() - t0
+        built = gn.programs_built()
+        reset_counts()
+        with counted_syncs() as seen:
+            again = program()
+        sync(dev)
+        counts = read_counts()
+        same = all(torch.equal(a, b) for a, b in zip(got, want)) and all(
+            torch.equal(a, b) for a, b in zip(again, want))
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+        iters, ok = int(got[1]), bool(got[2])
+        ms = time_cuda(program, iters=3, warmup=0)
+        plain_ms = time_cuda(plain, iters=1, warmup=0)
+        E, N = inputs[4].shape[0], hw[0] * hw[1]
+        nbytes = sum(a.numel() * a.element_size() for a in inputs) + sum(
+            a.numel() * a.element_size() for a in got)
+        flops = iters * E * N * (EDGE_HG_FLOPS if mode == "rays" else BLOCK_FLOPS_3_ROWS)
+        rec = dict(entry=entry, mode=mode, route="pcg" if gn.routes_pcg(
+            settings, inputs[0].shape[0]) else "dense", iters=iters,
+            plain_iters=int(want[1]), ok=ok, diverged=bool(got[3]), same_bits=same,
+            max_abs_err=err, program_launches=counts["global_gn_while"],
+            edge_hg_launches=counts["edge_hg_rays"], syncs=len(seen),
+            built_on_second_call=gn.programs_built() - built,
+            err_m=(got[0][:, :3] - truth[:, :3]).norm(dim=-1).max().item(),
+            ms=ms, plain_ms=plain_ms, build_s=build_s, **_bound(nbytes, flops))
+        log(f"17a global GN device program, {name} ({n_kf} keyframes, {E} edges x {N} px): "
+            + json.dumps(rec))
+        for stack in seen:
+            log("17a sync from:\n" + stack)
+        if not (same and ok and 1 <= iters <= settings.max_iters
+                and rec["program_launches"] == 1 and rec["syncs"] == 0
+                and rec["built_on_second_call"] == 0
+                and rec["edge_hg_launches"] == (iters if mode == "rays" else 0)
+                and rec["err_m"] <= SOLVE_BOUND_M):
+            raise AssertionError(f"17a {name}: {rec} (the plain loop's bits and iterations, "
+                                 f"one launch, one edge-block launch an iteration in rays "
+                                 f"mode, no sync, within {SOLVE_BOUND_M} m)")
+        out[name] = rec
+    return out
+
+
+def run_program_task(dev, model, hw=(384, 512)):
+    """17b: phase 6's ViT-L backend task (three keyframes, add_factors([1],
+    [2]), solve) with the card's syncs counted apart for add_factors and the
+    solve, the solve's iterations, edge-block and program launches, then
+    solve_ms (host clock between synchronisations, median of 3)."""
+    from mast3r_slam_tpu_torch.config import load_config
+    from mast3r_slam_tpu_torch.slam import factor_graph as fg
+
+    cfg = load_config("base")
+    kf = vitl_keyframes(dev, model, hw)
+    graph = fg.FactorGraph(model, cfg, kf, hw, edge_capacity=16)
+    frac = cfg["local_opt"]["min_match_frac"]
+    iters, spy = solve_iters(fg)
+    sync(dev)
+    t0 = time.perf_counter()
+    with counted_syncs() as add_seen:
+        added = graph.add_factors([1], [2], frac)
+    graph.solve()  # the bucket's program is built here
+    sync(dev)
+    task_ms = (time.perf_counter() - t0) * 1e3
+    reset_counts()
+    with counted_syncs() as solve_seen:
+        graph.solve()
+    sync(dev)
+    counts = read_counts()
+    ms = []
+    with spy:
+        for _ in range(3):
+            sync(dev)
+            t0 = time.perf_counter()
+            graph.solve()
+            sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    rec = dict(added=added, first_task_ms=task_ms, add_factors_syncs=len(add_seen),
+               solve_syncs=len(solve_seen), iters=iters[-1],
+               edge_hg_launches=counts["edge_hg_rays"],
+               program_launches=counts["global_gn_while"], solve_ms=statistics.median(ms),
+               solve_ms_runs=ms)
+    log(f"17b ViT-L backend task {hw[0]}x{hw[1]} (base): " + json.dumps(rec))
+    for stack in solve_seen:
+        log("17b solve sync from:\n" + stack)
+    if not (added and rec["solve_syncs"] == 0 and rec["program_launches"] == 1
+            and rec["edge_hg_launches"] == rec["iters"] >= 1):
+        raise AssertionError(f"17b ViT-L task: {rec} (a solve: no sync, one program "
+                             f"launch, one edge-block launch an iteration that ran)")
+    return rec
+
+
+def program_bucket(entry, inputs, settings, mode):
+    """A solve's device program as the cache groups it: ((entry, route),
+    (mode, padded poses, padded edges, pin))."""
+    from mast3r_slam_tpu_torch.ops import global_gn as gn
+
+    P, E = inputs[0].shape[0], inputs[4 if entry == "cached" else 3].shape[0]
+    route = "pcg" if gn.routes_pcg(settings, P) else "dense"
+    return (entry, route), (mode, int(P), int(E), settings.pin)
+
+
+def lru_builds(seq, cap):
+    """Programs that an LRU cache of ``cap`` programs a group, empty at the
+    start, builds over ``seq``, a sequence of (group, bucket)."""
+    kept, built = {}, 0
+    for group, bucket in seq:
+        held = kept.setdefault(group, [])
+        if bucket in held:
+            held.remove(bucket)
+        else:
+            built += 1
+            if len(held) >= cap:
+                held.pop(0)
+        held.append(bucket)
+    return built
+
+
+@contextlib.contextmanager
+def programs_met(label, out):
+    """Record the global solve's device programs met while the block runs
+    into ``out[label]``: solves, buckets met, programs built (with the
+    cache as it stood: more than the buckets met when it starts empty means
+    rebuilds), the memory each program kept at the end holds, the builds
+    an LRU cache of 1-8 programs a group would make from empty, and the
+    sequence of buckets, run-length coded."""
+    from mast3r_slam_tpu_torch.ops import global_gn as gn, gn_program
+
+    real = gn.global_gn_graph
+    seq = []
+
+    def spy(entry, inputs, img_hw, settings, mode):
+        seq.append(program_bucket(entry, inputs, settings, mode))
+        return real(entry, inputs, img_hw, settings, mode)
+
+    built = gn.programs_built()
+    with swapped(gn, "global_gn_graph", spy):
+        yield
+    runs = []
+    for g, b in seq:
+        if runs and runs[-1][0] == [*g, *b]:
+            runs[-1][1] += 1
+        else:
+            runs.append([[*g, *b], 1])
+    rec = dict(solves=len(seq), buckets=len(set(seq)), built=gn.programs_built() - built,
+               budget_mb=gn_program.PROGRAM_BYTES / 2 ** 20,
+               held_mb=[b / 2 ** 20 for _, b in gn.programs()],
+               lru_builds={c: lru_builds(seq, c) for c in range(1, 9)}, sequence=runs)
+    out[label] = rec
+    log(f"{label} global GN device programs met: " + json.dumps(rec))
+
+
+def run_program_arc(dev, hw=(384, 512)):
+    """17c: 10a's windowed arc (window_size 16, edge_recycle) from no program
+    kept, a solve after every keyframe up to 48: full solves while the
+    window holds every free pose (16, then 32 padded poses), windowed ones
+    after, whose pinned context and kept edges change bucket as the loops
+    come and go.  Each solve one program launch and one edge-block run an
+    iteration that ran (counted by the kernel); every bucket met built once
+    (no rebuild under the cache's cap); the device memory the programs
+    hold (allocated and reserved, dropped with clear_programs)."""
+    import gc
+
+    import torch
+    from mast3r_slam_tpu_torch.ops import global_gn as gn
+
+    gn.clear_programs()
+    gc.collect()
+    torch.cuda.empty_cache()
+    met = {}
+    with programs_met("17c", met):
+        run = run_windowed_solve(dev, hw, oracle=False,
+                                 stages=tuple(range(2, WINDOW_STAGES[-1] + 1)), label="17c")
+    sync(dev)
+    kept = gn.programs()
+    alloc, reserved = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
+    gn.clear_programs()
+    gc.collect()
+    torch.cuda.empty_cache()
+    sv = run["solves"]
+    rec = dict(met["17c"], kept=len(kept), kept_mb=sum(b for _, b in kept) / 2 ** 20,
+               iters=[r["iters"] for r in sv],
+               program_launches=sum(r["program_launches"] for r in sv),
+               edge_hg_launches=sum(r["edge_hg_launches"] for r in sv),
+               ms=[round(r["ms"], 3) for r in sv],
+               programs_allocated_mb=(alloc - torch.cuda.memory_allocated(dev)) / 2 ** 20,
+               programs_reserved_mb=(reserved - torch.cuda.memory_reserved(dev)) / 2 ** 20)
+    log("17c windowed arc, a solve a keyframe: " + json.dumps(
+        {k: v for k, v in rec.items() if k != "sequence"}))
+    if not (rec["solves"] == len(sv) and rec["buckets"] > 2
+            and rec["built"] == rec["buckets"]
+            and all(r["program_launches"] == 1 and r["edge_hg_launches"] == r["iters"] >= 1
+                    and r["pre_window_same_bits"] for r in sv)):
+        raise AssertionError(f"17c: {rec} (more than two buckets, each built once; a solve: "
+                             f"one program launch, one edge-block run an iteration that ran, "
+                             f"the pre-window poses' bits kept)")
+    return rec
+
+
+def run_global_program(dev, vitl, smi):
+    """Phase 17 (a)-(c), each checked; raises on any fault."""
+    t0 = time.perf_counter()
+    solves = check_global_program(dev)
+    task = run_program_task(dev, vitl)
+    arc = run_program_arc(dev)
+    log(f"17 global GN device program: phase 17 {time.perf_counter() - t0:.1f} s; {smi}")
+    return dict(solves=solves, vitl_task=task, arc=arc, card=smi)
+
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -4906,6 +5210,7 @@ def main() -> int:
             f"{RELOC_BOUND_M})")
 
     # the CLI on a recorded sequence, from a scratch directory in the checkout
+    met = {}  # the global solve's device programs met in the runs with many solves
     work = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -4913,7 +5218,8 @@ def main() -> int:
     os.chdir(work)
     try:
         cli = run_cli_standin(dev, work)
-        vcli = run_cli_vitl(dev, work)
+        with programs_met("9b", met):
+            vcli = run_cli_vitl(dev, work)
     finally:
         os.chdir(cwd)
     want_files = sorted([f"{TUM_SEQ}.txt", f"{TUM_SEQ}.ply", f"{TUM_SEQ}_map.png",
@@ -4950,15 +5256,19 @@ def main() -> int:
         f"{vcli['checkpoint_s'] * 1e3:.1f} ms ({vcli['checkpoint_bytes']} bytes); {smi}")
 
     # the long-video memory plan, in the same scratch directory
-    windowed = check_windowed_solve(dev)
-    soak = run_paged_soak(dev)
-    paged = check_paged_reloc(dev, work)
+    with programs_met("10a", met):
+        windowed = check_windowed_solve(dev)
+    with programs_met("10b", met):
+        soak = run_paged_soak(dev)
+    with programs_met("10b_reloc", met):
+        paged = check_paged_reloc(dev, work)
     strided = run_strided_task(dev, vitl, vitl_kf)
     log(f"10c: strided task {strided['task_ms']:.3f} ms against the stride-1 task's "
         f"{backend_split['task_ms']:.3f} ms (host clock); {smi}")
 
     # serving, in the same scratch directory
-    jpeg, serve, viz, two = run_serving(dev, work, smi)
+    with programs_met("11", met):
+        jpeg, serve, viz, two = run_serving(dev, work, smi)
     # image input without cv2, in the same scratch directory
     img_fixtures, img_cli, img_served, img_close = run_image_input(dev, work, smi)
     # the multi-card backend on one card, against phase 5's run and phase 6's task
@@ -4976,6 +5286,10 @@ def main() -> int:
     # the last codings: arithmetic-coded JPEG (SOF9, SOF10, DAC) and lossless
     # JPEG read as gray; in the same scratch directory
     coding_fixtures, coding_euroc, coding_served = run_last_codings(dev, work, smi)
+    # the global solve as one device program a bucket: against the plain
+    # loop at full width, the ViT-L task's solve, a SLAM.run's buckets
+    program = run_global_program(dev, vitl, smi)
+    ptask, prays = program["vitl_task"], program["solves"]["rays_dense"]
 
     common = lambda r: {k: r[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms",
@@ -5063,6 +5377,20 @@ def main() -> int:
              bound_by=tgn["bound_by"], library_ms=None, iters=tgn["iters"],
              kernel_nodes_run=tgn["kernel_nodes_run"],
              speed_launches=speed["seq_counts"]["tracking_gn_while"]),
+        # the XLA while_loops of the global GN and its CG: one CUDA graph a
+        # solve, nested WHILE nodes; exact against the plain loop (17a)
+        dict(name="global_gn_while", route="cuda",
+             source="mast3r_slam_tpu_torch/csrc/gn_while.cu",
+             replaces="mast3r_slam_tpu/ops/global_gn.py:724",
+             launches=program["arc"]["program_launches"],
+             shape=[16, 32, 384 * 512],
+             max_abs_err=max(r["max_abs_err"] for r in program["solves"].values()),
+             ms=prays["ms"], plain_ms=prays["plain_ms"], bound_ms=prays["bound_ms"],
+             bound_by=prays["bound_by"], library_ms=None, iters=prays["iters"],
+             solves={k: {m: r[m] for m in ("route", "iters", "ms", "plain_ms", "bound_ms",
+                                           "bound_by")}
+                     for k, r in program["solves"].items()},
+             vitl_task_launches=ptask["program_launches"]),
     ], "kernel_floor_ms": design["kernel_floor_ms"],
         "edge_hg_sass_loop": design["edge_hg_sass_loop"], "ptxas": design["ptxas"],
         "gather_plans": design["plans"],
@@ -5100,7 +5428,8 @@ def main() -> int:
         "last_codings": {"fixtures": coding_fixtures, "lossless_euroc_cli": coding_euroc,
                          "arithmetic_serve": coding_served, "card": smi},
         "host_reads": {k: v for k, v in host.items() if k != "tracking_gn"},
-        "tracking_gn_program": host["tracking_gn"]}
+        "tracking_gn_program": host["tracking_gn"],
+        "global_gn_program": dict(program, buckets_met=met)}
     log(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

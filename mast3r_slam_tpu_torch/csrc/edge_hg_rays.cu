@@ -48,6 +48,12 @@
 //     the 8 warps in order through shared memory) into partial[item]; after
 //     grid.sync() each edge's tiles are summed in tile order.  The same
 //     bits on every call.
+//   - The launch is cudaLaunchKernelEx with the cooperative attribute,
+//     which a stream capture records as a cooperative kernel node: the
+//     global solve's device program (ops/global_gn.py) replays it inside
+//     its WHILE node.
+//   - Each run adds one to a device counter (`runs`, block 0's thread 0),
+//     so a replayed graph's runs are counted where the kernel runs.
 // Points are pixel-major (E, N, 3): the layout the solve's gathers produce.
 
 #include <cooperative_groups.h>
@@ -174,10 +180,11 @@ __device__ __forceinline__ void add_pixel(float (&acc)[NU], const Pixel& x, cons
 __global__ void __launch_bounds__(THREADS, 2)
 edge_hg_rays_kernel(const float* __restrict__ tij, const float* __restrict__ xi,
                     const float* __restrict__ xj, const float* __restrict__ sq,
-                    float* __restrict__ partial, float* __restrict__ out, int E, int N,
-                    int tiles, int pix, float inv_sigma_ray, float inv_sigma_dist,
-                    float huber_k) {
+                    float* __restrict__ partial, float* __restrict__ out,
+                    unsigned long long* __restrict__ runs, int E, int N, int tiles, int pix,
+                    float inv_sigma_ray, float inv_sigma_dist, float huber_k) {
   __shared__ float red[WARPS][NU];
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(runs, 1ull);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int items = E * tiles;
@@ -265,22 +272,32 @@ extern "C" int edge_hg_rays_slots(void) {
 }
 
 // tij: (E, 8) f32; xi, xj: (E, N, 3) f32; sq: (E, N) f32, all contiguous;
-// partial: scratch of (E * tiles, 36) f32; out: (E, 8, 8) f32.  E, N,
-// tiles >= 1, 3 N < 2^31; slots from edge_hg_rays_slots.  One cooperative
-// launch of min(E * tiles, slots) blocks on `stream`; returns its error.
+// partial: scratch of (E * tiles, 36) f32; out: (E, 8, 8) f32; runs: one
+// u64 that each run adds one to.  E, N, tiles >= 1, 3 N < 2^31; slots
+// from edge_hg_rays_slots.  One cooperative launch of min(E * tiles,
+// slots) blocks on `stream` (captured too); returns its error.
 extern "C" int edge_hg_rays_f32(const void* tij, const void* xi, const void* xj,
-                                const void* sq, void* partial, void* out, int E, int N,
-                                int tiles, int slots, float inv_sigma_ray,
+                                const void* sq, void* partial, void* out, void* runs, int E,
+                                int N, int tiles, int slots, float inv_sigma_ray,
                                 float inv_sigma_dist, float huber_k, void* stream) {
   const float *t = static_cast<const float*>(tij), *a = static_cast<const float*>(xi),
               *b = static_cast<const float*>(xj), *c = static_cast<const float*>(sq);
   float *pa = static_cast<float*>(partial), *o = static_cast<float*>(out);
+  unsigned long long* r = static_cast<unsigned long long*>(runs);
   int pix = (N + tiles - 1) / tiles;
-  void* args[] = {&t, &a, &b, &c, &pa, &o, &E, &N, &tiles, &pix,
+  void* args[] = {&t, &a, &b, &c, &pa, &o, &r, &E, &N, &tiles, &pix,
                   &inv_sigma_ray, &inv_sigma_dist, &huber_k};
   const int items = E * tiles;
-  const int grid = items < slots ? items : slots;
-  return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(edge_hg_rays_kernel), dim3(grid), dim3(THREADS), args, 0,
-      reinterpret_cast<cudaStream_t>(stream)));
+  cudaLaunchAttribute coop[1];
+  coop[0].id = cudaLaunchAttributeCooperative;
+  coop[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(items < slots ? items : slots);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = reinterpret_cast<cudaStream_t>(stream);
+  cfg.attrs = coop;
+  cfg.numAttrs = 1;
+  return static_cast<int>(
+      cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(edge_hg_rays_kernel), args));
 }

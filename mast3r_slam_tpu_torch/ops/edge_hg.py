@@ -20,7 +20,10 @@ lines, used in full through L1.
 ``edge_hg_rays`` launches ``csrc/edge_hg_rays.cu`` (one cooperative kernel
 a call over (edge, tile) items sized to fill the card, their partial sums
 in a ``torch.empty`` scratch) on CUDA tensors or raises; it runs
-``edge_hg_rays_plain`` only on CPU tensors.
+``edge_hg_rays_plain`` only on CPU tensors.  The kernel counts its own
+runs in a device counter (``counter.runs``), so the launches that the
+global solve's device program captures are counted each time it replays
+them, where they run.
 """
 
 from __future__ import annotations
@@ -137,21 +140,34 @@ def edge_hg_rays_cuda(Tij, Xi, Xj, sq, *, sigma_ray: float, sigma_dist: float,
         return out.zero_()
     fn = kernels.entry_point("edge_hg_rays")
     with torch.cuda.device(Xi.device):
-        slots = _slots.get(Xi.device.index)
-        if slots is None:
-            slots = _slots[Xi.device.index] = kernels.entry_point("edge_hg_rays_slots")()
-            if slots <= 0:
-                raise RuntimeError("edge_hg_rays_slots: the card's occupancy query failed")
+        slots = card_slots(Xi.device)
         # tiles an edge: enough (edge, tile) items to fill the card at once
         tiles = max(1, min(slots // E, -(-N // MIN_TILE_PIXELS)))
         partial = torch.empty((E * tiles, 36), dtype=torch.float32, device=Xi.device)
         stream = torch.cuda.current_stream(Xi.device).cuda_stream
+        # the kernel counts its own runs on the card, replays of a captured
+        # launch among them (ops/global_gn.py's device program)
         rc = fn(Tij.data_ptr(), Xi.data_ptr(), Xj.data_ptr(), sq.data_ptr(),
-                partial.data_ptr(), out.data_ptr(), E, N, tiles, slots,
-                1.0 / sigma_ray, 1.0 / sigma_dist, huber_k, stream)
+                partial.data_ptr(), out.data_ptr(), counter.runs(Xi.device).data_ptr(), E, N,
+                tiles, slots, 1.0 / sigma_ray, 1.0 / sigma_dist, huber_k, stream)
     kernels.check(rc, "edge_hg_rays_f32")
-    counter.add()
     return out
+
+
+def card_slots(device) -> int:
+    """Blocks of the kernel that ``device`` holds at once (its library loaded,
+    the occupancy queried and the run count made at the first call; kept by
+    device)."""
+    device = torch.device(device)
+    counter.runs(device)
+    slots = _slots.get(device.index)
+    if slots is None:
+        with torch.cuda.device(device):
+            slots = kernels.entry_point("edge_hg_rays_slots")()
+        if slots <= 0:
+            raise RuntimeError("edge_hg_rays_slots: the card's occupancy query failed")
+        _slots[device.index] = slots
+    return slots
 
 
 def edge_hg_rays(Tij, Xi, Xj, sq, *, sigma_ray: float, sigma_dist: float,

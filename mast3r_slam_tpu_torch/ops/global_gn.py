@@ -14,11 +14,20 @@ no kernel for them.  Every float32 matrix product here runs in full f32
 (``full_f32``), and norms and CG inner products are elementwise products
 and sums.
 
-The JAX package's GN ``lax.while_loop`` is a fixed count of ``max_iters``
-iterations here, frozen on the device once its condition fails
-(``gn_loop``), so a solve reads nothing from the host on the dense route.
-The PCG loop still reads its residual test once per iteration, at most
-``pcg_iters`` times; in a frozen GN iteration it reads once and stops.
+The JAX package runs the GN loop and, on the PCG route, the CG loop
+inside it as ``lax.while_loop``s on the device.  On the card a solve is
+one device program (``global_gn_graph``): the solve's pieces (``_Pieces``:
+the prologue, then a GN iteration, on the PCG route split around the CG
+iteration) captured once each and joined under WHILE nodes
+(``csrc/gn_while.cu``), so a launch runs the iterations the JAX loops run
+and stops where they stop, and the host reads nothing.  A program is built
+per (entry, mode, route, shapes, device, settings); the factor graph pads
+every solve to the JAX package's buckets, so a session meets few of them.
+On the CPU the plain version runs: ``gn_loop``, ``max_iters`` iterations
+frozen on the device once the JAX condition fails, with the same bits;
+its PCG loop reads its test once a CG iteration.  ``gn_loop`` is also the
+loop of the edge-sharded route (``parallel/sharded_ba.py``), whose step
+runs collectives.
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ import torch
 from ..geometry import constrain_points_to_ray
 from ..lie import sim3
 from ..utils.numerics import full_f32, index_add_fixed
-from . import edge_hg
+from . import edge_hg, gn_program, kernels
 from .robust import huber_weight
 
 
@@ -255,7 +264,10 @@ def _solve_dense(Hbig, gbig, M: int, damping: float = 1e-4):
     Hs = Hd * d_inv[:, None] * d_inv[None, :]
     Hs = Hs + torch.eye(7 * M, dtype=Hs.dtype, device=Hs.device) * (damping + 1e-8)
     L, info = torch.linalg.cholesky_ex(Hs)
-    y = torch.cholesky_solve((gd * d_inv)[:, None], L)[:, 0]
+    # the factor's two triangular solves: cholesky_solve (cuSOLVER's potrs)
+    # may allocate memory inside a capture, which no graph loop can hold
+    y = torch.linalg.solve_triangular(L, (gd * d_inv)[:, None], upper=False)
+    y = torch.linalg.solve_triangular(L.mT, y, upper=True)[:, 0]
     dx = -(d_inv * y)
     ok = (info == 0) & torch.isfinite(dx).all()
     dx = torch.where(ok, dx, torch.zeros_like(dx))
@@ -276,21 +288,12 @@ def _dot(a, b):
     return torch.sum(a * b)
 
 
-def _assemble_and_solve_pcg(H_e, g_e, ii, jj, num_poses: int, pin: int,
-                            iters: int, tol: float, damping: float = 1e-4,
-                            precond: str = "block", active=True):
-    """Block-sparse normal equations solved by preconditioned CG, the
-    operator applied edge-wise (gather 7-vectors, multiply 7x7 blocks,
-    scatter-add): O(E + M) memory.  The preconditioner is per-pose 7x7
-    Cholesky solves ("block") or scalar Jacobi ("diag"); both see the
-    relatively damped block diagonal.  ``active`` (a device flag: the GN
-    loop's) joins the CG loop's test, so a frozen GN iteration leaves after
-    the first read.  Returns (dx (P - pin, 7), ok)."""
-    M = num_poses - pin
-    H_e = H_e.float()
-    g_e = g_e.float()
-    io, jo = _slots(ii, jj, pin, M)
-
+def _pcg_system(H_e, g_e, io, jo, M: int, damping: float, precond: str):
+    """The block-sparse normal equations of one GN iteration: (A_mv, prec,
+    b), the operator applied edge-wise (gather 7-vectors, multiply 7x7
+    blocks, scatter-add: O(E + M) memory), the preconditioner (per-pose 7x7
+    Cholesky solves, "block", or scalar Jacobi, "diag"; both see the
+    relatively damped block diagonal) and the right-hand side (M, 7)."""
     b = g_e.new_zeros((M + 1, 7))
     index_add_fixed(b, io, g_e)
     index_add_fixed(b, jo, -g_e)
@@ -315,8 +318,9 @@ def _assemble_and_solve_pcg(H_e, g_e, ii, jj, num_poses: int, pin: int,
         # with NaN, as cho_factor does in the JAX package
         Lp = torch.where((info == 0)[:, None, None], Lp, torch.full_like(Lp, float("nan")))
 
-        def prec(r):
-            return torch.cholesky_solve(r[..., None], Lp)[..., 0]
+        def prec(r):  # two triangular solves, as in _solve_dense
+            y = torch.linalg.solve_triangular(Lp, r[..., None], upper=False)
+            return torch.linalg.solve_triangular(Lp.mT, y, upper=True)[..., 0]
 
     def A_mv(x):  # (D + off-diagonal blocks) x, as products and sums
         xp = torch.cat([x, x.new_zeros((1, 7))])
@@ -328,27 +332,60 @@ def _assemble_and_solve_pcg(H_e, g_e, ii, jj, num_poses: int, pin: int,
         index_add_fixed(acc, jo, yj)
         return y + acc[:M]
 
+    return A_mv, prec, b
+
+
+def _pcg_start(b, prec, tol: float):
+    """The CG loop's initial state (x, r, z, p, rz) and its squared
+    tolerance."""
     tol2 = (tol * tol) * torch.clamp_min(_dot(b, b), 1e-30)
-    x = torch.zeros_like(b)
-    r = b
+    z = prec(b)
+    return (torch.zeros_like(b), b, z, z, _dot(b, z)), tol2
+
+
+def _cg_test(r, rz, tol2):
+    """The CG loop's test, the JAX ``cond`` (global_gn.py:500-502) but the
+    count: the residual above the tolerance and rz finite."""
+    return (_dot(r, r) > tol2) & torch.isfinite(rz)
+
+
+def _cg_step(A_mv, prec, x, r, z, p, rz):
+    """One CG iteration, the JAX ``body`` (global_gn.py:504-513)."""
+    Ap = A_mv(p)
+    alpha = rz / torch.clamp_min(_dot(p, Ap), 1e-30)
+    x = x + alpha * p
+    r = r - alpha * Ap
     z = prec(r)
-    p = z
-    rz = _dot(r, z)
-    for _ in range(iters):
-        # one host read an iteration: the loop's test
-        if not bool((active & (_dot(r, r) > tol2) & torch.isfinite(rz)).item()):
-            break
-        Ap = A_mv(p)
-        alpha = rz / torch.clamp_min(_dot(p, Ap), 1e-30)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = prec(r)
-        rz_new = _dot(r, z)
-        beta = rz_new / torch.clamp_min(rz, 1e-30)
-        p = z + beta * p
-        rz = rz_new
+    rz_new = _dot(r, z)
+    beta = rz_new / torch.clamp_min(rz, 1e-30)
+    p = z + beta * p
+    return x, r, z, p, rz_new
+
+
+def _pcg_result(x):
+    """(dx, ok): a non-finite solution gives ok False and a zero step."""
     ok = torch.isfinite(x).all()
     return torch.where(ok, x, torch.zeros_like(x)), ok
+
+
+def _assemble_and_solve_pcg(H_e, g_e, ii, jj, num_poses: int, pin: int,
+                            iters: int, tol: float, damping: float = 1e-4,
+                            precond: str = "block", active=True):
+    """Block-sparse normal equations (``_pcg_system``) solved by
+    preconditioned CG, the plain loop: its test is read once a CG
+    iteration, at most ``iters`` times.  ``active`` (a device flag: the
+    frozen GN loop's) joins that test, so a frozen GN iteration leaves after
+    the first read.  Returns (dx (P - pin, 7), ok)."""
+    M = num_poses - pin
+    io, jo = _slots(ii, jj, pin, M)
+    A_mv, prec, b = _pcg_system(H_e.float(), g_e.float(), io, jo, M, damping, precond)
+    state, tol2 = _pcg_start(b, prec, tol)
+    for _ in range(iters):
+        # one host read an iteration: the loop's test
+        if not bool((active & _cg_test(state[1], state[4], tol2)).item()):
+            break
+        state = _cg_step(A_mv, prec, *state)
+    return _pcg_result(state[0])
 
 
 # ---------------------------------------------------------------------------
@@ -357,6 +394,14 @@ def _assemble_and_solve_pcg(H_e, g_e, ii, jj, num_poses: int, pin: int,
 
 def _as_index(a, device):
     return torch.as_tensor(a, device=device).long()
+
+
+def routes_pcg(settings: GlobalGNSettings, num_poses: int) -> bool:
+    """The solver route of a solve over ``num_poses`` poses (the JAX
+    ``_gn_core``'s static choice, global_gn.py:642-644): PCG when asked, or
+    under "auto" past ``dense_max_poses`` free poses."""
+    return settings.solver == "pcg" or (
+        settings.solver == "auto" and (num_poses - settings.pin) > settings.dense_max_poses)
 
 
 @torch.no_grad()
@@ -368,13 +413,12 @@ def gauss_newton_poses(Twc, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q, K, img_hw
     idx_ii2jj (E, N); valid_match (E, N, 1) bool; Q (E, N, 1).  Returns
     (Twc', iters, ok, diverged): ``diverged`` is the monotone-cost guard, set
     when an iteration raised the robust cost; that step was reverted (Twc'
-    is the last good iterate) and the loop stopped.
+    is the last good iterate) and the loop stopped.  On a CUDA tensor the
+    solve is one launch of its device program (``global_gn_graph``).
     """
     dev = Twc.device
-    ii, jj = _as_index(ii, dev), _as_index(jj, dev)
-    fields = precompute_edge_data(Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q,
-                                  settings, mode, img_hw)
-    return _gn_core(Twc, ii, jj, *fields, K, img_hw, settings, mode)
+    return _solve("poses", (Twc, Xs, Cs, _as_index(ii, dev), _as_index(jj, dev), idx_ii2jj,
+                            valid_match, Q, K), img_hw, settings, mode)
 
 
 @torch.no_grad()
@@ -390,17 +434,39 @@ def gauss_newton_poses_cached(Twc, Xs, C_raw, n_fused, ii, jj, gath_f, gath_b,
     fields: normalisation and the calib ray constraint happen here.
     """
     dev = Twc.device
-    ii, jj = _as_index(ii, dev), _as_index(jj, dev)
+    return _solve("cached", (Twc, Xs, C_raw, n_fused, _as_index(ii, dev), _as_index(jj, dev),
+                             gath_f, gath_b, idx_ii2jj, valid_match, Q, K),
+                  img_hw, settings, mode)
+
+
+def _entry_fields(entry: str, inputs, img_hw, settings: GlobalGNSettings, mode: str):
+    """The edges (ii, jj, Xi, Xj, sq, ut, vt) from an entry's inputs: the
+    correspondences gathered once (they do not depend on the poses)."""
+    if entry == "poses":
+        _, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q, _ = inputs
+        return (ii, jj) + tuple(precompute_edge_data(Xs, Cs, ii, jj, idx_ii2jj, valid_match,
+                                                     Q, settings, mode, img_hw))
+    _, Xs, C_raw, n_fused, ii, jj, gath_f, gath_b, idx_ii2jj, valid_match, Q, K = inputs
     nf = torch.clamp_min(n_fused.float(), 1.0)
     Cs = C_raw.float() / nf[:, None, None]
     Xs = Xs.float()
     if mode == "calib":
         Xs = constrain_points_to_ray(img_hw, Xs, K)
     gath = torch.cat([gath_f, gath_b], dim=0).float()
-    fields = _edge_fields(gath[..., 0:3], gath[..., 3] / nf[ii][:, None], Xs[jj],
-                          Cs[jj][..., 0], idx_ii2jj, valid_match, Q.float(),
-                          settings, mode, img_hw[1])
-    return _gn_core(Twc, ii, jj, *fields, K, img_hw, settings, mode)
+    return (ii, jj) + tuple(_edge_fields(gath[..., 0:3], gath[..., 3] / nf[ii][:, None],
+                                         Xs[jj], Cs[jj][..., 0], idx_ii2jj, valid_match,
+                                         Q.float(), settings, mode, img_hw[1]))
+
+
+def _solve(entry: str, inputs, img_hw, settings: GlobalGNSettings, mode: str):
+    """A solve on the inputs' device: the device program on the card, the
+    plain loop (``gn_loop``) on the CPU."""
+    Twc = inputs[0]
+    check_hg_impl(settings, mode, Twc.is_cuda)
+    if Twc.is_cuda:
+        return global_gn_graph(entry, inputs, img_hw, settings, mode)
+    return _gn_core(Twc, *_entry_fields(entry, inputs, img_hw, settings, mode), inputs[-1],
+                    img_hw, settings, mode)
 
 
 def check_hg_impl(settings: GlobalGNSettings, mode: str, on_cuda: bool) -> None:
@@ -437,13 +503,12 @@ def edge_blocks(Twc, edge, K, img_hw, settings: GlobalGNSettings, mode: str):
 
 def _gn_core(Twc, ii, jj, Xi_all, Xj_all, sq_all, ut_all, vt_all, K, img_hw,
              settings: GlobalGNSettings, mode: str):
-    """The GN loop over precomputed per-edge fields, with the monotone-cost
-    health guard."""
+    """The plain GN loop over precomputed per-edge fields, with the
+    monotone-cost health guard."""
     P = Twc.shape[0]
     pin = settings.pin
     check_hg_impl(settings, mode, Twc.is_cuda)
-    use_pcg = settings.solver == "pcg" or (
-        settings.solver == "auto" and (P - pin) > settings.dense_max_poses)
+    use_pcg = routes_pcg(settings, P)
     edge = (ii, jj, Xi_all, Xj_all, sq_all, ut_all, vt_all)
 
     def step(Twc_, active):
@@ -460,28 +525,37 @@ def _gn_core(Twc, ii, jj, Xi_all, Xj_all, sq_all, ut_all, vt_all, K, img_hw,
     return gn_loop(Twc, step, settings)
 
 
+def _gn_advance(Twc, Twc_prev, prev_cost, dx, ok, cost, keep, pin: int, delta_norm: float):
+    """The end of one GN iteration from its step ``dx`` (P - pin, 7), the
+    solve's ``ok`` and the robust cost at ``Twc`` (before the step): the
+    retraction of the free poses and the monotone-cost guard, the JAX
+    ``body`` (global_gn.py:733-741).  The guard checks that the previous
+    step did not raise the cost (by more than 1 %); a step that did is
+    reverted.  Returns (Twc', prev_cost', worse, active'): ``active'`` is
+    the JAX ``cond`` after this iteration but its count (step norm at least
+    ``delta_norm``, ok, not diverged)."""
+    dx_full = torch.cat([dx.new_zeros((pin, 7)), dx], dim=0)
+    Twc_new = torch.where(keep, sim3.retr(Twc, dx_full), Twc)
+    delta = torch.sqrt(torch.sum(dx * dx))
+    worse = cost > prev_cost * 1.01
+    Twc_out = torch.where(worse, Twc_prev, Twc_new)
+    return (Twc_out, torch.where(worse, prev_cost, cost), worse,
+            (delta >= delta_norm) & ok & ~worse)
+
+
 def gn_loop(Twc, step, settings: GlobalGNSettings):
     """Iterate ``step(Twc, active) -> (dx (P - pin, 7), ok, cost at Twc)``
-    (``active`` the loop's device flag, below) with the retraction of the
-    free poses and the monotone-cost guard: each iteration
-    checks that the previous step did not raise the robust cost (by more
-    than 1 %); a step that did is reverted and the loop stops with
-    ``diverged`` set.  The JAX ``while_loop`` (global_gn.py:724-753) as
-    ``max_iters`` iterations under its ``cond`` as a sticky device flag
-    (step norm at least ``delta_norm``, ok, not diverged): once the flag
-    clears the state stays frozen, so nothing is read from the device.
-    Returns (Twc', iters, ok, diverged), the last three device scalars."""
+    (``active`` the loop's device flag, below) under ``_gn_advance``: the
+    plain version of the device program, and the edge-sharded route's loop
+    (its step runs collectives, which a graph cannot hold).  The JAX
+    ``while_loop`` (global_gn.py:724-753) as ``max_iters`` iterations under
+    its ``cond`` as a sticky device flag: once the flag clears the state
+    stays frozen, so nothing is read from the device.  Returns (Twc', iters,
+    ok, diverged), the last three device scalars."""
     P = Twc.shape[0]
     pin = settings.pin
     dev = Twc.device
     keep = (torch.arange(P, device=dev) >= pin)[:, None]
-
-    def one_iter(Twc_, active):
-        dx, ok, cost = step(Twc_, active)
-        dx_full = torch.cat([dx.new_zeros((pin, 7)), dx], dim=0)
-        Twc_new = torch.where(keep, sim3.retr(Twc_, dx_full), Twc_)
-        return Twc_new, torch.sqrt(torch.sum(dx * dx)), ok, cost
-
     with full_f32():
         Twc_cur, Twc_prev = Twc, Twc
         prev_cost = torch.full((), float("inf"), dtype=torch.float32, device=dev)
@@ -490,15 +564,195 @@ def gn_loop(Twc, step, settings: GlobalGNSettings):
         diverged = torch.zeros((), dtype=torch.bool, device=dev)
         active = ok
         for _ in range(settings.max_iters):
-            Twc_new, delta, ok_t, cost = one_iter(Twc_cur, active)
-            worse = cost > prev_cost * 1.01
-            # the revert of a step that raised the cost, the JAX body (:733-741)
-            Twc_out = torch.where(worse, Twc_prev, Twc_new)
+            dx, ok_t, cost = step(Twc_cur, active)
+            Twc_out, cost_out, worse, go = _gn_advance(
+                Twc_cur, Twc_prev, prev_cost, dx, ok_t, cost, keep, pin, settings.delta_norm)
             Twc_cur, Twc_prev = (torch.where(active, Twc_out, Twc_cur),
                                  torch.where(active, Twc_cur, Twc_prev))
-            prev_cost = torch.where(active, torch.where(worse, prev_cost, cost), prev_cost)
+            prev_cost = torch.where(active, cost_out, prev_cost)
             iters = iters + active.to(iters.dtype)
             ok = torch.where(active, ok_t, ok)
             diverged = torch.where(active, worse, diverged)
-            active = active & (delta >= settings.delta_norm) & ok_t & ~worse
+            active = active & go
     return Twc_cur, iters, ok, diverged
+
+
+# ---------------------------------------------------------------------------
+# the device program
+# ---------------------------------------------------------------------------
+
+class _Pieces:
+    """One solve as pieces that update fixed buffers in place, the device
+    program's captures.  ``prologue``: the edges' fields from the inputs,
+    then the loop state (poses, previous poses, ``prev_cost`` inf, ``ok``,
+    ``diverged``, ``active`` True, ``iters`` 0).  A GN iteration: ``body``
+    on the dense route; on the PCG route ``pre`` (the edge blocks, the
+    system, the preconditioner, the CG state and its first test into
+    ``cg_go``, ``cg_it`` 0), then ``cg`` (one CG iteration and its next
+    test) while ``cg_go`` holds and ``cg_it`` < ``pcg_iters``, then
+    ``post`` (the step, the retraction, the guard, ``active``).  Whoever
+    runs the loops counts ``iters`` and ``cg_it`` (on the card the WHILE
+    nodes' kernels, csrc/gn_while.cu).  Run in that order, the pieces give
+    ``gn_loop``'s bits and its iteration count."""
+
+    def __init__(self, entry: str, inputs, img_hw, settings: GlobalGNSettings, mode: str):
+        self.entry, self.inputs, self.img_hw = entry, inputs, tuple(img_hw)
+        self.settings, self.mode = settings, mode
+        Twc = inputs[0]
+        dev = Twc.device
+        self.P = Twc.shape[0]
+        self.M = self.P - settings.pin
+        self.use_pcg = routes_pcg(settings, self.P)
+        self.keep = (torch.arange(self.P, device=dev) >= settings.pin)[:, None]
+
+        def scalar(dtype):
+            return torch.empty((), dtype=dtype, device=dev)
+
+        self.Twc = torch.empty_like(Twc)
+        self.Twc_prev = torch.empty_like(Twc)
+        self.prev_cost, self.cost = scalar(torch.float32), scalar(torch.float32)
+        self.ok, self.diverged, self.active = (scalar(torch.bool) for _ in range(3))
+        self.iters = scalar(torch.int32)
+        inner = None
+        if self.use_pcg:
+            self.x, self.r, self.z, self.p = (
+                torch.empty((self.M, 7), dtype=torch.float32, device=dev) for _ in range(4))
+            self.rz, self.tol2 = scalar(torch.float32), scalar(torch.float32)
+            self.cg_go, self.cg_it = scalar(torch.bool), scalar(torch.int32)
+            inner = gn_program.Loop(self.cg_go, self.cg_it, settings.pcg_iters)
+        self.loops = (gn_program.Loop(self.active, self.iters, settings.max_iters), inner)
+        self.edge = None   # the prologue's
+        self._ops = None   # the PCG operator and preconditioner, pre's
+        self.stand_in = False
+
+    def prologue(self):
+        self.edge = _entry_fields(self.entry, self.inputs, self.img_hw, self.settings,
+                                  self.mode)
+        Twc = self.inputs[0]
+        self.Twc.copy_(Twc)
+        self.Twc_prev.copy_(Twc)
+        self.prev_cost.fill_(float("inf"))
+        self.ok.fill_(True)
+        self.diverged.fill_(False)
+        self.active.fill_(True)
+        self.iters.zero_()
+
+    def _blocks(self):
+        if self.stand_in:  # a program's warm-up: the same shapes, no kernel launch
+            E = self.edge[0].shape[0]
+            dev = self.Twc.device
+            return (torch.eye(7, device=dev).expand(E, 7, 7).contiguous(),
+                    torch.zeros((E, 7), device=dev), torch.zeros((E,), device=dev))
+        return edge_blocks(self.Twc, self.edge, self.inputs[-1], self.img_hw, self.settings,
+                           self.mode)
+
+    def _advance(self, dx, ok, cost):
+        s = self.settings
+        Twc_out, cost_out, worse, go = _gn_advance(
+            self.Twc, self.Twc_prev, self.prev_cost, dx, ok, cost, self.keep, s.pin,
+            s.delta_norm)
+        self.Twc_prev.copy_(self.Twc)
+        self.Twc.copy_(Twc_out)
+        self.prev_cost.copy_(cost_out)
+        self.ok.copy_(ok)
+        self.diverged.copy_(worse)
+        self.active.copy_(go)
+
+    def body(self):
+        s = self.settings
+        H_e, g_e, c_e = self._blocks()
+        cost = torch.sum(c_e)  # robust cost at Twc, before this step
+        dx, ok = _assemble_and_solve(H_e, g_e, self.edge[0], self.edge[1], self.P, s.pin,
+                                     s.pcg_damping)
+        self._advance(dx, ok, cost)
+
+    def pre(self):
+        s = self.settings
+        H_e, g_e, c_e = self._blocks()
+        self.cost.copy_(torch.sum(c_e))
+        io, jo = _slots(self.edge[0], self.edge[1], s.pin, self.M)
+        A_mv, prec, b = _pcg_system(H_e.float(), g_e.float(), io, jo, self.M, s.pcg_damping,
+                                    s.pcg_precond)
+        state, tol2 = _pcg_start(b, prec, s.pcg_tol)
+        for dst, src in zip((self.x, self.r, self.z, self.p, self.rz), state):
+            dst.copy_(src)
+        self.tol2.copy_(tol2)
+        self.cg_go.copy_(_cg_test(state[1], state[4], tol2))
+        self.cg_it.zero_()
+        self._ops = (A_mv, prec)
+
+    def cg(self):
+        state = _cg_step(*self._ops, self.x, self.r, self.z, self.p, self.rz)
+        for dst, src in zip((self.x, self.r, self.z, self.p, self.rz), state):
+            dst.copy_(src)
+        self.cg_go.copy_(_cg_test(state[1], state[4], self.tol2))
+
+    def post(self):
+        self._advance(*_pcg_result(self.x), self.cost)
+
+    def parts(self):
+        """The pieces a program captures, in its order."""
+        return (self.prologue,) + ((self.pre, self.cg, self.post) if self.use_pcg
+                                   else (self.body,))
+
+    def warm_up(self):
+        """Every piece once with stand-in blocks (no edge-block launch); the
+        edge-block kernel's library, occupancy and run count made."""
+        if self.mode == "rays":
+            edge_hg.card_slots(self.Twc.device)
+        self.stand_in = True
+        for part in self.parts():
+            part()
+        self.stand_in = False
+
+    def outputs(self):
+        return (self.Twc, self.iters, self.ok, self.diverged)
+
+
+# launches of the global GN's device program (one a solve on the card)
+counter = kernels.LaunchCounter("global_gn_while")
+_programs = gn_program.ProgramCache()
+
+
+def global_gn_graph(entry: str, inputs, img_hw, settings: GlobalGNSettings, mode: str):
+    """The solve on the card, ``gn_loop``'s results: ``entry`` "poses"
+    (``gauss_newton_poses``'s inputs Twc ... K) or "cached"
+    (``gauss_newton_poses_cached``'s), every input on the card and ii/jj
+    int64.  The device program of (entry, mode, route, input shapes, device,
+    image size, settings) is built at its first call (``gn_program``); the
+    programs kept on a device hold at most ``gn_program.PROGRAM_BYTES``,
+    the least recently used dropped first.  A build that fails raises."""
+    Twc = inputs[0]
+    if not Twc.is_cuda:
+        raise ValueError("global_gn_graph runs on a CUDA device")
+    dev = Twc.device
+    if settings.max_iters < 1:  # the loop's first test fails: nothing runs
+        return (Twc.clone(), torch.zeros((), dtype=torch.int32, device=dev),
+                torch.ones((), dtype=torch.bool, device=dev),
+                torch.zeros((), dtype=torch.bool, device=dev))
+    route = "pcg" if routes_pcg(settings, Twc.shape[0]) else "dense"
+    key = (dev, entry, route, mode, tuple((a.shape, a.dtype) for a in inputs),
+           tuple(img_hw), settings)
+
+    def build():
+        with full_f32():
+            return gn_program.Program(
+                lambda static: _Pieces(entry, static, img_hw, settings, mode), inputs, counter)
+
+    return _programs.run(key, build, inputs)
+
+
+def programs() -> list:
+    """(key, bytes held) of the device programs kept, least recently used
+    first."""
+    return _programs.held()
+
+
+def programs_built() -> int:
+    """Device programs built so far in this process."""
+    return _programs.built
+
+
+def clear_programs() -> None:
+    """Drop every device program (its graph and captured memory)."""
+    _programs.clear()

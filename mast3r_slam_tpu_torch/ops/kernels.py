@@ -44,7 +44,7 @@ ENTRY_POINTS = {
     "refine_window": ("refine_window", "refine_window_i8",
                       [_P] * 4 + [_I] * 6 + [ctypes.POINTER(_I), _I] + [_P] * 2),
     "edge_hg_rays": ("edge_hg_rays", "edge_hg_rays_f32",
-                     [_P] * 6 + [_I] * 4 + [ctypes.c_float] * 3 + [_P]),
+                     [_P] * 7 + [_I] * 4 + [ctypes.c_float] * 3 + [_P]),
     "edge_hg_rays_slots": ("edge_hg_rays", "edge_hg_rays_slots", []),
     "gather_rows_sum": ("gather_rows", "gather_rows_sum", [_P] * 3 + [_I] * 9 + [_P]),
     "gather_rows_sum_slots": ("gather_rows", "gather_rows_sum_slots", [_I] * 3),
@@ -53,7 +53,10 @@ ENTRY_POINTS = {
     "take_along_rows_slots": ("take_along_rows", "take_along_rows_slots", [_I]),
     "gn_while_build": ("gn_while", "gn_while_build",
                        [_P] * 4 + [_I, ctypes.POINTER(_P)]),
+    "gn_while_build_nested": ("gn_while", "gn_while_build_nested",
+                              [_P] * 6 + [_I] + [_P] * 2 + [_I, ctypes.POINTER(_P)]),
     "gn_while_launch": ("gn_while", "gn_while_launch", [_P] * 2),
+    "gn_while_destroy": ("gn_while", "gn_while_destroy", [_P]),
 }
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -156,18 +159,54 @@ def check(rc: int, what: str) -> None:
 
 
 class LaunchCounter:
-    """Count of one kernel's launches; a wrapper adds one per launch."""
+    """Count of one kernel's launches; a wrapper adds one per launch.  A
+    kernel that also runs inside device programs (CUDA graphs replayed
+    without its wrapper) counts its own runs instead, on the card: the
+    wrapper passes ``runs(device)``, one u64 a device that each run adds one
+    to, and ``count`` adds those totals in."""
 
     def __init__(self, name: str):
         self.name = name
-        self.count = 0
+        self._count = 0
+        self._runs = {}  # device -> the kernel's run count there
         # the tracker and the backend thread launch the same kernels
         self._lock = threading.Lock()
 
     def add(self) -> None:
         with self._lock:
-            self.count += 1
+            self._count += 1
+
+    def runs(self, device):
+        """The device's run count (an int64 tensor of one element), made at
+        the first call, which must come outside a stream capture."""
+        import torch
+
+        with self._lock:
+            t = self._runs.get(device)
+            if t is None:
+                if torch.cuda.is_current_stream_capturing():
+                    raise RuntimeError(f"{self.name}: the run count of {device} is made "
+                                       "outside a capture")
+                t = self._runs[device] = torch.zeros((1,), dtype=torch.int64, device=device)
+            return t
+
+    @property
+    def count(self) -> int:
+        """The launches so far; waits for each counting device's work."""
+        import torch
+
+        with self._lock:
+            n = self._count
+            for dev, t in self._runs.items():
+                torch.cuda.synchronize(dev)
+                n += int(t.cpu())
+            return n
 
     def reset(self) -> None:
+        import torch
+
         with self._lock:
-            self.count = 0
+            self._count = 0
+            for dev, t in self._runs.items():
+                t.zero_()
+                torch.cuda.synchronize(dev)

@@ -12,8 +12,9 @@ zero step, as ``cho_factor``'s NaN does in the JAX package.
 
 On the CPU the loop runs eagerly (the plain version).  On the card it is
 one device program, built once per (residual model, input shapes, device,
-settings) and launched on the caller's current stream: ``_GraphedGN``
-captures one iteration in a CUDA graph and repeats it under a WHILE
+settings) and launched on the caller's current stream: ``_Pieces``
+splits the loop into a prologue and one iteration, which
+``gn_program.Program`` captures in CUDA graphs and repeats under a WHILE
 conditional node (``csrc/gn_while.cu``), which stops after the last
 active iteration, as the JAX ``while_loop`` does.
 
@@ -23,15 +24,13 @@ pixel + log-depth (calibrated, tracker.py:216-266).
 
 from __future__ import annotations
 
-import ctypes
-import threading
 from typing import NamedTuple
 
 import torch
 
 from ..geometry import act_sim3, point_to_ray_dist, project_calib, tau_jacobian
 from ..lie import sim3
-from . import kernels
+from . import gn_program, kernels
 from .robust import huber_weight
 
 # launches of the tracking GN's device program (one a solve on the card)
@@ -150,103 +149,73 @@ def tracking_gn_plain(mode: str, inputs, T_init, settings: GNSettings, img_size=
     return _gn_loop(_problem(mode, inputs, settings, img_size), T_init, settings)
 
 
-class _GraphedGN:
-    """The loop as one device program (``csrc/gn_while.cu``): two captures
-    over static buffers, the prologue (the problem's set-up from the inputs,
-    the loop state's initial values) and one iteration (the state updated
-    in place), joined into a graph whose WHILE node repeats the iteration
-    while it is active.  A call copies its inputs in, launches the graph on
-    the current stream and clones the outputs, so that two frames in flight
-    never share them; a call from another stream first waits for the
-    previous call's end."""
+class _Pieces:
+    """The loop's pieces over static inputs (the problem's inputs, then
+    T_init): the prologue (the problem's set-up from the inputs, the loop
+    state's initial values) and one iteration (the state updated in
+    place), a ``gn_program.Program``'s captures."""
 
-    def __init__(self, mode, inputs, T_init, settings: GNSettings, img_size):
-        dev = T_init.device
-        self.device = dev
-        self.lock = threading.Lock()
-        self.done = torch.cuda.Event()
-        with torch.cuda.device(dev):
-            self.inputs = tuple(torch.empty_like(a) for a in inputs)
-            self.T_init = torch.empty_like(T_init)
-            self.T = torch.empty_like(T_init)
-            self.cost = torch.empty((), dtype=torch.float32, device=dev)
-            self.ok = torch.empty((), dtype=torch.bool, device=dev)
-            self.active = torch.empty((), dtype=torch.bool, device=dev)
-            self.iters = torch.empty((), dtype=torch.int32, device=dev)
-            # one iteration on a side stream first: library handles and
-            # workspaces exist before the captures
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                self._fill(inputs, T_init)
-                _gn_step(_problem(mode, self.inputs, settings, img_size), self.T_init,
-                         torch.full((), float("inf"), device=dev), settings)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            # thread_local: the backend's worker may use the card meanwhile
-            self.prologue = torch.cuda.CUDAGraph(keep_graph=True)
-            with torch.cuda.graph(self.prologue, capture_error_mode="thread_local"):
-                # its set-up tensors (weights, the keyframe's rays) live on
-                # with the closure, which the iteration reads
-                self.residual_fn = residual_fn = _problem(mode, self.inputs, settings,
-                                                          img_size)
-                self.T.copy_(self.T_init)
-                self.cost.fill_(float("inf"))
-                self.ok.fill_(True)
-                self.active.fill_(True)
-                self.iters.zero_()
-            self.body = torch.cuda.CUDAGraph(keep_graph=True)
-            with torch.cuda.graph(self.body, capture_error_mode="thread_local"):
-                T_new, cost_new, ok_new, converged = _gn_step(residual_fn, self.T, self.cost,
-                                                               settings)
-                self.T.copy_(T_new)
-                self.cost.copy_(cost_new)
-                self.ok.copy_(ok_new)
-                torch.logical_and(~converged, ok_new, out=self.active)
-            exec_ = ctypes.c_void_p()
-            kernels.check(kernels.entry_point("gn_while_build")(
-                self.prologue.raw_cuda_graph(), self.body.raw_cuda_graph(),
-                self.active.data_ptr(), self.iters.data_ptr(), settings.max_iters,
-                ctypes.byref(exec_)), "gn_while_build")
-            self.exec = exec_.value
-            self.done.record(torch.cuda.current_stream(dev))
+    def __init__(self, mode, inputs, settings: GNSettings, img_size):
+        self.mode, self.settings, self.img_size = mode, settings, img_size
+        self.inputs, self.T_init = inputs[:-1], inputs[-1]
+        dev = self.T_init.device
+        self.T = torch.empty_like(self.T_init)
+        self.cost = torch.empty((), dtype=torch.float32, device=dev)
+        self.ok = torch.empty((), dtype=torch.bool, device=dev)
+        self.active = torch.empty((), dtype=torch.bool, device=dev)
+        self.iters = torch.empty((), dtype=torch.int32, device=dev)
+        self.loops = (gn_program.Loop(self.active, self.iters, settings.max_iters), None)
+        self.residual_fn = None  # the prologue's
 
-    def _fill(self, inputs, T_init):
-        for dst, src in zip(self.inputs, inputs):
-            dst.copy_(src)
-        self.T_init.copy_(T_init)
+    def _problem(self):
+        return _problem(self.mode, self.inputs, self.settings, self.img_size)
 
-    def __call__(self, inputs, T_init):
-        with self.lock, torch.cuda.device(self.device):
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(self.done)
-            self._fill(inputs, T_init)
-            kernels.check(kernels.entry_point("gn_while_launch")(
-                self.exec, stream.cuda_stream), "gn_while_launch")
-            counter.add()
-            out = tuple(a.clone() for a in (self.T, self.cost, self.ok, self.iters))
-            self.done.record(stream)
-        return out
+    def warm_up(self):
+        _gn_step(self._problem(), self.T_init,
+                 torch.full((), float("inf"), device=self.T.device), self.settings)
+
+    def prologue(self):
+        # its set-up tensors (weights, the keyframe's rays) live on with the
+        # closure, which the iteration reads
+        self.residual_fn = self._problem()
+        self.T.copy_(self.T_init)
+        self.cost.fill_(float("inf"))
+        self.ok.fill_(True)
+        self.active.fill_(True)
+        self.iters.zero_()
+
+    def body(self):
+        T_new, cost_new, ok_new, converged = _gn_step(self.residual_fn, self.T, self.cost,
+                                                       self.settings)
+        self.T.copy_(T_new)
+        self.cost.copy_(cost_new)
+        self.ok.copy_(ok_new)
+        torch.logical_and(~converged, ok_new, out=self.active)
+
+    def parts(self):
+        return (self.prologue, self.body)
+
+    def outputs(self):
+        return (self.T, self.cost, self.ok, self.iters)
 
 
-_graphs: dict = {}
-_graphs_lock = threading.Lock()
+_programs = gn_program.ProgramCache()
 
 
 def tracking_gn_graph(mode: str, inputs, T_init, settings: GNSettings, img_size=None):
     """The loop on the card, ``tracking_gn_plain``'s results: the device
     program of (mode, input shapes, device, image size, settings), built at
-    its first call.  A build that fails raises."""
+    its first call (``gn_program``).  A build that fails raises."""
     if not T_init.is_cuda:
         raise ValueError("tracking_gn_graph runs on a CUDA device")
     if settings.max_iters < 1:  # the loop's first test fails: nothing runs
         return tracking_gn_plain(mode, inputs, T_init, settings, img_size)
+    args = tuple(inputs) + (T_init,)
     key = (mode, tuple((a.shape, a.dtype) for a in inputs), T_init.device,
            tuple(img_size) if img_size is not None else None, settings)
-    with _graphs_lock:
-        graphed = _graphs.get(key)
-        if graphed is None:
-            graphed = _graphs[key] = _GraphedGN(mode, inputs, T_init, settings, img_size)
-    return graphed(inputs, T_init)
+    build = lambda: gn_program.Program(
+        lambda static: _Pieces(mode, static, settings, img_size), args, counter)
+    return _programs.run(key, build, args)
 
 
 def _solve(mode, inputs, T_init, settings, img_size=None):

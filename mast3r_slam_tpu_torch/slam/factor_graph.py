@@ -45,13 +45,17 @@ keyframe store that pages is brought resident (``ensure_resident``) for
 every keyframe a call reads, under the store's lock, right before the
 snapshot.
 
-The edge store is preallocated tensors on the device written in place, and
-a solve takes exactly the stored edges and keyframes it needs: the JAX
-package pads both to power-of-two buckets only to bound its compiled
-programs.  The model may live on another device than the store (under
-``engine.pipeline: 2`` the store is on the tracker's card): the decode and
-the matching run on the model's device and their outputs move to the
-store's.
+The edge store is preallocated tensors on the device written in place.  A
+solve pads its poses and edges to the JAX package's power-of-two buckets
+(``local_opt.pose_bucket_floor``, ``edge_bucket_floor``), padded poses
+without edges and padded edges zero-weight self-loops on a pinned pose, so
+that a session meets few shapes: on the card each shape is a device
+program of its own (``ops/global_gn.global_gn_graph``), as each is a
+compiled program in the JAX package; the route (dense or PCG) follows the
+padded pose count there too.  The model may live on another device than
+the store (under ``engine.pipeline: 2`` the store is on the tracker's
+card): the decode and the matching run on the model's device and their
+outputs move to the store's.
 
 With a ``mesh`` (``parallel/mesh.py``) the backend is sharded over its
 edges, as the JAX package's five mesh branches do: the fast paths are off
@@ -78,7 +82,8 @@ import torch
 from ..device import to_device, to_host
 from ..geometry import constrain_points_to_ray
 from ..ops import matching
-from ..ops.global_gn import GlobalGNSettings, gauss_newton_poses, gauss_newton_poses_cached
+from ..ops.global_gn import (GlobalGNSettings, gauss_newton_poses, gauss_newton_poses_cached,
+                              routes_pcg)
 from ..ops.matching import match_kwargs
 from ..parallel.mesh import all_gather_rows, check_same, padded_rows
 from ..parallel.sharded_ba import gauss_newton_poses_sharded
@@ -120,9 +125,9 @@ def _refresh_gather(gf, gb, Xs, C_raw, K, eii, ejj, idx_f, idx_b, pos, img_hw,
 
 
 def _expand_two_way(idx_f, idx_b, vf, vb, qf, qb, rows):
-    """Stored edges ``rows`` (an index tensor) both ways, in the layout
-    [forward(rows) | backward(rows)]: (idx (2E, N), valid (2E, N, 1),
-    Q (2E, N, 1))."""
+    """Stored edges ``rows`` (an index tensor, rows may repeat) both ways, in
+    the layout [forward(rows) | backward(rows)]: (idx (2E, N), valid (2E, N,
+    1), Q (2E, N, 1))."""
     return (torch.cat([idx_f[rows], idx_b[rows]]), torch.cat([vf[rows], vb[rows]]),
             torch.cat([qf[rows], qb[rows]]))
 
@@ -675,12 +680,16 @@ class FactorGraph:
     def _solve_window(self, mode: str, snap, E: int, window: int, ver):
         """Solve the newest ``window`` poses (all the free ones when there is
         no window).  Poses before ``s0`` stay fixed; the edges with an end in
-        the window are kept, and their older ends enter a compact pose array
-        [pinned context | window] as pinned poses.  Edges between two older
-        poses would touch pinned poses only, so dropping them changes
-        nothing.  A solve that leaves free poses out then recycles the edges
-        behind the window (under paging or ``edge_recycle``).  Returns the
-        write-back (``Keyframes.write_back_poses``'s arguments), or None."""
+        the window are kept.  Without a window (``s0`` = ``pin``) the
+        compact pose array is the keyframes [0, n), as the JAX package's
+        ``_solve_full`` takes them; with one, it is [pinned context |
+        window], the older ends of the kept edges entering as pinned poses
+        (``_solve_windowed``).  Edges between two older poses would touch
+        pinned poses only, so dropping them changes nothing.  Both are
+        padded to the buckets (``_buckets``).  A solve that leaves free
+        poses out then recycles the edges behind the window (under paging
+        or ``edge_recycle``).  Returns the write-back
+        (``Keyframes.write_back_poses``'s arguments), or None."""
         n_kf = snap.n
         s0 = n_kf - window
         ii_e, jj_e = self.ii[:E], self.jj[:E]
@@ -688,22 +697,24 @@ class FactorGraph:
         kept = np.nonzero(keep)[0]
         if kept.size == 0:
             return None
-        ends = np.concatenate([ii_e[kept], jj_e[kept]])
-        old_ref = np.unique(ends[ends < s0])
-        if old_ref.size == 0 and s0 > 0:
-            # a window cut off from the past: the newest older pose sets the gauge
-            old_ref = np.array([s0 - 1])
-        pin = int(old_ref.size)
-        sel = np.concatenate([old_ref, np.arange(s0, n_kf)])
-        remap = np.zeros((n_kf,), np.int64)
-        remap[old_ref] = np.arange(pin)
-        remap[s0:] = pin + np.arange(window)
+        sel, remap, pin, Ppad, half = self._buckets(n_kf, s0, ii_e[kept], jj_e[kept])
+        K_ = kept.size
         mii, mjj = remap[ii_e[kept]], remap[jj_e[kept]]
+        # two-way layout [forward | backward], each padded with self-loops on
+        # compact pose 0 (pinned) over edge row 0 made zero-weight
+        ii2 = np.zeros((2 * half,), np.int64)
+        jj2 = np.zeros((2 * half,), np.int64)
+        ii2[:K_], ii2[half:half + K_] = mii, mjj
+        jj2[:K_], jj2[half:half + K_] = mjj, mii
+        kidx = np.zeros((half,), np.int64)
+        kidx[:K_] = kept
+        real = np.zeros((2 * half,), bool)
+        real[:K_] = real[half:half + K_] = True
         dev = self.device
-        ii2 = to_device(np.concatenate([mii, mjj]), dev)
-        jj2 = to_device(np.concatenate([mjj, mii]), dev)
-        kept_t = to_device(kept, dev, torch.long)
-        idx, valid, Q = _expand_two_way(*self._stores(), kept_t)
+        ii2, jj2 = to_device(ii2, dev), to_device(jj2, dev)
+        kidx_t = to_device(kidx, dev)
+        idx, valid, Q = _expand_two_way(*self._stores(), kidx_t)
+        valid = valid & to_device(real, dev)[:, None, None]
         slots = to_device(snap.slots(sel), dev, torch.long)
         poses = to_device(sel, dev, torch.long)
         settings = self.settings._replace(pin=pin)
@@ -713,7 +724,7 @@ class FactorGraph:
             self._refresh_gcache(E, ver, snap, mode, among=among)
             Twc_new, _, _, diverged = gauss_newton_poses_cached(
                 snap.T_WC[poses], snap.X[slots], snap.C[slots], snap.n_fused[poses],
-                ii2, jj2, self._gf[kept_t], self._gb[kept_t], idx, valid, Q, self.K,
+                ii2, jj2, self._gf[kidx_t], self._gb[kidx_t], idx, valid, Q, self.K,
                 self.img_hw, settings, mode)
         else:
             Cs = snap.C[slots] / torch.clamp_min(
@@ -721,10 +732,53 @@ class FactorGraph:
             Twc_new, _, _, diverged = self._dispatch_solve(
                 snap.T_WC[poses], snap.X[slots], Cs, ii2, jj2, idx, valid, Q, mode,
                 settings)
-        self._record_health(diverged, len(sel), pin)
+        self._record_health(diverged, Ppad, pin)
         if s0 > self.settings.pin and (self.keyframes.paging or self._recycle):
             self._recycle_old_edges(s0)
+        # the window's poses sit at [pin, pin + window) of the compact array
         return s0, n_kf, snap.generation, Twc_new, pin
+
+    def _buckets(self, n_kf: int, s0: int, ii_k, jj_k):
+        """The padded solve of the kept edges (ii_k, jj_k) over the poses
+        from ``s0``, as the JAX package pads it: (sel (Ppad,) the keyframe
+        of each compact pose, remap (n_kf,) keyframe -> compact pose, pin,
+        Ppad, half the edges a direction).  Without a window (``s0`` =
+        ``pin``): the keyframes [0, n) and ``pin`` pinned, Ppad =
+        ``_bucket(n, pose_bucket_floor)`` capped at the store's capacity
+        (``_solve_full``).  With one: the older ends referenced, padded to
+        ``_bucket(refs, 8)`` pinned poses, then the window, Ppad =
+        ``_bucket(pinpad + window, pose_bucket_floor)``
+        (``_solve_windowed``).  Padded poses are copies of compact pose 0
+        and no edge touches them.  Kept edges: ``_bucket(kept,
+        edge_bucket_floor // 2)`` a direction (the floor at least the
+        mesh's size)."""
+        lcfg = self.lcfg
+        p_floor = int(lcfg.get("pose_bucket_floor", 16))
+        e_floor = int(lcfg.get("edge_bucket_floor", 16))
+        if self.mesh is not None:
+            e_floor = max(e_floor, self.mesh.size)
+        half = _bucket(len(ii_k), max(e_floor // 2, 1))
+        window = n_kf - s0
+        if s0 == self.settings.pin:
+            pin = self.settings.pin
+            Ppad = min(_bucket(n_kf, p_floor), _bucket(self.keyframes.capacity, 2))
+            head = np.arange(n_kf)
+            remap = np.arange(n_kf)
+        else:
+            ends = np.concatenate([ii_k, jj_k])
+            old_ref = np.unique(ends[ends < s0])
+            if old_ref.size == 0:
+                # a window cut off from the past: the newest older pose sets the gauge
+                old_ref = np.array([s0 - 1])
+            pin = _bucket(int(old_ref.size), 8)
+            Ppad = _bucket(pin + window, p_floor)
+            head = np.concatenate([old_ref, np.full(pin - old_ref.size, old_ref[0]),
+                                   np.arange(s0, n_kf)])
+            remap = np.zeros((n_kf,), np.int64)
+            remap[old_ref] = np.arange(old_ref.size)
+            remap[s0:] = pin + np.arange(window)
+        sel = np.concatenate([head, np.full(Ppad - head.size, head[0])]).astype(np.int64)
+        return sel, remap, pin, Ppad, half
 
     def _dispatch_solve(self, Twc, Xs, Cs, ii2, jj2, idx, valid, Q, mode: str,
                         settings=None):
@@ -743,15 +797,13 @@ class FactorGraph:
     # solver health guard
     # ------------------------------------------------------------------
 
-    def _record_health(self, diverged, P: int, pin: int):
+    def _record_health(self, diverged, Ppad: int, pin: int):
         """Keep a PCG-routed solve's ``diverged`` flag (a device scalar) for
         the next solve, which reads it (the dense route is damped to stay
         positive definite and checks its factor, so its flag is not kept; a
-        mesh's solve is always dense).  ``pin``: the solve's pinned poses."""
-        s = self.settings
-        routed_pcg = self.mesh is None and (s.solver == "pcg" or (
-            s.solver == "auto" and (P - pin) > s.dense_max_poses))
-        if routed_pcg:
+        mesh's solve is always dense).  The route follows the padded pose
+        count ``Ppad`` and the solve's ``pin``, as in ``global_gn``."""
+        if self.mesh is None and routes_pcg(self.settings._replace(pin=pin), Ppad):
             self._health_pending = diverged
 
     def _consume_health(self) -> bool:

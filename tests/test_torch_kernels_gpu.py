@@ -31,6 +31,10 @@ integer-valued inputs whose f32 sums are exact; take_along_rows at every
 slab width of chip_smoke.py's sweep, with partial last slabs and indices
 outside the table in the first and last slab; gather_rows_sum below, at
 and above one wave of the card.
+The GN device programs (tracking and global, csrc/gn_while.cu): exact
+against the eager plain loop on the card, which runs the same operations
+in the same order; the global one on both entries, both routes (PCG with
+either preconditioner) and all three residual modes.
 """
 
 import numpy as np
@@ -39,7 +43,7 @@ import torch
 
 from mast3r_slam_tpu_torch.lie import sim3
 from mast3r_slam_tpu_torch.ops import attention, edge_hg, gather, kernels, refine
-from mast3r_slam_tpu_torch.ops import global_gn
+from mast3r_slam_tpu_torch.ops import global_gn, gn_program
 
 from test_torch_common import rays_problem
 
@@ -361,6 +365,28 @@ def test_kernel_names_count_every_launch(cuda):
     assert _kernel_names(lambda: None) == []
 
 
+def test_edge_hg_kernel_counts_the_runs_of_a_captured_launch(cuda):
+    """The kernel counts its own runs on the card: a launch captured in a
+    CUDA graph counts nothing at capture and one each replay, with the
+    bits of an eager launch."""
+    Tij, Xi, Xj, sq = _edge_inputs(4, 3000, cuda, seed=11)
+    want = edge_hg.edge_hg_rays(Tij, Xi, Xj, sq, **SIG)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the capture's warm-up
+        edge_hg.edge_hg_rays(Tij, Xi, Xj, sq, **SIG)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    before = edge_hg.counter.count
+    with torch.cuda.graph(g):
+        got = edge_hg.edge_hg_rays(Tij, Xi, Xj, sq, **SIG)
+    assert edge_hg.counter.count == before
+    for k in range(3):
+        g.replay()
+        assert edge_hg.counter.count == before + k + 1
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("E,N", [(1, 1), (3, 300), (5, 4097), (2, 12345), (257, 1000),
                                  (32, 384 * 512)])  # N a multiple of no tile
 def test_edge_hg_kernel_matches_plain(cuda, E, N):
@@ -445,9 +471,10 @@ def test_global_gn_on_the_card_launches_the_kernel_each_iteration(cuda):
     T, iters, ok, _ = global_gn.gauss_newton_poses(*args, hw, global_gn.GlobalGNSettings(),
                                                    "rays")
     torch.cuda.synchronize()
-    # the GN loop runs its fixed count of iterations, frozen once it stops
-    assert ok and iters >= 1
-    assert edge_hg.counter.count - before == global_gn.GlobalGNSettings().max_iters
+    # the device program stops where the JAX loop stops: one edge-block
+    # launch an iteration that ran
+    assert ok and 1 <= iters <= global_gn.GlobalGNSettings().max_iters
+    assert edge_hg.counter.count - before == int(iters)
     T_cpu = global_gn.gauss_newton_poses(*[a.cpu() for a in args], hw,
                                          global_gn.GlobalGNSettings(), "rays")[0]
     assert (T.cpu() - T_cpu).abs().max().item() <= 1e-5
@@ -475,6 +502,8 @@ def test_sharded_solve_on_the_card_launches_the_kernel_per_shard(cuda, shards):
     T, iters, ok, _ = gauss_newton_poses_sharded(mesh, *args, hw, settings, "rays")
     torch.cuda.synchronize()
     assert ok and iters >= 1
+    # the sharded route keeps the plain loop (its step runs collectives):
+    # a fixed count of iterations, frozen once it stops
     assert edge_hg.counter.count - before == shards * settings.max_iters
     assert torch.equal(T, gauss_newton_poses_sharded(mesh, *args, hw, settings, "rays")[0])
     ref = global_gn.gauss_newton_poses(*args, hw, settings, "rays")[0]
@@ -834,3 +863,152 @@ def test_tracking_gn_program_gives_the_plain_loops_bits(cuda, case):
         again = tracking_gn.tracking_gn_graph(mode, inputs, T0, settings, hw)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(again, want))
+
+
+# ---------------------------------------------------------------------------
+# the global GN's device program
+# ---------------------------------------------------------------------------
+
+def _calib_solve_problem(dev, hw=(24, 32), n_kf=5, seed=3):
+    """chip_smoke.py's calib scene at a small size: every keyframe at one
+    pose with one pointmap on the pixel grid, identity correspondences and
+    exact pixel targets, the poses after the first perturbed; a chain both
+    ways.  gauss_newton_poses' leading arguments Twc ... K on ``dev``."""
+    rng = np.random.default_rng(seed)
+    H, W = hw
+    N = H * W
+    f = 0.9 * W
+    K = torch.tensor([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], dtype=torch.float32)
+    lin = np.arange(N)
+    z = 2.0 + 0.5 * rng.random(N)
+    X = np.stack([(lin % W - W / 2) / f * z, (lin // W - H / 2) / f * z, z], -1)
+    Xs = torch.as_tensor(X, dtype=torch.float32).expand(n_kf, N, 3).contiguous()
+    tau = torch.as_tensor(rng.normal(size=(n_kf, 7)) * 0.01, dtype=torch.float32)
+    tau[0] = 0
+    ii = torch.tensor(list(range(n_kf - 1)) + list(range(1, n_kf)))
+    jj = torch.tensor(list(range(1, n_kf)) + list(range(n_kf - 1)))
+    E = len(ii)
+    args = (sim3.retr(sim3.identity((n_kf,)), tau), Xs, torch.full((n_kf, N, 1), 2.0), ii, jj,
+            torch.arange(N, dtype=torch.int32).expand(E, N).contiguous(),
+            torch.ones((E, N, 1), dtype=torch.bool), torch.full((E, N, 1), 2.0), K)
+    return [a.to(dev) for a in args], hw
+
+
+def _program_inputs(dev, mode, entry, n_kf=5):
+    """An entry's inputs on the card (ii/jj int64), and the image size."""
+    if mode == "calib":
+        args, hw = _calib_solve_problem(dev, n_kf=n_kf)
+    else:
+        _, args, hw = rays_problem(dev, n_kf=n_kf, N=1024)
+    Twc, Xs, Cs, ii, jj, idx, valid, Q, K = args
+    ii, jj = ii.long(), jj.long()
+    if entry == "poses":
+        return (Twc, Xs, Cs, ii, jj, idx, valid, Q, K), hw
+    # the cache's rows [X | C_raw] of each edge's i-points at its matches
+    gath = torch.gather(torch.cat([Xs, Cs], -1)[ii], 1,
+                        idx.long()[..., None].expand(-1, -1, 4)).contiguous()
+    half = len(ii) // 2
+    n_fused = torch.ones(Twc.shape[0], device=dev)
+    return (Twc, Xs, Cs, n_fused, ii, jj, gath[:half], gath[half:], idx, valid, Q, K), hw
+
+
+def _plain(entry, inputs, hw, settings, mode):
+    """The plain loop (gn_loop) on the card, on the same inputs."""
+    return global_gn._gn_core(inputs[0], *global_gn._entry_fields(entry, inputs, hw, settings,
+                                                                  mode),
+                              inputs[-1], hw, settings, mode)
+
+
+@pytest.mark.parametrize("route", ["dense", "pcg", "pcg-diag"])
+@pytest.mark.parametrize("entry", ["poses", "cached"])
+@pytest.mark.parametrize("mode", ["rays", "calib", "points"])
+def test_global_gn_program_gives_the_plain_loops_bits(cuda, mode, entry, route):
+    """The global GN's device program (csrc/gn_while.cu: a WHILE node over
+    the GN iteration, on the PCG route a second one over the CG iteration
+    inside it) against the plain frozen loop on the card: the same bits of
+    the poses, iterations, ok and diverged; one program launch a call, the
+    edge-block kernel once an iteration that ran; a second call in the same
+    bucket builds nothing and makes no sync."""
+    solver, _, precond = route.partition("-")
+    settings = global_gn.GlobalGNSettings(edge_batch=4, solver=solver,
+                                          pcg_precond=precond or "block")
+    inputs, hw = _program_inputs(cuda, mode, entry)
+    want = _plain(entry, inputs, hw, settings, mode)
+    for call in range(2):
+        built = global_gn.programs_built()
+        launches, edge_launches = global_gn.counter.count, edge_hg.counter.count
+        if call:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = global_gn.global_gn_graph(entry, inputs, hw, settings, mode)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (call, got[1:], want[1:])
+        iters = int(got[1])
+        assert 1 <= iters <= settings.max_iters and bool(got[2])
+        assert global_gn.counter.count - launches == 1
+        assert edge_hg.counter.count - edge_launches == (iters if mode == "rays" else 0)
+    assert global_gn.programs_built() == built  # the second call built nothing
+
+
+def test_global_gn_program_early_exit_and_guard_on_the_card(cuda):
+    """A converged solve stops before max_iters (delta_norm 1e-3), and a
+    run with max_iters 1 runs one iteration: both the plain loop's bits."""
+    inputs, hw = _program_inputs(cuda, "rays", "poses")
+    for kw in (dict(delta_norm=1e-3), dict(max_iters=1), dict(solver="pcg", pcg_iters=1)):
+        settings = global_gn.GlobalGNSettings(**kw)
+        want = _plain("poses", inputs, hw, settings, "rays")
+        got = global_gn.gauss_newton_poses(*inputs, hw, settings, "rays")
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), kw
+        if "delta_norm" in kw:
+            assert int(got[1]) < settings.max_iters
+
+
+def test_global_gn_program_dense_at_the_knee(cuda):
+    """The dense route at its largest, ``dense_max_poses`` free poses (a
+    7161 x 7161 Cholesky of 1023 free poses x 7), captured and replayed
+    inside the WHILE node: the plain loop's bits."""
+    settings = global_gn.GlobalGNSettings()
+    P = settings.dense_max_poses + settings.pin
+    _, args, hw = rays_problem(cuda, n_kf=P, N=64)
+    inputs = tuple(args[:3]) + (args[3].long(), args[4].long()) + tuple(args[5:])
+    assert not global_gn.routes_pcg(settings, P)
+    want = _plain("poses", inputs, hw, settings, "rays")
+    got = global_gn.global_gn_graph("poses", inputs, hw, settings, "rays")
+    assert all(torch.equal(a, b) for a, b in zip(got, want)), (got[1:], want[1:])
+    assert bool(got[2]) and int(got[1]) >= 1
+    global_gn.clear_programs()
+
+
+def test_global_gn_program_cache_drops_the_least_recently_used(cuda, monkeypatch):
+    """The programs kept on a device hold at most PROGRAM_BYTES: a new one
+    drops the least recently used ones until they fit, calling a dropped
+    one builds it anew, and the newest is kept whatever its size."""
+    settings = global_gn.GlobalGNSettings()
+    problems = [_program_inputs(cuda, "rays", "poses", n_kf=k) for k in (5, 6, 7)]
+    solve = lambda p: global_gn.gauss_newton_poses(*p[0], p[1], settings, "rays")
+    poses = lambda: [k[4][0][0][0] for k, _ in global_gn.programs()]
+    global_gn.clear_programs()
+    monkeypatch.setattr(gn_program, "PROGRAM_BYTES", 1 << 50)
+    for p in problems:
+        solve(p)
+    nbytes = dict(zip((5, 6, 7), (b for _, b in global_gn.programs())))
+    assert poses() == [5, 6, 7] and all(b > 0 for b in nbytes.values())
+    global_gn.clear_programs()
+    monkeypatch.setattr(gn_program, "PROGRAM_BYTES", nbytes[6] + nbytes[7])
+    built = global_gn.programs_built()
+    for p in problems:
+        solve(p)
+    assert global_gn.programs_built() - built == 3 and poses() == [6, 7]
+    solve(problems[2])  # kept: nothing built
+    assert global_gn.programs_built() - built == 3 and poses() == [6, 7]
+    got = solve(problems[0])  # dropped: built anew, and 6 goes
+    assert global_gn.programs_built() - built == 4 and poses() == [7, 5]
+    assert all(torch.equal(a, b) for a, b in zip(got, _plain("poses", problems[0][0],
+                                                              problems[0][1], settings, "rays")))
+    monkeypatch.setattr(gn_program, "PROGRAM_BYTES", 1)
+    solve(problems[1])
+    assert poses() == [6]
+    global_gn.clear_programs()
+    assert global_gn.programs() == []
