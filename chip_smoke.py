@@ -145,10 +145,13 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
   13. the multi-card backend on the one card: (a) phase 6's rays problem
      (16 keyframes, 32 two-way edges x 196,608 pixels) through the
      edge-sharded solve on meshes of 1, 2 and 4 shards on cuda:0 against the
-     single-device dense solve (poses within SHARDED_POSE_*, edge-block
-     launches = shards x max_iters, the GN loop's fixed count, the same
-     bits on a second run, ms),
-     then on 1 shard in a one-rank NCCL process group; (b) two processes
+     single-device dense solve (poses within SHARDED_POSE_*), each mesh one
+     device program (one global_gn_while launch a solve, edge-block runs =
+     shards x iters, the bits of the frozen plain loop the route ran before,
+     the same bits on a second call, ms beside the frozen loop's), also at
+     a delta_norm where the loop stops early; then on 1 shard in a one-rank
+     NCCL process group (the eager loop that reads its flag once an
+     iteration: shards x iters, no program); (b) two processes
      (torch.multiprocessing) on the card joined over gloo (NCCL puts no two
      ranks on one card), each running phase 5's SLAM.run with engine.mesh
      "auto": phase 5's keyframe count, its poses within
@@ -167,7 +170,13 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      schedule, keyframes and pose bits, every task applied, each rank's
      attention, refine and edge-block launches held to its frames and
      tasks (counters reset just before each run and read just after), the
-     agreements' count and host ms and the run's wall time.  With a
+     agreements' count and host ms and the run's wall time; in 13b and 13e
+     every solve the sharded loop across the processes (edge-block runs =
+     the solves' iterations summed); (f) a relocalisation's drain across
+     processes: phase 8's teleport run threaded over two gloo processes on
+     the card (engine.mesh "auto"): both ranks relocalise at the same
+     frame, the same pose bits, within 0.15 m after, edge-block runs = the
+     solves' iterations summed.  With a
      second card, engine.pipeline: 2 (the tracker and the store on cuda:1)
      for phase 5's bits, a 2-card NCCL mesh for (a)'s solve and the
      attention and refine kernels on every card; with one card, one line
@@ -3472,6 +3481,48 @@ TWO_PROCESS_POSE_ATOL = 1e-5
 TASK_SHARDS = 2               # 13c: shards of the ViT-L backend task
 
 
+def frozen_sharded(mesh, args):
+    """The edge-sharded step under the plain frozen loop (``gn_loop`` without
+    its early exit: ``max_iters`` steps, each a shard's blocks and the
+    collectives), the loop the sharded route ran before it stopped early."""
+    from mast3r_slam_tpu_torch.ops import global_gn as gn
+    from mast3r_slam_tpu_torch.parallel import sharded_ba as sb
+
+    Twc, Xs, Cs, ii, jj, idx, valid, Q, K, hw, settings, mode = args
+    edges, K_r = sb._shard_fields(mesh, Xs, Cs, ii.long(), jj.long(), idx, valid, Q, K, hw,
+                                  settings, mode)
+    M = Twc.shape[0] - settings.pin
+
+    def step(T, active):
+        H, g, cost = sb._reduce(mesh, T, edges, K_r, hw, settings, mode)
+        return sb._solve_dense(H, g, M, settings.pcg_damping) + (cost,)
+
+    return gn.gn_loop(Twc.to(mesh.devices[0]), step, settings)
+
+
+def sharded_iters():
+    """Record each edge-sharded solve's iterations (the factor graph's entry
+    wrapped for the block; one host read a solve); returns (list, context
+    manager)."""
+    from mast3r_slam_tpu_torch.slam import factor_graph
+
+    iters = []
+    real = factor_graph.gauss_newton_poses_sharded
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        iters.append(int(out[1]))
+        return out
+
+    return iters, swapped(factor_graph, "gauss_newton_poses_sharded", spy)
+
+
+# 13a's early-stopping solves: a delta_norm that the step norms decide (on
+# the CPU at 96x128 the steps run 3.3e-3 then 1.3e-3 at the fourth and fifth
+# iterations), so the loop stops before max_iters
+EARLY_DELTA = 2e-3
+
+
 def run_sharded_solve(dev, hw=(384, 512), n_kf=16, seed=5, shards=MESH_SHARDS,
                       group_backend="nccl"):
     """13a: phase 6's rays problem (16 keyframes, 32 two-way edges x 196,608
@@ -3479,12 +3530,17 @@ def run_sharded_solve(dev, hw=(384, 512), n_kf=16, seed=5, shards=MESH_SHARDS,
     shards on one card, against the single-device dense solve: the pose
     difference within SHARDED_POSE_ATOL, the summed normal equations at the
     first iterate within SHARDED_BLOCKS_RTOL of one device's, the ground
-    truth within SOLVE_BOUND_M, edge-block launches = shards x max_iters
-    (the sharded route's plain loop, a fixed count; counters reset just
-    before, read just after; the one-device solve's: one an iteration that
-    ran), the same
-    bits on a second run, host ms.  Then the 1-shard mesh in a one-rank NCCL process group (one
-    all-reduce a field an iteration; ``group_backend`` gloo rehearses it on
+    truth within SOLVE_BOUND_M.  Each mesh is one device program (route 1):
+    one global_gn_while launch a solve, edge-block runs = shards x iters
+    (counted by the kernel; counters reset just before, read just after),
+    the bits (poses, iters, ok, diverged) of the frozen plain loop that the
+    sharded route ran before (``frozen_sharded``: shards x max_iters runs),
+    the same bits on a second call, host ms of the program's call (after
+    the build; and CUDA events around five calls) and of the frozen loop.  Each mesh also solves at
+    EARLY_DELTA, where the loop stops before max_iters, with the same
+    checks.  Then the 1-shard mesh in a one-rank NCCL process group (route
+    2: the eager loop reading its flag once an iteration, one all-reduce a
+    field an iteration, no program; ``group_backend`` gloo rehearses it on
     the CPU)."""
     import torch
     import torch.distributed as dist
@@ -3492,11 +3548,13 @@ def run_sharded_solve(dev, hw=(384, 512), n_kf=16, seed=5, shards=MESH_SHARDS,
     from mast3r_slam_tpu_torch.parallel import multihost as mh
     from mast3r_slam_tpu_torch.parallel.mesh import make_mesh
     from mast3r_slam_tpu_torch.parallel.sharded_ba import (gauss_newton_poses_sharded,
-                                                            normal_equations_sharded)
+                                                            normal_equations_sharded,
+                                                            one_program)
 
     gt, noisy, Xs, Cs, ii, jj, idx, valid, Q, K = rays_problem(dev, hw, n_kf, seed)
     settings = gn.GlobalGNSettings()
-    args = (noisy, Xs, Cs, ii, jj, idx, valid, Q, K, hw, settings, "rays")
+    early = settings._replace(delta_norm=EARLY_DELTA)
+    args = lambda st: (noisy, Xs, Cs, ii, jj, idx, valid, Q, K, hw, st, "rays")
     # one device's normal equations of every edge at the first iterate
     edge = (ii, jj) + tuple(gn.precompute_edge_data(Xs, Cs, ii, jj, idx, valid, Q,
                                                     settings, "rays", hw))
@@ -3513,7 +3571,7 @@ def run_sharded_solve(dev, hw=(384, 512), n_kf=16, seed=5, shards=MESH_SHARDS,
         return out, (time.perf_counter() - t0) * 1e3
 
     reset_counts()
-    (ref, ref_iters, ref_ok, _), ref_ms = timed(lambda: gn.gauss_newton_poses(*args))
+    (ref, ref_iters, ref_ok, _), ref_ms = timed(lambda: gn.gauss_newton_poses(*args(settings)))
     ref_iters, ref_ok = int(ref_iters), bool(ref_ok)
     ref_launches = read_counts()["edge_hg_rays"]
     if ref_launches != ref_iters:  # the one-device solve is the device program
@@ -3521,42 +3579,68 @@ def run_sharded_solve(dev, hw=(384, 512), n_kf=16, seed=5, shards=MESH_SHARDS,
                              f"expected one an iteration that ran ({ref_iters})")
     runs, poses = {}, {}
 
-    def one(label, mesh):
-        solve = lambda: gauss_newton_poses_sharded(mesh, *args)
+    def one(label, mesh, st):
+        solve = lambda: gauss_newton_poses_sharded(mesh, *args(st))
+        frozen, frozen_ms = timed(lambda: frozen_sharded(mesh, args(st)))
+        first, first_ms = timed(solve)  # on route 1 the program's build and first call
         reset_counts()
-        (T, iters, ok, diverged), ms = timed(solve)
-        iters, ok, diverged = int(iters), bool(ok), bool(diverged)
-        launches = read_counts()["edge_hg_rays"]
-        same_bits = torch.equal(T, solve()[0])
-        eq = normal_equations_sharded(mesh, *args)
+        out, ms = timed(solve)
+        counts = read_counts()
+        T, iters, ok, diverged = out[0], int(out[1]), bool(out[2]), bool(out[3])
+        launches = counts["edge_hg_rays"]
+        program = one_program(mesh)
+        # CUDA events around back-to-back calls (on the card; the host clock
+        # in a CPU rehearsal, which has no events)
+        event_ms = (time_cuda(solve, iters=5, warmup=0) if dev.type == "cuda"
+                    else ms)
+        eq = normal_equations_sharded(mesh, *args(st))
         blocks_rel = {k: ((a - b).norm() / b.norm()).item()
                       for k, a, b in zip(("H", "g", "cost"), eq, ref_eq)}
-        r = dict(shards=mesh.size, process_group=mesh.distributed, iters=iters,
-                 ok=ok, diverged=diverged, ms=ms, launches=launches,
+        r = dict(shards=mesh.size, process_group=mesh.distributed,
+                 route="program" if program else "eager", delta_norm=st.delta_norm,
+                 iters=iters, ok=ok, diverged=diverged, ms=ms, event_ms=event_ms,
+                 first_ms=first_ms,
+                 frozen_ms=frozen_ms, launches=launches,
+                 program_launches=counts["global_gn_while"],
+                 frozen_launches=mesh.local_size * st.max_iters,
+                 same_bits_as_frozen=all(torch.equal(a, b) for a, b in zip(out, frozen)),
                  max_pose_diff=(T - ref).abs().max().item(), blocks_rel_diff=blocks_rel,
                  err_m=(T[:, :3] - gt[:, :3]).norm(dim=-1).max().item(),
-                 same_bits=same_bits, same_bits_as_one_device=torch.equal(T, ref))
+                 same_bits=torch.equal(T, first[0]), same_bits_as_one_device=torch.equal(T, ref))
         log(f"13a sharded solve, {label}: {json.dumps(r)}")
-        within = r["max_pose_diff"] <= SHARDED_POSE_ATOL
         blocks_ok = max(blocks_rel.values()) <= SHARDED_BLOCKS_RTOL
-        if not (ok and within and blocks_ok and r["err_m"] <= SOLVE_BOUND_M and same_bits
-                and launches == mesh.local_size * settings.max_iters and iters >= 1):
+        checks = dict(
+            ok=ok and iters >= 1, frozen_bits=r["same_bits_as_frozen"],
+            second_call_bits=r["same_bits"], equations=blocks_ok,
+            launches=launches == mesh.local_size * iters,
+            program_launches=r["program_launches"] == int(program))
+        if st.delta_norm == settings.delta_norm:
+            checks.update(one_device=r["max_pose_diff"] <= SHARDED_POSE_ATOL,
+                          ground_truth=r["err_m"] <= SOLVE_BOUND_M)
+        else:
+            checks.update(stopped_early=iters < st.max_iters)
+        if not all(checks.values()):
             raise AssertionError(
-                f"13a sharded solve, {label}: {r} (poses within {SHARDED_POSE_ATOL} of "
-                f"one device: {within}; equations within {SHARDED_BLOCKS_RTOL} of one "
-                f"device's: {blocks_ok}; error bound {SOLVE_BOUND_M} m; launches must be "
-                f"{mesh.local_size} x max_iters, the GN loop's fixed count)")
+                f"13a sharded solve, {label}: {r}; failing: "
+                f"{[k for k, v in checks.items() if not v]} (poses within "
+                f"{SHARDED_POSE_ATOL} of one device, equations within {SHARDED_BLOCKS_RTOL} "
+                f"of one device's, error bound {SOLVE_BOUND_M} m, launches {mesh.local_size} "
+                f"x iters, one program launch on one card without a process group, the "
+                f"frozen loop's bits)")
         runs[label], poses[label] = r, T
 
     for n in shards:
-        one(f"{n}_shards", make_mesh(devices=[dev] * n))
+        mesh = make_mesh(devices=[dev] * n)
+        one(f"{n}_shards", mesh, settings)
+        one(f"{n}_shards_early", mesh, early)
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     mh.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend=group_backend)
     try:
         mesh = mh.make_global_mesh(devices=[dev])
         if not (mesh.distributed and dist.get_backend() == group_backend):
             raise AssertionError(f"13a: no {group_backend} process group")
-        one("1_shard_nccl", mesh)
+        one("1_shard_nccl", mesh, settings)
+        one("1_shard_nccl_early", mesh, early)
     finally:
         dist.destroy_process_group()
     nccl_same = torch.equal(poses["1_shard_nccl"], poses["1_shards"])
@@ -3595,9 +3679,11 @@ def slam_rank(rank, world, port, out_dir, hw, n_frames, device="cuda:0"):
         cfg = engine_cfg("base")
         cfg["engine"]["mesh"] = "auto"
         slam = SLAM(model, cfg, hw, keyframe_buffer=16, device=dev)
+        iters, spy = sharded_iters()
         reset_counts()
         t0 = time.perf_counter()
-        res = slam.run(PlaneSceneDataset(model, n_frames), verbose=False)
+        with spy:
+            res = slam.run(PlaneSceneDataset(model, n_frames), verbose=False)
         sync(dev)
         wall = time.perf_counter() - t0
         counts = read_counts()
@@ -3607,7 +3693,7 @@ def slam_rank(rank, world, port, out_dir, hw, n_frames, device="cuda:0"):
         (out_dir / f"rank{rank}.json").write_text(json.dumps(dict(
             rank=rank, mesh_size=slam.mesh.size, local_shards=slam.mesh.local_size,
             backend=dist.get_backend(), n_keyframes=res.n_keyframes, n_reloc=res.n_reloc,
-            n_edges=slam.graph.n_edges, launches=counts, wall_s=wall,
+            n_edges=slam.graph.n_edges, launches=counts, wall_s=wall, solve_iters=iters,
             n_tracked=st["tracker.track"]["count"],
             n_tasks=st.get("backend.update", {"count": 0})["count"])))
     finally:
@@ -3619,7 +3705,9 @@ def run_two_process_slam(dev, work, control, hw=(384, 512), n_frames=16):
     running slam_rank, against phase 5's one-process run (``control``): the
     same keyframe count, frame poses within TWO_PROCESS_POSE_ATOL, both ranks
     the same pose bits, each rank's launches (one refine a tracked frame
-    and a task, edge blocks in every solve)."""
+    and a task; every solve the sharded loop across the processes, which
+    runs the edge blocks once an iteration that ran and no device program:
+    edge-block runs = the solves' iterations summed)."""
     import torch.multiprocessing as tmp
 
     out = work / "two_process"
@@ -3643,7 +3731,10 @@ def run_two_process_slam(dev, work, control, hw=(384, 512), n_frames=16):
            if not (r["mesh_size"] == 2 and r["n_keyframes"] == control.n_keyframes
                    and r["n_reloc"] == 0 and r["n_tasks"] >= 1
                    and r["launches"]["refine_window"] == r["n_tracked"] + r["n_tasks"]
-                   and r["launches"]["edge_hg_rays"] >= r["n_tasks"])]
+                   and r["launches"]["edge_hg_rays"] >= r["n_tasks"]
+                   and len(r["solve_iters"]) >= r["n_tasks"]
+                   and r["launches"]["edge_hg_rays"] == sum(r["solve_iters"])
+                   and r["launches"]["global_gn_while"] == 0)]
     if bad or not same_bits or diff > TWO_PROCESS_POSE_ATOL or kf_diff > TWO_PROCESS_POSE_ATOL:
         raise AssertionError(f"13b two processes: {res} (bound {TWO_PROCESS_POSE_ATOL} m; "
                              f"ranks failing their checks: {bad})")
@@ -3719,10 +3810,13 @@ def hold_tasks(slam, frames, wait):
 
 def threaded_run(slam, dataset, dev):
     """SLAM.run with the launch counters reset just before and read just
-    after; (result, wall s, launches, the rank's record)."""
+    after, each edge-sharded solve's iterations recorded; (result, wall s,
+    launches, the rank's record)."""
+    iters, spy = sharded_iters()
     reset_counts()
     t0 = time.perf_counter()
-    res = slam.run(dataset, verbose=False)
+    with spy:
+        res = slam.run(dataset, verbose=False)
     sync(dev)
     wall = time.perf_counter() - t0
     counts = read_counts()
@@ -3738,6 +3832,7 @@ def threaded_run(slam, dataset, dev):
         schedule=slam.backend_schedule,
         n_tracked=st.get("tracker.track", {"count": 0})["count"],
         n_tasks=st.get("backend.update", {"count": 0})["count"], launches=counts,
+        solve_iters=iters,
         n_agree=agree["count"], agree_mean_ms=agree["mean_ms"], agree_p95_ms=agree["p95_ms"],
         agree_ms_per_frame=agree["count"] * agree["mean_ms"] / max(n_frames, 1),
         task_mean_ms=st.get("backend.update", {"mean_ms": 0.0})["mean_ms"], wall_s=wall)
@@ -3818,7 +3913,9 @@ def run_threaded_two_process(dev, work, control, hw=(384, 512), n_standin=16,
     THREADED_HOLD frames or more behind their start, and each rank's
     launches held to its frames and tasks (72 attention a frame and 48 a
     task at ViT-L's depths, one refine a tracked frame and a task, the same
-    edge blocks on both ranks, at least one a task)."""
+    edge blocks on both ranks, at least one a task).  In both runs every
+    solve is the sharded loop across the processes: edge-block runs = the
+    solves' iterations summed, no device program."""
     import torch.multiprocessing as tmp
 
     out = work / "threaded"
@@ -3878,10 +3975,117 @@ def run_threaded_two_process(dev, work, control, hw=(384, 512), n_standin=16,
             faults.append(f"ViT-L rank record {r}")
     if vrec[0]["launches"]["edge_hg_rays"] != vrec[1]["launches"]["edge_hg_rays"]:
         faults.append("ViT-L: edge-block launches differ between the ranks")
+    for r in srec + vrec:
+        if not (r["launches"]["edge_hg_rays"] == sum(r["solve_iters"])
+                and len(r["solve_iters"]) >= r["n_tasks"]
+                and r["launches"]["global_gn_while"] == 0):
+            faults.append(f"edge-block runs {r['launches']['edge_hg_rays']} against the "
+                          f"solves' iterations {r['solve_iters']} (route 2: no program)")
     if not held or any(s[2] - s[1] < THREADED_HOLD for s in held):
         faults.append(f"ViT-L: rank 1's hold shows in no task's schedule: {held}")
     if faults:
         raise AssertionError(f"13e threaded backend: {faults}: {json.dumps(res)}")
+    return res
+
+
+def reloc_rank(rank, world, port, out_dir, hw, device="cuda:0"):
+    """13f's worker: one of two processes on card 0, joined over gloo, each
+    running phase 8's teleport run (run_synthetic_reloc) threaded
+    (``single_thread: False``) under the agreement with engine.mesh "auto":
+    tracking breaks, both ranks drain their workers and relocalise.  Each
+    relocalisation's frame and outcome and each edge-sharded solve's
+    iterations recorded; poses and records saved for the parent."""
+    import torch
+    import torch.distributed as dist
+    from mast3r_slam_tpu_torch.ops import kernels
+    from mast3r_slam_tpu_torch.parallel import multihost as mh
+    from mast3r_slam_tpu_torch.slam.pipeline import SLAM
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":  # a CPU rehearsal has no kernels
+        torch.cuda.set_device(dev)
+        for name in kernels.ENTRY_POINTS:  # built by the parent
+            kernels.entry_point(name)
+    mh.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo", timeout=300)
+    try:
+        cfg = engine_cfg("base", single_thread=False, edge_buffer=64)
+        cfg["engine"]["mesh"] = "auto"
+        relocs = []
+        relocalize = SLAM._relocalize
+
+        def relocalized(slam, frame):
+            ok = relocalize(slam, frame)
+            relocs.append([int(frame.frame_id), bool(ok)])
+            return ok
+
+        iters, spy = sharded_iters()
+        t0 = time.perf_counter()
+        with swapped(SLAM, "_relocalize", relocalized), spy:
+            res, slam, gt, counts, calls, hamming = run_synthetic_reloc(
+                dev, hw=hw, cfg=cfg, label=f"13f rank {rank}")
+        wall = time.perf_counter() - t0
+        st = slam.timer.stats()
+        np.savez(out_dir / f"rank{rank}.npz", frame_poses=res.frame_poses,
+                 keyframe_poses=res.keyframe_poses, gt=gt)
+        (out_dir / f"rank{rank}.json").write_text(json.dumps(dict(
+            rank=rank, agreed=slam.agreed, mesh_size=slam.mesh.size, n_reloc=res.n_reloc,
+            n_reloc_success=res.n_reloc_success, relocs=relocs, mode=slam.mode.name,
+            n_keyframes=res.n_keyframes, n_edges=slam.graph.n_edges,
+            schedule=slam.backend_schedule, solve_iters=iters, launches=counts,
+            add_factors_calls=len(calls), hamming_exact=hamming, wall_s=wall,
+            n_tasks=st.get("backend.update", {"count": 0})["count"],
+            reloc_ms=st.get("reloc.retrieval", {"mean_ms": None})["mean_ms"])))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_reloc_two_process(dev, work, hw=(384, 512)):
+    """13f: a relocalisation's drain across processes.  Two processes (spawn)
+    on the one card, each running reloc_rank: both ranks relocalise at the
+    same frames with the same outcomes, end in TRACKING with the same
+    schedule, keyframes, edges, solve iterations and pose bits, the last
+    three frames within RELOC_BOUND_M of the ground truth; every solve is
+    the edge-sharded loop across the processes (edge-block runs = the
+    solves' iterations summed, no device program)."""
+    import torch.multiprocessing as tmp
+
+    out = work / "reloc_two_process"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    tmp.spawn(reloc_rank, args=(2, free_port(), out, hw, str(dev)), nprocs=2, join=True)
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(2)]
+    poses = [np.load(out / f"rank{r}.npz") for r in range(2)]
+    same_bits = all(np.array_equal(poses[0][k], poses[1][k])
+                    for k in ("frame_poses", "keyframe_poses"))
+    errs = [float(np.linalg.norm(p["frame_poses"][-3:, :3] - p["gt"][-3:, :3], axis=-1).max())
+            for p in poses]
+    res = dict(ranks=ranks, ranks_same_bits=same_bits, post_reloc_err_m=errs,
+               spawn_wall_s=wall)
+    log(f"13f relocalisation, threaded over two processes on one card (gloo): "
+        f"{json.dumps(res)}")
+    faults = []
+    keys = ("relocs", "n_reloc", "n_reloc_success", "mode", "n_keyframes", "n_edges",
+            "schedule", "solve_iters")
+    if any(ranks[0][k] != ranks[1][k] for k in keys) or not same_bits:
+        faults.append("the ranks disagree")
+    for r, err in zip(ranks, errs):
+        c = r["launches"]
+        if not (r["agreed"] and r["mesh_size"] == 2 and r["n_reloc"] >= 1
+                and r["n_reloc_success"] >= 1 and r["mode"] == "TRACKING"
+                and [ok for _, ok in r["relocs"]].count(True) == r["n_reloc_success"]
+                and err < RELOC_BOUND_M and r["hamming_exact"]
+                and len(r["solve_iters"]) >= 1
+                and c["edge_hg_rays"] == sum(r["solve_iters"])
+                and c["global_gn_while"] == 0):
+            faults.append(f"rank {r['rank']}: {r} (post-reloc error {err} m, bound "
+                          f"{RELOC_BOUND_M})")
+    if faults:
+        raise AssertionError(f"13f relocalisation across processes: {faults}")
     return res
 
 
@@ -4056,7 +4260,7 @@ def run_second_card(dev, work, control, ref_poses, hw=(384, 512)):
 
 
 def run_multi_card(dev, work, smi, vitl, control, stride1_task_ms):
-    """Phase 13: 13a-13d (see the module docstring)."""
+    """Phase 13: 13a-13f (see the module docstring)."""
     import torch
     from mast3r_slam_tpu_torch.ops.global_gn import GlobalGNSettings, gauss_newton_poses
 
@@ -4068,6 +4272,11 @@ def run_multi_card(dev, work, smi, vitl, control, stride1_task_ms):
         f"{tv[0]['n_tasks']} tasks, run wall {[round(r['wall_s'], 3) for r in tv]} s, "
         f"{tv[0]['n_agree']} agreements at {[round(r['agree_mean_ms'], 3) for r in tv]} ms "
         f"each (host clock); {smi}")
+    reloc = run_reloc_two_process(dev, work)
+    r0 = reloc["ranks"][0]
+    log(f"13f relocalisation across two processes: reloc at {r0['relocs']}, solves' "
+        f"iterations {r0['solve_iters']}, run wall "
+        f"{[round(r['wall_s'], 3) for r in reloc['ranks']]} s (host clock); {smi}")
     task = run_sharded_vitl_task(dev, vitl)
     log(f"13c: the sharded task {task['task_ms']:.3f} ms against phase 6's unsharded "
         f"{stride1_task_ms:.3f} ms (host clock); {smi}")
@@ -4090,7 +4299,7 @@ def run_multi_card(dev, work, smi, vitl, control, stride1_task_ms):
             f"{torch.cuda.device_count()}): engine.pipeline: 2 with the tracker on cuda:1, "
             f"a 2-card NCCL mesh for 13a, and the attention and refine kernels on every card")
     return dict(sharded_solve=solve, two_process=two, threaded_two_process=threaded,
-                sharded_task=task, compute_device_same_bits=same, second_card=second,
+                reloc_two_process=reloc, sharded_task=task, compute_device_same_bits=same, second_card=second,
                 card=smi)
 
 
@@ -5276,6 +5485,7 @@ def main() -> int:
     msolve, mtask = multi["sharded_solve"]["runs"], multi["sharded_task"]
     mranks = [r["launches"] for r in multi["two_process"]["ranks"]]
     tranks = [r["launches"] for r in multi["threaded_two_process"]["vitl"]["ranks"]]
+    rranks = [r["launches"] for r in multi["reloc_two_process"]["ranks"]]
     # the tracking GN on the device: syncs a frame and a task, the program
     # against the plain loop, what it changed
     host = run_host_reads(dev, vitl, smi)
@@ -5347,6 +5557,7 @@ def main() -> int:
              mesh_launches={"sharded_solve": {k: r["launches"] for k, r in msolve.items()},
                             "two_process_ranks": [c["edge_hg_rays"] for c in mranks],
                             "threaded_vitl_ranks": [c["edge_hg_rays"] for c in tranks],
+                            "reloc_two_process_ranks": [c["edge_hg_rays"] for c in rranks],
                             "vitl_task_2_shards": mtask["launches"]["edge_hg_rays"]}),
         # the next three: launches in phase 8's SLAM.run (retrieval and reloc);
         # the two probes lie on no package path, their row-gather kernel
@@ -5390,7 +5601,11 @@ def main() -> int:
              solves={k: {m: r[m] for m in ("route", "iters", "ms", "plain_ms", "bound_ms",
                                            "bound_by")}
                      for k, r in program["solves"].items()},
-             vitl_task_launches=ptask["program_launches"]),
+             vitl_task_launches=ptask["program_launches"],
+             sharded_solve={k: {m: r[m] for m in ("route", "iters", "program_launches",
+                                                  "launches", "ms", "event_ms",
+                                                  "frozen_ms")}
+                            for k, r in msolve.items()}),
     ], "kernel_floor_ms": design["kernel_floor_ms"],
         "edge_hg_sass_loop": design["edge_hg_sass_loop"], "ptxas": design["ptxas"],
         "gather_plans": design["plans"],

@@ -25,9 +25,10 @@ per (entry, mode, route, shapes, device, settings); the factor graph pads
 every solve to the JAX package's buckets, so a session meets few of them.
 On the CPU the plain version runs: ``gn_loop``, ``max_iters`` iterations
 frozen on the device once the JAX condition fails, with the same bits;
-its PCG loop reads its test once a CG iteration.  ``gn_loop`` is also the
-loop of the edge-sharded route (``parallel/sharded_ba.py``), whose step
-runs collectives.
+its PCG loop reads its test once a CG iteration.  The edge-sharded route
+(``parallel/sharded_ba.py``) builds its one-card program from these pieces
+(``_Pieces``, ``_program``) and, across processes or cards, runs
+``gn_loop`` with ``early_exit``.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import to_host
 from ..geometry import constrain_points_to_ray
 from ..lie import sim3
 from ..utils.numerics import full_f32, index_add_fixed
@@ -543,15 +545,19 @@ def _gn_advance(Twc, Twc_prev, prev_cost, dx, ok, cost, keep, pin: int, delta_no
             (delta >= delta_norm) & ok & ~worse)
 
 
-def gn_loop(Twc, step, settings: GlobalGNSettings):
+def gn_loop(Twc, step, settings: GlobalGNSettings, early_exit: bool = False):
     """Iterate ``step(Twc, active) -> (dx (P - pin, 7), ok, cost at Twc)``
     (``active`` the loop's device flag, below) under ``_gn_advance``: the
-    plain version of the device program, and the edge-sharded route's loop
-    (its step runs collectives, which a graph cannot hold).  The JAX
-    ``while_loop`` (global_gn.py:724-753) as ``max_iters`` iterations under
-    its ``cond`` as a sticky device flag: once the flag clears the state
-    stays frozen, so nothing is read from the device.  Returns (Twc', iters,
-    ok, diverged), the last three device scalars."""
+    plain version of the device program.  The JAX ``while_loop``
+    (global_gn.py:724-753) as ``max_iters`` iterations under its ``cond``
+    as a sticky device flag: once the flag clears the state stays frozen,
+    so nothing is read from the device.  With ``early_exit`` the flag is
+    read once an iteration (``to_host``) and the loop stops where it
+    clears, so ``step`` runs ``iters`` times, with the same bits: the
+    edge-sharded route's loop across processes or cards, whose step runs
+    collectives (every rank holds the same flag, so the ranks stop
+    together).  Returns (Twc', iters, ok, diverged), the last three device
+    scalars."""
     P = Twc.shape[0]
     pin = settings.pin
     dev = Twc.device
@@ -574,6 +580,8 @@ def gn_loop(Twc, step, settings: GlobalGNSettings):
             ok = torch.where(active, ok_t, ok)
             diverged = torch.where(active, worse, diverged)
             active = active & go
+            if early_exit and not bool(to_host(active)[0]):
+                break
     return Twc_cur, iters, ok, diverged
 
 
@@ -593,16 +601,20 @@ class _Pieces:
     ``post`` (the step, the retraction, the guard, ``active``).  Whoever
     runs the loops counts ``iters`` and ``cg_it`` (on the card the WHILE
     nodes' kernels, csrc/gn_while.cu).  Run in that order, the pieces give
-    ``gn_loop``'s bits and its iteration count."""
+    ``gn_loop``'s bits and its iteration count.  ``dense`` keeps the dense
+    route whatever the settings say (the edge-sharded solve's, whose
+    subclass gathers its shards' fields in ``_fields`` and sums their
+    systems in ``body``)."""
 
-    def __init__(self, entry: str, inputs, img_hw, settings: GlobalGNSettings, mode: str):
+    def __init__(self, entry: str, inputs, img_hw, settings: GlobalGNSettings, mode: str,
+                 dense: bool = False):
         self.entry, self.inputs, self.img_hw = entry, inputs, tuple(img_hw)
         self.settings, self.mode = settings, mode
         Twc = inputs[0]
         dev = Twc.device
         self.P = Twc.shape[0]
         self.M = self.P - settings.pin
-        self.use_pcg = routes_pcg(settings, self.P)
+        self.use_pcg = not dense and routes_pcg(settings, self.P)
         self.keep = (torch.arange(self.P, device=dev) >= settings.pin)[:, None]
 
         def scalar(dtype):
@@ -625,9 +637,12 @@ class _Pieces:
         self._ops = None   # the PCG operator and preconditioner, pre's
         self.stand_in = False
 
+    def _fields(self):
+        """The edges' fields, gathered once from the inputs."""
+        return _entry_fields(self.entry, self.inputs, self.img_hw, self.settings, self.mode)
+
     def prologue(self):
-        self.edge = _entry_fields(self.entry, self.inputs, self.img_hw, self.settings,
-                                  self.mode)
+        self.edge = self._fields()
         Twc = self.inputs[0]
         self.Twc.copy_(Twc)
         self.Twc_prev.copy_(Twc)
@@ -637,14 +652,19 @@ class _Pieces:
         self.active.fill_(True)
         self.iters.zero_()
 
-    def _blocks(self):
-        if self.stand_in:  # a program's warm-up: the same shapes, no kernel launch
-            E = self.edge[0].shape[0]
-            dev = self.Twc.device
+    def _edge_blocks(self, Twc, edge, K, img_hw, settings: GlobalGNSettings, mode: str):
+        """``edge_blocks``, or during a program's warm-up stand-in blocks of
+        the same shapes (no kernel launch)."""
+        if self.stand_in:
+            E = edge[0].shape[0]
+            dev = Twc.device
             return (torch.eye(7, device=dev).expand(E, 7, 7).contiguous(),
                     torch.zeros((E, 7), device=dev), torch.zeros((E,), device=dev))
-        return edge_blocks(self.Twc, self.edge, self.inputs[-1], self.img_hw, self.settings,
-                           self.mode)
+        return edge_blocks(Twc, edge, K, img_hw, settings, mode)
+
+    def _blocks(self):
+        return self._edge_blocks(self.Twc, self.edge, self.inputs[-1], self.img_hw,
+                                 self.settings, self.mode)
 
     def _advance(self, dx, ok, cost):
         s = self.settings
@@ -697,8 +717,9 @@ class _Pieces:
 
     def warm_up(self):
         """Every piece once with stand-in blocks (no edge-block launch); the
-        edge-block kernel's library, occupancy and run count made."""
-        if self.mode == "rays":
+        edge-block kernel's library, occupancy and run count made on the
+        card."""
+        if self.mode == "rays" and self.Twc.is_cuda:
             edge_hg.card_slots(self.Twc.device)
         self.stand_in = True
         for part in self.parts():
@@ -733,11 +754,19 @@ def global_gn_graph(entry: str, inputs, img_hw, settings: GlobalGNSettings, mode
     route = "pcg" if routes_pcg(settings, Twc.shape[0]) else "dense"
     key = (dev, entry, route, mode, tuple((a.shape, a.dtype) for a in inputs),
            tuple(img_hw), settings)
+    return _program(key, lambda static: _Pieces(entry, static, img_hw, settings, mode),
+                    inputs)
+
+
+def _program(key: tuple, make, inputs):
+    """The outputs of the device program of ``key`` on ``inputs``; at its
+    first call built from ``make(static inputs) -> pieces``.  Every global
+    GN program, the edge-sharded one's too, counts its launches in
+    ``counter`` and is kept in one cache, within one budget."""
 
     def build():
         with full_f32():
-            return gn_program.Program(
-                lambda static: _Pieces(entry, static, img_hw, settings, mode), inputs, counter)
+            return gn_program.Program(make, inputs, counter)
 
     return _programs.run(key, build, inputs)
 

@@ -129,3 +129,21 @@ def rays_problem(device, n_kf=5, N=3000, seed=0):
             torch.ones((E, N, 1), dtype=torch.bool), torch.full((E, N, 1), 2.0),
             torch.eye(3))
     return gt, [a.to(device) for a in args], (1, N)
+
+
+def frozen_sharded(mesh, Twc, Xs, Cs, ii, jj, idx, valid, Q, K, hw, settings, mode):
+    """The edge-sharded step under the plain frozen loop (``gn_loop`` without
+    its early exit: ``max_iters`` steps): the bits both routes of
+    ``gauss_newton_poses_sharded`` must give."""
+    from mast3r_slam_tpu_torch.ops import global_gn
+    from mast3r_slam_tpu_torch.parallel import sharded_ba as sb
+
+    edges, K_r = sb._shard_fields(mesh, Xs, Cs, ii.long(), jj.long(), idx, valid, Q, K, hw,
+                                  settings, mode)
+    M = Twc.shape[0] - settings.pin
+
+    def step(T, active):
+        H, g, cost = sb._reduce(mesh, T, edges, K_r, hw, settings, mode)
+        return sb._solve_dense(H, g, M, settings.pcg_damping) + (cost,)
+
+    return global_gn.gn_loop(Twc.to(mesh.devices[0]), step, settings)

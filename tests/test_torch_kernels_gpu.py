@@ -45,7 +45,7 @@ from mast3r_slam_tpu_torch.lie import sim3
 from mast3r_slam_tpu_torch.ops import attention, edge_hg, gather, kernels, refine
 from mast3r_slam_tpu_torch.ops import global_gn, gn_program
 
-from test_torch_common import rays_problem
+from test_torch_common import frozen_sharded, rays_problem
 
 pytestmark = pytest.mark.gpu
 
@@ -481,44 +481,87 @@ def test_global_gn_on_the_card_launches_the_kernel_each_iteration(cuda):
     assert (T.cpu()[:, :3] - gt[:, :3]).norm(dim=-1).max().item() < 1e-4
 
 
-@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("shards", [1, 2, 4])
 def test_sharded_solve_on_the_card_launches_the_kernel_per_shard(cuda, shards):
-    """The edge-sharded solve with every shard on the one card: one
-    edge-block launch a shard a GN iteration, the same bits on a second
-    run, the one-device poses within 1e-5 (the shards' sums arrive in
-    another order; chip_smoke.py's 13a reads 4.8e-7 on an H100), and the
-    summed normal equations at the first iterate within 1e-6 of one
-    device's scatter of every edge, relative to each one's norm: the poses
-    alone would not show a dropped or doubled shard, since either direction
-    of the exact two-way chain pins every pose."""
+    """The edge-sharded solve with every shard on the one card: one device
+    program launch a solve (a second call in the same bucket builds nothing
+    and makes no sync), the edge-block kernel once a shard an iteration
+    that ran (the kernel counts its own runs), the frozen plain loop's bits
+    (poses, iterations, ok, diverged), the one-device poses within 1e-5
+    (the shards' sums arrive in another order; chip_smoke.py's 13a reads
+    4.8e-7 on an H100), and the summed normal equations at the first
+    iterate within 1e-6 of one device's scatter of every edge, relative to
+    each one's norm: the poses alone would not show a dropped or doubled
+    shard, since either direction of the exact two-way chain pins every
+    pose."""
+    from mast3r_slam_tpu_torch.parallel import sharded_ba
     from mast3r_slam_tpu_torch.parallel.mesh import make_mesh
-    from mast3r_slam_tpu_torch.parallel.sharded_ba import (gauss_newton_poses_sharded,
-                                                            normal_equations_sharded)
 
     gt, args, hw = rays_problem(cuda)
     settings = global_gn.GlobalGNSettings()
     mesh = make_mesh(devices=[cuda] * shards)
-    before = edge_hg.counter.count
-    T, iters, ok, _ = gauss_newton_poses_sharded(mesh, *args, hw, settings, "rays")
-    torch.cuda.synchronize()
-    assert ok and iters >= 1
-    # the sharded route keeps the plain loop (its step runs collectives):
-    # a fixed count of iterations, frozen once it stops
-    assert edge_hg.counter.count - before == shards * settings.max_iters
-    assert torch.equal(T, gauss_newton_poses_sharded(mesh, *args, hw, settings, "rays")[0])
+    assert sharded_ba.one_program(mesh)
+    want = frozen_sharded(mesh, *args, hw, settings, "rays")  # max_iters steps
+    for call in range(2):
+        built = global_gn.programs_built()
+        launches, edge_runs = global_gn.counter.count, edge_hg.counter.count
+        if call:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = sharded_ba.gauss_newton_poses_sharded(mesh, *args, hw, settings, "rays")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (call, got[1:], want[1:])
+        iters = int(got[1])
+        assert bool(got[2]) and 1 <= iters <= settings.max_iters
+        assert global_gn.counter.count - launches == 1
+        assert edge_hg.counter.count - edge_runs == shards * iters
+    assert global_gn.programs_built() == built  # the second call built nothing
     ref = global_gn.gauss_newton_poses(*args, hw, settings, "rays")[0]
-    assert (T - ref).abs().max().item() <= 1e-5
-    assert (T.cpu()[:, :3] - gt[:, :3]).norm(dim=-1).max().item() < 1e-4
+    assert (got[0] - ref).abs().max().item() <= 1e-5
     Twc, Xs, Cs, ii, jj, idx, valid, Q, K = args
+    M = Twc.shape[0] - settings.pin
+    assert (got[0].cpu()[:, :3] - gt[:, :3]).norm(dim=-1).max().item() < 1e-4
     edge = (ii, jj) + tuple(global_gn.precompute_edge_data(Xs, Cs, ii, jj, idx, valid, Q,
                                                            settings, "rays", hw))
     H_e, g_e, c_e = global_gn.edge_blocks(Twc, edge, K, hw, settings, "rays")
-    M = Twc.shape[0] - settings.pin
-    want = global_gn._scatter_dense(H_e, g_e, *global_gn._slots(ii, jj, settings.pin, M),
-                                    M) + (c_e.sum(),)
-    got = normal_equations_sharded(mesh, *args, hw, settings, "rays")
-    for name, a, b in zip(("H", "g", "cost"), got, want):
+    want_eq = global_gn._scatter_dense(H_e, g_e, *global_gn._slots(ii, jj, settings.pin, M),
+                                       M) + (c_e.sum(),)
+    got_eq = sharded_ba.normal_equations_sharded(mesh, *args, hw, settings, "rays")
+    for name, a, b in zip(("H", "g", "cost"), got_eq, want_eq):
         assert ((a - b).norm() / b.norm()).item() <= 1e-6, name
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4])
+def test_sharded_program_stops_early_and_keeps_padding_exact(cuda, shards):
+    """At a ``delta_norm`` the step norms decide the program stops before
+    max_iters with the frozen loop's bits, ``shards x iters`` edge runs;
+    an edge count that is no multiple of the shards (padded rows inside
+    the program) gives the bits of the same edges with zero-weight rows
+    appended by hand; max_iters 1 runs one iteration."""
+    from mast3r_slam_tpu_torch.parallel import sharded_ba
+    from mast3r_slam_tpu_torch.parallel.mesh import make_mesh
+
+    _, args, hw = rays_problem(cuda, n_kf=6, N=1024)  # 10 edges
+    mesh = make_mesh(devices=[cuda] * shards)
+    solve = lambda a, **kw: sharded_ba.gauss_newton_poses_sharded(
+        mesh, *a, hw, global_gn.GlobalGNSettings(**kw), "rays")
+    edge_runs = edge_hg.counter.count
+    got = solve(args, delta_norm=3e-4)
+    iters = int(got[1])
+    assert 1 <= iters < global_gn.GlobalGNSettings().max_iters and bool(got[2])
+    assert edge_hg.counter.count - edge_runs == shards * iters
+    cpu = sharded_ba.gauss_newton_poses_sharded(
+        make_mesh(devices=["cpu"] * shards), *[a.cpu() for a in args], hw,
+        global_gn.GlobalGNSettings(delta_norm=3e-4), "rays")
+    assert int(cpu[1]) == iters and (cpu[0] - got[0].cpu()).abs().max().item() <= 1e-5
+    extra = -args[3].shape[0] % shards
+    if extra:  # padded by hand to the rows the program pads to: the same shard slices
+        padded = list(args)
+        padded[3:8] = [torch.cat([a, a.new_zeros((extra,) + a.shape[1:])]) for a in args[3:8]]
+        assert all(torch.equal(a, b) for a, b in zip(solve(args), solve(padded)))
+    assert int(solve(args, max_iters=1)[1]) == 1
 
 
 def test_stream_guards_record_inputs_on_an_unindexed_card(cuda, monkeypatch):

@@ -13,6 +13,17 @@ bound, atol 5e-4 and rtol 1e-3 (test_sharded_ba.py:145): the shards' sums
 reach the normal equations in another f32 order.  Port against JAX, both
 sharded: the same bound.  Padding: bit for bit (zero-weight edges add exact
 zeros, and the real edges keep their shards).
+
+Iterations.  The loop stops where the JAX ``while_loop`` stops, so the
+port's ``iters`` equal JAX's exactly, and the sharded step runs ``iters``
+times.  At the default ``delta_norm`` (1e-8) the last iterations sit at
+the f32 noise floor, where the monotone-cost guard trips on rounding that
+the summation order decides (8, 10 and 8 iterations at 1, 2 and 8 shards
+for rays); the counts are compared at STOP_DELTA, where the step norms
+decide: each of the three modes' steps lies at least twice or at most
+half that far from it (3 or 4 iterations).  The device program's pieces
+(``sharded_ba._ShardedPieces``), run in order on the CPU, give the frozen
+plain loop's (``gn_loop``) bits and iterations.
 """
 
 import jax
@@ -27,17 +38,21 @@ from mast3r_slam_tpu.parallel.mesh import replicate as jreplicate
 from mast3r_slam_tpu.parallel.mesh import shard_edges as jshard_edges
 from mast3r_slam_tpu.parallel.sharded_ba import gauss_newton_poses_sharded as jsharded
 from mast3r_slam_tpu_torch.ops import global_gn as tgn
+from mast3r_slam_tpu_torch.parallel import sharded_ba as sb
 from mast3r_slam_tpu_torch.parallel.mesh import make_mesh, padded_rows, replicate, shard_edges
 from mast3r_slam_tpu_torch.parallel.sharded_ba import (gauss_newton_poses_sharded,
                                                         normal_equations_sharded)
 
 from test_sharded_ba import _calib_problem, _rays_problem
-from test_torch_common import CPU, assert_close, t, time_limit
+from test_torch_common import CPU, assert_close, frozen_sharded, t, time_limit
 
 ATOL, RTOL = 5e-4, 1e-3
 BLOCKS_RTOL = 1e-6
 MODES = ["rays", "calib", "points"]
 SHARDS = [1, 2, 8]
+# step norms at the three modes' last iterations: rays 1.1e-3 then 9.5e-5,
+# calib 6.0e-4 then 9.9e-5, points 4.8e-3 then 1.5e-4 (every shard count)
+STOP_DELTA = 3e-4
 
 
 @pytest.fixture(autouse=True)
@@ -64,7 +79,8 @@ def _port_args(mode, settings):
 
 @pytest.fixture(scope="module")
 def jax_sharded():
-    """JAX's sharded solve of each mode on its 8-device mesh."""
+    """JAX's sharded solve of each mode on its 8-device mesh: the poses, and
+    the iterations at STOP_DELTA."""
     assert len(jax.devices()) >= 8, "tests/conftest.py provides 8 CPU devices"
     mesh = jmake_mesh(8)
     out = {}
@@ -80,7 +96,10 @@ def jax_sharded():
         Twc, _, ok, _ = jsharded(mesh, Twc0, Xs_d, Cs_d, *edges, jnp.asarray(K), hw,
                                  JSettings(edge_batch=2), mode)
         assert bool(ok)
-        out[mode] = np.asarray(Twc)
+        _, iters, ok, _ = jsharded(mesh, Twc0, Xs_d, Cs_d, *edges, jnp.asarray(K), hw,
+                                   JSettings(edge_batch=2, delta_norm=STOP_DELTA), mode)
+        assert bool(ok)
+        out[mode] = np.asarray(Twc), int(iters)
     return out
 
 
@@ -88,10 +107,15 @@ def jax_sharded():
 @pytest.mark.parametrize("mode", MODES)
 def test_sharded_matches_jax_sharded(jax_sharded, mode, shards):
     mesh = make_mesh(devices=[CPU] * shards)
+    want, want_iters = jax_sharded[mode]
     Twc, iters, ok, _ = gauss_newton_poses_sharded(
         mesh, *_port_args(mode, tgn.GlobalGNSettings(edge_batch=2)))
     assert ok and iters >= 1
-    assert_close(Twc, jax_sharded[mode], RTOL, ATOL, f"{mode}, {shards} shards")
+    assert_close(Twc, want, RTOL, ATOL, f"{mode}, {shards} shards")
+    _, iters, ok, _ = gauss_newton_poses_sharded(
+        mesh, *_port_args(mode, tgn.GlobalGNSettings(edge_batch=2, delta_norm=STOP_DELTA)))
+    assert ok and int(iters) == want_iters < tgn.GlobalGNSettings().max_iters, (
+        int(iters), want_iters)
     gt = _problem(mode)[-1]
     err = np.linalg.norm(Twc.numpy()[:, :3] - gt[:, :3], axis=-1).mean()
     assert err < 1e-4, err  # exact correspondences: the ground truth
@@ -105,6 +129,116 @@ def test_sharded_matches_the_single_device_solve(mode, shards):
     Twc, _, ok, _ = gauss_newton_poses_sharded(make_mesh(devices=[CPU] * shards), *args)
     assert ok_ref and ok
     assert_close(Twc, ref, RTOL, ATOL, f"{mode}, {shards} shards against one device")
+
+
+def _counted(monkeypatch, name):
+    """Count the calls of ``sharded_ba.<name>`` (a list of one int)."""
+    calls = [0]
+    real = getattr(sb, name)
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+
+    monkeypatch.setattr(sb, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("shards", SHARDS)
+@pytest.mark.parametrize("mode", MODES)
+def test_the_sharded_step_runs_iters_times(monkeypatch, mode, shards):
+    """The loop stops where the JAX loop stops: each shard's blocks are
+    assembled and the summed system solved once an iteration that ran,
+    not max_iters times; the bits are the frozen loop's."""
+    settings = tgn.GlobalGNSettings(edge_batch=2, delta_norm=STOP_DELTA)
+    mesh = make_mesh(devices=[CPU] * shards)
+    args = _port_args(mode, settings)
+    want = frozen_sharded(mesh, *args)
+    blocks, solves = _counted(monkeypatch, "_local_blocks"), _counted(monkeypatch, "_solve_dense")
+    got = gauss_newton_poses_sharded(mesh, *args)
+    iters = int(got[1])
+    assert 1 <= iters < settings.max_iters and bool(got[2])
+    assert (blocks[0], solves[0]) == (shards * iters, iters)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _warm_sharded_pieces(mesh, Twc, Xs, Cs, ii, jj, idx, valid, Q, K, hw, settings, mode):
+    """The program's pieces after its warm-up on stand-in blocks."""
+    s = sb._ShardedPieces(mesh, (Twc, Xs, Cs, ii.long(), jj.long(), idx, valid, Q, K), hw,
+                          settings, mode)
+    s.warm_up()
+    return s
+
+
+def _run_sharded_pieces(s):
+    """The device program's loop as a Python loop over what it captures
+    (``parts()``, joined by ``loops`` as gn_program.Program joins them)."""
+    (prologue, body), (outer, inner) = s.parts(), s.loops
+    assert inner is None and not s.use_pcg
+    prologue()
+    while True:
+        body()
+        outer.iters.add_(1)
+        if not (bool(outer.active) and int(outer.iters) < outer.max_iters):
+            return s.outputs()
+
+
+# case: (mode, shards, settings, fault)
+SHARDED_PIECE_CASES = {
+    **{f"{mode}_{n}": (mode, n, {}, None) for mode in MODES for n in SHARDS},
+    "rays_2_stop_delta": ("rays", 2, dict(delta_norm=STOP_DELTA), None),
+    "rays_2_pcg_setting": ("rays", 2, dict(solver="pcg"), None),
+    "rays_3_padded": ("rays", 3, {}, None),
+    "guard_reverts": ("rays", 2, {}, "poison"),
+    "failed_cholesky": ("rays", 2, {}, "negate"),
+    "max_iters_1": ("calib", 2, dict(max_iters=1), None),
+}
+
+
+@pytest.mark.parametrize("case", list(SHARDED_PIECE_CASES))
+def test_sharded_pieces_give_the_frozen_loops_bits(case, monkeypatch):
+    """The one-card program's pieces (prologue: every shard's fields; body:
+    the shards' systems summed in shard order, the dense solve, the guard),
+    run in order on the CPU: the frozen plain loop's poses, iterations, ok
+    and diverged bit for bit, and the early-exit route's."""
+    mode, shards, kw, fault = SHARDED_PIECE_CASES[case]
+    settings = tgn.GlobalGNSettings(edge_batch=2, **kw)
+    mesh = make_mesh(devices=[CPU] * shards)
+    args = _port_args(mode, settings)
+    calls = [0]
+    if fault == "poison":  # the first GN step is large and wrong
+        real = sb._solve_dense
+
+        def poisoned(*a, **k):
+            dx, ok = real(*a, **k)
+            calls[0] += 1
+            return (dx + 0.5 if calls[0] == 1 else dx), ok
+
+        monkeypatch.setattr(sb, "_solve_dense", poisoned)
+    elif fault == "negate":  # normal equations that are not positive definite
+        real_scatter = sb._scatter_dense
+        monkeypatch.setattr(sb, "_scatter_dense",
+                            lambda *a: tuple(-x for x in real_scatter(*a)))
+    want = frozen_sharded(mesh, *args)
+    pieces = _warm_sharded_pieces(mesh, *args)
+    runs = []
+    for run in (lambda: _run_sharded_pieces(pieces),
+                lambda: gauss_newton_poses_sharded(mesh, *args)):
+        calls[0] = 0
+        runs.append(run())
+    for got in runs:
+        for a, b, name in zip(got, want, ("poses", "iterations", "ok", "diverged")):
+            assert torch.equal(a, b), (name, a, b)
+    iters = int(want[1])
+    if fault == "poison":  # the second iteration saw the cost rise and reverted
+        assert (iters, bool(want[3])) == (2, True)
+        assert torch.equal(want[0], args[0])
+    elif fault == "negate":  # the factor failed: a zero step, and the loop stopped
+        assert (iters, bool(want[2])) == (1, False)
+    else:
+        assert 1 <= iters <= settings.max_iters and bool(want[2])
+    if case == "max_iters_1":
+        assert iters == 1
 
 
 def _one_device_equations(Twc, Xs, Cs, ii, jj, idx, valid, Q, K, hw, settings, mode):

@@ -19,7 +19,12 @@ scene runs here meanwhile.  The checks:
   count, and keyframe poses within KEYFRAME_POSE_ATOL of the JAX run and of
   the port's in-line run;
 - a task that raises on rank 1 stops both processes with an error naming
-  the rank and the task.
+  the rank and the task;
+- a relocalisation (tests/test_reloc_e2e.py's teleport scene with a small
+  retrieval database): both ranks drain their workers, relocalise at the
+  same frame, hold the same pose bits, and land within that test's 0.15 m;
+  every solve is the edge-sharded loop across the processes, its shard
+  blocks assembled once an iteration that ran.
 
 In one process, an agreed task's inputs: ``add_factors`` and ``solve`` on
 a paged store's snapshot, taken before the store moves on, give the
@@ -114,7 +119,7 @@ def _jax_inline():
 def pairs(tmp_path_factory):
     root = tmp_path_factory.mktemp("threaded")
     started = {sc: _start_pair(sc, root / sc, port)
-               for sc, port in zip(("runs", "fail"), _free_ports(2))}
+               for sc, port in zip(("runs", "fail", "reloc"), _free_ports(3))}
     try:
         jres = _jax_inline()
     finally:
@@ -229,6 +234,37 @@ def test_a_failed_task_ends_both_processes(pairs):
         assert "the run stopped: backend task 1" in out and "failed on rank 1" in out, \
             out[-4000:]
     assert "a planted fault in the second backend task" in done["fail"][1][1]
+
+
+RELOC_BOUND_M = 0.15  # tests/test_reloc_e2e.py's post-reloc bound
+
+
+def test_a_relocalisation_drains_both_ranks_alike(pairs):
+    """Tracking breaks at the teleport; both ranks drain their workers and
+    relocalise at the same frame, end in TRACKING with the same schedule,
+    keyframes, edges, solve iterations and pose bits, the last frames
+    within RELOC_BOUND_M.  Every solve went through the edge-sharded loop
+    across the processes: one shard block a rank an iteration that ran."""
+    root, done, _ = pairs
+    for pid, (rc, out) in enumerate(done["reloc"]):
+        assert rc == 0, f"worker {pid} failed:\n{out[-4000:]}"
+        assert "relocalisation over 2 processes OK" in out, out[-4000:]
+    ranks = [(json.loads((root / "reloc" / f"reloc_rank{r}.json").read_text()),
+              np.load(root / "reloc" / f"reloc_rank{r}.npz")) for r in range(2)]
+    (m0, p0), (m1, p1) = ranks
+    for key in ("relocs", "n_keyframes", "n_edges", "schedule", "solve_iters", "mode"):
+        assert m0[key] == m1[key], (key, m0[key], m1[key])
+    for key in ("frame_poses", "keyframe_poses"):
+        np.testing.assert_array_equal(p0[key], p1[key])
+    for meta, _ in ranks:
+        assert meta["agreed"] and meta["mesh_size"] == 2 and meta["mode"] == "TRACKING"
+        assert meta["n_reloc"] >= 1 and meta["n_reloc_success"] >= 1
+        assert [ok for _, ok in meta["relocs"]].count(True) == meta["n_reloc_success"]
+        its = meta["solve_iters"]
+        assert len(its) >= meta["n_keyframes"] - 1 and all(1 <= i <= 10 for i in its), its
+        assert meta["blocks"] == meta["local_shards"] * sum(its), meta
+    err = np.linalg.norm(p0["frame_poses"][-3:, :3] - p0["gt"][-3:, :3], axis=-1)
+    assert err.max() < RELOC_BOUND_M, err
 
 
 def _paged_graph(n_kf=6):

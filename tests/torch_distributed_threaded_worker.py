@@ -22,6 +22,13 @@ scenario ``runs``:
              done first (pipeline 0, 1)
 scenario ``fail``: threaded, rank 1's second task raises; the run must stop
   with an error on both ranks (this worker then exits with code 3).
+scenario ``reloc``: threaded, with a retrieval database (a small head and
+  codebook from one seed, the same on both ranks; tests/test_reloc_e2e.py's
+  sizing) over tests/test_reloc_e2e.py's teleport scene: tracking breaks,
+  both ranks drain their workers and relocalise.  Written besides: each
+  relocalisation's frame and outcome, each edge-sharded solve's
+  iterations, and the shard blocks assembled (``sharded_ba._local_blocks``
+  calls: one a shard an iteration that ran).
 
 The hooks (``chip_smoke.hold_tasks``, ``fail_second_task``) wrap the
 engine's methods on the instance; the package has none of them.
@@ -45,10 +52,16 @@ import torch.distributed as dist  # noqa: E402
 
 from mast3r_slam_tpu_torch.config import load_config  # noqa: E402
 from mast3r_slam_tpu_torch.parallel import multihost as mh  # noqa: E402
+from mast3r_slam_tpu_torch.parallel import sharded_ba  # noqa: E402
+from mast3r_slam_tpu_torch.retrieval import (  # noqa: E402
+    ASMKSettings, RetrievalDatabase, RetrievalHeadSettings)
+from mast3r_slam_tpu_torch.retrieval.head import init_head_params  # noqa: E402
+from mast3r_slam_tpu_torch.slam import factor_graph  # noqa: E402
 from mast3r_slam_tpu_torch.slam.pipeline import SLAM  # noqa: E402
 
 from chip_smoke import hold_tasks  # noqa: E402  (phase 13e's hooks)
 from oracle import OracleDataset, OracleModel, PlaneScene, arc_trajectory  # noqa: E402
+from test_reloc_e2e import teleport_trajectory  # noqa: E402
 from test_torch_common import TorchOracleModel  # noqa: E402
 
 # two pairs of these processes run beside the test session's workers
@@ -73,6 +86,58 @@ def engine(single_thread, pipeline):
     cfg["engine"]["pipeline"] = pipeline
     cfg["single_thread"] = single_thread
     return SLAM(model, cfg, HW, keyframe_buffer=32, device="cpu")
+
+
+def run_reloc():
+    """The threaded engine over the teleport scene with retrieval; the
+    relocalisations, the solves' iterations and the blocks assembled."""
+    gt = teleport_trajectory()
+    model = TorchOracleModel(OracleModel(PlaneScene(HW), gt, noise=0.002))
+    g = torch.Generator().manual_seed(41)
+    params = init_head_params(g, model.feat_dim, hdims=(8,))
+    centroids = torch.randn((64, 8), generator=g) * 0.3
+    db = RetrievalDatabase(params, centroids, RetrievalHeadSettings(nfeat=8),
+                           ASMKSettings(max_images=64), device="cpu")
+    cfg = load_config("base")
+    cfg["engine"]["edge_buffer"] = 64
+    cfg["engine"]["mesh"] = "auto"
+    cfg["single_thread"] = False
+    cfg["reloc"]["strict"] = False
+    slam = SLAM(model, cfg, HW, keyframe_buffer=64, retrieval=db, device="cpu")
+    relocs, iters, blocks = [], [], [0]
+    relocalize, solve, local = (slam._relocalize, factor_graph.gauss_newton_poses_sharded,
+                                sharded_ba._local_blocks)
+
+    def relocalized(frame):
+        ok = relocalize(frame)
+        relocs.append([int(frame.frame_id), bool(ok)])
+        return ok
+
+    def solved(*a, **kw):
+        out = solve(*a, **kw)
+        iters.append(int(out[1]))
+        return out
+
+    def counted(*a, **kw):
+        blocks[0] += 1
+        return local(*a, **kw)
+
+    slam._relocalize = relocalized
+    factor_graph.gauss_newton_poses_sharded, sharded_ba._local_blocks = solved, counted
+    try:
+        res = slam.run(OracleDataset(len(gt), HW), verbose=False)
+        slam.close()
+    finally:
+        factor_graph.gauss_newton_poses_sharded, sharded_ba._local_blocks = solve, local
+    assert slam.backend_errors == [], slam.backend_errors
+    np.savez(out_dir / f"reloc_rank{pid}.npz", frame_poses=res.frame_poses,
+             keyframe_poses=res.keyframe_poses, gt=gt)
+    (out_dir / f"reloc_rank{pid}.json").write_text(json.dumps(dict(
+        n_keyframes=res.n_keyframes, n_reloc=res.n_reloc, n_reloc_success=res.n_reloc_success,
+        n_edges=slam.graph.n_edges, mode=slam.mode.name, relocs=relocs, solve_iters=iters,
+        blocks=blocks[0], local_shards=slam.mesh.local_size, mesh_size=slam.mesh.size,
+        agreed=slam.agreed, schedule=slam.backend_schedule)))
+    print(f"worker {pid}: reloc at {relocs}, solves {iters}", flush=True)
 
 
 def fail_second_task(slam):
@@ -121,6 +186,10 @@ if scenario == "runs":
             lambda slam: hold_tasks(slam, SKEW_FRAMES, wait=False) if pid == 1 else None)
     dist.destroy_process_group()
     print(f"worker {pid}: threaded backend over {nproc} processes OK", flush=True)
+elif scenario == "reloc":
+    run_reloc()
+    dist.destroy_process_group()
+    print(f"worker {pid}: relocalisation over {nproc} processes OK", flush=True)
 elif scenario == "fail":
     slam = engine(False, 0)
     if pid == 1:

@@ -9,6 +9,12 @@ devices each.  Checked: the backend chosen for the CPU, the global mesh,
 ``process_edge_slice``, one all-reduce of an edge-sharded sum, the
 all-gather, the rank-mismatch check, and the edge-sharded solve across the
 processes against the single-device solve (every rank the same bits).
+Then the sharded loop's early exit across the processes: at a
+``delta_norm`` that the step norms decide (STOP_DELTA, 4 iterations:
+steps 1.1e-3 then 9.4e-5), both ranks stop at the same ``iters`` with the
+same bits, each rank's step ran ``iters`` times (4 shards a step), and
+the one-process mesh of 8 CPU shards stops at the same ``iters`` with the
+poses within 1e-6 (its shards' sums arrive in another order).
 """
 
 import pathlib
@@ -26,8 +32,9 @@ import torch.distributed as dist  # noqa: E402
 
 from mast3r_slam_tpu_torch.ops.global_gn import GlobalGNSettings, gauss_newton_poses  # noqa: E402
 from mast3r_slam_tpu_torch.parallel import multihost as mh  # noqa: E402
+from mast3r_slam_tpu_torch.parallel import sharded_ba  # noqa: E402
 from mast3r_slam_tpu_torch.parallel.mesh import (  # noqa: E402
-    all_gather_rows, all_reduce_sum, check_same, shard_edges)
+    all_gather_rows, all_reduce_sum, check_same, make_mesh, shard_edges)
 from mast3r_slam_tpu_torch.parallel.sharded_ba import gauss_newton_poses_sharded  # noqa: E402
 
 from test_torch_common import rays_problem  # noqa: E402
@@ -70,7 +77,37 @@ assert ok and ok_ref
 np.testing.assert_allclose(Twc.numpy(), ref.numpy(), atol=5e-4, rtol=1e-3)
 every = all_gather_rows(mesh, Twc[None])
 assert all(torch.equal(every[r], every[0]) for r in range(nproc)), "ranks' poses differ"
+ref_diff = float((Twc - ref).abs().max())
+
+# the early exit: every rank reads the same flag and stops at the same iteration
+STOP_DELTA = 3e-4
+settings = GlobalGNSettings(edge_batch=2, delta_norm=STOP_DELTA)
+args = (*problem, hw, settings, "rays")
+blocks = [0]
+real_blocks = sharded_ba._local_blocks
+
+
+def counted(*a, **k):
+    blocks[0] += 1
+    return real_blocks(*a, **k)
+
+
+sharded_ba._local_blocks = counted
+Twc, iters, ok, diverged = gauss_newton_poses_sharded(mesh, *args)
+sharded_ba._local_blocks = real_blocks
+iters = int(iters)
+assert bool(ok) and 1 <= iters < settings.max_iters, iters
+assert blocks[0] == mesh.local_size * iters, (blocks[0], iters)
+state = torch.cat([Twc.flatten(), torch.tensor([iters, bool(ok), bool(diverged)],
+                                               dtype=Twc.dtype)])
+every = all_gather_rows(mesh, state[None])
+assert all(torch.equal(every[r], every[0]) for r in range(nproc)), "ranks' loops differ"
+one = gauss_newton_poses_sharded(make_mesh(devices=["cpu"] * mesh.size), *args)
+assert int(one[1]) == iters, (int(one[1]), iters)
+assert float((Twc - one[0]).abs().max()) <= 1e-6, float((Twc - one[0]).abs().max())
 
 dist.destroy_process_group()
 print(f"worker {pid}: torch gloo mesh over {nproc} processes OK "
-      f"(max pose difference {float((Twc - ref).abs().max()):.3e})", flush=True)
+      f"(max pose difference {ref_diff:.3e}; "
+      f"early exit at {iters} iterations, {float((Twc - one[0]).abs().max()):.3e} from "
+      f"one process)", flush=True)
