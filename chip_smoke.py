@@ -236,6 +236,21 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      once, and the device memory the programs hold.  The buckets met in
      9b, 10a, 10b and 11 are logged too, with the builds an LRU cache of
      1-8 programs would make over them.
+  19. video input on the card's host, which has no cv2 (data/video.py, the
+     MPEG-4 Part 2 decoder of csrc/host/mpeg4.cpp): (a) every committed
+     video fixture (mp4v in .mp4 and .mov, XVID and DIVX in .avi, widths
+     that are not multiples of 8 or 16, a VOP marked not coded, and two
+     written AVI streams: half-pel moves without rounding over 0 pixels,
+     random valid syntax whose coefficients overflow the x86 IDCT) read
+     sequentially, at seeks back and forth and after subsample(4), each
+     frame's SHA-256, the frame count and the fps against what cv2 gave
+     when the fixtures were made (tests/data/video_fixtures.json); (b) ViT-L
+     through the CLI as in 12b over the committed 480x640 mp4v clip of
+     smooth panning frames (every frame), against a folder of PNGs of the
+     port's decode of its frames written here: the same trajectory bits,
+     the same keyframe PNGs and 12b's launch counts; (c) a 480x640 frame's
+     decode timed over the clip (host clock, median) beside the decode of
+     the committed baseline JPEG of its first frame, in the same run.
 
 Phase 2 also holds the two gather probes' kernels (gather_rows_sum,
 take_along_rows, the latter at every slab width of SLAB_SWEEP, timed in
@@ -5256,6 +5271,190 @@ def run_global_program(dev, vitl, smi):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 19: video input on the card's host
+# ---------------------------------------------------------------------------
+
+VIDEO_DATA = IMAGE_DATA / "video_fixtures"
+VIDEO_CLIP = "mp4v_480x640_smooth.mp4"
+VIDEO_CLIP_JPEG = "mp4v_480x640_smooth_frame0.jpg"
+VIDEO_DECODE_PASSES = 5    # 19c: decodes of the whole clip, the median frame of all
+
+
+def video_reads(ds, order):
+    """SHA-256 of the dataset's uint8 frames at ``order``; None where the
+    read raises ValueError (cv2's read failed there)."""
+    import hashlib
+
+    out = []
+    for i in order:
+        try:
+            out.append(hashlib.sha256(ds.read_img(i).tobytes()).hexdigest())
+        except ValueError:
+            out.append(None)
+    return out
+
+
+def check_video_fixtures():
+    """19a: every committed video fixture through the port's MP4Dataset:
+    its sequential reads, its seeks in the committed order, its reads after
+    subsample(4), the frame count and the fps against cv2's
+    (tests/data/video_fixtures.json)."""
+    from mast3r_slam_tpu_torch.data import video
+
+    digests = json.loads((IMAGE_DATA / "video_fixtures.json").read_text())
+    bad, frames = [], 0
+    for name, want in sorted(digests.items()):
+        path = IMAGE_DATA / name
+        ds = video.MP4Dataset(path)
+        got = dict(frame_count=ds.total_frames, fps=ds.fps,
+                   frames=video_reads(ds, range(len(ds))),
+                   shape=list(video.MP4Dataset(path).read_img(0).shape))
+        order = [t for t, _ in want["seeks"]]
+        got["seeks"] = [list(x) for x in zip(order, video_reads(video.MP4Dataset(path), order))]
+        sub = video.MP4Dataset(path)
+        sub.subsample(4)
+        got["subsample4"] = video_reads(sub, range(len(sub)))
+        frames += len(got["frames"]) + len(order) + len(got["subsample4"])
+        if got != want:
+            bad.append(name)
+    out = dict(files=len(digests), reads=frames, exact=len(digests) - len(bad), differ=bad)
+    log(f"19a video fixtures: {json.dumps(out)}")
+    if bad:
+        raise AssertionError(f"19a: the port's video reads differ from cv2's on {bad}")
+    return out
+
+
+def run_cli_video(dev, work, preset="vit_large", img_size=512):
+    """19b: ViT-L through the CLI (random weights, seed 0, 9b's pinned
+    decisions, every frame: subsample 1) over the committed 480x640 mp4v
+    clip, then over the control, a folder of 8-bit RGB PNGs of the port's
+    decode of its frames (the folder loader's timestamps, i / 30, are the
+    clip's at 30 fps); launch counters reset just before each run and read
+    just after.  The trajectories and the keyframe PNGs must hold the same
+    bits."""
+    from mast3r_slam_tpu_torch.data import dataloader, png, video
+    from mast3r_slam_tpu_torch.slam import run
+
+    clip = VIDEO_DATA / VIDEO_CLIP
+    ds = video.MP4Dataset(clip)
+    control = work / "video_png"
+    shutil.rmtree(control, ignore_errors=True)
+    for i in range(len(ds)):
+        png.write_png(control / f"{i:03d}.png", ds.read_img(i))
+    argv = ["--config", "eval_no_calib", "--device", str(dev), "--max-frames", str(len(ds)),
+            "--model-preset", "vit_large" if preset == "vit_large" else "tiny",
+            "--set", "dataset.subsample=1"]
+    for ov in CLI_VITL_SET:
+        argv += ["--set", ov]
+    built, loaders = [], []
+    real = run.build_slam
+
+    def keep(cfg, dataset, **kw):
+        loaders.append(type(dataset).__name__)
+        slam = real(cfg, dataset, **kw)
+        built.append(slam)
+        return slam
+
+    with swapped(run, "build_slam", keep), \
+            swapped(dataloader.MonocularDataset, "img_size", img_size):
+        res, counts, wall = run_cli(["--dataset", str(clip), "--save-as", "video"] + argv)
+        st = built[-1].timer.stats()
+        del built[:]
+        res2, counts2, wall2 = run_cli(["--dataset", str(control), "--save-as", "video_png"]
+                                       + argv)
+        st2 = built[-1].timer.stats()
+        del built[:]
+    same_bits = (np.array_equal(res.frame_poses, res2.frame_poses)
+                 and np.array_equal(res.keyframe_poses, res2.keyframe_poses)
+                 and res.keyframe_timestamps == res2.keyframe_timestamps)
+    kf = sorted((pathlib.Path("logs/video/keyframes") / clip.stem).iterdir())
+    kf2 = sorted((pathlib.Path("logs/video_png/keyframes") / control.name).iterdir())
+    same_keyframes = ([p.name for p in kf] == [p.name for p in kf2]
+                      and all(a.read_bytes() == b.read_bytes() for a, b in zip(kf, kf2)))
+    out = dict(frames=len(res.frame_timestamps), clip_frames=len(ds), loaders=loaders,
+               n_keyframes=res.n_keyframes, keyframe_pngs=len(kf),
+               n_tracked=st.get("tracker.track", {"count": 0})["count"],
+               n_tasks=st.get("backend.update", {"count": 0})["count"], n_reloc=res.n_reloc,
+               fps=res.fps, control_fps=res2.fps, wall_s=wall, control_wall_s=wall2,
+               launches=counts, control_launches=counts2, same_bits=bool(same_bits),
+               same_keyframe_pngs=bool(same_keyframes),
+               ingest_ms_p50=st["ingest"]["p50_ms"], control_ingest_ms_p50=st2["ingest"]["p50_ms"])
+    log(f"19b CLI ({preset}, {len(ds)} frames of the 480x640 mp4v clip, decisions pinned open) "
+        f"{img_size}: {json.dumps(out)}")
+    return out
+
+
+def time_video_decode():
+    """19c: host milliseconds of a 480x640 frame's decode (the sample
+    through the MPEG-4 decoder and its conversion to RGB), median over
+    VIDEO_DECODE_PASSES decodes of every frame of the clip, I- and P-VOPs
+    apart; beside the median of as many decodes of the committed baseline
+    JPEG of its first frame."""
+    from mast3r_slam_tpu_torch.data import video
+    from mast3r_slam_tpu_torch.utils import native
+
+    data, track = video.read_track(VIDEO_DATA / VIDEO_CLIP)
+    samples = [data[int(a):int(a) + int(n)] for a, n in zip(track.offsets, track.sizes)]
+    ms = {"i_vop": [], "p_vop": []}
+    for _ in range(VIDEO_DECODE_PASSES):
+        dec = native.Mpeg4Decoder(track.config)
+        for i, sample in enumerate(samples):
+            t0 = time.perf_counter()
+            dec.decode(sample)
+            dec.rgb()
+            ms["i_vop" if track.sync[i] else "p_vop"].append((time.perf_counter() - t0) * 1e3)
+        dec.close()
+    jpeg = (VIDEO_DATA / VIDEO_CLIP_JPEG).read_bytes()
+    jms = []
+    for _ in range(VIDEO_DECODE_PASSES * len(samples)):
+        t0 = time.perf_counter()
+        native.decode_jpeg(jpeg)
+        jms.append((time.perf_counter() - t0) * 1e3)
+    out = dict(frame_ms=statistics.median(ms["i_vop"] + ms["p_vop"]),
+               i_vop_ms=statistics.median(ms["i_vop"]), p_vop_ms=statistics.median(ms["p_vop"]),
+               jpeg_ms=statistics.median(jms), frames=len(samples),
+               i_vops=int(track.sync.sum()), passes=VIDEO_DECODE_PASSES,
+               clip_bytes=len(data), jpeg_bytes=len(jpeg))
+    log(f"19c decode a 480x640 frame (host clock): {json.dumps(out)}")
+    return out
+
+
+def run_video_input(dev, work, smi):
+    """Phase 19 (a)-(c), each checked; raises on any fault."""
+    t0 = time.perf_counter()
+    fixtures = check_video_fixtures()
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        cli = run_cli_video(dev, work)
+    finally:
+        os.chdir(cwd)
+    vc = cli["launches"]
+    want = {"attention": 72 * cli["frames"] + 48 * cli["n_tasks"],
+            "refine_window": cli["n_tracked"] + cli["n_tasks"]}
+    if ({k: vc[k] for k in want} != want or cli["n_tasks"] < 1
+            or vc["edge_hg_rays"] < cli["n_tasks"] or cli["control_launches"] != vc
+            or not cli["same_bits"] or not cli["same_keyframe_pngs"]
+            or cli["frames"] != cli["clip_frames"]
+            or cli["loaders"] != ["MP4Dataset", "RGBFiles"]):
+        raise AssertionError(
+            f"19b CLI over the mp4v clip: launches {vc} (expected {want}: 72 attention a "
+            f"frame and 48 a backend task, one refine a tracked frame and a task; edge_hg_rays "
+            f">= {cli['n_tasks']} tasks >= 1), PNG control {cli['control_launches']}, "
+            f"same trajectory bits {cli['same_bits']}, same keyframe PNGs "
+            f"{cli['same_keyframe_pngs']}, {cli['frames']} of {cli['clip_frames']} frames, "
+            f"loaders {cli['loaders']}")
+    decode = time_video_decode()
+    log(f"19 video input: a 480x640 mp4v frame decodes in {decode['frame_ms']:.3f} ms (I-VOP "
+        f"{decode['i_vop_ms']:.3f}, P-VOP {decode['p_vop_ms']:.3f}) against "
+        f"{decode['jpeg_ms']:.3f} ms for the baseline JPEG of its first frame (host clock); "
+        f"the CLI's ingest p50 {cli['ingest_ms_p50']:.2f} ms over the clip, "
+        f"{cli['control_ingest_ms_p50']:.2f} ms over its PNG control; phase 19 "
+        f"{time.perf_counter() - t0:.1f} s; {smi}")
+    return fixtures, cli, decode
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -5500,6 +5699,10 @@ def main() -> int:
     # loop at full width, the ViT-L task's solve, a SLAM.run's buckets
     program = run_global_program(dev, vitl, smi)
     ptask, prays = program["vitl_task"], program["solves"]["rays_dense"]
+    # video input without cv2: the fixtures against cv2's digests, the ViT-L
+    # CLI over an mp4v clip against its PNG control, the decode timed; in
+    # the same scratch directory
+    video_fixtures, video_cli, video_decode = run_video_input(dev, work, smi)
 
     common = lambda r: {k: r[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms",
@@ -5516,6 +5719,7 @@ def main() -> int:
              partial_serve_launches=last_served["launches"]["attention"],
              lossless_euroc_cli_launches=coding_euroc["launches"]["attention"],
              arithmetic_serve_launches=coding_served["launches"]["attention"],
+             video_cli_launches=video_cli["launches"]["attention"],
              mesh_launches={"vitl_task_2_shards": mtask["launches"]["attention"],
                             "threaded_vitl_ranks": [c["attention"] for c in tranks]}),
         dict(name="refine_window", route="cuda",
@@ -5534,6 +5738,7 @@ def main() -> int:
              partial_serve_launches=last_served["launches"]["refine_window"],
              lossless_euroc_cli_launches=coding_euroc["launches"]["refine_window"],
              arithmetic_serve_launches=coding_served["launches"]["refine_window"],
+             video_cli_launches=video_cli["launches"]["refine_window"],
              mesh_launches={"vitl_task_2_shards": mtask["launches"]["refine_window"],
                             "two_process_ranks": [c["refine_window"] for c in mranks],
                             "threaded_vitl_ranks": [c["refine_window"] for c in tranks]},
@@ -5554,6 +5759,7 @@ def main() -> int:
              partial_serve_launches=last_served["launches"]["edge_hg_rays"],
              lossless_euroc_cli_launches=coding_euroc["launches"]["edge_hg_rays"],
              arithmetic_serve_launches=coding_served["launches"]["edge_hg_rays"],
+             video_cli_launches=video_cli["launches"]["edge_hg_rays"],
              mesh_launches={"sharded_solve": {k: r["launches"] for k, r in msolve.items()},
                             "two_process_ranks": [c["edge_hg_rays"] for c in mranks],
                             "threaded_vitl_ranks": [c["edge_hg_rays"] for c in tranks],
@@ -5644,7 +5850,9 @@ def main() -> int:
                          "arithmetic_serve": coding_served, "card": smi},
         "host_reads": {k: v for k, v in host.items() if k != "tracking_gn"},
         "tracking_gn_program": host["tracking_gn"],
-        "global_gn_program": dict(program, buckets_met=met)}
+        "global_gn_program": dict(program, buckets_met=met),
+        "video_input": {"fixtures": video_fixtures, "cli": video_cli, "decode": video_decode,
+                        "card": smi}}
     log(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

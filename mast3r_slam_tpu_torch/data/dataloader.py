@@ -3,11 +3,12 @@
 
 The same calibration constants, undistortion and dataset-type sniffing as
 the JAX package, without cv2, PIL or PyYAML on the path of a recorded
-sequence: PNG and JPEG files are read by ``data/png.py``, the EuRoC
+sequence: PNG and JPEG files are read by ``data/png.py``, ``.mp4``,
+``.mov`` and ``.avi`` video (MPEG-4 Part 2) by ``data/video.py``, the EuRoC
 ``sensor.yaml`` by ``utils/yaml_subset.py``, and the undistortion (OpenCV's
 optimal new camera matrix and rectify map) is computed in numpy and applied
-by the host library.  Other image formats, MP4 video and the webcam need
-cv2 (``data/cv2_io.py``), RealSense needs pyrealsense2; each is imported where
+by the host library.  Other image formats and the webcam need cv2
+(``data/cv2_io.py``), RealSense needs pyrealsense2; each is imported where
 it is used and raises ``ImportError`` where it is missing.  Frames are
 handed to the engine as float arrays in [0, 1].
 """
@@ -373,7 +374,7 @@ def load_dataset(dataset_path: str, use_calib=False, center_pp=True):
         return RealsenseDataset(**kw)
     ext = parts[-1].split(".")[-1].lower()
     if ext in ("mp4", "avi", "mov"):
-        from .cv2_io import MP4Dataset
+        from .video import MP4Dataset
 
         return MP4Dataset(dataset_path)
     p = pathlib.Path(dataset_path)

@@ -1,0 +1,431 @@
+"""Video files without cv2: the containers and the dataset (port of
+``MP4Dataset``, ``mast3r_slam_tpu/data/dataloader.py:245-275``).
+
+The JAX package reads ``.mp4``, ``.mov`` and ``.avi`` through
+``cv2.VideoCapture`` (FFmpeg).  Here the container is walked in Python
+(``read_track``: ISO BMFF boxes or RIFF AVI chunks, into a table of
+sample offsets, sizes and sync flags) and each sample is decoded by the
+host library's MPEG-4 Part 2 decoder (``csrc/host/mpeg4.cpp`` through
+``utils/native.Mpeg4Decoder``), which gives the frame that
+``cv2.cvtColor(cap.read()[1], cv2.COLOR_BGR2RGB)`` gives with cv2 5.0.0.
+``len``, ``fps`` and the timestamps are the ones cv2 reports:
+``CAP_PROP_FRAME_COUNT`` is the container's frame count, ``CAP_PROP_FPS``
+the constant sample rate (timescale over the one ``stts`` delta, or AVI's
+``dwRate / dwScale``).  A read away from the next frame seeks as cv2
+does (``MP4Dataset._seek``).
+
+What is not ported raises ``NotImplementedError`` naming ROADMAP Queue 1
+item 17, and never falls back to cv2: video codecs other than MPEG-4
+Part 2 (H.264, HEVC, AV1, MJPEG, MS-MPEG4, FFV1, ...), sample durations
+that are not one constant run (FFmpeg guesses a rate from them), sample
+reordering (``ctts``), non-trivial edit lists, and the stream features
+the decoder refuses.  A damaged file raises ``ValueError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import mmap
+import os
+import pathlib
+import struct
+from typing import Optional
+
+import numpy as np
+
+from ..utils import native
+from .dataloader import MonocularDataset
+
+ROADMAP_ITEM = "ROADMAP Queue 1 item 17"
+# MPEG-4 Part 2 under the fourccs FFmpeg's AVI demuxer maps to it (upper-cased)
+AVI_MPEG4_FOURCCS = {b"XVID", b"DIVX", b"DX50", b"FMP4", b"MP4V"}
+MPEG4_VISUAL = 0x20  # esds objectTypeIndication of MPEG-4 Part 2 (ISO/IEC 14496-1)
+VOP_START = b"\x00\x00\x01\xb6"
+
+
+@dataclasses.dataclass
+class Track:
+    """A video track's samples as the container lists them."""
+
+    config: bytes  # the decoder configuration (VOS/VOL headers), empty if in-band
+    offsets: np.ndarray  # int64 byte offsets of the samples in the file
+    sizes: np.ndarray  # int64 byte sizes
+    sync: np.ndarray  # bool, a sample decodable without the ones before it
+    fps: float
+    frame_count: int
+
+
+def _unsupported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported ({ROADMAP_ITEM})")
+
+
+# --- ISO BMFF (.mp4, .mov) -------------------------------------------------
+
+
+def _boxes(data: bytes, start: int, end: int, path):
+    at = start
+    while at + 8 <= end:
+        size, kind = struct.unpack(">I4s", data[at:at + 8])
+        head = 8
+        if size == 1:
+            if at + 16 > end:
+                raise ValueError(f"{path}: box {kind!r} at byte {at} is cut short")
+            (size,) = struct.unpack(">Q", data[at + 8:at + 16])
+            head = 16
+        elif size == 0:
+            size = end - at
+        if size < head or at + size > end:
+            raise ValueError(f"{path}: box {kind!r} at byte {at} is cut short")
+        yield kind, at + head, at + size
+        at += size
+
+
+def _children(data, start, end, path) -> dict:
+    out = {}
+    for kind, a, b in _boxes(data, start, end, path):
+        out.setdefault(kind, []).append((a, b))
+    return out
+
+
+def _full_box(data, a, b, fmt, path, kind):
+    """The fields of a full box's body after its version and flags."""
+    n = struct.calcsize(fmt)
+    if a + 4 + n > b:
+        raise ValueError(f"{path}: {kind} box is cut short")
+    return data[a], struct.unpack(fmt, data[a + 4:a + 4 + n])
+
+
+def _table(data, a, b, count_at, row, path, kind) -> np.ndarray:
+    """A full box's table: a uint32 count at ``count_at`` then ``row``
+    big-endian uint32 (or uint64 for ``co64``) columns a row."""
+    (n,) = struct.unpack(">I", data[a + count_at:a + count_at + 4])
+    wide = kind == "co64"
+    item = 8 if wide else 4
+    first = a + count_at + 4
+    if first + n * row * item > b:
+        raise ValueError(f"{path}: {kind} box holds fewer than its {n} entries")
+    arr = np.frombuffer(data, dtype=">u8" if wide else ">u4", count=n * row, offset=first)
+    return arr.astype(np.int64).reshape(n, row)
+
+
+def _descriptor(data: bytes, at: int, end: int, path):
+    """One MPEG-4 descriptor (ISO/IEC 14496-1 8.3.3): (tag, body start, body end)."""
+    if at + 2 > end:
+        raise ValueError(f"{path}: esds descriptor is cut short")
+    tag = data[at]
+    at += 1
+    size = 0
+    for _ in range(4):
+        byte = data[at]
+        at += 1
+        size = (size << 7) | (byte & 0x7F)
+        if not byte & 0x80:
+            break
+    if at + size > end:
+        raise ValueError(f"{path}: esds descriptor {tag} is cut short")
+    return tag, at, at + size
+
+
+def _esds_config(data: bytes, a: int, b: int, path) -> bytes:
+    """The DecoderSpecificInfo of an ``esds`` box, checked to be MPEG-4 Part 2."""
+    tag, s, e = _descriptor(data, a + 4, b, path)
+    if tag != 3:
+        raise ValueError(f"{path}: esds holds descriptor {tag}, not an ES_Descriptor")
+    flags = data[s + 2]
+    s += 3
+    if flags & 0x80:  # streamDependenceFlag
+        s += 2
+    if flags & 0x40:  # URL_Flag
+        s += 1 + data[s]
+    if flags & 0x20:  # OCRstreamFlag
+        s += 2
+    tag, s, e = _descriptor(data, s, e, path)
+    if tag != 4:
+        raise ValueError(f"{path}: esds holds descriptor {tag}, not a DecoderConfigDescriptor")
+    if data[s] != MPEG4_VISUAL:
+        raise _unsupported(f"{path}: an mp4v track of objectTypeIndication 0x{data[s]:02x}")
+    at = s + 13
+    while at < e:
+        tag, ds, de = _descriptor(data, at, e, path)
+        if tag == 5:
+            return bytes(data[ds:de])
+        at = de
+    return b""
+
+
+def _mp4_track(data: bytes, trak, path) -> Optional[Track]:
+    """The track in ``trak`` if it is video, else None."""
+    a, b = trak
+    kids = _children(data, a, b, path)
+    mdia = _children(data, *kids[b"mdia"][0], path)
+    hdlr_a, _ = mdia[b"hdlr"][0]
+    if data[hdlr_a + 8:hdlr_a + 12] != b"vide":
+        return None
+    for ea, eb in kids.get(b"edts", []):
+        for ka, kb in _children(data, ea, eb, path).get(b"elst", []):
+            version, (n,) = _full_box(data, ka, kb, ">I", path, "elst")
+            fmt = ">Qq" if version == 1 else ">Ii"
+            step = struct.calcsize(fmt) + 4
+            edits = [struct.unpack(fmt, data[ka + 8 + i * step:ka + 8 + i * step + step - 4])
+                     for i in range(n)]
+            if len(edits) != 1 or edits[0][1] != 0:
+                raise _unsupported(f"{path}: an edit list other than one edit from time 0")
+    ma, mb = mdia[b"mdhd"][0]
+    version = data[ma]
+    timescale_at = ma + (20 if version == 1 else 12)
+    (timescale,) = struct.unpack(">I", data[timescale_at:timescale_at + 4])
+    stbl = _children(data, *_children(data, *mdia[b"minf"][0], path)[b"stbl"][0], path)
+    sa, sb = stbl[b"stsd"][0]
+    _, (n_entries,) = _full_box(data, sa, sb, ">I", path, "stsd")
+    entries = list(_boxes(data, sa + 8, sb, path))
+    if n_entries != 1 or len(entries) != 1:
+        raise _unsupported(f"{path}: a video track of {n_entries} sample descriptions")
+    fourcc, va, vb = entries[0]
+    if fourcc != b"mp4v":
+        raise _unsupported(f"{path}: video of sample entry {fourcc.decode(errors='replace')!r}")
+    config = b""
+    for kind, ka, kb in _boxes(data, va + 78, vb, path):
+        if kind == b"esds":
+            config = _esds_config(data, ka, kb, path)
+    if b"ctts" in stbl:
+        raise _unsupported(f"{path}: sample reordering (ctts)")
+    stts = _table(data, *stbl[b"stts"][0], 4, 2, path, "stts")
+    deltas = np.unique(stts[stts[:, 0] > 0, 1])
+    if len(deltas) != 1 or deltas[0] == 0 or timescale == 0:
+        raise _unsupported(f"{path}: sample durations {deltas.tolist()} that are not one "
+                           f"constant run (FFmpeg's frame-rate guess)")
+    sz_a, sz_b = stbl[b"stsz"][0]
+    _, (fixed, count) = _full_box(data, sz_a, sz_b, ">II", path, "stsz")
+    if fixed and fixed * count > len(data):
+        raise ValueError(f"{path}: stsz lists {count} samples of {fixed} bytes")
+    sizes = (np.full(count, fixed, np.int64) if fixed
+             else _table(data, sz_a, sz_b, 8, 1, path, "stsz")[:, 0])
+    if int(stts[:, 0].sum()) != count:
+        raise ValueError(f"{path}: stts counts {int(stts[:, 0].sum())} samples, stsz {count}")
+    co_kind = b"stco" if b"stco" in stbl else b"co64"
+    chunks = _table(data, *stbl[co_kind][0], 4, 1, path, co_kind.decode())[:, 0]
+    stsc = _table(data, *stbl[b"stsc"][0], 4, 3, path, "stsc")
+    per_chunk = np.zeros(len(chunks), np.int64)
+    for i, (first, n, _) in enumerate(stsc):
+        last = stsc[i + 1, 0] - 1 if i + 1 < len(stsc) else len(chunks)
+        if first < 1 or last > len(chunks):
+            raise ValueError(f"{path}: stsc names chunk {first} of {len(chunks)}")
+        per_chunk[first - 1:last] = n
+    if int(per_chunk.sum()) != count:
+        raise ValueError(f"{path}: stsc places {int(per_chunk.sum())} samples, stsz {count}")
+    chunk_of = np.repeat(np.arange(len(chunks)), per_chunk)
+    starts = np.cumsum(per_chunk) - per_chunk
+    ends = np.cumsum(sizes)
+    within = ends - sizes - (ends - sizes)[starts[chunk_of]]
+    offsets = chunks[chunk_of] + within
+    if b"stss" in stbl:
+        sync = np.zeros(count, bool)
+        idx = _table(data, *stbl[b"stss"][0], 4, 1, path, "stss")[:, 0] - 1
+        if np.any((idx < 0) | (idx >= count)):
+            raise ValueError(f"{path}: stss names a sample outside the track")
+        sync[idx] = True
+    else:
+        sync = np.ones(count, bool)
+    return Track(config, offsets, sizes, sync, timescale / int(deltas[0]), int(count))
+
+
+def _damaged(read):
+    """``read`` raising ValueError where a box or chunk it needs is missing
+    or cut short."""
+    def checked(data, path=None):
+        path = path or f"{read.__name__[5:].upper()} data"
+        try:
+            return read(data, path)
+        except (KeyError, IndexError, struct.error) as e:
+            raise ValueError(f"{path}: a damaged file ({type(e).__name__}: {e})") from e
+    checked.__name__, checked.__doc__ = read.__name__, read.__doc__
+    return checked
+
+
+@_damaged
+def read_mp4(data: bytes, path) -> Track:
+    """The first video track of an ISO BMFF file (``.mp4``, ``.mov``)."""
+    top = _children(data, 0, len(data), path)
+    if b"moov" not in top:
+        raise ValueError(f"{path}: no moov box")
+    for trak in _children(data, *top[b"moov"][0], path).get(b"trak", []):
+        track = _mp4_track(data, trak, path)
+        if track is not None:
+            return track
+    raise ValueError(f"{path}: no video track")
+
+
+# --- RIFF AVI ---------------------------------------------------------------
+
+
+def _riff(data: bytes, start: int, end: int, path):
+    at = start
+    while at + 8 <= end:
+        fourcc, size = struct.unpack("<4sI", data[at:at + 8])
+        if at + 8 + size > end:
+            raise ValueError(f"{path}: AVI chunk {fourcc!r} at byte {at} is cut short")
+        yield fourcc, at, at + 8 + size
+        at += 8 + size + (size & 1)
+
+
+@_damaged
+def read_avi(data: bytes, path) -> Track:
+    """The first video stream of a RIFF AVI file, through its ``idx1``."""
+    if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
+        raise ValueError(f"{path}: not a RIFF AVI file")
+    hdrl = movi = idx1 = None
+    for fourcc, a, b in _riff(data, 12, len(data), path):
+        if fourcc == b"LIST" and data[a + 8:a + 12] == b"hdrl":
+            hdrl = (a + 12, b)
+        elif fourcc == b"LIST" and data[a + 8:a + 12] == b"movi":
+            movi = (a + 8, b)  # idx1 offsets count from the list's "movi"
+        elif fourcc == b"idx1":
+            idx1 = (a + 8, b)
+    if hdrl is None or movi is None:
+        raise ValueError(f"{path}: an AVI file without hdrl or movi")
+    if idx1 is None:
+        raise _unsupported(f"{path}: an AVI file without idx1 (OpenDML or no index)")
+    stream = None
+    n_stream = -1
+    for fourcc, a, b in _riff(data, *hdrl, path):
+        if fourcc != b"LIST" or data[a + 8:a + 12] != b"strl":
+            continue
+        n_stream += 1
+        kids = {k: (x + 8, y) for k, x, y in _riff(data, a + 12, b, path)}
+        if b"strh" not in kids or data[kids[b"strh"][0]:kids[b"strh"][0] + 4] != b"vids":
+            continue
+        stream = n_stream, kids
+        break
+    if stream is None:
+        raise ValueError(f"{path}: no video stream")
+    n_stream, kids = stream
+    sa, _ = kids[b"strh"]
+    scale, rate = struct.unpack("<II", data[sa + 20:sa + 28])
+    (length,) = struct.unpack("<I", data[sa + 32:sa + 36])
+    fa, _ = kids[b"strf"]
+    compression = data[fa + 16:fa + 20]
+    if compression.upper() not in AVI_MPEG4_FOURCCS:
+        raise _unsupported(f"{path}: AVI video of fourcc "
+                           f"{compression.decode(errors='replace')!r}")
+    if scale == 0 or rate == 0:
+        raise ValueError(f"{path}: AVI stream rate {rate}/{scale}")
+    ia, ib = idx1
+    rows = np.frombuffer(data, dtype="<u4", count=(ib - ia) // 16 * 4, offset=ia).reshape(-1, 4)
+    ids = rows[:, 0].astype("<u4").tobytes()
+    tags = [ids[4 * i:4 * i + 4] for i in range(len(rows))]
+    want = f"{n_stream:02d}".encode()
+    keep = np.array([t[:2] == want and t[2:] in (b"dc", b"db") for t in tags], bool)
+    rows = rows[keep].astype(np.int64)
+    if len(rows) and data[movi[0] + rows[0, 2]:movi[0] + rows[0, 2] + 2] != want:
+        base = 0  # absolute offsets
+    else:
+        base = movi[0]
+    offsets = base + rows[:, 2] + 8
+    sizes = rows[:, 3]
+    if np.any(offsets + sizes > len(data)):
+        raise ValueError(f"{path}: idx1 names a chunk past the end of the file")
+    if len(rows) != length:
+        raise _unsupported(f"{path}: an AVI stream of {length} frames indexed as {len(rows)}")
+    return Track(b"", offsets, sizes, (rows[:, 1] & 0x10) != 0, rate / scale, int(length))
+
+
+def read_track(path) -> tuple:
+    """(the file, memory-mapped, and its video ``Track``); the container by
+    its first bytes.  A long video is paged in as its samples are read."""
+    with open(path, "rb") as f:
+        if os.fstat(f.fileno()).st_size == 0:
+            raise ValueError(f"{path}: an empty file")
+        data = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+    if data[:4] == b"RIFF":
+        return data, read_avi(data, path)
+    return data, read_mp4(data, path)
+
+
+
+class MP4Dataset(MonocularDataset):
+    """Video ingest (``.mp4``, ``.mov``, ``.avi``) through the host library's
+    MPEG-4 Part 2 decoder, frame for frame as cv2 5.0.0 reads it.
+
+    A read at the next frame takes the next frame libavcodec outputs (a
+    not-coded VOP outputs none, so cv2's frames then run ahead of the
+    samples).  A read elsewhere seeks as ``cv2.VideoCapture.set(
+    CAP_PROP_POS_FRAMES, t)`` does (``CvCapture_FFMPEG::seek``): it restarts
+    at the sync sample at or before frame ``t - 16`` (further back while the
+    first frame output lies past ``t - 1``), takes the first frame output
+    as the frame its timestamp names, and counts each later output as one
+    frame on."""
+
+    def __init__(self, dataset_path, stride: int = 1):
+        super().__init__()
+        self.dataset_path = pathlib.Path(dataset_path)
+        self._data, self.track = read_track(self.dataset_path)
+        config = self.track.config
+        if not config and len(self.track.sizes):  # AVI: the headers open the first sample
+            first = self._sample(0)
+            config = first[:first.find(VOP_START)] if VOP_START in first else b""
+        self._decoder = native.Mpeg4Decoder(config)
+        if self._decoder.size() is None:
+            raise ValueError(f"{self.dataset_path}: no MPEG-4 VOL header before the first VOP")
+        self._cursor = 0  # the next sample to decode
+        self.fps = self.track.fps
+        self.total_frames = self.track.frame_count
+        self.stride = stride
+        self._next_decode = 0
+        self.timestamps = [str(i * stride / self.fps) for i in range(len(self))]
+
+    def __len__(self):
+        return self.total_frames // self.stride
+
+    def subsample(self, stride: int):
+        self.stride *= stride
+        self.timestamps = [str(i * self.stride / self.fps) for i in range(len(self))]
+
+    def _sample(self, i: int) -> bytes:
+        a = int(self.track.offsets[i])
+        return self._data[a:a + int(self.track.sizes[i])]
+
+    def _advance(self) -> Optional[int]:
+        """Decode up to the next frame output; its sample, or None at the end."""
+        while self._cursor < len(self.track.sizes):
+            i = self._cursor
+            self._cursor += 1
+            if self._decoder.decode(self._sample(i)):
+                return i
+        return None
+
+    def _restart(self, frame: int) -> None:
+        """Position at the sync sample at or before ``frame``, decoder flushed."""
+        sync = np.flatnonzero(self.track.sync[:frame + 1])
+        self._cursor = int(sync[-1]) if len(sync) else 0
+        self._decoder.reset()
+
+    def _seek(self, t: int) -> None:
+        t = min(t, self.total_frames)
+        delta = 16
+        while True:
+            temp = max(t - delta, 0)
+            self._restart(temp)
+            if t == 0:
+                return
+            first = self._advance()
+            if t == 1:
+                return
+            if first is None or first > t - 1:
+                if temp == 0:
+                    return
+                delta = delta * 2 if delta < 16 else delta * 3 // 2
+                continue
+            for _ in range(t - 1 - first):
+                if self._advance() is None:
+                    break
+            return
+
+    def read_img(self, idx):
+        target = idx * self.stride
+        if target != self._next_decode:
+            self._seek(target)
+        shown = self._advance()
+        self._next_decode = target + 1
+        if shown is None:
+            raise ValueError(f"failed to decode frame {target}")
+        return self._decoder.rgb()

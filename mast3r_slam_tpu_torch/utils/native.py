@@ -1,8 +1,9 @@
 """The port's host library: frame resize, undistortion remap and PNG row
-filters (port of ``mast3r_slam_tpu/utils/native.py``) and the JPEG decoder
-of the image readers and the session server, in C++.
+filters (port of ``mast3r_slam_tpu/utils/native.py``), the JPEG decoder
+of the image readers and the session server, and the MPEG-4 Part 2
+decoder of the video reader, in C++.
 
-``csrc/host/preprocess.cpp`` and ``csrc/host/jpeg.cpp`` are compiled with
+``csrc/host/preprocess.cpp``, ``jpeg.cpp`` and ``mpeg4.cpp`` are compiled with
 the host C++ compiler (``$CXX``, else ``g++``) at first use into one
 library in ``build/host/`` at the repository root, named by a hash of the
 sources, the flags and the host
@@ -32,7 +33,8 @@ import numpy as np
 from .image import resize_geometry
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
-SOURCES = [_PKG_DIR / "csrc" / "host" / name for name in ("preprocess.cpp", "jpeg.cpp")]
+SOURCES = [_PKG_DIR / "csrc" / "host" / name
+           for name in ("preprocess.cpp", "jpeg.cpp", "mpeg4.cpp")]
 BUILD_DIR = _PKG_DIR.parent / "build" / "host"
 CXX_FLAGS = ["-O3", "-march=native", "-ffast-math", "-funroll-loops", "-std=c++17",
              "-fPIC", "-Wall"]
@@ -48,6 +50,12 @@ _ARGTYPES = {
     "png_unfilter": [_U8P, _I, _I, _I, _U8P],
     "jpeg_info": [_U8P, ctypes.c_int64, _I32P, ctypes.c_char_p, _I],
     "jpeg_decode": [_U8P, ctypes.c_int64, _I, _I, _I, _U8P, ctypes.c_char_p, _I],
+    "mpeg4_open": [_U8P, ctypes.c_int64, ctypes.POINTER(ctypes.c_void_p), ctypes.c_char_p, _I],
+    "mpeg4_size": [ctypes.c_void_p, _I32P],
+    "mpeg4_decode": [ctypes.c_void_p, _U8P, ctypes.c_int64, _I32P, ctypes.c_char_p, _I],
+    "mpeg4_rgb": [ctypes.c_void_p, _U8P],
+    "mpeg4_reset": [ctypes.c_void_p],
+    "mpeg4_close": [ctypes.c_void_p],
 }
 
 _lib = None
@@ -240,3 +248,72 @@ def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
         img = img.swapaxes(0, 1)
     flips = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}.get(orientation, ())
     return np.ascontiguousarray(np.flip(img, flips) if flips else img)
+
+
+def _mpeg4_error(rc: int, err) -> Exception:
+    msg = err.value.decode(errors="replace")
+    if rc == 2:
+        return NotImplementedError(msg)
+    if rc == 1:
+        return ValueError(f"corrupt MPEG-4 video: {msg}")
+    return MemoryError(msg)
+
+
+class Mpeg4Decoder:
+    """An MPEG-4 Part 2 decoder (``csrc/host/mpeg4.cpp``) over one stream's
+    samples, in decode order.  ``config`` is the stream's VOS/VOL headers
+    (the ``esds`` DecoderSpecificInfo, or the headers that open an AVI
+    stream's first sample).  ``decode`` feeds a sample and says whether
+    libavcodec outputs a frame for it (not for a not-coded VOP); ``rgb``
+    gives the last frame output as (H, W, 3) uint8 RGB, exactly what
+    ``cv2.cvtColor(cv2.VideoCapture(...).read()[1], cv2.COLOR_BGR2RGB)``
+    gives for it with cv2 5.0.0.  Streams the decoder does not take raise
+    ``NotImplementedError``, corrupt ones ``ValueError``.  One decoder
+    serves one thread at a time."""
+
+    def __init__(self, config: bytes = b""):
+        self._lib = load()
+        self._state = None
+        state = ctypes.c_void_p()
+        src = np.frombuffer(config, dtype=np.uint8)
+        err = ctypes.create_string_buffer(256)
+        rc = self._lib.mpeg4_open(_ptr(src, _U8P), src.size, ctypes.byref(state), err,
+                                  len(err))
+        if rc != 0:
+            raise _mpeg4_error(rc, err)
+        self._state = state
+
+    def size(self):
+        """(width, height) once a VOL has been read, else None."""
+        wh = (ctypes.c_int * 2)()
+        self._lib.mpeg4_size(self._state, wh)
+        return (wh[0], wh[1]) if wh[0] else None
+
+    def decode(self, sample: bytes) -> bool:
+        src = np.frombuffer(sample, dtype=np.uint8)
+        err = ctypes.create_string_buffer(256)
+        shown = ctypes.c_int()
+        rc = self._lib.mpeg4_decode(self._state, _ptr(src, _U8P), src.size,
+                                    ctypes.byref(shown), err, len(err))
+        if rc != 0:
+            raise _mpeg4_error(rc, err)
+        return bool(shown.value)
+
+    def rgb(self) -> np.ndarray:
+        width, height = self.size()
+        out = np.empty((height, width, 3), dtype=np.uint8)
+        if self._lib.mpeg4_rgb(self._state, _ptr(out, _U8P)) != 0:
+            raise ValueError("no MPEG-4 frame decoded yet")
+        return out
+
+    def reset(self):
+        """Forget the reference frame (before decoding from a sync sample)."""
+        self._lib.mpeg4_reset(self._state)
+
+    def close(self):
+        state, self._state = self._state, None
+        if state:
+            self._lib.mpeg4_close(state)
+
+    def __del__(self):
+        self.close()
