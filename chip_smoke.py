@@ -251,6 +251,16 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      the same keyframe PNGs and 12b's launch counts; (c) a 480x640 frame's
      decode timed over the clip (host clock, median) beside the decode of
      the committed baseline JPEG of its first frame, in the same run.
+  20. H.264 input on the card's host (the CAVLC decoder of
+     csrc/host/h264.cpp): (a) every committed H.264 fixture (random syntax
+     in .avi, in 3 slices with 4 references in .mov, full range BT.709,
+     one turned 90 degrees by its track's display matrix) and a turned
+     mp4v file, read as 19a reads them, against cv2's digests
+     (tests/data/h264_fixtures.json); (b) 19b over the committed 480x640
+     H.264 clip of smooth panning frames, its PNG control's frames held to
+     cv2's digests; (c) a 480x640 H.264 frame's decode (IDR and P pictures
+     apart) and a 1920x1080 one's, beside 19c's mp4v frame and JPEG, in the
+     same call.
 
 Phase 2 also holds the two gather probes' kernels (gather_rows_sum,
 take_along_rows, the latter at every slab width of SLAB_SWEEP, timed in
@@ -5295,14 +5305,14 @@ def video_reads(ds, order):
     return out
 
 
-def check_video_fixtures():
-    """19a: every committed video fixture through the port's MP4Dataset:
-    its sequential reads, its seeks in the committed order, its reads after
-    subsample(4), the frame count and the fps against cv2's
-    (tests/data/video_fixtures.json)."""
+def check_video_fixtures(digest_file="video_fixtures.json", tag="19a"):
+    """19a (20a): every committed video fixture through the port's
+    MP4Dataset: its sequential reads, its seeks in the committed order, its
+    reads after subsample(4), the frame count and the fps against cv2's
+    (tests/data/video_fixtures.json, h264_fixtures.json)."""
     from mast3r_slam_tpu_torch.data import video
 
-    digests = json.loads((IMAGE_DATA / "video_fixtures.json").read_text())
+    digests = json.loads((IMAGE_DATA / digest_file).read_text())
     bad, frames = [], 0
     for name, want in sorted(digests.items()):
         path = IMAGE_DATA / name
@@ -5319,26 +5329,27 @@ def check_video_fixtures():
         if got != want:
             bad.append(name)
     out = dict(files=len(digests), reads=frames, exact=len(digests) - len(bad), differ=bad)
-    log(f"19a video fixtures: {json.dumps(out)}")
+    log(f"{tag} video fixtures: {json.dumps(out)}")
     if bad:
-        raise AssertionError(f"19a: the port's video reads differ from cv2's on {bad}")
+        raise AssertionError(f"{tag}: the port's video reads differ from cv2's on {bad}")
     return out
 
 
-def run_cli_video(dev, work, preset="vit_large", img_size=512):
-    """19b: ViT-L through the CLI (random weights, seed 0, 9b's pinned
-    decisions, every frame: subsample 1) over the committed 480x640 mp4v
-    clip, then over the control, a folder of 8-bit RGB PNGs of the port's
-    decode of its frames (the folder loader's timestamps, i / 30, are the
-    clip's at 30 fps); launch counters reset just before each run and read
-    just after.  The trajectories and the keyframe PNGs must hold the same
-    bits."""
+def run_cli_video(dev, work, preset="vit_large", img_size=512, clip_name=VIDEO_CLIP, tag="19b",
+                  save="video"):
+    """19b (20b): ViT-L through the CLI (random weights, seed 0, 9b's pinned
+    decisions, every frame: subsample 1) over a committed 480x640 clip
+    (mp4v; H.264), then over the control, a folder of 8-bit RGB PNGs of the
+    port's decode of its frames, which 19a (20a) holds to cv2's (the folder
+    loader's timestamps, i / 30, are the clip's at 30 fps); launch counters
+    reset just before each run and read just after.  The trajectories and
+    the keyframe PNGs must hold the same bits."""
     from mast3r_slam_tpu_torch.data import dataloader, png, video
     from mast3r_slam_tpu_torch.slam import run
 
-    clip = VIDEO_DATA / VIDEO_CLIP
+    clip = VIDEO_DATA / clip_name
     ds = video.MP4Dataset(clip)
-    control = work / "video_png"
+    control = work / f"{save}_png"
     shutil.rmtree(control, ignore_errors=True)
     for i in range(len(ds)):
         png.write_png(control / f"{i:03d}.png", ds.read_img(i))
@@ -5358,18 +5369,18 @@ def run_cli_video(dev, work, preset="vit_large", img_size=512):
 
     with swapped(run, "build_slam", keep), \
             swapped(dataloader.MonocularDataset, "img_size", img_size):
-        res, counts, wall = run_cli(["--dataset", str(clip), "--save-as", "video"] + argv)
+        res, counts, wall = run_cli(["--dataset", str(clip), "--save-as", save] + argv)
         st = built[-1].timer.stats()
         del built[:]
-        res2, counts2, wall2 = run_cli(["--dataset", str(control), "--save-as", "video_png"]
+        res2, counts2, wall2 = run_cli(["--dataset", str(control), "--save-as", f"{save}_png"]
                                        + argv)
         st2 = built[-1].timer.stats()
         del built[:]
     same_bits = (np.array_equal(res.frame_poses, res2.frame_poses)
                  and np.array_equal(res.keyframe_poses, res2.keyframe_poses)
                  and res.keyframe_timestamps == res2.keyframe_timestamps)
-    kf = sorted((pathlib.Path("logs/video/keyframes") / clip.stem).iterdir())
-    kf2 = sorted((pathlib.Path("logs/video_png/keyframes") / control.name).iterdir())
+    kf = sorted((pathlib.Path(f"logs/{save}/keyframes") / clip.stem).iterdir())
+    kf2 = sorted((pathlib.Path(f"logs/{save}_png/keyframes") / control.name).iterdir())
     same_keyframes = ([p.name for p in kf] == [p.name for p in kf2]
                       and all(a.read_bytes() == b.read_bytes() for a, b in zip(kf, kf2)))
     out = dict(frames=len(res.frame_timestamps), clip_frames=len(ds), loaders=loaders,
@@ -5380,9 +5391,29 @@ def run_cli_video(dev, work, preset="vit_large", img_size=512):
                launches=counts, control_launches=counts2, same_bits=bool(same_bits),
                same_keyframe_pngs=bool(same_keyframes),
                ingest_ms_p50=st["ingest"]["p50_ms"], control_ingest_ms_p50=st2["ingest"]["p50_ms"])
-    log(f"19b CLI ({preset}, {len(ds)} frames of the 480x640 mp4v clip, decisions pinned open) "
+    log(f"{tag} CLI ({preset}, {len(ds)} frames of {clip_name}, decisions pinned open) "
         f"{img_size}: {json.dumps(out)}")
     return out
+
+
+def check_cli_video(cli, what, tag):
+    """19b (20b)'s launches against the frames and tasks, and the bits
+    against the PNG control's; raises on any fault."""
+    vc = cli["launches"]
+    want = {"attention": 72 * cli["frames"] + 48 * cli["n_tasks"],
+            "refine_window": cli["n_tracked"] + cli["n_tasks"]}
+    if ({k: vc[k] for k in want} != want or cli["n_tasks"] < 1
+            or vc["edge_hg_rays"] < cli["n_tasks"] or cli["control_launches"] != vc
+            or not cli["same_bits"] or not cli["same_keyframe_pngs"]
+            or cli["frames"] != cli["clip_frames"]
+            or cli["loaders"] != ["MP4Dataset", "RGBFiles"]):
+        raise AssertionError(
+            f"{tag} CLI over {what}: launches {vc} (expected {want}: 72 attention a "
+            f"frame and 48 a backend task, one refine a tracked frame and a task; edge_hg_rays "
+            f">= {cli['n_tasks']} tasks >= 1), PNG control {cli['control_launches']}, "
+            f"same trajectory bits {cli['same_bits']}, same keyframe PNGs "
+            f"{cli['same_keyframe_pngs']}, {cli['frames']} of {cli['clip_frames']} frames, "
+            f"loaders {cli['loaders']}")
 
 
 def time_video_decode():
@@ -5430,27 +5461,93 @@ def run_video_input(dev, work, smi):
         cli = run_cli_video(dev, work)
     finally:
         os.chdir(cwd)
-    vc = cli["launches"]
-    want = {"attention": 72 * cli["frames"] + 48 * cli["n_tasks"],
-            "refine_window": cli["n_tracked"] + cli["n_tasks"]}
-    if ({k: vc[k] for k in want} != want or cli["n_tasks"] < 1
-            or vc["edge_hg_rays"] < cli["n_tasks"] or cli["control_launches"] != vc
-            or not cli["same_bits"] or not cli["same_keyframe_pngs"]
-            or cli["frames"] != cli["clip_frames"]
-            or cli["loaders"] != ["MP4Dataset", "RGBFiles"]):
-        raise AssertionError(
-            f"19b CLI over the mp4v clip: launches {vc} (expected {want}: 72 attention a "
-            f"frame and 48 a backend task, one refine a tracked frame and a task; edge_hg_rays "
-            f">= {cli['n_tasks']} tasks >= 1), PNG control {cli['control_launches']}, "
-            f"same trajectory bits {cli['same_bits']}, same keyframe PNGs "
-            f"{cli['same_keyframe_pngs']}, {cli['frames']} of {cli['clip_frames']} frames, "
-            f"loaders {cli['loaders']}")
+    check_cli_video(cli, "the mp4v clip", "19b")
     decode = time_video_decode()
     log(f"19 video input: a 480x640 mp4v frame decodes in {decode['frame_ms']:.3f} ms (I-VOP "
         f"{decode['i_vop_ms']:.3f}, P-VOP {decode['p_vop_ms']:.3f}) against "
         f"{decode['jpeg_ms']:.3f} ms for the baseline JPEG of its first frame (host clock); "
         f"the CLI's ingest p50 {cli['ingest_ms_p50']:.2f} ms over the clip, "
         f"{cli['control_ingest_ms_p50']:.2f} ms over its PNG control; phase 19 "
+        f"{time.perf_counter() - t0:.1f} s; {smi}")
+    return fixtures, cli, decode
+
+
+# ---------------------------------------------------------------------------
+# phase 20: H.264 video input on the card's host
+# ---------------------------------------------------------------------------
+
+H264_CLIP = "h264_480x640_smooth.mp4"
+H264_BIG = "h264_1080x1920_smooth.mp4"
+
+
+def _h264_decode_ms(name, passes):
+    """Host milliseconds of each sample's decode and conversion to RGB,
+    IDR and P pictures apart, over ``passes`` decodes of the whole file."""
+    from mast3r_slam_tpu_torch.data import video
+    from mast3r_slam_tpu_torch.utils import native
+
+    data, track = video.read_track(VIDEO_DATA / name)
+    samples = [data[int(a):int(a) + int(n)] for a, n in zip(track.offsets, track.sizes)]
+    ms = {"idr": [], "p": []}
+    for _ in range(passes):
+        dec = native.H264Decoder(track.config, track.length_size)
+        for i, sample in enumerate(samples):
+            t0 = time.perf_counter()
+            if dec.decode(sample, i) is None:
+                raise AssertionError(f"20c: {name} sample {i} output no picture")
+            dec.rgb()
+            ms["idr" if track.sync[i] else "p"].append((time.perf_counter() - t0) * 1e3)
+        dec.close()
+    return dict(frame_ms=statistics.median(ms["idr"] + ms["p"]),
+                idr_ms=statistics.median(ms["idr"]), p_ms=statistics.median(ms["p"]),
+                frames=len(samples), idr_pictures=int(track.sync.sum()), passes=passes,
+                file_bytes=len(data))
+
+
+def time_h264_decode():
+    """20c: host milliseconds of a 480x640 H.264 frame's decode (the sample
+    through the H.264 decoder and its conversion to RGB), median over
+    VIDEO_DECODE_PASSES decodes of every frame of the clip, IDR and P
+    pictures apart; in the same call 19c's mp4v frame and baseline JPEG,
+    and a 1920x1080 H.264 frame (an IDR and two P pictures)."""
+    out = dict(h264_480x640=_h264_decode_ms(H264_CLIP, VIDEO_DECODE_PASSES),
+               h264_1080x1920=_h264_decode_ms(H264_BIG, VIDEO_DECODE_PASSES),
+               mp4v_and_jpeg_480x640=time_video_decode())
+    log(f"20c decode (host clock): {json.dumps(out)}")
+    return out
+
+
+def run_h264_input(dev, work, smi):
+    """Phase 20 (a)-(c), each checked; raises on any fault."""
+    t0 = time.perf_counter()
+    fixtures = check_video_fixtures("h264_fixtures.json", "20a")
+    digests = json.loads((IMAGE_DATA / "h264_fixtures.json").read_text())
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        cli = run_cli_video(dev, work, clip_name=H264_CLIP, tag="20b", save="h264")
+    finally:
+        os.chdir(cwd)
+    import hashlib
+
+    from mast3r_slam_tpu_torch.data import png
+
+    control = sorted((work / "h264_png").iterdir())
+    cli["control_is_cv2s"] = ([hashlib.sha256(png.read_png(p).tobytes()).hexdigest()
+                               for p in control]
+                              == digests[f"video_fixtures/{H264_CLIP}"]["frames"])
+    if not cli["control_is_cv2s"]:
+        raise AssertionError("20b: the PNG control's frames are not cv2's by the digests")
+    check_cli_video(cli, "the H.264 clip", "20b")
+    decode = time_h264_decode()
+    small, big = decode["h264_480x640"], decode["h264_1080x1920"]
+    old = decode["mp4v_and_jpeg_480x640"]
+    log(f"20 H.264 input: a 480x640 H.264 frame decodes in {small['frame_ms']:.3f} ms (IDR "
+        f"{small['idr_ms']:.3f}, P {small['p_ms']:.3f}), an mp4v one in {old['frame_ms']:.3f} "
+        f"ms, the baseline JPEG in {old['jpeg_ms']:.3f} ms; 1920x1080 H.264 "
+        f"{big['frame_ms']:.3f} ms (IDR {big['idr_ms']:.3f}, P {big['p_ms']:.3f}) (host "
+        f"clock); the CLI's ingest p50 {cli['ingest_ms_p50']:.2f} ms over the clip, "
+        f"{cli['control_ingest_ms_p50']:.2f} ms over its PNG control; phase 20 "
         f"{time.perf_counter() - t0:.1f} s; {smi}")
     return fixtures, cli, decode
 
@@ -5703,6 +5800,10 @@ def main() -> int:
     # CLI over an mp4v clip against its PNG control, the decode timed; in
     # the same scratch directory
     video_fixtures, video_cli, video_decode = run_video_input(dev, work, smi)
+    # H.264 input without cv2: the fixtures (a rotated one among them)
+    # against cv2's digests, the ViT-L CLI over an H.264 clip against its
+    # PNG control, the decode timed beside mp4v and JPEG; same directory
+    h264_fixtures, h264_cli, h264_decode = run_h264_input(dev, work, smi)
 
     common = lambda r: {k: r[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms",
@@ -5720,6 +5821,7 @@ def main() -> int:
              lossless_euroc_cli_launches=coding_euroc["launches"]["attention"],
              arithmetic_serve_launches=coding_served["launches"]["attention"],
              video_cli_launches=video_cli["launches"]["attention"],
+             h264_cli_launches=h264_cli["launches"]["attention"],
              mesh_launches={"vitl_task_2_shards": mtask["launches"]["attention"],
                             "threaded_vitl_ranks": [c["attention"] for c in tranks]}),
         dict(name="refine_window", route="cuda",
@@ -5739,6 +5841,7 @@ def main() -> int:
              lossless_euroc_cli_launches=coding_euroc["launches"]["refine_window"],
              arithmetic_serve_launches=coding_served["launches"]["refine_window"],
              video_cli_launches=video_cli["launches"]["refine_window"],
+             h264_cli_launches=h264_cli["launches"]["refine_window"],
              mesh_launches={"vitl_task_2_shards": mtask["launches"]["refine_window"],
                             "two_process_ranks": [c["refine_window"] for c in mranks],
                             "threaded_vitl_ranks": [c["refine_window"] for c in tranks]},
@@ -5760,6 +5863,7 @@ def main() -> int:
              lossless_euroc_cli_launches=coding_euroc["launches"]["edge_hg_rays"],
              arithmetic_serve_launches=coding_served["launches"]["edge_hg_rays"],
              video_cli_launches=video_cli["launches"]["edge_hg_rays"],
+             h264_cli_launches=h264_cli["launches"]["edge_hg_rays"],
              mesh_launches={"sharded_solve": {k: r["launches"] for k, r in msolve.items()},
                             "two_process_ranks": [c["edge_hg_rays"] for c in mranks],
                             "threaded_vitl_ranks": [c["edge_hg_rays"] for c in tranks],
@@ -5852,7 +5956,9 @@ def main() -> int:
         "tracking_gn_program": host["tracking_gn"],
         "global_gn_program": dict(program, buckets_met=met),
         "video_input": {"fixtures": video_fixtures, "cli": video_cli, "decode": video_decode,
-                        "card": smi}}
+                        "card": smi},
+        "h264_input": {"fixtures": h264_fixtures, "cli": h264_cli, "decode": h264_decode,
+                       "card": smi}}
     log(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -37,7 +37,11 @@
 #include <new>
 #include <vector>
 
+#include "yuv420.h"
+
 namespace {
+
+using host::clip_u8;
 
 enum { OK = 0, CORRUPT = 1, UNSUPPORTED = 2, NOMEM = 3 };
 
@@ -259,8 +263,6 @@ int mid_pred(int a, int b, int c) {
 }
 
 int rounded_div(int a, int b) { return (a >= 0 ? a + (b >> 1) : a - (b >> 1)) / b; }
-
-uint8_t clip_u8(int v) { return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v); }
 
 // ---- the simple IDCT as libavcodec runs it on x86-64 --------------------------
 //
@@ -989,23 +991,11 @@ struct Decoder {
         have_ref = true;
     }
 
-    // libswscale's yuv420p -> BGR24 (the SIMD path cv2 runs on x86-64;
-    // BT.601, limited range), written as RGB
+    // the reference frame as RGB (yuv420.h; limited range)
     void to_rgb(uint8_t* out) const {
         const Plane &Y = ref.p[0], &U = ref.p[1], &V = ref.p[2];
-        for (int y = 0; y < height; y++) {
-            const uint8_t* yr = Y.px.data() + size_t(y) * Y.w;
-            const uint8_t* ur = U.px.data() + size_t(y >> 1) * U.w;
-            const uint8_t* vr = V.px.data() + size_t(y >> 1) * V.w;
-            uint8_t* o = out + size_t(y) * width * 3;
-            for (int x = 0; x < width; x++) {
-                int yy = (((int(yr[x]) << 3) - 128) * 9539) >> 16;
-                int u = (int(ur[x >> 1]) << 3) - 1024, v = (int(vr[x >> 1]) << 3) - 1024;
-                o[3 * x + 0] = clip_u8(yy + ((v * 13075) >> 16));
-                o[3 * x + 1] = clip_u8(yy + ((u * -3209) >> 16) + ((v * -6660) >> 16));
-                o[3 * x + 2] = clip_u8(yy + ((u * 16525) >> 16));
-            }
-        }
+        host::yuv420_to_rgb(Y.px.data(), Y.w, U.px.data(), V.px.data(), U.w, width, height,
+                            host::yuv_coeffs(2, false), out);
     }
 };
 

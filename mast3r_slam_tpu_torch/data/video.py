@@ -5,9 +5,11 @@ The JAX package reads ``.mp4``, ``.mov`` and ``.avi`` through
 ``cv2.VideoCapture`` (FFmpeg).  Here the container is walked in Python
 (``read_track``: ISO BMFF boxes or RIFF AVI chunks, into a table of
 sample offsets, sizes and sync flags) and each sample is decoded by the
-host library's MPEG-4 Part 2 decoder (``csrc/host/mpeg4.cpp`` through
-``utils/native.Mpeg4Decoder``), which gives the frame that
-``cv2.cvtColor(cap.read()[1], cv2.COLOR_BGR2RGB)`` gives with cv2 5.0.0.
+host library's MPEG-4 Part 2 or H.264 decoder (``csrc/host/mpeg4.cpp``,
+``h264.cpp`` through ``utils/native.Mpeg4Decoder``, ``H264Decoder``),
+which gives the frame that ``cv2.cvtColor(cap.read()[1],
+cv2.COLOR_BGR2RGB)`` gives with cv2 5.0.0; the frame is then turned by
+the track's display matrix as cv2 turns it (``Track.rotation``).
 ``len``, ``fps`` and the timestamps are the ones cv2 reports:
 ``CAP_PROP_FRAME_COUNT`` is the container's frame count, ``CAP_PROP_FPS``
 the constant sample rate (timescale over the one ``stts`` delta, or AVI's
@@ -16,15 +18,17 @@ does (``MP4Dataset._seek``).
 
 What is not ported raises ``NotImplementedError`` naming ROADMAP Queue 1
 item 17, and never falls back to cv2: video codecs other than MPEG-4
-Part 2 (H.264, HEVC, AV1, MJPEG, MS-MPEG4, FFV1, ...), sample durations
-that are not one constant run (FFmpeg guesses a rate from them), sample
-reordering (``ctts``), non-trivial edit lists, and the stream features
-the decoder refuses.  A damaged file raises ``ValueError``.
+Part 2 and H.264 (HEVC, AV1, MJPEG, MS-MPEG4, FFV1, ...), sample
+durations that are not one constant run (FFmpeg guesses a rate from
+them), sample reordering (``ctts``), non-trivial edit lists, H.264 sync
+samples that are not IDR pictures, and the stream features the decoders
+refuse.  A damaged file raises ``ValueError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import mmap
 import os
 import pathlib
@@ -37,8 +41,12 @@ from ..utils import native
 from .dataloader import MonocularDataset
 
 ROADMAP_ITEM = "ROADMAP Queue 1 item 17"
-# MPEG-4 Part 2 under the fourccs FFmpeg's AVI demuxer maps to it (upper-cased)
+# MPEG-4 Part 2 and H.264 under the fourccs FFmpeg's AVI demuxer maps to them
+# (riff.c ff_codec_bmp_tags, matched upper-cased)
 AVI_MPEG4_FOURCCS = {b"XVID", b"DIVX", b"DX50", b"FMP4", b"MP4V"}
+AVI_H264_FOURCCS = {b"H264", b"X264", b"AVC1", b"DAVC", b"SMV2", b"VSSH", b"Q264", b"V264",
+                    b"GAVC", b"UMSV", b"TSHD", b"INMC"}
+H264_ENTRIES = {b"avc1", b"avc3"}  # ISO BMFF sample entries of H.264 read here
 MPEG4_VISUAL = 0x20  # esds objectTypeIndication of MPEG-4 Part 2 (ISO/IEC 14496-1)
 VOP_START = b"\x00\x00\x01\xb6"
 
@@ -47,12 +55,16 @@ VOP_START = b"\x00\x00\x01\xb6"
 class Track:
     """A video track's samples as the container lists them."""
 
-    config: bytes  # the decoder configuration (VOS/VOL headers), empty if in-band
+    config: bytes  # the decoder configuration, empty if in-band: MPEG-4's VOS/VOL
+    # headers, or H.264's parameter sets as Annex B NAL units
     offsets: np.ndarray  # int64 byte offsets of the samples in the file
     sizes: np.ndarray  # int64 byte sizes
     sync: np.ndarray  # bool, a sample decodable without the ones before it
     fps: float
     frame_count: int
+    codec: str = "mpeg4"  # or "h264"
+    length_size: int = 0  # H.264: bytes of a NAL unit's length (avcC), 0 for Annex B
+    rotation: int = 0  # degrees cv2 turns each frame clockwise: 0, 90, 180, 270
 
 
 def _unsupported(what: str) -> NotImplementedError:
@@ -153,7 +165,59 @@ def _esds_config(data: bytes, a: int, b: int, path) -> bytes:
     return b""
 
 
-def _mp4_track(data: bytes, trak, path) -> Optional[Track]:
+def _avcc_config(data: bytes, a: int, b: int, path) -> tuple:
+    """(the parameter sets as Annex B NAL units, the NAL unit length size)
+    of an ``avcC`` box (ISO/IEC 14496-15 5.3.3.1)."""
+    if b - a < 7 or data[a] != 1:
+        raise ValueError(f"{path}: an avcC box of version {data[a] if b > a else None}")
+    length_size = (data[a + 4] & 3) + 1
+    if length_size == 3:
+        raise ValueError(f"{path}: an avcC NAL unit length of 3 bytes")
+    units, at = [], a + 5
+    for counted in (0x1F, 0xFF):  # the SPSs, then the PPSs
+        (n,) = struct.unpack(">B", data[at:at + 1])
+        at += 1
+        for _ in range(n & counted):
+            (size,) = struct.unpack(">H", data[at:at + 2])
+            if at + 2 + size > b:
+                raise ValueError(f"{path}: avcC parameter set cut short")
+            units.append(b"\x00\x00\x00\x01" + bytes(data[at + 2:at + 2 + size]))
+            at += 2 + size
+    return b"".join(units), length_size
+
+
+def _matrix(data: bytes, at: int) -> list:
+    """The 3x3 display matrix of ``tkhd``/``mvhd`` at byte ``at``: rows of
+    (16.16, 16.16, 2.30) fixed point."""
+    v = struct.unpack(">9i", data[at:at + 36])
+    return [list(v[0:3]), list(v[3:6]), list(v[6:9])]
+
+
+def rotation(tkhd, mvhd) -> int:
+    """The clockwise turn cv2 5.0.0 gives every frame of a track: FFmpeg's
+    display matrix (``mov_read_tkhd``: the track's matrix times the
+    movie's, each product shifted back by the row's fixed point) read by
+    ``av_display_rotation_get``, negated and rounded as cv2 rounds it;
+    cv2 turns only by 90, 180 and 270 (a mirror reads as 180; another
+    angle, or a matrix without one, leaves the frame as it is)."""
+    shifts = (16, 16, 30)
+    m = [[sum((tkhd[i][e] * mvhd[e][j]) >> shifts[e] for e in range(3)) for j in range(3)]
+         for i in range(3)]
+    m = [((v + (1 << 31)) % (1 << 32)) - (1 << 31) for row in m for v in row]  # int32 wrap
+    if m == [1 << 16, 0, 0, 0, 1 << 16, 0, 0, 0, 1 << 30]:
+        return 0
+    conv = [v / 65536.0 for v in m]
+    scale0, scale1 = math.hypot(conv[0], conv[3]), math.hypot(conv[1], conv[4])
+    if scale0 == 0.0 or scale1 == 0.0:
+        return 0
+    angle = -math.atan2(conv[1] / scale1, conv[0] / scale0) * 180 / math.pi
+    turn = -round(angle)  # cvRound: to the nearest, halves to even, as round() does
+    if turn < 0:
+        turn += 360
+    return turn if turn in (90, 180, 270) else 0
+
+
+def _mp4_track(data: bytes, trak, path, mvhd) -> Optional[Track]:
     """The track in ``trak`` if it is video, else None."""
     a, b = trak
     kids = _children(data, a, b, path)
@@ -181,12 +245,19 @@ def _mp4_track(data: bytes, trak, path) -> Optional[Track]:
     if n_entries != 1 or len(entries) != 1:
         raise _unsupported(f"{path}: a video track of {n_entries} sample descriptions")
     fourcc, va, vb = entries[0]
-    if fourcc != b"mp4v":
+    if fourcc != b"mp4v" and fourcc not in H264_ENTRIES:
         raise _unsupported(f"{path}: video of sample entry {fourcc.decode(errors='replace')!r}")
-    config = b""
-    for kind, ka, kb in _boxes(data, va + 78, vb, path):
-        if kind == b"esds":
-            config = _esds_config(data, ka, kb, path)
+    config, codec, length_size = b"", "mpeg4", 0
+    children = {kind: (ka, kb) for kind, ka, kb in _boxes(data, va + 78, vb, path)}
+    if fourcc == b"mp4v" and b"esds" in children:
+        config = _esds_config(data, *children[b"esds"], path)
+    elif fourcc != b"mp4v":
+        if b"avcC" not in children:
+            raise _unsupported(f"{path}: an {fourcc.decode()} track without an avcC box")
+        config, length_size = _avcc_config(data, *children[b"avcC"], path)
+        codec = "h264"
+    ta, _ = kids[b"tkhd"][0]
+    turn = rotation(_matrix(data, ta + (52 if data[ta] == 1 else 40)), mvhd)
     if b"ctts" in stbl:
         raise _unsupported(f"{path}: sample reordering (ctts)")
     stts = _table(data, *stbl[b"stts"][0], 4, 2, path, "stts")
@@ -226,7 +297,8 @@ def _mp4_track(data: bytes, trak, path) -> Optional[Track]:
         sync[idx] = True
     else:
         sync = np.ones(count, bool)
-    return Track(config, offsets, sizes, sync, timescale / int(deltas[0]), int(count))
+    return Track(config, offsets, sizes, sync, timescale / int(deltas[0]), int(count), codec,
+                 length_size, turn)
 
 
 def _damaged(read):
@@ -248,8 +320,11 @@ def read_mp4(data: bytes, path) -> Track:
     top = _children(data, 0, len(data), path)
     if b"moov" not in top:
         raise ValueError(f"{path}: no moov box")
-    for trak in _children(data, *top[b"moov"][0], path).get(b"trak", []):
-        track = _mp4_track(data, trak, path)
+    moov = _children(data, *top[b"moov"][0], path)
+    ma, _ = moov[b"mvhd"][0]
+    mvhd = _matrix(data, ma + (48 if data[ma] == 1 else 36))
+    for trak in moov.get(b"trak", []):
+        track = _mp4_track(data, trak, path, mvhd)
         if track is not None:
             return track
     raise ValueError(f"{path}: no video track")
@@ -303,8 +378,10 @@ def read_avi(data: bytes, path) -> Track:
     scale, rate = struct.unpack("<II", data[sa + 20:sa + 28])
     (length,) = struct.unpack("<I", data[sa + 32:sa + 36])
     fa, _ = kids[b"strf"]
-    compression = data[fa + 16:fa + 20]
-    if compression.upper() not in AVI_MPEG4_FOURCCS:
+    compression = bytes(data[fa + 16:fa + 20])
+    codec = ("mpeg4" if compression.upper() in AVI_MPEG4_FOURCCS
+             else "h264" if compression.upper() in AVI_H264_FOURCCS else None)
+    if codec is None:
         raise _unsupported(f"{path}: AVI video of fourcc "
                            f"{compression.decode(errors='replace')!r}")
     if scale == 0 or rate == 0:
@@ -326,7 +403,8 @@ def read_avi(data: bytes, path) -> Track:
         raise ValueError(f"{path}: idx1 names a chunk past the end of the file")
     if len(rows) != length:
         raise _unsupported(f"{path}: an AVI stream of {length} frames indexed as {len(rows)}")
-    return Track(b"", offsets, sizes, (rows[:, 1] & 0x10) != 0, rate / scale, int(length))
+    return Track(b"", offsets, sizes, (rows[:, 1] & 0x10) != 0, rate / scale, int(length),
+                 codec)
 
 
 def read_track(path) -> tuple:
@@ -344,7 +422,8 @@ def read_track(path) -> tuple:
 
 class MP4Dataset(MonocularDataset):
     """Video ingest (``.mp4``, ``.mov``, ``.avi``) through the host library's
-    MPEG-4 Part 2 decoder, frame for frame as cv2 5.0.0 reads it.
+    MPEG-4 Part 2 and H.264 decoders, frame for frame as cv2 5.0.0 reads it,
+    each frame turned by the track's display matrix as cv2 turns it.
 
     A read at the next frame takes the next frame libavcodec outputs (a
     not-coded VOP outputs none, so cv2's frames then run ahead of the
@@ -359,19 +438,41 @@ class MP4Dataset(MonocularDataset):
         super().__init__()
         self.dataset_path = pathlib.Path(dataset_path)
         self._data, self.track = read_track(self.dataset_path)
-        config = self.track.config
-        if not config and len(self.track.sizes):  # AVI: the headers open the first sample
+        track = self.track
+        config = track.config
+        if not config and len(track.sizes):  # AVI: the headers open the first sample
             first = self._sample(0)
-            config = first[:first.find(VOP_START)] if VOP_START in first else b""
-        self._decoder = native.Mpeg4Decoder(config)
+            config = first if track.codec == "h264" else \
+                first[:first.find(VOP_START)] if VOP_START in first else b""
+        if track.codec == "h264":
+            self._check_sync_samples(config)
+            self._decoder = native.H264Decoder(config, track.length_size)
+            missing = "no H.264 sequence parameter set before the first sample"
+        else:
+            self._decoder = native.Mpeg4Decoder(config)
+            missing = "no MPEG-4 VOL header before the first VOP"
         if self._decoder.size() is None:
-            raise ValueError(f"{self.dataset_path}: no MPEG-4 VOL header before the first VOP")
+            raise ValueError(f"{self.dataset_path}: {missing}")
         self._cursor = 0  # the next sample to decode
-        self.fps = self.track.fps
-        self.total_frames = self.track.frame_count
+        self.fps = track.fps
+        self.total_frames = track.frame_count
         self.stride = stride
         self._next_decode = 0
         self.timestamps = [str(i * stride / self.fps) for i in range(len(self))]
+
+    def _check_sync_samples(self, config: bytes) -> None:
+        """Each H.264 sync sample must hold an IDR picture (cv2 would drop
+        pictures after a seek to another), and the sequence parameter sets
+        they carry must agree on the colour (cv2 converts frames around a
+        change otherwise than they say)."""
+        probe = native.H264Decoder(config, self.track.length_size)
+        try:
+            for i in np.flatnonzero(self.track.sync):
+                if not probe.headers(self._sample(int(i))):
+                    raise _unsupported(f"{self.dataset_path}: sync sample {int(i)}, not an IDR "
+                                       "picture")
+        finally:
+            probe.close()
 
     def __len__(self):
         return self.total_frames // self.stride
@@ -389,8 +490,12 @@ class MP4Dataset(MonocularDataset):
         while self._cursor < len(self.track.sizes):
             i = self._cursor
             self._cursor += 1
-            if self._decoder.decode(self._sample(i)):
-                return i
+            if self.track.codec == "h264":
+                shown = self._decoder.decode(self._sample(i), i)
+            else:
+                shown = i if self._decoder.decode(self._sample(i)) else None
+            if shown is not None:
+                return shown
         return None
 
     def _restart(self, frame: int) -> None:
@@ -428,4 +533,7 @@ class MP4Dataset(MonocularDataset):
         self._next_decode = target + 1
         if shown is None:
             raise ValueError(f"failed to decode frame {target}")
-        return self._decoder.rgb()
+        img = self._decoder.rgb()
+        if self.track.rotation:  # cv2.rotate: 90 clockwise is np.rot90's k = -1
+            img = np.ascontiguousarray(np.rot90(img, -self.track.rotation // 90))
+        return img

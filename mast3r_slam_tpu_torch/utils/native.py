@@ -1,9 +1,10 @@
 """The port's host library: frame resize, undistortion remap and PNG row
 filters (port of ``mast3r_slam_tpu/utils/native.py``), the JPEG decoder
-of the image readers and the session server, and the MPEG-4 Part 2
-decoder of the video reader, in C++.
+of the image readers and the session server, and the MPEG-4 Part 2 and
+H.264 decoders of the video reader, in C++.
 
-``csrc/host/preprocess.cpp``, ``jpeg.cpp`` and ``mpeg4.cpp`` are compiled with
+``csrc/host/preprocess.cpp``, ``jpeg.cpp``, ``mpeg4.cpp`` and ``h264.cpp``
+(which share ``yuv420.h``) are compiled with
 the host C++ compiler (``$CXX``, else ``g++``) at first use into one
 library in ``build/host/`` at the repository root, named by a hash of the
 sources, the flags and the host
@@ -34,7 +35,8 @@ from .image import resize_geometry
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
 SOURCES = [_PKG_DIR / "csrc" / "host" / name
-           for name in ("preprocess.cpp", "jpeg.cpp", "mpeg4.cpp")]
+           for name in ("preprocess.cpp", "jpeg.cpp", "mpeg4.cpp", "h264.cpp")]
+HEADERS = [_PKG_DIR / "csrc" / "host" / "yuv420.h"]
 BUILD_DIR = _PKG_DIR.parent / "build" / "host"
 CXX_FLAGS = ["-O3", "-march=native", "-ffast-math", "-funroll-loops", "-std=c++17",
              "-fPIC", "-Wall"]
@@ -56,6 +58,14 @@ _ARGTYPES = {
     "mpeg4_rgb": [ctypes.c_void_p, _U8P],
     "mpeg4_reset": [ctypes.c_void_p],
     "mpeg4_close": [ctypes.c_void_p],
+    "h264_open": [_U8P, ctypes.c_int64, _I, ctypes.POINTER(ctypes.c_void_p), ctypes.c_char_p, _I],
+    "h264_size": [ctypes.c_void_p, _I32P],
+    "h264_decode": [ctypes.c_void_p, _U8P, ctypes.c_int64, ctypes.c_int64,
+                    ctypes.POINTER(ctypes.c_int64), ctypes.c_char_p, _I],
+    "h264_headers": [ctypes.c_void_p, _U8P, ctypes.c_int64, _I32P, ctypes.c_char_p, _I],
+    "h264_rgb": [ctypes.c_void_p, _U8P],
+    "h264_reset": [ctypes.c_void_p],
+    "h264_close": [ctypes.c_void_p],
 }
 
 _lib = None
@@ -71,7 +81,7 @@ def compiler() -> str:
 
 def library_path() -> Path:
     key = " ".join(CXX_FLAGS + LINK_FLAGS + [platform.machine(), platform.node()])
-    digest = hashlib.sha1(b"".join(f.read_bytes() for f in SOURCES)
+    digest = hashlib.sha1(b"".join(f.read_bytes() for f in SOURCES + HEADERS)
                           + key.encode()).hexdigest()[:12]
     return BUILD_DIR / f"libpreprocess_{digest}.so"
 
@@ -250,12 +260,12 @@ def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
     return np.ascontiguousarray(np.flip(img, flips) if flips else img)
 
 
-def _mpeg4_error(rc: int, err) -> Exception:
+def _video_error(rc: int, err, codec: str) -> Exception:
     msg = err.value.decode(errors="replace")
     if rc == 2:
         return NotImplementedError(msg)
     if rc == 1:
-        return ValueError(f"corrupt MPEG-4 video: {msg}")
+        return ValueError(f"corrupt {codec} video: {msg}")
     return MemoryError(msg)
 
 
@@ -280,7 +290,7 @@ class Mpeg4Decoder:
         rc = self._lib.mpeg4_open(_ptr(src, _U8P), src.size, ctypes.byref(state), err,
                                   len(err))
         if rc != 0:
-            raise _mpeg4_error(rc, err)
+            raise _video_error(rc, err, "MPEG-4")
         self._state = state
 
     def size(self):
@@ -296,7 +306,7 @@ class Mpeg4Decoder:
         rc = self._lib.mpeg4_decode(self._state, _ptr(src, _U8P), src.size,
                                     ctypes.byref(shown), err, len(err))
         if rc != 0:
-            raise _mpeg4_error(rc, err)
+            raise _video_error(rc, err, "MPEG-4")
         return bool(shown.value)
 
     def rgb(self) -> np.ndarray:
@@ -314,6 +324,83 @@ class Mpeg4Decoder:
         state, self._state = self._state, None
         if state:
             self._lib.mpeg4_close(state)
+
+    def __del__(self):
+        self.close()
+
+
+class H264Decoder:
+    """An H.264 decoder (``csrc/host/h264.cpp``) over one stream's samples,
+    in decode order.  ``config`` is Annex B NAL units whose parameter sets
+    are read (an ``avcC``'s, or an AVI stream's first sample);
+    ``length_size`` is the bytes of each NAL unit's length in a sample (the
+    ``avcC``'s), 0 for Annex B samples.  ``decode(sample, index)`` feeds a
+    sample (an access unit) and gives the index of the sample whose picture
+    libavcodec outputs then, or None; ``rgb`` gives the last picture output
+    as (H, W, 3) uint8 RGB, cropped, exactly what ``cv2.cvtColor(
+    cv2.VideoCapture(...).read()[1], cv2.COLOR_BGR2RGB)`` gives for it with
+    cv2 5.0.0 (before cv2 turns it by the track's display matrix).  Pictures
+    come out in decode order: a stream that reorders them is refused, so
+    nothing is held back and nothing is left to drain.  Streams the decoder
+    does not take raise ``NotImplementedError``, corrupt ones
+    ``ValueError``.  One decoder serves one thread at a time."""
+
+    def __init__(self, config: bytes = b"", length_size: int = 0):
+        self._lib = load()
+        self._state = None
+        state = ctypes.c_void_p()
+        src = np.frombuffer(config, dtype=np.uint8)
+        err = ctypes.create_string_buffer(256)
+        rc = self._lib.h264_open(_ptr(src, _U8P), src.size, length_size, ctypes.byref(state),
+                                 err, len(err))
+        if rc != 0:
+            raise _video_error(rc, err, "H.264")
+        self._state = state
+
+    def size(self):
+        """(width, height) of the last picture output (before one, of the
+        first sequence parameter set read), else None."""
+        wh = (ctypes.c_int * 2)()
+        self._lib.h264_size(self._state, wh)
+        return (wh[0], wh[1]) if wh[0] else None
+
+    def decode(self, sample: bytes, index: int):
+        src = np.frombuffer(sample, dtype=np.uint8)
+        err = ctypes.create_string_buffer(256)
+        shown = ctypes.c_int64()
+        rc = self._lib.h264_decode(self._state, _ptr(src, _U8P), src.size, index,
+                                   ctypes.byref(shown), err, len(err))
+        if rc != 0:
+            raise _video_error(rc, err, "H.264")
+        return None if shown.value < 0 else shown.value
+
+    def headers(self, sample: bytes) -> bool:
+        """Read the parameter sets of ``sample`` without decoding it; whether
+        it holds an IDR picture."""
+        src = np.frombuffer(sample, dtype=np.uint8)
+        err = ctypes.create_string_buffer(256)
+        idr = ctypes.c_int()
+        rc = self._lib.h264_headers(self._state, _ptr(src, _U8P), src.size, ctypes.byref(idr),
+                                    err, len(err))
+        if rc != 0:
+            raise _video_error(rc, err, "H.264")
+        return bool(idr.value)
+
+    def rgb(self) -> np.ndarray:
+        width, height = self.size()
+        out = np.empty((height, width, 3), dtype=np.uint8)
+        if self._lib.h264_rgb(self._state, _ptr(out, _U8P)) != 0:
+            raise ValueError("no H.264 picture decoded yet")
+        return out
+
+    def reset(self):
+        """Forget every picture (before decoding from a sync sample)."""
+        self._lib.h264_reset(self._state)
+
+    def close(self):
+        state, self._state = self._state, None
+        if state:
+            self._lib.h264_close(state)
 
     def __del__(self):
         self.close()

@@ -1,0 +1,77 @@
+"""Write the H.264 video fixtures that ``chip_smoke.py`` phase 20 reads on
+the card's host, which has no cv2, and the SHA-256 digests of the frames
+that the JAX package's ``MP4Dataset`` (``cv2.VideoCapture``, cv2 5.0.0)
+gives for each (``tests/data/h264_fixtures.json``).  Needs cv2 and the
+JAX package, so it runs where the tests run:
+
+    python scripts/make_h264_fixtures.py
+
+The streams are written here (``tests/torch_h264_files.py``; cv2 holds no
+H.264 encoder), deterministically, under ``tests/data/video_fixtures/``:
+  h264_480x640_smooth.mp4   14 frames of a smooth field panning 4 pixels a
+                            frame (an IDR picture of Intra 16x16, then P
+                            pictures at the pan's vector), the clip of
+                            phase 20b's CLI run
+  h264_1080x1920_smooth.mp4 an IDR and 2 P pictures of the same kind at
+                            1920x1080 (coded as 1088 rows, cropped): phase
+                            20c times their decode
+  h264_64x48_random.avi     14 pictures of random CAVLC syntax, Annex B, an
+                            IDR picture every 5
+  h264_100x60_slices.mov    random syntax in 3 slices a picture, 4
+                            references, list modification, MMCO 1,
+                            non-reference pictures, the 8x8 transform,
+                            width and height cropped
+  h264_72x40_full709.mp4    random syntax, full range BT.709, a VUI
+                            asking for 2 pictures of reorder delay
+  h264_64x48_rot90.mp4      the first random stream in an mp4 whose track
+                            turns its frames 90 degrees (cv2 turns them)
+  mp4v_64x48_rot270.mp4     the committed mp4v_64x48_tex.mp4 with its
+                            track's display matrix set to 270 degrees
+The digests are of (H, W, 3) uint8 RGB, C order, as ``read_img`` returns
+it, in the layout of ``scripts/make_video_fixtures.py``.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+DATA = ROOT / "tests" / "data"
+OUT = DATA / "video_fixtures"
+sys.path[:0] = [str(ROOT), str(ROOT / "tests"), str(ROOT / "scripts")]
+import torch_h264_files as hf  # noqa: E402
+from make_video_fixtures import cv2_digests  # noqa: E402
+
+CLI_CLIP = "h264_480x640_smooth.mp4"
+BIG_CLIP = "h264_1080x1920_smooth.mp4"
+NAMES = [CLI_CLIP, BIG_CLIP, "h264_64x48_random.avi", "h264_100x60_slices.mov",
+         "h264_72x40_full709.mp4", "h264_64x48_rot90.mp4", "mp4v_64x48_rot270.mp4"]
+
+
+def main():
+    OUT.mkdir(parents=True, exist_ok=True)
+    s, _ = hf.smooth_stream(640, 480, 14, 4, step=4)
+    hf.write_mp4(OUT / CLI_CLIP, s, 640, 480)
+    s, _ = hf.smooth_stream(1920, 1080, 3, 5, step=4)
+    hf.write_mp4(OUT / BIG_CLIP, s, 1920, 1080)
+    s, _ = hf.random_stream(64, 48, 14, 20, gop=5)
+    hf.write_avi_h264(OUT / "h264_64x48_random.avi", s, 64, 48)
+    hf.write_mp4(OUT / "h264_64x48_rot90.mp4", s, 64, 48, matrix=(0, 1, -1, 0))
+    s, _ = hf.random_stream(100, 60, 14, 21, gop=7, slices=3, max_ref=4, modify=True, mmco=True,
+                            nonref=0.3)
+    hf.write_mp4(OUT / "h264_100x60_slices.mov", s, 100, 60, brand=b"qt  ")
+    s, _ = hf.random_stream(72, 40, 14, 22, gop=5, vui=dict(full_range=True, prim=1, trc=1,
+                                                            matrix=1, reorder=2))
+    hf.write_mp4(OUT / "h264_72x40_full709.mp4", s, 72, 40)
+    src = (OUT / "mp4v_64x48_tex.mp4").read_bytes()
+    (OUT / "mp4v_64x48_rot270.mp4").write_bytes(hf.set_matrix(src, (0, -1, 1, 0)))
+    digests = {f"video_fixtures/{n}": cv2_digests(OUT / n) for n in NAMES}
+    (DATA / "h264_fixtures.json").write_text(json.dumps(digests, indent=1, sort_keys=True) + "\n")
+    total = sum((OUT / n).stat().st_size for n in NAMES)
+    print(f"{len(NAMES)} files, {total} bytes; digests in tests/data/h264_fixtures.json")
+
+
+if __name__ == "__main__":
+    main()

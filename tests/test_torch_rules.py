@@ -267,9 +267,11 @@ def test_no_port_module_imports_cv2_pil_yaml_or_matplotlib_at_import():
 # Drives chip_smoke.py phase 9's path (the CLI over a TUM sequence at 512,
 # fr1 undistortion, exports, the ATE CLI, a checkpoint), phase 12's (the
 # CLI over the committed image folder: a baseline JPEG, a progressive JPEG
-# and a palette Adam7 PNG) and phase 19's (the CLI over a committed 48x64
+# and a palette Adam7 PNG), phase 19's (the CLI over a committed 48x64
 # mp4v clip, resized to 512 by the host library: other sizes resize
-# through PIL) with the tiny model on the CPU, while an import hook
+# through PIL) with the tiny model on the CPU, and phase 20's loader over a
+# committed 48x64 H.264 clip in AVI (the rest of its path is phase 19's),
+# while an import hook
 # refuses cv2, PIL, PyYAML and matplotlib; prints the attempts and the
 # port modules the run loaded.
 _NO_CARD_RUN = r"""
@@ -313,8 +315,12 @@ folder = run.main(["--dataset", sys.argv[1], "--config", "eval_no_calib", "--mod
 video = run.main(["--dataset", sys.argv[2], "--config", "eval_no_calib", "--model-preset",
                   "tiny", "--device", "cpu", "--max-frames", "3", "--set",
                   "dataset.subsample=1", "--save-as", "video"])
+from mast3r_slam_tpu_torch.data import dataloader
+h264 = dataloader.load_dataset(sys.argv[3])
+h264_frames = [h264[i] for i in range(3)]
 print(json.dumps({"attempts": attempts, "folder_frames": len(folder.frame_timestamps),
                   "video_frames": len(video.frame_timestamps),
+                  "h264_frames": [f[1].shape for f in h264_frames],
                   "modules": sorted(
     m.__file__ for n, m in sys.modules.items()
     if n.startswith("mast3r_slam_tpu_torch") and getattr(m, "__file__", None))}))
@@ -322,17 +328,18 @@ print(json.dumps({"attempts": attempts, "folder_frames": len(folder.frame_timest
 
 
 def test_the_cli_path_reaches_no_library_the_card_lacks(tmp_path):
-    """The modules phases 9, 12 and 19 run (a TUM sequence of PNGs, a folder
-    of JPEGs and a PNG, an MPEG-4 Part 2 video) import none of cv2, PIL,
-    yaml or matplotlib, on the run (an import hook refuses them) and
-    anywhere in their source."""
+    """The modules phases 9, 12, 19 and 20 run (a TUM sequence of PNGs, a
+    folder of JPEGs and a PNG, an MPEG-4 Part 2 video, an H.264 one) import
+    none of cv2, PIL, yaml or matplotlib, on the run (an import hook refuses
+    them) and anywhere in their source."""
     import json
     import subprocess
     import sys
 
     folder = ROOT / "tests" / "data" / "image_folder"
     clip = ROOT / "tests" / "data" / "video_fixtures" / "mp4v_64x48_tex.mp4"
-    out = subprocess.run([sys.executable, "-c", _NO_CARD_RUN, str(folder), str(clip)],
+    h264 = ROOT / "tests" / "data" / "video_fixtures" / "h264_64x48_random.avi"
+    out = subprocess.run([sys.executable, "-c", _NO_CARD_RUN, str(folder), str(clip), str(h264)],
                          cwd=tmp_path,
                          env={**__import__("os").environ, "PYTHONPATH": str(ROOT)},
                          capture_output=True, text=True, timeout=600)
@@ -342,6 +349,7 @@ def test_the_cli_path_reaches_no_library_the_card_lacks(tmp_path):
     assert [a for a in report["attempts"] if a[1].startswith(port)] == []
     assert report["folder_frames"] == 3
     assert report["video_frames"] == 3
+    assert report["h264_frames"] == [[48, 64, 3]] * 3
     files = [pathlib.Path(m) for m in report["modules"]]
     assert {f.stem for f in files} >= {"run", "dataloader", "png", "native", "export",
                                        "renderer", "checkpoint", "yaml_subset", "ate",

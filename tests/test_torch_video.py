@@ -28,6 +28,7 @@ from mast3r_slam_tpu_torch.data import dataloader as tdl
 from mast3r_slam_tpu_torch.data import video
 from mast3r_slam_tpu_torch.utils import native
 
+import torch_h264_files as hf
 import torch_video_files as vf
 
 DATA = pathlib.Path(__file__).resolve().parent / "data"
@@ -149,6 +150,46 @@ def test_the_committed_video_fixtures_agree_with_cv2(name):
     sub = video.MP4Dataset(path)
     sub.subsample(4)
     assert [_digest(f) for f in _reads(sub, range(len(sub)))] == want["subsample4"]
+
+
+_C45, _S45 = np.cos(np.pi / 4), np.sin(np.pi / 4)
+_C89, _S89 = np.cos(np.radians(89.6)), np.sin(np.radians(89.6))
+# name -> (tkhd matrix (a, b, c, d), mvhd matrix, suffix)
+ROTATIONS = {
+    "identity": ((1, 0, 0, 1), hf.IDENTITY, ".mp4"),
+    "90": ((0, 1, -1, 0), hf.IDENTITY, ".mp4"),
+    "180": ((-1, 0, 0, -1), hf.IDENTITY, ".mp4"),
+    "270": ((0, -1, 1, 0), hf.IDENTITY, ".mp4"),
+    "mirror": ((-1, 0, 0, 1), hf.IDENTITY, ".mp4"),
+    "45-degrees": ((_C45, _S45, -_S45, _C45), hf.IDENTITY, ".mp4"),
+    "89.6-degrees": ((_C89, _S89, -_S89, _C89), hf.IDENTITY, ".mp4"),
+    "transposed": ((0, 1, 1, 0), hf.IDENTITY, ".mp4"),
+    "no-x-scale": ((0, 1, 0, 1), hf.IDENTITY, ".mp4"),
+    "90-in-mov": ((0, 1, -1, 0), hf.IDENTITY, ".mov"),
+    "270-by-the-movie": ((1, 0, 0, 1), (0, -1, 1, 0), ".mov"),
+    "180-twice-90": ((0, 1, -1, 0), (0, 1, -1, 0), ".mp4"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ROTATIONS))
+@pytest.mark.parametrize("codec", ["mp4v", "h264"])
+def test_frames_turn_by_the_display_matrix_as_cv2_turns_them(tmp_path, codec, name):
+    """cv2 5.0.0 turns every frame by the track's display matrix (FFmpeg's,
+    times the movie's) when the angle rounds to 90, 180 or 270 degrees (a
+    mirror reads as 180) and leaves other angles alone: sequential reads,
+    seeks and subsample(4), in a cv2-written mp4v file and an H.264 one."""
+    tkhd, mvhd, suffix = ROTATIONS[name]
+    src = DATA / "video_fixtures" / ("mp4v_64x48_tex.mp4" if codec == "mp4v"
+                                     else "h264_64x48_rot90.mp4")
+    path = tmp_path / f"turned{suffix}"
+    path.write_bytes(hf.set_matrix(hf.set_matrix(src.read_bytes(), tkhd), mvhd, b"mvhd"))
+    _same_reads(path, range(6))
+    _same_reads(path, [12, 3, 0, 13])
+    _same_reads(path, range(3), stride=4)
+    turned = video.read_mp4(path.read_bytes()).rotation
+    assert turned == {"90": 90, "180": 180, "270": 270, "mirror": 180, "89.6-degrees": 90,
+                      "transposed": 90, "90-in-mov": 90, "270-by-the-movie": 270,
+                      "180-twice-90": 180}.get(name, 0)
 
 
 @pytest.mark.parametrize("fourcc", ["MJPG", "MP42"])

@@ -1,0 +1,1400 @@
+"""H.264 video files for the port's video tests and fixtures, written here
+(cv2 decodes H.264 but holds no encoder for it): CAVLC streams of I and P
+pictures whose syntax is drawn at random from what the port's decoder
+takes (``random_stream``), or coded from a smooth picture that pans
+(``smooth_stream``), in Annex B or behind NAL unit lengths, muxed into
+``.mp4``/``.mov`` (``write_mp4``, with a settable ``tkhd`` matrix) or
+``.avi`` (``write_avi`` of ``torch_video_files``).  Needs no cv2.
+
+``random_stream`` draws every I and P ``mb_type`` and ``sub_mb_type``,
+I_PCM, intra 4x4/8x8/16x16 and chroma modes (only those whose samples are
+available, as the standard requires), skip runs, ``ref_idx`` over up to 4
+references, ``mvd`` (vectors far outside the picture too), the mapped
+``coded_block_pattern``, ``mb_qp_delta``, both transform sizes and CAVLC
+levels of every escape; per picture and slice the deblocking controls,
+slice splits, ``num_ref_idx_active_override``, ``ref_pic_list_modification``,
+MMCO 1 and non-reference pictures; per stream the picture order count
+type, parameter sets in band (repeated, several ids), ``constrained_intra_
+pred_flag``, both chroma QP offsets, the VUI and frame cropping.  Levels
+are bounded so that no dequantised coefficient or transform sum leaves
+16 bits, which the standard forbids and libavcodec does not model.  The
+CAVLC tables come from the decoder's source: a wrong entry there gives a
+stream cv2 reads otherwise, so cv2's decode is the check.
+
+Imported by ``tests/test_torch_h264.py``, ``tests/test_torch_video.py``,
+``scripts/make_h264_fixtures.py`` and ``chip_smoke.py`` (phase 20).
+"""
+
+from __future__ import annotations
+
+import pathlib
+import re
+import struct
+
+import numpy as np
+
+_HOST_SRC = pathlib.Path(__file__).resolve().parents[1] / "mast3r_slam_tpu_torch" / "csrc" \
+    / "host" / "h264.cpp"
+
+
+def _c_array(src: str, name: str) -> list:
+    body = re.search(name + r"\[[^=]*= \{(.*?)\};", src, re.S).group(1)
+    return [int(v, 0) for v in re.findall(r"0x[0-9a-f]+|\d+", body)]
+
+
+class _Tables:
+    def __init__(self):
+        src = _HOST_SRC.read_text()
+        a = lambda name: _c_array(src, name)  # noqa: E731
+        ln, bt = a("COEFF_TOKEN_LEN"), a("COEFF_TOKEN_BITS")
+        self.coeff = [list(zip(ln[68 * c:68 * c + 68], bt[68 * c:68 * c + 68])) for c in range(4)]
+        self.chroma_dc = list(zip(a("CHROMADC_TOKEN_LEN"), a("CHROMADC_TOKEN_BITS")))
+        ln, bt = a("TOTAL_ZEROS_LEN"), a("TOTAL_ZEROS_BITS")
+        self.zeros = [list(zip(ln[16 * t:16 * t + 16], bt[16 * t:16 * t + 16])) for t in range(15)]
+        ln, bt = a("CHROMADC_ZEROS_LEN"), a("CHROMADC_ZEROS_BITS")
+        self.chroma_zeros = [list(zip(ln[4 * t:4 * t + 4], bt[4 * t:4 * t + 4])) for t in range(3)]
+        ln, bt = a("RUN_BEFORE_LEN"), a("RUN_BEFORE_BITS")
+        self.run = [list(zip(ln[16 * t:16 * t + 16], bt[16 * t:16 * t + 16])) for t in range(7)]
+        self.intra_cbp = {v: k for k, v in enumerate(a("INTRA_CBP"))}
+        self.inter_cbp = {v: k for k, v in enumerate(a("INTER_CBP"))}
+        self.zigzag4, self.zigzag8 = a("ZIGZAG4"), a("ZIGZAG8")
+        self.deq4 = np.array(a("DEQ4")).reshape(6, 3)
+        self.deq8 = np.array(a("DEQ8")).reshape(6, 6)
+        self.qpc = a("QPC")
+
+
+_TABLES = None
+
+
+def tables() -> _Tables:
+    global _TABLES
+    if _TABLES is None:
+        _TABLES = _Tables()
+    return _TABLES
+
+
+# --- bits and NAL units ----------------------------------------------------
+
+
+class Bits:
+    def __init__(self):
+        self.parts = []
+        self.n = 0
+
+    def u(self, v: int, n: int) -> None:
+        if n:
+            assert 0 <= v < (1 << n), (v, n)
+            self.parts.append(format(v, f"0{n}b"))
+            self.n += n
+
+    def flag(self, v) -> None:
+        self.u(int(bool(v)), 1)
+
+    def ue(self, v: int) -> None:
+        assert v >= 0
+        s = format(v + 1, "b")
+        self.parts.append("0" * (len(s) - 1) + s)
+        self.n += 2 * len(s) - 1
+
+    def se(self, v: int) -> None:
+        self.ue(2 * v - 1 if v > 0 else -2 * v)
+
+    def align_zero(self) -> None:
+        self.u(0, (8 - self.n % 8) % 8)
+
+    def rbsp(self) -> bytes:
+        """The bits with rbsp_trailing_bits."""
+        self.u(1, 1)
+        self.align_zero()
+        s = "".join(self.parts)
+        return int(s, 2).to_bytes(len(s) // 8, "big")
+
+
+def nal(ref_idc: int, kind: int, rbsp: bytes) -> bytes:
+    """A NAL unit: its header and the RBSP with emulation prevention."""
+    out = bytearray([(ref_idc << 5) | kind])
+    zeros = 0
+    for c in rbsp:
+        if zeros >= 2 and c <= 3:
+            out.append(3)
+            zeros = 0
+        out.append(c)
+        zeros = zeros + 1 if c == 0 else 0
+    return bytes(out)
+
+
+def annexb(units) -> bytes:
+    return b"".join(b"\x00\x00\x00\x01" + u for u in units)
+
+
+def length_prefixed(units, size: int = 4) -> bytes:
+    return b"".join(len(u).to_bytes(size, "big") + u for u in units)
+
+
+# --- parameter sets ----------------------------------------------------------
+
+HIGH_PROFILES = (100, 110, 122, 244, 44, 83, 86, 118, 128, 138, 139, 134, 135)
+
+
+def sps(o: dict, sps_id: int = 0) -> bytes:
+    """seq_parameter_set_rbsp from the stream options ``o``."""
+    b = Bits()
+    b.u(o["profile"], 8)
+    b.u(o.get("constraints", 0), 8)
+    b.u(o.get("level", 40), 8)
+    b.ue(sps_id)
+    if o["profile"] in HIGH_PROFILES:
+        b.ue(o.get("chroma_format", 1))
+        b.ue(o.get("bit_depth", 8) - 8)
+        b.ue(o.get("bit_depth", 8) - 8)
+        b.flag(o.get("bypass", False))
+        b.flag(o.get("scaling", False))
+    b.ue(o["log2_max_frame_num"] - 4)
+    b.ue(o["poc_type"])
+    if o["poc_type"] == 0:
+        b.ue(o["log2_max_poc_lsb"] - 4)
+    elif o["poc_type"] == 1:
+        b.flag(o["delta_always_zero"])
+        b.se(o["offset_non_ref"])
+        b.se(o["offset_t2b"])
+        b.ue(len(o["poc_cycle"]))
+        for v in o["poc_cycle"]:
+            b.se(v)
+    b.ue(o["max_ref"])
+    b.flag(o.get("gaps_allowed", False))
+    b.ue(o["mbw"] - 1)
+    b.ue(o["mbh"] - 1)
+    b.flag(o.get("frame_mbs_only", True))
+    if not o.get("frame_mbs_only", True):
+        b.flag(False)
+    b.flag(True)  # direct_8x8_inference_flag
+    crop = o["crop"]  # left, right, top, bottom in luma samples
+    b.flag(any(crop))
+    if any(crop):
+        for v in crop:
+            b.ue(v // 2)
+    vui = o.get("vui")
+    b.flag(vui is not None)
+    if vui is not None:
+        b.flag(True)  # aspect_ratio_info
+        b.u(1, 8)
+        b.flag(False)  # overscan
+        colour = [vui.get(k) for k in ("prim", "trc", "matrix")]
+        signal = vui.get("full_range") is not None or colour != [None] * 3
+        b.flag(signal)
+        if signal:
+            b.u(5, 3)
+            b.flag(vui.get("full_range", False))
+            b.flag(colour != [None] * 3)
+            if colour != [None] * 3:
+                for v in colour:
+                    b.u(2 if v is None else v, 8)
+        b.flag(False)  # chroma_loc_info
+        b.flag(vui.get("timing", False))
+        if vui.get("timing", False):
+            b.u(1, 32)
+            b.u(60, 32)
+            b.flag(True)
+        hrd = vui.get("hrd", False)
+        for _ in range(2):  # NAL and VCL hrd_parameters
+            b.flag(hrd)
+            if hrd:
+                b.ue(0)
+                b.u(4, 4)
+                b.u(6, 4)
+                b.ue(3999)
+                b.ue(9999)
+                b.flag(False)
+                b.u(23, 5)
+                b.u(23, 5)
+                b.u(23, 5)
+                b.u(24, 5)
+        if hrd:
+            b.flag(False)  # low_delay_hrd_flag
+        b.flag(False)  # pic_struct_present_flag
+        reorder = vui.get("reorder")
+        b.flag(reorder is not None)
+        if reorder is not None:
+            b.flag(True)
+            b.ue(0)
+            b.ue(0)
+            b.ue(16)
+            b.ue(16)
+            b.ue(reorder)
+            b.ue(max(reorder, o["max_ref"]))
+    return b.rbsp()
+
+
+def pps(o: dict, pps_id: int = 0, sps_id: int = 0) -> bytes:
+    b = Bits()
+    b.ue(pps_id)
+    b.ue(sps_id)
+    b.flag(o.get("cabac", False))
+    b.flag(o.get("bottom_poc", False))
+    b.ue(o.get("slice_groups", 1) - 1)
+    b.ue(o["num_ref_default"] - 1)
+    b.ue(0)
+    b.flag(o.get("weighted", False))
+    b.u(0, 2)
+    b.se(o["init_qp"] - 26)
+    b.se(0)
+    b.se(o["cqp"][0])
+    b.flag(o["deblock_ctrl"])
+    b.flag(o["constrained_intra"])
+    b.flag(o.get("redundant", False))
+    if o["t8"] or o["cqp"][1] != o["cqp"][0]:
+        b.flag(o["t8"])
+        b.flag(False)
+        b.se(o["cqp"][1])
+    return b.rbsp()
+
+
+# --- CAVLC residual blocks -------------------------------------------------------
+
+
+def write_block(b: Bits, coef, nc: int) -> int:
+    """residual_block_cavlc of ``coef`` (levels in scan order) at nC ``nc``
+    (-1: chroma DC); returns TotalCoeff."""
+    t = tables()
+    max_coeff = len(coef)
+    nzpos = [i for i, v in enumerate(coef) if v]
+    total = len(nzpos)
+    levels = [coef[i] for i in reversed(nzpos)]  # highest frequency first
+    ones = 0
+    for v in levels:
+        if abs(v) != 1 or ones == 3:
+            break
+        ones += 1
+    if nc < 0:
+        code = t.chroma_dc[total * 4 + ones]
+    else:
+        code = t.coeff[0 if nc < 2 else 1 if nc < 4 else 2 if nc < 8 else 3][total * 4 + ones]
+    b.u(code[1], code[0])
+    if not total:
+        return 0
+    for v in levels[:ones]:
+        b.flag(v < 0)
+    suffix = 1 if total > 10 and ones < 3 else 0
+    for i, v in enumerate(levels[ones:], start=ones):
+        code = 2 * v - 2 if v > 0 else -2 * v - 1
+        if i == ones and ones < 3:
+            code -= 2
+        if suffix == 0:
+            if code < 14:
+                b.u(1, code + 1)
+            elif code < 30:
+                b.u(1, 15)
+                b.u(code - 14, 4)
+            else:
+                b.u(1, 16)
+                b.u(code - 30, 12)
+        elif code < (15 << suffix):
+            b.u(1, (code >> suffix) + 1)
+            b.u(code & ((1 << suffix) - 1), suffix)
+        else:
+            b.u(1, 16)
+            b.u(code - (15 << suffix), 12)
+        if suffix == 0:
+            suffix = 1
+        if abs(v) > (3 << (suffix - 1)) and suffix < 6:
+            suffix += 1
+    if total < max_coeff:
+        zeros = nzpos[-1] + 1 - total
+        code = (t.chroma_zeros if max_coeff == 4 else t.zeros)[total - 1][zeros]
+        b.u(code[1], code[0])
+        left = zeros
+        desc = list(reversed(nzpos))
+        for k in range(total - 1):
+            if left <= 0:
+                break
+            run = desc[k] - desc[k + 1] - 1
+            code = t.run[min(left, 7) - 1][run]
+            b.u(code[1], code[0])
+            left -= run
+    return total
+
+
+# --- the decoder's arithmetic, for bounds and for the encoder's reconstruction ----
+
+
+def _class4(pos):
+    i, j = pos >> 2, pos & 3
+    return 0 if not (i & 1 or j & 1) else 1 if (i & 1 and j & 1) else 2
+
+
+def _class8(pos):
+    i, j = pos >> 3, pos & 7
+    if not (i & 3) and not (j & 3):
+        return 0
+    if i & 1 and j & 1:
+        return 1
+    if (i & 3) == 2 and (j & 3) == 2:
+        return 2
+    if (not (i & 3) and j & 1) or (i & 1 and not (j & 3)):
+        return 3
+    if (not (i & 3) and (j & 3) == 2) or ((i & 3) == 2 and not (j & 3)):
+        return 4
+    return 5
+
+
+_CLASS4 = np.array([_class4(p) for p in range(16)])
+_CLASS8 = np.array([_class8(p) for p in range(64)])
+_H4 = np.array([[1, 1, 1, 1], [1, 1, -1, -1], [1, -1, -1, 1], [1, -1, 1, -1]])
+
+
+def deq4(levels_raster: np.ndarray, qp: int) -> np.ndarray:
+    return levels_raster * (tables().deq4[qp % 6][_CLASS4] << (qp // 6))
+
+
+def deq8(levels_raster: np.ndarray, qp: int) -> np.ndarray:
+    ls = 16 * tables().deq8[qp % 6][_CLASS8]
+    if qp >= 36:
+        return levels_raster * (ls << (qp // 6 - 6))
+    return (levels_raster * ls + (1 << (5 - qp // 6))) >> (6 - qp // 6)
+
+
+def luma_dc(dc_raster: np.ndarray, qp: int) -> np.ndarray:
+    f = _H4 @ dc_raster.reshape(4, 4) @ _H4
+    ls = 16 * int(tables().deq4[qp % 6][0])
+    if qp >= 36:
+        return (f * (ls << (qp // 6 - 6))).reshape(16)
+    return ((f * ls + (1 << (5 - qp // 6))) >> (6 - qp // 6)).reshape(16)
+
+
+def chroma_dc(c4, qpc: int) -> np.ndarray:
+    c = np.asarray(c4).reshape(2, 2)
+    f = np.array([[1, 1], [1, -1]]) @ c @ np.array([[1, 1], [1, -1]])
+    return (f.reshape(4) * (16 * int(tables().deq4[qpc % 6][0]) << (qpc // 6))) >> 5
+
+
+def idct4(d: np.ndarray) -> np.ndarray:
+    """The 4x4 inverse transform of a (4, 4) array: residuals."""
+    def one(x):  # along the last axis
+        e0, e1 = x[..., 0] + x[..., 2], x[..., 0] - x[..., 2]
+        e2, e3 = (x[..., 1] >> 1) - x[..., 3], x[..., 1] + (x[..., 3] >> 1)
+        return np.stack([e0 + e3, e1 + e2, e1 - e2, e0 - e3], -1)
+    f = one(d)
+    g = one(f.swapaxes(-1, -2)).swapaxes(-1, -2)
+    return (g + 32) >> 6
+
+
+def chroma_qp(qp: int, offset: int) -> int:
+    return tables().qpc[min(max(qp + offset, 0), 51)]
+
+
+# --- stream options ----------------------------------------------------------------
+
+
+def options(width: int, height: int, **kw) -> dict:
+    """A stream's options: the frame size, then what ``kw`` sets over the
+    defaults (High profile, CAVLC, POC type 0, 2 references)."""
+    mbw, mbh = (width + 15) // 16, (height + 15) // 16
+    o = dict(profile=100, log2_max_frame_num=4, poc_type=0, log2_max_poc_lsb=5, poc_step=2,
+             delta_always_zero=False, offset_non_ref=1, offset_t2b=0, poc_cycle=[2],
+             max_ref=2, num_ref_default=1, init_qp=28, cqp=[0, 0], deblock_ctrl=True,
+             constrained_intra=False, t8=True, vui=None, mbw=mbw, mbh=mbh,
+             crop=[0, 16 * mbw - width, 0, 16 * mbh - height], gop=8, nonref=0.0,
+             mmco=False, modify=False, override=True, slices=1, extra_nals=False,
+             inband=False, pps_ids=(0,), qp_range=(12, 44), intra_in_p=True, mvd=8,
+             far_mv=False, p_types=None, i_types=None, pcm=True, slice_i_in_p=False,
+             dbk_idc=(0, 1, 2), force_slice_type=None, long_term_idr=False, mmco_op=None,
+             gap_at=None, poc_drop_at=None)
+    o.update(kw)
+    return o
+
+
+# --- a picture's macroblocks -------------------------------------------------------
+
+
+def _zx(blk):
+    return ((blk >> 2) & 1) * 2 + (blk & 1)
+
+
+def _zy(blk):
+    return ((blk >> 3) & 1) * 2 + ((blk >> 1) & 1)
+
+
+def _zidx(bx, by):
+    return ((by >> 1) << 3) | ((bx >> 1) << 2) | ((by & 1) << 1) | (bx & 1)
+
+
+class Picture:
+    """What the syntax of the next macroblocks depends on: the slices so far,
+    each macroblock's kind, total_coeff by 4x4 block and intra modes."""
+
+    def __init__(self, mbw: int, mbh: int, constrained: bool):
+        self.mbw, self.mbh, self.constrained = mbw, mbh, constrained
+        n = mbw * mbh
+        self.slice = [-1] * n
+        self.kind = [None] * n
+        self.nz = np.zeros((n, 24), int)
+        self.ipred = np.full((n, 16), -1)
+        self.cur_slice = 0
+
+    def avail(self, mx, my) -> bool:
+        return (0 <= mx < self.mbw and 0 <= my < self.mbh
+                and self.slice[my * self.mbw + mx] == self.cur_slice)
+
+    def intra(self, addr) -> bool:
+        return self.kind[addr] not in ("P", "skip")
+
+    def avail_intra(self, mx, my) -> bool:
+        return self.avail(mx, my) and (not self.constrained
+                                       or self.intra(my * self.mbw + mx))
+
+    def nz_at(self, mx, my, bx, by, plane):
+        n = 2 if plane else 4
+        if bx < 0:
+            mx, bx = mx - 1, bx + n
+        if by < 0:
+            my, by = my - 1, by + n
+        if not self.avail(mx, my):
+            return -1
+        row = self.nz[my * self.mbw + mx]
+        return row[16 + 4 * (plane - 1) + by * 2 + bx] if plane else row[by * 4 + bx]
+
+    def nc(self, mx, my, bx, by, plane=0) -> int:
+        a, b = self.nz_at(mx, my, bx - 1, by, plane), self.nz_at(mx, my, bx, by - 1, plane)
+        if a >= 0 and b >= 0:
+            return (a + b + 1) >> 1
+        return a if a >= 0 else b if b >= 0 else 0
+
+    def predicted_mode(self, mx, my, bx, by, cur_modes) -> int:
+        dc = False
+        got = []
+        for nx, ny in ((bx - 1, by), (bx, by - 1)):
+            amx, amy = mx, my
+            if nx < 0:
+                amx, nx = amx - 1, nx + 4
+            if ny < 0:
+                amy, ny = amy - 1, ny + 4
+            if (amx, amy) == (mx, my):
+                got.append(cur_modes[ny * 4 + nx])
+                continue
+            if not self.avail(amx, amy):
+                dc = True
+                got.append(2)
+                continue
+            a = amy * self.mbw + amx
+            if not self.intra(a) and self.constrained:
+                dc = True
+                got.append(2)
+            elif self.kind[a] not in ("I4", "I8"):
+                got.append(2)
+            else:
+                got.append(int(self.ipred[a][ny * 4 + nx]))
+        return 2 if dc else min(got)
+
+    def block_avail(self, mx, my, bx, by, n):
+        """(top, left, top-left, top-right) sample availability of the n x n
+        intra block at 4x4 position (bx, by)."""
+        s = n // 4
+
+        def done(nx, ny):
+            if n == 4:
+                return _zidx(nx, ny) < _zidx(bx, by)
+            return (ny // 2) * 2 + nx // 2 < (by // 2) * 2 + bx // 2
+
+        def nb(nx, ny):
+            if ny < 0:
+                return self.avail_intra(mx - 1 if nx < 0 else mx + 1 if nx >= 4 else mx, my - 1)
+            if nx < 0:
+                return self.avail_intra(mx - 1, my)
+            if nx >= 4:
+                return False
+            return done(nx, ny)
+        return nb(bx, by - 1), nb(bx - 1, by), nb(bx - 1, by - 1), nb(bx + s, by - 1)
+
+
+def valid_nxn_modes(top, left, tl) -> list:
+    need_top, need_left, need_tl = {0, 3, 4, 5, 6, 7}, {1, 4, 5, 6, 8}, {4, 5, 6}
+    return [m for m in range(9) if (top or m not in need_top) and (left or m not in need_left)
+            and (tl or m not in need_tl)]
+
+
+def valid_16_modes(top, left, tl) -> list:  # 0 V, 1 H, 2 DC, 3 plane
+    return [m for m in range(4) if (m != 0 or top) and (m != 1 or left)
+            and (m != 3 or (top and left and tl))]
+
+
+def valid_chroma_modes(top, left, tl) -> list:  # 0 DC, 1 H, 2 V, 3 plane
+    return [m for m in range(4) if (m != 1 or left) and (m != 2 or top)
+            and (m != 3 or (top and left and tl))]
+
+
+def write_mb(b: Bits, pic: Picture, mx: int, my: int, d: dict, slice_type: str, o: dict,
+             num_ref: int) -> None:
+    """One non-skipped macroblock of description ``d`` (see ``RandomPicture.
+    describe``) into ``b``; ``pic`` learns its total_coeff and modes."""
+    t = tables()
+    addr = my * pic.mbw + mx
+    kind = d["kind"]
+    pic.slice[addr] = pic.cur_slice
+    pic.kind[addr] = kind
+    base = 5 if slice_type == "P" else 0
+    if kind == "PCM":
+        b.ue(base + 25)
+        b.align_zero()
+        for v in d["pcm"]:
+            b.u(int(v), 8)
+        pic.nz[addr] = 16
+        return
+    if kind == "P":
+        b.ue(d["mb_type"])
+        refs = d["refs"]
+        if d["mb_type"] < 3:
+            if num_ref > 1:
+                for r in refs:
+                    _te(b, r, num_ref - 1)
+        else:
+            for s in d["sub"]:
+                b.ue(s)
+            if num_ref > 1 and d["mb_type"] == 3:
+                for r in refs:
+                    _te(b, r, num_ref - 1)
+        for mv in d["mvd"]:
+            b.se(mv[0])
+            b.se(mv[1])
+        cbp = d["cbp"]
+        b.ue(t.inter_cbp[cbp])
+        small = d["mb_type"] >= 3 and any(d["sub"])
+        if (cbp & 15) and o["t8"] and not small:
+            b.flag(d["t8"])
+        if cbp:
+            b.se(d["dqp"])
+        _residual(b, pic, mx, my, d, cbp, False)
+        return
+    if kind in ("I4", "I8"):
+        b.ue(base)
+        if o["t8"]:
+            b.flag(kind == "I8")
+        cur = [-1] * 16
+        n = 4 if kind == "I8" else 16
+        for k in range(n):
+            blk = 4 * k if kind == "I8" else k
+            bx, by = _zx(blk), _zy(blk)
+            pred = pic.predicted_mode(mx, my, bx, by, cur)
+            mode = d["modes"][k]
+            if mode == pred:
+                b.flag(True)
+            else:
+                b.flag(False)
+                b.u(mode if mode < pred else mode - 1, 3)
+            s = 2 if kind == "I8" else 1
+            for y in range(by, by + s):
+                for x in range(bx, bx + s):
+                    cur[y * 4 + x] = mode
+        pic.ipred[addr] = cur
+        b.ue(d["cmode"])
+        cbp = d["cbp"]
+        b.ue(t.intra_cbp[cbp])
+        if cbp:
+            b.se(d["dqp"])
+        _residual(b, pic, mx, my, d, cbp, False)
+        return
+    # I16
+    cbp = d["cbp"]
+    b.ue(base + 1 + d["mode"] + 4 * (cbp >> 4) + (12 if cbp & 15 else 0))
+    b.ue(d["cmode"])
+    b.se(d["dqp"])
+    _residual(b, pic, mx, my, d, cbp, True)
+
+
+def _te(b: Bits, v: int, rng: int) -> None:
+    if rng == 1:
+        b.flag(not v)
+    else:
+        b.ue(v)
+
+
+def _residual(b: Bits, pic: Picture, mx, my, d, cbp, i16) -> None:
+    addr = my * pic.mbw + mx
+    nz = pic.nz[addr]
+    nz[:] = 0
+    if i16:
+        write_block(b, d["dc"], pic.nc(mx, my, 0, 0))
+    for b8 in range(4):
+        for i4 in range(4):
+            blk = 4 * b8 + i4
+            bx, by = _zx(blk), _zy(blk)
+            if not cbp & (1 << b8):
+                continue
+            if i16:
+                n = write_block(b, d["ac"][blk], pic.nc(mx, my, bx, by))
+            elif d.get("t8"):
+                n = write_block(b, d["luma8"][b8][i4::4], pic.nc(mx, my, bx, by))
+            else:
+                n = write_block(b, d["luma"][blk], pic.nc(mx, my, bx, by))
+            nz[by * 4 + bx] = n
+    if cbp & 0x30:
+        for c in range(2):
+            write_block(b, d["cdc"][c], -1)
+    if cbp >> 4 == 2:
+        for c in range(2):
+            for k in range(4):
+                nz[16 + 4 * c + k] = write_block(b, d["cac"][c][k], pic.nc(mx, my, k & 1, k >> 1,
+                                                                             c + 1))
+
+
+# --- random syntax ---------------------------------------------------------------
+
+
+def _levels(rng, n: int, big: float = 0.15, dense: float = 0.5) -> list:
+    """``n`` levels in scan order: mostly zeros and small, some of every size."""
+    out = [0] * n
+    count = int(rng.integers(0, n + 1)) if rng.random() < dense else int(rng.integers(0, 4))
+    for p in rng.choice(n, size=min(count, n), replace=False):
+        r = rng.random()
+        mag = 1 if r < 0.45 else int(rng.integers(2, 5)) if r < 0.8 else \
+            int(rng.integers(5, 40)) if r < 1 - big / 3 else int(rng.integers(40, 2000))
+        out[int(p)] = mag * int(rng.choice([-1, 1]))
+    return out
+
+
+def _shrink(levels: list, fits) -> list:
+    """``levels`` halved until ``fits(levels)``."""
+    while not fits(levels):
+        levels = [int(np.fix(v / 2)) for v in levels]
+    return levels
+
+
+class RandomPicture:
+    """Random macroblock descriptions for one slice at a time."""
+
+    def __init__(self, rng, o: dict, pic: Picture):
+        self.rng, self.o, self.pic = rng, o, pic
+
+    def _fits4(self, raster, qp, dc=0) -> bool:
+        d = deq4(np.asarray(raster), qp)
+        d[0] = dc if dc is not None else d[0]
+        return int(np.abs(d).sum()) <= 30000
+
+    def _block4(self, qp, n=16, dc=None) -> list:
+        zz = tables().zigzag4
+        start = 16 - n
+
+        def fits(lv):
+            raster = np.zeros(16, int)
+            for k, v in enumerate(lv):
+                raster[zz[k + start]] = v
+            if dc is not None:
+                raster[0] = 0
+            return self._fits4(raster, qp, dc)
+        return _shrink(_levels(self.rng, n), fits)
+
+    def _block8(self, qp) -> list:
+        zz = tables().zigzag8
+
+        def fits(lv):
+            raster = np.zeros(64, int)
+            for k, v in enumerate(lv):
+                raster[zz[k]] = v
+            return int(np.abs(deq8(raster, qp)).sum()) <= 7000
+        return _shrink(_levels(self.rng, 64), fits)
+
+    def _chroma(self, d: dict, qp: int, cbp_c: int) -> None:
+        rng, o = self.rng, self.o
+        d["cdc"], d["cac"] = [[0] * 4, [0] * 4], [[[0] * 15 for _ in range(4)] for _ in range(2)]
+        for c in range(2):
+            qpc = chroma_qp(qp, o["cqp"][c])
+            if cbp_c:
+                d["cdc"][c] = _shrink(_levels(rng, 4), lambda lv: int(np.abs(chroma_dc(lv, qpc))
+                                                                      .max()) <= 8000)
+            dcs = chroma_dc(d["cdc"][c], qpc)
+            if cbp_c == 2:
+                for k in range(4):
+                    d["cac"][c][k] = self._block4(qpc, 15, int(dcs[k]))
+
+    def describe(self, mx: int, my: int, kind: str, qp: int, num_ref: int) -> dict:
+        """A random macroblock of ``kind`` at ``qp`` (the QP before its
+        mb_qp_delta); d["qp"] is the one after."""
+        rng, o, pic = self.rng, self.o, self.pic
+        d = dict(kind=kind)
+        dqp = 0
+        lo, hi = o["qp_range"]
+        if rng.random() < 0.5:
+            dqp = int(np.clip(int(rng.integers(lo, hi + 1)) - qp, -26, 25))
+        if rng.random() < 0.03:
+            dqp = int(rng.choice([-26, 25]))  # a wrap-around of QPY
+        if kind == "PCM":
+            d["pcm"] = rng.integers(0, 256, 384)
+            d["qp"] = qp
+            return d
+        if kind == "I16":
+            top, left, tl = pic.avail_intra(mx, my - 1), pic.avail_intra(mx - 1, my), \
+                pic.avail_intra(mx - 1, my - 1)
+            d["mode"] = int(rng.choice(valid_16_modes(top, left, tl)))
+            d["cmode"] = int(rng.choice(valid_chroma_modes(top, left, tl)))
+            cbp = (int(rng.integers(0, 3)) << 4) | (15 if rng.random() < 0.5 else 0)
+            d["cbp"], d["dqp"] = cbp, dqp
+            q = (qp + dqp + 52) % 52
+            d["qp"] = q
+
+            def dc_fits(lv):
+                raster = np.zeros(16, int)
+                for k, v in enumerate(lv):
+                    raster[tables().zigzag4[k]] = v
+                return int(np.abs(luma_dc(raster, q)).max()) <= 8000
+            d["dc"] = _shrink(_levels(rng, 16), dc_fits)
+            raster = np.zeros(16, int)
+            for k, v in enumerate(d["dc"]):
+                raster[tables().zigzag4[k]] = v
+            dcs = luma_dc(raster, q)
+            d["ac"] = [[0] * 15 for _ in range(16)]
+            if cbp & 15:
+                for blk in range(16):
+                    bx, by = _zx(blk), _zy(blk)
+                    d["ac"][blk] = self._block4(q, 15, int(dcs[by * 4 + bx]))
+            self._chroma(d, q, cbp >> 4)
+            return d
+        cbp = int(rng.integers(0, 48))
+        if rng.random() < 0.2:
+            cbp = 0
+        if kind in ("I4", "I8"):
+            n = 4 if kind == "I8" else 16
+            modes, cur = [], [-1] * 16
+            top, left, tl = pic.avail_intra(mx, my - 1), pic.avail_intra(mx - 1, my), \
+                pic.avail_intra(mx - 1, my - 1)
+            for k in range(n):
+                blk = 4 * k if kind == "I8" else k
+                bx, by = _zx(blk), _zy(blk)
+                bt, bl, btl, _ = pic.block_avail(mx, my, bx, by, 8 if kind == "I8" else 4)
+                pred = pic.predicted_mode(mx, my, bx, by, cur)
+                ok = valid_nxn_modes(bt, bl, btl)
+                m = pred if pred in ok and rng.random() < 0.3 else int(rng.choice(ok))
+                modes.append(m)
+                s = 2 if kind == "I8" else 1
+                for y in range(by, by + s):
+                    for x in range(bx, bx + s):
+                        cur[y * 4 + x] = m
+            d["modes"] = modes
+            d["cmode"] = int(rng.choice(valid_chroma_modes(top, left, tl)))
+            d["t8"] = kind == "I8"
+        else:  # P
+            mb_type = int(rng.choice(o["p_types"] or [0, 1, 2, 3] + ([4] if num_ref > 1 else [])))
+            d["mb_type"] = mb_type
+            if mb_type < 3:
+                nparts = 1 if mb_type == 0 else 2
+                d["refs"] = [int(rng.integers(0, num_ref)) for _ in range(nparts)]
+                nmv = nparts
+            else:
+                d["sub"] = [int(rng.choice(4, p=[0.4, 0.2, 0.2, 0.2])) for _ in range(4)]
+                d["refs"] = [int(rng.integers(0, num_ref)) for _ in range(4)] \
+                    if mb_type == 3 else [0] * 4
+                nmv = sum((1, 2, 2, 4)[s] for s in d["sub"])
+            lim = o["mvd"]
+            d["mvd"] = [(int(rng.integers(-lim, lim + 1)), int(rng.integers(-lim, lim + 1)))
+                        for _ in range(nmv)]
+            if o["far_mv"] and rng.random() < 0.1:
+                d["mvd"][0] = tuple(int(v) for v in rng.integers(-400, 401, 2))
+            small = mb_type >= 3 and any(d["sub"])
+            d["t8"] = bool(o["t8"] and (cbp & 15) and not small and rng.random() < 0.5)
+        d["cbp"], d["dqp"] = cbp, (dqp if cbp else 0)
+        q = (qp + d["dqp"] + 52) % 52
+        d["qp"] = q
+        if d.get("t8"):
+            d["luma8"] = [self._block8(q) if cbp & (1 << b8) else [0] * 64 for b8 in range(4)]
+        else:
+            d["luma"] = [self._block4(q) if cbp & (1 << (blk >> 2)) else [0] * 16
+                         for blk in range(16)]
+        self._chroma(d, q, cbp >> 4)
+        return d
+
+
+# --- streams ----------------------------------------------------------------------
+
+
+class StreamWriter:
+    """Pictures of one stream, each a list of NAL units, with the reference
+    bookkeeping (sliding window, MMCO 1, list modification) the syntax
+    needs."""
+
+    def __init__(self, o: dict, seed: int):
+        self.o = o
+        self.rng = np.random.default_rng(seed)
+        self.refs = []  # frame_num of each short-term reference, oldest first
+        self.frame_num = 0
+        self.prev_ref_frame_num = 0
+        self.idr_count = 0
+        self.poc_lsb = 0
+        self.n = 0
+        self.last_nonref = False
+        self.variant = 0
+
+    def parameter_sets(self) -> list:
+        o = self.o
+        self.variant = self.idr_count  # what the pictures up to the next sets use
+        so = dict(o)
+        if o["inband"] == "colour" and self.variant % 2:  # the SPS's VUI changes
+            so["vui"] = dict(o["vui"] or {}, full_range=not (o["vui"] or {}).get("full_range"))
+        out = [nal(3, 7, sps(so, o.get("sps_id", 0)))]
+        for pid in o["pps_ids"]:
+            out.append(nal(3, 8, pps(self._pps_of(pid), pid, o.get("sps_id", 0))))
+        return out
+
+    def _pps_of(self, pid):
+        """The options of PPS ``pid``: each id its own QP and chroma offsets,
+        and with ``inband`` "change" others after each IDR picture (with
+        "colour" the SPS's full range flips instead)."""
+        o = dict(self.o)
+        k = list(self.o["pps_ids"]).index(pid)
+        if self.o["inband"] == "change":
+            k += self.variant % 3
+        if k:
+            o["init_qp"] = 20 + 3 * k
+            o["cqp"] = [self.o["cqp"][0] - k, self.o["cqp"][1] + k]
+        return o
+
+    def picture(self, idr: bool, body=None) -> list:
+        """The NAL units of the next picture (random macroblocks unless
+        ``body(writer, slice_args)`` gives them)."""
+        o, rng = self.o, self.rng
+        units = []
+        if o["extra_nals"]:
+            units.append(nal(0, 9, bytes([(0 if idr else 1) << 5 | 0x10])))  # AUD
+        if idr and self.n and o["inband"]:  # the parameter sets again, in band
+            units += self.parameter_sets()
+        if o["extra_nals"]:
+            units.append(nal(0, 6, bytes([5, 17]) + bytes(range(16)) + b"\x07\x80"))  # SEI
+        max_fn = 1 << o["log2_max_frame_num"]
+        if idr:
+            self.refs = []
+            self.frame_num = 0
+            self.poc_lsb = 0
+            self.abs_poc = 0
+        else:
+            skip = 2 if o["gap_at"] == self.n else 1  # a gap in frame_num
+            self.frame_num = (self.prev_ref_frame_num + skip) % max_fn
+        ref_idc = 3
+        if not idr and o["nonref"] and rng.random() < o["nonref"] and \
+                not (o["poc_type"] in (1, 2) and self.last_nonref):  # else a repeated POC
+            ref_idc = 0
+        self.last_nonref = ref_idc == 0
+        if not idr:
+            step = o["poc_step"] if isinstance(o["poc_step"], int) else \
+                int(rng.choice(o["poc_step"]))
+            if o["poc_drop_at"] == self.n:  # output order other than decoding order
+                step = -1
+            self.poc_lsb = (self.poc_lsb + step) % (1 << o["log2_max_poc_lsb"])
+        pid = int(rng.choice(o["pps_ids"]))
+        po = self._pps_of(pid)
+        mbw, mbh = o["mbw"], o["mbh"]
+        total = mbw * mbh
+        cuts = sorted(set(int(v) for v in rng.integers(1, total, o["slices"] - 1))) \
+            if o["slices"] > 1 and total > 1 else []
+        bounds = [0] + cuts + [total]
+        pic = Picture(mbw, mbh, o["constrained_intra"])
+        # the reference marking of the picture, the same in every slice
+        mmco = []
+        if ref_idc and not idr and o["mmco"] and self.refs and rng.random() < 0.5:
+            need = max(len(self.refs) + 1 - max(o["max_ref"], 1), 0)
+            k = max(need, int(rng.integers(1, len(self.refs) + 1)))
+            mmco = list(rng.choice(self.refs, size=k, replace=False))
+        for si in range(len(bounds) - 1):
+            pic.cur_slice = si
+            units.append(self._slice(idr, ref_idc, pid, po, pic, bounds[si], bounds[si + 1],
+                                     mmco, body))
+        if o["extra_nals"]:
+            units.append(nal(0, 12, b"\xff" * 5 + b"\x80"))  # filler data
+        # marking, as the decoder does it
+        if ref_idc:
+            if mmco:
+                self.refs = [f for f in self.refs if f not in mmco]
+            elif not idr and len(self.refs) >= max(o["max_ref"], 1):
+                wrap = lambda f: f - max_fn if f > self.frame_num else f  # noqa: E731
+                self.refs.remove(min(self.refs, key=wrap))
+            self.refs.append(self.frame_num)
+            self.prev_ref_frame_num = self.frame_num
+        self.n += 1
+        self.idr_count += idr  # parameter sets and slices of one IDR picture agree
+        return units
+
+    def _pic_num(self, f):
+        return f - (1 << self.o["log2_max_frame_num"]) if f > self.frame_num else f
+
+    def _slice(self, idr, ref_idc, pid, po, pic, first, end, mmco, body) -> bytes:
+        o, rng = self.o, self.rng
+        b = Bits()
+        stype = "I" if idr or (o["slice_i_in_p"] and rng.random() < 0.2) else "P"
+        b.ue(first)
+        code = 2 if stype == "I" else {"B": 1, "SP": 3, "SI": 4}.get(o["force_slice_type"], 0)
+        b.ue(code + (5 if rng.random() < 0.5 else 0))
+        b.ue(pid)
+        b.u(self.frame_num, o["log2_max_frame_num"])
+        if idr:
+            b.ue(self.idr_count % 4)
+        if o["poc_type"] == 0:
+            b.u(self.poc_lsb, o["log2_max_poc_lsb"])
+            if po.get("bottom_poc"):  # the POC is the smaller field's: still rising
+                b.se(int(rng.integers(-1, 4)) if not idr else 0)
+        elif o["poc_type"] == 1 and not o["delta_always_zero"]:
+            b.se(0)
+            if po.get("bottom_poc"):
+                b.se(int(rng.integers(0, 3)))
+        if po.get("redundant"):
+            b.ue(po.get("redundant_cnt", 0))
+        num_ref = po["num_ref_default"]
+        if stype == "P":
+            held = len(self.refs)
+            want = int(rng.integers(1, held + 1)) if o["override"] else min(num_ref, held)
+            if o["override"] or num_ref > held:
+                b.flag(True)
+                b.ue(want - 1)
+            else:
+                b.flag(False)
+            num_ref = want
+            if o["modify"] and rng.random() < 0.6:
+                b.flag(True)
+                max_fn = 1 << o["log2_max_frame_num"]
+                pred = self.frame_num
+                for _ in range(int(rng.integers(1, num_ref + 1))):
+                    target = self._pic_num(int(rng.choice(self.refs)))
+                    no_wrap = target + max_fn if target < 0 else target
+                    if rng.random() < 0.5:
+                        diff = (pred - no_wrap) % max_fn or max_fn
+                        b.ue(0)
+                    else:
+                        diff = (no_wrap - pred) % max_fn or max_fn
+                        b.ue(1)
+                    b.ue(diff - 1)
+                    pred = no_wrap
+                b.ue(3)
+            else:
+                b.flag(False)
+        if ref_idc:
+            if idr:
+                b.flag(False)
+                b.flag(o["long_term_idr"])
+            elif o["mmco_op"]:  # one operation other than MMCO 1, with its fields
+                b.flag(True)
+                b.ue(o["mmco_op"])
+                for _ in range({2: 1, 3: 2, 4: 1, 5: 0, 6: 1}[o["mmco_op"]]):
+                    b.ue(0)
+                b.ue(0)
+            elif mmco:
+                b.flag(True)
+                for f in mmco:
+                    b.ue(1)
+                    b.ue(self.frame_num - self._pic_num(int(f)) - 1)
+                b.ue(0)
+            else:
+                b.flag(False)
+        lo, hi = o["qp_range"]
+        qp = int(rng.integers(lo, hi + 1))
+        b.se(qp - po["init_qp"])
+        if po["deblock_ctrl"]:
+            idc = int(rng.choice(o["dbk_idc"]))
+            b.ue(idc)
+            if idc != 1:
+                b.se(int(rng.integers(-6, 7)))
+                b.se(int(rng.integers(-6, 7)))
+        if body is not None:
+            body(b, pic, first, end, stype, qp, num_ref)
+        else:
+            self._random_mbs(b, pic, first, end, stype, qp, num_ref, po)
+        return nal(ref_idc, 5 if idr else 1, b.rbsp())
+
+    def _random_mbs(self, b, pic, first, end, stype, qp, num_ref, po) -> None:
+        o, rng = self.o, self.rng
+        gen = RandomPicture(rng, po, pic)
+        kinds_i = o["i_types"] or (["I4", "I16"] + (["I8"] if po["t8"] else [])
+                                   + (["PCM"] if o["pcm"] else []))
+        skip = 0
+        for addr in range(first, end):
+            mx, my = addr % pic.mbw, addr // pic.mbw
+            if stype == "P":
+                r = rng.random()
+                if r < 0.2:
+                    kind = "skip"
+                elif r < 0.35 and o["intra_in_p"]:
+                    kind = str(rng.choice(kinds_i))
+                else:
+                    kind = "P"
+            else:
+                kind = str(rng.choice(kinds_i))
+            if kind == "skip":
+                skip += 1
+                pic.slice[addr] = pic.cur_slice
+                pic.kind[addr] = "skip"
+                pic.nz[addr] = 0
+                continue
+            if stype == "P":
+                b.ue(skip)
+                skip = 0
+            d = gen.describe(mx, my, kind, qp, num_ref)
+            write_mb(b, pic, mx, my, d, stype, po, num_ref)
+            qp = d["qp"]
+        if skip:
+            b.ue(skip)
+
+
+def random_stream(width: int, height: int, n: int, seed: int, **kw) -> tuple:
+    """(samples, options): ``n`` pictures of random syntax, an IDR picture
+    every ``gop``, each sample the list of its NAL units (the first holds
+    the parameter sets)."""
+    o = options(width, height, **kw)
+    w = StreamWriter(o, seed)
+    samples = []
+    for k in range(n):
+        units = w.parameter_sets() if k == 0 else []
+        samples.append(units + w.picture(k % o["gop"] == 0))
+    return samples, o
+
+
+# --- an encoder of real content --------------------------------------------------
+
+
+def smooth_yuv(width: int, height: int, n: int, seed: int, step: int = 4):
+    """(n, H, W) Y and (n, H/2, W/2) U, V planes of a seeded smooth field
+    panning ``step`` pixels a frame (a random field at 1/16 of the size,
+    bilinearly upsampled)."""
+    rng = np.random.default_rng(seed)
+    W = width + step * n
+    out = []
+    for c, (h, w) in enumerate([(height, W), (height // 2, W // 2), (height // 2, W // 2)]):
+        low = rng.random((max(h // 16, 2) + 1, max(w // 16, 2) + 1))
+        ys = np.linspace(0, low.shape[0] - 1, h)
+        xs = np.linspace(0, low.shape[1] - 1, w)
+        y0, x0 = np.floor(ys).astype(int).clip(0, low.shape[0] - 2), \
+            np.floor(xs).astype(int).clip(0, low.shape[1] - 2)
+        fy, fx = (ys - y0)[:, None], (xs - x0)[None, :]
+        f = (low[y0][:, x0] * (1 - fy) * (1 - fx) + low[y0 + 1][:, x0] * fy * (1 - fx)
+             + low[y0][:, x0 + 1] * (1 - fy) * fx + low[y0 + 1][:, x0 + 1] * fy * fx)
+        lo_v, hi_v = (30, 220) if c == 0 else (70, 190)
+        field = (lo_v + (hi_v - lo_v) * f).round().astype(np.int64)
+        s = step if c == 0 else step // 2
+        wc = width if c == 0 else width // 2
+        out.append(np.stack([field[:, i * s:i * s + wc] for i in range(n)]))
+    return out
+
+
+_MF = np.array([[13107, 5243, 8066], [11916, 4660, 7490], [10082, 4194, 6554],
+                [9362, 3647, 5825], [8192, 3355, 5243], [7282, 2893, 4559]])
+_CF = np.array([[1, 1, 1, 1], [2, 1, -1, -2], [1, -1, -1, 1], [1, -2, 2, -1]])
+
+
+def _quant4(res: np.ndarray, qp: int, intra: bool) -> np.ndarray:
+    """Forward 4x4 transform and quantisation of (..., 4, 4) residuals:
+    levels in raster order (..., 16)."""
+    w = _CF @ res @ _CF.T
+    mf = _MF[qp % 6][_CLASS4].reshape(4, 4)
+    qbits = 15 + qp // 6
+    f = (1 << qbits) // (3 if intra else 6)
+    lv = (np.abs(w) * mf + f) >> qbits
+    return (np.sign(w) * lv).reshape(*res.shape[:-2], 16)
+
+
+class _Encoder:
+    """Intra 16x16 (the best of its four modes) and P 16x16 at a fixed
+    vector, with the residual coded, the reconstruction kept without
+    deblocking (the stream turns the filter off)."""
+
+    def __init__(self, o: dict, qp: int):
+        self.o, self.qp = o, qp
+        self.rec = None  # (Y, U, V) of the last picture
+        self.ref = None
+
+    def _pred16(self, Y, mx, my, mode):
+        x, y = 16 * mx, 16 * my
+        top, left = Y[y - 1, x:x + 16], Y[y:y + 16, x - 1]
+        if mode == 0:
+            return np.tile(top, (16, 1))
+        if mode == 1:
+            return np.tile(left[:, None], (1, 16))
+        if mode == 2:
+            if mx and my:
+                v = (top.sum() + left.sum() + 16) >> 5
+            elif my:
+                v = (top.sum() + 8) >> 4
+            elif mx:
+                v = (left.sum() + 8) >> 4
+            else:
+                v = 128
+            return np.full((16, 16), v)
+        k = np.arange(1, 9)
+        h = int((k * (Y[y - 1, x + 7 + k] - Y[y - 1, x + 7 - k])).sum())
+        v = int((k * (Y[y + 7 + k, x - 1] - Y[y + 7 - k, x - 1])).sum())
+        a = 16 * (int(Y[y + 15, x - 1]) + int(Y[y - 1, x + 15]))
+        bb, cc = (5 * h + 32) >> 6, (5 * v + 32) >> 6
+        yy, xx = np.mgrid[0:16, 0:16]
+        return np.clip((a + bb * (xx - 7) + cc * (yy - 7) + 16) >> 5, 0, 255)
+
+    def _pred_chroma_dc(self, C, mx, my):
+        x, y = 8 * mx, 8 * my
+        out = np.zeros((8, 8), int)
+        for by in range(2):
+            for bx in range(2):
+                st = int(C[y - 1, x + 4 * bx:x + 4 * bx + 4].sum()) if my else None
+                sl = int(C[y + 4 * by:y + 4 * by + 4, x - 1].sum()) if mx else None
+                first = (bx, by) in ((0, 0), (1, 1))
+                if first and st is not None and sl is not None:
+                    v = (st + sl + 4) >> 3
+                elif (first or bx == 1) and st is not None:
+                    v = (st + 2) >> 2
+                elif sl is not None:
+                    v = (sl + 2) >> 2
+                elif st is not None:
+                    v = (st + 2) >> 2
+                else:
+                    v = 128
+                out[4 * by:4 * by + 4, 4 * bx:4 * bx + 4] = v
+        return out
+
+    def _code_chroma(self, C, pred, src, qpc, intra):
+        """Levels (dc, ac) of an 8x8 chroma block and its reconstruction."""
+        blocks = (src - pred).reshape(2, 4, 2, 4).transpose(0, 2, 1, 3).reshape(4, 4, 4)
+        w = _CF @ blocks @ _CF.T
+        dc = w[:, 0, 0].reshape(2, 2)
+        hd = np.array([[1, 1], [1, -1]]) @ dc @ np.array([[1, 1], [1, -1]])
+        qbits = 15 + qpc // 6
+        f = (1 << qbits) // (3 if intra else 6)
+        dcl = (np.sign(hd) * ((np.abs(hd) * _MF[qpc % 6][0] + 2 * f) >> (qbits + 1))).reshape(4)
+        ac = _quant4(blocks, qpc, intra)
+        ac[:, 0] = 0
+        dcs = chroma_dc(dcl, qpc)
+        rec = np.empty((4, 4, 4), int)
+        for k in range(4):
+            d = deq4(ac[k], qpc).reshape(4, 4)
+            d[0, 0] = dcs[k]
+            rec[k] = np.clip(pred.reshape(2, 4, 2, 4).transpose(0, 2, 1, 3).reshape(4, 4, 4)[k]
+                             + idct4(d), 0, 255)
+        zz = tables().zigzag4
+        return ([int(v) for v in dcl], [[int(ac[k][zz[i]]) for i in range(1, 16)] for k in range(4)],
+                rec.reshape(2, 2, 4, 4).transpose(0, 2, 1, 3).reshape(8, 8))
+
+    def mb_intra(self, src, mx, my) -> dict:
+        Y, U, V = self.rec
+        qp = self.qp
+        x, y = 16 * mx, 16 * my
+        s = src[0][y:y + 16, x:x + 16]
+        modes = valid_16_modes(my > 0, mx > 0, mx > 0 and my > 0)
+        preds = {m: self._pred16(Y, mx, my, m) for m in modes}
+        mode = min(modes, key=lambda m: int(np.abs(s - preds[m]).sum()))
+        pred = preds[mode]
+        blocks = (s - pred).reshape(4, 4, 4, 4).transpose(0, 2, 1, 3)  # (by, bx, 4, 4)
+        w = _CF @ blocks @ _CF.T
+        dc = w[:, :, 0, 0]
+        hd = (_H4 @ dc @ _H4) // 2
+        qbits = 15 + qp // 6
+        f = (1 << qbits) // 3
+        dcl = np.sign(hd) * ((np.abs(hd) * _MF[qp % 6][0] + 2 * f) >> (qbits + 1))
+        ac = _quant4(blocks, qp, True)
+        ac[..., 0] = 0
+        dcs = luma_dc(dcl.reshape(16), qp).reshape(4, 4)
+        rec = np.empty((4, 4, 4, 4), int)
+        for by in range(4):
+            for bx in range(4):
+                d = deq4(ac[by, bx], qp).reshape(4, 4)
+                d[0, 0] = dcs[by, bx]
+                rec[by, bx] = np.clip(pred[4 * by:4 * by + 4, 4 * bx:4 * bx + 4] + idct4(d), 0, 255)
+        zz = tables().zigzag4
+        cbp_l = 15 if ac.any() else 0
+        Y[y:y + 16, x:x + 16] = rec.transpose(0, 2, 1, 3).reshape(16, 16)
+        dcw = [int(dcl.reshape(16)[zz[k]]) for k in range(16)]
+        acw = [[int(ac[_zy(blk), _zx(blk)][zz[i]]) for i in range(1, 16)] for blk in range(16)]
+        d = dict(kind="I16", mode=mode, cmode=0, dqp=0, dc=dcw, ac=acw)
+        cd = []
+        for c, P in ((0, U), (1, V)):
+            qpc = chroma_qp(qp, self.o["cqp"][c])
+            pred_c = self._pred_chroma_dc(P, mx, my)
+            cdc, cac, rc = self._code_chroma(P, pred_c, src[c + 1][8 * my:8 * my + 8,
+                                                                   8 * mx:8 * mx + 8], qpc, True)
+            P[8 * my:8 * my + 8, 8 * mx:8 * mx + 8] = rc
+            cd.append((cdc, cac))
+        d["cdc"] = [cd[0][0], cd[1][0]]
+        d["cac"] = [cd[0][1], cd[1][1]]
+        cbp_c = 2 if any(any(r) for c in d["cac"] for r in c) else 1 if any(
+            any(c) for c in d["cdc"]) else 0
+        d["cbp"] = (cbp_c << 4) | cbp_l
+        return d
+
+    def mb_inter(self, src, mx, my, mv) -> dict:
+        """P_L0_16x16 of integer vector ``mv`` (quarter samples, multiples
+        of 8) with the residual coded."""
+        Y, U, V = self.rec
+        rY, rU, rV = self.ref
+        qp = self.qp
+        x, y = 16 * mx, 16 * my
+        H, W = rY.shape
+        ys = np.clip(np.arange(y, y + 16) + mv[1] // 4, 0, H - 1)
+        xs = np.clip(np.arange(x, x + 16) + mv[0] // 4, 0, W - 1)
+        pred = rY[ys][:, xs]
+        s = src[0][y:y + 16, x:x + 16]
+        blocks = (s - pred).reshape(4, 4, 4, 4).transpose(0, 2, 1, 3)
+        lv = _quant4(blocks, qp, False)
+        rec = np.empty((4, 4, 4, 4), int)
+        for by in range(4):
+            for bx in range(4):
+                rec[by, bx] = np.clip(pred[4 * by:4 * by + 4, 4 * bx:4 * bx + 4]
+                                      + idct4(deq4(lv[by, bx], qp).reshape(4, 4)), 0, 255)
+        Y[y:y + 16, x:x + 16] = rec.transpose(0, 2, 1, 3).reshape(16, 16)
+        zz = tables().zigzag4
+        luma = [[int(lv[_zy(blk), _zx(blk)][zz[i]]) for i in range(16)] for blk in range(16)]
+        cbp = 0
+        for b8 in range(4):
+            if any(any(luma[4 * b8 + i]) for i in range(4)):
+                cbp |= 1 << b8
+        d = dict(kind="P", mb_type=0, refs=[0], t8=False, dqp=0, luma=luma)
+        cd = []
+        for c, (P, R) in enumerate(((U, rU), (V, rV))):
+            qpc = chroma_qp(qp, self.o["cqp"][c])
+            cy = np.clip(np.arange(8 * my, 8 * my + 8) + mv[1] // 8, 0, H // 2 - 1)
+            cx = np.clip(np.arange(8 * mx, 8 * mx + 8) + mv[0] // 8, 0, W // 2 - 1)
+            pred_c = R[cy][:, cx]
+            cdc, cac, rc = self._code_chroma(P, pred_c, src[c + 1][8 * my:8 * my + 8,
+                                                                   8 * mx:8 * mx + 8], qpc, False)
+            P[8 * my:8 * my + 8, 8 * mx:8 * mx + 8] = rc
+            cd.append((cdc, cac))
+        d["cdc"] = [cd[0][0], cd[1][0]]
+        d["cac"] = [cd[0][1], cd[1][1]]
+        cbp_c = 2 if any(any(r) for c in d["cac"] for r in c) else 1 if any(
+            any(c) for c in d["cdc"]) else 0
+        d["cbp"] = (cbp_c << 4) | cbp
+        return d
+
+
+def smooth_stream(width: int, height: int, n: int, seed: int, step: int = 4, qp: int = 30,
+                  gop: int = 0, **kw) -> tuple:
+    """(samples, options): a seeded smooth field panning ``step`` pixels a
+    frame (``smooth_yuv``), coded as an IDR picture of Intra 16x16
+    macroblocks (each the best of its four modes), then P pictures of
+    P_L0_16x16 macroblocks at the pan's vector, the residual coded at a
+    fixed QP and the deblocking filter off, so that the encoder's
+    reconstruction is the decoder's; an IDR picture every ``gop`` (0: only
+    the first)."""
+    o = options(width, height, t8=False, init_qp=qp, qp_range=(qp, qp), override=False,
+                max_ref=1, dbk_idc=(1,), pcm=False, **kw)
+    src = smooth_yuv(16 * o["mbw"], 16 * o["mbh"], n, seed, step)
+    w = StreamWriter(o, seed)
+    enc = _Encoder(o, qp)
+    mv = (4 * step, 0)
+    samples = []
+    for k in range(n):
+        frame = [p[k] for p in src]
+        enc.rec = [np.zeros_like(p) for p in frame]
+
+        def body(b, pic, first, end, stype, slice_qp, num_ref, frame=frame):
+            for addr in range(first, end):
+                mx, my = addr % pic.mbw, addr // pic.mbw
+                if stype == "I":
+                    d = enc.mb_intra(frame, mx, my)
+                else:  # every predictor is the pan's vector but the first's
+                    d = enc.mb_inter(frame, mx, my, mv)
+                    d["mvd"] = [mv if addr == 0 else (0, 0)]
+                    b.ue(0)  # mb_skip_run
+                write_mb(b, pic, mx, my, d, stype, o, num_ref)
+        units = w.parameter_sets() if k == 0 else []
+        samples.append(units + w.picture(k == 0 or bool(gop and k % gop == 0), body))
+        enc.ref = enc.rec
+    return samples, o
+
+
+# --- containers ---------------------------------------------------------------------
+
+
+def matrix_fixed(m) -> bytes:
+    """A display matrix (a, b, c, d) in ISO BMFF's 16.16 / 2.30 fixed point."""
+    a, b_, c, d = m
+    F = 1 << 16
+    return struct.pack(">9i", round(a * F), round(b_ * F), 0, round(c * F), round(d * F), 0, 0,
+                       0, 1 << 30)
+
+
+def set_matrix(data: bytes, m, box: bytes = b"tkhd") -> bytes:
+    """An ISO BMFF file with the first ``box`` (tkhd or mvhd) given the
+    display matrix ``m``."""
+    out = bytearray(data)
+    at = bytes(out).index(box) + 4  # the full box's version
+    if box == b"tkhd":
+        at += 52 if out[at] == 1 else 40
+    else:
+        at += 48 if out[at] == 1 else 36
+    out[at:at + 36] = matrix_fixed(m)
+    return bytes(out)
+
+
+def _box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(body)) + kind + body
+
+
+def _full(kind: bytes, version: int, flags: int, body: bytes) -> bytes:
+    return _box(kind, struct.pack(">I", (version << 24) | flags) + body)
+
+
+IDENTITY = (1, 0, 0, 1)
+
+
+def write_mp4(path, samples, width: int, height: int, fps: int = 30, *, sync=None,
+              matrix=IDENTITY, fourcc: bytes = b"avc1", length_size: int = 4,
+              config_in_band: bool = False, brand: bytes = b"isom", tkhd_version: int = 0,
+              movie_matrix=IDENTITY) -> None:
+    """An ISO BMFF file (``brand`` b"qt  " for .mov) of one H.264 track:
+    ``samples`` lists of NAL units, stored behind ``length_size``-byte
+    lengths; the parameter sets of the first sample go into ``avcC`` (and
+    stay in band with ``config_in_band``); ``sync`` the sync samples (the
+    IDR pictures by default); ``matrix`` (a, b, c, d) the track's display
+    matrix, ``movie_matrix`` the movie's."""
+    first = samples[0]
+    ps = [u for u in first if u[0] & 31 in (7, 8)]
+    sps_units = [u for u in ps if u[0] & 31 == 7]
+    pps_units = [u for u in ps if u[0] & 31 == 8]
+    data = []
+    for k, s in enumerate(samples):
+        units = s if config_in_band or k else [u for u in s if u[0] & 31 not in (7, 8)]
+        data.append(length_prefixed(units, length_size))
+    if sync is None:
+        sync = [k for k, s in enumerate(samples) if any(u[0] & 31 == 5 for u in s)]
+    sp = sps_units[0]
+    avcc = bytes([1, sp[1], sp[2], sp[3], 0xFC | (length_size - 1), 0xE0 | len(sps_units)])
+    for u in sps_units:
+        avcc += struct.pack(">H", len(u)) + u
+    avcc += bytes([len(pps_units)])
+    for u in pps_units:
+        avcc += struct.pack(">H", len(u)) + u
+    entry = (b"\0" * 6 + struct.pack(">H", 1) + b"\0" * 16 + struct.pack(">HH", width, height)
+             + struct.pack(">II", 0x480000, 0x480000) + b"\0" * 4 + struct.pack(">H", 1)
+             + b"\0" * 32 + struct.pack(">Hh", 24, -1) + _box(b"avcC", avcc))
+    stsd = _full(b"stsd", 0, 0, struct.pack(">I", 1) + _box(fourcc, entry))
+    n = len(samples)
+    stts = _full(b"stts", 0, 0, struct.pack(">III", 1, n, 1))
+    stss = _full(b"stss", 0, 0, struct.pack(">I", len(sync)) + b"".join(
+        struct.pack(">I", k + 1) for k in sync))
+    stsc = _full(b"stsc", 0, 0, struct.pack(">IIII", 1, 1, n, 1))
+    stsz = _full(b"stsz", 0, 0, struct.pack(">II", 0, n) + b"".join(
+        struct.pack(">I", len(d)) for d in data))
+    ftyp = _box(b"ftyp", brand + struct.pack(">I", 0x200) + brand + b"avc1")
+    mdat_start = len(ftyp) + 8
+    stco = _full(b"stco", 0, 0, struct.pack(">II", 1, mdat_start))
+    stbl = _box(b"stbl", stsd + stts + stss + stsc + stsz + stco)
+    vmhd = _full(b"vmhd", 0, 1, b"\0" * 8)
+    dinf = _box(b"dinf", _full(b"dref", 0, 0, struct.pack(">I", 1) + _full(b"url ", 0, 1, b"")))
+    minf = _box(b"minf", vmhd + dinf + stbl)
+    mdhd = _full(b"mdhd", 0, 0, struct.pack(">IIIIHH", 0, 0, fps, n, 0x55C4, 0))
+    hdlr = _full(b"hdlr", 0, 0, b"\0" * 4 + b"vide" + b"\0" * 12 + b"VideoHandler\0")
+    mdia = _box(b"mdia", mdhd + hdlr + minf)
+
+    mat = matrix_fixed
+    duration = n * 1000 // fps
+    if tkhd_version == 1:
+        times = struct.pack(">QQIIQ", 0, 0, 1, 0, duration)
+    else:
+        times = struct.pack(">IIIII", 0, 0, 1, 0, duration)
+    tkhd = _full(b"tkhd", tkhd_version, 3, times + b"\0" * 8 + struct.pack(">hhhH", 0, 0, 0, 0)
+                 + mat(matrix) + struct.pack(">II", width << 16, height << 16))
+    trak = _box(b"trak", tkhd + mdia)
+    mvhd = _full(b"mvhd", 0, 0, struct.pack(">IIII", 0, 0, 1000, duration)
+                 + struct.pack(">IH", 0x10000, 0x100) + b"\0" * 10 + mat(movie_matrix)
+                 + b"\0" * 24 + struct.pack(">I", 2))
+    moov = _box(b"moov", mvhd + trak)
+    mdat = _box(b"mdat", b"".join(data))
+    pathlib.Path(path).write_bytes(ftyp + mdat + moov)
+
+
+def write_avi_h264(path, samples, width: int, height: int, fps: int = 30,
+                   fourcc: bytes = b"H264") -> None:
+    """A RIFF AVI of Annex B samples (``torch_video_files.write_avi``), its
+    IDR samples the key frames."""
+    from torch_video_files import write_avi
+
+    write_avi(path, [annexb(s) for s in samples], width, height, fps, fourcc,
+              keys=[k for k, s in enumerate(samples) if any(u[0] & 31 == 5 for u in s)])

@@ -292,8 +292,8 @@ def dc_stream(headers: bytes, width: int, height: int, mvs, seed: int) -> list:
 
 
 def write_avi(path, samples, width: int, height: int, fps: int = 30,
-              fourcc: bytes = b"XVID") -> None:
-    """A RIFF AVI of one video stream (``idx1``, the first sample a keyframe)."""
+              fourcc: bytes = b"XVID", keys=(0,)) -> None:
+    """A RIFF AVI of one video stream (``idx1``, the samples ``keys`` keyframes)."""
     def chunk(tag: bytes, body: bytes) -> bytes:
         return tag + struct.pack("<I", len(body)) + body + b"\0" * (len(body) & 1)
 
@@ -311,7 +311,7 @@ def write_avi(path, samples, width: int, height: int, fps: int = 30,
                                                           + chunk(b"strf", strf)))
     movi, index, at = b"", b"", 4
     for i, s in enumerate(samples):
-        index += b"00dc" + struct.pack("<III", 0x10 if i == 0 else 0, at, len(s))
+        index += b"00dc" + struct.pack("<III", 0x10 if i in keys else 0, at, len(s))
         c = chunk(b"00dc", s)
         movi += c
         at += len(c)
