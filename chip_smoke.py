@@ -261,6 +261,19 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      cv2's digests; (c) a 480x640 H.264 frame's decode (IDR and P pictures
      apart) and a 1920x1080 one's, beside 19c's mp4v frame and JPEG, in the
      same call.
+  21. CABAC H.264 input and JPEG restart resync on the card's host: (a)
+     every committed CABAC fixture (a 480x640 and a 1920x1080 pan at High
+     profile with the 8x8 transform, random syntax in 2 slices in .mov),
+     read as 19a reads them, against cv2's digests
+     (tests/data/h264_fixtures.json), and every committed JPEG whose
+     restart markers are out of place (baseline, progressive and
+     arithmetic; RST3 replaced by the next or previous marker, removed, or
+     swapped; an EOI inside a progressive scan) through imread_rgb,
+     imread_gray and decode_image_payload against cv2's digests
+     (tests/data/resync_fixtures.json); (b) 19b over the committed 480x640
+     CABAC clip, its PNG control's frames held to cv2's digests; (c) a
+     frame's decode under CABAC beside CAVLC, at 480x640 and 1920x1080,
+     IDR and P pictures apart, in the same call.
 
 Phase 2 also holds the two gather probes' kernels (gather_rows_sum,
 take_along_rows, the latter at every slab width of SLAB_SWEEP, timed in
@@ -5305,14 +5318,17 @@ def video_reads(ds, order):
     return out
 
 
-def check_video_fixtures(digest_file="video_fixtures.json", tag="19a"):
-    """19a (20a): every committed video fixture through the port's
-    MP4Dataset: its sequential reads, its seeks in the committed order, its
-    reads after subsample(4), the frame count and the fps against cv2's
+def check_video_fixtures(digest_file="video_fixtures.json", tag="19a", part=None):
+    """19a (20a, 21a): every committed video fixture (whose name holds
+    ``part``, if given) through the port's MP4Dataset: its sequential
+    reads, its seeks in the committed order, its reads after subsample(4),
+    the frame count and the fps against cv2's
     (tests/data/video_fixtures.json, h264_fixtures.json)."""
     from mast3r_slam_tpu_torch.data import video
 
     digests = json.loads((IMAGE_DATA / digest_file).read_text())
+    if part is not None:
+        digests = {k: v for k, v in digests.items() if part in k}
     bad, frames = [], 0
     for name, want in sorted(digests.items()):
         path = IMAGE_DATA / name
@@ -5548,6 +5564,81 @@ def run_h264_input(dev, work, smi):
         f"{big['frame_ms']:.3f} ms (IDR {big['idr_ms']:.3f}, P {big['p_ms']:.3f}) (host "
         f"clock); the CLI's ingest p50 {cli['ingest_ms_p50']:.2f} ms over the clip, "
         f"{cli['control_ingest_ms_p50']:.2f} ms over its PNG control; phase 20 "
+        f"{time.perf_counter() - t0:.1f} s; {smi}")
+    return fixtures, cli, decode
+
+
+# ---------------------------------------------------------------------------
+# phase 21: CABAC H.264 input, and JPEG restart resync, on the card's host
+# ---------------------------------------------------------------------------
+
+H264_CABAC_CLIP = "h264_cabac_480x640_smooth.mp4"
+H264_CABAC_BIG = "h264_cabac_1080x1920_smooth.mp4"
+
+
+def check_resync_fixtures():
+    """21a: every committed JPEG whose restart markers are out of place
+    (tests/data/resync_fixtures.json) through imread_rgb, imread_gray and
+    decode_image_payload, against the committed SHA-256 of cv2's colour
+    and gray decodes."""
+    digests = json.loads((IMAGE_DATA / "resync_fixtures.json").read_text())
+    bad = {}
+    for name, want in sorted(digests.items()):
+        faults = fixture_faults(name, want)
+        if faults:
+            bad[name] = faults
+    out = dict(files=len(digests), exact=len(digests) - len(bad), differ=bad)
+    log(f"21a JPEG resync fixtures read as RGB, gray and payload: {json.dumps(out)}")
+    if bad:
+        raise AssertionError(f"21a: the port's reads differ from cv2's decode: {bad}")
+    return out
+
+
+def time_cabac_decode():
+    """21c: host milliseconds of a frame's decode and conversion to RGB,
+    IDR and P pictures apart, under CABAC beside CAVLC, at 480x640 (14
+    frames) and 1920x1080 (an IDR and two P pictures), median over
+    VIDEO_DECODE_PASSES decodes of each file, all in one call."""
+    out = {name: _h264_decode_ms(clip, VIDEO_DECODE_PASSES)
+           for name, clip in (("cabac_480x640", H264_CABAC_CLIP),
+                              ("cavlc_480x640", H264_CLIP),
+                              ("cabac_1080x1920", H264_CABAC_BIG),
+                              ("cavlc_1080x1920", H264_BIG))}
+    log(f"21c decode (host clock): {json.dumps(out)}")
+    return out
+
+
+def run_cabac_input(dev, work, smi):
+    """Phase 21 (a)-(c), each checked; raises on any fault."""
+    import hashlib
+
+    from mast3r_slam_tpu_torch.data import png
+
+    t0 = time.perf_counter()
+    fixtures = dict(h264=check_video_fixtures("h264_fixtures.json", "21a", part="cabac"),
+                    jpeg_resync=check_resync_fixtures())
+    if fixtures["h264"]["files"] < 3:
+        raise AssertionError(f"21a: {fixtures['h264']['files']} CABAC fixtures, 3 expected")
+    digests = json.loads((IMAGE_DATA / "h264_fixtures.json").read_text())
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        cli = run_cli_video(dev, work, clip_name=H264_CABAC_CLIP, tag="21b", save="h264_cabac")
+    finally:
+        os.chdir(cwd)
+    control = sorted((work / "h264_cabac_png").iterdir())
+    cli["control_is_cv2s"] = ([hashlib.sha256(png.read_png(p).tobytes()).hexdigest()
+                               for p in control]
+                              == digests[f"video_fixtures/{H264_CABAC_CLIP}"]["frames"])
+    if not cli["control_is_cv2s"]:
+        raise AssertionError("21b: the PNG control's frames are not cv2's by the digests")
+    check_cli_video(cli, "the CABAC clip", "21b")
+    decode = time_cabac_decode()
+    ms = {k: f"{r['frame_ms']:.3f} (IDR {r['idr_ms']:.3f}, P {r['p_ms']:.3f})"
+          for k, r in decode.items()}
+    log(f"21 CABAC input: a frame decodes in {json.dumps(ms)} ms (host clock); the CLI's "
+        f"ingest p50 {cli['ingest_ms_p50']:.2f} ms over the CABAC clip, "
+        f"{cli['control_ingest_ms_p50']:.2f} ms over its PNG control; phase 21 "
         f"{time.perf_counter() - t0:.1f} s; {smi}")
     return fixtures, cli, decode
 
@@ -5804,6 +5895,10 @@ def main() -> int:
     # against cv2's digests, the ViT-L CLI over an H.264 clip against its
     # PNG control, the decode timed beside mp4v and JPEG; same directory
     h264_fixtures, h264_cli, h264_decode = run_h264_input(dev, work, smi)
+    # CABAC H.264 input and the JPEG restart resync: the fixtures against
+    # cv2's digests, the ViT-L CLI over a CABAC clip against its PNG
+    # control, the decode timed beside CAVLC; same directory
+    cabac_fixtures, cabac_cli, cabac_decode = run_cabac_input(dev, work, smi)
 
     common = lambda r: {k: r[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms",
@@ -5822,6 +5917,7 @@ def main() -> int:
              arithmetic_serve_launches=coding_served["launches"]["attention"],
              video_cli_launches=video_cli["launches"]["attention"],
              h264_cli_launches=h264_cli["launches"]["attention"],
+             cabac_cli_launches=cabac_cli["launches"]["attention"],
              mesh_launches={"vitl_task_2_shards": mtask["launches"]["attention"],
                             "threaded_vitl_ranks": [c["attention"] for c in tranks]}),
         dict(name="refine_window", route="cuda",
@@ -5842,6 +5938,7 @@ def main() -> int:
              arithmetic_serve_launches=coding_served["launches"]["refine_window"],
              video_cli_launches=video_cli["launches"]["refine_window"],
              h264_cli_launches=h264_cli["launches"]["refine_window"],
+             cabac_cli_launches=cabac_cli["launches"]["refine_window"],
              mesh_launches={"vitl_task_2_shards": mtask["launches"]["refine_window"],
                             "two_process_ranks": [c["refine_window"] for c in mranks],
                             "threaded_vitl_ranks": [c["refine_window"] for c in tranks]},
@@ -5864,6 +5961,7 @@ def main() -> int:
              arithmetic_serve_launches=coding_served["launches"]["edge_hg_rays"],
              video_cli_launches=video_cli["launches"]["edge_hg_rays"],
              h264_cli_launches=h264_cli["launches"]["edge_hg_rays"],
+             cabac_cli_launches=cabac_cli["launches"]["edge_hg_rays"],
              mesh_launches={"sharded_solve": {k: r["launches"] for k, r in msolve.items()},
                             "two_process_ranks": [c["edge_hg_rays"] for c in mranks],
                             "threaded_vitl_ranks": [c["edge_hg_rays"] for c in tranks],
@@ -5958,7 +6056,9 @@ def main() -> int:
         "video_input": {"fixtures": video_fixtures, "cli": video_cli, "decode": video_decode,
                         "card": smi},
         "h264_input": {"fixtures": h264_fixtures, "cli": h264_cli, "decode": h264_decode,
-                       "card": smi}}
+                       "card": smi},
+        "cabac_input": {"fixtures": cabac_fixtures, "cli": cabac_cli, "decode": cabac_decode,
+                        "card": smi}}
     log(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -74,12 +74,15 @@ const char* const kCv2Refuses = ": cv2 returns nothing for it";
 // reads the DC and the first nine AC coefficients of each block
 constexpr int kSavedCoefs = 10;
 
-// zigzag position -> natural (row-major) position
-const int kNatural[64] = {
+// zigzag position -> natural (row-major) position, with libjpeg's 16 extra
+// entries: a run that corrupt data carries past the band's end writes the
+// last coefficient, as libjpeg writes it
+const int kNatural[80] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
 struct Huffman {
   bool defined = false;
@@ -163,9 +166,6 @@ struct BitReader {
   }
   // bits of real data left unread in the buffer (negative: zeros were read)
   int64_t real_left() const { return int64_t(cnt) - fed_zeros; }
-  void check() const {
-    if (real_left() < 0) throw Corrupt("truncated JPEG: the entropy-coded data ends early");
-  }
   // zeros past a marker are libjpeg's insufficient data; past the bytes' end
   // (no marker) the stream is truncated
   bool insufficient() const {
@@ -197,7 +197,9 @@ struct BitReader {
         return h.vals[idx];
       }
     }
-    throw Corrupt("bad Huffman code");
+    skip(16);  // no code: libjpeg takes 17 bits for symbol 0
+    get(1);
+    return 0;
   }
 };
 
@@ -214,6 +216,32 @@ size_t next_marker_at(const uint8_t* d, size_t n, size_t p) {
     if (q >= n) return n;
     if (d[q] != 0x00) return p;
     p = q + 1;
+  }
+}
+
+// libjpeg's read_restart_marker and jpeg_resync_to_restart (jdmarker.c)
+// from the marker at p (n: none before the data's end): the RSTn expected,
+// or an RSTn three or more intervals away, is taken; an RSTn of the next
+// two intervals, or any other marker from SOF0 up, is left unread, and the
+// intervals up to it decode from zero bits; an RSTn of the two previous
+// intervals, or a code below SOF0, is passed and the next marker decided
+// again.  Returns whether the marker was taken; [*at, *end) is the marker.
+bool resync_to_restart(const uint8_t* d, size_t n, size_t p, int expected, size_t* at,
+                       size_t* end) {
+  for (;;) {
+    if (p >= n) throw Corrupt("JPEG restart marker missing");
+    size_t q = p + 1;
+    while (q < n && d[q] == 0xFF) ++q;
+    if (q >= n) throw Corrupt("JPEG restart marker missing");
+    const int code = d[q], k = code - 0xD0;
+    *at = p;
+    *end = q + 1;
+    if (code >= 0xC0 && (code < 0xD0 || code > 0xD7)) return false;
+    if (code >= 0xC0) {
+      if (k == ((expected + 1) & 7) || k == ((expected + 2) & 7)) return false;
+      if (k != ((expected + 7) & 7) && k != ((expected + 6) & 7)) return true;
+    }
+    p = next_marker_at(d, n, q + 1);
   }
 }
 
@@ -339,24 +367,20 @@ struct ArithDecoder {
     return sv >> 7;
   }
 
-  // past the restart marker expected (the one the data met, else the next
-  // one), the decoder reset
+  // process_restart: the marker the data met, else the next one, resynced
+  // to (resync_to_restart); the decoder reset.  A marker left unread feeds
+  // zeros to the intervals up to it.
   void restart(int expected) {
+    size_t p = at_marker ? marker_at : next_marker_at(d, n, pos);
     size_t end;
-    int code;
-    if (at_marker) {
-      code = marker_code;
-      end = marker_end;
+    if (resync_to_restart(d, n, p, expected, &marker_at, &end)) {
+      pos = end;
+      at_marker = false;
     } else {
-      size_t p = next_marker_at(d, n, pos);
-      if (p >= n) throw Corrupt("JPEG restart marker missing");
-      while (d[p] == 0xFF) ++p;
-      code = d[p];
-      end = p + 1;
+      at_marker = true;
+      marker_end = end;
+      marker_code = d[end - 1];
     }
-    if (code != 0xD0 + expected) throw Corrupt("JPEG restart marker missing");
-    pos = end;
-    at_marker = false;
     c = a = 0;
     ct = -16;
   }
@@ -381,7 +405,11 @@ struct Component {
   bool latched = false;   // the quantisation table, copied at the first scan as libjpeg does
   uint16_t qt[64] = {};   // natural order
   int coef_bits[64];      // progressive: the Al of each coefficient's last scan, -1 before
-  Component() { std::fill(coef_bits, coef_bits + 64, -1); }
+  int prev_bits[kSavedCoefs];  // coef_bits before the component's last scan (0 before the first)
+  Component() {
+    std::fill(coef_bits, coef_bits + 64, -1);
+    std::fill(prev_bits, prev_bits + kSavedCoefs, -1);
+  }
 };
 
 struct Decoder {
@@ -393,6 +421,11 @@ struct Decoder {
   int restart = 0;
   bool frame = false, adobe = false, jfif = false;
   bool progressive = false, any_scan = false;
+  int scans = 0;          // DCT scans read
+  // libjpeg-turbo's last_good_iMCU_row: the iMCU row of the last MCU of the
+  // last scan that came (before its restart) with the data not yet at a marker;
+  // smoothing takes the rows after it from the bits before that scan
+  int last_good_row = 0;
   bool arithmetic = false, lossless = false;
   int precision = 8;
   int unit = 8;           // samples a block is wide: 8, or 1 for lossless coding
@@ -427,11 +460,13 @@ struct Decoder {
   // the next marker's code, skipping fill bytes and, as libjpeg does, any
   // bytes before them
   int marker() {
-    while (u8() != 0xFF) {
+    for (;;) {  // libjpeg's next_marker: a stuffed 0xFF00 is passed too
+      while (u8() != 0xFF) {
+      }
+      int m;
+      do m = u8(); while (m == 0xFF);
+      if (m) return m;
     }
-    int m;
-    do m = u8(); while (m == 0xFF);
-    return m;
   }
 
   void read_exif(size_t at, size_t len) {
@@ -603,7 +638,6 @@ struct Decoder {
       s = rs & 15;
       if (s) {
         k += r;
-        if (k > 63) throw Corrupt("bad JPEG AC run");
         blk[kNatural[k]] = int16_t(extend(br.get(s), s));
       } else {
         if (r != 15) break;
@@ -640,7 +674,6 @@ struct Decoder {
       int r = rs >> 4, s = rs & 15;
       if (s) {
         k += r;
-        if (k > se) throw Corrupt("bad JPEG AC run");
         blk[kNatural[k]] = shifted(extend(br.get(s), s), al);
       } else if (r == 15) {
         k += 15;
@@ -679,10 +712,7 @@ struct Decoder {
           if (co != 0) correct(br, co, al);
           else if (--r < 0) break;
         }
-        if (s) {
-          if (k > se) throw Corrupt("bad JPEG AC refinement run");
-          blk[kNatural[k]] = int16_t(s);
-        }
+        if (s) blk[kNatural[k]] = int16_t(s);
       }
     }
     if (eobrun > 0) {  // inside the run: a correction bit for each nonzero coefficient left
@@ -853,15 +883,17 @@ struct Decoder {
     }
   }
 
-  // the restart marker expected at pos (after any padding), pos moved past it
-  size_t restart_marker(BitReader& br, int expected) {
-    if (!lossless) br.check();
-    br.to_marker();
-    if (br.pos + 1 >= n || d[br.pos] != 0xFF) throw Corrupt("JPEG restart marker missing");
-    size_t p = br.pos + 1;
-    while (p < n && d[p] == 0xFF) ++p;
-    if (p >= n || d[p] != 0xD0 + expected) throw Corrupt("JPEG restart marker missing");
-    return p + 1;
+  // process_restart's marker (resync_to_restart): br moved past it if it
+  // is taken (true), else onto it, which feeds zero bits; bits left in the
+  // buffer are padding.  A DCT scan's bits past the data's end are a
+  // truncated stream.
+  bool restart_marker(BitReader& br, int expected) {
+    if (!lossless) br.insufficient();
+    size_t p = br.at_marker ? br.pos : next_marker_at(d, n, br.pos);
+    size_t at, end;
+    const bool taken = resync_to_restart(d, n, p, expected, &at, &end);
+    br = BitReader(d, n, taken ? end : at);
+    return taken;
   }
 
   // one scan's entropy-coded data, from pos to the marker after it
@@ -936,8 +968,11 @@ struct Decoder {
         c->latched = true;
       }
       // the progression's state (libjpeg warns of an out-of-order one and goes on)
-      if (progressive)
+      if (progressive) {
+        for (int k = std::min(ss, 1); k <= std::min(std::max(se, 9), kSavedCoefs - 1); ++k)
+          c->prev_bits[k] = scans ? c->coef_bits[k] : 0;
         for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
+      }
       c->pred = 0;
     }
     int eobrun = 0;
@@ -954,18 +989,28 @@ struct Decoder {
       units = int64_t(mcux) * mcuy;
     }
     int next_rst = 0;
+    // Huffman data that met a marker: libjpeg's insufficient_data, the
+    // MCUs left as they stand up to a restart marker taken
+    bool insufficient = false;
+    last_good_row = 0;
+    auto unit_row = [&](int64_t v) {  // the iMCU row of unit v
+      return int(ns > 1 ? v / mcux : v / ux / sc[0]->vd);
+    };
+    ++scans;
     for (int64_t u = 0; u < units; ++u) {
+      if (!insufficient) last_good_row = unit_row(u);
       if (restart && u > 0 && u % restart == 0) {
         if (arithmetic) {
           ad.restart(next_rst);
           reset_arith_stats(sc, ns, ss, ah);
-        } else {
-          br = BitReader(d, n, restart_marker(br, next_rst));
+        } else if (restart_marker(br, next_rst)) {
+          insufficient = false;
         }
         next_rst = (next_rst + 1) & 7;
         for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
         eobrun = 0;
       }
+      if (insufficient) continue;
       auto block = [&](Component& c, int16_t* blk) {
         if (arithmetic) {
           switch (kind) {
@@ -1000,11 +1045,12 @@ struct Decoder {
             }
         }
       }
+      if (!arithmetic) insufficient = br.insufficient();
     }
     if (arithmetic) {
       pos = ad.scan_end();
     } else {
-      br.check();
+      br.insufficient();
       br.to_marker();
       pos = br.pos;
     }
@@ -1044,11 +1090,10 @@ struct Decoder {
     };
     for (int r = 0; r < mcu_rows; ++r) {
       if (restart && rows_to_go == 0) {
-        br = BitReader(d, n, restart_marker(br, next_rst));
+        if (restart_marker(br, next_rst)) insufficient = false;
         next_rst = (next_rst + 1) & 7;
         reset[size_t(r / imcu_mcu_rows)] = 1;
         rows_to_go = rows_per_restart;
-        insufficient = false;
       }
       if (insufficient) {  // the differences stay zero
         reset[size_t(r / imcu_mcu_rows)] = 1;
@@ -1498,14 +1543,15 @@ std::vector<SmoothRow> smooth_rows(const Decoder& dec, const Component& c) {
 }
 
 // One block's coefficients after smoothing, into ws (64, natural order).
-// dc holds the 25 DC values around the block.
-void smooth_block(const Component& c, const int16_t* blk, const int* dc, bool change_dc,
-                  int16_t* ws) {
+// bits holds the coefficients' Al as smoothing takes them, dc the 25 DC
+// values around the block.
+void smooth_block(const Component& c, const int* bits, const int16_t* blk, const int* dc,
+                  bool change_dc, int16_t* ws) {
   memcpy(ws, blk, 64 * sizeof(int16_t));
   const int64_t q00 = c.qt[0];
   for (const SmoothTerm& t : kSmoothTerms) {
     if (t.zz > 5 && !change_dc) break;  // AC03 to AC30 only while change_dc
-    const int al = c.coef_bits[t.zz];
+    const int al = bits[t.zz];
     if (al == 0 || ws[t.pos] != 0) continue;
     const int* w = change_dc ? t.dc : t.ac;
     int64_t sum = 0;
@@ -1532,9 +1578,14 @@ void idct_component(const Decoder& dec, const Component& c, bool smooth, uint8_t
       for (int bx = 0; bx < c.bw; ++bx) idct_islow(block(by, bx), c.qt, out(by, bx), pw);
     return;
   }
-  bool change_dc = true;
-  for (int k = 1; k < kSavedCoefs; ++k)
-    if (c.coef_bits[k] != -1) change_dc = false;
+  // the rows after the last good one take the bits before the last scan
+  int prev[kSavedCoefs];
+  for (int k = 0; k < kSavedCoefs; ++k) prev[k] = dec.scans > 1 ? c.prev_bits[k] : -1;
+  auto no_ac = [](const int* bits) {  // DC interpolation while no AC has bits
+    for (int k = 1; k < kSavedCoefs; ++k)
+      if (bits[k] != -1) return false;
+    return true;
+  };
   const int wb = (c.dw + 7) / 8;  // width_in_blocks
   // a DC past the rows decoded (a padding row of a declared factor the
   // decoder folds away) was never coded: libjpeg's buffer holds zero there
@@ -1545,10 +1596,12 @@ void idct_component(const Decoder& dec, const Component& c, bool smooth, uint8_t
   int16_t ws[64];
   int dc[25];
   for (const SmoothRow& sr : smooth_rows(dec, c)) {
+    const int* bits = sr.row / c.vd > dec.last_good_row ? prev : c.coef_bits;
+    const bool change_dc = no_ac(bits);
     for (int bx = 0; bx < wb; ++bx) {
       for (int r = 0; r < 5; ++r)
         for (int k = 0; k < 5; ++k) dc[r * 5 + k] = dc_at(sr.around[r], bx + k - 2);
-      smooth_block(c, block(sr.row, bx), dc, change_dc, ws);
+      smooth_block(c, bits, block(sr.row, bx), dc, change_dc, ws);
       idct_islow(ws, c.qt, out(sr.row, bx), pw);
     }
   }

@@ -19,7 +19,9 @@
 //
 // What is refused (rc 2, NotImplementedError): B-VOPs and S-VOPs, quarter
 // pel, sprites/GMC, interlace, MPEG quantisation matrices, data
-// partitioning and reversible VLC, resync markers, shapes other than
+// partitioning and reversible VLC, resync markers (and the pattern of one
+// inside a VOP, where libavcodec would start a video packet whatever
+// resync_marker_disable says), shapes other than
 // rectangular, N-bit video, complexity estimation, scalability, newpred,
 // reduced resolution, four motion vectors a macroblock, short video
 // headers, VOPs before a VOL, odd frame heights (libswscale scales those
@@ -978,6 +980,8 @@ struct Decoder {
                     }
                 }
                 b.need("a macroblock");
+                if (my * mbw + mx + 1 < mbw * mbh && resync_marker(b, type))
+                    fail(UNSUPPORTED, "a resync marker inside a VOP %s", ITEM);
             }
         }
         // what libavcodec's encoder ends a VOP with: a 0, then 1s to the
@@ -989,6 +993,24 @@ struct Decoder {
         coded = true;
         std::swap(ref, cur);
         have_ref = true;
+    }
+
+    // libavcodec's mpeg4_is_resync after each macroblock, whatever
+    // resync_marker_disable says: past MCBPC stuffing, a 0 and 1s to the
+    // byte, then a resync marker (16 zeros, 15 + fcode in a P-VOP, and a 1)
+    // end the slice there and start a video packet.  Valid macroblock data
+    // never holds one.
+    bool resync_marker(const Bits& b, int type) const {
+        static const uint16_t prefix[8] = {0x7F00, 0x7E00, 0x7C00, 0x7800,
+                                           0x7000, 0x6000, 0x4000, 0x0000};
+        Bits g = b;
+        while (g.show(16) <= 0xFF && (g.show(16) >> (7 - type)) == 1) g.skip(9 + type);
+        if (g.pos + 8 >= g.nbits || g.show(16) != prefix[g.pos & 7]) return false;
+        g.skip(1);
+        g.align();
+        int len = 0;
+        while (len < 32 && !g.get1()) len++;
+        return len >= (type == 0 ? 16 : 15 + f_code);
     }
 
     // the reference frame as RGB (yuv420.h; limited range)

@@ -1,4 +1,4 @@
-"""Write the H.264 video fixtures that ``chip_smoke.py`` phase 20 reads on
+"""Write the H.264 video fixtures that ``chip_smoke.py`` phases 20 and 21 read on
 the card's host, which has no cv2, and the SHA-256 digests of the frames
 that the JAX package's ``MP4Dataset`` (``cv2.VideoCapture``, cv2 5.0.0)
 gives for each (``tests/data/h264_fixtures.json``).  Needs cv2 and the
@@ -27,6 +27,15 @@ H.264 encoder), deterministically, under ``tests/data/video_fixtures/``:
                             turns its frames 90 degrees (cv2 turns them)
   mp4v_64x48_rot270.mp4     the committed mp4v_64x48_tex.mp4 with its
                             track's display matrix set to 270 degrees
+  h264_cabac_480x640_smooth.mp4
+                            the pan coded with CABAC at High profile, the
+                            P pictures' residual through the 8x8
+                            transform: the clip of phase 21b's CLI run
+  h264_cabac_1080x1920_smooth.mp4
+                            the same at 1920x1080: phase 21c times it
+  h264_cabac_64x48_random.mov
+                            14 pictures of random CABAC syntax in 2 slices,
+                            3 references, list modification
 The digests are of (H, W, 3) uint8 RGB, C order, as ``read_img`` returns
 it, in the layout of ``scripts/make_video_fixtures.py``.
 """
@@ -46,8 +55,12 @@ from make_video_fixtures import cv2_digests  # noqa: E402
 
 CLI_CLIP = "h264_480x640_smooth.mp4"
 BIG_CLIP = "h264_1080x1920_smooth.mp4"
+CABAC_CLI_CLIP = "h264_cabac_480x640_smooth.mp4"
+CABAC_BIG_CLIP = "h264_cabac_1080x1920_smooth.mp4"
+CABAC_RANDOM = "h264_cabac_64x48_random.mov"
 NAMES = [CLI_CLIP, BIG_CLIP, "h264_64x48_random.avi", "h264_100x60_slices.mov",
-         "h264_72x40_full709.mp4", "h264_64x48_rot90.mp4", "mp4v_64x48_rot270.mp4"]
+         "h264_72x40_full709.mp4", "h264_64x48_rot90.mp4", "mp4v_64x48_rot270.mp4",
+         CABAC_CLI_CLIP, CABAC_BIG_CLIP, CABAC_RANDOM]
 
 
 def main():
@@ -65,6 +78,13 @@ def main():
     s, _ = hf.random_stream(72, 40, 14, 22, gop=5, vui=dict(full_range=True, prim=1, trc=1,
                                                             matrix=1, reorder=2))
     hf.write_mp4(OUT / "h264_72x40_full709.mp4", s, 72, 40)
+    # CABAC (High profile): the pans with the 8x8 transform, and random syntax
+    s, _ = hf.smooth_stream(640, 480, 14, 4, step=4, cabac=True, t8=True)
+    hf.write_mp4(OUT / CABAC_CLI_CLIP, s, 640, 480)
+    s, _ = hf.smooth_stream(1920, 1080, 3, 5, step=4, cabac=True, t8=True)
+    hf.write_mp4(OUT / CABAC_BIG_CLIP, s, 1920, 1080)
+    s, _ = hf.random_stream(64, 48, 14, 23, gop=5, cabac=True, slices=2, max_ref=3, modify=True)
+    hf.write_mp4(OUT / CABAC_RANDOM, s, 64, 48, brand=b"qt  ")
     src = (OUT / "mp4v_64x48_tex.mp4").read_bytes()
     (OUT / "mp4v_64x48_rot270.mp4").write_bytes(hf.set_matrix(src, (0, -1, 1, 0)))
     digests = {f"video_fixtures/{n}": cv2_digests(OUT / n) for n in NAMES}

@@ -4,19 +4,20 @@ container walked in Python, H.264 decoded by the host library,
 (``cv2.VideoCapture``, cv2 5.0.0), on streams written here
 (``tests/torch_h264_files.py``; cv2 decodes H.264 but cannot encode it).
 
-One stream a feature the decoder takes, and random valid CAVLC syntax at
-eight seeds, in ``.mp4`` (``avc1``, ``avc3`` with the parameter sets in
-band, 2- and 4-byte NAL unit lengths), ``.mov`` and ``.avi`` (Annex B):
-sizes from 32x16 to a few macroblocks, widths and heights that are not
-multiples of 16 (cropped).  Every frame must be exactly cv2's,
-sequentially, after forward and backward seeks and after
-``subsample(4)``, with the same ``len``, ``fps`` and timestamps, and
-libavcodec must log no error while cv2 reads (it conceals errors, which
-would pass a writer's fault off as a frame).  The colour conversion is
-held on I_PCM pictures of random samples for each matrix and range cv2
-converts.  What the decoder does not take raises ``NotImplementedError``
-naming ROADMAP Queue 1 item 17, damaged data ``ValueError``.  The
-committed fixtures of ``chip_smoke.py`` phase 20 must still be cv2's.
+One stream a feature the decoder takes, under CAVLC and under CABAC, and
+random valid syntax at eight seeds of each, in ``.mp4`` (``avc1``,
+``avc3`` with the parameter sets in band, 2- and 4-byte NAL unit
+lengths), ``.mov`` and ``.avi`` (Annex B): sizes from 32x16 to a few
+macroblocks, widths and heights that are not multiples of 16 (cropped).
+Every frame must be exactly cv2's, sequentially, after forward and
+backward seeks and after ``subsample(4)``, with the same ``len``,
+``fps`` and timestamps, and libavcodec must log no error while cv2 reads
+(it conceals errors, which would pass a writer's fault off as a frame).
+The colour conversion is held on I_PCM pictures of random samples for
+each matrix and range cv2 converts. What the decoder does not take
+raises ``NotImplementedError`` naming ROADMAP Queue 1 item 17, damaged
+data ``ValueError``. The committed fixtures of ``chip_smoke.py`` phases
+20 and 21 must still be cv2's.
 """
 
 import hashlib
@@ -135,6 +136,79 @@ def test_each_feature_reads_as_cv2_reads_it(tmp_path, capfd, name):
     _all_reads(path, capfd, n)
 
 
+# name -> (width, height, container, random_stream options), all under CABAC
+CABAC_FEATURES = {
+    "i-pcm-inside-slices": (48, 32, ".mp4", dict(i_types=["PCM", "I16", "I4"], p_types=[0])),
+    "intra-4x4": (64, 48, ".avi", dict(i_types=["I4"], t8=False)),
+    "intra-8x8": (64, 48, ".mov", dict(i_types=["I8"])),
+    "intra-16x16": (50, 34, ".mp4", dict(i_types=["I16"])),
+    "p-partitions": (64, 48, ".avi", dict(p_types=[0, 1, 2, 3], intra_in_p=False, max_ref=4)),
+    "slices": (64, 48, ".mov", dict(slices=4, slice_i_in_p=True)),
+    "references": (48, 32, ".mp4", dict(max_ref=4, modify=True, mmco=True, nonref=0.3)),
+    "constrained-intra": (64, 48, ".avi", dict(constrained_intra=True, slices=2)),
+    "chroma-offsets": (48, 32, ".mov", dict(cqp=[-5, 7])),
+    "vectors-far-out": (32, 16, ".mp4", dict(far_mv=True, mvd=64)),
+    "qp-low": (32, 16, ".avi", dict(qp_range=(0, 12))),
+    "qp-high": (32, 16, ".mov", dict(qp_range=(40, 51))),
+    "main": (48, 32, ".mp4", dict(profile=77, t8=False)),
+    "main-avi": (48, 32, ".avi", dict(profile=77, t8=False, slices=2)),
+    "parameter-sets-in-band": (48, 32, ".mov", dict(inband="change", pps_ids=(0, 3),
+                                                    extra_nals=True)),
+    "poc-type-2": (32, 16, ".mp4", dict(poc_type=2, nonref=0.3)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CABAC_FEATURES))
+def test_each_cabac_feature_reads_as_cv2_reads_it(tmp_path, capfd, name):
+    """Main and High profile streams coded with CABAC (``random_stream(...,
+    cabac=True)``: every cabac_init_idc and slice QPs over the whole range
+    unless a case narrows them): each feature the CAVLC cases hold, read
+    as cv2 reads it in .mp4 (avc1, avc3), .mov and .avi."""
+    w, h, suffix, kw = CABAC_FEATURES[name]
+    k = sorted(CABAC_FEATURES).index(name)
+    samples, _ = hf.random_stream(w, h, N, 50 + k, gop=GOP, cabac=True, **kw)
+    path = _write(tmp_path / name, samples, w, h, suffix, k)
+    _all_reads(path, capfd)
+
+
+def test_the_deblocking_shortcut_is_exact_under_cabac(tmp_path, capfd, monkeypatch):
+    """libavcodec's h264_filter_mb_fast gives an inter macroblock with the
+    8x8 transform and coded_block_pattern bits 0-2 set bS 2 on every edge
+    whatever its coefficients.  Under CABAC a coded 8x8 block always holds
+    a level (4:2:0 codes no coded_block_flag for it), so the shortcut is
+    the standard's filter: streams rich in such macroblocks, the filter on,
+    equal chroma QP offsets, read as cv2 reads them."""
+    seen = []
+    macroblock = hf.CabacSlice.macroblock
+
+    def counted(self, mx, my, d, slice_type, num_ref):
+        seen.append(d["kind"] == "P" and bool(d.get("t8")) and (d["cbp"] & 7) == 7)
+        macroblock(self, mx, my, d, slice_type, num_ref)
+    monkeypatch.setattr(hf.CabacSlice, "macroblock", counted)
+    samples, _ = hf.random_stream(64, 48, N, 77, gop=N, cabac=True, p_types=[0, 1, 2],
+                                  intra_in_p=False, cqp=[3, 3], dbk_idc=(0,), qp_range=(30, 45))
+    assert sum(seen) >= 5
+    path = _write(tmp_path / "fast", samples, 64, 48, ".mp4")
+    _same_reads(path, range(N), capfd)
+
+
+def test_damaged_cabac_streams_raise_value_error():
+    """CABAC slices cut short anywhere: the arithmetic decoder reads past
+    the rbsp_stop_one_bit, or the picture lacks macroblocks."""
+    samples, _ = hf.random_stream(48, 32, 3, 9, gop=GOP, cabac=True)
+    rng = np.random.default_rng(1)
+    dec = native.H264Decoder(hf.annexb(samples[0][:2]))
+    for k in range(20):
+        j = k % 3
+        cut = [u[:int(rng.integers(2, max(len(u) - 2, 3)))] if u[0] & 31 in (1, 5) else u
+               for u in samples[j][2 if j == 0 else 0:]]
+        dec.reset()
+        for i in range(j):
+            dec.decode(hf.annexb(samples[i][2 if i == 0 else 0:]), i)
+        with pytest.raises(ValueError, match="corrupt H.264"):
+            dec.decode(hf.annexb(cut), j)
+
+
 def _random_options(seed: int) -> dict:
     """A mix of the features, drawn by ``seed``."""
     rng = np.random.default_rng(1000 + seed)
@@ -155,13 +229,21 @@ def _random_options(seed: int) -> dict:
     return kw
 
 
-@pytest.mark.parametrize("seed", range(8))
-def test_random_streams_decode_as_cv2_decodes_them(tmp_path, capfd, seed):
+RANDOM = [(seed, False) for seed in range(8)] + [(seed, True) for seed in range(8)]
+
+
+@pytest.mark.parametrize("seed,cabac", RANDOM,
+                         ids=[f"cabac-{s}" if c else str(s) for s, c in RANDOM])
+def test_random_streams_decode_as_cv2_decodes_them(tmp_path, capfd, seed, cabac):
     """Random valid syntax (``torch_h264_files.random_stream``): every mb_type,
     partition, prediction mode, ref_idx, qp delta, deblocking setting and
-    slice split, over a random mix of the stream features."""
+    slice split, over a random mix of the stream features; under CAVLC and
+    under CABAC (every cabac_init_idc, slice QPs over 0-51, I_PCM inside
+    slices, mvd and level escapes past the UEG prefixes, mb_qp_delta at
+    -26 and +25, slices that end on a skipped macroblock)."""
     w, h = [(64, 48), (50, 34), (32, 16), (72, 40)][seed % 4]
-    samples, _ = hf.random_stream(w, h, N, seed, gop=GOP, **_random_options(seed))
+    samples, _ = hf.random_stream(w, h, N, seed + 100 * cabac, gop=GOP, cabac=cabac,
+                                  **_random_options(seed))
     path = _write(tmp_path / f"random{seed}", samples, w, h, [".mp4", ".mov", ".avi"][seed % 3],
                   seed)
     _all_reads(path, capfd)
@@ -188,7 +270,9 @@ def _stream(tmp_path, suffix=".mp4", w=32, h=16, n=6, **kw):
 
 
 REFUSED = {
-    "cabac": dict(cabac=True),
+    "cabac-b-slices": dict(cabac=True, force_slice_type="B"),
+    "cabac-si-slices": dict(cabac=True, force_slice_type="SI"),
+    "cabac-sp-slices": dict(cabac=True, force_slice_type="SP"),
     "b-slices": dict(force_slice_type="B"),
     "sp-slices": dict(force_slice_type="SP"),
     "fields": dict(frame_mbs_only=False),
@@ -218,7 +302,8 @@ def test_features_not_ported_raise_not_implemented(tmp_path, name):
     the feature (in band, in .avi)."""
     suffix = [".mp4", ".avi"][sorted(REFUSED).index(name) % 2]
     path, _ = _stream(tmp_path, suffix, **REFUSED[name])
-    with pytest.raises(NotImplementedError, match="item 17"):
+    part = "c" if "slices" in name or name == "output-reordered" else ""
+    with pytest.raises(NotImplementedError, match="item 17" + part):
         ds = video.MP4Dataset(path)
         for i in range(len(ds)):
             ds.read_img(i)
@@ -298,7 +383,7 @@ def _digest(img):
 
 @pytest.mark.parametrize("name", sorted(DIGESTS))
 def test_the_committed_h264_fixtures_agree_with_cv2(name):
-    """The files ``chip_smoke.py`` phase 20 decodes on the card's host (no
+    """The files ``chip_smoke.py`` phases 20 and 21 decode on the card's host (no
     cv2 there; ``scripts/make_h264_fixtures.py`` wrote them): their
     committed digests are still what the JAX package's dataset gives here,
     and the port's dataset gives those bytes."""

@@ -19,6 +19,7 @@ lossless reads that need a colour conversion) raises ``ValueError``, as
 truncated, corrupt or oversized streams do, each beside cv2's ``None``."""
 
 import io
+import json
 import pathlib
 import struct
 
@@ -857,3 +858,114 @@ def test_lossless_streams_cv2_refuses_raise_value_error():
                             "lossless JPEG scan parameters")
     # Pt 7 of 8 bits: libjpeg reads it
     _assert_reads_as_cv2(data[:sos] + bytes([1, 0, 7]) + data[sos + 3:])
+
+
+# ---------------------------------------------------------------------------
+# restart markers out of place: libjpeg's resync
+# ---------------------------------------------------------------------------
+
+def _resync_source(coding):
+    """A 48x64 stream of the coding with a restart every MCU."""
+    img = _image(48, 64, seed=31, noise=False)
+    if coding == "baseline":
+        return _jpeg(img, cv2.IMWRITE_JPEG_RST_INTERVAL, 1)
+    if coding == "progressive":
+        return _progressive(img, cv2.IMWRITE_JPEG_RST_INTERVAL, 1)
+    return enc.arithmetic_jpeg(img, quality=80, restart=1,
+                               progressive=coding == "arithmetic-progressive")
+
+
+def _assert_file_reads_as_cv2(tmp_path, data):
+    """``imread_rgb``/``imread_gray`` (the datasets) against ``cv2.imread``."""
+    from mast3r_slam_tpu_torch.data import png
+
+    path = tmp_path / "frame.jpg"
+    path.write_bytes(data)
+    for read, flag in ((png.imread_rgb, cv2.IMREAD_COLOR), (png.imread_gray, cv2.IMREAD_GRAYSCALE)):
+        want = cv2.imread(str(path), flag)
+        if want is None:
+            with pytest.raises(ValueError):
+                read(path)
+            continue
+        if want.ndim == 3:
+            want = cv2.cvtColor(want, cv2.COLOR_BGR2RGB)
+        np.testing.assert_array_equal(read(path), want)
+
+
+RESYNC = [(c, h) for c in ("baseline", "progressive", "arithmetic", "arithmetic-progressive")
+          for h in ("next", "previous", "removed", "swapped")]
+
+
+@pytest.mark.parametrize("coding,how", RESYNC, ids=[f"{c}-{h}" for c, h in RESYNC])
+def test_a_wrong_restart_marker_resyncs_as_libjpeg(tmp_path, coding, how):
+    """RST3 replaced by the next marker or the previous one, removed, or
+    swapped with RST4, in each scan that has it: libjpeg warns and resyncs
+    (``jpeg_resync_to_restart``: an RSTn of the next two intervals is left
+    unread and the intervals up to it decode from zero bits, one of the two
+    previous ones is passed, the one expected taken), and its entropy
+    decoders go on from a marker met early (Huffman: zero bits, then the
+    interval's MCUs left as they stand; arithmetic: zero bits).  Both
+    reads of ``cv2.imdecode`` (the servers) and of ``cv2.imread`` (the
+    datasets) give these pixels."""
+    data = _resync_source(coding)
+    scans = [k for k in range(len(enc.scan_spans(data)))
+             if {3, 4} <= set(enc.restart_positions(data, k))]
+    assert scans
+    for scan in scans:
+        broken = enc.break_restart(data, scan, how)
+        assert cv2.imdecode(np.frombuffer(broken, np.uint8), cv2.IMREAD_COLOR) is not None
+        _assert_reads_as_cv2(broken)
+        _assert_file_reads_as_cv2(tmp_path, broken)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_markers_met_anywhere_in_the_data_read_as_cv2(seed):
+    """Seeded RSTn and EOI markers written over or into the entropy-coded
+    data of every coding, or restart markers dropped: each read equals
+    cv2's, or raises ValueError where cv2 returns nothing.  An EOI inside a
+    progressive scan ends the input there, and libjpeg-turbo smooths the
+    iMCU rows after the last one an MCU came into with data by the bits
+    of the scans before it (its ``last_good_iMCU_row``)."""
+    rng = np.random.default_rng(700 + seed)
+    for trial in range(24):
+        hw = [(48, 64), (37, 53), (17, 90)][trial % 3]
+        img = _image(*hw, seed=trial, noise=False)
+        restart = int(rng.integers(1, 5))
+        coding = trial % 4
+        if coding == 3:
+            data = enc.arithmetic_jpeg(img, restart=restart, progressive=bool(rng.random() < 0.5))
+        else:
+            data = _jpeg(img[..., 0] if coding == 2 else img, cv2.IMWRITE_JPEG_RST_INTERVAL,
+                         restart, cv2.IMWRITE_JPEG_PROGRESSIVE, coding % 2)
+        spans = enc.scan_spans(data)
+        out = bytearray(data)
+        for _ in range(int(rng.integers(1, 4))):
+            start, end = spans[int(rng.integers(0, len(spans)))]
+            at = int(rng.integers(start, end - 2))
+            code = 0xD9 if rng.random() < 0.3 else 0xD0 + int(rng.integers(0, 8))
+            if rng.random() < 0.5:
+                out[at:at + 2] = bytes([0xFF, code])
+            else:
+                out[at:at] = bytes([0xFF, code])
+        _assert_reads_as_cv2(bytes(out))
+
+
+RESYNC_DIGESTS = json.loads((DATA / "resync_fixtures.json").read_text())
+
+
+@pytest.mark.parametrize("name", sorted(RESYNC_DIGESTS))
+def test_the_committed_resync_fixtures_agree_with_cv2(name):
+    """The streams ``chip_smoke.py`` phase 21a reads on the card's host (no
+    cv2 there; ``scripts/make_resync_fixtures.py`` wrote them): their
+    digests are still cv2's, and the port's reads give those bytes."""
+    import hashlib
+
+    path, want = DATA / name, RESYNC_DIGESTS[name]
+    digest = lambda a: hashlib.sha256(a.tobytes()).hexdigest()  # noqa: E731
+    rgb = cv2.cvtColor(cv2.imread(str(path)), cv2.COLOR_BGR2RGB)
+    gray = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)
+    assert [digest(rgb), digest(gray), list(rgb.shape)] == \
+        [want["sha256"], want["gray_sha256"], want["shape"]]
+    data = path.read_bytes()
+    assert digest(native.decode_jpeg(data)) == want["sha256"]
+    assert digest(native.decode_jpeg(data, gray=True)) == want["gray_sha256"]

@@ -173,6 +173,31 @@ def _with_chunks(data, extra, after="IHDR"):
     return png.SIGNATURE + b"".join(chunks[:at]) + extra + b"".join(chunks[at:])
 
 
+def _icc_profile(gamma: float = 2.2) -> bytes:
+    """A small ICC v2 RGB display profile (D50 primaries, one gamma curve
+    for each channel), which cv2 cannot write into a PNG."""
+    def s15(v):
+        return struct.pack(">i", round(v * 65536))
+
+    def xyz(x, y, z):
+        return b"XYZ \0\0\0\0" + s15(x) + s15(y) + s15(z)
+
+    curve = b"curv\0\0\0\0" + struct.pack(">IH", 1, round(gamma * 256)) + b"\0\0"
+    tags = [(b"rXYZ", xyz(0.4361, 0.2225, 0.0139)), (b"gXYZ", xyz(0.3851, 0.7169, 0.0971)),
+            (b"bXYZ", xyz(0.1431, 0.0606, 0.7141)), (b"wtpt", xyz(0.9642, 1.0, 0.8249)),
+            (b"rTRC", curve), (b"gTRC", curve), (b"bTRC", curve)]
+    at, table, body = 128 + 4 + 12 * len(tags), struct.pack(">I", len(tags)), b""
+    for sig, data in tags:
+        body += b"\0" * (-(at + len(body)) % 4)
+        table += sig + struct.pack(">II", at + len(body), len(data))
+        body += data
+    header = (struct.pack(">I", at + len(body)) + b"none" + bytes([2, 0x10, 0, 0]) + b"mntr"
+              + b"RGB XYZ " + b"\0" * 12 + b"acspAPPL" + b"\0" * 24 + s15(0.9642) + s15(1.0)
+              + s15(0.8249) + b"none" + b"\0" * 44)
+    assert len(header) == 128
+    return header + table + body
+
+
 GAMMA_CHUNKS = {
     # the gamma cv2's libpng weighs a colour pixel's gray value in
     "gAMA-0.45455": _chunk(b"gAMA", struct.pack(">I", 45455)),
@@ -186,6 +211,11 @@ GAMMA_CHUNKS = {
     "sBIT-10-gAMA": _chunk(b"gAMA", struct.pack(">I", 45455)),  # sBIT: the test adds it
     "cHRM-only": _chunk(b"cHRM", struct.pack(">8I", 31270, 32900, 64000, 33000, 30000, 60000,
                                              15000, 6000)),
+    # an ICC profile alone: libpng takes no gamma from it (only a profile it
+    # knows for sRGB's would count), so cv2 reads as without it
+    "iCCP-only": _chunk(b"iCCP", b"display\0\0" + zlib.compress(_icc_profile())),
+    "iCCP-then-gAMA": _chunk(b"iCCP", b"display\0\0" + zlib.compress(_icc_profile()))
+    + _chunk(b"gAMA", struct.pack(">I", 45455)),
 }
 GAMMA_CASES = [(c, d, i, g) for c in (2, 3, 6) for d in DEPTHS[c] if d >= 4 for i in (0, 1)
                for g in GAMMA_CHUNKS]
@@ -200,7 +230,8 @@ def test_gray_read_under_a_file_gamma_equals_cv2(ctype, depth, interlace, chunk)
     sample through the to-linear table, the weighted sum back through the
     from-linear one (16-bit tables cut to 11 bits, or to ``sBIT``'s), a
     pixel of three equal samples kept.  A gamma libpng finds insignificant,
-    or a ``cHRM`` alone, changes nothing; the colour read never changes.
+    a ``cHRM`` alone or an ``iCCP`` alone changes nothing; the colour read
+    never changes.
     The chunk is placed before ``PLTE`` as the specification asks, and
     again after it, where libpng ignores it."""
     data = variant(ctype, depth, interlace, (37, 53), False, seed=depth + 7 * ctype)

@@ -294,3 +294,30 @@ def test_random_streams_decode_as_cv2_decodes_them(tmp_path, seed):
     path = tmp_path / "random.avi"
     vf.write_avi(path, vf.random_stream(headers, 100, 60, 8, seed), 100, 60)
     _same_reads(path, range(9))
+
+
+@pytest.mark.parametrize("at", [1, 7, 20])
+def test_a_resync_marker_inside_a_vop_is_refused(tmp_path, at):
+    """A P-VOP whose bits hold, at a macroblock boundary, the stuffing and a
+    resync marker (a video packet header) while its VOL says
+    resync_marker_disable 1: libavcodec looks for the pattern after each
+    macroblock whatever the VOL says (``mpeg4_is_resync``) and starts a
+    video packet there, so cv2 reads the frames of the same stream without
+    the packet header; the port refuses the stream, naming item 17."""
+    src = _write(tmp_path, "xvid-100x60-waves.avi")
+    data = src.read_bytes()
+    first = data[int(video.read_avi(data).offsets[0]):]
+    headers = first[:first.index(vf.VOP_START)]
+    mvs = [(0, 0), (2, 0)]
+    plain, marked = tmp_path / "plain.avi", tmp_path / "marked.avi"
+    vf.write_avi(plain, vf.dc_stream(headers, 100, 60, mvs, at), 100, 60)
+    vf.write_avi(marked, vf.dc_stream(headers, 100, 60, mvs, at, resync_at=at), 100, 60)
+    want, got = JaxMP4Dataset(plain), JaxMP4Dataset(marked)
+    assert len(got) == len(want) == 3
+    for i in range(3):
+        np.testing.assert_array_equal(got.read_img(i), want.read_img(i))
+    ds = video.MP4Dataset(marked)
+    ds.read_img(0)
+    with pytest.raises(NotImplementedError, match="resync marker inside a VOP.*item 17"):
+        ds.read_img(1)
+    video.MP4Dataset(plain).read_img(2)

@@ -1,10 +1,10 @@
 """H.264 video files for the port's video tests and fixtures, written here
-(cv2 decodes H.264 but holds no encoder for it): CAVLC streams of I and P
-pictures whose syntax is drawn at random from what the port's decoder
-takes (``random_stream``), or coded from a smooth picture that pans
-(``smooth_stream``), in Annex B or behind NAL unit lengths, muxed into
-``.mp4``/``.mov`` (``write_mp4``, with a settable ``tkhd`` matrix) or
-``.avi`` (``write_avi`` of ``torch_video_files``).  Needs no cv2.
+(cv2 decodes H.264 but holds no encoder for it): CAVLC or CABAC streams
+of I and P pictures whose syntax is drawn at random from what the port's
+decoder takes (``random_stream``), or coded from a smooth picture that
+pans (``smooth_stream``), in Annex B or behind NAL unit lengths, muxed
+into ``.mp4``/``.mov`` (``write_mp4``, with a settable ``tkhd`` matrix)
+or ``.avi`` (``write_avi`` of ``torch_video_files``).  Needs no cv2.
 
 ``random_stream`` draws every I and P ``mb_type`` and ``sub_mb_type``,
 I_PCM, intra 4x4/8x8/16x16 and chroma modes (only those whose samples are
@@ -17,12 +17,16 @@ MMCO 1 and non-reference pictures; per stream the picture order count
 type, parameter sets in band (repeated, several ids), ``constrained_intra_
 pred_flag``, both chroma QP offsets, the VUI and frame cropping.  Levels
 are bounded so that no dequantised coefficient or transform sum leaves
-16 bits, which the standard forbids and libavcodec does not model.  The
-CAVLC tables come from the decoder's source: a wrong entry there gives a
-stream cv2 reads otherwise, so cv2's decode is the check.
+16 bits, which the standard forbids and libavcodec does not model.
+Under CABAC (``cabac=True``: ``CabacEncoder``, the arithmetic coder of
+clause 9.3.4, and ``CabacSlice``, each syntax element's binarisation and
+context selection) it also draws cabac_init_idc, slice QPs over 0-51,
+``mvd`` past UEG3's prefix and slices that end on a skipped macroblock.
+The CAVLC and CABAC tables come from the decoder's source: a wrong entry
+there gives a stream cv2 reads otherwise, so cv2's decode is the check.
 
 Imported by ``tests/test_torch_h264.py``, ``tests/test_torch_video.py``,
-``scripts/make_h264_fixtures.py`` and ``chip_smoke.py`` (phase 20).
+``scripts/make_h264_fixtures.py`` and ``chip_smoke.py`` (phases 20, 21).
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ _HOST_SRC = pathlib.Path(__file__).resolve().parents[1] / "mast3r_slam_tpu_torch
 
 def _c_array(src: str, name: str) -> list:
     body = re.search(name + r"\[[^=]*= \{(.*?)\};", src, re.S).group(1)
-    return [int(v, 0) for v in re.findall(r"0x[0-9a-f]+|\d+", body)]
+    return [int(v, 0) for v in re.findall(r"-?0x[0-9a-f]+|-?\d+", body)]
 
 
 class _Tables:
@@ -61,6 +65,14 @@ class _Tables:
         self.deq4 = np.array(a("DEQ4")).reshape(6, 3)
         self.deq8 = np.array(a("DEQ8")).reshape(6, 6)
         self.qpc = a("QPC")
+        pairs = lambda v: list(zip(v[0::2], v[1::2]))  # noqa: E731
+        self.cabac_i = pairs(a("CABAC_INIT_I"))
+        p = pairs(a("CABAC_INIT_P"))
+        self.cabac_p = [p[460 * k:460 * k + 460] for k in range(3)]
+        lps = a("RANGE_LPS")
+        self.range_lps = [lps[4 * k:4 * k + 4] for k in range(64)]
+        self.trans_lps = a("TRANS_LPS")
+        self.sig8, self.last8 = a("SIG8_FRAME"), a("LAST8_FRAME")
 
 
 _TABLES = None
@@ -102,9 +114,11 @@ class Bits:
     def align_zero(self) -> None:
         self.u(0, (8 - self.n % 8) % 8)
 
-    def rbsp(self) -> bytes:
-        """The bits with rbsp_trailing_bits."""
-        self.u(1, 1)
+    def rbsp(self, stop: bool = True) -> bytes:
+        """The bits with rbsp_trailing_bits (CABAC's flush wrote the stop
+        bit: ``stop`` False)."""
+        if stop:
+            self.u(1, 1)
         self.align_zero()
         s = "".join(self.parts)
         return int(s, 2).to_bytes(len(s) // 8, "big")
@@ -378,6 +392,24 @@ def idct4(d: np.ndarray) -> np.ndarray:
     return (g + 32) >> 6
 
 
+def _idct8_1d(d: np.ndarray) -> np.ndarray:
+    """The decoder's 8-point inverse transform along the last axis."""
+    d0, d1, d2, d3, d4, d5, d6, d7 = (d[..., k] for k in range(8))
+    a0, a4, a2, a6 = d0 + d4, d0 - d4, (d2 >> 1) - d6, d2 + (d6 >> 1)
+    b0, b2, b4, b6 = a0 + a6, a4 + a2, a4 - a2, a0 - a6
+    a1 = -d3 + d5 - d7 - (d7 >> 1)
+    a3 = d1 + d7 - d3 - (d3 >> 1)
+    a5 = -d1 + d7 + d5 + (d5 >> 1)
+    a7 = d3 + d5 + d1 + (d1 >> 1)
+    b1, b7, b3, b5 = a1 + (a7 >> 2), a7 - (a1 >> 2), a3 + (a5 >> 2), (a3 >> 2) - a5
+    return np.stack([b0 + b7, b2 + b5, b4 + b3, b6 + b1, b6 - b1, b4 - b3, b2 - b5, b0 - b7], -1)
+
+
+def idct8(d: np.ndarray) -> np.ndarray:
+    """The 8x8 inverse transform of an (8, 8) array: residuals."""
+    return (_idct8_1d(_idct8_1d(d).swapaxes(-1, -2)).swapaxes(-1, -2) + 32) >> 6
+
+
 def chroma_qp(qp: int, offset: int) -> int:
     return tables().qpc[min(max(qp + offset, 0), 51)]
 
@@ -387,7 +419,8 @@ def chroma_qp(qp: int, offset: int) -> int:
 
 def options(width: int, height: int, **kw) -> dict:
     """A stream's options: the frame size, then what ``kw`` sets over the
-    defaults (High profile, CAVLC, POC type 0, 2 references)."""
+    defaults (High profile, CAVLC unless ``cabac``, POC type 0, 2
+    references)."""
     mbw, mbh = (width + 15) // 16, (height + 15) // 16
     o = dict(profile=100, log2_max_frame_num=4, poc_type=0, log2_max_poc_lsb=5, poc_step=2,
              delta_always_zero=False, offset_non_ref=1, offset_t2b=0, poc_cycle=[2],
@@ -399,6 +432,8 @@ def options(width: int, height: int, **kw) -> dict:
              far_mv=False, p_types=None, i_types=None, pcm=True, slice_i_in_p=False,
              dbk_idc=(0, 1, 2), force_slice_type=None, long_term_idr=False, mmco_op=None,
              gap_at=None, poc_drop_at=None)
+    if kw.get("cabac"):  # CABAC: slice QPs over the whole range, mvds past UEG3's prefix
+        o.update(qp_range=(0, 51), mvd=40)
     o.update(kw)
     return o
 
@@ -430,6 +465,13 @@ class Picture:
         self.nz = np.zeros((n, 24), int)
         self.ipred = np.full((n, 16), -1)
         self.cur_slice = 0
+        # what CABAC's contexts read of a neighbour (see h264.cpp's Mb)
+        self.cbp = [0] * n
+        self.t8 = [False] * n
+        self.cmode = [0] * n
+        self.dcf = [0] * n  # coded_block_flag of the DC blocks: 1 luma, 2 Cb, 4 Cr
+        self.mvd = np.zeros((n, 16, 2), int)
+        self.ref = np.zeros((n, 16), int)
 
     def avail(self, mx, my) -> bool:
         return (0 <= mx < self.mbw and 0 <= my < self.mbh
@@ -636,6 +678,474 @@ def _residual(b: Bits, pic: Picture, mx, my, d, cbp, i16) -> None:
                                                                              c + 1))
 
 
+# --- CABAC (clause 9.3) ------------------------------------------------------------
+
+
+class CabacEncoder:
+    """The arithmetic encoder of 9.3.4 (EncodeDecision, EncodeBypass,
+    EncodeTerminate, EncodeFlush) over the contexts 9.3.1.1 initialises;
+    bits collect in ``out`` until ``drain`` moves them into a ``Bits``."""
+
+    def __init__(self, intra_slice: bool, idc: int, qp: int):
+        t = tables()
+        q = min(max(qp, 0), 51)
+        self.p, self.mps = [], []
+        for m, n in (t.cabac_i if intra_slice else t.cabac_p[idc]):
+            pre = min(max(((m * q) >> 4) + n, 1), 126)
+            self.p.append(63 - pre if pre <= 63 else pre - 64)
+            self.mps.append(int(pre > 63))
+        self.lps, self.trans = t.range_lps, t.trans_lps
+        self.out = []
+        self.start()
+
+    def start(self) -> None:  # InitEncoder: at a slice's start and after I_PCM samples
+        self.low, self.range, self.first, self.outstanding = 0, 510, True, 0
+
+    def _put(self, bit: int) -> None:
+        if self.first:
+            self.first = False
+        else:
+            self.out.append(bit)
+        if self.outstanding:
+            self.out.extend([1 - bit] * self.outstanding)
+            self.outstanding = 0
+
+    def _renorm(self) -> None:
+        while self.range < 256:
+            if self.low < 256:
+                self._put(0)
+            elif self.low >= 512:
+                self.low -= 512
+                self._put(1)
+            else:
+                self.low -= 256
+                self.outstanding += 1
+            self.range <<= 1
+            self.low <<= 1
+
+    def decision(self, ctx: int, bin_: int) -> None:
+        p, mps = self.p[ctx], self.mps[ctx]
+        lps = self.lps[p][(self.range >> 6) & 3]
+        self.range -= lps
+        if bin_ != mps:
+            self.low += self.range
+            self.range = lps
+            if p == 0:
+                self.mps[ctx] = 1 - mps
+            self.p[ctx] = self.trans[p]
+        else:
+            self.p[ctx] = min(p + 1, 62)
+        self._renorm()
+
+    def bypass(self, bin_: int) -> None:
+        self.low <<= 1
+        if bin_:
+            self.low += self.range
+        if self.low >= 1024:
+            self._put(1)
+            self.low -= 1024
+        elif self.low < 512:
+            self._put(0)
+        else:
+            self.low -= 512
+            self.outstanding += 1
+
+    def terminate(self, bin_: int) -> None:
+        self.range -= 2
+        if bin_:
+            self.low += self.range
+            self.range = 2  # EncodeFlush; its last bit, 1, ends a slice as rbsp_stop_one_bit
+            self._renorm()
+            self._put((self.low >> 9) & 1)
+            self.out += [(self.low >> 8) & 1, 1]
+        else:
+            self._renorm()
+
+    def exp_golomb(self, v: int, k: int) -> None:  # UEGk's bypass suffix
+        while v >= (1 << k):
+            self.bypass(1)
+            v -= 1 << k
+            k += 1
+        self.bypass(0)
+        while k:
+            k -= 1
+            self.bypass((v >> k) & 1)
+
+    def drain(self, b: Bits) -> None:
+        if self.out:
+            b.parts.append("".join(map(str, self.out)))
+            b.n += len(self.out)
+            self.out = []
+
+
+_SIG, _LAST, _ABS = (105, 120, 134, 149, 152, 402), (166, 181, 195, 210, 213, 417), \
+    (227, 237, 247, 257, 266, 426)
+
+
+class CabacSlice:
+    """One slice's macroblocks under CABAC: each syntax element binarised
+    and its contexts chosen from the neighbours as 9.3.2-9.3.3 (and the
+    decoder, ``h264.cpp``) choose them."""
+
+    def __init__(self, b: Bits, pic: Picture, intra_slice: bool, idc: int, qp: int,
+                 transform_8x8: bool):
+        while b.n % 8:  # cabac_alignment_one_bit
+            b.u(1, 1)
+        self.b, self.pic, self.t8_mode = b, pic, transform_8x8
+        self.e = CabacEncoder(intra_slice, idc, qp)
+        self.last_dqp = 0
+
+    # -- neighbours -------------------------------------------------------------
+
+    def _addr(self, mx, my):
+        return my * self.pic.mbw + mx if self.pic.avail(mx, my) else None
+
+    def _cover(self, mx, my, x, y):
+        """(address, raster 4x4) of luma sample (x, y) relative to the
+        macroblock, None where not available."""
+        nmx, nmy = (mx - 1 if x < 0 else mx), (my - 1 if y < 0 else my)
+        k = (((y + 16) & 15) >> 2) * 4 + (((x + 16) & 15) >> 2)
+        if (nmx, nmy) == (mx, my):
+            return my * self.pic.mbw + mx, k
+        a = self._addr(nmx, nmy)
+        return (a, k) if a is not None else (None, k)
+
+    # -- the macroblock layer ------------------------------------------------------
+
+    def skip(self, mx, my, skipped: bool) -> None:
+        pic = self.pic
+        inc = sum(1 for a in (self._addr(mx - 1, my), self._addr(mx, my - 1))
+                  if a is not None and pic.kind[a] != "skip")
+        self.e.decision(11 + inc, int(skipped))
+        if skipped:
+            addr = my * pic.mbw + mx
+            pic.slice[addr], pic.kind[addr] = pic.cur_slice, "skip"
+            pic.nz[addr] = 0
+            self.last_dqp = 0
+
+    def end(self, last: bool) -> None:
+        self.e.terminate(int(last))
+        if last:
+            self.e.drain(self.b)
+
+    def _mb_type_i(self, off: int, inc: int, kind: str, t: int) -> None:
+        e, in_i = self.e, off == 3
+        e.decision(off + inc, int(kind != "I4" and kind != "I8"))
+        if kind in ("I4", "I8"):
+            return
+        e.terminate(int(kind == "PCM"))
+        if kind == "PCM":
+            return
+        pred, chroma, luma = (t - 1) % 4, ((t - 1) // 4) % 3, int(t >= 13)
+        e.decision(off + (3 if in_i else 1), luma)
+        e.decision(off + (4 if in_i else 2), int(chroma != 0))
+        if chroma:
+            e.decision(off + (5 if in_i else 2), int(chroma == 2))
+        e.decision(off + (6 if in_i else 3), pred >> 1)
+        e.decision(off + (7 if in_i else 3), pred & 1)
+
+    def mb_type(self, mx, my, d: dict, slice_type: str) -> None:
+        kind, e, pic = d["kind"], self.e, self.pic
+        t = 0
+        if kind == "I16":
+            cbp = d["cbp"]
+            t = 1 + d["mode"] + 4 * (cbp >> 4) + (12 if cbp & 15 else 0)
+        if slice_type == "P":
+            if kind == "P":
+                mt = d["mb_type"]
+                e.decision(14, 0)
+                e.decision(15, int(mt in (1, 2)))
+                e.decision(17 if mt in (1, 2) else 16, int(mt in (1, 3)))
+                return
+            e.decision(14, 1)
+            self._mb_type_i(17, 0, kind, t)
+            return
+        inc = sum(1 for a in (self._addr(mx - 1, my), self._addr(mx, my - 1))
+                  if a is not None and pic.kind[a] not in ("I4", "I8"))
+        self._mb_type_i(3, inc, kind, t)
+
+    def transform_8x8(self, mx, my, flag: bool) -> None:
+        inc = sum(1 for a in (self._addr(mx - 1, my), self._addr(mx, my - 1))
+                  if a is not None and self.pic.t8[a])
+        self.e.decision(399 + inc, int(flag))
+
+    def pred_mode(self, mode: int, pred: int) -> None:
+        self.e.decision(68, int(mode == pred))
+        if mode != pred:
+            rem = mode if mode < pred else mode - 1
+            for i in range(3):
+                self.e.decision(69, (rem >> i) & 1)
+
+    def chroma_mode(self, mx, my, mode: int) -> None:
+        pic = self.pic
+        inc = sum(1 for a in (self._addr(mx - 1, my), self._addr(mx, my - 1))
+                  if a is not None and pic.intra(a) and pic.kind[a] != "PCM" and pic.cmode[a])
+        self.e.decision(64 + inc, int(mode > 0))
+        if mode:
+            self.e.decision(67, int(mode > 1))
+            if mode > 1:
+                self.e.decision(67, int(mode > 2))
+
+    def cbp(self, mx, my, cbp: int) -> None:
+        pic = self.pic
+
+        def bit(nx, ny, b8):
+            a = self._addr(nx, ny)
+            return 1 if a is None else (pic.cbp[a] >> b8) & 1
+        for b8 in range(4):
+            x8, y8 = b8 & 1, b8 >> 1
+            a = (cbp >> (b8 - 1)) & 1 if x8 else bit(mx - 1, my, b8 + 1)
+            c = (cbp >> (b8 - 2)) & 1 if y8 else bit(mx, my - 1, b8 + 2)
+            self.e.decision(73 + (1 - a) + 2 * (1 - c), (cbp >> b8) & 1)
+
+        def chroma(nx, ny):
+            a = self._addr(nx, ny)
+            return 0 if a is None else pic.cbp[a] >> 4
+        ca, cb = chroma(mx - 1, my), chroma(mx, my - 1)
+        self.e.decision(77 + int(ca != 0) + 2 * int(cb != 0), int(cbp >> 4 != 0))
+        if cbp >> 4:
+            self.e.decision(81 + int(ca == 2) + 2 * int(cb == 2), int(cbp >> 4 == 2))
+
+    def dqp(self, dq: int) -> None:
+        e = self.e
+        e.decision(60 + int(self.last_dqp != 0), int(dq != 0))
+        if dq:
+            k = 2 * dq - 1 if dq > 0 else -2 * dq
+            for i in range(1, k):
+                e.decision(62 if i == 1 else 63, 1)
+            e.decision(62 if k == 1 else 63, 0)
+        self.last_dqp = dq
+
+    def ref_idx(self, mx, my, x, y, w, h, ref: int) -> None:
+        pic = self.pic
+
+        def cond(nx, ny):
+            a, k = self._cover(mx, my, nx, ny)
+            return int(a is not None and pic.kind[a] == "P" and pic.ref[a][k] > 0)
+        ctx = 54 + cond(x - 1, y) + 2 * cond(x, y - 1)
+        for i in range(ref + 1):
+            self.e.decision(ctx, int(i < ref))
+            ctx = 58 if i == 0 else 59
+        addr = my * pic.mbw + mx
+        for by in range(y // 4, (y + h) // 4):
+            for bx in range(x // 4, (x + w) // 4):
+                pic.ref[addr][by * 4 + bx] = ref
+
+    def mvd(self, mx, my, x, y, w, h, d) -> None:
+        pic, e = self.pic, self.e
+        addr = my * pic.mbw + mx
+        for c in range(2):
+            def amvd(nx, ny):
+                a, k = self._cover(mx, my, nx, ny)
+                return int(pic.mvd[a][k][c]) if a is not None and pic.kind[a] == "P" else 0
+            s = amvd(x - 1, y) + amvd(x, y - 1)
+            base, v = (47 if c else 40), abs(d[c])
+            e.decision(base + (0 if s < 3 else 2 if s > 32 else 1), int(v != 0))
+            if v:
+                ctx = 3
+                for i in range(1, min(v, 9)):
+                    e.decision(base + ctx, 1)
+                    ctx = min(ctx + 1, 6)
+                if v < 9:
+                    e.decision(base + ctx, 0)
+                else:
+                    e.exp_golomb(v - 9, 3)
+                e.bypass(int(d[c] < 0))
+        for by in range(y // 4, (y + h) // 4):
+            for bx in range(x // 4, (x + w) // 4):
+                pic.mvd[addr][by * 4 + bx] = [min(abs(d[0]), 255), min(abs(d[1]), 255)]
+
+    def sub_mb_type(self, sub: int) -> None:
+        e = self.e
+        e.decision(21, int(sub == 0))
+        if sub:
+            e.decision(22, int(sub > 1))
+            if sub > 1:
+                e.decision(23, int(sub == 2))
+
+    # -- residual blocks -------------------------------------------------------
+
+    def block(self, cat: int, cbf, coef) -> int:
+        """residual_block_cabac of ``coef`` (levels in scan order); ``cbf``
+        coded_block_flag's ctxIdxInc (None: not coded, cat 5)."""
+        e, t = self.e, tables()
+        nzpos = [i for i, v in enumerate(coef) if v]
+        if cbf is not None:
+            e.decision(85 + cbf, int(bool(nzpos)))
+        if not nzpos:
+            return 0
+        last, n = nzpos[-1], len(coef)
+        for i in range(n - 1):
+            sig = int(coef[i] != 0)
+            inc = t.sig8[i] if cat == 5 else min(i, 2) if cat == 3 else i
+            e.decision(_SIG[cat] + inc, sig)
+            if sig:
+                inc = t.last8[i] if cat == 5 else min(i, 2) if cat == 3 else i
+                e.decision(_LAST[cat] + inc, int(i == last))
+                if i == last:
+                    break
+        gt1 = eq1 = 0
+        for i in reversed(nzpos):
+            level = abs(coef[i])
+            e.decision(_ABS[cat] + (0 if gt1 else min(4, 1 + eq1)), int(level > 1))
+            if level > 1:
+                inc = _ABS[cat] + 5 + min(4 - (cat == 3), gt1)
+                for _ in range(2, min(level, 15)):
+                    e.decision(inc, 1)
+                if level < 15:
+                    e.decision(inc, 0)
+                else:
+                    e.exp_golomb(level - 15, 0)
+                gt1 += 1
+            else:
+                eq1 += 1
+            e.bypass(int(coef[i] < 0))
+        return len(nzpos)
+
+    def _dc_flag(self, nx, ny, bit):
+        a = self._addr(nx, ny)
+        if a is None:
+            return None
+        return 1 if self.pic.kind[a] == "PCM" else (self.pic.dcf[a] >> bit) & 1
+
+    def coded_block(self, mx, my, cat: int, bx: int, by: int, plane: int, coef) -> int:
+        pic = self.pic
+        addr = my * pic.mbw + mx
+        if cat == 5:
+            return self.block(5, None, coef)
+        if cat in (0, 3):
+            a, c = self._dc_flag(mx - 1, my, plane), self._dc_flag(mx, my - 1, plane)
+        else:
+            a, c = (pic.nz_at(mx, my, bx - 1, by, plane), pic.nz_at(mx, my, bx, by - 1, plane))
+            a, c = (None if v < 0 else int(v > 0) for v in (a, c))
+        intra = int(pic.intra(addr))
+        a, c = (intra if v is None else v for v in (a, c))
+        n = self.block(cat, 4 * cat + a + 2 * c, coef)
+        if cat in (0, 3) and n:
+            pic.dcf[addr] |= 1 << plane
+        return n
+
+    def residual(self, mx, my, d, cbp, i16) -> None:
+        pic = self.pic
+        addr = my * pic.mbw + mx
+        nz = pic.nz[addr]
+        nz[:] = 0
+        if i16:
+            self.coded_block(mx, my, 0, 0, 0, 0, d["dc"])
+        for b8 in range(4):
+            if not cbp & (1 << b8):
+                continue
+            if d.get("t8"):
+                n = self.coded_block(mx, my, 5, 0, 0, 0, d["luma8"][b8])
+                for i4 in range(4):
+                    nz[_zy(4 * b8 + i4) * 4 + _zx(4 * b8 + i4)] = n
+                continue
+            for i4 in range(4):
+                blk = 4 * b8 + i4
+                bx, by = _zx(blk), _zy(blk)
+                if i16:
+                    nz[by * 4 + bx] = self.coded_block(mx, my, 1, bx, by, 0, d["ac"][blk])
+                else:
+                    nz[by * 4 + bx] = self.coded_block(mx, my, 2, bx, by, 0, d["luma"][blk])
+        if cbp & 0x30:
+            for c in range(2):
+                self.coded_block(mx, my, 3, 0, 0, c + 1, d["cdc"][c])
+        if cbp >> 4 == 2:
+            for c in range(2):
+                for k in range(4):
+                    nz[16 + 4 * c + k] = self.coded_block(mx, my, 4, k & 1, k >> 1, c + 1,
+                                                          d["cac"][c][k])
+
+    def macroblock(self, mx, my, d: dict, slice_type: str, num_ref: int) -> None:
+        """One macroblock of description ``d`` (``RandomPicture.describe``),
+        not skipped; the picture learns what later contexts read."""
+        pic = self.pic
+        addr = my * pic.mbw + mx
+        kind = d["kind"]
+        pic.slice[addr], pic.kind[addr] = pic.cur_slice, kind
+        pic.cbp[addr], pic.t8[addr], pic.cmode[addr], pic.dcf[addr] = 0, False, 0, 0
+        pic.mvd[addr], pic.ref[addr] = 0, 0
+        self.mb_type(mx, my, d, slice_type)
+        dq = 0
+        if kind == "PCM":
+            self.e.drain(self.b)
+            self.b.align_zero()
+            for v in d["pcm"]:
+                self.b.u(int(v), 8)
+            self.e.start()
+            pic.nz[addr], pic.cbp[addr], pic.dcf[addr] = 16, 47, 7
+            self.last_dqp = 0
+            return
+        if kind == "P":
+            mt, refs = d["mb_type"], d["refs"]
+            parts = []
+            if mt < 3:
+                w, h = (8 if mt == 2 else 16), (8 if mt == 1 else 16)
+                for k in range(len(refs)):
+                    x, y = (8 * k if mt == 2 else 0), (8 * k if mt == 1 else 0)
+                    if num_ref > 1:
+                        self.ref_idx(mx, my, x, y, w, h, refs[k])
+                    parts.append((x, y, w, h))
+            else:
+                for s in d["sub"]:
+                    self.sub_mb_type(s)
+                for k in range(4):
+                    if num_ref > 1:
+                        self.ref_idx(mx, my, (k & 1) * 8, (k >> 1) * 8, 8, 8, refs[k])
+                for k in range(4):
+                    w = 8 if d["sub"][k] in (0, 1) else 4
+                    h = 8 if d["sub"][k] in (0, 2) else 4
+                    for y in range(0, 8, h):
+                        for x in range(0, 8, w):
+                            parts.append(((k & 1) * 8 + x, (k >> 1) * 8 + y, w, h))
+            for (x, y, w, h), mv in zip(parts, d["mvd"]):
+                self.mvd(mx, my, x, y, w, h, mv)
+            cbp = d["cbp"]
+            self.cbp(mx, my, cbp)
+            small = mt >= 3 and any(d["sub"])
+            if (cbp & 15) and self.t8_mode and not small:
+                self.transform_8x8(mx, my, d["t8"])
+                pic.t8[addr] = bool(d["t8"])
+            pic.cbp[addr] = cbp
+            if cbp:
+                dq = d["dqp"]
+                self.dqp(dq)
+            self.residual(mx, my, d, cbp, False)
+        elif kind in ("I4", "I8"):
+            if self.t8_mode:
+                self.transform_8x8(mx, my, kind == "I8")
+                pic.t8[addr] = kind == "I8"
+            cur = [-1] * 16
+            n = 4 if kind == "I8" else 16
+            for k in range(n):
+                blk = 4 * k if kind == "I8" else k
+                bx, by = _zx(blk), _zy(blk)
+                pred = pic.predicted_mode(mx, my, bx, by, cur)
+                self.pred_mode(d["modes"][k], pred)
+                s = 2 if kind == "I8" else 1
+                for y in range(by, by + s):
+                    for x in range(bx, bx + s):
+                        cur[y * 4 + x] = d["modes"][k]
+            pic.ipred[addr] = cur
+            self.chroma_mode(mx, my, d["cmode"])
+            pic.cmode[addr] = d["cmode"]
+            cbp = d["cbp"]
+            self.cbp(mx, my, cbp)
+            pic.cbp[addr] = cbp
+            if cbp:
+                dq = d["dqp"]
+                self.dqp(dq)
+            self.residual(mx, my, d, cbp, False)
+        else:  # I16
+            self.chroma_mode(mx, my, d["cmode"])
+            pic.cmode[addr] = d["cmode"]
+            pic.cbp[addr] = d["cbp"]
+            dq = d["dqp"]
+            self.dqp(dq)
+            self.residual(mx, my, d, d["cbp"], True)
+        self.last_dqp = dq
+
+
 # --- random syntax ---------------------------------------------------------------
 
 
@@ -771,7 +1281,8 @@ class RandomPicture:
             d["cmode"] = int(rng.choice(valid_chroma_modes(top, left, tl)))
             d["t8"] = kind == "I8"
         else:  # P
-            mb_type = int(rng.choice(o["p_types"] or [0, 1, 2, 3] + ([4] if num_ref > 1 else [])))
+            mb_type = int(rng.choice(o["p_types"] or [0, 1, 2, 3] + (
+                [4] if num_ref > 1 and not o.get("cabac") else [])))
             d["mb_type"] = mb_type
             if mb_type < 3:
                 nparts = 1 if mb_type == 0 else 2
@@ -794,6 +1305,9 @@ class RandomPicture:
         d["qp"] = q
         if d.get("t8"):
             d["luma8"] = [self._block8(q) if cbp & (1 << b8) else [0] * 64 for b8 in range(4)]
+            for b8, lv in enumerate(d["luma8"]):  # CABAC codes no coded_block_flag for these:
+                if o.get("cabac") and cbp & (1 << b8) and not any(lv):  # a coded one holds a level
+                    lv[int(rng.integers(0, 64))] = int(rng.choice([-1, 1]))
         else:
             d["luma"] = [self._block4(q) if cbp & (1 << (blk >> 2)) else [0] * 16
                          for blk in range(16)]
@@ -802,6 +1316,55 @@ class RandomPicture:
 
 
 # --- streams ----------------------------------------------------------------------
+
+
+class _CavlcSink:
+    """A slice's macroblocks under CAVLC: skipped ones counted into
+    mb_skip_run."""
+
+    def __init__(self, b: Bits, o: dict):
+        self.b, self.o, self.run = b, o, 0
+
+    def skip(self, pic: Picture, mx: int, my: int) -> None:
+        addr = my * pic.mbw + mx
+        pic.slice[addr], pic.kind[addr] = pic.cur_slice, "skip"
+        pic.nz[addr] = 0
+        self.run += 1
+
+    def mb(self, pic: Picture, mx: int, my: int, d: dict, stype: str, num_ref: int) -> None:
+        if stype == "P":
+            self.b.ue(self.run)
+            self.run = 0
+        write_mb(self.b, pic, mx, my, d, stype, self.o, num_ref)
+
+    def end(self) -> None:
+        if self.run:
+            self.b.ue(self.run)
+
+
+class _CabacSink:
+    """A slice's macroblocks under CABAC: mb_skip_flag in P slices and
+    end_of_slice_flag after each macroblock."""
+
+    def __init__(self, cs: CabacSlice, count: int):
+        self.cs, self.left = cs, count
+
+    def skip(self, pic: Picture, mx: int, my: int) -> None:
+        self.cs.skip(mx, my, True)
+        self._next()
+
+    def mb(self, pic: Picture, mx: int, my: int, d: dict, stype: str, num_ref: int) -> None:
+        if stype == "P":
+            self.cs.skip(mx, my, False)
+        self.cs.macroblock(mx, my, d, stype, num_ref)
+        self._next()
+
+    def _next(self) -> None:
+        self.left -= 1
+        self.cs.end(self.left == 0)
+
+    def end(self) -> None:
+        assert self.left == 0
 
 
 class StreamWriter:
@@ -979,6 +1542,10 @@ class StreamWriter:
                 b.ue(0)
             else:
                 b.flag(False)
+        init_idc = 0
+        if po.get("cabac") and stype == "P":
+            init_idc = int(rng.integers(0, 3))
+            b.ue(init_idc)  # cabac_init_idc
         lo, hi = o["qp_range"]
         qp = int(rng.integers(lo, hi + 1))
         b.se(qp - po["init_qp"])
@@ -988,18 +1555,23 @@ class StreamWriter:
             if idc != 1:
                 b.se(int(rng.integers(-6, 7)))
                 b.se(int(rng.integers(-6, 7)))
-        if body is not None:
-            body(b, pic, first, end, stype, qp, num_ref)
+        if po.get("cabac"):
+            sink = _CabacSink(CabacSlice(b, pic, stype == "I", init_idc, qp, po["t8"]),
+                              end - first)
         else:
-            self._random_mbs(b, pic, first, end, stype, qp, num_ref, po)
-        return nal(ref_idc, 5 if idr else 1, b.rbsp())
+            sink = _CavlcSink(b, po)
+        if body is not None:
+            body(sink, pic, first, end, stype, qp, num_ref)
+        else:
+            self._random_mbs(sink, pic, first, end, stype, qp, num_ref, po)
+        sink.end()
+        return nal(ref_idc, 5 if idr else 1, b.rbsp(stop=not po.get("cabac")))
 
-    def _random_mbs(self, b, pic, first, end, stype, qp, num_ref, po) -> None:
+    def _random_mbs(self, sink, pic, first, end, stype, qp, num_ref, po) -> None:
         o, rng = self.o, self.rng
         gen = RandomPicture(rng, po, pic)
         kinds_i = o["i_types"] or (["I4", "I16"] + (["I8"] if po["t8"] else [])
                                    + (["PCM"] if o["pcm"] else []))
-        skip = 0
         for addr in range(first, end):
             mx, my = addr % pic.mbw, addr // pic.mbw
             if stype == "P":
@@ -1010,22 +1582,16 @@ class StreamWriter:
                     kind = str(rng.choice(kinds_i))
                 else:
                     kind = "P"
+                if po.get("cabac") and addr == end - 1 and rng.random() < 0.3:
+                    kind = "skip"  # a slice that ends on a skipped macroblock
             else:
                 kind = str(rng.choice(kinds_i))
             if kind == "skip":
-                skip += 1
-                pic.slice[addr] = pic.cur_slice
-                pic.kind[addr] = "skip"
-                pic.nz[addr] = 0
+                sink.skip(pic, mx, my)
                 continue
-            if stype == "P":
-                b.ue(skip)
-                skip = 0
             d = gen.describe(mx, my, kind, qp, num_ref)
-            write_mb(b, pic, mx, my, d, stype, po, num_ref)
+            sink.mb(pic, mx, my, d, stype, num_ref)
             qp = d["qp"]
-        if skip:
-            b.ue(skip)
 
 
 def random_stream(width: int, height: int, n: int, seed: int, **kw) -> tuple:
@@ -1084,9 +1650,26 @@ def _quant4(res: np.ndarray, qp: int, intra: bool) -> np.ndarray:
     return (np.sign(w) * lv).reshape(*res.shape[:-2], 16)
 
 
+_BASIS8 = {}
+
+
+def _quant8(res: np.ndarray, qp: int) -> np.ndarray:
+    """Levels (raster, 64) of an 8x8 inter residual: each the residual's
+    projection on what the decoder makes of that level alone (measured
+    through deq8 and idct8), with a dead zone; any levels serve, since the
+    encoder reconstructs as the decoder does."""
+    if qp not in _BASIS8:
+        unit = np.eye(64, dtype=np.int64) * 64
+        _BASIS8[qp] = np.stack([idct8(deq8(u, qp).reshape(8, 8)).reshape(64) for u in unit]) / 64
+    basis = _BASIS8[qp]
+    x = basis @ res.reshape(64) / np.maximum((basis * basis).sum(1), 1e-9)
+    return (np.sign(x) * np.floor(np.abs(x) + 1 / 6)).astype(np.int64)
+
+
 class _Encoder:
     """Intra 16x16 (the best of its four modes) and P 16x16 at a fixed
-    vector, with the residual coded, the reconstruction kept without
+    vector (its residual through the 8x8 transform when the stream's PPS
+    allows it), with the residual coded, the reconstruction kept without
     deblocking (the stream turns the filter off)."""
 
     def __init__(self, o: dict, qp: int):
@@ -1220,21 +1803,33 @@ class _Encoder:
         xs = np.clip(np.arange(x, x + 16) + mv[0] // 4, 0, W - 1)
         pred = rY[ys][:, xs]
         s = src[0][y:y + 16, x:x + 16]
-        blocks = (s - pred).reshape(4, 4, 4, 4).transpose(0, 2, 1, 3)
-        lv = _quant4(blocks, qp, False)
-        rec = np.empty((4, 4, 4, 4), int)
-        for by in range(4):
-            for bx in range(4):
-                rec[by, bx] = np.clip(pred[4 * by:4 * by + 4, 4 * bx:4 * bx + 4]
-                                      + idct4(deq4(lv[by, bx], qp).reshape(4, 4)), 0, 255)
-        Y[y:y + 16, x:x + 16] = rec.transpose(0, 2, 1, 3).reshape(16, 16)
-        zz = tables().zigzag4
-        luma = [[int(lv[_zy(blk), _zx(blk)][zz[i]]) for i in range(16)] for blk in range(16)]
-        cbp = 0
-        for b8 in range(4):
-            if any(any(luma[4 * b8 + i]) for i in range(4)):
-                cbp |= 1 << b8
-        d = dict(kind="P", mb_type=0, refs=[0], t8=False, dqp=0, luma=luma)
+        if self.o["t8"]:
+            zz8, luma8, cbp = tables().zigzag8, [], 0
+            for b8 in range(4):
+                y8, x8 = 8 * (b8 >> 1), 8 * (b8 & 1)
+                p8 = pred[y8:y8 + 8, x8:x8 + 8]
+                lv = _quant8(s[y8:y8 + 8, x8:x8 + 8] - p8, qp)
+                Y[y + y8:y + y8 + 8, x + x8:x + x8 + 8] = np.clip(
+                    p8 + idct8(deq8(lv, qp).reshape(8, 8)), 0, 255)
+                luma8.append([int(lv[zz8[k]]) for k in range(64)])
+                cbp |= int(lv.any()) << b8
+            d = dict(kind="P", mb_type=0, refs=[0], t8=bool(cbp), dqp=0, luma8=luma8)
+        else:
+            blocks = (s - pred).reshape(4, 4, 4, 4).transpose(0, 2, 1, 3)
+            lv = _quant4(blocks, qp, False)
+            rec = np.empty((4, 4, 4, 4), int)
+            for by in range(4):
+                for bx in range(4):
+                    rec[by, bx] = np.clip(pred[4 * by:4 * by + 4, 4 * bx:4 * bx + 4]
+                                          + idct4(deq4(lv[by, bx], qp).reshape(4, 4)), 0, 255)
+            Y[y:y + 16, x:x + 16] = rec.transpose(0, 2, 1, 3).reshape(16, 16)
+            zz = tables().zigzag4
+            luma = [[int(lv[_zy(blk), _zx(blk)][zz[i]]) for i in range(16)] for blk in range(16)]
+            cbp = 0
+            for b8 in range(4):
+                if any(any(luma[4 * b8 + i]) for i in range(4)):
+                    cbp |= 1 << b8
+            d = dict(kind="P", mb_type=0, refs=[0], t8=False, dqp=0, luma=luma)
         cd = []
         for c, (P, R) in enumerate(((U, rU), (V, rV))):
             qpc = chroma_qp(qp, self.o["cqp"][c])
@@ -1261,9 +1856,10 @@ def smooth_stream(width: int, height: int, n: int, seed: int, step: int = 4, qp:
     P_L0_16x16 macroblocks at the pan's vector, the residual coded at a
     fixed QP and the deblocking filter off, so that the encoder's
     reconstruction is the decoder's; an IDR picture every ``gop`` (0: only
-    the first)."""
-    o = options(width, height, t8=False, init_qp=qp, qp_range=(qp, qp), override=False,
-                max_ref=1, dbk_idc=(1,), pcm=False, **kw)
+    the first).  ``t8``: the P pictures' residual through the 8x8
+    transform; ``cabac``: CABAC."""
+    o = options(width, height, **{**dict(t8=False, init_qp=qp, qp_range=(qp, qp), override=False,
+                                         max_ref=1, dbk_idc=(1,), pcm=False), **kw})
     src = smooth_yuv(16 * o["mbw"], 16 * o["mbh"], n, seed, step)
     w = StreamWriter(o, seed)
     enc = _Encoder(o, qp)
@@ -1273,7 +1869,7 @@ def smooth_stream(width: int, height: int, n: int, seed: int, step: int = 4, qp:
         frame = [p[k] for p in src]
         enc.rec = [np.zeros_like(p) for p in frame]
 
-        def body(b, pic, first, end, stype, slice_qp, num_ref, frame=frame):
+        def body(sink, pic, first, end, stype, slice_qp, num_ref, frame=frame):
             for addr in range(first, end):
                 mx, my = addr % pic.mbw, addr // pic.mbw
                 if stype == "I":
@@ -1281,8 +1877,7 @@ def smooth_stream(width: int, height: int, n: int, seed: int, step: int = 4, qp:
                 else:  # every predictor is the pan's vector but the first's
                     d = enc.mb_inter(frame, mx, my, mv)
                     d["mvd"] = [mv if addr == 0 else (0, 0)]
-                    b.ue(0)  # mb_skip_run
-                write_mb(b, pic, mx, my, d, stype, o, num_ref)
+                sink.mb(pic, mx, my, d, stype, num_ref)
         units = w.parameter_sets() if k == 0 else []
         samples.append(units + w.picture(k == 0 or bool(gop and k % gop == 0), body))
         enc.ref = enc.rec

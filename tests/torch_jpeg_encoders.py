@@ -1,8 +1,10 @@
 """Test-side JPEG encoders for the codings that neither cv2 nor PIL writes:
 arithmetic-coded JPEG (SOF9 sequential, SOF10 progressive, with DAC
 conditioning and restarts) and lossless JPEG (SOF3).  Imported by
-``tests/test_torch_jpeg.py``, the other JPEG tests and
-``scripts/make_image_fixtures.py``; not a test file itself.
+``tests/test_torch_jpeg.py``, the other JPEG tests,
+``scripts/make_image_fixtures.py`` and ``scripts/make_resync_fixtures.py``;
+not a test file itself.  ``break_restart`` puts a restart marker out of
+place in any stream.
 
 The arithmetic coder is the QM coder of ITU T.81 Annex D with the
 statistics of F.1.4 (sequential DC and AC) and G.1.3 (progressive DC and
@@ -532,6 +534,51 @@ def with_entropy(data: bytes, payload, scan: int = 0) -> bytes:
             p += 2
         else:
             p += 1
+
+
+def scan_spans(data: bytes) -> list:
+    """(start, end) of each scan's entropy-coded data, restart markers in it."""
+    out, p = [], 2
+    while p + 4 <= len(data) and data[p + 1] != 0xD9:
+        length = struct.unpack(">H", data[p + 2:p + 4])[0]
+        if data[p + 1] != 0xDA:
+            p += 2 + length
+            continue
+        start = end = p + 2 + length
+        while not (data[end] == 0xFF and data[end + 1] != 0 and not 0xD0 <= data[end + 1] <= 0xD7):
+            end += 1
+        out.append((start, end))
+        p = end
+    return out
+
+
+def restart_positions(data: bytes, scan: int) -> dict:
+    """Where each RSTn of a scan's data begins, by n (the first of each)."""
+    start, end = scan_spans(data)[scan]
+    out = {}
+    for i in range(start, end - 1):
+        if data[i] == 0xFF and 0xD0 <= data[i + 1] <= 0xD7:
+            out.setdefault(data[i + 1] - 0xD0, i)
+    return out
+
+
+def break_restart(data: bytes, scan: int, how: str, n: int = 3) -> bytes:
+    """The stream with RSTn of its ``scan``-th scan made wrong: replaced by
+    the next marker ("next") or the previous one ("previous"), removed, or
+    swapped with RSTn+1 ("swapped")."""
+    at = restart_positions(data, scan)
+    out = bytearray(data)
+    if how == "next":
+        out[at[n] + 1] = 0xD0 + (n + 1) % 8
+    elif how == "previous":
+        out[at[n] + 1] = 0xD0 + (n - 1) % 8
+    elif how == "removed":
+        del out[at[n]:at[n] + 2]
+    elif how == "swapped":
+        out[at[n] + 1], out[at[(n + 1) % 8] + 1] = 0xD0 + (n + 1) % 8, 0xD0 + n
+    else:
+        raise ValueError(how)
+    return bytes(out)
 
 
 # ---------------------------------------------------------------------------

@@ -256,7 +256,7 @@ def _dc_i_vop(luma: np.ndarray, chroma: np.ndarray, time_bits: int) -> bytes:
 
 
 def _moved_p_vop(mv, mbw: int, mbh: int, rounding: int, time_inc: int,
-                 time_bits: int) -> bytes:
+                 time_bits: int, resync_at=None) -> bytes:
     bits = _Bits()
     _vop_header(bits, 1, time_inc, time_bits)
     bits.put(rounding, 1)
@@ -265,6 +265,14 @@ def _moved_p_vop(mv, mbw: int, mbh: int, rounding: int, time_inc: int,
     bits.put(1, 3)  # vop_fcode_forward
     for my in range(mbh):
         for mx in range(mbw):
+            if my * mbw + mx == resync_at:  # a video packet header, its marker disabled
+                bits.put(0, 1)  # stuffing: a 0, then 1s to the byte
+                while len(bits.bits) % 8:
+                    bits.put(1, 1)
+                bits.put(1, 17)  # resync_marker at vop_fcode_forward 1
+                bits.put(resync_at, (mbw * mbh - 1).bit_length())
+                bits.put(2, 5)  # quant_scale
+                bits.put(0, 1)  # header_extension_code
             bits.put(0, 1)  # coded
             bits.put(1, 1)  # MCBPC: inter, no chroma coefficients
             bits.put(3, 2)  # CBPY: no luma coefficients
@@ -276,10 +284,12 @@ def _moved_p_vop(mv, mbw: int, mbh: int, rounding: int, time_inc: int,
     return bits.finish()
 
 
-def dc_stream(headers: bytes, width: int, height: int, mvs, seed: int) -> list:
+def dc_stream(headers: bytes, width: int, height: int, mvs, seed: int, resync_at=None) -> list:
     """Samples of an I-VOP (``headers``, a cv2 stream's VOS/VOL/user data
     for ``width`` x ``height``, opening it) then a P-VOP a vector of
-    ``mvs`` (half-pel units, each under 9)."""
+    ``mvs`` (half-pel units, each under 9); with ``resync_at``, the first
+    P-VOP holds a video packet header before that macroblock, which a VOL
+    of ``resync_marker_disable`` 1 does not announce."""
     rng = np.random.default_rng(seed)
     mbw, mbh = (width + 15) // 16, (height + 15) // 16
     time_bits = _time_increment_bits(headers)
@@ -287,7 +297,8 @@ def dc_stream(headers: bytes, width: int, height: int, mvs, seed: int) -> list:
     chroma = rng.choice([0, 1, 3, 7], (2, mbh, mbw))
     out = [headers + _dc_i_vop(luma, chroma, time_bits)]
     for k, mv in enumerate(mvs):
-        out.append(_moved_p_vop(mv, mbw, mbh, 1 - k % 2, k + 1, time_bits))
+        out.append(_moved_p_vop(mv, mbw, mbh, 1 - k % 2, k + 1, time_bits,
+                                resync_at if k == 0 else None))
     return out
 
 
