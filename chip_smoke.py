@@ -274,6 +274,17 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      CABAC clip, its PNG control's frames held to cv2's digests; (c) a
      frame's decode under CABAC beside CAVLC, at 480x640 and 1920x1080,
      IDR and P pictures apart, in the same call.
+  22. H.264 B pictures, weighted prediction and reordered output on the
+     card's host (x264's default tools): (a) every committed B-picture
+     fixture (random CAVLC syntax in .mp4, random CABAC syntax with a
+     referenced B picture in 2 slices in .mov, explicit weights in .avi,
+     ctts version 1 behind an edit that cuts frames, and the two pans),
+     read as 19a reads them, against cv2's digests
+     (tests/data/h264_fixtures.json); (b) 19b over the committed 480x640
+     IBBP clip (b-pyramid, CABAC, the 8x8 transform, explicit weights in
+     P, implicit in B, behind ctts and FFmpeg's edit list), its PNG
+     control's frames held to cv2's digests; (c) an IDR, a P and a B
+     picture's decode, at 480x640 and 1920x1080, in the same call.
 
 Phase 2 also holds the two gather probes' kernels (gather_rows_sum,
 take_along_rows, the latter at every slab width of SLAB_SWEEP, timed in
@@ -5643,6 +5654,111 @@ def run_cabac_input(dev, work, smi):
     return fixtures, cli, decode
 
 
+# ---------------------------------------------------------------------------
+# phase 22: H.264 B pictures, weighted prediction and reordered output
+# ---------------------------------------------------------------------------
+
+H264_B_CLIP = "h264_b_480x640_smooth.mp4"
+H264_B_BIG = "h264_b_1080x1920_smooth.mp4"
+
+
+def _picture_kind(sample, length_size):
+    """"idr", "i", "p" or "b": the slice_type of a sample's first slice."""
+    units, at = [], 0
+    while at + length_size <= len(sample):  # NAL units behind their lengths (avcC)
+        n = int.from_bytes(sample[at:at + length_size], "big")
+        units.append(sample[at + length_size:at + length_size + n])
+        at += length_size + n
+    for u in units:
+        if u[0] & 31 in (1, 5):
+            bits = "".join(format(c, "08b") for c in u[1:9])
+            pos, vals = 0, []
+            for _ in range(2):  # first_mb_in_slice, slice_type: ue(v)
+                zeros = bits.index("1", pos) - pos
+                vals.append(int(bits[pos + zeros:pos + 2 * zeros + 1], 2) - 1)
+                pos += 2 * zeros + 1
+            return "idr" if u[0] & 31 == 5 else "pbi"[vals[1] % 5] if vals[1] % 5 < 3 else "sp"
+    raise AssertionError("22c: a sample without a slice")
+
+
+def _h264_b_decode_ms(name, passes):
+    """Host milliseconds of each sample's decode, and of the conversion to
+    RGB of the picture it lets out, by the kind of picture decoded (IDR, P,
+    B: the B pictures come out in display order, later than they go in),
+    over ``passes`` decodes of the whole file, the held pictures drained."""
+    from mast3r_slam_tpu_torch.data import video
+    from mast3r_slam_tpu_torch.utils import native
+
+    data, track = video.read_track(VIDEO_DATA / name)
+    samples = [data[int(a):int(a) + int(n)] for a, n in zip(track.offsets, track.sizes)]
+    kinds = [_picture_kind(s, track.length_size) for s in samples]
+    ms = {k: [] for k in ("idr", "p", "b")}
+    shown = 0
+    for _ in range(passes):
+        dec = native.H264Decoder(track.config, track.length_size)
+        dec.delay(track.video_delay)  # the delay cv2's decoder starts with (ctts)
+        for i, sample in enumerate(samples):
+            t0 = time.perf_counter()
+            if dec.decode(sample, i) is not None:
+                dec.rgb()
+                shown += 1
+            ms[kinds[i]].append((time.perf_counter() - t0) * 1e3)
+        while dec.drain() is not None:
+            dec.rgb()
+            shown += 1
+        dec.close()
+    if shown != passes * len(samples):
+        raise AssertionError(f"22c: {name} output {shown} of {passes * len(samples)} pictures")
+    return dict({f"{k}_ms": statistics.median(v) for k, v in ms.items()},
+                frame_ms=statistics.median(ms["idr"] + ms["p"] + ms["b"]), frames=len(samples),
+                pictures={k: kinds.count(k) for k in ms}, passes=passes, file_bytes=len(data))
+
+
+def time_bframe_decode():
+    """22c: host milliseconds of an IDR, a P and a B picture's decode and
+    conversion to RGB, at 480x640 (the 22b clip, 14 frames) and 1920x1080
+    (an IDR, a P and a B picture), median over VIDEO_DECODE_PASSES decodes
+    of each file, in one call."""
+    out = dict(b_480x640=_h264_b_decode_ms(H264_B_CLIP, VIDEO_DECODE_PASSES),
+               b_1080x1920=_h264_b_decode_ms(H264_B_BIG, VIDEO_DECODE_PASSES))
+    log(f"22c decode (host clock): {json.dumps(out)}")
+    return out
+
+
+def run_bframe_input(dev, work, smi):
+    """Phase 22 (a)-(c), each checked; raises on any fault."""
+    import hashlib
+
+    from mast3r_slam_tpu_torch.data import png
+
+    t0 = time.perf_counter()
+    fixtures = check_video_fixtures("h264_fixtures.json", "22a", part="h264_b_")
+    if fixtures["files"] < 6:
+        raise AssertionError(f"22a: {fixtures['files']} B-picture fixtures, 6 expected")
+    digests = json.loads((IMAGE_DATA / "h264_fixtures.json").read_text())
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        cli = run_cli_video(dev, work, clip_name=H264_B_CLIP, tag="22b", save="h264_b")
+    finally:
+        os.chdir(cwd)
+    control = sorted((work / "h264_b_png").iterdir())
+    cli["control_is_cv2s"] = ([hashlib.sha256(png.read_png(p).tobytes()).hexdigest()
+                               for p in control]
+                              == digests[f"video_fixtures/{H264_B_CLIP}"]["frames"])
+    if not cli["control_is_cv2s"]:
+        raise AssertionError("22b: the PNG control's frames are not cv2's by the digests")
+    check_cli_video(cli, "the B-picture clip", "22b")
+    decode = time_bframe_decode()
+    ms = {k: f"{r['frame_ms']:.3f} (IDR {r['idr_ms']:.3f}, P {r['p_ms']:.3f}, B "
+             f"{r['b_ms']:.3f})" for k, r in decode.items()}
+    log(f"22 B pictures: a frame decodes in {json.dumps(ms)} ms (host clock); the CLI's "
+        f"ingest p50 {cli['ingest_ms_p50']:.2f} ms over the B clip, "
+        f"{cli['control_ingest_ms_p50']:.2f} ms over its PNG control; phase 22 "
+        f"{time.perf_counter() - t0:.1f} s; {smi}")
+    return fixtures, cli, decode
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -5899,6 +6015,11 @@ def main() -> int:
     # cv2's digests, the ViT-L CLI over a CABAC clip against its PNG
     # control, the decode timed beside CAVLC; same directory
     cabac_fixtures, cabac_cli, cabac_decode = run_cabac_input(dev, work, smi)
+    # B pictures, weighted prediction and reordered output (x264's default
+    # tools): the fixtures against cv2's digests, the ViT-L CLI over an IBBP
+    # clip behind ctts and an edit list against its PNG control, the decode
+    # of IDR, P and B pictures timed; same directory
+    bframe_fixtures, bframe_cli, bframe_decode = run_bframe_input(dev, work, smi)
 
     common = lambda r: {k: r[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms",
@@ -5918,6 +6039,7 @@ def main() -> int:
              video_cli_launches=video_cli["launches"]["attention"],
              h264_cli_launches=h264_cli["launches"]["attention"],
              cabac_cli_launches=cabac_cli["launches"]["attention"],
+             bframe_cli_launches=bframe_cli["launches"]["attention"],
              mesh_launches={"vitl_task_2_shards": mtask["launches"]["attention"],
                             "threaded_vitl_ranks": [c["attention"] for c in tranks]}),
         dict(name="refine_window", route="cuda",
@@ -5939,6 +6061,7 @@ def main() -> int:
              video_cli_launches=video_cli["launches"]["refine_window"],
              h264_cli_launches=h264_cli["launches"]["refine_window"],
              cabac_cli_launches=cabac_cli["launches"]["refine_window"],
+             bframe_cli_launches=bframe_cli["launches"]["refine_window"],
              mesh_launches={"vitl_task_2_shards": mtask["launches"]["refine_window"],
                             "two_process_ranks": [c["refine_window"] for c in mranks],
                             "threaded_vitl_ranks": [c["refine_window"] for c in tranks]},
@@ -5962,6 +6085,7 @@ def main() -> int:
              video_cli_launches=video_cli["launches"]["edge_hg_rays"],
              h264_cli_launches=h264_cli["launches"]["edge_hg_rays"],
              cabac_cli_launches=cabac_cli["launches"]["edge_hg_rays"],
+             bframe_cli_launches=bframe_cli["launches"]["edge_hg_rays"],
              mesh_launches={"sharded_solve": {k: r["launches"] for k, r in msolve.items()},
                             "two_process_ranks": [c["edge_hg_rays"] for c in mranks],
                             "threaded_vitl_ranks": [c["edge_hg_rays"] for c in tranks],
@@ -6058,7 +6182,9 @@ def main() -> int:
         "h264_input": {"fixtures": h264_fixtures, "cli": h264_cli, "decode": h264_decode,
                        "card": smi},
         "cabac_input": {"fixtures": cabac_fixtures, "cli": cabac_cli, "decode": cabac_decode,
-                        "card": smi}}
+                        "card": smi},
+        "bframe_input": {"fixtures": bframe_fixtures, "cli": bframe_cli, "decode": bframe_decode,
+                         "card": smi}}
     log(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -11,22 +11,30 @@ which gives the frame that ``cv2.cvtColor(cap.read()[1],
 cv2.COLOR_BGR2RGB)`` gives with cv2 5.0.0; the frame is then turned by
 the track's display matrix as cv2 turns it (``Track.rotation``).
 ``len``, ``fps`` and the timestamps are the ones cv2 reports:
-``CAP_PROP_FRAME_COUNT`` is the container's frame count, ``CAP_PROP_FPS``
+``CAP_PROP_FRAME_COUNT`` is the container's sample count, ``CAP_PROP_FPS``
 the constant sample rate (timescale over the one ``stts`` delta, or AVI's
-``dwRate / dwScale``).  A read away from the next frame seeks as cv2
-does (``MP4Dataset._seek``).
+``dwRate / dwScale``).  H.264 pictures come out as libavcodec outputs
+them under cv2: held back and reordered (B pictures), by the output
+delay cv2's decoder starts with (``MP4Dataset._probe_delay``) and grows,
+its frame threads decoding ahead (``FRAME_THREADS``), drained at the end
+of the file.  In ISO BMFF a frame's number is its presentation time
+(``ctts``) from the edit's start; frames outside the one edit are decoded
+and not shown (``Track.frames``).  A read away from the next frame seeks
+as cv2 does (``MP4Dataset._seek``).
 
 What is not ported raises ``NotImplementedError`` naming ROADMAP Queue 1
 item 17, and never falls back to cv2: video codecs other than MPEG-4
 Part 2 and H.264 (HEVC, AV1, MJPEG, MS-MPEG4, FFV1, ...), sample
 durations that are not one constant run (FFmpeg guesses a rate from
-them), sample reordering (``ctts``), non-trivial edit lists, H.264 sync
-samples that are not IDR pictures, and the stream features the decoders
-refuse.  A damaged file raises ``ValueError``.
+them), composition times that are not distinct whole frames, edit lists
+of several edits, empty edits or another rate, MPEG-4 Part 2 B-VOPs
+(``ctts``), H.264 sync samples that are not IDR pictures, and the stream
+features the decoders refuse.  A damaged file raises ``ValueError``.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 import mmap
@@ -41,6 +49,10 @@ from ..utils import native
 from .dataloader import MonocularDataset
 
 ROADMAP_ITEM = "ROADMAP Queue 1 item 17"
+# the frame threads cv2 has libavcodec run: one a CPU online (its
+# get_number_of_cpus); an H.264 frame comes back after FRAME_THREADS - 1
+# more samples went in
+FRAME_THREADS = max(os.sysconf("SC_NPROCESSORS_ONLN"), 1)
 # MPEG-4 Part 2 and H.264 under the fourccs FFmpeg's AVI demuxer maps to them
 # (riff.c ff_codec_bmp_tags, matched upper-cased)
 AVI_MPEG4_FOURCCS = {b"XVID", b"DIVX", b"DX50", b"FMP4", b"MP4V"}
@@ -65,6 +77,14 @@ class Track:
     codec: str = "mpeg4"  # or "h264"
     length_size: int = 0  # H.264: bytes of a NAL unit's length (avcC), 0 for Annex B
     rotation: int = 0  # degrees cv2 turns each frame clockwise: 0, 90, 180, 270
+    # each sample's frame number as cv2 counts it (its presentation time
+    # from the edit's start, in frames; -1 outside the edit: decoded, never
+    # shown), None for the sample order (AVI, or MPEG-4 Part 2)
+    frames: Optional[np.ndarray] = None
+    video_delay: int = 0  # FFmpeg's reorder guess from the composition times (ctts)
+    # each sample's decode time in frames from the presentation's start (what
+    # FFmpeg's seek compares with the target), None for the sample order
+    decode_times: Optional[np.ndarray] = None
 
 
 def _unsupported(what: str) -> NotImplementedError:
@@ -217,7 +237,76 @@ def rotation(tkhd, mvhd) -> int:
     return turn if turn in (90, 180, 270) else 0
 
 
-def _mp4_track(data: bytes, trak, path, mvhd) -> Optional[Track]:
+def _edit(data: bytes, kids: dict, path):
+    """The track's one edit (segment duration in movie ticks, media time), or
+    None without an edit list; FFmpeg's other edit lists are refused."""
+    edits = []
+    for ea, eb in kids.get(b"edts", []):
+        for ka, kb in _children(data, ea, eb, path).get(b"elst", []):
+            version, (n,) = _full_box(data, ka, kb, ">I", path, "elst")
+            fmt = ">Qqhh" if version == 1 else ">Iihh"
+            step = struct.calcsize(fmt)
+            if ka + 8 + n * step > kb:
+                raise ValueError(f"{path}: elst box holds fewer than its {n} entries")
+            edits += [struct.unpack(fmt, data[ka + 8 + i * step:ka + 8 + (i + 1) * step])
+                      for i in range(n)]
+    if not edits:
+        return None
+    if len(edits) != 1 or edits[0][1] < 0 or edits[0][2:] != (1, 0):
+        raise _unsupported(f"{path}: an edit list other than one edit of rate 1 (several "
+                           f"edits, an empty edit or another rate)")
+    return edits[0][0], edits[0][1]
+
+
+def _guess_video_delay(pts: np.ndarray) -> int:
+    """FFmpeg's ``mov_guess_video_delay``: the most pictures a sample's
+    presentation time falls behind among the 16 it keeps of those before."""
+    buf, delay = [np.iinfo(np.int64).min] * 17, 0
+    for t in pts.tolist():
+        buf.pop(0)  # its circular buffer drops its smallest entry for the new one
+        delay = max(delay, sum(1 for v in buf if v > t))
+        buf.insert(int(np.searchsorted(buf, t)), t)
+    return delay
+
+
+def _presentation(data: bytes, stbl: dict, kids: dict, count: int, delta: int, timescale: int,
+                  movie_scale: int, path) -> tuple:
+    """(each sample's frame number as cv2 counts it, FFmpeg's video_delay,
+    each sample's decode time in frames from the presentation's start):
+    presentation times from the sample order and the composition offsets
+    (``ctts``, version 0 or 1), counted from the one edit's media time (else
+    from the first); samples outside the edit (before its media time, or
+    past its duration) are decoded but not shown (-1)."""
+    ct = np.arange(count, dtype=np.int64) * delta
+    ctts = None
+    if b"ctts" in stbl:
+        ca, cb = stbl[b"ctts"][0]
+        rows = _table(data, ca, cb, 4, 2, path, "ctts")
+        if data[ca] == 1:  # version 1: signed offsets
+            rows[:, 1] = rows[:, 1].astype(np.uint32).astype(np.int32)
+        if int(rows[:, 0].sum()) != count:
+            raise ValueError(f"{path}: ctts counts {int(rows[:, 0].sum())} samples, stsz {count}")
+        ctts = np.repeat(rows[:, 1], rows[:, 0])
+        ct = ct + ctts
+    edit = _edit(data, kids, path)
+    if edit is None:
+        start, end = int(ct.min()) if count else 0, None
+    else:
+        if movie_scale == 0:
+            raise ValueError(f"{path}: a movie timescale of 0")
+        start = edit[1]
+        # av_rescale to the track's ticks, rounded to the nearest
+        end = start + (edit[0] * timescale + movie_scale // 2) // movie_scale
+    if np.any((ct - start) % delta) or len(np.unique(ct)) != count:
+        raise _unsupported(f"{path}: composition times that are not distinct whole frames")
+    frames = (ct - start) // delta
+    outside = ct < start if end is None else (ct < start) | (ct >= end)
+    frames[outside] = -1
+    decode_times = (np.arange(count, dtype=np.int64) * delta - start) / delta
+    return frames, _guess_video_delay(ct) if ctts is not None else 0, decode_times
+
+
+def _mp4_track(data: bytes, trak, path, mvhd, movie_scale: int) -> Optional[Track]:
     """The track in ``trak`` if it is video, else None."""
     a, b = trak
     kids = _children(data, a, b, path)
@@ -225,15 +314,6 @@ def _mp4_track(data: bytes, trak, path, mvhd) -> Optional[Track]:
     hdlr_a, _ = mdia[b"hdlr"][0]
     if data[hdlr_a + 8:hdlr_a + 12] != b"vide":
         return None
-    for ea, eb in kids.get(b"edts", []):
-        for ka, kb in _children(data, ea, eb, path).get(b"elst", []):
-            version, (n,) = _full_box(data, ka, kb, ">I", path, "elst")
-            fmt = ">Qq" if version == 1 else ">Ii"
-            step = struct.calcsize(fmt) + 4
-            edits = [struct.unpack(fmt, data[ka + 8 + i * step:ka + 8 + i * step + step - 4])
-                     for i in range(n)]
-            if len(edits) != 1 or edits[0][1] != 0:
-                raise _unsupported(f"{path}: an edit list other than one edit from time 0")
     ma, mb = mdia[b"mdhd"][0]
     version = data[ma]
     timescale_at = ma + (20 if version == 1 else 12)
@@ -258,8 +338,6 @@ def _mp4_track(data: bytes, trak, path, mvhd) -> Optional[Track]:
         codec = "h264"
     ta, _ = kids[b"tkhd"][0]
     turn = rotation(_matrix(data, ta + (52 if data[ta] == 1 else 40)), mvhd)
-    if b"ctts" in stbl:
-        raise _unsupported(f"{path}: sample reordering (ctts)")
     stts = _table(data, *stbl[b"stts"][0], 4, 2, path, "stts")
     deltas = np.unique(stts[stts[:, 0] > 0, 1])
     if len(deltas) != 1 or deltas[0] == 0 or timescale == 0:
@@ -297,8 +375,12 @@ def _mp4_track(data: bytes, trak, path, mvhd) -> Optional[Track]:
         sync[idx] = True
     else:
         sync = np.ones(count, bool)
+    frames, delay, decode_times = _presentation(data, stbl, kids, int(count), int(deltas[0]),
+                                                timescale, movie_scale, path)
+    if codec == "mpeg4" and b"ctts" in stbl:
+        raise _unsupported(f"{path}: MPEG-4 Part 2 with composition offsets (B-VOPs)")
     return Track(config, offsets, sizes, sync, timescale / int(deltas[0]), int(count), codec,
-                 length_size, turn)
+                 length_size, turn, frames, delay, decode_times)
 
 
 def _damaged(read):
@@ -323,8 +405,10 @@ def read_mp4(data: bytes, path) -> Track:
     moov = _children(data, *top[b"moov"][0], path)
     ma, _ = moov[b"mvhd"][0]
     mvhd = _matrix(data, ma + (48 if data[ma] == 1 else 36))
+    scale_at = ma + (20 if data[ma] == 1 else 12)
+    (movie_scale,) = struct.unpack(">I", data[scale_at:scale_at + 4])
     for trak in moov.get(b"trak", []):
-        track = _mp4_track(data, trak, path, mvhd)
+        track = _mp4_track(data, trak, path, mvhd, movie_scale)
         if track is not None:
             return track
     raise ValueError(f"{path}: no video track")
@@ -427,12 +511,14 @@ class MP4Dataset(MonocularDataset):
 
     A read at the next frame takes the next frame libavcodec outputs (a
     not-coded VOP outputs none, so cv2's frames then run ahead of the
-    samples).  A read elsewhere seeks as ``cv2.VideoCapture.set(
-    CAP_PROP_POS_FRAMES, t)`` does (``CvCapture_FFMPEG::seek``): it restarts
-    at the sync sample at or before frame ``t - 16`` (further back while the
+    samples; H.264 pictures come out in display order, the held ones
+    drained at the end).  A read elsewhere seeks as ``cv2.VideoCapture.set(
+    CAP_PROP_POS_FRAMES, t)`` does (``CvCapture_FFMPEG::seek``; before a
+    first seek cv2 reads a frame): it restarts at the last sync sample
+    decoded at or before frame ``t - 16``'s time (further back while the
     first frame output lies past ``t - 1``), takes the first frame output
-    as the frame its timestamp names, and counts each later output as one
-    frame on."""
+    as the frame its presentation time names, and counts each later output
+    as one frame on."""
 
     def __init__(self, dataset_path, stride: int = 1):
         super().__init__()
@@ -444,9 +530,11 @@ class MP4Dataset(MonocularDataset):
             first = self._sample(0)
             config = first if track.codec == "h264" else \
                 first[:first.find(VOP_START)] if VOP_START in first else b""
+        self._config = config
         if track.codec == "h264":
             self._check_sync_samples(config)
             self._decoder = native.H264Decoder(config, track.length_size)
+            self._decoder.delay(self._probe_delay())
             missing = "no H.264 sequence parameter set before the first sample"
         else:
             self._decoder = native.Mpeg4Decoder(config)
@@ -454,6 +542,12 @@ class MP4Dataset(MonocularDataset):
         if self._decoder.size() is None:
             raise ValueError(f"{self.dataset_path}: {missing}")
         self._cursor = 0  # the next sample to decode
+        self._draining = False  # the samples are all fed: held pictures come out
+        self._grabbed = False  # a frame was read (cv2 reads one before a first seek)
+        # H.264 frames decoded ahead of the reader: (frame number, sample fed
+        # last when it came out, RGB)
+        self._ahead = collections.deque()
+        self._fault = None  # an error met decoding ahead, raised at the read that reaches it
         self.fps = track.fps
         self.total_frames = track.frame_count
         self.stride = stride
@@ -474,6 +568,39 @@ class MP4Dataset(MonocularDataset):
         finally:
             probe.close()
 
+    def _probe_delay(self) -> int:
+        """The output delay (``has_b_frames``) cv2's decoder starts with:
+        what ``avformat_find_stream_info`` leaves.  For ISO BMFF it stops
+        once the first sample gives the codec's parameters: FFmpeg's guess
+        from the composition offsets (``mov_guess_video_delay``).  For AVI
+        it reads on (a frame rate to analyse) and decodes until 7 frames
+        come out (18, 20 for delays of 3, 4 or more; none once the delay
+        equals num_reorder_frames), the delay growing as libavcodec grows
+        it."""
+        if self.track.frames is not None:
+            return self.track.video_delay
+        probe = native.H264Decoder(self._config, self.track.length_size)
+        try:
+            probe.delay(self.track.video_delay)
+            shown, n = 0, len(self.track.sizes)
+            for i in range(n):
+                delay, reorder, _ = probe.delay()
+                if (delay and reorder == delay) or shown >= (7 if delay < 3 else 18 if delay < 4
+                                                             else 20):
+                    break
+                out = probe.decode(self._sample(i), i)
+                shown += out is not None and self._frame(out) >= 0
+            return probe.delay()[0]
+        except (ValueError, NotImplementedError):
+            return self.track.video_delay  # the reads meet the fault themselves
+        finally:
+            probe.close()
+
+    def _frame(self, sample: int) -> int:
+        """The frame number cv2 gives a sample's picture, -1 if not shown."""
+        frames = self.track.frames
+        return sample if frames is None else int(frames[sample])
+
     def __len__(self):
         return self.total_frames // self.stride
 
@@ -486,25 +613,68 @@ class MP4Dataset(MonocularDataset):
         return self._data[a:a + int(self.track.sizes[i])]
 
     def _advance(self) -> Optional[int]:
-        """Decode up to the next frame output; its sample, or None at the end."""
-        while self._cursor < len(self.track.sizes):
+        """Decode up to the next frame output; its frame number, or None at
+        the end (where the pictures held back come out first, as cv2 drains
+        the decoder at the end of the file).  Pictures outside the edit are
+        decoded and dropped, as FFmpeg drops them."""
+        self._grabbed = True
+        if self.track.codec != "h264":
+            while self._cursor < len(self.track.sizes):
+                i = self._cursor
+                self._cursor += 1
+                if self._decoder.decode(self._sample(i)) and self._frame(i) >= 0:
+                    self._rgb = self._decoder.rgb()
+                    return self._frame(i)
+            return None
+        # cv2 runs libavcodec with a frame thread a CPU: a frame comes back
+        # once FRAME_THREADS - 1 more samples went in, whose pictures count
+        # in the output delay that a seek's flush keeps
+        if not self._ahead and self._fault is not None:
+            fault, self._fault = self._fault, None
+            raise fault
+        while not self._ahead and self._feed():
+            pass
+        if not self._ahead:
+            return None
+        frame, fed, self._rgb = self._ahead.popleft()
+        try:
+            while self._cursor < min(fed + FRAME_THREADS - 1, len(self.track.sizes)):
+                self._feed()
+        except (ValueError, NotImplementedError) as e:
+            self._fault = e
+        return frame
+
+    def _feed(self) -> bool:
+        """Feed the next sample (at the end, drain a held picture) and keep
+        the frame that comes out, if shown; False when nothing is left."""
+        if self._cursor < len(self.track.sizes):
             i = self._cursor
             self._cursor += 1
-            if self.track.codec == "h264":
-                shown = self._decoder.decode(self._sample(i), i)
-            else:
-                shown = i if self._decoder.decode(self._sample(i)) else None
-            if shown is not None:
-                return shown
-        return None
+            shown = self._decoder.decode(self._sample(i), i)
+        elif not self._draining:
+            shown = self._decoder.drain()
+            self._draining = shown is None
+        else:
+            return False
+        if shown is not None and self._frame(shown) >= 0:
+            self._ahead.append((self._frame(shown), self._cursor, self._decoder.rgb()))
+        return True
 
     def _restart(self, frame: int) -> None:
-        """Position at the sync sample at or before ``frame``, decoder flushed."""
-        sync = np.flatnonzero(self.track.sync[:frame + 1])
+        """Position at the last sync sample decoded at or before frame
+        ``frame``'s time (``av_seek_frame`` backward), decoder flushed."""
+        times = self.track.decode_times
+        at = np.arange(len(self.track.sync)) if times is None else times
+        sync = np.flatnonzero(self.track.sync & (at <= frame))
         self._cursor = int(sync[-1]) if len(sync) else 0
+        self._draining = False
+        self._ahead.clear()
+        self._fault = None
         self._decoder.reset()
 
     def _seek(self, t: int) -> None:
+        if not self._grabbed and self.total_frames > 1:
+            self._advance()  # cv2 grabs a frame before its first seek
         t = min(t, self.total_frames)
         delta = 16
         while True:
@@ -533,7 +703,7 @@ class MP4Dataset(MonocularDataset):
         self._next_decode = target + 1
         if shown is None:
             raise ValueError(f"failed to decode frame {target}")
-        img = self._decoder.rgb()
+        img = self._rgb
         if self.track.rotation:  # cv2.rotate: 90 clockwise is np.rot90's k = -1
             img = np.ascontiguousarray(np.rot90(img, -self.track.rotation // 90))
         return img

@@ -64,6 +64,8 @@ _ARGTYPES = {
                     ctypes.POINTER(ctypes.c_int64), ctypes.c_char_p, _I],
     "h264_headers": [ctypes.c_void_p, _U8P, ctypes.c_int64, _I32P, ctypes.c_char_p, _I],
     "h264_rgb": [ctypes.c_void_p, _U8P],
+    "h264_drain": [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64)],
+    "h264_delay": [ctypes.c_void_p, _I, _I32P],
     "h264_reset": [ctypes.c_void_p],
     "h264_close": [ctypes.c_void_p],
 }
@@ -336,14 +338,17 @@ class H264Decoder:
     ``length_size`` is the bytes of each NAL unit's length in a sample (the
     ``avcC``'s), 0 for Annex B samples.  ``decode(sample, index)`` feeds a
     sample (an access unit) and gives the index of the sample whose picture
-    libavcodec outputs then, or None; ``rgb`` gives the last picture output
-    as (H, W, 3) uint8 RGB, cropped, exactly what ``cv2.cvtColor(
-    cv2.VideoCapture(...).read()[1], cv2.COLOR_BGR2RGB)`` gives for it with
-    cv2 5.0.0 (before cv2 turns it by the track's display matrix).  Pictures
-    come out in decode order: a stream that reorders them is refused, so
-    nothing is held back and nothing is left to drain.  Streams the decoder
-    does not take raise ``NotImplementedError``, corrupt ones
-    ``ValueError``.  One decoder serves one thread at a time."""
+    libavcodec outputs then, or None: pictures are held back and come out in
+    picture order count order as libavcodec's ``h264_select_output_frame``
+    releases them (its ``has_b_frames``, ``delay``), so the picture output
+    may be an earlier sample's; at the end of the stream ``drain()`` gives
+    the held pictures one at a time, as cv2 takes them at the end of a
+    file.  ``rgb`` gives the last picture output as (H, W, 3) uint8 RGB,
+    cropped, exactly what ``cv2.cvtColor(cv2.VideoCapture(...).read()[1],
+    cv2.COLOR_BGR2RGB)`` gives for it with cv2 5.0.0 (before cv2 turns it
+    by the track's display matrix).  Streams the decoder does not take
+    raise ``NotImplementedError``, corrupt ones ``ValueError``.  One
+    decoder serves one thread at a time."""
 
     def __init__(self, config: bytes = b"", length_size: int = 0):
         self._lib = load()
@@ -373,6 +378,21 @@ class H264Decoder:
         if rc != 0:
             raise _video_error(rc, err, "H.264")
         return None if shown.value < 0 else shown.value
+
+    def drain(self):
+        """At the end of the stream: the sample of the next picture held
+        back (now the one ``rgb`` gives), or None when none is left."""
+        shown = ctypes.c_int64()
+        self._lib.h264_drain(self._state, ctypes.byref(shown))
+        return None if shown.value < 0 else shown.value
+
+    def delay(self, set_to: int = -1) -> tuple:
+        """(has_b_frames, the last picture's SPS's num_reorder_frames (its
+        VUI's, or libavcodec's guess from the level), whether that SPS has
+        bitstream_restriction); ``set_to`` >= 0 sets has_b_frames first."""
+        info = (ctypes.c_int * 3)()
+        self._lib.h264_delay(self._state, set_to, info)
+        return info[0], info[1], bool(info[2])
 
     def headers(self, sample: bytes) -> bool:
         """Read the parameter sets of ``sample`` without decoding it; whether

@@ -270,13 +270,10 @@ def _stream(tmp_path, suffix=".mp4", w=32, h=16, n=6, **kw):
 
 
 REFUSED = {
-    "cabac-b-slices": dict(cabac=True, force_slice_type="B"),
     "cabac-si-slices": dict(cabac=True, force_slice_type="SI"),
     "cabac-sp-slices": dict(cabac=True, force_slice_type="SP"),
-    "b-slices": dict(force_slice_type="B"),
     "sp-slices": dict(force_slice_type="SP"),
     "fields": dict(frame_mbs_only=False),
-    "weighted-prediction": dict(weighted=True),
     "scaling-matrix": dict(scaling=True),
     "chroma-4:2:2": dict(chroma_format=2),
     "bit-depth-10": dict(bit_depth=10),
@@ -286,7 +283,6 @@ REFUSED = {
     "mmco-5": dict(mmco_op=5),
     "mmco-2": dict(mmco_op=2),
     "frame-num-gap": dict(gap_at=2),
-    "output-reordered": dict(poc_drop_at=2),
     "left-crop": dict(crop=[2, 0, 0, 0]),
     "redundant-picture": dict(redundant=True, redundant_cnt=1),
     "wide-gamut": dict(vui=dict(prim=9)),
@@ -302,11 +298,34 @@ def test_features_not_ported_raise_not_implemented(tmp_path, name):
     the feature (in band, in .avi)."""
     suffix = [".mp4", ".avi"][sorted(REFUSED).index(name) % 2]
     path, _ = _stream(tmp_path, suffix, **REFUSED[name])
-    part = "c" if "slices" in name or name == "output-reordered" else ""
+    part = "c" if "slices" in name else ""
     with pytest.raises(NotImplementedError, match="item 17" + part):
         ds = video.MP4Dataset(path)
         for i in range(len(ds)):
             ds.read_img(i)
+
+
+# what the cases of the same names above refused until B slices, weighted
+# prediction and output reordering were ported: each now read as cv2 reads it
+PORTED = {
+    "b-slices": dict(bframes=2, max_ref=3),
+    "cabac-b-slices": dict(bframes=2, max_ref=3, cabac=True),
+    "output-reordered": dict(poc_drop_at=2),
+    "weighted-prediction": dict(weighted=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PORTED))
+def test_features_ported_from_the_refused_ones_read_as_cv2_reads_them(tmp_path, capfd, name):
+    suffix = [".mp4", ".avi"][sorted(PORTED).index(name) % 2]
+    samples, o = hf.random_stream(32, 16, 6, 0, gop=GOP, **PORTED[name])
+    path = tmp_path.joinpath("clip").with_suffix(suffix)
+    if suffix == ".avi":
+        hf.write_avi_h264(path, samples, 32, 16)
+    else:
+        hf.write_mp4(path, samples, 32, 16, display=o["display"])
+    _same_reads(path, range(6), capfd)
+    _same_reads(path, [5, 0, 3, 1, 4, 2], capfd)
 
 
 def test_streams_the_dataset_refuses(tmp_path):

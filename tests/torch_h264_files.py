@@ -25,8 +25,22 @@ context selection) it also draws cabac_init_idc, slice QPs over 0-51,
 The CAVLC and CABAC tables come from the decoder's source: a wrong entry
 there gives a stream cv2 reads otherwise, so cv2's decode is the check.
 
-Imported by ``tests/test_torch_h264.py``, ``tests/test_torch_video.py``,
-``scripts/make_h264_fixtures.py`` and ``chip_smoke.py`` (phases 20, 21).
+With ``bframes`` (``schedule``) the pictures are written in decoding
+order, B pictures after the anchor that follows them (``pyramid``: the
+middle one a reference; ``b_ref``, ``b_anchor`` more references and B
+anchors), ``options["display"]`` each one's display index: every B
+``mb_type`` and ``sub_mb_type`` (``b_types``, ``b_sub``), B_Skip, both
+direct modes (``direct``; temporal only where every reference of the
+co-located picture is still held, so that list 0 holds it) under both
+``direct8x8`` values, lists by POC with list-1 modification, random
+explicit weights (``weighted``, ``bipred_idc`` 1; negative ones too) and
+implicit ones (``bipred_idc`` 2), one list length a picture.
+``write_mp4(..., display=)`` writes the ``ctts`` and edit FFmpeg's muxer
+writes (or another edit list, ``edits``).
+
+Imported by ``tests/test_torch_h264.py``, ``tests/test_torch_h264_b.py``,
+``tests/test_torch_video.py``, ``scripts/make_h264_fixtures.py`` and
+``chip_smoke.py`` (phases 20-22).
 """
 
 from __future__ import annotations
@@ -181,7 +195,7 @@ def sps(o: dict, sps_id: int = 0) -> bytes:
     b.flag(o.get("frame_mbs_only", True))
     if not o.get("frame_mbs_only", True):
         b.flag(False)
-    b.flag(True)  # direct_8x8_inference_flag
+    b.flag(o.get("direct8x8", True))  # direct_8x8_inference_flag
     crop = o["crop"]  # left, right, top, bottom in luma samples
     b.flag(any(crop))
     if any(crop):
@@ -247,9 +261,9 @@ def pps(o: dict, pps_id: int = 0, sps_id: int = 0) -> bytes:
     b.flag(o.get("bottom_poc", False))
     b.ue(o.get("slice_groups", 1) - 1)
     b.ue(o["num_ref_default"] - 1)
-    b.ue(0)
+    b.ue(o.get("num_ref_l1_default", 1) - 1)
     b.flag(o.get("weighted", False))
-    b.u(0, 2)
+    b.u(o.get("bipred_idc", 0), 2)
     b.se(o["init_qp"] - 26)
     b.se(0)
     b.se(o["cqp"][0])
@@ -431,7 +445,9 @@ def options(width: int, height: int, **kw) -> dict:
              inband=False, pps_ids=(0,), qp_range=(12, 44), intra_in_p=True, mvd=8,
              far_mv=False, p_types=None, i_types=None, pcm=True, slice_i_in_p=False,
              dbk_idc=(0, 1, 2), force_slice_type=None, long_term_idr=False, mmco_op=None,
-             gap_at=None, poc_drop_at=None)
+             gap_at=None, poc_drop_at=None, bframes=0, pyramid=False, b_ref=0.0, b_anchor=0.0,
+             bipred_idc=0, weighted=False, direct=None, direct8x8=True, b_types=None,
+             b_sub=None, num_ref_l1_default=1, temporal_l0=None)
     if kw.get("cabac"):  # CABAC: slice QPs over the whole range, mvds past UEG3's prefix
         o.update(qp_range=(0, 51), mvd=40)
     o.update(kw)
@@ -470,15 +486,17 @@ class Picture:
         self.t8 = [False] * n
         self.cmode = [0] * n
         self.dcf = [0] * n  # coded_block_flag of the DC blocks: 1 luma, 2 Cb, 4 Cr
-        self.mvd = np.zeros((n, 16, 2), int)
-        self.ref = np.zeros((n, 16), int)
+        self.mvd = np.zeros((n, 2, 16, 2), int)  # |mvd| by list and raster 4x4
+        self.ref = np.zeros((n, 2, 16), int)  # ref_idx by list (-1: the list not used)
+        self.direct = np.zeros((n, 16), bool)  # B_Skip, B_Direct_16x16, B_Direct_8x8 blocks
+        self.btype = [-1] * n  # a B macroblock's mb_type
 
     def avail(self, mx, my) -> bool:
         return (0 <= mx < self.mbw and 0 <= my < self.mbh
                 and self.slice[my * self.mbw + mx] == self.cur_slice)
 
     def intra(self, addr) -> bool:
-        return self.kind[addr] not in ("P", "skip")
+        return self.kind[addr] not in ("P", "B", "skip")
 
     def avail_intra(self, mx, my) -> bool:
         return self.avail(mx, my) and (not self.constrained
@@ -548,6 +566,32 @@ class Picture:
         return nb(bx, by - 1), nb(bx - 1, by), nb(bx - 1, by - 1), nb(bx + s, by - 1)
 
 
+# B mb_types 1-21: (width, height) of each partition and what each predicts
+# from (1: list 0, 2: list 1, 3: both), Table 7-14
+_B_PAIRS = [(1, 1), (2, 2), (1, 2), (2, 1), (1, 3), (2, 3), (3, 1), (3, 2), (3, 3)]
+
+
+def b_parts(mb_type: int) -> list:
+    """(x, y, w, h, lists) of each partition of B mb_type 1-21."""
+    if mb_type <= 3:
+        return [(0, 0, 16, 16, mb_type)]
+    k = mb_type - 4
+    pair = _B_PAIRS[k // 2]
+    if k % 2 == 0:  # 16x8
+        return [(0, 0, 16, 8, pair[0]), (0, 8, 16, 8, pair[1])]
+    return [(0, 0, 8, 16, pair[0]), (8, 0, 8, 16, pair[1])]
+
+
+# B sub_mb_types 1-12: (lists, width, height) of each sub-partition (0: direct)
+B_SUB = {1: (1, 8, 8), 2: (2, 8, 8), 3: (3, 8, 8), 4: (1, 8, 4), 5: (1, 4, 8), 6: (2, 8, 4),
+         7: (2, 4, 8), 8: (3, 8, 4), 9: (3, 4, 8), 10: (1, 4, 4), 11: (2, 4, 4), 12: (3, 4, 4)}
+
+
+def b_small(subs, direct8x8: bool) -> bool:
+    """Whether a B_8x8 macroblock holds a partition under 8x8 (no 8x8 transform)."""
+    return any((s == 0 and not direct8x8) or (s and B_SUB[s][1:] != (8, 8)) for s in subs)
+
+
 def valid_nxn_modes(top, left, tl) -> list:
     need_top, need_left, need_tl = {0, 3, 4, 5, 6, 7}, {1, 4, 5, 6, 8}, {4, 5, 6}
     return [m for m in range(9) if (top or m not in need_top) and (left or m not in need_left)
@@ -573,13 +617,16 @@ def write_mb(b: Bits, pic: Picture, mx: int, my: int, d: dict, slice_type: str, 
     kind = d["kind"]
     pic.slice[addr] = pic.cur_slice
     pic.kind[addr] = kind
-    base = 5 if slice_type == "P" else 0
+    base = 5 if slice_type == "P" else 23 if slice_type == "B" else 0
     if kind == "PCM":
         b.ue(base + 25)
         b.align_zero()
         for v in d["pcm"]:
             b.u(int(v), 8)
         pic.nz[addr] = 16
+        return
+    if kind == "B":
+        _write_b(b, pic, mx, my, d, o, num_ref)
         return
     if kind == "P":
         b.ue(d["mb_type"])
@@ -640,6 +687,40 @@ def write_mb(b: Bits, pic: Picture, mx: int, my: int, d: dict, slice_type: str, 
     b.ue(d["cmode"])
     b.se(d["dqp"])
     _residual(b, pic, mx, my, d, cbp, True)
+
+
+def _write_b(b: Bits, pic: Picture, mx, my, d: dict, o: dict, num_ref) -> None:
+    """A B macroblock (not skipped) under CAVLC: mb_pred or sub_mb_pred, then
+    the residual."""
+    mt = d["mb_type"]
+    b.ue(mt)
+    if mt == 22:
+        for sub in d["sub"]:
+            b.ue(sub)
+    for lst in range(2):
+        for r in d["refs"][lst]:
+            if r >= 0 and num_ref[lst] > 1:
+                _te(b, r, num_ref[lst] - 1)
+    for lst in range(2):
+        for mv in d["mvd"][lst]:
+            b.se(mv[0])
+            b.se(mv[1])
+    cbp = d["cbp"]
+    b.ue(tables().inter_cbp[cbp])
+    if (cbp & 15) and o["t8"] and _b_t8_allowed(d, o):
+        b.flag(d["t8"])
+    if cbp:
+        b.se(d["dqp"])
+    _residual(b, pic, mx, my, d, cbp, False)
+
+
+def _b_t8_allowed(d: dict, o: dict) -> bool:
+    """transform_size_8x8_flag's condition beyond the coded luma and the PPS."""
+    if d["mb_type"] == 0:
+        return bool(o.get("direct8x8", True))
+    if d["mb_type"] == 22:
+        return not b_small(d["sub"], o.get("direct8x8", True))
+    return True
 
 
 def _te(b: Bits, v: int, rng: int) -> None:
@@ -788,10 +869,10 @@ class CabacSlice:
     decoder, ``h264.cpp``) choose them."""
 
     def __init__(self, b: Bits, pic: Picture, intra_slice: bool, idc: int, qp: int,
-                 transform_8x8: bool):
+                 transform_8x8: bool, direct8x8: bool = True):
         while b.n % 8:  # cabac_alignment_one_bit
             b.u(1, 1)
-        self.b, self.pic, self.t8_mode = b, pic, transform_8x8
+        self.b, self.pic, self.t8_mode, self.direct8x8 = b, pic, transform_8x8, direct8x8
         self.e = CabacEncoder(intra_slice, idc, qp)
         self.last_dqp = 0
 
@@ -812,15 +893,17 @@ class CabacSlice:
 
     # -- the macroblock layer ------------------------------------------------------
 
-    def skip(self, mx, my, skipped: bool) -> None:
+    def skip(self, mx, my, skipped: bool, b_slice: bool = False) -> None:
         pic = self.pic
         inc = sum(1 for a in (self._addr(mx - 1, my), self._addr(mx, my - 1))
                   if a is not None and pic.kind[a] != "skip")
-        self.e.decision(11 + inc, int(skipped))
+        self.e.decision((24 if b_slice else 11) + inc, int(skipped))
         if skipped:
             addr = my * pic.mbw + mx
             pic.slice[addr], pic.kind[addr] = pic.cur_slice, "skip"
             pic.nz[addr] = 0
+            pic.cbp[addr], pic.t8[addr], pic.dcf[addr] = 0, False, 0
+            pic.mvd[addr], pic.ref[addr], pic.direct[addr] = 0, 0, True
             self.last_dqp = 0
 
     def end(self, last: bool) -> None:
@@ -850,6 +933,9 @@ class CabacSlice:
         if kind == "I16":
             cbp = d["cbp"]
             t = 1 + d["mode"] + 4 * (cbp >> 4) + (12 if cbp & 15 else 0)
+        if slice_type == "B":
+            self._mb_type_b(mx, my, d, t)
+            return
         if slice_type == "P":
             if kind == "P":
                 mt = d["mb_type"]
@@ -863,6 +949,61 @@ class CabacSlice:
         inc = sum(1 for a in (self._addr(mx - 1, my), self._addr(mx, my - 1))
                   if a is not None and pic.kind[a] not in ("I4", "I8"))
         self._mb_type_i(3, inc, kind, t)
+
+    def _mb_type_b(self, mx, my, d: dict, t: int) -> None:
+        """mb_type in a B slice (ctxIdx 27-35): its first bin's context from
+        the neighbours that are neither B_Skip nor B_Direct_16x16."""
+        e, pic, kind = self.e, self.pic, d["kind"]
+        inc = sum(1 for a in (self._addr(mx - 1, my), self._addr(mx, my - 1))
+                  if a is not None and pic.kind[a] != "skip"
+                  and not (pic.kind[a] == "B" and pic.btype[a] == 0))
+        mt = d["mb_type"] if kind == "B" else None
+        e.decision(27 + inc, int(mt != 0))
+        if mt == 0:
+            return
+        e.decision(30, int(mt not in (1, 2)))
+        if mt in (1, 2):
+            e.decision(32, mt - 1)
+            return
+        extra = None
+        if mt is None:
+            bits = 13
+        elif mt <= 10:
+            bits = mt - 3
+        elif mt == 11:
+            bits = 14
+        elif mt == 22:
+            bits = 15
+        else:
+            bits, extra = (mt + 4) >> 1, (mt + 4) & 1
+        e.decision(31, (bits >> 3) & 1)
+        for k in (2, 1, 0):
+            e.decision(32, (bits >> k) & 1)
+        if extra is not None:
+            e.decision(32, extra)
+        if mt is None:
+            self._mb_type_i(32, 0, kind, t)
+
+    def sub_mb_type_b(self, sub: int) -> None:
+        e = self.e
+        e.decision(36, int(sub != 0))
+        if sub == 0:
+            return
+        e.decision(37, int(sub > 2))
+        if sub <= 2:
+            e.decision(39, sub - 1)
+            return
+        e.decision(38, int(sub >= 7))
+        if sub >= 7:
+            e.decision(39, int(sub >= 11))
+            if sub >= 11:
+                e.decision(39, sub - 11)
+                return
+            rem = sub - 7
+        else:
+            rem = sub - 3
+        e.decision(39, rem >> 1)
+        e.decision(39, rem & 1)
 
     def transform_8x8(self, mx, my, flag: bool) -> None:
         inc = sum(1 for a in (self._addr(mx - 1, my), self._addr(mx, my - 1))
@@ -916,12 +1057,13 @@ class CabacSlice:
             e.decision(62 if k == 1 else 63, 0)
         self.last_dqp = dq
 
-    def ref_idx(self, mx, my, x, y, w, h, ref: int) -> None:
+    def ref_idx(self, mx, my, x, y, w, h, ref: int, lst: int = 0) -> None:
         pic = self.pic
 
         def cond(nx, ny):
             a, k = self._cover(mx, my, nx, ny)
-            return int(a is not None and pic.kind[a] == "P" and pic.ref[a][k] > 0)
+            return int(a is not None and pic.kind[a] in ("P", "B") and not pic.direct[a][k]
+                       and pic.ref[a][lst][k] > 0)
         ctx = 54 + cond(x - 1, y) + 2 * cond(x, y - 1)
         for i in range(ref + 1):
             self.e.decision(ctx, int(i < ref))
@@ -929,15 +1071,16 @@ class CabacSlice:
         addr = my * pic.mbw + mx
         for by in range(y // 4, (y + h) // 4):
             for bx in range(x // 4, (x + w) // 4):
-                pic.ref[addr][by * 4 + bx] = ref
+                pic.ref[addr][lst][by * 4 + bx] = ref
 
-    def mvd(self, mx, my, x, y, w, h, d) -> None:
+    def mvd(self, mx, my, x, y, w, h, d, lst: int = 0) -> None:
         pic, e = self.pic, self.e
         addr = my * pic.mbw + mx
         for c in range(2):
             def amvd(nx, ny):
                 a, k = self._cover(mx, my, nx, ny)
-                return int(pic.mvd[a][k][c]) if a is not None and pic.kind[a] == "P" else 0
+                return int(pic.mvd[a][lst][k][c]) if a is not None and pic.kind[a] in ("P", "B") \
+                    else 0
             s = amvd(x - 1, y) + amvd(x, y - 1)
             base, v = (47 if c else 40), abs(d[c])
             e.decision(base + (0 if s < 3 else 2 if s > 32 else 1), int(v != 0))
@@ -953,7 +1096,7 @@ class CabacSlice:
                 e.bypass(int(d[c] < 0))
         for by in range(y // 4, (y + h) // 4):
             for bx in range(x // 4, (x + w) // 4):
-                pic.mvd[addr][by * 4 + bx] = [min(abs(d[0]), 255), min(abs(d[1]), 255)]
+                pic.mvd[addr][lst][by * 4 + bx] = [min(abs(d[0]), 255), min(abs(d[1]), 255)]
 
     def sub_mb_type(self, sub: int) -> None:
         e = self.e
@@ -1056,6 +1199,69 @@ class CabacSlice:
                     nz[16 + 4 * c + k] = self.coded_block(mx, my, 4, k & 1, k >> 1, c + 1,
                                                           d["cac"][c][k])
 
+    def _b_macroblock(self, mx, my, d: dict, num_ref) -> int:
+        """A B macroblock's prediction, cbp, transform flag, qp delta and
+        residual; its mb_qp_delta returned."""
+        pic = self.pic
+        addr = my * pic.mbw + mx
+        mt = d["mb_type"]
+        parts = []  # (x, y, w, h, lists) of each partition or sub-partition, in order
+        if mt == 0:
+            pic.direct[addr] = True
+        elif mt == 22:
+            for sub in d["sub"]:
+                self.sub_mb_type_b(sub)
+            for k, sub in enumerate(d["sub"]):
+                x8, y8 = (k & 1) * 8, (k >> 1) * 8
+                if sub == 0:
+                    for by in range(y8 // 4, y8 // 4 + 2):
+                        pic.direct[addr][by * 4 + x8 // 4:by * 4 + x8 // 4 + 2] = True
+                    continue
+                lists, w, h = B_SUB[sub]
+                for y in range(0, 8, h):
+                    for x in range(0, 8, w):
+                        parts.append((x8 + x, y8 + y, w, h, lists, k))
+        else:
+            parts = [p + (i,) for i, p in enumerate(b_parts(mt))]
+        # ref_idx: by list, for each partition (8x8 of B_8x8) predicting from it
+        for lst in range(2):
+            seen = set()
+            for x, y, w, h, lists, k in parts:
+                if not lists & (1 << lst) or k in seen:
+                    continue
+                seen.add(k)
+                wx, hy = (8, 8) if mt == 22 else (w, h)
+                xx, yy = ((k & 1) * 8, (k >> 1) * 8) if mt == 22 else (x, y)
+                ref = d["refs"][lst][k]
+                if num_ref[lst] > 1:
+                    self.ref_idx(mx, my, xx, yy, wx, hy, ref, lst)
+                else:
+                    for by in range(yy // 4, (yy + hy) // 4):
+                        for bx in range(xx // 4, (xx + wx) // 4):
+                            pic.ref[addr][lst][by * 4 + bx] = ref
+            for x, y, w, h, lists, k in parts:  # blocks that do not predict from the list
+                if not lists & (1 << lst):
+                    for by in range(y // 4, (y + h) // 4):
+                        for bx in range(x // 4, (x + w) // 4):
+                            pic.ref[addr][lst][by * 4 + bx] = -1
+        for lst in range(2):
+            mvds = iter(d["mvd"][lst])
+            for x, y, w, h, lists, k in parts:
+                if lists & (1 << lst):
+                    self.mvd(mx, my, x, y, w, h, next(mvds), lst)
+        cbp = d["cbp"]
+        self.cbp(mx, my, cbp)
+        if (cbp & 15) and self.t8_mode and _b_t8_allowed(d, {"direct8x8": self.direct8x8}):
+            self.transform_8x8(mx, my, d["t8"])
+            pic.t8[addr] = bool(d["t8"])
+        pic.cbp[addr] = cbp
+        dq = 0
+        if cbp:
+            dq = d["dqp"]
+            self.dqp(dq)
+        self.residual(mx, my, d, cbp, False)
+        return dq
+
     def macroblock(self, mx, my, d: dict, slice_type: str, num_ref: int) -> None:
         """One macroblock of description ``d`` (``RandomPicture.describe``),
         not skipped; the picture learns what later contexts read."""
@@ -1064,7 +1270,8 @@ class CabacSlice:
         kind = d["kind"]
         pic.slice[addr], pic.kind[addr] = pic.cur_slice, kind
         pic.cbp[addr], pic.t8[addr], pic.cmode[addr], pic.dcf[addr] = 0, False, 0, 0
-        pic.mvd[addr], pic.ref[addr] = 0, 0
+        pic.mvd[addr], pic.ref[addr], pic.direct[addr] = 0, 0, False
+        pic.btype[addr] = d.get("mb_type", -1) if kind == "B" else -1
         self.mb_type(mx, my, d, slice_type)
         dq = 0
         if kind == "PCM":
@@ -1076,7 +1283,9 @@ class CabacSlice:
             pic.nz[addr], pic.cbp[addr], pic.dcf[addr] = 16, 47, 7
             self.last_dqp = 0
             return
-        if kind == "P":
+        if kind == "B":
+            dq = self._b_macroblock(mx, my, d, num_ref)
+        elif kind == "P":
             mt, refs = d["mb_type"], d["refs"]
             parts = []
             if mt < 3:
@@ -1215,7 +1424,38 @@ class RandomPicture:
                 for k in range(4):
                     d["cac"][c][k] = self._block4(qpc, 15, int(dcs[k]))
 
-    def describe(self, mx: int, my: int, kind: str, qp: int, num_ref: int) -> dict:
+    def _mvd(self) -> tuple:
+        lim = self.o["mvd"]
+        if self.o["far_mv"] and self.rng.random() < 0.1:
+            return tuple(int(v) for v in self.rng.integers(-400, 401, 2))
+        return int(self.rng.integers(-lim, lim + 1)), int(self.rng.integers(-lim, lim + 1))
+
+    def _describe_b(self, d: dict, cbp: int, num_ref) -> None:
+        """A B macroblock's mb_type, sub_mb_types, ref_idx and mvd by list."""
+        rng, o = self.rng, self.o
+        mt = int(rng.choice(o["b_types"] or range(23)))
+        d["mb_type"] = mt
+        refs, mvds = [[], []], [[], []]
+        if mt == 22:
+            d["sub"] = [int(rng.choice(o["b_sub"] or range(13))) for _ in range(4)]
+            for lst in range(2):
+                for sub in d["sub"]:
+                    use = sub and B_SUB[sub][0] & (1 << lst)
+                    refs[lst].append(int(rng.integers(0, num_ref[lst])) if use else -1)
+                    if use:
+                        mvds[lst] += [self._mvd() for _ in range((8 // B_SUB[sub][1])
+                                                                  * (8 // B_SUB[sub][2]))]
+        elif mt:
+            for lst in range(2):
+                for *_, lists in b_parts(mt):
+                    use = lists & (1 << lst)
+                    refs[lst].append(int(rng.integers(0, num_ref[lst])) if use else -1)
+                    if use:
+                        mvds[lst].append(self._mvd())
+        d["refs"], d["mvd"] = refs, mvds
+        d["t8"] = bool(o["t8"] and (cbp & 15) and _b_t8_allowed(d, o) and rng.random() < 0.5)
+
+    def describe(self, mx: int, my: int, kind: str, qp: int, num_ref) -> dict:
         """A random macroblock of ``kind`` at ``qp`` (the QP before its
         mb_qp_delta); d["qp"] is the one after."""
         rng, o, pic = self.rng, self.o, self.pic
@@ -1280,6 +1520,8 @@ class RandomPicture:
             d["modes"] = modes
             d["cmode"] = int(rng.choice(valid_chroma_modes(top, left, tl)))
             d["t8"] = kind == "I8"
+        elif kind == "B":
+            self._describe_b(d, cbp, num_ref)
         else:  # P
             mb_type = int(rng.choice(o["p_types"] or [0, 1, 2, 3] + (
                 [4] if num_ref > 1 and not o.get("cabac") else [])))
@@ -1331,8 +1573,8 @@ class _CavlcSink:
         pic.nz[addr] = 0
         self.run += 1
 
-    def mb(self, pic: Picture, mx: int, my: int, d: dict, stype: str, num_ref: int) -> None:
-        if stype == "P":
+    def mb(self, pic: Picture, mx: int, my: int, d: dict, stype: str, num_ref) -> None:
+        if stype in ("P", "B"):
             self.b.ue(self.run)
             self.run = 0
         write_mb(self.b, pic, mx, my, d, stype, self.o, num_ref)
@@ -1346,16 +1588,16 @@ class _CabacSink:
     """A slice's macroblocks under CABAC: mb_skip_flag in P slices and
     end_of_slice_flag after each macroblock."""
 
-    def __init__(self, cs: CabacSlice, count: int):
-        self.cs, self.left = cs, count
+    def __init__(self, cs: CabacSlice, count: int, b_slice: bool = False):
+        self.cs, self.left, self.b_slice = cs, count, b_slice
 
     def skip(self, pic: Picture, mx: int, my: int) -> None:
-        self.cs.skip(mx, my, True)
+        self.cs.skip(mx, my, True, self.b_slice)
         self._next()
 
-    def mb(self, pic: Picture, mx: int, my: int, d: dict, stype: str, num_ref: int) -> None:
-        if stype == "P":
-            self.cs.skip(mx, my, False)
+    def mb(self, pic: Picture, mx: int, my: int, d: dict, stype: str, num_ref) -> None:
+        if stype in ("P", "B"):
+            self.cs.skip(mx, my, False, self.b_slice)
         self.cs.macroblock(mx, my, d, stype, num_ref)
         self._next()
 
@@ -1383,6 +1625,9 @@ class StreamWriter:
         self.n = 0
         self.last_nonref = False
         self.variant = 0
+        self.ref_info = {}  # frame_num -> poc, uid, the uids held when it was decoded
+        self.cur_poc = 0
+        self.lists = []  # the last slice's reference lists (frame_nums)
 
     def parameter_sets(self) -> list:
         o = self.o
@@ -1408,9 +1653,12 @@ class StreamWriter:
             o["cqp"] = [self.o["cqp"][0] - k, self.o["cqp"][1] + k]
         return o
 
-    def picture(self, idr: bool, body=None) -> list:
+    def picture(self, idr: bool, body=None, kind: str = "P", poc=None, ref_idc=None) -> list:
         """The NAL units of the next picture (random macroblocks unless
-        ``body(writer, slice_args)`` gives them)."""
+        ``body(writer, slice_args)`` gives them): ``kind`` "P" or "B" for a
+        non-IDR picture, ``poc`` its picture order count from the last IDR
+        picture's (else the stream's ``poc_step`` on), ``ref_idc`` its
+        nal_ref_idc (else drawn by ``nonref``)."""
         o, rng = self.o, self.rng
         units = []
         if o["extra_nals"]:
@@ -1422,23 +1670,29 @@ class StreamWriter:
         max_fn = 1 << o["log2_max_frame_num"]
         if idr:
             self.refs = []
+            self.ref_info = {}
             self.frame_num = 0
             self.poc_lsb = 0
-            self.abs_poc = 0
+            self.cur_poc = 0
         else:
             skip = 2 if o["gap_at"] == self.n else 1  # a gap in frame_num
             self.frame_num = (self.prev_ref_frame_num + skip) % max_fn
-        ref_idc = 3
-        if not idr and o["nonref"] and rng.random() < o["nonref"] and \
-                not (o["poc_type"] in (1, 2) and self.last_nonref):  # else a repeated POC
-            ref_idc = 0
+        if ref_idc is None:
+            ref_idc = 3
+            if not idr and o["nonref"] and rng.random() < o["nonref"] and \
+                    not (o["poc_type"] in (1, 2) and self.last_nonref):  # else a repeated POC
+                ref_idc = 0
         self.last_nonref = ref_idc == 0
         if not idr:
-            step = o["poc_step"] if isinstance(o["poc_step"], int) else \
-                int(rng.choice(o["poc_step"]))
-            if o["poc_drop_at"] == self.n:  # output order other than decoding order
-                step = -1
+            if poc is not None:
+                step = poc - self.cur_poc
+            else:
+                step = o["poc_step"] if isinstance(o["poc_step"], int) else \
+                    int(rng.choice(o["poc_step"]))
+                if o["poc_drop_at"] == self.n:  # output order other than decoding order
+                    step = -1
             self.poc_lsb = (self.poc_lsb + step) % (1 << o["log2_max_poc_lsb"])
+            self.cur_poc += step
         pid = int(rng.choice(o["pps_ids"]))
         po = self._pps_of(pid)
         mbw, mbh = o["mbw"], o["mbh"]
@@ -1447,6 +1701,7 @@ class StreamWriter:
             if o["slices"] > 1 and total > 1 else []
         bounds = [0] + cuts + [total]
         pic = Picture(mbw, mbh, o["constrained_intra"])
+        self.pic_nref = None  # the list lengths of the picture's slices, drawn by the first
         # the reference marking of the picture, the same in every slice
         mmco = []
         if ref_idc and not idr and o["mmco"] and self.refs and rng.random() < 0.5:
@@ -1456,17 +1711,19 @@ class StreamWriter:
         for si in range(len(bounds) - 1):
             pic.cur_slice = si
             units.append(self._slice(idr, ref_idc, pid, po, pic, bounds[si], bounds[si + 1],
-                                     mmco, body))
+                                     mmco, body, kind))
         if o["extra_nals"]:
             units.append(nal(0, 12, b"\xff" * 5 + b"\x80"))  # filler data
         # marking, as the decoder does it
         if ref_idc:
+            held = {self.ref_info[f]["uid"] for f in self.refs}
             if mmco:
                 self.refs = [f for f in self.refs if f not in mmco]
             elif not idr and len(self.refs) >= max(o["max_ref"], 1):
                 wrap = lambda f: f - max_fn if f > self.frame_num else f  # noqa: E731
                 self.refs.remove(min(self.refs, key=wrap))
             self.refs.append(self.frame_num)
+            self.ref_info[self.frame_num] = dict(poc=self.cur_poc, uid=self.n, dpb=held)
             self.prev_ref_frame_num = self.frame_num
         self.n += 1
         self.idr_count += idr  # parameter sets and slices of one IDR picture agree
@@ -1475,12 +1732,110 @@ class StreamWriter:
     def _pic_num(self, f):
         return f - (1 << self.o["log2_max_frame_num"]) if f > self.frame_num else f
 
-    def _slice(self, idr, ref_idc, pid, po, pic, first, end, mmco, body) -> bytes:
+    def _lists(self, stype: str) -> list:
+        """The initial reference lists (frame_nums) of a P or B slice."""
+        if stype == "P":
+            return [sorted(self.refs, key=self._pic_num, reverse=True)]
+        poc = lambda f: self.ref_info[f]["poc"]  # noqa: E731
+        before = sorted([f for f in self.refs if poc(f) <= self.cur_poc], key=poc, reverse=True)
+        after = sorted([f for f in self.refs if poc(f) > self.cur_poc], key=poc)
+        l0, l1 = before + after, after + before
+        if len(l1) > 1 and l1 == l0:
+            l1[0], l1[1] = l1[1], l1[0]
+        return [l0, l1]
+
+    def _modify(self, b: Bits, lst: list, n: int) -> list:
+        """ref_pic_list_modification of one list: drawn, written, applied."""
+        o, rng = self.o, self.rng
+        if not (o["modify"] and rng.random() < 0.6):
+            b.flag(False)
+            return lst[:n]
+        b.flag(True)
+        max_fn = 1 << o["log2_max_frame_num"]
+        pred = self.frame_num
+        out = lst[:n]
+        for idx in range(int(rng.integers(1, n + 1))):
+            f = int(rng.choice(self.refs))
+            target = self._pic_num(f)
+            no_wrap = target + max_fn if target < 0 else target
+            if rng.random() < 0.5:
+                diff = (pred - no_wrap) % max_fn or max_fn
+                b.ue(0)
+            else:
+                diff = (no_wrap - pred) % max_fn or max_fn
+                b.ue(1)
+            b.ue(diff - 1)
+            pred = no_wrap
+            out = (out[:idx] + [f] + [g for g in out[idx:] if g != f])[:n]
+        b.ue(3)
+        return out
+
+    def _weights(self, b: Bits, num_ref: list) -> None:
+        """pred_weight_table: random denominators, weights (negative ones too)
+        and offsets, within what libavcodec and the standard take; or with
+        ``fixed_weights`` (denominator, weight, offset) those for every
+        reference's luma, its chroma left at the default."""
+        rng = self.rng
+        if self.o.get("fixed_weights"):
+            den, wt, off = self.o["fixed_weights"]
+            b.ue(den)
+            b.ue(0)
+            for n in num_ref:
+                for _ in range(n):
+                    b.flag(True)
+                    b.se(wt)
+                    b.se(off)
+                    b.flag(False)
+            return
+        dl, dc = int(rng.integers(0, 8)), int(rng.integers(0, 8))
+        b.ue(dl)
+        b.ue(dc)
+        chosen = []
+        for n in num_ref:
+            row = []
+            for _ in range(n):
+                w = []
+                for den in (dl, dc, dc):
+                    if rng.random() < 0.15:
+                        w.append((int(rng.integers(-20, 0)), int(rng.integers(-30, 31))))
+                    else:
+                        w.append((min(127, (1 << den) + int(rng.integers(-(1 << den) // 2 - 1,
+                                                                        (1 << den) // 2 + 2))),
+                                  int(rng.integers(-20, 21))))
+                luma, chroma = rng.random() < 0.6, rng.random() < 0.5
+                row.append((luma, chroma, w))
+            chosen.append(row)
+        if len(num_ref) == 2:  # -128 <= w0 + w1 <= 127 (128 below denominator 7)
+            for r0 in chosen[0]:
+                for r1 in chosen[1]:
+                    for i, den in enumerate((dl, dc, dc)):
+                        lim = 127 if den == 7 else 128
+                        if (i == 0 and not (r0[0] and r1[0])) or (i and not (r0[1] and r1[1])):
+                            continue
+                        while r0[2][i][0] + r1[2][i][0] > lim:
+                            r1[2][i] = (r1[2][i][0] - 1, r1[2][i][1])
+                        while r0[2][i][0] + r1[2][i][0] < -128:
+                            r1[2][i] = (r1[2][i][0] + 1, r1[2][i][1])
+        for row in chosen:
+            for luma, chroma, w in row:
+                b.flag(luma)
+                if luma:
+                    b.se(w[0][0])
+                    b.se(w[0][1])
+                b.flag(chroma)
+                if chroma:
+                    for c in (1, 2):
+                        b.se(w[c][0])
+                        b.se(w[c][1])
+
+    def _slice(self, idr, ref_idc, pid, po, pic, first, end, mmco, body, kind="P") -> bytes:
         o, rng = self.o, self.rng
         b = Bits()
-        stype = "I" if idr or (o["slice_i_in_p"] and rng.random() < 0.2) else "P"
+        stype = "I" if idr or (kind == "P" and o["slice_i_in_p"] and rng.random() < 0.2) \
+            else kind
         b.ue(first)
-        code = 2 if stype == "I" else {"B": 1, "SP": 3, "SI": 4}.get(o["force_slice_type"], 0)
+        code = 2 if stype == "I" else 1 if stype == "B" else \
+            {"B": 1, "SP": 3, "SI": 4}.get(o["force_slice_type"], 0)
         b.ue(code + (5 if rng.random() < 0.5 else 0))
         b.ue(pid)
         b.u(self.frame_num, o["log2_max_frame_num"])
@@ -1497,33 +1852,49 @@ class StreamWriter:
         if po.get("redundant"):
             b.ue(po.get("redundant_cnt", 0))
         num_ref = po["num_ref_default"]
-        if stype == "P":
+        lists = []
+        if stype == "B":
+            init = self._lists("B")
+            held = len(self.refs)
+            spatial = o["direct"] == "spatial" or (o["direct"] is None and rng.random() < 0.5)
+            if not spatial and not self.ref_info[init[1][0]]["dpb"] <= {
+                    self.ref_info[f]["uid"] for f in self.refs}:
+                spatial = True  # a reference of the co-located picture is gone: spatial
+            if self.pic_nref is None:  # one length a list for every slice, as encoders write
+                self.pic_nref = list(o.get("b_nref") or [int(rng.integers(1, held + 1)),
+                                                         int(rng.integers(1, held + 1))])
+            n = list(self.pic_nref)
+            if not spatial:  # the co-located picture's references all in list 0, it in list 1
+                n[0] = o["temporal_l0"] or held  # (fewer: a damaged stream)
+            b.flag(spatial)
+            b.flag(True)
+            b.ue(n[0] - 1)
+            b.ue(n[1] - 1)
+            if spatial:
+                lists = [self._modify(b, init[0], n[0]), self._modify(b, init[1], n[1])]
+            else:  # unmodified: a modification may drop a picture for another's copy
+                b.flag(False)
+                b.flag(False)
+                lists = [init[0][:n[0]], init[1][:n[1]]]
+            num_ref = n
+            if po.get("bipred_idc") == 1:
+                self._weights(b, n)
+        elif stype == "P":
             held = len(self.refs)
             want = int(rng.integers(1, held + 1)) if o["override"] else min(num_ref, held)
+            if o["bframes"] or o["b_anchor"]:  # a co-located picture: one length for all slices
+                if self.pic_nref is None:
+                    self.pic_nref = [want]
+                want = self.pic_nref[0]
             if o["override"] or num_ref > held:
                 b.flag(True)
                 b.ue(want - 1)
             else:
                 b.flag(False)
             num_ref = want
-            if o["modify"] and rng.random() < 0.6:
-                b.flag(True)
-                max_fn = 1 << o["log2_max_frame_num"]
-                pred = self.frame_num
-                for _ in range(int(rng.integers(1, num_ref + 1))):
-                    target = self._pic_num(int(rng.choice(self.refs)))
-                    no_wrap = target + max_fn if target < 0 else target
-                    if rng.random() < 0.5:
-                        diff = (pred - no_wrap) % max_fn or max_fn
-                        b.ue(0)
-                    else:
-                        diff = (no_wrap - pred) % max_fn or max_fn
-                        b.ue(1)
-                    b.ue(diff - 1)
-                    pred = no_wrap
-                b.ue(3)
-            else:
-                b.flag(False)
+            lists = [self._modify(b, self._lists("P")[0], num_ref)]
+            if po.get("weighted"):
+                self._weights(b, [num_ref])
         if ref_idc:
             if idr:
                 b.flag(False)
@@ -1543,7 +1914,7 @@ class StreamWriter:
             else:
                 b.flag(False)
         init_idc = 0
-        if po.get("cabac") and stype == "P":
+        if po.get("cabac") and stype != "I":
             init_idc = int(rng.integers(0, 3))
             b.ue(init_idc)  # cabac_init_idc
         lo, hi = o["qp_range"]
@@ -1556,10 +1927,11 @@ class StreamWriter:
                 b.se(int(rng.integers(-6, 7)))
                 b.se(int(rng.integers(-6, 7)))
         if po.get("cabac"):
-            sink = _CabacSink(CabacSlice(b, pic, stype == "I", init_idc, qp, po["t8"]),
-                              end - first)
+            sink = _CabacSink(CabacSlice(b, pic, stype == "I", init_idc, qp, po["t8"],
+                                         o.get("direct8x8", True)), end - first, stype == "B")
         else:
             sink = _CavlcSink(b, po)
+        self.lists = lists
         if body is not None:
             body(sink, pic, first, end, stype, qp, num_ref)
         else:
@@ -1574,14 +1946,14 @@ class StreamWriter:
                                    + (["PCM"] if o["pcm"] else []))
         for addr in range(first, end):
             mx, my = addr % pic.mbw, addr // pic.mbw
-            if stype == "P":
+            if stype in ("P", "B"):
                 r = rng.random()
                 if r < 0.2:
                     kind = "skip"
                 elif r < 0.35 and o["intra_in_p"]:
                     kind = str(rng.choice(kinds_i))
                 else:
-                    kind = "P"
+                    kind = stype
                 if po.get("cabac") and addr == end - 1 and rng.random() < 0.3:
                     kind = "skip"  # a slice that ends on a skipped macroblock
             else:
@@ -1594,16 +1966,58 @@ class StreamWriter:
             qp = d["qp"]
 
 
+def schedule(n: int, gop: int, bframes: int, pyramid: bool = False, rng=None,
+             b_ref: float = 0.0, b_anchor: float = 0.0) -> list:
+    """(display index, kind, ref_idc or None) of ``n`` pictures in decoding
+    order: an IDR picture every ``gop`` (closed groups), anchors ``bframes``
+    + 1 apart, each followed by the B pictures before it in display order
+    (with ``pyramid`` the middle one first, as a reference); ``b_ref`` the
+    chance that another B picture is a reference, ``b_anchor`` that an anchor
+    is a B picture (predicted from earlier pictures only)."""
+    out = []
+    for g in range(0, n, gop):
+        end = min(g + gop, n)
+        out.append((g, "I", None))
+        prev = g
+        while prev < end - 1:
+            anchor = min(prev + bframes + 1, end - 1)
+            kind = "B" if rng is not None and rng.random() < b_anchor else "P"
+            out.append((anchor, kind, 3 if kind == "B" else None))
+            bs = list(range(prev + 1, anchor))
+            if pyramid and len(bs) >= 2:
+                mid = bs[len(bs) // 2]
+                out.append((mid, "B", 3))
+                bs.remove(mid)
+            for d in bs:
+                ref = rng is not None and rng.random() < b_ref
+                out.append((d, "B", 3 if ref else 0))
+            prev = anchor
+    return out
+
+
 def random_stream(width: int, height: int, n: int, seed: int, **kw) -> tuple:
     """(samples, options): ``n`` pictures of random syntax, an IDR picture
     every ``gop``, each sample the list of its NAL units (the first holds
-    the parameter sets)."""
+    the parameter sets).  With ``bframes`` the samples are in decoding
+    order and ``options["display"]`` gives each one's display index."""
     o = options(width, height, **kw)
     w = StreamWriter(o, seed)
     samples = []
-    for k in range(n):
+    if not o["bframes"] and not o["b_anchor"]:
+        for k in range(n):
+            units = w.parameter_sets() if k == 0 else []
+            samples.append(units + w.picture(k % o["gop"] == 0))
+        o["display"] = list(range(n))
+        return samples, o
+    assert o["poc_type"] == 0, "B pictures here need POC type 0"
+    order = schedule(n, o["gop"], o["bframes"], o["pyramid"],
+                     np.random.default_rng(seed + 7), o["b_ref"], o["b_anchor"])
+    for k, (disp, kind, ref_idc) in enumerate(order):
         units = w.parameter_sets() if k == 0 else []
-        samples.append(units + w.picture(k % o["gop"] == 0))
+        g = disp - disp % o["gop"]
+        samples.append(units + w.picture(kind == "I", kind=kind, poc=2 * (disp - g),
+                                         ref_idc=ref_idc))
+    o["display"] = [d for d, _, _ in order]
     return samples, o
 
 
@@ -1791,17 +2205,29 @@ class _Encoder:
         d["cbp"] = (cbp_c << 4) | cbp_l
         return d
 
-    def mb_inter(self, src, mx, my, mv) -> dict:
+    @staticmethod
+    def shifted(planes, mx, my, mv) -> list:
+        """The 16x16 luma and 8x8 chroma blocks of macroblock (mx, my)
+        moved by integer vector ``mv`` (quarter samples, multiples of 8), the
+        picture's edge extended."""
+        out = []
+        for c, P in enumerate(planes):
+            n, f = (16, 4) if c == 0 else (8, 8)
+            H, W = P.shape
+            ys = np.clip(np.arange(n * my, n * my + n) + mv[1] // f, 0, H - 1)
+            xs = np.clip(np.arange(n * mx, n * mx + n) + mv[0] // f, 0, W - 1)
+            out.append(P[ys][:, xs].astype(np.int64))
+        return out
+
+    def mb_inter(self, src, mx, my, mv, preds=None) -> dict:
         """P_L0_16x16 of integer vector ``mv`` (quarter samples, multiples
-        of 8) with the residual coded."""
+        of 8) with the residual coded; ``preds`` (luma, Cb, Cr) another
+        prediction to code the residual against."""
         Y, U, V = self.rec
-        rY, rU, rV = self.ref
         qp = self.qp
         x, y = 16 * mx, 16 * my
-        H, W = rY.shape
-        ys = np.clip(np.arange(y, y + 16) + mv[1] // 4, 0, H - 1)
-        xs = np.clip(np.arange(x, x + 16) + mv[0] // 4, 0, W - 1)
-        pred = rY[ys][:, xs]
+        preds = preds or self.shifted(self.ref, mx, my, mv)
+        pred = preds[0]
         s = src[0][y:y + 16, x:x + 16]
         if self.o["t8"]:
             zz8, luma8, cbp = tables().zigzag8, [], 0
@@ -1831,11 +2257,9 @@ class _Encoder:
                     cbp |= 1 << b8
             d = dict(kind="P", mb_type=0, refs=[0], t8=False, dqp=0, luma=luma)
         cd = []
-        for c, (P, R) in enumerate(((U, rU), (V, rV))):
+        for c, P in enumerate((U, V)):
             qpc = chroma_qp(qp, self.o["cqp"][c])
-            cy = np.clip(np.arange(8 * my, 8 * my + 8) + mv[1] // 8, 0, H // 2 - 1)
-            cx = np.clip(np.arange(8 * mx, 8 * mx + 8) + mv[0] // 8, 0, W // 2 - 1)
-            pred_c = R[cy][:, cx]
+            pred_c = preds[c + 1]
             cdc, cac, rc = self._code_chroma(P, pred_c, src[c + 1][8 * my:8 * my + 8,
                                                                    8 * mx:8 * mx + 8], qpc, False)
             P[8 * my:8 * my + 8, 8 * mx:8 * mx + 8] = rc
@@ -1848,6 +2272,17 @@ class _Encoder:
         return d
 
 
+def _implicit_w0(poc0: int, poc1: int, poc: int) -> int:
+    """The implicit weight of list 0 (the decoder's implicit_w0)."""
+    td = min(max(poc1 - poc0, -128), 127)
+    if not td:
+        return 32
+    tb = min(max(poc - poc0, -128), 127)
+    tx = (16384 + abs(td) // 2) // td if td > 0 else -((16384 + abs(td) // 2) // -td)
+    dsf = (tb * tx + 32) >> 8
+    return 64 - dsf if -64 <= dsf <= 128 else 32
+
+
 def smooth_stream(width: int, height: int, n: int, seed: int, step: int = 4, qp: int = 30,
                   gop: int = 0, **kw) -> tuple:
     """(samples, options): a seeded smooth field panning ``step`` pixels a
@@ -1857,12 +2292,26 @@ def smooth_stream(width: int, height: int, n: int, seed: int, step: int = 4, qp:
     fixed QP and the deblocking filter off, so that the encoder's
     reconstruction is the decoder's; an IDR picture every ``gop`` (0: only
     the first).  ``t8``: the P pictures' residual through the 8x8
-    transform; ``cabac``: CABAC."""
+    transform; ``cabac``: CABAC.  With ``bframes``, B pictures between the
+    anchors (``pyramid``: the middle one a reference), each macroblock
+    B_Bi_16x16 from the nearest picture on either side at the pan's
+    vectors (weighted implicitly with ``bipred_idc`` 2); ``p_weight``
+    (denominator, weight, offset) weights the P pictures' luma explicitly.
+    The samples are then in decoding order, ``options["display"]`` each
+    one's display index."""
+    bframes, pyramid, p_weight = kw.pop("bframes", 0), kw.pop("pyramid", False), \
+        kw.pop("p_weight", None)
     o = options(width, height, **{**dict(t8=False, init_qp=qp, qp_range=(qp, qp), override=False,
                                          max_ref=1, dbk_idc=(1,), pcm=False), **kw})
+    if bframes:
+        o.update(max_ref=max(o["max_ref"], 3), b_nref=[1, 1], direct="spatial")
+    if p_weight:
+        o.update(weighted=True, fixed_weights=p_weight)
     src = smooth_yuv(16 * o["mbw"], 16 * o["mbh"], n, seed, step)
     w = StreamWriter(o, seed)
     enc = _Encoder(o, qp)
+    if bframes:
+        return _smooth_b(o, src, w, enc, n, step, bframes, pyramid, p_weight)
     mv = (4 * step, 0)
     samples = []
     for k in range(n):
@@ -1881,6 +2330,52 @@ def smooth_stream(width: int, height: int, n: int, seed: int, step: int = 4, qp:
         units = w.parameter_sets() if k == 0 else []
         samples.append(units + w.picture(k == 0 or bool(gop and k % gop == 0), body))
         enc.ref = enc.rec
+    return samples, o
+
+
+def _smooth_b(o, src, w, enc, n, step, bframes, pyramid, p_weight) -> tuple:
+    """``smooth_stream``'s pictures with B pictures, in decoding order."""
+    recs = {}  # display index -> the encoder's (Y, U, V) reconstruction
+    order = schedule(n, n, bframes, pyramid)
+    disp_of = lambda fn: w.ref_info[fn]["poc"] // 2  # noqa: E731
+    samples = []
+    for k, (disp, kind, ref_idc) in enumerate(order):
+        frame = [p[disp] for p in src]
+        enc.rec = [np.zeros_like(p) for p in frame]
+
+        def mv_to(ref):  # the pan's vector from this picture to display index `ref`
+            return (4 * step * (disp - ref), 0)
+
+        def body(sink, pic, first, end, stype, slice_qp, num_ref, frame=frame, disp=disp):
+            refs = [disp_of(lst[0]) for lst in w.lists]
+            for addr in range(first, end):
+                mx, my = addr % pic.mbw, addr // pic.mbw
+                if stype == "I":
+                    d = enc.mb_intra(frame, mx, my)
+                elif stype == "P":
+                    preds = enc.shifted(recs[refs[0]], mx, my, mv_to(refs[0]))
+                    if p_weight:
+                        den, wt, off = p_weight
+                        preds[0] = np.clip((preds[0] * wt + off * (1 << den)
+                                            + (1 << den >> 1)) >> den, 0, 255)
+                    d = enc.mb_inter(frame, mx, my, None, preds)
+                    d["mvd"] = [mv_to(refs[0]) if addr == 0 else (0, 0)]
+                else:  # B_Bi_16x16, implicit weights from the POCs
+                    p0 = enc.shifted(recs[refs[0]], mx, my, mv_to(refs[0]))
+                    p1 = enc.shifted(recs[refs[1]], mx, my, mv_to(refs[1]))
+                    w0 = _implicit_w0(2 * refs[0], 2 * refs[1], 2 * disp) \
+                        if o["bipred_idc"] == 2 and refs[0] + refs[1] != 2 * disp else 32
+                    preds = [(a * w0 + b * (64 - w0) + 32) >> 6 for a, b in zip(p0, p1)]
+                    d = enc.mb_inter(frame, mx, my, None, preds)
+                    d.update(kind="B", mb_type=3, refs=[[0], [0]],
+                             mvd=[[mv_to(refs[0]) if addr == 0 else (0, 0)],
+                                  [mv_to(refs[1]) if addr == 0 else (0, 0)]])
+                sink.mb(pic, mx, my, d, stype, num_ref)
+        units = w.parameter_sets() if k == 0 else []
+        samples.append(units + w.picture(kind == "I", body, kind=kind, poc=2 * disp,
+                                         ref_idc=ref_idc))
+        recs[disp] = enc.rec
+    o["display"] = [d for d, _, _ in order]
     return samples, o
 
 
@@ -1922,13 +2417,20 @@ IDENTITY = (1, 0, 0, 1)
 def write_mp4(path, samples, width: int, height: int, fps: int = 30, *, sync=None,
               matrix=IDENTITY, fourcc: bytes = b"avc1", length_size: int = 4,
               config_in_band: bool = False, brand: bytes = b"isom", tkhd_version: int = 0,
-              movie_matrix=IDENTITY) -> None:
+              movie_matrix=IDENTITY, display=None, ctts_version: int = 0,
+              edits="ffmpeg") -> None:
     """An ISO BMFF file (``brand`` b"qt  " for .mov) of one H.264 track:
     ``samples`` lists of NAL units, stored behind ``length_size``-byte
     lengths; the parameter sets of the first sample go into ``avcC`` (and
     stay in band with ``config_in_band``); ``sync`` the sync samples (the
     IDR pictures by default); ``matrix`` (a, b, c, d) the track's display
-    matrix, ``movie_matrix`` the movie's."""
+    matrix, ``movie_matrix`` the movie's.  ``display`` gives each sample's
+    display index (B pictures): the composition offsets then go into a
+    ``ctts`` box, of version 0 shifted to be non-negative with the one edit
+    FFmpeg's muxer writes (its media time the first sample's offset), or of
+    version 1 unshifted (negative offsets); ``edits`` overrides the edit
+    list: None for none, or (segment duration, media time) pairs in movie
+    and track ticks."""
     first = samples[0]
     ps = [u for u in first if u[0] & 31 in (7, 8)]
     sps_units = [u for u in ps if u[0] & 31 == 7]
@@ -1960,7 +2462,16 @@ def write_mp4(path, samples, width: int, height: int, fps: int = 30, *, sync=Non
     ftyp = _box(b"ftyp", brand + struct.pack(">I", 0x200) + brand + b"avc1")
     mdat_start = len(ftyp) + 8
     stco = _full(b"stco", 0, 0, struct.pack(">II", 1, mdat_start))
-    stbl = _box(b"stbl", stsd + stts + stss + stsc + stsz + stco)
+    ctts = b""
+    delay = 0
+    if display is not None and list(display) != list(range(n)):
+        offs = [int(d) - k for k, d in enumerate(display)]
+        if ctts_version == 0:
+            delay = -min(offs)
+            offs = [v + delay for v in offs]
+        ctts = _full(b"ctts", ctts_version, 0, struct.pack(">I", n) + b"".join(
+            struct.pack(">Ii" if ctts_version else ">II", 1, v) for v in offs))
+    stbl = _box(b"stbl", stsd + stts + ctts + stss + stsc + stsz + stco)
     vmhd = _full(b"vmhd", 0, 1, b"\0" * 8)
     dinf = _box(b"dinf", _full(b"dref", 0, 0, struct.pack(">I", 1) + _full(b"url ", 0, 1, b"")))
     minf = _box(b"minf", vmhd + dinf + stbl)
@@ -1976,7 +2487,13 @@ def write_mp4(path, samples, width: int, height: int, fps: int = 30, *, sync=Non
         times = struct.pack(">IIIII", 0, 0, 1, 0, duration)
     tkhd = _full(b"tkhd", tkhd_version, 3, times + b"\0" * 8 + struct.pack(">hhhH", 0, 0, 0, 0)
                  + mat(matrix) + struct.pack(">II", width << 16, height << 16))
-    trak = _box(b"trak", tkhd + mdia)
+    if edits == "ffmpeg":
+        edits = [(duration, delay)] if ctts else None
+    edts = b""
+    if edits is not None:
+        edts = _box(b"edts", _full(b"elst", 0, 0, struct.pack(">I", len(edits)) + b"".join(
+            struct.pack(">IiI", dur, t, 0x10000) for dur, t in edits)))
+    trak = _box(b"trak", tkhd + edts + mdia)
     mvhd = _full(b"mvhd", 0, 0, struct.pack(">IIII", 0, 0, 1000, duration)
                  + struct.pack(">IH", 0x10000, 0x100) + b"\0" * 10 + mat(movie_matrix)
                  + b"\0" * 24 + struct.pack(">I", 2))
