@@ -285,6 +285,15 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      P, implicit in B, behind ctts and FFmpeg's edit list), its PNG
      control's frames held to cv2's digests; (c) an IDR, a P and a B
      picture's decode, at 480x640 and 1920x1080, in the same call.
+  23. HEVC input on the card's host (Main profile I and P pictures, the
+     decoder of csrc/host/hevc.cpp): (a) every committed HEVC fixture
+     (random syntax with every tool the decoder takes in .mp4 and turned
+     90 degrees in .mov, full range BT.709 in band in .mov, CRA sync
+     samples in .avi, and the two pans), read as 19a reads them, against
+     cv2's digests (tests/data/hevc_fixtures.json); (b) 19b over the
+     committed 480x640 HEVC clip (32x32 CTBs, WPP), its PNG control's
+     frames held to cv2's digests; (c) an IDR and a P picture's decode at
+     480x640 and 1920x1080, beside CABAC H.264's, in the same call.
 
 Phase 2 also holds the two gather probes' kernels (gather_rows_sum,
 take_along_rows, the latter at every slab width of SLAB_SWEEP, timed in
@@ -5759,6 +5768,87 @@ def run_bframe_input(dev, work, smi):
     return fixtures, cli, decode
 
 
+# ---------------------------------------------------------------------------
+# phase 23: HEVC video input (Main profile I and P pictures) on the card's host
+# ---------------------------------------------------------------------------
+
+HEVC_CLIP = "hevc_480x640_smooth.mp4"
+HEVC_BIG = "hevc_1080x1920_smooth.mp4"
+
+
+def _hevc_decode_ms(name, passes):
+    """Host milliseconds of each sample's decode and conversion to RGB, IRAP
+    and P pictures apart, over ``passes`` decodes of the whole file (the
+    SPS asks for no reorder delay: each sample lets its own picture out)."""
+    from mast3r_slam_tpu_torch.data import video
+    from mast3r_slam_tpu_torch.utils import native
+
+    data, track = video.read_track(VIDEO_DATA / name)
+    samples = [data[int(a):int(a) + int(n)] for a, n in zip(track.offsets, track.sizes)]
+    ms = {"idr": [], "p": []}
+    for _ in range(passes):
+        dec = native.HevcDecoder(track.config, track.length_size)
+        for i, sample in enumerate(samples):
+            t0 = time.perf_counter()
+            if dec.decode(sample, i) != i:
+                raise AssertionError(f"23c: {name} sample {i} did not output its picture")
+            dec.rgb()
+            ms["idr" if track.sync[i] else "p"].append((time.perf_counter() - t0) * 1e3)
+        dec.close()
+    return dict(frame_ms=statistics.median(ms["idr"] + ms["p"]),
+                idr_ms=statistics.median(ms["idr"]), p_ms=statistics.median(ms["p"]),
+                frames=len(samples), idr_pictures=int(track.sync.sum()), passes=passes,
+                file_bytes=len(data))
+
+
+def time_hevc_decode():
+    """23c: host milliseconds of an HEVC frame's decode and conversion to
+    RGB, IDR and P pictures apart, at 480x640 (the 23b clip, 14 frames) and
+    1920x1080 (an IDR and two P pictures, the last CTB row cut short),
+    beside H.264 CABAC's at both sizes, median over VIDEO_DECODE_PASSES
+    decodes of each file, all in one call."""
+    out = dict(hevc_480x640=_hevc_decode_ms(HEVC_CLIP, VIDEO_DECODE_PASSES),
+               hevc_1080x1920=_hevc_decode_ms(HEVC_BIG, VIDEO_DECODE_PASSES),
+               cabac_480x640=_h264_decode_ms(H264_CABAC_CLIP, VIDEO_DECODE_PASSES),
+               cabac_1080x1920=_h264_decode_ms(H264_CABAC_BIG, VIDEO_DECODE_PASSES))
+    log(f"23c decode (host clock): {json.dumps(out)}")
+    return out
+
+
+def run_hevc_input(dev, work, smi):
+    """Phase 23 (a)-(c), each checked; raises on any fault."""
+    import hashlib
+
+    from mast3r_slam_tpu_torch.data import png
+
+    t0 = time.perf_counter()
+    fixtures = check_video_fixtures("hevc_fixtures.json", "23a")
+    if fixtures["files"] < 6:
+        raise AssertionError(f"23a: {fixtures['files']} HEVC fixtures, 6 expected")
+    digests = json.loads((IMAGE_DATA / "hevc_fixtures.json").read_text())
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        cli = run_cli_video(dev, work, clip_name=HEVC_CLIP, tag="23b", save="hevc")
+    finally:
+        os.chdir(cwd)
+    control = sorted((work / "hevc_png").iterdir())
+    cli["control_is_cv2s"] = ([hashlib.sha256(png.read_png(p).tobytes()).hexdigest()
+                               for p in control]
+                              == digests[f"video_fixtures/{HEVC_CLIP}"]["frames"])
+    if not cli["control_is_cv2s"]:
+        raise AssertionError("23b: the PNG control's frames are not cv2's by the digests")
+    check_cli_video(cli, "the HEVC clip", "23b")
+    decode = time_hevc_decode()
+    ms = {k: f"{r['frame_ms']:.3f} (IDR {r['idr_ms']:.3f}, P {r['p_ms']:.3f})"
+          for k, r in decode.items()}
+    log(f"23 HEVC input: a frame decodes in {json.dumps(ms)} ms (host clock); the CLI's "
+        f"ingest p50 {cli['ingest_ms_p50']:.2f} ms over the HEVC clip, "
+        f"{cli['control_ingest_ms_p50']:.2f} ms over its PNG control; phase 23 "
+        f"{time.perf_counter() - t0:.1f} s; {smi}")
+    return fixtures, cli, decode
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -6020,6 +6110,11 @@ def main() -> int:
     # clip behind ctts and an edit list against its PNG control, the decode
     # of IDR, P and B pictures timed; same directory
     bframe_fixtures, bframe_cli, bframe_decode = run_bframe_input(dev, work, smi)
+    # HEVC input (Main profile I and P pictures: WPP, AMP, SAO, TMVP, weights):
+    # the fixtures against cv2's digests, the ViT-L CLI over an HEVC clip
+    # against its PNG control, the decode timed beside CABAC H.264's; same
+    # directory
+    hevc_fixtures, hevc_cli, hevc_decode = run_hevc_input(dev, work, smi)
 
     common = lambda r: {k: r[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms",
@@ -6040,6 +6135,7 @@ def main() -> int:
              h264_cli_launches=h264_cli["launches"]["attention"],
              cabac_cli_launches=cabac_cli["launches"]["attention"],
              bframe_cli_launches=bframe_cli["launches"]["attention"],
+             hevc_cli_launches=hevc_cli["launches"]["attention"],
              mesh_launches={"vitl_task_2_shards": mtask["launches"]["attention"],
                             "threaded_vitl_ranks": [c["attention"] for c in tranks]}),
         dict(name="refine_window", route="cuda",
@@ -6062,6 +6158,7 @@ def main() -> int:
              h264_cli_launches=h264_cli["launches"]["refine_window"],
              cabac_cli_launches=cabac_cli["launches"]["refine_window"],
              bframe_cli_launches=bframe_cli["launches"]["refine_window"],
+             hevc_cli_launches=hevc_cli["launches"]["refine_window"],
              mesh_launches={"vitl_task_2_shards": mtask["launches"]["refine_window"],
                             "two_process_ranks": [c["refine_window"] for c in mranks],
                             "threaded_vitl_ranks": [c["refine_window"] for c in tranks]},
@@ -6086,6 +6183,7 @@ def main() -> int:
              h264_cli_launches=h264_cli["launches"]["edge_hg_rays"],
              cabac_cli_launches=cabac_cli["launches"]["edge_hg_rays"],
              bframe_cli_launches=bframe_cli["launches"]["edge_hg_rays"],
+             hevc_cli_launches=hevc_cli["launches"]["edge_hg_rays"],
              mesh_launches={"sharded_solve": {k: r["launches"] for k, r in msolve.items()},
                             "two_process_ranks": [c["edge_hg_rays"] for c in mranks],
                             "threaded_vitl_ranks": [c["edge_hg_rays"] for c in tranks],
@@ -6184,7 +6282,9 @@ def main() -> int:
         "cabac_input": {"fixtures": cabac_fixtures, "cli": cabac_cli, "decode": cabac_decode,
                         "card": smi},
         "bframe_input": {"fixtures": bframe_fixtures, "cli": bframe_cli, "decode": bframe_decode,
-                         "card": smi}}
+                         "card": smi},
+        "hevc_input": {"fixtures": hevc_fixtures, "cli": hevc_cli, "decode": hevc_decode,
+                       "card": smi}}
     log(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,9 @@ The JAX package reads ``.mp4``, ``.mov`` and ``.avi`` through
 ``cv2.VideoCapture`` (FFmpeg).  Here the container is walked in Python
 (``read_track``: ISO BMFF boxes or RIFF AVI chunks, into a table of
 sample offsets, sizes and sync flags) and each sample is decoded by the
-host library's MPEG-4 Part 2 or H.264 decoder (``csrc/host/mpeg4.cpp``,
-``h264.cpp`` through ``utils/native.Mpeg4Decoder``, ``H264Decoder``),
+host library's MPEG-4 Part 2, H.264 or HEVC decoder (``csrc/host/mpeg4.cpp``,
+``h264.cpp``, ``hevc.cpp`` through ``utils/native.Mpeg4Decoder``,
+``H264Decoder``, ``HevcDecoder``),
 which gives the frame that ``cv2.cvtColor(cap.read()[1],
 cv2.COLOR_BGR2RGB)`` gives with cv2 5.0.0; the frame is then turned by
 the track's display matrix as cv2 turns it (``Track.rotation``).
@@ -17,18 +18,22 @@ the constant sample rate (timescale over the one ``stts`` delta, or AVI's
 them under cv2: held back and reordered (B pictures), by the output
 delay cv2's decoder starts with (``MP4Dataset._probe_delay``) and grows,
 its frame threads decoding ahead (``FRAME_THREADS``), drained at the end
-of the file.  In ISO BMFF a frame's number is its presentation time
+of the file.  HEVC pictures (``hvc1``/``hev1``, or the AVI fourccs FFmpeg
+maps to HEVC) come out as the DPB's output process releases them, which
+the SPS alone steers, with the same frame threads ahead.  In ISO BMFF a
+frame's number is its presentation time
 (``ctts``) from the edit's start; frames outside the one edit are decoded
 and not shown (``Track.frames``).  A read away from the next frame seeks
 as cv2 does (``MP4Dataset._seek``).
 
 What is not ported raises ``NotImplementedError`` naming ROADMAP Queue 1
 item 17, and never falls back to cv2: video codecs other than MPEG-4
-Part 2 and H.264 (HEVC, AV1, MJPEG, MS-MPEG4, FFV1, ...), sample
+Part 2, H.264 and HEVC (AV1, MJPEG, MS-MPEG4, FFV1, ...), sample
 durations that are not one constant run (FFmpeg guesses a rate from
 them), composition times that are not distinct whole frames, edit lists
 of several edits, empty edits or another rate, MPEG-4 Part 2 B-VOPs
-(``ctts``), H.264 sync samples that are not IDR pictures, and the stream
+(``ctts``), H.264 sync samples that are not IDR pictures, HEVC ones that
+are not IRAP pictures, and the stream
 features the decoders refuse.  A damaged file raises ``ValueError``.
 """
 
@@ -53,12 +58,14 @@ ROADMAP_ITEM = "ROADMAP Queue 1 item 17"
 # get_number_of_cpus); an H.264 frame comes back after FRAME_THREADS - 1
 # more samples went in
 FRAME_THREADS = max(os.sysconf("SC_NPROCESSORS_ONLN"), 1)
-# MPEG-4 Part 2 and H.264 under the fourccs FFmpeg's AVI demuxer maps to them
-# (riff.c ff_codec_bmp_tags, matched upper-cased)
+# MPEG-4 Part 2, H.264 and HEVC under the fourccs FFmpeg's AVI demuxer maps
+# to them (riff.c ff_codec_bmp_tags, matched upper-cased)
 AVI_MPEG4_FOURCCS = {b"XVID", b"DIVX", b"DX50", b"FMP4", b"MP4V"}
 AVI_H264_FOURCCS = {b"H264", b"X264", b"AVC1", b"DAVC", b"SMV2", b"VSSH", b"Q264", b"V264",
                     b"GAVC", b"UMSV", b"TSHD", b"INMC"}
 H264_ENTRIES = {b"avc1", b"avc3"}  # ISO BMFF sample entries of H.264 read here
+AVI_HEVC_FOURCCS = {b"HEVC", b"H265", b"HEV1", b"HVC1"}
+HEVC_ENTRIES = {b"hvc1", b"hev1"}  # ISO BMFF sample entries of HEVC read here
 MPEG4_VISUAL = 0x20  # esds objectTypeIndication of MPEG-4 Part 2 (ISO/IEC 14496-1)
 VOP_START = b"\x00\x00\x01\xb6"
 
@@ -68,14 +75,14 @@ class Track:
     """A video track's samples as the container lists them."""
 
     config: bytes  # the decoder configuration, empty if in-band: MPEG-4's VOS/VOL
-    # headers, or H.264's parameter sets as Annex B NAL units
+    # headers, or H.264's or HEVC's parameter sets as Annex B NAL units
     offsets: np.ndarray  # int64 byte offsets of the samples in the file
     sizes: np.ndarray  # int64 byte sizes
     sync: np.ndarray  # bool, a sample decodable without the ones before it
     fps: float
     frame_count: int
-    codec: str = "mpeg4"  # or "h264"
-    length_size: int = 0  # H.264: bytes of a NAL unit's length (avcC), 0 for Annex B
+    codec: str = "mpeg4"  # or "h264", "hevc"
+    length_size: int = 0  # H.264, HEVC: bytes of a NAL unit's length (avcC, hvcC), 0 for Annex B
     rotation: int = 0  # degrees cv2 turns each frame clockwise: 0, 90, 180, 270
     # each sample's frame number as cv2 counts it (its presentation time
     # from the edit's start, in frames; -1 outside the edit: decoded, never
@@ -206,6 +213,29 @@ def _avcc_config(data: bytes, a: int, b: int, path) -> tuple:
     return b"".join(units), length_size
 
 
+def _hvcc_config(data: bytes, a: int, b: int, path) -> tuple:
+    """(the VPS, SPS, PPS and SEI NAL units as Annex B, the NAL unit length
+    size) of an ``hvcC`` box (ISO/IEC 14496-15 8.3.3.1)."""
+    if b - a < 23 or data[a] != 1:
+        raise ValueError(f"{path}: an hvcC box of version {data[a] if b > a else None}")
+    length_size = (data[a + 21] & 3) + 1
+    if length_size == 3:
+        raise ValueError(f"{path}: an hvcC NAL unit length of 3 bytes")
+    units, at = [], a + 23
+    for _ in range(data[a + 22]):  # numOfArrays
+        if at + 3 > b:
+            raise ValueError(f"{path}: hvcC array cut short")
+        (n,) = struct.unpack(">H", data[at + 1:at + 3])
+        at += 3
+        for _ in range(n):
+            (size,) = struct.unpack(">H", data[at:at + 2])
+            if at + 2 + size > b:
+                raise ValueError(f"{path}: hvcC parameter set cut short")
+            units.append(b"\x00\x00\x00\x01" + bytes(data[at + 2:at + 2 + size]))
+            at += 2 + size
+    return b"".join(units), length_size
+
+
 def _matrix(data: bytes, at: int) -> list:
     """The 3x3 display matrix of ``tkhd``/``mvhd`` at byte ``at``: rows of
     (16.16, 16.16, 2.30) fixed point."""
@@ -325,12 +355,17 @@ def _mp4_track(data: bytes, trak, path, mvhd, movie_scale: int) -> Optional[Trac
     if n_entries != 1 or len(entries) != 1:
         raise _unsupported(f"{path}: a video track of {n_entries} sample descriptions")
     fourcc, va, vb = entries[0]
-    if fourcc != b"mp4v" and fourcc not in H264_ENTRIES:
+    if fourcc != b"mp4v" and fourcc not in H264_ENTRIES and fourcc not in HEVC_ENTRIES:
         raise _unsupported(f"{path}: video of sample entry {fourcc.decode(errors='replace')!r}")
     config, codec, length_size = b"", "mpeg4", 0
     children = {kind: (ka, kb) for kind, ka, kb in _boxes(data, va + 78, vb, path)}
     if fourcc == b"mp4v" and b"esds" in children:
         config = _esds_config(data, *children[b"esds"], path)
+    elif fourcc in HEVC_ENTRIES:
+        if b"hvcC" not in children:
+            raise _unsupported(f"{path}: an {fourcc.decode()} track without an hvcC box")
+        config, length_size = _hvcc_config(data, *children[b"hvcC"], path)
+        codec = "hevc"
     elif fourcc != b"mp4v":
         if b"avcC" not in children:
             raise _unsupported(f"{path}: an {fourcc.decode()} track without an avcC box")
@@ -464,7 +499,8 @@ def read_avi(data: bytes, path) -> Track:
     fa, _ = kids[b"strf"]
     compression = bytes(data[fa + 16:fa + 20])
     codec = ("mpeg4" if compression.upper() in AVI_MPEG4_FOURCCS
-             else "h264" if compression.upper() in AVI_H264_FOURCCS else None)
+             else "h264" if compression.upper() in AVI_H264_FOURCCS
+             else "hevc" if compression.upper() in AVI_HEVC_FOURCCS else None)
     if codec is None:
         raise _unsupported(f"{path}: AVI video of fourcc "
                            f"{compression.decode(errors='replace')!r}")
@@ -506,13 +542,13 @@ def read_track(path) -> tuple:
 
 class MP4Dataset(MonocularDataset):
     """Video ingest (``.mp4``, ``.mov``, ``.avi``) through the host library's
-    MPEG-4 Part 2 and H.264 decoders, frame for frame as cv2 5.0.0 reads it,
+    MPEG-4 Part 2, H.264 and HEVC decoders, frame for frame as cv2 5.0.0 reads it,
     each frame turned by the track's display matrix as cv2 turns it.
 
     A read at the next frame takes the next frame libavcodec outputs (a
     not-coded VOP outputs none, so cv2's frames then run ahead of the
-    samples; H.264 pictures come out in display order, the held ones
-    drained at the end).  A read elsewhere seeks as ``cv2.VideoCapture.set(
+    samples; H.264 and HEVC pictures come out in display order, the held
+    ones drained at the end).  A read elsewhere seeks as ``cv2.VideoCapture.set(
     CAP_PROP_POS_FRAMES, t)`` does (``CvCapture_FFMPEG::seek``; before a
     first seek cv2 reads a frame): it restarts at the last sync sample
     decoded at or before frame ``t - 16``'s time (further back while the
@@ -528,14 +564,16 @@ class MP4Dataset(MonocularDataset):
         config = track.config
         if not config and len(track.sizes):  # AVI: the headers open the first sample
             first = self._sample(0)
-            config = first if track.codec == "h264" else \
+            config = first if track.codec in ("h264", "hevc") else \
                 first[:first.find(VOP_START)] if VOP_START in first else b""
         self._config = config
-        if track.codec == "h264":
+        if track.codec in ("h264", "hevc"):
+            self._nal_decoder = native.HevcDecoder if track.codec == "hevc" else native.H264Decoder
             self._check_sync_samples(config)
-            self._decoder = native.H264Decoder(config, track.length_size)
+            self._decoder = self._nal_decoder(config, track.length_size)
             self._decoder.delay(self._probe_delay())
-            missing = "no H.264 sequence parameter set before the first sample"
+            missing = f"no {'HEVC' if track.codec == 'hevc' else 'H.264'} sequence parameter set " \
+                "before the first sample"
         else:
             self._decoder = native.Mpeg4Decoder(config)
             missing = "no MPEG-4 VOL header before the first VOP"
@@ -544,7 +582,7 @@ class MP4Dataset(MonocularDataset):
         self._cursor = 0  # the next sample to decode
         self._draining = False  # the samples are all fed: held pictures come out
         self._grabbed = False  # a frame was read (cv2 reads one before a first seek)
-        # H.264 frames decoded ahead of the reader: (frame number, sample fed
+        # H.264 and HEVC frames decoded ahead of the reader: (frame number, sample fed
         # last when it came out, RGB)
         self._ahead = collections.deque()
         self._fault = None  # an error met decoding ahead, raised at the read that reaches it
@@ -555,15 +593,17 @@ class MP4Dataset(MonocularDataset):
         self.timestamps = [str(i * stride / self.fps) for i in range(len(self))]
 
     def _check_sync_samples(self, config: bytes) -> None:
-        """Each H.264 sync sample must hold an IDR picture (cv2 would drop
-        pictures after a seek to another), and the sequence parameter sets
-        they carry must agree on the colour (cv2 converts frames around a
-        change otherwise than they say)."""
-        probe = native.H264Decoder(config, self.track.length_size)
+        """Each H.264 sync sample must hold an IDR picture, each HEVC one an
+        IRAP picture (IDR or CRA; leading pictures are refused): cv2 would
+        drop pictures after a seek to another; and the sequence parameter
+        sets they carry must agree on the colour (cv2 converts frames around
+        a change otherwise than they say)."""
+        probe = self._nal_decoder(config, self.track.length_size)
+        kind = "an IRAP" if self.track.codec == "hevc" else "an IDR"
         try:
             for i in np.flatnonzero(self.track.sync):
                 if not probe.headers(self._sample(int(i))):
-                    raise _unsupported(f"{self.dataset_path}: sync sample {int(i)}, not an IDR "
+                    raise _unsupported(f"{self.dataset_path}: sync sample {int(i)}, not {kind} "
                                        "picture")
         finally:
             probe.close()
@@ -577,8 +617,8 @@ class MP4Dataset(MonocularDataset):
         come out (18, 20 for delays of 3, 4 or more; none once the delay
         equals num_reorder_frames), the delay growing as libavcodec grows
         it."""
-        if self.track.frames is not None:
-            return self.track.video_delay
+        if self.track.frames is not None or self.track.codec == "hevc":
+            return self.track.video_delay  # HEVC's output follows its SPS, not this delay
         probe = native.H264Decoder(self._config, self.track.length_size)
         try:
             probe.delay(self.track.video_delay)
@@ -618,7 +658,7 @@ class MP4Dataset(MonocularDataset):
         the decoder at the end of the file).  Pictures outside the edit are
         decoded and dropped, as FFmpeg drops them."""
         self._grabbed = True
-        if self.track.codec != "h264":
+        if self.track.codec not in ("h264", "hevc"):
             while self._cursor < len(self.track.sizes):
                 i = self._cursor
                 self._cursor += 1
@@ -628,7 +668,8 @@ class MP4Dataset(MonocularDataset):
             return None
         # cv2 runs libavcodec with a frame thread a CPU: a frame comes back
         # once FRAME_THREADS - 1 more samples went in, whose pictures count
-        # in the output delay that a seek's flush keeps
+        # in the output delay that a seek's flush keeps (H.264; HEVC's the
+        # same way)
         if not self._ahead and self._fault is not None:
             fault, self._fault = self._fault, None
             raise fault

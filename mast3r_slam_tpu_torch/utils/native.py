@@ -1,10 +1,12 @@
 """The port's host library: frame resize, undistortion remap and PNG row
 filters (port of ``mast3r_slam_tpu/utils/native.py``), the JPEG decoder
 of the image readers and the session server, and the MPEG-4 Part 2 and
-H.264 decoders of the video reader, in C++.
+H.264 and HEVC decoders of the video reader, in C++.
 
-``csrc/host/preprocess.cpp``, ``jpeg.cpp``, ``mpeg4.cpp`` and ``h264.cpp``
-(which share ``yuv420.h``) are compiled with
+``csrc/host/preprocess.cpp``, ``jpeg.cpp``, ``mpeg4.cpp``, ``h264.cpp`` and
+``hevc.cpp`` (the video decoders share ``yuv420.h``, H.264 and HEVC the
+NAL unit reader of ``nal.h`` and the CABAC engine of ``cabac.h``) are
+compiled with
 the host C++ compiler (``$CXX``, else ``g++``) at first use into one
 library in ``build/host/`` at the repository root, named by a hash of the
 sources, the flags and the host
@@ -35,8 +37,8 @@ from .image import resize_geometry
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
 SOURCES = [_PKG_DIR / "csrc" / "host" / name
-           for name in ("preprocess.cpp", "jpeg.cpp", "mpeg4.cpp", "h264.cpp")]
-HEADERS = [_PKG_DIR / "csrc" / "host" / "yuv420.h"]
+           for name in ("preprocess.cpp", "jpeg.cpp", "mpeg4.cpp", "h264.cpp", "hevc.cpp")]
+HEADERS = [_PKG_DIR / "csrc" / "host" / name for name in ("yuv420.h", "cabac.h", "nal.h")]
 BUILD_DIR = _PKG_DIR.parent / "build" / "host"
 CXX_FLAGS = ["-O3", "-march=native", "-ffast-math", "-funroll-loops", "-std=c++17",
              "-fPIC", "-Wall"]
@@ -68,6 +70,16 @@ _ARGTYPES = {
     "h264_delay": [ctypes.c_void_p, _I, _I32P],
     "h264_reset": [ctypes.c_void_p],
     "h264_close": [ctypes.c_void_p],
+    "hevc_open": [_U8P, ctypes.c_int64, _I, ctypes.POINTER(ctypes.c_void_p), ctypes.c_char_p, _I],
+    "hevc_size": [ctypes.c_void_p, _I32P],
+    "hevc_decode": [ctypes.c_void_p, _U8P, ctypes.c_int64, ctypes.c_int64,
+                    ctypes.POINTER(ctypes.c_int64), ctypes.c_char_p, _I],
+    "hevc_headers": [ctypes.c_void_p, _U8P, ctypes.c_int64, _I32P, ctypes.c_char_p, _I],
+    "hevc_rgb": [ctypes.c_void_p, _U8P],
+    "hevc_drain": [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64)],
+    "hevc_delay": [ctypes.c_void_p, _I, _I32P],
+    "hevc_reset": [ctypes.c_void_p],
+    "hevc_close": [ctypes.c_void_p],
 }
 
 _lib = None
@@ -350,40 +362,45 @@ class H264Decoder:
     raise ``NotImplementedError``, corrupt ones ``ValueError``.  One
     decoder serves one thread at a time."""
 
+    _PREFIX, _CODEC = "h264", "H.264"  # the host library's functions, the codec's name
+
     def __init__(self, config: bytes = b"", length_size: int = 0):
         self._lib = load()
         self._state = None
         state = ctypes.c_void_p()
         src = np.frombuffer(config, dtype=np.uint8)
         err = ctypes.create_string_buffer(256)
-        rc = self._lib.h264_open(_ptr(src, _U8P), src.size, length_size, ctypes.byref(state),
+        rc = self._fn("open")(_ptr(src, _U8P), src.size, length_size, ctypes.byref(state),
                                  err, len(err))
         if rc != 0:
-            raise _video_error(rc, err, "H.264")
+            raise _video_error(rc, err, self._CODEC)
         self._state = state
+
+    def _fn(self, name: str):
+        return getattr(self._lib, f"{self._PREFIX}_{name}")
 
     def size(self):
         """(width, height) of the last picture output (before one, of the
         first sequence parameter set read), else None."""
         wh = (ctypes.c_int * 2)()
-        self._lib.h264_size(self._state, wh)
+        self._fn("size")(self._state, wh)
         return (wh[0], wh[1]) if wh[0] else None
 
     def decode(self, sample: bytes, index: int):
         src = np.frombuffer(sample, dtype=np.uint8)
         err = ctypes.create_string_buffer(256)
         shown = ctypes.c_int64()
-        rc = self._lib.h264_decode(self._state, _ptr(src, _U8P), src.size, index,
+        rc = self._fn("decode")(self._state, _ptr(src, _U8P), src.size, index,
                                    ctypes.byref(shown), err, len(err))
         if rc != 0:
-            raise _video_error(rc, err, "H.264")
+            raise _video_error(rc, err, self._CODEC)
         return None if shown.value < 0 else shown.value
 
     def drain(self):
         """At the end of the stream: the sample of the next picture held
         back (now the one ``rgb`` gives), or None when none is left."""
         shown = ctypes.c_int64()
-        self._lib.h264_drain(self._state, ctypes.byref(shown))
+        self._fn("drain")(self._state, ctypes.byref(shown))
         return None if shown.value < 0 else shown.value
 
     def delay(self, set_to: int = -1) -> tuple:
@@ -391,7 +408,7 @@ class H264Decoder:
         VUI's, or libavcodec's guess from the level), whether that SPS has
         bitstream_restriction); ``set_to`` >= 0 sets has_b_frames first."""
         info = (ctypes.c_int * 3)()
-        self._lib.h264_delay(self._state, set_to, info)
+        self._fn("delay")(self._state, set_to, info)
         return info[0], info[1], bool(info[2])
 
     def headers(self, sample: bytes) -> bool:
@@ -400,27 +417,48 @@ class H264Decoder:
         src = np.frombuffer(sample, dtype=np.uint8)
         err = ctypes.create_string_buffer(256)
         idr = ctypes.c_int()
-        rc = self._lib.h264_headers(self._state, _ptr(src, _U8P), src.size, ctypes.byref(idr),
+        rc = self._fn("headers")(self._state, _ptr(src, _U8P), src.size, ctypes.byref(idr),
                                     err, len(err))
         if rc != 0:
-            raise _video_error(rc, err, "H.264")
+            raise _video_error(rc, err, self._CODEC)
         return bool(idr.value)
 
     def rgb(self) -> np.ndarray:
         width, height = self.size()
         out = np.empty((height, width, 3), dtype=np.uint8)
-        if self._lib.h264_rgb(self._state, _ptr(out, _U8P)) != 0:
-            raise ValueError("no H.264 picture decoded yet")
+        if self._fn("rgb")(self._state, _ptr(out, _U8P)) != 0:
+            raise ValueError(f"no {self._CODEC} picture decoded yet")
         return out
 
     def reset(self):
         """Forget every picture (before decoding from a sync sample)."""
-        self._lib.h264_reset(self._state)
+        self._fn("reset")(self._state)
 
     def close(self):
         state, self._state = self._state, None
         if state:
-            self._lib.h264_close(state)
+            self._fn("close")(state)
 
     def __del__(self):
         self.close()
+
+
+class HevcDecoder(H264Decoder):
+    """An HEVC decoder (``csrc/host/hevc.cpp``) over one stream's samples, in
+    decode order, with ``H264Decoder``'s methods.  ``config`` is Annex B NAL
+    units whose parameter sets are read (an ``hvcC``'s arrays, or an AVI
+    stream's first sample); ``length_size`` is the bytes of each NAL unit's
+    length in a sample (the ``hvcC``'s), 0 for Annex B samples.
+    ``decode(sample, index)`` gives the index of the sample whose picture
+    comes out next, or None: the DPB releases pictures in POC order as
+    libavcodec's output process does (held back by the SPS's
+    sps_max_num_reorder_pics, its latency and its DPB size, never by
+    has_b_frames, so ``delay``'s ``set_to`` changes nothing), one a call; a
+    sample that releases several gives the rest at the next calls, and
+    ``drain()`` gives the held ones at the end of the stream.  ``headers``
+    tells whether a sample holds an IRAP (IDR or CRA) picture.  ``rgb``
+    gives the last picture output as (H, W, 3) uint8 RGB, cropped, exactly
+    what cv2 5.0.0 gives for it (before cv2 turns it by the track's display
+    matrix)."""
+
+    _PREFIX, _CODEC = "hevc", "HEVC"

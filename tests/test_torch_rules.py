@@ -270,8 +270,9 @@ def test_no_port_module_imports_cv2_pil_yaml_or_matplotlib_at_import():
 # and a palette Adam7 PNG), phase 19's (the CLI over a committed 48x64
 # mp4v clip, resized to 512 by the host library: other sizes resize
 # through PIL) with the tiny model on the CPU, and phase 20's loader over a
-# committed 48x64 H.264 clip in AVI (the rest of its path is phase 19's),
-# while an import hook
+# committed 48x64 H.264 clip in AVI and phase 23's over a committed 48x64
+# HEVC clip in MP4 (the rest of their path is phase 19's), while an import
+# hook
 # refuses cv2, PIL, PyYAML and matplotlib; prints the attempts and the
 # port modules the run loaded.
 _NO_CARD_RUN = r"""
@@ -318,9 +319,12 @@ video = run.main(["--dataset", sys.argv[2], "--config", "eval_no_calib", "--mode
 from mast3r_slam_tpu_torch.data import dataloader
 h264 = dataloader.load_dataset(sys.argv[3])
 h264_frames = [h264[i] for i in range(3)]
+hevc = dataloader.load_dataset(sys.argv[4])
+hevc_frames = [hevc[i] for i in range(3)]
 print(json.dumps({"attempts": attempts, "folder_frames": len(folder.frame_timestamps),
                   "video_frames": len(video.frame_timestamps),
                   "h264_frames": [f[1].shape for f in h264_frames],
+                  "hevc_frames": [f[1].shape for f in hevc_frames],
                   "modules": sorted(
     m.__file__ for n, m in sys.modules.items()
     if n.startswith("mast3r_slam_tpu_torch") and getattr(m, "__file__", None))}))
@@ -328,8 +332,9 @@ print(json.dumps({"attempts": attempts, "folder_frames": len(folder.frame_timest
 
 
 def test_the_cli_path_reaches_no_library_the_card_lacks(tmp_path):
-    """The modules phases 9, 12, 19 and 20 run (a TUM sequence of PNGs, a
-    folder of JPEGs and a PNG, an MPEG-4 Part 2 video, an H.264 one) import
+    """The modules phases 9, 12, 19, 20 and 23 run (a TUM sequence of PNGs, a
+    folder of JPEGs and a PNG, an MPEG-4 Part 2 video, an H.264 one, an HEVC
+    one) import
     none of cv2, PIL, yaml or matplotlib, on the run (an import hook refuses
     them) and anywhere in their source."""
     import json
@@ -339,7 +344,9 @@ def test_the_cli_path_reaches_no_library_the_card_lacks(tmp_path):
     folder = ROOT / "tests" / "data" / "image_folder"
     clip = ROOT / "tests" / "data" / "video_fixtures" / "mp4v_64x48_tex.mp4"
     h264 = ROOT / "tests" / "data" / "video_fixtures" / "h264_64x48_random.avi"
-    out = subprocess.run([sys.executable, "-c", _NO_CARD_RUN, str(folder), str(clip), str(h264)],
+    hevc = ROOT / "tests" / "data" / "video_fixtures" / "hevc_64x48_random.mp4"
+    out = subprocess.run([sys.executable, "-c", _NO_CARD_RUN, str(folder), str(clip), str(h264),
+                          str(hevc)],
                          cwd=tmp_path,
                          env={**__import__("os").environ, "PYTHONPATH": str(ROOT)},
                          capture_output=True, text=True, timeout=600)
@@ -350,6 +357,7 @@ def test_the_cli_path_reaches_no_library_the_card_lacks(tmp_path):
     assert report["folder_frames"] == 3
     assert report["video_frames"] == 3
     assert report["h264_frames"] == [[48, 64, 3]] * 3
+    assert report["hevc_frames"] == [[48, 64, 3]] * 3
     files = [pathlib.Path(m) for m in report["modules"]]
     assert {f.stem for f in files} >= {"run", "dataloader", "png", "native", "export",
                                        "renderer", "checkpoint", "yaml_subset", "ate",

@@ -51,8 +51,8 @@ import struct
 
 import numpy as np
 
-_HOST_SRC = pathlib.Path(__file__).resolve().parents[1] / "mast3r_slam_tpu_torch" / "csrc" \
-    / "host" / "h264.cpp"
+_HOST_DIR = pathlib.Path(__file__).resolve().parents[1] / "mast3r_slam_tpu_torch" / "csrc" / "host"
+_HOST_SRC = _HOST_DIR / "h264.cpp"
 
 
 def _c_array(src: str, name: str) -> list:
@@ -62,7 +62,7 @@ def _c_array(src: str, name: str) -> list:
 
 class _Tables:
     def __init__(self):
-        src = _HOST_SRC.read_text()
+        src = _HOST_SRC.read_text() + (_HOST_DIR / "cabac.h").read_text()
         a = lambda name: _c_array(src, name)  # noqa: E731
         ln, bt = a("COEFF_TOKEN_LEN"), a("COEFF_TOKEN_BITS")
         self.coeff = [list(zip(ln[68 * c:68 * c + 68], bt[68 * c:68 * c + 68])) for c in range(4)]
@@ -2418,7 +2418,7 @@ def write_mp4(path, samples, width: int, height: int, fps: int = 30, *, sync=Non
               matrix=IDENTITY, fourcc: bytes = b"avc1", length_size: int = 4,
               config_in_band: bool = False, brand: bytes = b"isom", tkhd_version: int = 0,
               movie_matrix=IDENTITY, display=None, ctts_version: int = 0,
-              edits="ffmpeg") -> None:
+              edits="ffmpeg", codec=None) -> None:
     """An ISO BMFF file (``brand`` b"qt  " for .mov) of one H.264 track:
     ``samples`` lists of NAL units, stored behind ``length_size``-byte
     lengths; the parameter sets of the first sample go into ``avcC`` (and
@@ -2430,27 +2430,36 @@ def write_mp4(path, samples, width: int, height: int, fps: int = 30, *, sync=Non
     FFmpeg's muxer writes (its media time the first sample's offset), or of
     version 1 unshifted (negative offsets); ``edits`` overrides the edit
     list: None for none, or (segment duration, media time) pairs in movie
-    and track ticks."""
+    and track ticks.  ``codec`` (another codec's writer, as
+    ``torch_hevc_files`` passes it) gives ``is_ps(unit)``, ``is_sync(units)``
+    and ``config(parameter sets, length_size)``, the decoder configuration
+    box, in place of H.264's."""
+    is_ps = codec.is_ps if codec else (lambda u: u[0] & 31 in (7, 8))
     first = samples[0]
-    ps = [u for u in first if u[0] & 31 in (7, 8)]
-    sps_units = [u for u in ps if u[0] & 31 == 7]
-    pps_units = [u for u in ps if u[0] & 31 == 8]
+    ps = [u for u in first if is_ps(u)]
     data = []
     for k, s in enumerate(samples):
-        units = s if config_in_band or k else [u for u in s if u[0] & 31 not in (7, 8)]
+        units = s if config_in_band or k else [u for u in s if not is_ps(u)]
         data.append(length_prefixed(units, length_size))
     if sync is None:
-        sync = [k for k, s in enumerate(samples) if any(u[0] & 31 == 5 for u in s)]
-    sp = sps_units[0]
-    avcc = bytes([1, sp[1], sp[2], sp[3], 0xFC | (length_size - 1), 0xE0 | len(sps_units)])
-    for u in sps_units:
-        avcc += struct.pack(">H", len(u)) + u
-    avcc += bytes([len(pps_units)])
-    for u in pps_units:
-        avcc += struct.pack(">H", len(u)) + u
+        is_sync = codec.is_sync if codec else (lambda s: any(u[0] & 31 == 5 for u in s))
+        sync = [k for k, s in enumerate(samples) if is_sync(s)]
+    if codec:
+        config = codec.config(ps, length_size)
+    else:
+        sps_units = [u for u in ps if u[0] & 31 == 7]
+        pps_units = [u for u in ps if u[0] & 31 == 8]
+        sp = sps_units[0]
+        avcc = bytes([1, sp[1], sp[2], sp[3], 0xFC | (length_size - 1), 0xE0 | len(sps_units)])
+        for u in sps_units:
+            avcc += struct.pack(">H", len(u)) + u
+        avcc += bytes([len(pps_units)])
+        for u in pps_units:
+            avcc += struct.pack(">H", len(u)) + u
+        config = _box(b"avcC", avcc)
     entry = (b"\0" * 6 + struct.pack(">H", 1) + b"\0" * 16 + struct.pack(">HH", width, height)
              + struct.pack(">II", 0x480000, 0x480000) + b"\0" * 4 + struct.pack(">H", 1)
-             + b"\0" * 32 + struct.pack(">Hh", 24, -1) + _box(b"avcC", avcc))
+             + b"\0" * 32 + struct.pack(">Hh", 24, -1) + config)
     stsd = _full(b"stsd", 0, 0, struct.pack(">I", 1) + _box(fourcc, entry))
     n = len(samples)
     stts = _full(b"stts", 0, 0, struct.pack(">III", 1, n, 1))
@@ -2459,7 +2468,7 @@ def write_mp4(path, samples, width: int, height: int, fps: int = 30, *, sync=Non
     stsc = _full(b"stsc", 0, 0, struct.pack(">IIII", 1, 1, n, 1))
     stsz = _full(b"stsz", 0, 0, struct.pack(">II", 0, n) + b"".join(
         struct.pack(">I", len(d)) for d in data))
-    ftyp = _box(b"ftyp", brand + struct.pack(">I", 0x200) + brand + b"avc1")
+    ftyp = _box(b"ftyp", brand + struct.pack(">I", 0x200) + brand + (b"hvc1" if codec else b"avc1"))
     mdat_start = len(ftyp) + 8
     stco = _full(b"stco", 0, 0, struct.pack(">II", 1, mdat_start))
     ctts = b""
