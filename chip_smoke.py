@@ -294,6 +294,18 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      committed 480x640 HEVC clip (32x32 CTBs, WPP), its PNG control's
      frames held to cv2's digests; (c) an IDR and a P picture's decode at
      480x640 and 1920x1080, beside CABAC H.264's, in the same call.
+  24. HEVC B slices and leading pictures on the card's host (x265's
+     default open-GOP B pyramid): (a) every committed B fixture (random B
+     syntax with every tool and RASL/RADL pictures in .mp4, a stream
+     opening with a CRA picture whose RASL pictures are never shown in
+     .mov, BLA pictures in .mp4, RASL pictures in .avi, and the two pans),
+     read as 19a reads them, against cv2's digests
+     (tests/data/hevc_fixtures.json, the hevc_b_ files); (b) 19b over the
+     committed 480x640 clip (hierarchical B pictures, an open-GOP CRA
+     picture with RASL pictures, behind ctts and FFmpeg's edit list), its
+     PNG control's frames held to cv2's digests; (c) an IDR, a P and a B
+     picture's decode at 480x640 and 1920x1080, beside the P-only clips'
+     IDR and P pictures, in the same call.
 
 Phase 2 also holds the two gather probes' kernels (gather_rows_sum,
 take_along_rows, the latter at every slab width of SLAB_SWEEP, timed in
@@ -5338,9 +5350,9 @@ def video_reads(ds, order):
     return out
 
 
-def check_video_fixtures(digest_file="video_fixtures.json", tag="19a", part=None):
+def check_video_fixtures(digest_file="video_fixtures.json", tag="19a", part=None, skip=None):
     """19a (20a, 21a): every committed video fixture (whose name holds
-    ``part``, if given) through the port's MP4Dataset: its sequential
+    ``part``, if given, and not ``skip``) through the port's MP4Dataset: its sequential
     reads, its seeks in the committed order, its reads after subsample(4),
     the frame count and the fps against cv2's
     (tests/data/video_fixtures.json, h264_fixtures.json)."""
@@ -5349,6 +5361,8 @@ def check_video_fixtures(digest_file="video_fixtures.json", tag="19a", part=None
     digests = json.loads((IMAGE_DATA / digest_file).read_text())
     if part is not None:
         digests = {k: v for k, v in digests.items() if part in k}
+    if skip is not None:
+        digests = {k: v for k, v in digests.items() if skip not in k}
     bad, frames = [], 0
     for name, want in sorted(digests.items()):
         path = IMAGE_DATA / name
@@ -5822,7 +5836,7 @@ def run_hevc_input(dev, work, smi):
     from mast3r_slam_tpu_torch.data import png
 
     t0 = time.perf_counter()
-    fixtures = check_video_fixtures("hevc_fixtures.json", "23a")
+    fixtures = check_video_fixtures("hevc_fixtures.json", "23a", skip="hevc_b_")
     if fixtures["files"] < 6:
         raise AssertionError(f"23a: {fixtures['files']} HEVC fixtures, 6 expected")
     digests = json.loads((IMAGE_DATA / "hevc_fixtures.json").read_text())
@@ -5845,6 +5859,121 @@ def run_hevc_input(dev, work, smi):
     log(f"23 HEVC input: a frame decodes in {json.dumps(ms)} ms (host clock); the CLI's "
         f"ingest p50 {cli['ingest_ms_p50']:.2f} ms over the HEVC clip, "
         f"{cli['control_ingest_ms_p50']:.2f} ms over its PNG control; phase 23 "
+        f"{time.perf_counter() - t0:.1f} s; {smi}")
+    return fixtures, cli, decode
+
+
+# ---------------------------------------------------------------------------
+# phase 24: HEVC B slices and leading pictures on the card's host
+# ---------------------------------------------------------------------------
+
+HEVC_B_CLIP = "hevc_b_480x640_smooth.mp4"
+HEVC_B_BIG = "hevc_b_1080x1920_smooth.mp4"
+
+
+def _hevc_picture_kind(sample, length_size):
+    """An HEVC sample's picture: "idr", "cra" or "bla" by its first slice's
+    NAL unit type, else "p" or "b" by its slice_type (read after
+    first_slice_segment_in_pic_flag and slice_pic_parameter_set_id: the
+    smooth streams' PPS has no extra slice header bits)."""
+    at = 0
+    while at + length_size <= len(sample):
+        n = int.from_bytes(sample[at:at + length_size], "big")
+        unit = bytes(sample[at + length_size:at + length_size + n])
+        at += length_size + n
+        typ = (unit[0] >> 1) & 63
+        if typ > 31:
+            continue
+        if 16 <= typ <= 23:
+            return "idr" if typ in (19, 20) else "cra" if typ == 21 else "bla"
+        bits = "".join(format(c, "08b") for c in unit[2:10])
+        pos, vals = 1, []
+        for _ in range(2):  # ue(v)
+            zeros = bits.index("1", pos) - pos
+            vals.append(int(bits[pos + zeros:pos + 2 * zeros + 1], 2) - 1)
+            pos += 2 * zeros + 1
+        return "bpi"[vals[1]]
+    raise AssertionError("24c: a sample without a slice")
+
+
+def _hevc_b_decode_ms(name, passes):
+    """Host milliseconds of each sample's decode, and of the conversion to
+    RGB of the picture it lets out, by the kind of picture decoded (IDR,
+    CRA, P, B: pictures come out in display order, later than they go
+    in), over ``passes`` decodes of the whole file, the held ones drained."""
+    from mast3r_slam_tpu_torch.data import video
+    from mast3r_slam_tpu_torch.utils import native
+
+    data, track = video.read_track(VIDEO_DATA / name)
+    samples = [data[int(a):int(a) + int(n)] for a, n in zip(track.offsets, track.sizes)]
+    kinds = [_hevc_picture_kind(s, track.length_size) for s in samples]
+    ms = {k: [] for k in sorted(set(kinds))}
+    shown = 0
+    for _ in range(passes):
+        dec = native.HevcDecoder(track.config, track.length_size)
+        for i, sample in enumerate(samples):
+            t0 = time.perf_counter()
+            if dec.decode(sample, i) is not None:
+                dec.rgb()
+                shown += 1
+            ms[kinds[i]].append((time.perf_counter() - t0) * 1e3)
+        while dec.drain() is not None:
+            dec.rgb()
+            shown += 1
+        dec.close()
+    if shown != passes * len(samples):
+        raise AssertionError(f"24c: {name} output {shown} of {passes * len(samples)} pictures")
+    return dict({f"{k}_ms": statistics.median(v) for k, v in ms.items()},
+                frame_ms=statistics.median([v for vs in ms.values() for v in vs]),
+                frames=len(samples), pictures={k: kinds.count(k) for k in ms}, passes=passes,
+                file_bytes=len(data))
+
+
+def time_hevc_b_decode():
+    """24c: host milliseconds of an HEVC IDR, P and B picture's decode and
+    conversion to RGB at 480x640 (the 24b clip, 14 frames, a CRA picture
+    among them) and 1920x1080 (an IDR, a P and a B picture), beside the
+    P-only clips' IDR and P pictures (23c's), median over
+    VIDEO_DECODE_PASSES decodes of each file, all in one call."""
+    out = dict(b_480x640=_hevc_b_decode_ms(HEVC_B_CLIP, VIDEO_DECODE_PASSES),
+               b_1080x1920=_hevc_b_decode_ms(HEVC_B_BIG, VIDEO_DECODE_PASSES),
+               p_480x640=_hevc_decode_ms(HEVC_CLIP, VIDEO_DECODE_PASSES),
+               p_1080x1920=_hevc_decode_ms(HEVC_BIG, VIDEO_DECODE_PASSES))
+    log(f"24c decode (host clock): {json.dumps(out)}")
+    return out
+
+
+def run_hevc_b_input(dev, work, smi):
+    """Phase 24 (a)-(c), each checked; raises on any fault."""
+    import hashlib
+
+    from mast3r_slam_tpu_torch.data import png
+
+    t0 = time.perf_counter()
+    fixtures = check_video_fixtures("hevc_fixtures.json", "24a", part="hevc_b_")
+    if fixtures["files"] < 6:
+        raise AssertionError(f"24a: {fixtures['files']} HEVC B fixtures, 6 expected")
+    digests = json.loads((IMAGE_DATA / "hevc_fixtures.json").read_text())
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        cli = run_cli_video(dev, work, clip_name=HEVC_B_CLIP, tag="24b", save="hevc_b")
+    finally:
+        os.chdir(cwd)
+    control = sorted((work / "hevc_b_png").iterdir())
+    cli["control_is_cv2s"] = ([hashlib.sha256(png.read_png(p).tobytes()).hexdigest()
+                               for p in control]
+                              == digests[f"video_fixtures/{HEVC_B_CLIP}"]["frames"])
+    if not cli["control_is_cv2s"]:
+        raise AssertionError("24b: the PNG control's frames are not cv2's by the digests")
+    check_cli_video(cli, "the HEVC B clip", "24b")
+    decode = time_hevc_b_decode()
+    ms = {k: f"{r['frame_ms']:.3f} (" + ", ".join(
+        f"{n.upper()} {r[n + '_ms']:.3f}" for n in ("idr", "cra", "p", "b") if n + "_ms" in r) + ")"
+        for k, r in decode.items()}
+    log(f"24 HEVC B pictures: a frame decodes in {json.dumps(ms)} ms (host clock); the CLI's "
+        f"ingest p50 {cli['ingest_ms_p50']:.2f} ms over the B clip, "
+        f"{cli['control_ingest_ms_p50']:.2f} ms over its PNG control; phase 24 "
         f"{time.perf_counter() - t0:.1f} s; {smi}")
     return fixtures, cli, decode
 
@@ -6115,6 +6244,11 @@ def main() -> int:
     # against its PNG control, the decode timed beside CABAC H.264's; same
     # directory
     hevc_fixtures, hevc_cli, hevc_decode = run_hevc_input(dev, work, smi)
+    # HEVC B slices and leading pictures (x265's open-GOP B pyramid): the
+    # fixtures against cv2's digests, the ViT-L CLI over a B clip with RASL
+    # pictures behind ctts and an edit against its PNG control, the decode
+    # of IDR, P and B pictures timed; same directory
+    hevc_b_fixtures, hevc_b_cli, hevc_b_decode = run_hevc_b_input(dev, work, smi)
 
     common = lambda r: {k: r[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms",
@@ -6136,6 +6270,7 @@ def main() -> int:
              cabac_cli_launches=cabac_cli["launches"]["attention"],
              bframe_cli_launches=bframe_cli["launches"]["attention"],
              hevc_cli_launches=hevc_cli["launches"]["attention"],
+             hevc_b_cli_launches=hevc_b_cli["launches"]["attention"],
              mesh_launches={"vitl_task_2_shards": mtask["launches"]["attention"],
                             "threaded_vitl_ranks": [c["attention"] for c in tranks]}),
         dict(name="refine_window", route="cuda",
@@ -6159,6 +6294,7 @@ def main() -> int:
              cabac_cli_launches=cabac_cli["launches"]["refine_window"],
              bframe_cli_launches=bframe_cli["launches"]["refine_window"],
              hevc_cli_launches=hevc_cli["launches"]["refine_window"],
+             hevc_b_cli_launches=hevc_b_cli["launches"]["refine_window"],
              mesh_launches={"vitl_task_2_shards": mtask["launches"]["refine_window"],
                             "two_process_ranks": [c["refine_window"] for c in mranks],
                             "threaded_vitl_ranks": [c["refine_window"] for c in tranks]},
@@ -6184,6 +6320,7 @@ def main() -> int:
              cabac_cli_launches=cabac_cli["launches"]["edge_hg_rays"],
              bframe_cli_launches=bframe_cli["launches"]["edge_hg_rays"],
              hevc_cli_launches=hevc_cli["launches"]["edge_hg_rays"],
+             hevc_b_cli_launches=hevc_b_cli["launches"]["edge_hg_rays"],
              mesh_launches={"sharded_solve": {k: r["launches"] for k, r in msolve.items()},
                             "two_process_ranks": [c["edge_hg_rays"] for c in mranks],
                             "threaded_vitl_ranks": [c["edge_hg_rays"] for c in tranks],
@@ -6284,7 +6421,9 @@ def main() -> int:
         "bframe_input": {"fixtures": bframe_fixtures, "cli": bframe_cli, "decode": bframe_decode,
                          "card": smi},
         "hevc_input": {"fixtures": hevc_fixtures, "cli": hevc_cli, "decode": hevc_decode,
-                       "card": smi}}
+                       "card": smi},
+        "hevc_b_input": {"fixtures": hevc_b_fixtures, "cli": hevc_b_cli,
+                         "decode": hevc_b_decode, "card": smi}}
     log(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

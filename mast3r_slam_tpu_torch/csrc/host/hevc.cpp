@@ -11,42 +11,60 @@
 // arithmetic decoder is the one H.264 uses (cabac.h); the NAL unit reader
 // is shared too (nal.h).
 //
-// What is decoded: Main profile 8-bit 4:2:0 I and P pictures.  Parameter
-// sets in the decoder configuration (hvcC, or an AVI stream's first sample)
-// or in band, with the VUI's video_full_range_flag and colour description
-// (converted as cv2 converts them), st_ref_pic_set with inter-RPS
-// prediction, the conformance window (right and bottom); slice segment
-// headers with pic_output_flag, the short-term RPS in the SPS or the
-// header, num_ref_idx_active_override, list modification, pred_weight_table,
-// slice QP and chroma QP offsets, the deblocking controls, the SAO flags,
-// collocated_ref_idx and entry points; several slices a picture; CABAC with
+// What is decoded: Main profile 8-bit 4:2:0 I, P and B pictures, with
+// leading pictures: RADL pictures, RASL pictures (left out, neither decoded
+// nor output, where their CRA or BLA picture opens decoding, as libavcodec's
+// max_ra leaves them out: at the stream's start, after a seek's reset, after
+// any BLA picture) and BLA pictures (NoRaslOutputFlag, PicOrderCntMsb 0).
+// Parameter sets in the decoder configuration (hvcC, or an AVI stream's
+// first sample) or in band, with the VUI's video_full_range_flag and colour
+// description (converted as cv2 converts them), st_ref_pic_set with
+// inter-RPS prediction, the conformance window (right and bottom); slice
+// segment headers with pic_output_flag, the short-term RPS in the SPS or the
+// header, num_ref_idx_active_override for both lists, list modification
+// (list_entry_l0/l1), RefPicList0 and RefPicList1, mvd_l1_zero_flag,
+// cabac_init_flag, collocated_from_l0_flag and collocated_ref_idx,
+// pred_weight_table for both lists (weighted_pred_flag in P slices,
+// weighted_bipred_flag in B), slice QP and chroma QP offsets, the deblocking
+// controls, the SAO flags and entry points; several slices a picture, I, P
+// and B slices mixed; for an IRAP picture that opens decoding, the pictures
+// its RPS names generated without samples (8.3.3), as they fill the DPB;
+// CABAC with
 // wavefront parallel processing (the contexts saved after the second CTU
 // of a row, end_of_subset_one_bit); the coding quadtree with CTBs cut by
 // the picture's right and bottom edges; every CU and PU partition (AMP
-// too), cu_skip_flag, merge (spatial, temporal from the collocated
-// picture's 16x16 motion, zero; the parallel merge level) and AMVP; the
+// too), cu_skip_flag, inter_pred_idc, merge (spatial, temporal from the
+// collocated picture's 16x16 motion in either list, combined bi-predictive,
+// zero; the parallel merge level; no bi-prediction for an 8x4 or 4x8 block)
+// and AMVP in both lists (scaled across lists by POC distance); the
 // transform tree with cu_qp_delta, residual_coding with sign data hiding
 // and transform_skip; intra prediction (35 modes, reference substitution,
 // filtering, strong intra smoothing, the DC/H/V boundary filters) under
 // constrained_intra_pred; 8-tap luma and 4-tap chroma interpolation with
-// the picture edge extended, explicit weighted prediction; flat
+// the picture edge extended, the default bi-predictive average (x86's
+// 16-bit saturating sum, as libavcodec's SIMD code sums the two), explicit
+// weighted uni- and bi-prediction; flat
 // dequantisation, the 4x4 DST and 4- to 32-point inverse DCT with 16-bit
-// clipping between stages; the deblocking filter and SAO (band and edge);
+// clipping between stages; the deblocking filter (bS of bi-predicted blocks
+// by reference pictures and both pairings of their vectors, as
+// libavcodec's boundary_strength) and SAO (band and edge);
 // RPS marking and the DPB's output (Decoder::bump: held back by
 // sps_max_num_reorder_pics, sps_max_latency_increase_plus1 and
 // sps_max_dec_pic_buffering, pic_output_flag), drained at the end.
 //
 // What is refused (rc 2, NotImplementedError, naming ROADMAP Queue 1 item
-// 17): B slices, bit depths over 8, chroma formats other than 4:2:0,
-// scaling lists, PCM, transquant bypass, tiles, dependent slice segments,
-// long-term references, range and other SPS/PPS extensions, multi-layer
-// streams (nuh_layer_id > 0), end of sequence or bitstream NAL units,
-// RADL, RASL and BLA pictures, a conformance window cropping the left or
+// 17): bit depths over 8, chroma formats other than 4:2:0, scaling lists,
+// PCM, transquant bypass, tiles, dependent slice segments, long-term
+// references, range and other SPS/PPS extensions, multi-layer streams
+// (nuh_layer_id > 0), end of sequence or bitstream NAL units (and with them
+// a CRA picture after one, which would open decoding), a conformance window
+// cropping the left or
 // top, a picture size or colour that changes, colour descriptions that
 // libswscale maps or refuses, a picture whose first slice disables
 // deblocking by override while a later one enables it (libavcodec then
 // filters with an earlier picture's offsets), a stream that does not start
-// with an IRAP picture, and more than one picture a sample.  Corrupt or truncated data
+// with an IRAP picture (a leading picture first too), and more than one
+// picture a sample.  Corrupt or truncated data
 // and streams the standard does not allow are rc 1 (ValueError):
 // libavcodec would conceal them.
 
@@ -250,12 +268,12 @@ struct Pps {
     bool dependent_slices = false, output_flag_present = false;
     int num_extra_slice_header_bits = 0;
     bool sign_data_hiding = false, cabac_init_present = false;
-    int num_ref_idx_default = 1;
+    int num_ref_idx_default[2] = {1, 1};
     int init_qp = 26;
     bool constrained_intra_pred = false, transform_skip = false, cu_qp_delta = false;
     int diff_cu_qp_delta_depth = 0;
     int cb_qp_offset = 0, cr_qp_offset = 0;
-    bool slice_chroma_qp_offsets_present = false, weighted_pred = false;
+    bool slice_chroma_qp_offsets_present = false, weighted_pred = false, weighted_bipred = false;
     bool entropy_coding_sync = false, loop_filter_across_slices = false;
     bool deblocking_override_enabled = false, deblocking_disabled = false;
     int beta_offset = 0, tc_offset = 0;  // *_div2 * 2
@@ -537,8 +555,8 @@ Pps parse_pps(Bits& b, const Sps* sps_list, int* id) {
     p.num_extra_slice_header_bits = int(b.u(3));
     p.sign_data_hiding = b.flag();
     p.cabac_init_present = b.flag();
-    p.num_ref_idx_default = int(b.ue_max(14, "num_ref_idx_l0_default_active_minus1")) + 1;
-    b.ue_max(14, "num_ref_idx_l1_default_active_minus1");
+    p.num_ref_idx_default[0] = int(b.ue_max(14, "num_ref_idx_l0_default_active_minus1")) + 1;
+    p.num_ref_idx_default[1] = int(b.ue_max(14, "num_ref_idx_l1_default_active_minus1")) + 1;
     p.init_qp = 26 + b.se_range(-26, 25, "init_qp_minus26");
     p.constrained_intra_pred = b.flag();
     p.transform_skip = b.flag();
@@ -549,7 +567,7 @@ Pps parse_pps(Bits& b, const Sps* sps_list, int* id) {
     p.cr_qp_offset = b.se_range(-12, 12, "pps_cr_qp_offset");
     p.slice_chroma_qp_offsets_present = b.flag();
     p.weighted_pred = b.flag();
-    b.flag();  // weighted_bipred_flag (B slices)
+    p.weighted_bipred = b.flag();
     if (b.flag()) refuse("with transquant bypass");
     if (b.flag()) refuse("with tiles");
     p.entropy_coding_sync = b.flag();
@@ -577,7 +595,7 @@ Pps parse_pps(Bits& b, const Sps* sps_list, int* id) {
 
 enum NalType {
     TRAIL_N = 0, TRAIL_R = 1, TSA_N = 2, TSA_R = 3, STSA_N = 4, STSA_R = 5, RADL_N = 6,
-    RADL_R = 7, RASL_N = 8, RASL_R = 9, BLA_W_LP = 16, BLA_N_LP = 18, IDR_W_RADL = 19,
+    RADL_R = 7, RASL_N = 8, RASL_R = 9, BLA_W_LP = 16, BLA_W_RADL = 17, BLA_N_LP = 18, IDR_W_RADL = 19,
     IDR_N_LP = 20, CRA_NUT = 21, VPS_NUT = 32, SPS_NUT = 33, PPS_NUT = 34, AUD_NUT = 35,
     EOS_NUT = 36, EOB_NUT = 37, FD_NUT = 38
 };
@@ -590,13 +608,21 @@ struct Mv {
     bool operator!=(const Mv& o) const { return !(*this == o); }
 };
 
-// the motion of a 4x4 block (P pictures: list 0 only): what merge, AMVP,
-// the deblocking filter and a later picture's TMVP read
+// the motion of a 4x4 block: what merge, AMVP, the deblocking filter and a
+// later picture's TMVP read
 struct Motion {
-    Mv mv;
-    int8_t ref_idx = -1;  // -1: intra, or not decoded
-    int32_t ref_poc = 0;  // the POC of the picture ref_idx names in its slice's list
-    bool same(const Motion& o) const { return ref_idx == o.ref_idx && mv == o.mv; }
+    Mv mv[2];
+    int8_t ref_idx[2] = {-1, -1};
+    int32_t ref_poc[2] = {0, 0};  // the POC of the picture ref_idx names in its slice's list
+    uint8_t pred = 0;             // predFlagL0 | predFlagL1 << 1; 0: intra, or not decoded
+    bool uses(int l) const { return (pred >> l) & 1; }
+    // the same prediction flags, and the same vectors and reference indices where used
+    bool same(const Motion& o) const {
+        if (pred != o.pred) return false;
+        for (int l = 0; l < 2; l++)
+            if (uses(l) && (ref_idx[l] != o.ref_idx[l] || mv[l] != o.mv[l])) return false;
+        return true;
+    }
 };
 
 struct Frame {
@@ -605,6 +631,7 @@ struct Frame {
     std::vector<Motion> motion;  // by 4x4 block, raster
     int poc = 0;
     bool ref = false, output = false;  // short-term reference; needed for output
+    bool missing = false;  // generated for the RPS of an IRAP picture that opens decoding (8.3.3): no samples
     int latency = 0;                    // PicLatencyCount
     int64_t sample = -1;                // the sample it came in
     int crop_right = 0, crop_bottom = 0;
@@ -624,24 +651,25 @@ struct Sao {
 
 struct Slice {
     int address = 0;  // slice_segment_address (SliceAddrRs: no dependent segments)
-    int type = 2;     // 1 P, 2 I
+    int type = 2;     // 0 B, 1 P, 2 I
     bool pic_output = true;  // the picture's (pic_output_flag)
     bool temporal_mvp = false, sao_luma = false, sao_chroma = false;
-    int num_ref = 0;
-    int list[16];       // RefPicList0 as indices into the decoder's DPB
-    int ref_poc[16];
-    bool cabac_init = false;
-    int collocated_ref_idx = 0;
+    int num_ref[2] = {0, 0};
+    int list[2][16];     // RefPicList0/1 as indices into the decoder's DPB
+    int ref_poc[2][16];
+    bool mvd_l1_zero = false, cabac_init = false;
+    int collocated_list = 0, collocated_ref_idx = 0;
+    bool no_backward = true;  // NoBackwardPredFlag: no reference after the picture in output order
     int max_merge = 5;
     int qp = 26, cb_qp_offset = 0, cr_qp_offset = 0;
     bool deblocking_disabled = false, lf_across = false;
     int beta_offset = 0, tc_offset = 0;
     int num_entry = 0;
     std::vector<int64_t> entry_size;
-    // explicit weighted prediction (P): log2WD-6 denominators, weights, offsets by reference
+    // explicit weighted prediction: log2WD-6 denominators, weights, offsets by list and reference
     bool weighted = false;
     int luma_denom = 0, chroma_denom = 0;
-    int lw[16], lo[16], cw[16][2], co[16][2];
+    int lw[2][16], lo[2][16], cw[2][16][2], co[2][16][2];
 };
 
 // MinTbAddrZs at 4x4 granularity (6.5.2): the CTB's raster address, then
@@ -754,7 +782,6 @@ struct Decoder {
             } else if (t == EOS_NUT || t == EOB_NUT) {
                 refuse("with end of sequence or bitstream NAL units");
             } else if (t <= 31) {
-                if ((t >= 6 && t <= 9) || (t >= 16 && t <= 18)) refuse("RADL, RASL or BLA pictures");
                 if (t > 21 || (t > 9 && t < 16)) continue;  // reserved: skipped as libavcodec skips them
                 unescape(nal.ref.p + 2, nal.ref.n - 2, rbsp, &removed);
                 Bits b(rbsp.data(), int64_t(rbsp.size()));
@@ -777,6 +804,9 @@ struct Decoder {
 
     // -- the slice segment header (7.3.6) ------------------------------------------
 
+    static bool is_bla(int type) { return type >= BLA_W_LP && type <= BLA_N_LP; }
+    static bool is_rasl(int type) { return type == RASL_N || type == RASL_R; }
+
     void slice_nal(Bits& b, int type, int tid, bool* have_pic) {
         bool first = b.flag();
         bool irap = is_irap(type), idr = type == IDR_W_RADL || type == IDR_N_LP;
@@ -785,10 +815,12 @@ struct Decoder {
         if (!pps_list[pps_id].valid) fail(CORRUPT, "a slice of PPS %d, not received", pps_id);
         if (first) {
             stale_first = false;
+            skipping = false;
             if (*have_pic || cur_done) refuse("with more than one picture a sample");
             if (!started && !irap) refuse("streams that do not start with an IRAP picture");
             activate(pps_list[pps_id]);
         } else {
+            if (skipping) return;  // a slice of a RASL picture left out
             if (!*have_pic) fail(CORRUPT, "a slice segment without the picture's first");
             if (pps_id != active_pps_id) fail(CORRUPT, "slices of one picture under two PPSs");
         }
@@ -805,7 +837,7 @@ struct Decoder {
         }
         b.u(P.num_extra_slice_header_bits);
         s.type = int(b.ue_max(2, "slice_type"));
-        if (s.type == 0) refuse("B slices");
+        if (irap && s.type != 2) fail(CORRUPT, "an IRAP picture with a P or B slice");
         if (P.output_flag_present) s.pic_output = b.flag();
         int poc_lsb = 0;
         StRps rps;
@@ -825,45 +857,80 @@ struct Decoder {
             }
             if (S.temporal_mvp) s.temporal_mvp = b.flag();
         }
+        if (first) {
+            int poc = picture_order(type, poc_lsb);
+            // libavcodec's max_ra: the RASL pictures of a CRA or BLA picture
+            // that opens decoding (the stream's first, after a seek's flush, or
+            // any BLA) are neither decoded nor output
+            if (idr || is_bla(type)) max_ra = INT_MAX;
+            if (max_ra == INT_MAX) {
+                if (type == CRA_NUT || is_bla(type)) max_ra = poc;
+                else if (idr) max_ra = INT_MIN;
+            }
+            if (is_rasl(type) && poc <= max_ra) {
+                skipping = true;
+                return;
+            }
+            if (type == RASL_R && poc > max_ra) max_ra = INT_MIN;
+            start_picture(type, tid, poc, rps, s.pic_output, no_output_of_prior);
+        }
         if (S.sao) {
             s.sao_luma = b.flag();
             s.sao_chroma = b.flag();
         }
-        if (first) start_picture(type, tid, poc_lsb, rps, s.pic_output, no_output_of_prior);
-        if (s.type == 1) {
-            s.num_ref = P.num_ref_idx_default;
-            if (b.flag()) s.num_ref = int(b.ue_max(14, "num_ref_idx_l0_active_minus1")) + 1;
+        if (s.type != 2) {
+            int nl = s.type == 0 ? 2 : 1;
+            s.num_ref[0] = P.num_ref_idx_default[0];
+            if (nl == 2) s.num_ref[1] = P.num_ref_idx_default[1];
+            if (b.flag()) {  // num_ref_idx_active_override_flag
+                s.num_ref[0] = int(b.ue_max(14, "num_ref_idx_l0_active_minus1")) + 1;
+                if (nl == 2) s.num_ref[1] = int(b.ue_max(14, "num_ref_idx_l1_active_minus1")) + 1;
+            }
             int total = int(curr_before.size() + curr_after.size());
-            if (!total) fail(CORRUPT, "a P slice without reference pictures");
-            int entries[16];
-            bool modified = false;
+            if (!total) fail(CORRUPT, "a P or B slice without reference pictures");
+            int entries[2][16];
+            bool modified[2] = {false, false};
             if (P.lists_modification_present && total > 1) {
-                modified = b.flag();
-                if (modified) {
-                    int bits_n = 0;
-                    while ((1 << bits_n) < total) bits_n++;
-                    for (int i = 0; i < s.num_ref; i++) {
-                        entries[i] = int(b.u(bits_n));
-                        if (entries[i] >= total) fail(CORRUPT, "list_entry_l0 %d", entries[i]);
-                    }
+                int bits_n = 0;
+                while ((1 << bits_n) < total) bits_n++;
+                for (int l = 0; l < nl; l++) {
+                    modified[l] = b.flag();
+                    if (modified[l])
+                        for (int i = 0; i < s.num_ref[l]; i++) {
+                            entries[l][i] = int(b.u(bits_n));
+                            if (entries[l][i] >= total) fail(CORRUPT, "list_entry_l%d %d", l, entries[l][i]);
+                        }
                 }
             }
-            // RefPicList0 (8.3.4): StCurrBefore then StCurrAfter, repeated
-            int temp[32], nt = std::max(s.num_ref, total), k = 0;
-            while (k < nt) {
-                for (int v : curr_before)
-                    if (k < nt) temp[k++] = v;
-                for (int v : curr_after)
-                    if (k < nt) temp[k++] = v;
+            // RefPicList0 (8.3.4): StCurrBefore then StCurrAfter, repeated;
+            // RefPicList1: StCurrAfter then StCurrBefore
+            for (int l = 0; l < nl; l++) {
+                int temp[32], nt = std::max(s.num_ref[l], total), k = 0;
+                const std::vector<int>& a = l ? curr_after : curr_before;
+                const std::vector<int>& c = l ? curr_before : curr_after;
+                while (k < nt) {
+                    for (int v : a)
+                        if (k < nt) temp[k++] = v;
+                    for (int v : c)
+                        if (k < nt) temp[k++] = v;
+                }
+                for (int i = 0; i < s.num_ref[l]; i++) {
+                    s.list[l][i] = temp[modified[l] ? entries[l][i] : i];
+                    const Frame& r = *dpb[size_t(s.list[l][i])];
+                    if (r.missing) fail(CORRUPT, "a reference picture of POC %d missing", r.poc);
+                    s.ref_poc[l][i] = r.poc;
+                    if (r.poc > cur->poc) s.no_backward = false;
+                }
             }
-            for (int i = 0; i < s.num_ref; i++) {
-                s.list[i] = temp[modified ? entries[i] : i];
-                s.ref_poc[i] = dpb[size_t(s.list[i])]->poc;
-            }
+            if (nl == 2) s.mvd_l1_zero = b.flag();
             if (P.cabac_init_present) s.cabac_init = b.flag();
-            if (s.temporal_mvp && s.num_ref > 1)
-                s.collocated_ref_idx = int(b.ue_max(uint32_t(s.num_ref - 1), "collocated_ref_idx"));
-            if (P.weighted_pred) pred_weight_table(b, s);
+            if (s.temporal_mvp) {
+                if (nl == 2) s.collocated_list = b.flag() ? 0 : 1;  // collocated_from_l0_flag
+                if (s.num_ref[s.collocated_list] > 1)
+                    s.collocated_ref_idx =
+                        int(b.ue_max(uint32_t(s.num_ref[s.collocated_list] - 1), "collocated_ref_idx"));
+            }
+            if ((P.weighted_pred && s.type == 1) || (P.weighted_bipred && s.type == 0)) pred_weight_table(b, s);
             s.max_merge = 5 - int(b.ue_max(4, "five_minus_max_num_merge_cand"));
         }
         s.qp = P.init_qp + b.se_range(-P.init_qp, 51 - P.init_qp, "slice_qp_delta");
@@ -917,29 +984,33 @@ struct Decoder {
         sh = &slices.back();
         slice_data(b);
     }
+    bool skipping = false;  // the picture is a RASL picture left out
+    int max_ra = INT_MAX;
 
     void pred_weight_table(Bits& b, Slice& s) {
         s.weighted = true;
         s.luma_denom = int(b.ue_max(7, "luma_log2_weight_denom"));
         s.chroma_denom = s.luma_denom + b.se();
         if (s.chroma_denom < 0 || s.chroma_denom > 7) fail(CORRUPT, "ChromaLog2WeightDenom %d", s.chroma_denom);
-        bool lf[16], cf[16];
-        for (int i = 0; i < s.num_ref; i++) lf[i] = b.flag();
-        for (int i = 0; i < s.num_ref; i++) cf[i] = b.flag();
-        for (int i = 0; i < s.num_ref; i++) {
-            s.lw[i] = 1 << s.luma_denom;
-            s.lo[i] = 0;
-            if (lf[i]) {
-                s.lw[i] += b.se_range(-128, 127, "delta_luma_weight_l0");
-                s.lo[i] = b.se_range(-128, 127, "luma_offset_l0");
-            }
-            for (int j = 0; j < 2; j++) {
-                s.cw[i][j] = 1 << s.chroma_denom;
-                s.co[i][j] = 0;
-                if (cf[i]) {
-                    s.cw[i][j] += b.se_range(-128, 127, "delta_chroma_weight_l0");
-                    int delta = b.se_range(-512, 511, "delta_chroma_offset_l0");
-                    s.co[i][j] = clip3(-128, 127, (128 + delta - ((128 * s.cw[i][j]) >> s.chroma_denom)));
+        for (int l = 0; l < (s.type == 0 ? 2 : 1); l++) {
+            bool lf[16], cf[16];
+            for (int i = 0; i < s.num_ref[l]; i++) lf[i] = b.flag();
+            for (int i = 0; i < s.num_ref[l]; i++) cf[i] = b.flag();
+            for (int i = 0; i < s.num_ref[l]; i++) {
+                s.lw[l][i] = 1 << s.luma_denom;
+                s.lo[l][i] = 0;
+                if (lf[i]) {
+                    s.lw[l][i] += b.se_range(-128, 127, "delta_luma_weight");
+                    s.lo[l][i] = b.se_range(-128, 127, "luma_offset");
+                }
+                for (int j = 0; j < 2; j++) {
+                    s.cw[l][i][j] = 1 << s.chroma_denom;
+                    s.co[l][i][j] = 0;
+                    if (cf[i]) {
+                        s.cw[l][i][j] += b.se_range(-128, 127, "delta_chroma_weight");
+                        int delta = b.se_range(-512, 511, "delta_chroma_offset");
+                        s.co[l][i][j] = clip3(-128, 127, (128 + delta - ((128 * s.cw[l][i][j]) >> s.chroma_denom)));
+                    }
                 }
             }
         }
@@ -968,25 +1039,33 @@ struct Decoder {
             if (&pps_list[i] == &p) active_pps_id = i;
     }
 
-    void start_picture(int type, int tid, int poc_lsb, const StRps& rps, bool pic_output,
-                       bool no_output_of_prior) {
+    // PicOrderCntVal (8.3.1): PicOrderCntMsb 0 for an IRAP picture with
+    // NoRaslOutputFlag (an IDR or BLA picture, a CRA picture that opens
+    // decoding), else from prevTid0Pic
+    int picture_order(int type, int poc_lsb) const {
+        bool idr = type == IDR_W_RADL || type == IDR_N_LP;
+        if (idr || is_bla(type) || (type == CRA_NUT && !started)) return poc_lsb;
+        int max_lsb = 1 << sps.log2_max_poc_lsb;
+        int prev_lsb = prev_tid0_poc & (max_lsb - 1), prev_msb = prev_tid0_poc - prev_lsb;
+        if (poc_lsb < prev_lsb && prev_lsb - poc_lsb >= max_lsb / 2) return prev_msb + max_lsb + poc_lsb;
+        if (poc_lsb > prev_lsb && poc_lsb - prev_lsb > max_lsb / 2) return prev_msb - max_lsb + poc_lsb;
+        return prev_msb + poc_lsb;
+    }
+
+    void start_picture(int type, int tid, int poc, const StRps& rps, bool pic_output, bool no_output_of_prior) {
         bool irap = is_irap(type), idr = type == IDR_W_RADL || type == IDR_N_LP;
-        // NoRaslOutputFlag: every IDR, and a CRA that opens the stream or follows a reset
-        bool no_rasl = irap && (idr || !started);
-        int max_lsb = 1 << sps.log2_max_poc_lsb, msb = 0;
-        if (!(irap && no_rasl)) {
-            int prev_lsb = prev_tid0_poc & (max_lsb - 1), prev_msb = prev_tid0_poc - prev_lsb;
-            if (poc_lsb < prev_lsb && prev_lsb - poc_lsb >= max_lsb / 2) msb = prev_msb + max_lsb;
-            else if (poc_lsb > prev_lsb && poc_lsb - prev_lsb > max_lsb / 2) msb = prev_msb - max_lsb;
-            else msb = prev_msb;
-        }
-        int poc = msb + poc_lsb;
-        bool sub_layer_nonref = type <= 14 && !(type & 1);
+        // NoRaslOutputFlag: every IDR and BLA picture, and a CRA picture that
+        // opens the stream or follows a reset
+        bool no_rasl = irap && (idr || is_bla(type) || !started);
+        // prevTid0Pic: not a RASL, RADL or sub-layer non-reference picture
+        bool sub_layer_nonref = (type <= 14 && !(type & 1)) || (type >= RADL_N && type <= RASL_R);
         if (tid == 0 && !sub_layer_nonref) prev_tid0_poc = poc;
-        // RPS marking (8.3.2): what the set does not name is no longer a reference
+        // RPS marking (8.3.2): what the set does not name is no longer a
+        // reference; after an IRAP picture with NoRaslOutputFlag none is, and
+        // the pictures its set names are generated, without samples (8.3.3)
         curr_before.clear();
         curr_after.clear();
-        if (idr) {
+        if (no_rasl) {
             for (auto& f : dpb) f->ref = false;
         } else {
             std::vector<bool> keep(dpb.size(), false);
@@ -1013,6 +1092,14 @@ struct Decoder {
             }
         }
         compact_dpb();
+        if (no_rasl && !idr)
+            for (int i = 0; i < rps.count(); i++) {
+                if (rps.used[i]) fail(CORRUPT, "an IRAP picture predicted from another");
+                auto g = std::make_shared<Frame>();
+                g->poc = poc + rps.delta_poc[i];
+                g->ref = g->missing = true;
+                dpb.push_back(g);
+            }
         while (true) {
             int waiting = 0, late = 0;
             for (auto& f : dpb) {
@@ -1122,6 +1209,7 @@ struct Decoder {
         started = false;
         prev_tid0_poc = 0;
         cur_done = false;
+        max_ra = INT_MAX;
     }
 
     // -- slice data (7.3.8.1) --------------------------------------------------------
@@ -1141,7 +1229,8 @@ struct Decoder {
     }
 
     void init_contexts() {
-        int init_type = sh->type == 2 ? 0 : sh->cabac_init ? 2 : 1;
+        // initType (9.3.2.2): 0 I; P 1, or 2 with cabac_init_flag; B 2, or 1 with it
+        int init_type = sh->type == 2 ? 0 : (sh->type == 1) == sh->cabac_init ? 2 : 1;
         int q = clip3(0, 51, sh->qp);
         for (int i = 0; i < NUM_CTX; i++) {
             int v = CTX_INIT[init_type][i];
@@ -1521,20 +1610,25 @@ struct Decoder {
         bool a;
         if (!same_cb) a = avail(xp, yp, xn, yn);
         else a = !((w << 1) == ncb && (h << 1) == ncb && part_idx == 1 && yc + h <= yn && xc + w > xn);
-        return a && mot(xn, yn).ref_idx >= 0;
+        return a && mot(xn, yn).pred;
     }
 
-    // the temporal candidate (8.5.3.2.8): the collocated picture's compressed motion
-    bool temporal(int xp, int yp, int w, int h, int ref_idx, Mv* out) {
+    // the temporal candidate (8.5.3.2.8) for list X: the collocated picture's
+    // compressed motion, its list chosen as libavcodec's
+    // derive_temporal_colocated_mvs chooses it
+    bool temporal(int xp, int yp, int w, int h, int ref_idx, int X, Mv* out) {
         if (!sh->temporal_mvp) return false;
-        const Frame& col = *dpb[size_t(sh->list[sh->collocated_ref_idx])];
-        int target = sh->ref_poc[ref_idx];
+        const Frame& col = *dpb[size_t(sh->list[sh->collocated_list][sh->collocated_ref_idx])];
+        int target = sh->ref_poc[X][ref_idx];
         auto from = [&](int x, int y) {
             const Motion& m = col.mot((x >> 4) << 4, (y >> 4) << 4);
-            if (m.ref_idx < 0) return false;
-            int col_diff = col.poc - m.ref_poc, cur_diff = cur->poc - target;
-            *out = m.mv;
-            if (col_diff != cur_diff) scale(out, col_diff, cur_diff);
+            if (!m.pred) return false;
+            // one list: that one; both: list X when no reference follows the
+            // picture (NoBackwardPredFlag), else the list collocated_from_l0_flag names
+            int l = m.pred != 3 ? m.pred - 1 : sh->no_backward ? X : sh->collocated_list ? 0 : 1;
+            int col_diff = col.poc - m.ref_poc[l], cur_diff = cur->poc - target;
+            *out = m.mv[l];
+            if (col_diff != cur_diff && col_diff) scale(out, col_diff, cur_diff);
             return true;
         };
         int xbr = xp + w, ybr = yp + h;
@@ -1555,16 +1649,25 @@ struct Decoder {
         mv->y = int16_t(clip3(-32768, 32767, (y + 127 + (y < 0)) >> 8));
     }
 
+    // the candidate's reference POCs from the slice's lists
+    void set_pocs(Motion& m) const {
+        for (int l = 0; l < 2; l++)
+            if (m.uses(l)) m.ref_poc[l] = sh->ref_poc[l][m.ref_idx[l]];
+    }
+
+    // the merge candidate list (8.5.3.2.2-8.5.3.2.5) as libavcodec builds it
     Motion merge(int xc, int yc, int ncb, int xp, int yp, int w, int h, int part_idx, int merge_idx) {
         int plevel = pps.log2_parallel_merge_level;
+        int orig_w = w, orig_h = h;
         if (plevel > 2 && ncb == 8) {  // singleMCLFlag
             xp = xc;
             yp = yc;
             w = h = ncb;
             part_idx = 0;
         }
-        Motion cand[5];
-        int n = 0;
+        bool b_slice = sh->type == 0;
+        Motion cand[6];
+        int n = 0, max = sh->max_merge;
         auto same_mer = [&](int xn, int yn) { return (xp >> plevel) == (xn >> plevel) && (yp >> plevel) == (yn >> plevel); };
         auto get = [&](int xn, int yn, bool excluded, const Motion** m) {
             *m = nullptr;
@@ -1592,64 +1695,107 @@ struct Decoder {
         if (fb0) cand[n++] = *b0;
         if (fa0) cand[n++] = *a0;
         if (fb2) cand[n++] = *b2;
-        if (merge_idx < n) return cand[merge_idx];
-        Mv col;
-        if (temporal(xp, yp, w, h, 0, &col)) {
-            if (merge_idx == n) {
-                Motion m;
-                m.mv = col;
-                m.ref_idx = 0;
-                m.ref_poc = sh->ref_poc[0];
-                return m;
+        if (merge_idx >= n && n < max) {
+            Mv col[2];
+            bool c0 = temporal(xp, yp, w, h, 0, 0, &col[0]);
+            bool c1 = b_slice && temporal(xp, yp, w, h, 0, 1, &col[1]);
+            if (c0 || c1) {
+                Motion& m = cand[n++];
+                m = Motion();
+                m.pred = uint8_t(c0 | (c1 << 1));
+                for (int l = 0; l < 2; l++)
+                    if (m.uses(l)) {
+                        m.ref_idx[l] = 0;
+                        m.mv[l] = col[l];
+                    }
+                set_pocs(m);
             }
-            n++;
         }
-        // zero candidates (P slices: no combined bi-predictive ones)
-        int zero = merge_idx - n;
-        Motion m;
-        m.ref_idx = int8_t(zero < sh->num_ref ? zero : 0);
-        m.ref_poc = sh->ref_poc[m.ref_idx];
+        // combined bi-predictive candidates (8.5.3.2.4), l0CandIdx and
+        // l1CandIdx by combIdx as Table 8-7 orders them
+        static const int L0_CAND[12] = {0, 1, 0, 2, 1, 2, 0, 3, 1, 3, 2, 3};
+        static const int L1_CAND[12] = {1, 0, 2, 0, 2, 1, 3, 0, 3, 1, 3, 2};
+        int orig = n;
+        if (merge_idx >= n && b_slice && orig > 1 && orig < max)
+            for (int k = 0; n < max && k < orig * (orig - 1); k++) {
+                const Motion &l0 = cand[L0_CAND[k]], &l1 = cand[L1_CAND[k]];
+                if (l0.uses(0) && l1.uses(1) && (l0.ref_poc[0] != l1.ref_poc[1] || l0.mv[0] != l1.mv[1])) {
+                    Motion& m = cand[n++];
+                    m = Motion();
+                    m.pred = 3;
+                    m.ref_idx[0] = l0.ref_idx[0];
+                    m.ref_idx[1] = l1.ref_idx[1];
+                    m.mv[0] = l0.mv[0];
+                    m.mv[1] = l1.mv[1];
+                    set_pocs(m);
+                }
+            }
+        // zero candidates (8.5.3.2.5)
+        int num_zero = b_slice ? std::min(sh->num_ref[0], sh->num_ref[1]) : sh->num_ref[0];
+        for (int zero = 0; merge_idx >= n && n < max; zero++) {
+            Motion& m = cand[n++];
+            m = Motion();
+            m.pred = b_slice ? 3 : 1;
+            for (int l = 0; l < 2; l++)
+                if (m.uses(l)) m.ref_idx[l] = int8_t(zero < num_zero ? zero : 0);
+            set_pocs(m);
+        }
+        Motion m = cand[merge_idx];
+        if (m.pred == 3 && orig_w + orig_h == 12) {  // no bi-prediction for an 8x4 or 4x8 block
+            m.pred = 1;
+            m.ref_idx[1] = -1;
+        }
         return m;
     }
 
-    Mv amvp(int xc, int yc, int ncb, int xp, int yp, int w, int h, int part_idx, int ref_idx, int mvp_flag) {
-        int target = sh->ref_poc[ref_idx];
+    // the motion vector predictor of list X (8.5.3.2.6-8.5.3.2.7) as
+    // libavcodec's ff_hevc_luma_mv_mvp_mode derives it
+    Mv amvp(int xc, int yc, int ncb, int xp, int yp, int w, int h, int part_idx, int X, int ref_idx, int mvp_flag) {
+        int Y = !X, target = sh->ref_poc[X][ref_idx];
         auto av = [&](int xn, int yn) { return pb_avail(xc, yc, ncb, xp, yp, w, h, part_idx, xn, yn); };
+        // a neighbour predicting from the target picture, by list X then Y
+        auto same = [&](int xn, int yn, Mv* out) {
+            const Motion& m = mot(xn, yn);
+            for (int l : {X, Y})
+                if (m.uses(l) && m.ref_poc[l] == target) {
+                    *out = m.mv[l];
+                    return true;
+                }
+            return false;
+        };
+        // any of its vectors, by list X then Y, scaled by POC distance
+        auto scaled = [&](int xn, int yn, Mv* out) {
+            const Motion& m = mot(xn, yn);
+            int l = m.uses(X) ? X : Y;
+            *out = m.mv[l];
+            if (m.ref_poc[l] != target) {
+                int td = cur->poc - m.ref_poc[l];
+                scale(out, td ? td : 1, cur->poc - target);
+            }
+        };
         int ax[2] = {xp - 1, xp - 1}, ay[2] = {yp + h, yp + h - 1};
         bool aa[2] = {av(ax[0], ay[0]), av(ax[1], ay[1])};
-        bool scaled = aa[0] || aa[1];
+        bool is_scaled = aa[0] || aa[1];
         bool fa = false, fb = false;
         Mv mva, mvb;
-        for (int k = 0; k < 2 && !fa; k++)
-            if (aa[k] && mot(ax[k], ay[k]).ref_poc == target) {
-                mva = mot(ax[k], ay[k]).mv;
-                fa = true;
-            }
+        for (int k = 0; k < 2 && !fa; k++) fa = aa[k] && same(ax[k], ay[k], &mva);
         for (int k = 0; k < 2 && !fa; k++)
             if (aa[k]) {
-                const Motion& m = mot(ax[k], ay[k]);
-                mva = m.mv;
-                if (m.ref_poc != target) scale(&mva, cur->poc - m.ref_poc, cur->poc - target);
+                scaled(ax[k], ay[k], &mva);
                 fa = true;
             }
         int bx[3] = {xp + w, xp + w - 1, xp - 1}, by[3] = {yp - 1, yp - 1, yp - 1};
         bool ba[3] = {av(bx[0], by[0]), av(bx[1], by[1]), av(bx[2], by[2])};
-        for (int k = 0; k < 3 && !fb; k++)
-            if (ba[k] && mot(bx[k], by[k]).ref_poc == target) {
-                mvb = mot(bx[k], by[k]).mv;
-                fb = true;
-            }
-        if (!scaled && fb) {
+        for (int k = 0; k < 3 && !fb; k++) fb = ba[k] && same(bx[k], by[k], &mvb);
+        if (!is_scaled && fb) {
             fa = true;
             mva = mvb;
         }
-        if (!scaled) {
+        if (!is_scaled) {
             fb = false;
             for (int k = 0; k < 3 && !fb; k++)
                 if (ba[k]) {
-                    const Motion& m = mot(bx[k], by[k]);
-                    mvb = m.mv;
-                    if (m.ref_poc != target) scale(&mvb, cur->poc - m.ref_poc, cur->poc - target);
+                    scaled(bx[k], by[k], &mvb);
                     fb = true;
                 }
         }
@@ -1659,7 +1805,7 @@ struct Decoder {
         if (fb && (!fa || mva != mvb)) list[n++] = mvb;
         if (n < 2 && mvp_flag == n) {
             Mv col;
-            if (temporal(xp, yp, w, h, ref_idx, &col)) list[n++] = col;
+            if (temporal(xp, yp, w, h, ref_idx, X, &col)) list[n++] = col;
         }
         while (n < 2) list[n++] = Mv();
         return list[mvp_flag];
@@ -1677,6 +1823,26 @@ struct Decoder {
         return byp() ? -v : v;
     }
 
+    Mv mvd_coding() {  // 7.3.8.9
+        bool g0x = dec(MVD_GT0), g0y = dec(MVD_GT0);
+        bool g1x = g0x && dec(MVD_GT1), g1y = g0y && dec(MVD_GT1);
+        Mv d;
+        d.x = int16_t(uint16_t(mvd_component(g0x, g1x)));
+        d.y = int16_t(uint16_t(mvd_component(g0y, g1y)));
+        return d;
+    }
+
+    int ref_idx(int num_ref) {
+        int ref = 0;
+        if (num_ref > 1) {
+            int max = num_ref - 1;
+            while (ref < std::min(max, 2) && dec(REF_IDX + ref)) ref++;
+            if (ref == 2)
+                while (ref < max && byp()) ref++;
+        }
+        return ref;
+    }
+
     void prediction_unit(int xc, int yc, int log2, int xp, int yp, int w, int h, int part_idx) {
         int ncb = 1 << log2;
         Motion m;
@@ -1690,22 +1856,26 @@ struct Decoder {
             if (part == PART_2Nx2N) merge_2nx2n = true;
             m = merge(xc, yc, ncb, xp, yp, w, h, part_idx, idx);
         } else {
-            int ref = 0;
-            if (sh->num_ref > 1) {
-                int max = sh->num_ref - 1;
-                while (ref < std::min(max, 2) && dec(REF_IDX + ref)) ref++;
-                if (ref == 2)
-                    while (ref < max && byp()) ref++;
+            // inter_pred_idc (9.3.4.2.2): one bin for an 8x4 or 4x8 block (no
+            // bi-prediction), else a first by the CU's depth
+            int dir = 1;  // 1 PRED_L0, 2 PRED_L1, 3 PRED_BI
+            if (sh->type == 0) {
+                if (w + h != 12 && dec(INTER_PRED + B(xc, yc).depth)) dir = 3;
+                else dir = 1 + dec(INTER_PRED + 4);
             }
-            bool g0x = dec(MVD_GT0), g0y = dec(MVD_GT0);
-            bool g1x = g0x && dec(MVD_GT1), g1y = g0y && dec(MVD_GT1);
-            int dx = mvd_component(g0x, g1x), dy = mvd_component(g0y, g1y);
-            int flag = dec(MVP_FLAG);
-            Mv p = amvp(xc, yc, ncb, xp, yp, w, h, part_idx, ref, flag);
-            m.ref_idx = int8_t(ref);
-            m.ref_poc = sh->ref_poc[ref];
-            m.mv.x = int16_t(uint16_t(p.x + dx));  // (mvp + mvd) mod 2^16 (8.5.3.2.1)
-            m.mv.y = int16_t(uint16_t(p.y + dy));
+            for (int l = 0; l < 2; l++) {
+                if (!((dir >> l) & 1)) continue;
+                int ref = ref_idx(sh->num_ref[l]);
+                Mv d;
+                if (!(l == 1 && dir == 3 && sh->mvd_l1_zero)) d = mvd_coding();
+                int flag = dec(MVP_FLAG);
+                Mv pr = amvp(xc, yc, ncb, xp, yp, w, h, part_idx, l, ref, flag);
+                m.ref_idx[l] = int8_t(ref);
+                m.mv[l].x = int16_t(uint16_t(pr.x + d.x));  // (mvp + mvd) mod 2^16 (8.5.3.2.1)
+                m.mv[l].y = int16_t(uint16_t(pr.y + d.y));
+            }
+            m.pred = uint8_t(dir);
+            set_pocs(m);
         }
         for (int y = yp; y < yp + h; y += 4)
             for (int x = xp; x < xp + w; x += 4) cur->motion[size_t(y >> 2) * w4 + (x >> 2)] = m;
@@ -1716,68 +1886,99 @@ struct Decoder {
 
     // -- inter prediction samples (8.5.3.3) --------------------------------------------
 
+    // the 14-bit prediction of component c's block from `ref` at vector mv:
+    // 8-tap luma and 4-tap chroma filters, the picture's edge extended;
+    // the separable case's second stage saturated to 16 bits as x86's
+    // packssdw leaves it
+    static void predict(const Frame& ref, Mv mv, int c, int xp, int yp, int w, int h, int16_t* pred) {
+        static thread_local int16_t tmp[(64 + 7) * 64], blk[(64 + 7) * (64 + 7)];
+        int sub = c ? 1 : 0;
+        int bw = w >> sub, bh = h >> sub, W = ref.stride(c), H = c ? ref.h / 2 : ref.h;
+        int frac_bits = c ? 3 : 2, taps = c ? 4 : 8, back = c ? 1 : 3;
+        int mx = mv.x, my = mv.y;
+        int fx = mx & ((1 << frac_bits) - 1), fy = my & ((1 << frac_bits) - 1);
+        int x0 = (xp >> sub) + (mx >> frac_bits), y0 = (yp >> sub) + (my >> frac_bits);
+        const uint8_t* src = ref.px[c].data();
+        int pw = bw + taps - 1, ph = bh + taps - 1;
+        for (int y = 0; y < ph; y++) {
+            const uint8_t* row = src + size_t(clip3(0, H - 1, y0 + y - back)) * W;
+            for (int x = 0; x < pw; x++) blk[y * pw + x] = row[clip3(0, W - 1, x0 + x - back)];
+        }
+        const int16_t* org = blk + back * pw + back;  // the block's own top-left sample
+        const int* fxs = c ? CHROMA_FILTER[fx] : LUMA_FILTER[fx];
+        const int* fys = c ? CHROMA_FILTER[fy] : LUMA_FILTER[fy];
+        if (!fx && !fy) {
+            for (int y = 0; y < bh; y++)
+                for (int x = 0; x < bw; x++) pred[y * bw + x] = int16_t(org[y * pw + x] << 6);
+        } else if (!fy) {
+            for (int y = 0; y < bh; y++)
+                for (int x = 0; x < bw; x++) {
+                    int s = 0;
+                    for (int i = 0; i < taps; i++) s += fxs[i] * org[y * pw + x + i - back];
+                    pred[y * bw + x] = int16_t(s);
+                }
+        } else if (!fx) {
+            for (int y = 0; y < bh; y++)
+                for (int x = 0; x < bw; x++) {
+                    int s = 0;
+                    for (int i = 0; i < taps; i++) s += fys[i] * org[(y + i - back) * pw + x];
+                    pred[y * bw + x] = int16_t(s);
+                }
+        } else {
+            for (int y = 0; y < ph; y++)
+                for (int x = 0; x < bw; x++) {
+                    int s = 0;
+                    for (int i = 0; i < taps; i++) s += fxs[i] * blk[y * pw + x + i];
+                    tmp[y * bw + x] = int16_t(s);
+                }
+            for (int y = 0; y < bh; y++)
+                for (int x = 0; x < bw; x++) {
+                    int s = 0;
+                    for (int i = 0; i < taps; i++) s += fys[i] * tmp[(y + i) * bw + x];
+                    pred[y * bw + x] = int16_t(clip3(-32768, 32767, s >> 6));  // x86's packssdw
+                }
+        }
+    }
+
     void motion_compensate(int xp, int yp, int w, int h, const Motion& m) {
-        Frame& ref = *dpb[size_t(sh->list[m.ref_idx])];
-        static thread_local int16_t pred[64 * 64], tmp[(64 + 7) * 64], blk[(64 + 7) * (64 + 7)];
+        static thread_local int16_t pred[2][64 * 64];
+        const Slice& S = *sh;
         for (int c = 0; c < 3; c++) {
-            int sub = c ? 1 : 0;
-            int bw = w >> sub, bh = h >> sub, W = ref.stride(c), H = c ? ref.h / 2 : ref.h;
-            int frac_bits = c ? 3 : 2, taps = c ? 4 : 8, back = c ? 1 : 3;
-            int mx = m.mv.x, my = m.mv.y;
-            int fx = mx & ((1 << frac_bits) - 1), fy = my & ((1 << frac_bits) - 1);
-            int x0 = (xp >> sub) + (mx >> frac_bits), y0 = (yp >> sub) + (my >> frac_bits);
-            // the reference samples the filters read, the picture's edge extended
-            const uint8_t* src = ref.plane(c);
-            int pw = bw + taps - 1, ph = bh + taps - 1;
-            for (int y = 0; y < ph; y++) {
-                const uint8_t* row = src + size_t(clip3(0, H - 1, y0 + y - back)) * W;
-                for (int x = 0; x < pw; x++) blk[y * pw + x] = row[clip3(0, W - 1, x0 + x - back)];
-            }
-            const int16_t* org = blk + back * pw + back;  // the block's own top-left sample
-            const int* fxs = c ? CHROMA_FILTER[fx] : LUMA_FILTER[fx];
-            const int* fys = c ? CHROMA_FILTER[fy] : LUMA_FILTER[fy];
-            if (!fx && !fy) {
-                for (int y = 0; y < bh; y++)
-                    for (int x = 0; x < bw; x++) pred[y * bw + x] = int16_t(org[y * pw + x] << 6);
-            } else if (!fy) {
-                for (int y = 0; y < bh; y++)
-                    for (int x = 0; x < bw; x++) {
-                        int s = 0;
-                        for (int i = 0; i < taps; i++) s += fxs[i] * org[y * pw + x + i - back];
-                        pred[y * bw + x] = int16_t(s);
-                    }
-            } else if (!fx) {
-                for (int y = 0; y < bh; y++)
-                    for (int x = 0; x < bw; x++) {
-                        int s = 0;
-                        for (int i = 0; i < taps; i++) s += fys[i] * org[(y + i - back) * pw + x];
-                        pred[y * bw + x] = int16_t(s);
-                    }
-            } else {
-                for (int y = 0; y < ph; y++)
-                    for (int x = 0; x < bw; x++) {
-                        int s = 0;
-                        for (int i = 0; i < taps; i++) s += fxs[i] * blk[y * pw + x + i];
-                        tmp[y * bw + x] = int16_t(s);
-                    }
-                for (int y = 0; y < bh; y++)
-                    for (int x = 0; x < bw; x++) {
-                        int s = 0;
-                        for (int i = 0; i < taps; i++) s += fys[i] * tmp[(y + i) * bw + x];
-                        pred[y * bw + x] = int16_t(clip3(-32768, 32767, s >> 6));  // x86's packssdw
-                    }
-            }
+            int sub = c ? 1 : 0, bw = w >> sub, bh = h >> sub, W = cur->stride(c);
+            for (int l = 0; l < 2; l++)
+                if (m.uses(l)) predict(*dpb[size_t(S.list[l][m.ref_idx[l]])], m.mv[l], c, xp, yp, w, h, pred[l]);
             uint8_t* dst = cur->plane(c) + size_t(yp >> sub) * W + (xp >> sub);
-            if (sh->weighted) {  // explicit weighted prediction (8.5.3.3.4.3)
-                int wt = c ? sh->cw[m.ref_idx][c - 1] : sh->lw[m.ref_idx];
-                int o = c ? sh->co[m.ref_idx][c - 1] : sh->lo[m.ref_idx];
-                int log2wd = (c ? sh->chroma_denom : sh->luma_denom) + 6;
+            int log2wd = (c ? S.chroma_denom : S.luma_denom) + 6;
+            auto weight = [&](int l) { return c ? S.cw[l][m.ref_idx[l]][c - 1] : S.lw[l][m.ref_idx[l]]; };
+            auto offset = [&](int l) { return c ? S.co[l][m.ref_idx[l]][c - 1] : S.lo[l][m.ref_idx[l]]; };
+            if (m.pred != 3) {
+                const int16_t* p = pred[m.pred - 1];
+                if (S.weighted) {  // explicit weighted prediction (8.5.3.3.4.3)
+                    int wt = weight(m.pred - 1), o = offset(m.pred - 1);
+                    for (int y = 0; y < bh; y++)
+                        for (int x = 0; x < bw; x++)
+                            dst[size_t(y) * W + x] = clip_u8(((p[y * bw + x] * wt + (1 << (log2wd - 1))) >> log2wd) + o);
+                } else {
+                    for (int y = 0; y < bh; y++)
+                        for (int x = 0; x < bw; x++) dst[size_t(y) * W + x] = clip_u8((p[y * bw + x] + 32) >> 6);
+                }
+            } else if (S.weighted) {  // both lists, explicit weights, (o0 + o1 + 1) >> 1 rounding
+                int w0 = weight(0), w1 = weight(1), o = (offset(0) + offset(1) + 1) << log2wd;
                 for (int y = 0; y < bh; y++)
-                    for (int x = 0; x < bw; x++)
-                        dst[size_t(y) * W + x] = clip_u8(((pred[y * bw + x] * wt + (1 << (log2wd - 1))) >> log2wd) + o);
+                    for (int x = 0; x < bw; x++) {
+                        int i = y * bw + x;
+                        dst[size_t(y) * W + x] = clip_u8((pred[0][i] * w0 + pred[1][i] * w1 + o) >> (log2wd + 1));
+                    }
             } else {
+                // the default average: x86's paddsw sums the two 14-bit
+                // predictions with 16-bit saturation (libavcodec's C code, which
+                // runs 2-wide chroma blocks, does not saturate)
                 for (int y = 0; y < bh; y++)
-                    for (int x = 0; x < bw; x++) dst[size_t(y) * W + x] = clip_u8((pred[y * bw + x] + 32) >> 6);
+                    for (int x = 0; x < bw; x++) {
+                        int i = y * bw + x, s = pred[0][i] + pred[1][i];
+                        if (bw > 2) s = clip3(-32768, 32767, s);
+                        dst[size_t(y) * W + x] = clip_u8((s + 64) >> 7);
+                    }
             }
         }
     }
@@ -2132,9 +2333,28 @@ struct Decoder {
         const Blk &P = B(xp, yp), &Q = B(xq, yq);
         if (P.intra || Q.intra) return 2;
         if ((flags & 1) && (P.nz || Q.nz)) return 1;
-        const Motion &mp = mot(xp, yp), &mq = mot(xq, yq);
-        if (mp.ref_poc != mq.ref_poc) return 1;
-        return std::abs(mp.mv.x - mq.mv.x) >= 4 || std::abs(mp.mv.y - mq.mv.y) >= 4;
+        return motion_strength(mot(xp, yp), mot(xq, yq));
+    }
+
+    // bS 1 or 0 of two inter blocks (8.7.2.4) as libavcodec's
+    // boundary_strength finds it: their reference pictures compared (by
+    // POC), then their vectors, both pairings of two lists' where the
+    // pictures allow either
+    static int motion_strength(const Motion& p, const Motion& q) {
+        auto far = [](const Mv& a, const Mv& b) { return std::abs(a.x - b.x) >= 4 || std::abs(a.y - b.y) >= 4; };
+        if (p.pred == 3 && q.pred == 3) {
+            int p0 = p.ref_poc[0], p1 = p.ref_poc[1], q0 = q.ref_poc[0], q1 = q.ref_poc[1];
+            if (p0 == q0 && p0 == p1 && q0 == q1)
+                return (far(p.mv[0], q.mv[0]) || far(p.mv[1], q.mv[1])) &&
+                       (far(p.mv[1], q.mv[0]) || far(p.mv[0], q.mv[1]));
+            if (p0 == q0 && p1 == q1) return far(p.mv[0], q.mv[0]) || far(p.mv[1], q.mv[1]);
+            if (p1 == q0 && p0 == q1) return far(p.mv[1], q.mv[0]) || far(p.mv[0], q.mv[1]);
+            return 1;
+        }
+        if (p.pred == 3 || q.pred == 3) return 1;  // one vector against two
+        int lp = p.pred - 1, lq = q.pred - 1;
+        if (p.ref_poc[lp] != q.ref_poc[lq]) return 1;
+        return far(p.mv[lp], q.mv[lq]);
     }
 
     static void filter_luma(uint8_t* pix, int xstride, int ystride, int beta, const int tc_[2]) {

@@ -19,12 +19,17 @@ them under cv2: held back and reordered (B pictures), by the output
 delay cv2's decoder starts with (``MP4Dataset._probe_delay``) and grows,
 its frame threads decoding ahead (``FRAME_THREADS``), drained at the end
 of the file.  HEVC pictures (``hvc1``/``hev1``, or the AVI fourccs FFmpeg
-maps to HEVC) come out as the DPB's output process releases them, which
-the SPS alone steers, with the same frame threads ahead.  In ISO BMFF a
-frame's number is its presentation time
-(``ctts``) from the edit's start; frames outside the one edit are decoded
-and not shown (``Track.frames``).  A read away from the next frame seeks
-as cv2 does (``MP4Dataset._seek``).
+maps to HEVC; I, P and B pictures, RADL, RASL and BLA pictures) come out
+as the DPB's output process releases them, which the SPS alone steers,
+with the same frame threads ahead; the RASL pictures of a CRA or BLA
+picture that opens decoding (the file's first sample, or a seek's) are
+left out as libavcodec leaves them out, so cv2 and the port then show
+fewer frames than the samples.  In ISO BMFF a frame's number is its
+presentation time (``ctts``) from the edit's start; frames outside the one
+edit are decoded and not shown (``Track.frames``).  A read away from the
+next frame seeks as cv2 does (``MP4Dataset._seek``), its sync sample
+found as FFmpeg's demuxer finds it (``MP4Dataset._seek_sample``), frames
+counted from the first one the file shows.
 
 What is not ported raises ``NotImplementedError`` naming ROADMAP Queue 1
 item 17, and never falls back to cv2: video codecs other than MPEG-4
@@ -33,8 +38,9 @@ durations that are not one constant run (FFmpeg guesses a rate from
 them), composition times that are not distinct whole frames, edit lists
 of several edits, empty edits or another rate, MPEG-4 Part 2 B-VOPs
 (``ctts``), H.264 sync samples that are not IDR pictures, HEVC ones that
-are not IRAP pictures, and the stream
-features the decoders refuse.  A damaged file raises ``ValueError``.
+are not IRAP pictures (IDR, CRA or BLA, leading pictures or not), and the
+stream features the decoders refuse.  A damaged file raises
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -92,6 +98,9 @@ class Track:
     # each sample's decode time in frames from the presentation's start (what
     # FFmpeg's seek compares with the target), None for the sample order
     decode_times: Optional[np.ndarray] = None
+    # what FFmpeg's mov_seek_stream adds to a target frame before it compares
+    # decode times (its min_corrected_pts taken off, in frames)
+    seek_offset: float = 0.0
 
 
 def _unsupported(what: str) -> NotImplementedError:
@@ -302,11 +311,15 @@ def _guess_video_delay(pts: np.ndarray) -> int:
 def _presentation(data: bytes, stbl: dict, kids: dict, count: int, delta: int, timescale: int,
                   movie_scale: int, path) -> tuple:
     """(each sample's frame number as cv2 counts it, FFmpeg's video_delay,
-    each sample's decode time in frames from the presentation's start):
-    presentation times from the sample order and the composition offsets
-    (``ctts``, version 0 or 1), counted from the one edit's media time (else
-    from the first); samples outside the edit (before its media time, or
-    past its duration) are decoded but not shown (-1)."""
+    each sample's decode time in frames from the presentation's start, the
+    seek's offset of ``Track``): presentation times from
+    the sample order and the composition offsets (``ctts``, version 0 or
+    1), counted from the one edit's media time (else from the first);
+    samples outside the edit (before its media time, or past its duration)
+    are decoded but not shown (-1).  With an edit, FFmpeg's mov_fix_index
+    counts decode times from the first sample shown (``j0``) and takes off
+    the least presentation time shown, which mov_seek_stream takes off the
+    target too."""
     ct = np.arange(count, dtype=np.int64) * delta
     ctts = None
     if b"ctts" in stbl:
@@ -333,7 +346,11 @@ def _presentation(data: bytes, stbl: dict, kids: dict, count: int, delta: int, t
     outside = ct < start if end is None else (ct < start) | (ct >= end)
     frames[outside] = -1
     decode_times = (np.arange(count, dtype=np.int64) * delta - start) / delta
-    return frames, _guess_video_delay(ct) if ctts is not None else 0, decode_times
+    seek_offset = 0.0
+    shown = np.flatnonzero(~outside)
+    if edit is not None and len(shown):
+        seek_offset = (int(shown[0]) * delta - int(ct[shown].min())) / delta
+    return frames, _guess_video_delay(ct) if ctts is not None else 0, decode_times, seek_offset
 
 
 def _mp4_track(data: bytes, trak, path, mvhd, movie_scale: int) -> Optional[Track]:
@@ -410,12 +427,12 @@ def _mp4_track(data: bytes, trak, path, mvhd, movie_scale: int) -> Optional[Trac
         sync[idx] = True
     else:
         sync = np.ones(count, bool)
-    frames, delay, decode_times = _presentation(data, stbl, kids, int(count), int(deltas[0]),
-                                                timescale, movie_scale, path)
+    frames, delay, decode_times, seek_offset = _presentation(
+        data, stbl, kids, int(count), int(deltas[0]), timescale, movie_scale, path)
     if codec == "mpeg4" and b"ctts" in stbl:
         raise _unsupported(f"{path}: MPEG-4 Part 2 with composition offsets (B-VOPs)")
     return Track(config, offsets, sizes, sync, timescale / int(deltas[0]), int(count), codec,
-                 length_size, turn, frames, delay, decode_times)
+                 length_size, turn, frames, delay, decode_times, seek_offset)
 
 
 def _damaged(read):
@@ -586,6 +603,7 @@ class MP4Dataset(MonocularDataset):
         # last when it came out, RGB)
         self._ahead = collections.deque()
         self._fault = None  # an error met decoding ahead, raised at the read that reaches it
+        self._first_out = None  # the frame number of the file's first frame out
         self.fps = track.fps
         self.total_frames = track.frame_count
         self.stride = stride
@@ -594,10 +612,11 @@ class MP4Dataset(MonocularDataset):
 
     def _check_sync_samples(self, config: bytes) -> None:
         """Each H.264 sync sample must hold an IDR picture, each HEVC one an
-        IRAP picture (IDR or CRA; leading pictures are refused): cv2 would
-        drop pictures after a seek to another; and the sequence parameter
-        sets they carry must agree on the colour (cv2 converts frames around
-        a change otherwise than they say)."""
+        IRAP picture (IDR, CRA or BLA: a seek to a CRA or BLA picture leaves
+        its RASL pictures out, as cv2's does): cv2 would drop pictures after
+        a seek to another; and the sequence parameter sets they carry must
+        agree on the colour (cv2 converts frames around a change otherwise
+        than they say)."""
         probe = self._nal_decoder(config, self.track.length_size)
         kind = "an IRAP" if self.track.codec == "hevc" else "an IDR"
         try:
@@ -618,7 +637,8 @@ class MP4Dataset(MonocularDataset):
         equals num_reorder_frames), the delay growing as libavcodec grows
         it."""
         if self.track.frames is not None or self.track.codec == "hevc":
-            return self.track.video_delay  # HEVC's output follows its SPS, not this delay
+            # HEVC's output follows its SPS, not this delay, in AVI as in ISO BMFF
+            return self.track.video_delay
         probe = native.H264Decoder(self._config, self.track.length_size)
         try:
             probe.delay(self.track.video_delay)
@@ -687,7 +707,16 @@ class MP4Dataset(MonocularDataset):
 
     def _feed(self) -> bool:
         """Feed the next sample (at the end, drain a held picture) and keep
-        the frame that comes out, if shown; False when nothing is left."""
+        the frame that comes out, if shown; False when nothing is left.
+
+        Its frame number is what cv2's seek reads: its presentation time
+        (ISO BMFF), or, in AVI, which has none, the sample that let it out
+        (FFmpeg stamps a frame with that packet's decode time; a frame
+        drained at the end has no time: -1, and cv2's seek then steps
+        further back), either counted from the file's first frame out (a
+        stream opening with a CRA picture shows none of its RASL
+        pictures)."""
+        i = None
         if self._cursor < len(self.track.sizes):
             i = self._cursor
             self._cursor += 1
@@ -697,17 +726,32 @@ class MP4Dataset(MonocularDataset):
             self._draining = shown is None
         else:
             return False
-        if shown is not None and self._frame(shown) >= 0:
-            self._ahead.append((self._frame(shown), self._cursor, self._decoder.rgb()))
+        if shown is None or self._frame(shown) < 0:
+            return True
+        frame = self._frame(shown) if self.track.frames is not None else -1 if i is None else i
+        if self._first_out is None:
+            self._first_out = max(frame, 0)
+        if frame >= 0:
+            frame -= self._first_out
+        self._ahead.append((frame, self._cursor, self._decoder.rgb()))
         return True
 
-    def _restart(self, frame: int) -> None:
-        """Position at the last sync sample decoded at or before frame
-        ``frame``'s time (``av_seek_frame`` backward), decoder flushed."""
+    def _seek_sample(self, frame: int) -> int:
+        """The sample ``av_seek_frame`` backward to frame ``frame`` restarts
+        at: the last sync sample at or before it (AVI), or decoded at or
+        before its time as FFmpeg's mov_seek_stream finds it, the target
+        moved by ``Track.seek_offset`` (an HEVC key sample presented after
+        the target is taken all the same: cv2's libavformat passes none)."""
+        sync = np.flatnonzero(self.track.sync)
         times = self.track.decode_times
-        at = np.arange(len(self.track.sync)) if times is None else times
-        sync = np.flatnonzero(self.track.sync & (at <= frame))
-        self._cursor = int(sync[-1]) if len(sync) else 0
+        at = sync if times is None else times[sync]
+        before = sync[at <= frame + self.track.seek_offset]
+        return int(before[-1]) if len(before) else 0
+
+    def _restart(self, frame: int) -> None:
+        """Position at the sample a backward seek to frame ``frame`` takes
+        (``_seek_sample``), decoder flushed."""
+        self._cursor = self._seek_sample(frame)
         self._draining = False
         self._ahead.clear()
         self._fault = None
@@ -726,7 +770,7 @@ class MP4Dataset(MonocularDataset):
             first = self._advance()
             if t == 1:
                 return
-            if first is None or first > t - 1:
+            if first is None or first < 0 or first > t - 1:
                 if temp == 0:
                     return
                 delta = delta * 2 if delta < 16 else delta * 3 // 2

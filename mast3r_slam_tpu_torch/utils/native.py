@@ -455,8 +455,11 @@ class HevcDecoder(H264Decoder):
     sps_max_num_reorder_pics, its latency and its DPB size, never by
     has_b_frames, so ``delay``'s ``set_to`` changes nothing), one a call; a
     sample that releases several gives the rest at the next calls, and
-    ``drain()`` gives the held ones at the end of the stream.  ``headers``
-    tells whether a sample holds an IRAP (IDR or CRA) picture.  ``rgb``
+    ``drain()`` gives the held ones at the end of the stream; a sample of a
+    RASL picture whose CRA or BLA picture opened decoding (the stream's
+    first, or the first after ``reset``) is left out, as libavcodec leaves
+    it out, and releases none.  ``headers`` tells whether a sample holds an
+    IRAP (IDR, CRA or BLA) picture.  ``rgb``
     gives the last picture output as (H, W, 3) uint8 RGB, cropped, exactly
     what cv2 5.0.0 gives for it (before cv2 turns it by the track's display
     matrix)."""

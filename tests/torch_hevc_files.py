@@ -1,11 +1,14 @@
 """HEVC video files for the port's video tests and fixtures, written here
 (cv2's libavcodec decodes HEVC but holds no encoder for it): Main profile
-streams of I and P pictures whose syntax is drawn at random from what the
-port's decoder takes (``random_stream``), or coded from a smooth picture
-that pans (``smooth_stream``), behind NAL unit lengths in ``.mp4``/``.mov``
+streams of I and P pictures, or with ``bframes`` of I, P and B pictures
+in decoding order as x265 orders them (``b_schedule``: anchors, B
+pyramids, IRAP pictures with RASL or RADL leading pictures, BLA pictures),
+whose syntax is drawn at random from what the port's decoder takes
+(``random_stream``), or coded from a smooth picture that pans
+(``smooth_stream``), behind NAL unit lengths in ``.mp4``/``.mov``
 (``write_mp4``: ``hvc1`` with the parameter sets in ``hvcC``, or ``hev1``
-with them in band too) or Annex B in ``.avi`` (``write_avi``).  Needs no
-cv2.
+with them in band too; ``display=`` gives B pictures FFmpeg's ``ctts``
+and edit) or Annex B in ``.avi`` (``write_avi``).  Needs no cv2.
 
 The arithmetic coder is ``torch_h264_files.CabacEncoder`` (the engine H.264
 and HEVC share) over HEVC's contexts (``HevcCabac``), their initial values
@@ -24,15 +27,18 @@ too) and both MVP flags; the transform tree (splits, ``cbf_*``,
 ``cu_qp_delta``) and residual levels of every magnitude with
 ``transform_skip``; per picture the slice splits, ``slice_qp_delta``,
 chroma QP offsets, the deblocking controls, SAO flags, list modification,
-``collocated_ref_idx`` and explicit weights; per stream WPP, sign data
+``collocated_ref_idx`` and explicit weights; in B slices
+``inter_pred_idc`` (no bi-prediction for 8x4 and 4x8 blocks), both lists'
+references, MVDs and MVP flags, ``mvd_l1_zero_flag``,
+``collocated_from_l0_flag`` and both lists' weights; per stream WPP, sign data
 hiding, constrained intra prediction, strong intra smoothing, TMVP, the
 parallel merge level, ``cu_qp_delta`` depth, the RPS in the SPS (with
 inter-RPS prediction) or in the slice header, the VUI and the
 conformance window.  Levels are bounded to 16 bits, as the standard
 bounds them.
 
-Imported by ``tests/test_torch_hevc.py``, ``scripts/make_hevc_fixtures.py``
-and ``chip_smoke.py`` (phase 23).
+Imported by ``tests/test_torch_hevc.py``, ``tests/test_torch_hevc_b.py``
+and ``scripts/make_hevc_fixtures.py``.
 """
 
 from __future__ import annotations
@@ -61,6 +67,8 @@ CTX_IDX_MAP = [0, 1, 4, 5, 2, 3, 4, 5, 6, 6, 8, 8, 7, 7, 8, 8]
 PART_2Nx2N, PART_2NxN, PART_Nx2N, PART_NxN, PART_2NxnU, PART_2NxnD, PART_nLx2N, PART_nRx2N = \
     range(8)
 IDR_W_RADL, IDR_N_LP, CRA, TRAIL_R, TRAIL_N = 19, 20, 21, 1, 0
+RADL_N, RADL_R, RASL_N, RASL_R, BLA_W_LP, BLA_W_RADL, BLA_N_LP = 6, 7, 8, 9, 16, 17, 18
+PRED_L0, PRED_L1, PRED_BI = 1, 2, 3  # inter_pred_idc as prediction flags (bit 0 list 0, bit 1 list 1)
 VPS, SPS, PPS, AUD, EOS, SEI = 32, 33, 34, 35, 36, 39
 
 
@@ -345,7 +353,7 @@ def pps(o: dict, p: dict) -> bytes:
     b.flag(p["sdh"])
     b.flag(p["cabac_init_present"])
     b.ue(p["num_ref_default"] - 1)
-    b.ue(0)
+    b.ue(p.get("num_ref_default1", 1) - 1)
     b.se(p["init_qp"] - 26)
     b.flag(p["cip"])
     b.flag(p["ts"])
@@ -356,7 +364,7 @@ def pps(o: dict, p: dict) -> bytes:
     b.se(p["cqp"][1])
     b.flag(p["slice_cqp"])
     b.flag(p["weighted"])
-    b.flag(0)  # weighted_bipred_flag
+    b.flag(p.get("weighted_bipred", False))
     b.flag(p.get("bypass", False))
     b.flag(p.get("tiles", False))
     if p.get("tiles", False):
@@ -422,7 +430,9 @@ class _Mp4Codec:
 def write_mp4(path, samples, width: int, height: int, fps: int = 30, **kw) -> None:
     """An ISO BMFF file of one HEVC track (``torch_h264_files.write_mp4``'s
     options): ``fourcc`` b"hvc1" (the parameter sets of the first sample in
-    ``hvcC`` only) or b"hev1" with ``config_in_band`` (kept in band too)."""
+    ``hvcC`` only) or b"hev1" with ``config_in_band`` (kept in band too);
+    ``display`` (``options["display"]`` of a B stream) each sample's display
+    index, for FFmpeg's ``ctts`` and edit."""
     kw.setdefault("fourcc", b"hvc1")
     hf.write_mp4(path, samples, width, height, fps, codec=_Mp4Codec, **kw)
 
@@ -549,6 +559,21 @@ def _last_binarise(v: int) -> tuple:
 # --- the syntax of a slice segment's data (7.3.8) ---------------------------------------
 
 
+def pu_boxes(part: int, x0: int, y0: int, size: int) -> list:
+    """(x, y, w, h) of a CU's prediction blocks in coding order."""
+    h, q = size // 2, size // 4
+    return {PART_2Nx2N: [(x0, y0, size, size)],
+            PART_2NxN: [(x0, y0, size, h), (x0, y0 + h, size, h)],
+            PART_Nx2N: [(x0, y0, h, size), (x0 + h, y0, h, size)],
+            PART_2NxnU: [(x0, y0, size, q), (x0, y0 + q, size, size - q)],
+            PART_2NxnD: [(x0, y0, size, size - q), (x0, y0 + size - q, size, q)],
+            PART_nLx2N: [(x0, y0, q, size), (x0 + q, y0, size - q, size)],
+            PART_nRx2N: [(x0, y0, size - q, size), (x0 + size - q, y0, q, size)],
+            PART_NxN: [(x0, y0, h, h), (x0 + h, y0, h, h), (x0, y0 + h, h, h),
+                       (x0 + h, y0 + h, h, h)]}[part]
+
+
+
 class SliceWriter:
     """One slice segment's CTUs into substreams (one a CTB row under WPP):
     each syntax element that ``chooser`` decides, binarised, its context
@@ -556,7 +581,7 @@ class SliceWriter:
 
     def __init__(self, o: dict, p: dict, pic: PicState, sl: dict, idx: int, chooser):
         self.o, self.p, self.pic, self.sl, self.idx, self.ch = o, p, pic, sl, idx, chooser
-        init_type = 0 if sl["type"] == "I" else 2 if sl["cabac_init"] else 1
+        init_type = 0 if sl["type"] == "I" else 2 if (sl["type"] == "P") == sl["cabac_init"] else 1
         self.init = (init_type, sl["qp"])
         self.e = HevcCabac(*self.init)
         self.min_qg = o["log2_ctb"] - (p["qg_depth"] if p["cu_qp_delta"] else 0)
@@ -689,9 +714,10 @@ class SliceWriter:
                 int(pic.avail(x0, y0, x0, y0 - 1) and pic.skip[(y0 - 1) >> 2, x0 >> 2])
             self.dec(CU_SKIP + c, d["skip"])
         self.intra, self.part = d.get("intra", False), d.get("part", PART_2Nx2N)
+        self.depth = depth
         if d["skip"]:
             pic.fill(pic.skip, x0, y0, size, size, True)
-            self.pu(d["pus"][0], sl["max_merge"], skipped=True)
+            self.pu(d["pus"][0], sl["max_merge"], skipped=True, box=(x0, y0, size, size))
             return
         if sl["type"] != "I":
             self.dec(PRED_MODE, self.intra)
@@ -701,8 +727,8 @@ class SliceWriter:
         if self.intra:
             self.intra_modes(x0, y0, log2, d["modes"], d["chroma"])
         else:
-            for pu in d["pus"]:
-                self.pu(pu, sl["max_merge"])
+            for pu, box in zip(d["pus"], pu_boxes(self.part, x0, y0, size)):
+                self.pu(pu, sl["max_merge"], box=box)
         root = True
         if not self.intra and not (self.part == PART_2Nx2N and d["pus"][0]["merge"]):
             root = d["root_cbf"]
@@ -764,7 +790,10 @@ class SliceWriter:
         self.luma0 = modes[0]
         self.chroma = chroma_mode_of(chroma, modes[0])
 
-    def pu(self, d: dict, max_merge: int, skipped: bool = False) -> None:
+    def pu(self, d: dict, max_merge: int, skipped: bool = False, box=None) -> None:
+        """prediction_unit of the block ``box`` (x, y, w, h): merged, or per
+        list used (``dir``, B slices) its ``ref``/``mvd``/``mvp`` (list 0)
+        and ``ref1``/``mvd1``/``mvp1`` (list 1)."""
         if not skipped:
             self.dec(MERGE_FLAG, d["merge"])
         if d["merge"]:
@@ -777,9 +806,26 @@ class SliceWriter:
                         if idx == k:
                             break
             return
-        nref = self.sl["num_ref"]
+        sl = self.sl
+        direction = d.get("dir", PRED_L0)
+        if sl["type"] == "B":  # inter_pred_idc
+            if box[2] + box[3] == 12:
+                assert direction != PRED_BI, "a bi-predicted 8x4 or 4x8 block"
+            else:
+                self.dec(INTER_PRED + self.depth, direction == PRED_BI)
+            if direction != PRED_BI:
+                self.dec(INTER_PRED + 4, direction == PRED_L1)
+        for lst in (0, 1):
+            if not (direction >> lst) & 1:
+                continue
+            sfx = "1" if lst else ""
+            self._ref_idx(d["ref" + sfx], sl["num_ref1" if lst else "num_ref"])
+            if not (lst and direction == PRED_BI and sl.get("mvd_l1_zero")):
+                self._mvd(d["mvd" + sfx])
+            self.dec(MVP_FLAG, d["mvp" + sfx])
+
+    def _ref_idx(self, r: int, nref: int) -> None:
         if nref > 1:
-            r = d["ref"]
             for k in range(nref - 1):
                 if k < 2:
                     self.dec(REF_IDX + k, r > k)
@@ -787,7 +833,9 @@ class SliceWriter:
                     self.byp(r > k)
                 if r == k:
                     break
-        dx, dy = d["mvd"]
+
+    def _mvd(self, mvd) -> None:
+        dx, dy = mvd
         self.dec(MVD_GT0, dx != 0)
         self.dec(MVD_GT0, dy != 0)
         if dx:
@@ -799,7 +847,6 @@ class SliceWriter:
                 if abs(v) > 1:
                     self.e.exp_golomb(abs(v) - 2, 1)
                 self.byp(v < 0)
-        self.dec(MVP_FLAG, d["mvp"])
 
     # -- transform tree and unit (7.3.8.8-7.3.8.12) -------------------------------------
 
@@ -1055,9 +1102,13 @@ class RandomChooser:
         d["part"] = int(rng.choice(o.get("parts", parts)))
         npu = {PART_2Nx2N: 1, PART_NxN: 4}.get(d["part"], 2)
         d["pus"] = []
-        for _ in range(npu):
+        boxes = pu_boxes(d["part"], x0, y0, size)
+        for k in range(npu):
             if rng.random() < o.get("p_merge", 0.45):
                 d["pus"].append({"merge": True, "idx": int(rng.integers(0, sl["max_merge"]))})
+                continue
+            if sl["type"] == "B":
+                d["pus"].append(self._b_pu(boxes[k]))
                 continue
             big = self.o.get("mvd", 16)
             mvd = [int(rng.integers(-big, big + 1)) if rng.random() < 0.7 else 0 for _ in range(2)]
@@ -1067,6 +1118,24 @@ class RandomChooser:
                              "mvd": mvd, "mvp": int(rng.integers(0, 2))})
         d["root_cbf"] = rng.random() < 0.7
         return d
+
+    def _b_pu(self, box) -> dict:
+        """A B slice's AMVP block: its lists (``o["dirs"]`` narrows them; no
+        bi-prediction for an 8x4 or 4x8 block), each list's reference,
+        MVD and MVP flag."""
+        rng, o, sl = self.rng, self.o, self.sl
+        dirs = [v for v in o.get("dirs", [PRED_L0, PRED_L1, PRED_BI, PRED_BI])
+                if v != PRED_BI or box[2] + box[3] != 12] or [PRED_L0]
+        pu = {"merge": False, "dir": int(rng.choice(dirs))}
+        big = o.get("mvd", 16)
+        for lst, sfx in ((0, ""), (1, "1")):
+            mvd = [int(rng.integers(-big, big + 1)) if rng.random() < 0.7 else 0 for _ in range(2)]
+            if o.get("far_mv") and rng.random() < 0.1:
+                mvd = [int(rng.integers(-4000, 4000)) for _ in range(2)]
+            pu["ref" + sfx] = int(rng.integers(0, sl["num_ref1" if lst else "num_ref"]))
+            pu["mvd" + sfx] = mvd
+            pu["mvp" + sfx] = int(rng.integers(0, 2))
+        return pu
 
     def tsplit(self, x0, y0, log2, depth) -> bool:
         return self.rng.random() < 0.4
@@ -1198,6 +1267,14 @@ class StreamWriter:
             temp = (curr * (max(nr, total) // max(total, 1) + 1))[:max(nr, total)]
             pl["list"] = [temp[e] for e in pl["entries"]] if pl["entries"] else temp[:nr]
             pl["col"] = int(rng.integers(0, nr))
+        units = self._slices(pl, pic, irap, chooser_of)
+        if kind != "N":
+            self.refs = (self.refs + [self.poc])[-o["max_ref"]:]
+        return units
+
+    def _slices(self, pl: dict, pic, irap: bool, chooser_of) -> list:
+        """The picture's slices as NAL units, cut where ``_slice_cuts`` cuts."""
+        o, p, rng = self.o, self.p, self.rng
         n_ctb = pic.ctb_w * pic.ctb_h
         cuts = self._slice_cuts(pic, n_ctb)
         units = []
@@ -1207,9 +1284,45 @@ class StreamWriter:
             sw = SliceWriter(o, p, pic, sl, idx, ch)
             subs = sw.run(first, end)
             units.append(self._slice_nal(pl, sl, first, subs))
-        if kind != "N":
-            self.refs = (self.refs + [self.poc])[-o["max_ref"]:]
         return units
+
+    def coded_picture(self, pic: dict, chooser_of=None, output: bool = True,
+                      no_output_of_prior: bool = False) -> list:
+        """One picture of a ``b_schedule`` (its NAL type ``typ``, ``poc``, the
+        POCs it predicts from, ``used``, and those it keeps for later
+        pictures, ``keep``): the RPS and both lists from those, each slice
+        I, P or B (``kind`` "B": B slices mostly; "P": P slices, or B slices
+        of past references alone by chance ``gpb``)."""
+        o, p, rng = self.o, self.p, self.rng
+        irap = 16 <= pic["typ"] <= 23
+        poc = pic["poc"]
+        deltas = sorted({r - poc for r in pic["used"]} | {r - poc for r in pic["keep"]})
+        used = {r - poc for r in pic["used"]}
+        need = {"neg": [(d, int(d in used)) for d in reversed(deltas) if d < 0],
+                "pos": [(d, int(d in used)) for d in deltas if d > 0]}
+        before = [poc + d for d, u in need["neg"] if u]
+        after = [poc + d for d, u in need["pos"] if u]
+        total = len(before) + len(after)
+        pl = dict(kind="IRAP" if irap else pic["kind"], typ=pic["typ"], poc=poc, rps=need,
+                  output=output, no_output_of_prior=no_output_of_prior)
+        if not irap:
+            b = pic["kind"] == "B" or rng.random() < o.get("gpb", 0.3)
+            pl["b"] = b
+            pl["tmvp"] = o["tmvp"] and rng.random() < 0.8
+            for lst, sfx, first, second in ((0, "", before, after), (1, "1", after, before)):
+                nr = int(rng.integers(1, 5)) if rng.random() < 0.6 else \
+                    p["num_ref_default" if not lst else "num_ref_default1"]
+                nr = o.get("num_ref", nr)
+                pl["num_ref" + sfx] = nr
+                pl["entries" + sfx] = None
+                if p["lists_mod"] and total > 1 and rng.random() < 0.6:
+                    pl["entries" + sfx] = [int(v) for v in rng.integers(0, total, nr)]
+                temp = ((first + second) * nr)[:max(nr, total)]
+                pl["list" + sfx] = [temp[e] for e in pl["entries" + sfx]] if pl["entries" + sfx] \
+                    else temp[:nr]
+            pl["col_l0"] = not b or rng.random() < o.get("p_col_l0", 0.5)
+            pl["col"] = int(rng.integers(0, pl["num_ref"] if pl["col_l0"] else pl["num_ref1"]))
+        return self._slices(pl, PicState(o), irap, chooser_of)
 
     def _slice_cuts(self, pic, n_ctb) -> list:
         o, rng = self.o, self.rng
@@ -1233,12 +1346,16 @@ class StreamWriter:
     def _slice_params(self, pl: dict, irap: bool, idx: int = 0) -> dict:
         o, p, rng = self.o, self.p, self.rng
         sl = dict(type="I" if irap or rng.random() < o["intra_in_p"] else "P")
+        if sl["type"] == "P" and pl.get("b"):  # a B picture's slice: B, or by chance P
+            # (not where the collocated picture is list 1's: every slice names the same one)
+            sl["type"] = "P" if pl["col_l0"] and rng.random() < o.get("p_in_b", 0.15) else "B"
         sl["qp"] = int(rng.integers(max(p["init_qp"] - 12, 0), min(p["init_qp"] + 12, 51) + 1))
         sl["sao_luma"] = o["sao"] and rng.random() < 0.7
         sl["sao_chroma"] = o["sao"] and rng.random() < 0.7
         sl["cabac_init"] = p["cabac_init_present"] and rng.random() < 0.5
         sl["max_merge"] = int(rng.integers(1, 6))
         sl["num_ref"] = pl.get("num_ref", 0)
+        sl["num_ref1"] = pl.get("num_ref1", 0)
         sl["cqp"] = [min(max(int(v), -12 - q), 12 - q) for v, q in zip(rng.integers(-4, 5, 2), p["cqp"])] \
             if p["slice_cqp"] else [0, 0]  # the sum with the PPS's within +-12
         ctrl = p["dbk_ctrl"]
@@ -1255,23 +1372,37 @@ class StreamWriter:
         sl["lf_across"] = bool(rng.random() < 0.5)
         sl["lf_coded"] = p["lf_across"] and (sl["sao_luma"] or sl["sao_chroma"] or not disabled)
         if sl["type"] == "P" and p["weighted"]:
-            ld = int(rng.integers(0, 8))
-            cd = int(rng.integers(max(0, ld - 3), min(7, ld + 3) + 1))
+            sl["weights"] = self._weights([sl["num_ref"]])
+        if sl["type"] == "B":
+            sl["mvd_l1_zero"] = bool(rng.random() < o.get("p_mvd_l1_zero", 0.3))
+            if p.get("weighted_bipred"):
+                sl["weights"] = self._weights([sl["num_ref"], sl["num_ref1"]])
+        sl.update(o.get("slice_over", {}))
+        return sl
+
+    def _weights(self, counts: list) -> tuple:
+        """pred_weight_table's values for lists of ``counts`` references:
+        (luma denominator, chroma denominator, by list the (luma, chroma)
+        (weight delta, offset) pairs or None)."""
+        rng = self.rng
+        ld = int(rng.integers(0, 8))
+        cd = int(rng.integers(max(0, ld - 3), min(7, ld + 3) + 1))
+        lists = []
+        for n in counts:
             w = []
-            for _ in range(sl["num_ref"]):
+            for _ in range(n):
                 lw = (int(rng.integers(-128, 128)), int(rng.integers(-128, 128))) if rng.random() < 0.6 \
                     else None
                 cw = [(int(rng.integers(-128, 128)), int(rng.integers(-512, 512))) for _ in range(2)] \
                     if rng.random() < 0.5 else None
                 w.append((lw, cw))
-            sl["weights"] = (ld, cd, w)
-        sl.update(o.get("slice_over", {}))
-        return sl
+            lists.append(w)
+        return (ld, cd, *lists)
 
     def _slice_nal(self, pl: dict, sl: dict, first: int, subs: list) -> bytes:
         o, p = self.o, self.p
         b = Bits()
-        irap = pl["kind"] in ("IDR", "CRA")
+        irap = 16 <= pl["typ"] <= 23
         b.flag(first == 0)
         if irap:
             b.flag(pl["no_output_of_prior"])
@@ -1282,14 +1413,14 @@ class StreamWriter:
             pic_ctbs = (-(-o["width"] >> o["log2_ctb"])) * (-(-o["height"] >> o["log2_ctb"]))
             b.u(first, max(1, (pic_ctbs - 1).bit_length()))
         b.u(0, p["extra_bits"])
-        b.ue(1 if sl["type"] == "P" else 2)
+        b.ue({"B": 0, "P": 1, "I": 2}[sl["type"]])
         if p["output_flag"]:
             b.flag(pl["output"])
-        if pl["kind"] != "IDR":
+        if pl["typ"] not in (IDR_W_RADL, IDR_N_LP):
             b.u(pl["poc"] & ((1 << o["log2_max_poc_lsb"]) - 1), o["log2_max_poc_lsb"])
             idx = None
             for i, r in enumerate(self.sets):
-                if r["neg"] == pl["rps"]["neg"] and not r["pos"]:
+                if r["neg"] == pl["rps"]["neg"] and r["pos"] == pl["rps"]["pos"]:
                     idx = i
             if idx is not None and self.rng.random() < 0.7:
                 b.flag(1)
@@ -1303,37 +1434,49 @@ class StreamWriter:
         if o["sao"]:
             b.flag(sl["sao_luma"])
             b.flag(sl["sao_chroma"])
-        if sl["type"] == "P":
-            nr = sl["num_ref"]
-            b.flag(nr != p["num_ref_default"])
-            if nr != p["num_ref_default"]:
+        if sl["type"] in ("P", "B"):
+            bs = sl["type"] == "B"
+            nr, nr1 = sl["num_ref"], sl["num_ref1"]
+            override = nr != p["num_ref_default"] or (bs and nr1 != p.get("num_ref_default1", 1))
+            b.flag(override)
+            if override:
                 b.ue(nr - 1)
-            total = sum(u for _, u in pl["rps"]["neg"])
+                if bs:
+                    b.ue(nr1 - 1)
+            total = sum(u for _, u in pl["rps"]["neg"] + pl["rps"]["pos"])
             if p["lists_mod"] and total > 1:
-                b.flag(pl["entries"] is not None)
-                if pl["entries"] is not None:
-                    for e in pl["entries"]:
-                        b.u(e, (total - 1).bit_length())
+                for sfx in ("", "1") if bs else ("",):
+                    b.flag(pl["entries" + sfx] is not None)
+                    if pl["entries" + sfx] is not None:
+                        for e in pl["entries" + sfx]:
+                            b.u(e, (total - 1).bit_length())
+            if bs:
+                b.flag(sl["mvd_l1_zero"])
             if p["cabac_init_present"]:
                 b.flag(sl["cabac_init"])
-            if pl.get("tmvp") and nr > 1:
-                b.ue(pl["col"])
-            if p["weighted"]:
-                ld, cd, w = sl["weights"]
+            if pl.get("tmvp"):
+                col_l0 = pl.get("col_l0", True)
+                if bs:
+                    b.flag(col_l0)
+                if (nr if col_l0 else nr1) > 1:
+                    b.ue(pl["col"])
+            if (p["weighted"] and not bs) or (p.get("weighted_bipred") and bs):
+                ld, cd, *lists = sl["weights"]
                 b.ue(ld)
                 b.se(cd - ld)
-                for lw, _ in w:
-                    b.flag(lw is not None)
-                for _, cw in w:
-                    b.flag(cw is not None)
-                for lw, cw in w:
-                    if lw is not None:
-                        b.se(lw[0])
-                        b.se(lw[1])
-                    if cw is not None:
-                        for dw, do in cw:
-                            b.se(dw)
-                            b.se(do)
+                for w in lists:
+                    for lw, _ in w:
+                        b.flag(lw is not None)
+                    for _, cw in w:
+                        b.flag(cw is not None)
+                    for lw, cw in w:
+                        if lw is not None:
+                            b.se(lw[0])
+                            b.se(lw[1])
+                        if cw is not None:
+                            for dw, do in cw:
+                                b.se(dw)
+                                b.se(do)
             b.ue(5 - sl["max_merge"])
         b.se(sl["qp"] - p["init_qp"])
         if p["slice_cqp"]:
@@ -1386,6 +1529,140 @@ def schedule(n: int, gop: int, rng, nonref: float = 0.0, cra: float = 0.0) -> li
     return out
 
 
+# IRAP styles of ``b_schedule``: the NAL type of the IRAP picture and of the
+# pictures between the anchor before it and it (None: coded before it)
+IRAP_STYLES = {"idr": (IDR_N_LP, None), "idr-radl": (IDR_W_RADL, "RADL"),
+               "cra-rasl": (CRA, "RASL"), "cra-radl": (CRA, "RADL"),
+               "bla-rasl": (BLA_W_LP, "RASL"), "bla-radl": (BLA_W_RADL, "RADL"),
+               "bla": (BLA_N_LP, None)}
+
+
+def b_schedule(n: int, gop: int, bframes: int, rng, pyramid: bool = True, styles=("idr",),
+               max_ref: int = 2, b_ref: float = 0.2, poc_step: int = 1) -> list:
+    """``n`` pictures in decoding order as x265 orders them: anchors (I or P)
+    ``bframes`` + 1 apart in display order, an IRAP picture every ``gop``,
+    each anchor followed by the B pictures before it in display order (with
+    ``pyramid`` the middle one first, a reference, then each half the same
+    way; else all of them in order, ``b_ref`` of them references).  Each
+    IRAP picture takes a style of ``styles`` (``IRAP_STYLES``): its B
+    pictures coded before it behind a P anchor ("idr", "bla"), or after it
+    as RASL pictures (which predict from the pictures before it) or RADL
+    pictures (which predict from it and each other).  A picture predicts
+    from up to ``max_ref`` references before it and one after it in display
+    order among those it may use (trailing pictures: none before their
+    IRAP picture in decoding order, no leading picture).
+
+    Each is a dict: ``disp``, ``kind`` ("I", "P", "B"), ``typ``, ``poc``
+    (from the last IDR picture, times ``poc_step``), ``ref``, ``used`` and
+    ``keep`` (POCs of the references it predicts from and of those it
+    keeps for later pictures: together its RPS)."""
+    out, anchors = [], []
+    irap_at = set(range(0, n, gop)) if gop else {0}
+    d = 0
+    while d < n - 1:  # anchors in display order
+        nxt = min(d + bframes + 1, n - 1, min((g for g in irap_at if g > d), default=n))
+        anchors.append(nxt)
+        d = nxt
+    idr_disp = 0  # the display index of the last IDR picture
+
+    def add(disp, kind, typ, ref, group, lead=None):  # group: its IRAP picture's decoding index
+        out.append(dict(disp=disp, kind=kind, typ=typ, ref=ref, group=group, lead=lead,
+                        poc=(disp - idr_disp) * poc_step))
+
+    add(0, "I", IDR_W_RADL if rng.random() < 0.5 else IDR_N_LP, True, 0)
+    prev, anchor_typ = 0, out[0]["typ"]
+    for a in anchors:
+        between = list(range(prev + 1, a))
+        lead, typ = None, None
+        if a in irap_at:
+            style = styles[int(rng.integers(0, len(styles)))]
+            if style.startswith("idr") and anchor_typ in (CRA, BLA_W_LP, BLA_W_RADL, BLA_N_LP):
+                # libavcodec, decoding from that CRA or BLA picture, would drop an
+                # IDR picture whose POC equals a picture its RPS generated
+                style = "cra-radl"
+            typ, lead = IRAP_STYLES[style]
+            if lead is None and between:  # the pictures between, behind a P anchor before it
+                p_anchor = between.pop()
+                add(p_anchor, "P", TRAIL_R, True, out[-1]["group"])
+                _code_bs(add, between, pyramid, rng, b_ref, None, out[-1]["group"])
+                between = []
+            if typ in (IDR_W_RADL, IDR_N_LP):
+                idr_disp = a
+            add(a, "I", typ, True, len(out))
+        else:
+            add(a, "P", TRAIL_R, True, out[-1]["group"])
+        anchor_typ = out[-1]["typ"]
+        _code_bs(add, between, pyramid, rng, b_ref, lead, out[-1]["group"])
+        prev = a
+    # the references each picture may use, and those it uses
+    for k, pic in enumerate(out):
+        pic["used"] = []
+        if pic["kind"] == "I":
+            continue
+        group = pic["group"]
+        allowed = []
+        for j in range(k):
+            q = out[j]
+            if not q["ref"]:
+                continue
+            own = q["group"] == group and (j == group or q["lead"] == pic["lead"])
+            if pic["lead"] == "RADL" and not own:  # its IRAP picture and its fellows
+                continue
+            if pic["lead"] == "RASL" and not (own or (q["lead"] is None and j < group and
+                                                      q["group"] == out[group - 1]["group"])):
+                continue  # and the trailing pictures of the IRAP picture before
+            if pic["lead"] is None and (q["lead"] is not None or j < group):
+                continue
+            allowed.append(q)
+        before = sorted([q for q in allowed if q["disp"] < pic["disp"]], key=lambda q: -q["disp"])
+        after = sorted([q for q in allowed if q["disp"] > pic["disp"]], key=lambda q: q["disp"])
+        used = before[:int(rng.integers(1, max_ref + 1))] + after[:1]
+        if not used:
+            used = (before + after)[:1]
+        pic["used"] = [q["poc"] for q in used]
+        pic["used_idx"] = [out.index(q) for q in used]
+    # what each picture keeps: the references decoded before it that it or
+    # a later picture uses
+    for k, pic in enumerate(out):
+        later = {j for q in out[k:] for j in q.get("used_idx", [])}
+        pic["keep"] = [out[j]["poc"] for j in sorted(later) if j < k]
+        if 16 <= pic["typ"] <= 23 and pic["typ"] in (IDR_W_RADL, IDR_N_LP):
+            pic["keep"] = []
+    for pic in out:
+        pic.pop("used_idx", None)
+    return out
+
+
+def _code_bs(add, disps, pyramid, rng, b_ref, lead, group) -> None:
+    """The B pictures ``disps`` (display order) in coding order."""
+    if not disps:
+        return
+    if pyramid:
+        mid = disps[len(disps) // 2] if len(disps) > 1 else disps[0]
+        ref = len(disps) > 1 or bool(rng.random() < b_ref)
+        add(mid, "B", _b_type(lead, ref), ref, group, lead)
+        i = disps.index(mid)
+        _code_bs(add, disps[:i], pyramid, rng, b_ref, lead, group)
+        _code_bs(add, disps[i + 1:], pyramid, rng, b_ref, lead, group)
+        return
+    for d in disps:
+        ref = bool(rng.random() < b_ref)
+        add(d, "B", _b_type(lead, ref), ref, group, lead)
+
+
+def _b_type(lead, ref: bool) -> int:
+    return {None: (TRAIL_N, TRAIL_R), "RASL": (RASL_N, RASL_R), "RADL": (RADL_N, RADL_R)}[lead][ref]
+
+
+def schedule_limits(pics: list) -> tuple:
+    """(sps_max_num_reorder_pics, sps_max_dec_pic_buffering) a schedule
+    needs: the most pictures before one in decoding order and after it in
+    output order, and the most references kept beside that many waiting."""
+    reorder = max(sum(1 for q in pics[:k] if q["disp"] > p["disp"]) for k, p in enumerate(pics))
+    kept = max(len(p["keep"]) + len(set(p["used"]) - set(p["keep"])) for p in pics)
+    return reorder, min(kept + reorder + 1, 16)
+
+
 def random_stream(width: int, height: int, n: int, seed: int, gop: int = 5, **kw) -> tuple:
     """(samples, options): ``n`` pictures of random syntax (each sample a list
     of NAL units, the parameter sets before the first; ``inband`` repeats
@@ -1405,6 +1682,8 @@ def random_stream(width: int, height: int, n: int, seed: int, gop: int = 5, **kw
     no_prior = kw.pop("no_prior", 0.0)  # IRAP pictures of no_output_of_prior_pics_flag 1
     if hidden:
         kw.setdefault("pps", {})["output_flag"] = True
+    if kw.get("bframes"):
+        return _random_b_stream(width, height, n, seed, gop, inband, extra, hidden, no_prior, **kw)
     o = options(width, height, seed, **kw)
     w = StreamWriter(o, seed)
     kinds = schedule(n, gop, w.rng, o["nonref"], cra)
@@ -1419,7 +1698,121 @@ def random_stream(width: int, height: int, n: int, seed: int, gop: int = 5, **kw
     return samples, o
 
 
+def _random_b_stream(width, height, n, seed, gop, inband, extra, hidden, no_prior, **kw) -> tuple:
+    """``random_stream`` with B pictures: a ``b_schedule`` of ``bframes``
+    (``pyramid``, ``styles``, ``b_ref``) whose pictures, coded in decoding
+    order, hold B slices (``p_in_b``: P slices among them; ``gpb``: B slices
+    in P pictures), the SPS's reorder and DPB sizes as the schedule needs
+    them (``reorder`` raises the first), its RPSs in the SPS too;
+    ``start_cra`` cuts the stream to start at its first CRA picture (whose
+    RASL pictures then predict from pictures the stream lacks).
+    ``options["display"]`` gives each sample's display index."""
+    rng = np.random.default_rng(20_000 + seed)
+    pps_kw = dict(kw.pop("pps", {}))
+    pps_kw.setdefault("weighted_bipred", bool(rng.random() < 0.4))
+    pps_kw.setdefault("num_ref_default1", int(rng.integers(1, 3)))
+    pyramid = kw.pop("pyramid", True)
+    styles = kw.pop("styles", ("idr", "cra-rasl"))
+    b_ref = kw.pop("b_ref", 0.2)
+    start_cra = kw.pop("start_cra", False)
+    kw.setdefault("log2_max_poc_lsb", int(rng.choice([5, 6, 8])))
+    o = options(width, height, seed, **kw, pps=pps_kw)
+    pics = b_schedule(n, gop, o["bframes"], rng, pyramid, styles, o["max_ref"], b_ref, o["poc_step"])
+    reorder, dpb = schedule_limits(pics)
+    o["reorder"] = max(reorder, kw.get("reorder", 0))
+    o["dpb"] = max(dpb, kw.get("dpb", 0), o["reorder"] + 1)
+    far, anchor = 0, pics[0]
+    for pic in pics:  # each POC within half the LSB range of prevTid0Pic's
+        if pic["typ"] not in (IDR_W_RADL, IDR_N_LP, BLA_W_LP, BLA_W_RADL, BLA_N_LP):
+            far = max(far, abs(pic["poc"] - anchor["poc"]))
+        if pic["typ"] in (TRAIL_R, CRA, IDR_W_RADL, IDR_N_LP, BLA_W_LP, BLA_W_RADL, BLA_N_LP):
+            anchor = pic
+    while far >= 1 << (o["log2_max_poc_lsb"] - 1):
+        o["log2_max_poc_lsb"] += 1
+    # the schedule's sets of trailing pictures in the SPS too
+    sets = []
+    for pic in pics:
+        if pic["kind"] != "I" and len(sets) < 8:
+            deltas = sorted({r - pic["poc"] for r in pic["used"] + pic["keep"]})
+            r = {"neg": [(d, int(d + pic["poc"] in pic["used"])) for d in reversed(deltas) if d < 0],
+                 "pos": [(d, int(d + pic["poc"] in pic["used"])) for d in deltas if d > 0]}
+            if r not in sets:
+                sets.append(r)
+    o["rps_sets"] = o["rps_sets"] + sets
+    w = StreamWriter(o, seed)
+    samples = []
+    for k, pic in enumerate(pics):
+        irap = 16 <= pic["typ"] <= 23
+        units = w.parameter_sets() if k == 0 or (inband and irap) else []
+        if extra:
+            units = [nal(AUD, bytes([0x50]))] + units + [nal(SEI, bytes([5, 1, 0, 0x80]))]
+        units += w.coded_picture(pic, output=not (k and w.rng.random() < hidden),
+                                 no_output_of_prior=bool(irap and w.rng.random() < no_prior))
+        samples.append(units)
+    o["display"] = [p["disp"] for p in pics]
+    o["pictures"] = pics
+    if start_cra:
+        k = next(i for i, p in enumerate(pics) if p["typ"] == CRA)
+        samples = [w.parameter_sets() + samples[k]] + samples[k + 1:]
+        first = min(o["display"][k:])
+        o["display"] = [d - first for d in o["display"][k:]]
+        o["pictures"] = pics[k:]
+    return samples, o
+
+
 # --- an encoder of real content -------------------------------------------------------
+
+
+def _smooth_options(width, height, seed, qp, **kw) -> dict:
+    base = dict(log2_ctb=5, log2_min_cb=3, log2_max_tb=5, amp=False, sao=False, tmvp=False,
+                strong=False, max_ref=1, depth_inter=0, depth_intra=0, slices=1, nonref=0.0,
+                intra_in_p=0.0, log2_max_poc_lsb=8, poc_step=1, gpb=0.0, p_in_b=0.0)
+    pps_kw = dict(sdh=False, cu_qp_delta=False, ts=False, cip=False, weighted=False, wpp=True,
+                  dbk_ctrl=(False, True, 0, 0), lists_mod=False, init_qp=qp, num_ref_default=1,
+                  extra_bits=0, header_ext=False, cabac_init_present=False, output_flag=False,
+                  slice_cqp=False, cqp=[0, 0], par_mrg=2, weighted_bipred=False,
+                  num_ref_default1=1)
+    pps_kw.update(kw.pop("pps", {}))
+    return options(width, height, seed, **{**base, **kw, "pps": pps_kw})
+
+
+def _smooth_b_stream(width, height, n, seed, step, qp, gop, bframes, **kw) -> tuple:
+    styles = kw.pop("styles", ("cra-rasl",))
+    o = _smooth_options(width, height, seed, qp, **kw)
+    src = hf.smooth_yuv(o["width"], o["height"], n, seed, step)
+    pics = b_schedule(n, gop, bframes, np.random.default_rng(seed), True, styles, 1, 0.0, 1)
+    o["reorder"], o["dpb"] = schedule_limits(pics)
+    w = StreamWriter(o, seed)
+    enc = SmoothEncoder()
+    recs = {}  # display index -> the decoder's reconstruction
+    disp_of = {}  # POC -> display index, by the schedule
+    samples = []
+    for k, pic in enumerate(pics):
+        d = pic["disp"]
+        disp_of[pic["poc"]] = d
+        frame = [p[d] for p in src]
+        enc.rec = [np.zeros_like(p) for p in frame]
+        before = sorted((disp_of[r] for r in pic["used"] if disp_of[r] < d), reverse=True)
+        after = sorted(disp_of[r] for r in pic["used"] if disp_of[r] > d)
+        r0, r1 = (before + after)[0] if pic["used"] else None, (after + before)[0] if pic["used"] else None
+        enc.ref = recs.get(r0)
+        enc.ref1 = recs.get(r1)
+        kind = "I" if pic["kind"] == "I" else pic["kind"]
+        w.rng = np.random.default_rng(seed * 1000 + k)  # slice settings: fixed below
+
+        def chooser(sl, frame=frame, kind=kind, r0=r0, r1=r1, d=d):
+            sl.update(qp=qp, sao_luma=False, sao_chroma=False, max_merge=5, dbk=None, cqp=[0, 0],
+                      lf_coded=False, cabac_init=False, num_ref=1, num_ref1=1, mvd_l1_zero=False,
+                      type=kind)
+            mv = None if r0 is None else (4 * step * (d - r0), 0)
+            mv1 = None if r1 is None else (4 * step * (d - r1), 0)
+            return SmoothChooser(enc, sl, frame, mv, mv1)
+        samples.append((w.parameter_sets() if k == 0 else []) + w.coded_picture(pic, chooser))
+        recs[d] = enc.rec
+    o["display"] = [p["disp"] for p in pics]
+    o["pictures"] = pics
+    return samples, o
+
 
 _LEVEL_SCALE = [40, 45, 51, 57, 64, 72]
 _DCT_MAG = [64, 90, 90, 90, 89, 88, 87, 85, 83, 82, 80, 78, 75, 73, 70, 67, 64,
@@ -1473,12 +1866,14 @@ class SmoothChooser:
     """An encoder's decisions for one slice of a picture of ``frame``: intra
     DC CUs (I) or CUs at the pan's vector ``mv`` (P; the first through AMVP
     from a zero predictor, the rest merged from a neighbour, skipped where
-    no residual is left), each CU one transform block, its residual coded
-    at the slice's QP; ``rec`` (the picture being reconstructed) is updated
-    as the decoder reconstructs it (no in-loop filter runs)."""
+    no residual is left), or bi-predicted from two references at their
+    vectors ``mv`` and ``mv1`` (B: the average of both), each CU one
+    transform block, its residual coded at the slice's QP; ``rec`` (the
+    picture being reconstructed) is updated as the decoder reconstructs it
+    (no in-loop filter runs)."""
 
-    def __init__(self, enc: "SmoothEncoder", sl: dict, frame, mv):
-        self.enc, self.sl, self.frame, self.mv = enc, sl, frame, mv
+    def __init__(self, enc: "SmoothEncoder", sl: dict, frame, mv, mv1=None):
+        self.enc, self.sl, self.frame, self.mv, self.mv1 = enc, sl, frame, mv, mv1
         self.qp = sl["qp"]
         self.levels_of = {}
         self.first = True
@@ -1519,11 +1914,17 @@ class SmoothChooser:
             return {"skip": False, "intra": True, "part": PART_2Nx2N, "modes": [1], "chroma": 4}
         pred = [enc.shifted(c, x0 >> (c > 0), y0 >> (c > 0), (1 << log2) >> (c > 0), self.mv)
                 for c in range(3)]
+        if self.sl["type"] == "B":  # the default weighted average of both
+            pred = [(p + enc.shifted(c, x0 >> (c > 0), y0 >> (c > 0), (1 << log2) >> (c > 0), self.mv1,
+                                     enc.ref1) + 1) >> 1 for c, p in enumerate(pred)]
         coded = self._code(pred, x0, y0, log2)
         if self.first:
             self.first = False
+            pu = {"merge": False, "ref": 0, "mvd": list(self.mv), "mvp": 0}
+            if self.sl["type"] == "B":
+                pu.update(dir=PRED_BI, ref1=0, mvd1=list(self.mv1), mvp1=0)
             return {"skip": False, "intra": False, "part": PART_2Nx2N, "root_cbf": coded,
-                    "pus": [{"merge": False, "ref": 0, "mvd": list(self.mv), "mvp": 0}]}
+                    "pus": [pu]}
         if not coded:
             return {"skip": True, "pus": [{"merge": True, "idx": 0}]}
         return {"skip": False, "intra": False, "part": PART_2Nx2N,
@@ -1545,7 +1946,7 @@ class SmoothEncoder:
 
     def __init__(self):
         self.rec = None
-        self.ref = None
+        self.ref = self.ref1 = None  # the pictures lists 0 and 1 start with
 
     def dc(self, c: int, x0: int, y0: int, log2: int) -> np.ndarray:
         """Intra DC prediction of a block (8.4.4.2.5): the neighbours above and
@@ -1569,10 +1970,11 @@ class SmoothEncoder:
             out[1:, 0] = (left[1:] + 3 * dc + 2) >> 2
         return out
 
-    def shifted(self, c: int, x0: int, y0: int, n: int, mv) -> np.ndarray:
-        """A block of the reference picture moved by integer vector ``mv``
-        (quarter luma samples, multiples of 8), the edge extended."""
-        p = self.ref[c]
+    def shifted(self, c: int, x0: int, y0: int, n: int, mv, ref=None) -> np.ndarray:
+        """A block of the reference picture (``ref``, else list 0's first)
+        moved by integer vector ``mv`` (quarter luma samples, multiples of
+        8), the edge extended."""
+        p = (ref or self.ref)[c]
         f = 4 if c == 0 else 8
         H, W = p.shape
         ys = np.clip(np.arange(y0, y0 + n) + mv[1] // f, 0, H - 1)
@@ -1581,23 +1983,23 @@ class SmoothEncoder:
 
 
 def smooth_stream(width: int, height: int, n: int, seed: int, step: int = 4, qp: int = 30,
-                  gop: int = 0, **kw) -> tuple:
+                  gop: int = 0, bframes: int = 0, **kw) -> tuple:
     """(samples, options): a seeded smooth field panning ``step`` pixels a
     frame (``torch_h264_files.smooth_yuv``), coded as an IDR picture of
     intra DC CUs, then P pictures at the pan's vector (x265's defaults where
     the clip reaches them: 32x32 CTBs here, WPP), the residual coded at a
     fixed QP, deblocking and SAO off so that the encoder's reconstruction is
-    the decoder's; an IDR picture every ``gop`` (0: only the first)."""
+    the decoder's; an IDR picture every ``gop`` (0: only the first).  With
+    ``bframes``, x265's default structure: anchors ``bframes`` + 1 apart,
+    hierarchical B pictures between, each bi-predicted from the nearest
+    reference before and after it, and every ``gop`` an open-GOP CRA
+    picture whose B pictures before it are RASL pictures (``styles`` of
+    ``b_schedule`` for others); the samples then in decoding order,
+    ``options["display"]`` each one's display index."""
     assert step % 2 == 0, "an even step keeps the chroma vector whole"
-    base = dict(log2_ctb=5, log2_min_cb=3, log2_max_tb=5, amp=False, sao=False, tmvp=False,
-                strong=False, max_ref=1, depth_inter=0, depth_intra=0, slices=1, nonref=0.0,
-                intra_in_p=0.0, log2_max_poc_lsb=8, poc_step=1)
-    pps_kw = dict(sdh=False, cu_qp_delta=False, ts=False, cip=False, weighted=False, wpp=True,
-                  dbk_ctrl=(False, True, 0, 0), lists_mod=False, init_qp=qp, num_ref_default=1,
-                  extra_bits=0, header_ext=False, cabac_init_present=False, output_flag=False,
-                  slice_cqp=False, cqp=[0, 0], par_mrg=2)
-    pps_kw.update(kw.pop("pps", {}))
-    o = options(width, height, seed, **{**base, **kw, "pps": pps_kw})
+    if bframes:
+        return _smooth_b_stream(width, height, n, seed, step, qp, gop, bframes, **kw)
+    o = _smooth_options(width, height, seed, qp, **kw)
     src = hf.smooth_yuv(o["width"], o["height"], n, seed, step)
     w = StreamWriter(o, seed)
     enc = SmoothEncoder()
