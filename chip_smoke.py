@@ -306,6 +306,16 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      PNG control's frames held to cv2's digests; (c) an IDR, a P and a B
      picture's decode at 480x640 and 1920x1080, beside the P-only clips'
      IDR and P pictures, in the same call.
+  25. Motion-JPEG input on the card's host (the decoder of
+     csrc/host/mjpeg.cpp, libavcodec's arithmetic): (a) every committed
+     Motion-JPEG fixture (OpenCV's own writer, FFmpeg's in .avi, .mov and
+     .mp4, libjpeg-turbo's 4:2:2 pictures with and without DHT, 4:2:0 with
+     restart intervals, at a size no multiple of the MCU, and with a
+     dropped frame), read as 19a reads them, against cv2's digests
+     (tests/data/mjpeg_fixtures.json); (b) 19b over the committed 480x640
+     clip of OpenCV's MJPEG writer, its PNG control's frames held to cv2's
+     digests; (c) a frame's decode at 480x640 and 1920x1080 beside the
+     image reader's decode_jpeg of the same samples, in the same call.
 
 Phase 2 also holds the two gather probes' kernels (gather_rows_sum,
 take_along_rows, the latter at every slab width of SLAB_SWEEP, timed in
@@ -5978,6 +5988,87 @@ def run_hevc_b_input(dev, work, smi):
     return fixtures, cli, decode
 
 
+# ---------------------------------------------------------------------------
+# phase 25: Motion-JPEG video input on the card's host
+# ---------------------------------------------------------------------------
+
+MJPEG_CLIP = "mjpeg_480x640_smooth.avi"
+MJPEG_BIG = "mjpeg_1080x1920_smooth.avi"
+
+
+def _mjpeg_decode_ms(name, passes):
+    """Host milliseconds of each sample's decode and conversion to RGB
+    (``native.MjpegDecoder``: libavcodec's arithmetic), and of the same
+    sample through ``native.decode_jpeg`` (the image reader: libjpeg-turbo's
+    ISLOW IDCT and fancy upsampling), over ``passes`` decodes of the file,
+    alternating."""
+    from mast3r_slam_tpu_torch.data import video
+    from mast3r_slam_tpu_torch.utils import native
+
+    data, track = video.read_track(VIDEO_DATA / name)
+    samples = [data[int(a):int(a) + int(n)] for a, n in zip(track.offsets, track.sizes)]
+    ms, jms = [], []
+    for _ in range(passes):
+        dec = native.MjpegDecoder(track.width, track.height)
+        for sample in samples:
+            t0 = time.perf_counter()
+            if not dec.decode(sample):
+                raise AssertionError(f"25c: {name}: a sample output no frame")
+            dec.rgb()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            native.decode_jpeg(sample)
+            jms.append((time.perf_counter() - t0) * 1e3)
+        dec.close()
+    return dict(frame_ms=statistics.median(ms), jpeg_ms=statistics.median(jms),
+                frames=len(samples), passes=passes, file_bytes=len(data),
+                shape=[track.height, track.width, 3])
+
+
+def time_mjpeg_decode():
+    """25c: host milliseconds of a Motion-JPEG frame's decode and conversion
+    to RGB at 480x640 (the 25b clip, 14 frames) and 1920x1080 (3 frames),
+    beside ``native.decode_jpeg`` of the same samples, median over
+    VIDEO_DECODE_PASSES decodes of each file, all in one call."""
+    out = dict(mjpeg_480x640=_mjpeg_decode_ms(MJPEG_CLIP, VIDEO_DECODE_PASSES),
+               mjpeg_1080x1920=_mjpeg_decode_ms(MJPEG_BIG, VIDEO_DECODE_PASSES))
+    log(f"25c decode (host clock): {json.dumps(out)}")
+    return out
+
+
+def run_mjpeg_input(dev, work, smi):
+    """Phase 25 (a)-(c), each checked; raises on any fault."""
+    import hashlib
+
+    from mast3r_slam_tpu_torch.data import png
+
+    t0 = time.perf_counter()
+    fixtures = check_video_fixtures("mjpeg_fixtures.json", "25a")
+    if fixtures["files"] < 10:
+        raise AssertionError(f"25a: {fixtures['files']} Motion-JPEG fixtures, 10 expected")
+    digests = json.loads((IMAGE_DATA / "mjpeg_fixtures.json").read_text())
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        cli = run_cli_video(dev, work, clip_name=MJPEG_CLIP, tag="25b", save="mjpeg")
+    finally:
+        os.chdir(cwd)
+    control = sorted((work / "mjpeg_png").iterdir())
+    cli["control_is_cv2s"] = ([hashlib.sha256(png.read_png(p).tobytes()).hexdigest()
+                               for p in control]
+                              == digests[f"video_fixtures/{MJPEG_CLIP}"]["frames"])
+    if not cli["control_is_cv2s"]:
+        raise AssertionError("25b: the PNG control's frames are not cv2's by the digests")
+    check_cli_video(cli, "the Motion-JPEG clip", "25b")
+    decode = time_mjpeg_decode()
+    ms = {k: f"{r['frame_ms']:.3f} (decode_jpeg {r['jpeg_ms']:.3f})" for k, r in decode.items()}
+    log(f"25 Motion-JPEG input: a frame decodes in {json.dumps(ms)} ms (host clock); the "
+        f"CLI's ingest p50 {cli['ingest_ms_p50']:.2f} ms over the Motion-JPEG clip, "
+        f"{cli['control_ingest_ms_p50']:.2f} ms over its PNG control; launches "
+        f"{cli['launches']}; phase 25 {time.perf_counter() - t0:.1f} s; {smi}")
+    return fixtures, cli, decode
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -6249,6 +6340,11 @@ def main() -> int:
     # pictures behind ctts and an edit against its PNG control, the decode
     # of IDR, P and B pictures timed; same directory
     hevc_b_fixtures, hevc_b_cli, hevc_b_decode = run_hevc_b_input(dev, work, smi)
+    # Motion-JPEG input (OpenCV's and FFmpeg's writers, libjpeg-turbo's
+    # pictures): the fixtures against cv2's digests, the ViT-L CLI over
+    # OpenCV's MJPEG AVI against its PNG control, the decode timed beside
+    # the image reader's; same directory
+    mjpeg_fixtures, mjpeg_cli, mjpeg_decode = run_mjpeg_input(dev, work, smi)
 
     common = lambda r: {k: r[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms",
@@ -6271,6 +6367,7 @@ def main() -> int:
              bframe_cli_launches=bframe_cli["launches"]["attention"],
              hevc_cli_launches=hevc_cli["launches"]["attention"],
              hevc_b_cli_launches=hevc_b_cli["launches"]["attention"],
+             mjpeg_cli_launches=mjpeg_cli["launches"]["attention"],
              mesh_launches={"vitl_task_2_shards": mtask["launches"]["attention"],
                             "threaded_vitl_ranks": [c["attention"] for c in tranks]}),
         dict(name="refine_window", route="cuda",
@@ -6295,6 +6392,7 @@ def main() -> int:
              bframe_cli_launches=bframe_cli["launches"]["refine_window"],
              hevc_cli_launches=hevc_cli["launches"]["refine_window"],
              hevc_b_cli_launches=hevc_b_cli["launches"]["refine_window"],
+             mjpeg_cli_launches=mjpeg_cli["launches"]["refine_window"],
              mesh_launches={"vitl_task_2_shards": mtask["launches"]["refine_window"],
                             "two_process_ranks": [c["refine_window"] for c in mranks],
                             "threaded_vitl_ranks": [c["refine_window"] for c in tranks]},
@@ -6321,6 +6419,7 @@ def main() -> int:
              bframe_cli_launches=bframe_cli["launches"]["edge_hg_rays"],
              hevc_cli_launches=hevc_cli["launches"]["edge_hg_rays"],
              hevc_b_cli_launches=hevc_b_cli["launches"]["edge_hg_rays"],
+             mjpeg_cli_launches=mjpeg_cli["launches"]["edge_hg_rays"],
              mesh_launches={"sharded_solve": {k: r["launches"] for k, r in msolve.items()},
                             "two_process_ranks": [c["edge_hg_rays"] for c in mranks],
                             "threaded_vitl_ranks": [c["edge_hg_rays"] for c in tranks],
@@ -6423,7 +6522,9 @@ def main() -> int:
         "hevc_input": {"fixtures": hevc_fixtures, "cli": hevc_cli, "decode": hevc_decode,
                        "card": smi},
         "hevc_b_input": {"fixtures": hevc_b_fixtures, "cli": hevc_b_cli,
-                         "decode": hevc_b_decode, "card": smi}}
+                         "decode": hevc_b_decode, "card": smi},
+        "mjpeg_input": {"fixtures": mjpeg_fixtures, "cli": mjpeg_cli, "decode": mjpeg_decode,
+                        "card": smi}}
     log(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 // libswscale's yuv420p -> BGR24 conversion as cv2.VideoCapture asks for it
 // (the SIMD path cv2 runs on x86-64: pmulhw on samples shifted up by 3),
-// written as RGB.  Shared by the host library's video decoders (mpeg4.cpp,
-// h264.cpp).
+// written as RGB, and its yuv422p one.  Shared by the host library's video
+// decoders (mpeg4.cpp, h264.cpp, hevc.cpp, mjpeg.cpp).
 //
 // The six 16-bit coefficients are ff_yuv2rgb_c_init_tables' from
 // libswscale's table for the stream's matrix_coefficients (cv2 5.0.0 hands
@@ -9,7 +9,8 @@
 // else BT.601) and its range: limited range scales luma by 255/219 from
 // 16, full range (yuvj420p, which libavcodec's H.264 decoder outputs for
 // video_full_range_flag 1) scales chroma by 224/255.  Each class and range
-// held against cv2 5.0.0 on all 2^24 (Y, U, V) at even heights.
+// held against cv2 5.0.0 on all 2^24 (Y, U, V) at even heights; yuvj422p
+// (Motion-JPEG's 4:2:2) too, at every width from 1 to 39 and more.
 #pragma once
 
 #include <cstddef>
@@ -53,13 +54,16 @@ inline YuvCoeffs yuv_coeffs(int matrix, bool full_range) {
             round16(cgu * 8192), round16(cgv * 8192), round16(cbu * 8192)};
 }
 
-// planes of `width` x `height` (even) 4:2:0 samples with strides ys / cs
-inline void yuv420_to_rgb(const uint8_t* Y, int ys, const uint8_t* U, const uint8_t* V, int cs,
-                          int width, int height, const YuvCoeffs& c, uint8_t* out) {
+// planes of `width` x `height` (even) samples with strides ys / cs, the
+// chroma halved across and, for `vshift` 1, down (4:2:0; 0: 4:2:2, which
+// libswscale converts with the same arithmetic, yuv422p's special
+// converter)
+inline void yuv_to_rgb(const uint8_t* Y, int ys, const uint8_t* U, const uint8_t* V, int cs,
+                       int width, int height, int vshift, const YuvCoeffs& c, uint8_t* out) {
     for (int y = 0; y < height; y++) {
         const uint8_t* yr = Y + size_t(y) * ys;
-        const uint8_t* ur = U + size_t(y >> 1) * cs;
-        const uint8_t* vr = V + size_t(y >> 1) * cs;
+        const uint8_t* ur = U + size_t(y >> vshift) * cs;
+        const uint8_t* vr = V + size_t(y >> vshift) * cs;
         uint8_t* o = out + size_t(y) * width * 3;
         for (int x = 0; x < width; x++) {
             int yy = (((int(yr[x]) << 3) - c.y_offset) * c.y) >> 16;
@@ -69,6 +73,11 @@ inline void yuv420_to_rgb(const uint8_t* Y, int ys, const uint8_t* U, const uint
             o[3 * x + 2] = clip_u8(yy + ((u * c.ub) >> 16));
         }
     }
+}
+
+inline void yuv420_to_rgb(const uint8_t* Y, int ys, const uint8_t* U, const uint8_t* V, int cs,
+                          int width, int height, const YuvCoeffs& c, uint8_t* out) {
+    yuv_to_rgb(Y, ys, U, V, cs, width, height, 1, c, out);
 }
 
 }  // namespace host

@@ -5,10 +5,10 @@ The JAX package reads ``.mp4``, ``.mov`` and ``.avi`` through
 ``cv2.VideoCapture`` (FFmpeg).  Here the container is walked in Python
 (``read_track``: ISO BMFF boxes or RIFF AVI chunks, into a table of
 sample offsets, sizes and sync flags) and each sample is decoded by the
-host library's MPEG-4 Part 2, H.264 or HEVC decoder (``csrc/host/mpeg4.cpp``,
-``h264.cpp``, ``hevc.cpp`` through ``utils/native.Mpeg4Decoder``,
-``H264Decoder``, ``HevcDecoder``),
-which gives the frame that ``cv2.cvtColor(cap.read()[1],
+host library's MPEG-4 Part 2, H.264, HEVC or Motion-JPEG decoder
+(``csrc/host/mpeg4.cpp``, ``h264.cpp``, ``hevc.cpp``, ``mjpeg.cpp`` through
+``utils/native.Mpeg4Decoder``, ``H264Decoder``, ``HevcDecoder``,
+``MjpegDecoder``), which gives the frame that ``cv2.cvtColor(cap.read()[1],
 cv2.COLOR_BGR2RGB)`` gives with cv2 5.0.0; the frame is then turned by
 the track's display matrix as cv2 turns it (``Track.rotation``).
 ``len``, ``fps`` and the timestamps are the ones cv2 reports:
@@ -29,11 +29,17 @@ presentation time (``ctts``) from the edit's start; frames outside the one
 edit are decoded and not shown (``Track.frames``).  A read away from the
 next frame seeks as cv2 does (``MP4Dataset._seek``), its sync sample
 found as FFmpeg's demuxer finds it (``MP4Dataset._seek_sample``), frames
-counted from the first one the file shows.
+counted from the first one the file shows.  Motion-JPEG (the AVI
+fourccs FFmpeg maps to it and reads as it reads MJPG, a ``jpeg`` sample
+entry, or ``mp4v`` of objectTypeIndication 0x6C) has a picture a sample,
+every one a sync sample; an empty AVI chunk (a dropped frame) counts in
+the frame count and shows nothing, so cv2's later frames come one early.
 
 What is not ported raises ``NotImplementedError`` naming ROADMAP Queue 1
 item 17, and never falls back to cv2: video codecs other than MPEG-4
-Part 2, H.264 and HEVC (AV1, MJPEG, MS-MPEG4, FFV1, ...), sample
+Part 2, H.264, HEVC and Motion-JPEG (AV1, MS-MPEG4, FFV1, ...), the
+Motion-JPEG fourccs, sample entries and pictures libavcodec treats apart
+(item 17f: ``mjpeg.cpp`` lists the pictures), sample
 durations that are not one constant run (FFmpeg guesses a rate from
 them), composition times that are not distinct whole frames, edit lists
 of several edits, empty edits or another rate, MPEG-4 Part 2 B-VOPs
@@ -72,7 +78,17 @@ AVI_H264_FOURCCS = {b"H264", b"X264", b"AVC1", b"DAVC", b"SMV2", b"VSSH", b"Q264
 H264_ENTRIES = {b"avc1", b"avc3"}  # ISO BMFF sample entries of H.264 read here
 AVI_HEVC_FOURCCS = {b"HEVC", b"H265", b"HEV1", b"HVC1"}
 HEVC_ENTRIES = {b"hvc1", b"hev1"}  # ISO BMFF sample entries of HEVC read here
+# the AVI fourccs cv2 reads as Motion-JPEG exactly as it reads MJPG; those
+# libavcodec decodes apart (a height cut to the container's, CJPG's scan
+# header, lossless and JPEG-LS ids, MTSJ's swapped chroma) are refused
+AVI_MJPEG_FOURCCS = {b"MJPG", b"AVI1", b"AVI2", b"MJPA", b"JR24", b"ACDV", b"QIVG", b"SLMJ",
+                     b"IJPG", b"JPGL", b"JPEG", b"DMB1", b"ZJPG", b"MMJP"}
+AVI_MJPEG_REFUSED = {b"AVRN", b"AVDJ", b"CJPG", b"LJPG", b"MJLS", b"MTSJ"}
+MJPEG_ENTRY = b"jpeg"  # the ISO BMFF sample entry of Motion-JPEG read here
+MJPEG_REFUSED_ENTRIES = {b"mjpa", b"mjpb", b"AVDJ", b"AVRn", b"dmb1"}
+MJPEG_ITEM = "ROADMAP Queue 1 item 17f"
 MPEG4_VISUAL = 0x20  # esds objectTypeIndication of MPEG-4 Part 2 (ISO/IEC 14496-1)
+MJPEG_OTI = 0x6C  # esds objectTypeIndication FFmpeg maps to Motion-JPEG
 VOP_START = b"\x00\x00\x01\xb6"
 
 
@@ -101,10 +117,14 @@ class Track:
     # what FFmpeg's mov_seek_stream adds to a target frame before it compares
     # decode times (its min_corrected_pts taken off, in frames)
     seek_offset: float = 0.0
+    # the frame size the container gives (Motion-JPEG: libavcodec's coded
+    # size at open), 0 where it gives none
+    width: int = 0
+    height: int = 0
 
 
-def _unsupported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported ({ROADMAP_ITEM})")
+def _unsupported(what: str, item: str = ROADMAP_ITEM) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported ({item})")
 
 
 # --- ISO BMFF (.mp4, .mov) -------------------------------------------------
@@ -174,8 +194,10 @@ def _descriptor(data: bytes, at: int, end: int, path):
     return tag, at, at + size
 
 
-def _esds_config(data: bytes, a: int, b: int, path) -> bytes:
-    """The DecoderSpecificInfo of an ``esds`` box, checked to be MPEG-4 Part 2."""
+def _esds_config(data: bytes, a: int, b: int, path) -> tuple:
+    """(the DecoderSpecificInfo of an ``esds`` box, the codec: "mpeg4" for
+    MPEG-4 Part 2, "mjpeg" for JPEG); other objectTypeIndications are
+    refused."""
     tag, s, e = _descriptor(data, a + 4, b, path)
     if tag != 3:
         raise ValueError(f"{path}: esds holds descriptor {tag}, not an ES_Descriptor")
@@ -190,15 +212,16 @@ def _esds_config(data: bytes, a: int, b: int, path) -> bytes:
     tag, s, e = _descriptor(data, s, e, path)
     if tag != 4:
         raise ValueError(f"{path}: esds holds descriptor {tag}, not a DecoderConfigDescriptor")
-    if data[s] != MPEG4_VISUAL:
+    if data[s] not in (MPEG4_VISUAL, MJPEG_OTI):
         raise _unsupported(f"{path}: an mp4v track of objectTypeIndication 0x{data[s]:02x}")
+    codec = "mpeg4" if data[s] == MPEG4_VISUAL else "mjpeg"
     at = s + 13
     while at < e:
         tag, ds, de = _descriptor(data, at, e, path)
         if tag == 5:
-            return bytes(data[ds:de])
+            return bytes(data[ds:de]), codec
         at = de
-    return b""
+    return b"", codec
 
 
 def _avcc_config(data: bytes, a: int, b: int, path) -> tuple:
@@ -372,18 +395,23 @@ def _mp4_track(data: bytes, trak, path, mvhd, movie_scale: int) -> Optional[Trac
     if n_entries != 1 or len(entries) != 1:
         raise _unsupported(f"{path}: a video track of {n_entries} sample descriptions")
     fourcc, va, vb = entries[0]
-    if fourcc != b"mp4v" and fourcc not in H264_ENTRIES and fourcc not in HEVC_ENTRIES:
+    if fourcc in MJPEG_REFUSED_ENTRIES:
+        raise _unsupported(f"{path}: Motion-JPEG of sample entry {fourcc.decode()!r}",
+                           MJPEG_ITEM)
+    if fourcc not in (b"mp4v", MJPEG_ENTRY) and fourcc not in H264_ENTRIES \
+            and fourcc not in HEVC_ENTRIES:
         raise _unsupported(f"{path}: video of sample entry {fourcc.decode(errors='replace')!r}")
-    config, codec, length_size = b"", "mpeg4", 0
+    config, codec, length_size = b"", "mpeg4" if fourcc == b"mp4v" else "mjpeg", 0
+    width, height = struct.unpack(">HH", data[va + 24:va + 28])
     children = {kind: (ka, kb) for kind, ka, kb in _boxes(data, va + 78, vb, path)}
     if fourcc == b"mp4v" and b"esds" in children:
-        config = _esds_config(data, *children[b"esds"], path)
+        config, codec = _esds_config(data, *children[b"esds"], path)
     elif fourcc in HEVC_ENTRIES:
         if b"hvcC" not in children:
             raise _unsupported(f"{path}: an {fourcc.decode()} track without an hvcC box")
         config, length_size = _hvcc_config(data, *children[b"hvcC"], path)
         codec = "hevc"
-    elif fourcc != b"mp4v":
+    elif fourcc in H264_ENTRIES:
         if b"avcC" not in children:
             raise _unsupported(f"{path}: an {fourcc.decode()} track without an avcC box")
         config, length_size = _avcc_config(data, *children[b"avcC"], path)
@@ -431,8 +459,10 @@ def _mp4_track(data: bytes, trak, path, mvhd, movie_scale: int) -> Optional[Trac
         data, stbl, kids, int(count), int(deltas[0]), timescale, movie_scale, path)
     if codec == "mpeg4" and b"ctts" in stbl:
         raise _unsupported(f"{path}: MPEG-4 Part 2 with composition offsets (B-VOPs)")
+    if codec == "mjpeg" and b"ctts" in stbl:
+        raise _unsupported(f"{path}: Motion-JPEG with composition offsets", MJPEG_ITEM)
     return Track(config, offsets, sizes, sync, timescale / int(deltas[0]), int(count), codec,
-                 length_size, turn, frames, delay, decode_times, seek_offset)
+                 length_size, turn, frames, delay, decode_times, seek_offset, width, height)
 
 
 def _damaged(read):
@@ -514,10 +544,15 @@ def read_avi(data: bytes, path) -> Track:
     scale, rate = struct.unpack("<II", data[sa + 20:sa + 28])
     (length,) = struct.unpack("<I", data[sa + 32:sa + 36])
     fa, _ = kids[b"strf"]
+    width, height = struct.unpack("<ii", data[fa + 4:fa + 12])
     compression = bytes(data[fa + 16:fa + 20])
     codec = ("mpeg4" if compression.upper() in AVI_MPEG4_FOURCCS
              else "h264" if compression.upper() in AVI_H264_FOURCCS
-             else "hevc" if compression.upper() in AVI_HEVC_FOURCCS else None)
+             else "hevc" if compression.upper() in AVI_HEVC_FOURCCS
+             else "mjpeg" if compression.upper() in AVI_MJPEG_FOURCCS else None)
+    if compression.upper() in AVI_MJPEG_REFUSED:
+        raise _unsupported(f"{path}: Motion-JPEG of AVI fourcc {compression.decode()!r}",
+                           MJPEG_ITEM)
     if codec is None:
         raise _unsupported(f"{path}: AVI video of fourcc "
                            f"{compression.decode(errors='replace')!r}")
@@ -540,8 +575,10 @@ def read_avi(data: bytes, path) -> Track:
         raise ValueError(f"{path}: idx1 names a chunk past the end of the file")
     if len(rows) != length:
         raise _unsupported(f"{path}: an AVI stream of {length} frames indexed as {len(rows)}")
-    return Track(b"", offsets, sizes, (rows[:, 1] & 0x10) != 0, rate / scale, int(length),
-                 codec)
+    # FFmpeg's demuxer indexes no empty chunk: a seek never lands on one
+    sync = ((rows[:, 1] & 0x10) != 0) & (sizes > 0)
+    return Track(b"", offsets, sizes, sync, rate / scale, int(length), codec,
+                 width=max(width, 0), height=max(height, 0))
 
 
 def read_track(path) -> tuple:
@@ -559,12 +596,13 @@ def read_track(path) -> tuple:
 
 class MP4Dataset(MonocularDataset):
     """Video ingest (``.mp4``, ``.mov``, ``.avi``) through the host library's
-    MPEG-4 Part 2, H.264 and HEVC decoders, frame for frame as cv2 5.0.0 reads it,
+    MPEG-4 Part 2, H.264, HEVC and Motion-JPEG decoders, frame for frame as
+    cv2 5.0.0 reads it,
     each frame turned by the track's display matrix as cv2 turns it.
 
     A read at the next frame takes the next frame libavcodec outputs (a
-    not-coded VOP outputs none, so cv2's frames then run ahead of the
-    samples; H.264 and HEVC pictures come out in display order, the held
+    not-coded VOP or an empty Motion-JPEG chunk outputs none, so cv2's
+    frames then run ahead of the samples; H.264 and HEVC pictures come out in display order, the held
     ones drained at the end).  A read elsewhere seeks as ``cv2.VideoCapture.set(
     CAP_PROP_POS_FRAMES, t)`` does (``CvCapture_FFMPEG::seek``; before a
     first seek cv2 reads a frame): it restarts at the last sync sample
@@ -579,7 +617,8 @@ class MP4Dataset(MonocularDataset):
         self._data, self.track = read_track(self.dataset_path)
         track = self.track
         config = track.config
-        if not config and len(track.sizes):  # AVI: the headers open the first sample
+        if not config and len(track.sizes) and track.codec != "mjpeg":
+            # AVI: the headers open the first sample
             first = self._sample(0)
             config = first if track.codec in ("h264", "hevc") else \
                 first[:first.find(VOP_START)] if VOP_START in first else b""
@@ -591,10 +630,17 @@ class MP4Dataset(MonocularDataset):
             self._decoder.delay(self._probe_delay())
             missing = f"no {'HEVC' if track.codec == 'hevc' else 'H.264'} sequence parameter set " \
                 "before the first sample"
+        elif track.codec == "mjpeg":
+            if len(track.sizes) and not track.sizes[0]:
+                # cv2 then seeks to no frame and reads on from where it was
+                raise _unsupported(f"{self.dataset_path}: a Motion-JPEG track whose first "
+                                   "sample is empty", MJPEG_ITEM)
+            self._decoder = native.MjpegDecoder(track.width, track.height)
+            missing = None
         else:
             self._decoder = native.Mpeg4Decoder(config)
             missing = "no MPEG-4 VOL header before the first VOP"
-        if self._decoder.size() is None:
+        if missing and self._decoder.size() is None:
             raise ValueError(f"{self.dataset_path}: {missing}")
         self._cursor = 0  # the next sample to decode
         self._draining = False  # the samples are all fed: held pictures come out

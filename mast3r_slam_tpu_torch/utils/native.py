@@ -1,11 +1,13 @@
 """The port's host library: frame resize, undistortion remap and PNG row
 filters (port of ``mast3r_slam_tpu/utils/native.py``), the JPEG decoder
-of the image readers and the session server, and the MPEG-4 Part 2 and
-H.264 and HEVC decoders of the video reader, in C++.
+of the image readers and the session server, and the MPEG-4 Part 2,
+H.264, HEVC and Motion-JPEG decoders of the video reader, in C++.
 
-``csrc/host/preprocess.cpp``, ``jpeg.cpp``, ``mpeg4.cpp``, ``h264.cpp`` and
-``hevc.cpp`` (the video decoders share ``yuv420.h``, H.264 and HEVC the
-NAL unit reader of ``nal.h`` and the CABAC engine of ``cabac.h``) are
+``csrc/host/preprocess.cpp``, ``jpeg.cpp``, ``mpeg4.cpp``, ``h264.cpp``,
+``hevc.cpp`` and ``mjpeg.cpp`` (the video decoders share ``yuv420.h``,
+MPEG-4 Part 2 and Motion-JPEG the simple IDCT of ``idct.h``, the NAL unit
+decoders and Motion-JPEG the error handling of ``nal.h``, H.264 and HEVC
+its NAL unit reader and the CABAC engine of ``cabac.h``) are
 compiled with
 the host C++ compiler (``$CXX``, else ``g++``) at first use into one
 library in ``build/host/`` at the repository root, named by a hash of the
@@ -37,8 +39,10 @@ from .image import resize_geometry
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
 SOURCES = [_PKG_DIR / "csrc" / "host" / name
-           for name in ("preprocess.cpp", "jpeg.cpp", "mpeg4.cpp", "h264.cpp", "hevc.cpp")]
-HEADERS = [_PKG_DIR / "csrc" / "host" / name for name in ("yuv420.h", "cabac.h", "nal.h")]
+           for name in ("preprocess.cpp", "jpeg.cpp", "mpeg4.cpp", "h264.cpp", "hevc.cpp",
+                        "mjpeg.cpp")]
+HEADERS = [_PKG_DIR / "csrc" / "host" / name
+           for name in ("yuv420.h", "cabac.h", "nal.h", "idct.h")]
 BUILD_DIR = _PKG_DIR.parent / "build" / "host"
 CXX_FLAGS = ["-O3", "-march=native", "-ffast-math", "-funroll-loops", "-std=c++17",
              "-fPIC", "-Wall"]
@@ -80,6 +84,12 @@ _ARGTYPES = {
     "hevc_delay": [ctypes.c_void_p, _I, _I32P],
     "hevc_reset": [ctypes.c_void_p],
     "hevc_close": [ctypes.c_void_p],
+    "mjpeg_open": [_I, _I, ctypes.POINTER(ctypes.c_void_p), ctypes.c_char_p, _I],
+    "mjpeg_size": [ctypes.c_void_p, _I32P],
+    "mjpeg_decode": [ctypes.c_void_p, _U8P, ctypes.c_int64, _I32P, ctypes.c_char_p, _I],
+    "mjpeg_rgb": [ctypes.c_void_p, _U8P],
+    "mjpeg_reset": [ctypes.c_void_p],
+    "mjpeg_close": [ctypes.c_void_p],
 }
 
 _lib = None
@@ -295,6 +305,8 @@ class Mpeg4Decoder:
     ``NotImplementedError``, corrupt ones ``ValueError``.  One decoder
     serves one thread at a time."""
 
+    _PREFIX, _CODEC = "mpeg4", "MPEG-4"  # the host library's functions, the codec's name
+
     def __init__(self, config: bytes = b""):
         self._lib = load()
         self._state = None
@@ -304,40 +316,43 @@ class Mpeg4Decoder:
         rc = self._lib.mpeg4_open(_ptr(src, _U8P), src.size, ctypes.byref(state), err,
                                   len(err))
         if rc != 0:
-            raise _video_error(rc, err, "MPEG-4")
+            raise _video_error(rc, err, self._CODEC)
         self._state = state
+
+    def _fn(self, name: str):
+        return getattr(self._lib, f"{self._PREFIX}_{name}")
 
     def size(self):
         """(width, height) once a VOL has been read, else None."""
         wh = (ctypes.c_int * 2)()
-        self._lib.mpeg4_size(self._state, wh)
+        self._fn("size")(self._state, wh)
         return (wh[0], wh[1]) if wh[0] else None
 
     def decode(self, sample: bytes) -> bool:
         src = np.frombuffer(sample, dtype=np.uint8)
         err = ctypes.create_string_buffer(256)
         shown = ctypes.c_int()
-        rc = self._lib.mpeg4_decode(self._state, _ptr(src, _U8P), src.size,
-                                    ctypes.byref(shown), err, len(err))
+        rc = self._fn("decode")(self._state, _ptr(src, _U8P), src.size, ctypes.byref(shown),
+                                err, len(err))
         if rc != 0:
-            raise _video_error(rc, err, "MPEG-4")
+            raise _video_error(rc, err, self._CODEC)
         return bool(shown.value)
 
     def rgb(self) -> np.ndarray:
         width, height = self.size()
         out = np.empty((height, width, 3), dtype=np.uint8)
-        if self._lib.mpeg4_rgb(self._state, _ptr(out, _U8P)) != 0:
-            raise ValueError("no MPEG-4 frame decoded yet")
+        if self._fn("rgb")(self._state, _ptr(out, _U8P)) != 0:
+            raise ValueError(f"no {self._CODEC} frame decoded yet")
         return out
 
     def reset(self):
         """Forget the reference frame (before decoding from a sync sample)."""
-        self._lib.mpeg4_reset(self._state)
+        self._fn("reset")(self._state)
 
     def close(self):
         state, self._state = self._state, None
         if state:
-            self._lib.mpeg4_close(state)
+            self._fn("close")(state)
 
     def __del__(self):
         self.close()
@@ -465,3 +480,35 @@ class HevcDecoder(H264Decoder):
     matrix)."""
 
     _PREFIX, _CODEC = "hevc", "HEVC"
+
+
+class MjpegDecoder(Mpeg4Decoder):
+    """A Motion-JPEG decoder (``csrc/host/mjpeg.cpp``) over one track's
+    samples, each a JPEG picture, with ``Mpeg4Decoder``'s methods.
+    ``width`` and ``height`` are the container's frame size (libavcodec's
+    coded size when cv2 opens the decoder: a JPEG frame under 3/4 of that
+    height would be an AVI1 field pair, refused).  ``decode`` feeds a
+    sample and says whether libavcodec outputs a frame for it (not for an
+    empty sample, an AVI chunk of no bytes); ``size`` is the last frame's
+    (width, height), before one the container's; ``rgb`` gives the last
+    frame output as (H, W, 3) uint8 RGB, exactly what
+    ``cv2.cvtColor(cv2.VideoCapture(...).read()[1], cv2.COLOR_BGR2RGB)``
+    gives for it with cv2 5.0.0 (before cv2 turns it by the track's
+    display matrix).  The quantisation and Huffman tables a sample defines
+    stay for the samples after it, also across ``reset``, as libavcodec
+    keeps them.  What the decoder does not take (progressive, lossless,
+    arithmetic, 12-bit, 4:4:4, 4:4:0 and 4:1:1 samplings, ...) raises
+    ``NotImplementedError`` naming ROADMAP Queue 1 item 17f, corrupt data
+    ``ValueError``."""
+
+    _PREFIX, _CODEC = "mjpeg", "Motion-JPEG"
+
+    def __init__(self, width: int = 0, height: int = 0):
+        self._lib = load()
+        self._state = None
+        state = ctypes.c_void_p()
+        err = ctypes.create_string_buffer(256)
+        rc = self._lib.mjpeg_open(int(width), int(height), ctypes.byref(state), err, len(err))
+        if rc != 0:
+            raise _video_error(rc, err, self._CODEC)
+        self._state = state

@@ -321,10 +321,13 @@ h264 = dataloader.load_dataset(sys.argv[3])
 h264_frames = [h264[i] for i in range(3)]
 hevc = dataloader.load_dataset(sys.argv[4])
 hevc_frames = [hevc[i] for i in range(3)]
+mjpeg = dataloader.load_dataset(sys.argv[5])
+mjpeg_frames = [mjpeg[i] for i in range(3)]
 print(json.dumps({"attempts": attempts, "folder_frames": len(folder.frame_timestamps),
                   "video_frames": len(video.frame_timestamps),
                   "h264_frames": [f[1].shape for f in h264_frames],
                   "hevc_frames": [f[1].shape for f in hevc_frames],
+                  "mjpeg_frames": [f[1].shape for f in mjpeg_frames],
                   "modules": sorted(
     m.__file__ for n, m in sys.modules.items()
     if n.startswith("mast3r_slam_tpu_torch") and getattr(m, "__file__", None))}))
@@ -332,9 +335,9 @@ print(json.dumps({"attempts": attempts, "folder_frames": len(folder.frame_timest
 
 
 def test_the_cli_path_reaches_no_library_the_card_lacks(tmp_path):
-    """The modules phases 9, 12, 19, 20 and 23 run (a TUM sequence of PNGs, a
-    folder of JPEGs and a PNG, an MPEG-4 Part 2 video, an H.264 one, an HEVC
-    one) import
+    """The modules phases 9, 12, 19, 20, 23 and 25 run (a TUM sequence of
+    PNGs, a folder of JPEGs and a PNG, an MPEG-4 Part 2 video, an H.264 one,
+    an HEVC one, a Motion-JPEG one) import
     none of cv2, PIL, yaml or matplotlib, on the run (an import hook refuses
     them) and anywhere in their source."""
     import json
@@ -345,8 +348,9 @@ def test_the_cli_path_reaches_no_library_the_card_lacks(tmp_path):
     clip = ROOT / "tests" / "data" / "video_fixtures" / "mp4v_64x48_tex.mp4"
     h264 = ROOT / "tests" / "data" / "video_fixtures" / "h264_64x48_random.avi"
     hevc = ROOT / "tests" / "data" / "video_fixtures" / "hevc_64x48_random.mp4"
+    mjpeg = ROOT / "tests" / "data" / "video_fixtures" / "mjpeg_ff_64x48_tex.avi"
     out = subprocess.run([sys.executable, "-c", _NO_CARD_RUN, str(folder), str(clip), str(h264),
-                          str(hevc)],
+                          str(hevc), str(mjpeg)],
                          cwd=tmp_path,
                          env={**__import__("os").environ, "PYTHONPATH": str(ROOT)},
                          capture_output=True, text=True, timeout=600)
@@ -358,6 +362,7 @@ def test_the_cli_path_reaches_no_library_the_card_lacks(tmp_path):
     assert report["video_frames"] == 3
     assert report["h264_frames"] == [[48, 64, 3]] * 3
     assert report["hevc_frames"] == [[48, 64, 3]] * 3
+    assert report["mjpeg_frames"] == [[48, 64, 3]] * 3
     files = [pathlib.Path(m) for m in report["modules"]]
     assert {f.stem for f in files} >= {"run", "dataloader", "png", "native", "export",
                                        "renderer", "checkpoint", "yaml_subset", "ate",

@@ -194,8 +194,20 @@ def test_frames_turn_by_the_display_matrix_as_cv2_turns_them(tmp_path, codec, na
 
 @pytest.mark.parametrize("fourcc", ["MJPG", "MP42"])
 def test_other_avi_codecs_raise_not_implemented(tmp_path, fourcc):
+    """MS-MPEG4 (MP42) is refused when the file opens.  Motion-JPEG (MJPG)
+    is read since item 17f's first part (tests/test_torch_mjpeg.py); what
+    stays refused of it, here 4:4:4 pictures (libswscale converts them
+    through its scaler), is refused at the read."""
     path = tmp_path / "clip.avi"
-    vf.write_video(path, fourcc, vf.frames("smooth", 64, 48, 3, 0))
+    frames = vf.frames("smooth", 64, 48, 3, 0)
+    if fourcc == "MJPG":
+        import torch_mjpeg_files as mf
+
+        mf.write_avi(path, [mf.imencode(f, "444") for f in frames], 64, 48)
+        with pytest.raises(NotImplementedError, match="item 17"):
+            video.MP4Dataset(path).read_img(0)
+        return
+    vf.write_video(path, fourcc, frames)
     with pytest.raises(NotImplementedError, match="item 17"):
         video.MP4Dataset(path)
 

@@ -2433,14 +2433,15 @@ def write_mp4(path, samples, width: int, height: int, fps: int = 30, *, sync=Non
     and track ticks.  ``codec`` (another codec's writer, as
     ``torch_hevc_files`` passes it) gives ``is_ps(unit)``, ``is_sync(units)``
     and ``config(parameter sets, length_size)``, the decoder configuration
-    box, in place of H.264's."""
+    box, in place of H.264's; a ``length_size`` of 0 stores each sample's
+    one unit as it is (a Motion-JPEG picture)."""
     is_ps = codec.is_ps if codec else (lambda u: u[0] & 31 in (7, 8))
     first = samples[0]
     ps = [u for u in first if is_ps(u)]
     data = []
     for k, s in enumerate(samples):
         units = s if config_in_band or k else [u for u in s if not is_ps(u)]
-        data.append(length_prefixed(units, length_size))
+        data.append(length_prefixed(units, length_size) if length_size else b"".join(units))
     if sync is None:
         is_sync = codec.is_sync if codec else (lambda s: any(u[0] & 31 == 5 for u in s))
         sync = [k for k, s in enumerate(samples) if is_sync(s)]
