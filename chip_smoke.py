@@ -316,6 +316,16 @@ It imports no JAX.  Phases, any failure of which ends the run non-zero:
      clip of OpenCV's MJPEG writer, its PNG control's frames held to cv2's
      digests; (c) a frame's decode at 480x640 and 1920x1080 beside the
      image reader's decode_jpeg of the same samples, in the same call.
+  26. HEVC Main 10 input on the card's host (csrc/host/hevc.cpp at 9 and
+     10 bits, converted by csrc/host/swscale.h, libswscale's scaler as cv2
+     runs it): (a) every committed Main 10 fixture (random I/P syntax at 10
+     and 9 bits, B pictures with RASL and RADL pictures, full range BT.2020
+     with chroma sited top-left in .avi, the two pans), read as 19a reads
+     them, against cv2's digests (tests/data/hevc10_fixtures.json); (b) 19b
+     over the committed 480x640 10-bit clip (phase 23b's content), its PNG
+     control's frames held to cv2's digests; (c) a frame's decode and
+     conversion at 480x640 and 1920x1080 beside the 8-bit HEVC clips of the
+     same content, in the same call.
 
 Phase 2 also holds the two gather probes' kernels (gather_rows_sum,
 take_along_rows, the latter at every slab width of SLAB_SWEEP, timed in
@@ -6069,6 +6079,62 @@ def run_mjpeg_input(dev, work, smi):
     return fixtures, cli, decode
 
 
+# ---------------------------------------------------------------------------
+# phase 26: HEVC Main 10 video input on the card's host
+# ---------------------------------------------------------------------------
+
+HEVC10_CLIP = "hevc10_480x640_smooth.mp4"
+HEVC10_BIG = "hevc10_1080x1920_smooth.mp4"
+
+
+def time_hevc10_decode():
+    """26c: host milliseconds of a Main 10 frame's decode and conversion to
+    RGB (libswscale's scaled route), IDR and P pictures apart, at 480x640
+    (the 26b clip, 14 frames) and 1920x1080 (an IDR and two P pictures),
+    beside the 8-bit clips of the same content (phase 23's), median over
+    VIDEO_DECODE_PASSES decodes of each file, all in one call."""
+    out = dict(hevc10_480x640=_hevc_decode_ms(HEVC10_CLIP, VIDEO_DECODE_PASSES),
+               hevc10_1080x1920=_hevc_decode_ms(HEVC10_BIG, VIDEO_DECODE_PASSES),
+               hevc8_480x640=_hevc_decode_ms(HEVC_CLIP, VIDEO_DECODE_PASSES),
+               hevc8_1080x1920=_hevc_decode_ms(HEVC_BIG, VIDEO_DECODE_PASSES))
+    log(f"26c decode (host clock): {json.dumps(out)}")
+    return out
+
+
+def run_hevc10_input(dev, work, smi):
+    """Phase 26 (a)-(c), each checked; raises on any fault."""
+    import hashlib
+
+    from mast3r_slam_tpu_torch.data import png
+
+    t0 = time.perf_counter()
+    fixtures = check_video_fixtures("hevc10_fixtures.json", "26a")
+    if fixtures["files"] < 6:
+        raise AssertionError(f"26a: {fixtures['files']} Main 10 fixtures, 6 expected")
+    digests = json.loads((IMAGE_DATA / "hevc10_fixtures.json").read_text())
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        cli = run_cli_video(dev, work, clip_name=HEVC10_CLIP, tag="26b", save="hevc10")
+    finally:
+        os.chdir(cwd)
+    control = sorted((work / "hevc10_png").iterdir())
+    cli["control_is_cv2s"] = ([hashlib.sha256(png.read_png(p).tobytes()).hexdigest()
+                               for p in control]
+                              == digests[f"video_fixtures/{HEVC10_CLIP}"]["frames"])
+    if not cli["control_is_cv2s"]:
+        raise AssertionError("26b: the PNG control's frames are not cv2's by the digests")
+    check_cli_video(cli, "the Main 10 clip", "26b")
+    decode = time_hevc10_decode()
+    ms = {k: f"{r['frame_ms']:.3f} (IDR {r['idr_ms']:.3f}, P {r['p_ms']:.3f})"
+          for k, r in decode.items()}
+    log(f"26 HEVC Main 10 input: a frame decodes in {json.dumps(ms)} ms (host clock); the "
+        f"CLI's ingest p50 {cli['ingest_ms_p50']:.2f} ms over the Main 10 clip, "
+        f"{cli['control_ingest_ms_p50']:.2f} ms over its PNG control; launches "
+        f"{cli['launches']}; phase 26 {time.perf_counter() - t0:.1f} s; {smi}")
+    return fixtures, cli, decode
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -6345,6 +6411,11 @@ def main() -> int:
     # OpenCV's MJPEG AVI against its PNG control, the decode timed beside
     # the image reader's; same directory
     mjpeg_fixtures, mjpeg_cli, mjpeg_decode = run_mjpeg_input(dev, work, smi)
+    # HEVC Main 10 (9 and 10 bits, libswscale's scaled conversion): the
+    # fixtures against cv2's digests, the ViT-L CLI over a 10-bit clip
+    # against its PNG control, the decode timed beside the 8-bit clips of
+    # the same content; same directory
+    hevc10_fixtures, hevc10_cli, hevc10_decode = run_hevc10_input(dev, work, smi)
 
     common = lambda r: {k: r[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms",
@@ -6368,6 +6439,7 @@ def main() -> int:
              hevc_cli_launches=hevc_cli["launches"]["attention"],
              hevc_b_cli_launches=hevc_b_cli["launches"]["attention"],
              mjpeg_cli_launches=mjpeg_cli["launches"]["attention"],
+             hevc10_cli_launches=hevc10_cli["launches"]["attention"],
              mesh_launches={"vitl_task_2_shards": mtask["launches"]["attention"],
                             "threaded_vitl_ranks": [c["attention"] for c in tranks]}),
         dict(name="refine_window", route="cuda",
@@ -6393,6 +6465,7 @@ def main() -> int:
              hevc_cli_launches=hevc_cli["launches"]["refine_window"],
              hevc_b_cli_launches=hevc_b_cli["launches"]["refine_window"],
              mjpeg_cli_launches=mjpeg_cli["launches"]["refine_window"],
+             hevc10_cli_launches=hevc10_cli["launches"]["refine_window"],
              mesh_launches={"vitl_task_2_shards": mtask["launches"]["refine_window"],
                             "two_process_ranks": [c["refine_window"] for c in mranks],
                             "threaded_vitl_ranks": [c["refine_window"] for c in tranks]},
@@ -6420,6 +6493,7 @@ def main() -> int:
              hevc_cli_launches=hevc_cli["launches"]["edge_hg_rays"],
              hevc_b_cli_launches=hevc_b_cli["launches"]["edge_hg_rays"],
              mjpeg_cli_launches=mjpeg_cli["launches"]["edge_hg_rays"],
+             hevc10_cli_launches=hevc10_cli["launches"]["edge_hg_rays"],
              mesh_launches={"sharded_solve": {k: r["launches"] for k, r in msolve.items()},
                             "two_process_ranks": [c["edge_hg_rays"] for c in mranks],
                             "threaded_vitl_ranks": [c["edge_hg_rays"] for c in tranks],
@@ -6524,7 +6598,9 @@ def main() -> int:
         "hevc_b_input": {"fixtures": hevc_b_fixtures, "cli": hevc_b_cli,
                          "decode": hevc_b_decode, "card": smi},
         "mjpeg_input": {"fixtures": mjpeg_fixtures, "cli": mjpeg_cli, "decode": mjpeg_decode,
-                        "card": smi}}
+                        "card": smi},
+        "hevc10_input": {"fixtures": hevc10_fixtures, "cli": hevc10_cli,
+                         "decode": hevc10_decode, "card": smi}}
     log(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

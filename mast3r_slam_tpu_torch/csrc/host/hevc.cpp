@@ -1,17 +1,24 @@
 // HEVC (ISO/IEC 23008-2, ITU-T H.265) video decoder for the port's video
 // input, bit-exact against what cv2 5.0.0 (FFmpeg, libavcodec 62.28) gives:
-// the decoder's YUV 4:2:0 planes, cropped, then libswscale's unscaled
-// conversion to BGR24 as cv2.VideoCapture asks for it (yuv420.h), handed
-// back in RGB order.  HEVC fixes every decoded sample, so the decoder
-// follows the standard; where libavcodec departs from it, the decoder does
-// as libavcodec does: its in-loop filters run CTB by CTB in its order, with
+// the decoder's YUV 4:2:0 planes, cropped, then libswscale's conversion to
+// BGR24 as cv2.VideoCapture asks for it (at 8 bits its unscaled converter,
+// yuv420.h; at 9 and 10 bits its scaler, swscale.h, with the chroma site
+// libavcodec reports), handed back in RGB order.  HEVC fixes every decoded
+// sample, so the decoder follows the standard; where libavcodec departs
+// from it, the decoder does as libavcodec does: its in-loop filters run CTB by CTB in its order, with
 // its tc/beta offsets, its chroma QP clip and its SAO slice edges
 // (Decoder::loop_filters, deblock_ctb, sao_ctb), and a slice that disables
 // deblocking by override keeps the offsets of the header before it.  The
 // arithmetic decoder is the one H.264 uses (cabac.h); the NAL unit reader
 // is shared too (nal.h).
 //
-// What is decoded: Main profile 8-bit 4:2:0 I, P and B pictures, with
+// What is decoded: Main and Main 10 profile 4:2:0 I, P and B pictures at 8,
+// 9 and 10 bits (samples held in 16 bits; the QP offset, the shifts of
+// scaling, transform, prediction and weights, and the thresholds and clips
+// of intra prediction, deblocking and SAO at the bit depth, with libavcodec's
+// x86 code where it departs from the C code: at 10 bits its inter
+// prediction saturates and its residual add wraps in 16 bits, at 9 bits,
+// which it runs in C, a prediction list 0 stores wraps), with
 // leading pictures: RADL pictures, RASL pictures (left out, neither decoded
 // nor output, where their CRA or BLA picture opens decoding, as libavcodec's
 // max_ra leaves them out: at the stream's start, after a seek's reset, after
@@ -41,8 +48,7 @@
 // and transform_skip; intra prediction (35 modes, reference substitution,
 // filtering, strong intra smoothing, the DC/H/V boundary filters) under
 // constrained_intra_pred; 8-tap luma and 4-tap chroma interpolation with
-// the picture edge extended, the default bi-predictive average (x86's
-// 16-bit saturating sum, as libavcodec's SIMD code sums the two), explicit
+// the picture edge extended, the default bi-predictive average, explicit
 // weighted uni- and bi-prediction; flat
 // dequantisation, the 4x4 DST and 4- to 32-point inverse DCT with 16-bit
 // clipping between stages; the deblocking filter (bS of bi-predicted blocks
@@ -53,14 +59,19 @@
 // sps_max_dec_pic_buffering, pic_output_flag), drained at the end.
 //
 // What is refused (rc 2, NotImplementedError, naming ROADMAP Queue 1 item
-// 17): bit depths over 8, chroma formats other than 4:2:0, scaling lists,
+// 17): bit depths over 10, luma and chroma of different depths (which
+// libavcodec does not decode), a bit depth or chroma site that changes, an
+// IDR picture of the POC of a picture generated for the RPS of the CRA or
+// BLA picture that opened decoding (libavcodec drops it: Queue 3 item 27),
+// chroma formats other than 4:2:0, scaling lists,
 // PCM, transquant bypass, tiles, dependent slice segments, long-term
 // references, range and other SPS/PPS extensions, multi-layer streams
 // (nuh_layer_id > 0), end of sequence or bitstream NAL units (and with them
 // a CRA picture after one, which would open decoding), a conformance window
 // cropping the left or
 // top, a picture size or colour that changes, colour descriptions that
-// libswscale maps or refuses, a picture whose first slice disables
+// libswscale maps or refuses (BT.2020 primaries among them, which HDR video
+// carries), a picture whose first slice disables
 // deblocking by override while a later one enables it (libavcodec then
 // filters with an earlier picture's offsets), a stream that does not start
 // with an IRAP picture (a leading picture first too), and more than one
@@ -82,6 +93,7 @@
 
 #include "cabac.h"
 #include "nal.h"
+#include "swscale.h"
 #include "yuv420.h"
 
 namespace {
@@ -258,8 +270,11 @@ struct Sps {
     std::vector<StRps> rps;
     bool full_range = false;
     int matrix = 2;
+    int bit_depth = 8;  // BitDepthY = BitDepthC
+    int chroma_loc = 0;  // chroma_sample_loc_type_top_field (0 without chroma_loc_info, as libavcodec takes it)
     // derived
     int ctb_w = 0, ctb_h = 0;
+    int qp_offset() const { return 6 * (bit_depth - 8); }  // QpBdOffsetY = QpBdOffsetC
 };
 
 struct Pps {
@@ -462,8 +477,13 @@ Sps parse_sps(Bits& b, int* id) {
             fail(CORRUPT, "a conformance window larger than the picture");
         if (left || top) refuse("with a conformance window cropping the left or top");
     }
-    int depth_luma = int(b.ue()) + 8, depth_chroma = int(b.ue()) + 8;
-    if (depth_luma != 8 || depth_chroma != 8) refuse("with a bit depth over 8");
+    int depth_luma = int(b.ue_max(8, "bit_depth_luma_minus8")) + 8;
+    int depth_chroma = int(b.ue_max(8, "bit_depth_chroma_minus8")) + 8;
+    // libavcodec outputs yuv420p, yuv420p9 and yuv420p10 (Main, Main 10); it
+    // decodes no stream whose luma and chroma depths differ
+    if (depth_luma != depth_chroma) refuse("with luma and chroma of different bit depths");
+    if (depth_luma > 10) refuse("with a bit depth over 10");
+    s.bit_depth = depth_luma;
     s.log2_max_poc_lsb = int(b.ue_max(12, "log2_max_pic_order_cnt_lsb_minus4")) + 4;
     bool ordering_all = b.flag();  // sps_sub_layer_ordering_info_present_flag
     for (int i = ordering_all ? 0 : max_sub_layers_minus1; i <= max_sub_layers_minus1; i++) {
@@ -513,9 +533,10 @@ Sps parse_sps(Bits& b, int* id) {
                     refuse("with matrix_coefficients other than BT.601/709/FCC/240M/2020 NCL");
             }
         }
-        if (b.flag()) {  // chroma_loc_info
-            b.ue();
-            b.ue();
+        if (b.flag()) {  // chroma_loc_info: libavcodec reports the top field's site, which
+                         // libswscale's conversion reads beyond 8 bits
+            s.chroma_loc = int(b.ue_max(5, "chroma_sample_loc_type_top_field"));
+            b.ue_max(5, "chroma_sample_loc_type_bottom_field");
         }
         b.flag();  // neutral_chroma_indication_flag
         if (b.flag()) refuse("with field_seq_flag");
@@ -557,7 +578,7 @@ Pps parse_pps(Bits& b, const Sps* sps_list, int* id) {
     p.cabac_init_present = b.flag();
     p.num_ref_idx_default[0] = int(b.ue_max(14, "num_ref_idx_l0_default_active_minus1")) + 1;
     p.num_ref_idx_default[1] = int(b.ue_max(14, "num_ref_idx_l1_default_active_minus1")) + 1;
-    p.init_qp = 26 + b.se_range(-26, 25, "init_qp_minus26");
+    p.init_qp = 26 + b.se_range(-26 - s.qp_offset(), 25, "init_qp_minus26");
     p.constrained_intra_pred = b.flag();
     p.transform_skip = b.flag();
     p.cu_qp_delta = b.flag();
@@ -627,7 +648,7 @@ struct Motion {
 
 struct Frame {
     int w = 0, h = 0;  // pic_width/height_in_luma_samples
-    std::vector<uint8_t> px[3];
+    std::vector<uint16_t> px[3];  // samples of the SPS's bit depth
     std::vector<Motion> motion;  // by 4x4 block, raster
     int poc = 0;
     bool ref = false, output = false;  // short-term reference; needed for output
@@ -637,7 +658,8 @@ struct Frame {
     int crop_right = 0, crop_bottom = 0;
     bool full_range = false;
     int matrix = 2;
-    uint8_t* plane(int c) { return px[c].data(); }
+    int bit_depth = 8, chroma_loc = 0;
+    uint16_t* plane(int c) { return px[c].data(); }
     int stride(int c) const { return c ? w / 2 : w; }
     const Motion& mot(int x, int y) const { return motion[size_t(y >> 2) * (w >> 2) + (x >> 2)]; }
 };
@@ -686,7 +708,8 @@ struct Decoder {
     Pps pps_list[64];
     Sps sps;  // active
     Pps pps;
-    bool have_sps = false;  // a sequence was activated (size and colour fixed)
+    bool have_sps = false;  // a sequence was activated (size, depth and colour fixed)
+    int bd = 8, maxv = 255, qp_off = 0;  // the active SPS's BitDepth, its largest sample, QpBdOffset
     bool started = false;   // an IRAP picture opened the stream (or the reset)
     bool broken = false;
     int prev_tid0_poc = 0;
@@ -933,7 +956,7 @@ struct Decoder {
             if ((P.weighted_pred && s.type == 1) || (P.weighted_bipred && s.type == 0)) pred_weight_table(b, s);
             s.max_merge = 5 - int(b.ue_max(4, "five_minus_max_num_merge_cand"));
         }
-        s.qp = P.init_qp + b.se_range(-P.init_qp, 51 - P.init_qp, "slice_qp_delta");
+        s.qp = P.init_qp + b.se_range(-qp_off - P.init_qp, 51 - P.init_qp, "slice_qp_delta");
         if (P.slice_chroma_qp_offsets_present) {
             s.cb_qp_offset = b.se_range(-12, 12, "slice_cb_qp_offset");
             s.cr_qp_offset = b.se_range(-12, 12, "slice_cr_qp_offset");
@@ -1030,9 +1053,14 @@ struct Decoder {
         if (have_sps && (s.width != sps.width || s.height != sps.height ||
                          s.crop_right != sps.crop_right || s.crop_bottom != sps.crop_bottom))
             refuse("with a picture size that changes");
-        if (have_sps && (s.full_range != sps.full_range || s.matrix != sps.matrix))
-            refuse("with a colour range or matrix that changes");
+        if (have_sps && (s.full_range != sps.full_range || s.matrix != sps.matrix ||
+                         (s.bit_depth > 8 && s.chroma_loc != sps.chroma_loc)))
+            refuse("with a colour range, matrix or chroma site that changes");
+        if (have_sps && s.bit_depth != sps.bit_depth) refuse("with a bit depth that changes");
         sps = s;
+        bd = s.bit_depth;
+        maxv = (1 << bd) - 1;
+        qp_off = s.qp_offset();
         pps = p;
         have_sps = true;
         for (int i = 0; i < 64; i++)
@@ -1065,6 +1093,14 @@ struct Decoder {
         // the pictures its set names are generated, without samples (8.3.3)
         curr_before.clear();
         curr_after.clear();
+        // libavcodec drops an IDR picture whose POC equals that of a picture
+        // still generated for the RPS of the CRA or BLA picture that opened
+        // decoding (a duplicate POC): it and what follows read otherwise
+        if (idr)
+            for (auto& f : dpb)
+                if (f->missing && f->poc == poc)
+                    refuse("with an IDR picture of the POC of a picture generated for the RPS of the "
+                           "CRA or BLA picture that opened decoding (ROADMAP Queue 3 item 27)");
         if (no_rasl) {
             for (auto& f : dpb) f->ref = false;
         } else {
@@ -1125,6 +1161,8 @@ struct Decoder {
         f.crop_bottom = sps.crop_bottom;
         f.full_range = sps.full_range;
         f.matrix = sps.matrix;
+        f.bit_depth = sps.bit_depth;
+        f.chroma_loc = sps.chroma_loc;
         f.output = pic_output;
         // the picture's per-block state
         slices.clear();
@@ -1322,9 +1360,10 @@ struct Decoder {
             else p.type[2] = p.type[1];
             if (!p.type[c]) continue;
             int abs_v[4];
+            int cmax = (1 << (std::min(bd, 10) - 5)) - 1;  // sao_offset_abs: TR, cMax by the bit depth
             for (int i = 0; i < 4; i++) {
                 int v = 0;
-                while (v < 7 && byp()) v++;
+                while (v < cmax && byp()) v++;
                 abs_v[i] = v;
             }
             if (p.type[c] == 1) {
@@ -1382,7 +1421,8 @@ struct Decoder {
         }
     }
 
-    int wrap_qp(int v) const { return ((v + 52) % 52 + 52) % 52; }
+    // QpY from qPY_PRED + CuQpDeltaVal (8.6.1)
+    int wrap_qp(int v) const { return (v + 52 + 2 * qp_off) % (52 + qp_off) - qp_off; }
 
     template <class F>
     void each_blk(int x0, int y0, int w, int h, F&& f) {
@@ -1584,7 +1624,7 @@ struct Decoder {
                 while (k--) v += byp() << k;
             }
             if (v && byp()) v = -v;
-            if (v < -26 || v > 25) fail(CORRUPT, "CuQpDeltaVal %d", v);
+            if (v < -(26 + qp_off / 2) || v > 25 + qp_off / 2) fail(CORRUPT, "CuQpDeltaVal %d", v);
             cu_qp_delta_coded = true;
             cu_qp_delta = v;
             qp_y = wrap_qp(qp_pred + cu_qp_delta);
@@ -1887,10 +1927,15 @@ struct Decoder {
     // -- inter prediction samples (8.5.3.3) --------------------------------------------
 
     // the 14-bit prediction of component c's block from `ref` at vector mv:
-    // 8-tap luma and 4-tap chroma filters, the picture's edge extended;
-    // the separable case's second stage saturated to 16 bits as x86's
-    // packssdw leaves it
-    static void predict(const Frame& ref, Mv mv, int c, int xp, int yp, int w, int h, int16_t* pred) {
+    // 8-tap luma and 4-tap chroma filters, the picture's edge extended.  The
+    // separable case's second stage is saturated to 16 bits as x86's
+    // packssdw leaves it (libavcodec's SIMD code, at 8 and 10 bits); at 9
+    // bits, which have only its C code, it is wrapped to 16 bits where that
+    // code stores it (`stored`: list 0's of a bi-predicted block) and kept
+    // whole where it sums it at once (uni-prediction, list 1's)
+    static void predict(const Frame& ref, Mv mv, int c, int xp, int yp, int w, int h, int32_t* pred,
+                        bool stored) {
+        const int bd = ref.bit_depth, shift1 = bd - 8;
         static thread_local int16_t tmp[(64 + 7) * 64], blk[(64 + 7) * (64 + 7)];
         int sub = c ? 1 : 0;
         int bw = w >> sub, bh = h >> sub, W = ref.stride(c), H = c ? ref.h / 2 : ref.h;
@@ -1898,10 +1943,10 @@ struct Decoder {
         int mx = mv.x, my = mv.y;
         int fx = mx & ((1 << frac_bits) - 1), fy = my & ((1 << frac_bits) - 1);
         int x0 = (xp >> sub) + (mx >> frac_bits), y0 = (yp >> sub) + (my >> frac_bits);
-        const uint8_t* src = ref.px[c].data();
+        const uint16_t* src = ref.px[c].data();
         int pw = bw + taps - 1, ph = bh + taps - 1;
         for (int y = 0; y < ph; y++) {
-            const uint8_t* row = src + size_t(clip3(0, H - 1, y0 + y - back)) * W;
+            const uint16_t* row = src + size_t(clip3(0, H - 1, y0 + y - back)) * W;
             for (int x = 0; x < pw; x++) blk[y * pw + x] = row[clip3(0, W - 1, x0 + x - back)];
         }
         const int16_t* org = blk + back * pw + back;  // the block's own top-left sample
@@ -1909,75 +1954,81 @@ struct Decoder {
         const int* fys = c ? CHROMA_FILTER[fy] : LUMA_FILTER[fy];
         if (!fx && !fy) {
             for (int y = 0; y < bh; y++)
-                for (int x = 0; x < bw; x++) pred[y * bw + x] = int16_t(org[y * pw + x] << 6);
+                for (int x = 0; x < bw; x++) pred[y * bw + x] = int16_t(org[y * pw + x] << (14 - bd));
         } else if (!fy) {
             for (int y = 0; y < bh; y++)
                 for (int x = 0; x < bw; x++) {
                     int s = 0;
                     for (int i = 0; i < taps; i++) s += fxs[i] * org[y * pw + x + i - back];
-                    pred[y * bw + x] = int16_t(s);
+                    pred[y * bw + x] = int16_t(s >> shift1);
                 }
         } else if (!fx) {
             for (int y = 0; y < bh; y++)
                 for (int x = 0; x < bw; x++) {
                     int s = 0;
                     for (int i = 0; i < taps; i++) s += fys[i] * org[(y + i - back) * pw + x];
-                    pred[y * bw + x] = int16_t(s);
+                    pred[y * bw + x] = int16_t(s >> shift1);
                 }
         } else {
             for (int y = 0; y < ph; y++)
                 for (int x = 0; x < bw; x++) {
                     int s = 0;
                     for (int i = 0; i < taps; i++) s += fxs[i] * blk[y * pw + x + i];
-                    tmp[y * bw + x] = int16_t(s);
+                    tmp[y * bw + x] = int16_t(s >> shift1);
                 }
             for (int y = 0; y < bh; y++)
                 for (int x = 0; x < bw; x++) {
                     int s = 0;
                     for (int i = 0; i < taps; i++) s += fys[i] * tmp[(y + i) * bw + x];
-                    pred[y * bw + x] = int16_t(clip3(-32768, 32767, s >> 6));  // x86's packssdw
+                    pred[y * bw + x] = bd != 9 ? clip3(-32768, 32767, s >> 6) : stored ? int16_t(uint16_t(s >> 6)) : s >> 6;
                 }
         }
     }
 
     void motion_compensate(int xp, int yp, int w, int h, const Motion& m) {
-        static thread_local int16_t pred[2][64 * 64];
+        static thread_local int32_t pred[2][64 * 64];
         const Slice& S = *sh;
         for (int c = 0; c < 3; c++) {
             int sub = c ? 1 : 0, bw = w >> sub, bh = h >> sub, W = cur->stride(c);
             for (int l = 0; l < 2; l++)
-                if (m.uses(l)) predict(*dpb[size_t(S.list[l][m.ref_idx[l]])], m.mv[l], c, xp, yp, w, h, pred[l]);
-            uint8_t* dst = cur->plane(c) + size_t(yp >> sub) * W + (xp >> sub);
-            int log2wd = (c ? S.chroma_denom : S.luma_denom) + 6;
+                if (m.uses(l))
+                    predict(*dpb[size_t(S.list[l][m.ref_idx[l]])], m.mv[l], c, xp, yp, w, h, pred[l],
+                            l == 0 && m.pred == 3);
+            uint16_t* dst = cur->plane(c) + size_t(yp >> sub) * W + (xp >> sub);
+            int log2wd = (c ? S.chroma_denom : S.luma_denom) + 14 - bd;
             auto weight = [&](int l) { return c ? S.cw[l][m.ref_idx[l]][c - 1] : S.lw[l][m.ref_idx[l]]; };
-            auto offset = [&](int l) { return c ? S.co[l][m.ref_idx[l]][c - 1] : S.lo[l][m.ref_idx[l]]; };
+            auto offset = [&](int l) {  // scaled to the bit depth (8.5.3.3.4.3)
+                return (c ? S.co[l][m.ref_idx[l]][c - 1] : S.lo[l][m.ref_idx[l]]) * (1 << (bd - 8));
+            };
+            auto pel = [&](int v) { return uint16_t(clip3(0, maxv, v)); };
             if (m.pred != 3) {
-                const int16_t* p = pred[m.pred - 1];
+                const int32_t* p = pred[m.pred - 1];
                 if (S.weighted) {  // explicit weighted prediction (8.5.3.3.4.3)
                     int wt = weight(m.pred - 1), o = offset(m.pred - 1);
                     for (int y = 0; y < bh; y++)
                         for (int x = 0; x < bw; x++)
-                            dst[size_t(y) * W + x] = clip_u8(((p[y * bw + x] * wt + (1 << (log2wd - 1))) >> log2wd) + o);
+                            dst[size_t(y) * W + x] = pel(((p[y * bw + x] * wt + (1 << (log2wd - 1))) >> log2wd) + o);
                 } else {
+                    int sh = 14 - bd;
                     for (int y = 0; y < bh; y++)
-                        for (int x = 0; x < bw; x++) dst[size_t(y) * W + x] = clip_u8((p[y * bw + x] + 32) >> 6);
+                        for (int x = 0; x < bw; x++) dst[size_t(y) * W + x] = pel((p[y * bw + x] + (1 << (sh - 1))) >> sh);
                 }
             } else if (S.weighted) {  // both lists, explicit weights, (o0 + o1 + 1) >> 1 rounding
                 int w0 = weight(0), w1 = weight(1), o = (offset(0) + offset(1) + 1) << log2wd;
                 for (int y = 0; y < bh; y++)
                     for (int x = 0; x < bw; x++) {
                         int i = y * bw + x;
-                        dst[size_t(y) * W + x] = clip_u8((pred[0][i] * w0 + pred[1][i] * w1 + o) >> (log2wd + 1));
+                        dst[size_t(y) * W + x] = pel((pred[0][i] * w0 + pred[1][i] * w1 + o) >> (log2wd + 1));
                     }
             } else {
-                // the default average: x86's paddsw sums the two 14-bit
-                // predictions with 16-bit saturation (libavcodec's C code, which
-                // runs 2-wide chroma blocks, does not saturate)
+                // the default average (x86's paddsw saturates the sum to 16
+                // bits where libavcodec's C code does not: the clip after the
+                // shift hides which)
+                int sh = 15 - bd;
                 for (int y = 0; y < bh; y++)
                     for (int x = 0; x < bw; x++) {
-                        int i = y * bw + x, s = pred[0][i] + pred[1][i];
-                        if (bw > 2) s = clip3(-32768, 32767, s);
-                        dst[size_t(y) * W + x] = clip_u8((s + 64) >> 7);
+                        int i = y * bw + x;
+                        dst[size_t(y) * W + x] = pel((pred[0][i] + pred[1][i] + (1 << (sh - 1))) >> sh);
                     }
             }
         }
@@ -1989,7 +2040,7 @@ struct Decoder {
     void intra_predict(int x0, int y0, int log2, int c, int mode) {
         int n = 1 << log2, sub = c ? 1 : 0;
         int W = cur->stride(c);
-        uint8_t* pl = cur->plane(c);
+        uint16_t* pl = cur->plane(c);
         int xl = x0 << sub, yl = y0 << sub;  // luma location of the block
         // p[-1][2n-1..-1] as left[0..2n] (left[2n] the corner), p[0..2n-1][-1] as top[0..2n-1]
         int ref[4 * 64 + 1];
@@ -2025,7 +2076,7 @@ struct Decoder {
         }
         // substitution (8.4.4.2.2)
         if (!any) {
-            for (int i = 0; i < total; i++) ref[i] = 128;
+            for (int i = 0; i < total; i++) ref[i] = 1 << (bd - 1);
         } else {
             if (!have[0]) {
                 int i = 1;
@@ -2048,9 +2099,10 @@ struct Decoder {
             int thres = n == 8 ? 7 : n == 16 ? 1 : 0;
             if (dist > thres) {
                 int fl[129], ft[129];
+                int flat = 1 << (bd - 5);
                 bool strong = sps.strong_intra_smoothing && n == 32 &&
-                              std::abs(L(-1) + T(2 * n - 1) - 2 * T(n - 1)) < 8 &&
-                              std::abs(L(-1) + L(2 * n - 1) - 2 * L(n - 1)) < 8;
+                              std::abs(L(-1) + T(2 * n - 1) - 2 * T(n - 1)) < flat &&
+                              std::abs(L(-1) + L(2 * n - 1) - 2 * L(n - 1)) < flat;
                 if (strong) {
                     fl[0] = ft[0] = L(-1);
                     for (int k = 0; k < 63; k++) {
@@ -2072,11 +2124,11 @@ struct Decoder {
                 memcpy(top, ft, sizeof(int) * (2 * n + 1));
             }
         }
-        uint8_t* dst = pl + size_t(y0) * W + x0;
+        uint16_t* dst = pl + size_t(y0) * W + x0;
         if (mode == 0) {  // planar
             for (int y = 0; y < n; y++)
                 for (int x = 0; x < n; x++)
-                    dst[size_t(y) * W + x] = uint8_t(((n - 1 - x) * left[y + 1] + (x + 1) * top[n + 1] +
+                    dst[size_t(y) * W + x] = uint16_t(((n - 1 - x) * left[y + 1] + (x + 1) * top[n + 1] +
                                                       (n - 1 - y) * top[x + 1] + (y + 1) * left[n + 1] + n) >>
                                                      (log2 + 1));
         } else if (mode == 1) {  // DC
@@ -2084,11 +2136,11 @@ struct Decoder {
             for (int k = 0; k < n; k++) sum += top[k + 1] + left[k + 1];
             int dc = sum >> (log2 + 1);
             for (int y = 0; y < n; y++)
-                for (int x = 0; x < n; x++) dst[size_t(y) * W + x] = uint8_t(dc);
+                for (int x = 0; x < n; x++) dst[size_t(y) * W + x] = uint16_t(dc);
             if (c == 0 && n < 32) {
-                dst[0] = uint8_t((left[1] + 2 * dc + top[1] + 2) >> 2);
-                for (int x = 1; x < n; x++) dst[x] = uint8_t((top[x + 1] + 3 * dc + 2) >> 2);
-                for (int y = 1; y < n; y++) dst[size_t(y) * W] = uint8_t((left[y + 1] + 3 * dc + 2) >> 2);
+                dst[0] = uint16_t((left[1] + 2 * dc + top[1] + 2) >> 2);
+                for (int x = 1; x < n; x++) dst[x] = uint16_t((top[x + 1] + 3 * dc + 2) >> 2);
+                for (int y = 1; y < n; y++) dst[size_t(y) * W] = uint16_t((left[y + 1] + 3 * dc + 2) >> 2);
             }
         } else {  // angular
             int angle = INTRA_ANGLE[mode];
@@ -2108,24 +2160,24 @@ struct Decoder {
                 int pos = (j + 1) * angle, idx = pos >> 5, fr = pos & 31;
                 for (int i = 0; i < n; i++) {
                     int v = fr ? ((32 - fr) * r[i + idx + 1] + fr * r[i + idx + 2] + 16) >> 5 : r[i + idx + 1];
-                    if (vert) dst[size_t(j) * W + i] = uint8_t(v);
-                    else dst[size_t(i) * W + j] = uint8_t(v);
+                    if (vert) dst[size_t(j) * W + i] = uint16_t(v);
+                    else dst[size_t(i) * W + j] = uint16_t(v);
                 }
             }
             if (c == 0 && n < 32) {
                 if (mode == 26)
-                    for (int y = 0; y < n; y++) dst[size_t(y) * W] = clip_u8(top[1] + ((left[y + 1] - left[0]) >> 1));
+                    for (int y = 0; y < n; y++) dst[size_t(y) * W] = uint16_t(clip3(0, maxv, top[1] + ((left[y + 1] - left[0]) >> 1)));
                 if (mode == 10)
-                    for (int x = 0; x < n; x++) dst[x] = clip_u8(left[1] + ((top[x + 1] - top[0]) >> 1));
+                    for (int x = 0; x < n; x++) dst[x] = uint16_t(clip3(0, maxv, left[1] + ((top[x + 1] - top[0]) >> 1)));
             }
         }
     }
 
     // -- residual coding (7.3.8.11), scaling and transformation (8.6) -----------------------
 
-    int chroma_qp(int c) const {
+    int chroma_qp(int c) const {  // QpCb or QpCr (8.6.1), without QpBdOffsetC
         int off = c == 1 ? pps.cb_qp_offset + sh->cb_qp_offset : pps.cr_qp_offset + sh->cr_qp_offset;
-        return chroma_qp_of(clip3(0, 57, qp_y + off));
+        return chroma_qp_of(clip3(-qp_off, 57, qp_y + off));
     }
 
     int last_prefix(int base, int log2, int c) {
@@ -2183,9 +2235,9 @@ struct Decoder {
         int64_t level[32 * 32];
         for (int i = 0; i < n * n; i++) level[i] = 0;
         uint8_t csbf[8][8] = {{0}};
-        int qp = c ? chroma_qp(c) : qp_y;
+        int qp = (c ? chroma_qp(c) : qp_y) + qp_off;  // Qp'
         int64_t scale = int64_t(LEVEL_SCALE[qp % 6]) << (qp / 6);
-        int bd_shift = 8 + log2 - 5;
+        int bd_shift = bd + log2 - 5;
         int greater1_ctx = 1;
         bool hide = pps.sign_data_hiding;
         int max_x = 0, max_y = 0;
@@ -2278,18 +2330,24 @@ struct Decoder {
         }
         int32_t r[32 * 32];
         if (ts) {
-            for (int i = 0; i < 16; i++) r[i] = (d[i] + 16) >> 5;  // (d << 7 + 2048) >> 12
+            for (int i = 0; i < 16; i++) r[i] = (d[i] + (1 << (12 - bd))) >> (13 - bd);  // (d << 7 + 2^(19-bd)) >> (20-bd)
         } else {
-            transform(d, r, log2, cu_intra && c == 0 && log2 == 2, max_x, max_y);
+            transform(d, r, log2, cu_intra && c == 0 && log2 == 2, max_x, max_y, bd);
         }
         int W = cur->stride(c);
-        uint8_t* dst = cur->plane(c) + size_t(y0) * W + x0;
+        uint16_t* dst = cur->plane(c) + size_t(y0) * W + x0;
+        // libavcodec's add_residual: its 10-bit SIMD code sums in 16 bits
+        // (paddw, wrapping) before the clip; below 10 bits no sum leaves 16
+        // bits (the transform's last shift is 11 or 12)
         for (int y = 0; y < n; y++)
-            for (int x = 0; x < n; x++) dst[size_t(y) * W + x] = clip_u8(dst[size_t(y) * W + x] + r[y * n + x]);
+            for (int x = 0; x < n; x++) {
+                int v = int16_t(uint16_t(dst[size_t(y) * W + x] + r[y * n + x]));
+                dst[size_t(y) * W + x] = uint16_t(clip3(0, maxv, v));
+            }
     }
 
     // the two-stage inverse transform (8.6.4.2): columns, 16-bit clip, rows
-    static void transform(const int32_t* d, int32_t* r, int log2, bool dst4, int max_x, int max_y) {
+    static void transform(const int32_t* d, int32_t* r, int log2, bool dst4, int max_x, int max_y, int bd) {
         const Tables& T = tables();
         int n = 1 << log2, step = 32 >> log2;
         auto coef = [&](int k, int i) { return dst4 ? DST4[k][i] : int(T.dct[k * step][i]); };
@@ -2310,7 +2368,7 @@ struct Decoder {
             for (int x = 0; x < n; x++) {
                 int64_t e = 0;
                 for (int k = 0; k <= max_x; k++) e += int64_t(coef(k, x)) * g[y * n + k];
-                e = (e + 2048) >> 12;
+                e = (e + (1 << (19 - bd))) >> (20 - bd);
                 r[y * n + x] = int32_t(e < -32768 ? -32768 : e > 32767 ? 32767 : e);  // libavcodec's int16 store
             }
     }
@@ -2357,11 +2415,13 @@ struct Decoder {
         return far(p.mv[lp], q.mv[lq]);
     }
 
-    static void filter_luma(uint8_t* pix, int xstride, int ystride, int beta, const int tc_[2]) {
+    // beta and tc at the bit depth (tc' and beta' << (BitDepth - 8)); samples up to maxv
+    static void filter_luma(uint16_t* pix, int xstride, int ystride, int beta, const int tc_[2], int maxv) {
+        auto clip = [maxv](int v) { return uint16_t(clip3(0, maxv, v)); };
         for (int j = 0; j < 2; j++, pix += 4 * ystride) {
             int tc = tc_[j];
-            auto P = [&](int i, int k) -> uint8_t& { return pix[k * ystride - (i + 1) * xstride]; };
-            auto Q = [&](int i, int k) -> uint8_t& { return pix[k * ystride + i * xstride]; };
+            auto P = [&](int i, int k) -> uint16_t& { return pix[k * ystride - (i + 1) * xstride]; };
+            auto Q = [&](int i, int k) -> uint16_t& { return pix[k * ystride + i * xstride]; };
             int dp0 = std::abs(P(2, 0) - 2 * P(1, 0) + P(0, 0)), dq0 = std::abs(Q(2, 0) - 2 * Q(1, 0) + Q(0, 0));
             int dp3 = std::abs(P(2, 3) - 2 * P(1, 3) + P(0, 3)), dq3 = std::abs(Q(2, 3) - 2 * Q(1, 3) + Q(0, 3));
             int d0 = dp0 + dq0, d3 = dp3 + dq3;
@@ -2376,12 +2436,12 @@ struct Decoder {
                 for (int k = 0; k < 4; k++) {
                     int p3 = P(3, k), p2 = P(2, k), p1 = P(1, k), p0 = P(0, k);
                     int q0 = Q(0, k), q1 = Q(1, k), q2 = Q(2, k), q3 = Q(3, k);
-                    P(0, k) = uint8_t(p0 + clip3(-tc2, tc2, ((p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3) - p0));
-                    P(1, k) = uint8_t(p1 + clip3(-tc2, tc2, ((p2 + p1 + p0 + q0 + 2) >> 2) - p1));
-                    P(2, k) = uint8_t(p2 + clip3(-tc2, tc2, ((2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3) - p2));
-                    Q(0, k) = uint8_t(q0 + clip3(-tc2, tc2, ((p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3) - q0));
-                    Q(1, k) = uint8_t(q1 + clip3(-tc2, tc2, ((p0 + q0 + q1 + q2 + 2) >> 2) - q1));
-                    Q(2, k) = uint8_t(q2 + clip3(-tc2, tc2, ((2 * q3 + 3 * q2 + q1 + q0 + p0 + 4) >> 3) - q2));
+                    P(0, k) = uint16_t(p0 + clip3(-tc2, tc2, ((p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3) - p0));
+                    P(1, k) = uint16_t(p1 + clip3(-tc2, tc2, ((p2 + p1 + p0 + q0 + 2) >> 2) - p1));
+                    P(2, k) = uint16_t(p2 + clip3(-tc2, tc2, ((2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3) - p2));
+                    Q(0, k) = uint16_t(q0 + clip3(-tc2, tc2, ((p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3) - q0));
+                    Q(1, k) = uint16_t(q1 + clip3(-tc2, tc2, ((p0 + q0 + q1 + q2 + 2) >> 2) - q1));
+                    Q(2, k) = uint16_t(q2 + clip3(-tc2, tc2, ((2 * q3 + 3 * q2 + q1 + q0 + p0 + 4) >> 3) - q2));
                 }
             } else {
                 int side = (beta + (beta >> 1)) >> 3;
@@ -2392,33 +2452,34 @@ struct Decoder {
                     int delta = (9 * (q0 - p0) - 3 * (q1 - p1) + 8) >> 4;
                     if (std::abs(delta) >= tc * 10) continue;
                     delta = clip3(-tc, tc, delta);
-                    P(0, k) = clip_u8(p0 + delta);
-                    Q(0, k) = clip_u8(q0 - delta);
-                    if (np) P(1, k) = clip_u8(p1 + clip3(-tc_2, tc_2, (((p2 + p0 + 1) >> 1) - p1 + delta) >> 1));
-                    if (nq) Q(1, k) = clip_u8(q1 + clip3(-tc_2, tc_2, (((q2 + q0 + 1) >> 1) - q1 - delta) >> 1));
+                    P(0, k) = clip(p0 + delta);
+                    Q(0, k) = clip(q0 - delta);
+                    if (np) P(1, k) = clip(p1 + clip3(-tc_2, tc_2, (((p2 + p0 + 1) >> 1) - p1 + delta) >> 1));
+                    if (nq) Q(1, k) = clip(q1 + clip3(-tc_2, tc_2, (((q2 + q0 + 1) >> 1) - q1 - delta) >> 1));
                 }
             }
         }
     }
 
-    static void filter_chroma(uint8_t* pix, int xstride, int ystride, const int tc_[2]) {
+    static void filter_chroma(uint16_t* pix, int xstride, int ystride, const int tc_[2], int maxv) {
         for (int j = 0; j < 2; j++, pix += 4 * ystride) {
             int tc = tc_[j];
             if (tc <= 0) continue;
             for (int k = 0; k < 4; k++) {
-                uint8_t* q = pix + k * ystride;
+                uint16_t* q = pix + k * ystride;
                 int p1 = q[-2 * xstride], p0 = q[-xstride], q0 = q[0], q1 = q[xstride];
                 int delta = clip3(-tc, tc, ((((q0 - p0) * 4) + p1 - q1 + 4) >> 3));
-                q[-xstride] = clip_u8(p0 + delta);
-                q[0] = clip_u8(q0 - delta);
+                q[-xstride] = uint16_t(clip3(0, maxv, p0 + delta));
+                q[0] = uint16_t(clip3(0, maxv, q0 - delta));
             }
         }
     }
 
-    // libavcodec's chroma tc: the PPS's offset only, qPi clipped to 0-57
+    // libavcodec's chroma tc: the PPS's offset only, qPi clipped to 0-57 (at
+    // every bit depth), tc' scaled to the depth
     int chroma_tc(int qp, int c, int tc_offset) const {
         int qpi = clip3(0, 57, qp + (c == 1 ? pps.cb_qp_offset : pps.cr_qp_offset));
-        return TC_TABLE[clip3(0, 53, chroma_qp_of(qpi) + 2 + tc_offset)];
+        return TC_TABLE[clip3(0, 53, chroma_qp_of(qpi) + 2 + tc_offset)] << (bd - 8);
     }
 
     // The picture's CTBs in raster order as libavcodec's deblocking_filter_CTB
@@ -2459,16 +2520,17 @@ struct Decoder {
         int x_end = std::min(x0 + ctb, W), y_end = std::min(y0 + ctb, H);
         int tc_offset = cur_tc, beta_offset = cur_beta;
         int x_end2 = x_end == W ? x_end : x_end - 8;
-        uint8_t* Y = cur->plane(0);
+        uint16_t* Y = cur->plane(0);
+        const int sc = bd - 8;  // beta' and tc' to the bit depth
         for (int y = y0; y < y_end; y += 8) {
             for (int x = x0 ? x0 : 8; x < x_end; x += 8) {  // vertical luma edges
                 int b0 = bsv(x, y), b1 = bsv(x, y + 4);
                 if (!b0 && !b1) continue;
                 int qp = (qpy(x - 1, y) + qpy(x, y) + 1) >> 1;
-                int beta = BETA_TABLE[clip3(0, 51, qp + beta_offset)];
-                int tc[2] = {b0 ? TC_TABLE[clip3(0, 53, qp + 2 * (b0 - 1) + tc_offset)] : 0,
-                             b1 ? TC_TABLE[clip3(0, 53, qp + 2 * (b1 - 1) + tc_offset)] : 0};
-                filter_luma(Y + size_t(y) * W + x, 1, W, beta, tc);
+                int beta = BETA_TABLE[clip3(0, 51, qp + beta_offset)] << sc;
+                int tc[2] = {b0 ? TC_TABLE[clip3(0, 53, qp + 2 * (b0 - 1) + tc_offset)] << sc : 0,
+                             b1 ? TC_TABLE[clip3(0, 53, qp + 2 * (b1 - 1) + tc_offset)] << sc : 0};
+                filter_luma(Y + size_t(y) * W + x, 1, W, beta, tc, maxv);
             }
             if (!y) continue;
             for (int x = x0 ? x0 - 8 : 0; x < x_end2; x += 8) {  // horizontal luma edges
@@ -2477,14 +2539,14 @@ struct Decoder {
                 int qp = (qpy(x, y - 1) + qpy(x, y) + 1) >> 1;
                 tc_offset = x >= x0 ? cur_tc : left_tc;
                 beta_offset = x >= x0 ? cur_beta : left_beta;
-                int beta = BETA_TABLE[clip3(0, 51, qp + beta_offset)];
-                int tc[2] = {b0 ? TC_TABLE[clip3(0, 53, qp + 2 * (b0 - 1) + tc_offset)] : 0,
-                             b1 ? TC_TABLE[clip3(0, 53, qp + 2 * (b1 - 1) + tc_offset)] : 0};
-                filter_luma(Y + size_t(y) * W + x, W, 1, beta, tc);
+                int beta = BETA_TABLE[clip3(0, 51, qp + beta_offset)] << sc;
+                int tc[2] = {b0 ? TC_TABLE[clip3(0, 53, qp + 2 * (b0 - 1) + tc_offset)] << sc : 0,
+                             b1 ? TC_TABLE[clip3(0, 53, qp + 2 * (b1 - 1) + tc_offset)] << sc : 0};
+                filter_luma(Y + size_t(y) * W + x, W, 1, beta, tc, maxv);
             }
         }
         for (int c = 1; c <= 2; c++) {
-            uint8_t* C = cur->plane(c);
+            uint16_t* C = cur->plane(c);
             int CW = cur->stride(c);
             int x_end2c = x_end == W ? x_end : x_end - 16;
             for (int y = y0; y < y_end; y += 16) {  // bands of 16 luma rows
@@ -2493,7 +2555,7 @@ struct Decoder {
                     if (b0 != 2 && b1 != 2) continue;
                     int tc[2] = {b0 == 2 ? chroma_tc((qpy(x - 1, y) + qpy(x, y) + 1) >> 1, c, tc_offset) : 0,
                                  b1 == 2 ? chroma_tc((qpy(x - 1, y + 8) + qpy(x, y + 8) + 1) >> 1, c, tc_offset) : 0};
-                    filter_chroma(C + size_t(y / 2) * CW + x / 2, 1, CW, tc);
+                    filter_chroma(C + size_t(y / 2) * CW + x / 2, 1, CW, tc, maxv);
                 }
                 if (!y) continue;
                 tc_offset = x0 ? left_tc : cur_tc;
@@ -2502,7 +2564,7 @@ struct Decoder {
                     if (b0 != 2 && b1 != 2) continue;
                     int tc[2] = {b0 == 2 ? chroma_tc((qpy(x, y - 1) + qpy(x, y) + 1) >> 1, c, tc_offset) : 0,
                                  b1 == 2 ? chroma_tc((qpy(x + 8, y - 1) + qpy(x + 8, y) + 1) >> 1, c, cur_tc) : 0};
-                    filter_chroma(C + size_t(y / 2) * CW + x / 2, CW, 1, tc);
+                    filter_chroma(C + size_t(y / 2) * CW + x / 2, CW, 1, tc, maxv);
                 }
             }
         }
@@ -2542,7 +2604,8 @@ struct Decoder {
         filter_ctb((sps.ctb_w - 1) * ctb, (sps.ctb_h - 1) * ctb);
     }
     bool sao_on = false;
-    std::vector<uint8_t> hbuf[3], vbuf[3], applied[3];
+    std::vector<uint16_t> hbuf[3], vbuf[3];
+    std::vector<uint8_t> applied[3];
 
     void filter_ctb(int x, int y) {  // ff_hevc_hls_filter
         int ctb = 1 << sps.log2_ctb;
@@ -2570,11 +2633,11 @@ struct Decoder {
         for (int c = 0; c < 3; c++) {
             if (!p.type[c]) continue;
             int sub = c ? 1 : 0, W = cur->stride(c), H = c ? cur->h / 2 : cur->h, ctb = (1 << sps.log2_ctb) >> sub;
-            uint8_t* pl = cur->plane(c);
+            uint16_t* pl = cur->plane(c);
             int x0 = rx * ctb, y0 = ry * ctb, w = std::min(ctb, W - x0), h = std::min(ctb, H - y0);
             // the CTB's deblocked borders, kept for its neighbours (copy_CTB_to_hv)
-            uint8_t* hb = hbuf[c].data();
-            uint8_t* vb = vbuf[c].data();
+            uint16_t* hb = hbuf[c].data();
+            uint16_t* vb = vbuf[c].data();
             auto at = [&](int x, int y) { return pl[size_t(y) * W + x]; };
             // the source with a border of one sample, as libavcodec assembles it
             static thread_local std::vector<int> src;
@@ -2605,12 +2668,12 @@ struct Decoder {
                 for (int y = 0; y < h; y++)
                     S(w, y) = done(rx + 1, ry) ? vb[size_t(2 * rx + 2) * H + y0 + y] : at(x0 + w, y0 + y);
             for (int x = 0; x < w; x++) {
-                hb[size_t(2 * ry) * W + x0 + x] = uint8_t(S(x, 0));
-                hb[size_t(2 * ry + 1) * W + x0 + x] = uint8_t(S(x, h - 1));
+                hb[size_t(2 * ry) * W + x0 + x] = uint16_t(S(x, 0));
+                hb[size_t(2 * ry + 1) * W + x0 + x] = uint16_t(S(x, h - 1));
             }
             for (int y = 0; y < h; y++) {
-                vb[size_t(2 * rx) * H + y0 + y] = uint8_t(S(0, y));
-                vb[size_t(2 * rx + 1) * H + y0 + y] = uint8_t(S(w - 1, y));
+                vb[size_t(2 * rx) * H + y0 + y] = uint16_t(S(0, y));
+                vb[size_t(2 * rx + 1) * H + y0 + y] = uint16_t(S(w - 1, y));
             }
             applied[c][size_t(a)] = 1;
             if (p.type[c] == 1) {
@@ -2619,7 +2682,7 @@ struct Decoder {
                 for (int y = 0; y < h; y++)
                     for (int x = 0; x < w; x++) {
                         int v = S(x, y);
-                        pl[size_t(y0 + y) * W + x0 + x] = clip_u8(v + p.offset[c][table[v >> 3]]);
+                        pl[size_t(y0 + y) * W + x0 + x] = uint16_t(clip3(0, maxv, v + p.offset[c][table[v >> (bd - 5)]]));
                     }
                 continue;
             }
@@ -2634,7 +2697,7 @@ struct Decoder {
                         continue;
                     int v = S(x, y), va = S(ax, ay), vb2 = S(bx, by);
                     int e = 2 + (v > va) - (v < va) + (v > vb2) - (v < vb2);
-                    pl[size_t(y0 + y) * W + x0 + x] = clip_u8(v + p.offset[c][EDGE_IDX[e]]);
+                    pl[size_t(y0 + y) * W + x0 + x] = uint16_t(clip3(0, maxv, v + p.offset[c][EDGE_IDX[e]]));
                 }
         }
     }
@@ -2658,12 +2721,18 @@ struct Decoder {
         }
     }
 
+    // cv2's BGR24 (as RGB): libswscale's unscaled converter at 8 bits
+    // (yuv420.h), its scaler above (swscale.h)
     void to_rgb(uint8_t* rgb) const {
         Frame* f = out.get();
         int wh[2];
         out_size(wh);
-        host::yuv420_to_rgb(f->plane(0), f->w, f->plane(1), f->plane(2), f->stride(1), wh[0], wh[1],
-                            host::yuv_coeffs(f->matrix, f->full_range), rgb);
+        if (f->bit_depth > 8)
+            host::yuv420_high_to_rgb(f->plane(0), f->w, f->plane(1), f->plane(2), f->stride(1), wh[0], wh[1],
+                                     f->bit_depth, f->matrix, f->full_range, f->chroma_loc, rgb);
+        else
+            host::yuv420_to_rgb(f->plane(0), f->w, f->plane(1), f->plane(2), f->stride(1), wh[0], wh[1],
+                                host::yuv_coeffs(f->matrix, f->full_range), rgb);
     }
 };
 
@@ -2758,6 +2827,20 @@ int hevc_reset(void* state) {
 
 int hevc_close(void* state) {
     delete static_cast<Decoder*>(state);
+    return OK;
+}
+
+// libswscale's conversion of `width` x `height` 4:2:0 planes of `depth` (9
+// or 10) bits, packed (strides width and width / 2), to RGB (swscale.h):
+// what cv2 makes of a Main 10 picture of matrix_coefficients `matrix`, its
+// chroma sited at chroma_sample_loc_type `chroma_loc`.
+int yuv420_high_rgb(const uint16_t* y, const uint16_t* u, const uint16_t* v, int width, int height, int depth,
+                    int matrix, int full_range, int chroma_loc, uint8_t* rgb) {
+    if (width < 2 || height < 2 || (width | height) & 1 || depth < 9 || depth > 10 || chroma_loc < 0 ||
+        chroma_loc > 5)
+        return UNSUPPORTED;
+    host::yuv420_high_to_rgb(y, width, u, v, width / 2, width, height, depth, matrix, full_range != 0, chroma_loc,
+                             rgb);
     return OK;
 }
 

@@ -28,14 +28,18 @@ struct YuvCoeffs {
     int y, y_offset, vr, ug, vg, ub;
 };
 
-inline YuvCoeffs yuv_coeffs(int matrix, bool full_range) {
-    // ff_yuv2rgb_coeffs: crv, cbu, cgu, cgv (16.16)
+// ff_yuv2rgb_coeffs of the matrix's class: crv, cbu, -cgu, -cgv (16.16)
+inline const int64_t* yuv_matrix_table(int matrix) {
     static const int64_t table[5][4] = {{104597, 132201, 25675, 53279},   // BT.601
                                         {117489, 138438, 13975, 34925},   // BT.709
                                         {104448, 132798, 24759, 53109},   // FCC
                                         {117579, 136230, 16907, 35559},   // SMPTE 240M
                                         {110013, 140363, 12277, 42626}};  // BT.2020
-    const int64_t* t = table[matrix == 1 ? 1 : matrix == 4 ? 2 : matrix == 7 ? 3 : matrix == 9 ? 4 : 0];
+    return table[matrix == 1 ? 1 : matrix == 4 ? 2 : matrix == 7 ? 3 : matrix == 9 ? 4 : 0];
+}
+
+inline YuvCoeffs yuv_coeffs(int matrix, bool full_range) {
+    const int64_t* t = yuv_matrix_table(matrix);
     int64_t crv = t[0], cbu = t[1], cgu = -t[2], cgv = -t[3], cy = 1 << 16, oy = 0;
     if (!full_range) {
         cy = cy * 255 / 219;
@@ -54,16 +58,17 @@ inline YuvCoeffs yuv_coeffs(int matrix, bool full_range) {
             round16(cgu * 8192), round16(cgv * 8192), round16(cbu * 8192)};
 }
 
-// planes of `width` x `height` (even) samples with strides ys / cs, the
-// chroma halved across and, for `vshift` 1, down (4:2:0; 0: 4:2:2, which
-// libswscale converts with the same arithmetic, yuv422p's special
-// converter)
-inline void yuv_to_rgb(const uint8_t* Y, int ys, const uint8_t* U, const uint8_t* V, int cs,
+// planes of `width` x `height` (even) 8-bit samples (held in uint8_t, or
+// uint16_t by the HEVC decoder) with strides ys / cs, the chroma halved
+// across and, for `vshift` 1, down (4:2:0; 0: 4:2:2, which libswscale
+// converts with the same arithmetic, yuv422p's special converter)
+template <class T>
+inline void yuv_to_rgb(const T* Y, int ys, const T* U, const T* V, int cs,
                        int width, int height, int vshift, const YuvCoeffs& c, uint8_t* out) {
     for (int y = 0; y < height; y++) {
-        const uint8_t* yr = Y + size_t(y) * ys;
-        const uint8_t* ur = U + size_t(y >> vshift) * cs;
-        const uint8_t* vr = V + size_t(y >> vshift) * cs;
+        const T* yr = Y + size_t(y) * ys;
+        const T* ur = U + size_t(y >> vshift) * cs;
+        const T* vr = V + size_t(y >> vshift) * cs;
         uint8_t* o = out + size_t(y) * width * 3;
         for (int x = 0; x < width; x++) {
             int yy = (((int(yr[x]) << 3) - c.y_offset) * c.y) >> 16;
@@ -75,7 +80,8 @@ inline void yuv_to_rgb(const uint8_t* Y, int ys, const uint8_t* U, const uint8_t
     }
 }
 
-inline void yuv420_to_rgb(const uint8_t* Y, int ys, const uint8_t* U, const uint8_t* V, int cs,
+template <class T>
+inline void yuv420_to_rgb(const T* Y, int ys, const T* U, const T* V, int cs,
                           int width, int height, const YuvCoeffs& c, uint8_t* out) {
     yuv_to_rgb(Y, ys, U, V, cs, width, height, 1, c, out);
 }

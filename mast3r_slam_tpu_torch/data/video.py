@@ -646,9 +646,11 @@ class MP4Dataset(MonocularDataset):
         self._draining = False  # the samples are all fed: held pictures come out
         self._grabbed = False  # a frame was read (cv2 reads one before a first seek)
         # H.264 and HEVC frames decoded ahead of the reader: (frame number, sample fed
-        # last when it came out, RGB)
+        # last when it came out, RGB, whether it is H264Decoder.stale)
         self._ahead = collections.deque()
         self._fault = None  # an error met decoding ahead, raised at the read that reaches it
+        self._stale = False  # the frame read last was decoded under sets it was not encoded under
+        self._reached = 0  # the samples before it were fed or their parameter sets read
         self._first_out = None  # the frame number of the file's first frame out
         self.fps = track.fps
         self.total_frames = track.frame_count
@@ -743,7 +745,7 @@ class MP4Dataset(MonocularDataset):
             pass
         if not self._ahead:
             return None
-        frame, fed, self._rgb = self._ahead.popleft()
+        frame, fed, self._rgb, self._stale = self._ahead.popleft()
         try:
             while self._cursor < min(fed + FRAME_THREADS - 1, len(self.track.sizes)):
                 self._feed()
@@ -779,7 +781,8 @@ class MP4Dataset(MonocularDataset):
             self._first_out = max(frame, 0)
         if frame >= 0:
             frame -= self._first_out
-        self._ahead.append((frame, self._cursor, self._decoder.rgb()))
+        stale = self.track.codec == "h264" and self._decoder.stale()
+        self._ahead.append((frame, self._cursor, self._decoder.rgb(), stale))
         return True
 
     def _seek_sample(self, frame: int) -> int:
@@ -797,7 +800,13 @@ class MP4Dataset(MonocularDataset):
     def _restart(self, frame: int) -> None:
         """Position at the sample a backward seek to frame ``frame`` takes
         (``_seek_sample``), decoder flushed."""
-        self._cursor = self._seek_sample(frame)
+        cursor = self._seek_sample(frame)
+        self._reached = max(self._reached, self._cursor)
+        if self.track.codec == "h264":
+            for i in range(self._reached, cursor):  # the parameter sets of samples skipped
+                self._decoder.expect(self._sample(i), i)
+        self._reached = max(self._reached, cursor)
+        self._cursor = cursor
         self._draining = False
         self._ahead.clear()
         self._fault = None
@@ -834,6 +843,10 @@ class MP4Dataset(MonocularDataset):
         self._next_decode = target + 1
         if shown is None:
             raise ValueError(f"failed to decode frame {target}")
+        if self._stale:
+            raise _unsupported(f"{self.dataset_path}: frame {target}, decoded after a seek under "
+                               "H.264 parameter sets it was not encoded under (ROADMAP Queue 3 "
+                               "item 28)")
         img = self._rgb
         if self.track.rotation:  # cv2.rotate: 90 clockwise is np.rot90's k = -1
             img = np.ascontiguousarray(np.rot90(img, -self.track.rotation // 90))

@@ -5,13 +5,13 @@ H.264, HEVC and Motion-JPEG decoders of the video reader, in C++.
 
 ``csrc/host/preprocess.cpp``, ``jpeg.cpp``, ``mpeg4.cpp``, ``h264.cpp``,
 ``hevc.cpp`` and ``mjpeg.cpp`` (the video decoders share ``yuv420.h``,
-MPEG-4 Part 2 and Motion-JPEG the simple IDCT of ``idct.h``, the NAL unit
-decoders and Motion-JPEG the error handling of ``nal.h``, H.264 and HEVC
-its NAL unit reader and the CABAC engine of ``cabac.h``) are
-compiled with
-the host C++ compiler (``$CXX``, else ``g++``) at first use into one
-library in ``build/host/`` at the repository root, named by a hash of the
-sources, the flags and the host
+HEVC beyond 8 bits ``swscale.h``, MPEG-4 Part 2 and Motion-JPEG the simple
+IDCT of ``idct.h``, the NAL unit decoders and Motion-JPEG the error
+handling of ``nal.h``, H.264 and HEVC its NAL unit reader and the CABAC
+engine of ``cabac.h``) are compiled with the host C++ compiler (``$CXX``,
+else ``g++``) at first use, the sources at once, into one library in
+``build/host/`` at the repository root, named by a hash of the sources,
+the flags and the host
 (``-march=native`` code runs only on the CPU it was built for), and loaded
 with ``ctypes``.  The source compiles with the JAX package's
 ``native/Makefile`` flags, so that the two libraries resize the same frames
@@ -25,6 +25,7 @@ to another resizer.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import platform
@@ -42,13 +43,14 @@ SOURCES = [_PKG_DIR / "csrc" / "host" / name
            for name in ("preprocess.cpp", "jpeg.cpp", "mpeg4.cpp", "h264.cpp", "hevc.cpp",
                         "mjpeg.cpp")]
 HEADERS = [_PKG_DIR / "csrc" / "host" / name
-           for name in ("yuv420.h", "cabac.h", "nal.h", "idct.h")]
+           for name in ("yuv420.h", "swscale.h", "cabac.h", "nal.h", "idct.h")]
 BUILD_DIR = _PKG_DIR.parent / "build" / "host"
 CXX_FLAGS = ["-O3", "-march=native", "-ffast-math", "-funroll-loops", "-std=c++17",
              "-fPIC", "-Wall"]
 LINK_FLAGS = ["-shared", "-lpthread"]
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
+_U16P = ctypes.POINTER(ctypes.c_uint16)
 _F32P = ctypes.POINTER(ctypes.c_float)
 _I = ctypes.c_int
 _I32P = ctypes.POINTER(ctypes.c_int)
@@ -70,6 +72,8 @@ _ARGTYPES = {
                     ctypes.POINTER(ctypes.c_int64), ctypes.c_char_p, _I],
     "h264_headers": [ctypes.c_void_p, _U8P, ctypes.c_int64, _I32P, ctypes.c_char_p, _I],
     "h264_rgb": [ctypes.c_void_p, _U8P],
+    "h264_stale": [ctypes.c_void_p, _I32P],
+    "h264_expect": [ctypes.c_void_p, _U8P, ctypes.c_int64, ctypes.c_int64, ctypes.c_char_p, _I],
     "h264_drain": [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64)],
     "h264_delay": [ctypes.c_void_p, _I, _I32P],
     "h264_reset": [ctypes.c_void_p],
@@ -84,6 +88,7 @@ _ARGTYPES = {
     "hevc_delay": [ctypes.c_void_p, _I, _I32P],
     "hevc_reset": [ctypes.c_void_p],
     "hevc_close": [ctypes.c_void_p],
+    "yuv420_high_rgb": [_U16P, _U16P, _U16P, _I, _I, _I, _I, _I, _I, _U8P],
     "mjpeg_open": [_I, _I, ctypes.POINTER(ctypes.c_void_p), ctypes.c_char_p, _I],
     "mjpeg_size": [ctypes.c_void_p, _I32P],
     "mjpeg_decode": [ctypes.c_void_p, _U8P, ctypes.c_int64, _I32P, ctypes.c_char_p, _I],
@@ -111,26 +116,40 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the library unless it is built; raises on failure."""
+    """Compile the library unless it is built; raises on failure.  The
+    sources compile at once, one compiler each; processes that ask for the
+    same library meanwhile wait for the first one's build (a lock file
+    beside it) instead of compiling it again."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(out.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            _compile(out)
+    return out
+
+
+def _compile(out: Path) -> None:
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp")
     objs = [f"{tmp}.{src.stem}.o" for src in SOURCES]
-    steps = [[compiler(), *CXX_FLAGS, "-c", "-o", obj, str(src)]
-             for src, obj in zip(SOURCES, objs)]
-    steps.append([compiler(), "-o", f"{tmp}.so", *objs, *LINK_FLAGS])
-    for cmd in steps:
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"building {out.name} failed (rc {proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}")
+    compiles = [[compiler(), *CXX_FLAGS, "-c", "-o", obj, str(src)]
+                for src, obj in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in compiles]
+    results = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in zip(compiles, procs)]
+    link = [compiler(), "-o", f"{tmp}.so", *objs, *LINK_FLAGS]
+    if all(rc == 0 for _, _, rc in results):
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        results.append((link, proc.stdout, proc.returncode))
     for obj in objs:
-        os.remove(obj)
+        if os.path.exists(obj):
+            os.remove(obj)
+    for cmd, log, rc in results:
+        if rc != 0:
+            raise RuntimeError(f"building {out.name} failed (rc {rc}):\n{' '.join(cmd)}\n{log}")
     os.replace(f"{tmp}.so", out)
-    return out
 
 
 def load() -> ctypes.CDLL:
@@ -448,6 +467,23 @@ class H264Decoder:
     def reset(self):
         """Forget every picture (before decoding from a sync sample)."""
         self._fn("reset")(self._state)
+
+    def stale(self) -> bool:
+        """Whether the last picture output was decoded, after a seek, under
+        parameter sets it was not encoded under (a seek back across sets
+        changed in band, say): libavcodec decodes such pictures otherwise."""
+        flag = ctypes.c_int()
+        self._fn("stale")(self._state, ctypes.byref(flag))
+        return bool(flag.value)
+
+    def expect(self, sample: bytes, index: int):
+        """Read the parameter sets of sample ``index``, which a seek skips:
+        the pictures after it were encoded under them (``stale``)."""
+        src = np.frombuffer(sample, dtype=np.uint8)
+        err = ctypes.create_string_buffer(256)
+        rc = self._fn("expect")(self._state, _ptr(src, _U8P), src.size, index, err, len(err))
+        if rc != 0:
+            raise _video_error(rc, err, self._CODEC)
 
     def close(self):
         state, self._state = self._state, None

@@ -199,3 +199,118 @@ def test_damaged_b_streams_raise_value_error():
     with pytest.raises(ValueError, match="co-located reference is not in list 0"):
         for i, s in enumerate(samples):
             dec.decode(hf.annexb(s), i)
+
+
+@pytest.mark.parametrize("change", ["pic-init-qp", "transform-8x8"])
+def test_parameter_sets_changed_in_band_then_a_seek_back_read_as_cv2_or_are_refused(
+        tmp_path, capfd, change):
+    """ROADMAP Queue 3 item 28: a stream whose SPS and PPS (ids 0) change in
+    band at its second IDR picture (frame 7), in ISO BMFF (the first sets in
+    avcC only).  Read in order every frame is cv2's.  After a seek back
+    before the change, the IDR picture the seek restarts at carries no
+    parameter sets of its own: libavcodec decodes it and its followers
+    under the changed ones otherwise than the port would, or conceals data
+    that no longer parses, so the port refuses those frames (where the
+    data parses, it reads the frames after the change as cv2 does); an
+    AVI, whose first sample carries its sets, reads as cv2 reads it."""
+    a_kw, b_kw = {"pic-init-qp": (dict(init_qp=28), dict(init_qp=36)),
+                  "transform-8x8": (dict(t8=False), dict(t8=True))}[change]
+    a, _ = hf.random_stream(48, 32, 7, 1, gop=7, **a_kw)
+    b, _ = hf.random_stream(48, 32, 7, 2, gop=7, **b_kw)
+    assert [u for u in a[0] if u[0] & 31 in (7, 8)] != [u for u in b[0] if u[0] & 31 in (7, 8)]
+    o = dict(display=list(range(14)))
+    order = [10, 2, 3, 12, 1]
+    for suffix in (".mp4", ".avi"):
+        path = _write(tmp_path / change, a + b, o, 48, 32, suffix)
+        _same_reads(path, range(14), capfd)
+        want = _reads(JaxMP4Dataset(path), order)
+        ds, got = video.MP4Dataset(path), []
+        for i in order:
+            try:
+                got.append(ds.read_img(i))
+            except NotImplementedError as e:
+                assert "ROADMAP Queue 1 item 17" in str(e)
+                got.append("refused")
+            except ValueError:
+                got.append(None)
+        refused = [i for i, x in zip(order, got) if isinstance(x, str)]
+        if suffix == ".avi":
+            assert refused == []
+        elif change == "pic-init-qp":
+            assert refused == [2, 3, 1]
+        else:
+            assert {2, 3, 1} <= set(refused)
+        for i, x, y in zip(order, got, want):
+            if isinstance(x, str):
+                continue
+            assert (x is None) == (y is None), f"{suffix} frame {i}"
+            if x is not None:
+                np.testing.assert_array_equal(x, y, err_msg=f"{suffix} frame {i}")
+        capfd.readouterr()  # libavcodec's concealment logs after the seek back
+
+
+def _changed_stream(change, n_after):
+    """Stream ``a`` (frames 0-6) under one SPS and PPS (ids 0), then ``n_after``
+    frames under changed ones that only frame 7's sample carries (an IDR
+    picture every 7 frames)."""
+    a_kw, b_kw = {"pic-init-qp": (dict(init_qp=28), dict(init_qp=36)),
+                  "transform-8x8": (dict(t8=False), dict(t8=True))}[change]
+    a, _ = hf.random_stream(48, 32, 7, 1, gop=7, **a_kw)
+    b, _ = hf.random_stream(48, 32, n_after, 2, gop=7, **b_kw)
+    assert [u for u in a[0] if u[0] & 31 in (7, 8)] != [u for u in b[0] if u[0] & 31 in (7, 8)]
+    assert all(u[0] & 31 not in (7, 8) for s in b[1:] for u in s)
+    return a + b
+
+
+@pytest.mark.parametrize("change", ["pic-init-qp", "transform-8x8"])
+def test_parameter_sets_changed_in_band_read_as_cv2_in_order_and_at_stride_2(
+        tmp_path, capfd, change):
+    """ROADMAP Queue 3 item 28, the reads that need no refusal: a third IDR
+    picture (frame 14) after the change carries no parameter sets of its
+    own, encoded under the changed ones that are in force.  Read in order,
+    every frame of the .mp4 and the .avi is cv2's.  Read at stride 2 (every
+    read a seek that restarts at frame 0), each frame is cv2's or refused
+    (frames 0-6 decoded under the changed sets); in the .avi, whose first
+    sample carries its sets, and where the data parses under the changed
+    sets, none from the change on is refused."""
+    samples = _changed_stream(change, 14)
+    o = dict(display=list(range(21)))
+    for suffix in (".mp4", ".avi"):
+        path = _write(tmp_path / change, samples, o, 48, 32, suffix)
+        _same_reads(path, range(21), capfd)
+        want, ds = JaxMP4Dataset(path), video.MP4Dataset(path)
+        want.subsample(2)
+        ds.subsample(2)
+        refused = []
+        for i in range(len(ds)):
+            y = want.read_img(i)
+            try:
+                np.testing.assert_array_equal(ds.read_img(i), y, err_msg=f"{suffix} frame {2 * i}")
+            except NotImplementedError as e:
+                assert "ROADMAP Queue 3 item 28" in str(e)
+                refused.append(2 * i)
+        if suffix == ".avi":
+            assert refused == []
+        elif change == "pic-init-qp":
+            assert max(refused, default=0) < 7
+        capfd.readouterr()  # libavcodec's concealment logs after a seek back
+
+
+def test_a_seek_past_changed_parameter_sets_never_fed_is_refused(tmp_path, monkeypatch):
+    """ROADMAP Queue 3 item 28: with one frame thread (nothing decoded ahead),
+    a read of frame 0 then of frame 34 restarts at frame 14's IDR picture:
+    the sample of frame 7, which carries the changed parameter sets, is
+    never fed, so frame 14 would be decoded under the first ones.  The
+    port reads the skipped samples' sets (``H264Decoder.expect``) and
+    refuses such frames; read in order, frame 34 is cv2's."""
+    monkeypatch.setattr(video, "FRAME_THREADS", 1)
+    path = _write(tmp_path / "skip", _changed_stream("pic-init-qp", 35),
+                  dict(display=list(range(42))), 48, 32, ".mp4")
+    ds = video.MP4Dataset(path)
+    ds.read_img(0)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 3 item 28"):
+        ds.read_img(34)
+    ds = video.MP4Dataset(path)
+    want = JaxMP4Dataset(path)
+    for i in range(35):
+        np.testing.assert_array_equal(ds.read_img(i), want.read_img(i), err_msg=f"frame {i}")

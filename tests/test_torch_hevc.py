@@ -238,7 +238,7 @@ def _stream(**kw):
 
 
 @pytest.mark.parametrize("what,kw", [
-    ("bit-depth-10", dict(bit_depth=10)),
+    ("bit-depth-10", dict(bit_depth=10, bit_depth_chroma=8)),  # 10-bit luma over 8-bit chroma
     ("chroma-4:4:4", dict(chroma_format=3)),
     ("scaling-lists", dict(scaling=True)),
     ("pcm", dict(pcm=True)),

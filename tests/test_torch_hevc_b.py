@@ -275,7 +275,7 @@ def _refused(tmp_path, samples, o, w=32, h=16):
 
 @pytest.mark.parametrize("what,kw", [
     ("long-term-references", dict(long_term=True)),
-    ("bit-depth-10", dict(bit_depth=10)),
+    ("bit-depth-10", dict(bit_depth=10, bit_depth_chroma=8)),  # 10-bit luma over 8-bit chroma
     ("scaling-lists", dict(scaling=True)),
     ("tiles", dict(pps=dict(tiles=True))),
 ])
@@ -298,3 +298,63 @@ def test_a_stream_opening_with_a_leading_picture_is_refused(tmp_path, kind):
     k = next(i for i, p in enumerate(o["pictures"]) if p["typ"] in (6, 7, 8, 9))
     ps = [u for u in samples[0] if hv.kind_of(u) >= 32]
     _refused(tmp_path, [ps + samples[k]] + samples[k + 1:], dict(o, display=o["display"][k:]))
+
+
+def _reads_or_refusal(ds, order):
+    """Each read's frame, None where it fails, or "refused" where the port
+    raises NotImplementedError naming ROADMAP Queue 1 item 17 (and every
+    read after it, which the test does not attempt)."""
+    out = []
+    for i in order:
+        try:
+            out.append(ds.read_img(i))
+        except ValueError:
+            out.append(None)
+        except NotImplementedError as e:
+            assert "ROADMAP Queue 1 item 17" in str(e)
+            return out + ["refused"] * (len(order) - len(out))
+    return out
+
+
+def test_an_idr_picture_of_a_generated_pictures_poc_is_refused_where_cv2_drops_it(tmp_path,
+                                                                                    capfd):
+    """ROADMAP Queue 3 item 27: decoding opens at a CRA picture whose RPS
+    names POC 0 (the pictures it names are generated without samples), and
+    an IDR picture (POC 0) follows its RASL pictures.  libavcodec drops the
+    IDR picture and the pictures that follow it up to the next IRAP
+    picture.  At the stream's start cv2's reads then fail from the IDR
+    picture's frame on; after a seek that restarts at the CRA picture cv2
+    counts its frames on past the dropped ones (frame 32 shows frame 36).
+    The port refuses both cases, and reads every frame before the refusal
+    as cv2 does."""
+    styles = ("cra-rasl", "idr-radl", "idr")
+    samples, o = hv.random_stream(48, 32, 14, 1, gop=4, bframes=3, slices=1, styles=styles,
+                                  idr_after_cra=True, start_cra=True)
+    typs = [p["typ"] for p in o["pictures"]]
+    assert typs[:5] == [hv.CRA, hv.RASL_R, hv.RASL_N, hv.RASL_N, hv.IDR_W_RADL]
+    path = _write(tmp_path / "opens-at-the-cra", samples, o, 48, 32, ".mp4")
+    order = list(range(len(samples)))
+    want = _reads(JaxMP4Dataset(path), order)
+    got = _reads_or_refusal(video.MP4Dataset(path), order)
+    assert [w is None for w in want] == [False] * 3 + [True] * (len(order) - 3)
+    assert "refused" in [g for g in got if isinstance(g, str)]
+    for i, a, b in zip(order, got, want):
+        if isinstance(a, str):
+            break
+        np.testing.assert_array_equal(a, b, err_msg=f"frame {i}")
+    # mid-stream: the CRA picture of frame 16, an IDR picture coded after its RASL pictures
+    samples, o = hv.random_stream(48, 32, 56, 10, gop=4, bframes=3, slices=1, styles=styles,
+                                  idr_after_cra=True)
+    typs = [(p["typ"], p["disp"]) for p in o["pictures"]]
+    k = typs.index((hv.CRA, 16))
+    assert typs[k + 4] == (hv.IDR_W_RADL, 20)
+    path = _write(tmp_path / "seek-to-the-cra", samples, o, 48, 32, ".mp4")
+    seq = _reads(JaxMP4Dataset(path), range(37))
+    jax = JaxMP4Dataset(path)
+    jax.read_img(0)
+    assert not np.array_equal(jax.read_img(32), seq[32])  # the seek restarts at the CRA picture
+    ds = video.MP4Dataset(path)
+    np.testing.assert_array_equal(ds.read_img(0), seq[0])
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
+        ds.read_img(32)
+    capfd.readouterr()  # libavcodec logs the duplicate POC

@@ -323,37 +323,56 @@ hevc = dataloader.load_dataset(sys.argv[4])
 hevc_frames = [hevc[i] for i in range(3)]
 mjpeg = dataloader.load_dataset(sys.argv[5])
 mjpeg_frames = [mjpeg[i] for i in range(3)]
+hevc10 = dataloader.load_dataset(sys.argv[6])
+hevc10_frames = [hevc10[i] for i in range(3)]
 print(json.dumps({"attempts": attempts, "folder_frames": len(folder.frame_timestamps),
                   "video_frames": len(video.frame_timestamps),
                   "h264_frames": [f[1].shape for f in h264_frames],
                   "hevc_frames": [f[1].shape for f in hevc_frames],
                   "mjpeg_frames": [f[1].shape for f in mjpeg_frames],
+                  "hevc10_frames": [f[1].shape for f in hevc10_frames],
                   "modules": sorted(
     m.__file__ for n, m in sys.modules.items()
     if n.startswith("mast3r_slam_tpu_torch") and getattr(m, "__file__", None))}))
 """
 
 
+def _run_env() -> dict:
+    """A run's environment: the repository on the path, and two threads a
+    CPU operator, as the test processes take (``test_torch_common``), so
+    that the run does not oversubscribe the CPU the other test processes
+    share."""
+    import os
+
+    return {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "2"}
+
+
 def test_the_cli_path_reaches_no_library_the_card_lacks(tmp_path):
-    """The modules phases 9, 12, 19, 20, 23 and 25 run (a TUM sequence of
+    """The modules phases 9, 12, 19, 20, 23, 25 and 26 run (a TUM sequence of
     PNGs, a folder of JPEGs and a PNG, an MPEG-4 Part 2 video, an H.264 one,
-    an HEVC one, a Motion-JPEG one) import
+    an HEVC one, a Motion-JPEG one, an HEVC Main 10 one) import
     none of cv2, PIL, yaml or matplotlib, on the run (an import hook refuses
-    them) and anywhere in their source."""
+    them) and anywhere in their source.  The host library is built (or
+    waited for, where another test process builds it) before the run, so
+    that the run's own time is the CLI's."""
     import json
     import subprocess
     import sys
+
+    from mast3r_slam_tpu_torch.utils import native
+
+    native.build()
 
     folder = ROOT / "tests" / "data" / "image_folder"
     clip = ROOT / "tests" / "data" / "video_fixtures" / "mp4v_64x48_tex.mp4"
     h264 = ROOT / "tests" / "data" / "video_fixtures" / "h264_64x48_random.avi"
     hevc = ROOT / "tests" / "data" / "video_fixtures" / "hevc_64x48_random.mp4"
     mjpeg = ROOT / "tests" / "data" / "video_fixtures" / "mjpeg_ff_64x48_tex.avi"
+    hevc10 = ROOT / "tests" / "data" / "video_fixtures" / "hevc10_64x48_random.mp4"
     out = subprocess.run([sys.executable, "-c", _NO_CARD_RUN, str(folder), str(clip), str(h264),
-                          str(hevc), str(mjpeg)],
-                         cwd=tmp_path,
-                         env={**__import__("os").environ, "PYTHONPATH": str(ROOT)},
-                         capture_output=True, text=True, timeout=600)
+                          str(hevc), str(mjpeg), str(hevc10)],
+                         cwd=tmp_path, env=_run_env(), capture_output=True, text=True,
+                         timeout=600)
     assert out.returncode == 0, out.stderr[-4000:]
     report = json.loads(out.stdout.strip().splitlines()[-1])
     port = str(ROOT / "mast3r_slam_tpu_torch")
@@ -363,6 +382,7 @@ def test_the_cli_path_reaches_no_library_the_card_lacks(tmp_path):
     assert report["h264_frames"] == [[48, 64, 3]] * 3
     assert report["hevc_frames"] == [[48, 64, 3]] * 3
     assert report["mjpeg_frames"] == [[48, 64, 3]] * 3
+    assert report["hevc10_frames"] == [[48, 64, 3]] * 3
     files = [pathlib.Path(m) for m in report["modules"]]
     assert {f.stem for f in files} >= {"run", "dataloader", "png", "native", "export",
                                        "renderer", "checkpoint", "yaml_subset", "ate",
@@ -460,7 +480,7 @@ def test_the_serving_path_reaches_no_library_the_card_lacks(tmp_path):
         port = sock.getsockname()[1]
     jpeg = ROOT / "tests" / "data" / "serve_frame.jpg"
     out = subprocess.run([sys.executable, "-c", _NO_CARD_SERVE, str(jpeg), str(port)],
-                         cwd=tmp_path, env={**__import__("os").environ, "PYTHONPATH": str(ROOT)},
+                         cwd=tmp_path, env=_run_env(),
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-4000:]
     report = json.loads(out.stdout.strip().splitlines()[-1])

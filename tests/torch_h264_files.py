@@ -2024,10 +2024,10 @@ def random_stream(width: int, height: int, n: int, seed: int, **kw) -> tuple:
 # --- an encoder of real content --------------------------------------------------
 
 
-def smooth_yuv(width: int, height: int, n: int, seed: int, step: int = 4):
+def smooth_yuv(width: int, height: int, n: int, seed: int, step: int = 4, bit_depth: int = 8):
     """(n, H, W) Y and (n, H/2, W/2) U, V planes of a seeded smooth field
     panning ``step`` pixels a frame (a random field at 1/16 of the size,
-    bilinearly upsampled)."""
+    bilinearly upsampled), samples of ``bit_depth`` bits."""
     rng = np.random.default_rng(seed)
     W = width + step * n
     out = []
@@ -2041,7 +2041,7 @@ def smooth_yuv(width: int, height: int, n: int, seed: int, step: int = 4):
         f = (low[y0][:, x0] * (1 - fy) * (1 - fx) + low[y0 + 1][:, x0] * fy * (1 - fx)
              + low[y0][:, x0 + 1] * (1 - fy) * fx + low[y0 + 1][:, x0 + 1] * fy * fx)
         lo_v, hi_v = (30, 220) if c == 0 else (70, 190)
-        field = (lo_v + (hi_v - lo_v) * f).round().astype(np.int64)
+        field = ((lo_v + (hi_v - lo_v) * f) * (1 << (bit_depth - 8))).round().astype(np.int64)
         s = step if c == 0 else step // 2
         wc = width if c == 0 else width // 2
         out.append(np.stack([field[:, i * s:i * s + wc] for i in range(n)]))

@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import pathlib
 import re
+import struct
 
 import numpy as np
 
@@ -136,9 +137,16 @@ def kind_of(unit: bytes) -> int:
     return (unit[0] >> 1) & 63
 
 
-def profile_tier_level(b: Bits, max_sub_layers_minus1: int = 0, level: int = 93) -> None:
-    b.u(1, 8)  # general_profile_space 0, tier 0, profile_idc 1 (Main)
-    b.u(0x60000000, 32)  # general_profile_compatibility_flag[1], [2]
+def profile_of(o: dict) -> int:
+    """general_profile_idc: 1 (Main) at 8 bits, else 2 (Main 10)."""
+    return 1 if max(o.get("bit_depth", 8), o.get("bit_depth_chroma", 8)) == 8 else 2
+
+
+def profile_tier_level(b: Bits, max_sub_layers_minus1: int = 0, level: int = 93,
+                       profile: int = 1) -> None:
+    b.u(profile, 8)  # general_profile_space 0, tier 0, profile_idc
+    # general_profile_compatibility_flag[1] and [2] (Main), [2] (Main 10)
+    b.u(0x60000000 if profile == 1 else 0x20000000, 32)
     b.u(0x9, 4)  # progressive_source, interlaced, non_packed_constraint, frame_only_constraint
     b.u(0, 32)
     b.u(0, 12)
@@ -160,7 +168,7 @@ def vps(o: dict) -> bytes:
     b.u(o["sub_layers"] - 1, 3)
     b.flag(1)
     b.u(0xFFFF, 16)
-    profile_tier_level(b, o["sub_layers"] - 1)
+    profile_tier_level(b, o["sub_layers"] - 1, profile=profile_of(o))
     b.flag(0)
     b.ue(o["dpb"] - 1)
     b.ue(o["reorder"])
@@ -241,7 +249,7 @@ def sps(o: dict) -> bytes:
     b.u(0, 4)
     b.u(o["sub_layers"] - 1, 3)
     b.flag(1)
-    profile_tier_level(b, o["sub_layers"] - 1)
+    profile_tier_level(b, o["sub_layers"] - 1, profile=profile_of(o))
     b.ue(o.get("sps_id", 0))
     b.ue(o.get("chroma_format", 1))
     if o.get("chroma_format", 1) == 3:
@@ -254,7 +262,7 @@ def sps(o: dict) -> bytes:
         for v in crop:
             b.ue(v // 2)
     b.ue(o.get("bit_depth", 8) - 8)
-    b.ue(o.get("bit_depth", 8) - 8)
+    b.ue(o.get("bit_depth_chroma", o.get("bit_depth", 8)) - 8)
     b.ue(o["log2_max_poc_lsb"] - 4)
     b.flag(1)  # sps_sub_layer_ordering_info_present_flag
     for _ in range(o["sub_layers"]):
@@ -304,7 +312,11 @@ def sps(o: dict) -> bytes:
                 b.u(vui.get("prim", 2), 8)
                 b.u(vui.get("trc", 2), 8)
                 b.u(vui["matrix"], 8)
-        b.flag(0)  # chroma_loc_info
+        loc = vui.get("chroma_loc")  # chroma_sample_loc_type_top_field, _bottom_field
+        b.flag(loc is not None)
+        if loc is not None:
+            b.ue(loc[0])
+            b.ue(loc[1])
         b.flag(0)  # neutral_chroma_indication_flag
         b.flag(0)  # field_seq_flag
         b.flag(0)  # frame_field_info_present_flag
@@ -399,10 +411,43 @@ def pps(o: dict, p: dict) -> bytes:
     return nal(PPS, b.rbsp())
 
 
+def _sps_depths(unit: bytes) -> tuple:
+    """(general_profile_idc, BitDepthY, BitDepthC) of an SPS NAL unit
+    (single-layer, as ``sps`` writes it)."""
+    raw = bytes(unit[2:]).replace(b"\x00\x00\x03", b"\x00\x00")
+    bits = "".join(f"{v:08b}" for v in raw)
+    assert not (raw[0] >> 1) & 7, "sub-layers in the SPS"
+    at = 8 + 96  # after the first byte and profile_tier_level's general part
+
+    def ue():
+        nonlocal at
+        z = bits.index("1", at) - at
+        v = int(bits[at + z:at + 2 * z + 1], 2) - 1
+        at += 2 * z + 1
+        return v
+    ue()  # sps_seq_parameter_set_id
+    chroma = ue()
+    at += chroma == 3
+    ue()
+    ue()
+    if bits[at] == "1":
+        at += 1
+        for _ in range(4):
+            ue()
+    else:
+        at += 1
+    return raw[1] & 31, ue() + 8, ue() + 8
+
+
 def hvcc(ps: list, length_size: int = 4) -> bytes:
-    """The ``hvcC`` box (ISO/IEC 14496-15 8.3.3.1) of the parameter sets ``ps``."""
-    body = bytes([1, 0x01]) + (0x60000000).to_bytes(4, "big") + bytes([0x90, 0, 0, 0, 0, 0, 93])
-    body += bytes([0xF0, 0x00, 0xFC, 0xFD, 0xF8, 0xF8, 0, 0, 0x0C | (length_size - 1)])
+    """The ``hvcC`` box (ISO/IEC 14496-15 8.3.3.1) of the parameter sets
+    ``ps``, its profile and bit depths those of the first SPS."""
+    sps_units = [u for u in ps if kind_of(u) == SPS]
+    profile, depth_y, depth_c = _sps_depths(sps_units[0]) if sps_units else (1, 8, 8)
+    compat = 0x60000000 if profile == 1 else 0x20000000
+    body = bytes([1, profile]) + compat.to_bytes(4, "big") + bytes([0x90, 0, 0, 0, 0, 0, 93])
+    body += bytes([0xF0, 0x00, 0xFC, 0xFD, 0xF8 | (depth_y - 8), 0xF8 | (depth_c - 8), 0, 0,
+                   0x0C | (length_size - 1)])
     arrays = [(k, [u for u in ps if kind_of(u) == k]) for k in (VPS, SPS, PPS)]
     arrays = [(k, us) for k, us in arrays if us]
     body += bytes([len(arrays)])
@@ -427,14 +472,29 @@ class _Mp4Codec:
         return hvcc(ps, length_size)
 
 
-def write_mp4(path, samples, width: int, height: int, fps: int = 30, **kw) -> None:
+class _ColrCodec(_Mp4Codec):
+    """``_Mp4Codec`` with a ``colr`` box of type ``nclx`` after ``hvcC``."""
+
+    def __init__(self, colr):
+        self.colr = colr
+
+    def config(self, ps, length_size: int) -> bytes:
+        prim, trc, matrix, full = self.colr
+        return hvcc(ps, length_size) + hf._box(b"colr", b"nclx" + struct.pack(
+            ">HHHB", prim, trc, matrix, 0x80 if full else 0))
+
+
+def write_mp4(path, samples, width: int, height: int, fps: int = 30, colr=None, **kw) -> None:
     """An ISO BMFF file of one HEVC track (``torch_h264_files.write_mp4``'s
     options): ``fourcc`` b"hvc1" (the parameter sets of the first sample in
     ``hvcC`` only) or b"hev1" with ``config_in_band`` (kept in band too);
     ``display`` (``options["display"]`` of a B stream) each sample's display
-    index, for FFmpeg's ``ctts`` and edit."""
+    index, for FFmpeg's ``ctts`` and edit; ``colr`` (primaries, transfer,
+    matrix, full range) a ``colr`` box of type ``nclx`` in the sample entry,
+    as phones write one beside the VUI."""
     kw.setdefault("fourcc", b"hvc1")
-    hf.write_mp4(path, samples, width, height, fps, codec=_Mp4Codec, **kw)
+    hf.write_mp4(path, samples, width, height, fps,
+                 codec=_Mp4Codec if colr is None else _ColrCodec(colr), **kw)
 
 
 def write_avi(path, samples, width: int, height: int, fps: int = 30,
@@ -471,6 +531,16 @@ class HevcCabac(hf.CabacEncoder):
 
     def load(self, st: tuple) -> None:
         self.p, self.mps = list(st[0]), list(st[1])
+
+
+def qp_offset(o: dict) -> int:
+    """QpBdOffset of the stream's bit depth."""
+    return 6 * (o.get("bit_depth", 8) - 8)
+
+
+def sao_offset_max(o: dict) -> int:
+    """sao_offset_abs's cMax: 7 at 8 bits, 15 at 9, 31 at 10."""
+    return (1 << (min(o.get("bit_depth", 8), 10) - 5)) - 1
 
 
 def _zscan_in_ctb(x4: int, y4: int) -> int:
@@ -662,10 +732,11 @@ class SliceWriter:
                     self.byp(kind == 2)
             if not kind:
                 continue
+            cmax = sao_offset_max(self.o)
             for v in offs:
-                for k in range(min(abs(v), 7)):
+                for k in range(min(abs(v), cmax)):
                     self.byp(1)
-                if abs(v) < 7:
+                if abs(v) < cmax:
                     self.byp(0)
             if kind == 1:
                 for v in offs:
@@ -1071,7 +1142,8 @@ class RandomChooser:
         out = []
         for c in range(3):
             kind = int(rng.choice(self.o.get("sao_kinds", [0, 1, 2]))) if c < 2 else out[1][0]
-            offs = [int(rng.integers(0, 8)) * (1 if rng.random() < 0.5 else -1) for _ in range(4)]
+            offs = [int(rng.integers(0, sao_offset_max(self.o) + 1)) * (1 if rng.random() < 0.5 else -1)
+                    for _ in range(4)]
             eo = int(rng.choice(self.o.get("eo_classes", [0, 1, 2, 3]))) if c < 2 else out[1][3]
             out.append((kind, offs, int(rng.integers(0, 32)), eo))
         return out
@@ -1145,10 +1217,10 @@ class RandomChooser:
             return self.rng.random() < self.o["p_cbf"]
         return self.rng.random() < (0.6 if c == 0 else 0.45)
 
-    def qp_delta(self) -> int:
-        r = self.rng.random()
+    def qp_delta(self) -> int:  # CuQpDeltaVal, -(26 + QpBdOffset / 2) to 25 + QpBdOffset / 2
+        r, half = self.rng.random(), qp_offset(self.o) // 2
         return 0 if r < 0.3 else int(self.rng.integers(-3, 4)) if r < 0.8 else \
-            int(self.rng.integers(-26, 26))
+            int(self.rng.integers(-26 - half, 26 + half))
 
     def levels(self, x0, y0, log2, c):
         lv = _levels(self.rng, 1 << log2, self.o.get("big", 0.1))
@@ -1191,6 +1263,8 @@ def options(width: int, height: int, seed: int = 0, **kw) -> dict:
              header_ext=bool(rng.random() < 0.2))
     if p["cu_qp_delta"]:
         p["qg_depth"] = int(rng.integers(0, o["log2_ctb"] - o["log2_min_cb"] + 1))
+    if qp_offset(o):  # QPs below 0 too, down to -QpBdOffset
+        p["init_qp"] = int(rng.integers(-qp_offset(o), 38))
     p.update(kw.get("pps", {}))
     o["pps"] = p
     o["rps_sets"] = kw.get("rps_sets", _sps_sets(o, rng))
@@ -1349,7 +1423,7 @@ class StreamWriter:
         if sl["type"] == "P" and pl.get("b"):  # a B picture's slice: B, or by chance P
             # (not where the collocated picture is list 1's: every slice names the same one)
             sl["type"] = "P" if pl["col_l0"] and rng.random() < o.get("p_in_b", 0.15) else "B"
-        sl["qp"] = int(rng.integers(max(p["init_qp"] - 12, 0), min(p["init_qp"] + 12, 51) + 1))
+        sl["qp"] = int(rng.integers(max(p["init_qp"] - 12, -qp_offset(o)), min(p["init_qp"] + 12, 51) + 1))
         sl["sao_luma"] = o["sao"] and rng.random() < 0.7
         sl["sao_chroma"] = o["sao"] and rng.random() < 0.7
         sl["cabac_init"] = p["cabac_init_present"] and rng.random() < 0.5
@@ -1538,7 +1612,8 @@ IRAP_STYLES = {"idr": (IDR_N_LP, None), "idr-radl": (IDR_W_RADL, "RADL"),
 
 
 def b_schedule(n: int, gop: int, bframes: int, rng, pyramid: bool = True, styles=("idr",),
-               max_ref: int = 2, b_ref: float = 0.2, poc_step: int = 1) -> list:
+               max_ref: int = 2, b_ref: float = 0.2, poc_step: int = 1,
+               idr_after_cra: bool = False) -> list:
     """``n`` pictures in decoding order as x265 orders them: anchors (I or P)
     ``bframes`` + 1 apart in display order, an IRAP picture every ``gop``,
     each anchor followed by the B pictures before it in display order (with
@@ -1576,9 +1651,11 @@ def b_schedule(n: int, gop: int, bframes: int, rng, pyramid: bool = True, styles
         lead, typ = None, None
         if a in irap_at:
             style = styles[int(rng.integers(0, len(styles)))]
-            if style.startswith("idr") and anchor_typ in (CRA, BLA_W_LP, BLA_W_RADL, BLA_N_LP):
+            if style.startswith("idr") and anchor_typ in (CRA, BLA_W_LP, BLA_W_RADL, BLA_N_LP) \
+                    and not idr_after_cra:
                 # libavcodec, decoding from that CRA or BLA picture, would drop an
                 # IDR picture whose POC equals a picture its RPS generated
+                # (``idr_after_cra`` keeps the IDR picture: ROADMAP Queue 3 item 27)
                 style = "cra-radl"
             typ, lead = IRAP_STYLES[style]
             if lead is None and between:  # the pictures between, behind a P anchor before it
@@ -1715,9 +1792,11 @@ def _random_b_stream(width, height, n, seed, gop, inband, extra, hidden, no_prio
     styles = kw.pop("styles", ("idr", "cra-rasl"))
     b_ref = kw.pop("b_ref", 0.2)
     start_cra = kw.pop("start_cra", False)
+    idr_after_cra = kw.pop("idr_after_cra", False)
     kw.setdefault("log2_max_poc_lsb", int(rng.choice([5, 6, 8])))
     o = options(width, height, seed, **kw, pps=pps_kw)
-    pics = b_schedule(n, gop, o["bframes"], rng, pyramid, styles, o["max_ref"], b_ref, o["poc_step"])
+    pics = b_schedule(n, gop, o["bframes"], rng, pyramid, styles, o["max_ref"], b_ref, o["poc_step"],
+                      idr_after_cra)
     reorder, dpb = schedule_limits(pics)
     o["reorder"] = max(reorder, kw.get("reorder", 0))
     o["dpb"] = max(dpb, kw.get("dpb", 0), o["reorder"] + 1)
@@ -1779,11 +1858,11 @@ def _smooth_options(width, height, seed, qp, **kw) -> dict:
 def _smooth_b_stream(width, height, n, seed, step, qp, gop, bframes, **kw) -> tuple:
     styles = kw.pop("styles", ("cra-rasl",))
     o = _smooth_options(width, height, seed, qp, **kw)
-    src = hf.smooth_yuv(o["width"], o["height"], n, seed, step)
+    src = hf.smooth_yuv(o["width"], o["height"], n, seed, step, o.get("bit_depth", 8))
     pics = b_schedule(n, gop, bframes, np.random.default_rng(seed), True, styles, 1, 0.0, 1)
     o["reorder"], o["dpb"] = schedule_limits(pics)
     w = StreamWriter(o, seed)
-    enc = SmoothEncoder()
+    enc = SmoothEncoder(o.get("bit_depth", 8))
     recs = {}  # display index -> the decoder's reconstruction
     disp_of = {}  # POC -> display index, by the schedule
     samples = []
@@ -1839,25 +1918,26 @@ def chroma_qp(qp: int) -> int:
         [29, 30, 31, 32, 33, 33, 34, 34, 35, 35, 36, 36, 37, 37][qp - 30]
 
 
-def dequantise(levels: np.ndarray, qp: int, log2: int) -> np.ndarray:
-    shift = 8 + log2 - 5
+def dequantise(levels: np.ndarray, qp: int, log2: int, bd: int = 8) -> np.ndarray:
+    """Scaled coefficients of ``levels`` at Qp' ``qp`` (QpBdOffset included)."""
+    shift = bd + log2 - 5
     d = (levels * 16 * (_LEVEL_SCALE[qp % 6] << (qp // 6)) + (1 << (shift - 1))) >> shift
     return np.clip(d, -32768, 32767)
 
 
-def inverse_transform(d: np.ndarray, log2: int) -> np.ndarray:
+def inverse_transform(d: np.ndarray, log2: int, bd: int = 8) -> np.ndarray:
     """The decoder's residual of dequantised coefficients ``d`` [y, x]."""
     t = dct_matrix(1 << log2)
     g = np.clip((t.T @ d + 64) >> 7, -32768, 32767)
-    return np.clip((g @ t + 2048) >> 12, -32768, 32767)
+    return np.clip((g @ t + (1 << (19 - bd))) >> (20 - bd), -32768, 32767)
 
 
-def quantise(res: np.ndarray, qp: int, log2: int) -> np.ndarray:
+def quantise(res: np.ndarray, qp: int, log2: int, bd: int = 8) -> np.ndarray:
     """Levels whose dequantised inverse transform approximates ``res``."""
     n = 1 << log2
     t = dct_matrix(n).astype(np.float64)
-    d = (t @ res @ t.T) * (2.0 ** 19) / (4096.0 * n) ** 2
-    f = 16 * (_LEVEL_SCALE[qp % 6] << (qp // 6)) / 2.0 ** (8 + log2 - 5)
+    d = (t @ res @ t.T) * (2.0 ** (27 - bd)) / (4096.0 * n) ** 2
+    f = 16 * (_LEVEL_SCALE[qp % 6] << (qp // 6)) / 2.0 ** (bd + log2 - 5)
     x = d / f
     return (np.sign(x) * np.floor(np.abs(x) + 0.4)).astype(np.int64)
 
@@ -1890,20 +1970,21 @@ class SmoothChooser:
     def _code(self, pred: list, x0: int, y0: int, log2: int) -> bool:
         """Residuals of the CU's three blocks against ``pred``; whether any level is left."""
         enc, any_ = self.enc, False
+        bd, off = enc.bd, 6 * (enc.bd - 8)
         self.levels_of = {}
         for c in range(3):
             s = 0 if c == 0 else 1
             xc, yc, lc = x0 >> s, y0 >> s, log2 - s
             n = 1 << lc
-            qp = self.qp if c == 0 else chroma_qp(self.qp)
+            qp = (self.qp if c == 0 else chroma_qp(max(self.qp, -off))) + off  # Qp'
             src = self.frame[c][yc:yc + n, xc:xc + n].astype(np.int64)
-            lv = quantise((src - pred[c]).astype(np.float64), qp, lc)
+            lv = quantise((src - pred[c]).astype(np.float64), qp, lc, bd)
             rec = pred[c]
             if lv.any():
-                rec = pred[c] + inverse_transform(dequantise(lv, qp, lc), lc)
+                rec = pred[c] + inverse_transform(dequantise(lv, qp, lc, bd), lc, bd)
                 any_ = True
                 self.levels_of[c] = lv
-            enc.rec[c][yc:yc + n, xc:xc + n] = np.clip(rec, 0, 255)
+            enc.rec[c][yc:yc + n, xc:xc + n] = np.clip(rec, 0, (1 << bd) - 1)
         return any_
 
     def cu(self, x0, y0, log2, depth, w) -> dict:
@@ -1944,7 +2025,8 @@ class SmoothEncoder:
     """The reconstruction the decoder makes of a smooth stream, and the
     predictions its choices read."""
 
-    def __init__(self):
+    def __init__(self, bd: int = 8):
+        self.bd = bd
         self.rec = None
         self.ref = self.ref1 = None  # the pictures lists 0 and 1 start with
 
@@ -1957,7 +2039,7 @@ class SmoothEncoder:
         top = p[y0 - 1, x0:x0 + n].astype(np.int64) if y0 else None
         left = p[y0:y0 + n, x0 - 1].astype(np.int64) if x0 else None
         if top is None and left is None:
-            top = left = np.full(n, 128, np.int64)
+            top = left = np.full(n, 1 << (self.bd - 1), np.int64)
         elif top is None:
             top = np.full(n, left[0], np.int64)
         elif left is None:
@@ -2000,9 +2082,9 @@ def smooth_stream(width: int, height: int, n: int, seed: int, step: int = 4, qp:
     if bframes:
         return _smooth_b_stream(width, height, n, seed, step, qp, gop, bframes, **kw)
     o = _smooth_options(width, height, seed, qp, **kw)
-    src = hf.smooth_yuv(o["width"], o["height"], n, seed, step)
+    src = hf.smooth_yuv(o["width"], o["height"], n, seed, step, o.get("bit_depth", 8))
     w = StreamWriter(o, seed)
-    enc = SmoothEncoder()
+    enc = SmoothEncoder(o.get("bit_depth", 8))
     mv = (4 * step, 0)
     samples = []
     for k in range(n):
@@ -2019,4 +2101,84 @@ def smooth_stream(width: int, height: int, n: int, seed: int, step: int = 4, qp:
         units += w.picture(kind, chooser, nal_type=IDR_W_RADL)
         samples.append(units)
         enc.ref = enc.rec
+    return samples, o
+
+
+class _NoResidualChooser(SmoothChooser):
+    """``SmoothChooser``'s inter CUs at its vectors (half samples allowed),
+    coded without residual: the picture is the prediction alone.  In an I
+    picture the luma block at ``spike`` takes levels whose residual
+    saturates 16 bits at its top-left sample (every coefficient at the
+    largest dequantised value, signed as the transform's first column)."""
+
+    spike = None
+
+    def _code(self, pred, x0, y0, log2) -> bool:
+        if self.sl["type"] == "I":
+            coded = super()._code(pred, x0, y0, log2)
+            if (x0, y0) == self.spike:
+                bd = self.enc.bd
+                qp = self.qp + 6 * (bd - 8)
+                step = 16 * (_LEVEL_SCALE[qp % 6] << (qp // 6)) / 2.0 ** (bd + log2 - 5)
+                sign = np.sign(dct_matrix(1 << log2)[:, 0])
+                self.levels_of[0] = (np.outer(sign, sign) * -(-32768 // step)).astype(np.int64)
+                coded = True
+            return coded
+        self.levels_of = {}
+        return False
+
+    def cu(self, x0, y0, log2, depth, w) -> dict:
+        if self.sl["type"] != "I" and self.first:
+            return self._first_pu()
+        return super().cu(x0, y0, log2, depth, w)
+
+    def _first_pu(self) -> dict:
+        self.first = False
+        pu = {"merge": False, "ref": 0, "mvd": list(self.mv), "mvp": 0}
+        if self.sl["type"] == "B":
+            pu.update(dir=PRED_BI, ref1=0, mvd1=list(self.mv1), mvp1=0)
+        return {"skip": False, "intra": False, "part": PART_2Nx2N, "root_cbf": False, "pus": [pu]}
+
+
+def extreme_stream(width: int, height: int, bit_depth: int = 10, qp: int = 12) -> tuple:
+    """(samples, options): the predictions at the edges of 16 bits.  An IDR
+    picture of 0 and the largest sample in the 8x8 pattern where the 8-tap
+    half-sample filter peaks both ways (``a(x) == a(y)``, a = 01011010),
+    coded from targets past the range so that the reconstruction clips to
+    it exactly, but for its last 32x32 block, whose residual saturates 16
+    bits (libavcodec's 10-bit SIMD code wraps the sum with the prediction
+    in 16 bits, its C code clips it); then a
+    B picture bi-predicted from it at half-sample vectors (2, 2) and
+    (2, 18), the first past 16 bits before its shift (libavcodec's SIMD
+    code saturates it at 8 and 10 bits, its C code wraps it at 9), the
+    second four rows on (the pattern's complement), without residual."""
+    top = (1 << bit_depth) - 1
+    o = _smooth_options(width, height, 0, qp, log2_ctb=5, log2_max_tb=5, bit_depth=bit_depth)
+    a = np.array([0, 1, 0, 1, 1, 0, 1, 0])
+
+    def plane(h, w):
+        on = a[np.arange(h)[:, None] % 8] == a[np.arange(w)[None, :] % 8]
+        return np.where(on, top + top // 4, -(top // 4)).astype(np.int64)
+    frame = [plane(o["height"], o["width"]), plane(o["height"] // 2, o["width"] // 2),
+             plane(o["height"] // 2, o["width"] // 2)]
+    pics = [dict(disp=0, kind="I", typ=IDR_W_RADL, poc=0, used=[], keep=[]),
+            dict(disp=1, kind="B", typ=TRAIL_R, poc=1, used=[0], keep=[0])]
+    o["reorder"], o["dpb"] = 0, 2
+    w = StreamWriter(o, 0)
+    enc = SmoothEncoder(bit_depth)
+    enc.rec = [np.zeros_like(p) for p in frame]
+    samples = []
+    for k, pic in enumerate(pics):
+        w.rng = np.random.default_rng(k)
+
+        def chooser(sl, kind=pic["kind"]):
+            sl.update(qp=qp, sao_luma=False, sao_chroma=False, max_merge=5, dbk=None, cqp=[0, 0],
+                      lf_coded=False, cabac_init=False, num_ref=1, num_ref1=1, mvd_l1_zero=False,
+                      type=kind)
+            ch = _NoResidualChooser(enc, sl, frame, (2, 2), (2, 18))
+            ch.spike = (o["width"] - 32, o["height"] - 32)  # the last CU: nothing reads it later
+            return ch
+        samples.append((w.parameter_sets() if k == 0 else []) + w.coded_picture(pic, chooser))
+        enc.ref = enc.ref1 = enc.rec
+    o["display"] = [0, 1]
     return samples, o
